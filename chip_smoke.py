@@ -3,7 +3,7 @@
 card: build its kernel, hold the kernel against its plain PyTorch version,
 drive the main path at full size, and check what comes out.
 
-    python3 chip_smoke.py [--seed N] [--series N] [--samples N]
+    python3 chip_smoke.py [--seed N]
 
 Phases (any failure raises and exits non-zero):
 
@@ -20,7 +20,10 @@ Phases (any failure raises and exits non-zero):
    must match the same superblock run through the plain window stats,
    finish and segment aggregate (rtol 1e-3: index_add_ atomics reorder the
    f32 sums; NaN masks equal). Prints the superblock's shape and bytes and
-   the kernel's time (median of 20 after warm-up) beside its bound.
+   the kernel's time (median of 20 after warm-up) beside its bound: the
+   bytes the query needs (each real sample's ts, value and raw value read
+   once, the nine planes written once at [series, steps]), with the padded
+   bound (the nine planes at the kernel's padded [S, J]) beside it.
 
 Prints, in order at the end: one JSON object with the kernel's numbers, the
 card's name and power limit as nvidia-smi gives them, and the result line
@@ -43,6 +46,8 @@ N_SHARDS = 8
 SPREAD = 3
 STEP_S = 60.0
 WINDOW_MS = 300_000
+N_SERIES = 100_000
+N_SAMPLES = 720
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 QUERIES = (
     "sum(rate(http_requests_total[5m]))",
@@ -207,7 +212,7 @@ def plain_path(entry, exec_plan, ctx):
     return AGG.apply_epilogue(sj, ("agg", exec_plan.op), gids, G)[:, : exec_plan.num_steps()]
 
 
-def phase_main_path(args, device) -> dict:
+def phase_main_path(seed: int, device) -> dict:
     import torch
 
     from filodb_tpu_torch.coordinator.planner import QueryEngine
@@ -216,11 +221,11 @@ def phase_main_path(args, device) -> dict:
     from filodb_tpu_torch.query.promql import query_range_to_logical_plan
 
     t0 = time.perf_counter()
-    ms = build_memstore(args.series, args.samples, args.seed)
-    print(f"phase3 ingest: {args.series} series x {args.samples} samples on {N_SHARDS} shards "
+    ms = build_memstore(N_SERIES, N_SAMPLES, seed)
+    print(f"phase3 ingest: {N_SERIES} series x {N_SAMPLES} samples on {N_SHARDS} shards "
           f"in {time.perf_counter() - t0:.1f} s")
     start_s = (BASE + 400_000) / 1000
-    end_s = (BASE + args.samples * 10_000 - 200_000) / 1000
+    end_s = (BASE + N_SAMPLES * 10_000 - 200_000) / 1000
     engine = QueryEngine(ms, "prometheus")
     require(engine.device == device, f"the engine runs on {engine.device}, not {device}")
 
@@ -271,14 +276,19 @@ def phase_main_path(args, device) -> dict:
         require(not bool(bad.any()), f"{q}: {int(bad.sum())} of [G, J] differ from plain by > 1e-3")
         print(f"phase3 {q!r}: [G, J] matches the plain path (rtol 1e-3)")
         if kernel_row is None:
-            kernel_row = time_kernel(entry.block, ex, j_pad=pad_steps(ex.num_steps()))
+            kernel_row = time_kernel(entry.block, len(entry.labels), ex,
+                                     j_pad=pad_steps(ex.num_steps()))
     kernel_row["launches"] = launches
     return kernel_row
 
 
-def time_kernel(block, ex, j_pad: int) -> dict:
+def time_kernel(block, n_series: int, ex, j_pad: int) -> dict:
     """Kernel vs plain at the main path's shape, with the kernel's time and
-    its bound (bytes each input needs read once + outputs written once)."""
+    its bound: the bytes the query needs, each real sample's ts, value and
+    raw value and each series' length read once, and the nine planes
+    written once at [n_series, num_steps]. The padded rows and steps the
+    kernel also writes (sliced off or sent to the trash group after) are
+    printed as a second, padded bound."""
     from filodb_tpu_torch.ops import window_stats as WS
 
     S, T = block.ts.shape
@@ -288,14 +298,21 @@ def time_kernel(block, ex, j_pad: int) -> dict:
     err = compare_stats(WS.window_stats(*args), WS.window_stats_plain(*args))
     k_ms = cuda_ms(lambda: WS.window_stats(*args), reps=20)
     p_ms = cuda_ms(lambda: WS.window_stats_plain(*args), reps=3, warmup=1)
+    J = ex.num_steps()
     real = int(block.lens.sum())
-    need_bytes = real * 12 + S * 4 + 9 * S * j_pad * 4  # ts+vals+raw per sample, lens, planes
+    in_bytes = real * 12 + n_series * 4  # ts+vals+raw per real sample, lens per series
+    need_bytes = in_bytes + 9 * n_series * J * 4
+    padded_bytes = in_bytes + 9 * S * j_pad * 4
     block_bytes = 3 * S * T * 4 + S * 4
     bound_ms = need_bytes / HBM_BYTES_PER_S * 1e3
-    print(f"phase3 superblock [{S}, {T}] ({real} real samples), {block_bytes} bytes staged "
-          f"(ts+vals+raw+lens); stats planes 9 x [{S}, {j_pad}] f32 = {9 * S * j_pad * 4} bytes")
+    padded_ms = padded_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"phase3 superblock [{S}, {T}] for {n_series} series ({real} real samples), "
+          f"{block_bytes} bytes staged (ts+vals+raw+lens); stats planes 9 x [{S}, {j_pad}] f32 "
+          f"= {9 * S * j_pad * 4} bytes written, of which 9 x [{n_series}, {J}] needed")
     print(f"phase3 window_stats kernel: {k_ms:.4f} ms (median of 20), plain {p_ms:.2f} ms, "
-          f"bound {bound_ms:.4f} ms ({need_bytes} bytes at 3.35 TB/s), "
+          f"bound {bound_ms:.4f} ms ({need_bytes} bytes at 3.35 TB/s; padded bound "
+          f"{padded_ms:.4f} ms, {padded_bytes} bytes, padding "
+          f"{(padded_bytes - need_bytes) / padded_bytes:.1%} of them), "
           f"max_abs_err vs plain {err:.3g}")
     return {
         "name": "window_stats",
@@ -315,8 +332,6 @@ def time_kernel(block, ex, j_pad: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--series", type=int, default=100_000)
-    ap.add_argument("--samples", type=int, default=720)
     args = ap.parse_args()
 
     import torch
@@ -337,7 +352,7 @@ def main() -> int:
     print(f"phase1 card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     phase_kernel_vs_plain(args.seed, device)
-    row = phase_main_path(args, device)
+    row = phase_main_path(args.seed, device)
 
     print(json.dumps({"kernels": [row]}))
     print(card)

@@ -44,7 +44,6 @@ LAUNCHES = 0
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "window_stats.cu"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 _lib = None
-_build_log = ""
 
 
 def _nvcc() -> str:
@@ -60,11 +59,11 @@ def _nvcc() -> str:
 def build() -> Path:
     """Compile ``csrc/window_stats.cu`` for sm_90a into a shared library
     named by the source's hash (rebuilt only when the source changes).
-    Returns its path; ``build_log()`` holds nvcc's ptxas report."""
-    global _build_log
+    Returns its path; nvcc's ptxas report is kept beside it, in the ``.log``
+    of the same name, which ``build_log()`` reads."""
     src = _SOURCE.read_bytes()
     out = _BUILD_DIR / f"window_stats-{hashlib.sha256(src).hexdigest()[:12]}.so"
-    if out.exists():
+    if out.exists() and out.with_suffix(".log").exists():
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
@@ -77,7 +76,7 @@ def build() -> Path:
         )
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-        _build_log = proc.stdout + proc.stderr
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -86,7 +85,8 @@ def build() -> Path:
 
 
 def build_log() -> str:
-    return _build_log
+    """nvcc's output (the ptxas report) from the build of the current source."""
+    return build().with_suffix(".log").read_text()
 
 
 def _load():
