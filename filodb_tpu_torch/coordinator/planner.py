@@ -17,14 +17,17 @@ import torch
 
 from ..core.schemas import DatasetOptions, METRIC_TAG, PROM_METRIC_TAG, shard_group, shardkey_hash
 from ..memstore.index import _LITERAL_ALT
+from ..ops.mxu_kernels import FUSED_MXU_FUNCS
 from ..ops.window_stats import PALLAS_FUNCS
 from ..query import logical as L
 from ..query.exec.plans import FUSED_AGG_OPS, ExecPlan, FusedAggregateExec, QueryContext
 from ..query.promql import query_range_to_logical_plan, query_to_logical_plan
 
-# the port's range functions: those the window-stats finisher models, less
-# absent_over_time, which the JAX package's fused path leaves out too
-FUSED_FUNCS = frozenset(PALLAS_FUNCS - {"absent_over_time"})
+# the port's range functions: those the window-stats finisher or the regular
+# rung models, less absent_over_time, which the JAX package's fused path
+# leaves out too. irate, idelta, stddev/stdvar_over_time and z_score run on
+# regular grids only: elsewhere they need the general kernel (B4) and raise.
+FUSED_FUNCS = frozenset((PALLAS_FUNCS | FUSED_MXU_FUNCS) - {"absent_over_time"})
 
 
 @dataclass

@@ -24,9 +24,13 @@
 // Semantics kept from the TPU kernel: time math in int32 with wrap-around,
 // first/last timestamps selected as int32 and cast to f32 at the store,
 // NaN values confined to the windows that hold them (per-window
-// accumulation), and the empty-window sentinels below. First/last are
-// picked by index, which agrees with the TPU kernel's pick-by-timestamp for
-// strictly increasing timestamps.
+// accumulation), and the empty-window sentinels below. First/last values
+// follow the TPU kernel's pick-by-timestamp: v_first and raw_first sum every
+// in-window value whose timestamp equals the window's first timestamp, and
+// v_last every one equal to its last. Rows are sorted, so the ties are a
+// run at each end of [lo, hi): a scan forward from lo and back from hi-1
+// that stops at the first other timestamp (one extra compare for strictly
+// increasing rows, which is what staging from the memstore gives).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,16 +93,28 @@ __global__ void window_stats_kernel(
         mn = (isnan(v) || v < mn) ? v : mn;
         mx = (isnan(v) || v > mx) ? v : mx;
     }
-    bool has = hi > lo;
+    int32_t t_first = IMAX, t_last = IMIN;
+    float vf = 0.0f, vl = 0.0f, rf = 0.0f;
+    if (hi > lo) {
+        t_first = __ldg(row_t + lo);
+        t_last = __ldg(row_t + hi - 1);
+        for (int k = lo; k < hi && __ldg(row_t + k) == t_first; ++k) {
+            vf += __ldg(row_v + k);
+            rf += __ldg(row_r + k);
+        }
+        int kb = hi - 1;  // start of the run tied at the last timestamp
+        while (kb > lo && __ldg(row_t + kb - 1) == t_last) --kb;
+        for (int k = kb; k < hi; ++k) vl += __ldg(row_v + k);
+    }
     cnt_o[idx] = (float)(hi - lo);
     sum_o[idx] = sum;
     min_o[idx] = mn;
     max_o[idx] = mx;
-    tf_o[idx] = (float)(has ? __ldg(row_t + lo) : IMAX);
-    tl_o[idx] = (float)(has ? __ldg(row_t + hi - 1) : IMIN);
-    vf_o[idx] = has ? __ldg(row_v + lo) : 0.0f;
-    vl_o[idx] = has ? __ldg(row_v + hi - 1) : 0.0f;
-    rf_o[idx] = has ? __ldg(row_r + lo) : 0.0f;
+    tf_o[idx] = (float)t_first;
+    tl_o[idx] = (float)t_last;
+    vf_o[idx] = vf;
+    vl_o[idx] = vl;
+    rf_o[idx] = rf;
 }
 
 }  // namespace

@@ -14,13 +14,28 @@ import numpy as np
 import torch
 
 from ..core.schemas import METRIC_TAG
+from . import mxu_kernels as MK
 from . import window_stats as WS
 from .kernels import pad_steps
+from .staging import grid_class
 
 SIMPLE_AGG_OPS = ("sum", "count", "avg", "min", "max")
 
-# the one kernel variant of the fused path: every grid class takes it
-FUSED_VARIANT = "window_stats"
+
+def grid_variant(block, func: str, is_delta: bool = False) -> str:
+    """Kernel-variant ladder for one fused dispatch, from the block's grid
+    class and the function (the JAX package's ``_grid_variant`` and
+    ``_pallas_variant``): ``mxu`` (exact shared grid: the regular kernel)
+    for ``FUSED_MXU_FUNCS``, else ``window_stats`` for ``PALLAS_FUNCS``.
+    Anything else needs the general kernel (B4), which is not ported."""
+    if (block.regular_ts is not None and func in MK.FUSED_MXU_FUNCS
+            and not (is_delta and func in ("irate", "idelta"))):
+        return "mxu"
+    if func in WS.PALLAS_FUNCS:
+        return "window_stats"
+    raise NotImplementedError(
+        f"range function {func!r} on a {grid_class(block)} grid needs the general "
+        "range kernel (B4), which is not ported")
 
 
 def segment_aggregate(op: str, values: torch.Tensor, group_ids: torch.Tensor,
@@ -60,13 +75,19 @@ def apply_epilogue(sj: torch.Tensor, epilogue: tuple, gids: torch.Tensor,
 
 def fused_range_aggregate(func: str, op: str, block, gids_padded: torch.Tensor,
                           num_groups: int, params, is_counter: bool = False,
-                          is_delta: bool = False) -> torch.Tensor:
+                          is_delta: bool = False, obs: dict | None = None) -> torch.Tensor:
     """``op by (...) (func(selector[w]))`` over a staged (super)block on
-    the device: window stats -> finish -> slice to the block's padding ->
-    segment aggregate. Returns the [G, J_pad] group partials on the device
-    (variant ``FUSED_VARIANT``)."""
-    if func not in WS.PALLAS_FUNCS:
-        raise NotImplementedError(f"range function {func!r} is not ported")
+    the device, on the rung ``grid_variant`` picks (written to
+    ``obs["variant"]`` when ``obs`` is given). ``mxu``: one launch of the
+    regular kernel. ``window_stats``: window stats -> finish -> slice to the
+    block's padding -> segment aggregate. Returns the [G, J_pad] group
+    partials on the device."""
+    variant = grid_variant(block, func, is_delta)
+    if obs is not None:
+        obs["variant"] = variant
+    if variant == "mxu":
+        return MK.regular_range_aggregate(func, op, block, gids_padded, num_groups, params,
+                                          is_counter=is_counter, is_delta=is_delta)
     j_pad = pad_steps(params.num_steps)
     raw = block.raw if block.raw is not None else block.vals
     start_off = int(params.start_ms - block.base_ms)

@@ -1,0 +1,314 @@
+"""Regular-grid range functions fused with the group aggregate
+(counterpart of ``filodb_tpu/ops/mxu_kernels.py`` and of the regular
+variant of ``filodb_tpu/ops/aggregations._fused_mxu_jit``).
+
+When every staged series shares one timestamp vector, the window of each
+output step is the same index range ``[lo[j], hi[j])`` in every row, so the
+window bounds are built once on the host (``WindowMatrices``). The JAX
+package then evaluates the range function with ``[S, T] x [T, J]``
+matmuls on the TPU's matrix unit and segment-reduces the ``[S, J]`` grid.
+On a CUDA tensor ``regular_range_aggregate`` launches the hand-written
+kernel ``csrc/regular_range.cu``, which gathers at the window bounds, sums
+the windows and reduces into ``[G+1, J]`` accumulators in one pass; on a
+CPU tensor it runs ``mxu_range_plain`` followed by the segment aggregate,
+the same function in plain torch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import cuda_build
+from .kernels import pad_steps
+
+# range functions the regular rung computes (aggregations.FUSED_MXU_FUNCS
+# of the JAX package)
+FUSED_MXU_FUNCS = {
+    "sum_over_time", "count_over_time", "avg_over_time", "last",
+    "last_over_time", "first_over_time", "present_over_time",
+    "stddev_over_time", "stdvar_over_time", "z_score",
+    "rate", "increase", "delta", "idelta", "irate",
+}
+
+# the kernel's codes (csrc/regular_range.cu, enums Func and Acc)
+FUNC_CODES = {
+    "sum_over_time": 0, "count_over_time": 1, "avg_over_time": 2, "last": 3,
+    "last_over_time": 3, "first_over_time": 4, "present_over_time": 5,
+    "stddev_over_time": 6, "stdvar_over_time": 7, "z_score": 8, "rate": 9,
+    "increase": 10, "delta": 11, "irate": 12, "idelta": 13,
+}
+ACC_CODES = {"sum": 0, "count": 0, "avg": 0, "min": 1, "max": 2}
+
+# kernel launches since the last reset (the wrapper's only state)
+LAUNCHES = 0
+
+_lib = None
+
+
+class WindowMatrices:
+    """Window structure of one shared timestamp vector for one query grid,
+    built on the host exactly as the JAX package builds it (f32 casts
+    included) and moved to ``device``:
+
+    - ``lo``/``hi`` int32 [J]: each step's window is samples [lo, hi);
+    - ``count``, ``t_first``, ``t_last``, ``t_last2``, ``out_t`` f32 [J]
+      (timestamps of absent samples as 0, as the JAX device copies);
+    - ``idx`` int32 [3, J]: first / last / second-to-last positions,
+      clipped to the row (the kernel's gathers);
+    - ``W``, ``F``, ``L``, ``L2`` f32 [T, J]: window membership and the
+      one-hot selections, which only the plain version reads."""
+
+    def __init__(self, ts1: np.ndarray, n_valid: int, start_off: int, step_ms: int,
+                 num_steps: int, window_ms: int, device):
+        ts = ts1[:n_valid].astype(np.int64)
+        T = len(ts1)
+        J = num_steps
+        out_t = start_off + np.arange(J, dtype=np.int64) * step_ms
+        hi = np.searchsorted(ts, out_t, side="right")
+        lo = np.searchsorted(ts, out_t - window_ms, side="right")
+        cnt = (hi - lo).astype(np.float32)
+        tidx = np.arange(T)[:, None]
+        W = ((tidx >= lo[None, :]) & (tidx < hi[None, :])).astype(np.float32)
+        F = np.zeros((T, J), dtype=np.float32)
+        L = np.zeros((T, J), dtype=np.float32)
+        L2 = np.zeros((T, J), dtype=np.float32)
+        has = cnt > 0
+        has2 = cnt >= 2
+        F[lo[has], np.nonzero(has)[0]] = 1.0
+        L[hi[has] - 1, np.nonzero(has)[0]] = 1.0
+        L2[hi[has2] - 2, np.nonzero(has2)[0]] = 1.0
+        t_first = np.where(has, ts[np.minimum(lo, len(ts) - 1)], np.nan)
+        t_last = np.where(has, ts[np.minimum(hi - 1, len(ts) - 1)], np.nan)
+        t_last2 = np.where(has2, ts[np.clip(hi - 2, 0, len(ts) - 1)], np.nan)
+        idx = np.stack([
+            np.clip(lo, 0, T - 1), np.clip(hi - 1, 0, T - 1), np.clip(hi - 2, 0, T - 1),
+        ]).astype(np.int32)
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        self.window_ms = window_ms
+        self.lo = put(lo.astype(np.int32))
+        self.hi = put(hi.astype(np.int32))
+        self.count = put(cnt)
+        self.t_first = put(np.nan_to_num(t_first, nan=0.0).astype(np.float32))
+        self.t_last = put(np.nan_to_num(t_last, nan=0.0).astype(np.float32))
+        self.t_last2 = put(np.nan_to_num(t_last2, nan=0.0).astype(np.float32))
+        self.out_t = put(out_t.astype(np.float64).astype(np.float32))
+        self.idx = put(idx)
+        self.W, self.F, self.L, self.L2 = map(put, (W, F, L, L2))
+
+
+def window_matrices(block, start_off: int, step_ms: int, num_steps: int,
+                    window_ms: int) -> WindowMatrices:
+    """``WindowMatrices`` of a regular block, memoized in a plain dict on
+    the block, keyed by the query grid, on the block's device."""
+    key = (int(start_off), int(step_ms), int(num_steps), int(window_ms))
+    memo = block.__dict__.setdefault("window_matrices_memo", {})
+    if key not in memo:
+        memo[key] = WindowMatrices(block.regular_ts, int(block.lens[0]), *key,
+                                   device=block.vals.device)
+    return memo[key]
+
+
+def _window_sum(x: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """``x @ W`` for a 0/1 window matrix, summed in index order over t:
+    the kernel's order, so the f32 rounding of the two agrees."""
+    out = torch.zeros((x.shape[0], W.shape[1]), dtype=x.dtype, device=x.device)
+    for t in range(W.shape[0]):
+        out = out + x[:, t : t + 1] * W[t]
+    return out
+
+
+def mxu_range_plain(func: str, vals: torch.Tensor, raw: torch.Tensor, wm: WindowMatrices,
+                    window_ms, is_counter: bool = False, is_delta: bool = False) -> torch.Tensor:
+    """[S, T] values of a regular block -> [S, J] range function, every
+    branch of the JAX package's ``mxu_range_kernel`` in plain torch. The
+    selections are one-hot matmuls in f32 (TF32 off); window sums are
+    ``_window_sum``."""
+    if vals.is_cuda and torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError("mxu_range_plain needs f32 matmuls: TF32 must stay off")
+    f32 = torch.float32
+    count = wm.count
+    has = count > 0
+    nan = float("nan")
+    w_ms = torch.tensor(window_ms, dtype=f32, device=vals.device)
+    w_s = w_ms * 1e-3
+    ones = torch.ones_like(vals[:, :1])
+
+    def gF(x):
+        return x @ wm.F
+
+    def gL(x):
+        return x @ wm.L
+
+    def gL2(x):
+        return x @ wm.L2
+
+    if func == "sum_over_time" or (is_delta and func in ("rate", "increase")):
+        s = _window_sum(vals, wm.W)
+        if func == "rate":
+            s = s / w_s
+        return torch.where(has, s, nan)
+    if func == "count_over_time":
+        return torch.where(has, count, nan)[None, :] * ones
+    if func == "avg_over_time":
+        return torch.where(has, _window_sum(vals, wm.W) / torch.clamp(count, min=1.0), nan)
+    if func in ("last", "last_over_time"):
+        return torch.where(has, gL(vals), nan)
+    if func == "first_over_time":
+        return torch.where(has, gF(vals), nan)
+    if func == "present_over_time":
+        return torch.where(has, 1.0, nan)[None, :] * ones
+    if func in ("stddev_over_time", "stdvar_over_time", "z_score"):
+        s = _window_sum(vals, wm.W)
+        s2 = _window_sum(vals * vals, wm.W)
+        c = torch.clamp(count, min=1.0)
+        mean = s / c
+        var = torch.clamp(s2 / c - mean * mean, min=0.0)
+        if func == "stdvar_over_time":
+            return torch.where(has, var, nan)
+        sd = torch.sqrt(var)
+        if func == "stddev_over_time":
+            return torch.where(has, sd, nan)
+        return torch.where(has, (gL(vals) - mean) / torch.clamp(sd, min=1e-30), nan)
+    if func in ("rate", "increase", "delta"):
+        vf = gF(vals)
+        dlt = gL(vals) - vf
+        tf = wm.t_first * 1e-3
+        tl = wm.t_last * 1e-3
+        sampled = tl - tf
+        range_start = (wm.out_t - w_ms) * 1e-3
+        range_end = wm.out_t * 1e-3
+        dur_start = tf - range_start
+        dur_end = range_end - tl
+        avg_dur = sampled / torch.clamp(count - 1.0, min=1.0)
+        thresh = avg_dur * 1.1
+        inf = float("inf")
+        if is_counter and func != "delta":
+            v_first_raw = gF(raw)
+            dur_zero = torch.where(
+                dlt > 0, sampled[None, :] * (v_first_raw / torch.clamp(dlt, min=1e-30)), inf
+            )
+            ds = torch.minimum(dur_start[None, :], torch.where(v_first_raw >= 0, dur_zero, inf))
+        else:
+            ds = dur_start[None, :].expand_as(dlt)
+        ds = torch.where(ds >= thresh[None, :], (avg_dur / 2.0)[None, :], ds)
+        de = torch.where(dur_end >= thresh, avg_dur / 2.0, dur_end)[None, :]
+        factor = (sampled[None, :] + ds + de) / torch.clamp(sampled, min=1e-30)[None, :]
+        res = dlt * factor
+        if func == "rate":
+            res = res / w_s
+        return torch.where((count >= 2)[None, :], res, nan)
+    if func in ("irate", "idelta"):
+        ok = (count >= 2)[None, :]
+        if func == "idelta" and is_counter and not is_delta:
+            # counter blocks arrive diff-encoded: the last pair's difference
+            return torch.where(ok, gL(vals), nan)
+        dt_s = (wm.t_last - wm.t_last2) * 1e-3
+        dv = gL(vals) - gL2(vals)
+        r = dv / torch.clamp(dt_s, min=1e-30)[None, :] if func == "irate" else dv
+        return torch.where(ok, r, nan)
+    raise ValueError(f"regular rung does not support {func}")
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(cuda_build.build("regular_range")))
+        fn = lib.filodb_regular_range
+        fn.argtypes = (
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_float]
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+        )
+        fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _check_inputs(vals, raw, gids) -> None:
+    if vals.dim() != 2:
+        raise ValueError(f"vals must be [S, T], got {tuple(vals.shape)}")
+    S = vals.shape[0]
+    for name, t, dtype, shape in (
+        ("vals", vals, torch.float32, tuple(vals.shape)), ("raw", raw, torch.float32, tuple(vals.shape)),
+        ("gids", gids, torch.int64, (S,)),
+    ):
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+        if t.device != vals.device:
+            raise ValueError(f"{name} is on {t.device}, vals on {vals.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(func: str, op: str, vals, raw, gids, num_groups: int, wm: WindowMatrices,
+            is_counter: bool, is_delta: bool) -> torch.Tensor:
+    """One launch of the regular kernel -> [G, J] (the finish of
+    ``segment_aggregate`` on its accumulators)."""
+    global LAUNCHES
+    lib = _load()
+    S, T = vals.shape
+    J = wm.lo.shape[0]
+    dev = vals.device
+    init = {"min": float("inf"), "max": float("-inf")}.get(op, 0.0)
+    acc = torch.full((num_groups + 1, J), init, dtype=torch.float32, device=dev)
+    cnt = torch.zeros((num_groups + 1, J), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.filodb_regular_range(
+            vals.data_ptr(), raw.data_ptr(), gids.data_ptr(), wm.lo.data_ptr(),
+            wm.hi.data_ptr(), wm.idx.data_ptr(), wm.count.data_ptr(), wm.t_first.data_ptr(),
+            wm.t_last.data_ptr(), wm.t_last2.data_ptr(), wm.out_t.data_ptr(),
+            S, T, J, num_groups, float(np.float32(wm.window_ms)), FUNC_CODES[func],
+            ACC_CODES[op], int(is_counter), int(is_delta), acc.data_ptr(), cnt.data_ptr(),
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"regular_range kernel launch failed: cudaError {err}")
+    LAUNCHES += 1
+    acc, cnt = acc[:num_groups], cnt[:num_groups]
+    has = cnt > 0
+    nan = float("nan")
+    if op == "count":
+        return torch.where(has, cnt, nan)
+    if op == "avg":
+        return torch.where(has, acc / torch.clamp(cnt, min=1.0), nan)
+    return torch.where(has, acc, nan)
+
+
+def regular_range_aggregate(func: str, op: str, block, gids: torch.Tensor, num_groups: int,
+                            params, is_counter: bool = False,
+                            is_delta: bool = False) -> torch.Tensor:
+    """``op by (...) (func(selector[w]))`` over a block with a shared
+    regular grid -> [G, J_pad] group partials on the block's device.
+    ``gids`` is int64 [S_padded], padded rows in the trash group
+    ``num_groups``. A CUDA block launches the kernel (and raises if the
+    launch fails); a CPU block runs ``mxu_range_plain`` and the segment
+    aggregate."""
+    from .aggregations import SIMPLE_AGG_OPS, apply_epilogue
+
+    if func not in FUSED_MXU_FUNCS:
+        raise NotImplementedError(f"range function {func!r} is not on the regular rung")
+    if op not in SIMPLE_AGG_OPS:
+        raise NotImplementedError(f"aggregation {op!r} is not ported (ported: {SIMPLE_AGG_OPS})")
+    if block.regular_ts is None:
+        raise ValueError("regular_range_aggregate needs a block with a shared regular grid")
+    raw = block.raw if block.raw is not None else block.vals
+    _check_inputs(block.vals, raw, gids)
+    start_off = int(params.start_ms - block.base_ms)
+    wm = window_matrices(block, start_off, params.step_ms, pad_steps(params.num_steps),
+                         params.window_ms)
+    device = block.vals.device.type
+    if device == "cpu":
+        sj = mxu_range_plain(func, block.vals, raw, wm, params.window_ms,
+                             is_counter=is_counter, is_delta=is_delta)
+        return apply_epilogue(sj, ("agg", op), gids, num_groups)
+    if device != "cuda":
+        raise ValueError(f"regular_range_aggregate runs on cuda or cpu tensors, not {device}")
+    return _launch(func, op, block.vals, raw, gids, num_groups, wm, is_counter, is_delta)

@@ -13,9 +13,12 @@ padded ``[series, time]`` block, which moves to the device once:
   and the device needs no correction pass. Raw values ride along for
   Prometheus' zero-crossing extrapolation cap.
 - S and T pad up to bucketed sizes.
-
-Every block takes the window-stats kernel; the shared-grid classification
-of the JAX package is not ported yet.
+- Every block is classified by its time grid (``grid_class``): ``regular``
+  when every real series shares one exact timestamp vector (the regular
+  range kernel), ``jitter`` when the series are near-regular, else
+  ``irregular`` (the window-stats kernel). The JAX package's ``holes``
+  class (its masked missing-scrape grid) is not ported: such blocks stay
+  ``irregular``.
 """
 
 from __future__ import annotations
@@ -58,6 +61,15 @@ class StagedBlock:
     n_series: int  # real series count (<= S)
     part_refs: list  # (shard_num, part_id) per real series row
     raw: np.ndarray | torch.Tensor | None = None  # [S, T] f32 raw values (counters only)
+    # regular grid: every real series shares ONE timestamp vector and one
+    # length, so the window bounds are series-independent (host numpy)
+    regular_ts: np.ndarray | None = None  # [T] int32 shared offsets, or None
+    # near-regular grid: equal sample counts, each sample within half the
+    # minimum nominal interval of a shared nominal grid (host numpy; no
+    # kernel of the port reads them yet)
+    nominal_ts: np.ndarray | None = None  # [T] int32 shared nominal offsets
+    ts_dev: np.ndarray | None = None  # [S, T] f32 per-sample deviation (ms)
+    maxdev_ms: int = 0  # bound on |ts - nominal|
 
     @property
     def shape(self):
@@ -81,6 +93,54 @@ class StagedBlock:
         return sum(int(a.nbytes) for a in arrays if a is not None)
 
 
+def detect_shared_grid(out_ts: np.ndarray, lens: np.ndarray, n: int, T: int, S: int):
+    """Shared-grid classification over packed [S, T] timestamp rows, the one
+    rule for ``stage_series``, ``concat_blocks`` and ``block_from_arrays``.
+    Returns ``(regular, nominal, ts_dev, maxdev)``:
+
+    - regular [T] when every real series shares one exact timestamp vector;
+    - else nominal [T] + ts_dev [S, T] + maxdev when every series has the
+      same sample count and each sample lies within half the minimum
+      nominal interval of the per-slot midrange grid;
+    - (None, None, None, 0) otherwise."""
+    if n <= 0 or not (lens[:n] == lens[0]).all() or lens[0] == 0:
+        return None, None, None, 0
+    if not (out_ts[:n] != out_ts[0]).any():
+        return out_ts[0], None, None, 0
+    if lens[0] < 2:
+        return None, None, None, 0
+    m = int(lens[0])
+    real = out_ts[:n, :m].astype(np.int64)
+    nom, dev, md = nominal_midrange(real)
+    min_int = int(np.diff(nom).min()) if m >= 2 else 0
+    if min_int > 0 and 2 * md < min_int:
+        nominal = np.full(T, TS_PAD, dtype=np.int32)
+        nominal[:m] = nom.astype(np.int32)
+        ts_dev = np.zeros((S, T), dtype=np.float32)
+        ts_dev[:n, :m] = dev.astype(np.float32)
+        return None, nominal, ts_dev, md
+    return None, None, None, 0
+
+
+def grid_class(block) -> str:
+    """``regular`` (exact shared grid) > ``jitter`` (near-regular) >
+    ``irregular``; the fused kernel ladder keys on it."""
+    if block.regular_ts is not None:
+        return "regular"
+    if block.nominal_ts is not None:
+        return "jitter"
+    return "irregular"
+
+
+def nominal_midrange(real: np.ndarray):
+    """Nominal grid of near-regular data: the per-column midrange over
+    [n, m] actual timestamps. Returns (nominal int64 [m], deviations int64
+    [n, m], maxdev int)."""
+    nom = (real.min(axis=0) + real.max(axis=0)) // 2
+    dev = real - nom[None, :]
+    return nom, dev, int(np.abs(dev).max())
+
+
 def counter_correct(vals: np.ndarray) -> np.ndarray:
     """f64 prefix-sum reset correction: add the prior raw value at each drop
     (Prometheus semantics; reference CorrectingDoubleVectorReader:308)."""
@@ -98,11 +158,15 @@ def stage_series(
     part_refs: list | None = None,
     subtract_baseline: bool = False,
     counter_corrected: bool = False,
+    diff_encode: bool = False,
 ) -> StagedBlock:
     """Build a host StagedBlock from per-series (ts_ms int64, values f64)
-    pairs. Three modes: raw values (default), ``counter_corrected``
-    (reset-corrected minus the first value, raw values alongside) and
-    ``subtract_baseline`` (raw minus the first value, no correction)."""
+    pairs. Four modes: raw values (default), ``counter_corrected``
+    (reset-corrected minus the first value, raw values alongside),
+    ``diff_encode`` (slot i holds the f64-exact difference v[i] - v[i-1],
+    slot 0 holds 0: changes/resets/idelta are functions of the differences)
+    and ``subtract_baseline`` (raw minus the first value, no correction).
+    The block's grid is classified (``detect_shared_grid``)."""
     n = len(series)
     cleaned: list[tuple[np.ndarray, np.ndarray]] = []
     maxlen = 1
@@ -132,21 +196,25 @@ def stage_series(
             # raw rides along unshifted: it only feeds the zero-crossing cap,
             # which engages only for raw values near zero, where f32 is exact
             out_raw[i, :m] = vals.astype(np.float32)
+        elif diff_encode:
+            out_vals[i, 1:m] = np.diff(vals.astype(np.float64)).astype(np.float32)
         elif subtract_baseline:
             b = np.float64(vals[0])
             baseline[i] = b
             out_vals[i, :m] = (vals.astype(np.float64) - b).astype(np.float32)
         else:
             out_vals[i, :m] = vals.astype(np.float32)
+    regular, nominal, ts_dev, maxdev = detect_shared_grid(out_ts, lens, n, T, S)
     return StagedBlock(out_ts, out_vals, lens, base_ms, baseline, n,
-                       part_refs or [], raw=out_raw)
+                       part_refs or [], raw=out_raw, regular_ts=regular,
+                       nominal_ts=nominal, ts_dev=ts_dev, maxdev_ms=maxdev)
 
 
 def block_from_arrays(ts, vals, lens, base_ms: int, baseline, n_series: int,
                       raw=None, device="cuda") -> StagedBlock:
     """A device block from plain arrays (numpy or anything ``np.asarray``
     takes) — how a block staged elsewhere, such as a JAX ``StagedBlock``,
-    is carried into the port."""
+    is carried into the port. Its grid is classified as staging does."""
     ts = np.asarray(ts, dtype=np.int32)
     vals = np.asarray(vals, dtype=np.float32)
     lens = np.asarray(lens, dtype=np.int32)
@@ -156,9 +224,12 @@ def block_from_arrays(ts, vals, lens, base_ms: int, baseline, n_series: int,
         raw = np.asarray(raw, dtype=np.float32)
         if raw.shape != ts.shape:
             raise ValueError(f"raw shape {raw.shape} != ts shape {ts.shape}")
+    S, T = ts.shape
+    regular, nominal, ts_dev, maxdev = detect_shared_grid(ts, lens, int(n_series), T, S)
     block = StagedBlock(
         ts, vals, lens, int(base_ms), np.asarray(baseline, dtype=np.float32),
-        int(n_series), [], raw=raw,
+        int(n_series), [], raw=raw, regular_ts=regular, nominal_ts=nominal,
+        ts_dev=ts_dev, maxdev_ms=maxdev,
     )
     return block.to_device(device)
 
@@ -166,8 +237,8 @@ def block_from_arrays(ts, vals, lens, base_ms: int, baseline, n_series: int,
 def stage_from_shard(shard, part_ids, column: str, start_ms: int, end_ms: int,
                      mode: str) -> StagedBlock:
     """Gather [start_ms, end_ms] samples for part_ids from a shard and stage
-    them on the host. ``mode`` is ``"corrected"``, ``"shifted"`` or
-    ``"raw"`` (see plans._stage_mode_for_function)."""
+    them on the host. ``mode`` is ``"corrected"``, ``"shifted"``, ``"diff"``
+    or ``"raw"`` (see plans._stage_mode_for_function)."""
     series, refs = [], []
     for pid in part_ids:
         part = shard.partition(int(pid))
@@ -177,13 +248,19 @@ def stage_from_shard(shard, part_ids, column: str, start_ms: int, end_ms: int,
         series, start_ms, refs,
         counter_corrected=mode == "corrected",
         subtract_baseline=mode == "shifted",
+        diff_encode=mode == "diff",
     )
 
 
 def concat_blocks(blocks) -> StagedBlock:
     """Row-concatenate host blocks into one padded superblock exactly:
     corrected values, raw sidecars, baselines and part refs carry over.
-    All blocks must share base_ms."""
+    All blocks must share base_ms.
+
+    The shared regular grid survives when every non-empty block advertises
+    the identical ``regular_ts``; otherwise the grid is detected again over
+    the concatenated rows (members of different padded widths can still
+    agree exactly, and near-regular rows keep their ``jitter`` class)."""
     real = [b for b in blocks if b.n_series > 0] or list(blocks[:1])
     if not real or len({b.base_ms for b in real}) != 1:
         raise ValueError("concat_blocks needs blocks that share one base_ms")
@@ -207,4 +284,21 @@ def concat_blocks(blocks) -> StagedBlock:
         baseline[o : o + k] = b.baseline[:k]
         part_refs.extend(b.part_refs)
         o += k
-    return StagedBlock(ts, vals, lens, real[0].base_ms, baseline, S, part_refs, raw=raw)
+    reg = real[0].regular_ts
+    regular = None
+    if reg is not None and all(
+        b.regular_ts is not None and len(b.regular_ts) == len(reg)
+        and not (b.regular_ts != reg).any()
+        for b in real[1:]
+    ):
+        regular = reg
+        if len(regular) < T:  # narrower padded blocks keep the shared grid
+            regular = np.full(T, TS_PAD, np.int32)
+            regular[: len(reg)] = reg
+    nominal = ts_dev = None
+    maxdev = 0
+    if regular is None and S > 0:
+        regular, nominal, ts_dev, maxdev = detect_shared_grid(ts, lens, S, T, Sp)
+    return StagedBlock(ts, vals, lens, real[0].base_ms, baseline, S, part_refs, raw=raw,
+                       regular_ts=regular, nominal_ts=nominal, ts_dev=ts_dev,
+                       maxdev_ms=maxdev)

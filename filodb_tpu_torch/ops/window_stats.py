@@ -10,21 +10,17 @@ hand-written kernel ``csrc/window_stats.cu``; on a CPU tensor it runs
 any of ``PALLAS_FUNCS`` from the statistics, with Prometheus extrapolation
 for rate/increase/delta.
 
-The kernel is built with ``nvcc`` at first use into ``_build/`` beside the
-package and bound through ctypes.
+The kernel is built with ``nvcc`` at first use (``cuda_build``) and bound
+through ctypes.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
+
+from . import cuda_build
 
 NEG = -3.0e38
 POS = 3.0e38
@@ -41,58 +37,13 @@ PALLAS_FUNCS = {
 # kernel launches since the last reset (the wrapper's only state)
 LAUNCHES = 0
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "window_stats.cu"
-_BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 _lib = None
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the window-stats kernel cannot be built")
-
-
-def build() -> Path:
-    """Compile ``csrc/window_stats.cu`` for sm_90a into a shared library
-    named by the source's hash (rebuilt only when the source changes).
-    Returns its path; nvcc's ptxas report is kept beside it, in the ``.log``
-    of the same name, which ``build_log()`` reads."""
-    src = _SOURCE.read_bytes()
-    out = _BUILD_DIR / f"window_stats-{hashlib.sha256(src).hexdigest()[:12]}.so"
-    if out.exists() and out.with_suffix(".log").exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-             "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, str(_SOURCE)],
-            capture_output=True, text=True, check=False,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
-
-
-def build_log() -> str:
-    """nvcc's output (the ptxas report) from the build of the current source."""
-    return build().with_suffix(".log").read_text()
 
 
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = ctypes.CDLL(str(cuda_build.build("window_stats")))
         fn = lib.filodb_window_stats
         fn.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 10

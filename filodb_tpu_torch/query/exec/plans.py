@@ -4,9 +4,11 @@ reference query/exec/ExecPlan.scala).
 The port runs one exec node: ``FusedAggregateExec``, the single-dispatch
 cross-shard aggregate ``op by (...) (func(selector[w]))``. It stages every
 matching series of its shards into one superblock on the device and runs
-window stats -> finish -> segment aggregate; only the [G, J] group partials
-come back. Shapes outside it raise ``NotImplementedError``: the reference
-tree it would fall back to is not ported.
+the rung its grid class picks (``aggregations.grid_variant``): the regular
+kernel for a shared regular grid, else window stats -> finish -> segment
+aggregate; only the [G, J] group partials come back. Shapes outside it
+raise ``NotImplementedError``: the reference tree it would fall back to is
+not ported.
 """
 
 from __future__ import annotations
@@ -72,6 +74,10 @@ _SHIFTED_FNS = frozenset({
     "stddev_over_time", "stdvar_over_time", "z_score",
     "median_absolute_deviation_over_time",
 })
+#   diff — f64-exact adjacent differences: functions of the difference
+#   sequence, where no f32 shift of the values keeps both tiny adjacent
+#   changes and a 1e9-magnitude reset cliff
+_DIFF_FNS = frozenset({"changes", "resets", "idelta"})
 #   everything else (plain selector/last, min/max/sum/avg_over_time, the
 #   value-independent count/present_over_time) stages raw values
 
@@ -83,6 +89,8 @@ def _stage_mode_for_function(func: str | None) -> str:
         return "corrected"
     if func in _SHIFTED_FNS:
         return "shifted"
+    if func in _DIFF_FNS:
+        return "diff"
     return "raw"
 
 
@@ -104,7 +112,8 @@ class SuperblockEntry:
 
 class FusedAggregateExec(ExecPlan):
     """``op by (...) (func(selector[w]))`` over local shards as ONE
-    superblock and ONE window-stats launch; only [G, J] reaches the host."""
+    superblock and ONE kernel launch (regular or window stats); only [G, J]
+    reaches the host."""
 
     def __init__(self, shard_nums, filters, raw_start_ms: int, raw_end_ms: int,
                  column, op: str, by, without, function,
@@ -186,7 +195,6 @@ class FusedAggregateExec(ExecPlan):
         if got is None:
             return QueryResult()
         ctx.obs["path"] = "fused"
-        ctx.obs["variant"] = AGG.FUSED_VARIANT
         nsteps = self.num_steps()
         params = RangeParams(self.start_ms - self.offset_ms, self.step_ms, nsteps, self.window_ms)
         strip = self.function is not None and self.function not in _DROP_NAME_KEEP
@@ -194,5 +202,5 @@ class FusedAggregateExec(ExecPlan):
             got.block, got.labels, self.by, self.without, strip_metric=strip)
         out = AGG.fused_range_aggregate(
             func, self.op, got.block, gids, G, params,
-            is_counter=got.is_counter, is_delta=got.is_delta)
+            is_counter=got.is_counter, is_delta=got.is_delta, obs=ctx.obs)
         return QueryResult(grids=[Grid(group_labels, self.start_ms, self.step_ms, nsteps, out)])

@@ -20,6 +20,8 @@ from filodb_tpu_torch.coordinator.planner import QueryEngine
 from filodb_tpu_torch.core import schemas as S
 from filodb_tpu_torch.core.records import SeriesBatch
 from filodb_tpu_torch.memstore.memstore import TimeSeriesMemStore
+from filodb_tpu_torch.ops import aggregations as AGG
+from filodb_tpu_torch.ops.mxu_kernels import FUSED_MXU_FUNCS
 from filodb_tpu_torch.query.promql import query_range_to_logical_plan as port_plan
 
 BASE = 1_600_000_000_000
@@ -38,6 +40,16 @@ QUERIES = [
     "count by (zone) (max_over_time(node_temp[5m]))",
     "sum by (zone) (node_temp)",
     'avg(node_temp{zone=~"z[01]"})',
+]
+
+# functions the port computes on the regular rung only: on any other grid
+# they need the general kernel (B4), which is not ported
+REGULAR_ONLY_QUERIES = [
+    "sum(irate(http_requests_total[5m]))",
+    "max by (zone) (idelta(http_requests_total[2m]))",
+    "avg by (zone) (stddev_over_time(node_temp[5m]))",
+    "sum(stdvar_over_time(node_temp[5m]))",
+    "min by (zone) (z_score(node_temp[5m]))",
 ]
 
 
@@ -103,6 +115,32 @@ def as_rows(res):
     return g.labels, g.values_np()
 
 
+def port_variants(monkeypatch) -> list:
+    """Records the rung the port's ladder picks for each dispatch."""
+    seen = []
+    real = AGG.grid_variant
+
+    def recording(*a, **k):
+        seen.append(real(*a, **k))
+        return seen[-1]
+
+    monkeypatch.setattr(AGG, "grid_variant", recording)
+    return seen
+
+
+def assert_matches_jax(jms, pms, query):
+    want_labels, want = as_rows(JaxEngine(jms, "prometheus").query_range(
+        query, START_S, END_S, STEP_S))
+    res = QueryEngine(pms, "prometheus", device="cpu").query_range(query, START_S, END_S, STEP_S)
+    got_labels, got = as_rows(res)
+    assert got_labels == want_labels
+    assert got.shape == want.shape == (len(want_labels), 24)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    m = ~np.isnan(want)
+    assert m.any()
+    np.testing.assert_allclose(got[m], want[m], rtol=2e-4, atol=1e-4)
+
+
 @pytest.mark.parametrize("query", QUERIES)
 @pytest.mark.parametrize("rung", ["irregular-general", "irregular-pallas", "regular-mxu"])
 def test_engine_matches_jax(stores, query, rung, monkeypatch):
@@ -116,20 +154,34 @@ def test_engine_matches_jax(stores, query, rung, monkeypatch):
         monkeypatch.setenv("FILODB_PALLAS", "1")
     else:
         monkeypatch.delenv("FILODB_PALLAS", raising=False)
-    want_labels, want = as_rows(JaxEngine(jms, "prometheus").query_range(
-        query, START_S, END_S, STEP_S))
+    seen = port_variants(monkeypatch)
+    assert_matches_jax(jms, pms, query)
     assert pallas.calls == (1 if jax_rung == "pallas" else 0)
-    # the regular grid takes the MXU rung for the functions it models
-    func = getattr(port_plan(query, START_S, END_S, STEP_S).inner, "function", "last")
-    assert mxu.calls == (1 if jax_rung == "mxu" and func in JAGG.FUSED_MXU_FUNCS else 0)
-    res = QueryEngine(pms, "prometheus", device="cpu").query_range(query, START_S, END_S, STEP_S)
-    got_labels, got = as_rows(res)
-    assert got_labels == want_labels
-    assert got.shape == want.shape == (len(want_labels), 24)
-    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
-    m = ~np.isnan(want)
-    assert m.any()
-    np.testing.assert_allclose(got[m], want[m], rtol=2e-4, atol=1e-4)
+    # the regular grid takes the MXU rung for the functions it models, in
+    # both packages
+    func = getattr(port_plan(query, START_S, END_S, STEP_S).inner, "function", None) or "last"
+    on_mxu = jax_rung == "mxu" and func in JAGG.FUSED_MXU_FUNCS
+    assert mxu.calls == (1 if on_mxu else 0)
+    assert seen == ["mxu" if on_mxu else "window_stats"]
+    assert (func in FUSED_MXU_FUNCS) == (func in JAGG.FUSED_MXU_FUNCS)
+
+
+@pytest.mark.parametrize("query", REGULAR_ONLY_QUERIES)
+def test_regular_only_functions_match_jax(stores, query, monkeypatch):
+    jms, pms = stores["regular"]
+    mxu = _Counted(JAGG._fused_mxu_jit)
+    monkeypatch.setattr(JAGG, "_fused_mxu_jit", mxu)
+    seen = port_variants(monkeypatch)
+    assert_matches_jax(jms, pms, query)
+    assert mxu.calls == 1
+    assert seen == ["mxu"]
+
+
+@pytest.mark.parametrize("query", REGULAR_ONLY_QUERIES)
+def test_regular_only_functions_raise_on_irregular_grid(stores, query):
+    engine = QueryEngine(stores["irregular"][1], "prometheus", device="cpu")
+    with pytest.raises(NotImplementedError, match="general range kernel"):
+        engine.query_range(query, START_S, END_S, STEP_S)
 
 
 def test_instant_query_matches_jax(stores):
@@ -191,5 +243,20 @@ def test_result_reports_fused_window_stats_path(stores):
     ctx = engine.context()
     res = engine.planner.materialize(plan).execute(ctx)
     assert ctx.obs == {"path": "fused", "variant": "window_stats"}
+    assert res.stats.series_scanned == N_SERIES // 2
+    assert res.stats.samples_scanned > 0
+
+
+def test_result_reports_fused_mxu_path(stores):
+    from filodb_tpu_torch.ops.staging import grid_class
+    from filodb_tpu_torch.query.promql import query_range_to_logical_plan
+
+    engine = QueryEngine(stores["regular"][1], "prometheus", device="cpu")
+    plan = query_range_to_logical_plan(QUERIES[1], START_S, END_S, STEP_S)
+    ctx = engine.context()
+    ex = engine.planner.materialize(plan)
+    res = ex.execute(ctx)
+    assert ctx.obs == {"path": "fused", "variant": "mxu"}
+    assert grid_class(ex.superblock(engine.context()).block) == "regular"
     assert res.stats.series_scanned == N_SERIES // 2
     assert res.stats.samples_scanned > 0

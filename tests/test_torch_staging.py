@@ -71,6 +71,38 @@ def test_block_from_arrays_round_trip():
     assert_block_equal(got, want)
 
 
+def grid_series(kind: str, n_series=5, n=120, seed=0):
+    """Series on one shared 10 s grid, the same grid with +-5 % jitter, or
+    irregular 5-15 s intervals."""
+    rng = np.random.default_rng(seed)
+    nominal = BASE + 3_000 + np.arange(n, dtype=np.int64) * 10_000
+    series = []
+    for _ in range(n_series):
+        if kind == "regular":
+            ts = nominal
+        elif kind == "jitter":
+            ts = nominal + np.rint(rng.uniform(-0.05, 0.05, n) * 10_000).astype(np.int64)
+        else:
+            ts = BASE + np.cumsum(rng.integers(5000, 15000, n)).astype(np.int64)
+        series.append((ts, np.cumsum(rng.uniform(0, 10, n))))
+    return series
+
+
+@pytest.mark.parametrize("kind", ["regular", "jitter", "irregular"])
+def test_block_from_arrays_keeps_jax_grid_class(kind):
+    want = JST.stage_series(grid_series(kind, seed=4), BASE, counter_corrected=True)
+    got = ST.block_from_arrays(want.ts, want.vals, want.lens, want.base_ms, want.baseline,
+                               want.n_series, raw=want.raw, device="cpu")
+    assert ST.grid_class(got) == JST.grid_class(want) == kind
+    for name in ("regular_ts", "nominal_ts", "ts_dev"):
+        w = getattr(want, name)
+        if w is None:
+            assert getattr(got, name) is None, name
+        else:
+            np.testing.assert_array_equal(getattr(got, name), np.asarray(w), err_msg=name)
+    assert got.maxdev_ms == want.maxdev_ms
+
+
 def test_block_from_arrays_rejects_mismatched_shapes():
     want = JST.stage_series(make_series(n_series=3, seed=2), BASE)
     with pytest.raises(ValueError):

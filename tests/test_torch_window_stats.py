@@ -153,12 +153,10 @@ def duplicate_ts_block():
 
 
 def test_duplicate_timestamps_plain_keeps_tpu_tie_rule():
-    """The one known difference from the TPU kernel (ROADMAP section C):
-    with duplicate timestamps the TPU kernel sums the tied first/last
-    values, while the kernel on the card picks by index (see
-    tests/test_torch_cuda.py). The plain version keeps the TPU's
-    rule; staging from the memstore never produces ties (partitions drop
-    non-increasing rows)."""
+    """With duplicate timestamps the TPU kernel sums the tied first/last
+    values; the plain version keeps that rule, and so does the kernel on the
+    card (tests/test_torch_cuda.py). Staging from the memstore never
+    produces ties (partitions drop non-increasing rows)."""
     ts, vals, lens = duplicate_ts_block()
     t = [torch.from_numpy(a) for a in (ts, vals, vals.copy(), lens)]
     plain = WS.window_stats_plain(*t, 2000, 1000, 5000, 64)
