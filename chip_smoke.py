@@ -9,48 +9,70 @@ comes out.
 Phases (any failure raises and exits non-zero):
 
 1. Build ``filodb_tpu_torch/csrc/window_stats.cu`` and ``regular_range.cu``
-   with nvcc (both at once); print their ptxas lines and the card's name
+   with nvcc (both at once) and bind their three entry points
+   (``filodb_window_stats``, ``filodb_window_range_aggregate``,
+   ``filodb_regular_range``); print their ptxas lines and the card's name
    and power limit.
-2. Window stats, kernel vs plain on seeded irregular blocks, S in {1, 65,
-   4096} and T in {128, 768}, gauge and counter data: count exact,
-   first/last timestamps bit-equal, the other planes within rtol 2e-4 /
-   atol 1e-4, NaN masks equal; and one block with tied timestamps, where
-   the kernel sums the tied first/last values as the plain version does.
+2. Window stats (the nine-plane kernel), kernel vs plain on seeded
+   irregular blocks, S in {1, 65, 4096} and T in {128, 768}, gauge and
+   counter data: count exact, first/last timestamps bit-equal, the other
+   planes within rtol 2e-4 / atol 1e-4, NaN masks equal; and one block
+   with tied timestamps, where the kernel sums the tied first/last values
+   as the plain version does.
+2b. The fused window-stats kernel (``window_range_aggregate``) vs
+   ``window_range_aggregate_plain``: every function of ``PALLAS_FUNCS`` x
+   sum/count/avg/min/max over a gauge block (NaN samples) and a counter
+   block (raw near zero, so the zero-crossing cap engages), both with
+   tied timestamps, a row with no sample, padded trash rows and a grid
+   that starts before the first sample and ends past the last (empty
+   windows); G in {1, 8} (shared-memory partials), 120 and S (above the
+   shared-memory budget: global atomics). NaN masks equal; rtol 2e-4 /
+   atol 1e-4 at G = S; elsewhere rtol 1e-3 (atomics reorder a group's f32
+   sums) with atol 1e-5 of the largest |value| (sums that cancel).
 3. Regular range kernel vs plain on seeded blocks on one shared 10 s grid,
    same S and T: every function of ``FUSED_MXU_FUNCS`` over gauge,
    corrected-counter and diff-counter blocks with each row its own group
-   (G = S, so no atomic reorders a sum; rtol 2e-4 / atol 1e-4, NaN masks
-   equal), and each op sum/count/avg/min/max with G in {1, 8} (rtol 1e-3:
-   atomics reorder the f32 sums of a group).
+   (G = S, bit-equal to the plain version: max_abs_err 0 is printed;
+   rtol 2e-4 / atol 1e-4 asserted, NaN masks equal), and each op
+   sum/count/avg/min/max at G in {1, 8} (shared-memory partials) and at a
+   G past the shared-memory budget (global atomics; rtol 1e-3: atomics
+   reorder the f32 sums of a group).
 4. Irregular main path: 100k ``http_requests_total`` counter series on 8
    shards, 720 samples each at irregular 5-15 s intervals, ingested through
    ``TimeSeriesShard.ingest_series``; ``sum(rate(...[5m]))`` and
    ``sum by (zone) (rate(...[5m]))`` through ``QueryEngine`` on the card.
-   Each query must launch the window-stats kernel exactly once, and its
-   [G, J] result must match the same superblock run through the plain
-   window stats, finish and segment aggregate (rtol 1e-3: index_add_
-   atomics reorder the f32 sums; NaN masks equal). Prints the window-stats
-   kernel's time (median of 20 after warm-up) beside its bound: the bytes
-   the query needs (each real sample's ts, value and raw value read once,
-   the nine planes written once at [series, steps]), with the padded bound
-   beside it.
+   Each query must launch the fused window-stats kernel exactly once and
+   neither the nine-plane nor the regular kernel, and its [G, J] result
+   must match the same superblock through ``window_range_aggregate_plain``
+   (rtol 1e-3: atomics reorder the f32 sums; NaN masks equal). Prints, per
+   query, the fused kernel's time (the median of 20 calls after warm-up,
+   each between two CUDA events, which counts the launch's host work; and
+   per call over 50 back-to-back launches, where that work hides behind
+   the previous kernel), the device path's and the bound: the bytes the
+   query needs (each real sample's ts, value and raw value, each series'
+   length and gid read once, [G, J] written once). Then the nine-plane
+   kernel at the same shape, its time beside its bound.
 5. Regular main path: bench.py's own store, as its ``build_memstore``
    builds it with jitter 0: the same 100k counters with 720 samples each at exactly 10 s
    from ``BASE``, values ``cumsum(uniform(0, 10)) + 1e9``. Each of the two
    queries must be classed ``regular``, take the ``mxu`` rung, launch the
-   regular kernel exactly once and window stats never, and match both the
-   plain path on the card and the window-stats rung on the same superblock
-   (rtol 1e-3). Prints staging seconds, device-path ms, the kernel's ms
-   (median of 20) on ``sum(rate)`` and on ``sum(sum_over_time)``, the plain
-   path's ms, ``torch.matmul(vals, W)`` (cuBLAS f32, TF32 off: the JAX
-   package's window sums) and the bounds: the 32-byte sectors of vals (and
+   regular kernel exactly once and no window-stats kernel, and match both
+   the plain path on the card and the window-stats rung on the same
+   superblock (rtol 1e-3). Prints staging seconds and, per query, the
+   device path's ms, the kernel's ms (median of 20, and back to back) and
+   the bound; then
+   ``sum(sum_over_time)``'s kernel ms and bound, the plain path's ms, and
+   ``torch.matmul(vals, W)`` (cuBLAS f32, TF32 off: the JAX package's
+   window sums). A regular bound counts the 32-byte sectors of vals (and
    raw) the function reads over the real rows, gids and the outputs, from
    the query's window bounds.
 
-Prints, in order at the end: one JSON object with the kernels' numbers, the
-card's name and power limit as nvidia-smi gives them, and the result line
-``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, where
-no CUDA device is available.
+Around every timed phase it prints the card's SM and memory clocks,
+temperature and power draw (nvidia-smi), before and after. Prints, in
+order at the end: one JSON object with the kernels' numbers, the card's
+name and power limit as nvidia-smi gives them, and the result line
+``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
+where no CUDA device is available.
 """
 
 from __future__ import annotations
@@ -77,7 +99,7 @@ QUERIES = (
     "sum(rate(http_requests_total[5m]))",
     "sum by (zone) (rate(http_requests_total[5m]))",
 )
-KERNELS = ("window_stats", "regular_range")
+SOURCES = ("window_stats", "regular_range")  # csrc/<name>.cu
 START_S = (BASE + 400_000) / 1000  # bench.py's range
 END_S = (BASE + N_SAMPLES * 10_000 - 200_000) / 1000
 
@@ -112,6 +134,24 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
+def back_to_back_ms(fn, reps: int = 50) -> float:
+    """Device time per call of ``fn`` launched ``reps`` times back to back
+    between two CUDA events: each call's host work overlaps the previous
+    call's kernel, so for a kernel longer than its launch this is the
+    kernel's own time (``cuda_ms`` also counts the launch's host work)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def compare(got, want, what: str, rtol: float, atol: float = 0.0) -> float:
     """NaN masks equal and values within rtol/atol; returns the largest
     absolute difference."""
@@ -142,17 +182,36 @@ def compare_stats(got: dict, want: dict, rtol: float = 2e-4, atol: float = 1e-4)
 
 
 def build_kernels() -> None:
-    """Build every kernel at once (one nvcc each) and print ptxas's lines."""
+    """Build both sources at once (one nvcc each), bind the three entry
+    points and print ptxas's lines."""
     from filodb_tpu_torch.ops import cuda_build
+    from filodb_tpu_torch.ops import mxu_kernels as MK
+    from filodb_tpu_torch.ops import window_stats as WS
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        libs = list(pool.map(cuda_build.build, KERNELS))
-    print(f"phase1 built {', '.join(l.name for l in libs)} in {time.perf_counter() - t0:.1f} s")
-    for name in KERNELS:
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        libs = list(pool.map(cuda_build.build, SOURCES))
+    ws_lib, mk_lib = WS._load(), MK._load()
+    entries = [ws_lib.filodb_window_stats, ws_lib.filodb_window_range_aggregate,
+               mk_lib.filodb_regular_range]
+    print(f"phase1 built {', '.join(l.name for l in libs)} in {time.perf_counter() - t0:.1f} s; "
+          f"entry points {', '.join(e.__name__ for e in entries)}")
+    for name in SOURCES:
+        entry = ""
         for line in cuda_build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"phase1 ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "registers" in line or "spill" in line:
+                print(f"phase1 ptxas {name} {entry}: {line.strip()}")
+
+
+def gpu_sample(tag: str) -> None:
+    """Print the card's clocks, temperature and power draw beside a timed
+    phase (kernel times moved 10-25 % between calls on unchanged code)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,temperature.gpu,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True, timeout=60)
+    print(f"clocks {tag}: sm, mem, temperature, power = {out.stdout.strip().splitlines()[0]}")
 
 
 def random_block(S: int, T: int, counter: bool, rng, device):
@@ -218,6 +277,78 @@ def phase_window_stats_vs_plain(seed: int, device) -> None:
     print(f"phase2 tied timestamps: kernel equals plain, v_first/raw_first/v_last = {first}")
 
 
+def fused_block(n_real: int, S: int, T: int, counter: bool, rng, device):
+    """Seeded irregular rows for the fused phase, through the port's
+    ``block_from_arrays``: ragged lengths, a row with no sample, tied
+    timestamps in every fifth row, NaN samples in gauges, raw values near
+    zero at the start of counter rows (the zero-crossing cap), and rows
+    past ``n_real`` padded (the trash group)."""
+    from filodb_tpu_torch.ops.staging import TS_PAD, block_from_arrays
+
+    lens = np.zeros(S, np.int32)
+    lens[:n_real] = rng.integers(T // 2, T + 1, n_real)
+    lens[n_real // 2] = 0
+    gaps = rng.integers(5_000, 15_001, (S, T))
+    gaps[::5, 7::31] = 0  # ties: a sample at its predecessor's timestamp
+    real = rng.integers(0, 20_000, (S, 1)) + np.cumsum(gaps, axis=1)
+    mask = np.arange(T)[None, :] < lens[:, None]
+    ts = np.where(mask, real, int(TS_PAD)).astype(np.int32)
+    raw = None
+    if counter:
+        vals = np.cumsum(rng.uniform(0, 10, (S, T)), axis=1)
+        raw = np.where(mask, vals + rng.uniform(0, 5, (S, 1)), 0).astype(np.float32)
+    else:
+        vals = 50 + 20 * rng.standard_normal((S, T))
+        vals[::3, 11::17] = np.nan
+    vals = np.where(mask, vals, 0).astype(np.float32)
+    return block_from_arrays(ts, vals, lens, BASE, np.zeros(S, np.float32), n_real, raw=raw,
+                             device=device)
+
+
+def phase_fused_vs_plain(seed: int, device) -> float:
+    """The fused window-stats kernel against its plain version; returns the
+    largest absolute difference."""
+    import torch
+
+    from filodb_tpu_torch.ops import window_stats as WS
+    from filodb_tpu_torch.ops.kernels import RangeParams
+
+    rng = np.random.default_rng(seed + 2)
+    n_real, S, T = 300, 512, 384
+    # from 200 s before the first sample to past the last one: empty windows
+    params = RangeParams(BASE - 200_000, 60_000, 80, WINDOW_MS)
+    worst = 0.0
+    for counter in (False, True):
+        block = fused_block(n_real, S, T, counter, rng, device)
+        for G in (1, 8, 120, n_real):
+            gids = torch.full((S,), G, dtype=torch.int64, device=device)
+            own = G == n_real
+            gids[:n_real] = (torch.arange(n_real, device=device) if own else
+                             torch.from_numpy(rng.integers(0, G, n_real)).to(device))
+            variants = set()
+            for func in sorted(WS.PALLAS_FUNCS):
+                for op in ("sum", "count", "avg", "min", "max"):
+                    got = WS.window_range_aggregate(func, op, block, gids, G, params,
+                                                    is_counter=counter)
+                    variants.add(WS.LAST_PLAN.partials)
+                    want = WS.window_range_aggregate_plain(func, op, block, gids, G, params,
+                                                           is_counter=counter)
+                    what = f"{op}({func}) G={G} {'counter' if counter else 'gauge'}"
+                    if own:
+                        err = compare(got, want, what, rtol=2e-4, atol=1e-4)
+                    else:
+                        scale = float(torch.nan_to_num(want, nan=0.0).abs().max())
+                        err = compare(got, want, what, rtol=1e-3, atol=1e-5 * scale)
+                    worst = max(worst, err)
+            want_variant = "shared" if G <= 8 else "global"
+            require(variants == {want_variant}, f"G={G}: group partials {variants}")
+            print(f"phase2b {'counter' if counter else 'gauge'} block [{S}, {T}] ({n_real} real "
+                  f"rows) G={G}: {len(WS.PALLAS_FUNCS)} functions x 5 ops match plain "
+                  f"({want_variant} partials, rows per tile {WS.LAST_PLAN.rows})")
+    print(f"phase2b fused kernel matches plain, max_abs_err={worst:.3g}")
+    return worst
+
+
 def regular_block(S: int, T: int, kind: str, rng, device):
     """``S`` seeded series on one shared 10 s grid, staged by the port so
     the block pads to width ``T``: gauges, or counters staged corrected or
@@ -237,8 +368,10 @@ def regular_block(S: int, T: int, kind: str, rng, device):
 
 
 def regular_plain(func, op, block, gids, G, params, is_counter):
-    """The regular rung's plain version: mxu_range_plain -> segment aggregate."""
+    """The regular rung's plain version: mxu_range_plain -> segment aggregate
+    (NaN past the query's steps, which the kernel does not compute)."""
     from filodb_tpu_torch.ops import aggregations as AGG
+    from filodb_tpu_torch.ops import group_acc as GA
     from filodb_tpu_torch.ops import mxu_kernels as MK
     from filodb_tpu_torch.ops.kernels import pad_steps
 
@@ -246,12 +379,13 @@ def regular_plain(func, op, block, gids, G, params, is_counter):
                             pad_steps(params.num_steps), params.window_ms)
     raw = block.raw if block.raw is not None else block.vals
     sj = MK.mxu_range_plain(func, block.vals, raw, wm, params.window_ms, is_counter=is_counter)
-    return AGG.apply_epilogue(sj, ("agg", op), gids, G)
+    return GA.mask_steps(AGG.apply_epilogue(sj, ("agg", op), gids, G), params.num_steps)
 
 
 def phase_regular_vs_plain(seed: int, device) -> None:
     import torch
 
+    from filodb_tpu_torch.ops import group_acc as GA
     from filodb_tpu_torch.ops import mxu_kernels as MK
     from filodb_tpu_torch.ops.kernels import RangeParams
 
@@ -275,12 +409,15 @@ def phase_regular_vs_plain(seed: int, device) -> None:
                     err = max(err, compare(got, want, f"{func} S={S} T={T} {kind}",
                                            rtol=2e-4, atol=1e-4))
                 func = group_func[kind]
-                for G in (1, 8):
+                g_big = GA.PARTIALS_BUDGET // (2 * params.num_steps * 4) + 1
+                for G in (1, 8, g_big):
                     gids = torch.full((s_pad,), G, dtype=torch.int64, device=device)
                     gids[:S] = torch.arange(S, device=device) % G
                     for op in ("sum", "count", "avg", "min", "max"):
                         got = MK.regular_range_aggregate(func, op, block, gids, G, params,
                                                          is_counter=counter)
+                        require(MK.LAST_PLAN.partials == ("global" if G == g_big else "shared"),
+                                f"G={G}: {MK.LAST_PLAN.partials} partials")
                         want = regular_plain(func, op, block, gids, G, params, counter)
                         compare(got, want, f"{op}({func}) G={G} S={S} T={T}", rtol=1e-3)
                 gids1 = torch.where(own < S, 0, 1)
@@ -289,7 +426,8 @@ def phase_regular_vs_plain(seed: int, device) -> None:
                 print(f"phase3 S={S} T={T} J={params.num_steps} {kind}: "
                       f"{len(MK.FUSED_MXU_FUNCS)} functions match plain at G=S "
                       f"(max_abs_err={err:.3g}); sum/count/avg/min/max of {func} match at "
-                      f"G=1, 8; sum({func}) kernel_ms={k_ms:.4f}")
+                      f"G=1, 8 (shared partials) and {g_big} (global); sum({func}) "
+                      f"kernel_ms={k_ms:.4f}")
 
 
 def build_memstore(n_series: int, n_samples: int, seed: int, regular: bool):
@@ -328,37 +466,35 @@ def build_memstore(n_series: int, n_samples: int, seed: int, regular: bool):
     return ms
 
 
-def device_path(entry, exec_plan):
-    """The exec node's device work on a staged superblock."""
+def path_args(entry, ex):
+    """``(gids, G, params)`` of the exec node's device work."""
     from filodb_tpu_torch.ops import aggregations as AGG
     from filodb_tpu_torch.ops.kernels import RangeParams
 
-    gids, G, _ = AGG.group_ids_memo(entry.block, entry.labels, exec_plan.by,
-                                    exec_plan.without, strip_metric=True)
-    params = RangeParams(exec_plan.start_ms, exec_plan.step_ms, exec_plan.num_steps(),
-                         exec_plan.window_ms)
-    return AGG.fused_range_aggregate(exec_plan.function, exec_plan.op, entry.block, gids, G,
-                                     params, is_counter=entry.is_counter)
-
-
-def window_stats_path(entry, exec_plan, plain: bool):
-    """The exec node's work on the window-stats rung: stats (the kernel, or
-    its plain version) -> finish -> slice -> segment aggregate."""
-    from filodb_tpu_torch.ops import aggregations as AGG
-    from filodb_tpu_torch.ops import window_stats as WS
-    from filodb_tpu_torch.ops.kernels import pad_steps
-
-    block = entry.block
-    j_pad = pad_steps(exec_plan.num_steps())
-    start_off = exec_plan.start_ms - block.base_ms
-    stats = (WS.window_stats_plain if plain else WS.window_stats)(
-        block.ts, block.vals, block.raw, block.lens, start_off, exec_plan.step_ms,
-        exec_plan.window_ms, j_pad)
-    sj = WS.finish(exec_plan.function or "last", stats, start_off, exec_plan.step_ms, exec_plan.window_ms,
-                   is_counter=entry.is_counter)[: block.vals.shape[0], :j_pad]
-    gids, G, _ = AGG.group_ids_memo(block, entry.labels, exec_plan.by, exec_plan.without,
+    gids, G, _ = AGG.group_ids_memo(entry.block, entry.labels, ex.by, ex.without,
                                     strip_metric=True)
-    return AGG.apply_epilogue(sj, ("agg", exec_plan.op), gids, G)[:, : exec_plan.num_steps()]
+    return gids, G, RangeParams(ex.start_ms, ex.step_ms, ex.num_steps(), ex.window_ms)
+
+
+def device_path(entry, ex):
+    """The exec node's device work on a staged superblock."""
+    from filodb_tpu_torch.ops import aggregations as AGG
+
+    gids, G, params = path_args(entry, ex)
+    return AGG.fused_range_aggregate(ex.function, ex.op, entry.block, gids, G, params,
+                                     is_counter=entry.is_counter, is_delta=entry.is_delta)
+
+
+def window_range_path(entry, ex, plain: bool):
+    """The window-stats rung on the exec node's superblock: the fused
+    kernel, or its plain version, sliced to the query's steps."""
+    from filodb_tpu_torch.ops import window_stats as WS
+
+    gids, G, params = path_args(entry, ex)
+    fn = WS.window_range_aggregate_plain if plain else WS.window_range_aggregate
+    out = fn(ex.function, ex.op, entry.block, gids, G, params, is_counter=entry.is_counter,
+             is_delta=entry.is_delta)
+    return out[:, : ex.num_steps()]
 
 
 def run_queries(engine, phase: str, rung: str) -> dict:
@@ -370,8 +506,9 @@ def run_queries(engine, phase: str, rung: str) -> dict:
     from filodb_tpu_torch.ops import window_stats as WS
     from filodb_tpu_torch.ops.staging import grid_class
 
-    counters = {"window_stats": WS, "regular_range": MK}
-    kernel = "regular_range" if rung == "mxu" else "window_stats"
+    counters = {"window_stats": (WS, "LAUNCHES"), "window_range": (WS, "RANGE_LAUNCHES"),
+                "regular_range": (MK, "LAUNCHES")}
+    kernel = "regular_range" if rung == "mxu" else "window_range"
     want_class = "regular" if rung == "mxu" else "irregular"
     seen = []
     ladder = AGG.grid_variant
@@ -386,13 +523,13 @@ def run_queries(engine, phase: str, rung: str) -> dict:
     try:
         for q in QUERIES:
             seen.clear()
-            for mod in counters.values():
-                mod.LAUNCHES = 0
+            for mod, attr in counters.values():
+                setattr(mod, attr, 0)
             t0 = time.perf_counter()
             res = engine.query_range(q, START_S, END_S, STEP_S)
             vals = res.grids[0].values_np()
             wall = time.perf_counter() - t0
-            counts = {name: mod.LAUNCHES for name, mod in counters.items()}
+            counts = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
             require(seen == [(want_class, rung)],
                     f"{q}: grid class and rung {seen}, expected {[(want_class, rung)]}")
             require(counts == {k: int(k == kernel) for k in counters},
@@ -431,10 +568,12 @@ def stage_again(engine, q: str):
     return ex, entry, time.perf_counter() - t0
 
 
-def phase_irregular_path(seed: int, device) -> dict:
+def phase_irregular_path(seed: int, device) -> tuple[dict, dict]:
     import torch
 
     from filodb_tpu_torch.coordinator.planner import QueryEngine
+    from filodb_tpu_torch.ops import group_acc as GA
+    from filodb_tpu_torch.ops import window_stats as WS
     from filodb_tpu_torch.ops.kernels import pad_steps
 
     t0 = time.perf_counter()
@@ -445,31 +584,73 @@ def phase_irregular_path(seed: int, device) -> dict:
     require(engine.device == device, f"the engine runs on {engine.device}, not {device}")
     run = run_queries(engine, "phase4", "window_stats")
 
-    # the same superblock through the plain window stats on the card
-    kernel_row = None
+    per_query, err, row, ws_row = {}, 0.0, None, None
     for q in QUERIES:
         ex, entry, stage_s = stage_again(engine, q)
-        dev_ms = cuda_ms(lambda: device_path(entry, ex), reps=5)
-        print(f"phase4 {q!r}: superblock staged in {stage_s:.2f} s (host gather, "
-              f"stage, copy); device path (window stats + finish + aggregate) {dev_ms:.3f} ms")
-        want = window_stats_path(entry, ex, plain=True)
+        block = entry.block
+        gids, G, params = path_args(entry, ex)
+        acc, cnt = GA.accumulators(ex.op, G, pad_steps(params.num_steps), device)
+        gpu_sample(f"phase4 {q!r} before")
+        dev_ms = cuda_ms(lambda: device_path(entry, ex), reps=20)
+        dev_b2b = back_to_back_ms(lambda: device_path(entry, ex))
+        def kernel():
+            WS._launch_range(ex.function, ex.op, block, gids, G, params, entry.is_counter,
+                             entry.is_delta, acc, cnt)
+
+        k_ms = cuda_ms(kernel, reps=20)
+        k_b2b = back_to_back_ms(kernel)
+        gpu_sample(f"phase4 {q!r} after")
+        plan = WS.LAST_PLAN
         got = torch.as_tensor(run["results"][q].grids[0].values_np(), device=device)
-        compare(got, want, q, rtol=1e-3)
-        print(f"phase4 {q!r}: [G, J] matches the plain path (rtol 1e-3)")
-        if kernel_row is None:
-            kernel_row = time_window_stats(entry.block, len(entry.labels), ex,
-                                           j_pad=pad_steps(ex.num_steps()))
-    kernel_row["launches"] = run["launches"]
-    return kernel_row
+        err = max(err, compare(got, window_range_path(entry, ex, plain=True), q, rtol=1e-3))
+        n, J = len(entry.labels), ex.num_steps()
+        real = int(block.lens.sum())
+        # ts + vals + raw per real sample, lens + gids per series, [G, J] out
+        need = real * 12 + n * 12 + G * J * 4
+        bound_ms = need / HBM_BYTES_PER_S * 1e3
+        print(f"phase4 {q!r}: superblock {list(block.shape)} staged in {stage_s:.2f} s (host "
+              f"gather, stage, copy); [G, J] matches the plain path (rtol 1e-3); "
+              f"window_range kernel {k_ms:.4f} ms (median of 20; {k_b2b:.4f} ms back to back; "
+              f"{plan.partials} partials, {plan.rows} rows per tile), device path (kernel + "
+              f"[G, J] finish) {dev_ms:.4f} ms ({dev_b2b:.4f} ms back to back), "
+              f"bound {bound_ms:.4f} ms ({need} bytes at 3.35 TB/s: {real} real samples, "
+              f"{n} series, {G} groups x {J} steps)")
+        per_query[q] = {"kernel_ms": k_ms, "kernel_ms_back_to_back": k_b2b,
+                        "device_path_ms": dev_ms, "device_path_ms_back_to_back": dev_b2b,
+                        "bound_ms": bound_ms, "groups": G,
+                        "partials": plan.partials}
+        if row is None:
+            p_ms = cuda_ms(lambda: window_range_path(entry, ex, plain=True), reps=3, warmup=1)
+            print(f"phase4 window_range plain (window_stats_plain -> finish -> segment "
+                  f"aggregate) {p_ms:.2f} ms")
+            row = {
+                "name": "window_range",
+                "route": "cuda",
+                "source": "filodb_tpu_torch/csrc/window_stats.cu",
+                "replaces": "filodb_tpu/ops/pallas_kernels.py:33",
+                "launches": run["launches"],
+                "max_abs_err": 0.0,
+                "ms": k_ms,
+                "plain_ms": p_ms,
+                "bound_ms": bound_ms,
+                "bound_by": "bytes",
+                "library_ms": None,
+            }
+            gpu_sample("phase4 window_stats before")
+            ws_row = time_window_stats(block, n, ex, j_pad=pad_steps(J))
+            gpu_sample("phase4 window_stats after")
+    row["max_abs_err"] = err
+    row["queries"] = per_query
+    return row, ws_row
 
 
 def time_window_stats(block, n_series: int, ex, j_pad: int) -> dict:
-    """Kernel vs plain at the main path's shape, with the kernel's time and
-    its bound: the bytes the query needs, each real sample's ts, value and
-    raw value and each series' length read once, and the nine planes
-    written once at [n_series, num_steps]. The padded rows and steps the
-    kernel also writes (sliced off or sent to the trash group after) are
-    printed as a second, padded bound."""
+    """The nine-plane kernel vs plain at the main path's shape, with the
+    kernel's time and its bound: the bytes the function needs, each real
+    sample's ts, value and raw value and each series' length read once,
+    and the nine planes written once at [n_series, num_steps]. The padded
+    rows and steps the kernel also writes are printed as a second, padded
+    bound. It is not on the main path: 0 launches there."""
     from filodb_tpu_torch.ops import window_stats as WS
 
     S, T = block.ts.shape
@@ -484,17 +665,11 @@ def time_window_stats(block, n_series: int, ex, j_pad: int) -> dict:
     in_bytes = real * 12 + n_series * 4  # ts+vals+raw per real sample, lens per series
     need_bytes = in_bytes + 9 * n_series * J * 4
     padded_bytes = in_bytes + 9 * S * j_pad * 4
-    block_bytes = 3 * S * T * 4 + S * 4
     bound_ms = need_bytes / HBM_BYTES_PER_S * 1e3
     padded_ms = padded_bytes / HBM_BYTES_PER_S * 1e3
-    print(f"phase4 superblock [{S}, {T}] for {n_series} series ({real} real samples), "
-          f"{block_bytes} bytes staged (ts+vals+raw+lens); stats planes 9 x [{S}, {j_pad}] f32 "
-          f"= {9 * S * j_pad * 4} bytes written, of which 9 x [{n_series}, {J}] needed")
-    print(f"phase4 window_stats kernel: {k_ms:.4f} ms (median of 20), plain {p_ms:.2f} ms, "
-          f"bound {bound_ms:.4f} ms ({need_bytes} bytes at 3.35 TB/s; padded bound "
-          f"{padded_ms:.4f} ms, {padded_bytes} bytes, padding "
-          f"{(padded_bytes - need_bytes) / padded_bytes:.1%} of them), "
-          f"max_abs_err vs plain {err:.3g}")
+    print(f"phase4 window_stats (nine planes) kernel: {k_ms:.4f} ms (median of 20), plain "
+          f"{p_ms:.2f} ms, bound {bound_ms:.4f} ms ({need_bytes} bytes at 3.35 TB/s; padded "
+          f"bound {padded_ms:.4f} ms, {padded_bytes} bytes), max_abs_err vs plain {err:.3g}")
     return {
         "name": "window_stats",
         "route": "cuda",
@@ -534,9 +709,9 @@ def phase_regular_path(seed: int, device) -> dict:
     import torch
 
     from filodb_tpu_torch.coordinator.planner import QueryEngine
-    from filodb_tpu_torch.ops import aggregations as AGG
+    from filodb_tpu_torch.ops import group_acc as GA
     from filodb_tpu_torch.ops import mxu_kernels as MK
-    from filodb_tpu_torch.ops.kernels import RangeParams, pad_steps
+    from filodb_tpu_torch.ops.kernels import pad_steps
 
     t0 = time.perf_counter()
     ms = build_memstore(N_SERIES, N_SAMPLES, seed, regular=True)
@@ -545,48 +720,61 @@ def phase_regular_path(seed: int, device) -> dict:
     engine = QueryEngine(ms, "prometheus")
     run = run_queries(engine, "phase5", "mxu")
 
-    row = None
+    row, per_query = None, {}
     for q in QUERIES:
         ex, entry, stage_s = stage_again(engine, q)
         block = entry.block
-        dev_ms = cuda_ms(lambda: device_path(entry, ex), reps=20)
-        print(f"phase5 {q!r}: superblock {list(block.shape)} staged in {stage_s:.2f} s "
-              f"(host gather, stage, copy); device path (regular kernel + [G, J] finish) "
-              f"{dev_ms:.4f} ms")
-        gids, G, _ = AGG.group_ids_memo(block, entry.labels, ex.by, ex.without, strip_metric=True)
-        params = RangeParams(ex.start_ms, ex.step_ms, ex.num_steps(), ex.window_ms)
+        gids, G, params = path_args(entry, ex)
         J = ex.num_steps()
         got = torch.as_tensor(run["results"][q].grids[0].values_np(), device=device)
         want = regular_plain(ex.function, ex.op, block, gids, G, params, entry.is_counter)[:, :J]
         err = compare(got, want, f"{q} vs plain", rtol=1e-3)
-        compare(got, window_stats_path(entry, ex, plain=False), f"{q} vs window stats",
+        compare(got, window_range_path(entry, ex, plain=False), f"{q} vs window stats",
                 rtol=1e-3)
-        print(f"phase5 {q!r}: [G, J] matches the plain path (max_abs_err {err:.3g}) and the "
-              f"window-stats rung on the same superblock (rtol 1e-3)")
         wm = MK.window_matrices(block, ex.start_ms - block.base_ms, ex.step_ms,
                                 pad_steps(J), ex.window_ms)
         raw = block.raw if block.raw is not None else block.vals
+        acc, cnt = GA.accumulators(ex.op, G, pad_steps(J), device)
 
         def kernel(func):
-            return lambda: MK._launch(func, ex.op, block.vals, raw, gids, G, wm,
-                                      entry.is_counter, False)
+            return lambda: MK._launch(func, ex.op, block.vals, raw, gids, G, wm, J,
+                                      entry.is_counter, entry.is_delta, acc, cnt)
 
+        gpu_sample(f"phase5 {q!r} before")
+        dev_ms = cuda_ms(lambda: device_path(entry, ex), reps=20)
+        dev_b2b = back_to_back_ms(lambda: device_path(entry, ex))
         k_ms = cuda_ms(kernel("rate"), reps=20)
-        print(f"phase5 {q!r}: regular_range kernel {k_ms:.4f} ms (median of 20, {G} groups)")
-        if row is not None:
-            continue
-        s_ms = cuda_ms(kernel("sum_over_time"), reps=20)
-        p_ms = cuda_ms(lambda: regular_plain("rate", ex.op, block, gids, G, params,
-                                             entry.is_counter), reps=3, warmup=1)
-        lib_ms = cuda_ms(lambda: torch.matmul(block.vals, wm.W), reps=20)
+        k_b2b = back_to_back_ms(kernel("rate"))
+        gpu_sample(f"phase5 {q!r} after")
+        plan = MK.LAST_PLAN
         n = len(entry.labels)
         rate_bytes = regular_bound_bytes(wm, n, J, G, "rate")
-        sum_bytes = regular_bound_bytes(wm, n, J, G, "sum_over_time")
         bound_ms = rate_bytes / HBM_BYTES_PER_S * 1e3
+        print(f"phase5 {q!r}: superblock {list(block.shape)} staged in {stage_s:.2f} s (host "
+              f"gather, stage, copy); [G, J] matches the plain path (max_abs_err {err:.3g}) "
+              f"and the window-stats rung on the same superblock (rtol 1e-3); regular_range "
+              f"kernel {k_ms:.4f} ms (median of 20; {k_b2b:.4f} ms back to back; "
+              f"{plan.partials} partials, {plan.rows} rows per tile), device path (kernel + "
+              f"[G, J] finish) {dev_ms:.4f} ms ({dev_b2b:.4f} ms back to back), bound "
+              f"{bound_ms:.4f} ms ({rate_bytes} bytes at 3.35 TB/s, {G} groups)")
+        per_query[q] = {"kernel_ms": k_ms, "kernel_ms_back_to_back": k_b2b,
+                        "device_path_ms": dev_ms, "device_path_ms_back_to_back": dev_b2b,
+                        "bound_ms": bound_ms, "groups": G,
+                        "partials": plan.partials}
+        if row is not None:
+            continue
+        gpu_sample("phase5 sum_over_time before")
+        s_ms = cuda_ms(kernel("sum_over_time"), reps=20)
+        s_b2b = back_to_back_ms(kernel("sum_over_time"))
+        lib_ms = cuda_ms(lambda: torch.matmul(block.vals, wm.W), reps=20)
+        gpu_sample("phase5 sum_over_time after")
+        p_ms = cuda_ms(lambda: regular_plain("rate", ex.op, block, gids, G, params,
+                                             entry.is_counter), reps=3, warmup=1)
+        sum_bytes = regular_bound_bytes(wm, n, J, G, "sum_over_time")
         sum_bound_ms = sum_bytes / HBM_BYTES_PER_S * 1e3
-        print(f"phase5 regular_range on sum(rate): plain {p_ms:.3f} ms, bound {bound_ms:.4f} ms "
-              f"({rate_bytes} bytes at 3.35 TB/s)")
-        print(f"phase5 regular_range kernel on sum(sum_over_time): {s_ms:.4f} ms (median of 20), "
+        print(f"phase5 regular_range on sum(rate): plain {p_ms:.3f} ms")
+        print(f"phase5 regular_range kernel on sum(sum_over_time): {s_ms:.4f} ms (median of 20; "
+              f"{s_b2b:.4f} ms back to back), "
               f"bound {sum_bound_ms:.4f} ms ({sum_bytes} bytes); torch.matmul(vals, W) "
               f"[{block.shape[0]}, {block.shape[1]}] x [{block.shape[1]}, {pad_steps(J)}] "
               f"(cuBLAS f32, TF32 off) {lib_ms:.4f} ms")
@@ -595,7 +783,7 @@ def phase_regular_path(seed: int, device) -> dict:
             "route": "cuda",
             "source": "filodb_tpu_torch/csrc/regular_range.cu",
             "replaces": "filodb_tpu/ops/mxu_kernels.py:250",
-            "launches": 0,
+            "launches": run["launches"],
             "max_abs_err": err,
             "ms": k_ms,
             "plain_ms": p_ms,
@@ -604,9 +792,10 @@ def phase_regular_path(seed: int, device) -> dict:
             "library_ms": lib_ms,
             "library_call": "torch.matmul(vals, W): the window sums of sum_over_time",
             "sum_over_time_ms": s_ms,
+            "sum_over_time_ms_back_to_back": s_b2b,
             "sum_over_time_bound_ms": sum_bound_ms,
         }
-    row["launches"] = run["launches"]
+    row["queries"] = per_query
     return row
 
 
@@ -626,14 +815,17 @@ def main() -> int:
     card = card_line()
     print(f"phase1 card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    gpu_sample("phase2 before")
     phase_window_stats_vs_plain(args.seed, device)
+    phase_fused_vs_plain(args.seed, device)
     phase_regular_vs_plain(args.seed, device)
-    ws_row = phase_irregular_path(args.seed, device)
+    gpu_sample("phase3 after")
+    wr_row, ws_row = phase_irregular_path(args.seed, device)
     gc.collect()  # the irregular store goes before the regular one is built
     torch.cuda.empty_cache()
     reg_row = phase_regular_path(args.seed, device)
 
-    print(json.dumps({"kernels": [ws_row, reg_row]}))
+    print(json.dumps({"kernels": [ws_row, wr_row, reg_row]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

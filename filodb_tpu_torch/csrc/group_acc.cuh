@@ -1,0 +1,108 @@
+// Group partials of the port's fused range kernels (window_stats.cu's
+// filodb_window_range_aggregate and regular_range.cu), on Hopper (sm_90a).
+//
+// A kernel computes one range-function value v per (series row s, step j)
+// and reduces it straight into [G, J] group accumulators: acc (the sum,
+// min or max of the values) and cnt (how many there were). A NaN value
+// means absence and is skipped; a row whose group id lies outside [0, G)
+// (the trash group G of padded rows; jax.ops.segment_sum drops other ids
+// too) is skipped before any work.
+//
+// Two variants, chosen by the wrapper from G and J alone
+// (ops/group_acc.tile_plan):
+// - shared: a [G, J] acc/cnt pair in the block's dynamic shared memory,
+//   updated with shared-memory atomics and flushed to the global arrays
+//   once per persistent block (shared_flush). For grouped queries whose
+//   groups interleave row by row (sum by (zone)), no global atomic is
+//   issued per row.
+// - global: every value goes to the global [G+1, ld] arrays with global
+//   atomics. For G too large for shared memory, up to one group per
+//   series, where groups are many and each address sees few updates.
+// Both go through Sink::add, so the two variants differ only in where the
+// accumulators live.
+//
+// min/max use ordered-int atomics: a float with its sign bit clear orders
+// as a signed int, one with it set orders reversed as an unsigned int.
+// They work on shared and global addresses alike.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace group_acc {
+
+// group accumulators (ops/group_acc.py ACC_CODES)
+enum Acc { ACC_ADD = 0, ACC_MIN, ACC_MAX };
+
+__device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
+__device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
+// minimum that propagates NaN, as torch.minimum / jnp.minimum
+__device__ __forceinline__ float nan_min(float a, float b) {
+    return (isnan(a) || isnan(b)) ? nan_f() : fminf(a, b);
+}
+
+// accumulator identity: 0, +inf (min) or -inf (max)
+__device__ __forceinline__ float identity(int acc_op) {
+    return acc_op == ACC_MIN ? inf_f() : (acc_op == ACC_MAX ? -inf_f() : 0.0f);
+}
+
+__device__ __forceinline__ void atomic_min_f32(float* addr, float v) {
+    if (__float_as_int(v) >= 0) atomicMin((int*)addr, __float_as_int(v));
+    else atomicMax((unsigned int*)addr, __float_as_uint(v));
+}
+__device__ __forceinline__ void atomic_max_f32(float* addr, float v) {
+    if (__float_as_int(v) >= 0) atomicMax((int*)addr, __float_as_int(v));
+    else atomicMin((unsigned int*)addr, __float_as_uint(v));
+}
+
+// fold `n` members with accumulated value `v` into acc/cnt at one address
+__device__ __forceinline__ void fold(float* acc, float* cnt, int acc_op, float v, float n) {
+    atomicAdd(cnt, n);
+    if (acc_op == ACC_ADD) atomicAdd(acc, v);
+    else if (acc_op == ACC_MIN) atomic_min_f32(acc, v);
+    else atomic_max_f32(acc, v);
+}
+
+// Where a kernel's values go: shared [G, J] partials (ld = J) or the
+// global [G+1, ld] arrays.
+struct Sink {
+    float* acc;
+    float* cnt;
+    int ld;
+    int acc_op;
+
+    __device__ __forceinline__ void add(int64_t g, int j, float v) const {
+        const int64_t i = g * ld + j;
+        fold(acc + i, cnt + i, acc_op, v, 1.0f);
+    }
+};
+
+// Set the shared partials to the identity (every thread of the block takes
+// part; the caller synchronises before the first add).
+__device__ __forceinline__ void shared_init(float* acc_s, float* cnt_s, int n, int acc_op) {
+    const float init = identity(acc_op);
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        acc_s[i] = init;
+        cnt_s[i] = 0.0f;
+    }
+}
+
+// Fold the block's shared [G, J] partials into the global [G+1, ld]
+// arrays: one atomic pair per (group, step) that received a value. The
+// caller synchronises after the last add.
+__device__ __forceinline__ void shared_flush(const float* acc_s, const float* cnt_s, int G,
+                                             int J, float* acc, float* cnt, int ld,
+                                             int acc_op) {
+    for (int i = threadIdx.x; i < G * J; i += blockDim.x) {
+        const float n = cnt_s[i];
+        if (n > 0.0f) {
+            const int g = i / J;
+            const int64_t o = (int64_t)g * ld + (i - g * J);
+            fold(acc + o, cnt + o, acc_op, acc_s[i], n);
+        }
+    }
+}
+
+}  // namespace group_acc

@@ -6,28 +6,37 @@
 // mxu_range_kernel (filodb_tpu/ops/mxu_kernels.py:250) and B3
 // _segment_aggregate_jit (filodb_tpu/ops/aggregations.py:49). Every real row
 // of the block shares one timestamp vector, so the window of step j is the
-// same index range [lo[j], hi[j]) in every row. For each (row s, step j) the
-// kernel computes the range function and reduces it straight into the
-// [G+1, J] group accumulators acc (sum, min or max) and cnt (valid
-// members); no [S, J] grid is written. The [G, J] finish (has = cnt > 0,
-// the avg division, NaN for empty groups) is a few torch ops in the wrapper.
+// same index range [lo[j], hi[j]) in every row. For each (row s, step j <
+// J) the kernel computes the range function and reduces it straight into
+// group accumulators acc (sum, min or max) and cnt (valid members); no
+// [S, J] grid is written. Steps past J (the padding up to the row stride
+// ld) are not computed. The [G, J] finish (has = cnt > 0, the avg
+// division, NaN for empty groups) is a few torch ops in the wrapper.
 //
 // Design. The TPU gathers with one-hot matmuls (vals @ F, vals @ L) and
 // sums windows with vals @ W. Here a load at lo[j], hi[j]-1 or hi[j]-2 is
-// the gather, and a loop over [lo[j], hi[j]) is the window sum, taken in
-// index order. One thread per (row, step): the threads of a block take 128
-// neighbouring steps, and each walks ROWS rows of a tile at its step,
-// keeping a running partial of its group. It flushes the partial with
-// atomicAdd (sum, count) or an ordered-int atomic (min, max) when the group
-// changes and at the end of the tile, so sum(...) (one group) flushes once
-// per tile. Rows of the trash group G (padding) are skipped outright, as
-// are group ids outside [0, G) (jax.ops.segment_sum drops them too).
+// the gather and a loop over [lo[j], hi[j]) the window sum, taken in index
+// order. A persistent grid of 256-thread blocks walks tiles of R rows
+// (row_tiles.cuh): each tile's columns [c0, c0+span) -- the span the
+// query's windows cover, so a row moves only the samples some window
+// reads -- of vals (and raw, when the counter zero-crossing cap reads it)
+// are staged into shared memory with double-buffered cp.async copies;
+// rows of the trash group copy nothing. The block's threads take the
+// tile's (row, step) pairs flattened row by row, so every lane has a pair
+// whatever J is (only the tile's last wave is partial), and neighbouring
+// lanes read neighbouring windows of one row. Gathers and window sums read
+// shared memory; lanes 6 samples apart (5 m windows at 60 s steps over a
+// 10 s grid) meet 2-way bank conflicts, which the copies still outlast.
+// Values reduce through group_acc.cuh: shared-memory partials flushed once
+// per block while 2*G*J*4 bytes fit the wrapper's budget, else global
+// atomics. Rows wider than the shared-memory budget are read in place
+// from device memory (STAGED = false), the same code on other pointers.
 //
 // Bound. Device-memory bytes: the sectors of vals (and of raw, for the
 // counter zero-crossing cap) that the function reads, gids, and the
-// outputs; a few dozen flops per (row, step). Neighbouring steps read
-// neighbouring samples of one row, so a warp's loads share sectors in
-// L1/L2. wgmma, TMA and a shared-memory row tile are later work.
+// outputs; a few dozen flops per (row, step). Staging the whole column
+// span moves a few percent more than the sectors a rate reads (172 of a
+// row's 192 sectors on the main path, against a span of ~173).
 //
 // Semantics kept line by line from mxu_range_kernel: f32 Prometheus
 // extrapolation of rate/increase/delta with the zero-crossing cap read from
@@ -41,7 +50,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "group_acc.cuh"
+#include "row_tiles.cuh"
+
 namespace {
+
+using group_acc::nan_min;
+using row_tiles::THREADS;
 
 // range functions (ops/mxu_kernels.py FUNC_CODES)
 enum Func {
@@ -49,190 +64,222 @@ enum Func {
     PRESENT_OVER_TIME, STDDEV_OVER_TIME, STDVAR_OVER_TIME, Z_SCORE, RATE,
     INCREASE, DELTA, IRATE, IDELTA,
 };
-// group accumulators (ops/mxu_kernels.py ACC_CODES)
-enum Acc { ACC_ADD = 0, ACC_MIN, ACC_MAX };
 
-constexpr int THREADS = 128;  // steps per block
-constexpr int ROWS = 64;      // rows a thread walks at its step
+struct RegularArgs {
+    const float* vals;
+    const float* raw;
+    const long long* gids;
+    const int32_t* lo;
+    const int32_t* hi;
+    const int32_t* idx;  // [3, ld]: first / last / second-to-last positions
+    const float* count;
+    const float* tf;
+    const float* tl;
+    const float* tl2;
+    const float* out_t;
+    int S, T, J, ld, G;
+    int c0, span;  // staged columns [c0, c0 + span)
+    float window_ms;
+    int func, acc_op, is_counter, is_delta;
+    int R;  // rows per tile
+    float* acc;
+    float* cnt;
+};
 
-__device__ __forceinline__ float nan_min(float a, float b) {  // as jnp.minimum
-    return (isnan(a) || isnan(b)) ? __int_as_float(0x7fc00000) : fminf(a, b);
+// functions whose value is a window sum of vals (mxu: vals @ W)
+__device__ __forceinline__ bool is_win_sum(const RegularArgs& a) {
+    return a.func == SUM_OVER_TIME || a.func == AVG_OVER_TIME ||
+           (a.is_delta && (a.func == RATE || a.func == INCREASE));
+}
+__device__ __forceinline__ bool is_extrap(const RegularArgs& a) {
+    return !is_win_sum(a) && (a.func == RATE || a.func == INCREASE || a.func == DELTA);
+}
+// the counter zero-crossing cap reads raw at the window's first sample
+__device__ __forceinline__ bool needs_raw(const RegularArgs& a) {
+    return is_extrap(a) && a.is_counter && a.func != DELTA;
 }
 
-// float min/max through integer atomics: a float with its sign bit clear
-// orders as a signed int, one with it set orders reversed as an unsigned int
-__device__ __forceinline__ void atomic_min_f32(float* addr, float v) {
-    if (__float_as_int(v) >= 0) atomicMin((int*)addr, __float_as_int(v));
-    else atomicMax((unsigned int*)addr, __float_as_uint(v));
-}
-__device__ __forceinline__ void atomic_max_f32(float* addr, float v) {
-    if (__float_as_int(v) >= 0) atomicMax((int*)addr, __float_as_int(v));
-    else atomicMin((unsigned int*)addr, __float_as_uint(v));
-}
-
-__global__ void __launch_bounds__(THREADS) regular_range_kernel(
-    const float* __restrict__ vals, const float* __restrict__ raw,
-    const int64_t* __restrict__ gids, const int32_t* __restrict__ lo_a,
-    const int32_t* __restrict__ hi_a, const int32_t* __restrict__ idx_a,
-    const float* __restrict__ count_a,
-    const float* __restrict__ tf_a, const float* __restrict__ tl_a,
-    const float* __restrict__ tl2_a, const float* __restrict__ out_t_a,
-    int S, int T, int J, int G, float window_ms, int func, int acc_op,
-    int is_counter, int is_delta, float* __restrict__ acc, float* __restrict__ cnt) {
-    const int j = blockIdx.y * THREADS + threadIdx.x;
-    if (j >= J) return;
-    const int s0 = blockIdx.x * ROWS;
-    const int s1 = min(S, s0 + ROWS);
-    const float NaN = __int_as_float(0x7fc00000);
-    const float INF = __int_as_float(0x7f800000);
-
-    const int lo = __ldg(lo_a + j), hi = __ldg(hi_a + j);
-    const float count = __ldg(count_a + j);
+// The range function of one row at step j. `row` and `rraw` hold the
+// row's columns [c0, c0 + span): sample k is at [k - c0].
+__device__ __forceinline__ float step_value(const RegularArgs& a, const float* row,
+                                            const float* rraw, int j) {
+    const float NaN = group_acc::nan_f();
+    const float INF = group_acc::inf_f();
+    const int func = a.func;
+    const float count = __ldg(a.count + j);
     const bool has = count > 0.0f;
     const bool has2 = count >= 2.0f;
-    // first / last / second-to-last positions, clipped to the row
-    const int iF = __ldg(idx_a + j), iL = __ldg(idx_a + J + j), iL2 = __ldg(idx_a + 2 * J + j);
-    const float w_s = window_ms * 1e-3f;
-
-    // functions whose value is a window sum of vals (mxu: vals @ W)
-    const bool win_sum = func == SUM_OVER_TIME || func == AVG_OVER_TIME ||
-                         (is_delta && (func == RATE || func == INCREASE));
-    const bool moments = func == STDDEV_OVER_TIME || func == STDVAR_OVER_TIME ||
-                         func == Z_SCORE;
-    const bool extrap = !win_sum && (func == RATE || func == INCREASE || func == DELTA);
-    const bool zero_cap = extrap && is_counter && func != DELTA;
-    const bool diff_idelta = func == IDELTA && is_counter && !is_delta;
-
-    // per-step terms of the extrapolation (mxu_kernels.py:324-333, :343)
-    float sampled = 0.0f, dur_start = 0.0f, avg_dur = 0.0f, thresh = 0.0f,
-          de = 0.0f, denom = 1.0f, dt_s = 1.0f;
-    if (extrap) {
-        const float tf = __ldg(tf_a + j) * 1e-3f;
-        const float tl = __ldg(tl_a + j) * 1e-3f;
-        const float out_t = __ldg(out_t_a + j);
-        sampled = tl - tf;
-        const float range_start = (out_t - window_ms) * 1e-3f;
+    if (func == COUNT_OVER_TIME) return has ? count : NaN;
+    if (func == PRESENT_OVER_TIME) return has ? 1.0f : NaN;
+    const int c0 = a.c0;
+    const int iF = __ldg(a.idx + j) - c0;
+    const int iL = __ldg(a.idx + a.ld + j) - c0;
+    const float w_s = a.window_ms * 1e-3f;
+    const bool moments = func == STDDEV_OVER_TIME || func == STDVAR_OVER_TIME || func == Z_SCORE;
+    if (is_win_sum(a) || moments) {
+        if (!has) return NaN;
+        const int lo = __ldg(a.lo + j) - c0, hi = __ldg(a.hi + j) - c0;
+        // in index order, two samples per 8-byte load where aligned: lanes
+        // at steps 6 samples apart then read conflict-free half-warps
+        float sm = 0.0f, sm2 = 0.0f;
+        int k = lo;
+        if ((k & 1) && k < hi) {
+            const float v = row[k++];
+            sm += v;
+            if (moments) sm2 += v * v;
+        }
+        for (; k + 1 < hi; k += 2) {
+            const float2 v = *reinterpret_cast<const float2*>(row + k);
+            sm += v.x;
+            if (moments) sm2 += v.x * v.x;
+            sm += v.y;
+            if (moments) sm2 += v.y * v.y;
+        }
+        if (k < hi) {
+            const float v = row[k];
+            sm += v;
+            if (moments) sm2 += v * v;
+        }
+        if (func == SUM_OVER_TIME || func == INCREASE) return sm;
+        if (func == RATE) return sm / w_s;
+        if (func == AVG_OVER_TIME) return sm / fmaxf(count, 1.0f);
+        const float c = fmaxf(count, 1.0f);
+        const float mean = sm / c;
+        const float var = fmaxf(sm2 / c - mean * mean, 0.0f);
+        const float sd = sqrtf(var);
+        if (func == STDVAR_OVER_TIME) return var;
+        if (func == STDDEV_OVER_TIME) return sd;
+        return (row[iL] - mean) / fmaxf(sd, 1e-30f);
+    }
+    if (func == LAST) return has ? row[iL] : NaN;
+    if (func == FIRST_OVER_TIME) return has ? row[iF] : NaN;
+    if (!has2) return NaN;  // extrapolation, irate and idelta need two samples
+    if (is_extrap(a)) {
+        // per-step terms of the extrapolation (mxu_kernels.py:324-333, :343)
+        const float tf = __ldg(a.tf + j) * 1e-3f;
+        const float tl = __ldg(a.tl + j) * 1e-3f;
+        const float out_t = __ldg(a.out_t + j);
+        const float sampled = tl - tf;
+        const float range_start = (out_t - a.window_ms) * 1e-3f;
         const float range_end = out_t * 1e-3f;
-        dur_start = tf - range_start;
+        const float dur_start = tf - range_start;
         const float dur_end = range_end - tl;
-        avg_dur = sampled / fmaxf(count - 1.0f, 1.0f);
-        thresh = avg_dur * 1.1f;
-        de = dur_end >= thresh ? avg_dur / 2.0f : dur_end;
-        denom = fmaxf(sampled, 1e-30f);
-    } else if (func == IRATE || func == IDELTA) {
-        dt_s = (__ldg(tl_a + j) - __ldg(tl2_a + j)) * 1e-3f;
+        const float avg_dur = sampled / fmaxf(count - 1.0f, 1.0f);
+        const float thresh = avg_dur * 1.1f;
+        const float de = dur_end >= thresh ? avg_dur / 2.0f : dur_end;
+        const float vf = row[iF];
+        const float dlt = row[iL] - vf;
+        float ds = dur_start;
+        if (needs_raw(a)) {
+            const float vfr = rraw[iF];
+            const float dur_zero = dlt > 0.0f ? sampled * (vfr / fmaxf(dlt, 1e-30f)) : INF;
+            ds = nan_min(dur_start, vfr >= 0.0f ? dur_zero : INF);
+        }
+        ds = ds >= thresh ? avg_dur / 2.0f : ds;
+        const float factor = (sampled + ds + de) / fmaxf(sampled, 1e-30f);
+        const float r = dlt * factor;
+        return func == RATE ? r / w_s : r;
     }
+    if (func == IDELTA && a.is_counter && !a.is_delta) return row[iL];  // diff-staged counter
+    // irate, idelta
+    const float dv = row[iL] - row[__ldg(a.idx + 2 * a.ld + j) - c0];
+    if (func == IDELTA) return dv;
+    const float dt_s = (__ldg(a.tl + j) - __ldg(a.tl2 + j)) * 1e-3f;
+    return dv / fmaxf(dt_s, 1e-30f);
+}
 
-    const float init = acc_op == ACC_MIN ? INF : (acc_op == ACC_MAX ? -INF : 0.0f);
-    float part = init, part_n = 0.0f;
-    int64_t g_cur = -1;
-    for (int s = s0; s < s1; ++s) {
-        const int64_t g = __ldg((const long long*)gids + s);
-        if (g < 0 || g >= (int64_t)G) continue;  // trash group G (padding) or no group
-        if (g != g_cur) {
-            if (g_cur >= 0 && part_n > 0.0f) {
-                float* a = acc + g_cur * J + j;
-                atomicAdd(cnt + g_cur * J + j, part_n);
-                if (acc_op == ACC_ADD) atomicAdd(a, part);
-                else if (acc_op == ACC_MIN) atomic_min_f32(a, part);
-                else atomic_max_f32(a, part);
-            }
-            g_cur = g;
-            part = init;
-            part_n = 0.0f;
-        }
-        const float* row = vals + (int64_t)s * T;
-        float r = NaN;
-        if (func == COUNT_OVER_TIME) {
-            r = has ? count : NaN;
-        } else if (func == PRESENT_OVER_TIME) {
-            r = has ? 1.0f : NaN;
-        } else if (win_sum || moments) {
-            if (has) {
-                float sm = 0.0f, sm2 = 0.0f;
-                for (int k = lo; k < hi; ++k) {
-                    const float v = __ldg(row + k);
-                    sm += v;
-                    if (moments) sm2 += v * v;
-                }
-                if (func == SUM_OVER_TIME || func == INCREASE) {
-                    r = sm;
-                } else if (func == RATE) {
-                    r = sm / w_s;
-                } else if (func == AVG_OVER_TIME) {
-                    r = sm / fmaxf(count, 1.0f);
-                } else {
-                    const float c = fmaxf(count, 1.0f);
-                    const float mean = sm / c;
-                    const float var = fmaxf(sm2 / c - mean * mean, 0.0f);
-                    const float sd = sqrtf(var);
-                    if (func == STDVAR_OVER_TIME) r = var;
-                    else if (func == STDDEV_OVER_TIME) r = sd;
-                    else r = (__ldg(row + iL) - mean) / fmaxf(sd, 1e-30f);
-                }
-            }
-        } else if (func == LAST) {
-            r = has ? __ldg(row + iL) : NaN;
-        } else if (func == FIRST_OVER_TIME) {
-            r = has ? __ldg(row + iF) : NaN;
-        } else if (extrap) {
-            if (has2) {
-                const float vf = __ldg(row + iF);
-                const float dlt = __ldg(row + iL) - vf;
-                float ds = dur_start;
-                if (zero_cap) {
-                    const float vfr = __ldg(raw + (int64_t)s * T + iF);
-                    const float dur_zero = dlt > 0.0f ? sampled * (vfr / fmaxf(dlt, 1e-30f)) : INF;
-                    ds = nan_min(dur_start, vfr >= 0.0f ? dur_zero : INF);
-                }
-                ds = ds >= thresh ? avg_dur / 2.0f : ds;
-                const float factor = (sampled + ds + de) / denom;
-                r = dlt * factor;
-                if (func == RATE) r = r / w_s;
-            }
-        } else if (diff_idelta) {
-            r = has2 ? __ldg(row + iL) : NaN;
-        } else if (func == IRATE || func == IDELTA) {
-            if (has2) {
-                const float dv = __ldg(row + iL) - __ldg(row + iL2);
-                r = func == IRATE ? dv / fmaxf(dt_s, 1e-30f) : dv;
-            }
-        }
-        if (!isnan(r)) {
-            part_n += 1.0f;
-            if (acc_op == ACC_ADD) part += r;
-            else if (acc_op == ACC_MIN) part = fminf(part, r);
-            else part = fmaxf(part, r);
-        }
+template <bool STAGED, bool SHARED>
+__global__ void __launch_bounds__(THREADS) regular_range_kernel(const RegularArgs a) {
+    extern __shared__ __align__(16) float smem[];
+    const int part = SHARED ? a.G * a.J : 0;
+    float* acc_s = smem;
+    float* cnt_s = smem + part;
+    float* stage = smem + ((2 * part + 3) & ~3);  // 16-byte aligned
+    const int R = a.R;
+    const int narr = needs_raw(a) ? 2 : 1;
+    const int64_t buf_words = (int64_t)narr * R * a.span;
+    const group_acc::Sink sink = SHARED ? group_acc::Sink{acc_s, cnt_s, a.J, a.acc_op}
+                                        : group_acc::Sink{a.acc, a.cnt, a.ld, a.acc_op};
+    if (SHARED) {
+        group_acc::shared_init(acc_s, cnt_s, part, a.acc_op);
+        __syncthreads();
     }
-    if (g_cur >= 0 && part_n > 0.0f) {
-        float* a = acc + g_cur * J + j;
-        atomicAdd(cnt + g_cur * J + j, part_n);
-        if (acc_op == ACC_ADD) atomicAdd(a, part);
-        else if (acc_op == ACC_MIN) atomic_min_f32(a, part);
-        else atomic_max_f32(a, part);
+    auto issue = [&](int tile, int b) {
+        const int64_t s0 = (int64_t)tile * R;
+        const int chunks = a.span / 4;
+        row_tiles::issue_tile(a.vals, a.raw, nullptr, narr, s0, min(R, a.S - (int)s0), R, a.T,
+                              a.c0, a.span, stage + b * buf_words, [&](int r) {
+                                  const long long g = __ldg(a.gids + s0 + r);
+                                  return (g < 0 || g >= a.G) ? 0 : chunks;
+                              });
+    };
+    row_tiles::for_each_tile<STAGED>(a.S, R, issue, [&](int tile, int b) {
+        const int64_t s0 = (int64_t)tile * R;
+        const float* buf = stage + b * buf_words;
+        row_tiles::for_each_pair(min(R, a.S - (int)s0), a.J, [&](int r, int j) {
+            const int64_t s = s0 + r;
+            const long long g = __ldg(a.gids + s);
+            if (g < 0 || g >= a.G) return;  // trash group G (padding) or no group
+            const float* row;
+            const float* rraw;
+            if (STAGED) {
+                row = buf + (int64_t)r * a.span;
+                rraw = buf + (int64_t)(R + r) * a.span;
+            } else {
+                row = a.vals + s * a.T + a.c0;
+                rraw = a.raw + s * a.T + a.c0;
+            }
+            const float v = step_value(a, row, rraw, j);
+            if (!isnan(v)) sink.add(g, j, v);
+        });
+    });
+    if (SHARED) {
+        __syncthreads();
+        group_acc::shared_flush(acc_s, cnt_s, a.G, a.J, a.acc, a.cnt, a.ld, a.acc_op);
     }
+}
+
+template <bool STAGED, bool SHARED>
+int launch(const RegularArgs& a, int smem, cudaStream_t stream) {
+    auto kern = regular_range_kernel<STAGED, SHARED>;
+    int grid = 0;
+    const cudaError_t err = row_tiles::persistent_grid(kern, smem, (a.S + a.R - 1) / a.R, &grid);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<grid, THREADS, smem, stream>>>(a);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry for ctypes. acc [G+1, J] must hold the accumulator's
-// identity (0, +inf or -inf) and cnt [G+1, J] zeros. Launches on `stream`
-// and returns the launch's cudaGetLastError() (0 on success); it does not
-// synchronise.
+// Plain C entry for ctypes. acc [G+1, ld] must hold the accumulator's
+// identity (0, +inf or -inf) and cnt [G+1, ld] zeros; steps [0, J) are
+// computed. `rows` rows per tile; `staged` stages the columns [c0, c0 +
+// span) of each tile in shared memory; `shared` keeps the group partials
+// in shared memory; `smem_bytes` is the dynamic shared memory the wrapper
+// sized for them (checked here). Launches on `stream` and returns a
+// cudaError_t (0 on success); it does not synchronise.
 extern "C" int filodb_regular_range(
     const void* vals, const void* raw, const void* gids, const void* lo,
     const void* hi, const void* idx, const void* count, const void* t_first, const void* t_last,
-    const void* t_last2, const void* out_t, int S, int T, int J, int G,
-    float window_ms, int func, int acc_op, int is_counter, int is_delta,
-    void* acc, void* cnt, void* stream) {
-    if (S <= 0 || J <= 0) return 0;
-    dim3 grid((unsigned int)((S + ROWS - 1) / ROWS), (unsigned int)((J + THREADS - 1) / THREADS));
-    regular_range_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)vals, (const float*)raw, (const int64_t*)gids,
-        (const int32_t*)lo, (const int32_t*)hi, (const int32_t*)idx, (const float*)count,
-        (const float*)t_first, (const float*)t_last, (const float*)t_last2,
-        (const float*)out_t, S, T, J, G, window_ms, func, acc_op, is_counter,
-        is_delta, (float*)acc, (float*)cnt);
-    return (int)cudaGetLastError();
+    const void* t_last2, const void* out_t, int S, int T, int J, int ld, int G, int c0,
+    int span, float window_ms, int func, int acc_op, int is_counter, int is_delta, int rows,
+    int staged, int shared, int smem_bytes, void* acc, void* cnt, void* stream) {
+    if (S <= 0 || J <= 0 || G <= 0) return 0;
+    RegularArgs a{(const float*)vals, (const float*)raw, (const long long*)gids,
+                  (const int32_t*)lo, (const int32_t*)hi, (const int32_t*)idx,
+                  (const float*)count, (const float*)t_first, (const float*)t_last,
+                  (const float*)t_last2, (const float*)out_t, S, T, J, ld, G, c0, span,
+                  window_ms, func, acc_op, is_counter, is_delta, rows, (float*)acc,
+                  (float*)cnt};
+    const bool raw_cap = (func == RATE || func == INCREASE) && is_counter && !is_delta;
+    const int64_t part = shared ? (((int64_t)2 * G * J + 3) & ~3) * 4 : 0;
+    const int64_t need = part + (staged ? (int64_t)2 * rows * span * 4 * (raw_cap ? 2 : 1) : 0);
+    if (rows < 1 || span % 4 != 0 || c0 % 4 != 0 || smem_bytes < need)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (staged)
+        return shared ? launch<true, true>(a, smem_bytes, st)
+                      : launch<true, false>(a, smem_bytes, st);
+    return shared ? launch<false, true>(a, smem_bytes, st)
+                  : launch<false, false>(a, smem_bytes, st);
 }

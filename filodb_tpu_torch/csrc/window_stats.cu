@@ -1,13 +1,48 @@
-// Window statistics for irregular series on Hopper (sm_90a).
+// Window statistics for irregular series on Hopper (sm_90a): two kernels
+// that replace the TPU kernel filodb_tpu/ops/pallas_kernels.py:33
+// (_window_agg_kernel, launched by window_aggregates).
 //
-// Replaces the TPU kernel filodb_tpu/ops/pallas_kernels.py:33
-// (_window_agg_kernel, launched by window_aggregates). For every series row
-// s and output step j, over the window (t_j - w, t_j] with
-// t_j = start + j * step, it writes nine f32 planes [S, J]: count, sum,
-// min, max, first/last timestamp, first/last value and the first raw value.
+// 1. window_range_kernel (entry filodb_window_range_aggregate), the main
+//    path: the counterpart of filodb_tpu/ops/aggregations.py
+//    _fused_pallas_jit, which runs window stats, finish for one range
+//    function and the ("agg", op) epilogue behind one jit boundary. One
+//    launch computes, for every (row s, step j < J), the range function
+//    over the window (t_j - w, t_j] and reduces it into [G, J] group
+//    accumulators; no [S, J] plane reaches device memory.
+// 2. window_stats_kernel (entry filodb_window_stats): the nine statistics
+//    planes [S, J] of the TPU kernel (count, sum, min, max, first/last
+//    timestamp, first/last value, first raw value), for callers that need
+//    the per-series grid; it is no longer on the main path.
 //
-// Design. The TPU kernel scans all T samples of a 64-row tile for each of
-// 128 steps and accumulates one-hot columns in VMEM. Here rows are sorted
+// Design of window_range_kernel. A persistent grid of 256-thread blocks
+// walks tiles of R rows (row_tiles.cuh). Each row's samples [0, lens[s])
+// of ts and of the arrays the function reads -- vals, and raw only for
+// the counter zero-crossing cap -- are staged into shared memory with
+// double-buffered cp.async copies, so the next tile's bytes are in flight
+// while this one is computed; rows of the trash group copy nothing. The
+// block's threads take the tile's (row, step) pairs flattened row by row,
+// so every lane has a pair whatever J is (only the tile's last wave is
+// partial). A pair finds its window with two binary searches in the
+// shared-memory row (the second only over [0, hi)), then scans only what
+// its function needs, chosen by the template argument: nothing more for
+// count/present/absent, the sum for sum/avg_over_time (and rate/increase
+// on delta columns), min or max, the tied run at one end for first/last,
+// and for rate/increase/delta the runs at both ends (values, and raw at
+// the first). finish (ops/window_stats.py) is computed inline, line for
+// line, and the value reduces through group_acc.cuh: shared-memory group
+// partials flushed once per block while 2*G*J*4 bytes fit the wrapper's
+// budget, else global atomics. Rows wider than the shared-memory budget
+// are read in place from device memory (STAGED = false), the same code on
+// other pointers.
+//
+// Bound of window_range_kernel: device-memory bytes -- each real sample's
+// ts, value and raw value read once, lens and gids, the [G, J] outputs --
+// 829 MB on the main path (0.2475 ms at 3.35 TB/s); a few dozen integer
+// and float operations per (row, step).
+//
+// Design of window_stats_kernel. The TPU kernel scans all T samples of a
+// 64-row tile for each of 128 steps and accumulates one-hot columns in
+// VMEM. Here rows are sorted
 // (staging packs strictly increasing timestamps and pads with INT32_MAX
 // past lens[s]), so one thread per (row, step) finds its window with two
 // binary searches over [0, lens[s]) and then visits only the samples inside
@@ -18,13 +53,14 @@
 // writes 36 bytes per (row, step); it does a handful of compares per
 // sample, so it is bound by device-memory bytes (3.35 TB/s on an H100 SXM).
 // Overlapping windows re-read samples from cache, not from device memory,
-// as long as a row's window span stays resident; a sliding-window or
-// shared-memory-tiled variant is later work.
+// as long as a row's window span stays resident.
 //
-// Semantics kept from the TPU kernel: time math in int32 with wrap-around,
-// first/last timestamps selected as int32 and cast to f32 at the store,
+// Semantics both kernels keep from the TPU kernel: time math in int32 with
+// wrap-around, first/last timestamps selected as int32 and cast to f32,
 // NaN values confined to the windows that hold them (per-window
-// accumulation), and the empty-window sentinels below. First/last values
+// accumulation), and the empty-window sentinels below (the fused kernel's
+// finish turns every empty window into NaN, or 1 for absent_over_time,
+// before a sentinel is read). First/last values
 // follow the TPU kernel's pick-by-timestamp: v_first and raw_first sum every
 // in-window value whose timestamp equals the window's first timestamp, and
 // v_last every one equal to its last. Rows are sorted, so the ties are a
@@ -33,7 +69,11 @@
 // increasing rows, which is what staging from the memstore gives).
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "group_acc.cuh"
+#include "row_tiles.cuh"
 
 namespace {
 
@@ -50,12 +90,13 @@ __device__ __forceinline__ int32_t wrap_mul(int32_t a, int32_t b) {
     return (int32_t)((uint32_t)a * (uint32_t)b);
 }
 
-// number of entries in row[0, n) that are <= x (row sorted ascending)
-__device__ __forceinline__ int count_le(const int32_t* __restrict__ row, int n, int32_t x) {
+// number of entries in row[0, n) that are <= x (row sorted ascending);
+// the row lies in shared or device memory
+__device__ __forceinline__ int count_le(const int32_t* row, int n, int32_t x) {
     int lo = 0, hi = n;
     while (lo < hi) {
-        int mid = (lo + hi) >> 1;
-        if (__ldg(row + mid) <= x) lo = mid + 1; else hi = mid;
+        const int mid = (lo + hi) >> 1;
+        if (row[mid] <= x) lo = mid + 1; else hi = mid;
     }
     return lo;
 }
@@ -117,7 +158,256 @@ __global__ void window_stats_kernel(
     rf_o[idx] = rf;
 }
 
+// ---- the fused kernel: window stats -> finish -> group aggregate ----
+
+using row_tiles::THREADS;
+
+// range functions (ops/window_stats.py WINDOW_FUNC_CODES)
+enum WFunc {
+    W_SUM_OVER_TIME = 0, W_COUNT_OVER_TIME, W_AVG_OVER_TIME, W_MIN_OVER_TIME,
+    W_MAX_OVER_TIME, W_LAST, W_FIRST_OVER_TIME, W_PRESENT_OVER_TIME,
+    W_ABSENT_OVER_TIME, W_RATE, W_INCREASE, W_DELTA,
+};
+// what a function scans in its window: the kernel's template argument
+enum Kind { K_COUNT = 0, K_SUM, K_MIN, K_MAX, K_FIRST, K_LAST, K_EXTRAP };
+
+struct RangeArgs {
+    const int32_t* ts;
+    const float* vals;
+    const float* raw;
+    const int32_t* lens;
+    const long long* gids;
+    int S, T, J, ld, G;
+    int32_t start, step, window;
+    int func, acc_op;
+    int zero_cap;  // rate/increase of a counter: the zero-crossing cap reads raw
+    int R;         // rows per tile
+    float* acc;
+    float* cnt;
+};
+
+// lo of the window: the entries of row[0, hi) that are <= t_lo (all of
+// them when the bounds wrapped, t_lo > t_j: an empty window). They form a
+// prefix that usually ends within a window's worth of samples below hi,
+// so gallop down from hi in strides of 32, 64, ... and bisect the last
+// stride: a handful of probes instead of a search over the whole row.
+__device__ __forceinline__ int lower_edge(const int32_t* row, int hi, int32_t t_lo) {
+    int top = hi, stride = 32, bot = hi - stride;
+    while (bot > 0 && row[bot] > t_lo) {  // every entry from bot up is > t_lo
+        top = bot;
+        stride <<= 1;
+        bot = hi - stride;
+    }
+    bot = bot < 0 ? 0 : bot;
+    return bot + count_le(row + bot, top - bot, t_lo);
+}
+
+// finish (ops/window_stats.py) of one (row, step), line for line: the
+// function of the window (t_j - w, t_j] over the row's first n samples.
+template <int KIND>
+__device__ __forceinline__ float window_value(const RangeArgs& a, const int32_t* rt,
+                                              const float* rv, const float* rr, int n, int j) {
+    const float NaN = group_acc::nan_f();
+    const int32_t t_j = wrap_add(a.start, wrap_mul(j, a.step));
+    const int hi = count_le(rt, n, t_j);
+    const int lo = lower_edge(rt, hi, wrap_add(t_j, -a.window));
+    const bool has = hi > lo;
+    const float cnt = (float)(hi - lo);
+    if (KIND == K_COUNT) {
+        if (a.func == W_COUNT_OVER_TIME) return has ? cnt : NaN;
+        if (a.func == W_PRESENT_OVER_TIME) return has ? 1.0f : NaN;
+        return has ? NaN : 1.0f;  // absent_over_time
+    }
+    if (!has) return NaN;
+    const float wf = (float)a.window;
+    if (KIND == K_SUM) {  // sum/avg_over_time; rate/increase on delta columns
+        float sm = 0.0f;
+        for (int k = lo; k < hi; ++k) sm += rv[k];
+        if (a.func == W_AVG_OVER_TIME) return sm / fmaxf(cnt, 1.0f);
+        if (a.func == W_RATE) return sm / (wf * 1e-3f);
+        return sm;
+    }
+    if (KIND == K_MIN || KIND == K_MAX) {  // NaN propagates as in torch.amin / amax
+        float m = KIND == K_MIN ? POS : NEG;
+        for (int k = lo; k < hi; ++k) {
+            const float v = rv[k];
+            m = (isnan(v) || (KIND == K_MIN ? v < m : v > m)) ? v : m;
+        }
+        return m;
+    }
+    // tied runs at the window's ends: every value at the first (last)
+    // timestamp is summed, as the TPU kernel does
+    const int32_t t_first = rt[lo];
+    float vf = 0.0f, rf = 0.0f;
+    if (KIND != K_LAST) {
+        for (int k = lo; k < hi && rt[k] == t_first; ++k) {
+            vf += rv[k];
+            if (KIND == K_EXTRAP && a.zero_cap) rf += rr[k];
+        }
+        if (KIND == K_FIRST) return vf;
+    }
+    const int32_t t_last = rt[hi - 1];
+    int kb = hi - 1;
+    while (kb > lo && rt[kb - 1] == t_last) --kb;
+    float vl = 0.0f;
+    for (int k = kb; k < hi; ++k) vl += rv[k];
+    if (KIND == K_LAST) return vl;
+    // rate / increase / delta: Prometheus extrapolation
+    if (hi - lo < 2) return NaN;
+    const float INF = group_acc::inf_f();
+    const float out_t = (float)t_j;
+    const float tf = (float)t_first * 1e-3f;
+    const float tl = (float)t_last * 1e-3f;
+    const float dlt = vl - vf;
+    const float sampled = tl - tf;
+    float dur_start = tf - (out_t - wf) * 1e-3f;
+    float dur_end = out_t * 1e-3f - tl;
+    const float avg_dur = sampled / fmaxf(cnt - 1.0f, 1.0f);
+    const float thresh = avg_dur * 1.1f;
+    if (a.zero_cap) {
+        const float dur_zero = dlt > 0.0f ? sampled * (rf / fmaxf(dlt, 1e-30f)) : INF;
+        dur_start = group_acc::nan_min(dur_start, rf >= 0.0f ? dur_zero : INF);
+    }
+    dur_start = dur_start >= thresh ? avg_dur / 2.0f : dur_start;
+    dur_end = dur_end >= thresh ? avg_dur / 2.0f : dur_end;
+    const float factor = (sampled + dur_start + dur_end) / fmaxf(sampled, 1e-30f);
+    const float res = dlt * factor;
+    return a.func == W_RATE ? res / (wf * 1e-3f) : res;
+}
+
+// arrays a function stages: ts, vals unless it only counts, raw for the cap
+__host__ __device__ __forceinline__ int staged_arrays(int kind, int zero_cap) {
+    return kind == K_COUNT ? 1 : (zero_cap ? 3 : 2);
+}
+
+template <int KIND, bool STAGED, bool SHARED>
+__global__ void __launch_bounds__(THREADS) window_range_kernel(const RangeArgs a) {
+    extern __shared__ __align__(16) float smem[];
+    const int part = SHARED ? a.G * a.J : 0;
+    float* acc_s = smem;
+    float* cnt_s = smem + part;
+    float* stage = smem + ((2 * part + 3) & ~3);  // 16-byte aligned
+    const int R = a.R, T = a.T;
+    const int narr = staged_arrays(KIND, a.zero_cap);
+    const int64_t buf_words = (int64_t)narr * R * T;
+    const group_acc::Sink sink = SHARED ? group_acc::Sink{acc_s, cnt_s, a.J, a.acc_op}
+                                        : group_acc::Sink{a.acc, a.cnt, a.ld, a.acc_op};
+    if (SHARED) {
+        group_acc::shared_init(acc_s, cnt_s, part, a.acc_op);
+        __syncthreads();
+    }
+    auto issue = [&](int tile, int b) {
+        const int64_t s0 = (int64_t)tile * R;
+        row_tiles::issue_tile(a.ts, a.vals, a.raw, narr, s0, min(R, a.S - (int)s0), R, T, 0, T,
+                              stage + b * buf_words, [&](int r) {
+                                  const long long g = __ldg(a.gids + s0 + r);
+                                  if (g < 0 || g >= a.G) return 0;
+                                  const int n = min(max(__ldg(a.lens + s0 + r), 0), T);
+                                  return (n + 3) >> 2;
+                              });
+    };
+    row_tiles::for_each_tile<STAGED>(a.S, R, issue, [&](int tile, int b) {
+        const int64_t s0 = (int64_t)tile * R;
+        const float* buf = stage + b * buf_words;
+        row_tiles::for_each_pair(min(R, a.S - (int)s0), a.J, [&](int r, int j) {
+            const int64_t s = s0 + r;
+            const long long g = __ldg(a.gids + s);
+            if (g < 0 || g >= a.G) return;  // trash group G (padding) or no group
+            const int n = min(max(__ldg(a.lens + s), 0), T);
+            const int32_t* rt;
+            const float* rv;
+            const float* rr;
+            if (STAGED) {
+                rt = (const int32_t*)(buf + (int64_t)r * T);
+                rv = buf + (int64_t)(R + r) * T;
+                rr = buf + (int64_t)(2 * R + r) * T;
+            } else {
+                rt = a.ts + s * T;
+                rv = a.vals + s * T;
+                rr = a.raw + s * T;
+            }
+            const float v = window_value<KIND>(a, rt, rv, rr, n, j);
+            if (!isnan(v)) sink.add(g, j, v);
+        });
+    });
+    if (SHARED) {
+        __syncthreads();
+        group_acc::shared_flush(acc_s, cnt_s, a.G, a.J, a.acc, a.cnt, a.ld, a.acc_op);
+    }
+}
+
+template <int KIND, bool STAGED, bool SHARED>
+int launch_range(const RangeArgs& a, int smem, cudaStream_t stream) {
+    auto kern = window_range_kernel<KIND, STAGED, SHARED>;
+    int grid = 0;
+    const cudaError_t err = row_tiles::persistent_grid(kern, smem, (a.S + a.R - 1) / a.R, &grid);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<grid, THREADS, smem, stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+template <int KIND>
+int launch_kind(const RangeArgs& a, int staged, int shared, int smem, cudaStream_t st) {
+    if (staged)
+        return shared ? launch_range<KIND, true, true>(a, smem, st)
+                      : launch_range<KIND, true, false>(a, smem, st);
+    return shared ? launch_range<KIND, false, true>(a, smem, st)
+                  : launch_range<KIND, false, false>(a, smem, st);
+}
+
+// the scan a function needs (finish's first branch takes rate/increase
+// on delta columns as window sums)
+int kind_of(int func, int is_delta) {
+    switch (func) {
+        case W_COUNT_OVER_TIME: case W_PRESENT_OVER_TIME: case W_ABSENT_OVER_TIME: return K_COUNT;
+        case W_SUM_OVER_TIME: case W_AVG_OVER_TIME: return K_SUM;
+        case W_MIN_OVER_TIME: return K_MIN;
+        case W_MAX_OVER_TIME: return K_MAX;
+        case W_FIRST_OVER_TIME: return K_FIRST;
+        case W_LAST: return K_LAST;
+        case W_RATE: case W_INCREASE: return is_delta ? K_SUM : K_EXTRAP;
+        case W_DELTA: return K_EXTRAP;
+        default: return -1;
+    }
+}
+
 }  // namespace
+
+// Plain C entry for ctypes: op by (...) (func(m[w])) over a staged block.
+// acc [G+1, ld] must hold the accumulator's identity (0, +inf or -inf) and
+// cnt [G+1, ld] zeros; steps [0, J) are computed. `rows` rows per tile;
+// `staged` stages each tile's rows in shared memory; `shared` keeps the
+// group partials there; `smem_bytes` is the dynamic shared memory the
+// wrapper sized for them (checked here). Launches on `stream` and returns
+// a cudaError_t (0 on success); it does not synchronise.
+extern "C" int filodb_window_range_aggregate(
+    const void* ts, const void* vals, const void* raw, const void* lens, const void* gids,
+    int S, int T, int J, int ld, int G, int start, int step, int window, int func,
+    int acc_op, int is_counter, int is_delta, int rows, int staged, int shared,
+    int smem_bytes, void* acc, void* cnt, void* stream) {
+    if (S <= 0 || J <= 0 || G <= 0) return 0;
+    const int kind = kind_of(func, is_delta);
+    const int zero_cap = kind == K_EXTRAP && is_counter && func != W_DELTA;
+    RangeArgs a{(const int32_t*)ts, (const float*)vals, (const float*)raw,
+                (const int32_t*)lens, (const long long*)gids, S, T, J, ld, G,
+                (int32_t)start, (int32_t)step, (int32_t)window, func, acc_op, zero_cap, rows,
+                (float*)acc, (float*)cnt};
+    const int64_t part = shared ? (((int64_t)2 * G * J + 3) & ~3) * 4 : 0;
+    const int64_t need =
+        part + (staged ? (int64_t)2 * rows * T * 4 * staged_arrays(kind, zero_cap) : 0);
+    if (kind < 0 || rows < 1 || T % 4 != 0 || smem_bytes < need)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    switch (kind) {
+        case K_COUNT: return launch_kind<K_COUNT>(a, staged, shared, smem_bytes, st);
+        case K_SUM: return launch_kind<K_SUM>(a, staged, shared, smem_bytes, st);
+        case K_MIN: return launch_kind<K_MIN>(a, staged, shared, smem_bytes, st);
+        case K_MAX: return launch_kind<K_MAX>(a, staged, shared, smem_bytes, st);
+        case K_FIRST: return launch_kind<K_FIRST>(a, staged, shared, smem_bytes, st);
+        case K_LAST: return launch_kind<K_LAST>(a, staged, shared, smem_bytes, st);
+        default: return launch_kind<K_EXTRAP>(a, staged, shared, smem_bytes, st);
+    }
+}
 
 // Plain C entry for ctypes. Launches on `stream` and returns the launch's
 // cudaGetLastError() (0 on success); it does not synchronise.

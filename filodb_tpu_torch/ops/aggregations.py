@@ -5,7 +5,9 @@ reference query/exec/aggregator/ RowAggregators).
 ``index_add_`` / ``scatter_reduce_`` for all steps and all groups. NaN means
 absence: a NaN sample does not contribute, and a group with no members at a
 step yields NaN. Padded rows go to the trash group ``num_groups``, which is
-sliced off.
+sliced off. On the card both rungs of ``fused_range_aggregate`` reduce
+inside their kernels; the segment reduce here is the plain versions'
+epilogue.
 """
 
 from __future__ import annotations
@@ -16,7 +18,6 @@ import torch
 from ..core.schemas import METRIC_TAG
 from . import mxu_kernels as MK
 from . import window_stats as WS
-from .kernels import pad_steps
 from .staging import grid_class
 
 SIMPLE_AGG_OPS = ("sum", "count", "avg", "min", "max")
@@ -78,25 +79,16 @@ def fused_range_aggregate(func: str, op: str, block, gids_padded: torch.Tensor,
                           is_delta: bool = False, obs: dict | None = None) -> torch.Tensor:
     """``op by (...) (func(selector[w]))`` over a staged (super)block on
     the device, on the rung ``grid_variant`` picks (written to
-    ``obs["variant"]`` when ``obs`` is given). ``mxu``: one launch of the
-    regular kernel. ``window_stats``: window stats -> finish -> slice to the
-    block's padding -> segment aggregate. Returns the [G, J_pad] group
-    partials on the device."""
+    ``obs["variant"]`` when ``obs`` is given): one launch of the regular
+    kernel (``mxu``) or of the fused window-stats kernel
+    (``window_stats``). Returns the [G, J_pad] group values on the device
+    (NaN past ``params.num_steps``); no [S, J] grid is allocated."""
     variant = grid_variant(block, func, is_delta)
     if obs is not None:
         obs["variant"] = variant
-    if variant == "mxu":
-        return MK.regular_range_aggregate(func, op, block, gids_padded, num_groups, params,
-                                          is_counter=is_counter, is_delta=is_delta)
-    j_pad = pad_steps(params.num_steps)
-    raw = block.raw if block.raw is not None else block.vals
-    start_off = int(params.start_ms - block.base_ms)
-    agg = WS.window_stats(block.ts, block.vals, raw, block.lens, start_off,
-                          params.step_ms, params.window_ms, j_pad)
-    sj = WS.finish(func, agg, start_off, params.step_ms, params.window_ms,
-                   is_counter=is_counter, is_delta=is_delta)
-    sj = sj[: block.vals.shape[0], :j_pad]
-    return apply_epilogue(sj, ("agg", op), gids_padded, num_groups)
+    rung = MK.regular_range_aggregate if variant == "mxu" else WS.window_range_aggregate
+    return rung(func, op, block, gids_padded, num_groups, params, is_counter=is_counter,
+                is_delta=is_delta)
 
 
 def group_ids_for(series_labels: list[dict], by: list[str] | None, without: list[str] | None):

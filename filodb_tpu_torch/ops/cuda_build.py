@@ -1,8 +1,9 @@
 """Build of the port's CUDA kernels: every ``csrc/*.cu`` is compiled the
 same way, by ``nvcc`` for sm_90a into a shared library with a plain C
-interface, named by the source's hash in ``_build/`` beside the package,
-with nvcc's ptxas report kept beside it in the ``.log`` of the same name.
-The wrappers bind the library with ctypes.
+interface, named by a hash of its source, every ``csrc/*.cuh`` header and
+the flags, in ``_build/`` beside the package, with nvcc's ptxas report kept
+beside it in the ``.log`` of the same name. The wrappers bind the library
+with ctypes.
 
 ``-fmad=false`` keeps every f32 multiply and add separately rounded, as in
 the plain PyTorch versions the kernels are held against.
@@ -34,12 +35,23 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the port's CUDA kernels cannot be built")
 
 
+def digest(name: str, csrc: Path = CSRC) -> str:
+    """Hash of ``csrc/<name>.cu``, every header in ``csrc`` (by name and
+    content) and the flags: an edit to a shared header rebuilds every
+    library."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:12]
+
+
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` into ``_build/<name>-<hash>.so`` (rebuilt
-    only when the source or the flags change) and return its path."""
+    """Compile ``csrc/<name>.cu`` into ``_build/<name>-<digest>.so`` (rebuilt
+    only when the source, a header or the flags change) and return its
+    path."""
     source = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
+    out = BUILD_DIR / f"{name}-{digest(name)}.so"
     if out.exists() and out.with_suffix(".log").exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

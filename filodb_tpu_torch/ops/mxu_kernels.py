@@ -8,10 +8,12 @@ window bounds are built once on the host (``WindowMatrices``). The JAX
 package then evaluates the range function with ``[S, T] x [T, J]``
 matmuls on the TPU's matrix unit and segment-reduces the ``[S, J]`` grid.
 On a CUDA tensor ``regular_range_aggregate`` launches the hand-written
-kernel ``csrc/regular_range.cu``, which gathers at the window bounds, sums
-the windows and reduces into ``[G+1, J]`` accumulators in one pass; on a
-CPU tensor it runs ``mxu_range_plain`` followed by the segment aggregate,
-the same function in plain torch.
+kernel ``csrc/regular_range.cu``, which stages row tiles of the query's
+column span in shared memory, gathers at the window bounds, sums the
+windows and reduces into ``[G+1, J]`` accumulators in one pass; on a CPU
+tensor it runs ``mxu_range_plain`` followed by the segment aggregate, the
+same function in plain torch. Steps past the query's ``num_steps`` are NaN
+in both.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import numpy as np
 import torch
 
 from . import cuda_build
+from . import group_acc as GA
+from .group_acc import ACC_CODES
 from .kernels import pad_steps
 
 # range functions the regular rung computes (aggregations.FUSED_MXU_FUNCS
@@ -40,10 +44,10 @@ FUNC_CODES = {
     "stddev_over_time": 6, "stdvar_over_time": 7, "z_score": 8, "rate": 9,
     "increase": 10, "delta": 11, "irate": 12, "idelta": 13,
 }
-ACC_CODES = {"sum": 0, "count": 0, "avg": 0, "min": 1, "max": 2}
-
-# kernel launches since the last reset (the wrapper's only state)
+# kernel launches since the last reset, and the last launch's layout
+# (group_acc.TilePlan)
 LAUNCHES = 0
+LAST_PLAN = None
 
 _lib = None
 
@@ -59,7 +63,9 @@ class WindowMatrices:
     - ``idx`` int32 [3, J]: first / last / second-to-last positions,
       clipped to the row (the kernel's gathers);
     - ``W``, ``F``, ``L``, ``L2`` f32 [T, J]: window membership and the
-      one-hot selections, which only the plain version reads."""
+      one-hot selections, which only the plain version reads;
+    - ``host_lo``/``host_hi``: ``lo``/``hi`` as host numpy, for
+      ``column_span``."""
 
     def __init__(self, ts1: np.ndarray, n_valid: int, start_off: int, step_ms: int,
                  num_steps: int, window_ms: int, device):
@@ -91,6 +97,9 @@ class WindowMatrices:
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
         self.window_ms = window_ms
+        self.row_len = T
+        self.host_lo, self.host_hi = lo, hi
+        self.spans: dict[int, tuple[int, int]] = {}
         self.lo = put(lo.astype(np.int32))
         self.hi = put(hi.astype(np.int32))
         self.count = put(cnt)
@@ -100,6 +109,22 @@ class WindowMatrices:
         self.out_t = put(out_t.astype(np.float64).astype(np.float32))
         self.idx = put(idx)
         self.W, self.F, self.L, self.L2 = map(put, (W, F, L, L2))
+
+    def column_span(self, num_steps: int) -> tuple[int, int]:
+        """``(c0, span)``: the columns ``[c0, c0 + span)`` that the windows
+        of the first ``num_steps`` steps cover, widened to 16-byte chunks
+        (the kernel stages them); ``(0, 0)`` when every window is empty.
+        Memoized per ``num_steps``."""
+        if num_steps not in self.spans:
+            lo, hi = self.host_lo[:num_steps], self.host_hi[:num_steps]
+            full = hi > lo
+            if not full.any():
+                self.spans[num_steps] = (0, 0)
+            else:
+                c0 = int(lo[full].min()) // 4 * 4
+                c1 = min(self.row_len, -(-int(hi[full].max()) // 4) * 4)
+                self.spans[num_steps] = (c0, c1 - c0)
+        return self.spans[num_steps]
 
 
 def window_matrices(block, start_off: int, step_ms: int, num_steps: int,
@@ -221,8 +246,8 @@ def _load():
         lib = ctypes.CDLL(str(cuda_build.build("regular_range")))
         fn = lib.filodb_regular_range
         fn.argtypes = (
-            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_float]
-            + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float]
+            + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 3
         )
         fn.restype = ctypes.c_int
         _lib = lib
@@ -247,50 +272,51 @@ def _check_inputs(vals, raw, gids) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def needs_raw(func: str, is_counter: bool, is_delta: bool) -> bool:
+    """The counter zero-crossing cap reads raw (``needs_raw`` in
+    csrc/regular_range.cu): the kernel stages raw only then."""
+    return is_counter and not is_delta and func in ("rate", "increase")
+
+
 def _launch(func: str, op: str, vals, raw, gids, num_groups: int, wm: WindowMatrices,
-            is_counter: bool, is_delta: bool) -> torch.Tensor:
-    """One launch of the regular kernel -> [G, J] (the finish of
-    ``segment_aggregate`` on its accumulators)."""
-    global LAUNCHES
+            num_steps: int, is_counter: bool, is_delta: bool, acc: torch.Tensor,
+            cnt: torch.Tensor) -> None:
+    """One launch of the regular kernel over the first ``num_steps`` steps
+    into ``acc``/``cnt`` ([G+1, J_pad], from ``group_acc.accumulators``);
+    raises if the launch fails."""
+    global LAUNCHES, LAST_PLAN
+    GA.check_aligned(vals=vals, raw=raw)
     lib = _load()
     S, T = vals.shape
-    J = wm.lo.shape[0]
-    dev = vals.device
-    init = {"min": float("inf"), "max": float("-inf")}.get(op, 0.0)
-    acc = torch.full((num_groups + 1, J), init, dtype=torch.float32, device=dev)
-    cnt = torch.zeros((num_groups + 1, J), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    c0, span = wm.column_span(num_steps)
+    plan = GA.tile_plan(num_groups, num_steps, span,
+                        2 if needs_raw(func, is_counter, is_delta) else 1)
+    with torch.cuda.device(vals.device):
+        stream = torch.cuda.current_stream(vals.device).cuda_stream
         err = lib.filodb_regular_range(
             vals.data_ptr(), raw.data_ptr(), gids.data_ptr(), wm.lo.data_ptr(),
             wm.hi.data_ptr(), wm.idx.data_ptr(), wm.count.data_ptr(), wm.t_first.data_ptr(),
             wm.t_last.data_ptr(), wm.t_last2.data_ptr(), wm.out_t.data_ptr(),
-            S, T, J, num_groups, float(np.float32(wm.window_ms)), FUNC_CODES[func],
-            ACC_CODES[op], int(is_counter), int(is_delta), acc.data_ptr(), cnt.data_ptr(),
-            stream,
+            S, T, num_steps, wm.lo.shape[0], num_groups, c0, span,
+            float(np.float32(wm.window_ms)), FUNC_CODES[func], ACC_CODES[op], int(is_counter),
+            int(is_delta), plan.rows, int(plan.staged), int(plan.shared), plan.smem_bytes,
+            acc.data_ptr(), cnt.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"regular_range kernel launch failed: cudaError {err}")
     LAUNCHES += 1
-    acc, cnt = acc[:num_groups], cnt[:num_groups]
-    has = cnt > 0
-    nan = float("nan")
-    if op == "count":
-        return torch.where(has, cnt, nan)
-    if op == "avg":
-        return torch.where(has, acc / torch.clamp(cnt, min=1.0), nan)
-    return torch.where(has, acc, nan)
+    LAST_PLAN = plan
 
 
 def regular_range_aggregate(func: str, op: str, block, gids: torch.Tensor, num_groups: int,
                             params, is_counter: bool = False,
                             is_delta: bool = False) -> torch.Tensor:
     """``op by (...) (func(selector[w]))`` over a block with a shared
-    regular grid -> [G, J_pad] group partials on the block's device.
-    ``gids`` is int64 [S_padded], padded rows in the trash group
-    ``num_groups``. A CUDA block launches the kernel (and raises if the
-    launch fails); a CPU block runs ``mxu_range_plain`` and the segment
-    aggregate."""
+    regular grid -> [G, J_pad] group values on the block's device; steps
+    past ``params.num_steps`` are NaN. ``gids`` is int64 [S_padded],
+    padded rows in the trash group ``num_groups``. A CUDA block launches
+    the kernel (and raises if the launch fails); a CPU block runs
+    ``mxu_range_plain`` and the segment aggregate."""
     from .aggregations import SIMPLE_AGG_OPS, apply_epilogue
 
     if func not in FUSED_MXU_FUNCS:
@@ -308,7 +334,11 @@ def regular_range_aggregate(func: str, op: str, block, gids: torch.Tensor, num_g
     if device == "cpu":
         sj = mxu_range_plain(func, block.vals, raw, wm, params.window_ms,
                              is_counter=is_counter, is_delta=is_delta)
-        return apply_epilogue(sj, ("agg", op), gids, num_groups)
+        return GA.mask_steps(apply_epilogue(sj, ("agg", op), gids, num_groups),
+                             params.num_steps)
     if device != "cuda":
         raise ValueError(f"regular_range_aggregate runs on cuda or cpu tensors, not {device}")
-    return _launch(func, op, block.vals, raw, gids, num_groups, wm, is_counter, is_delta)
+    acc, cnt = GA.accumulators(op, num_groups, wm.lo.shape[0], block.vals.device)
+    _launch(func, op, block.vals, raw, gids, num_groups, wm, params.num_steps, is_counter,
+            is_delta, acc, cnt)
+    return GA.finish_groups(op, acc, cnt, num_groups)

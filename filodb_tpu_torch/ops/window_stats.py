@@ -1,16 +1,24 @@
 """Window statistics for irregular series (counterpart of
-``filodb_tpu/ops/pallas_kernels.py``).
+``filodb_tpu/ops/pallas_kernels.py`` and of the Pallas variant of
+``filodb_tpu/ops/aggregations._fused_pallas_jit``).
 
-``window_stats`` computes, for every series row and output step
-``t_j = start + j * step``, nine statistics over the window
-``(t_j - window, t_j]``: count, sum, min, max, first/last timestamp,
-first/last value and first raw value. On a CUDA tensor it launches the
-hand-written kernel ``csrc/window_stats.cu``; on a CPU tensor it runs
-``window_stats_plain``, the same function in plain torch. ``finish`` derives
-any of ``PALLAS_FUNCS`` from the statistics, with Prometheus extrapolation
-for rate/increase/delta.
+``window_range_aggregate`` is the main path's window-stats rung:
+``op by (...) (func(m[w]))`` over a staged block, for every output step
+``t_j = start + j * step`` over the window ``(t_j - window, t_j]``. On a
+CUDA block it makes one launch of the fused kernel in
+``csrc/window_stats.cu`` (window stats, ``finish`` and the group aggregate;
+no ``[S, J]`` plane in device memory); on a CPU block it runs
+``window_range_aggregate_plain``: ``window_stats_plain`` -> ``finish`` ->
+the segment aggregate, the same function in plain torch.
 
-The kernel is built with ``nvcc`` at first use (``cuda_build``) and bound
+``window_stats`` computes the nine per-series statistics planes (count,
+sum, min, max, first/last timestamp, first/last value and first raw
+value), on a CUDA tensor with the nine-plane kernel of the same source, on
+a CPU tensor with ``window_stats_plain``. ``finish`` derives any of
+``PALLAS_FUNCS`` from the statistics, with Prometheus extrapolation for
+rate/increase/delta.
+
+The kernels are built with ``nvcc`` at first use (``cuda_build``) and bound
 through ctypes.
 """
 
@@ -21,6 +29,8 @@ import ctypes
 import torch
 
 from . import cuda_build
+from . import group_acc as GA
+from .kernels import pad_steps
 
 NEG = -3.0e38
 POS = 3.0e38
@@ -34,8 +44,19 @@ PALLAS_FUNCS = {
     "present_over_time", "absent_over_time", "rate", "increase", "delta",
 }
 
-# kernel launches since the last reset (the wrapper's only state)
+# the fused kernel's function codes (csrc/window_stats.cu, enum WFunc)
+WINDOW_FUNC_CODES = {
+    "sum_over_time": 0, "count_over_time": 1, "avg_over_time": 2, "min_over_time": 3,
+    "max_over_time": 4, "last": 5, "last_over_time": 5, "first_over_time": 6,
+    "present_over_time": 7, "absent_over_time": 8, "rate": 9, "increase": 10, "delta": 11,
+}
+
+# launches since the last reset: LAUNCHES of the nine-plane kernel,
+# RANGE_LAUNCHES of the fused kernel; LAST_PLAN is the fused kernel's last
+# layout (group_acc.TilePlan)
 LAUNCHES = 0
+RANGE_LAUNCHES = 0
+LAST_PLAN = None
 
 _lib = None
 
@@ -48,6 +69,9 @@ def _load():
         fn.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 10
         )
+        fn.restype = ctypes.c_int
+        fn = lib.filodb_window_range_aggregate
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 16 + [ctypes.c_void_p] * 3
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -202,3 +226,97 @@ def finish(func: str, agg: dict, start_off: int, step_ms: int, window_ms: int,
             res = res / w_s
         return torch.where(cnt >= 2, res, nan)
     raise ValueError(f"window-stats path does not support {func}")
+
+
+def staged_arrays(func: str, is_counter: bool, is_delta: bool) -> int:
+    """How many [S, T] arrays the fused kernel stages for ``func``: ts;
+    vals unless it only counts; raw for the counter zero-crossing cap
+    (``staged_arrays`` in csrc/window_stats.cu)."""
+    if func in ("count_over_time", "present_over_time", "absent_over_time"):
+        return 1
+    return 3 if is_counter and not is_delta and func in ("rate", "increase") else 2
+
+
+def _check_gids(gids, S: int, device) -> None:
+    if gids.dtype != torch.int64:
+        raise TypeError(f"gids must be torch.int64, got {gids.dtype}")
+    if tuple(gids.shape) != (S,) or gids.device != device or not gids.is_contiguous():
+        raise ValueError(f"gids must be a contiguous [{S}] tensor on {device}, "
+                         f"got {tuple(gids.shape)} on {gids.device}")
+
+
+def window_range_aggregate(func: str, op: str, block, gids: torch.Tensor, num_groups: int,
+                           params, is_counter: bool = False,
+                           is_delta: bool = False) -> torch.Tensor:
+    """``op by (...) (func(selector[w]))`` over a staged block ->
+    [G, J_pad] group values on the block's device; steps past
+    ``params.num_steps`` are NaN. ``gids`` is int64 [S_padded], padded rows
+    in the trash group ``num_groups``. A CUDA block makes one launch of the
+    fused kernel (and raises if the launch fails); a CPU block runs
+    ``window_range_aggregate_plain``."""
+    from .aggregations import SIMPLE_AGG_OPS
+
+    if func not in PALLAS_FUNCS:
+        raise NotImplementedError(f"range function {func!r} is not on the window-stats rung")
+    if op not in SIMPLE_AGG_OPS:
+        raise NotImplementedError(f"aggregation {op!r} is not ported (ported: {SIMPLE_AGG_OPS})")
+    raw = block.raw if block.raw is not None else block.vals
+    _check_inputs(block.ts, block.vals, raw, block.lens)
+    _check_gids(gids, block.ts.shape[0], block.ts.device)
+    device = block.ts.device.type
+    if device == "cpu":
+        return window_range_aggregate_plain(func, op, block, gids, num_groups, params,
+                                            is_counter=is_counter, is_delta=is_delta)
+    if device != "cuda":
+        raise ValueError(f"window_range_aggregate runs on cuda or cpu tensors, not {device}")
+    acc, cnt = GA.accumulators(op, num_groups, pad_steps(params.num_steps), block.ts.device)
+    _launch_range(func, op, block, gids, num_groups, params, is_counter, is_delta, acc, cnt)
+    return GA.finish_groups(op, acc, cnt, num_groups)
+
+
+def _launch_range(func: str, op: str, block, gids, num_groups: int, params, is_counter: bool,
+                  is_delta: bool, acc: torch.Tensor, cnt: torch.Tensor) -> None:
+    """One launch of the fused kernel into ``acc``/``cnt`` ([G+1, J_pad],
+    from ``group_acc.accumulators``); raises if the launch fails."""
+    global RANGE_LAUNCHES, LAST_PLAN
+    raw = block.raw if block.raw is not None else block.vals
+    GA.check_aligned(ts=block.ts, vals=block.vals, raw=raw)
+    lib = _load()
+    S, T = block.ts.shape
+    J = params.num_steps
+    plan = GA.tile_plan(num_groups, J, T, staged_arrays(func, is_counter, is_delta))
+    with torch.cuda.device(block.ts.device):
+        stream = torch.cuda.current_stream(block.ts.device).cuda_stream
+        err = lib.filodb_window_range_aggregate(
+            block.ts.data_ptr(), block.vals.data_ptr(), raw.data_ptr(), block.lens.data_ptr(),
+            gids.data_ptr(), S, T, J, acc.shape[1], num_groups,
+            int(params.start_ms - block.base_ms), int(params.step_ms), int(params.window_ms),
+            WINDOW_FUNC_CODES[func], GA.ACC_CODES[op], int(is_counter), int(is_delta),
+            plan.rows, int(plan.staged), int(plan.shared), plan.smem_bytes, acc.data_ptr(),
+            cnt.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"window_range_aggregate kernel launch failed: cudaError {err}")
+    RANGE_LAUNCHES += 1
+    LAST_PLAN = plan
+
+
+def window_range_aggregate_plain(func: str, op: str, block, gids: torch.Tensor,
+                                 num_groups: int, params, is_counter: bool = False,
+                                 is_delta: bool = False) -> torch.Tensor:
+    """The fused kernel's function in plain torch, as the JAX package's
+    ``_fused_pallas_jit`` composes it: window stats -> finish -> slice to
+    the block's padding -> the ("agg", op) epilogue; then NaN past
+    ``params.num_steps``."""
+    from .aggregations import apply_epilogue
+
+    raw = block.raw if block.raw is not None else block.vals
+    j_pad = pad_steps(params.num_steps)
+    start_off = int(params.start_ms - block.base_ms)
+    stats = window_stats_plain(block.ts, block.vals, raw, block.lens, start_off,
+                               params.step_ms, params.window_ms, j_pad)
+    sj = finish(func, stats, start_off, params.step_ms, params.window_ms,
+                is_counter=is_counter, is_delta=is_delta)
+    sj = sj[: block.vals.shape[0], :j_pad]
+    out = apply_epilogue(sj, ("agg", op), gids, num_groups)
+    return GA.mask_steps(out, params.num_steps)

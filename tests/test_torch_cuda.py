@@ -1,5 +1,7 @@
-"""The window-stats and regular-range kernels on the card against their
-plain versions. These tests need an NVIDIA card and skip without one; the
+"""The window-stats kernels (nine planes, and fused with finish and the
+group aggregate) and the regular-range kernel on the card against their
+plain versions, on both group-partial variants and on rows staged in
+shared memory or read in place. These tests need an NVIDIA card and skip without one; the
 file imports no JAX so that it runs on a machine with only torch:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -10,6 +12,7 @@ import pytest
 import torch
 
 from filodb_tpu_torch.ops import aggregations as AGG
+from filodb_tpu_torch.ops import group_acc as GA
 from filodb_tpu_torch.ops import mxu_kernels as MK
 from filodb_tpu_torch.ops import window_stats as WS
 from filodb_tpu_torch.ops.kernels import RangeParams, pad_steps
@@ -94,11 +97,13 @@ def regular_block(counter: bool, mode: dict, n_series=65, n=300, seed=0):
 
 
 def plain_aggregate(func, op, block, gids, G, params, counter):
+    """The regular rung's plain version; the kernel computes no step past
+    ``params.num_steps``, which are NaN in both."""
     wm = MK.window_matrices(block, params.start_ms - BASE, params.step_ms,
                             pad_steps(params.num_steps), params.window_ms)
     raw = block.raw if block.raw is not None else block.vals
     sj = MK.mxu_range_plain(func, block.vals, raw, wm, params.window_ms, is_counter=counter)
-    return AGG.apply_epilogue(sj, ("agg", op), gids, G)
+    return GA.mask_steps(AGG.apply_epilogue(sj, ("agg", op), gids, G), params.num_steps)
 
 
 @pytest.mark.cuda
@@ -143,3 +148,218 @@ def test_regular_kernel_group_ops_on_card(card, op, G):
     np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
     m = ~np.isnan(w)
     np.testing.assert_allclose(g[m], w[m], rtol=1e-3)
+
+
+# ---- the fused window-stats kernel (window_range_aggregate) ----
+
+def params_for(num_steps=60, start=BASE + 400_000, step=60_000, window=300_000):
+    return RangeParams(start, step, num_steps, window)
+
+
+def own_groups(b, device):
+    """Each real row its own group (G = S), padded rows in the trash group."""
+    S = b.ts.shape[0]
+    gids = torch.full((S,), b.n_series, dtype=torch.int64, device=device)
+    gids[: b.n_series] = torch.arange(b.n_series, device=device)
+    return gids
+
+
+def spread_groups(b, G, device, interleave=True):
+    """Real rows spread over G groups, row by row (interleaved) or in runs."""
+    S = b.ts.shape[0]
+    gids = torch.full((S,), G, dtype=torch.int64, device=device)
+    rows = torch.arange(b.n_series, device=device)
+    gids[: b.n_series] = rows % G if interleave else rows * G // b.n_series
+    return gids
+
+
+def assert_same(got, want, rtol, atol=0.0, what=""):
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    assert g.shape == w.shape, what
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(w), err_msg=what)
+    m = ~np.isnan(w)
+    assert m.any(), what
+    np.testing.assert_allclose(g[m], w[m], rtol=rtol, atol=atol, err_msg=what)
+
+
+def fused_pair(b, func, op, gids, G, params, counter):
+    before = WS.RANGE_LAUNCHES
+    got = WS.window_range_aggregate(func, op, b, gids, G, params, is_counter=counter)
+    assert WS.RANGE_LAUNCHES == before + 1
+    want = WS.window_range_aggregate_plain(func, op, b, gids, G, params, is_counter=counter)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counter", [False, True], ids=["gauge", "counter"])
+@pytest.mark.parametrize("func", sorted(WS.PALLAS_FUNCS))
+def test_window_range_matches_plain_on_card(card, func, counter):
+    """G = S: each (group, step) gets one value, so no atomic reorders a
+    sum (rtol 2e-4 / atol 1e-4, the window sums' order differs)."""
+    b = block(counter).to_device(card)
+    got, want = fused_pair(b, func, "sum", own_groups(b, card), b.n_series, params_for(), counter)
+    assert WS.LAST_PLAN.staged
+    assert_same(got, want, 2e-4, 1e-4, func)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interleave", [True, False], ids=["interleaved", "runs"])
+@pytest.mark.parametrize("op", ["sum", "count", "avg", "min", "max"])
+@pytest.mark.parametrize("G", [1, 8])
+def test_window_range_group_ops_on_card(card, op, G, interleave):
+    """Shared-memory partials: atomics reorder a group's f32 sums (rtol 1e-3)."""
+    b = block(True, n_series=300, seed=1).to_device(card)
+    gids = spread_groups(b, G, card, interleave)
+    got, want = fused_pair(b, "rate", op, gids, G, params_for(), True)
+    assert WS.LAST_PLAN.partials == "shared"
+    assert_same(got, want, 1e-3, what=f"{op} G={G}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_window_range_groups_above_shared_budget_on_card(card, op):
+    """G past the shared-memory budget takes the global-atomic partials."""
+    b = block(False, n_series=300, seed=2).to_device(card)
+    params = params_for(num_steps=40)
+    G = GA.PARTIALS_BUDGET // (2 * 40 * 4) + 1
+    assert not GA.tile_plan(G, 40, b.ts.shape[1], 2).shared
+    got, want = fused_pair(b, "avg_over_time", op, spread_groups(b, G, card), G, params, False)
+    assert WS.LAST_PLAN.partials == "global"
+    assert_same(got, want, 1e-3, what=op)
+
+
+def array_block(S, T, seed, counter, device, nan_every=0):
+    """A block from plain arrays with S rows (any S), irregular rows and
+    ragged lengths; NaN at every ``nan_every``-th sample when given."""
+    from filodb_tpu_torch.ops.staging import block_from_arrays
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(T // 3, T + 1, S).astype(np.int32)
+    lens[S // 2] = 0  # a series with no sample in range
+    real = rng.integers(0, 20_000, (S, 1)) + np.cumsum(rng.integers(5_000, 15_001, (S, T)), axis=1)
+    mask = np.arange(T)[None, :] < lens[:, None]
+    ts = np.where(mask, real, int(TS_PAD)).astype(np.int32)
+    if counter:
+        vals = np.cumsum(rng.uniform(0, 10, (S, T)), axis=1)
+    else:
+        vals = 50 + 20 * rng.standard_normal((S, T))
+    if nan_every:
+        vals[:, ::nan_every] = np.nan
+    vals = np.where(mask, vals, 0).astype(np.float32)
+    raw = (vals + 5.0).astype(np.float32) if counter else None
+    return block_from_arrays(ts, vals, lens, BASE, np.zeros(S, np.float32), S, raw=raw,
+                             device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("func", ["rate", "sum_over_time", "max_over_time", "last",
+                                  "absent_over_time"])
+def test_window_range_ragged_rows_and_nans_on_card(card, func):
+    """S = 13 rows (not a multiple of the tile's rows), a row with no
+    sample, NaN samples confined to their windows, and steps before the
+    first sample (empty windows)."""
+    b = array_block(13, 256, seed=3, counter=func == "rate", device=card, nan_every=7)
+    params = RangeParams(BASE - 600_000, 60_000, 50, 300_000)
+    gids = torch.arange(13, dtype=torch.int64, device=card)
+    got, want = fused_pair(b, func, "sum", gids, 13, params, func == "rate")
+    assert b.ts.shape[0] % WS.LAST_PLAN.rows != 0
+    assert_same(got, want, 2e-4, 1e-4, func)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("func", ["rate", "increase", "first_over_time", "last"])
+def test_window_range_tied_timestamps_on_card(card, func):
+    """Tied first/last timestamps sum their values, as the plain version."""
+    ts = np.full((8, 128), TS_PAD, np.int32)
+    ts[0, :6] = [1000, 1000, 2000, 3000, 4000, 4000]
+    vals = np.zeros((8, 128), np.float32)
+    vals[0, :6] = [1.0, 10.0, 3.0, 4.0, 6.0, 8.0]
+    raw = vals + 100.0
+    lens = np.zeros(8, np.int32)
+    lens[0] = 6
+    from filodb_tpu_torch.ops.staging import block_from_arrays
+
+    b = block_from_arrays(ts, vals, lens, BASE, np.zeros(8, np.float32), 1, raw=raw, device=card)
+    gids = torch.tensor([0] + [1] * 7, dtype=torch.int64, device=card)
+    params = RangeParams(BASE + 4000, 1000, 3, 5000)
+    got, want = fused_pair(b, func, "sum", gids, 1, params, True)
+    assert_same(got, want, 0.0, 0.0, func)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("func", ["rate", "sum_over_time", "count_over_time"])
+def test_window_range_rows_read_in_place_on_card(card, func):
+    """Rows too wide for the shared-memory budget are read in place."""
+    b = array_block(5, 32_768, seed=4, counter=True, device=card)
+    params = RangeParams(BASE + 600_000, 600_000, 100, 3_600_000)
+    gids = torch.tensor([0, 1, 0, 1, 0], dtype=torch.int64, device=card)
+    got, want = fused_pair(b, func, "sum", gids, 2, params, True)
+    assert not WS.LAST_PLAN.staged
+    assert_same(got, want, 1e-3, what=func)
+
+
+@pytest.mark.cuda
+def test_fused_path_allocates_no_grid_on_card(card):
+    """The window-stats rung makes one launch and no [S, J] tensor."""
+    b = block(True, n_series=2000, seed=5).to_device(card)
+    gids = spread_groups(b, 8, card)
+    params = params_for()
+    before = (WS.LAUNCHES, WS.RANGE_LAUNCHES, MK.LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(card)
+    base = torch.cuda.memory_allocated(card)
+    AGG.fused_range_aggregate("rate", "sum", b, gids, 8, params, is_counter=True)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(card) - base < b.ts.shape[0] * params.num_steps * 4
+    assert (WS.LAUNCHES, WS.RANGE_LAUNCHES, MK.LAUNCHES) == (before[0], before[1] + 1, before[2])
+
+
+# ---- the regular kernel's group-partial variants and wide rows ----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["sum", "count", "avg", "min", "max"])
+@pytest.mark.parametrize("variant", ["shared", "global"])
+def test_regular_kernel_partial_variants_on_card(card, op, variant):
+    """G on each side of the shared-memory budget (rtol 1e-3: atomics)."""
+    b = regular_block(True, {"counter_corrected": True}, n_series=300, seed=2).to_device(card)
+    params = RangeParams(BASE + 400_000, 60_000, 40, 300_000)
+    G = 8 if variant == "shared" else GA.PARTIALS_BUDGET // (2 * 40 * 4) + 1
+    gids = spread_groups(b, G, card)
+    got = MK.regular_range_aggregate("rate", op, b, gids, G, params, is_counter=True)
+    assert MK.LAST_PLAN.partials == variant
+    want = plain_aggregate("rate", op, b, gids, G, params, True)
+    torch.cuda.synchronize()
+    assert_same(got, want, 1e-3, what=f"{op} {variant}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("func", ["rate", "sum_over_time", "stddev_over_time"])
+def test_regular_kernel_rows_read_in_place_on_card(card, func):
+    """Column spans too wide for the shared-memory budget are read in place;
+    at G = S the kernel still equals the plain version bit for bit."""
+    b = regular_block(True, {"counter_corrected": True}, n_series=9, n=32_000,
+                      seed=3).to_device(card)
+    params = RangeParams(BASE + 400_000, 600_000, 520, 3_600_000)
+    gids = own_groups(b, card)
+    got = MK.regular_range_aggregate(func, "sum", b, gids, b.n_series, params, is_counter=True)
+    assert not MK.LAST_PLAN.staged
+    want = plain_aggregate(func, "sum", b, gids, b.n_series, params, True)
+    torch.cuda.synchronize()
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_array_equal(g, w, err_msg=func)
+
+
+@pytest.mark.cuda
+def test_launch_sizes_up_and_down_on_card(card):
+    """One kernel launched with more, then less, then more shared memory:
+    its allowance never drops below a size already launched."""
+    small = block(True, n_series=9, n=60, seed=6).to_device(card)
+    large = block(True, n_series=9, n=700, seed=7).to_device(card)
+    params = params_for(num_steps=8)
+    for b in (large, small, large, small):
+        gids = own_groups(b, card)
+        got, want = fused_pair(b, "rate", "sum", gids, b.n_series, params, True)
+        assert_same(got, want, 2e-4, 1e-4, f"T={b.ts.shape[1]}")
+        sizes = WS.LAST_PLAN.smem_bytes
+    assert sizes < GA.tile_plan(9, 8, large.ts.shape[1], 3).smem_bytes

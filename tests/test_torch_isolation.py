@@ -1,6 +1,6 @@
 """The port stands alone: importing ``filodb_tpu_torch`` and every one of
 its modules loads neither JAX nor anything of ``filodb_tpu``, and no port
-source file (nor ``chip_smoke.py``) imports either. The import check runs
+source file (nor ``chip_smoke.py`` or ``tile_sweep.py``) imports either. The import check runs
 in a subprocess because tests/conftest.py imports JAX into this one."""
 
 import ast
@@ -52,7 +52,7 @@ def test_importing_the_port_loads_no_jax():
 
 
 def source_files() -> list[Path]:
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tile_sweep.py"]
 
 
 @pytest.mark.parametrize("path", source_files(), ids=lambda p: str(p.relative_to(ROOT)))
