@@ -61,7 +61,8 @@ Phases (any failure raises and exits non-zero):
    superblock (rtol 1e-3). Prints staging seconds and, per query, the
    device path's ms, the kernel's ms (median of 20, and back to back) and
    the bound; then
-   ``sum(sum_over_time)``'s kernel ms and bound, the plain path's ms, and
+   ``sum(sum_over_time)``'s kernel ms, device path ms (the wrapper:
+   accumulators, kernel, [G, J] finish) and bound, the plain path's ms, and
    ``torch.matmul(vals, W)`` (cuBLAS f32, TF32 off: the JAX package's
    window sums). A regular bound counts the 32-byte sectors of vals (and
    raw) the function reads over the real rows, gids and the outputs, from
@@ -766,6 +767,9 @@ def phase_regular_path(seed: int, device) -> dict:
         gpu_sample("phase5 sum_over_time before")
         s_ms = cuda_ms(kernel("sum_over_time"), reps=20)
         s_b2b = back_to_back_ms(kernel("sum_over_time"))
+        s_dev_ms = cuda_ms(lambda: MK.regular_range_aggregate(
+            "sum_over_time", ex.op, block, gids, G, params, entry.is_counter,
+            entry.is_delta), reps=20)
         lib_ms = cuda_ms(lambda: torch.matmul(block.vals, wm.W), reps=20)
         gpu_sample("phase5 sum_over_time after")
         p_ms = cuda_ms(lambda: regular_plain("rate", ex.op, block, gids, G, params,
@@ -774,7 +778,8 @@ def phase_regular_path(seed: int, device) -> dict:
         sum_bound_ms = sum_bytes / HBM_BYTES_PER_S * 1e3
         print(f"phase5 regular_range on sum(rate): plain {p_ms:.3f} ms")
         print(f"phase5 regular_range kernel on sum(sum_over_time): {s_ms:.4f} ms (median of 20; "
-              f"{s_b2b:.4f} ms back to back), "
+              f"{s_b2b:.4f} ms back to back), device path (kernel + [G, J] finish) "
+              f"{s_dev_ms:.4f} ms (median of 20), "
               f"bound {sum_bound_ms:.4f} ms ({sum_bytes} bytes); torch.matmul(vals, W) "
               f"[{block.shape[0]}, {block.shape[1]}] x [{block.shape[1]}, {pad_steps(J)}] "
               f"(cuBLAS f32, TF32 off) {lib_ms:.4f} ms")
@@ -793,6 +798,7 @@ def phase_regular_path(seed: int, device) -> dict:
             "library_call": "torch.matmul(vals, W): the window sums of sum_over_time",
             "sum_over_time_ms": s_ms,
             "sum_over_time_ms_back_to_back": s_b2b,
+            "sum_over_time_device_path_ms": s_dev_ms,
             "sum_over_time_bound_ms": sum_bound_ms,
         }
     row["queries"] = per_query

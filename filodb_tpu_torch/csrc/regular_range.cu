@@ -17,26 +17,20 @@
 // sums windows with vals @ W. Here a load at lo[j], hi[j]-1 or hi[j]-2 is
 // the gather and a loop over [lo[j], hi[j]) the window sum, taken in index
 // order. A persistent grid of 256-thread blocks walks tiles of R rows
-// (row_tiles.cuh): each tile's columns [c0, c0+span) -- the span the
-// query's windows cover, so a row moves only the samples some window
-// reads -- of vals (and raw, when the counter zero-crossing cap reads it)
-// are staged into shared memory with double-buffered cp.async copies;
-// rows of the trash group copy nothing. The block's threads take the
-// tile's (row, step) pairs flattened row by row, so every lane has a pair
-// whatever J is (only the tile's last wave is partial), and neighbouring
-// lanes read neighbouring windows of one row. Gathers and window sums read
-// shared memory; lanes 6 samples apart (5 m windows at 60 s steps over a
-// 10 s grid) meet 2-way bank conflicts, which the copies still outlast.
-// Values reduce through group_acc.cuh: shared-memory partials flushed once
-// per block while 2*G*J*4 bytes fit the wrapper's budget, else global
-// atomics. Rows wider than the shared-memory budget are read in place
-// from device memory (STAGED = false), the same code on other pointers.
+// (row_tiles.cuh). The block's threads take the tile's (row, step) pairs
+// flattened row by row, so every lane has a pair whatever J is (only the
+// tile's last wave is partial), and neighbouring lanes read neighbouring
+// windows of one row. Rows are read in place from device memory: a warp's
+// windows cover a few consecutive sectors of one row, which coalesce and
+// are reused through L1; the same kernel staging row tiles in shared
+// memory with cp.async measured slower on an H100 (PERF.md, layout
+// sweep). Values reduce through group_acc.cuh: shared-memory partials
+// flushed once per block while 2*G*J*4 bytes fit the wrapper's budget,
+// else global atomics.
 //
 // Bound. Device-memory bytes: the sectors of vals (and of raw, for the
 // counter zero-crossing cap) that the function reads, gids, and the
-// outputs; a few dozen flops per (row, step). Staging the whole column
-// span moves a few percent more than the sectors a rate reads (172 of a
-// row's 192 sectors on the main path, against a span of ~173).
+// outputs; a few dozen flops per (row, step).
 //
 // Semantics kept line by line from mxu_range_kernel: f32 Prometheus
 // extrapolation of rate/increase/delta with the zero-crossing cap read from
@@ -78,7 +72,6 @@ struct RegularArgs {
     const float* tl2;
     const float* out_t;
     int S, T, J, ld, G;
-    int c0, span;  // staged columns [c0, c0 + span)
     float window_ms;
     int func, acc_op, is_counter, is_delta;
     int R;  // rows per tile
@@ -99,8 +92,8 @@ __device__ __forceinline__ bool needs_raw(const RegularArgs& a) {
     return is_extrap(a) && a.is_counter && a.func != DELTA;
 }
 
-// The range function of one row at step j. `row` and `rraw` hold the
-// row's columns [c0, c0 + span): sample k is at [k - c0].
+// The range function of one row at step j; `row` and `rraw` are the row's
+// vals and raw in device memory.
 __device__ __forceinline__ float step_value(const RegularArgs& a, const float* row,
                                             const float* rraw, int j) {
     const float NaN = group_acc::nan_f();
@@ -111,16 +104,14 @@ __device__ __forceinline__ float step_value(const RegularArgs& a, const float* r
     const bool has2 = count >= 2.0f;
     if (func == COUNT_OVER_TIME) return has ? count : NaN;
     if (func == PRESENT_OVER_TIME) return has ? 1.0f : NaN;
-    const int c0 = a.c0;
-    const int iF = __ldg(a.idx + j) - c0;
-    const int iL = __ldg(a.idx + a.ld + j) - c0;
+    const int iF = __ldg(a.idx + j);
+    const int iL = __ldg(a.idx + a.ld + j);
     const float w_s = a.window_ms * 1e-3f;
     const bool moments = func == STDDEV_OVER_TIME || func == STDVAR_OVER_TIME || func == Z_SCORE;
     if (is_win_sum(a) || moments) {
         if (!has) return NaN;
-        const int lo = __ldg(a.lo + j) - c0, hi = __ldg(a.hi + j) - c0;
-        // in index order, two samples per 8-byte load where aligned: lanes
-        // at steps 6 samples apart then read conflict-free half-warps
+        const int lo = __ldg(a.lo + j), hi = __ldg(a.hi + j);
+        // in index order, two samples per 8-byte load where aligned
         float sm = 0.0f, sm2 = 0.0f;
         int k = lo;
         if ((k & 1) && k < hi) {
@@ -182,54 +173,32 @@ __device__ __forceinline__ float step_value(const RegularArgs& a, const float* r
     }
     if (func == IDELTA && a.is_counter && !a.is_delta) return row[iL];  // diff-staged counter
     // irate, idelta
-    const float dv = row[iL] - row[__ldg(a.idx + 2 * a.ld + j) - c0];
+    const float dv = row[iL] - row[__ldg(a.idx + 2 * a.ld + j)];
     if (func == IDELTA) return dv;
     const float dt_s = (__ldg(a.tl + j) - __ldg(a.tl2 + j)) * 1e-3f;
     return dv / fmaxf(dt_s, 1e-30f);
 }
 
-template <bool STAGED, bool SHARED>
+template <bool SHARED>
 __global__ void __launch_bounds__(THREADS) regular_range_kernel(const RegularArgs a) {
     extern __shared__ __align__(16) float smem[];
     const int part = SHARED ? a.G * a.J : 0;
     float* acc_s = smem;
     float* cnt_s = smem + part;
-    float* stage = smem + ((2 * part + 3) & ~3);  // 16-byte aligned
     const int R = a.R;
-    const int narr = needs_raw(a) ? 2 : 1;
-    const int64_t buf_words = (int64_t)narr * R * a.span;
     const group_acc::Sink sink = SHARED ? group_acc::Sink{acc_s, cnt_s, a.J, a.acc_op}
                                         : group_acc::Sink{a.acc, a.cnt, a.ld, a.acc_op};
     if (SHARED) {
         group_acc::shared_init(acc_s, cnt_s, part, a.acc_op);
         __syncthreads();
     }
-    auto issue = [&](int tile, int b) {
+    row_tiles::for_each_tile<false>(a.S, R, [](int, int) {}, [&](int tile, int) {
         const int64_t s0 = (int64_t)tile * R;
-        const int chunks = a.span / 4;
-        row_tiles::issue_tile(a.vals, a.raw, nullptr, narr, s0, min(R, a.S - (int)s0), R, a.T,
-                              a.c0, a.span, stage + b * buf_words, [&](int r) {
-                                  const long long g = __ldg(a.gids + s0 + r);
-                                  return (g < 0 || g >= a.G) ? 0 : chunks;
-                              });
-    };
-    row_tiles::for_each_tile<STAGED>(a.S, R, issue, [&](int tile, int b) {
-        const int64_t s0 = (int64_t)tile * R;
-        const float* buf = stage + b * buf_words;
         row_tiles::for_each_pair(min(R, a.S - (int)s0), a.J, [&](int r, int j) {
             const int64_t s = s0 + r;
             const long long g = __ldg(a.gids + s);
             if (g < 0 || g >= a.G) return;  // trash group G (padding) or no group
-            const float* row;
-            const float* rraw;
-            if (STAGED) {
-                row = buf + (int64_t)r * a.span;
-                rraw = buf + (int64_t)(R + r) * a.span;
-            } else {
-                row = a.vals + s * a.T + a.c0;
-                rraw = a.raw + s * a.T + a.c0;
-            }
-            const float v = step_value(a, row, rraw, j);
+            const float v = step_value(a, a.vals + s * a.T, a.raw + s * a.T, j);
             if (!isnan(v)) sink.add(g, j, v);
         });
     });
@@ -239,9 +208,9 @@ __global__ void __launch_bounds__(THREADS) regular_range_kernel(const RegularArg
     }
 }
 
-template <bool STAGED, bool SHARED>
+template <bool SHARED>
 int launch(const RegularArgs& a, int smem, cudaStream_t stream) {
-    auto kern = regular_range_kernel<STAGED, SHARED>;
+    auto kern = regular_range_kernel<SHARED>;
     int grid = 0;
     const cudaError_t err = row_tiles::persistent_grid(kern, smem, (a.S + a.R - 1) / a.R, &grid);
     if (err != cudaSuccess) return (int)err;
@@ -253,33 +222,25 @@ int launch(const RegularArgs& a, int smem, cudaStream_t stream) {
 
 // Plain C entry for ctypes. acc [G+1, ld] must hold the accumulator's
 // identity (0, +inf or -inf) and cnt [G+1, ld] zeros; steps [0, J) are
-// computed. `rows` rows per tile; `staged` stages the columns [c0, c0 +
-// span) of each tile in shared memory; `shared` keeps the group partials
-// in shared memory; `smem_bytes` is the dynamic shared memory the wrapper
+// computed. `rows` rows per tile; `shared` keeps the group partials in
+// shared memory; `smem_bytes` is the dynamic shared memory the wrapper
 // sized for them (checked here). Launches on `stream` and returns a
 // cudaError_t (0 on success); it does not synchronise.
 extern "C" int filodb_regular_range(
     const void* vals, const void* raw, const void* gids, const void* lo,
     const void* hi, const void* idx, const void* count, const void* t_first, const void* t_last,
-    const void* t_last2, const void* out_t, int S, int T, int J, int ld, int G, int c0,
-    int span, float window_ms, int func, int acc_op, int is_counter, int is_delta, int rows,
-    int staged, int shared, int smem_bytes, void* acc, void* cnt, void* stream) {
+    const void* t_last2, const void* out_t, int S, int T, int J, int ld, int G,
+    float window_ms, int func, int acc_op, int is_counter, int is_delta, int rows,
+    int shared, int smem_bytes, void* acc, void* cnt, void* stream) {
     if (S <= 0 || J <= 0 || G <= 0) return 0;
     RegularArgs a{(const float*)vals, (const float*)raw, (const long long*)gids,
                   (const int32_t*)lo, (const int32_t*)hi, (const int32_t*)idx,
                   (const float*)count, (const float*)t_first, (const float*)t_last,
-                  (const float*)t_last2, (const float*)out_t, S, T, J, ld, G, c0, span,
+                  (const float*)t_last2, (const float*)out_t, S, T, J, ld, G,
                   window_ms, func, acc_op, is_counter, is_delta, rows, (float*)acc,
                   (float*)cnt};
-    const bool raw_cap = (func == RATE || func == INCREASE) && is_counter && !is_delta;
     const int64_t part = shared ? (((int64_t)2 * G * J + 3) & ~3) * 4 : 0;
-    const int64_t need = part + (staged ? (int64_t)2 * rows * span * 4 * (raw_cap ? 2 : 1) : 0);
-    if (rows < 1 || span % 4 != 0 || c0 % 4 != 0 || smem_bytes < need)
-        return (int)cudaErrorInvalidValue;
+    if (rows < 1 || smem_bytes < part) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
-    if (staged)
-        return shared ? launch<true, true>(a, smem_bytes, st)
-                      : launch<true, false>(a, smem_bytes, st);
-    return shared ? launch<false, true>(a, smem_bytes, st)
-                  : launch<false, false>(a, smem_bytes, st);
+    return shared ? launch<true>(a, smem_bytes, st) : launch<false>(a, smem_bytes, st);
 }

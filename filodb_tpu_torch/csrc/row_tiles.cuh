@@ -1,16 +1,16 @@
-// Row tiles in shared memory for the port's fused range kernels, on Hopper
-// (sm_90a).
+// Row tiles for the port's fused range kernels, on Hopper (sm_90a).
 //
-// A persistent block walks tiles of R consecutive series rows
-// (for_each_tile). Each tile's rows are staged with cp.async (16-byte
-// copies that bypass L1) into one of two shared-memory buffers, so the
-// copies of the block's next tile are in flight while the current one is
-// computed. A buffer holds up to three arrays of R rows each; array a's row r is at
-// buf + (a * R + r) * span. Rows in device memory are contiguous with a
-// pitch of T words (staging.pad_time makes T a multiple of 128) and the
-// wrapper checks 16-byte alignment, so every copy is an aligned 16-byte
-// chunk of one row. Only the chunks a row needs are copied (its samples,
-// or the query's column span); rows the kernel skips copy nothing.
+// A persistent block walks tiles of R consecutive series rows, and its
+// threads take each tile's (row, step) pairs flattened (for_each_pair).
+// The window-stats kernel also stages each tile's rows in shared memory
+// (for_each_tile): cp.async 16-byte copies that bypass L1 fill one of two
+// buffers, so the copies of the block's next tile are in flight while the
+// current one is computed. A buffer holds n_arrays arrays of R rows each;
+// array a's row r is at buf + (a * R + r) * T. Rows in device memory are
+// contiguous with a pitch of T words (staging.pad_time makes T a multiple
+// of 128) and the wrapper checks 16-byte alignment, so every copy is an
+// aligned 16-byte chunk of one row. Only the chunks a row needs are copied
+// (its samples); rows the kernel skips copy nothing.
 
 #pragma once
 
@@ -38,31 +38,32 @@ __device__ __forceinline__ void wait_prior1() {
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-// Issue one tile's copies: rows s0 .. s0+rows-1, columns [col0, col0 +
-// span) of up to three arrays (src0..src2, `narr` of them), into `buf`.
-// `chunks(r)` is how many leading 16-byte chunks of row r to copy (0
-// skips the row). Every thread of the block takes part.
+// Issue one tile's copies: rows s0 .. s0+rows-1 of up to three arrays
+// (src0..src2, `narr` of them), into `buf`. `chunks(r)` is how many
+// leading 16-byte chunks of row r to copy (0 skips the row). Every thread
+// of the block takes part.
 template <typename Chunks>
 __device__ __forceinline__ void issue_tile(const void* src0, const void* src1, const void* src2,
                                            int narr, int64_t s0, int rows, int R, int T,
-                                           int col0, int span, float* buf, Chunks chunks) {
-    const int cpr = span / 4;  // 16-byte chunks per staged row
+                                           float* buf, Chunks chunks) {
+    const int cpr = T / 4;  // 16-byte chunks per row
     for (int c = threadIdx.x; c < rows * cpr; c += blockDim.x) {
         const int r = c / cpr;
         const int k = c - r * cpr;
         if (k >= chunks(r)) continue;
-        const int64_t off = (s0 + r) * T + col0 + 4 * k;  // in words
-        float* d = buf + (int64_t)r * span + 4 * k;
+        const int64_t off = (s0 + r) * T + 4 * k;  // in words
+        float* d = buf + (int64_t)r * T + 4 * k;
         cp_async16(d, (const float*)src0 + off);
-        if (narr > 1) cp_async16(d + (int64_t)R * span, (const float*)src1 + off);
-        if (narr > 2) cp_async16(d + (int64_t)2 * R * span, (const float*)src2 + off);
+        if (narr > 1) cp_async16(d + (int64_t)R * T, (const float*)src1 + off);
+        if (narr > 2) cp_async16(d + (int64_t)2 * R * T, (const float*)src2 + off);
     }
 }
 
 // Walk the block's tiles of R rows out of S (tile blockIdx.x, then +
 // gridDim.x, ...), calling compute(tile, b) on each. STAGED:
 // issue(tile, b) starts the copies of a tile into buffer b, and the copies
-// of the block's next tile are in flight while compute runs on this one.
+// of the block's next tile are in flight while compute runs on this one;
+// else rows are read in place and issue is never called.
 template <bool STAGED, typename Issue, typename Compute>
 __device__ __forceinline__ void for_each_tile(int S, int R, Issue issue, Compute compute) {
     const int ntiles = (S + R - 1) / R;

@@ -31,9 +31,10 @@
 // the first). finish (ops/window_stats.py) is computed inline, line for
 // line, and the value reduces through group_acc.cuh: shared-memory group
 // partials flushed once per block while 2*G*J*4 bytes fit the wrapper's
-// budget, else global atomics. Rows wider than the shared-memory budget
-// are read in place from device memory (STAGED = false), the same code on
-// other pointers.
+// budget, else global atomics. The wrapper decides how many arrays a
+// launch stages (n_arrays; the entry refuses too few for the function);
+// rows wider than the shared-memory budget are read in place from device
+// memory (n_arrays = 0, STAGED = false), the same code on other pointers.
 //
 // Bound of window_range_kernel: device-memory bytes -- each real sample's
 // ts, value and raw value read once, lens and gids, the [G, J] outputs --
@@ -91,12 +92,14 @@ __device__ __forceinline__ int32_t wrap_mul(int32_t a, int32_t b) {
 }
 
 // number of entries in row[0, n) that are <= x (row sorted ascending);
-// the row lies in shared or device memory
+// the row lies in shared or device memory. LDG: a row in device memory,
+// read through the read-only data cache (the nine-plane kernel's rows)
+template <bool LDG = false>
 __device__ __forceinline__ int count_le(const int32_t* row, int n, int32_t x) {
     int lo = 0, hi = n;
     while (lo < hi) {
         const int mid = (lo + hi) >> 1;
-        if (row[mid] <= x) lo = mid + 1; else hi = mid;
+        if ((LDG ? __ldg(row + mid) : row[mid]) <= x) lo = mid + 1; else hi = mid;
     }
     return lo;
 }
@@ -122,8 +125,8 @@ __global__ void window_stats_kernel(
 
     int32_t t_j = wrap_add(start, wrap_mul(j, step));
     int32_t t_lo = wrap_add(t_j, -window);
-    int hi = count_le(row_t, n, t_j);
-    int lo = count_le(row_t, n, t_lo);
+    int hi = count_le<true>(row_t, n, t_j);
+    int lo = count_le<true>(row_t, n, t_lo);
     if (lo > hi) lo = hi;  // empty window (w <= 0 or wrapped bounds)
 
     float sum = 0.0f, mn = POS, mx = NEG;
@@ -182,6 +185,7 @@ struct RangeArgs {
     int func, acc_op;
     int zero_cap;  // rate/increase of a counter: the zero-crossing cap reads raw
     int R;         // rows per tile
+    int n_arrays;  // arrays staged per row (ts, vals, raw in order); 0: read in place
     float* acc;
     float* cnt;
 };
@@ -275,11 +279,6 @@ __device__ __forceinline__ float window_value(const RangeArgs& a, const int32_t*
     return a.func == W_RATE ? res / (wf * 1e-3f) : res;
 }
 
-// arrays a function stages: ts, vals unless it only counts, raw for the cap
-__host__ __device__ __forceinline__ int staged_arrays(int kind, int zero_cap) {
-    return kind == K_COUNT ? 1 : (zero_cap ? 3 : 2);
-}
-
 template <int KIND, bool STAGED, bool SHARED>
 __global__ void __launch_bounds__(THREADS) window_range_kernel(const RangeArgs a) {
     extern __shared__ __align__(16) float smem[];
@@ -288,7 +287,7 @@ __global__ void __launch_bounds__(THREADS) window_range_kernel(const RangeArgs a
     float* cnt_s = smem + part;
     float* stage = smem + ((2 * part + 3) & ~3);  // 16-byte aligned
     const int R = a.R, T = a.T;
-    const int narr = staged_arrays(KIND, a.zero_cap);
+    const int narr = a.n_arrays;
     const int64_t buf_words = (int64_t)narr * R * T;
     const group_acc::Sink sink = SHARED ? group_acc::Sink{acc_s, cnt_s, a.J, a.acc_op}
                                         : group_acc::Sink{a.acc, a.cnt, a.ld, a.acc_op};
@@ -298,7 +297,7 @@ __global__ void __launch_bounds__(THREADS) window_range_kernel(const RangeArgs a
     }
     auto issue = [&](int tile, int b) {
         const int64_t s0 = (int64_t)tile * R;
-        row_tiles::issue_tile(a.ts, a.vals, a.raw, narr, s0, min(R, a.S - (int)s0), R, T, 0, T,
+        row_tiles::issue_tile(a.ts, a.vals, a.raw, narr, s0, min(R, a.S - (int)s0), R, T,
                               stage + b * buf_words, [&](int r) {
                                   const long long g = __ldg(a.gids + s0 + r);
                                   if (g < 0 || g >= a.G) return 0;
@@ -347,8 +346,8 @@ int launch_range(const RangeArgs& a, int smem, cudaStream_t stream) {
 }
 
 template <int KIND>
-int launch_kind(const RangeArgs& a, int staged, int shared, int smem, cudaStream_t st) {
-    if (staged)
+int launch_kind(const RangeArgs& a, int shared, int smem, cudaStream_t st) {
+    if (a.n_arrays > 0)
         return shared ? launch_range<KIND, true, true>(a, smem, st)
                       : launch_range<KIND, true, false>(a, smem, st);
     return shared ? launch_range<KIND, false, true>(a, smem, st)
@@ -376,14 +375,16 @@ int kind_of(int func, int is_delta) {
 // Plain C entry for ctypes: op by (...) (func(m[w])) over a staged block.
 // acc [G+1, ld] must hold the accumulator's identity (0, +inf or -inf) and
 // cnt [G+1, ld] zeros; steps [0, J) are computed. `rows` rows per tile;
-// `staged` stages each tile's rows in shared memory; `shared` keeps the
-// group partials there; `smem_bytes` is the dynamic shared memory the
-// wrapper sized for them (checked here). Launches on `stream` and returns
-// a cudaError_t (0 on success); it does not synchronise.
+// `n_arrays` of ts, vals and raw (in that order) are staged per row in
+// shared memory, 0 reads rows in place; `shared` keeps the group partials
+// there; `smem_bytes` is the dynamic shared memory the wrapper sized for
+// them (checked here, as is that the staged arrays hold what the function
+// reads). Launches on `stream` and returns a cudaError_t (0 on success);
+// it does not synchronise.
 extern "C" int filodb_window_range_aggregate(
     const void* ts, const void* vals, const void* raw, const void* lens, const void* gids,
     int S, int T, int J, int ld, int G, int start, int step, int window, int func,
-    int acc_op, int is_counter, int is_delta, int rows, int staged, int shared,
+    int acc_op, int is_counter, int is_delta, int rows, int n_arrays, int shared,
     int smem_bytes, void* acc, void* cnt, void* stream) {
     if (S <= 0 || J <= 0 || G <= 0) return 0;
     const int kind = kind_of(func, is_delta);
@@ -391,21 +392,22 @@ extern "C" int filodb_window_range_aggregate(
     RangeArgs a{(const int32_t*)ts, (const float*)vals, (const float*)raw,
                 (const int32_t*)lens, (const long long*)gids, S, T, J, ld, G,
                 (int32_t)start, (int32_t)step, (int32_t)window, func, acc_op, zero_cap, rows,
-                (float*)acc, (float*)cnt};
+                n_arrays, (float*)acc, (float*)cnt};
+    const int reads = kind == K_COUNT ? 1 : (zero_cap ? 3 : 2);  // ts, vals, raw
     const int64_t part = shared ? (((int64_t)2 * G * J + 3) & ~3) * 4 : 0;
-    const int64_t need =
-        part + (staged ? (int64_t)2 * rows * T * 4 * staged_arrays(kind, zero_cap) : 0);
-    if (kind < 0 || rows < 1 || T % 4 != 0 || smem_bytes < need)
+    const int64_t need = part + (int64_t)2 * rows * T * 4 * n_arrays;
+    if (kind < 0 || rows < 1 || T % 4 != 0 || n_arrays > 3 ||
+        (n_arrays != 0 && n_arrays < reads) || smem_bytes < need)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     switch (kind) {
-        case K_COUNT: return launch_kind<K_COUNT>(a, staged, shared, smem_bytes, st);
-        case K_SUM: return launch_kind<K_SUM>(a, staged, shared, smem_bytes, st);
-        case K_MIN: return launch_kind<K_MIN>(a, staged, shared, smem_bytes, st);
-        case K_MAX: return launch_kind<K_MAX>(a, staged, shared, smem_bytes, st);
-        case K_FIRST: return launch_kind<K_FIRST>(a, staged, shared, smem_bytes, st);
-        case K_LAST: return launch_kind<K_LAST>(a, staged, shared, smem_bytes, st);
-        default: return launch_kind<K_EXTRAP>(a, staged, shared, smem_bytes, st);
+        case K_COUNT: return launch_kind<K_COUNT>(a, shared, smem_bytes, st);
+        case K_SUM: return launch_kind<K_SUM>(a, shared, smem_bytes, st);
+        case K_MIN: return launch_kind<K_MIN>(a, shared, smem_bytes, st);
+        case K_MAX: return launch_kind<K_MAX>(a, shared, smem_bytes, st);
+        case K_FIRST: return launch_kind<K_FIRST>(a, shared, smem_bytes, st);
+        case K_LAST: return launch_kind<K_LAST>(a, shared, smem_bytes, st);
+        default: return launch_kind<K_EXTRAP>(a, shared, smem_bytes, st);
     }
 }
 

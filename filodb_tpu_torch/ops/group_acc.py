@@ -9,12 +9,18 @@ into, and their finish to ``[G, J]``.
   shared memory, flushed once per block) while ``2 * G * J * 4`` bytes fit
   ``PARTIALS_BUDGET``, else ``global`` (global atomics per value, for up to
   one group per series);
-- the rows per tile staged in shared memory, double-buffered, within
+- for a kernel that stages rows (the fused window-stats kernel), the rows
+  per tile staged in shared memory, double-buffered, within
   ``STAGE_BUDGET``: small tiles leave room for several blocks per SM,
   whose warps hide each other's latency (on an H100 at the main path's
   shape, 2 rows of ts/vals/raw per tile ran 1.5 x faster than 6); rows
   too wide for one row per tile within the 227 KB a block may use are
-  read in place from device memory (``staged`` False).
+  read in place from device memory. The regular kernel always reads rows
+  in place (``n_arrays`` 0), ``MAX_TILE_ROWS`` rows per tile.
+
+The plan's ``n_arrays`` goes to the kernel's C entry, which lays out its
+staging buffers by it: the host's size and the kernel's layout come from
+one number.
 """
 
 from __future__ import annotations
@@ -34,32 +40,46 @@ MAX_TILE_ROWS = 8
 
 @dataclass(frozen=True)
 class TilePlan:
-    """One launch's layout: ``rows`` per tile, staged in shared memory or
-    read in place, group partials in shared memory or not, and the dynamic
-    shared memory that takes."""
+    """One launch's layout: ``rows`` per tile, ``n_arrays`` arrays staged
+    per row in shared memory (0: rows read in place), group partials in
+    shared memory or not, and the dynamic shared memory that takes."""
 
     rows: int
-    staged: bool
+    n_arrays: int
     shared: bool
     smem_bytes: int
+
+    @property
+    def staged(self) -> bool:
+        return self.n_arrays > 0
 
     @property
     def partials(self) -> str:
         return "shared" if self.shared else "global"
 
 
-@functools.lru_cache(maxsize=256)
-def tile_plan(num_groups: int, num_steps: int, span: int, n_arrays: int) -> TilePlan:
-    """The layout of a launch over ``num_steps`` steps into ``num_groups``
-    groups that stages ``n_arrays`` arrays of ``span`` words per row."""
+def layout(num_groups: int, num_steps: int, row_words: int, n_arrays: int,
+           rows: int) -> TilePlan:
+    """The plan of ``rows`` rows per tile, each staging ``n_arrays`` arrays
+    of ``row_words`` words in both buffers (``n_arrays`` 0: read in
+    place), with the group partials' variant chosen from the shape."""
     part = 2 * num_groups * num_steps * 4
     shared = part <= PARTIALS_BUDGET
     part = -(-part // 16) * 16 if shared else 0
-    row_bytes = 2 * span * 4 * n_arrays  # both buffers
-    if part + row_bytes > BLOCK_SMEM:
-        return TilePlan(MAX_TILE_ROWS, False, shared, part)
-    rows = max(1, min(MAX_TILE_ROWS, STAGE_BUDGET // max(row_bytes, 1)))
-    return TilePlan(rows, True, shared, part + rows * row_bytes)
+    return TilePlan(rows, n_arrays, shared, part + rows * 2 * row_words * 4 * n_arrays)
+
+
+@functools.lru_cache(maxsize=256)
+def tile_plan(num_groups: int, num_steps: int, row_words: int, n_arrays: int) -> TilePlan:
+    """The layout of a launch over ``num_steps`` steps into ``num_groups``
+    groups that stages ``n_arrays`` arrays of ``row_words`` words per row
+    (0 arrays: a kernel that reads rows in place)."""
+    row_bytes = 2 * row_words * 4 * n_arrays  # both buffers
+    in_place = layout(num_groups, num_steps, row_words, 0, MAX_TILE_ROWS)
+    if not row_bytes or in_place.smem_bytes + row_bytes > BLOCK_SMEM:
+        return in_place
+    rows = max(1, min(MAX_TILE_ROWS, STAGE_BUDGET // row_bytes))
+    return layout(num_groups, num_steps, row_words, n_arrays, rows)
 
 
 def accumulators(op: str, num_groups: int, width: int, device):
@@ -92,8 +112,9 @@ def mask_steps(out: torch.Tensor, num_steps: int) -> torch.Tensor:
 
 
 def check_aligned(**tensors) -> None:
-    """The kernels stage rows with 16-byte copies: every row must start on
-    a 16-byte boundary."""
+    """The window-stats kernel stages rows with 16-byte copies and the
+    regular kernel reads them two samples per 8-byte load: every row must
+    start on a 16-byte boundary."""
     for name, t in tensors.items():
         if t.data_ptr() % 16 or (t.dim() == 2 and t.shape[1] % 4):
             raise ValueError(f"{name} rows must start on 16-byte boundaries "

@@ -8,9 +8,8 @@ window bounds are built once on the host (``WindowMatrices``). The JAX
 package then evaluates the range function with ``[S, T] x [T, J]``
 matmuls on the TPU's matrix unit and segment-reduces the ``[S, J]`` grid.
 On a CUDA tensor ``regular_range_aggregate`` launches the hand-written
-kernel ``csrc/regular_range.cu``, which stages row tiles of the query's
-column span in shared memory, gathers at the window bounds, sums the
-windows and reduces into ``[G+1, J]`` accumulators in one pass; on a CPU
+kernel ``csrc/regular_range.cu``, which gathers at the window bounds, sums
+the windows and reduces into ``[G+1, J]`` accumulators in one pass; on a CPU
 tensor it runs ``mxu_range_plain`` followed by the segment aggregate, the
 same function in plain torch. Steps past the query's ``num_steps`` are NaN
 in both.
@@ -63,9 +62,7 @@ class WindowMatrices:
     - ``idx`` int32 [3, J]: first / last / second-to-last positions,
       clipped to the row (the kernel's gathers);
     - ``W``, ``F``, ``L``, ``L2`` f32 [T, J]: window membership and the
-      one-hot selections, which only the plain version reads;
-    - ``host_lo``/``host_hi``: ``lo``/``hi`` as host numpy, for
-      ``column_span``."""
+      one-hot selections, which only the plain version reads."""
 
     def __init__(self, ts1: np.ndarray, n_valid: int, start_off: int, step_ms: int,
                  num_steps: int, window_ms: int, device):
@@ -97,9 +94,6 @@ class WindowMatrices:
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
         self.window_ms = window_ms
-        self.row_len = T
-        self.host_lo, self.host_hi = lo, hi
-        self.spans: dict[int, tuple[int, int]] = {}
         self.lo = put(lo.astype(np.int32))
         self.hi = put(hi.astype(np.int32))
         self.count = put(cnt)
@@ -109,22 +103,6 @@ class WindowMatrices:
         self.out_t = put(out_t.astype(np.float64).astype(np.float32))
         self.idx = put(idx)
         self.W, self.F, self.L, self.L2 = map(put, (W, F, L, L2))
-
-    def column_span(self, num_steps: int) -> tuple[int, int]:
-        """``(c0, span)``: the columns ``[c0, c0 + span)`` that the windows
-        of the first ``num_steps`` steps cover, widened to 16-byte chunks
-        (the kernel stages them); ``(0, 0)`` when every window is empty.
-        Memoized per ``num_steps``."""
-        if num_steps not in self.spans:
-            lo, hi = self.host_lo[:num_steps], self.host_hi[:num_steps]
-            full = hi > lo
-            if not full.any():
-                self.spans[num_steps] = (0, 0)
-            else:
-                c0 = int(lo[full].min()) // 4 * 4
-                c1 = min(self.row_len, -(-int(hi[full].max()) // 4) * 4)
-                self.spans[num_steps] = (c0, c1 - c0)
-        return self.spans[num_steps]
 
 
 def window_matrices(block, start_off: int, step_ms: int, num_steps: int,
@@ -240,17 +218,19 @@ def mxu_range_plain(func: str, vals: torch.Tensor, raw: torch.Tensor, wm: Window
     raise ValueError(f"regular rung does not support {func}")
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the entry point's argument types on a built library."""
+    fn = lib.filodb_regular_range
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float]
+                   + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3)
+    fn.restype = ctypes.c_int
+    return lib
+
+
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(cuda_build.build("regular_range")))
-        fn = lib.filodb_regular_range
-        fn.argtypes = (
-            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float]
-            + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 3
-        )
-        fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind(ctypes.CDLL(str(cuda_build.build("regular_range"))))
     return _lib
 
 
@@ -272,34 +252,29 @@ def _check_inputs(vals, raw, gids) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def needs_raw(func: str, is_counter: bool, is_delta: bool) -> bool:
-    """The counter zero-crossing cap reads raw (``needs_raw`` in
-    csrc/regular_range.cu): the kernel stages raw only then."""
-    return is_counter and not is_delta and func in ("rate", "increase")
-
-
 def _launch(func: str, op: str, vals, raw, gids, num_groups: int, wm: WindowMatrices,
             num_steps: int, is_counter: bool, is_delta: bool, acc: torch.Tensor,
-            cnt: torch.Tensor) -> None:
+            cnt: torch.Tensor, plan=None, lib=None) -> None:
     """One launch of the regular kernel over the first ``num_steps`` steps
     into ``acc``/``cnt`` ([G+1, J_pad], from ``group_acc.accumulators``);
-    raises if the launch fails."""
+    raises if the launch fails. Rows are read in place; ``plan`` (a
+    ``group_acc.TilePlan``) defaults to ``tile_plan``'s, ``lib`` to the
+    package's build (a timing script may pass its own)."""
     global LAUNCHES, LAST_PLAN
     GA.check_aligned(vals=vals, raw=raw)
-    lib = _load()
+    lib = lib or _load()
     S, T = vals.shape
-    c0, span = wm.column_span(num_steps)
-    plan = GA.tile_plan(num_groups, num_steps, span,
-                        2 if needs_raw(func, is_counter, is_delta) else 1)
+    if plan is None:
+        plan = GA.tile_plan(num_groups, num_steps, 0, 0)
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream(vals.device).cuda_stream
         err = lib.filodb_regular_range(
             vals.data_ptr(), raw.data_ptr(), gids.data_ptr(), wm.lo.data_ptr(),
             wm.hi.data_ptr(), wm.idx.data_ptr(), wm.count.data_ptr(), wm.t_first.data_ptr(),
             wm.t_last.data_ptr(), wm.t_last2.data_ptr(), wm.out_t.data_ptr(),
-            S, T, num_steps, wm.lo.shape[0], num_groups, c0, span,
+            S, T, num_steps, wm.lo.shape[0], num_groups,
             float(np.float32(wm.window_ms)), FUNC_CODES[func], ACC_CODES[op], int(is_counter),
-            int(is_delta), plan.rows, int(plan.staged), int(plan.shared), plan.smem_bytes,
+            int(is_delta), plan.rows, int(plan.shared), plan.smem_bytes,
             acc.data_ptr(), cnt.data_ptr(), stream,
         )
     if err != 0:

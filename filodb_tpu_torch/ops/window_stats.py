@@ -61,19 +61,21 @@ LAST_PLAN = None
 _lib = None
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the entry points' argument types on a built library."""
+    fn = lib.filodb_window_stats
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 10
+    fn.restype = ctypes.c_int
+    fn = lib.filodb_window_range_aggregate
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 16 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    return lib
+
+
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(cuda_build.build("window_stats")))
-        fn = lib.filodb_window_stats
-        fn.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 10
-        )
-        fn.restype = ctypes.c_int
-        fn = lib.filodb_window_range_aggregate
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 16 + [ctypes.c_void_p] * 3
-        fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind(ctypes.CDLL(str(cuda_build.build("window_stats"))))
     return _lib
 
 
@@ -230,8 +232,9 @@ def finish(func: str, agg: dict, start_off: int, step_ms: int, window_ms: int,
 
 def staged_arrays(func: str, is_counter: bool, is_delta: bool) -> int:
     """How many [S, T] arrays the fused kernel stages for ``func``: ts;
-    vals unless it only counts; raw for the counter zero-crossing cap
-    (``staged_arrays`` in csrc/window_stats.cu)."""
+    vals unless it only counts; raw for the counter zero-crossing cap.
+    The kernel lays out its buffers by this number (the plan's
+    ``n_arrays``) and refuses one too small for the function."""
     if func in ("count_over_time", "present_over_time", "absent_over_time"):
         return 1
     return 3 if is_counter and not is_delta and func in ("rate", "increase") else 2
@@ -275,16 +278,20 @@ def window_range_aggregate(func: str, op: str, block, gids: torch.Tensor, num_gr
 
 
 def _launch_range(func: str, op: str, block, gids, num_groups: int, params, is_counter: bool,
-                  is_delta: bool, acc: torch.Tensor, cnt: torch.Tensor) -> None:
+                  is_delta: bool, acc: torch.Tensor, cnt: torch.Tensor, plan=None,
+                  lib=None) -> None:
     """One launch of the fused kernel into ``acc``/``cnt`` ([G+1, J_pad],
-    from ``group_acc.accumulators``); raises if the launch fails."""
+    from ``group_acc.accumulators``); raises if the launch fails. ``plan``
+    (a ``group_acc.TilePlan``) defaults to ``tile_plan``'s, ``lib`` to the
+    package's build (a timing script may pass its own)."""
     global RANGE_LAUNCHES, LAST_PLAN
     raw = block.raw if block.raw is not None else block.vals
     GA.check_aligned(ts=block.ts, vals=block.vals, raw=raw)
-    lib = _load()
+    lib = lib or _load()
     S, T = block.ts.shape
     J = params.num_steps
-    plan = GA.tile_plan(num_groups, J, T, staged_arrays(func, is_counter, is_delta))
+    if plan is None:
+        plan = GA.tile_plan(num_groups, J, T, staged_arrays(func, is_counter, is_delta))
     with torch.cuda.device(block.ts.device):
         stream = torch.cuda.current_stream(block.ts.device).cuda_stream
         err = lib.filodb_window_range_aggregate(
@@ -292,7 +299,7 @@ def _launch_range(func: str, op: str, block, gids, num_groups: int, params, is_c
             gids.data_ptr(), S, T, J, acc.shape[1], num_groups,
             int(params.start_ms - block.base_ms), int(params.step_ms), int(params.window_ms),
             WINDOW_FUNC_CODES[func], GA.ACC_CODES[op], int(is_counter), int(is_delta),
-            plan.rows, int(plan.staged), int(plan.shared), plan.smem_bytes, acc.data_ptr(),
+            plan.rows, plan.n_arrays, int(plan.shared), plan.smem_bytes, acc.data_ptr(),
             cnt.data_ptr(), stream,
         )
     if err != 0:

@@ -336,8 +336,8 @@ def test_regular_kernel_partial_variants_on_card(card, op, variant):
 @pytest.mark.cuda
 @pytest.mark.parametrize("func", ["rate", "sum_over_time", "stddev_over_time"])
 def test_regular_kernel_rows_read_in_place_on_card(card, func):
-    """Column spans too wide for the shared-memory budget are read in place;
-    at G = S the kernel still equals the plain version bit for bit."""
+    """Long rows (32,000 samples, 520 steps of 1 h windows) are read in
+    place; at G = S the kernel still equals the plain version bit for bit."""
     b = regular_block(True, {"counter_corrected": True}, n_series=9, n=32_000,
                       seed=3).to_device(card)
     params = RangeParams(BASE + 400_000, 600_000, 520, 3_600_000)

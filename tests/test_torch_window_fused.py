@@ -2,12 +2,16 @@
 stats -> finish -> group aggregate in one launch on the card) against the
 JAX package's ``_fused_pallas_jit`` in interpret mode, on the same seeded
 numpy inputs; and the host side of the fused kernels (tile plan,
-accumulators, alignment check, build digest).
+accumulators, alignment check, build digest, the timing script's patch
+targets).
 
 On the CPU ``window_range_aggregate`` runs its plain version. Tolerance
 rtol 2e-4 / atol 1e-4 (as tests/test_pallas.py): f32 sums are taken in
 another order. NaN masks must be identical.
 """
+
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -23,6 +27,11 @@ from filodb_tpu_torch.ops import mxu_kernels as MK
 from filodb_tpu_torch.ops import window_stats as WS
 from filodb_tpu_torch.ops.kernels import RangeParams, pad_steps
 from filodb_tpu_torch.ops.staging import block_from_arrays, stage_series
+
+_spec = importlib.util.spec_from_file_location(
+    "tile_sweep", Path(__file__).resolve().parents[1] / "tile_sweep.py")
+tile_sweep = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(tile_sweep)
 
 BASE = 1_600_000_000_000
 START = BASE + 400_000
@@ -214,20 +223,44 @@ def test_tile_plan_picks_partials_from_groups_alone():
     assert not GA.tile_plan(edge + 1, 111, 768, 3).shared
 
 
-@pytest.mark.parametrize("span,n_arrays", [(128, 1), (768, 2), (768, 3), (4096, 3), (40_000, 1)])
+@pytest.mark.parametrize("span,n_arrays", [(128, 1), (768, 2), (768, 3), (4096, 3), (40_000, 1),
+                                            (768, 0), (0, 0)])
 def test_tile_plan_fits_shared_memory(span, n_arrays):
     plan = GA.tile_plan(8, 111, span, n_arrays)
     part = -(-2 * 8 * 111 * 4 // 16) * 16  # the C entry's rounding of the partials
     if plan.staged:
+        assert plan.n_arrays == n_arrays
         assert 1 <= plan.rows <= GA.MAX_TILE_ROWS
         assert plan.smem_bytes == part + 2 * plan.rows * span * 4 * n_arrays
         assert plan.smem_bytes <= GA.BLOCK_SMEM
         assert plan.rows == GA.MAX_TILE_ROWS or plan.rows == 1 or (
             (plan.rows + 1) * 2 * span * 4 * n_arrays > GA.STAGE_BUDGET)
     else:
-        assert part + 2 * span * 4 * n_arrays > GA.BLOCK_SMEM
+        assert n_arrays == 0 or part + 2 * span * 4 * n_arrays > GA.BLOCK_SMEM
+        assert plan.n_arrays == 0 and plan.rows == GA.MAX_TILE_ROWS
         assert plan.smem_bytes == part
     assert plan.smem_bytes % 16 == 0
+
+
+@pytest.mark.parametrize("G,rows,n_arrays", [(1, 2, 3), (8, 8, 0), (10_000, 3, 2)])
+def test_layout_sizes_what_it_stages(G, rows, n_arrays):
+    """``layout`` sizes the partials (shared only within the budget) and
+    both buffers of ``rows`` rows of ``n_arrays`` arrays, as the C entries
+    check it."""
+    plan = GA.layout(G, 111, 768, n_arrays, rows)
+    part = 2 * G * 111 * 4
+    shared = part <= GA.PARTIALS_BUDGET
+    assert plan.shared == shared and plan.rows == rows and plan.staged == (n_arrays > 0)
+    assert plan.smem_bytes == (-(-part // 16) * 16 if shared else 0) + 2 * rows * 768 * 4 * n_arrays
+
+
+def test_regular_plan_reads_in_place():
+    """The regular kernel stages nothing: its plan reads rows in place at
+    MAX_TILE_ROWS rows per tile, with shared partials while they fit."""
+    plan = GA.tile_plan(8, 111, 0, 0)
+    assert not plan.staged and plan.rows == GA.MAX_TILE_ROWS and plan.shared
+    assert plan.smem_bytes == -(-2 * 8 * 111 * 4 // 16) * 16
+    assert not GA.tile_plan(100_000, 111, 0, 0).shared
 
 
 def test_accumulators_and_finish():
@@ -262,18 +295,15 @@ def test_regular_rung_masks_steps_past_the_query():
     assert not np.isnan(out[:, :NUM_STEPS].numpy()).any()
 
 
-def test_column_span_covers_every_window():
-    ts1 = np.full(256, 2**31 - 1, np.int32)  # a staged row: T a multiple of 128
-    ts1[:150] = 3_000 + np.arange(150) * 10_000
-    wm = MK.WindowMatrices(ts1, 150, START - BASE, STEP, 64, WINDOW, device="cpu")
-    c0, span = wm.column_span(NUM_STEPS)
-    lo, hi = wm.lo.numpy()[:NUM_STEPS], wm.hi.numpy()[:NUM_STEPS]
-    full = hi > lo
-    assert c0 % 4 == 0 and span % 4 == 0
-    assert c0 <= lo[full].min() and hi[full].max() <= c0 + span
-    assert c0 + span - hi[full].max() < 4 and lo[full].min() - c0 < 4
-    empty = MK.WindowMatrices(ts1, 150, -10_000_000, STEP, 64, WINDOW, device="cpu")
-    assert empty.column_span(NUM_STEPS) == (0, 0)
+@pytest.mark.parametrize("patch", tile_sweep.PATCHES, ids=["no_atomics", "no_search_hi",
+                                                            "no_search_lo"])
+def test_tile_sweep_patch_targets_are_in_the_sources(patch):
+    """``tile_sweep.py --split`` patches these lines of csrc/: each must
+    appear exactly once, or the split cannot build on the card."""
+    fname, old, new = patch
+    text = (cuda_build.CSRC / fname).read_text()
+    assert text.count(old) == 1, f"{fname}: {old.strip()}"
+    assert new != old
 
 
 def test_build_digest_covers_headers(tmp_path):

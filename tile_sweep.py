@@ -7,16 +7,19 @@ grid for the regular kernel), 111 steps, 5 m windows, sum over 1 group.
     python3 tile_sweep.py [--split]
 
 For each kernel and function it times the launch (the median of 20 calls
-between CUDA events, after warm-up) at every rows-per-tile layout, staged
-in shared memory or read in place, and marks the layout that
-``ops/group_acc.tile_plan`` picks. At that layout it also times 50
-back-to-back launches between two events and reads the kernel's device
-time from ``torch.profiler``, and it lists the atomic instructions of the
-built kernels (``cuobjdump -sass``). With ``--split`` it also builds patched
-copies of the sources into a temporary directory -- without the group
-atomics, and (fused kernel) with fixed window bounds instead of the
-binary searches -- to show what each costs; the patched kernels compute
-wrong values and serve only as timings.
+between CUDA events, after warm-up) at every rows-per-tile layout -- the
+fused kernel staged in shared memory or read in place, the regular kernel
+read in place -- and marks the layout that ``ops/group_acc.tile_plan``
+picks. At that layout it also times 50 back-to-back launches between two
+events and reads the kernel's device time from ``torch.profiler``, and it
+lists the atomic instructions of the built kernels (``cuobjdump -sass``).
+With ``--split`` it also builds patched copies of the sources into a
+temporary directory -- without the group atomics, and (fused kernel) with
+fixed window bounds instead of the binary searches -- to show what each
+costs; the patched kernels compute wrong values and serve only as timings.
+Every launch goes through the wrappers' own ``_launch_range`` / ``_launch``
+with an explicit layout (``group_acc.layout``) and, for a patched copy, its
+library.
 
 Prints the card's name and power limit, and ends with one JSON object of
 every time. Exits non-zero where no CUDA device is available.
@@ -37,15 +40,19 @@ import numpy as np
 
 BASE = 1_600_000_000_000
 S, T, N_REAL, J, J_PAD = 131072, 768, 100_000, 111, 128
-LAYOUTS = ((1, True), (2, True), (3, True), (4, True), (6, True), (8, True), (8, False))
+START_OFF, STEP, WINDOW = 400_000, 60_000, 300_000
+FUSED_LAYOUTS = ((1, True), (2, True), (3, True), (4, True), (6, True), (8, True), (8, False))
+REGULAR_ROWS = (1, 2, 4, 8)
+FUNCS = ("rate", "sum_over_time", "count_over_time")
 
-# patches of the --split variants: (file, old, new)
+# patches of the --split variants: (file in csrc/, old, new)
 NO_ATOMICS = ("group_acc.cuh", "        fold(acc + i, cnt + i, acc_op, v, 1.0f);",
               "        if (v == 1234.5f) fold(acc + i, cnt + i, acc_op, v, 1.0f);")
-NO_SEARCH = [("window_stats.cu", "    const int hi = count_le_row(rt, n, t_j);",
+NO_SEARCH = [("window_stats.cu", "    const int hi = count_le(rt, n, t_j);",
               "    const int hi = min(n, max(0, j * 6 + 30));"),
              ("window_stats.cu", "    const int lo = lower_edge(rt, hi, wrap_add(t_j, -a.window));",
               "    const int lo = max(0, hi - 30);")]
+PATCHES = [NO_ATOMICS, *NO_SEARCH]
 
 
 def median_ms(fn, reps: int = 20) -> float:
@@ -91,8 +98,9 @@ def blocks(device):
     return irregular, regular, gids
 
 
-def build_patched(name: str, patches) -> ctypes.CDLL:
-    """A patched copy of csrc/, built apart with the port's nvcc flags."""
+def build_patched(name: str, patches, bind) -> ctypes.CDLL:
+    """A patched copy of csrc/, built apart with the port's nvcc flags and
+    bound by the wrapper's ``bind``."""
     from filodb_tpu_torch.ops import cuda_build
 
     d = Path(tempfile.mkdtemp(prefix="tile_sweep_"))
@@ -108,19 +116,7 @@ def build_patched(name: str, patches) -> ctypes.CDLL:
                            str(d / f"{name}.cu")], capture_output=True, text=True, check=False)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on the patched {name}.cu:\n{proc.stderr}")
-    return ctypes.CDLL(str(out))
-
-
-def bind(lib, regular: bool):
-    if regular:
-        fn = lib.filodb_regular_range
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float]
-                       + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 3)
-    else:
-        fn = lib.filodb_window_range_aggregate
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 16 + [ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
-    return fn
+    return bind(ctypes.CDLL(str(out)))
 
 
 def main() -> int:
@@ -133,9 +129,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("tile_sweep: no CUDA device is available", file=sys.stderr)
         return 2
+    from filodb_tpu_torch.ops import cuda_build
     from filodb_tpu_torch.ops import group_acc as GA
     from filodb_tpu_torch.ops import mxu_kernels as MK
     from filodb_tpu_torch.ops import window_stats as WS
+    from filodb_tpu_torch.ops.kernels import RangeParams
 
     device = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -143,61 +141,46 @@ def main() -> int:
     print(f"card: {card}")
     irregular, regular, gids = blocks(device)
     acc, cnt = GA.accumulators("sum", 1, J_PAD, device)
-    stream = torch.cuda.current_stream().cuda_stream
-    wm = MK.window_matrices(regular, 400_000, 60_000, J_PAD, 300_000)
-    c0, span = wm.column_span(J)
-    libs = {"": (bind(WS._load(), False), bind(MK._load(), True))}
+    params = RangeParams(BASE + START_OFF, STEP, J, WINDOW)
+    wm = MK.window_matrices(regular, START_OFF, STEP, J_PAD, WINDOW)
+    libs = {"": (WS._load(), MK._load())}
     if args.split:
-        libs["no atomics"] = (bind(build_patched("window_stats", [NO_ATOMICS]), False),
-                              bind(build_patched("regular_range", [NO_ATOMICS]), True))
-        libs["no search"] = (bind(build_patched("window_stats", NO_SEARCH), False), None)
+        libs["no atomics"] = (build_patched("window_stats", [NO_ATOMICS], WS.bind),
+                              build_patched("regular_range", [NO_ATOMICS], MK.bind))
+        libs["no search"] = (build_patched("window_stats", NO_SEARCH, WS.bind), None)
         libs["no search, no atomics"] = (
-            bind(build_patched("window_stats", NO_SEARCH + [NO_ATOMICS]), False), None)
+            build_patched("window_stats", NO_SEARCH + [NO_ATOMICS], WS.bind), None)
 
-    part = GA.tile_plan(1, J, 0, 1).smem_bytes  # the shared partials of one group
+    def fused(lib, func, plan):
+        return lambda: WS._launch_range(func, "sum", irregular, gids, 1, params, True, False,
+                                        acc, cnt, plan=plan, lib=lib)
 
-    def fused(fn, func, rows, staged):
-        narr = WS.staged_arrays(func, True, False)
-        smem = part + (rows * 2 * T * 4 * narr if staged else 0)
-        b = irregular
-        return lambda: fn(b.ts.data_ptr(), b.vals.data_ptr(), b.raw.data_ptr(),
-                          b.lens.data_ptr(), gids.data_ptr(), S, T, J, J_PAD, 1, 400_000,
-                          60_000, 300_000, WS.WINDOW_FUNC_CODES[func], 0, 1, 0, rows,
-                          int(staged), 1, smem, acc.data_ptr(), cnt.data_ptr(), stream)
+    def reg(lib, func, plan):
+        return lambda: MK._launch(func, "sum", regular.vals, regular.raw, gids, 1, wm, J, True,
+                                  False, acc, cnt, plan=plan, lib=lib)
 
-    def reg(fn, func, rows, staged):
-        narr = 2 if MK.needs_raw(func, True, False) else 1
-        smem = part + (rows * 2 * span * 4 * narr if staged else 0)
-        b = regular
-        return lambda: fn(b.vals.data_ptr(), b.raw.data_ptr(), gids.data_ptr(), wm.lo.data_ptr(),
-                          wm.hi.data_ptr(), wm.idx.data_ptr(), wm.count.data_ptr(),
-                          wm.t_first.data_ptr(), wm.t_last.data_ptr(), wm.t_last2.data_ptr(),
-                          wm.out_t.data_ptr(), S, T, J, J_PAD, 1, c0, span, 300_000.0,
-                          MK.FUNC_CODES[func], 0, 1, 0, rows, int(staged), 1, smem,
-                          acc.data_ptr(), cnt.data_ptr(), stream)
+    def plans(kernel, func):
+        """(the layouts to time, tile_plan's choice) of a kernel and function."""
+        if kernel == "window_range":
+            narr = WS.staged_arrays(func, True, False)
+            return ([GA.layout(1, J, T, narr if staged else 0, rows)
+                     for rows, staged in FUSED_LAYOUTS], GA.tile_plan(1, J, T, narr))
+        return [GA.layout(1, J, 0, 0, rows) for rows in REGULAR_ROWS], GA.tile_plan(1, J, 0, 0)
 
     times = {}
-    for variant, (fused_fn, reg_fn) in libs.items():
-        for kernel, fn, make, funcs, width, narr_of in (
-            ("window_range", fused_fn, fused, ("rate", "sum_over_time", "count_over_time"), T,
-             lambda f: WS.staged_arrays(f, True, False)),
-            ("regular_range", reg_fn, reg, ("rate", "sum_over_time", "count_over_time"), span,
-             lambda f: 2 if MK.needs_raw(f, True, False) else 1),
-        ):
-            if fn is None:
+    for variant, (fused_lib, reg_lib) in libs.items():
+        for kernel, lib, make in (("window_range", fused_lib, fused),
+                                  ("regular_range", reg_lib, reg)):
+            if lib is None:
                 continue
-            for func in funcs:
-                picked = GA.tile_plan(1, J, width, narr_of(func))
-                layouts = LAYOUTS if not variant else ((picked.rows, picked.staged),)
-                for rows, staged in layouts:
-                    call = make(fn, func, rows, staged)
-                    err = call()
-                    if err != 0:
-                        raise RuntimeError(f"{kernel} {func} rows={rows}: cudaError {err}")
+            for func in FUNCS:
+                layouts, picked = plans(kernel, func)
+                for plan in layouts if not variant else [picked]:
+                    call = make(lib, func, plan)
                     t = median_ms(call)
-                    mark = " (tile_plan's choice)" if (rows, staged) == (
-                        picked.rows, picked.staged) else ""
-                    key = f"{kernel} {func} rows={rows} {'staged' if staged else 'in place'}"
+                    mark = " (tile_plan's choice)" if plan == picked else ""
+                    key = (f"{kernel} {func} rows={plan.rows} "
+                           f"{'staged' if plan.staged else 'in place'}")
                     if variant:
                         key += f" [{variant}]"
                     times[key] = t
@@ -205,15 +188,11 @@ def main() -> int:
     # the chosen layouts: per call, back to back, and the profiler's device time
     from torch.profiler import ProfilerActivity, profile
 
-    for kernel, make, fn, width, funcs in (
-        ("window_range", fused, libs[""][0], T, ("rate", "sum_over_time")),
-        ("regular_range", reg, libs[""][1], span, ("rate", "sum_over_time")),
-    ):
-        for func in funcs:
-            narr = (WS.staged_arrays(func, True, False) if kernel == "window_range"
-                    else 2 if MK.needs_raw(func, True, False) else 1)
-            plan = GA.tile_plan(1, J, width, narr)
-            call = make(fn, func, plan.rows, plan.staged)
+    for kernel, lib, make in (("window_range", libs[""][0], fused),
+                              ("regular_range", libs[""][1], reg)):
+        for func in ("rate", "sum_over_time"):
+            plan = plans(kernel, func)[1]
+            call = make(lib, func, plan)
             for _ in range(3):
                 call()
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -234,8 +213,6 @@ def main() -> int:
             times[f"{key} profiler"] = device_us[0] / 1e3 if device_us else None
             print(f"{key}: back to back {b2b:.4f} ms; torch.profiler device time "
                   f"{device_us[0] / 1e3 if device_us else float('nan'):.4f} ms", flush=True)
-    from filodb_tpu_torch.ops import cuda_build
-
     cuobjdump = Path(cuda_build.nvcc()).with_name("cuobjdump")
     for name in ("window_stats", "regular_range"):
         sass = subprocess.run([str(cuobjdump), "-sass", str(cuda_build.build(name))],
