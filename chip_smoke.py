@@ -68,9 +68,37 @@ Phases (any failure raises and exits non-zero):
    raw) the function reads over the real rows, gids and the outputs, from
    the query's window bounds.
 
+   In phases 4 and 5 every query runs twice. The phase's first query is
+   the cold build (a cache miss: per-shard staging, concatenation,
+   upload); every other run must be a superblock-cache hit with no
+   staging, one launch and the cold run's [G, J] (rtol 1e-3, NaN masks
+   equal). Cold and warm end-to-end ms print side by side; the staging
+   seconds come from a cold build against a fresh cache with the shards'
+   staging caches cleared.
+6. bench.py's ``ingest_impact`` on phase 5's store: ``sum(rate(...[5m]))``
+   to the live edge, one cold query, 15 idle warm queries, then queries
+   while a thread ingests one sample per series every 100 ms through
+   ``ingest_routed`` (at most 40 batches: 720 + 40 <= 768, the padded
+   width): at least 15, and on until 6 batches have landed. Every query
+   launches ``regular_range`` once; the cached superblock must extend at
+   least once and never restage or abort. After the stream one more batch
+   lands; the block held from before that last extension must be
+   unchanged and return its earlier result; the final [G, J] must match
+   the plain path on a superblock built afresh from the final store, whose
+   real ts and lens equal the extended block's bit for bit (vals and raw
+   within rtol 1e-6). Prints the idle and busy means and their ratio
+   (means, as bench.py argues), the extensions, the bytes each uploads and
+   its host (row-set proof, tail reads, the rest) and device ms.
+6b. The same on bench.py's jittered store (``build_memstore(jitter=0.05,
+   phase_ms=5000)``, rebuilt through the port's API), appending at the
+   next nominal slot +-4 %: the superblock is classed ``jitter`` and every
+   query launches the fused window-stats kernel once (5 idle queries; at
+   least 6 busy ones, and on until 3 batches have landed).
+
 Around every timed phase it prints the card's SM and memory clocks,
 temperature and power draw (nvidia-smi), before and after. Prints, in
-order at the end: one JSON object with the kernels' numbers, the card's
+order at the end: one JSON object with phases 6 and 6b's numbers
+(``{"cache": ...}``), one with the kernels' numbers, the card's
 name and power limit as nvidia-smi gives them, and the result line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 where no CUDA device is available.
@@ -103,6 +131,13 @@ QUERIES = (
 SOURCES = ("window_stats", "regular_range")  # csrc/<name>.cu
 START_S = (BASE + 400_000) / 1000  # bench.py's range
 END_S = (BASE + N_SAMPLES * 10_000 - 200_000) / 1000
+# bench.py's ingest_impact: the range reaches past the newest sample (the
+# live edge), and a stream appends one sample per series per batch
+MAX_APPEND_BATCHES = 600
+LIVE_END_S = (BASE + (N_SAMPLES + MAX_APPEND_BATCHES + 20) * 10_000) / 1000
+LIVE_QUERY = QUERIES[0]
+MAX_BATCHES = 40  # N_SAMPLES + 40 <= 768, the superblock's padded width
+JITTER_PHASE_MS = 5_000  # no jittered slot within 5 % of the 5 m staging boundary
 
 
 def require(cond: bool, msg: str) -> None:
@@ -431,34 +466,45 @@ def phase_regular_vs_plain(seed: int, device) -> None:
                       f"kernel_ms={k_ms:.4f}")
 
 
-def build_memstore(n_series: int, n_samples: int, seed: int, regular: bool):
+def series_tags(i: int) -> dict:
+    """bench.py's tags of series ``i`` (its ``build_memstore``)."""
+    from filodb_tpu_torch.core.schemas import METRIC_TAG
+
+    return {METRIC_TAG: "http_requests_total", "_ws_": "demo", "_ns_": "App-2",
+            "instance": f"host-{i}", "zone": f"z{i % 8}"}
+
+
+def build_memstore(n_series: int, n_samples: int, seed: int, grid: str):
     """``n_series`` counters on 8 shards, ingested through the port's shard
-    API: with ``regular``, bench.py's store (every series at exactly 10 s
-    from BASE, values cumsum(uniform(0, 10)) + 1e9, drawn per block of 10k
-    series as bench.py draws them); else strictly increasing irregular
-    intervals, uniform 5-15 s."""
+    API, values cumsum(uniform(0, 10)) + 1e9, drawn per block of 10k series
+    as bench.py draws them. ``grid``: ``regular`` is bench.py's store
+    (every series at exactly 10 s from BASE); ``jitter`` is bench.py's
+    ``build_memstore(jitter=0.05, phase_ms=JITTER_PHASE_MS)`` (the 10 s grid
+    shifted by 5 s, each sample moved by a rounded uniform +-5 % of the
+    interval); ``irregular`` has strictly increasing 5-15 s intervals."""
     from filodb_tpu_torch.core.records import SeriesBatch
-    from filodb_tpu_torch.core.schemas import METRIC_TAG, PROM_COUNTER, Dataset, shard_for
+    from filodb_tpu_torch.core.schemas import PROM_COUNTER, Dataset, shard_for
     from filodb_tpu_torch.memstore.memstore import TimeSeriesMemStore
     from filodb_tpu_torch.memstore.shard import StoreConfig
 
     rng = np.random.default_rng(seed)
     ms = TimeSeriesMemStore(StoreConfig(max_chunk_size=n_samples))
     ms.setup(Dataset("prometheus"), range(N_SHARDS))
-    grid = BASE + np.arange(n_samples, dtype=np.int64) * 10_000
+    phase = JITTER_PHASE_MS if grid == "jitter" else 0
+    nominal = BASE + phase + np.arange(n_samples, dtype=np.int64) * 10_000
     blk = 10_000
     for b0 in range(0, n_series, blk):
         n = min(blk, n_series - b0)
-        if regular:
-            ts = np.broadcast_to(grid, (n, n_samples))
-        else:
+        if grid == "irregular":
             ts = BASE + np.cumsum(rng.integers(5_000, 15_001, (n, n_samples)), axis=1)
         vals = np.cumsum(rng.uniform(0, 10, (n, n_samples)), axis=1) + 1e9
+        if grid == "regular":
+            ts = np.broadcast_to(nominal, (n, n_samples))
+        elif grid == "jitter":
+            dev = np.rint(rng.uniform(-0.05, 0.05, (n, n_samples)) * 10_000).astype(np.int64)
+            ts = nominal + dev
         for i in range(n):
-            tags = {
-                METRIC_TAG: "http_requests_total", "_ws_": "demo", "_ns_": "App-2",
-                "instance": f"host-{b0 + i}", "zone": f"z{(b0 + i) % 8}",
-            }
+            tags = series_tags(b0 + i)
             shard = ms.shard("prometheus", shard_for(tags, spread=SPREAD, num_shards=N_SHARDS))
             shard.ingest_series(SeriesBatch(
                 schema=PROM_COUNTER, tags=tags, timestamps=ts[i].astype(np.int64),
@@ -498,19 +544,24 @@ def window_range_path(entry, ex, plain: bool):
     return out[:, : ex.num_steps()]
 
 
-def run_queries(engine, phase: str, rung: str) -> dict:
-    """The main path: each query through the user's entry point, with every
-    launch count set to 0 just before and read just after; the port's
-    ladder is watched for the grid class and the rung it picks."""
+KERNEL_COUNTERS = {"window_stats": ("window_stats", "LAUNCHES"),
+                   "window_range": ("window_stats", "RANGE_LAUNCHES"),
+                   "regular_range": ("mxu_kernels", "LAUNCHES")}
+RUNGS = {"mxu": "regular_range", "window_stats": "window_range"}
+
+
+def run_main(engine, q: str, want_class: str, rung: str, end_s: float = END_S):
+    """One query through the user's entry point, with every launch count
+    set to 0 just before and read just after; it must take ``rung`` on a
+    ``want_class`` grid and launch that rung's kernel once and no other.
+    Returns the result, its [G, J] on the host and the end-to-end seconds."""
+    import importlib
+
     from filodb_tpu_torch.ops import aggregations as AGG
-    from filodb_tpu_torch.ops import mxu_kernels as MK
-    from filodb_tpu_torch.ops import window_stats as WS
     from filodb_tpu_torch.ops.staging import grid_class
 
-    counters = {"window_stats": (WS, "LAUNCHES"), "window_range": (WS, "RANGE_LAUNCHES"),
-                "regular_range": (MK, "LAUNCHES")}
-    kernel = "regular_range" if rung == "mxu" else "window_range"
-    want_class = "regular" if rung == "mxu" else "irregular"
+    mods = {name: importlib.import_module(f"filodb_tpu_torch.ops.{mod}")
+            for name, (mod, _) in KERNEL_COUNTERS.items()}
     seen = []
     ladder = AGG.grid_variant
 
@@ -520,31 +571,62 @@ def run_queries(engine, phase: str, rung: str) -> dict:
         return variant
 
     AGG.grid_variant = watched
-    results, launches = {}, 0
     try:
-        for q in QUERIES:
-            seen.clear()
-            for mod, attr in counters.values():
-                setattr(mod, attr, 0)
-            t0 = time.perf_counter()
-            res = engine.query_range(q, START_S, END_S, STEP_S)
-            vals = res.grids[0].values_np()
-            wall = time.perf_counter() - t0
-            counts = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
-            require(seen == [(want_class, rung)],
-                    f"{q}: grid class and rung {seen}, expected {[(want_class, rung)]}")
-            require(counts == {k: int(k == kernel) for k in counters},
-                    f"{q}: launches {counts}, expected one {kernel} launch and no other")
-            launches += counts[kernel]
-            results[q] = res
-            print(f"{phase} query {q!r}: grid {want_class}, rung {rung}, "
-                  f"{len(res.grids[0].labels)} groups x {res.grids[0].num_steps} steps, "
-                  f"{res.stats.series_scanned} series, {res.stats.samples_scanned} samples, "
-                  f"{wall * 1e3:.1f} ms end to end, launches {counts}")
-            require(np.isfinite(vals).all(), f"{q}: non-finite values in the result")
-            require((vals > 0).all(), f"{q}: a counter rate must be positive")
+        for name, (_, attr) in KERNEL_COUNTERS.items():
+            setattr(mods[name], attr, 0)
+        t0 = time.perf_counter()
+        res = engine.query_range(q, START_S, end_s, STEP_S)
+        vals = res.grids[0].values_np()
+        wall = time.perf_counter() - t0
+        counts = {name: getattr(mods[name], attr) for name, (_, attr) in KERNEL_COUNTERS.items()}
     finally:
         AGG.grid_variant = ladder
+    kernel = RUNGS[rung]
+    require(seen == [(want_class, rung)],
+            f"{q}: grid class and rung {seen}, expected {[(want_class, rung)]}")
+    require(counts == {k: int(k == kernel) for k in KERNEL_COUNTERS},
+            f"{q}: launches {counts}, expected one {kernel} launch and no other")
+    return res, vals, wall
+
+
+def run_queries(engine, phase: str, rung: str) -> dict:
+    """The main path: each query twice through the user's entry point. The
+    phase's first query is the cold build (a cache miss: per-shard staging
+    and the superblock's upload); every other run must be served from the
+    superblock cache with no staging, launch once, and equal the cold
+    run's [G, J] (rtol 1e-3: atomics reorder the f32 sums)."""
+    import torch
+
+    want_class = "regular" if rung == "mxu" else "irregular"
+    results, launches, timings = {}, 0, {}
+    for i, q in enumerate(QUERIES):
+        runs = []
+        for attempt in ("first", "second"):
+            res, vals, wall = run_main(engine, q, want_class, rung)
+            st = res.stats
+            if i == 0 and attempt == "first":
+                require(st.cache_misses >= 1 and st.cache_hits == 0,
+                        f"{q}: the first query must build the superblock, stats {st}")
+            else:
+                require(st.cache_hits == 1 and st.cache_misses == 0 and st.bytes_staged == 0,
+                        f"{q} ({attempt} run): expected a superblock cache hit with no "
+                        f"staging, stats {st}")
+            launches += 1
+            runs.append((res, vals, wall))
+            print(f"{phase} query {q!r} ({attempt} run, cache hits {st.cache_hits}, misses "
+                  f"{st.cache_misses}): grid {want_class}, rung {rung}, "
+                  f"{len(res.grids[0].labels)} groups x {res.grids[0].num_steps} steps, "
+                  f"{st.series_scanned} series, {st.samples_scanned} samples, "
+                  f"{wall * 1e3:.1f} ms end to end, one {RUNGS[rung]} launch")
+            require(np.isfinite(vals).all(), f"{q}: non-finite values in the result")
+            require((vals > 0).all(), f"{q}: a counter rate must be positive")
+        compare(torch.from_numpy(runs[1][1]), torch.from_numpy(runs[0][1]),
+                f"{q}: second run vs first", rtol=1e-3)
+        timings[q] = {"first_ms": runs[0][2] * 1e3, "second_ms": runs[1][2] * 1e3}
+        print(f"{phase} query {q!r}: end to end {runs[0][2] * 1e3:.1f} ms "
+              f"{'cold (cache miss)' if i == 0 else '(hit)'} / {runs[1][2] * 1e3:.1f} ms warm "
+              f"(hit); the second run's [G, J] equals the first's (rtol 1e-3)")
+        results[q] = runs[0][0]
     by_zone = results[QUERIES[1]].grids[0]
     require(sorted(l["zone"] for l in by_zone.labels) == [f"z{i}" for i in range(8)],
             "sum by (zone) must return the 8 zones")
@@ -552,17 +634,34 @@ def run_queries(engine, phase: str, rung: str) -> dict:
     require(np.allclose(by_zone.values_np().sum(axis=0), total[0], rtol=1e-4),
             "the zones' rates must add up to the global rate")
     print(f"{phase}: the 8 zones' rates add up to the global rate (rtol 1e-4)")
-    return {"results": results, "launches": launches}
+    return {"results": results, "launches": launches, "timings": timings}
 
 
-def stage_again(engine, q: str):
-    """The query's exec node and its superblock, staged again (timed)."""
-    import torch
+def cold_cache(engine) -> None:
+    """A fresh superblock cache and empty per-shard staging caches: the
+    next query stages from the chunks as a first query does."""
+    from filodb_tpu_torch.ops.staging import SuperblockCache
 
+    ms = engine.memstore
+    ms._superblock_cache = SuperblockCache()
+    for s in ms.shard_nums(engine.dataset):
+        shard = ms.shard(engine.dataset, s)
+        with shard._lock:
+            shard._clear_stage_cache()
+
+
+def exec_node(engine, q: str, end_s: float = END_S):
     from filodb_tpu_torch.query.promql import query_range_to_logical_plan
 
-    plan = query_range_to_logical_plan(q, START_S, END_S, STEP_S)
-    ex = engine.planner.materialize(plan)
+    return engine.planner.materialize(query_range_to_logical_plan(q, START_S, end_s, STEP_S))
+
+
+def stage_again(engine, q: str, end_s: float = END_S):
+    """The query's exec node and its superblock, built cold again (timed)."""
+    import torch
+
+    cold_cache(engine)
+    ex = exec_node(engine, q, end_s)
     t0 = time.perf_counter()
     entry = ex.superblock(engine.context())
     torch.cuda.synchronize(engine.device)
@@ -578,7 +677,7 @@ def phase_irregular_path(seed: int, device) -> tuple[dict, dict]:
     from filodb_tpu_torch.ops.kernels import pad_steps
 
     t0 = time.perf_counter()
-    ms = build_memstore(N_SERIES, N_SAMPLES, seed, regular=False)
+    ms = build_memstore(N_SERIES, N_SAMPLES, seed, "irregular")
     print(f"phase4 ingest: {N_SERIES} irregular series x {N_SAMPLES} samples on {N_SHARDS} "
           f"shards in {time.perf_counter() - t0:.1f} s")
     engine = QueryEngine(ms, "prometheus")
@@ -706,7 +805,7 @@ def regular_bound_bytes(wm, n_series: int, num_steps: int, G: int, func: str) ->
     return sectors * 32 * n_series + n_series * 8 + 7 * num_steps * 4 + 2 * G * num_steps * 4
 
 
-def phase_regular_path(seed: int, device) -> dict:
+def phase_regular_path(seed: int, device):
     import torch
 
     from filodb_tpu_torch.coordinator.planner import QueryEngine
@@ -715,7 +814,7 @@ def phase_regular_path(seed: int, device) -> dict:
     from filodb_tpu_torch.ops.kernels import pad_steps
 
     t0 = time.perf_counter()
-    ms = build_memstore(N_SERIES, N_SAMPLES, seed, regular=True)
+    ms = build_memstore(N_SERIES, N_SAMPLES, seed, "regular")
     print(f"phase5 ingest: {N_SERIES} series x {N_SAMPLES} samples at exactly 10 s "
           f"(bench.py's store) on {N_SHARDS} shards in {time.perf_counter() - t0:.1f} s")
     engine = QueryEngine(ms, "prometheus")
@@ -802,7 +901,186 @@ def phase_regular_path(seed: int, device) -> dict:
             "sum_over_time_bound_ms": sum_bound_ms,
         }
     row["queries"] = per_query
-    return row
+    return row, engine
+
+
+def live_batch(b: int, grid: str, tags_list, rng):
+    """bench.py's ingest_impact batch ``b``: one sample per series at the
+    next slot, value 1e9 + 10 (N_SAMPLES + b + 1), above every series'
+    build-time values; on the jittered grid the next nominal slot +-4 % of
+    the interval, per series."""
+    from filodb_tpu_torch.core.records import RecordBatch
+    from filodb_tpu_torch.core.schemas import PROM_COUNTER
+
+    n = len(tags_list)
+    ts = np.full(n, BASE + (N_SAMPLES + b) * 10_000, np.int64)
+    if grid == "jitter":
+        ts += JITTER_PHASE_MS + np.rint(rng.uniform(-0.04, 0.04, n) * 10_000).astype(np.int64)
+    vals = np.full(n, 1e9 + 10.0 * (N_SAMPLES + b + 1))
+    return RecordBatch(PROM_COUNTER, ts, {"count": vals}, tags_list)
+
+
+def extension_record() -> dict:
+    """The last superblock extension's sizes and times: host work (the
+    row-set proof, the per-series tail reads, the checks and mirror
+    writes) and device work (clones and uploads, between CUDA events)."""
+    import torch
+
+    from filodb_tpu_torch.ops import staging as ST
+
+    ext = dict(ST.LAST_EXTENSION)
+    events = ext.pop("device_events", None)  # absent on a CPU rehearsal
+    torch.cuda.synchronize()
+    return {"bytes_uploaded": ext["bytes_uploaded"], "columns": ext["columns"],
+            "series": ext["series"], "proof_ms": ext["proof_s"] * 1e3,
+            "tail_read_ms": ext["read_s"] * 1e3, "host_ms": ext["host_s"] * 1e3,
+            "device_ms": events[0].elapsed_time(events[1]) if events else float("nan"),
+            "device_wall_ms": ext["device_wall_s"] * 1e3}
+
+
+def phase_live_edge(engine, device, phase: str, grid: str, n_idle: int, n_busy: int,
+                    min_batches: int, seed: int) -> dict:
+    """bench.py's ingest_impact on the port at full size: one cold query of
+    ``sum(rate(...[5m]))`` to the live edge, ``n_idle`` warm queries, then
+    queries back to back while a thread ingests one sample per series
+    every 100 ms through ``ingest_routed``: at least ``n_busy`` of them,
+    and on until ``min_batches`` batches have landed (a 100k-row batch
+    takes the host longer than ``n_busy`` warm queries do, and a busy query
+    that no batch reached measures nothing). Every query must launch its rung's
+    kernel once; the stream must extend the cached superblock at least once
+    and never restage. After the stream, one more batch: the query held on
+    the block from before that last extension must return what it did, and
+    the final [G, J] must match the plain path on a superblock built afresh
+    from the final store, whose real ts and lens must equal the extended
+    block's bit for bit, and vals and raw within rtol 1e-6."""
+    import threading
+
+    import torch
+
+    from filodb_tpu_torch import metrics as M
+
+    rung = "mxu" if grid == "regular" else "window_stats"
+    ms = engine.memstore
+    tags_list = [series_tags(i) for i in range(N_SERIES)]
+    rng = np.random.default_rng(seed + 7)
+    ev0 = M.superblock_events()
+    launches = [0]
+
+    def query():
+        launches[0] += 1  # run_main requires exactly one launch per query
+        return run_main(engine, LIVE_QUERY, grid, rung, end_s=LIVE_END_S)
+
+    res, cold_vals, cold_s = query()
+    require(res.stats.cache_misses >= 1, f"{phase}: the first live-edge query must build, "
+                                         f"stats {res.stats}")
+    idle = []
+    for _ in range(n_idle):
+        res, _, wall = query()
+        require(res.stats.cache_hits == 1 and res.stats.cache_misses == 0,
+                f"{phase}: an idle query must hit the cache, stats {res.stats}")
+        idle.append(wall)
+    stop, sent, errors, ingest_s = threading.Event(), [0], [], []
+
+    def ingester():
+        try:
+            while not stop.is_set() and sent[0] < MAX_BATCHES - 1:
+                batch = live_batch(sent[0], grid, tags_list, rng)
+                t0 = time.perf_counter()
+                ms.ingest_routed("prometheus", batch, spread=SPREAD)
+                ingest_s.append(time.perf_counter() - t0)
+                sent[0] += 1
+                stop.wait(0.1)
+        except BaseException as e:  # noqa: BLE001 -- reported by the main thread
+            errors.append(e)
+
+    th = threading.Thread(target=ingester)
+    busy, extensions = [], []
+    th.start()
+    try:
+        while len(busy) < n_busy or (sent[0] < min_batches and th.is_alive()):
+            res, _, wall = query()
+            busy.append(wall)
+            if res.stats.cache_extends:
+                extensions.append(extension_record())
+        busy_batches = sent[0]
+    finally:
+        stop.set()
+        th.join()
+    require(not errors, f"{phase}: the ingester failed: {errors!r}")
+    require(sent[0] > 0, f"{phase}: the ingester sent no batch")
+    # settle on everything sent, hold that block, then one last extension
+    query()
+    ex = exec_node(engine, LIVE_QUERY, LIVE_END_S)
+    held = ex.superblock(engine.context())
+    names = ("ts", "vals", "raw", "lens")
+    held_arrays = {k: getattr(held.block, k).clone() for k in names}
+    held_out = device_path(held, ex).clone()
+    ms.ingest_routed("prometheus", live_batch(sent[0], grid, tags_list, rng), spread=SPREAD)
+    sent[0] += 1
+    res, final_vals, _ = query()
+    require(res.stats.cache_extends == 1, f"{phase}: the last batch must extend, {res.stats}")
+    extensions.append(extension_record())
+    for k in names:
+        require(torch.equal(getattr(held.block, k), held_arrays[k]),
+                f"{phase}: the extension wrote the held block's {k}")
+    compare(device_path(held, ex), held_out, f"{phase}: held block after the extension",
+            rtol=1e-3)
+    events = {k: v - ev0[k] for k, v in M.superblock_events().items()}
+    require(events["extend"] >= 1 and events["restage"] == 0 and events["extend_abort"] == 0,
+            f"{phase}: maintenance outcomes {events}")
+    extended = ex.superblock(engine.context())
+    ext_block = extended.block
+    require(int(ext_block.lens[0]) == int(held.block.lens[0]) + 1,
+            f"{phase}: the extended superblock holds {int(ext_block.lens[0])} samples per series")
+    # the final store, built afresh
+    ex, fresh, fresh_s = stage_again(engine, LIVE_QUERY, LIVE_END_S)
+    fb, n = fresh.block, fresh.block.n_series
+    require(fb.shape == ext_block.shape and n == ext_block.n_series,
+            f"{phase}: fresh superblock {fb.shape} vs extended {ext_block.shape}")
+    require(torch.equal(fb.ts[:n], ext_block.ts[:n]) and torch.equal(fb.lens, ext_block.lens),
+            f"{phase}: the extended superblock's ts or lens differ from a fresh build's")
+    real = torch.arange(fb.shape[1], device=device)[None, :] < fb.lens[:n, None]
+    diffs = {}
+    for k in ("vals", "raw"):
+        got, want = getattr(ext_block, k)[:n][real], getattr(fb, k)[:n][real]
+        diffs[k] = compare(got, want, f"{phase}: extended {k} vs fresh", rtol=1e-6)
+    if grid == "regular":
+        gids, G, params = path_args(fresh, ex)
+        want = regular_plain(ex.function, ex.op, fb, gids, G, params, fresh.is_counter)
+        want = want[:, : ex.num_steps()]
+    else:
+        want = window_range_path(fresh, ex, plain=True)
+    final_err = compare(torch.from_numpy(final_vals).to(device), want,
+                        f"{phase}: final query vs the plain path on a fresh build", rtol=1e-3)
+    idle_ms, busy_ms = float(np.mean(idle)) * 1e3, float(np.mean(busy)) * 1e3
+    per = extensions[-1]
+    busy_ext = len(extensions) - 1
+    print(f"{phase} live edge ({grid}, {N_SERIES} series, {LIVE_QUERY!r} to {LIVE_END_S:.0f} s): "
+          f"cold {cold_s * 1e3:.1f} ms, idle mean {idle_ms:.2f} ms over {n_idle}, busy mean "
+          f"{busy_ms:.2f} ms over {len(busy)} ({busy_ext} of them extended the superblock, "
+          f"{busy_batches} batches landed meanwhile), busy/idle {busy_ms / idle_ms:.2f} x; "
+          f"{sent[0]} batches in all, {np.mean(ingest_s):.2f} s per {N_SERIES}-row ingest_routed "
+          f"(mean of {len(ingest_s)}), outcomes {events}")
+    for i, e in enumerate(extensions):
+        print(f"{phase} extension {i}: {e['series']} series x {e['columns']} columns, "
+              f"{e['bytes_uploaded']} bytes uploaded; host {e['proof_ms'] + e['host_ms']:.1f} ms "
+              f"(row-set proof {e['proof_ms']:.1f}, tail reads {e['tail_read_ms']:.1f}, "
+              f"the rest {e['host_ms'] - e['tail_read_ms']:.1f}); device {e['device_ms']:.3f} ms "
+              f"between events ({e['device_wall_ms']:.2f} ms host wall)")
+    print(f"{phase}: held block unchanged; final [G, J] matches the plain path on a fresh "
+          f"build (max_abs_err {final_err:.3g}, fresh build {fresh_s:.2f} s); extended ts and "
+          f"lens bit-equal to the fresh build's, vals max diff {diffs['vals']:.3g}, raw "
+          f"{diffs['raw']:.3g}")
+    return {
+        "grid": grid, "series": N_SERIES, "cold_ms": cold_s * 1e3, "idle_mean_ms": idle_ms,
+        "busy_mean_ms": busy_ms, "busy_over_idle": busy_ms / idle_ms, "idle_ms": [
+            t * 1e3 for t in idle], "busy_ms": [t * 1e3 for t in busy], "batches": sent[0],
+        "busy_batches": busy_batches, "busy_extensions": busy_ext,
+        "ingest_s_per_batch": ingest_s,
+        "outcomes": events, "extensions": extensions, "fresh_build_s": fresh_s,
+        "vals_max_diff": diffs["vals"], "raw_max_diff": diffs["raw"],
+        "final_max_abs_err": final_err, "launches": launches[0],
+    }
 
 
 def main() -> int:
@@ -815,6 +1093,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    from filodb_tpu_torch.coordinator.planner import QueryEngine
+
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 matmuls in full f32
     device = torch.device("cuda")
     build_kernels()
@@ -829,8 +1109,22 @@ def main() -> int:
     wr_row, ws_row = phase_irregular_path(args.seed, device)
     gc.collect()  # the irregular store goes before the regular one is built
     torch.cuda.empty_cache()
-    reg_row = phase_regular_path(args.seed, device)
+    reg_row, engine = phase_regular_path(args.seed, device)
+    live = phase_live_edge(engine, device, "phase6", "regular", n_idle=15, n_busy=15,
+                           min_batches=6, seed=args.seed)
+    reg_row["launches"] += live["launches"]
+    del engine
+    gc.collect()  # the regular store goes before the jittered one is built
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    jit_store = build_memstore(N_SERIES, N_SAMPLES, args.seed, "jitter")
+    print(f"phase6b ingest: {N_SERIES} series x {N_SAMPLES} samples on bench.py's jittered "
+          f"grid (+-5 %, phase {JITTER_PHASE_MS} ms) in {time.perf_counter() - t0:.1f} s")
+    live_jit = phase_live_edge(QueryEngine(jit_store, "prometheus"), device, "phase6b", "jitter",
+                               n_idle=5, n_busy=6, min_batches=3, seed=args.seed)
+    wr_row["launches"] += live_jit["launches"]
 
+    print(json.dumps({"cache": {"phase6": live, "phase6b": live_jit}}))
     print(json.dumps({"kernels": [ws_row, wr_row, reg_row]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,10 @@
 
 from __future__ import annotations
 
-from typing import Sequence
+from contextlib import ExitStack, contextmanager
+from typing import Iterable, Sequence
 
+from ..core.records import RecordBatch
 from ..core.schemas import Dataset
 from .shard import StoreConfig, TimeSeriesShard
 
@@ -43,3 +45,34 @@ class TimeSeriesMemStore:
 
     def dataset(self, name: str) -> Dataset:
         return self._dataset_meta[name]
+
+    # -- ingest --------------------------------------------------------------
+
+    def ingest(self, dataset: str, shard_num: int, batch: RecordBatch) -> int:
+        return self.shard(dataset, shard_num).ingest(batch)
+
+    def ingest_routed(self, dataset: str, batch: RecordBatch, spread: int) -> int:
+        """Route a mixed batch to owned shards by shard-key hash (gateway
+        path). The batch commits atomically across its shards: every
+        destination shard's lock is held, in shard order, until the last
+        shard has ingested, so a reader holding the member shards' locks in
+        the same order (``member_locks``) sees all of the batch or none."""
+        shards = self._datasets[dataset]
+        options = self._dataset_meta[dataset].options
+        subs = batch.shard_split(spread, self.total_shards(dataset), options)
+        owned = sorted(s for s in subs if s in shards)
+        n = 0
+        with member_locks(shards[s] for s in owned):
+            for s in owned:
+                n += shards[s].ingest(subs[s])
+        return n
+
+
+@contextmanager
+def member_locks(shards: Iterable):
+    """Hold the locks of ``shards``, taken in shard order (the order
+    ``ingest_routed`` takes them, so the two never deadlock)."""
+    with ExitStack() as stack:
+        for shard in sorted(shards, key=lambda s: s.shard_num):
+            stack.enter_context(shard._lock)
+        yield

@@ -132,3 +132,24 @@ class TimeSeriesPartition:
         if not ts_parts:
             return np.empty(0, dtype=np.int64), np.empty(0)
         return np.concatenate(ts_parts), np.concatenate(val_parts)
+
+    def tail_samples(self, t0: int, t1: int, col: str) -> tuple[np.ndarray, np.ndarray]:
+        """Lean ``samples_in_range`` for the live-edge append window
+        (``staging._append_to_parts`` calls it once per partition per
+        extension, so its per-call overhead is the cost at 100k series).
+        When every requested sample lies in the open write buffer it
+        returns views: no chunk scan, no copies. The views hold until the
+        next ingest into this partition; appends land at rows past the
+        length read here, so the returned slice itself is never rewritten.
+        Falls back to ``samples_in_range`` when a sealed chunk reaches t0."""
+        n = self._buf_len
+        buf = self._buf
+        chunks = self.chunks
+        sealed_end = chunks[-1].end_ts if chunks else -(2**62)
+        if buf is None or not n or sealed_end >= t0:
+            return self.samples_in_range(t0, t1, col)
+        ts = buf["timestamp"][:n]
+        if ts[-1] < t0 or ts[0] > t1:
+            return np.empty(0, dtype=np.int64), np.empty(0)
+        lo, hi = np.searchsorted(ts, [t0, t1 + 1])
+        return ts[lo:hi], buf[col][lo:hi]

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..core.schemas import METRIC_TAG
+from ..singleflight import memo_on
 from . import mxu_kernels as MK
 from . import window_stats as WS
 from .staging import grid_class
@@ -116,13 +117,14 @@ def group_ids_for(series_labels: list[dict], by: list[str] | None, without: list
 
 
 def group_ids_memo(block, series_labels, by, without, strip_metric: bool = False):
-    """``group_ids_for`` memoized in a plain dict on the block, keyed by
-    (by, without, strip). Returns ``(gids_padded, num_groups, group_labels)``
+    """``group_ids_for`` memoized on the block (``singleflight.memo_on``:
+    one build under concurrency), keyed by (by, without, strip). Returns
+    ``(gids_padded, num_groups, group_labels)``
     with gids_padded an int64 [S_padded] tensor on the block's device whose
     padded rows carry the trash group ``num_groups``."""
     key = (tuple(by) if by else None, tuple(without) if without else None, bool(strip_metric))
-    memo = block.__dict__.setdefault("group_ids_memo", {})
-    if key not in memo:
+
+    def build():
         labels = series_labels
         if strip_metric:
             labels = [{k: v for k, v in l.items() if k not in (METRIC_TAG, "__name__")}
@@ -134,5 +136,6 @@ def group_ids_memo(block, series_labels, by, without, strip_metric: bool = False
         s_pad = block.lens.shape[0]
         gids_padded = np.full(s_pad, G, dtype=np.int64)
         gids_padded[: len(gids)] = gids
-        memo[key] = (torch.from_numpy(gids_padded).to(block.lens.device), G, group_labels)
-    return memo[key]
+        return torch.from_numpy(gids_padded).to(block.lens.device), G, group_labels
+
+    return memo_on(block, "group_ids_memo", key, build)

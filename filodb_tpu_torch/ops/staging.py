@@ -19,14 +19,27 @@ padded ``[series, time]`` block, which moves to the device once:
   ``irregular`` (the window-stats kernel). The JAX package's ``holes``
   class (its masked missing-scrape grid) is not ported: such blocks stay
   ``irregular``.
+
+Live ingest does not restage a cached block: ``append_to_block`` (a
+shard's host-staged block) and ``extend_superblock`` (the cross-shard
+superblock on the device) append the samples that arrived past its head,
+from host mirrors that ``to_device(keep_host=True)`` keeps, and
+``SuperblockCache`` holds superblocks keyed by their member shards' version
+vector. The JAX package's ``_slot_align`` (ragged jittered edges) is not
+ported.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import threading
+import time
+from collections import OrderedDict
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from ..singleflight import KeyedSingleFlight
 
 _S_BUCKETS = (8, 32, 128, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536, 131072)
 
@@ -70,13 +83,42 @@ class StagedBlock:
     nominal_ts: np.ndarray | None = None  # [T] int32 shared nominal offsets
     ts_dev: np.ndarray | None = None  # [S, T] f32 per-sample deviation (ms)
     maxdev_ms: int = 0  # bound on |ts - nominal|
+    # f64 state for exact appends: the unrounded per-series baseline
+    # (shifted and corrected modes; the f32 baseline rounds by up to 64 at
+    # 1e9) and, for corrected counters, (last raw, last corrected) value
+    base64: np.ndarray | None = field(default=None, repr=False)
+    cont: tuple | None = field(default=None, repr=False)
+    # host mirrors kept by to_device(keep_host=True) / keep_mirrors(): the
+    # append repairs write the new columns here. Always copies, never the
+    # arrays a kernel reads: on the CPU torch.as_tensor(a).to("cpu")
+    # aliases numpy memory, and an append would rewrite the old block.
+    h_ts: np.ndarray | None = field(default=None, repr=False)
+    h_vals: np.ndarray | None = field(default=None, repr=False)
+    h_lens: np.ndarray | None = field(default=None, repr=False)
+    h_raw: np.ndarray | None = field(default=None, repr=False)
+    h_dev: np.ndarray | None = field(default=None, repr=False)
 
     @property
     def shape(self):
         return tuple(self.ts.shape)
 
-    def to_device(self, device) -> "StagedBlock":
-        """Move the block's arrays to ``device``; returns self for chaining."""
+    def keep_mirrors(self) -> "StagedBlock":
+        """Copy the host arrays into the mutable mirrors the append repairs
+        write (the block must still be on the host); returns self."""
+        self.h_ts = np.array(self.ts, copy=True)
+        self.h_vals = np.array(self.vals, copy=True)
+        self.h_lens = np.array(self.lens, copy=True)
+        self.h_raw = np.array(self.raw, copy=True) if self.raw is not None else None
+        self.h_dev = np.array(self.ts_dev, copy=True) if self.ts_dev is not None else None
+        return self
+
+    def to_device(self, device, keep_host: bool = False) -> "StagedBlock":
+        """Move the block's arrays to ``device``; returns self for chaining.
+        ``keep_host`` first keeps the host mirrors, so the block can be
+        extended under live ingest instead of restaged."""
+        if keep_host:
+            self.keep_mirrors()
+
         def put(a):
             return torch.as_tensor(a).to(device)
 
@@ -88,9 +130,12 @@ class StagedBlock:
             self.raw = put(self.raw)
         return self
 
-    def nbytes(self) -> int:
-        arrays = (self.ts, self.vals, self.raw, self.baseline, self.lens)
-        return sum(int(a.nbytes) for a in arrays if a is not None)
+
+def staged_nbytes(block: StagedBlock) -> int:
+    """Bytes of every array a staged block holds (the caches' byte
+    budgets); reads ``.nbytes``, so device tensors are never fetched."""
+    arrays = (block.ts, block.vals, block.raw, block.baseline, block.lens, block.ts_dev)
+    return sum(int(a.nbytes) for a in arrays if a is not None)
 
 
 def detect_shared_grid(out_ts: np.ndarray, lens: np.ndarray, n: int, T: int, S: int):
@@ -159,6 +204,7 @@ def stage_series(
     subtract_baseline: bool = False,
     counter_corrected: bool = False,
     diff_encode: bool = False,
+    time_headroom: int = 0,
 ) -> StagedBlock:
     """Build a host StagedBlock from per-series (ts_ms int64, values f64)
     pairs. Four modes: raw values (default), ``counter_corrected``
@@ -166,7 +212,9 @@ def stage_series(
     ``diff_encode`` (slot i holds the f64-exact difference v[i] - v[i-1],
     slot 0 holds 0: changes/resets/idelta are functions of the differences)
     and ``subtract_baseline`` (raw minus the first value, no correction).
-    The block's grid is classified (``detect_shared_grid``)."""
+    ``time_headroom`` extra columns let live-edge appends land before the
+    padded width forces a restage. The block's grid is classified
+    (``detect_shared_grid``)."""
     n = len(series)
     cleaned: list[tuple[np.ndarray, np.ndarray]] = []
     maxlen = 1
@@ -177,12 +225,17 @@ def stage_series(
         cleaned.append((ts, vals))
         maxlen = max(maxlen, len(ts))
     S = pad_series(max(n, 1))
-    T = pad_time(maxlen)
+    T = pad_time(maxlen + max(time_headroom, 0))
     out_ts = np.full((S, T), TS_PAD, dtype=np.int32)
     out_vals = np.zeros((S, T), dtype=np.float32)
     out_raw = np.zeros((S, T), dtype=np.float32) if counter_corrected else None
     lens = np.zeros(S, dtype=np.int32)
     baseline = np.zeros(S, dtype=np.float32)
+    # f64 continuation state (last raw, last corrected value) and the
+    # unrounded baseline, so appends continue the correction exactly
+    cont_raw = np.zeros(S, dtype=np.float64)
+    cont_corr = np.zeros(S, dtype=np.float64)
+    base64 = np.zeros(S, dtype=np.float64)
     for i, (ts, vals) in enumerate(cleaned):
         m = len(ts)
         lens[i] = m
@@ -192,7 +245,11 @@ def stage_series(
         if counter_corrected:
             b = np.float64(vals[0])
             baseline[i] = b
-            out_vals[i, :m] = (counter_correct(vals) - b).astype(np.float32)
+            base64[i] = b
+            corrected = counter_correct(vals)
+            cont_raw[i] = vals[-1]
+            cont_corr[i] = corrected[-1]
+            out_vals[i, :m] = (corrected - b).astype(np.float32)
             # raw rides along unshifted: it only feeds the zero-crossing cap,
             # which engages only for raw values near zero, where f32 is exact
             out_raw[i, :m] = vals.astype(np.float32)
@@ -201,13 +258,19 @@ def stage_series(
         elif subtract_baseline:
             b = np.float64(vals[0])
             baseline[i] = b
+            base64[i] = b
             out_vals[i, :m] = (vals.astype(np.float64) - b).astype(np.float32)
         else:
             out_vals[i, :m] = vals.astype(np.float32)
     regular, nominal, ts_dev, maxdev = detect_shared_grid(out_ts, lens, n, T, S)
-    return StagedBlock(out_ts, out_vals, lens, base_ms, baseline, n,
-                       part_refs or [], raw=out_raw, regular_ts=regular,
-                       nominal_ts=nominal, ts_dev=ts_dev, maxdev_ms=maxdev)
+    block = StagedBlock(out_ts, out_vals, lens, base_ms, baseline, n,
+                        part_refs or [], raw=out_raw, regular_ts=regular,
+                        nominal_ts=nominal, ts_dev=ts_dev, maxdev_ms=maxdev)
+    if counter_corrected or subtract_baseline:
+        block.base64 = base64
+    if counter_corrected:
+        block.cont = (cont_raw, cont_corr)
+    return block
 
 
 def block_from_arrays(ts, vals, lens, base_ms: int, baseline, n_series: int,
@@ -238,18 +301,272 @@ def stage_from_shard(shard, part_ids, column: str, start_ms: int, end_ms: int,
                      mode: str) -> StagedBlock:
     """Gather [start_ms, end_ms] samples for part_ids from a shard and stage
     them on the host. ``mode`` is ``"corrected"``, ``"shifted"``, ``"diff"``
-    or ``"raw"`` (see plans._stage_mode_for_function)."""
+    or ``"raw"`` (see plans._stage_mode_for_function).
+
+    A small-to-medium block whose range reaches past its newest sample (the
+    live edge) gets 256 columns of headroom, so appends land before the
+    padded width forces a restage; historical ranges never append and
+    never pay the wider T."""
     series, refs = [], []
     for pid in part_ids:
         part = shard.partition(int(pid))
         series.append(part.samples_in_range(start_ms, end_ms, column))
         refs.append((shard.shard_num, int(pid)))
+    newest = max((int(ts[-1]) for ts, _ in series if len(ts)), default=None)
+    live_edge = newest is not None and end_ms >= newest
     return stage_series(
         series, start_ms, refs,
         counter_corrected=mode == "corrected",
         subtract_baseline=mode == "shifted",
         diff_encode=mode == "diff",
+        time_headroom=256 if live_edge and len(series) <= 8192 else 0,
     )
+
+
+# timings and sizes of the last superblock extension that appended columns:
+# set by _append_to_parts (device blocks only), read by chip_smoke.py
+LAST_EXTENSION: dict = {}
+
+
+def append_to_block(shard, block: StagedBlock, part_ids, column: str, end_ms: int,
+                    mode: str, dirty_lo: int | None = None) -> StagedBlock | None:
+    """Append the samples that arrived after a shard's staged ``block``
+    (the live-edge path: each scrape lands just past the staged head).
+    ``dirty_lo`` is the cache entry's accumulated dirt floor
+    (``StageEntry.dirty_lo``): the repair declines when it reaches below
+    the staged heads. None when the selection changed or a precondition
+    of ``_append_to_parts`` fails (the caller restages)."""
+    refs = [(shard.shard_num, int(p)) for p in part_ids]
+    if refs != list(block.part_refs):
+        return None
+    parts = [shard.partition(int(p)) for p in part_ids]
+    return _append_to_parts(parts, block, column, end_ms, mode, dirty_lo=dirty_lo)
+
+
+def extend_superblock(memstore, dataset: str, block: StagedBlock, column: str,
+                      end_ms: int, mode: str) -> StagedBlock | None:
+    """``append_to_block`` lifted to the cross-shard superblock: resolves
+    every ``part_refs`` row to its live partition and appends through the
+    same core, so the warm query stays one launch under live ingest. The
+    caller has proved the row set unchanged (fresh lookups and the shards'
+    effect logs). None when a precondition fails (the caller restages)."""
+    parts = []
+    try:
+        for sn, pid in block.part_refs:
+            parts.append(memstore.shard(dataset, sn).partitions[int(pid)])
+    except KeyError:
+        return None
+    return _append_to_parts(parts, block, column, end_ms, mode)
+
+
+def _with_columns(old, mirror: np.ndarray, n: int, m: int, k: int):
+    """``old`` with its columns [:n, m:m+k] taken from ``mirror``, as a new
+    array on old's device; ``old`` itself is never written. On the card
+    that is a device-side clone plus an upload of the n x k new values
+    only."""
+    if isinstance(old, torch.Tensor):
+        new = old.clone()
+        new[:n, m : m + k] = torch.from_numpy(
+            np.ascontiguousarray(mirror[:n, m : m + k])).to(old.device)
+        return new
+    new = old.copy()
+    new[:n, m : m + k] = mirror[:n, m : m + k]
+    return new
+
+
+def _append_to_parts(parts, block: StagedBlock, column: str, end_ms: int, mode: str,
+                     dirty_lo: int | None = None) -> StagedBlock | None:
+    """Uniform-batch append core of ``append_to_block`` and
+    ``extend_superblock``. ``parts`` are the live partitions in the block's
+    ``part_refs`` order.
+
+    Writes the host mirrors in place, but only at columns at or past the
+    old head; the small per-series state (h_lens, cont) is copied on
+    write, so a reader holding the old block keeps a consistent head-m
+    view. Returns a new block whose arrays are the old ones with the new
+    columns written in (``_with_columns``): the old block's arrays are
+    never written, so a query in flight on it sees what it saw, and the
+    caller swaps the new block into its cache entry. Returns the block
+    itself when nothing new is in range, and None when a precondition
+    fails:
+
+    - the mode is raw, shifted or corrected (diff continuation needs state
+      the block does not carry), and the block is host-mirrored on a
+      regular or jittered shared grid; scalar [S, T] blocks only;
+    - every series gains the same count of new samples: identical
+      timestamps on a regular grid, near-nominal ones (the jitter bound
+      re-checked over the extended grid) on a jittered grid; and the
+      padded T still fits."""
+    t_host = time.perf_counter()
+    if mode not in ("raw", "shifted", "corrected"):
+        return None
+    if mode == "corrected" and block.cont is None:
+        return None
+    if mode in ("corrected", "shifted") and block.base64 is None:
+        return None  # exact f64 baselines required (f32 rounds by 64 at 1e9)
+    jittered = block.regular_ts is None and block.nominal_ts is not None
+    if block.h_ts is None:
+        return None
+    if block.regular_ts is None and not jittered:
+        return None
+    if jittered and block.h_dev is None:
+        return None
+    if block.n_series == 0:
+        return None
+    n = block.n_series
+    lens = block.h_lens
+    m = int(lens[0])
+    if m == 0 or not (lens[:n] == m).all():
+        return None
+    base = block.base_ms
+    grid = np.asarray(block.nominal_ts if jittered else block.regular_ts)
+    last_nom = int(grid[m - 1]) + base
+    # jittered: each series' head sits at last_nom plus its own deviation,
+    # so the read starts per series (an in-order sample in another series'
+    # gap must not be skipped: it shows up as a non-uniform batch)
+    if jittered:
+        dev_last = block.h_dev[:n, m - 1].astype(np.int64)
+        read_from = [last_nom + int(d) + 1 for d in dev_last]
+    else:
+        read_from = [last_nom + 1] * n
+    # the append-only repair is right only when every dirtying sample sits
+    # at or past the staged heads
+    if dirty_lo is not None and dirty_lo < min(read_from) - 1:
+        return None
+    # the tails are gathered with no per-series checks: at 100k series the
+    # per-call overhead is the cost, so the checks run vectorized over the
+    # stacked [n, k] batch, with a per-series pass only for an odd batch
+    t_read = time.perf_counter()
+    per = [p.tail_samples(read_from[i], end_ms, column) for i, p in enumerate(parts)]
+    read_s = time.perf_counter() - t_read
+    per_ts = [ts for ts, _ in per]
+    per_vals = [v for _, v in per]
+    V0 = TS0 = None
+    k = len(per_ts[0])
+    uniform = all(len(ts) == k for ts in per_ts)
+    if uniform and k > 0:
+        V0 = np.stack(per_vals)
+        if np.isnan(V0).any():
+            uniform = False  # staleness markers: per-series filtering
+            V0 = None
+        else:
+            TS0 = np.stack(per_ts)
+            if not jittered and (TS0 != TS0[0]).any():
+                return None  # the regular grid would not stay shared
+    if not uniform:
+        new_ts = None
+        per_vals = []
+        per_ts = []
+        for ts, vals in per:
+            keep = ~np.isnan(vals)
+            if not keep.all():
+                ts, vals = ts[keep], vals[keep]
+            if new_ts is None:
+                new_ts = ts
+            elif len(ts) != len(new_ts):
+                return None  # appended counts diverge
+            elif not jittered and (ts != new_ts).any():
+                return None  # the regular grid would not stay shared
+            per_vals.append(vals)
+            per_ts.append(ts)
+        k = 0 if new_ts is None else len(new_ts)
+    if k == 0:
+        return block  # nothing new in this block's range: still clean
+    new_ts = per_ts[0]
+    T = block.h_ts.shape[1]
+    if m + k > T:
+        return None  # padded width exhausted: restage with a bigger T
+    if jittered:
+        TS = (TS0 if TS0 is not None else np.stack(per_ts)).astype(np.int64)
+        if (np.diff(TS, axis=1) <= 0).any():
+            return None
+        nom_new, dev_new, md_new = nominal_midrange(TS)
+        md = max(md_new, int(block.maxdev_ms))
+        ext = np.concatenate([grid[:m].astype(np.int64) + base, nom_new])
+        d = np.diff(ext)
+        if (d <= 0).any() or 2 * md >= int(d.min()):
+            return None  # the jitter bound fails on the extended grid
+        off = nom_new - base
+        OFF = (TS - base).astype(np.int64)
+        if OFF.max() >= 2**31 - 1:
+            return None
+    else:
+        off = (new_ts - base).astype(np.int64)
+        if off.max() >= 2**31 - 1 or off.min() <= int(grid[m - 1]):
+            return None
+    off32 = off.astype(np.int32)
+    V = (V0 if V0 is not None else np.stack(per_vals)).astype(np.float64)  # [n, k]
+    if jittered:
+        block.h_ts[:n, m : m + k] = OFF.astype(np.int32)
+        block.h_dev[:n, m : m + k] = dev_new.astype(np.float32)
+    else:
+        block.h_ts[:n, m : m + k] = off32[None, :]
+    if mode == "raw":
+        block.h_vals[:n, m : m + k] = V.astype(block.h_vals.dtype)
+    elif mode == "shifted":
+        b = block.base64[:n]
+        block.h_vals[:n, m : m + k] = (V - b[:, None]).astype(block.h_vals.dtype)
+    new_cont = None
+    if mode == "corrected":
+        # exact f64 continuation from the stored state, copied on write: the
+        # old block stays frozen at head m
+        cont_raw, cont_corr = block.cont
+        prev = np.concatenate([cont_raw[:n, None], V[:, :-1]], axis=1)
+        drops = np.where(V < prev, prev, 0.0)
+        corr = cont_corr[:n, None] + np.cumsum(V - prev + drops, axis=1)
+        b = block.base64[:n]
+        block.h_vals[:n, m : m + k] = (corr - b[:, None]).astype(block.h_vals.dtype)
+        block.h_raw[:n, m : m + k] = V.astype(block.h_raw.dtype)
+        new_cont = (cont_raw.copy(), cont_corr.copy())
+        new_cont[0][:n] = V[:, -1]
+        new_cont[1][:n] = corr[:, -1]
+    # lens copied on write: the old block's lens never advance, so the
+    # columns written above stay invisible to it
+    new_lens = lens.copy()
+    new_lens[:n] = m + k
+    ext_grid = grid.copy()
+    ext_grid[m : m + k] = off32
+    t_dev = time.perf_counter()
+    on_card = isinstance(block.ts, torch.Tensor) and block.ts.is_cuda
+    if on_card:
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+    nb = StagedBlock(
+        _with_columns(block.ts, block.h_ts, n, m, k),
+        _with_columns(block.vals, block.h_vals, n, m, k),
+        (torch.from_numpy(new_lens.copy()).to(block.lens.device)
+         if isinstance(block.lens, torch.Tensor) else new_lens.copy()),
+        base, block.baseline, n, list(block.part_refs),
+        raw=(_with_columns(block.raw, block.h_raw, n, m, k) if block.raw is not None else None),
+        regular_ts=None if jittered else ext_grid,
+        nominal_ts=ext_grid if jittered else None,
+        # the deviations stay on the host (no kernel of the port reads
+        # them): the new block shares the mirror, read only below its head
+        ts_dev=block.h_dev if jittered else None,
+        maxdev_ms=md if jittered else 0,
+        base64=block.base64,
+        cont=new_cont if new_cont is not None else block.cont,
+        h_ts=block.h_ts, h_vals=block.h_vals, h_lens=new_lens, h_raw=block.h_raw,
+        h_dev=block.h_dev,
+    )
+    if isinstance(block.ts, torch.Tensor):
+        n_arrays = 3 if block.raw is not None else 2
+        LAST_EXTENSION.clear()
+        LAST_EXTENSION.update(
+            series=n, columns=k, read_s=read_s, host_s=t_dev - t_host,
+            device_wall_s=time.perf_counter() - t_dev,
+            bytes_uploaded=n * k * 4 * n_arrays + int(new_lens.nbytes),
+        )
+        if on_card:
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev1.record()
+            LAST_EXTENSION["device_events"] = (ev0, ev1)
+    if "group_ids_memo" in block.__dict__:
+        # grouping is a function of the unchanged series set: carrying the
+        # memo keeps an extended superblock's query free of the O(S)
+        # regroup; the window-matrix memo starts empty on the new grid
+        nb.group_ids_memo = dict(block.group_ids_memo)
+    return nb
 
 
 def concat_blocks(blocks) -> StagedBlock:
@@ -299,6 +616,169 @@ def concat_blocks(blocks) -> StagedBlock:
     maxdev = 0
     if regular is None and S > 0:
         regular, nominal, ts_dev, maxdev = detect_shared_grid(ts, lens, S, T, Sp)
-    return StagedBlock(ts, vals, lens, real[0].base_ms, baseline, S, part_refs, raw=raw,
-                       regular_ts=regular, nominal_ts=nominal, ts_dev=ts_dev,
-                       maxdev_ms=maxdev)
+    out = StagedBlock(ts, vals, lens, real[0].base_ms, baseline, S, part_refs, raw=raw,
+                      regular_ts=regular, nominal_ts=nominal, ts_dev=ts_dev,
+                      maxdev_ms=maxdev)
+    # the f64 append state rides along (a snapshot: the members' own state
+    # moves on under their repairs), so the superblock can be extended
+    if all(b.base64 is not None for b in real):
+        out.base64 = _concat_rows([b.base64 for b in real], real, Sp)
+    if all(b.cont is not None for b in real):
+        out.cont = (_concat_rows([b.cont[0] for b in real], real, Sp),
+                    _concat_rows([b.cont[1] for b in real], real, Sp))
+    return out
+
+
+def _concat_rows(arrays, blocks, Sp: int) -> np.ndarray:
+    """The real rows of each block's per-series f64 array, stacked into
+    one [Sp] array."""
+    out = np.zeros(Sp, np.float64)
+    o = 0
+    for a, b in zip(arrays, blocks):
+        out[o : o + b.n_series] = np.asarray(a)[: b.n_series]
+        o += b.n_series
+    return out
+
+
+class SuperblockCache:
+    """Cache of device-resident cross-shard superblocks keyed by the
+    query's staging identity (selector filters, range, column, stage mode,
+    shard set, device). Each entry stores the vector of member shard
+    versions it was built from, so any ingest on any member shard makes it
+    stale at its next lookup. A stale entry is kept: the interval-aware
+    refresh (``peek``/``revalidate`` and the extension in
+    ``plans.FusedAggregateExec``) may prove it still valid or extend it.
+    LRU on hit, bounded by entry count and bytes; pinned keys are never
+    evicted."""
+
+    def __init__(self, max_entries: int = 8, max_bytes: int = 8 << 30):
+        self.max_entries = max_entries
+        self.max_bytes = max_bytes
+        self._d: OrderedDict = OrderedDict()  # key -> (versions, value, nbytes)
+        # per key: created time, hit count, last maintenance outcome
+        self._meta: dict = {}
+        # pinned key -> owner set: put()'s eviction skips pinned entries;
+        # a key may be pinned before its entry is built
+        self._pins: dict = {}
+        self._lock = threading.Lock()
+        self._flight = KeyedSingleFlight(max_keys=4 * max_entries, alive=lambda k: k in self._d)
+
+    def build_lock(self, key) -> threading.Lock:
+        """Per-key single flight for superblock builds: identical cold queries
+        serialize here, so only one concatenates and uploads the
+        superblock and the rest hit its entry."""
+        return self._flight.lock(key)
+
+    def get(self, key, versions: tuple):
+        """The entry's value when it was stamped with ``versions``, else
+        None (a stale entry stays for the refresh path)."""
+        with self._lock:
+            hit = self._d.get(key)
+            if hit is None or hit[0] != versions:
+                return None
+            self._d.move_to_end(key)
+            meta = self._meta.get(key)
+            if meta is not None:
+                meta["hits"] += 1
+            return hit[1]
+
+    def peek(self, key):
+        """The stored ``(versions, value, nbytes)``, stale or not (None when
+        absent)."""
+        with self._lock:
+            return self._d.get(key)
+
+    def revalidate(self, key, old_versions: tuple, new_versions: tuple) -> bool:
+        """Compare-and-set the stored version vector (the caller proved
+        every bump between the two disjoint from the entry's range). False
+        when a racer replaced or dropped the entry meanwhile."""
+        with self._lock:
+            hit = self._d.get(key)
+            if hit is None or hit[0] != old_versions:
+                return False
+            self._d[key] = (new_versions, hit[1], hit[2])
+            self._d.move_to_end(key)
+            return True
+
+    def drop(self, key) -> None:
+        """Remove an entry outright (an extension that wrote its mirrors but
+        could not commit: it must never be served or extended again)."""
+        with self._lock:
+            self._d.pop(key, None)
+            self._meta.pop(key, None)
+
+    def note(self, key, outcome: str) -> None:
+        """Record an entry's last maintenance outcome."""
+        with self._lock:
+            meta = self._meta.get(key)
+            if meta is not None:
+                meta["last_outcome"] = outcome
+
+    def pin(self, key, owner) -> None:
+        """Pin ``key`` against eviction on behalf of ``owner``."""
+        with self._lock:
+            self._pins.setdefault(key, set()).add(owner)
+
+    def unpin(self, key, owner) -> None:
+        with self._lock:
+            owners = self._pins.get(key)
+            if owners is not None:
+                owners.discard(owner)
+                if not owners:
+                    self._pins.pop(key, None)
+
+    def put(self, key, versions: tuple, value, nbytes: int) -> None:
+        """Store an entry, evicting least recently used unpinned entries
+        while the count or byte budget is exceeded; an entry larger than
+        the whole budget is not stored."""
+        if nbytes > self.max_bytes:
+            return
+        with self._lock:
+            self._d.pop(key, None)
+            used = sum(e[2] for e in self._d.values())
+            while self._d and (len(self._d) >= self.max_entries
+                               or used + nbytes > self.max_bytes):
+                ek = next((k for k in self._d if k not in self._pins), None)
+                if ek is None:
+                    break  # only pinned entries left: run over budget
+                used -= self._d.pop(ek)[2]
+                self._meta.pop(ek, None)
+            self._d[key] = (versions, value, nbytes)
+            prev = self._meta.get(key)
+            self._meta[key] = {
+                "created": time.time(),
+                "hits": prev["hits"] if prev else 0,
+                "last_outcome": prev["last_outcome"] if prev else None,
+            }
+
+    def snapshot(self) -> list[dict]:
+        """One dict per cached entry: key, bytes, age, hits, last outcome,
+        versions, pinned, and the block's series, shape, stage mode and
+        grid class."""
+        now = time.time()
+        with self._lock:
+            items = [(k, v, dict(self._meta.get(k) or {}), k in self._pins)
+                     for k, v in self._d.items()]
+        out = []
+        for key, (versions, value, nbytes), meta, pinned in items:
+            entry = {
+                "key": repr(key),
+                "bytes": int(nbytes),
+                "age_s": round(now - meta.get("created", now), 3),
+                "hits": int(meta.get("hits", 0)),
+                "last_outcome": meta.get("last_outcome"),
+                "versions": list(versions),
+                "pinned": bool(pinned),
+            }
+            block = getattr(value, "block", None)
+            if block is not None:
+                entry["series"] = int(getattr(value, "series", 0) or block.n_series)
+                entry["shape"] = list(block.vals.shape)
+                entry["stage_mode"] = getattr(value, "stage_mode", None)
+                entry["grid"] = grid_class(block)
+            out.append(entry)
+        return out
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._d)

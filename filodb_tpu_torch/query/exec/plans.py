@@ -9,6 +9,14 @@ kernel for a shared regular grid, else window stats -> finish -> segment
 aggregate; only the [G, J] group partials come back. Shapes outside it
 raise ``NotImplementedError``: the reference tree it would fall back to is
 not ported.
+
+Superblocks are cached on the memstore (``staging.SuperblockCache``) keyed
+by their member shards' version vector, and per-shard blocks flow through
+each shard's staging cache (``staged_block_for``). A warm query is served
+from the cache with no staging; ingest disjoint from the staged range
+re-stamps the entry; a uniform live-edge append extends it; anything else
+restages. Unlike the JAX package, per-shard staged blocks stay on the host:
+only the superblock occupies the card.
 """
 
 from __future__ import annotations
@@ -17,8 +25,13 @@ import time
 from dataclasses import dataclass, field
 from typing import Any
 
+import numpy as np
+
 from ...core.filters import ColumnFilter
 from ...core.schemas import ColumnType
+from ...memstore.memstore import member_locks
+from ...memstore.shard import StageEntry
+from ...metrics import record_superblock_event
 from ...ops import aggregations as AGG
 from ...ops import staging as ST
 from ...ops.kernels import RangeParams
@@ -100,14 +113,87 @@ _DROP_NAME_KEEP = {"last_over_time", "timestamp"}  # functions that keep _metric
 FUSED_AGG_OPS = frozenset({"sum", "count", "avg", "min", "max"})
 
 
+def staged_block_for(ctx: QueryContext, shard, ids, cache_key, col_name: str,
+                     start_ms: int, end_ms: int, stage_mode: str) -> ST.StagedBlock:
+    """A shard's host-staged block of a selection, through the shard's
+    staging cache: serve a clean hit, repair a dirty one by appending
+    (``staging.append_to_block``: live-edge panels pay only the tail), else
+    stage afresh and insert under the effect-log check.
+
+    The key's layout ``(filters, start_ms, end_ms, ...)`` is load-bearing:
+    the shard's ``_invalidate_stage_range`` reads k[1]/k[2] as the staged
+    range."""
+    with shard._lock:
+        hit = shard.stage_cache.get(cache_key)
+        version_at_stage = shard.version
+        claimed = False
+        if hit is not None and hit.repairing:
+            # another thread is mid-repair: its pre-repair block would miss
+            # acknowledged samples, so restage
+            hit = None
+        elif hit is not None and hit.dirty:
+            dirty_lo = hit.dirty_lo
+            hit.dirty = False
+            hit.dirty_lo = hit.dirty_hi = None  # the repair consumes the dirt
+            hit.repairing = True
+            claimed = True
+    if hit is not None and claimed:
+        repaired = None
+        try:
+            repaired = ST.append_to_block(shard, hit.block, ids, col_name, end_ms, stage_mode,
+                                          dirty_lo=dirty_lo)
+        finally:
+            with shard._lock:
+                hit.repairing = False
+                if repaired is not None:
+                    hit.block = repaired
+                    hit.nbytes = ST.staged_nbytes(repaired)
+                elif shard.stage_cache.get(cache_key) is hit:
+                    del shard.stage_cache[cache_key]  # never leave a stale entry
+        if repaired is None:
+            hit = None
+        else:
+            ctx.stats.bump(cache_extends=1)
+    if hit is not None:
+        if not claimed:
+            ctx.stats.bump(cache_hits=1)
+        return hit.block
+    block = ST.stage_from_shard(shard, ids, col_name, start_ms, end_ms, stage_mode)
+    nbytes = ST.staged_nbytes(block)
+    ctx.stats.bump(bytes_staged=nbytes, cache_misses=1)
+    block.keep_mirrors()  # the append repair writes the mirrors
+    # an ingest that landed mid-stage ran its invalidation before this entry
+    # existed: cache it only when the effect log proves every bump since
+    # version_at_stage disjoint from the staged range
+    with shard._lock:
+        drop_reason = None
+        if shard.version != version_at_stage:
+            drop_reason = shard._ingest_effects_since_locked(version_at_stage, start_ms, end_ms)
+        if drop_reason is None:
+            shard.stage_cache.pop(cache_key, None)  # a racing same-key stage
+            used = sum(e.nbytes for e in shard.stage_cache.values())
+            while shard.stage_cache and used + nbytes > shard.config.stage_cache_bytes:
+                used -= shard.stage_cache.pop(next(iter(shard.stage_cache))).nbytes
+            shard.stage_cache[cache_key] = StageEntry(block, nbytes)
+    return block
+
+
 @dataclass
 class SuperblockEntry:
-    """A superblock on the device plus what serving it needs."""
+    """A superblock on the device plus what serving it needs: the scan
+    accounting a hit repeats (``samples``, ``series``, the per-shard
+    ``max_shard_series`` the series limit checks) and what an extension
+    needs (``col_name``, ``stage_mode``)."""
 
     block: ST.StagedBlock
     labels: list
     is_counter: bool
     is_delta: bool
+    samples: int = 0
+    max_shard_series: int = 0
+    series: int = 0
+    col_name: str | None = None
+    stage_mode: str = "raw"
 
 
 class FusedAggregateExec(ExecPlan):
@@ -137,19 +223,175 @@ class FusedAggregateExec(ExecPlan):
     def num_steps(self) -> int:
         return int((self.end_ms - self.start_ms) // self.step_ms) + 1
 
-    def superblock(self, ctx: QueryContext) -> SuperblockEntry | None:
-        """Stage the selection of every shard and concatenate it into one
-        superblock on ``ctx.device`` (None for an empty selection)."""
-        return self._build_superblock(ctx, _stage_mode_for_function(self.function))
+    def _versions(self, ctx: QueryContext) -> tuple:
+        return tuple(ctx.memstore.shard(ctx.dataset, s).version for s in self.shard_nums)
 
-    def _build_superblock(self, ctx: QueryContext, stage_mode: str) -> SuperblockEntry | None:
+    def _serve_hit(self, ctx: QueryContext, hit: SuperblockEntry) -> SuperblockEntry:
+        """Limits and stats for a cached superblock: limits are per request,
+        so a hit never serves a query the build would have rejected."""
+        if hit.max_shard_series > ctx.max_series:
+            raise QueryError(
+                f"query selects {hit.max_shard_series} series > limit {ctx.max_series}")
+        ctx.stats.bump(series_scanned=hit.series or hit.block.n_series,
+                       samples_scanned=hit.samples)
+        if ctx.stats.samples_scanned > ctx.max_samples:
+            raise QueryError(
+                f"query would scan {ctx.stats.samples_scanned} samples > limit {ctx.max_samples}")
+        return hit
+
+    def superblock(self, ctx: QueryContext) -> SuperblockEntry | None:
+        """The selection of every shard as one superblock on ``ctx.device``,
+        from the superblock cache kept on the memstore, refreshed or rebuilt
+        on a miss (None for an empty selection)."""
         if self.raw_end_ms - self.raw_start_ms > ST.MAX_STAGE_SPAN_MS:
             raise NotImplementedError(
                 "selector span wider than int32 ms offsets: time slicing is not ported")
+        stage_mode = _stage_mode_for_function(self.function)
+        cache = getattr(ctx.memstore, "_superblock_cache", None)
+        if cache is None:
+            cache = ctx.memstore._superblock_cache = ST.SuperblockCache()
+        # for a gauge or delta column every function stages raw: the schema
+        # hint learned on the first build keys those under one entry
+        hints = getattr(ctx.memstore, "_fused_mode_hints", None)
+        if hints is None:
+            hints = ctx.memstore._fused_mode_hints = {}
+        hint_key = (ctx.dataset, self.filters, self.column)
+        hint = hints.get(hint_key)
+        key_mode = stage_mode
+        if hint is not None and not (hint[0] and not hint[1]):
+            key_mode = "raw"
+        sb_key = (ctx.dataset, tuple(self.shard_nums), self.filters, self.raw_start_ms,
+                  self.raw_end_ms, self.column, key_mode, str(ctx.device))
+        hit = cache.get(sb_key, self._versions(ctx))
+        if hit is not None:
+            ctx.stats.bump(cache_hits=1)
+            return self._serve_hit(ctx, hit)
+        with cache.build_lock(sb_key):
+            versions = self._versions(ctx)
+            hit = cache.get(sb_key, versions)
+            if hit is not None:
+                ctx.stats.bump(cache_hits=1)
+                return self._serve_hit(ctx, hit)
+            refreshed = self._refresh_superblock(ctx, cache, sb_key, versions)
+            if refreshed is not None:
+                return refreshed
+            return self._build_superblock(ctx, stage_mode, cache, sb_key, versions, hints,
+                                          hint_key)
+
+    def _refresh_superblock(self, ctx: QueryContext, cache, sb_key, versions: tuple):
+        """Maintenance of a version-stale cached superblock (under the key's
+        build lock), cheapest first:
+
+        - every member shard's effects since the entry was stamped were
+          disjoint from the staged range: re-stamp it and serve it as is;
+        - only overlapping interval effects (live-edge appends), with the
+          row set unchanged: extend it (``_extend_superblock``);
+        - anything else (a new series, a truncated effect log, a failed
+          precondition): None, and the caller rebuilds."""
+        stale = cache.peek(sb_key)
+        if stale is None:
+            return None
+        old_versions, entry, _ = stale
+        if len(old_versions) != len(versions):
+            return None
+        overlap = False
+        for s, ov in zip(self.shard_nums, old_versions):
+            reason = ctx.memstore.shard(ctx.dataset, s).ingest_effects_since(
+                ov, self.raw_start_ms, self.raw_end_ms)
+            if reason == "overlap":
+                overlap = True
+            elif reason is not None:
+                # full_clear / log_truncated: the entry can never be
+                # revalidated or extended; drop it now, or it holds device
+                # and mirror bytes until an eviction
+                cache.drop(sb_key)
+                record_superblock_event("restage")
+                return None
+        if not overlap:
+            if cache.revalidate(sb_key, old_versions, versions):
+                record_superblock_event("revalidate")
+                cache.note(sb_key, "revalidate")
+                ctx.stats.bump(cache_hits=1)
+                return self._serve_hit(ctx, entry)
+            return None
+        return self._extend_superblock(ctx, cache, sb_key, entry, versions)
+
+    def _extend_superblock(self, ctx: QueryContext, cache, sb_key, entry: SuperblockEntry,
+                           versions: tuple):
+        """Absorb overlapping live-edge appends into the cached superblock
+        (``staging.extend_superblock``), then commit at the versions read
+        after the extension, classifying what landed meanwhile: nothing in
+        range commits at the new vector; overlaps only commit at the
+        pre-extension vector (the extension is consistent but may miss the
+        racing samples, so the next query extends again); full effects drop
+        the entry.
+
+        The row-set proof (fresh lookups equal the entry's part refs, in
+        order) and the tail reads run holding the member shards' locks, so
+        a routed batch (``TimeSeriesMemStore.ingest_routed``) is read whole
+        or not at all."""
+        shards = [ctx.memstore.shard(ctx.dataset, s) for s in self.shard_nums]
+        t0 = time.perf_counter()
+        with member_locks(shards):
+            refs = []
+            for s, shard in zip(self.shard_nums, shards):
+                pids = shard.lookup_partitions(self.filters, self.raw_start_ms, self.raw_end_ms)
+                refs.extend((s, int(p)) for p in pids)
+            if refs != list(entry.block.part_refs):
+                record_superblock_event("restage")
+                return None
+            proof_s = time.perf_counter() - t0
+            try:
+                nb = ST.extend_superblock(ctx.memstore, ctx.dataset, entry.block,
+                                          entry.col_name, self.raw_end_ms, entry.stage_mode)
+            except Exception:
+                cache.drop(sb_key)  # mirrors possibly torn mid-write
+                record_superblock_event("extend_abort")
+                return None
+        if nb is None:
+            record_superblock_event("restage")
+            cache.note(sb_key, "restage")
+            return None
+        if nb is not entry.block:
+            ST.LAST_EXTENSION["proof_s"] = proof_s
+        versions_now = self._versions(ctx)
+        commit_versions = versions_now
+        if versions_now != versions:
+            for s, ov in zip(self.shard_nums, versions):
+                reason = ctx.memstore.shard(ctx.dataset, s).ingest_effects_since(
+                    ov, self.raw_start_ms, self.raw_end_ms)
+                if reason == "overlap":
+                    commit_versions = versions
+                elif reason is not None:
+                    cache.drop(sb_key)
+                    record_superblock_event("extend_abort")
+                    return None
+        if nb is entry.block:
+            # nothing new was readable in range: the entry is valid as is
+            stale = cache.peek(sb_key)
+            if stale is not None and stale[1] is entry:
+                cache.revalidate(sb_key, stale[0], commit_versions)
+            record_superblock_event("revalidate")
+            cache.note(sb_key, "revalidate")
+            ctx.stats.bump(cache_hits=1)
+            return self._serve_hit(ctx, entry)
+        new_entry = SuperblockEntry(
+            nb, entry.labels, entry.is_counter, entry.is_delta, int(np.asarray(nb.h_lens).sum()),
+            entry.max_shard_series, series=entry.series, col_name=entry.col_name,
+            stage_mode=entry.stage_mode,
+        )
+        cache.put(sb_key, commit_versions, new_entry, ST.staged_nbytes(nb))
+        record_superblock_event("extend")
+        cache.note(sb_key, "extend")
+        ctx.stats.bump(cache_extends=1)
+        return self._serve_hit(ctx, new_entry)
+
+    def _build_superblock(self, ctx: QueryContext, stage_mode: str, cache, sb_key, versions,
+                          hints, hint_key) -> SuperblockEntry | None:
         blocks, labels = [], []
-        schema_name = None
+        schema_name = col_name = None
         is_counter = is_delta = False
-        total = 0
+        total = max_shard_series = 0
         for s in self.shard_nums:
             ctx.check_deadline()
             shard = ctx.memstore.shard(ctx.dataset, s)
@@ -159,6 +401,7 @@ class FusedAggregateExec(ExecPlan):
             if len(pids) > ctx.max_series:
                 raise QueryError(f"query selects {len(pids)} series > limit {ctx.max_series}")
             total += len(pids)
+            max_shard_series = max(max_shard_series, len(pids))
             parts = [shard.partition(int(p)) for p in pids]
             names = {p.schema.name for p in parts}
             if len(names) > 1 or (schema_name is not None and names != {schema_name}):
@@ -175,19 +418,35 @@ class FusedAggregateExec(ExecPlan):
                 raise NotImplementedError("histogram schemas are not ported")
             is_counter, is_delta = col.is_counter, col.is_delta
             mode = stage_mode if is_counter and not is_delta else "raw"
-            blocks.append(ST.stage_from_shard(
-                shard, pids, col_name, self.raw_start_ms, self.raw_end_ms, mode))
+            cache_key = (self.filters, self.raw_start_ms, self.raw_end_ms, col_name,
+                         schema_name, mode)
+            blocks.append(staged_block_for(ctx, shard, pids, cache_key, col_name,
+                                           self.raw_start_ms, self.raw_end_ms, mode))
             labels.extend(dict(p.tags) for p in parts)
+        if schema_name is not None:
+            if len(hints) >= 1024:
+                hints.clear()  # bounded: a hint is one lookup to relearn
+            hints[hint_key] = (is_counter, is_delta)
         if not blocks:
             return None
         samples = int(sum(int(b.lens.sum()) for b in blocks))
-        ctx.stats.bump(series_scanned=total, samples_scanned=samples)
+        ctx.stats.bump(series_scanned=total, samples_scanned=samples, cache_misses=1)
         if ctx.stats.samples_scanned > ctx.max_samples:
             raise QueryError(
                 f"query would scan {ctx.stats.samples_scanned} samples > limit {ctx.max_samples}")
-        block = ST.concat_blocks(blocks).to_device(ctx.device)
-        ctx.stats.bump(bytes_staged=block.nbytes())
-        return SuperblockEntry(block, labels, is_counter, is_delta)
+        # host mirrors ride along, so live-edge ingest extends the superblock
+        # instead of paying concatenation and a full upload per append
+        block = ST.concat_blocks(blocks).to_device(ctx.device, keep_host=True)
+        value = SuperblockEntry(
+            block, labels, is_counter, is_delta, samples, max_shard_series, series=total,
+            col_name=col_name,
+            stage_mode=stage_mode if is_counter and not is_delta else "raw",
+        )
+        # cached only when no ingest landed during the build: the entry would
+        # otherwise be unservable at its next lookup
+        if self._versions(ctx) == versions:
+            cache.put(sb_key, versions, value, ST.staged_nbytes(block))
+        return value
 
     def do_execute(self, ctx: QueryContext) -> QueryResult:
         func = self.function or "last"

@@ -43,6 +43,12 @@ class QueryStats:
     series_scanned: int = 0
     samples_scanned: int = 0
     bytes_staged: int = 0
+    # staging and superblock cache events of the query's staging path: hits
+    # (served cached), misses (a full stage or build), extends (an in-place
+    # append repair or superblock extension)
+    cache_hits: int = 0
+    cache_misses: int = 0
+    cache_extends: int = 0
 
     def bump(self, **deltas: int) -> None:
         for k, v in deltas.items():

@@ -1,7 +1,8 @@
 """The window-stats kernels (nine planes, and fused with finish and the
 group aggregate) and the regular-range kernel on the card against their
 plain versions, on both group-partial variants and on rows staged in
-shared memory or read in place. These tests need an NVIDIA card and skip without one; the
+shared memory or read in place; and a cached superblock's warm hit and
+live-edge extension on the card. These tests need an NVIDIA card and skip without one; the
 file imports no JAX so that it runs on a machine with only torch:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -363,3 +364,73 @@ def test_launch_sizes_up_and_down_on_card(card):
         assert_same(got, want, 2e-4, 1e-4, f"T={b.ts.shape[1]}")
         sizes = WS.LAST_PLAN.smem_bytes
     assert sizes < GA.tile_plan(9, 8, large.ts.shape[1], 3).smem_bytes
+
+
+# ---- cached and extended superblocks on the card ----
+
+def live_store(grid: str, n_series=64, n=120, seed=0):
+    """A port memstore of counters on a 10 s grid (exact, or +-4 % jitter
+    around a 5 s phase), and a function appending one sample per series at
+    the next slot through ``ingest_routed``."""
+    from filodb_tpu_torch.core.records import RecordBatch, SeriesBatch
+    from filodb_tpu_torch.core.schemas import METRIC_TAG, PROM_COUNTER, Dataset, shard_for
+    from filodb_tpu_torch.memstore.memstore import TimeSeriesMemStore
+
+    rng = np.random.default_rng(seed)
+    ms = TimeSeriesMemStore()
+    ms.setup(Dataset("ds"), range(4))
+    tags = [{METRIC_TAG: "m", "_ws_": "demo", "_ns_": "App-2", "instance": f"h{i}",
+             "zone": f"z{i % 4}"} for i in range(n_series)]
+
+    def slot_ts(slots):
+        ts = BASE + 5_000 + np.asarray(slots, np.int64) * 10_000
+        if grid == "jitter":
+            ts = ts + np.rint(rng.uniform(-0.04, 0.04, ts.shape) * 10_000).astype(np.int64)
+        return ts
+
+    for t in tags:
+        vals = np.cumsum(rng.uniform(0, 10, n)) + 1e9
+        ms.shard("ds", shard_for(t, 1, 4)).ingest_series(
+            SeriesBatch(PROM_COUNTER, t, slot_ts(np.arange(n)), {"count": vals}))
+    head = [n]
+
+    def append():
+        ts = slot_ts(np.full(n_series, head[0]))
+        ms.ingest_routed("ds", RecordBatch(PROM_COUNTER, ts, {"count": np.full(n_series, 2e9)},
+                                           tags), spread=1)
+        head[0] += 1
+
+    return ms, append
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", ["regular", "jitter"])
+def test_warm_hit_and_extension_on_card(card, grid):
+    """A warm query is one launch from the cache; a live-edge append
+    extends the superblock on the card: its tensors equal a fresh upload of
+    its mirrors, and the old block's tensors are untouched."""
+    from filodb_tpu_torch import metrics as M
+    from filodb_tpu_torch.coordinator.planner import QueryEngine
+
+    ms, append = live_store(grid)
+    eng = QueryEngine(ms, "ds")
+    q, start, end = "sum(rate(m[5m]))", (BASE + 400_000) / 1000, (BASE + 2_000_000) / 1000
+    eng.query_range(q, start, end, 60)
+    launches = (WS.RANGE_LAUNCHES, MK.LAUNCHES)
+    res = eng.query_range(q, start, end, 60)
+    assert res.stats.cache_hits == 1 and res.stats.cache_misses == 0
+    counts = (WS.RANGE_LAUNCHES - launches[0], MK.LAUNCHES - launches[1])
+    assert counts == ((0, 1) if grid == "regular" else (1, 0))
+    old = next(iter(ms._superblock_cache._d.values()))[1].block
+    before = {k: getattr(old, k).clone() for k in ("ts", "vals", "raw", "lens")}
+    extends = M.superblock_events()["extend"]
+    append()
+    res = eng.query_range(q, start, end, 60)
+    assert res.stats.cache_extends == 1 and M.superblock_events()["extend"] == extends + 1
+    new = next(iter(ms._superblock_cache._d.values()))[1].block
+    assert new is not old and new.ts.is_cuda
+    for k, mirror in (("ts", new.h_ts), ("vals", new.h_vals), ("raw", new.h_raw),
+                      ("lens", new.h_lens)):
+        assert torch.equal(getattr(new, k), torch.from_numpy(mirror).to(card)), k
+        assert torch.equal(getattr(old, k), before[k]), k
+    assert int(new.lens[0]) == int(old.lens[0]) + 1

@@ -36,7 +36,8 @@ def port_modules() -> list[str]:
 
 def test_importing_the_port_loads_no_jax():
     mods = port_modules()
-    assert "filodb_tpu_torch.ops.window_stats" in mods
+    assert {"filodb_tpu_torch.ops.window_stats", "filodb_tpu_torch.singleflight",
+            "filodb_tpu_torch.metrics"} <= set(mods)
     script = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"

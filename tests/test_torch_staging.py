@@ -116,4 +116,4 @@ def test_to_device_keeps_values():
     block.to_device("cpu")
     for k, v in host.items():
         assert torch.equal(getattr(block, k), torch.from_numpy(v)), k
-    assert block.nbytes() == sum(v.nbytes for v in host.values())
+    assert ST.staged_nbytes(block) == sum(v.nbytes for v in host.values())
