@@ -8,10 +8,11 @@ comes out.
 
 Phases (any failure raises and exits non-zero):
 
-1. Build ``filodb_tpu_torch/csrc/window_stats.cu`` and ``regular_range.cu``
-   with nvcc (both at once) and bind their three entry points
-   (``filodb_window_stats``, ``filodb_window_range_aggregate``,
-   ``filodb_regular_range``); print their ptxas lines and the card's name
+1. Build ``filodb_tpu_torch/csrc/window_stats.cu``, ``regular_range.cu``
+   and ``hist_range.cu`` with nvcc (all at once) and bind their five entry
+   points (``filodb_window_stats``, ``filodb_window_range_aggregate``,
+   ``filodb_regular_range``, ``filodb_hist_range_aggregate``,
+   ``filodb_hist_quantile``); print their ptxas lines and the card's name
    and power limit.
 2. Window stats (the nine-plane kernel), kernel vs plain on seeded
    irregular blocks, S in {1, 65, 4096} and T in {128, 768}, gauge and
@@ -73,13 +74,14 @@ Phases (any failure raises and exits non-zero):
    upload); every other run must be a superblock-cache hit with no
    staging, one launch and the cold run's [G, J] (rtol 1e-3, NaN masks
    equal). Cold and warm end-to-end ms print side by side; the staging
-   seconds come from a cold build against a fresh cache with the shards'
-   staging caches cleared.
+   seconds come from a cold build of the first query's superblock against
+   a fresh cache with the shards' staging caches cleared (the second query
+   selects the same series and reads it from the cache).
 6. bench.py's ``ingest_impact`` on phase 5's store: ``sum(rate(...[5m]))``
    to the live edge, one cold query, 15 idle warm queries, then queries
    while a thread ingests one sample per series every 100 ms through
    ``ingest_routed`` (at most 40 batches: 720 + 40 <= 768, the padded
-   width): at least 15, and on until 6 batches have landed. Every query
+   width): at least 15, and on until 4 batches have landed. Every query
    launches ``regular_range`` once; the cached superblock must extend at
    least once and never restage or abort. After the stream one more batch
    lands; the block held from before that last extension must be
@@ -95,10 +97,46 @@ Phases (any failure raises and exits non-zero):
    query launches the fused window-stats kernel once (5 idle queries; at
    least 6 busy ones, and on until 3 batches have landed).
 
+7a. The histogram kernels of ``csrc/hist_range.cu`` vs their plain
+   versions on seeded 12-bucket blocks (300 real rows of 512, one row per
+   block, and 3000 of 4096, several): the range kernel for every function
+   of ``FUSED_HIST_FUNCS`` x is_delta, shared and per-series bounds, G in
+   {1, 8} (shared-memory partials) and the real rows (global atomics;
+   each row its own group, rtol 2e-4 / atol 1e-4; elsewhere rtol 1e-3);
+   the quantile kernel at q in {-0.1, 0, 0.5, 0.99,
+   1, 1.1} on partials with a zero total, an empty group and a bucket
+   without a member, first bounds 0.005, 0 and -1. NaN masks equal.
+7b. bench.py's ``hist_quantile`` workload: its ``build_memstore_hist``
+   (100k native histograms, PROM_DEFAULT, 720 samples at 10 s, seed 42)
+   rebuilt through the port, and
+   ``histogram_quantile(0.99, sum by (le) (rate(http_request_latency_bucket[5m])))``
+   over bench.py's range, cold then warm: grid ``regular``, variant
+   ``hist_shared``, one launch of each histogram kernel per query and no
+   other kernel, the warm query a cache hit with no staging; [G, J]
+   equals the plain path on the card (rtol 1e-3) and bench.py's f64
+   oracle (``cpu_baseline_hist``, rtol 5e-3). On that superblock, at the
+   main path's shape and layout, the range kernel's [G, J, B] partials
+   equal their plain version's (rtol 1e-3, member counts exact) and the
+   quantile kernel on them its plain version at q in {0.25, 0.5, 0.9,
+   0.99} (the panel's q = 0.99 lands in the top bucket on bench.py's data
+   whatever the sums, so it alone cannot catch a wrong sum). Prints cold, warm and
+   device-path ms, the superblock's bytes, each kernel's ms (median of
+   20, and back to back) beside its bound and its plain version's ms.
+   Then the live edge: the query to past the newest sample, one batch of
+   one sample per series, the query again must extend (not restage) the
+   cached superblock; the held block stays unchanged, and a fresh build's
+   ts, lens and vals equal the extended block's bit for bit.
+7c. The per-series bounds at scale: bench.py's histograms, cut to 50k
+   series (``HIST_IRREGULAR_SERIES``), on irregular 5-15 s scrapes, the canonical query cold then warm on
+   ``hist_general``, against the plain path and with 7b's partials check,
+   with both kernels' times and bounds. (Its superblock is not extended: an irregular histogram
+   superblock restages on a live-edge append, as in the JAX package.)
+
 Around every timed phase it prints the card's SM and memory clocks,
 temperature and power draw (nvidia-smi), before and after. Prints, in
 order at the end: one JSON object with phases 6 and 6b's numbers
-(``{"cache": ...}``), one with the kernels' numbers, the card's
+(``{"cache": ...}``), one with phases 7b and 7c's (``{"hist": ...}``), one
+with the kernels' numbers, the card's
 name and power limit as nvidia-smi gives them, and the result line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 where no CUDA device is available.
@@ -128,7 +166,7 @@ QUERIES = (
     "sum(rate(http_requests_total[5m]))",
     "sum by (zone) (rate(http_requests_total[5m]))",
 )
-SOURCES = ("window_stats", "regular_range")  # csrc/<name>.cu
+SOURCES = ("window_stats", "regular_range", "hist_range")  # csrc/<name>.cu
 START_S = (BASE + 400_000) / 1000  # bench.py's range
 END_S = (BASE + N_SAMPLES * 10_000 - 200_000) / 1000
 # bench.py's ingest_impact: the range reaches past the newest sample (the
@@ -218,18 +256,20 @@ def compare_stats(got: dict, want: dict, rtol: float = 2e-4, atol: float = 1e-4)
 
 
 def build_kernels() -> None:
-    """Build both sources at once (one nvcc each), bind the three entry
+    """Build every source at once (one nvcc each), bind the five entry
     points and print ptxas's lines."""
     from filodb_tpu_torch.ops import cuda_build
+    from filodb_tpu_torch.ops import hist_kernels as HK
     from filodb_tpu_torch.ops import mxu_kernels as MK
     from filodb_tpu_torch.ops import window_stats as WS
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         libs = list(pool.map(cuda_build.build, SOURCES))
-    ws_lib, mk_lib = WS._load(), MK._load()
+    ws_lib, mk_lib, hk_lib = WS._load(), MK._load(), HK._load()
     entries = [ws_lib.filodb_window_stats, ws_lib.filodb_window_range_aggregate,
-               mk_lib.filodb_regular_range]
+               mk_lib.filodb_regular_range, hk_lib.filodb_hist_range_aggregate,
+               hk_lib.filodb_hist_quantile]
     print(f"phase1 built {', '.join(l.name for l in libs)} in {time.perf_counter() - t0:.1f} s; "
           f"entry points {', '.join(e.__name__ for e in entries)}")
     for name in SOURCES:
@@ -546,7 +586,9 @@ def window_range_path(entry, ex, plain: bool):
 
 KERNEL_COUNTERS = {"window_stats": ("window_stats", "LAUNCHES"),
                    "window_range": ("window_stats", "RANGE_LAUNCHES"),
-                   "regular_range": ("mxu_kernels", "LAUNCHES")}
+                   "regular_range": ("mxu_kernels", "LAUNCHES"),
+                   "hist_range": ("hist_kernels", "RANGE_LAUNCHES"),
+                   "hist_quantile": ("hist_kernels", "QUANTILE_LAUNCHES")}
 RUNGS = {"mxu": "regular_range", "window_stats": "window_range"}
 
 
@@ -668,6 +710,20 @@ def stage_again(engine, q: str, end_s: float = END_S):
     return ex, entry, time.perf_counter() - t0
 
 
+def superblock_of(engine, q: str, cold: bool):
+    """The query's exec node and superblock: built cold again (timed) for
+    the phase's first query; the same cached superblock (a hit, None
+    seconds) for its second, which selects the same series."""
+    if cold:
+        return stage_again(engine, q)
+    ex = exec_node(engine, q)
+    return ex, ex.superblock(engine.context()), None
+
+
+def staged_note(stage_s) -> str:
+    return "cached" if stage_s is None else f"staged in {stage_s:.2f} s (host gather, stage, copy)"
+
+
 def phase_irregular_path(seed: int, device) -> tuple[dict, dict]:
     import torch
 
@@ -686,7 +742,7 @@ def phase_irregular_path(seed: int, device) -> tuple[dict, dict]:
 
     per_query, err, row, ws_row = {}, 0.0, None, None
     for q in QUERIES:
-        ex, entry, stage_s = stage_again(engine, q)
+        ex, entry, stage_s = superblock_of(engine, q, cold=q == QUERIES[0])
         block = entry.block
         gids, G, params = path_args(entry, ex)
         acc, cnt = GA.accumulators(ex.op, G, pad_steps(params.num_steps), device)
@@ -708,8 +764,8 @@ def phase_irregular_path(seed: int, device) -> tuple[dict, dict]:
         # ts + vals + raw per real sample, lens + gids per series, [G, J] out
         need = real * 12 + n * 12 + G * J * 4
         bound_ms = need / HBM_BYTES_PER_S * 1e3
-        print(f"phase4 {q!r}: superblock {list(block.shape)} staged in {stage_s:.2f} s (host "
-              f"gather, stage, copy); [G, J] matches the plain path (rtol 1e-3); "
+        print(f"phase4 {q!r}: superblock {list(block.shape)} {staged_note(stage_s)}; "
+              f"[G, J] matches the plain path (rtol 1e-3); "
               f"window_range kernel {k_ms:.4f} ms (median of 20; {k_b2b:.4f} ms back to back; "
               f"{plan.partials} partials, {plan.rows} rows per tile), device path (kernel + "
               f"[G, J] finish) {dev_ms:.4f} ms ({dev_b2b:.4f} ms back to back), "
@@ -822,7 +878,7 @@ def phase_regular_path(seed: int, device):
 
     row, per_query = None, {}
     for q in QUERIES:
-        ex, entry, stage_s = stage_again(engine, q)
+        ex, entry, stage_s = superblock_of(engine, q, cold=q == QUERIES[0])
         block = entry.block
         gids, G, params = path_args(entry, ex)
         J = ex.num_steps()
@@ -850,8 +906,8 @@ def phase_regular_path(seed: int, device):
         n = len(entry.labels)
         rate_bytes = regular_bound_bytes(wm, n, J, G, "rate")
         bound_ms = rate_bytes / HBM_BYTES_PER_S * 1e3
-        print(f"phase5 {q!r}: superblock {list(block.shape)} staged in {stage_s:.2f} s (host "
-              f"gather, stage, copy); [G, J] matches the plain path (max_abs_err {err:.3g}) "
+        print(f"phase5 {q!r}: superblock {list(block.shape)} {staged_note(stage_s)}; "
+              f"[G, J] matches the plain path (max_abs_err {err:.3g}) "
               f"and the window-stats rung on the same superblock (rtol 1e-3); regular_range "
               f"kernel {k_ms:.4f} ms (median of 20; {k_b2b:.4f} ms back to back; "
               f"{plan.partials} partials, {plan.rows} rows per tile), device path (kernel + "
@@ -1083,6 +1139,579 @@ def phase_live_edge(engine, device, phase: str, grid: str, n_idle: int, n_busy: 
     }
 
 
+HIST_QUERY = "histogram_quantile(0.99, sum by (le) (rate(http_request_latency_bucket[5m])))"
+N_BUCKETS = 12  # bench.py's PROM_DEFAULT scheme (11 finite bounds + Inf)
+HIST_LES = np.array([0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, np.inf])
+HIST_SEED = 42  # bench.py's build_memstore_hist
+# 7c's store: bench.py's histograms on irregular scrapes, cut to half the
+# series so that the whole run stays within half its time limit (building a
+# 100k-series histogram store takes the host about 100 s)
+HIST_IRREGULAR_SERIES = 50_000
+
+
+def hist_tags(i: int) -> dict:
+    """bench.py's tags of histogram series ``i`` (its ``build_memstore_hist``)."""
+    from filodb_tpu_torch.core.schemas import METRIC_TAG
+
+    return {METRIC_TAG: "http_request_latency", "_ws_": "demo", "_ns_": "App-2",
+            "instance": f"host-{i}"}
+
+
+def build_memstore_hist(n_series: int, grid: str):
+    """bench.py's ``build_memstore_hist`` through the port's shard API:
+    ``n_series`` native histograms (PROM_DEFAULT, 12 buckets) on 8 shards,
+    720 samples each, drawn per block of 2000 series from seed 42 as
+    bench.py draws them; ``regular`` is bench.py's store (every 10 s from
+    BASE), ``irregular`` moves every series onto its own 5-15 s intervals
+    (drawn from a second stream, so the bucket counts stay bench.py's)."""
+    from filodb_tpu_torch.core.records import SeriesBatch
+    from filodb_tpu_torch.core.schemas import PROM_HISTOGRAM, Dataset, shard_for
+    from filodb_tpu_torch.memstore.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.memstore.shard import StoreConfig
+
+    rng = np.random.default_rng(HIST_SEED)
+    gaps = np.random.default_rng(HIST_SEED + 1)
+    ts = BASE + np.arange(N_SAMPLES, dtype=np.int64) * 10_000
+    ms = TimeSeriesMemStore(StoreConfig(max_chunk_size=N_SAMPLES))
+    ms.setup(Dataset("prometheus"), range(N_SHARDS))
+    blk = 2_000
+    for b0 in range(0, n_series, blk):
+        n = min(blk, n_series - b0)
+        incr = rng.poisson(2.0, size=(n, N_SAMPLES, N_BUCKETS)).astype(np.float64)
+        incr[..., -1] = incr.sum(-1)  # +Inf bucket grows with everything
+        hist = np.cumsum(np.cumsum(incr, axis=2), axis=1)
+        count = hist[..., -1]
+        total = np.cumsum(rng.uniform(0, 5, size=(n, N_SAMPLES)), axis=1)
+        if grid == "irregular":
+            row_ts = BASE + np.cumsum(gaps.integers(5_000, 15_001, (n, N_SAMPLES)), axis=1)
+        for i in range(n):
+            tags = hist_tags(b0 + i)
+            shard = ms.shard("prometheus", shard_for(tags, spread=SPREAD, num_shards=N_SHARDS))
+            shard.ingest_series(SeriesBatch(
+                PROM_HISTOGRAM, tags, row_ts[i] if grid == "irregular" else ts,
+                {"sum": total[i], "count": count[i], "h": hist[i]}, bucket_les=HIST_LES))
+    return ms
+
+
+def cpu_baseline_hist(ms) -> np.ndarray:
+    """bench.py's ``cpu_baseline_hist`` oracle (f64 numpy: per-bucket
+    extrapolated rate over the shared grid -> bucket-wise sum across series
+    -> histogram_quantile(0.99) with the +Inf top-bucket rule) on the port's
+    store: [J]."""
+    Q = 0.99
+    les = HIST_LES
+    num_steps = int((END_S - START_S) // STEP_S) + 1
+    out_t = np.int64(START_S * 1000) + np.arange(num_steps, dtype=np.int64) * int(STEP_S * 1000)
+    t0g = BASE + np.arange(N_SAMPLES, dtype=np.int64) * 10_000
+    hi1 = np.searchsorted(t0g, out_t, side="right")
+    lo1 = np.searchsorted(t0g, out_t - WINDOW_MS, side="right")
+    cnt = hi1 - lo1
+    T = len(t0g)
+    lo_c = np.minimum(lo1, T - 1)
+    hi_c = np.minimum(hi1 - 1, T - 1)
+    tf = t0g[lo_c].astype(np.float64) / 1e3
+    tl = t0g[hi_c].astype(np.float64) / 1e3
+    sampled = tl - tf
+    dur_start = tf - (out_t / 1e3 - WINDOW_MS / 1e3)
+    dur_end = out_t / 1e3 - tl
+    avg_dur = sampled / np.maximum(cnt - 1, 1)
+    thresh = avg_dur * 1.1
+    ds = np.where(dur_start >= thresh, avg_dur / 2, dur_start)
+    de = np.where(dur_end >= thresh, avg_dur / 2, dur_end)
+    factor = np.where(cnt >= 2, (sampled + ds + de) / np.maximum(sampled, 1e-30), np.nan)
+    parts = [p for s in ms.shard_nums("prometheus")
+             for p in ms.shard("prometheus", s).partitions.values()]
+    bucket_sum = np.zeros((num_steps, len(les)), dtype=np.float64)
+    blk = 4_000
+    for b0 in range(0, len(parts), blk):
+        H = np.stack([parts[i].samples_in_range(int(t0g[0]), int(t0g[-1]), "h")[1]
+                      for i in range(b0, min(b0 + blk, len(parts)))])
+        dlt = H[:, hi_c] - H[:, lo_c]
+        bucket_sum += np.nansum(dlt * factor[None, :, None] / (WINDOW_MS / 1e3), axis=0)
+    total = bucket_sum[:, -1]
+    rank = Q * total
+    meets = bucket_sum >= rank[:, None]
+    idx = np.argmax(meets, axis=1)
+    idx = np.where(meets.any(1), idx, len(les) - 1)
+    c_hi = np.take_along_axis(bucket_sum, idx[:, None], axis=1)[:, 0]
+    c_lo = np.where(idx > 0, np.take_along_axis(bucket_sum, np.maximum(idx - 1, 0)[:, None],
+                                                axis=1)[:, 0], 0.0)
+    le_hi = les[idx]
+    le_lo = np.where(idx > 0, les[np.maximum(idx - 1, 0)], 0.0 if les[0] > 0 else -np.inf)
+    frac = (rank - c_lo) / np.maximum(c_hi - c_lo, 1e-30)
+    val = le_lo + (le_hi - le_lo) * frac
+    val = np.where(idx == len(les) - 1, les[-2], val)
+    return np.where((total > 0) & np.isfinite(total), val, np.nan)
+
+
+def hist_block_on_card(grid: str, n_real: int, m: int, rng, device):
+    """Seeded cumulative histograms (12 buckets) staged by the port, on the
+    card, for the kernels-vs-plain phase: ``regular`` or ``irregular``
+    (5-15 s, ragged, one empty series); NaN bucket counts in series 3."""
+    from filodb_tpu_torch.ops.staging import stage_histogram_series
+
+    series = []
+    for i in range(n_real):
+        k = m if grid == "regular" else int(rng.integers(m // 2, m + 1)) * (i != n_real // 2)
+        ts = (BASE + 3_000 + np.arange(k, dtype=np.int64) * 10_000 if grid == "regular"
+              else BASE + np.cumsum(rng.integers(5_000, 15_001, k)).astype(np.int64))
+        incr = rng.poisson(2.0, size=(k, N_BUCKETS)).astype(np.float64)
+        incr[:, -1] = incr.sum(1)
+        h = np.cumsum(np.cumsum(incr, axis=1), axis=0)
+        if i == 3 and k > 40:
+            h[20:24, 2] = np.nan
+        series.append((ts, h))
+    block = stage_histogram_series(series, BASE, N_BUCKETS, [(0, i) for i in range(n_real)])
+    require(block.vals.shape[0] > n_real, "padded rows expected")
+    return block.to_device(device)
+
+
+def phase_hist_vs_plain(seed: int, device) -> tuple[float, float]:
+    """7a: both histogram kernels against their plain versions on seeded
+    blocks. Range kernel: every function of FUSED_HIST_FUNCS, is_delta
+    both ways, shared and per-series bounds, G = 1 and 8 (shared-memory
+    partials) and G = the real rows (global atomics, each row its own group:
+    rtol 2e-4 / atol 1e-4), padded rows, one row per block (300 rows) and
+    several (3000 rows: run sums over a block's rows); elsewhere rtol 1e-3
+    (atomics reorder a group's f32 sums). Quantile kernel: q in {-0.1, 0, 0.5, 0.99,
+    1, 1.1} on partials with a zero total, a group with no member, a bucket
+    without a member, and first bounds 0.005, 0 and -1. NaN masks equal.
+    Returns the largest absolute differences (range, quantile)."""
+    import torch
+
+    from filodb_tpu_torch.ops import aggregations as AGG
+    from filodb_tpu_torch.ops import group_acc as GA
+    from filodb_tpu_torch.ops import hist_kernels as HK
+    from filodb_tpu_torch.ops.kernels import RangeParams, pad_steps
+
+    rng = np.random.default_rng(seed + 5)
+    params = RangeParams(BASE - 120_000, 60_000, 80, WINDOW_MS)
+    j_pad = pad_steps(params.num_steps)
+    worst_range = 0.0
+    for grid, n_real in (("regular", 300), ("irregular", 300), ("regular", 3000),
+                         ("irregular", 3000)):
+        block = hist_block_on_card(grid, n_real, 400, rng, device)
+        n, S = block.n_series, block.vals.shape[0]
+        windows = (AGG._hist_shared_windows(block, params, j_pad) if grid == "regular"
+                   else None)
+        rows = HK.hist_plan(S, params.num_steps, N_BUCKETS, 1).rows
+        require((rows > 1) == (n_real > 300), f"7a {grid} {n_real} rows: {rows} rows per block")
+        for G in (1, 8, n):
+            gids = torch.full((S,), G, dtype=torch.int64, device=device)
+            gids[:n] = torch.arange(n, device=device) % G
+            partials = set()
+            for func in sorted(HK.FUSED_HIST_FUNCS):
+                for is_delta in (False, True):
+                    acc, cnt = HK.hist_range_partials(func, block, gids, G, params, windows,
+                                                      is_delta)
+                    partials.add(HK.LAST_PLAN.partials)
+                    pa, pc = HK.hist_partials_plain(func, block, gids, G, params, windows,
+                                                    is_delta)
+                    # the trash group's row is dropped (the plain version's
+                    # index_add reaches it with padded rows, the kernel never)
+                    require(torch.equal(cnt[:G], pc[:G]),
+                            f"7a {grid} {func} G={G}: member counts differ")
+                    got = GA.finish_groups("sum", acc, cnt, G)
+                    want = GA.finish_groups("sum", pa, pc, G)
+                    what = f"7a {grid} sum({func}) delta={is_delta} G={G}"
+                    tol = {"rtol": 2e-4, "atol": 1e-4} if G == n else {"rtol": 1e-3}
+                    worst_range = max(worst_range, compare(got, want, what, **tol))
+            want_partials = "shared" if G <= 8 else "global"
+            require(partials == {want_partials}, f"7a G={G}: partials {partials}")
+            print(f"phase7a {grid} block {list(block.vals.shape)} ({n} real rows) G={G}: "
+                  f"hist_range matches plain for {len(HK.FUSED_HIST_FUNCS)} functions x "
+                  f"is_delta ({want_partials} partials, {HK.LAST_PLAN.rows} rows per block)")
+    worst_q = 0.0
+    G, J = 5, 50
+    for first_le in (0.005, 0.0, -1.0):
+        les = HIST_LES.copy()
+        les[0] = first_le
+        vals = np.cumsum(rng.uniform(0, 4, (G + 1, j_pad, N_BUCKETS)), axis=-1).astype(np.float32)
+        cnts = np.ones((G + 1, j_pad, N_BUCKETS), np.float32)
+        vals[1] = 0.0  # zero total
+        cnts[2] = 0.0  # no member
+        cnts[3, 7, 4] = 0.0  # a bucket without a member
+        acc = torch.from_numpy(vals.reshape(G + 1, -1)).to(device)
+        cnt = torch.from_numpy(cnts.reshape(G + 1, -1)).to(device)
+        les_t = torch.tensor(les, dtype=torch.float32, device=device)
+        for q in (-0.1, 0.0, 0.5, 0.99, 1.0, 1.1):
+            got = HK.hist_quantile(q, acc, cnt, G, les_t, J)
+            want = HK.hist_quantile_plain(q, acc, cnt, G, les_t, J)
+            require(torch.equal(torch.isinf(got), torch.isinf(want)),
+                    f"7a quantile q={q}: infinities differ")
+            fin = torch.isfinite(want)
+            worst_q = max(worst_q, compare(got[fin], want[fin], f"7a quantile q={q}",
+                                           rtol=1e-3))
+            require(torch.equal(torch.isnan(got), torch.isnan(want)),
+                    f"7a quantile q={q}: NaN masks differ")
+    print(f"phase7a hist_range matches plain (max_abs_err {worst_range:.3g}); hist_quantile "
+          f"matches plain at q in -0.1, 0, 0.5, 0.99, 1, 1.1, les[0] in 0.005, 0, -1 "
+          f"(max_abs_err {worst_q:.3g})")
+    return worst_range, worst_q
+
+
+def run_hist(engine, q: str, want_class: str, want_variant: str, end_s: float = END_S):
+    """One histogram query through the user's entry point, every launch
+    count set to 0 just before and read just after: it must take
+    ``want_variant`` on a ``want_class`` grid and launch each histogram
+    kernel once and no other kernel. Returns the result, its [G, J] on the
+    host, the end-to-end seconds and the launch counts read after it."""
+    import importlib
+
+    from filodb_tpu_torch.ops import aggregations as AGG
+    from filodb_tpu_torch.ops.staging import grid_class
+
+    mods = {name: importlib.import_module(f"filodb_tpu_torch.ops.{mod}")
+            for name, (mod, _) in KERNEL_COUNTERS.items()}
+    seen = []
+    ladder = AGG.hist_variant
+
+    def watched(block):
+        variant = ladder(block)
+        seen.append((grid_class(block), variant))
+        return variant
+
+    AGG.hist_variant = watched
+    try:
+        for name, (_, attr) in KERNEL_COUNTERS.items():
+            setattr(mods[name], attr, 0)
+        t0 = time.perf_counter()
+        res = engine.query_range(q, START_S, end_s, STEP_S)
+        vals = res.grids[0].values_np()
+        wall = time.perf_counter() - t0
+        counts = {name: getattr(mods[name], attr) for name, (_, attr) in KERNEL_COUNTERS.items()}
+    finally:
+        AGG.hist_variant = ladder
+    require(seen == [(want_class, want_variant)],
+            f"{q}: grid class and variant {seen}, expected {[(want_class, want_variant)]}")
+    want = {k: int(k in HIST_KERNELS) for k in KERNEL_COUNTERS}
+    require(counts == want, f"{q}: launches {counts}, expected {want}")
+    return res, vals, wall, counts
+
+
+HIST_KERNELS = ("hist_range", "hist_quantile")
+
+
+def add_launches(total: dict, counts: dict) -> dict:
+    """``total`` with each histogram kernel's count in ``counts`` added."""
+    return {k: total.get(k, 0) + counts[k] for k in HIST_KERNELS}
+
+
+def hist_plain(entry, ex, q: float):
+    """The canonical query's plain path on a superblock: the range kernel's
+    and the quantile kernel's plain versions, [G, J]."""
+    from filodb_tpu_torch.ops import aggregations as AGG
+    from filodb_tpu_torch.ops import hist_kernels as HK
+    from filodb_tpu_torch.ops.kernels import pad_steps
+
+    gids, G, params = path_args(entry, ex)
+    windows = (AGG._hist_shared_windows(entry.block, params, pad_steps(params.num_steps))
+               if entry.block.regular_ts is not None else None)
+    acc, cnt = HK.hist_partials_plain(ex.function, entry.block, gids, G, params, windows)
+    return HK.hist_quantile_plain(q, acc, cnt, G, entry.les_dev, params.num_steps)[:, : ex.num_steps()]
+
+
+def check_hist_partials(entry, ex, phase: str) -> tuple[float, float]:
+    """Both histogram kernels against their plain versions on the query's
+    superblock, at the main path's shape and layout. The range kernel's
+    ``(acc, cnt)``: member counts equal, the finished [G, J, B] group sums
+    within rtol 1e-3 (atomics reorder the f32 sums) with equal NaN masks.
+    The quantile kernel on those partials at q in {0.25, 0.5, 0.9, 0.99}
+    (rtol 1e-3): bench.py's +Inf bucket is twice bucket 10, so q = 0.99
+    always lands in the top bucket and returns its lower bound; a lower q
+    interpolates inside the buckets. Returns the largest absolute
+    differences (range, quantile)."""
+    import torch
+
+    from filodb_tpu_torch.ops import aggregations as AGG
+    from filodb_tpu_torch.ops import group_acc as GA
+    from filodb_tpu_torch.ops import hist_kernels as HK
+    from filodb_tpu_torch.ops.kernels import pad_steps
+
+    block = entry.block
+    gids, G, params = path_args(entry, ex)
+    J, B = ex.num_steps(), block.vals.shape[2]
+    windows = (AGG._hist_shared_windows(block, params, pad_steps(J))
+               if block.regular_ts is not None else None)
+    acc, cnt = HK.hist_range_partials(ex.function, block, gids, G, params, windows)
+    plan = HK.LAST_PLAN
+    pa, pc = HK.hist_partials_plain(ex.function, block, gids, G, params, windows)
+    require(torch.equal(cnt[:G], pc[:G]), f"{phase}: hist_range member counts differ from plain")
+    got = GA.finish_groups("sum", acc, cnt, G).reshape(G, -1, B)[:, :J]
+    want = GA.finish_groups("sum", pa, pc, G).reshape(G, -1, B)[:, :J]
+    range_err = compare(got, want, f"{phase}: hist_range [G, J, B] vs plain", rtol=1e-3)
+    del pa, pc, got, want
+    q_err = 0.0
+    for q in (0.25, 0.5, 0.9, 0.99):
+        got = HK.hist_quantile(q, acc, cnt, G, entry.les_dev, J)
+        want = HK.hist_quantile_plain(q, acc, cnt, G, entry.les_dev, J)
+        q_err = max(q_err, compare(got[:, :J], want[:, :J], f"{phase}: hist_quantile q={q}",
+                                   rtol=1e-3))
+    print(f"{phase}: at the main path's shape ({list(block.vals.shape)}, {plan.partials} "
+          f"partials, {plan.rows} rows per block) hist_range's [G, J, B] matches plain "
+          f"(max_abs_err {range_err:.3g}; member counts equal) and hist_quantile on its partials "
+          f"matches plain at q in 0.25, 0.5, 0.9, 0.99 (max_abs_err {q_err:.3g})")
+    return range_err, q_err
+
+
+def hist_bound_bytes(entry, ex, G: int, windows):
+    """Bytes the range kernel's function must move over the real rows and
+    steps: each real row's buckets at the distinct first and last samples
+    of its windows with two samples or more (``sample_bytes``), plus, on
+    per-series bounds, each real row's timestamps (the window search); each
+    row's gid (and length), the [J] bounds, and acc/cnt written once.
+    Returns (bound bytes, sample bytes)."""
+    import torch
+
+    block = entry.block
+    n, J = block.n_series, ex.num_steps()
+    B = block.vals.shape[2]
+    if windows is not None:
+        lo, hi = windows[0][:J].long(), windows[1][:J].long()
+        ok = hi - lo >= 2
+        distinct = len(torch.unique(torch.cat([lo[ok], hi[ok] - 1])))
+        sample_bytes = n * distinct * B * 4
+        return sample_bytes + n * 8 + 4 * J * 4 + 2 * G * J * B * 4, sample_bytes
+    start_off = ex.start_ms - block.base_ms
+    out_t = (start_off + torch.arange(J, device=block.ts.device) * ex.step_ms).to(torch.int32)
+    sample_bytes = ts_bytes = 0
+    for r0 in range(0, n, 8192):
+        r1 = min(n, r0 + 8192)
+        ts = block.ts[r0:r1]
+        q_hi = out_t[None, :].expand(r1 - r0, J).contiguous()
+        hi = torch.searchsorted(ts, q_hi, right=True)
+        lo = torch.searchsorted(ts, (q_hi - ex.window_ms).to(torch.int32), right=True)
+        ok = hi - lo >= 2
+        pos = torch.cat([torch.where(ok, lo, -1), torch.where(ok, hi - 1, -1)], dim=1)
+        pos = torch.sort(pos, dim=1).values
+        new = (pos[:, 1:] != pos[:, :-1]) & (pos[:, 1:] >= 0)
+        distinct = int(new.sum()) + int((pos[:, 0] >= 0).sum())
+        sample_bytes += distinct * B * 4
+        ts_bytes += int(block.lens[r0:r1].sum()) * 4
+    return sample_bytes + ts_bytes + n * 12 + 2 * G * J * B * 4, sample_bytes
+
+
+def time_hist_kernels(entry, ex, device, phase: str) -> dict:
+    """Both histogram kernels on the query's superblock: per call (median
+    of 20 between CUDA events) and back to back (50), the device path, the
+    plain versions, and the bounds."""
+    import torch
+
+    from filodb_tpu_torch.ops import aggregations as AGG
+    from filodb_tpu_torch.ops import group_acc as GA
+    from filodb_tpu_torch.ops import hist_kernels as HK
+    from filodb_tpu_torch.ops.kernels import pad_steps
+
+    block = entry.block
+    gids, G, params = path_args(entry, ex)
+    J, j_pad, B = ex.num_steps(), pad_steps(ex.num_steps()), block.vals.shape[2]
+    windows = (AGG._hist_shared_windows(block, params, j_pad)
+               if block.regular_ts is not None else None)
+    q = float(ex.hist_quantile)
+    acc, cnt = GA.accumulators("sum", G, j_pad * B, device)
+    qacc, qcnt = HK.hist_range_partials(ex.function, block, gids, G, params, windows)
+    out = torch.full((G, j_pad), float("nan"), device=device)
+
+    def range_kernel():
+        HK._launch_range(ex.function, block, gids, G, params, windows, False, acc, cnt)
+
+    def quantile_kernel():
+        HK._launch_quantile(q, qacc, qcnt, G, entry.les_dev, J, out)
+
+    def device_path():
+        AGG.fused_hist_range_aggregate(ex.function, block, gids, G, params, entry.les_dev, q=q)
+
+    gpu_sample(f"{phase} before")
+    r_ms, r_b2b = cuda_ms(range_kernel, reps=20), back_to_back_ms(range_kernel)
+    q_ms, q_b2b = cuda_ms(quantile_kernel, reps=20), back_to_back_ms(quantile_kernel)
+    d_ms, d_b2b = cuda_ms(device_path, reps=20), back_to_back_ms(device_path)
+    gpu_sample(f"{phase} after")
+    rp_ms = cuda_ms(lambda: HK.hist_partials_plain(ex.function, block, gids, G, params, windows),
+                    reps=3, warmup=1)
+    qp_ms = cuda_ms(lambda: HK.hist_quantile_plain(q, qacc, qcnt, G, entry.les_dev, J),
+                    reps=3, warmup=1)
+    bound, sample_bytes = hist_bound_bytes(entry, ex, G, windows)
+    q_bytes = 2 * G * J * B * 4 + B * 4 + G * J * 4
+    plan = HK.LAST_PLAN
+    print(f"{phase}: hist_range kernel {r_ms:.4f} ms (median of 20; {r_b2b:.4f} ms back to back; "
+          f"{plan.partials} partials, {plan.rows} rows per block), bound "
+          f"{bound / HBM_BYTES_PER_S * 1e3:.4f} ms ({bound} bytes at 3.35 TB/s, of which "
+          f"{sample_bytes} bucket bytes at the windows' first and last samples), plain "
+          f"{rp_ms:.2f} ms; hist_quantile kernel {q_ms:.4f} ms ({q_b2b:.4f} ms back to back), "
+          f"bound {q_bytes / HBM_BYTES_PER_S * 1e3:.6f} ms ({q_bytes} bytes), plain "
+          f"{qp_ms:.3f} ms; device path (both launches, accumulators, output) {d_ms:.4f} ms "
+          f"({d_b2b:.4f} ms back to back)")
+    return {"range_ms": r_ms, "range_ms_back_to_back": r_b2b, "range_plain_ms": rp_ms,
+            "range_bound_ms": bound / HBM_BYTES_PER_S * 1e3, "range_bound_bytes": bound,
+            "range_sample_bytes": sample_bytes, "partials": plan.partials, "rows": plan.rows,
+            "quantile_ms": q_ms, "quantile_ms_back_to_back": q_b2b, "quantile_plain_ms": qp_ms,
+            "quantile_bound_ms": q_bytes / HBM_BYTES_PER_S * 1e3, "device_path_ms": d_ms,
+            "device_path_ms_back_to_back": d_b2b}
+
+
+def hist_cold_warm(engine, phase: str, want_class: str, want_variant: str) -> dict:
+    """The canonical query cold (a superblock build), then warm (a cache hit
+    with no staging); one launch of each histogram kernel each time; the
+    warm [G, J] equals the cold one (rtol 1e-3)."""
+    import torch
+
+    res, cold, cold_s, counts = run_hist(engine, HIST_QUERY, want_class, want_variant)
+    launches = add_launches({}, counts)
+    require(res.stats.cache_misses >= 1 and res.stats.cache_hits == 0,
+            f"{phase}: the first query must build the superblock, stats {res.stats}")
+    res, warm, warm_s, counts = run_hist(engine, HIST_QUERY, want_class, want_variant)
+    launches = add_launches(launches, counts)
+    st = res.stats
+    require(st.cache_hits == 1 and st.cache_misses == 0 and st.bytes_staged == 0,
+            f"{phase}: the warm query must be a cache hit with no staging, stats {st}")
+    compare(torch.from_numpy(warm), torch.from_numpy(cold), f"{phase}: warm vs cold", rtol=1e-3)
+    require(warm.shape == (1, res.grids[0].num_steps), f"{phase}: [G, J] shape {warm.shape}")
+    require(np.isfinite(warm[0, 5:]).all(), f"{phase}: non-finite quantiles")
+    print(f"{phase} {HIST_QUERY!r}: grid {want_class}, variant {want_variant}, "
+          f"{st.series_scanned} series, {st.samples_scanned} samples; cold {cold_s * 1e3:.1f} ms "
+          f"(cache miss), warm {warm_s * 1e3:.1f} ms (hit, no staging); one hist_range and one "
+          f"hist_quantile launch each, no other kernel; warm [G, J] equals cold (rtol 1e-3)")
+    return {"res": res, "vals": warm, "cold_ms": cold_s * 1e3, "warm_ms": warm_s * 1e3,
+            "launches": launches}
+
+
+def hist_live_batch(tags_list, slot: int):
+    """One sample per series at ``slot``: bucket counts above every series'
+    earlier ones (cumulative over the buckets and in time)."""
+    from filodb_tpu_torch.core.records import RecordBatch
+    from filodb_tpu_torch.core.schemas import PROM_HISTOGRAM
+
+    n = len(tags_list)
+    h = np.broadcast_to(np.cumsum(np.full(N_BUCKETS, 1e5)) + slot, (n, N_BUCKETS)).copy()
+    return RecordBatch(PROM_HISTOGRAM, np.full(n, BASE + slot * 10_000, np.int64),
+                       {"sum": h[:, -1] * 0.01, "count": h[:, -1], "h": h}, tags_list,
+                       HIST_LES)
+
+
+def phase_hist_live_edge(engine, device) -> dict:
+    """7b's live edge: the canonical query to past the newest sample (cold,
+    a build), one batch of one sample per series through ``ingest_routed``,
+    the query again: it must extend the cached superblock (not restage),
+    leave the held block unchanged, and equal the plain path on a superblock
+    built afresh from the final store, whose real ts, lens and vals equal
+    the extended block's bit for bit."""
+    import torch
+
+    from filodb_tpu_torch import metrics as M
+
+    ev0 = M.superblock_events()
+    res, _, cold_s, counts = run_hist(engine, HIST_QUERY, "regular", "hist_shared",
+                                      end_s=LIVE_END_S)
+    launches = add_launches({}, counts)
+    require(res.stats.cache_misses >= 1, f"7b live edge: expected a build, stats {res.stats}")
+    ex = exec_node(engine, HIST_QUERY, LIVE_END_S)
+    held = ex.superblock(engine.context())
+    held_vals = held.block.vals.clone()
+    held_len = int(held.block.lens[0])
+    tags_list = [hist_tags(i) for i in range(N_SERIES)]
+    t0 = time.perf_counter()
+    engine.memstore.ingest_routed("prometheus", hist_live_batch(tags_list, N_SAMPLES),
+                                  spread=SPREAD)
+    ingest_s = time.perf_counter() - t0
+    res, final, ext_s, counts = run_hist(engine, HIST_QUERY, "regular", "hist_shared",
+                                         end_s=LIVE_END_S)
+    launches = add_launches(launches, counts)
+    require(res.stats.cache_extends == 1, f"7b live edge: the append must extend, {res.stats}")
+    ext = extension_record()
+    events = {k: v - ev0[k] for k, v in M.superblock_events().items()}
+    require(events == {"revalidate": 0, "extend": 1, "extend_abort": 0, "restage": 0},
+            f"7b live edge: maintenance outcomes {events}")
+    require(torch.equal(held.block.vals, held_vals) and int(held.block.lens[0]) == held_len,
+            "7b live edge: the extension wrote the held block")
+    del held_vals
+    ext_block = ex.superblock(engine.context()).block
+    require(int(ext_block.lens[0]) == held_len + 1, "7b live edge: extended length")
+    ex, fresh, fresh_s = stage_again(engine, HIST_QUERY, LIVE_END_S)
+    fb, n = fresh.block, fresh.block.n_series
+    for k in ("ts", "vals"):
+        require(torch.equal(getattr(fb, k)[:n], getattr(ext_block, k)[:n]),
+                f"7b live edge: extended {k} differs from a fresh build's")
+    require(torch.equal(fb.lens, ext_block.lens), "7b live edge: extended lens differ")
+    err = compare(torch.from_numpy(final).to(device), hist_plain(fresh, ex, 0.99),
+                  "7b live edge: final query vs the plain path on a fresh build", rtol=1e-3)
+    print(f"phase7b live edge ({HIST_QUERY!r} to {LIVE_END_S:.0f} s): cold {cold_s * 1e3:.1f} ms; "
+          f"one {N_SERIES}-row ingest_routed batch in {ingest_s:.2f} s; the next query extended "
+          f"the superblock in {ext_s * 1e3:.1f} ms end to end ({ext['bytes_uploaded']} bytes "
+          f"uploaded; host {ext['proof_ms'] + ext['host_ms']:.1f} ms, device "
+          f"{ext['device_ms']:.3f} ms); outcomes {events}; held block unchanged; extended ts, "
+          f"lens and vals bit-equal to a fresh build ({fresh_s:.2f} s); final [G, J] matches "
+          f"the plain path (max_abs_err {err:.3g})")
+    return {"cold_ms": cold_s * 1e3, "extend_query_ms": ext_s * 1e3, "ingest_s": ingest_s,
+            "extension": ext, "outcomes": events, "fresh_build_s": fresh_s,
+            "final_max_abs_err": err, "launches": launches}
+
+
+def phase_hist_bench(device) -> dict:
+    """7b: bench.py's hist_quantile workload end to end."""
+    import torch
+
+    from filodb_tpu_torch.coordinator.planner import QueryEngine
+    from filodb_tpu_torch.ops import staging as ST
+
+    t0 = time.perf_counter()
+    ms = build_memstore_hist(N_SERIES, "regular")
+    print(f"phase7b ingest: {N_SERIES} histogram series x {N_SAMPLES} samples x {N_BUCKETS} "
+          f"buckets (bench.py's build_memstore_hist, seed {HIST_SEED}) on {N_SHARDS} shards in "
+          f"{time.perf_counter() - t0:.1f} s")
+    engine = QueryEngine(ms, "prometheus")
+    run = hist_cold_warm(engine, "phase7b", "regular", "hist_shared")
+    ex = exec_node(engine, HIST_QUERY)
+    entry = ex.superblock(engine.context())
+    got = torch.from_numpy(run["vals"]).to(device)
+    err = compare(got, hist_plain(entry, ex, 0.99), "7b: [G, J] vs the plain path", rtol=1e-3)
+    t0 = time.perf_counter()
+    ref = cpu_baseline_hist(ms)
+    oracle_s = time.perf_counter() - t0
+    with np.errstate(invalid="ignore"):
+        match = np.allclose(run["vals"][0], ref, rtol=5e-3, equal_nan=True)
+    require(match, f"7b: [G, J] differs from bench.py's f64 oracle: {run['vals'][0][:8]} vs "
+                   f"{ref[:8]}")
+    nbytes = ST.staged_nbytes(entry.block)
+    print(f"phase7b: superblock {list(entry.block.vals.shape)} ({nbytes} bytes on the card); "
+          f"[G, J] matches the plain path (max_abs_err {err:.3g}) and bench.py's f64 oracle "
+          f"(rtol 5e-3, {oracle_s:.1f} s on the host)")
+    range_err, q_err = check_hist_partials(entry, ex, "phase7b")
+    timing = time_hist_kernels(entry, ex, device, "phase7b")
+    del entry
+    live = phase_hist_live_edge(engine, device)
+    return {"cold_ms": run["cold_ms"], "warm_ms": run["warm_ms"], "superblock_bytes": nbytes,
+            "max_abs_err": err, "range_max_abs_err": range_err, "quantile_max_abs_err": q_err,
+            "launches": add_launches(run["launches"], live["launches"]), **timing,
+            "live_edge": live}
+
+
+def phase_hist_irregular(device, n_series: int) -> dict:
+    """7c: the per-series bounds entry at scale: the same store on irregular
+    5-15 s scrapes, the canonical query cold then warm on ``hist_general``,
+    against the plain path."""
+    import torch
+
+    from filodb_tpu_torch.coordinator.planner import QueryEngine
+
+    t0 = time.perf_counter()
+    ms = build_memstore_hist(n_series, "irregular")
+    print(f"phase7c ingest: {n_series} histogram series x {N_SAMPLES} samples at irregular "
+          f"5-15 s intervals in {time.perf_counter() - t0:.1f} s")
+    engine = QueryEngine(ms, "prometheus")
+    run = hist_cold_warm(engine, "phase7c", "irregular", "hist_general")
+    ex = exec_node(engine, HIST_QUERY)
+    entry = ex.superblock(engine.context())
+    err = compare(torch.from_numpy(run["vals"]).to(device), hist_plain(entry, ex, 0.99),
+                  "7c: [G, J] vs the plain path", rtol=1e-3)
+    print(f"phase7c: superblock {list(entry.block.vals.shape)}; [G, J] matches the plain path "
+          f"(max_abs_err {err:.3g})")
+    range_err, q_err = check_hist_partials(entry, ex, "phase7c")
+    timing = time_hist_kernels(entry, ex, device, "phase7c")
+    return {"series": n_series, "cold_ms": run["cold_ms"], "warm_ms": run["warm_ms"],
+            "max_abs_err": err, "range_max_abs_err": range_err, "quantile_max_abs_err": q_err,
+            "launches": run["launches"], **timing}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1111,7 +1740,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     reg_row, engine = phase_regular_path(args.seed, device)
     live = phase_live_edge(engine, device, "phase6", "regular", n_idle=15, n_busy=15,
-                           min_batches=6, seed=args.seed)
+                           min_batches=4, seed=args.seed)
     reg_row["launches"] += live["launches"]
     del engine
     gc.collect()  # the regular store goes before the jittered one is built
@@ -1123,9 +1752,54 @@ def main() -> int:
     live_jit = phase_live_edge(QueryEngine(jit_store, "prometheus"), device, "phase6b", "jitter",
                                n_idle=5, n_busy=6, min_batches=3, seed=args.seed)
     wr_row["launches"] += live_jit["launches"]
+    del jit_store
+    gc.collect()  # the jittered store goes before the histogram stores are built
+    torch.cuda.empty_cache()
+
+    range_err, q_err = phase_hist_vs_plain(args.seed, device)
+    bench_hist = phase_hist_bench(device)
+    gc.collect()  # bench.py's histogram store goes before the irregular one is built
+    torch.cuda.empty_cache()
+    irr_hist = phase_hist_irregular(device, HIST_IRREGULAR_SERIES)
+    launches = add_launches(bench_hist["launches"], irr_hist["launches"])
+    hist_rows = [{
+        "name": "hist_range",
+        "route": "cuda",
+        "source": "filodb_tpu_torch/csrc/hist_range.cu",
+        "replaces": "filodb_tpu/ops/hist_kernels.py:157",
+        "launches": launches["hist_range"],
+        "max_abs_err": max(range_err, bench_hist["range_max_abs_err"],
+                           irr_hist["range_max_abs_err"]),
+        "ms": bench_hist["range_ms"],
+        "plain_ms": bench_hist["range_plain_ms"],
+        "bound_ms": bench_hist["range_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "library_call": "none: no torch call computes a windowed, extrapolated per-bucket rate",
+        "ms_back_to_back": bench_hist["range_ms_back_to_back"],
+        "bound_bytes": bench_hist["range_bound_bytes"],
+        "per_series_bounds": {k: irr_hist[k] for k in (
+            "range_ms", "range_ms_back_to_back", "range_plain_ms", "range_bound_ms")},
+    }, {
+        "name": "hist_quantile",
+        "route": "cuda",
+        "source": "filodb_tpu_torch/csrc/hist_range.cu",
+        "replaces": "filodb_tpu/ops/hist_kernels.py:86",
+        "launches": launches["hist_quantile"],
+        "max_abs_err": max(q_err, bench_hist["quantile_max_abs_err"],
+                           irr_hist["quantile_max_abs_err"]),
+        "ms": bench_hist["quantile_ms"],
+        "plain_ms": bench_hist["quantile_plain_ms"],
+        "bound_ms": bench_hist["quantile_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "library_call": "none: no torch call interpolates histogram_quantile",
+        "ms_back_to_back": bench_hist["quantile_ms_back_to_back"],
+    }]
 
     print(json.dumps({"cache": {"phase6": live, "phase6b": live_jit}}))
-    print(json.dumps({"kernels": [ws_row, wr_row, reg_row]}))
+    print(json.dumps({"hist": {"phase7b": bench_hist, "phase7c": irr_hist}}))
+    print(json.dumps({"kernels": [ws_row, wr_row, reg_row, *hist_rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,9 @@
 
 The port plans one shape: ``op by (...) (func(selector[w]))`` (or over a
 bare selector) with ``op`` in sum/count/avg/min/max, which becomes a
-``FusedAggregateExec``. Every other plan raises ``NotImplementedError``
-naming the missing piece.
+``FusedAggregateExec``, and ``histogram_quantile(q, sum ... (...))`` of it,
+whose interpolation fuses into the same node. Every other plan raises
+``NotImplementedError`` naming the missing piece.
 """
 
 from __future__ import annotations
@@ -117,13 +118,21 @@ class SingleClusterPlanner:
     def materialize(self, plan: L.LogicalPlan) -> ExecPlan:
         if isinstance(plan, L.Aggregate):
             return self._try_fused_aggregate(plan)
+        if (isinstance(plan, L.ApplyInstantFunction) and plan.function == "histogram_quantile"
+                and len(plan.args) == 1 and isinstance(plan.args[0], (int, float))
+                and isinstance(plan.inner, L.Aggregate) and plan.inner.op == "sum"):
+            # the canonical SRE chain histogram_quantile(q, sum by (le)
+            # (rate(m_bucket[w]))): the interpolation fuses into the aggregate
+            return self._try_fused_aggregate(plan.inner, hist_quantile=float(plan.args[0]))
         raise NotImplementedError(
             f"{type(plan).__name__} plans are not ported: the port runs "
             "aggregations over range functions or selectors only")
 
-    def _try_fused_aggregate(self, p: L.Aggregate) -> FusedAggregateExec:
+    def _try_fused_aggregate(self, p: L.Aggregate,
+                             hist_quantile: float | None = None) -> FusedAggregateExec:
         """``op by (...) (range_fn(selector[w]))`` with every shard local
-        becomes one FusedAggregateExec over one superblock."""
+        becomes one FusedAggregateExec over one superblock; ``hist_quantile``
+        fuses ``histogram_quantile(q, ...)`` on top (native histograms)."""
         if not self.params.fused_aggregate:
             raise NotImplementedError("the reference scatter tree (fused_aggregate=False) is not ported")
         if p.op not in FUSED_AGG_OPS:
@@ -150,7 +159,7 @@ class SingleClusterPlanner:
             inner.raw.start_ms, inner.raw.end_ms, inner.raw.column,
             p.op, p.by, p.without, func,
             inner.start_ms, inner.end_ms, inner.step_ms or 1, window,
-            inner.offset_ms,
+            inner.offset_ms, hist_quantile=hist_quantile,
         )
 
 

@@ -20,12 +20,15 @@ from .schemas import DatasetOptions, Schema, canonical_partkey, shard_for
 @dataclass
 class RecordBatch:
     """Columnar batch of ingestion records sharing one schema: ``values``
-    maps column name -> [N] array, ``tags[i]`` is record i's series tags."""
+    maps column name -> [N] array ([N, B] for a histogram column, whose
+    bucket bounds are ``bucket_les``), ``tags[i]`` is record i's series
+    tags."""
 
     schema: Schema
     timestamps: np.ndarray
     values: dict[str, np.ndarray]
     tags: Sequence[Mapping[str, str]]
+    bucket_les: np.ndarray | None = None  # histogram schemas only
 
     def __len__(self) -> int:
         return len(self.timestamps)
@@ -70,6 +73,7 @@ class RecordBatch:
             out.append(SeriesBatch(
                 schema=self.schema, tags=dict(keys[pk]), timestamps=self.timestamps[ix],
                 values={k: v[ix] for k, v in self.values.items()},
+                bucket_les=self.bucket_les,
             ))
         return out
 
@@ -93,7 +97,7 @@ class RecordBatch:
             ix = np.nonzero(shard_of == s)[0]
             out[int(s)] = RecordBatch(
                 self.schema, self.timestamps[ix], {k: v[ix] for k, v in self.values.items()},
-                [self.tags[i] for i in ix],
+                [self.tags[i] for i in ix], self.bucket_les,
             )
         return out
 
@@ -106,6 +110,7 @@ class SeriesBatch:
     tags: Mapping[str, str]
     timestamps: np.ndarray
     values: dict[str, np.ndarray]
+    bucket_les: np.ndarray | None = None  # histogram schemas only
 
     @property
     def partkey(self) -> bytes:

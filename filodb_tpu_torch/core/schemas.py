@@ -2,10 +2,10 @@
 ``filodb_tpu/core/schemas.py``; reference L1: Schemas.scala, Column.scala,
 Dataset.scala:38).
 
-The port keeps the two schemas the main path reads (``gauge`` and
-``prom-counter``) and the hashing that routes a series to its shard. The
-hashes are byte-identical to the JAX package's, so one series lands on the
-same shard in both packages.
+The port keeps the schemas the query path reads (``gauge``,
+``prom-counter`` and the five native-histogram schemas) and the hashing
+that routes a series to its shard. The hashes are byte-identical to the
+JAX package's, so one series lands on the same shard in both packages.
 """
 
 from __future__ import annotations
@@ -50,6 +50,10 @@ class Schema:
                 return c
         raise KeyError(f"schema {self.name} has no column {name}")
 
+    @property
+    def has_histogram(self) -> bool:
+        return any(c.ctype == ColumnType.HISTOGRAM for c in self.columns)
+
 
 def _ts() -> Column:
     return Column("timestamp", ColumnType.TIMESTAMP)
@@ -67,6 +71,42 @@ GAUGE = _register(Schema("gauge", [_ts(), Column("value", ColumnType.DOUBLE)], "
 PROM_COUNTER = _register(
     Schema("prom-counter", [_ts(), Column("count", ColumnType.DOUBLE, is_counter=True)], "count")
 )
+# native histograms: cumulative bucket counts in the "h" column, [n, B] per
+# sample, beside the sum and count counters
+PROM_HISTOGRAM = _register(Schema("prom-histogram", [
+    _ts(),
+    Column("sum", ColumnType.DOUBLE, is_counter=True),
+    Column("count", ColumnType.DOUBLE, is_counter=True),
+    Column("h", ColumnType.HISTOGRAM, is_counter=True),
+], "h"))
+DELTA_HISTOGRAM = _register(Schema("delta-histogram", [
+    _ts(),
+    Column("sum", ColumnType.DOUBLE, is_delta=True),
+    Column("count", ColumnType.DOUBLE, is_delta=True),
+    Column("h", ColumnType.HISTOGRAM, is_delta=True),
+], "h"))
+OTEL_CUMULATIVE_HISTOGRAM = _register(Schema("otel-cumulative-histogram", [
+    _ts(),
+    Column("sum", ColumnType.DOUBLE, is_counter=True),
+    Column("count", ColumnType.DOUBLE, is_counter=True),
+    Column("h", ColumnType.HISTOGRAM, is_counter=True),
+    Column("min", ColumnType.DOUBLE),
+    Column("max", ColumnType.DOUBLE),
+], "h"))
+OTEL_DELTA_HISTOGRAM = _register(Schema("otel-delta-histogram", [
+    _ts(),
+    Column("sum", ColumnType.DOUBLE, is_delta=True),
+    Column("count", ColumnType.DOUBLE, is_delta=True),
+    Column("h", ColumnType.HISTOGRAM, is_delta=True),
+    Column("min", ColumnType.DOUBLE),
+    Column("max", ColumnType.DOUBLE),
+], "h"))
+OTEL_EXP_DELTA_HISTOGRAM = _register(Schema("otel-exp-delta-histogram", [
+    _ts(),
+    Column("sum", ColumnType.DOUBLE, is_delta=True),
+    Column("count", ColumnType.DOUBLE, is_delta=True),
+    Column("h", ColumnType.HISTOGRAM, is_delta=True),
+], "h"))
 
 
 @dataclass(frozen=True)

@@ -75,34 +75,19 @@
 
 #include "group_acc.cuh"
 #include "row_tiles.cuh"
+#include "window_search.cuh"
 
 namespace {
+
+using window_search::count_le;
+using window_search::lower_edge;
+using window_search::wrap_add;
+using window_search::wrap_mul;
 
 constexpr float POS = 3.0e38f;
 constexpr float NEG = -3.0e38f;
 constexpr int32_t IMAX = 2147483647;
 constexpr int32_t IMIN = -2147483647;
-
-// int32 add/multiply with two's-complement wrap (as jnp.int32 does)
-__device__ __forceinline__ int32_t wrap_add(int32_t a, int32_t b) {
-    return (int32_t)((uint32_t)a + (uint32_t)b);
-}
-__device__ __forceinline__ int32_t wrap_mul(int32_t a, int32_t b) {
-    return (int32_t)((uint32_t)a * (uint32_t)b);
-}
-
-// number of entries in row[0, n) that are <= x (row sorted ascending);
-// the row lies in shared or device memory. LDG: a row in device memory,
-// read through the read-only data cache (the nine-plane kernel's rows)
-template <bool LDG = false>
-__device__ __forceinline__ int count_le(const int32_t* row, int n, int32_t x) {
-    int lo = 0, hi = n;
-    while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if ((LDG ? __ldg(row + mid) : row[mid]) <= x) lo = mid + 1; else hi = mid;
-    }
-    return lo;
-}
 
 __global__ void window_stats_kernel(
     const int32_t* __restrict__ ts, const float* __restrict__ vals,
@@ -189,22 +174,6 @@ struct RangeArgs {
     float* acc;
     float* cnt;
 };
-
-// lo of the window: the entries of row[0, hi) that are <= t_lo (all of
-// them when the bounds wrapped, t_lo > t_j: an empty window). They form a
-// prefix that usually ends within a window's worth of samples below hi,
-// so gallop down from hi in strides of 32, 64, ... and bisect the last
-// stride: a handful of probes instead of a search over the whole row.
-__device__ __forceinline__ int lower_edge(const int32_t* row, int hi, int32_t t_lo) {
-    int top = hi, stride = 32, bot = hi - stride;
-    while (bot > 0 && row[bot] > t_lo) {  // every entry from bot up is > t_lo
-        top = bot;
-        stride <<= 1;
-        bot = hi - stride;
-    }
-    bot = bot < 0 ? 0 : bot;
-    return bot + count_le(row + bot, top - bot, t_lo);
-}
 
 // finish (ops/window_stats.py) of one (row, step), line for line: the
 // function of the window (t_j - w, t_j] over the row's first n samples.

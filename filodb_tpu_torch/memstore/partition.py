@@ -14,7 +14,7 @@ from typing import Mapping
 
 import numpy as np
 
-from ..core.schemas import Schema
+from ..core.schemas import ColumnType, Schema
 
 DEFAULT_MAX_CHUNK_SIZE = 400  # samples per chunk (reference store config default)
 
@@ -33,13 +33,16 @@ class Chunk:
 
 
 class TimeSeriesPartition:
-    """Write buffer + sealed chunk list for one series."""
+    """Write buffer + sealed chunk list for one series. A histogram column
+    holds one [B] row of cumulative bucket counts per sample, on the
+    partition's ``bucket_les`` bounds."""
 
     __slots__ = ("part_id", "tags", "schema", "partkey", "chunks", "_buf",
-                 "_buf_len", "max_chunk_size", "_hwm")
+                 "_buf_len", "max_chunk_size", "bucket_les", "_hwm")
 
     def __init__(self, part_id: int, tags: Mapping[str, str], schema: Schema,
-                 partkey: bytes, max_chunk_size: int = DEFAULT_MAX_CHUNK_SIZE):
+                 partkey: bytes, max_chunk_size: int = DEFAULT_MAX_CHUNK_SIZE,
+                 bucket_les: np.ndarray | None = None):
         self.part_id = part_id
         self.tags = dict(tags)
         self.schema = schema
@@ -48,6 +51,7 @@ class TimeSeriesPartition:
         self._buf: dict[str, np.ndarray] | None = None
         self._buf_len = 0
         self.max_chunk_size = max_chunk_size
+        self.bucket_les = bucket_les
         self._hwm: int = -(2**62)  # newest ingested timestamp
 
     # -- ingest ------------------------------------------------------------
@@ -56,7 +60,7 @@ class TimeSeriesPartition:
         cap = self.max_chunk_size
         buf = {"timestamp": np.empty(cap, dtype=np.int64)}
         for name, arr in values.items():
-            buf[name] = np.empty(cap, dtype=arr.dtype)
+            buf[name] = np.empty((cap,) + arr.shape[1:], dtype=arr.dtype)
         self._buf = buf
         self._buf_len = 0
 
@@ -111,7 +115,8 @@ class TimeSeriesPartition:
 
     def samples_in_range(self, t0: int, t1: int, col: str) -> tuple[np.ndarray, np.ndarray]:
         """All samples with t0 <= ts <= t1 for one column, including the open
-        write buffer. Returns (ts int64, vals)."""
+        write buffer. Returns (ts int64, vals); vals is [n, B] for a
+        histogram column."""
         ts_parts: list[np.ndarray] = []
         val_parts: list[np.ndarray] = []
         for c in self.chunks:
@@ -130,7 +135,7 @@ class TimeSeriesPartition:
                 ts_parts.append(ts[lo:hi].copy())
                 val_parts.append(buf[col][lo:hi].copy())
         if not ts_parts:
-            return np.empty(0, dtype=np.int64), np.empty(0)
+            return self._empty(col)
         return np.concatenate(ts_parts), np.concatenate(val_parts)
 
     def tail_samples(self, t0: int, t1: int, col: str) -> tuple[np.ndarray, np.ndarray]:
@@ -150,6 +155,17 @@ class TimeSeriesPartition:
             return self.samples_in_range(t0, t1, col)
         ts = buf["timestamp"][:n]
         if ts[-1] < t0 or ts[0] > t1:
-            return np.empty(0, dtype=np.int64), np.empty(0)
+            return self._empty(col)
         lo, hi = np.searchsorted(ts, [t0, t1 + 1])
         return ts[lo:hi], buf[col][lo:hi]
+
+    def _empty(self, col: str) -> tuple[np.ndarray, np.ndarray]:
+        """No samples: values [0] for a scalar column, [0, B] for a
+        histogram column with known bounds."""
+        try:
+            hist = self.schema.column(col).ctype == ColumnType.HISTOGRAM
+        except KeyError:
+            hist = False
+        if hist and self.bucket_les is not None:
+            return np.empty(0, dtype=np.int64), np.empty((0, len(self.bucket_les)))
+        return np.empty(0, dtype=np.int64), np.empty(0)

@@ -227,6 +227,7 @@ class TimeSeriesShard:
         self._next_part_id += 1
         self.partitions[pid] = TimeSeriesPartition(
             pid, sb.tags, sb.schema, pk, max_chunk_size=self.config.max_chunk_size,
+            bucket_les=sb.bucket_les,
         )
         self._by_partkey[pk] = pid
         self.index.add_partkey(pid, dict(sb.tags), start_ts=start_ts)

@@ -7,7 +7,8 @@ absence: a NaN sample does not contribute, and a group with no members at a
 step yields NaN. Padded rows go to the trash group ``num_groups``, which is
 sliced off. On the card both rungs of ``fused_range_aggregate`` reduce
 inside their kernels; the segment reduce here is the plain versions'
-epilogue.
+epilogue. ``fused_hist_range_aggregate`` is the histogram counterpart: a
+per-bucket sum to ``[G, J, B]``, or the ``[G, J]`` quantile.
 """
 
 from __future__ import annotations
@@ -17,8 +18,11 @@ import torch
 
 from ..core.schemas import METRIC_TAG
 from ..singleflight import memo_on
+from . import group_acc as GA
+from . import hist_kernels as HK
 from . import mxu_kernels as MK
 from . import window_stats as WS
+from .kernels import pad_steps
 from .staging import grid_class
 
 SIMPLE_AGG_OPS = ("sum", "count", "avg", "min", "max")
@@ -90,6 +94,60 @@ def fused_range_aggregate(func: str, op: str, block, gids_padded: torch.Tensor,
     rung = MK.regular_range_aggregate if variant == "mxu" else WS.window_range_aggregate
     return rung(func, op, block, gids_padded, num_groups, params, is_counter=is_counter,
                 is_delta=is_delta)
+
+
+def hist_variant(block) -> str:
+    """The histogram rung of a block: ``hist_shared`` (shared [J] window
+    bounds) on a regular grid, else ``hist_general`` (bounds searched per
+    series). The JAX package takes a jitter variant on near-regular grids
+    (``_fused_hist_jitter_jit``), which needs the jitter window structures
+    (B6); the general kernel's windows are exact, so the answers agree."""
+    return "hist_shared" if block.regular_ts is not None else "hist_general"
+
+
+def _hist_shared_windows(block, params, j_pad: int):
+    """The [j_pad] window bounds of a regular-grid (super)block for one query
+    grid, built on the host with ``np.searchsorted`` and memoized on the
+    block's device: ``(lo, hi, t_first, t_last)`` int32, the window of step
+    j being samples [lo[j], hi[j]) of every row (the JAX package's
+    ``_hist_shared_windows``)."""
+    start_off = int(params.start_ms - block.base_ms)
+    key = (start_off, int(params.step_ms), j_pad, int(params.window_ms))
+
+    def build():
+        m = int(block.lens[0])
+        tsv = np.asarray(block.regular_ts)[:m].astype(np.int64)
+        out_t = start_off + np.arange(j_pad, dtype=np.int64) * int(params.step_ms)
+        hi = np.searchsorted(tsv, out_t, side="right")
+        lo = np.searchsorted(tsv, out_t - int(params.window_ms), side="right")
+        t_first = tsv[np.minimum(lo, m - 1)]
+        t_last = tsv[np.minimum(hi - 1, m - 1)]
+        return tuple(torch.from_numpy(a.astype(np.int32)).to(block.vals.device)
+                     for a in (lo, hi, t_first, t_last))
+
+    return memo_on(block, "hist_windows_memo", key, build)
+
+
+def fused_hist_range_aggregate(func: str, block, gids_padded: torch.Tensor, num_groups: int,
+                               params, les: torch.Tensor, q: float | None = None,
+                               is_delta: bool = False, obs: dict | None = None) -> torch.Tensor:
+    """``sum by (...) (func(m[w]))`` over a [S, T, B] histogram
+    (super)block on the rung ``hist_variant`` picks (written to
+    ``obs["variant"]``): one launch of the range kernel, returning the
+    [G, J_pad, B] group bucket sums, or with ``q`` a second launch, of the
+    quantile kernel, returning [G, J_pad] ``histogram_quantile(q, ...)``
+    over the bounds ``les`` (f32 [B] on the block's device). Steps past
+    ``params.num_steps`` are NaN."""
+    variant = hist_variant(block)
+    if obs is not None:
+        obs["variant"] = variant
+    j_pad = pad_steps(params.num_steps)
+    windows = _hist_shared_windows(block, params, j_pad) if variant == "hist_shared" else None
+    acc, cnt = HK.hist_range_partials(func, block, gids_padded, num_groups, params,
+                                      windows=windows, is_delta=is_delta)
+    if q is None:
+        return GA.finish_groups("sum", acc, cnt, num_groups).reshape(num_groups, j_pad, -1)
+    return HK.hist_quantile(q, acc, cnt, num_groups, les, params.num_steps)
 
 
 def group_ids_for(series_labels: list[dict], by: list[str] | None, without: list[str] | None):

@@ -13,6 +13,8 @@ padded ``[series, time]`` block, which moves to the device once:
   and the device needs no correction pass. Raw values ride along for
   Prometheus' zero-crossing extrapolation cap.
 - S and T pad up to bucketed sizes.
+- Native histograms stage raw cumulative bucket counts as ``[S, T, B]``
+  (``stage_histogram_series``), one bucket scheme per block.
 - Every block is classified by its time grid (``grid_class``): ``regular``
   when every real series shares one exact timestamp vector (the regular
   range kernel), ``jitter`` when the series are near-regular, else
@@ -39,6 +41,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..core.histograms import same_scheme
 from ..singleflight import KeyedSingleFlight
 
 _S_BUCKETS = (8, 32, 128, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536, 131072)
@@ -67,10 +70,12 @@ class StagedBlock:
     arrays are numpy on the host until ``to_device`` moves them."""
 
     ts: np.ndarray | torch.Tensor  # [S, T] int32 ms offsets from base_ms; TS_PAD in padding
-    vals: np.ndarray | torch.Tensor  # [S, T] f32; counters: reset-corrected minus baseline
+    # [S, T] f32 (counters: reset-corrected minus baseline), or [S, T, B]
+    # raw cumulative bucket counts of a histogram block
+    vals: np.ndarray | torch.Tensor
     lens: np.ndarray | torch.Tensor  # [S] int32 valid sample count per series
     base_ms: int  # absolute ms of offset 0
-    baseline: np.ndarray | torch.Tensor  # [S] f32 per-series value offset (else 0)
+    baseline: np.ndarray | torch.Tensor  # [S] ([S, B] histograms) f32 value offset (else 0)
     n_series: int  # real series count (<= S)
     part_refs: list  # (shard_num, part_id) per real series row
     raw: np.ndarray | torch.Tensor | None = None  # [S, T] f32 raw values (counters only)
@@ -273,6 +278,31 @@ def stage_series(
     return block
 
 
+def stage_histogram_series(series: list[tuple[np.ndarray, np.ndarray]], base_ms: int,
+                           n_buckets: int, part_refs: list | None = None) -> StagedBlock:
+    """``stage_series`` for histograms: per-series (ts_ms int64, [n, B]
+    bucket counts) pairs -> a host block with vals [S, T, B] and baseline
+    [S, B] (zeros: histogram columns stage raw), its grid classified as
+    scalar staging does."""
+    n = len(series)
+    maxlen = max([1] + [len(ts) for ts, _ in series])
+    S = pad_series(max(n, 1))
+    T = pad_time(maxlen)
+    out_ts = np.full((S, T), TS_PAD, dtype=np.int32)
+    out_vals = np.zeros((S, T, n_buckets), dtype=np.float32)
+    lens = np.zeros(S, dtype=np.int32)
+    for i, (ts, vals) in enumerate(series):
+        m = len(ts)
+        lens[i] = m
+        if m:
+            out_ts[i, :m] = (ts - base_ms).astype(np.int32)
+            out_vals[i, :m] = vals.astype(np.float32)
+    regular, nominal, ts_dev, maxdev = detect_shared_grid(out_ts, lens, n, T, S)
+    return StagedBlock(out_ts, out_vals, lens, base_ms, np.zeros((S, n_buckets), np.float32),
+                       n, part_refs or [], regular_ts=regular, nominal_ts=nominal,
+                       ts_dev=ts_dev, maxdev_ms=maxdev)
+
+
 def block_from_arrays(ts, vals, lens, base_ms: int, baseline, n_series: int,
                       raw=None, device="cuda") -> StagedBlock:
     """A device block from plain arrays (numpy or anything ``np.asarray``
@@ -301,7 +331,8 @@ def stage_from_shard(shard, part_ids, column: str, start_ms: int, end_ms: int,
                      mode: str) -> StagedBlock:
     """Gather [start_ms, end_ms] samples for part_ids from a shard and stage
     them on the host. ``mode`` is ``"corrected"``, ``"shifted"``, ``"diff"``
-    or ``"raw"`` (see plans._stage_mode_for_function).
+    or ``"raw"`` (see plans._stage_mode_for_function); a histogram column
+    stages raw ``[S, T, B]`` (``stage_histogram_series``) whatever the mode.
 
     A small-to-medium block whose range reaches past its newest sample (the
     live edge) gets 256 columns of headroom, so appends land before the
@@ -312,6 +343,9 @@ def stage_from_shard(shard, part_ids, column: str, start_ms: int, end_ms: int,
         part = shard.partition(int(pid))
         series.append(part.samples_in_range(start_ms, end_ms, column))
         refs.append((shard.shard_num, int(pid)))
+    widths = {v.shape[1] for _, v in series if v.ndim == 2}
+    if widths:
+        return stage_histogram_series(series, start_ms, widths.pop(), refs)
     newest = max((int(ts[-1]) for ts, _ in series if len(ts)), default=None)
     live_edge = newest is not None and end_ms >= newest
     return stage_series(
@@ -344,17 +378,23 @@ def append_to_block(shard, block: StagedBlock, part_ids, column: str, end_ms: in
 
 
 def extend_superblock(memstore, dataset: str, block: StagedBlock, column: str,
-                      end_ms: int, mode: str) -> StagedBlock | None:
+                      end_ms: int, mode: str, les=None) -> StagedBlock | None:
     """``append_to_block`` lifted to the cross-shard superblock: resolves
     every ``part_refs`` row to its live partition and appends through the
     same core, so the warm query stays one launch under live ingest. The
     caller has proved the row set unchanged (fresh lookups and the shards'
-    effect logs). None when a precondition fails (the caller restages)."""
+    effect logs). ``les`` is a histogram superblock's bucket bounds: the
+    extension declines when a member partition's scheme no longer matches
+    them (appended rows would land on the wrong bounds). None when a
+    precondition fails (the caller restages)."""
     parts = []
     try:
         for sn, pid in block.part_refs:
             parts.append(memstore.shard(dataset, sn).partitions[int(pid)])
     except KeyError:
+        return None
+    if les is not None and any(p.bucket_les is None or not same_scheme(p.bucket_les, les)
+                               for p in parts):
         return None
     return _append_to_parts(parts, block, column, end_ms, mode)
 
@@ -392,7 +432,8 @@ def _append_to_parts(parts, block: StagedBlock, column: str, end_ms: int, mode: 
 
     - the mode is raw, shifted or corrected (diff continuation needs state
       the block does not carry), and the block is host-mirrored on a
-      regular or jittered shared grid; scalar [S, T] blocks only;
+      regular or jittered shared grid; a histogram [S, T, B] block only
+      in raw mode on a regular grid;
     - every series gains the same count of new samples: identical
       timestamps on a regular grid, near-nominal ones (the jitter bound
       re-checked over the extended grid) on a jittered grid; and the
@@ -412,6 +453,9 @@ def _append_to_parts(parts, block: StagedBlock, column: str, end_ms: int, mode: 
     if jittered and block.h_dev is None:
         return None
     if block.n_series == 0:
+        return None
+    is_hist = block.h_vals.ndim == 3
+    if is_hist and (mode != "raw" or jittered):
         return None
     n = block.n_series
     lens = block.h_lens
@@ -446,7 +490,12 @@ def _append_to_parts(parts, block: StagedBlock, column: str, end_ms: int, mode: 
     uniform = all(len(ts) == k for ts in per_ts)
     if uniform and k > 0:
         V0 = np.stack(per_vals)
-        if np.isnan(V0).any():
+        if V0.ndim != (3 if is_hist else 2):
+            uniform = False
+            V0 = None
+        elif is_hist and V0.shape[2] != block.h_vals.shape[2]:
+            return None  # the bucket scheme's width changed: restage
+        elif not is_hist and np.isnan(V0).any():
             uniform = False  # staleness markers: per-series filtering
             V0 = None
         else:
@@ -458,9 +507,15 @@ def _append_to_parts(parts, block: StagedBlock, column: str, end_ms: int, mode: 
         per_vals = []
         per_ts = []
         for ts, vals in per:
-            keep = ~np.isnan(vals)
-            if not keep.all():
-                ts, vals = ts[keep], vals[keep]
+            if vals.ndim != (2 if is_hist else 1):
+                return None
+            if is_hist:
+                if vals.shape[1] != block.h_vals.shape[2]:
+                    return None  # the bucket scheme's width changed: restage
+            else:
+                keep = ~np.isnan(vals)
+                if not keep.all():
+                    ts, vals = ts[keep], vals[keep]
             if new_ts is None:
                 new_ts = ts
             elif len(ts) != len(new_ts):
@@ -495,7 +550,7 @@ def _append_to_parts(parts, block: StagedBlock, column: str, end_ms: int, mode: 
         if off.max() >= 2**31 - 1 or off.min() <= int(grid[m - 1]):
             return None
     off32 = off.astype(np.int32)
-    V = (V0 if V0 is not None else np.stack(per_vals)).astype(np.float64)  # [n, k]
+    V = (V0 if V0 is not None else np.stack(per_vals)).astype(np.float64)  # [n, k(, B)]
     if jittered:
         block.h_ts[:n, m : m + k] = OFF.astype(np.int32)
         block.h_dev[:n, m : m + k] = dev_new.astype(np.float32)
@@ -550,12 +605,13 @@ def _append_to_parts(parts, block: StagedBlock, column: str, end_ms: int, mode: 
         h_dev=block.h_dev,
     )
     if isinstance(block.ts, torch.Tensor):
-        n_arrays = 3 if block.raw is not None else 2
+        mirrors = [block.h_ts, block.h_vals] + ([block.h_raw] if block.raw is not None else [])
         LAST_EXTENSION.clear()
         LAST_EXTENSION.update(
             series=n, columns=k, read_s=read_s, host_s=t_dev - t_host,
             device_wall_s=time.perf_counter() - t_dev,
-            bytes_uploaded=n * k * 4 * n_arrays + int(new_lens.nbytes),
+            bytes_uploaded=sum(int(a[:n, m : m + k].nbytes) for a in mirrors)
+            + int(new_lens.nbytes),
         )
         if on_card:
             ev1 = torch.cuda.Event(enable_timing=True)
@@ -572,7 +628,9 @@ def _append_to_parts(parts, block: StagedBlock, column: str, end_ms: int, mode: 
 def concat_blocks(blocks) -> StagedBlock:
     """Row-concatenate host blocks into one padded superblock exactly:
     corrected values, raw sidecars, baselines and part refs carry over.
-    All blocks must share base_ms.
+    All blocks must share base_ms. Histogram blocks ([S, T, B] vals,
+    [S, B] baselines) concatenate the same way into ``[ΣS, T, B]``; they
+    must already share one bucket scheme (``plans._unify_hist_blocks``).
 
     The shared regular grid survives when every non-empty block advertises
     the identical ``regular_ts``; otherwise the grid is detected again over
@@ -584,11 +642,16 @@ def concat_blocks(blocks) -> StagedBlock:
     T = max(b.ts.shape[1] for b in real)
     S = sum(b.n_series for b in real)
     Sp = pad_series(S)
+    widths = {b.vals.shape[2] for b in real if b.vals.ndim == 3}
+    is_hist = bool(widths)
+    if is_hist and (len(widths) != 1 or any(b.vals.ndim != 3 for b in real)):
+        raise ValueError("histogram blocks must share one bucket scheme before concat_blocks")
+    B = (widths.pop(),) if is_hist else ()
     ts = np.full((Sp, T), TS_PAD, np.int32)
-    vals = np.zeros((Sp, T), np.float32)
+    vals = np.zeros((Sp, T) + B, np.float32)
     raw = np.zeros((Sp, T), np.float32) if any(b.raw is not None for b in real) else None
     lens = np.zeros(Sp, np.int32)
-    baseline = np.zeros(Sp, np.float32)
+    baseline = np.zeros((Sp,) + B, np.float32)
     part_refs: list = []
     o = 0
     for b in real:

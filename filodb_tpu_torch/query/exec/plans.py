@@ -6,9 +6,14 @@ cross-shard aggregate ``op by (...) (func(selector[w]))``. It stages every
 matching series of its shards into one superblock on the device and runs
 the rung its grid class picks (``aggregations.grid_variant``): the regular
 kernel for a shared regular grid, else window stats -> finish -> segment
-aggregate; only the [G, J] group partials come back. Shapes outside it
-raise ``NotImplementedError``: the reference tree it would fall back to is
-not ported.
+aggregate; only the [G, J] group partials come back. A native-histogram
+selection stages a ``[ΣS, T, B]`` superblock (per-shard bucket schemes
+unified first) and runs the histogram rung: per-bucket sums [G, J, B], or
+with ``histogram_quantile(q, sum ...)`` fused on top, the [G, J]
+quantiles. Classic-histogram suffixes (``m_bucket``, ``m_sum``,
+``m_count``, ``le=`` selections) resolve onto the native histogram.
+Shapes outside it raise ``NotImplementedError``: the reference tree it
+would fall back to is not ported.
 
 Superblocks are cached on the memstore (``staging.SuperblockCache``) keyed
 by their member shards' version vector, and per-shard blocks flow through
@@ -26,14 +31,17 @@ from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
+import torch
 
 from ...core.filters import ColumnFilter
-from ...core.schemas import ColumnType
+from ...core.histograms import _LE_TOL, remap_buckets, same_scheme, unify_schemes
+from ...core.schemas import METRIC_TAG, ColumnType
 from ...memstore.memstore import member_locks
 from ...memstore.shard import StageEntry
 from ...metrics import record_superblock_event
 from ...ops import aggregations as AGG
 from ...ops import staging as ST
+from ...ops.hist_kernels import FUSED_HIST_FUNCS
 from ...ops.kernels import RangeParams
 from ..rangevector import Grid, QueryResult, QueryStats
 
@@ -178,12 +186,99 @@ def staged_block_for(ctx: QueryContext, shard, ids, cache_key, col_name: str,
     return block
 
 
+def _histogram_suffix_rewrite(filters):
+    """``m_sum`` / ``m_count`` / ``m_bucket`` -> the base histogram metric
+    and the column or bucket they select. Returns (rewritten filters or
+    None, column or None, le or None)."""
+    metric = None
+    for f in filters:
+        if f.column == METRIC_TAG and f.op == "=":
+            metric = f.value
+    if metric is None:
+        return None, None, None
+    for suffix, col in (("_sum", "sum"), ("_count", "count"), ("_bucket", None)):
+        if metric.endswith(suffix):
+            base = metric[: -len(suffix)]
+            le = None
+            out = []
+            for f in filters:
+                if f.column == METRIC_TAG and f.op == "=":
+                    out.append(ColumnFilter(METRIC_TAG, "=", base))
+                elif suffix == "_bucket" and f.column == "le" and f.op == "=":
+                    le = float("inf") if f.value in ("+Inf", "Inf") else float(f.value)
+                else:
+                    out.append(f)
+            return tuple(out), col, le
+    return None, None, None
+
+
+def _unify_hist_blocks(blocks, block_les):
+    """Put per-shard histogram blocks on one bucket scheme: the union of the
+    shards' ``le`` bounds, a missing bound taking the nearest lower bound's
+    count (``core.histograms.remap_buckets``). Returns (blocks, union les);
+    a block already on the union scheme passes through untouched."""
+    vals_in = [b.vals for b in blocks]
+    vals_out, union, changed = unify_schemes(vals_in, block_les)
+    if not changed:
+        return blocks, union
+    out = []
+    for b, v_in, v_out, les in zip(blocks, vals_in, vals_out, block_les):
+        if v_out is v_in:  # already on the union scheme
+            out.append(b)
+            continue
+        # remapping touches only the bucket axis: the time grid survives
+        out.append(ST.StagedBlock(
+            b.ts, v_out, b.lens, b.base_ms, remap_buckets(b.baseline, les, union),
+            b.n_series, list(b.part_refs), regular_ts=b.regular_ts,
+        ))
+    return out, union
+
+
+def _uniform_scheme(parts, les) -> bool:
+    """True when every partition of a shard carries the same bucket scheme
+    (``same_scheme``): one [S, T, B] block has one ``le`` vector."""
+    if les is None:
+        return False
+    return all(p.bucket_les is not None and (p.bucket_les is les or same_scheme(p.bucket_les, les))
+               for p in parts[1:])
+
+
+def _slice_bucket(block, les, bucket_le: float):
+    """``m_bucket{le=...}``: one bucket of a host-staged [S, T, B] block as
+    a scalar counter block. Returns (block, le label), or None when the
+    scheme has no such bound (within ``_LE_TOL``)."""
+    if les is None:
+        return None
+    les64 = np.asarray(les, dtype=np.float64)
+    if np.isinf(bucket_le):
+        b_idx = len(les64) - 1
+    else:
+        hits = np.nonzero(np.abs(les64 - bucket_le) < _LE_TOL)[0]
+        b_idx = int(hits[0]) if len(hits) else -1
+    if b_idx < 0:
+        return None
+    vals = np.ascontiguousarray(block.vals[..., b_idx])
+    sliced = ST.StagedBlock(
+        block.ts, vals, block.lens, block.base_ms, block.baseline[..., b_idx],
+        block.n_series, block.part_refs, raw=vals, regular_ts=block.regular_ts,
+        nominal_ts=block.nominal_ts, ts_dev=block.ts_dev, maxdev_ms=block.maxdev_ms,
+    )
+    le_str = "+Inf" if np.isinf(les64[b_idx]) else f"{les64[b_idx]:g}"
+    return sliced, le_str
+
+
+def _strip_metric(labels: dict) -> dict:
+    return {k: v for k, v in labels.items() if k not in (METRIC_TAG, "__name__")}
+
+
 @dataclass
 class SuperblockEntry:
     """A superblock on the device plus what serving it needs: the scan
     accounting a hit repeats (``samples``, ``series``, the per-shard
-    ``max_shard_series`` the series limit checks) and what an extension
-    needs (``col_name``, ``stage_mode``)."""
+    ``max_shard_series`` the series limit checks), what an extension needs
+    (``col_name``, ``stage_mode``; None for a bucket sliced by ``le=``,
+    which never extends) and a histogram's unified bounds (``les``, and
+    ``les_dev`` on the device for the quantile kernel)."""
 
     block: ST.StagedBlock
     labels: list
@@ -193,18 +288,23 @@ class SuperblockEntry:
     max_shard_series: int = 0
     series: int = 0
     col_name: str | None = None
-    stage_mode: str = "raw"
+    stage_mode: str | None = "raw"
+    is_hist: bool = False
+    les: Any = None
+    les_dev: Any = None
 
 
 class FusedAggregateExec(ExecPlan):
     """``op by (...) (func(selector[w]))`` over local shards as ONE
     superblock and ONE kernel launch (regular or window stats); only [G, J]
-    reaches the host."""
+    reaches the host. Over native histograms: one launch of the histogram
+    range kernel, and with ``hist_quantile`` (the planner recognized
+    ``histogram_quantile(q, sum ...)``) one more of the quantile kernel."""
 
     def __init__(self, shard_nums, filters, raw_start_ms: int, raw_end_ms: int,
                  column, op: str, by, without, function,
                  start_ms: int, end_ms: int, step_ms: int, window_ms: int,
-                 offset_ms: int = 0):
+                 offset_ms: int = 0, hist_quantile: float | None = None):
         self.shard_nums = list(shard_nums)
         self.filters: tuple[ColumnFilter, ...] = tuple(filters)
         self.raw_start_ms = raw_start_ms
@@ -219,6 +319,7 @@ class FusedAggregateExec(ExecPlan):
         self.step_ms = step_ms
         self.window_ms = window_ms
         self.offset_ms = offset_ms
+        self.hist_quantile = hist_quantile  # fused histogram_quantile(q, ...)
 
     def num_steps(self) -> int:
         return int((self.end_ms - self.start_ms) // self.step_ms) + 1
@@ -226,9 +327,29 @@ class FusedAggregateExec(ExecPlan):
     def _versions(self, ctx: QueryContext) -> tuple:
         return tuple(ctx.memstore.shard(ctx.dataset, s).version for s in self.shard_nums)
 
+    def _check_shape(self, is_hist: bool) -> None:
+        """Raise for an op or function the fused kernels do not model on the
+        resolved schema, before any stats bump or staging: over histograms
+        only ``sum`` of ``FUSED_HIST_FUNCS``; and ``histogram_quantile``
+        over a scalar selection (classic ``le`` bucket series) is not
+        ported."""
+        if is_hist:
+            if self.op != "sum":
+                raise NotImplementedError(
+                    f"aggregation {self.op!r} over native histograms is not ported "
+                    "(the histogram rung sums buckets)")
+            if (self.function or "last") not in FUSED_HIST_FUNCS:
+                raise NotImplementedError(
+                    f"histogram range function {self.function!r} is not ported "
+                    f"(ported: {sorted(FUSED_HIST_FUNCS)})")
+        elif self.hist_quantile is not None:
+            raise NotImplementedError(
+                "histogram_quantile over scalar series (classic le buckets) is not ported")
+
     def _serve_hit(self, ctx: QueryContext, hit: SuperblockEntry) -> SuperblockEntry:
         """Limits and stats for a cached superblock: limits are per request,
         so a hit never serves a query the build would have rejected."""
+        self._check_shape(hit.is_hist)
         if hit.max_shard_series > ctx.max_series:
             raise QueryError(
                 f"query selects {hit.max_shard_series} series > limit {ctx.max_series}")
@@ -260,8 +381,7 @@ class FusedAggregateExec(ExecPlan):
         key_mode = stage_mode
         if hint is not None and not (hint[0] and not hint[1]):
             key_mode = "raw"
-        sb_key = (ctx.dataset, tuple(self.shard_nums), self.filters, self.raw_start_ms,
-                  self.raw_end_ms, self.column, key_mode, str(ctx.device))
+        sb_key = self._superblock_key(ctx, key_mode)
         hit = cache.get(sb_key, self._versions(ctx))
         if hit is not None:
             ctx.stats.bump(cache_hits=1)
@@ -275,8 +395,12 @@ class FusedAggregateExec(ExecPlan):
             refreshed = self._refresh_superblock(ctx, cache, sb_key, versions)
             if refreshed is not None:
                 return refreshed
-            return self._build_superblock(ctx, stage_mode, cache, sb_key, versions, hints,
-                                          hint_key)
+            return self._build_superblock(ctx, stage_mode, cache, versions, hints, hint_key)
+
+    def _superblock_key(self, ctx: QueryContext, stage_mode: str) -> tuple:
+        """The superblock cache's key of this selection staged in ``stage_mode``."""
+        return (ctx.dataset, tuple(self.shard_nums), self.filters, self.raw_start_ms,
+                self.raw_end_ms, self.column, stage_mode, str(ctx.device))
 
     def _refresh_superblock(self, ctx: QueryContext, cache, sb_key, versions: tuple):
         """Maintenance of a version-stale cached superblock (under the key's
@@ -314,6 +438,10 @@ class FusedAggregateExec(ExecPlan):
                 ctx.stats.bump(cache_hits=1)
                 return self._serve_hit(ctx, entry)
             return None
+        if entry.stage_mode is None:  # a bucket sliced by le=: nothing to append onto
+            record_superblock_event("restage")
+            cache.note(sb_key, "restage")
+            return None
         return self._extend_superblock(ctx, cache, sb_key, entry, versions)
 
     def _extend_superblock(self, ctx: QueryContext, cache, sb_key, entry: SuperblockEntry,
@@ -331,11 +459,15 @@ class FusedAggregateExec(ExecPlan):
         a routed batch (``TimeSeriesMemStore.ingest_routed``) is read whole
         or not at all."""
         shards = [ctx.memstore.shard(ctx.dataset, s) for s in self.shard_nums]
+        rewritten = _histogram_suffix_rewrite(self.filters)[0]
         t0 = time.perf_counter()
         with member_locks(shards):
             refs = []
             for s, shard in zip(self.shard_nums, shards):
                 pids = shard.lookup_partitions(self.filters, self.raw_start_ms, self.raw_end_ms)
+                if not len(pids) and rewritten is not None:
+                    pids = shard.lookup_partitions(rewritten, self.raw_start_ms,
+                                                   self.raw_end_ms)
                 refs.extend((s, int(p)) for p in pids)
             if refs != list(entry.block.part_refs):
                 record_superblock_event("restage")
@@ -343,7 +475,8 @@ class FusedAggregateExec(ExecPlan):
             proof_s = time.perf_counter() - t0
             try:
                 nb = ST.extend_superblock(ctx.memstore, ctx.dataset, entry.block,
-                                          entry.col_name, self.raw_end_ms, entry.stage_mode)
+                                          entry.col_name, self.raw_end_ms, entry.stage_mode,
+                                          les=entry.les if entry.is_hist else None)
             except Exception:
                 cache.drop(sb_key)  # mirrors possibly torn mid-write
                 record_superblock_event("extend_abort")
@@ -378,7 +511,8 @@ class FusedAggregateExec(ExecPlan):
         new_entry = SuperblockEntry(
             nb, entry.labels, entry.is_counter, entry.is_delta, int(np.asarray(nb.h_lens).sum()),
             entry.max_shard_series, series=entry.series, col_name=entry.col_name,
-            stage_mode=entry.stage_mode,
+            stage_mode=entry.stage_mode, is_hist=entry.is_hist, les=entry.les,
+            les_dev=entry.les_dev,
         )
         cache.put(sb_key, commit_versions, new_entry, ST.staged_nbytes(nb))
         record_superblock_event("extend")
@@ -386,20 +520,28 @@ class FusedAggregateExec(ExecPlan):
         ctx.stats.bump(cache_extends=1)
         return self._serve_hit(ctx, new_entry)
 
-    def _build_superblock(self, ctx: QueryContext, stage_mode: str, cache, sb_key, versions,
-                          hints, hint_key) -> SuperblockEntry | None:
-        blocks, labels = [], []
+    def _build_superblock(self, ctx: QueryContext, stage_mode: str, cache, versions, hints,
+                          hint_key) -> SuperblockEntry | None:
+        rewritten, col_override, bucket_le = _histogram_suffix_rewrite(self.filters)
+        blocks, labels, block_les = [], [], []
         schema_name = col_name = None
-        is_counter = is_delta = False
-        total = max_shard_series = 0
+        is_counter = is_delta = is_hist = sliced_hist = False
+        total = max_shard_series = dropped_samples = 0
         for s in self.shard_nums:
             ctx.check_deadline()
             shard = ctx.memstore.shard(ctx.dataset, s)
             pids = shard.lookup_partitions(self.filters, self.raw_start_ms, self.raw_end_ms)
+            suffixed = False
+            if not len(pids) and rewritten is not None:
+                # classic-histogram suffix (m_sum / m_count / m_bucket): the
+                # base histogram's columns
+                pids = shard.lookup_partitions(rewritten, self.raw_start_ms, self.raw_end_ms)
+                suffixed = len(pids) > 0
             if not len(pids):
                 continue
             if len(pids) > ctx.max_series:
                 raise QueryError(f"query selects {len(pids)} series > limit {ctx.max_series}")
+            # accounting before any le= slice, as the JAX package counts it
             total += len(pids)
             max_shard_series = max(max_shard_series, len(pids))
             parts = [shard.partition(int(p)) for p in pids]
@@ -408,40 +550,78 @@ class FusedAggregateExec(ExecPlan):
                 raise NotImplementedError("mixed schemas in one selection are not ported")
             schema_name = parts[0].schema.name
             schema = parts[0].schema
-            col_name = self.column or schema.value_column
+            col_name = self.column or (suffixed and col_override) or schema.value_column
             try:
                 col = schema.column(col_name)
             except KeyError:
                 col_name = schema.value_column
                 col = schema.column(col_name)
-            if col.ctype == ColumnType.HISTOGRAM:
-                raise NotImplementedError("histogram schemas are not ported")
+            hist_col = col.ctype == ColumnType.HISTOGRAM
+            # decided before staging: a le= slice lands scalar
+            self._check_shape(hist_col and bucket_le is None)
             is_counter, is_delta = col.is_counter, col.is_delta
-            mode = stage_mode if is_counter and not is_delta else "raw"
+            # histogram columns always stage raw cumulative bucket counts
+            mode = stage_mode if is_counter and not is_delta and not hist_col else "raw"
             cache_key = (self.filters, self.raw_start_ms, self.raw_end_ms, col_name,
                          schema_name, mode)
-            blocks.append(staged_block_for(ctx, shard, pids, cache_key, col_name,
-                                           self.raw_start_ms, self.raw_end_ms, mode))
-            labels.extend(dict(p.tags) for p in parts)
+            block = staged_block_for(ctx, shard, pids, cache_key, col_name,
+                                     self.raw_start_ms, self.raw_end_ms, mode)
+            part_labels = [dict(p.tags) for p in parts]
+            les = parts[0].bucket_les if hist_col else None
+            if hist_col and not _uniform_scheme(parts, les):
+                raise NotImplementedError(
+                    "histogram partitions of one shard on different bucket schemes are not ported")
+            if hist_col and bucket_le is not None:
+                # m_bucket{le=...}: one bucket as a scalar counter block
+                sliced = _slice_bucket(block, les, bucket_le)
+                if sliced is None:
+                    # no such bound on this shard: no rows, but its samples
+                    # were scanned
+                    dropped_samples += int(np.asarray(block.lens).sum())
+                    continue
+                block, le_str = sliced
+                part_labels = [dict(l, le=le_str) for l in part_labels]
+                les, hist_col, sliced_hist = None, False, True
+                is_counter, is_delta = True, False
+            if blocks and hist_col != is_hist:
+                raise NotImplementedError(
+                    "histogram and scalar series in one selection are not ported")
+            is_hist = hist_col
+            blocks.append(block)
+            block_les.append(les)
+            labels.extend(part_labels)
         if schema_name is not None:
             if len(hints) >= 1024:
                 hints.clear()  # bounded: a hint is one lookup to relearn
-            hints[hint_key] = (is_counter, is_delta)
+            # histogram columns (and their le= slices) stage raw, like gauges:
+            # one superblock serves every range function over the selector
+            hints[hint_key] = (is_counter and not is_hist and not sliced_hist, is_delta)
         if not blocks:
             return None
-        samples = int(sum(int(b.lens.sum()) for b in blocks))
+        samples = dropped_samples + int(sum(int(b.lens.sum()) for b in blocks))
         ctx.stats.bump(series_scanned=total, samples_scanned=samples, cache_misses=1)
         if ctx.stats.samples_scanned > ctx.max_samples:
             raise QueryError(
                 f"query would scan {ctx.stats.samples_scanned} samples > limit {ctx.max_samples}")
+        les = None
+        if is_hist:
+            blocks, les = _unify_hist_blocks(blocks, block_les)
         # host mirrors ride along, so live-edge ingest extends the superblock
         # instead of paying concatenation and a full upload per append
         block = ST.concat_blocks(blocks).to_device(ctx.device, keep_host=True)
+        resolved_mode = stage_mode if is_counter and not is_delta and not is_hist else "raw"
         value = SuperblockEntry(
             block, labels, is_counter, is_delta, samples, max_shard_series, series=total,
-            col_name=col_name,
-            stage_mode=stage_mode if is_counter and not is_delta else "raw",
+            col_name=col_name, stage_mode=None if sliced_hist else resolved_mode,
+            is_hist=is_hist, les=les,
+            les_dev=(torch.as_tensor(np.asarray(les, np.float32)).to(ctx.device)
+                     if les is not None else None),
         )
+        # keyed by the resolved staging mode, the key every later query of
+        # this selector computes once the hint is learned (the JAX package
+        # keys the first build by the function's mode, so its second query
+        # of a gauge or histogram selection builds again)
+        sb_key = self._superblock_key(ctx, value.stage_mode or "raw")
         # cached only when no ingest landed during the build: the entry would
         # otherwise be unservable at its next lookup
         if self._versions(ctx) == versions:
@@ -459,6 +639,17 @@ class FusedAggregateExec(ExecPlan):
         strip = self.function is not None and self.function not in _DROP_NAME_KEEP
         gids, G, group_labels = AGG.group_ids_memo(
             got.block, got.labels, self.by, self.without, strip_metric=strip)
+        if got.is_hist:
+            out = AGG.fused_hist_range_aggregate(
+                func, got.block, gids, G, params, got.les_dev, q=self.hist_quantile,
+                is_delta=got.is_delta, obs=ctx.obs)
+            if self.hist_quantile is not None:
+                # the quantile ran on the card: [G, J] is all that comes back
+                labels = [_strip_metric(l) for l in group_labels]
+                return QueryResult(grids=[Grid(labels, self.start_ms, self.step_ms, nsteps, out)])
+            placeholder = np.full((G, nsteps), np.nan, np.float32)
+            return QueryResult(grids=[Grid(group_labels, self.start_ms, self.step_ms, nsteps,
+                                           placeholder, hist=out, les=got.les)])
         out = AGG.fused_range_aggregate(
             func, self.op, got.block, gids, G, params,
             is_counter=got.is_counter, is_delta=got.is_delta, obs=ctx.obs)

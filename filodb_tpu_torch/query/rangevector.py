@@ -2,8 +2,9 @@
 reference RangeVector.scala:129).
 
 Results travel as grids: a batch of series sharing one step grid with a
-dense ``[S, J]`` value matrix (NaN = absent). ``values`` may be a torch
-tensor on the card; it converts to numpy at the edge.
+dense ``[S, J]`` value matrix (NaN = absent), and for native histograms
+the ``[S, J, B]`` bucket values with their bounds. ``values`` and ``hist``
+may be torch tensors on the card; they convert to numpy at the edge.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ class Grid:
     step_ms: int
     num_steps: int
     values: Any  # [S, J] tensor or numpy; J >= num_steps (padding allowed)
+    hist: Any | None = None  # [S, J, B] bucket values of a histogram result
+    les: np.ndarray | None = None  # [B] bucket bounds of ``hist``
 
     @property
     def n_series(self) -> int:
@@ -34,6 +37,14 @@ class Grid:
         v = self.values
         v = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
         return v[: self.n_series, : self.num_steps]
+
+    def hist_np(self) -> np.ndarray | None:
+        """[S, num_steps, B] numpy array of a histogram result, else None."""
+        if self.hist is None:
+            return None
+        h = self.hist
+        h = h.detach().cpu().numpy() if isinstance(h, torch.Tensor) else np.asarray(h)
+        return h[: self.n_series, : self.num_steps]
 
 
 @dataclass

@@ -1,8 +1,10 @@
 """The window-stats kernels (nine planes, and fused with finish and the
 group aggregate) and the regular-range kernel on the card against their
 plain versions, on both group-partial variants and on rows staged in
-shared memory or read in place; and a cached superblock's warm hit and
-live-edge extension on the card. These tests need an NVIDIA card and skip without one; the
+shared memory or read in place; a cached superblock's warm hit and
+live-edge extension on the card; and the two histogram kernels
+(csrc/hist_range.cu) against their plain versions, with one launch of
+each per histogram_quantile query. These tests need an NVIDIA card and skip without one; the
 file imports no JAX so that it runs on a machine with only torch:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -434,3 +436,167 @@ def test_warm_hit_and_extension_on_card(card, grid):
         assert torch.equal(getattr(new, k), torch.from_numpy(mirror).to(card)), k
         assert torch.equal(getattr(old, k), before[k]), k
     assert int(new.lens[0]) == int(old.lens[0]) + 1
+
+
+# -- the histogram kernels (csrc/hist_range.cu) -----------------------------------
+
+HIST_LES = np.array([0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, np.inf])
+HIST_PARAMS = RangeParams(BASE - 120_000, 60_000, 40, 300_000)
+
+
+def hist_block(grid: str, card, n_real=300, m=400, seed=0):
+    """Seeded cumulative histograms staged by the port, on the card:
+    ``regular`` (one 10 s grid) or ``irregular`` (5-15 s apart, ragged, an
+    empty series); a few NaN bucket counts in series 3; padded rows past
+    ``n_real``."""
+    from filodb_tpu_torch.ops.staging import stage_histogram_series
+
+    rng = np.random.default_rng(seed)
+    B = len(HIST_LES)
+    series = []
+    for i in range(n_real):
+        k = m if grid == "regular" else int(rng.integers(m // 2, m + 1)) * (i != n_real // 2)
+        ts = (BASE + 3_000 + np.arange(k, dtype=np.int64) * 10_000 if grid == "regular"
+              else BASE + np.cumsum(rng.integers(5_000, 15_001, k)).astype(np.int64))
+        incr = rng.poisson(2.0, size=(k, B)).astype(np.float64)
+        incr[:, -1] = incr.sum(1)
+        h = np.cumsum(np.cumsum(incr, axis=1), axis=0)
+        if i == 3 and k > 40:
+            h[20:24, 2] = np.nan
+        series.append((ts, h))
+    return stage_histogram_series(series, BASE, B, [(0, i) for i in range(n_real)]).to_device(card)
+
+
+def hist_gids(G: int, S: int, n_real: int, card):
+    gids = torch.full((S,), G, dtype=torch.int64, device=card)
+    gids[:n_real] = torch.arange(n_real, device=card) % G
+    return gids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("is_delta", [False, True], ids=["cumulative", "delta"])
+@pytest.mark.parametrize("func", sorted(["rate", "increase", "delta", "sum_over_time", "last"]))
+@pytest.mark.parametrize("grid", ["regular", "irregular"])
+def test_hist_range_kernel_matches_plain_on_card(card, grid, func, is_delta):
+    """Each row its own group: the kernel's sums are the plain version's
+    values (rtol 2e-4 / atol 1e-4), NaN masks equal; padded steps empty."""
+    from filodb_tpu_torch.ops import hist_kernels as HK
+
+    b = hist_block(grid, card)
+    n = b.n_series
+    gids = hist_gids(n, b.vals.shape[0], n, card)
+    windows = (AGG._hist_shared_windows(b, HIST_PARAMS, pad_steps(HIST_PARAMS.num_steps))
+               if grid == "regular" else None)
+    before = HK.RANGE_LAUNCHES
+    acc, cnt = HK.hist_range_partials(func, b, gids, n, HIST_PARAMS, windows, is_delta)
+    assert HK.RANGE_LAUNCHES == before + 1
+    want_acc, want_cnt = HK.hist_partials_plain(func, b, gids, n, HIST_PARAMS, windows, is_delta)
+    torch.cuda.synchronize()
+    # the trash group's row is dropped: padded rows reach it in the plain
+    # version's index_add (shared bounds give them values), never in the kernel
+    assert torch.equal(cnt[:n], want_cnt[:n])
+    got = GA.finish_groups("sum", acc, cnt, n).cpu().numpy()
+    want = GA.finish_groups("sum", want_acc, want_cnt, n).cpu().numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    m = ~np.isnan(want)
+    np.testing.assert_allclose(got[m], want[m], rtol=2e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_real", [300, 3000], ids=["one_row_per_block", "rows_per_block"])
+@pytest.mark.parametrize("G", [1, 8, 40])
+@pytest.mark.parametrize("grid", ["regular", "irregular"])
+def test_hist_range_group_partials_on_card(card, grid, G, n_real):
+    """Shared-memory partials (G <= 8) and global atomics (G = 40) against
+    the plain group sums (rtol 1e-3: atomics reorder the f32 sums), with one
+    row per block and with several (each thread's run sums over its rows)."""
+    from filodb_tpu_torch.ops import hist_kernels as HK
+
+    b = hist_block(grid, card, n_real=n_real, seed=1)
+    gids = hist_gids(G, b.vals.shape[0], b.n_series, card)
+    les = torch.tensor(HIST_LES, dtype=torch.float32, device=card)
+    got = AGG.fused_hist_range_aggregate("rate", b, gids, G, HIST_PARAMS, les)
+    assert HK.LAST_PLAN.partials == ("shared" if G <= 8 else "global")
+    assert (HK.LAST_PLAN.rows > 1) == (n_real > 300)
+    windows = (AGG._hist_shared_windows(b, HIST_PARAMS, pad_steps(HIST_PARAMS.num_steps))
+               if grid == "regular" else None)
+    acc, cnt = HK.hist_partials_plain("rate", b, gids, G, HIST_PARAMS, windows)
+    want = GA.finish_groups("sum", acc, cnt, G).reshape(got.shape)
+    torch.cuda.synchronize()
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+    np.testing.assert_allclose(g[~np.isnan(w)], w[~np.isnan(w)], rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("first_le", [0.1, 0.0, -1.0])
+@pytest.mark.parametrize("q", [-0.1, 0.0, 0.5, 0.99, 1.0, 1.1])
+def test_hist_quantile_kernel_matches_plain_on_card(card, q, first_le):
+    """The quantile kernel on seeded partials with a zero-total group, a
+    group with no member and a bucket without members, against
+    hist_quantile_plain: NaN and infinity masks equal, rtol 1e-3."""
+    from filodb_tpu_torch.ops import hist_kernels as HK
+
+    rng = np.random.default_rng(2)
+    G, J, j_pad = 5, 50, 64
+    les = HIST_LES.copy()
+    les[0] = first_le
+    B = len(les)
+    vals = np.cumsum(rng.uniform(0, 4, (G + 1, j_pad, B)), axis=-1).astype(np.float32)
+    cnts = np.ones((G + 1, j_pad, B), np.float32)
+    vals[1] = 0.0  # zero total
+    cnts[2] = 0.0  # no member
+    cnts[3, 7, 4] = 0.0  # one bucket without a member
+    acc = torch.from_numpy(vals.reshape(G + 1, -1)).to(card)
+    cnt = torch.from_numpy(cnts.reshape(G + 1, -1)).to(card)
+    les_t = torch.tensor(les, dtype=torch.float32, device=card)
+    before = HK.QUANTILE_LAUNCHES
+    got = HK.hist_quantile(q, acc, cnt, G, les_t, J)
+    assert HK.QUANTILE_LAUNCHES == before + 1
+    want = HK.hist_quantile_plain(q, acc, cnt, G, les_t, J)
+    torch.cuda.synchronize()
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+    np.testing.assert_array_equal(np.isinf(g), np.isinf(w))
+    m = np.isfinite(w)
+    np.testing.assert_allclose(g[m], w[m], rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_hist_quantile_query_launches_both_kernels_once_on_card(card):
+    """histogram_quantile(q, sum by (le) (rate(m_bucket[5m]))) on the card:
+    one launch of each histogram kernel per query, none of another port
+    kernel, cold and warm (a superblock-cache hit)."""
+    from filodb_tpu_torch.coordinator.planner import QueryEngine
+    from filodb_tpu_torch.core.histograms import custom_buckets
+    from filodb_tpu_torch.core.records import RecordBatch
+    from filodb_tpu_torch.core.schemas import METRIC_TAG, PROM_HISTOGRAM, Dataset
+    from filodb_tpu_torch.memstore.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.ops import hist_kernels as HK
+
+    rng = np.random.default_rng(5)
+    les = custom_buckets(HIST_LES[:-1]).bounds()
+    n, m = 64, 200
+    ts = BASE + np.arange(m, dtype=np.int64) * 10_000
+    incr = rng.poisson(2.0, size=(n, m, len(les))).astype(np.float64)
+    h = np.cumsum(np.cumsum(incr, axis=2), axis=1)
+    tags = [{METRIC_TAG: "lat", "_ws_": "w", "_ns_": "n", "instance": f"h{i}"} for i in range(n)]
+    ms = TimeSeriesMemStore()
+    ms.setup(Dataset("ds"), range(4))
+    ms.ingest_routed("ds", RecordBatch(
+        PROM_HISTOGRAM, np.tile(ts, n), {"sum": h[..., -1].ravel(), "count": h[..., -1].ravel(),
+                                         "h": h.reshape(-1, len(les))},
+        [t for t in tags for _ in range(m)], les), spread=2)
+    eng = QueryEngine(ms, "ds")
+    q = "histogram_quantile(0.99, sum by (le) (rate(lat_bucket[5m])))"
+    start, end = (BASE + 400_000) / 1000, (BASE + 1_900_000) / 1000
+    outs = []
+    for _ in range(2):
+        before = (HK.RANGE_LAUNCHES, HK.QUANTILE_LAUNCHES, WS.RANGE_LAUNCHES, MK.LAUNCHES)
+        res = eng.query_range(q, start, end, 60)
+        after = (HK.RANGE_LAUNCHES, HK.QUANTILE_LAUNCHES, WS.RANGE_LAUNCHES, MK.LAUNCHES)
+        assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 0, 0)
+        outs.append(res.grids[0].values_np())
+    assert res.stats.cache_hits == 1 and res.stats.cache_misses == 0
+    assert np.isfinite(outs[0]).all()
+    np.testing.assert_allclose(outs[1], outs[0], rtol=1e-3)
