@@ -9,11 +9,13 @@ comes out.
 Phases (any failure raises and exits non-zero):
 
 1. Build ``filodb_tpu_torch/csrc/window_stats.cu``, ``regular_range.cu``
-   and ``hist_range.cu`` with nvcc (all at once) and bind their five entry
-   points (``filodb_window_stats``, ``filodb_window_range_aggregate``,
-   ``filodb_regular_range``, ``filodb_hist_range_aggregate``,
-   ``filodb_hist_quantile``); print their ptxas lines and the card's name
-   and power limit.
+   and ``hist_range.cu`` with nvcc, and the histogram kernel's two split
+   builds (``tile_sweep.HIST_PATCHES``: search only, fetch only), all at
+   once, and bind their five entry points (``filodb_window_stats``,
+   ``filodb_window_range_aggregate``, ``filodb_regular_range``,
+   ``filodb_hist_range_aggregate``, ``filodb_hist_resident``); print their
+   ptxas lines (registers, shared memory, spills) and the card's name and
+   power limit.
 2. Window stats (the nine-plane kernel), kernel vs plain on seeded
    irregular blocks, S in {1, 65, 4096} and T in {128, 768}, gauge and
    counter data: count exact, first/last timestamps bit-equal, the other
@@ -97,45 +99,55 @@ Phases (any failure raises and exits non-zero):
    query launches the fused window-stats kernel once (5 idle queries; at
    least 6 busy ones, and on until 3 batches have landed).
 
-7a. The histogram kernels of ``csrc/hist_range.cu`` vs their plain
-   versions on seeded 12-bucket blocks (300 real rows of 512, one row per
-   block, and 3000 of 4096, several): the range kernel for every function
-   of ``FUSED_HIST_FUNCS`` x is_delta, shared and per-series bounds, G in
-   {1, 8} (shared-memory partials) and the real rows (global atomics;
-   each row its own group, rtol 2e-4 / atol 1e-4; elsewhere rtol 1e-3);
-   the quantile kernel at q in {-0.1, 0, 0.5, 0.99,
-   1, 1.1} on partials with a zero total, an empty group and a bucket
-   without a member, first bounds 0.005, 0 and -1. NaN masks equal.
+7a. The histogram kernel of ``csrc/hist_range.cu`` vs its plain versions
+   on seeded 12-bucket blocks (300 real rows of 512 and 3000 of 4096): the
+   partials for every function of ``FUSED_HIST_FUNCS`` x is_delta, shared
+   and per-series bounds, G in {1, 8} (shared-memory partials) and the real
+   rows (each row its own group: bit-equal); elsewhere rtol 1e-3; the
+   quantile folded into the launch at q in {-0.1, 0, 0.5, 0.99, 1, 1.1}
+   against ``hist_quantile_plain`` on that launch's partials, with a
+   zero-total group, an empty group and a bucket without a member, first
+   bounds 0.005, 0 and -1. NaN masks equal.
 7b. bench.py's ``hist_quantile`` workload: its ``build_memstore_hist``
    (100k native histograms, PROM_DEFAULT, 720 samples at 10 s, seed 42)
    rebuilt through the port, and
    ``histogram_quantile(0.99, sum by (le) (rate(http_request_latency_bucket[5m])))``
    over bench.py's range, cold then warm: grid ``regular``, variant
-   ``hist_shared``, one launch of each histogram kernel per query and no
-   other kernel, the warm query a cache hit with no staging; [G, J]
-   equals the plain path on the card (rtol 1e-3) and bench.py's f64
-   oracle (``cpu_baseline_hist``, rtol 5e-3). On that superblock, at the
-   main path's shape and layout, the range kernel's [G, J, B] partials
-   equal their plain version's (rtol 1e-3, member counts exact) and the
-   quantile kernel on them its plain version at q in {0.25, 0.5, 0.9,
-   0.99} (the panel's q = 0.99 lands in the top bucket on bench.py's data
-   whatever the sums, so it alone cannot catch a wrong sum). Prints cold, warm and
-   device-path ms, the superblock's bytes, each kernel's ms (median of
-   20, and back to back) beside its bound and its plain version's ms.
-   Then the live edge: the query to past the newest sample, one batch of
-   one sample per series, the query again must extend (not restage) the
-   cached superblock; the held block stays unchanged, and a fresh build's
-   ts, lens and vals equal the extended block's bit for bit.
+   ``hist_shared``, exactly one launch per query (the range kernel, the
+   quantile folded in) and no other kernel, the warm query a cache hit
+   with no staging; then ``sum by (le)`` of the same selection, one launch
+   and no quantile; [G, J] equals the plain path on the card (rtol 1e-3)
+   and bench.py's f64 oracle (``cpu_baseline_hist``, rtol 5e-3). On that
+   superblock, at the main path's shape and layout, one launch per q in
+   {0.25, 0.5, 0.9, 0.99}: its [G, J, B] partials equal their plain
+   version's (rtol 1e-3, member counts exact) and its folded quantile the
+   plain quantile of those partials (the panel's q = 0.99 lands in the top
+   bucket on bench.py's data whatever the sums, so it alone cannot catch a
+   wrong sum). Prints cold, warm and device-path ms, the superblock's
+   bytes, the kernel's ms alone and with the quantile folded in (median of
+   20, and back to back; the fold's own ms is the difference) beside its
+   bound, the sector floor (the 32-byte sectors the sampled positions
+   touch), the split builds' ms and the plain versions' ms; the same at
+   G = 1000 (the large-G tail of the folded quantile). Then the live edge:
+   the query to past the newest sample, one batch of one sample per
+   series, the query again must extend (not restage) the cached
+   superblock; the held block stays unchanged, and a fresh build's ts, lens
+   and vals equal the extended block's bit for bit.
 7c. The per-series bounds at scale: bench.py's histograms, cut to 50k
-   series (``HIST_IRREGULAR_SERIES``), on irregular 5-15 s scrapes, the canonical query cold then warm on
-   ``hist_general``, against the plain path and with 7b's partials check,
-   with both kernels' times and bounds. (Its superblock is not extended: an irregular histogram
-   superblock restages on a live-edge append, as in the JAX package.)
+   series (``HIST_IRREGULAR_SERIES``), on irregular 5-15 s scrapes, the
+   canonical query cold then warm on ``hist_general``, against the plain
+   path and with 7b's partials check, with the kernel's times and bounds.
+   (Its superblock is not extended: an irregular histogram superblock
+   restages on a live-edge append, as in the JAX package.)
+7d. The per-series bounds at 100k series without a host build: 7a's
+   generator drawn in bulk on the card (``hist_block_bulk_on_card``), the
+   canonical rate into one group with the quantile folded in, against
+   plain, timed as in 7b, and at 2, 4 and 8 rows per tile.
 
 Around every timed phase it prints the card's SM and memory clocks,
 temperature and power draw (nvidia-smi), before and after. Prints, in
 order at the end: one JSON object with phases 6 and 6b's numbers
-(``{"cache": ...}``), one with phases 7b and 7c's (``{"hist": ...}``), one
+(``{"cache": ...}``), one with phases 7b-7d's (``{"hist": ...}``), one
 with the kernels' numbers, the card's
 name and power limit as nvidia-smi gives them, and the result line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -255,21 +267,24 @@ def compare_stats(got: dict, want: dict, rtol: float = 2e-4, atol: float = 1e-4)
     return worst
 
 
-def build_kernels() -> None:
-    """Build every source at once (one nvcc each), bind the five entry
-    points and print ptxas's lines."""
+def build_kernels() -> dict:
+    """Build every source and the histogram kernel's two split builds at
+    once (one nvcc each), bind the five entry points, print ptxas's lines
+    (registers, shared memory, spills) and return the split builds."""
     from filodb_tpu_torch.ops import cuda_build
     from filodb_tpu_torch.ops import hist_kernels as HK
     from filodb_tpu_torch.ops import mxu_kernels as MK
     from filodb_tpu_torch.ops import window_stats as WS
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
+    with ThreadPoolExecutor(len(SOURCES) + 1) as pool:
+        split = pool.submit(hist_split_libs)
         libs = list(pool.map(cuda_build.build, SOURCES))
+        split_libs = split.result()
     ws_lib, mk_lib, hk_lib = WS._load(), MK._load(), HK._load()
     entries = [ws_lib.filodb_window_stats, ws_lib.filodb_window_range_aggregate,
                mk_lib.filodb_regular_range, hk_lib.filodb_hist_range_aggregate,
-               hk_lib.filodb_hist_quantile]
+               hk_lib.filodb_hist_resident]
     print(f"phase1 built {', '.join(l.name for l in libs)} in {time.perf_counter() - t0:.1f} s; "
           f"entry points {', '.join(e.__name__ for e in entries)}")
     for name in SOURCES:
@@ -279,6 +294,8 @@ def build_kernels() -> None:
                 entry = line.split("'")[1]
             elif "registers" in line or "spill" in line:
                 print(f"phase1 ptxas {name} {entry}: {line.strip()}")
+    print(f"phase1 split builds of hist_range: {', '.join(split_libs)}")
+    return split_libs
 
 
 def gpu_sample(tag: str) -> None:
@@ -587,8 +604,7 @@ def window_range_path(entry, ex, plain: bool):
 KERNEL_COUNTERS = {"window_stats": ("window_stats", "LAUNCHES"),
                    "window_range": ("window_stats", "RANGE_LAUNCHES"),
                    "regular_range": ("mxu_kernels", "LAUNCHES"),
-                   "hist_range": ("hist_kernels", "RANGE_LAUNCHES"),
-                   "hist_quantile": ("hist_kernels", "QUANTILE_LAUNCHES")}
+                   "hist_range": ("hist_kernels", "RANGE_LAUNCHES")}
 RUNGS = {"mxu": "regular_range", "window_stats": "window_range"}
 
 
@@ -1140,6 +1156,7 @@ def phase_live_edge(engine, device, phase: str, grid: str, n_idle: int, n_busy: 
 
 
 HIST_QUERY = "histogram_quantile(0.99, sum by (le) (rate(http_request_latency_bucket[5m])))"
+HIST_SUM_QUERY = "sum by (le) (rate(http_request_latency_bucket[5m]))"
 N_BUCKETS = 12  # bench.py's PROM_DEFAULT scheme (11 finite bounds + Inf)
 HIST_LES = np.array([0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, np.inf])
 HIST_SEED = 42  # bench.py's build_memstore_hist
@@ -1267,16 +1284,18 @@ def hist_block_on_card(grid: str, n_real: int, m: int, rng, device):
 
 
 def phase_hist_vs_plain(seed: int, device) -> tuple[float, float]:
-    """7a: both histogram kernels against their plain versions on seeded
-    blocks. Range kernel: every function of FUSED_HIST_FUNCS, is_delta
-    both ways, shared and per-series bounds, G = 1 and 8 (shared-memory
-    partials) and G = the real rows (global atomics, each row its own group:
-    rtol 2e-4 / atol 1e-4), padded rows, one row per block (300 rows) and
-    several (3000 rows: run sums over a block's rows); elsewhere rtol 1e-3
-    (atomics reorder a group's f32 sums). Quantile kernel: q in {-0.1, 0, 0.5, 0.99,
-    1, 1.1} on partials with a zero total, a group with no member, a bucket
-    without a member, and first bounds 0.005, 0 and -1. NaN masks equal.
-    Returns the largest absolute differences (range, quantile)."""
+    """7a: the histogram kernel against its plain versions on seeded blocks.
+    Partials: every function of FUSED_HIST_FUNCS, is_delta both ways,
+    shared and per-series bounds, G = 1 and 8 (shared-memory partials, in
+    slices of whole steps at G = 8) and G = the real rows (global atomics,
+    each row its own group: bit-equal, max_abs_err 0 is required), padded
+    rows, blocks of 300 and 3000 real rows; elsewhere rtol 1e-3 (atomics
+    and run sums reorder a group's f32 sums). The folded quantile at q in
+    {-0.1, 0, 0.5, 0.99, 1, 1.1} against hist_quantile_plain on the same
+    launch's partials, with a zero-total group, a group with no member, a
+    bucket without a member (the NaN counts of series 3, alone in its
+    group), and first bounds 0.005, 0 and -1. NaN masks equal. Returns the
+    largest absolute differences (range, quantile)."""
     import torch
 
     from filodb_tpu_torch.ops import aggregations as AGG
@@ -1294,17 +1313,16 @@ def phase_hist_vs_plain(seed: int, device) -> tuple[float, float]:
         n, S = block.n_series, block.vals.shape[0]
         windows = (AGG._hist_shared_windows(block, params, j_pad) if grid == "regular"
                    else None)
-        rows = HK.hist_plan(S, params.num_steps, N_BUCKETS, 1).rows
-        require((rows > 1) == (n_real > 300), f"7a {grid} {n_real} rows: {rows} rows per block")
         for G in (1, 8, n):
             gids = torch.full((S,), G, dtype=torch.int64, device=device)
             gids[:n] = torch.arange(n, device=device) % G
-            partials = set()
+            want_plan = HK.hist_plan(block.vals.shape[1], params.num_steps, N_BUCKETS, G,
+                                     windows is not None)
             for func in sorted(HK.FUSED_HIST_FUNCS):
                 for is_delta in (False, True):
                     acc, cnt = HK.hist_range_partials(func, block, gids, G, params, windows,
                                                       is_delta)
-                    partials.add(HK.LAST_PLAN.partials)
+                    require(HK.LAST_PLAN == want_plan, f"7a plan {HK.LAST_PLAN}")
                     pa, pc = HK.hist_partials_plain(func, block, gids, G, params, windows,
                                                     is_delta)
                     # the trash group's row is dropped (the plain version's
@@ -1314,29 +1332,34 @@ def phase_hist_vs_plain(seed: int, device) -> tuple[float, float]:
                     got = GA.finish_groups("sum", acc, cnt, G)
                     want = GA.finish_groups("sum", pa, pc, G)
                     what = f"7a {grid} sum({func}) delta={is_delta} G={G}"
-                    tol = {"rtol": 2e-4, "atol": 1e-4} if G == n else {"rtol": 1e-3}
-                    worst_range = max(worst_range, compare(got, want, what, **tol))
-            want_partials = "shared" if G <= 8 else "global"
-            require(partials == {want_partials}, f"7a G={G}: partials {partials}")
+                    if G == n:
+                        err = compare(got, want, what, rtol=0.0)
+                        require(err == 0.0, f"{what}: not bit-equal (max_abs_err {err})")
+                    else:
+                        err = compare(got, want, what, rtol=1e-3)
+                    worst_range = max(worst_range, err)
+            plan, grid_dims = HK.LAST_PLAN, HK.LAST_GRID
             print(f"phase7a {grid} block {list(block.vals.shape)} ({n} real rows) G={G}: "
                   f"hist_range matches plain for {len(HK.FUSED_HIST_FUNCS)} functions x "
-                  f"is_delta ({want_partials} partials, {HK.LAST_PLAN.rows} rows per block)")
+                  f"is_delta ({plan.partials} partials, {plan.rows} rows per tile, "
+                  f"{plan.slices} slice(s) of {plan.steps} steps, float{plan.vec} fetches, "
+                  f"ts {'staged' if plan.staged else 'in place'}; grid {grid_dims})")
     worst_q = 0.0
-    G, J = 5, 50
+    G = 6
     for first_le in (0.005, 0.0, -1.0):
+        block = hist_block_on_card("irregular", 300, 400, rng, device)
+        n, S = block.n_series, block.vals.shape[0]
+        gids = torch.full((S,), G, dtype=torch.int64, device=device)
+        gids[:n] = 4 + torch.arange(n, device=device) % 2
+        gids[3] = 3  # NaN bucket counts alone: buckets without a member
+        gids[7:n:50] = 1
+        block.vals[7:n:50] = 0.0  # zero totals; groups 0 and 2 have no member
         les = HIST_LES.copy()
         les[0] = first_le
-        vals = np.cumsum(rng.uniform(0, 4, (G + 1, j_pad, N_BUCKETS)), axis=-1).astype(np.float32)
-        cnts = np.ones((G + 1, j_pad, N_BUCKETS), np.float32)
-        vals[1] = 0.0  # zero total
-        cnts[2] = 0.0  # no member
-        cnts[3, 7, 4] = 0.0  # a bucket without a member
-        acc = torch.from_numpy(vals.reshape(G + 1, -1)).to(device)
-        cnt = torch.from_numpy(cnts.reshape(G + 1, -1)).to(device)
         les_t = torch.tensor(les, dtype=torch.float32, device=device)
         for q in (-0.1, 0.0, 0.5, 0.99, 1.0, 1.1):
-            got = HK.hist_quantile(q, acc, cnt, G, les_t, J)
-            want = HK.hist_quantile_plain(q, acc, cnt, G, les_t, J)
+            got, acc, cnt = HK.hist_range_quantile(q, "rate", block, gids, G, params, les_t)
+            want = HK.hist_quantile_plain(q, acc, cnt, G, les_t, params.num_steps)
             require(torch.equal(torch.isinf(got), torch.isinf(want)),
                     f"7a quantile q={q}: infinities differ")
             fin = torch.isfinite(want)
@@ -1344,21 +1367,26 @@ def phase_hist_vs_plain(seed: int, device) -> tuple[float, float]:
                                            rtol=1e-3))
             require(torch.equal(torch.isnan(got), torch.isnan(want)),
                     f"7a quantile q={q}: NaN masks differ")
-    print(f"phase7a hist_range matches plain (max_abs_err {worst_range:.3g}); hist_quantile "
-          f"matches plain at q in -0.1, 0, 0.5, 0.99, 1, 1.1, les[0] in 0.005, 0, -1 "
+    print(f"phase7a hist_range matches plain (max_abs_err {worst_range:.3g}; bit-equal at "
+          f"G = S); the folded quantile matches hist_quantile_plain on its launch's partials "
+          f"at q in -0.1, 0, 0.5, 0.99, 1, 1.1, les[0] in 0.005, 0, -1 "
           f"(max_abs_err {worst_q:.3g})")
     return worst_range, worst_q
 
 
-def run_hist(engine, q: str, want_class: str, want_variant: str, end_s: float = END_S):
+def run_hist(engine, q: str, want_class: str, want_variant: str, end_s: float = END_S,
+             folds: int = 1):
     """One histogram query through the user's entry point, every launch
-    count set to 0 just before and read just after: it must take
-    ``want_variant`` on a ``want_class`` grid and launch each histogram
-    kernel once and no other kernel. Returns the result, its [G, J] on the
-    host, the end-to-end seconds and the launch counts read after it."""
+    count and the folded-quantile count set to 0 just before and read just
+    after: it must take ``want_variant`` on a ``want_class`` grid, launch
+    the histogram range kernel exactly once and no other kernel, and carry
+    ``folds`` quantiles folded into that launch. Returns the result, its
+    [G, J] on the host, the end-to-end seconds and the counts read after it
+    (``hist_quantile``: the folded quantiles)."""
     import importlib
 
     from filodb_tpu_torch.ops import aggregations as AGG
+    from filodb_tpu_torch.ops import hist_kernels as HK
     from filodb_tpu_torch.ops.staging import grid_class
 
     mods = {name: importlib.import_module(f"filodb_tpu_torch.ops.{mod}")
@@ -1375,31 +1403,36 @@ def run_hist(engine, q: str, want_class: str, want_variant: str, end_s: float = 
     try:
         for name, (_, attr) in KERNEL_COUNTERS.items():
             setattr(mods[name], attr, 0)
+        HK.FOLDED_QUANTILES = 0
         t0 = time.perf_counter()
         res = engine.query_range(q, START_S, end_s, STEP_S)
         vals = res.grids[0].values_np()
         wall = time.perf_counter() - t0
         counts = {name: getattr(mods[name], attr) for name, (_, attr) in KERNEL_COUNTERS.items()}
+        counts["hist_quantile"] = HK.FOLDED_QUANTILES
     finally:
         AGG.hist_variant = ladder
     require(seen == [(want_class, want_variant)],
             f"{q}: grid class and variant {seen}, expected {[(want_class, want_variant)]}")
-    want = {k: int(k in HIST_KERNELS) for k in KERNEL_COUNTERS}
+    want = {k: int(k == "hist_range") for k in KERNEL_COUNTERS}
+    want["hist_quantile"] = folds
     require(counts == want, f"{q}: launches {counts}, expected {want}")
     return res, vals, wall, counts
 
 
+# the kernels JSON line's histogram rows: the range kernel's launches and
+# the quantiles folded into them
 HIST_KERNELS = ("hist_range", "hist_quantile")
 
 
 def add_launches(total: dict, counts: dict) -> dict:
-    """``total`` with each histogram kernel's count in ``counts`` added."""
+    """``total`` with each histogram row's count in ``counts`` added."""
     return {k: total.get(k, 0) + counts[k] for k in HIST_KERNELS}
 
 
 def hist_plain(entry, ex, q: float):
     """The canonical query's plain path on a superblock: the range kernel's
-    and the quantile kernel's plain versions, [G, J]."""
+    and the quantile's plain versions, [G, J]."""
     from filodb_tpu_torch.ops import aggregations as AGG
     from filodb_tpu_torch.ops import hist_kernels as HK
     from filodb_tpu_torch.ops.kernels import pad_steps
@@ -1412,15 +1445,16 @@ def hist_plain(entry, ex, q: float):
 
 
 def check_hist_partials(entry, ex, phase: str) -> tuple[float, float]:
-    """Both histogram kernels against their plain versions on the query's
-    superblock, at the main path's shape and layout. The range kernel's
-    ``(acc, cnt)``: member counts equal, the finished [G, J, B] group sums
-    within rtol 1e-3 (atomics reorder the f32 sums) with equal NaN masks.
-    The quantile kernel on those partials at q in {0.25, 0.5, 0.9, 0.99}
-    (rtol 1e-3): bench.py's +Inf bucket is twice bucket 10, so q = 0.99
-    always lands in the top bucket and returns its lower bound; a lower q
-    interpolates inside the buckets. Returns the largest absolute
-    differences (range, quantile)."""
+    """The kernel against its plain versions on the query's superblock, at
+    the main path's shape and layout, one launch per q in {0.25, 0.5, 0.9,
+    0.99} with the quantile folded in. Each launch's ``(acc, cnt)``: member
+    counts equal to plain, the finished [G, J, B] group sums within rtol
+    1e-3 (atomics and run sums reorder the f32 sums) with equal NaN masks;
+    its quantiles equal hist_quantile_plain on those partials (rtol 1e-3,
+    NaN and infinity masks equal). bench.py's +Inf bucket is twice bucket
+    10, so q = 0.99 always lands in the top bucket and returns its lower
+    bound; a lower q interpolates inside the buckets. Returns the largest
+    absolute differences (range, quantile)."""
     import torch
 
     from filodb_tpu_torch.ops import aggregations as AGG
@@ -1433,126 +1467,234 @@ def check_hist_partials(entry, ex, phase: str) -> tuple[float, float]:
     J, B = ex.num_steps(), block.vals.shape[2]
     windows = (AGG._hist_shared_windows(block, params, pad_steps(J))
                if block.regular_ts is not None else None)
-    acc, cnt = HK.hist_range_partials(ex.function, block, gids, G, params, windows)
-    plan = HK.LAST_PLAN
     pa, pc = HK.hist_partials_plain(ex.function, block, gids, G, params, windows)
-    require(torch.equal(cnt[:G], pc[:G]), f"{phase}: hist_range member counts differ from plain")
-    got = GA.finish_groups("sum", acc, cnt, G).reshape(G, -1, B)[:, :J]
     want = GA.finish_groups("sum", pa, pc, G).reshape(G, -1, B)[:, :J]
-    range_err = compare(got, want, f"{phase}: hist_range [G, J, B] vs plain", rtol=1e-3)
-    del pa, pc, got, want
-    q_err = 0.0
+    range_err = q_err = 0.0
     for q in (0.25, 0.5, 0.9, 0.99):
-        got = HK.hist_quantile(q, acc, cnt, G, entry.les_dev, J)
-        want = HK.hist_quantile_plain(q, acc, cnt, G, entry.les_dev, J)
-        q_err = max(q_err, compare(got[:, :J], want[:, :J], f"{phase}: hist_quantile q={q}",
-                                   rtol=1e-3))
+        out, acc, cnt = HK.hist_range_quantile(q, ex.function, block, gids, G, params,
+                                               entry.les_dev, windows)
+        require(torch.equal(cnt[:G], pc[:G]),
+                f"{phase}: hist_range member counts differ from plain")
+        got = GA.finish_groups("sum", acc, cnt, G).reshape(G, -1, B)[:, :J]
+        range_err = max(range_err, compare(got, want, f"{phase}: hist_range [G, J, B] vs plain",
+                                           rtol=1e-3))
+        qwant = HK.hist_quantile_plain(q, acc, cnt, G, entry.les_dev, J)
+        require(torch.equal(torch.isinf(out), torch.isinf(qwant)),
+                f"{phase}: folded quantile q={q}: infinities differ")
+        q_err = max(q_err, compare(out[:, :J], qwant[:, :J],
+                                   f"{phase}: folded quantile q={q}", rtol=1e-3))
+        del out, acc, cnt, got
+    plan, grid_dims = HK.LAST_PLAN, HK.LAST_GRID
     print(f"{phase}: at the main path's shape ({list(block.vals.shape)}, {plan.partials} "
-          f"partials, {plan.rows} rows per block) hist_range's [G, J, B] matches plain "
-          f"(max_abs_err {range_err:.3g}; member counts equal) and hist_quantile on its partials "
-          f"matches plain at q in 0.25, 0.5, 0.9, 0.99 (max_abs_err {q_err:.3g})")
+          f"partials, {plan.rows} rows per tile, {plan.slices} slice(s), float{plan.vec} "
+          f"fetches, ts {'staged' if plan.staged else 'in place'}, grid {grid_dims}, "
+          f"{plan.smem_bytes} bytes of shared memory) hist_range's [G, J, B] matches plain "
+          f"(max_abs_err {range_err:.3g}; member counts equal) and the folded quantile on "
+          f"its launch's partials matches plain at q in 0.25, 0.5, 0.9, 0.99 "
+          f"(max_abs_err {q_err:.3g})")
     return range_err, q_err
 
 
-def hist_bound_bytes(entry, ex, G: int, windows):
+def sampled_positions(block, params, windows, r0: int, r1: int):
+    """The distinct sample positions the rate family reads in rows [r0, r1):
+    each window's first and last sample where it holds two or more, as a
+    sorted [rows, 2J] tensor with -1 for none."""
+    import torch
+
+    J = params.num_steps
+    if windows is not None:
+        lo, hi = windows[0][:J].long(), windows[1][:J].long()
+        lo, hi = lo[None].expand(r1 - r0, J), hi[None].expand(r1 - r0, J)
+    else:
+        start_off = params.start_ms - block.base_ms
+        out_t = (start_off + torch.arange(J, device=block.ts.device)
+                 * params.step_ms).to(torch.int32)
+        ts = block.ts[r0:r1]
+        q_hi = out_t[None, :].expand(r1 - r0, J).contiguous()
+        hi = torch.searchsorted(ts, q_hi, right=True)
+        lo = torch.searchsorted(ts, (q_hi - params.window_ms).to(torch.int32), right=True)
+    ok = hi - lo >= 2
+    pos = torch.cat([torch.where(ok, lo, -1), torch.where(ok, hi - 1, -1)], dim=1)
+    return torch.sort(pos, dim=1).values
+
+
+def hist_bound_bytes(block, params, G: int, windows):
     """Bytes the range kernel's function must move over the real rows and
     steps: each real row's buckets at the distinct first and last samples
     of its windows with two samples or more (``sample_bytes``), plus, on
     per-series bounds, each real row's timestamps (the window search); each
-    row's gid (and length), the [J] bounds, and acc/cnt written once.
-    Returns (bound bytes, sample bytes)."""
-    import torch
-
-    block = entry.block
-    n, J = block.n_series, ex.num_steps()
-    B = block.vals.shape[2]
-    if windows is not None:
-        lo, hi = windows[0][:J].long(), windows[1][:J].long()
-        ok = hi - lo >= 2
-        distinct = len(torch.unique(torch.cat([lo[ok], hi[ok] - 1])))
-        sample_bytes = n * distinct * B * 4
-        return sample_bytes + n * 8 + 4 * J * 4 + 2 * G * J * B * 4, sample_bytes
-    start_off = ex.start_ms - block.base_ms
-    out_t = (start_off + torch.arange(J, device=block.ts.device) * ex.step_ms).to(torch.int32)
+    row's gid (and length), the [J] bounds, and acc/cnt written once. Also
+    the sector floor: the bytes of the 32-byte sectors those samples touch
+    (a 48-byte sample spans two), with the same other terms; and the same
+    count in 64- and 128-byte units, the granularities in which the memory
+    system may move them. Returns (bound bytes, sample bytes, {unit: floor
+    bytes} for units 32, 64 and 128)."""
+    n, J = block.n_series, params.num_steps
+    T, B = block.vals.shape[1], block.vals.shape[2]
+    width = B * 4
     sample_bytes = ts_bytes = 0
+    unit_bytes = {32: 0, 64: 0, 128: 0}
     for r0 in range(0, n, 8192):
         r1 = min(n, r0 + 8192)
-        ts = block.ts[r0:r1]
-        q_hi = out_t[None, :].expand(r1 - r0, J).contiguous()
-        hi = torch.searchsorted(ts, q_hi, right=True)
-        lo = torch.searchsorted(ts, (q_hi - ex.window_ms).to(torch.int32), right=True)
-        ok = hi - lo >= 2
-        pos = torch.cat([torch.where(ok, lo, -1), torch.where(ok, hi - 1, -1)], dim=1)
-        pos = torch.sort(pos, dim=1).values
+        pos = sampled_positions(block, params, windows, r0, r1)
         new = (pos[:, 1:] != pos[:, :-1]) & (pos[:, 1:] >= 0)
-        distinct = int(new.sum()) + int((pos[:, 0] >= 0).sum())
-        sample_bytes += distinct * B * 4
-        ts_bytes += int(block.lens[r0:r1].sum()) * 4
-    return sample_bytes + ts_bytes + n * 12 + 2 * G * J * B * 4, sample_bytes
+        sample_bytes += (int(new.sum()) + int((pos[:, 0] >= 0).sum())) * width
+        # row s's sample k lies at byte (s * T + k) * width of vals
+        rows = np.arange(r0, r1, dtype=np.int64)[:, None]
+        pos_np = pos.cpu().numpy().astype(np.int64)
+        off = (pos_np + rows * T) * width
+        for unit in unit_bytes:
+            first, last = off // unit, (off + width - 1) // unit
+            units = np.concatenate([np.where((first + k <= last) & (pos_np >= 0), first + k, -1)
+                                    for k in range((width + unit - 1) // unit + 1)], axis=1)
+            units = np.sort(units, axis=1)
+            distinct = (units[:, 1:] != units[:, :-1]) & (units[:, 1:] >= 0)
+            unit_bytes[unit] += (int(distinct.sum()) + int((units[:, 0] >= 0).sum())) * unit
+        if windows is None:
+            ts_bytes += int(block.lens[r0:r1].sum()) * 4
+    other = (n * 8 + 4 * J * 4 if windows is not None else ts_bytes + n * 12) + 2 * G * J * B * 4
+    return sample_bytes + other, sample_bytes, {u: b + other for u, b in unit_bytes.items()}
 
 
-def time_hist_kernels(entry, ex, device, phase: str) -> dict:
-    """Both histogram kernels on the query's superblock: per call (median
-    of 20 between CUDA events) and back to back (50), the device path, the
-    plain versions, and the bounds."""
+def hist_split_libs() -> dict:
+    """The histogram kernel's split builds (``tile_sweep.HIST_PATCHES``):
+    "search only" and "fetch only", each built apart and bound."""
+    import importlib.util
+    from pathlib import Path
+
+    from filodb_tpu_torch.ops import hist_kernels as HK
+
+    spec = importlib.util.spec_from_file_location(
+        "tile_sweep", Path(__file__).resolve().parent / "tile_sweep.py")
+    sweep = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sweep)
+    names = list(sweep.HIST_PATCHES)
+    with ThreadPoolExecutor(len(names)) as pool:
+        libs = pool.map(lambda k: sweep.build_patched("hist_range", sweep.HIST_PATCHES[k],
+                                                      HK.bind), names)
+    return dict(zip(names, libs))
+
+
+def time_hist_kernel(block, gids, G: int, params, windows, func: str, les, device,
+                     phase: str, split_libs=None, rows_sweep=()) -> dict:
+    """The histogram kernel on one block: alone and with the quantile folded
+    in, per call (median of 20 between CUDA events) and back to back (50);
+    the folded quantile's own ms is the difference. Beside them the bound,
+    the sector floor, the plain versions' ms, the split builds (search only,
+    fetch only) and, for each rows-per-tile count in ``rows_sweep``, the
+    kernel at that layout."""
+    import dataclasses
+
+    import torch
+
+    from filodb_tpu_torch.ops import hist_kernels as HK
+    from filodb_tpu_torch.ops.kernels import pad_steps
+
+    J, B = params.num_steps, block.vals.shape[2]
+    j_pad = pad_steps(J)
+    plan = HK.hist_plan(block.vals.shape[1], J, B, G, windows is not None)
+    acc, cnt, arrivals = HK.hist_buffers(G, j_pad * B, plan.slices, device)
+    out = torch.full((G, j_pad), float("nan"), dtype=torch.float32, device=device)
+
+    def launch(quantile: bool, lib=None, layout=None):
+        fold = (0.99, les, out, arrivals) if quantile else None
+        return lambda: HK._launch_range(func, block, gids, G, params, windows, False, acc, cnt,
+                                        quantile=fold, plan=layout, lib=lib)
+
+    gpu_sample(f"{phase} before")
+    r_ms, r_b2b = cuda_ms(launch(False), reps=20), back_to_back_ms(launch(False))
+    f_ms, f_b2b = cuda_ms(launch(True), reps=20), back_to_back_ms(launch(True))
+    split = {}
+    for name, lib in (split_libs or {}).items():
+        split[name] = back_to_back_ms(launch(False, lib=lib))
+    sweep = {}
+    for rows in rows_sweep:
+        layout = dataclasses.replace(plan, rows=rows, smem_bytes=HK.hist_smem_bytes(
+            G, B, plan.steps, rows, block.vals.shape[1], windows is not None, plan.shared,
+            plan.staged))
+        sweep[rows] = back_to_back_ms(launch(False, layout=layout))
+    gpu_sample(f"{phase} after")
+    grid_dims = HK.hist_grid(plan, block.vals.shape[0],
+                             HK.resident_blocks(plan, windows is not None, device))
+    rp_ms = cuda_ms(lambda: HK.hist_partials_plain(func, block, gids, G, params, windows),
+                    reps=3, warmup=1)
+    pa, pc = HK.hist_partials_plain(func, block, gids, G, params, windows)
+    qp_ms = cuda_ms(lambda: HK.hist_quantile_plain(0.99, pa, pc, G, les, J), reps=3, warmup=1)
+    del pa, pc
+    bound, sample_bytes, floors = hist_bound_bytes(block, params, G, windows)
+    floor = floors[32]
+    q_bytes = 2 * G * J * B * 4 + B * 4 + G * J * 4
+    to_ms = 1e3 / HBM_BYTES_PER_S
+    split_note = "".join(f"; {k} {v:.4f} ms" for k, v in split.items())
+    sweep_note = "".join(f"; rows per tile {k}: {v:.4f} ms" for k, v in sweep.items())
+    print(f"{phase}: hist_range kernel {r_ms:.4f} ms (median of 20; {r_b2b:.4f} ms back to "
+          f"back; {plan.partials} partials, {plan.rows} rows per tile, {plan.slices} slice(s), "
+          f"float{plan.vec}, ts {'staged' if plan.staged else 'in place'}, grid {grid_dims}), "
+          f"bound {bound * to_ms:.4f} ms ({bound} bytes at 3.35 TB/s, of which {sample_bytes} "
+          f"bucket bytes at the windows' first and last samples), sector floor "
+          f"{floor * to_ms:.4f} ms ({floor} bytes; in 64-byte units {floors[64] * to_ms:.4f} ms, "
+          f"in 128-byte units {floors[128] * to_ms:.4f} ms), plain {rp_ms:.2f} ms; with the quantile "
+          f"folded in {f_ms:.4f} ms ({f_b2b:.4f} ms back to back): the fold adds "
+          f"{f_ms - r_ms:.4f} ms ({f_b2b - r_b2b:.4f} back to back), its bytes' bound "
+          f"{q_bytes * to_ms:.6f} ms ({q_bytes} bytes), plain quantile {qp_ms:.3f} ms"
+          f"{split_note}{sweep_note}")
+    return {"range_ms": r_ms, "range_ms_back_to_back": r_b2b, "range_plain_ms": rp_ms,
+            "range_bound_ms": bound * to_ms, "range_bound_bytes": bound,
+            "range_sample_bytes": sample_bytes, "sector_floor_ms": floor * to_ms,
+            "sector_floor_bytes": floor, "floor_64b_ms": floors[64] * to_ms,
+            "floor_128b_ms": floors[128] * to_ms, "partials": plan.partials, "rows": plan.rows,
+            "slices": plan.slices, "vec": plan.vec, "threads": plan.threads,
+            "staged": plan.staged,
+            "grid": list(grid_dims), "smem_bytes": plan.smem_bytes,
+            "folded_ms": f_ms, "folded_ms_back_to_back": f_b2b,
+            "quantile_ms": f_ms - r_ms, "quantile_ms_back_to_back": f_b2b - r_b2b,
+            "quantile_plain_ms": qp_ms, "quantile_bound_ms": q_bytes * to_ms,
+            "split_ms_back_to_back": split, "rows_sweep_ms_back_to_back": sweep}
+
+
+def time_hist_kernels(entry, ex, device, phase: str, split_libs=None) -> dict:
+    """The kernel on the query's superblock (``time_hist_kernel``) and the
+    device path (the wrapper: buffers, one launch, output), per call and
+    back to back. On shared bounds also the large-G tail: the same block
+    grouped 1000 ways, where the last block of the slice interpolates G x J
+    quantiles alone."""
     import torch
 
     from filodb_tpu_torch.ops import aggregations as AGG
-    from filodb_tpu_torch.ops import group_acc as GA
-    from filodb_tpu_torch.ops import hist_kernels as HK
     from filodb_tpu_torch.ops.kernels import pad_steps
 
     block = entry.block
     gids, G, params = path_args(entry, ex)
-    J, j_pad, B = ex.num_steps(), pad_steps(ex.num_steps()), block.vals.shape[2]
-    windows = (AGG._hist_shared_windows(block, params, j_pad)
+    windows = (AGG._hist_shared_windows(block, params, pad_steps(ex.num_steps()))
                if block.regular_ts is not None else None)
     q = float(ex.hist_quantile)
-    acc, cnt = GA.accumulators("sum", G, j_pad * B, device)
-    qacc, qcnt = HK.hist_range_partials(ex.function, block, gids, G, params, windows)
-    out = torch.full((G, j_pad), float("nan"), device=device)
-
-    def range_kernel():
-        HK._launch_range(ex.function, block, gids, G, params, windows, False, acc, cnt)
-
-    def quantile_kernel():
-        HK._launch_quantile(q, qacc, qcnt, G, entry.les_dev, J, out)
+    timing = time_hist_kernel(block, gids, G, params, windows, ex.function, entry.les_dev,
+                              device, phase, split_libs)
 
     def device_path():
         AGG.fused_hist_range_aggregate(ex.function, block, gids, G, params, entry.les_dev, q=q)
 
-    gpu_sample(f"{phase} before")
-    r_ms, r_b2b = cuda_ms(range_kernel, reps=20), back_to_back_ms(range_kernel)
-    q_ms, q_b2b = cuda_ms(quantile_kernel, reps=20), back_to_back_ms(quantile_kernel)
     d_ms, d_b2b = cuda_ms(device_path, reps=20), back_to_back_ms(device_path)
-    gpu_sample(f"{phase} after")
-    rp_ms = cuda_ms(lambda: HK.hist_partials_plain(ex.function, block, gids, G, params, windows),
-                    reps=3, warmup=1)
-    qp_ms = cuda_ms(lambda: HK.hist_quantile_plain(q, qacc, qcnt, G, entry.les_dev, J),
-                    reps=3, warmup=1)
-    bound, sample_bytes = hist_bound_bytes(entry, ex, G, windows)
-    q_bytes = 2 * G * J * B * 4 + B * 4 + G * J * 4
-    plan = HK.LAST_PLAN
-    print(f"{phase}: hist_range kernel {r_ms:.4f} ms (median of 20; {r_b2b:.4f} ms back to back; "
-          f"{plan.partials} partials, {plan.rows} rows per block), bound "
-          f"{bound / HBM_BYTES_PER_S * 1e3:.4f} ms ({bound} bytes at 3.35 TB/s, of which "
-          f"{sample_bytes} bucket bytes at the windows' first and last samples), plain "
-          f"{rp_ms:.2f} ms; hist_quantile kernel {q_ms:.4f} ms ({q_b2b:.4f} ms back to back), "
-          f"bound {q_bytes / HBM_BYTES_PER_S * 1e3:.6f} ms ({q_bytes} bytes), plain "
-          f"{qp_ms:.3f} ms; device path (both launches, accumulators, output) {d_ms:.4f} ms "
+    print(f"{phase}: device path (buffers, one launch, output) {d_ms:.4f} ms "
           f"({d_b2b:.4f} ms back to back)")
-    return {"range_ms": r_ms, "range_ms_back_to_back": r_b2b, "range_plain_ms": rp_ms,
-            "range_bound_ms": bound / HBM_BYTES_PER_S * 1e3, "range_bound_bytes": bound,
-            "range_sample_bytes": sample_bytes, "partials": plan.partials, "rows": plan.rows,
-            "quantile_ms": q_ms, "quantile_ms_back_to_back": q_b2b, "quantile_plain_ms": qp_ms,
-            "quantile_bound_ms": q_bytes / HBM_BYTES_PER_S * 1e3, "device_path_ms": d_ms,
-            "device_path_ms_back_to_back": d_b2b}
+    timing.update(device_path_ms=d_ms, device_path_ms_back_to_back=d_b2b)
+    if windows is not None:
+        g1000 = torch.full_like(gids, 1000)
+        g1000[: block.n_series] = torch.arange(block.n_series, device=device) % 1000
+        tail = time_hist_kernel(block, g1000, 1000, params, windows, ex.function,
+                                entry.les_dev, device, f"{phase} G=1000")
+        timing["g1000"] = {k: tail[k] for k in (
+            "range_ms_back_to_back", "folded_ms_back_to_back", "quantile_ms_back_to_back",
+            "partials", "slices", "grid")}
+    return timing
 
 
 def hist_cold_warm(engine, phase: str, want_class: str, want_variant: str) -> dict:
     """The canonical query cold (a superblock build), then warm (a cache hit
-    with no staging); one launch of each histogram kernel each time; the
-    warm [G, J] equals the cold one (rtol 1e-3)."""
+    with no staging); one launch of the histogram range kernel each time,
+    the quantile folded into it; the warm [G, J] equals the cold one (rtol
+    1e-3). Then ``sum by (le)`` of the same selection, warm: one launch, no
+    quantile."""
     import torch
 
     res, cold, cold_s, counts = run_hist(engine, HIST_QUERY, want_class, want_variant)
@@ -1567,10 +1709,17 @@ def hist_cold_warm(engine, phase: str, want_class: str, want_variant: str) -> di
     compare(torch.from_numpy(warm), torch.from_numpy(cold), f"{phase}: warm vs cold", rtol=1e-3)
     require(warm.shape == (1, res.grids[0].num_steps), f"{phase}: [G, J] shape {warm.shape}")
     require(np.isfinite(warm[0, 5:]).all(), f"{phase}: non-finite quantiles")
+    sum_res, _, sum_s, counts = run_hist(engine, HIST_SUM_QUERY, want_class, want_variant,
+                                         folds=0)
+    launches = add_launches(launches, counts)
+    sums = sum_res.grids[0].hist_np()
+    require(sum_res.stats.cache_hits == 1 and sums is not None and sums.shape[-1] == N_BUCKETS,
+            f"{phase}: sum by (le) must hit the cached superblock, stats {sum_res.stats}")
     print(f"{phase} {HIST_QUERY!r}: grid {want_class}, variant {want_variant}, "
           f"{st.series_scanned} series, {st.samples_scanned} samples; cold {cold_s * 1e3:.1f} ms "
-          f"(cache miss), warm {warm_s * 1e3:.1f} ms (hit, no staging); one hist_range and one "
-          f"hist_quantile launch each, no other kernel; warm [G, J] equals cold (rtol 1e-3)")
+          f"(cache miss), warm {warm_s * 1e3:.1f} ms (hit, no staging); one hist_range launch "
+          f"each with the quantile folded in, no other kernel; warm [G, J] equals cold (rtol "
+          f"1e-3); {HIST_SUM_QUERY!r} warm {sum_s * 1e3:.1f} ms, one launch, no quantile")
     return {"res": res, "vals": warm, "cold_ms": cold_s * 1e3, "warm_ms": warm_s * 1e3,
             "launches": launches}
 
@@ -1646,7 +1795,7 @@ def phase_hist_live_edge(engine, device) -> dict:
             "final_max_abs_err": err, "launches": launches}
 
 
-def phase_hist_bench(device) -> dict:
+def phase_hist_bench(device, split_libs) -> dict:
     """7b: bench.py's hist_quantile workload end to end."""
     import torch
 
@@ -1676,7 +1825,7 @@ def phase_hist_bench(device) -> dict:
           f"[G, J] matches the plain path (max_abs_err {err:.3g}) and bench.py's f64 oracle "
           f"(rtol 5e-3, {oracle_s:.1f} s on the host)")
     range_err, q_err = check_hist_partials(entry, ex, "phase7b")
-    timing = time_hist_kernels(entry, ex, device, "phase7b")
+    timing = time_hist_kernels(entry, ex, device, "phase7b", split_libs)
     del entry
     live = phase_hist_live_edge(engine, device)
     return {"cold_ms": run["cold_ms"], "warm_ms": run["warm_ms"], "superblock_bytes": nbytes,
@@ -1685,7 +1834,7 @@ def phase_hist_bench(device) -> dict:
             "live_edge": live}
 
 
-def phase_hist_irregular(device, n_series: int) -> dict:
+def phase_hist_irregular(device, n_series: int, split_libs) -> dict:
     """7c: the per-series bounds entry at scale: the same store on irregular
     5-15 s scrapes, the canonical query cold then warm on ``hist_general``,
     against the plain path."""
@@ -1706,10 +1855,88 @@ def phase_hist_irregular(device, n_series: int) -> dict:
     print(f"phase7c: superblock {list(entry.block.vals.shape)}; [G, J] matches the plain path "
           f"(max_abs_err {err:.3g})")
     range_err, q_err = check_hist_partials(entry, ex, "phase7c")
-    timing = time_hist_kernels(entry, ex, device, "phase7c")
+    timing = time_hist_kernels(entry, ex, device, "phase7c", split_libs)
     return {"series": n_series, "cold_ms": run["cold_ms"], "warm_ms": run["warm_ms"],
             "max_abs_err": err, "range_max_abs_err": range_err, "quantile_max_abs_err": q_err,
             "launches": run["launches"], **timing}
+
+
+def hist_block_bulk_on_card(n_real: int, m: int, seed: int, device):
+    """``hist_block_on_card``'s irregular histograms drawn in bulk on the
+    card from a seeded torch generator: per series a length in [m/2, m]
+    (series n_real/2 empty), 5-15 s intervals, Poisson(2) increments per
+    bucket with the +Inf bucket their sum, cumulative over the buckets and
+    in time (integers, exact in f32), NaN counts in series 3; padded rows
+    and samples as staging pads them."""
+    import torch
+
+    from filodb_tpu_torch.ops.staging import TS_PAD, StagedBlock, pad_series, pad_time
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    S, T = pad_series(n_real), pad_time(m)
+    lens = torch.zeros(S, dtype=torch.int32, device=device)
+    lens[:n_real] = torch.randint(m // 2, m + 1, (n_real,), generator=gen, device=device,
+                                  dtype=torch.int32)
+    lens[n_real // 2] = 0
+    ts = torch.full((S, T), int(TS_PAD), dtype=torch.int32, device=device)
+    vals = torch.zeros((S, T, N_BUCKETS), dtype=torch.float32, device=device)
+    lane = torch.arange(T, device=device)
+    for r0 in range(0, n_real, 8192):
+        r1 = min(n_real, r0 + 8192)
+        live = lane[None, :] < lens[r0:r1, None]
+        gaps = torch.randint(5_000, 15_001, (r1 - r0, T), generator=gen, device=device)
+        ts[r0:r1] = torch.where(live, torch.cumsum(gaps, dim=1), int(TS_PAD)).to(torch.int32)
+        incr = torch.poisson(torch.full((r1 - r0, T, N_BUCKETS), 2.0, device=device),
+                             generator=gen)
+        incr[..., -1] = incr.sum(-1)
+        h = torch.cumsum(torch.cumsum(incr, dim=2), dim=1)
+        vals[r0:r1] = torch.where(live[..., None], h, 0.0)
+    vals[3, 20:24, 2] = float("nan")
+    block = StagedBlock(ts, vals, lens, BASE, torch.zeros((S, N_BUCKETS), device=device),
+                        n_real, [])
+    require(block.regular_ts is None and int(lens.max()) <= m, "card block: irregular rows")
+    return block
+
+
+def phase_hist_card_block(device, split_libs) -> dict:
+    """The per-series bounds at PR 5's 100k-series shape without a host
+    build: 100k irregular 12-bucket histograms made on the card
+    (``hist_block_bulk_on_card``, 720 samples at most), the canonical rate
+    over bench.py's range into one group, with the quantile folded in. The
+    partials and the folded quantile against plain (rtol 1e-3); the
+    kernel's times beside the bound, the sector floor, the split builds and
+    each rows-per-tile layout."""
+    import torch
+
+    from filodb_tpu_torch.ops import group_acc as GA
+    from filodb_tpu_torch.ops import hist_kernels as HK
+    from filodb_tpu_torch.ops.kernels import RangeParams
+
+    t0 = time.perf_counter()
+    block = hist_block_bulk_on_card(N_SERIES, N_SAMPLES, HIST_SEED, device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    S = block.vals.shape[0]
+    num_steps = int((END_S - START_S) // STEP_S) + 1
+    params = RangeParams(int(START_S * 1000), int(STEP_S * 1000), num_steps, WINDOW_MS)
+    gids = torch.ones(S, dtype=torch.int64, device=device)
+    gids[:N_SERIES] = 0
+    les = torch.tensor(HIST_LES, dtype=torch.float32, device=device)
+    out, acc, cnt = HK.hist_range_quantile(0.5, "rate", block, gids, 1, params, les)
+    pa, pc = HK.hist_partials_plain("rate", block, gids, 1, params)
+    require(torch.equal(cnt[:1], pc[:1]), "card block: member counts differ from plain")
+    range_err = compare(GA.finish_groups("sum", acc, cnt, 1), GA.finish_groups("sum", pa, pc, 1),
+                        "card block: hist_range partials vs plain", rtol=1e-3)
+    q_err = compare(out, HK.hist_quantile_plain(0.5, acc, cnt, 1, les, num_steps),
+                    "card block: folded quantile vs plain", rtol=1e-3)
+    del out, acc, cnt, pa, pc
+    print(f"phase7d: {N_SERIES} irregular histogram series made on the card in {build_s:.1f} s, "
+          f"block {list(block.vals.shape)}; hist_range partials match plain (max_abs_err "
+          f"{range_err:.3g}), the folded quantile too (max_abs_err {q_err:.3g})")
+    timing = time_hist_kernel(block, gids, 1, params, None, "rate", les, device, "phase7d",
+                              split_libs, rows_sweep=(2, 4, 8))
+    return {"series": N_SERIES, "build_s": build_s, "range_max_abs_err": range_err,
+            "quantile_max_abs_err": q_err, **timing}
 
 
 def main() -> int:
@@ -1726,7 +1953,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 matmuls in full f32
     device = torch.device("cuda")
-    build_kernels()
+    split_libs = build_kernels()
     card = card_line()
     print(f"phase1 card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
@@ -1757,10 +1984,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     range_err, q_err = phase_hist_vs_plain(args.seed, device)
-    bench_hist = phase_hist_bench(device)
+    bench_hist = phase_hist_bench(device, split_libs)
     gc.collect()  # bench.py's histogram store goes before the irregular one is built
     torch.cuda.empty_cache()
-    irr_hist = phase_hist_irregular(device, HIST_IRREGULAR_SERIES)
+    irr_hist = phase_hist_irregular(device, HIST_IRREGULAR_SERIES, split_libs)
+    gc.collect()  # the irregular store goes before the card block is made
+    torch.cuda.empty_cache()
+    card_hist = phase_hist_card_block(device, split_libs)
     launches = add_launches(bench_hist["launches"], irr_hist["launches"])
     hist_rows = [{
         "name": "hist_range",
@@ -1769,7 +1999,7 @@ def main() -> int:
         "replaces": "filodb_tpu/ops/hist_kernels.py:157",
         "launches": launches["hist_range"],
         "max_abs_err": max(range_err, bench_hist["range_max_abs_err"],
-                           irr_hist["range_max_abs_err"]),
+                           irr_hist["range_max_abs_err"], card_hist["range_max_abs_err"]),
         "ms": bench_hist["range_ms"],
         "plain_ms": bench_hist["range_plain_ms"],
         "bound_ms": bench_hist["range_bound_ms"],
@@ -1778,27 +2008,33 @@ def main() -> int:
         "library_call": "none: no torch call computes a windowed, extrapolated per-bucket rate",
         "ms_back_to_back": bench_hist["range_ms_back_to_back"],
         "bound_bytes": bench_hist["range_bound_bytes"],
+        "sector_floor_ms": bench_hist["sector_floor_ms"],
         "per_series_bounds": {k: irr_hist[k] for k in (
-            "range_ms", "range_ms_back_to_back", "range_plain_ms", "range_bound_ms")},
+            "range_ms", "range_ms_back_to_back", "range_plain_ms", "range_bound_ms",
+            "sector_floor_ms")},
+        "per_series_bounds_100k_card_block": {k: card_hist[k] for k in (
+            "range_ms", "range_ms_back_to_back", "range_plain_ms", "range_bound_ms",
+            "sector_floor_ms")},
     }, {
         "name": "hist_quantile",
-        "route": "cuda",
+        "route": "folded into hist_range",
         "source": "filodb_tpu_torch/csrc/hist_range.cu",
         "replaces": "filodb_tpu/ops/hist_kernels.py:86",
         "launches": launches["hist_quantile"],
         "max_abs_err": max(q_err, bench_hist["quantile_max_abs_err"],
-                           irr_hist["quantile_max_abs_err"]),
-        "ms": bench_hist["quantile_ms"],
+                           irr_hist["quantile_max_abs_err"], card_hist["quantile_max_abs_err"]),
+        "ms": bench_hist["quantile_ms_back_to_back"],
         "plain_ms": bench_hist["quantile_plain_ms"],
         "bound_ms": bench_hist["quantile_bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
         "library_call": "none: no torch call interpolates histogram_quantile",
-        "ms_back_to_back": bench_hist["quantile_ms_back_to_back"],
+        "ms_per_call": bench_hist["quantile_ms"],
+        "ms_is": "back to back, a range launch with the quantile folded in less one without it",
     }]
 
     print(json.dumps({"cache": {"phase6": live, "phase6b": live_jit}}))
-    print(json.dumps({"hist": {"phase7b": bench_hist, "phase7c": irr_hist}}))
+    print(json.dumps({"hist": {"phase7b": bench_hist, "phase7c": irr_hist, "phase7d": card_hist}}))
     print(json.dumps({"kernels": [ws_row, wr_row, reg_row, *hist_rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

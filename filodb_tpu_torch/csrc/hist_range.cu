@@ -1,44 +1,56 @@
-// Native-histogram range functions fused with the per-bucket group sum,
-// and the histogram_quantile epilogue, on Hopper (sm_90a).
+// Native-histogram range functions fused with the per-bucket group sum
+// and, in the same launch, the histogram_quantile epilogue, on Hopper
+// (sm_90a).
 //
-// 1. hist_range_kernel (entry filodb_hist_range_aggregate) replaces the
-//    two XLA programs that filodb_tpu/ops/hist_kernels.py runs behind one
-//    jit: the per-bucket range function -- hist_range_kernel (:29, window
-//    bounds searched per series) or _hist_range_shared (:157, the [J]
-//    bounds of a shared regular grid) -- and _segment_aggregate_jit "sum"
-//    over the flattened [S, J*B] grid, as _fused_hist_jit (:351) and
-//    _fused_hist_shared_jit (:329) compose them. For every (row s, step
-//    j < J, bucket b) it computes rate / increase / delta (Prometheus
-//    extrapolation, no zero cap), sum_over_time (and rate / increase of a
-//    delta column) as the window sum, or last, and reduces it straight into
-//    [G, J*B] group accumulators acc (the sum) and cnt (valid members); no
-//    [S, J, B] plane reaches device memory.
-// 2. hist_quantile_kernel (entry filodb_hist_quantile) replaces
-//    histogram_quantile (:86) in the quantile epilogue: it finishes the
-//    group partials (a bucket with no member is NaN) and interpolates
-//    Prometheus' histogram_quantile over the bucket axis, one thread per
-//    (group, step).
+// hist_range_kernel (entry filodb_hist_range_aggregate) replaces the XLA
+// programs that filodb_tpu/ops/hist_kernels.py runs behind one jit: the
+// per-bucket range function -- hist_range_kernel (:29, window bounds
+// searched per series) or _hist_range_shared (:157, the [J] bounds of a
+// shared regular grid) -- _segment_aggregate_jit "sum" over the flattened
+// [S, J*B] grid, and, with a quantile, histogram_quantile (:86), as
+// _fused_hist_jit (:351) and _fused_hist_shared_jit (:329) compose them.
+// For every (row s, step j < J, bucket b) it computes rate / increase /
+// delta (Prometheus extrapolation, no zero cap), sum_over_time (and rate /
+// increase of a delta column) as the window sum, or last, and reduces it
+// straight into [G, J*B] group accumulators acc (the sum) and cnt (valid
+// members); no [S, J, B] plane reaches device memory. With a quantile, the
+// block that finishes a slice's partials last interpolates them into out
+// [G, J].
 //
-// Design of hist_range_kernel. A sample's B buckets are contiguous
-// ([S, T, B]), so each thread owns one column c = j * B + b of the
-// flattened (step, bucket) axis -- the 256 threads of a block take 256
-// neighbouring columns, and neighbouring lanes read neighbouring buckets
-// of one sample, then the next step's -- and walks a chunk of rows
-// (blockIdx.y), keeping a running sum of its column while consecutive rows
-// share a group. A run is folded into the group partials when the group
-// changes and at the chunk's end: shared-memory [G, 256] partials flushed
-// once per block when 2*G*256*4 bytes fit the wrapper's budget, else
-// global atomics. With shared bounds the window [lo, hi) and the
-// extrapolation factor of a column are the same in every row, so a
-// thread computes them once; with per-series bounds each row's window is
-// searched in its ts row (window_search.cuh), the 12 lanes of one step
-// reading the same entries.
+// Design. A persistent grid of blocks (gridDim.x of them per slice) walks
+// tiles of R rows (row_tiles.cuh); the plan sizes a block to its slice's
+// column vectors (below), so that no warp idles through a second, partial
+// pass over the columns. Slice blockIdx.y owns whole
+// steps [j0, j0 + steps) -- all their B buckets -- so a row's ts, lens and
+// gid are read once per slice, and mostly there is one slice. Each tile:
+// 1. Bounds. Per-series: the tile's ts rows were copied into shared memory
+//    by cp.async while the previous tile was computed (double-buffered,
+//    only each row's samples); each (row, step) pair's window [lo, hi) and
+//    extrapolation factor are searched once in shared memory
+//    (window_search.cuh) into a [R, steps] table that the step's B bucket
+//    lanes read. Shared bounds: the [steps] table is filled once per block.
+// 2. Fetch. A thread owns fixed column vectors of the slice -- V
+//    contiguous buckets of one step, fetched whole as float4 (V = 4) or
+//    float2 where B allows -- and walks the tile's rows, two at a time
+//    with every load issued before any is used, keeping V run sums while
+//    consecutive rows share a group. A run is added to the block's shared
+//    [G, steps*B] partials (no atomic: each column has one owner thread)
+//    or, when those do not fit, to the global arrays with atomics.
+// Shared partials are flushed once per block. Then every block issues
+// __threadfence() and one atomicAdd on its slice's arrival counter; the
+// last to arrive reads the finished partials through L2 (__ldcg) and
+// interpolates the slice's [G, steps] quantiles, one thread per (group,
+// step), and sets the counter back to 0 for the next launch into the same
+// buffers. The wrapper carves the counters from the accumulators' zeroed
+// allocation, so no launch is spent on them.
 //
-// Bound of hist_range_kernel: device-memory bytes. For rate, increase and
-// delta, each real row's buckets at the distinct first and last samples
-// of the query's windows (bench.py's 100k-series store: 222 samples x 12
-// buckets x 4 bytes per row, 1,065,600,000 bytes, 0.32 ms at 3.35 TB/s),
-// gids and the outputs; a few dozen flops per (row, step, bucket).
+// Bound: device-memory bytes. For rate, increase and delta, each real
+// row's buckets at the distinct first and last samples of the query's
+// windows (bench.py's 100k-series store: 222 samples x 12 buckets x 4
+// bytes per row, 1,065,600,000 bytes, 0.32 ms at 3.35 TB/s), each row's
+// timestamps for per-series bounds, gids and the outputs. A 48-byte
+// sample spans two 32-byte sectors, so the data format's own floor (the
+// sectors the sampled positions touch) lies above that.
 //
 // Semantics kept from the JAX package: f32 extrapolation with the 1.1 x
 // average-duration rule and no zero cap; NaN where a window holds fewer
@@ -54,6 +66,7 @@
 #include <stdint.h>
 
 #include "group_acc.cuh"
+#include "row_tiles.cuh"
 #include "window_search.cuh"
 
 namespace {
@@ -63,7 +76,12 @@ using window_search::lower_edge;
 using window_search::wrap_add;
 using window_search::wrap_mul;
 
-constexpr int THREADS = 256;  // columns per block of hist_range_kernel
+constexpr int UNROLL = 2;         // rows whose loads a thread issues before using any
+constexpr int MAX_THREADS = 384;  // threads per block (the plan sizes it to the slice)
+// blocks per SM the register budget is cut for (64 K registers / (384 x 3)
+// leave 56 a thread): on an H100, three blocks with two rows' loads in
+// flight per thread ran faster than two with four (tile_sweep.py --hist)
+constexpr int MIN_BLOCKS = 3;
 
 // range functions (ops/hist_kernels.py HIST_FUNC_CODES)
 enum HFunc { H_RATE = 0, H_INCREASE, H_DELTA, H_SUM_OVER_TIME, H_LAST };
@@ -77,13 +95,34 @@ struct HistArgs {
     const int32_t* hi;
     const int32_t* t_first;  // [J] shared bounds: the window's first/last timestamps
     const int32_t* t_last;
+    const float* les;        // [B] bucket bounds (quantile)
     int S, T, B, J, ld, G;
     int32_t start, step, window;
     int func, is_delta;
-    int rows;  // rows per block (blockIdx.y walks chunks of them)
+    int R;      // rows per tile
+    int steps;  // steps per slice
+    int quantile;
+    float q;
+    int ld_out;
+    float* out;               // [G, ld_out] quantiles (quantile)
+    unsigned int* arrivals;   // [slices] arrival counters, zero (quantile)
     float* acc;
     float* cnt;
 };
+
+__host__ __device__ __forceinline__ int64_t round4(int64_t x) { return (x + 3) & ~(int64_t)3; }
+
+// Words of dynamic shared memory (ops/hist_kernels.hist_plan mirrors it):
+// the [G, steps*B] acc/cnt partials (shared), R gids, the lo/hi/factor
+// table ([steps] shared bounds, [R, steps] per series) and both ts tile
+// buffers (staged).
+__host__ __device__ __forceinline__ int64_t smem_words(int G, int B, int steps, int R, int T,
+                                                       bool shared_bounds, bool shared,
+                                                       bool staged) {
+    const int64_t part = shared ? round4((int64_t)2 * G * steps * B) : 0;
+    const int64_t nb = (int64_t)(shared_bounds ? 1 : R) * steps;
+    return part + round4(R) + round4(3 * nb) + (staged ? (int64_t)2 * R * T : 0);
+}
 
 // hist_kernels.py:59-77 / :185-200: Prometheus' extrapolation factor of a
 // window of cnt samples whose first and last timestamps are tf and tl
@@ -104,146 +143,89 @@ __device__ __forceinline__ float extrap_factor(int cnt_i, int32_t tf_i, int32_t 
     return (sampled + dur_start + dur_end) / fmaxf(sampled, 1e-30f);
 }
 
-// fold a run of n values summing to v into group g's partial of column col
-__device__ __forceinline__ void fold_run(float* acc, float* cnt, int64_t ld, long long g,
-                                         int col, float v, float n) {
-    const int64_t i = g * ld + col;
-    group_acc::fold(acc + i, cnt + i, group_acc::ACC_ADD, v, n);
-}
-
-template <bool SHARED_BOUNDS, bool SHARED>
-__global__ void __launch_bounds__(THREADS) hist_range_kernel(const HistArgs a) {
-    extern __shared__ __align__(16) float smem[];
-    const int part = SHARED ? a.G * THREADS : 0;
-    float* acc_s = smem;
-    float* cnt_s = smem + part;
-    if (SHARED) {
-        group_acc::shared_init(acc_s, cnt_s, part, group_acc::ACC_ADD);
-        __syncthreads();
-    }
-    const int c0 = blockIdx.x * THREADS;
-    const int c = c0 + threadIdx.x;
-    if (c < a.J * a.B) {
-        const float NaN = group_acc::nan_f();
-        const int B = a.B;
-        const int j = c / B, b = c - j * B;
-        const int32_t t_j = wrap_add(a.start, wrap_mul(j, a.step));
-        const float w_s = (float)a.window * 1e-3f;
-        const bool win_sum =
-            a.func == H_SUM_OVER_TIME || (a.is_delta && (a.func == H_RATE || a.func == H_INCREASE));
-        const bool extrap = !win_sum && a.func != H_LAST;
-        int lo = 0, hi = 0;
-        float factor = 0.0f;
-        if (SHARED_BOUNDS) {  // the same window in every row
-            lo = __ldg(a.lo + j);
-            hi = __ldg(a.hi + j);
-            if (extrap && hi - lo >= 2)
-                factor = extrap_factor(hi - lo, __ldg(a.t_first + j), __ldg(a.t_last + j), t_j,
-                                       a.window);
-        }
-        const int64_t r0 = (int64_t)blockIdx.y * a.rows;
-        const int64_t r1 = r0 + a.rows < a.S ? r0 + a.rows : (int64_t)a.S;
-        long long g_run = -1;
-        float sum = 0.0f, n_run = 0.0f;
-        for (int64_t s = r0; s < r1; ++s) {
-            const long long g = __ldg(a.gids + s);
-            if (g < 0 || g >= a.G) continue;  // trash group G (padding) or no group
-            if (!SHARED_BOUNDS) {
-                const int32_t* rt = a.ts + s * a.T;
-                const int n = min(max(__ldg(a.lens + s), 0), a.T);
-                hi = count_le<true>(rt, n, t_j);
-                lo = lower_edge(rt, hi, wrap_add(t_j, -a.window));
-                if (extrap && hi - lo >= 2)
-                    factor = extrap_factor(hi - lo, __ldg(rt + lo), __ldg(rt + hi - 1), t_j,
-                                           a.window);
-            }
-            // this row's bucket b, one sample every B floats
-            const float* row = a.vals + s * a.T * B + b;
-            float v;
-            if (a.func == H_LAST) {
-                v = hi > lo ? __ldg(row + (int64_t)(hi - 1) * B) : NaN;
-            } else if (win_sum) {
-                float sm = 0.0f;
-                for (int k = lo; k < hi; ++k) sm += __ldg(row + (int64_t)k * B);
-                if (a.func == H_RATE) sm = sm / w_s;
-                v = hi > lo ? sm : NaN;
-            } else {
-                v = NaN;
-                if (hi - lo >= 2) {
-                    const float dlt =
-                        __ldg(row + (int64_t)(hi - 1) * B) - __ldg(row + (int64_t)lo * B);
-                    const float r = dlt * factor;
-                    v = a.func == H_RATE ? r / w_s : r;
-                }
-            }
-            if (isnan(v)) continue;
-            if (g != g_run) {
-                if (n_run > 0.0f) {
-                    if (SHARED) fold_run(acc_s, cnt_s, THREADS, g_run, threadIdx.x, sum, n_run);
-                    else fold_run(a.acc, a.cnt, a.ld, g_run, c, sum, n_run);
-                }
-                g_run = g;
-                sum = 0.0f;
-                n_run = 0.0f;
-            }
-            sum += v;
-            n_run += 1.0f;
-        }
-        if (n_run > 0.0f) {
-            if (SHARED) fold_run(acc_s, cnt_s, THREADS, g_run, threadIdx.x, sum, n_run);
-            else fold_run(a.acc, a.cnt, a.ld, g_run, c, sum, n_run);
-        }
-    }
-    if (SHARED) {
-        __syncthreads();
-        // the block's [G, 256] partials are its columns c0 .. c0+255 of the
-        // global [G+1, ld] arrays; columns past J*B received nothing
-        group_acc::shared_flush(acc_s, cnt_s, a.G, THREADS, a.acc + c0, a.cnt + c0, a.ld,
-                                group_acc::ACC_ADD);
+// V contiguous floats at p (16-byte aligned for V = 4, 8-byte for V = 2)
+template <int V>
+__device__ __forceinline__ void load_vec(const float* p, float (&x)[V]) {
+    if constexpr (V == 4) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+        x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+    } else if constexpr (V == 2) {
+        const float2 v = __ldg(reinterpret_cast<const float2*>(p));
+        x[0] = v.x; x[1] = v.y;
+    } else {
+        x[0] = __ldg(p);
     }
 }
 
-template <bool SHARED_BOUNDS, bool SHARED>
-int launch_range(const HistArgs& a, int smem, cudaStream_t stream) {
-    auto kern = hist_range_kernel<SHARED_BOUNDS, SHARED>;
-    if (smem > 48 * 1024) {
-        const cudaError_t err =
-            cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (err != cudaSuccess) return (int)err;
+// The range function of buckets b0 .. b0+V-1 of one row over the window
+// [lo, hi); `row` points at bucket b0 of the row's first sample.
+template <int V>
+__device__ __forceinline__ void window_values(const HistArgs& a, const float* row, int lo, int hi,
+                                              float factor, bool win_sum, float w_s,
+                                              float (&v)[V]) {
+    const float NaN = group_acc::nan_f();
+    const int64_t B = a.B;
+    if (a.func == H_LAST) {
+        if (hi > lo) load_vec<V>(row + (hi - 1) * B, v);
+        else
+            for (int i = 0; i < V; ++i) v[i] = NaN;
+    } else if (win_sum) {
+        float sm[V];
+        for (int i = 0; i < V; ++i) sm[i] = 0.0f;
+        for (int k = lo; k < hi; ++k) {
+            float x[V];
+            load_vec<V>(row + k * B, x);
+            for (int i = 0; i < V; ++i) sm[i] += x[i];
+        }
+        for (int i = 0; i < V; ++i) {
+            const float s = a.func == H_RATE ? sm[i] / w_s : sm[i];
+            v[i] = hi > lo ? s : NaN;
+        }
+    } else if (hi - lo >= 2) {
+        float first[V], last[V];
+        load_vec<V>(row + lo * B, first);
+        load_vec<V>(row + (hi - 1) * B, last);
+        for (int i = 0; i < V; ++i) {
+            const float r = (last[i] - first[i]) * factor;
+            v[i] = a.func == H_RATE ? r / w_s : r;
+        }
+    } else {
+        for (int i = 0; i < V; ++i) v[i] = NaN;
     }
-    const dim3 grid((a.J * a.B + THREADS - 1) / THREADS, (a.S + a.rows - 1) / a.rows);
-    kern<<<grid, THREADS, smem, stream>>>(a);
-    return (int)cudaGetLastError();
 }
 
-__global__ void hist_quantile_kernel(const float* __restrict__ acc, const float* __restrict__ cnt,
-                                     const float* __restrict__ les, int G, int J, int B, int ld,
-                                     int ld_out, float q, float* __restrict__ out) {
-    const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (idx >= (int64_t)G * J) return;
-    const int g = (int)(idx / J);
-    const int j = (int)(idx - (int64_t)g * J);
+// Prometheus histogram_quantile of one (group, step)'s finished partials:
+// `ar` / `cr` are its B bucket sums and member counts, read through L2
+// (they were written by other blocks' atomics in this launch).
+__device__ __forceinline__ float quantile_at(const float* ar, const float* cr, const float* les,
+                                             int B, float q) {
     const float NaN = group_acc::nan_f();
     const float INF = group_acc::inf_f();
-    const float* ar = acc + (int64_t)g * ld + (int64_t)j * B;
-    const float* cr = cnt + (int64_t)g * ld + (int64_t)j * B;
     // the finished group sum of bucket i: NaN where no member had a value
-    auto bucket = [&](int i) { return cr[i] > 0.0f ? ar[i] : NaN; };
+    auto bucket = [&](int i) { return __ldcg(cr + i) > 0.0f ? __ldcg(ar + i) : NaN; };
     const float total = bucket(B - 1);
     const bool ok = total > 0.0f && isfinite(total);
     const float rank = fminf(fmaxf(q, 0.0f), 1.0f) * total;
-    int k = B - 1;  // the first bucket whose count reaches the rank
+    // k: the first bucket whose count reaches the rank (else the last); the
+    // scan does not stop there, so its loads do not wait on each other
+    int k = -1;
+    float c_hi = total, c_lo = 0.0f, prev = 0.0f;
     for (int i = 0; i < B; ++i) {
-        if (bucket(i) >= rank) {
+        const float c = bucket(i);
+        if (k < 0 && c >= rank) {
             k = i;
-            break;
+            c_hi = c;
+            c_lo = prev;
         }
+        prev = c;
     }
-    const float c_hi = bucket(k);
-    const float c_lo = k > 0 ? bucket(k - 1) : 0.0f;
-    const float le_hi = les[k];
-    const float le_lo = k > 0 ? les[k - 1] : (les[0] > 0.0f ? 0.0f : -INF);
-    const float highest_finite = B >= 2 ? les[B - 2] : les[0];
+    if (k < 0) {
+        k = B - 1;
+        c_lo = B > 1 ? bucket(B - 2) : 0.0f;
+    }
+    const float le_hi = __ldg(les + k);
+    const float le_lo = k > 0 ? __ldg(les + k - 1) : (__ldg(les) > 0.0f ? 0.0f : -INF);
+    const float highest_finite = B >= 2 ? __ldg(les + B - 2) : __ldg(les);
     const float denom = c_hi - c_lo;
     const float frac = (rank - c_lo) / (isnan(denom) ? denom : fmaxf(denom, 1e-30f));
     float val = le_lo + (le_hi - le_lo) * frac;
@@ -252,58 +234,280 @@ __global__ void hist_quantile_kernel(const float* __restrict__ acc, const float*
     float res = ok ? val : NaN;
     if (q < 0.0f) res = -INF;
     if (q > 1.0f) res = INF;
-    out[(int64_t)g * ld_out + j] = res;
+    return res;
+}
+
+template <bool SHARED_BOUNDS, bool SHARED, bool STAGED, int V>
+__global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS) hist_range_kernel(const HistArgs a) {
+    extern __shared__ __align__(16) float smem[];
+    __shared__ int last_s;
+    const int B = a.B;
+    const int j0 = blockIdx.y * a.steps;
+    const int ns = min(a.steps, a.J - j0);  // this slice's steps
+    const int width = a.steps * B;          // a row of the shared partials
+    const int nvec = B / V;
+    const int cv_n = ns * nvec;             // the slice's column vectors
+    const int64_t part = SHARED ? round4((int64_t)2 * a.G * width) : 0;
+    float* acc_s = smem;
+    float* cnt_s = smem + (int64_t)a.G * width;
+    int* gid_s = reinterpret_cast<int*>(smem + part);
+    const int nb = (SHARED_BOUNDS ? 1 : a.R) * a.steps;
+    int* lo_s = gid_s + round4(a.R);
+    int* hi_s = lo_s + nb;
+    float* fac_s = reinterpret_cast<float*>(hi_s + nb);
+    float* stage = reinterpret_cast<float*>(lo_s) + round4(3 * nb);
+    const float w_s = (float)a.window * 1e-3f;
+    const bool win_sum =
+        a.func == H_SUM_OVER_TIME || (a.is_delta && (a.func == H_RATE || a.func == H_INCREASE));
+    const bool extrap = !win_sum && a.func != H_LAST;
+    auto t_of = [&](int j) { return wrap_add(a.start, wrap_mul(j, a.step)); };
+    // a row's group, -1 for the trash group G (padding) or no group
+    auto gid_of = [&](int64_t s) {
+        const long long g = __ldg(a.gids + s);
+        return (g < 0 || g >= a.G) ? -1 : (int)g;
+    };
+    auto len_of = [&](int64_t s) { return min(max(__ldg(a.lens + s), 0), a.T); };
+
+    if (SHARED) group_acc::shared_init(acc_s, cnt_s, a.G * width, group_acc::ACC_ADD);
+    if (SHARED_BOUNDS) {  // the same window in every row
+        for (int jl = threadIdx.x; jl < ns; jl += blockDim.x) {
+            const int j = j0 + jl;
+            const int lo = __ldg(a.lo + j), hi = __ldg(a.hi + j);
+            lo_s[jl] = lo;
+            hi_s[jl] = hi;
+            fac_s[jl] = extrap && hi - lo >= 2
+                            ? extrap_factor(hi - lo, __ldg(a.t_first + j), __ldg(a.t_last + j),
+                                            t_of(j), a.window)
+                            : 0.0f;
+        }
+    }
+    __syncthreads();
+
+    // add a run of n[i] values summing to run[i] to group g's columns
+    // col .. col+V-1 of the slice
+    auto fold = [&](int g, int col, const float (&run)[V], const float (&n)[V]) {
+        for (int i = 0; i < V; ++i) {
+            if (n[i] <= 0.0f) continue;
+            if (SHARED) {  // this thread owns the column: no atomic
+                acc_s[(int64_t)g * width + col + i] += run[i];
+                cnt_s[(int64_t)g * width + col + i] += n[i];
+            } else {
+                const int64_t o = (int64_t)g * a.ld + (int64_t)j0 * B + col + i;
+                atomicAdd(a.acc + o, run[i]);
+                atomicAdd(a.cnt + o, n[i]);
+            }
+        }
+    };
+
+    row_tiles::for_each_tile<STAGED>(
+        a.S, a.R,
+        [&](int tile, int b) {  // the tile's ts rows: each real row's samples only
+            const int64_t s0 = (int64_t)tile * a.R;
+            const int rows = a.S - s0 < a.R ? (int)(a.S - s0) : a.R;
+            row_tiles::issue_tile(a.ts, nullptr, nullptr, 1, s0, rows, a.R, a.T,
+                                  stage + (int64_t)b * a.R * a.T, [&](int r) {
+                                      return gid_of(s0 + r) < 0 ? 0 : (len_of(s0 + r) + 3) / 4;
+                                  });
+        },
+        [&](int tile, int b) {
+            const int64_t s0 = (int64_t)tile * a.R;
+            const int rows = a.S - s0 < a.R ? (int)(a.S - s0) : a.R;
+            for (int r = threadIdx.x; r < rows; r += blockDim.x) gid_s[r] = gid_of(s0 + r);
+            if (!SHARED_BOUNDS) {  // one search per (row, step), for all B buckets
+                const int32_t* buf =
+                    reinterpret_cast<const int32_t*>(stage + (int64_t)b * a.R * a.T);
+                row_tiles::for_each_pair(rows, ns, [&](int r, int jl) {
+                    const int64_t s = s0 + r;
+                    int lo = 0, hi = 0;
+                    float f = 0.0f;
+                    if (gid_of(s) >= 0) {
+                        const int32_t* rt = STAGED ? buf + (int64_t)r * a.T : a.ts + s * a.T;
+                        const int32_t t_j = t_of(j0 + jl);
+                        hi = count_le<!STAGED>(rt, len_of(s), t_j);
+                        lo = lower_edge(rt, hi, wrap_add(t_j, -a.window));
+                        if (extrap && hi - lo >= 2)
+                            f = extrap_factor(hi - lo, rt[lo], rt[hi - 1], t_j, a.window);
+                    }
+                    lo_s[r * a.steps + jl] = lo;
+                    hi_s[r * a.steps + jl] = hi;
+                    fac_s[r * a.steps + jl] = f;
+                });
+            }
+            __syncthreads();
+            const float* tile_vals = a.vals + s0 * a.T * B;
+            for (int cv = threadIdx.x; cv < cv_n; cv += blockDim.x) {
+                const int jl = cv / nvec;
+                const int b0 = (cv - jl * nvec) * V;
+                const int col = jl * B + b0;
+                float run[V] = {}, n[V] = {};
+                int g_run = -1;
+                for (int r0 = 0; r0 < rows; r0 += UNROLL) {
+                    float v[UNROLL][V];
+                    int g[UNROLL];
+#pragma unroll
+                    for (int u = 0; u < UNROLL; ++u) {
+                        const int r = r0 + u;
+                        g[u] = r < rows ? gid_s[r] : -1;
+                        if (g[u] < 0) continue;
+                        const int k = SHARED_BOUNDS ? jl : r * a.steps + jl;
+                        window_values<V>(a, tile_vals + (int64_t)r * a.T * B + b0, lo_s[k],
+                                         hi_s[k], fac_s[k], win_sum, w_s, v[u]);
+                    }
+#pragma unroll
+                    for (int u = 0; u < UNROLL; ++u) {
+                        if (g[u] < 0) continue;
+                        if (g[u] != g_run) {
+                            if (g_run >= 0) fold(g_run, col, run, n);
+                            g_run = g[u];
+                            for (int i = 0; i < V; ++i) run[i] = n[i] = 0.0f;
+                        }
+                        for (int i = 0; i < V; ++i) {
+                            if (!isnan(v[u][i])) {
+                                run[i] += v[u][i];
+                                n[i] += 1.0f;
+                            }
+                        }
+                    }
+                }
+                if (g_run >= 0) fold(g_run, col, run, n);
+            }
+            __syncthreads();  // before the next tile rewrites the gids and bounds
+        });
+
+    if (SHARED)  // the block's [G, steps*B] partials are columns j0*B .. of the global arrays
+        group_acc::shared_flush(acc_s, cnt_s, a.G, width, a.acc + (int64_t)j0 * B,
+                                a.cnt + (int64_t)j0 * B, a.ld, group_acc::ACC_ADD);
+    if (!a.quantile) return;
+    __threadfence();  // this block's partials are visible before it arrives
+    __syncthreads();
+    if (threadIdx.x == 0) last_s = atomicAdd(a.arrivals + blockIdx.y, 1u) == gridDim.x - 1;
+    __syncthreads();
+    if (!last_s) return;
+    __threadfence();
+    for (int i = threadIdx.x; i < a.G * ns; i += blockDim.x) {
+        const int g = i / ns;
+        const int j = j0 + (i - g * ns);
+        const int64_t o = (int64_t)g * a.ld + (int64_t)j * B;
+        a.out[(int64_t)g * a.ld_out + j] = quantile_at(a.acc + o, a.cnt + o, a.les, B, a.q);
+    }
+    if (threadIdx.x == 0) a.arrivals[blockIdx.y] = 0;  // ready for the next launch
+}
+
+template <bool SB, bool SH, bool ST, int V>
+cudaError_t launch_range(const HistArgs& a, int smem, int threads, int grid, int slices,
+                         cudaStream_t stream) {
+    auto kern = hist_range_kernel<SB, SH, ST, V>;
+    int resident = 0;  // also raises the kernel's shared-memory allowance to smem
+    const cudaError_t err = row_tiles::persistent_grid(kern, smem, 1 << 30, &resident, threads);
+    if (err != cudaSuccess) return err;
+    kern<<<dim3(grid, slices), threads, smem, stream>>>(a);
+    return cudaGetLastError();
+}
+
+template <bool SB, bool SH, bool ST>
+cudaError_t launch_vec(const HistArgs& a, int vec, int smem, int threads, int grid, int slices,
+                       cudaStream_t st) {
+    if (vec == 4) return launch_range<SB, SH, ST, 4>(a, smem, threads, grid, slices, st);
+    if (vec == 2) return launch_range<SB, SH, ST, 2>(a, smem, threads, grid, slices, st);
+    return launch_range<SB, SH, ST, 1>(a, smem, threads, grid, slices, st);
+}
+
+template <bool SB, bool SH, bool ST, int V>
+cudaError_t resident_of(int smem, int threads, int* blocks) {
+    return row_tiles::persistent_grid(hist_range_kernel<SB, SH, ST, V>, smem, 1 << 30, blocks,
+                                      threads);
+}
+
+cudaError_t resident_vec(bool sb, bool sh, bool st, int vec, int smem, int threads,
+                         int* blocks) {
+#define FILODB_HIST_RESIDENT(SB, SH, ST)                                        \
+    if (sb == SB && sh == SH && st == ST) {                                     \
+        if (vec == 4) return resident_of<SB, SH, ST, 4>(smem, threads, blocks); \
+        if (vec == 2) return resident_of<SB, SH, ST, 2>(smem, threads, blocks); \
+        return resident_of<SB, SH, ST, 1>(smem, threads, blocks);               \
+    }
+    FILODB_HIST_RESIDENT(true, true, false)
+    FILODB_HIST_RESIDENT(true, false, false)
+    FILODB_HIST_RESIDENT(false, true, true)
+    FILODB_HIST_RESIDENT(false, true, false)
+    FILODB_HIST_RESIDENT(false, false, true)
+    FILODB_HIST_RESIDENT(false, false, false)
+#undef FILODB_HIST_RESIDENT
+    return cudaErrorInvalidValue;
+}
+
+
+bool threads_ok(int threads) {
+    return threads >= 32 && threads <= MAX_THREADS && threads % 32 == 0;
 }
 
 }  // namespace
 
+// Plain C entry for ctypes: how many blocks of the range kernel's variant
+// (shared_bounds, shared partials, staged ts rows, vector width vec) with
+// smem_bytes of dynamic shared memory and `threads` threads fit on the
+// current card at once, into *blocks. Returns a cudaError_t (0 on
+// success).
+extern "C" int filodb_hist_resident(int shared_bounds, int shared, int staged, int vec,
+                                    int smem_bytes, int threads, int* blocks) {
+    if ((shared_bounds && staged) || (vec != 1 && vec != 2 && vec != 4) || !threads_ok(threads))
+        return (int)cudaErrorInvalidValue;
+    return (int)resident_vec(shared_bounds, shared, staged, vec, smem_bytes, threads, blocks);
+}
+
 // Plain C entry for ctypes: sum by (...) (func(m[w])) over a [S, T, B]
-// histogram block. acc and cnt [G+1, ld] (ld >= J * B) must hold zeros;
-// columns j * B + b of steps [0, J) are computed. shared_bounds: the [J]
-// arrays lo, hi, t_first, t_last give every row's window (a regular grid);
-// else each row's window is searched in ts [S, T] over lens. `rows` rows
-// per block; `shared` keeps [G, 256] partials in shared memory;
-// `smem_bytes` is the dynamic shared memory the wrapper sized for them
-// (checked here). Launches on `stream` and returns a cudaError_t (0 on
-// success); it does not synchronise.
+// histogram block, and with `quantile` histogram_quantile(q, .) of the
+// sums. acc and cnt [G+1, ld] (ld >= J * B) must hold zeros; columns
+// j * B + b of steps [0, J) are computed. shared_bounds: the [J] arrays lo,
+// hi, t_first, t_last give every row's window (a regular grid); else each
+// row's window is searched in ts [S, T] over lens, its rows copied into
+// shared memory when `staged`. The layout comes from the wrapper's plan
+// (ops/hist_kernels.hist_plan): `rows` rows per tile, `steps` steps per
+// slice (ceil(J / steps) slices, grid `grid` x slices of `threads`
+// threads), buckets fetched `vec` at a time, `shared` [G, steps*B]
+// partials in shared memory, and
+// `smem_bytes` of dynamic shared memory (checked here). With `quantile`:
+// bounds les [B] (les[B-1] = +inf), out [G, ld_out] written at steps
+// [0, J), and `arrivals` [slices] zeroed counters, left at zero. Launches
+// on `stream` and returns a cudaError_t (0 on success); it does not
+// synchronise.
 extern "C" int filodb_hist_range_aggregate(
     const void* ts, const void* vals, const void* lens, const void* gids, const void* lo,
     const void* hi, const void* t_first, const void* t_last, int S, int T, int B, int J, int ld,
     int G, int start, int step, int window, int func, int is_delta, int shared_bounds, int rows,
-    int shared, int smem_bytes, void* acc, void* cnt, void* stream) {
+    int steps, int vec, int shared, int staged, int threads, int grid, int smem_bytes, void* acc,
+    void* cnt,
+    int quantile, float q, const void* les, void* out, int ld_out, void* arrivals,
+    void* stream) {
     if (S <= 0 || J <= 0 || G <= 0 || B <= 0) return 0;
-    const int64_t part = shared ? (int64_t)2 * G * THREADS * 4 : 0;
     const bool bounds_ok = shared_bounds ? (lo && hi && t_first && t_last) : (ts && lens);
-    if (func < H_RATE || func > H_LAST || rows < 1 || (int64_t)(S + rows - 1) / rows > 65535 ||
-        ld < J * B || smem_bytes < part || !bounds_ok)
+    const bool quantile_ok = !quantile || (les && out && arrivals && ld_out >= J);
+    const bool vec_ok = (vec == 1 || vec == 2 || vec == 4) && B % vec == 0 &&
+                        (uintptr_t)vals % (4 * vec) == 0;
+    const bool staged_ok = !staged || (!shared_bounds && T % 4 == 0 && (uintptr_t)ts % 16 == 0);
+    if (func < H_RATE || func > H_LAST || rows < 1 || steps < 1 || grid < 1 ||
+        !threads_ok(threads) ||
+        (J + steps - 1) / steps > 65535 || ld < J * B || !bounds_ok || !quantile_ok ||
+        !vec_ok || !staged_ok ||
+        (int64_t)smem_bytes != 4 * smem_words(G, B, steps, rows, T, shared_bounds, shared, staged))
         return (int)cudaErrorInvalidValue;
     HistArgs a{(const int32_t*)ts, (const float*)vals, (const int32_t*)lens,
                (const long long*)gids, (const int32_t*)lo, (const int32_t*)hi,
-               (const int32_t*)t_first, (const int32_t*)t_last, S, T, B, J, ld, G,
-               (int32_t)start, (int32_t)step, (int32_t)window, func, is_delta, rows,
-               (float*)acc, (float*)cnt};
+               (const int32_t*)t_first, (const int32_t*)t_last, (const float*)les, S, T, B, J,
+               ld, G, (int32_t)start, (int32_t)step, (int32_t)window, func, is_delta, rows,
+               steps, quantile, q, ld_out, (float*)out, (unsigned int*)arrivals, (float*)acc,
+               (float*)cnt};
+    const int slices = (J + steps - 1) / steps;
     cudaStream_t st = (cudaStream_t)stream;
+    cudaError_t err;
     if (shared_bounds)
-        return shared ? launch_range<true, true>(a, smem_bytes, st)
-                      : launch_range<true, false>(a, smem_bytes, st);
-    return shared ? launch_range<false, true>(a, smem_bytes, st)
-                  : launch_range<false, false>(a, smem_bytes, st);
-}
-
-// Plain C entry for ctypes: histogram_quantile(q, .) of the group sums in
-// acc/cnt [G+1, ld] (bucket b of step j at column j * B + b) over the
-// bounds les [B] (les[B-1] = +inf), into out [G, ld_out] at steps [0, J).
-// Launches on `stream` and returns a cudaError_t (0 on success); it does
-// not synchronise.
-extern "C" int filodb_hist_quantile(const void* acc, const void* cnt, const void* les, int G,
-                                    int J, int B, int ld, int ld_out, float q, void* out,
-                                    void* stream) {
-    if (G <= 0 || J <= 0) return 0;
-    if (B < 1 || ld < J * B || ld_out < J) return (int)cudaErrorInvalidValue;
-    const int threads = 128;
-    const int64_t blocks = ((int64_t)G * J + threads - 1) / threads;
-    hist_quantile_kernel<<<(unsigned int)blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const float*)acc, (const float*)cnt, (const float*)les, G, J, B, ld, ld_out, q,
-        (float*)out);
-    return (int)cudaGetLastError();
+        err = shared ? launch_vec<true, true, false>(a, vec, smem_bytes, threads, grid, slices, st)
+                     : launch_vec<true, false, false>(a, vec, smem_bytes, threads, grid, slices, st);
+    else if (staged)
+        err = shared ? launch_vec<false, true, true>(a, vec, smem_bytes, threads, grid, slices, st)
+                     : launch_vec<false, false, true>(a, vec, smem_bytes, threads, grid, slices, st);
+    else
+        err = shared ? launch_vec<false, true, false>(a, vec, smem_bytes, threads, grid, slices, st)
+                     : launch_vec<false, false, false>(a, vec, smem_bytes, threads, grid, slices, st);
+    return (int)err;
 }

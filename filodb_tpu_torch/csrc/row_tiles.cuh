@@ -99,16 +99,16 @@ __device__ __forceinline__ void for_each_pair(int rows, int J, F f) {
 }
 
 // Host: the grid of a persistent launch of `kern` with `smem` bytes of
-// dynamic shared memory -- as many blocks as fit on the card at once, but
-// no more than `tiles`. The kernel's shared-memory allowance only ever
+// dynamic shared memory and `threads` threads per block -- as many blocks
+// as fit on the card at once, but no more than `tiles`. The kernel's shared-memory allowance only ever
 // grows (it is one attribute per kernel, whatever size a launch asks
 // for), and the occupancy is asked once per (device, kernel, smem), so a
 // launch pays a map lookup; the lock keeps concurrent host threads safe.
 template <typename Kernel>
-cudaError_t persistent_grid(Kernel kern, int smem, int tiles, int* grid) {
+cudaError_t persistent_grid(Kernel kern, int smem, int tiles, int* grid, int threads = THREADS) {
     static std::mutex mu;
     static std::map<std::pair<int, const void*>, int> allowed;
-    static std::map<std::tuple<int, const void*, int>, int> resident;
+    static std::map<std::tuple<int, const void*, int, int>, int> resident;
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
@@ -119,13 +119,13 @@ cudaError_t persistent_grid(Kernel kern, int smem, int tiles, int* grid) {
         if (err != cudaSuccess) return err;
         allow = smem;
     }
-    const auto key = std::make_tuple(dev, (const void*)kern, smem);
+    const auto key = std::make_tuple(dev, (const void*)kern, smem, threads);
     auto it = resident.find(key);
     if (it == resident.end()) {
         int sms = 0, per_sm = 0;
         if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
                 cudaSuccess ||
-            (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS,
+            (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
                                                                  smem)) != cudaSuccess)
             return err;
         if (per_sm < 1) return cudaErrorInvalidConfiguration;

@@ -134,20 +134,21 @@ def fused_hist_range_aggregate(func: str, block, gids_padded: torch.Tensor, num_
     """``sum by (...) (func(m[w]))`` over a [S, T, B] histogram
     (super)block on the rung ``hist_variant`` picks (written to
     ``obs["variant"]``): one launch of the range kernel, returning the
-    [G, J_pad, B] group bucket sums, or with ``q`` a second launch, of the
-    quantile kernel, returning [G, J_pad] ``histogram_quantile(q, ...)``
-    over the bounds ``les`` (f32 [B] on the block's device). Steps past
-    ``params.num_steps`` are NaN."""
+    [G, J_pad, B] group bucket sums, or with ``q`` the same one launch with
+    the quantile folded in, returning [G, J_pad] ``histogram_quantile(q,
+    ...)`` over the bounds ``les`` (f32 [B] on the block's device). Steps
+    past ``params.num_steps`` are NaN."""
     variant = hist_variant(block)
     if obs is not None:
         obs["variant"] = variant
     j_pad = pad_steps(params.num_steps)
     windows = _hist_shared_windows(block, params, j_pad) if variant == "hist_shared" else None
+    if q is not None:
+        return HK.hist_range_quantile(q, func, block, gids_padded, num_groups, params, les,
+                                      windows=windows, is_delta=is_delta)[0]
     acc, cnt = HK.hist_range_partials(func, block, gids_padded, num_groups, params,
                                       windows=windows, is_delta=is_delta)
-    if q is None:
-        return GA.finish_groups("sum", acc, cnt, num_groups).reshape(num_groups, j_pad, -1)
-    return HK.hist_quantile(q, acc, cnt, num_groups, les, params.num_steps)
+    return GA.finish_groups("sum", acc, cnt, num_groups).reshape(num_groups, j_pad, -1)
 
 
 def group_ids_for(series_labels: list[dict], by: list[str] | None, without: list[str] | None):

@@ -8,25 +8,34 @@ Native histograms stage as ``[S, T, B]`` blocks of raw cumulative bucket
 counts. ``sum by (...) (func(m[w]))`` over them is a per-bucket range
 function followed by a per-bucket group sum to ``[G, J, B]``;
 ``histogram_quantile(q, ...)`` then interpolates over the bucket axis to
-``[G, J]``. Two kernels of ``csrc/hist_range.cu`` carry it on the card:
+``[G, J]``. One kernel, ``filodb_hist_range_aggregate`` of
+``csrc/hist_range.cu``, carries both on the card, in one launch:
 
-- ``hist_range_partials`` launches ``filodb_hist_range_aggregate`` once:
-  the range function of every (row, step, bucket) reduced straight into
-  ``[G+1, J_pad * B]`` accumulators (``group_acc``), over the shared
-  ``[J]`` window bounds of a regular grid (``windows``) or bounds searched
-  per series;
-- ``hist_quantile`` launches ``filodb_hist_quantile`` once on those
-  accumulators: the group finish and the interpolation, ``[G, J_pad]``.
+- ``hist_range_partials``: the range function of every (row, step, bucket)
+  reduced straight into ``[G+1, J_pad * B]`` accumulators (``group_acc``),
+  over the shared ``[J]`` window bounds of a regular grid (``windows``) or
+  bounds searched per series;
+- ``hist_range_quantile``: the same launch with the quantile folded in --
+  the block that finishes a slice's partials last interpolates them into
+  ``[G, J_pad]`` -- returning the quantiles and the partials.
 
-On a CPU tensor each runs its plain torch version (``hist_partials_plain``,
-``hist_quantile_plain``), which the tests hold against the JAX package;
-on a CUDA tensor it launches its kernel or raises. Steps past the query's
-``num_steps`` are not computed: their group sums and quantiles are NaN.
+``hist_plan`` lays a launch out (rows per tile, whole-step slices, the
+bucket vector width, shared or global partials, shared memory) and
+``hist_grid`` sizes its persistent grid; ``hist_buffers`` carves the
+slices' arrival counters from the accumulators' zeroed allocation.
+
+On a CPU tensor each entry runs its plain torch version
+(``hist_partials_plain``, ``hist_quantile_plain``), which the tests hold
+against the JAX package; on a CUDA tensor it launches the kernel or raises.
+Steps past the query's ``num_steps`` are not computed: their group sums and
+quantiles are NaN.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -44,29 +53,33 @@ FUSED_HIST_FUNCS = frozenset({
 HIST_FUNC_CODES = {"rate": 0, "increase": 1, "delta": 2, "sum_over_time": 3, "last": 4,
                    "last_over_time": 4}
 
-HIST_THREADS = 256  # columns per block of the range kernel (csrc/hist_range.cu THREADS)
-# blocks a range launch aims at (a few waves of an H100's 132 SMs); the
-# rows per block follow from the shape
-TARGET_BLOCKS = 4096
+MAX_THREADS = 384  # threads per block at most (csrc/hist_range.cu MAX_THREADS)
+HIST_TILE_ROWS = 16  # rows per tile (fewer when staged ts rows must fit STAGE_BUDGET)
+STAGE_BUDGET = 48 * 1024  # both ts tile buffers of per-series bounds
+BOUNDS_BUDGET = 24 * 1024  # the [R, steps] lo/hi/factor table of a tile
+MAX_PART_SLICES = 8  # slices that shared [G, steps*B] partials may take, else global
 
 # launches since the last reset: RANGE_LAUNCHES of filodb_hist_range_aggregate,
-# QUANTILE_LAUNCHES of filodb_hist_quantile; LAST_PLAN is the range
-# kernel's last layout (group_acc.TilePlan: rows per block, partials)
+# FOLDED_QUANTILES of those that carried the quantile epilogue; LAST_PLAN
+# is the last launch's HistPlan and LAST_GRID its (blocks per slice, slices)
 RANGE_LAUNCHES = 0
-QUANTILE_LAUNCHES = 0
+FOLDED_QUANTILES = 0
 LAST_PLAN = None
+LAST_GRID = None
 
 _lib = None
+_resident: dict = {}
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the entry points' argument types on a built library."""
     fn = lib.filodb_hist_range_aggregate
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 15 + [ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
-    fn = lib.filodb_hist_quantile
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float]
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 20 + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    fn = lib.filodb_hist_resident
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     return lib
 
@@ -233,25 +246,108 @@ def _check(name: str, t, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def hist_plan(S: int, num_steps: int, B: int, num_groups: int) -> GA.TilePlan:
-    """The range kernel's layout: rows per block, so that a launch makes
-    about ``TARGET_BLOCKS`` blocks (each owns 256 columns of the flattened
-    (step, bucket) axis and a chunk of rows; at most 65535 chunks), and
-    group partials ``[G, 256]`` in shared memory while they fit."""
-    col_blocks = -(-num_steps * B // HIST_THREADS)
-    rows = max(1, -(-S * col_blocks // TARGET_BLOCKS), -(-S // 65535))
-    return GA.layout(num_groups, HIST_THREADS, 0, 0, rows)
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
 
 
-def hist_range_partials(func: str, block, gids: torch.Tensor, num_groups: int, params,
-                        windows=None, is_delta: bool = False):
-    """``sum by (...) (func(m[w]))`` over a [S, T, B] histogram block ->
-    ``(acc, cnt)`` [G+1, J_pad * B] group partials on the block's device
-    (bucket b of step j at column j * B + b; group G is the trash group of
-    padded rows). ``windows`` are the shared [J_pad] bounds (lo, hi,
-    t_first, t_last) of a regular grid, else bounds are searched per
-    series. A CUDA block makes one launch of the range kernel (and raises
-    if the launch fails); a CPU block runs ``hist_partials_plain``."""
+@dataclass(frozen=True)
+class HistPlan:
+    """One range launch's layout: ``rows`` per tile, ``steps`` per slice
+    (``slices`` slices of whole steps, each with its own blocks and arrival
+    counter), buckets fetched ``vec`` at a time, ``threads`` per block,
+    ``[G, steps * B]`` group partials in shared memory or not, ts rows
+    staged in shared memory or searched in place, and the dynamic shared
+    memory that takes (``csrc/hist_range.cu`` ``smem_words``, checked by
+    the C entry)."""
+
+    rows: int
+    steps: int
+    slices: int
+    vec: int
+    threads: int
+    shared: bool
+    staged: bool
+    smem_bytes: int
+
+    @property
+    def partials(self) -> str:
+        return "shared" if self.shared else "global"
+
+
+def hist_smem_bytes(G: int, B: int, steps: int, rows: int, T: int, shared_bounds: bool,
+                    shared: bool, staged: bool) -> int:
+    """Dynamic shared memory of a launch: the ``[G, steps * B]`` acc/cnt
+    partials (``shared``), ``rows`` gids, the lo/hi/factor table (``[steps]``
+    on shared bounds, ``[rows, steps]`` per series) and both ts tile buffers
+    (``staged``), each rounded up to 16 bytes."""
+    part = _round4(2 * G * steps * B) if shared else 0
+    nb = (1 if shared_bounds else rows) * steps
+    return 4 * (part + _round4(rows) + _round4(3 * nb) + (2 * rows * T if staged else 0))
+
+
+@functools.lru_cache(maxsize=256)
+def hist_plan(T: int, num_steps: int, B: int, num_groups: int,
+              shared_bounds: bool) -> HistPlan:
+    """The range kernel's layout for rows of ``T`` samples of ``B`` buckets,
+    ``num_steps`` steps and ``num_groups`` groups.
+
+    - Buckets are fetched ``vec`` = 4, 2 or 1 at a time, the widest that
+      divides B (a sample's B floats are contiguous).
+    - Per-series bounds stage each tile's ts rows in shared memory, both
+      buffers within ``STAGE_BUDGET`` (at most ``HIST_TILE_ROWS`` rows), or
+      search them in place when one row does not fit; shared bounds read
+      ``HIST_TILE_ROWS`` rows per tile.
+    - Steps are cut into slices of whole steps so that a tile's lo/hi/factor
+      table fits ``BOUNDS_BUDGET`` and, while at most ``MAX_PART_SLICES``
+      slices do it, the ``[G, steps * B]`` partials fit
+      ``group_acc.PARTIALS_BUDGET``; else the partials go to global atomics.
+      Slices are balanced: ``steps = ceil(J / slices)``.
+    - A block has one thread per column vector of its slice (``steps * B /
+      vec``), in as few passes of at most ``MAX_THREADS`` as cover them,
+      rounded up to whole warps: no warp idles through a partial pass."""
+    J = num_steps
+    vec = 4 if B % 4 == 0 else 2 if B % 2 == 0 else 1
+    row_bytes = 2 * T * 4
+    staged = not shared_bounds and row_bytes <= STAGE_BUDGET
+    rows = (max(1, min(HIST_TILE_ROWS, STAGE_BUDGET // row_bytes)) if staged
+            else HIST_TILE_ROWS)
+    cap = max(1, BOUNDS_BUDGET // (12 * (1 if shared_bounds else rows)))
+    step_part = 2 * num_groups * B * 4  # one step's shared partials
+    part_cap = GA.PARTIALS_BUDGET // step_part
+    shared = part_cap >= 1 and -(-J // min(part_cap, J)) <= MAX_PART_SLICES
+    if shared:
+        cap = min(cap, part_cap)
+    slices = -(-J // min(cap, J))
+    steps = -(-J // slices)
+    cols = steps * (B // vec)
+    per_pass = -(-cols // -(-cols // MAX_THREADS))
+    threads = -(-per_pass // 32) * 32
+    return HistPlan(rows, steps, slices, vec, threads, shared, staged,
+                    hist_smem_bytes(num_groups, B, steps, rows, T, shared_bounds, shared, staged))
+
+
+def hist_grid(plan: HistPlan, S: int, resident: int) -> tuple[int, int]:
+    """The persistent grid of a launch over ``S`` rows: (blocks per slice,
+    slices). The ``resident`` blocks that fit on the card at once are shared
+    among the slices, at least one each and no more than a slice's tiles;
+    each slice's arrival counter counts its blocks."""
+    tiles = -(-S // plan.rows)
+    return max(1, min(tiles, resident // plan.slices)), plan.slices
+
+
+def hist_buffers(num_groups: int, width: int, slices: int, device):
+    """``acc`` and ``cnt`` ([G+1, width] f32 zeros) and the slices' arrival
+    counters (``slices`` int32 zeros) carved from one zeroed allocation, so
+    that the counters cost no launch of their own; the kernel leaves them
+    at zero."""
+    n = (num_groups + 1) * width
+    buf = torch.zeros(2 * n + _round4(slices), dtype=torch.float32, device=device)
+    acc = buf[:n].view(num_groups + 1, width)
+    cnt = buf[n:2 * n].view(num_groups + 1, width)
+    return acc, cnt, buf[2 * n:2 * n + slices].view(torch.int32)
+
+
+def _check_block(func: str, block, gids: torch.Tensor, params, windows):
     if func not in FUSED_HIST_FUNCS:
         raise NotImplementedError(f"histogram range function {func!r} is not ported")
     vals = block.vals
@@ -268,53 +364,123 @@ def hist_range_partials(func: str, block, gids: torch.Tensor, num_groups: int, p
     else:
         _check("ts", block.ts, torch.int32, (S, T), dev)
         _check("lens", block.lens, torch.int32, (S,), dev)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"the histogram range kernel runs on cuda or cpu tensors, not {dev}")
+    return dev, j_pad, B
+
+
+def hist_range_partials(func: str, block, gids: torch.Tensor, num_groups: int, params,
+                        windows=None, is_delta: bool = False):
+    """``sum by (...) (func(m[w]))`` over a [S, T, B] histogram block ->
+    ``(acc, cnt)`` [G+1, J_pad * B] group partials on the block's device
+    (bucket b of step j at column j * B + b; group G is the trash group of
+    padded rows). ``windows`` are the shared [J_pad] bounds (lo, hi,
+    t_first, t_last) of a regular grid, else bounds are searched per
+    series. A CUDA block makes one launch of the range kernel (and raises
+    if the launch fails); a CPU block runs ``hist_partials_plain``."""
+    dev, j_pad, B = _check_block(func, block, gids, params, windows)
     if dev.type == "cpu":
         return hist_partials_plain(func, block, gids, num_groups, params, windows, is_delta)
-    if dev.type != "cuda":
-        raise ValueError(f"hist_range_partials runs on cuda or cpu tensors, not {dev}")
-    acc, cnt = GA.accumulators("sum", num_groups, j_pad * B, dev)
+    plan = hist_plan(block.vals.shape[1], params.num_steps, B, num_groups, windows is not None)
+    acc, cnt, arrivals = hist_buffers(num_groups, j_pad * B, plan.slices, dev)
     _launch_range(func, block, gids, num_groups, params, windows, is_delta, acc, cnt)
     return acc, cnt
 
 
+def hist_range_quantile(q: float, func: str, block, gids: torch.Tensor, num_groups: int,
+                        params, les: torch.Tensor, windows=None, is_delta: bool = False):
+    """``histogram_quantile(q, sum by (...) (func(m[w])))`` over a [S, T, B]
+    histogram block with bounds ``les`` (f32 [B], les[-1] = +inf) -> ``(out,
+    acc, cnt)``: the [G, J_pad] quantiles (NaN past ``num_steps``) and the
+    group partials they were interpolated from. A CUDA block makes one
+    launch of the range kernel with the quantile folded in (and raises if
+    the launch fails); a CPU block runs ``hist_partials_plain`` and
+    ``hist_quantile_plain``."""
+    dev, j_pad, B = _check_block(func, block, gids, params, windows)
+    _check("les", les, torch.float32, (B,), dev)
+    if dev.type == "cpu":
+        acc, cnt = hist_partials_plain(func, block, gids, num_groups, params, windows, is_delta)
+        return hist_quantile_plain(q, acc, cnt, num_groups, les, params.num_steps), acc, cnt
+    plan = hist_plan(block.vals.shape[1], params.num_steps, B, num_groups, windows is not None)
+    acc, cnt, arrivals = hist_buffers(num_groups, j_pad * B, plan.slices, dev)
+    out = torch.full((num_groups, j_pad), float("nan"), dtype=torch.float32, device=dev)
+    _launch_range(func, block, gids, num_groups, params, windows, is_delta, acc, cnt,
+                  quantile=(q, les, out, arrivals))
+    return out, acc, cnt
+
+
+def resident_blocks(plan: HistPlan, shared_bounds: bool, device, lib=None) -> int:
+    """Blocks of the plan's kernel variant that fit on the card at once
+    (asked once per device, variant and shared memory)."""
+    lib = lib or _load()
+    key = (str(device), id(lib), shared_bounds, plan.shared, plan.staged, plan.vec,
+           plan.smem_bytes, plan.threads)
+    if key not in _resident:
+        n = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = lib.filodb_hist_resident(int(shared_bounds), int(plan.shared),
+                                           int(plan.staged), plan.vec, plan.smem_bytes,
+                                           plan.threads, ctypes.byref(n))
+        if err != 0 or n.value < 1:
+            raise RuntimeError(f"hist_range occupancy query failed: cudaError {err}")
+        _resident[key] = n.value
+    return _resident[key]
+
+
 def _launch_range(func: str, block, gids, num_groups: int, params, windows, is_delta: bool,
-                  acc: torch.Tensor, cnt: torch.Tensor) -> None:
+                  acc: torch.Tensor, cnt: torch.Tensor, quantile=None, plan=None,
+                  lib=None) -> None:
     """One launch of the range kernel into ``acc``/``cnt`` ([G+1, J_pad * B],
-    zeros); raises if the launch fails."""
-    global RANGE_LAUNCHES, LAST_PLAN
+    zeros); with ``quantile`` = (q, les, out, arrivals) the quantile epilogue
+    runs in the same launch into ``out`` [G, J_pad] (``arrivals``: one zeroed
+    int32 counter per slice). ``plan`` (default ``hist_plan``'s) and ``lib``
+    (default the built library) let a layout sweep time other layouts and
+    patched builds. Raises if the launch fails."""
+    global RANGE_LAUNCHES, FOLDED_QUANTILES, LAST_PLAN, LAST_GRID
     S, T, B = block.vals.shape
     dev = block.vals.device
-    plan = hist_plan(S, params.num_steps, B, num_groups)
-    lib = _load()
+    shared_bounds = windows is not None
+    plan = plan or hist_plan(T, params.num_steps, B, num_groups, shared_bounds)
+    lib = lib or _load()
+    grid = hist_grid(plan, S, resident_blocks(plan, shared_bounds, dev, lib))
     # the bounds' source: the shared [J] windows, or each row's ts and lens
-    if windows is not None:
+    if shared_bounds:
         lo, hi, tf, tl = (w.data_ptr() for w in windows)
         ts = lens = None
     else:
         lo = hi = tf = tl = None
         ts, lens = block.ts.data_ptr(), block.lens.data_ptr()
+    q, les, out, arrivals = quantile if quantile is not None else (0.0, None, None, None)
+    if quantile is not None and arrivals.numel() < plan.slices:
+        raise ValueError(f"{arrivals.numel()} arrival counters for {plan.slices} slices")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.filodb_hist_range_aggregate(
             ts, block.vals.data_ptr(), lens, gids.data_ptr(), lo, hi, tf, tl,
             S, T, B, params.num_steps, acc.shape[1], num_groups,
             int(params.start_ms - block.base_ms), int(params.step_ms), int(params.window_ms),
-            HIST_FUNC_CODES[func], int(is_delta), int(windows is not None), plan.rows,
-            int(plan.shared), plan.smem_bytes, acc.data_ptr(), cnt.data_ptr(), stream,
+            HIST_FUNC_CODES[func], int(is_delta), int(shared_bounds), plan.rows, plan.steps,
+            plan.vec, int(plan.shared), int(plan.staged), plan.threads, grid[0], plan.smem_bytes,
+            acc.data_ptr(), cnt.data_ptr(), int(quantile is not None), float(q),
+            les.data_ptr() if les is not None else None,
+            out.data_ptr() if out is not None else None,
+            out.shape[1] if out is not None else 0,
+            arrivals.data_ptr() if arrivals is not None else None, stream,
         )
     if err != 0:
         raise RuntimeError(f"hist_range_aggregate kernel launch failed: cudaError {err}")
     RANGE_LAUNCHES += 1
-    LAST_PLAN = plan
+    FOLDED_QUANTILES += quantile is not None
+    LAST_PLAN, LAST_GRID = plan, grid
 
 
 def hist_quantile(q: float, acc: torch.Tensor, cnt: torch.Tensor, num_groups: int,
                   les: torch.Tensor, num_steps: int) -> torch.Tensor:
-    """``histogram_quantile(q, ...)`` of the group partials from
-    ``hist_range_partials`` over the bounds ``les`` (f32 [B]) -> [G, J_pad]
-    on their device, NaN past ``num_steps``. A CUDA tensor makes one launch
-    of the quantile kernel (and raises if the launch fails); a CPU tensor
-    runs ``hist_quantile_plain``."""
+    """``histogram_quantile(q, ...)`` of CPU group partials from
+    ``hist_range_partials`` over the bounds ``les`` (f32 [B]) -> [G, J_pad],
+    NaN past ``num_steps`` (``hist_quantile_plain``). On the card the
+    quantile runs inside the range launch (``hist_range_quantile``), so a
+    CUDA tensor raises."""
     dev = acc.device
     B = les.shape[0] if les.dim() == 1 else -1
     if B < 1 or acc.dim() != 2 or acc.shape[1] % B:
@@ -322,29 +488,7 @@ def hist_quantile(q: float, acc: torch.Tensor, cnt: torch.Tensor, num_groups: in
     _check("acc", acc, torch.float32, (num_groups + 1, acc.shape[1]), dev)
     _check("cnt", cnt, torch.float32, tuple(acc.shape), dev)
     _check("les", les, torch.float32, (B,), dev)
-    if dev.type == "cpu":
-        return hist_quantile_plain(q, acc, cnt, num_groups, les, num_steps)
-    if dev.type != "cuda":
-        raise ValueError(f"hist_quantile runs on cuda or cpu tensors, not {dev}")
-    out = torch.full((num_groups, acc.shape[1] // B), float("nan"), dtype=torch.float32,
-                     device=dev)
-    _launch_quantile(q, acc, cnt, num_groups, les, num_steps, out)
-    return out
-
-
-def _launch_quantile(q: float, acc, cnt, num_groups: int, les, num_steps: int, out) -> None:
-    """One launch of the quantile kernel into ``out`` [G, J_pad] (steps
-    [0, num_steps) written); raises if the launch fails."""
-    global QUANTILE_LAUNCHES
-    dev = acc.device
-    B = les.shape[0]
-    lib = _load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.filodb_hist_quantile(
-            acc.data_ptr(), cnt.data_ptr(), les.data_ptr(), num_groups, num_steps, B,
-            acc.shape[1], out.shape[1], float(q), out.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"hist_quantile kernel launch failed: cudaError {err}")
-    QUANTILE_LAUNCHES += 1
+    if dev.type != "cpu":
+        raise ValueError(f"hist_quantile takes cpu tensors, not {dev}: on the card the "
+                         "quantile is folded into the range launch (hist_range_quantile)")
+    return hist_quantile_plain(q, acc, cnt, num_groups, les, num_steps)

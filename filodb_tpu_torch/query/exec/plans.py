@@ -278,7 +278,7 @@ class SuperblockEntry:
     ``max_shard_series`` the series limit checks), what an extension needs
     (``col_name``, ``stage_mode``; None for a bucket sliced by ``le=``,
     which never extends) and a histogram's unified bounds (``les``, and
-    ``les_dev`` on the device for the quantile kernel)."""
+    ``les_dev`` on the device for the folded quantile)."""
 
     block: ST.StagedBlock
     labels: list
@@ -298,8 +298,8 @@ class FusedAggregateExec(ExecPlan):
     """``op by (...) (func(selector[w]))`` over local shards as ONE
     superblock and ONE kernel launch (regular or window stats); only [G, J]
     reaches the host. Over native histograms: one launch of the histogram
-    range kernel, and with ``hist_quantile`` (the planner recognized
-    ``histogram_quantile(q, sum ...)``) one more of the quantile kernel."""
+    range kernel, with ``hist_quantile`` (the planner recognized
+    ``histogram_quantile(q, sum ...)``) folded into that same launch."""
 
     def __init__(self, shard_nums, filters, raw_start_ms: int, raw_end_ms: int,
                  column, op: str, by, without, function,

@@ -2,13 +2,15 @@
 group aggregate) and the regular-range kernel on the card against their
 plain versions, on both group-partial variants and on rows staged in
 shared memory or read in place; a cached superblock's warm hit and
-live-edge extension on the card; and the two histogram kernels
-(csrc/hist_range.cu) against their plain versions, with one launch of
-each per histogram_quantile query. These tests need an NVIDIA card and skip without one; the
+live-edge extension on the card; and the histogram range kernel
+(csrc/hist_range.cu) and the quantile folded into its launch against
+their plain versions, with one launch per histogram query. These tests need an NVIDIA card and skip without one; the
 file imports no JAX so that it runs on a machine with only torch:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -438,33 +440,53 @@ def test_warm_hit_and_extension_on_card(card, grid):
     assert int(new.lens[0]) == int(old.lens[0]) + 1
 
 
-# -- the histogram kernels (csrc/hist_range.cu) -----------------------------------
+# -- the histogram kernel (csrc/hist_range.cu) -------------------------------------
 
 HIST_LES = np.array([0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, np.inf])
 HIST_PARAMS = RangeParams(BASE - 120_000, 60_000, 40, 300_000)
+HIST_FUNCS = sorted(["rate", "increase", "delta", "sum_over_time", "last"])
 
 
-def hist_block(grid: str, card, n_real=300, m=400, seed=0):
-    """Seeded cumulative histograms staged by the port, on the card:
-    ``regular`` (one 10 s grid) or ``irregular`` (5-15 s apart, ragged, an
-    empty series); a few NaN bucket counts in series 3; padded rows past
-    ``n_real``."""
+def hist_les(B: int) -> np.ndarray:
+    """B increasing bucket bounds, the last +inf."""
+    return np.append(np.geomspace(0.01, 50.0, B - 1), np.inf) if B > 1 else np.array([np.inf])
+
+
+def hist_block(grid: str, card, n_real=300, m=400, seed=0, B=None):
+    """Seeded cumulative histograms of B buckets (default len(HIST_LES))
+    staged by the port, on the card: ``regular`` (one 10 s grid) or
+    ``irregular`` (5-15 s apart, ragged lengths below T, an empty series,
+    and series 5 sampled every 400 s, so its windows hold one sample or
+    none); a few NaN bucket counts in series 3; padded rows past
+    ``n_real``. The query grid starts before the first sample (empty
+    windows)."""
     from filodb_tpu_torch.ops.staging import stage_histogram_series
 
     rng = np.random.default_rng(seed)
-    B = len(HIST_LES)
+    B = B or len(HIST_LES)
     series = []
     for i in range(n_real):
         k = m if grid == "regular" else int(rng.integers(m // 2, m + 1)) * (i != n_real // 2)
-        ts = (BASE + 3_000 + np.arange(k, dtype=np.int64) * 10_000 if grid == "regular"
-              else BASE + np.cumsum(rng.integers(5_000, 15_001, k)).astype(np.int64))
+        if grid == "regular":
+            ts = BASE + 3_000 + np.arange(k, dtype=np.int64) * 10_000
+        elif i == 5:
+            k = m // 40
+            ts = BASE + 1_000 + np.arange(k, dtype=np.int64) * 400_000
+        else:
+            ts = BASE + np.cumsum(rng.integers(5_000, 15_001, k)).astype(np.int64)
         incr = rng.poisson(2.0, size=(k, B)).astype(np.float64)
         incr[:, -1] = incr.sum(1)
         h = np.cumsum(np.cumsum(incr, axis=1), axis=0)
         if i == 3 and k > 40:
-            h[20:24, 2] = np.nan
+            h[20:24, min(2, B - 1)] = np.nan
         series.append((ts, h))
     return stage_histogram_series(series, BASE, B, [(0, i) for i in range(n_real)]).to_device(card)
+
+
+@functools.lru_cache(maxsize=12)
+def shared_hist_block(grid: str, card, n_real: int, m: int, seed: int, B: int):
+    """``hist_block`` built once per shape for the tests that only read it."""
+    return hist_block(grid, card, n_real=n_real, m=m, seed=seed, B=B)
 
 
 def hist_gids(G: int, S: int, n_real: int, card):
@@ -473,33 +495,89 @@ def hist_gids(G: int, S: int, n_real: int, card):
     return gids
 
 
+def hist_windows(b, params):
+    return (AGG._hist_shared_windows(b, params, pad_steps(params.num_steps))
+            if b.regular_ts is not None else None)
+
+
+def assert_partials_match(acc, cnt, want_acc, want_cnt, G: int, rtol: float, atol: float = 0.0):
+    """Member counts equal, finished [G, J*B] sums within rtol, NaN masks
+    equal (the trash group's row is dropped: padded rows reach it in the
+    plain version's index_add, never in the kernel)."""
+    assert torch.equal(cnt[:G], want_cnt[:G])
+    got = GA.finish_groups("sum", acc, cnt, G).cpu().numpy()
+    want = GA.finish_groups("sum", want_acc, want_cnt, G).cpu().numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    m = ~np.isnan(want)
+    np.testing.assert_allclose(got[m], want[m], rtol=rtol, atol=atol)
+
+
+def assert_quantiles_match(got, want):
+    """NaN and +-inf masks equal, the finite values within rtol 1e-3."""
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+    np.testing.assert_array_equal(np.isposinf(g), np.isposinf(w))
+    np.testing.assert_array_equal(np.isneginf(g), np.isneginf(w))
+    m = np.isfinite(w)
+    np.testing.assert_allclose(g[m], w[m], rtol=1e-3)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("is_delta", [False, True], ids=["cumulative", "delta"])
-@pytest.mark.parametrize("func", sorted(["rate", "increase", "delta", "sum_over_time", "last"]))
+@pytest.mark.parametrize("func", HIST_FUNCS)
 @pytest.mark.parametrize("grid", ["regular", "irregular"])
 def test_hist_range_kernel_matches_plain_on_card(card, grid, func, is_delta):
     """Each row its own group: the kernel's sums are the plain version's
-    values (rtol 2e-4 / atol 1e-4), NaN masks equal; padded steps empty."""
+    values bit for bit (one member each), NaN masks equal; padded steps
+    empty."""
     from filodb_tpu_torch.ops import hist_kernels as HK
 
     b = hist_block(grid, card)
     n = b.n_series
     gids = hist_gids(n, b.vals.shape[0], n, card)
-    windows = (AGG._hist_shared_windows(b, HIST_PARAMS, pad_steps(HIST_PARAMS.num_steps))
-               if grid == "regular" else None)
+    windows = hist_windows(b, HIST_PARAMS)
     before = HK.RANGE_LAUNCHES
     acc, cnt = HK.hist_range_partials(func, b, gids, n, HIST_PARAMS, windows, is_delta)
     assert HK.RANGE_LAUNCHES == before + 1
     want_acc, want_cnt = HK.hist_partials_plain(func, b, gids, n, HIST_PARAMS, windows, is_delta)
     torch.cuda.synchronize()
-    # the trash group's row is dropped: padded rows reach it in the plain
-    # version's index_add (shared bounds give them values), never in the kernel
-    assert torch.equal(cnt[:n], want_cnt[:n])
-    got = GA.finish_groups("sum", acc, cnt, n).cpu().numpy()
-    want = GA.finish_groups("sum", want_acc, want_cnt, n).cpu().numpy()
-    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
-    m = ~np.isnan(want)
-    np.testing.assert_allclose(got[m], want[m], rtol=2e-4, atol=1e-4)
+    assert_partials_match(acc, cnt, want_acc, want_cnt, n, rtol=0.0)
+    assert not cnt[:, HIST_PARAMS.num_steps * b.vals.shape[2]:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 1000])
+@pytest.mark.parametrize("B", [1, 3, 12, 40, 300])
+@pytest.mark.parametrize("is_delta", [False, True], ids=["cumulative", "delta"])
+@pytest.mark.parametrize("func", HIST_FUNCS)
+@pytest.mark.parametrize("grid", ["regular", "irregular"])
+def test_hist_range_buckets_and_groups_on_card(card, grid, func, is_delta, B, G):
+    """Every vector width (B = 1, 3: one bucket at a time; 12, 40, 300:
+    four), B above the block's threads, one group (shared partials, sliced
+    for B = 300) and 1000 (global atomics), against the plain group sums
+    (rtol 1e-3 with atol 1e-5 of the largest sum: atomics reorder the f32
+    sums), and the folded quantile against hist_quantile_plain on the same
+    launch's partials."""
+    from filodb_tpu_torch.ops import hist_kernels as HK
+
+    b = shared_hist_block(grid, card, 1200, 200, B, B)
+    gids = hist_gids(G, b.vals.shape[0], b.n_series, card)
+    windows = hist_windows(b, HIST_PARAMS)
+    les = torch.tensor(hist_les(B), dtype=torch.float32, device=card)
+    out, acc, cnt = HK.hist_range_quantile(0.75, func, b, gids, G, HIST_PARAMS, les, windows,
+                                           is_delta)
+    plan = HK.LAST_PLAN
+    assert plan == HK.hist_plan(b.vals.shape[1], HIST_PARAMS.num_steps, B, G,
+                                windows is not None)
+    assert plan.shared or G > 1
+    assert plan.vec == (4 if B % 4 == 0 else 1)
+    want_acc, want_cnt = HK.hist_partials_plain(func, b, gids, G, HIST_PARAMS, windows, is_delta)
+    torch.cuda.synchronize()
+    fin = GA.finish_groups("sum", want_acc, want_cnt, G)
+    atol = 1e-5 * float(torch.nan_to_num(fin, nan=0.0).abs().max())
+    assert_partials_match(acc, cnt, want_acc, want_cnt, G, rtol=1e-3, atol=atol)
+    assert_quantiles_match(out, HK.hist_quantile_plain(0.75, acc, cnt, G, les,
+                                                       HIST_PARAMS.num_steps))
 
 
 @pytest.mark.cuda
@@ -507,19 +585,19 @@ def test_hist_range_kernel_matches_plain_on_card(card, grid, func, is_delta):
 @pytest.mark.parametrize("G", [1, 8, 40])
 @pytest.mark.parametrize("grid", ["regular", "irregular"])
 def test_hist_range_group_partials_on_card(card, grid, G, n_real):
-    """Shared-memory partials (G <= 8) and global atomics (G = 40) against
-    the plain group sums (rtol 1e-3: atomics reorder the f32 sums), with one
-    row per block and with several (each thread's run sums over its rows)."""
+    """The plan's partials (shared, in slices of whole steps where G = 8
+    and 40 need them) against the plain group sums (rtol 1e-3: atomics and
+    run sums reorder the f32 sums), with a few rows per block and with
+    many."""
     from filodb_tpu_torch.ops import hist_kernels as HK
 
     b = hist_block(grid, card, n_real=n_real, seed=1)
     gids = hist_gids(G, b.vals.shape[0], b.n_series, card)
     les = torch.tensor(HIST_LES, dtype=torch.float32, device=card)
     got = AGG.fused_hist_range_aggregate("rate", b, gids, G, HIST_PARAMS, les)
-    assert HK.LAST_PLAN.partials == ("shared" if G <= 8 else "global")
-    assert (HK.LAST_PLAN.rows > 1) == (n_real > 300)
-    windows = (AGG._hist_shared_windows(b, HIST_PARAMS, pad_steps(HIST_PARAMS.num_steps))
-               if grid == "regular" else None)
+    windows = hist_windows(b, HIST_PARAMS)
+    assert HK.LAST_PLAN == HK.hist_plan(b.vals.shape[1], HIST_PARAMS.num_steps, len(HIST_LES),
+                                        G, windows is not None)
     acc, cnt = HK.hist_partials_plain("rate", b, gids, G, HIST_PARAMS, windows)
     want = GA.finish_groups("sum", acc, cnt, G).reshape(got.shape)
     torch.cuda.synchronize()
@@ -529,44 +607,104 @@ def test_hist_range_group_partials_on_card(card, grid, G, n_real):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("func", ["rate", "sum_over_time"])
+@pytest.mark.parametrize("G", [1, 7])
+def test_hist_range_many_tiles_per_block_on_card(card, func, G):
+    """A block of 40000 short rows: every persistent block walks several
+    tiles (ts copies of the next tile in flight while one is computed), run
+    sums carry across a block's tiles; partials and the folded quantile
+    against plain."""
+    from filodb_tpu_torch.ops import hist_kernels as HK
+
+    params = RangeParams(BASE - 60_000, 60_000, 12, 300_000)
+    b = shared_hist_block("irregular", card, 40_000, 60, 3, len(HIST_LES))
+    S = b.vals.shape[0]
+    gids = hist_gids(G, S, b.n_series, card)
+    les = torch.tensor(HIST_LES, dtype=torch.float32, device=card)
+    out, acc, cnt = HK.hist_range_quantile(0.5, func, b, gids, G, params, les)
+    plan, grid = HK.LAST_PLAN, HK.LAST_GRID
+    assert plan.staged and grid[0] * plan.rows < S
+    want_acc, want_cnt = HK.hist_partials_plain(func, b, gids, G, params)
+    torch.cuda.synchronize()
+    assert_partials_match(acc, cnt, want_acc, want_cnt, G, rtol=1e-3)
+    assert_quantiles_match(out, HK.hist_quantile_plain(0.5, acc, cnt, G, les, params.num_steps))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("first_le", [0.1, 0.0, -1.0])
 @pytest.mark.parametrize("q", [-0.1, 0.0, 0.5, 0.99, 1.0, 1.1])
 def test_hist_quantile_kernel_matches_plain_on_card(card, q, first_le):
-    """The quantile kernel on seeded partials with a zero-total group, a
-    group with no member and a bucket without members, against
-    hist_quantile_plain: NaN and infinity masks equal, rtol 1e-3."""
+    """The quantile folded into the range launch, against
+    hist_quantile_plain on that launch's partials, with a zero-total group,
+    a group with no member and buckets without members (series 3's NaN
+    counts, alone in its group): NaN and infinity masks equal, rtol 1e-3.
+    Exactly one launch, counted as a folded quantile."""
     from filodb_tpu_torch.ops import hist_kernels as HK
 
-    rng = np.random.default_rng(2)
-    G, J, j_pad = 5, 50, 64
+    b = hist_block("irregular", card, seed=2)
+    S, n = b.vals.shape[0], b.n_series
+    G = 6
+    gids = torch.full((S,), G, dtype=torch.int64, device=card)
+    gids[:n] = 4 + torch.arange(n, device=card) % 2  # groups 4 and 5: the bulk
+    gids[3] = 3  # NaN buckets alone
+    gids[7:n:50] = 1
+    b.vals[7:n:50] = 0.0  # group 1: zero totals
+    # group 0 and group 2 have no member
     les = HIST_LES.copy()
     les[0] = first_le
-    B = len(les)
-    vals = np.cumsum(rng.uniform(0, 4, (G + 1, j_pad, B)), axis=-1).astype(np.float32)
-    cnts = np.ones((G + 1, j_pad, B), np.float32)
-    vals[1] = 0.0  # zero total
-    cnts[2] = 0.0  # no member
-    cnts[3, 7, 4] = 0.0  # one bucket without a member
-    acc = torch.from_numpy(vals.reshape(G + 1, -1)).to(card)
-    cnt = torch.from_numpy(cnts.reshape(G + 1, -1)).to(card)
     les_t = torch.tensor(les, dtype=torch.float32, device=card)
-    before = HK.QUANTILE_LAUNCHES
-    got = HK.hist_quantile(q, acc, cnt, G, les_t, J)
-    assert HK.QUANTILE_LAUNCHES == before + 1
-    want = HK.hist_quantile_plain(q, acc, cnt, G, les_t, J)
+    before = (HK.RANGE_LAUNCHES, HK.FOLDED_QUANTILES)
+    got, acc, cnt = HK.hist_range_quantile(q, "rate", b, gids, G, HIST_PARAMS, les_t)
+    assert (HK.RANGE_LAUNCHES, HK.FOLDED_QUANTILES) == (before[0] + 1, before[1] + 1)
+    want = HK.hist_quantile_plain(q, acc, cnt, G, les_t, HIST_PARAMS.num_steps)
     torch.cuda.synchronize()
-    g, w = got.cpu().numpy(), want.cpu().numpy()
-    np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
-    np.testing.assert_array_equal(np.isinf(g), np.isinf(w))
-    m = np.isfinite(w)
-    np.testing.assert_allclose(g[m], w[m], rtol=1e-3)
+    assert_quantiles_match(got, want)
+    if 0.0 <= q <= 1.0:
+        J = HIST_PARAMS.num_steps
+        assert torch.isnan(got[[0, 2]]).all() and torch.isnan(got[1, :J]).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [12, 300], ids=["one_slice", "slices"])
+@pytest.mark.parametrize("grid", ["regular", "irregular"])
+def test_hist_quantile_counter_reset_between_launches_on_card(card, grid, B):
+    """Two launches in a row on one stream into the same buffers: the last
+    block of each slice sets its arrival counter back to 0, so the second
+    launch folds its quantile too (with the counters left stale it would
+    leave NaN) and equals the first."""
+    from filodb_tpu_torch.ops import hist_kernels as HK
+
+    b = hist_block(grid, card, n_real=500, m=200, seed=4, B=B)
+    S = b.vals.shape[0]
+    gids = hist_gids(3, S, b.n_series, card)
+    windows = hist_windows(b, HIST_PARAMS)
+    les = torch.tensor(hist_les(B), dtype=torch.float32, device=card)
+    plan = HK.hist_plan(b.vals.shape[1], HIST_PARAMS.num_steps, B, 3, windows is not None)
+    assert (plan.slices > 1) == (B == 300)
+    j_pad = pad_steps(HIST_PARAMS.num_steps)
+    acc, cnt, arrivals = HK.hist_buffers(3, j_pad * B, plan.slices, card)
+    outs = []
+    for _ in range(2):
+        acc.zero_()
+        cnt.zero_()
+        out = torch.full((3, j_pad), float("nan"), device=card)
+        HK._launch_range("rate", b, gids, 3, HIST_PARAMS, windows, False, acc, cnt,
+                         quantile=(0.9, les, out, arrivals))
+        torch.cuda.synchronize()
+        assert not arrivals.any()
+        outs.append(out)
+    J = HIST_PARAMS.num_steps
+    assert torch.isfinite(outs[1][:, 10:J]).all()
+    assert_quantiles_match(outs[1], outs[0])
+    assert_quantiles_match(outs[1], HK.hist_quantile_plain(0.9, acc, cnt, 3, les, J))
 
 
 @pytest.mark.cuda
 def test_hist_quantile_query_launches_both_kernels_once_on_card(card):
     """histogram_quantile(q, sum by (le) (rate(m_bucket[5m]))) on the card:
-    one launch of each histogram kernel per query, none of another port
-    kernel, cold and warm (a superblock-cache hit)."""
+    exactly one launch of the port (the range kernel, its quantile folded
+    in), cold and warm (a superblock-cache hit); a plain sum by (le) of the
+    same selection launches once too, with no quantile."""
     from filodb_tpu_torch.coordinator.planner import QueryEngine
     from filodb_tpu_torch.core.histograms import custom_buckets
     from filodb_tpu_torch.core.records import RecordBatch
@@ -588,15 +726,19 @@ def test_hist_quantile_query_launches_both_kernels_once_on_card(card):
                                          "h": h.reshape(-1, len(les))},
         [t for t in tags for _ in range(m)], les), spread=2)
     eng = QueryEngine(ms, "ds")
-    q = "histogram_quantile(0.99, sum by (le) (rate(lat_bucket[5m])))"
     start, end = (BASE + 400_000) / 1000, (BASE + 1_900_000) / 1000
-    outs = []
-    for _ in range(2):
-        before = (HK.RANGE_LAUNCHES, HK.QUANTILE_LAUNCHES, WS.RANGE_LAUNCHES, MK.LAUNCHES)
-        res = eng.query_range(q, start, end, 60)
-        after = (HK.RANGE_LAUNCHES, HK.QUANTILE_LAUNCHES, WS.RANGE_LAUNCHES, MK.LAUNCHES)
-        assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 0, 0)
-        outs.append(res.grids[0].values_np())
-    assert res.stats.cache_hits == 1 and res.stats.cache_misses == 0
-    assert np.isfinite(outs[0]).all()
-    np.testing.assert_allclose(outs[1], outs[0], rtol=1e-3)
+    for q, folds in (("histogram_quantile(0.99, sum by (le) (rate(lat_bucket[5m])))", 1),
+                     ("sum by (le) (rate(lat_bucket[5m]))", 0)):
+        outs = []
+        for _ in range(2):
+            before = (HK.RANGE_LAUNCHES, HK.FOLDED_QUANTILES, WS.RANGE_LAUNCHES, WS.LAUNCHES,
+                      MK.LAUNCHES)
+            res = eng.query_range(q, start, end, 60)
+            after = (HK.RANGE_LAUNCHES, HK.FOLDED_QUANTILES, WS.RANGE_LAUNCHES, WS.LAUNCHES,
+                     MK.LAUNCHES)
+            assert tuple(a - b for a, b in zip(after, before)) == (1, folds, 0, 0, 0)
+            outs.append(np.stack([g.values_np() if g.hist is None else g.hist_np()
+                                  for g in res.grids]))
+        assert res.stats.cache_hits == 1 and res.stats.cache_misses == 0
+        assert np.isfinite(outs[0]).all()
+        np.testing.assert_allclose(outs[1], outs[0], rtol=1e-3)

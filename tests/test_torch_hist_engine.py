@@ -421,11 +421,11 @@ def test_hist_superblock_evicts_scalar_entries():
 def test_warm_hist_query_is_a_hit_with_no_staging(stores):
     eng = QueryEngine(stores[1], "ds", device="cpu")
     first = eng.query_range(HQ_QUERY, START, END, STEP)
-    before = (HK.RANGE_LAUNCHES, HK.QUANTILE_LAUNCHES)
+    before = (HK.RANGE_LAUNCHES, HK.FOLDED_QUANTILES)
     warm = eng.query_range(HQ_QUERY, START, END, STEP)
     assert warm.stats.cache_hits == 1 and warm.stats.cache_misses == 0
     assert warm.stats.bytes_staged == 0
-    assert (HK.RANGE_LAUNCHES, HK.QUANTILE_LAUNCHES) == before  # CPU: the plain versions
+    assert (HK.RANGE_LAUNCHES, HK.FOLDED_QUANTILES) == before  # CPU: the plain versions
     np.testing.assert_array_equal(warm.grids[0].values_np(), first.grids[0].values_np())
 
 

@@ -5,6 +5,7 @@ the main path's shape: a [131072, 768] superblock with 100k real series
 grid for the regular kernel), 111 steps, 5 m windows, sum over 1 group.
 
     python3 tile_sweep.py [--split]
+    python3 tile_sweep.py --hist [--package-root DIR]
 
 For each kernel and function it times the launch (the median of 20 calls
 between CUDA events, after warm-up) at every rows-per-tile layout -- the
@@ -19,7 +20,20 @@ fixed window bounds instead of the binary searches -- to show what each
 costs; the patched kernels compute wrong values and serve only as timings.
 Every launch goes through the wrappers' own ``_launch_range`` / ``_launch``
 with an explicit layout (``group_acc.layout``) and, for a patched copy, its
-library.
+library. ``HIST_PATCHES`` are the histogram kernel's split, which
+``chip_smoke.py`` builds with ``build_patched`` and times beside the kernel.
+
+With ``--hist`` it times the histogram range kernel instead, on 100k
+12-bucket histograms made on the card (``chip_smoke.hist_block_bulk_on_card``;
+once on irregular scrapes with per-series bounds, once moved onto bench.py's
+regular 10 s grid with shared bounds), ``rate`` over bench.py's 111 steps into
+one group: back to back, alone and with ``histogram_quantile(0.99, .)``
+(folded into the launch, or a second launch where the package has the
+quantile kernel of its own), and at each rows-per-tile count and at 256
+threads per block, and built with the register budgets of ``HIST_BUILDS``.
+``--package-root`` imports ``filodb_tpu_torch`` from
+another checkout (a parent commit unpacked into a gitignored directory), so
+that one call can time parent, change, change, parent on one card.
 
 Prints the card's name and power limit, and ends with one JSON object of
 every time. Exits non-zero where no CUDA device is available.
@@ -34,6 +48,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -53,6 +68,31 @@ NO_SEARCH = [("window_stats.cu", "    const int hi = count_le(rt, n, t_j);",
              ("window_stats.cu", "    const int lo = lower_edge(rt, hi, wrap_add(t_j, -a.window));",
               "    const int lo = max(0, hi - 30);")]
 PATCHES = [NO_ATOMICS, *NO_SEARCH]
+# patches of the histogram kernel's split (chip_smoke.py phases 7b, 7c and
+# the card block): "search only" stages ts and searches the windows but
+# fetches no bucket; "fetch only" copies no ts and takes fixed windows of
+# 30 samples, 6 further per step (10 s samples, 60 s steps)
+HIST_PATCHES = {
+    "search only": [("hist_range.cu",
+                     "            for (int cv = threadIdx.x; cv < cv_n; cv += blockDim.x) {",
+                     "            for (int cv = threadIdx.x; cv < 0; cv += blockDim.x) {")],
+    "fetch only": [("hist_range.cu",
+                    "return gid_of(s0 + r) < 0 ? 0 : (len_of(s0 + r) + 3) / 4;", "return 0;"),
+                   ("hist_range.cu", "hi = count_le<!STAGED>(rt, len_of(s), t_j);",
+                    "hi = min(len_of(s), max(0, (j0 + jl) * 6 + 30));"),
+                   ("hist_range.cu", "lo = lower_edge(rt, hi, wrap_add(t_j, -a.window));",
+                    "lo = max(0, hi - 30);")],
+}
+# register budgets of the histogram kernel (``--hist``): rows whose loads a
+# thread has in flight, and blocks per SM its registers are cut for
+HIST_BUILDS = {
+    f"unroll {u}, {b} blocks per SM": [
+        (f, old, new) for f, old, new in (
+            ("hist_range.cu", "constexpr int UNROLL = 2;", f"constexpr int UNROLL = {u};"),
+            ("hist_range.cu", "constexpr int MIN_BLOCKS = 3;", f"constexpr int MIN_BLOCKS = {b};"))
+        if old != new]
+    for u, b in ((4, 2), (2, 2), (2, 4), (4, 3))
+}
 
 
 def median_ms(fn, reps: int = 20) -> float:
@@ -119,9 +159,114 @@ def build_patched(name: str, patches, bind) -> ctypes.CDLL:
     return bind(ctypes.CDLL(str(out)))
 
 
+def back_to_back_ms(fn, reps: int = 50) -> float:
+    """Device ms per call of ``fn`` launched ``reps`` times between two events."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def hist_main(package_root: str | None, card: str, device=None, n_series: int | None = None,
+              timer=back_to_back_ms) -> int:
+    """``--hist``: the histogram range kernel of the package at
+    ``package_root`` (default this checkout's), alone and with the quantile,
+    and (where the package has the redesigned plan) at other layouts, on
+    ``n_series`` (default chip_smoke's 100k) series on ``device`` (default
+    the card)."""
+    if package_root:
+        sys.path.insert(0, str(Path(package_root).resolve()))
+    import dataclasses
+    import importlib.util
+
+    import torch
+
+    import filodb_tpu_torch
+    # this checkout's chip_smoke.py (its block generator), whatever the package
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  Path(__file__).resolve().parent / "chip_smoke.py")
+    CS = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(CS)
+    from filodb_tpu_torch.ops import aggregations as AGG
+    from filodb_tpu_torch.ops import group_acc as GA
+    from filodb_tpu_torch.ops import hist_kernels as HK
+    from filodb_tpu_torch.ops.kernels import RangeParams, pad_steps
+
+    device = device or torch.device("cuda")
+    print(f"package {Path(filodb_tpu_torch.__file__).resolve().parent}")
+    HK._load()
+    builds = {}
+    if hasattr(HK, "hist_smem_bytes") and device.type == "cuda":
+        with ThreadPoolExecutor(len(HIST_BUILDS)) as pool:
+            libs = pool.map(lambda k: build_patched("hist_range", HIST_BUILDS[k], HK.bind),
+                            HIST_BUILDS)
+        builds = dict(zip(HIST_BUILDS, libs))
+    n, B = n_series or CS.N_SERIES, CS.N_BUCKETS
+    J = int((CS.END_S - CS.START_S) // CS.STEP_S) + 1
+    params = RangeParams(int(CS.START_S * 1000), int(CS.STEP_S * 1000), J, CS.WINDOW_MS)
+    les = torch.tensor(CS.HIST_LES, dtype=torch.float32, device=device)
+    irregular = CS.hist_block_bulk_on_card(n, CS.N_SAMPLES, CS.HIST_SEED, device)
+    regular = CS.hist_block_bulk_on_card(n, CS.N_SAMPLES, CS.HIST_SEED + 1, device)
+    regular.lens[:n] = CS.N_SAMPLES
+    lane = torch.arange(regular.ts.shape[1], device=device)
+    grid = torch.where(lane < CS.N_SAMPLES, lane * 10_000, 2**31 - 1).to(torch.int32)
+    regular.ts[:n] = grid
+    regular.vals[n // 2] = regular.vals[0]  # the generator's empty series gets samples
+    regular.regular_ts = grid.cpu().numpy()
+    gids = torch.ones(regular.vals.shape[0], dtype=torch.int64, device=device)
+    gids[:n] = 0
+    times = {}
+    for name, block in (("shared bounds", regular), ("per-series bounds", irregular)):
+        windows = (AGG._hist_shared_windows(block, params, pad_steps(J))
+                   if block.regular_ts is not None else None)
+        acc, cnt = GA.accumulators("sum", 1, pad_steps(J) * B, device)
+        out = torch.full((1, pad_steps(J)), float("nan"), device=device)
+
+        def launch(quantile=False, plan=None, lib=None):
+            kw = {"plan": plan, "lib": lib} if plan or lib else {}
+            if quantile and hasattr(HK, "hist_range_quantile"):  # folded into the launch
+                arrivals = torch.zeros(8, dtype=torch.int32, device=device)
+                kw["quantile"] = (0.99, les, out, arrivals)
+            return lambda: (HK._launch_range("rate", block, gids, 1, params, windows, False,
+                                             acc, cnt, **kw),
+                            quantile and not hasattr(HK, "hist_range_quantile")
+                            and HK._launch_quantile(0.99, acc, cnt, 1, les, J, out))
+
+        times[f"{name}: hist_range"] = timer(launch())
+        times[f"{name}: hist_range with the quantile"] = timer(launch(True))
+        if hasattr(HK, "hist_smem_bytes"):
+            plan = HK.hist_plan(block.vals.shape[1], J, B, 1, windows is not None)
+            layouts = [dataclasses.replace(plan, rows=r, smem_bytes=HK.hist_smem_bytes(
+                1, B, plan.steps, r, block.vals.shape[1], windows is not None, plan.shared,
+                plan.staged)) for r in (2, 4, 8, 16) if r != plan.rows]
+            layouts.append(dataclasses.replace(plan, threads=256))
+            for layout in layouts:
+                key = f"{name}: rows={layout.rows} threads={layout.threads}"
+                times[key] = timer(launch(plan=layout))
+            for build, lib in builds.items():
+                times[f"{name}: {build}"] = timer(launch(lib=lib))
+            times[f"{name}: the plan's layout"] = f"rows={plan.rows} threads={plan.threads}"
+        for k, v in times.items():
+            if k.startswith(name):
+                print(f"{k}: {v if isinstance(v, str) else f'{v:.4f} ms'}", flush=True)
+    print(card)
+    print(json.dumps({"card": card, "package": str(package_root or "."), "ms": times}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--split", action="store_true", help="also time patched copies")
+    ap.add_argument("--hist", action="store_true", help="time the histogram kernel instead")
+    ap.add_argument("--package-root", default=None,
+                    help="with --hist: import filodb_tpu_torch from this checkout")
     args = ap.parse_args()
 
     import torch
@@ -129,6 +274,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("tile_sweep: no CUDA device is available", file=sys.stderr)
         return 2
+    if args.hist:
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              check=True, timeout=60).stdout.strip()
+        return hist_main(args.package_root, card)
     from filodb_tpu_torch.ops import cuda_build
     from filodb_tpu_torch.ops import group_acc as GA
     from filodb_tpu_torch.ops import mxu_kernels as MK
