@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``filodb_tpu_torch``) on one NVIDIA
 card: build its kernels, hold each kernel against its plain PyTorch
-version, drive both rungs of the main path at full size, and check what
+version, drive every rung of the main path at full size, and check what
 comes out.
 
     python3 chip_smoke.py [--seed N]
@@ -32,6 +32,16 @@ Phases (any failure raises and exits non-zero):
    shared-memory budget: global atomics). NaN masks equal; rtol 2e-4 /
    atol 1e-4 at G = S; elsewhere rtol 1e-3 (atomics reorder a group's f32
    sums) with atol 1e-5 of the largest |value| (sums that cancel).
+2c. The general kernel (the fused kernel of ``window_stats.cu`` on the
+   general function codes: ``general_range_aggregate``, B4) vs
+   ``general_range_aggregate_plain``: every function of ``GENERAL_FUNCS`` x
+   sum/count/avg/min/max over seeded irregular blocks staged by the port as
+   gauges, corrected, shifted and diff counters (a reset in every fourth
+   row) and delta counters, with tied timestamps, a row with no sample,
+   padded trash rows and a grid from before the first sample to past the
+   last (empty and one-sample windows); G in {1, 8} (shared-memory
+   partials), 120 and S (global atomics); the tolerances of 2b, NaN masks
+   equal.
 3. Regular range kernel vs plain on seeded blocks on one shared 10 s grid,
    same S and T: every function of ``FUSED_MXU_FUNCS`` over gauge,
    corrected-counter and diff-counter blocks with each row its own group
@@ -143,6 +153,25 @@ Phases (any failure raises and exits non-zero):
    generator drawn in bulk on the card (``hist_block_bulk_on_card``), the
    canonical rate into one group with the quantile folded in, against
    plain, timed as in 7b, and at 2, 4 and 8 rows per tile.
+
+8. The general rung at full size (after phase 4, on its store, and after
+   phase 6, on phase 5's): through ``QueryEngine``, cold then warm,
+   ``sum(irate)`` (a hit on phase 4's corrected superblock), ``sum by
+   (zone) (changes)`` and ``sum(resets)`` (a diff build), ``sum(deriv)``
+   and ``sum by (zone) (stddev_over_time)`` (a shifted build) over
+   ``http_requests_total[5m]``, and ``sum(rate(...[5m] offset 1m))`` (the
+   window-stats rung on the shifted range, which must equal phase 4's
+   ``sum(rate)`` one step earlier); then ``sum(changes(...[5m]))`` on the
+   regular store, which takes the general rung there too. Each run must
+   take its rung with exactly one launch of its kernel and no other, the
+   warm run must be a hit with no staging, and [G, J] must match the plain
+   path (rtol 1e-3, NaN masks equal). Prints, per query and beside the
+   card's name and power limit, the cold and warm latency, the kernel's ms
+   (median of 20, and back to back), the device path's ms, the plain
+   path's ms and the bound: ts and vals per real sample, lens and gids per
+   series and [G, J] (bytes), or the in-window samples' operations,
+   whichever is longer. (A diff superblock restages under live-edge
+   ingest, as in the JAX package: phase 8 does not extend one.)
 
 Around every timed phase it prints the card's SM and memory clocks,
 temperature and power draw (nvidia-smi), before and after. Prints, in
@@ -577,7 +606,8 @@ def path_args(entry, ex):
 
     gids, G, _ = AGG.group_ids_memo(entry.block, entry.labels, ex.by, ex.without,
                                     strip_metric=True)
-    return gids, G, RangeParams(ex.start_ms, ex.step_ms, ex.num_steps(), ex.window_ms)
+    return gids, G, RangeParams(ex.start_ms - ex.offset_ms, ex.step_ms, ex.num_steps(),
+                                ex.window_ms)
 
 
 def device_path(entry, ex):
@@ -603,9 +633,10 @@ def window_range_path(entry, ex, plain: bool):
 
 KERNEL_COUNTERS = {"window_stats": ("window_stats", "LAUNCHES"),
                    "window_range": ("window_stats", "RANGE_LAUNCHES"),
+                   "general_range": ("general_range", "LAUNCHES"),
                    "regular_range": ("mxu_kernels", "LAUNCHES"),
                    "hist_range": ("hist_kernels", "RANGE_LAUNCHES")}
-RUNGS = {"mxu": "regular_range", "window_stats": "window_range"}
+RUNGS = {"mxu": "regular_range", "window_stats": "window_range", "general": "general_range"}
 
 
 def run_main(engine, q: str, want_class: str, rung: str, end_s: float = END_S):
@@ -740,7 +771,7 @@ def staged_note(stage_s) -> str:
     return "cached" if stage_s is None else f"staged in {stage_s:.2f} s (host gather, stage, copy)"
 
 
-def phase_irregular_path(seed: int, device) -> tuple[dict, dict]:
+def phase_irregular_path(seed: int, device):
     import torch
 
     from filodb_tpu_torch.coordinator.planner import QueryEngine
@@ -813,7 +844,7 @@ def phase_irregular_path(seed: int, device) -> tuple[dict, dict]:
             gpu_sample("phase4 window_stats after")
     row["max_abs_err"] = err
     row["queries"] = per_query
-    return row, ws_row
+    return row, ws_row, engine, run["results"][QUERIES[0]].grids[0].values_np()
 
 
 def time_window_stats(block, n_series: int, ex, j_pad: int) -> dict:
@@ -1153,6 +1184,259 @@ def phase_live_edge(engine, device, phase: str, grid: str, n_idle: int, n_busy: 
         "vals_max_diff": diffs["vals"], "raw_max_diff": diffs["raw"],
         "final_max_abs_err": final_err, "launches": launches[0],
     }
+
+
+# ---- the general rung (B4): phase 2c and phase 8 ----
+
+GENERAL_STAGINGS = {  # staging mode -> (stage_series flags, is_counter, is_delta)
+    "gauge": ({}, False, False), "corrected": ({"counter_corrected": True}, True, False),
+    "shifted": ({"subtract_baseline": True}, True, False),
+    "diff": ({"diff_encode": True}, True, False), "delta": ({}, True, True),
+}
+
+
+def general_block(staging: str, n_real: int, n: int, rng, device):
+    """``n_real`` seeded irregular series staged by the port in a staging
+    mode, padded rows past them (the trash group): 5-15 s apart with a tie
+    every 31 samples in every fifth row, ragged lengths, a row with no
+    sample; gauges (NaN samples in every third row, which staging drops as
+    it drops stale markers), counters with a reset in every fourth row, or
+    delta increments (some zero)."""
+    from filodb_tpu_torch.ops.staging import stage_series
+
+    mode, counter, is_delta = GENERAL_STAGINGS[staging]
+    series = []
+    for i in range(n_real):
+        m = 0 if i == n_real // 2 else int(rng.integers(n // 2, n + 1))
+        gaps = rng.integers(5_000, 15_001, m)
+        if i % 5 == 0:
+            gaps[7::31] = 0
+        ts = BASE + int(rng.integers(0, 20_000)) + np.cumsum(gaps).astype(np.int64)
+        if is_delta:
+            vals = rng.uniform(0, 10, m)
+            vals[3::7] = 0.0
+        elif counter:
+            vals = np.cumsum(rng.uniform(0, 10, m)) + 1e3
+            if i % 4 == 0 and m:
+                vals[m // 2:] -= vals[m // 2] - rng.uniform(0, 5)
+        else:
+            vals = 50 + 20 * rng.standard_normal(m)
+            if i % 3 == 0:
+                vals[11::17] = np.nan
+        series.append((ts, vals))
+    return stage_series(series, BASE, **mode).to_device(device), counter, is_delta
+
+
+def phase_general_vs_plain(seed: int, device) -> float:
+    """The general kernel against ``general_range_aggregate_plain``; returns
+    the largest absolute difference."""
+    import torch
+
+    from filodb_tpu_torch.ops import general_range as GR
+    from filodb_tpu_torch.ops.kernels import RangeParams
+
+    rng = np.random.default_rng(seed + 3)
+    n_real, n = 300, 380
+    # from 200 s before the first sample to past the last one: empty windows
+    params = RangeParams(BASE - 200_000, 60_000, 80, WINDOW_MS)
+    worst = 0.0
+    for staging in GENERAL_STAGINGS:
+        block, counter, is_delta = general_block(staging, n_real, n, rng, device)
+        S = block.ts.shape[0]
+        for G in (1, 8, 120, n_real):
+            gids = torch.full((S,), G, dtype=torch.int64, device=device)
+            own = G == n_real
+            gids[:n_real] = (torch.arange(n_real, device=device) if own else
+                             torch.from_numpy(rng.integers(0, G, n_real)).to(device))
+            variants = set()
+            for func in sorted(GR.GENERAL_FUNCS):
+                for op in ("sum", "count", "avg", "min", "max"):
+                    got = GR.general_range_aggregate(func, op, block, gids, G, params,
+                                                     is_counter=counter, is_delta=is_delta)
+                    variants.add(GR.LAST_PLAN.partials)
+                    want = GR.general_range_aggregate_plain(func, op, block, gids, G, params,
+                                                            is_counter=counter,
+                                                            is_delta=is_delta)
+                    what = f"{op}({func}) G={G} {staging}"
+                    if own:
+                        err = compare(got, want, what, rtol=2e-4, atol=1e-4)
+                    else:
+                        finite = want[torch.isfinite(want)]
+                        scale = float(finite.abs().max()) if finite.numel() else 0.0
+                        err = compare(got, want, what, rtol=1e-3, atol=1e-5 * scale)
+                    worst = max(worst, err)
+            want_variant = "shared" if G <= 8 else "global"
+            require(variants == {want_variant}, f"G={G}: group partials {variants}")
+            print(f"phase2c {staging} block {list(block.shape)} ({n_real} real rows) G={G}: "
+                  f"{len(GR.GENERAL_FUNCS)} functions x 5 ops match plain ({want_variant} "
+                  f"partials, rows per tile {GR.LAST_PLAN.rows}, {GR.LAST_PLAN.n_arrays} arrays "
+                  f"staged)")
+    print(f"phase2c general kernel matches plain, max_abs_err={worst:.3g}")
+    return worst
+
+
+# phase 8: (query, rung, what its first run must be on phase 4's cache)
+GENERAL_QUERIES = (
+    ("sum(irate(http_requests_total[5m]))", "general", "hit"),  # corrected: phase 4's block
+    ("sum by (zone) (changes(http_requests_total[5m]))", "general", "build"),  # diff
+    ("sum(resets(http_requests_total[5m]))", "general", "hit"),
+    ("sum(deriv(http_requests_total[5m]))", "general", "build"),  # shifted
+    ("sum by (zone) (stddev_over_time(http_requests_total[5m]))", "general", "hit"),
+    ("sum(rate(http_requests_total[5m] offset 1m))", "window_stats", "build"),
+)
+REGULAR_GENERAL_QUERY = "sum(changes(http_requests_total[5m]))"
+F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores (NVIDIA data sheet)
+F64_OPS_PER_S = 34e12  # H100 SXM f64 outside the tensor cores (NVIDIA data sheet)
+# operations per in-window sample of the general kinds, and their peak rate
+GENERAL_OPS = {"irate": (0, F32_OPS_PER_S), "idelta": (0, F32_OPS_PER_S),
+               "stddev_over_time": (4, F32_OPS_PER_S), "stdvar_over_time": (4, F32_OPS_PER_S),
+               "z_score": (4, F32_OPS_PER_S), "changes": (2, F32_OPS_PER_S),
+               "resets": (2, F32_OPS_PER_S), "deriv": (6, F64_OPS_PER_S)}
+
+
+def general_bound(entry, ex, G: int) -> dict:
+    """The least time of one general launch at the query's shape: bytes
+    (ts and vals per real sample, lens and gids per series, [G, J] out)
+    over 3.35 TB/s, or the in-window samples' operations (this run's
+    windows) over the peak rate of their type, whichever is larger."""
+    import torch
+
+    from filodb_tpu_torch.ops.kernels import _bounds
+
+    block = entry.block
+    n, J = len(entry.labels), ex.num_steps()
+    real = int(block.lens.sum())
+    need = real * 8 + n * 12 + G * J * 4
+    dev = block.ts.device
+    start = int(ex.start_ms - ex.offset_ms - block.base_ms)
+    out_t = (start + torch.arange(J, device=dev, dtype=torch.int64) * ex.step_ms).to(torch.int32)
+    lo, hi = _bounds(block.ts[:n], block.lens[:n], out_t,
+                     torch.tensor(ex.window_ms, dtype=torch.int32, device=dev))
+    samples = int((hi - lo).clamp(min=0).sum())
+    per_sample, rate = GENERAL_OPS[ex.function]
+    ops = samples * per_sample + n * J * 10  # ~10 operations per (row, step) besides
+    bytes_ms, ops_ms = need / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms
+            else "operations", "bound_bytes": need, "bytes_ms": bytes_ms, "operations": ops,
+            "operations_ms": ops_ms, "window_samples": samples}
+
+
+def general_plain(entry, ex):
+    """The general rung's plain version on the exec node's superblock,
+    sliced to the query's steps."""
+    from filodb_tpu_torch.ops import general_range as GR
+
+    gids, G, params = path_args(entry, ex)
+    out = GR.general_range_aggregate_plain(ex.function, ex.op, entry.block, gids, G, params,
+                                           is_counter=entry.is_counter, is_delta=entry.is_delta)
+    return out[:, : ex.num_steps()]
+
+
+def run_general_query(engine, q: str, rung: str, first: str, grid: str, phase: str,
+                      card: str) -> dict:
+    """One query of the general phase: cold (or a hit on an earlier
+    query's superblock) then warm, one launch each on ``rung``; its
+    [G, J] against the plain path; the kernel and device path timed."""
+    import torch
+
+    from filodb_tpu_torch.ops import general_range as GR
+    from filodb_tpu_torch.ops import group_acc as GA
+    from filodb_tpu_torch.ops.kernels import pad_steps
+
+    runs = []
+    for attempt in ("first", "second"):
+        res, vals, wall = run_main(engine, q, grid, rung)
+        st = res.stats
+        if attempt == "first" and first == "build":
+            require(st.cache_misses >= 1 and st.cache_hits == 0,
+                    f"{q}: the first run must build its superblock, stats {st}")
+        else:
+            require(st.cache_hits == 1 and st.cache_misses == 0 and st.bytes_staged == 0,
+                    f"{q} ({attempt} run): expected a superblock cache hit with no staging, "
+                    f"stats {st}")
+        require(np.isfinite(vals).all(), f"{q}: non-finite values in the result")
+        runs.append((res, vals, wall))
+    compare(torch.from_numpy(runs[1][1]), torch.from_numpy(runs[0][1]),
+            f"{q}: second run vs first", rtol=1e-3)
+    ex = exec_node(engine, q)
+    entry = ex.superblock(engine.context())
+    got = torch.as_tensor(runs[0][1], device=engine.device)
+    plain = (window_range_path(entry, ex, plain=True) if rung == "window_stats"
+             else general_plain(entry, ex))
+    err = compare(got, plain, f"{q} vs plain", rtol=1e-3)
+    block = entry.block
+    gids, G, params = path_args(entry, ex)
+    acc, cnt = GA.accumulators(ex.op, G, pad_steps(params.num_steps), engine.device)
+    kernel = None
+    if rung == "general":
+        def kernel():
+            GR._launch(ex.function, ex.op, block, gids, G, params, entry.is_counter,
+                       entry.is_delta, acc, cnt)
+    gpu_sample(f"{phase} {q!r} before")
+    dev_ms = cuda_ms(lambda: device_path(entry, ex), reps=20)
+    dev_b2b = back_to_back_ms(lambda: device_path(entry, ex))
+    out = {"rung": rung, "groups": G, "first_ms": runs[0][2] * 1e3,
+           "warm_ms": runs[1][2] * 1e3, "first_run": first, "device_path_ms": dev_ms,
+           "device_path_ms_back_to_back": dev_b2b, "max_abs_err": err,
+           "launches": 2}
+    if kernel is not None:
+        out["kernel_ms"] = cuda_ms(kernel, reps=20)
+        out["kernel_ms_back_to_back"] = back_to_back_ms(kernel)
+        out["plain_ms"] = cuda_ms(lambda: general_plain(entry, ex), reps=3, warmup=1)
+        out.update(general_bound(entry, ex, G))
+        out["partials"] = GR.LAST_PLAN.partials
+        out["rows_per_tile"] = GR.LAST_PLAN.rows
+    gpu_sample(f"{phase} {q!r} after")
+    kern = (f"general kernel {out['kernel_ms']:.4f} ms (median of 20; "
+            f"{out['kernel_ms_back_to_back']:.4f} ms back to back; {out['partials']} partials, "
+            f"{out['rows_per_tile']} rows per tile), bound {out['bound_ms']:.4f} ms "
+            f"({out['bound_by']}: {out['bound_bytes']} bytes at 3.35 TB/s = "
+            f"{out['bytes_ms']:.4f} ms; {out['operations']} operations = "
+            f"{out['operations_ms']:.4f} ms), plain {out['plain_ms']:.2f} ms"
+            if kernel is not None else "window_range kernel (phase 4 times it)")
+    print(f"{phase} query {q!r}: rung {rung}, {G} groups x {ex.num_steps()} steps, superblock "
+          f"{list(block.shape)}; first run ({first}) {out['first_ms']:.1f} ms, warm (hit) "
+          f"{out['warm_ms']:.1f} ms end to end; one launch each; [G, J] matches the plain path "
+          f"(max_abs_err {err:.3g}, rtol 1e-3); {kern}; device path {dev_ms:.4f} ms "
+          f"({dev_b2b:.4f} ms back to back) on {card}")
+    out["result"] = runs[0][1]
+    return out
+
+
+def phase_general_path(engine, card: str, rate_result: np.ndarray) -> dict:
+    """Phase 8 on phase 4's irregular store: the general rung's queries
+    and an offset query, each cold (or a hit) then warm."""
+    per_query = {}
+    for q, rung, first in GENERAL_QUERIES:
+        per_query[q] = run_general_query(engine, q, rung, first, "irregular", "phase8", card)
+    for q in (GENERAL_QUERIES[0][0], GENERAL_QUERIES[4][0]):  # irate, stddev_over_time
+        require((per_query[q]["result"] > 0).all(), f"{q}: must be positive")
+    changes = per_query[GENERAL_QUERIES[1][0]]["result"]
+    require((changes > 0).all() and (changes == np.round(changes)).all(),
+            "changes: positive whole counts")
+    resets = per_query[GENERAL_QUERIES[2][0]]["result"]
+    require((resets == 0).all(), "resets: phase 4's counters never reset")
+    require((per_query[GENERAL_QUERIES[3][0]]["result"] > 0).all(), "deriv must be positive")
+    # offset 1m on 60 s steps: the same windows one step earlier
+    import torch
+
+    shifted = per_query[GENERAL_QUERIES[5][0]]["result"]
+    compare(torch.from_numpy(shifted[:, 1:]), torch.from_numpy(rate_result[:, :-1]),
+            "offset 1m vs sum(rate) one step earlier", rtol=1e-3)
+    print("phase8 sum(rate(...[5m] offset 1m)) equals phase 4's sum(rate) one step earlier "
+          "(rtol 1e-3)")
+    for v in per_query.values():
+        del v["result"]
+    return per_query
+
+
+def phase_general_regular(engine, card: str) -> dict:
+    """Phase 8 on phase 5's regular store: changes, which the JAX package
+    also runs on its general kernel on a regular grid."""
+    out = run_general_query(engine, REGULAR_GENERAL_QUERY, "general", "build", "regular",
+                            "phase8", card)
+    require((out.pop("result") > 0).all(), "changes: positive counts")
+    return out
 
 
 HIST_QUERY = "histogram_quantile(0.99, sum by (le) (rate(http_request_latency_bucket[5m])))"
@@ -1961,14 +2245,18 @@ def main() -> int:
     phase_window_stats_vs_plain(args.seed, device)
     phase_fused_vs_plain(args.seed, device)
     phase_regular_vs_plain(args.seed, device)
+    general_err = phase_general_vs_plain(args.seed, device)
     gpu_sample("phase3 after")
-    wr_row, ws_row = phase_irregular_path(args.seed, device)
+    wr_row, ws_row, engine, rate_result = phase_irregular_path(args.seed, device)
+    general = phase_general_path(engine, card, rate_result)
+    del engine
     gc.collect()  # the irregular store goes before the regular one is built
     torch.cuda.empty_cache()
     reg_row, engine = phase_regular_path(args.seed, device)
     live = phase_live_edge(engine, device, "phase6", "regular", n_idle=15, n_busy=15,
                            min_batches=4, seed=args.seed)
     reg_row["launches"] += live["launches"]
+    general_regular = phase_general_regular(engine, card)
     del engine
     gc.collect()  # the regular store goes before the jittered one is built
     torch.cuda.empty_cache()
@@ -2033,9 +2321,33 @@ def main() -> int:
         "ms_is": "back to back, a range launch with the quantile folded in less one without it",
     }]
 
+    first = general[GENERAL_QUERIES[0][0]]
+    wr_row["launches"] += general[GENERAL_QUERIES[5][0]]["launches"]
+    general_row = {
+        "name": "general_range",
+        "route": "cuda",
+        "source": "filodb_tpu_torch/csrc/window_stats.cu",
+        "replaces": "filodb_tpu/ops/kernels.py:141",
+        "launches": sum(v["launches"] for v in general.values() if v["rung"] == "general")
+        + general_regular["launches"],
+        "max_abs_err": max([general_err, general_regular["max_abs_err"]]
+                           + [v["max_abs_err"] for v in general.values()]),
+        "max_abs_err_phase2c": general_err,  # irate over a tied last pair: dv / 1e-30
+        "max_abs_err_phase8": max([general_regular["max_abs_err"]]
+                                  + [v["max_abs_err"] for v in general.values()]),
+        "ms": first["kernel_ms"],
+        "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound_ms"],
+        "bound_by": first["bound_by"],
+        "library_ms": None,
+        "library_call": "none: no torch call computes these windowed functions",
+        "ms_back_to_back": first["kernel_ms_back_to_back"],
+        "ms_is": f"{GENERAL_QUERIES[0][0]}, phase 8",
+        "queries": {**general, f"{REGULAR_GENERAL_QUERY} (regular store)": general_regular},
+    }
     print(json.dumps({"cache": {"phase6": live, "phase6b": live_jit}}))
     print(json.dumps({"hist": {"phase7b": bench_hist, "phase7c": irr_hist, "phase7d": card_hist}}))
-    print(json.dumps({"kernels": [ws_row, wr_row, reg_row, *hist_rows]}))
+    print(json.dumps({"kernels": [ws_row, wr_row, general_row, reg_row, *hist_rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

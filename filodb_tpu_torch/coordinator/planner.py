@@ -1,11 +1,13 @@
 """Query planning and the engine facade (counterpart of
 ``filodb_tpu/coordinator/planner.py``; reference SingleClusterPlanner.scala).
 
-The port plans one shape: ``op by (...) (func(selector[w]))`` (or over a
-bare selector) with ``op`` in sum/count/avg/min/max, which becomes a
+The port plans one shape: ``op by (...) (func(selector[w] [offset d]))``
+(or over a bare selector) with ``op`` in sum/count/avg/min/max and
+``func`` in the JAX package's fused set ``FUSED_FUNCS``, which becomes a
 ``FusedAggregateExec``, and ``histogram_quantile(q, sum ... (...))`` of it,
-whose interpolation fuses into the same node. Every other plan raises
-``NotImplementedError`` naming the missing piece.
+whose interpolation fuses into the same node. As in the JAX package's
+fused planner, ``@`` and range-function arguments stay off it. Every other
+plan raises ``NotImplementedError`` naming the missing piece.
 """
 
 from __future__ import annotations
@@ -18,17 +20,20 @@ import torch
 
 from ..core.schemas import DatasetOptions, METRIC_TAG, PROM_METRIC_TAG, shard_group, shardkey_hash
 from ..memstore.index import _LITERAL_ALT
-from ..ops.mxu_kernels import FUSED_MXU_FUNCS
-from ..ops.window_stats import PALLAS_FUNCS
 from ..query import logical as L
 from ..query.exec.plans import FUSED_AGG_OPS, ExecPlan, FusedAggregateExec, QueryContext
 from ..query.promql import query_range_to_logical_plan, query_to_logical_plan
 
-# the port's range functions: those the window-stats finisher or the regular
-# rung models, less absent_over_time, which the JAX package's fused path
-# leaves out too. irate, idelta, stddev/stdvar_over_time and z_score run on
-# regular grids only: elsewhere they need the general kernel (B4) and raise.
-FUSED_FUNCS = frozenset((PALLAS_FUNCS | FUSED_MXU_FUNCS) - {"absent_over_time"})
+# the range functions of the fused path, the JAX package's set
+# (filodb_tpu/query/exec/plans.py FUSED_FUNCS): every one runs on some rung
+# of aggregations.grid_variant on every grid
+FUSED_FUNCS = frozenset({
+    "rate", "increase", "delta", "irate", "idelta",
+    "sum_over_time", "avg_over_time", "count_over_time", "min_over_time",
+    "max_over_time", "last", "last_over_time", "first_over_time",
+    "present_over_time", "stddev_over_time", "stdvar_over_time", "z_score",
+    "changes", "resets", "deriv",
+})
 
 
 @dataclass
@@ -152,8 +157,6 @@ class SingleClusterPlanner:
             raise NotImplementedError(f"aggregation over {type(inner).__name__} is not ported")
         if inner.at_ms is not None:
             raise NotImplementedError("the @ modifier is not ported")
-        if inner.offset_ms:
-            raise NotImplementedError("offset is not ported")
         return FusedAggregateExec(
             self.shards_for(inner.raw.filters), inner.raw.filters,
             inner.raw.start_ms, inner.raw.end_ms, inner.raw.column,

@@ -5,8 +5,8 @@ reference query/exec/aggregator/ RowAggregators).
 ``index_add_`` / ``scatter_reduce_`` for all steps and all groups. NaN means
 absence: a NaN sample does not contribute, and a group with no members at a
 step yields NaN. Padded rows go to the trash group ``num_groups``, which is
-sliced off. On the card both rungs of ``fused_range_aggregate`` reduce
-inside their kernels; the segment reduce here is the plain versions'
+sliced off. On the card every rung of ``fused_range_aggregate`` reduces
+inside its kernel; the segment reduce here is the plain versions'
 epilogue. ``fused_hist_range_aggregate`` is the histogram counterpart: a
 per-bucket sum to ``[G, J, B]``, or the ``[G, J]`` quantile.
 """
@@ -18,6 +18,7 @@ import torch
 
 from ..core.schemas import METRIC_TAG
 from ..singleflight import memo_on
+from . import general_range as GR
 from . import group_acc as GA
 from . import hist_kernels as HK
 from . import mxu_kernels as MK
@@ -31,17 +32,21 @@ SIMPLE_AGG_OPS = ("sum", "count", "avg", "min", "max")
 def grid_variant(block, func: str, is_delta: bool = False) -> str:
     """Kernel-variant ladder for one fused dispatch, from the block's grid
     class and the function (the JAX package's ``_grid_variant`` and
-    ``_pallas_variant``): ``mxu`` (exact shared grid: the regular kernel)
-    for ``FUSED_MXU_FUNCS``, else ``window_stats`` for ``PALLAS_FUNCS``.
-    Anything else needs the general kernel (B4), which is not ported."""
+    ``_pallas_variant``, as far as the port's rungs reach): ``mxu`` (exact
+    shared grid: the regular kernel) for ``FUSED_MXU_FUNCS`` unless it is
+    irate/idelta of a delta counter, else ``window_stats`` for
+    ``PALLAS_FUNCS``, else ``general`` (B4) for ``GENERAL_FUNCS``. The JAX
+    package's jitter and masked rungs (B6) are not ported: a near-regular
+    grid takes ``window_stats`` or ``general``, whose windows are exact."""
     if (block.regular_ts is not None and func in MK.FUSED_MXU_FUNCS
             and not (is_delta and func in ("irate", "idelta"))):
         return "mxu"
     if func in WS.PALLAS_FUNCS:
         return "window_stats"
+    if func in GR.GENERAL_FUNCS:
+        return "general"
     raise NotImplementedError(
-        f"range function {func!r} on a {grid_class(block)} grid needs the general "
-        "range kernel (B4), which is not ported")
+        f"range function {func!r} on a {grid_class(block)} grid is not ported")
 
 
 def segment_aggregate(op: str, values: torch.Tensor, group_ids: torch.Tensor,
@@ -85,13 +90,15 @@ def fused_range_aggregate(func: str, op: str, block, gids_padded: torch.Tensor,
     """``op by (...) (func(selector[w]))`` over a staged (super)block on
     the device, on the rung ``grid_variant`` picks (written to
     ``obs["variant"]`` when ``obs`` is given): one launch of the regular
-    kernel (``mxu``) or of the fused window-stats kernel
-    (``window_stats``). Returns the [G, J_pad] group values on the device
-    (NaN past ``params.num_steps``); no [S, J] grid is allocated."""
+    kernel (``mxu``), or of the fused window-stats kernel on the
+    window-stats (``window_stats``) or the general (``general``) function
+    codes. Returns the [G, J_pad] group values on the device (NaN past
+    ``params.num_steps``); no [S, J] grid is allocated."""
     variant = grid_variant(block, func, is_delta)
     if obs is not None:
         obs["variant"] = variant
-    rung = MK.regular_range_aggregate if variant == "mxu" else WS.window_range_aggregate
+    rung = {"mxu": MK.regular_range_aggregate, "window_stats": WS.window_range_aggregate,
+            "general": GR.general_range_aggregate}[variant]
     return rung(func, op, block, gids_padded, num_groups, params, is_counter=is_counter,
                 is_delta=is_delta)
 

@@ -230,13 +230,19 @@ def finish(func: str, agg: dict, start_off: int, step_ms: int, window_ms: int,
     raise ValueError(f"window-stats path does not support {func}")
 
 
-def staged_arrays(func: str, is_counter: bool, is_delta: bool) -> int:
+def staged_arrays(func: str, is_counter: bool, is_delta: bool,
+                  distinct_raw: bool = False) -> int:
     """How many [S, T] arrays the fused kernel stages for ``func``: ts;
-    vals unless it only counts; raw for the counter zero-crossing cap.
+    vals unless it only counts; raw for the counter zero-crossing cap, and
+    for changes/resets of a gauge or delta counter that compare raw
+    neighbours, where the block's raw is a row of its own
+    (``distinct_raw``; staging gives those columns none: raw is vals).
     The kernel lays out its buffers by this number (the plan's
     ``n_arrays``) and refuses one too small for the function."""
     if func in ("count_over_time", "present_over_time", "absent_over_time"):
         return 1
+    if func in ("changes", "resets"):
+        return 3 if distinct_raw and not (is_counter and not is_delta) else 2
     return 3 if is_counter and not is_delta and func in ("rate", "increase") else 2
 
 
@@ -257,10 +263,19 @@ def window_range_aggregate(func: str, op: str, block, gids: torch.Tensor, num_gr
     in the trash group ``num_groups``. A CUDA block makes one launch of the
     fused kernel (and raises if the launch fails); a CPU block runs
     ``window_range_aggregate_plain``."""
-    from .aggregations import SIMPLE_AGG_OPS
-
     if func not in PALLAS_FUNCS:
         raise NotImplementedError(f"range function {func!r} is not on the window-stats rung")
+    return run_fused(_launch_range, window_range_aggregate_plain, func, op, block, gids,
+                     num_groups, params, is_counter, is_delta)
+
+
+def run_fused(launch, plain, func: str, op: str, block, gids: torch.Tensor, num_groups: int,
+              params, is_counter: bool, is_delta: bool) -> torch.Tensor:
+    """The body of both fused rungs' wrappers (window stats and general):
+    check the op and the inputs, run ``plain`` on a CPU block, else
+    ``launch`` once into fresh accumulators and finish them to [G, J_pad]."""
+    from .aggregations import SIMPLE_AGG_OPS
+
     if op not in SIMPLE_AGG_OPS:
         raise NotImplementedError(f"aggregation {op!r} is not ported (ported: {SIMPLE_AGG_OPS})")
     raw = block.raw if block.raw is not None else block.vals
@@ -268,12 +283,12 @@ def window_range_aggregate(func: str, op: str, block, gids: torch.Tensor, num_gr
     _check_gids(gids, block.ts.shape[0], block.ts.device)
     device = block.ts.device.type
     if device == "cpu":
-        return window_range_aggregate_plain(func, op, block, gids, num_groups, params,
-                                            is_counter=is_counter, is_delta=is_delta)
+        return plain(func, op, block, gids, num_groups, params, is_counter=is_counter,
+                     is_delta=is_delta)
     if device != "cuda":
-        raise ValueError(f"window_range_aggregate runs on cuda or cpu tensors, not {device}")
+        raise ValueError(f"the fused range kernel runs on cuda or cpu tensors, not {device}")
     acc, cnt = GA.accumulators(op, num_groups, pad_steps(params.num_steps), block.ts.device)
-    _launch_range(func, op, block, gids, num_groups, params, is_counter, is_delta, acc, cnt)
+    launch(func, op, block, gids, num_groups, params, is_counter, is_delta, acc, cnt)
     return GA.finish_groups(op, acc, cnt, num_groups)
 
 
@@ -285,27 +300,40 @@ def _launch_range(func: str, op: str, block, gids, num_groups: int, params, is_c
     (a ``group_acc.TilePlan``) defaults to ``tile_plan``'s, ``lib`` to the
     package's build (a timing script may pass its own)."""
     global RANGE_LAUNCHES, LAST_PLAN
+    LAST_PLAN = launch_fused(WINDOW_FUNC_CODES[func], func, op, block, gids, num_groups, params,
+                             is_counter, is_delta, acc, cnt, plan, lib)
+    RANGE_LAUNCHES += 1
+
+
+def launch_fused(code: int, func: str, op: str, block, gids, num_groups: int, params,
+                 is_counter: bool, is_delta: bool, acc: torch.Tensor, cnt: torch.Tensor,
+                 plan=None, lib=None):
+    """One launch of ``filodb_window_range_aggregate`` on function code
+    ``code`` (the window-stats rung's or the general rung's); raises if the
+    launch fails and returns the plan it launched with. The callers count
+    their launches."""
     raw = block.raw if block.raw is not None else block.vals
     GA.check_aligned(ts=block.ts, vals=block.vals, raw=raw)
     lib = lib or _load()
     S, T = block.ts.shape
     J = params.num_steps
     if plan is None:
-        plan = GA.tile_plan(num_groups, J, T, staged_arrays(func, is_counter, is_delta))
+        n_arrays = staged_arrays(func, is_counter, is_delta,
+                                 distinct_raw=raw.data_ptr() != block.vals.data_ptr())
+        plan = GA.tile_plan(num_groups, J, T, n_arrays)
     with torch.cuda.device(block.ts.device):
         stream = torch.cuda.current_stream(block.ts.device).cuda_stream
         err = lib.filodb_window_range_aggregate(
             block.ts.data_ptr(), block.vals.data_ptr(), raw.data_ptr(), block.lens.data_ptr(),
             gids.data_ptr(), S, T, J, acc.shape[1], num_groups,
             int(params.start_ms - block.base_ms), int(params.step_ms), int(params.window_ms),
-            WINDOW_FUNC_CODES[func], GA.ACC_CODES[op], int(is_counter), int(is_delta),
+            code, GA.ACC_CODES[op], int(is_counter), int(is_delta),
             plan.rows, plan.n_arrays, int(plan.shared), plan.smem_bytes, acc.data_ptr(),
             cnt.data_ptr(), stream,
         )
     if err != 0:
-        raise RuntimeError(f"window_range_aggregate kernel launch failed: cudaError {err}")
-    RANGE_LAUNCHES += 1
-    LAST_PLAN = plan
+        raise RuntimeError(f"{func} range kernel launch failed: cudaError {err}")
+    return plan
 
 
 def window_range_aggregate_plain(func: str, op: str, block, gids: torch.Tensor,

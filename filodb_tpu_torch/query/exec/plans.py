@@ -4,9 +4,10 @@ reference query/exec/ExecPlan.scala).
 The port runs one exec node: ``FusedAggregateExec``, the single-dispatch
 cross-shard aggregate ``op by (...) (func(selector[w]))``. It stages every
 matching series of its shards into one superblock on the device and runs
-the rung its grid class picks (``aggregations.grid_variant``): the regular
-kernel for a shared regular grid, else window stats -> finish -> segment
-aggregate; only the [G, J] group partials come back. A native-histogram
+the rung its grid class and function pick (``aggregations.grid_variant``):
+the regular kernel for a shared regular grid, else window stats -> finish
+-> segment aggregate, or the general range kernel for what window stats
+cannot express; only the [G, J] group partials come back. A native-histogram
 selection stages a ``[ΣS, T, B]`` superblock (per-shard bucket schemes
 unified first) and runs the histogram rung: per-bucket sums [G, J, B], or
 with ``histogram_quantile(q, sum ...)`` fused on top, the [G, J]
@@ -296,8 +297,8 @@ class SuperblockEntry:
 
 class FusedAggregateExec(ExecPlan):
     """``op by (...) (func(selector[w]))`` over local shards as ONE
-    superblock and ONE kernel launch (regular or window stats); only [G, J]
-    reaches the host. Over native histograms: one launch of the histogram
+    superblock and ONE kernel launch (regular, window stats or general);
+    only [G, J] reaches the host. Over native histograms: one launch of the histogram
     range kernel, with ``hist_quantile`` (the planner recognized
     ``histogram_quantile(q, sum ...)``) folded into that same launch."""
 

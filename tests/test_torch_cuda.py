@@ -1,6 +1,6 @@
 """The window-stats kernels (nine planes, and fused with finish and the
-group aggregate) and the regular-range kernel on the card against their
-plain versions, on both group-partial variants and on rows staged in
+group aggregate, on the window-stats and the general function codes) and
+the regular-range kernel on the card against their plain versions, on both group-partial variants and on rows staged in
 shared memory or read in place; a cached superblock's warm hit and
 live-edge extension on the card; and the histogram range kernel
 (csrc/hist_range.cu) and the quantile folded into its launch against
@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from filodb_tpu_torch.ops import aggregations as AGG
+from filodb_tpu_torch.ops import general_range as GR
 from filodb_tpu_torch.ops import group_acc as GA
 from filodb_tpu_torch.ops import mxu_kernels as MK
 from filodb_tpu_torch.ops import window_stats as WS
@@ -318,6 +319,165 @@ def test_fused_path_allocates_no_grid_on_card(card):
     torch.cuda.synchronize()
     assert torch.cuda.max_memory_allocated(card) - base < b.ts.shape[0] * params.num_steps * 4
     assert (WS.LAUNCHES, WS.RANGE_LAUNCHES, MK.LAUNCHES) == (before[0], before[1] + 1, before[2])
+
+
+# ---- the general kernel (the fused kernel on the general codes, B4) ----
+
+GENERAL_STAGINGS = {
+    "gauge": ({}, False, False), "corrected": ({"counter_corrected": True}, True, False),
+    "shifted": ({"subtract_baseline": True}, True, False),
+    "diff": ({"diff_encode": True}, True, False), "delta": ({}, True, True),
+}
+
+
+def general_block(staging: str, n_series=65, n=300, seed=0):
+    """Irregular rows (5-15 s, a tie every 13 samples, ragged lengths) in a
+    staging mode: gauges, counters with a reset, or delta increments."""
+    mode, counter, is_delta = GENERAL_STAGINGS[staging]
+    rng = np.random.default_rng(seed)
+    series = []
+    for i in range(n_series):
+        gaps = rng.integers(5_000, 15_001, n - i % 40)
+        gaps[7::13] = 0
+        ts = BASE + np.cumsum(gaps).astype(np.int64)
+        m = len(ts)
+        if is_delta:
+            vals = rng.uniform(0, 10, m)
+        elif counter:
+            vals = np.cumsum(rng.uniform(0, 10, m)) + 1e3
+            vals[m // 2:] -= vals[m // 2] - 2.0
+        else:
+            vals = 50 + 20 * rng.standard_normal(m)
+        series.append((ts, vals))
+    return stage_series(series, BASE, **mode), counter, is_delta
+
+
+def general_pair(b, func, op, gids, G, params, counter, is_delta):
+    before = GR.LAUNCHES
+    got = GR.general_range_aggregate(func, op, b, gids, G, params, is_counter=counter,
+                                     is_delta=is_delta)
+    assert GR.LAUNCHES == before + 1
+    want = GR.general_range_aggregate_plain(func, op, b, gids, G, params, is_counter=counter,
+                                            is_delta=is_delta)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staging", sorted(GENERAL_STAGINGS))
+@pytest.mark.parametrize("func", sorted(GR.GENERAL_FUNCS))
+def test_general_kernel_matches_plain_on_card(card, func, staging):
+    """G = S, a grid from before the first sample to past the last (empty
+    and one-sample windows): rtol 2e-4 / atol 1e-4, NaN masks equal."""
+    hb, counter, is_delta = general_block(staging)
+    b = hb.to_device(card)
+    params = RangeParams(BASE - 200_000, 60_000, 70, 300_000)
+    got, want = general_pair(b, func, "sum", own_groups(b, card), b.n_series, params, counter,
+                             is_delta)
+    assert GR.LAST_PLAN.staged
+    assert_same(got, want, 2e-4, 1e-4, f"{func} {staging}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["sum", "count", "avg", "min", "max"])
+@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("func", sorted(GR.GENERAL_FUNCS))
+def test_general_kernel_group_ops_on_card(card, func, G, op):
+    """Shared-memory partials: atomics reorder a group's f32 sums (rtol 1e-3)."""
+    staging = {"changes": "diff", "resets": "diff", "idelta": "diff",
+               "irate": "corrected"}.get(func, "shifted")
+    hb, counter, is_delta = general_block(staging, n_series=300, seed=1)
+    b = hb.to_device(card)
+    got, want = general_pair(b, func, op, spread_groups(b, G, card), G, params_for(), counter,
+                             is_delta)
+    assert GR.LAST_PLAN.partials == "shared"
+    assert_same(got, want, 1e-3, 1e-5 * float(np.nanmax(np.abs(want.cpu().numpy()))),
+                f"{op}({func}) G={G}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("func", sorted(GR.GENERAL_FUNCS))
+def test_general_kernel_groups_above_shared_budget_on_card(card, func):
+    """G past the shared-memory budget takes the global-atomic partials."""
+    hb, counter, is_delta = general_block("gauge", n_series=300, seed=2)
+    b = hb.to_device(card)
+    params = params_for(num_steps=40)
+    G = GA.PARTIALS_BUDGET // (2 * 40 * 4) + 1
+    got, want = general_pair(b, func, "max", spread_groups(b, G, card), G, params, counter,
+                             is_delta)
+    assert GR.LAST_PLAN.partials == "global"
+    assert_same(got, want, 1e-3, 1e-4, func)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("func", sorted(GR.GENERAL_FUNCS))
+def test_general_kernel_gathers_tied_samples_on_card(card, func):
+    """Tied timestamps: the general kinds gather the single samples at hi-1
+    and hi-2 (irate over a tied last pair divides by 1e-30), never the
+    tied runs window stats sum; a window of one sample has stddev and
+    z_score 0."""
+    ts = np.full((8, 128), TS_PAD, np.int32)
+    ts[0, :8] = [1000, 1000, 2000, 3000, 4000, 4000, 9000, 20000]
+    ts[1, :3] = [5000, 6000, 6000]
+    vals = np.zeros((8, 128), np.float32)
+    vals[0, :8] = [1.0, 10.0, 3.0, 4.0, 6.0, 8.0, 8.0, 2.0]
+    vals[1, :3] = [7.0, 7.5, 9.0]
+    lens = np.zeros(8, np.int32)
+    lens[:2] = [8, 3]
+    from filodb_tpu_torch.ops.staging import block_from_arrays
+
+    b = block_from_arrays(ts, vals, lens, BASE, np.zeros(8, np.float32), 2, device=card)
+    gids = torch.tensor([0, 1] + [2] * 6, dtype=torch.int64, device=card)
+    params = RangeParams(BASE, 1000, 25, 5000)
+    got, want = general_pair(b, func, "sum", gids, 2, params, False, False)
+    assert_same(got, want, 2e-4, 1e-4, func)
+    if func in ("stddev_over_time", "z_score"):
+        g = got.cpu().numpy()
+        assert g[0, 20] == 0.0  # (15 s, 20 s]: one sample
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("func", ["changes", "resets"])
+def test_general_kernel_stages_a_distinct_raw_on_card(card, func):
+    """A gauge's changes/resets compare raw neighbours; a block with a raw
+    row of its own stages it as a third array."""
+    hb, _, _ = general_block("gauge", seed=3)
+    b = hb.to_device(card)
+    b.raw = torch.round(b.vals / 7.0).contiguous()
+    got, want = general_pair(b, func, "sum", own_groups(b, card), b.n_series, params_for(),
+                             False, False)
+    assert GR.LAST_PLAN.n_arrays == 3
+    assert_same(got, want, 0.0, 0.0, func)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("func", ["irate", "stddev_over_time", "changes", "deriv"])
+def test_general_kernel_rows_read_in_place_on_card(card, func):
+    """Rows too wide for the shared-memory budget are read in place."""
+    b = array_block(5, 32_768, seed=4, counter=False, device=card)
+    params = RangeParams(BASE + 600_000, 600_000, 100, 3_600_000)
+    gids = torch.tensor([0, 1, 0, 1, 0], dtype=torch.int64, device=card)
+    got, want = general_pair(b, func, "sum", gids, 2, params, False, False)
+    assert not GR.LAST_PLAN.staged
+    assert_same(got, want, 1e-3, 1e-4, func)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("func", sorted(GR.GENERAL_FUNCS))
+def test_general_query_launches_once_on_card(card, func):
+    """The fused dispatch of a general function is one launch of the
+    general kernel and no other kernel."""
+    hb, counter, is_delta = general_block("shifted", n_series=200, seed=6)
+    b = hb.to_device(card)
+    gids = spread_groups(b, 8, card)
+    before = (WS.LAUNCHES, WS.RANGE_LAUNCHES, MK.LAUNCHES, GR.LAUNCHES)
+    obs = {}
+    AGG.fused_range_aggregate(func, "sum", b, gids, 8, params_for(), is_counter=counter,
+                              is_delta=is_delta, obs=obs)
+    torch.cuda.synchronize()
+    assert obs == {"variant": "general"}
+    assert (WS.LAUNCHES, WS.RANGE_LAUNCHES, MK.LAUNCHES, GR.LAUNCHES) == (
+        before[0], before[1], before[2], before[3] + 1)
 
 
 # ---- the regular kernel's group-partial variants and wide rows ----

@@ -42,8 +42,8 @@ QUERIES = [
     'avg(node_temp{zone=~"z[01]"})',
 ]
 
-# functions the port computes on the regular rung only: on any other grid
-# they need the general kernel (B4), which is not ported
+# functions of the regular rung that window stats cannot express: on any
+# other grid they take the general rung (B4)
 REGULAR_ONLY_QUERIES = [
     "sum(irate(http_requests_total[5m]))",
     "max by (zone) (idelta(http_requests_total[2m]))",
@@ -178,10 +178,13 @@ def test_regular_only_functions_match_jax(stores, query, monkeypatch):
 
 
 @pytest.mark.parametrize("query", REGULAR_ONLY_QUERIES)
-def test_regular_only_functions_raise_on_irregular_grid(stores, query):
-    engine = QueryEngine(stores["irregular"][1], "prometheus", device="cpu")
-    with pytest.raises(NotImplementedError, match="general range kernel"):
-        engine.query_range(query, START_S, END_S, STEP_S)
+def test_regular_only_functions_raise_on_irregular_grid(stores, query, monkeypatch):
+    """They raised off the regular grid until the general rung (B4) was
+    ported; now they answer there, on that rung, as the JAX package does."""
+    jms, pms = stores["irregular"]
+    seen = port_variants(monkeypatch)
+    assert_matches_jax(jms, pms, query)
+    assert seen == ["general"]
 
 
 def test_instant_query_matches_jax(stores):
@@ -196,8 +199,8 @@ def test_instant_query_matches_jax(stores):
 @pytest.mark.parametrize("query", [
     "topk(3, rate(http_requests_total[5m]))",
     "quantile(0.9, rate(http_requests_total[5m]))",
-    "sum(irate(http_requests_total[5m]))",
-    "sum(rate(http_requests_total[5m] offset 1m))",
+    "sum(quantile_over_time(0.5, http_requests_total[5m]))",
+    "sum(predict_linear(http_requests_total[5m], 60))",
     "sum(rate(http_requests_total[5m] @ 1600000600))",
     "sum(rate(http_requests_total[5m])) * 2",
     "rate(http_requests_total[5m])",
