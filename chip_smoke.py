@@ -8,12 +8,13 @@ comes out.
 
 Phases (any failure raises and exits non-zero):
 
-1. Build ``filodb_tpu_torch/csrc/window_stats.cu``, ``regular_range.cu``
-   and ``hist_range.cu`` with nvcc, and the histogram kernel's two split
-   builds (``tile_sweep.HIST_PATCHES``: search only, fetch only), all at
-   once, and bind their five entry points (``filodb_window_stats``,
-   ``filodb_window_range_aggregate``, ``filodb_regular_range``,
-   ``filodb_hist_range_aggregate``, ``filodb_hist_resident``); print their
+1. Build ``filodb_tpu_torch/csrc/window_stats.cu``, ``regular_range.cu``,
+   ``hist_range.cu`` and ``general_range.cu`` with nvcc, and the histogram
+   kernel's two split builds (``tile_sweep.HIST_PATCHES``: search only,
+   fetch only), all at once, and bind their six entry points
+   (``filodb_window_stats``, ``filodb_window_range_aggregate``,
+   ``filodb_regular_range``, ``filodb_hist_range_aggregate``,
+   ``filodb_hist_resident``, ``filodb_general_range_aggregate``); print their
    ptxas lines (registers, shared memory, spills) and the card's name and
    power limit.
 2. Window stats (the nine-plane kernel), kernel vs plain on seeded
@@ -32,16 +33,17 @@ Phases (any failure raises and exits non-zero):
    shared-memory budget: global atomics). NaN masks equal; rtol 2e-4 /
    atol 1e-4 at G = S; elsewhere rtol 1e-3 (atomics reorder a group's f32
    sums) with atol 1e-5 of the largest |value| (sums that cancel).
-2c. The general kernel (the fused kernel of ``window_stats.cu`` on the
-   general function codes: ``general_range_aggregate``, B4) vs
-   ``general_range_aggregate_plain``: every function of ``GENERAL_FUNCS`` x
-   sum/count/avg/min/max over seeded irregular blocks staged by the port as
-   gauges, corrected, shifted and diff counters (a reset in every fourth
-   row) and delta counters, with tied timestamps, a row with no sample,
-   padded trash rows and a grid from before the first sample to past the
-   last (empty and one-sample windows); G in {1, 8} (shared-memory
-   partials), 120 and S (global atomics); the tolerances of 2b, NaN masks
-   equal.
+2c. The general kernel (``csrc/general_range.cu``:
+   ``general_range_aggregate``, B4) vs ``general_range_aggregate_plain``:
+   every function of ``GENERAL_FUNCS`` x sum/count/avg/min/max over seeded
+   irregular blocks staged by the port as gauges, corrected, shifted and
+   diff counters (a reset in every fourth row) and delta counters, with
+   tied timestamps, a row with no sample, padded trash rows and a grid from
+   before the first sample to past the last (empty and one-sample
+   windows), and over the same series moved onto one 10 s grid (the
+   block's shared bounds table); G in {1, 8} (shared-memory partials), 120
+   and S (global atomics); changes/resets bit-equal (integer counts), the
+   others within the tolerances of 2b, NaN masks equal.
 3. Regular range kernel vs plain on seeded blocks on one shared 10 s grid,
    same S and T: every function of ``FUSED_MXU_FUNCS`` over gauge,
    corrected-counter and diff-counter blocks with each row its own group
@@ -187,6 +189,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import itertools
 import json
 import subprocess
 import sys
@@ -207,7 +210,7 @@ QUERIES = (
     "sum(rate(http_requests_total[5m]))",
     "sum by (zone) (rate(http_requests_total[5m]))",
 )
-SOURCES = ("window_stats", "regular_range", "hist_range")  # csrc/<name>.cu
+SOURCES = ("window_stats", "regular_range", "hist_range", "general_range")  # csrc/<name>.cu
 START_S = (BASE + 400_000) / 1000  # bench.py's range
 END_S = (BASE + N_SAMPLES * 10_000 - 200_000) / 1000
 # bench.py's ingest_impact: the range reaches past the newest sample (the
@@ -298,9 +301,10 @@ def compare_stats(got: dict, want: dict, rtol: float = 2e-4, atol: float = 1e-4)
 
 def build_kernels() -> dict:
     """Build every source and the histogram kernel's two split builds at
-    once (one nvcc each), bind the five entry points, print ptxas's lines
+    once (one nvcc each), bind the six entry points, print ptxas's lines
     (registers, shared memory, spills) and return the split builds."""
     from filodb_tpu_torch.ops import cuda_build
+    from filodb_tpu_torch.ops import general_range as GR
     from filodb_tpu_torch.ops import hist_kernels as HK
     from filodb_tpu_torch.ops import mxu_kernels as MK
     from filodb_tpu_torch.ops import window_stats as WS
@@ -310,10 +314,10 @@ def build_kernels() -> dict:
         split = pool.submit(hist_split_libs)
         libs = list(pool.map(cuda_build.build, SOURCES))
         split_libs = split.result()
-    ws_lib, mk_lib, hk_lib = WS._load(), MK._load(), HK._load()
+    ws_lib, mk_lib, hk_lib, gr_lib = WS._load(), MK._load(), HK._load(), GR._load()
     entries = [ws_lib.filodb_window_stats, ws_lib.filodb_window_range_aggregate,
                mk_lib.filodb_regular_range, hk_lib.filodb_hist_range_aggregate,
-               hk_lib.filodb_hist_resident]
+               hk_lib.filodb_hist_resident, gr_lib.filodb_general_range_aggregate]
     print(f"phase1 built {', '.join(l.name for l in libs)} in {time.perf_counter() - t0:.1f} s; "
           f"entry points {', '.join(e.__name__ for e in entries)}")
     for name in SOURCES:
@@ -1195,11 +1199,12 @@ GENERAL_STAGINGS = {  # staging mode -> (stage_series flags, is_counter, is_delt
 }
 
 
-def general_block(staging: str, n_real: int, n: int, rng, device):
-    """``n_real`` seeded irregular series staged by the port in a staging
-    mode, padded rows past them (the trash group): 5-15 s apart with a tie
+def general_block(staging: str, n_real: int, n: int, rng, device, grid: str = "irregular"):
+    """``n_real`` seeded series staged by the port in a staging mode, padded
+    rows past them (the trash group): irregular (5-15 s apart with a tie
     every 31 samples in every fifth row, ragged lengths, a row with no
-    sample; gauges (NaN samples in every third row, which staging drops as
+    sample) or all ``n`` samples on one 10 s grid (a block with shared
+    bounds); gauges (NaN samples in every third row, which staging drops as
     it drops stale markers), counters with a reset in every fourth row, or
     delta increments (some zero)."""
     from filodb_tpu_torch.ops.staging import stage_series
@@ -1207,11 +1212,15 @@ def general_block(staging: str, n_real: int, n: int, rng, device):
     mode, counter, is_delta = GENERAL_STAGINGS[staging]
     series = []
     for i in range(n_real):
-        m = 0 if i == n_real // 2 else int(rng.integers(n // 2, n + 1))
-        gaps = rng.integers(5_000, 15_001, m)
-        if i % 5 == 0:
-            gaps[7::31] = 0
-        ts = BASE + int(rng.integers(0, 20_000)) + np.cumsum(gaps).astype(np.int64)
+        if grid == "regular":
+            m = n
+            ts = BASE + 5_000 + np.arange(n, dtype=np.int64) * 10_000
+        else:
+            m = 0 if i == n_real // 2 else int(rng.integers(n // 2, n + 1))
+            gaps = rng.integers(5_000, 15_001, m)
+            if i % 5 == 0:
+                gaps[7::31] = 0
+            ts = BASE + int(rng.integers(0, 20_000)) + np.cumsum(gaps).astype(np.int64)
         if is_delta:
             vals = rng.uniform(0, 10, m)
             vals[3::7] = 0.0
@@ -1221,10 +1230,12 @@ def general_block(staging: str, n_real: int, n: int, rng, device):
                 vals[m // 2:] -= vals[m // 2] - rng.uniform(0, 5)
         else:
             vals = 50 + 20 * rng.standard_normal(m)
-            if i % 3 == 0:
+            if i % 3 == 0 and grid != "regular":
                 vals[11::17] = np.nan
         series.append((ts, vals))
-    return stage_series(series, BASE, **mode).to_device(device), counter, is_delta
+    block = stage_series(series, BASE, **mode)
+    require((block.regular_ts is not None) == (grid == "regular"), f"{grid} {staging} block")
+    return block.to_device(device), counter, is_delta
 
 
 def phase_general_vs_plain(seed: int, device) -> float:
@@ -1240,37 +1251,40 @@ def phase_general_vs_plain(seed: int, device) -> float:
     # from 200 s before the first sample to past the last one: empty windows
     params = RangeParams(BASE - 200_000, 60_000, 80, WINDOW_MS)
     worst = 0.0
-    for staging in GENERAL_STAGINGS:
-        block, counter, is_delta = general_block(staging, n_real, n, rng, device)
+    for staging, grid in itertools.product(GENERAL_STAGINGS, ("irregular", "regular")):
+        block, counter, is_delta = general_block(staging, n_real, n, rng, device, grid)
         S = block.ts.shape[0]
         for G in (1, 8, 120, n_real):
             gids = torch.full((S,), G, dtype=torch.int64, device=device)
             own = G == n_real
             gids[:n_real] = (torch.arange(n_real, device=device) if own else
                              torch.from_numpy(rng.integers(0, G, n_real)).to(device))
-            variants = set()
+            plans = set()
             for func in sorted(GR.GENERAL_FUNCS):
                 for op in ("sum", "count", "avg", "min", "max"):
                     got = GR.general_range_aggregate(func, op, block, gids, G, params,
                                                      is_counter=counter, is_delta=is_delta)
-                    variants.add(GR.LAST_PLAN.partials)
+                    plans.add((GR.LAST_PLAN.partials, GR.LAST_PLAN.shared_bounds))
                     want = GR.general_range_aggregate_plain(func, op, block, gids, G, params,
                                                             is_counter=counter,
                                                             is_delta=is_delta)
-                    what = f"{op}({func}) G={G} {staging}"
-                    if own:
+                    what = f"{op}({func}) G={G} {staging} {grid}"
+                    if func in ("changes", "resets"):  # integer counts: bit-equal
+                        err = compare(got, want, what, rtol=0.0)
+                    elif own:
                         err = compare(got, want, what, rtol=2e-4, atol=1e-4)
                     else:
                         finite = want[torch.isfinite(want)]
                         scale = float(finite.abs().max()) if finite.numel() else 0.0
                         err = compare(got, want, what, rtol=1e-3, atol=1e-5 * scale)
                     worst = max(worst, err)
-            want_variant = "shared" if G <= 8 else "global"
-            require(variants == {want_variant}, f"G={G}: group partials {variants}")
-            print(f"phase2c {staging} block {list(block.shape)} ({n_real} real rows) G={G}: "
-                  f"{len(GR.GENERAL_FUNCS)} functions x 5 ops match plain ({want_variant} "
-                  f"partials, rows per tile {GR.LAST_PLAN.rows}, {GR.LAST_PLAN.n_arrays} arrays "
-                  f"staged)")
+            want_plan = ("shared" if G <= 8 else "global", grid == "regular")
+            require(plans == {want_plan}, f"G={G} {grid}: (partials, shared bounds) {plans}")
+            plan = GR.LAST_PLAN
+            print(f"phase2c {staging} {grid} block {list(block.shape)} ({n_real} real rows) "
+                  f"G={G}: {len(GR.GENERAL_FUNCS)} functions x 5 ops match plain (changes/resets "
+                  f"bit-equal; {want_plan[0]} partials, shared bounds {want_plan[1]}, "
+                  f"{plan.warps} warps, {plan.n_arrays} arrays staged)")
     print(f"phase2c general kernel matches plain, max_abs_err={worst:.3g}")
     return worst
 
@@ -1296,17 +1310,22 @@ GENERAL_OPS = {"irate": (0, F32_OPS_PER_S), "idelta": (0, F32_OPS_PER_S),
 
 def general_bound(entry, ex, G: int) -> dict:
     """The least time of one general launch at the query's shape: bytes
-    (ts and vals per real sample, lens and gids per series, [G, J] out)
-    over 3.35 TB/s, or the in-window samples' operations (this run's
-    windows) over the peak rate of their type, whichever is larger."""
+    (ts and vals per real sample, and raw where the launch stages it; lens
+    and gids per series, [G, J] out) over 3.35 TB/s, or the in-window
+    samples' operations (this run's windows) over the peak rate of their
+    type, whichever is larger."""
     import torch
 
+    from filodb_tpu_torch.ops import general_range as GR
     from filodb_tpu_torch.ops.kernels import _bounds
 
     block = entry.block
     n, J = len(entry.labels), ex.num_steps()
     real = int(block.lens.sum())
-    need = real * 8 + n * 12 + G * J * 4
+    raw = block.raw if block.raw is not None else block.vals
+    arrays = GR.staged_arrays(ex.function, entry.is_counter, entry.is_delta,
+                              distinct_raw=raw.data_ptr() != block.vals.data_ptr())
+    need = real * 4 * arrays + n * 12 + G * J * 4
     dev = block.ts.device
     start = int(ex.start_ms - ex.offset_ms - block.base_ms)
     out_t = (start + torch.arange(J, device=dev, dtype=torch.int64) * ex.step_ms).to(torch.int32)
@@ -1356,6 +1375,9 @@ def run_general_query(engine, q: str, rung: str, first: str, grid: str, phase: s
                     f"stats {st}")
         require(np.isfinite(vals).all(), f"{q}: non-finite values in the result")
         runs.append((res, vals, wall))
+        if rung == "general":  # one [steps] bounds table per block exactly on a shared grid
+            require(GR.LAST_PLAN.shared_bounds == (grid == "regular"),
+                    f"{q}: shared bounds {GR.LAST_PLAN.shared_bounds} on a {grid} store")
     compare(torch.from_numpy(runs[1][1]), torch.from_numpy(runs[0][1]),
             f"{q}: second run vs first", rtol=1e-3)
     ex = exec_node(engine, q)
@@ -1385,11 +1407,12 @@ def run_general_query(engine, q: str, rung: str, first: str, grid: str, phase: s
         out["plain_ms"] = cuda_ms(lambda: general_plain(entry, ex), reps=3, warmup=1)
         out.update(general_bound(entry, ex, G))
         out["partials"] = GR.LAST_PLAN.partials
-        out["rows_per_tile"] = GR.LAST_PLAN.rows
+        out["layout"] = (f"{GR.LAST_PLAN.warps} warps per block, "
+                         f"shared bounds {GR.LAST_PLAN.shared_bounds}")
     gpu_sample(f"{phase} {q!r} after")
     kern = (f"general kernel {out['kernel_ms']:.4f} ms (median of 20; "
             f"{out['kernel_ms_back_to_back']:.4f} ms back to back; {out['partials']} partials, "
-            f"{out['rows_per_tile']} rows per tile), bound {out['bound_ms']:.4f} ms "
+            f"{out['layout']}), bound {out['bound_ms']:.4f} ms "
             f"({out['bound_by']}: {out['bound_bytes']} bytes at 3.35 TB/s = "
             f"{out['bytes_ms']:.4f} ms; {out['operations']} operations = "
             f"{out['operations_ms']:.4f} ms), plain {out['plain_ms']:.2f} ms"
@@ -2326,7 +2349,7 @@ def main() -> int:
     general_row = {
         "name": "general_range",
         "route": "cuda",
-        "source": "filodb_tpu_torch/csrc/window_stats.cu",
+        "source": "filodb_tpu_torch/csrc/general_range.cu",
         "replaces": "filodb_tpu/ops/kernels.py:141",
         "launches": sum(v["launches"] for v in general.values() if v["rung"] == "general")
         + general_regular["launches"],

@@ -1,8 +1,6 @@
 // Window statistics for irregular series on Hopper (sm_90a): two kernels
 // that replace the TPU kernel filodb_tpu/ops/pallas_kernels.py:33
-// (_window_agg_kernel, launched by window_aggregates), and through the
-// first of them the general range kernel filodb_tpu/ops/kernels.py:141
-// (range_kernel, B4, fused by aggregations.py _fused_general_jit).
+// (_window_agg_kernel, launched by window_aggregates).
 //
 // 1. window_range_kernel (entry filodb_window_range_aggregate), the main
 //    path: the counterpart of filodb_tpu/ops/aggregations.py
@@ -10,23 +8,7 @@
 //    function and the ("agg", op) epilogue behind one jit boundary. One
 //    launch computes, for every (row s, step j < J), the range function
 //    over the window (t_j - w, t_j] and reduces it into [G, J] group
-//    accumulators; no [S, J] plane reaches device memory. The same
-//    kernel, on the function codes from W_IRATE on, is the general rung
-//    (ops/general_range.py): B4's functions that window stats cannot
-//    express, each a template kind that reads the staged row tile --
-//    K_LAST2 gathers the samples at hi-1 and hi-2 (irate, idelta; a
-//    cumulative counter's idelta reads the diff-staged value), K_MOMENT2
-//    sums the window, then its squared deviations from that mean
-//    (stddev/stdvar_over_time, z_score; range_kernel takes the mean from a
-//    difference of whole-row f32 prefix sums, whose rounding is all a
-//    one-sample window holds), K_PAIRS counts the flagged i with
-//    lo < i < hi (changes, resets: a cumulative counter's diff-staged
-//    value != 0 or < 0, else raw[i] against raw[i-1]), K_LSQ sums tc, v,
-//    tc^2 and tc*v with tc = (t - t_j) seconds rounded to f32 as there
-//    (deriv, in range_kernel's order of operations and its 1e-30 guards;
-//    the sums in f64, where range_kernel's f32 sums cancel). These kinds
-//    gather single samples, as range_kernel does: they never sum the tied
-//    runs that window stats take from the TPU kernel.
+//    accumulators; no [S, J] plane reaches device memory.
 // 2. window_stats_kernel (entry filodb_window_stats): the nine statistics
 //    planes [S, J] of the TPU kernel (count, sum, min, max, first/last
 //    timestamp, first/last value, first raw value), for callers that need
@@ -57,10 +39,7 @@
 // Bound of window_range_kernel: device-memory bytes -- each real sample's
 // ts, value and raw value read once, lens and gids, the [G, J] outputs --
 // 829 MB on the main path (0.2475 ms at 3.35 TB/s); a few dozen integer
-// and float operations per (row, step). The general kinds read ts and
-// vals only (raw only for a gauge's changes/resets with a raw row of its
-// own): 8 bytes a real sample; K_MOMENT2 and K_LSQ add a few float
-// operations per in-window sample, far below the card's f32 rate.
+// and float operations per (row, step).
 //
 // Design of window_stats_kernel. The TPU kernel scans all T samples of a
 // 64-row tile for each of 128 steps and accumulates one-hot columns in
@@ -104,10 +83,6 @@ using window_search::count_le;
 using window_search::lower_edge;
 using window_search::wrap_add;
 using window_search::wrap_mul;
-
-__device__ __forceinline__ int32_t wrap_sub(int32_t a, int32_t b) {
-    return (int32_t)((uint32_t)a - (uint32_t)b);
-}
 
 constexpr float POS = 3.0e38f;
 constexpr float NEG = -3.0e38f;
@@ -176,21 +151,13 @@ __global__ void window_stats_kernel(
 using row_tiles::THREADS;
 
 // range functions (ops/window_stats.py WINDOW_FUNC_CODES)
-// and the general kernel's (ops/general_range.py GENERAL_FUNC_CODES)
 enum WFunc {
     W_SUM_OVER_TIME = 0, W_COUNT_OVER_TIME, W_AVG_OVER_TIME, W_MIN_OVER_TIME,
     W_MAX_OVER_TIME, W_LAST, W_FIRST_OVER_TIME, W_PRESENT_OVER_TIME,
     W_ABSENT_OVER_TIME, W_RATE, W_INCREASE, W_DELTA,
-    W_IRATE, W_IDELTA, W_STDDEV_OVER_TIME, W_STDVAR_OVER_TIME, W_Z_SCORE,
-    W_CHANGES, W_RESETS, W_DERIV,
 };
-// what a function scans in its window: the kernel's template argument.
-// K_LAST2 .. K_LSQ are range_kernel's (B4): they gather single samples at
-// hi-1 and hi-2 and never sum tied runs.
-enum Kind {
-    K_COUNT = 0, K_SUM, K_MIN, K_MAX, K_FIRST, K_LAST, K_EXTRAP,
-    K_LAST2, K_MOMENT2, K_PAIRS, K_LSQ,
-};
+// what a function scans in its window: the kernel's template argument
+enum Kind { K_COUNT = 0, K_SUM, K_MIN, K_MAX, K_FIRST, K_LAST, K_EXTRAP };
 
 struct RangeArgs {
     const int32_t* ts;
@@ -202,7 +169,6 @@ struct RangeArgs {
     int32_t start, step, window;
     int func, acc_op;
     int zero_cap;  // rate/increase of a counter: the zero-crossing cap reads raw
-    int diff_flags;  // a cumulative counter: changes/resets/idelta read diff-staged vals
     int R;         // rows per tile
     int n_arrays;  // arrays staged per row (ts, vals, raw in order); 0: read in place
     float* acc;
@@ -226,63 +192,6 @@ __device__ __forceinline__ float window_value(const RangeArgs& a, const int32_t*
         return has ? NaN : 1.0f;  // absent_over_time
     }
     if (!has) return NaN;
-    if (KIND == K_LAST2) {  // irate, idelta: the samples at hi-1 and hi-2
-        if (hi - lo < 2) return NaN;
-        const float v_last = rv[hi - 1];
-        if (a.func == W_IDELTA && a.diff_flags) return v_last;  // the staged diff
-        const float dv = v_last - rv[hi - 2];
-        if (a.func == W_IDELTA) return dv;
-        const float dt_s = (float)wrap_sub(rt[hi - 1], rt[hi - 2]) * 1e-3f;
-        return dv / fmaxf(dt_s, 1e-30f);
-    }
-    if (KIND == K_MOMENT2) {  // stddev/stdvar_over_time, z_score: two passes
-        float sm = 0.0f;
-        for (int k = lo; k < hi; ++k) sm += rv[k];
-        const float mean = sm / fmaxf(cnt, 1.0f);
-        float ss = 0.0f;
-        for (int k = lo; k < hi; ++k) {
-            const float d = rv[k] - mean;
-            ss += d * d;
-        }
-        const float var = ss / fmaxf(cnt, 1.0f);
-        if (a.func == W_STDVAR_OVER_TIME) return var;
-        const float sd = sqrtf(var);
-        if (a.func == W_Z_SCORE) return (rv[hi - 1] - mean) / fmaxf(sd, 1e-30f);
-        return sd;
-    }
-    if (KIND == K_PAIRS) {  // changes, resets: flagged i with lo < i < hi
-        const bool changes = a.func == W_CHANGES;
-        int flagged = 0;
-        if (a.diff_flags) {
-            for (int k = lo + 1; k < hi; ++k) {
-                const float d = rv[k];
-                flagged += changes ? d != 0.0f : d < 0.0f;
-            }
-        } else {
-            for (int k = lo + 1; k < hi; ++k) {
-                const float c = rr[k], p = rr[k - 1];
-                flagged += changes ? c != p : c < p;
-            }
-        }
-        return (float)flagged;
-    }
-    if (KIND == K_LSQ) {  // deriv: least-squares slope over (t - t_j) seconds
-        // tc rounds to f32 as in range_kernel; the sums run in f64, where
-        // the normal equations cancel (tc * v of two f32 values is exact)
-        double st = 0.0, sv = 0.0, stt = 0.0, stv = 0.0;
-        for (int k = lo; k < hi; ++k) {
-            const double tc = (double)((float)wrap_sub(rt[k], t_j) * 1e-3f);
-            const double v = (double)rv[k];
-            st += tc;
-            sv += v;
-            stt += tc * tc;
-            stv += tc * v;
-        }
-        const double n = (double)(hi - lo);
-        const double denom = n * stt - st * st;
-        if (hi - lo < 2 || !(fabs(denom) >= 1e-30)) return NaN;
-        return (float)((n * stv - st * sv) / denom);
-    }
     const float wf = (float)a.window;
     if (KIND == K_SUM) {  // sum/avg_over_time; rate/increase on delta columns
         float sm = 0.0f;
@@ -379,7 +288,7 @@ __global__ void __launch_bounds__(THREADS) window_range_kernel(const RangeArgs a
             if (STAGED) {
                 rt = (const int32_t*)(buf + (int64_t)r * T);
                 rv = buf + (int64_t)(R + r) * T;
-                rr = narr > 2 ? buf + (int64_t)(2 * R + r) * T : rv;  // raw is vals
+                rr = buf + (int64_t)(2 * R + r) * T;
             } else {
                 rt = a.ts + s * T;
                 rv = a.vals + s * T;
@@ -426,10 +335,6 @@ int kind_of(int func, int is_delta) {
         case W_LAST: return K_LAST;
         case W_RATE: case W_INCREASE: return is_delta ? K_SUM : K_EXTRAP;
         case W_DELTA: return K_EXTRAP;
-        case W_IRATE: case W_IDELTA: return K_LAST2;
-        case W_STDDEV_OVER_TIME: case W_STDVAR_OVER_TIME: case W_Z_SCORE: return K_MOMENT2;
-        case W_CHANGES: case W_RESETS: return K_PAIRS;
-        case W_DERIV: return K_LSQ;
         default: return -1;
     }
 }
@@ -453,14 +358,11 @@ extern "C" int filodb_window_range_aggregate(
     if (S <= 0 || J <= 0 || G <= 0) return 0;
     const int kind = kind_of(func, is_delta);
     const int zero_cap = kind == K_EXTRAP && is_counter && func != W_DELTA;
-    const int diff_flags = is_counter && !is_delta;
     RangeArgs a{(const int32_t*)ts, (const float*)vals, (const float*)raw,
                 (const int32_t*)lens, (const long long*)gids, S, T, J, ld, G,
-                (int32_t)start, (int32_t)step, (int32_t)window, func, acc_op, zero_cap,
-                diff_flags, rows, n_arrays, (float*)acc, (float*)cnt};
-    // changes/resets of a gauge or delta counter compare raw neighbours
-    const int raw_flags = kind == K_PAIRS && !diff_flags && raw != vals;
-    const int reads = kind == K_COUNT ? 1 : (zero_cap || raw_flags ? 3 : 2);  // ts, vals, raw
+                (int32_t)start, (int32_t)step, (int32_t)window, func, acc_op, zero_cap, rows,
+                n_arrays, (float*)acc, (float*)cnt};
+    const int reads = kind == K_COUNT ? 1 : (zero_cap ? 3 : 2);  // ts, vals, raw
     const int64_t part = shared ? (((int64_t)2 * G * J + 3) & ~3) * 4 : 0;
     const int64_t need = part + (int64_t)2 * rows * T * 4 * n_arrays;
     if (kind < 0 || rows < 1 || T % 4 != 0 || n_arrays > 3 ||
@@ -474,11 +376,7 @@ extern "C" int filodb_window_range_aggregate(
         case K_MAX: return launch_kind<K_MAX>(a, shared, smem_bytes, st);
         case K_FIRST: return launch_kind<K_FIRST>(a, shared, smem_bytes, st);
         case K_LAST: return launch_kind<K_LAST>(a, shared, smem_bytes, st);
-        case K_EXTRAP: return launch_kind<K_EXTRAP>(a, shared, smem_bytes, st);
-        case K_LAST2: return launch_kind<K_LAST2>(a, shared, smem_bytes, st);
-        case K_MOMENT2: return launch_kind<K_MOMENT2>(a, shared, smem_bytes, st);
-        case K_PAIRS: return launch_kind<K_PAIRS>(a, shared, smem_bytes, st);
-        default: return launch_kind<K_LSQ>(a, shared, smem_bytes, st);
+        default: return launch_kind<K_EXTRAP>(a, shared, smem_bytes, st);
     }
 }
 

@@ -90,9 +90,8 @@ def fused_range_aggregate(func: str, op: str, block, gids_padded: torch.Tensor,
     """``op by (...) (func(selector[w]))`` over a staged (super)block on
     the device, on the rung ``grid_variant`` picks (written to
     ``obs["variant"]`` when ``obs`` is given): one launch of the regular
-    kernel (``mxu``), or of the fused window-stats kernel on the
-    window-stats (``window_stats``) or the general (``general``) function
-    codes. Returns the [G, J_pad] group values on the device (NaN past
+    kernel (``mxu``), the fused window-stats kernel (``window_stats``) or
+    the general kernel (``general``). Returns the [G, J_pad] group values on the device (NaN past
     ``params.num_steps``); no [S, J] grid is allocated."""
     variant = grid_variant(block, func, is_delta)
     if obs is not None:

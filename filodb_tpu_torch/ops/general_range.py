@@ -8,19 +8,27 @@ grid for the functions of ``GENERAL_FUNCS``, those range_kernel computes
 and the window-stats finisher cannot: irate/idelta from the last two
 samples, stddev/stdvar_over_time and z_score from a second moment,
 changes/resets from pair flags and deriv by least squares. On a CUDA
-block it makes one launch of the fused kernel of ``csrc/window_stats.cu``
-on the general function codes (their template kinds ``K_LAST2``,
-``K_MOMENT2``, ``K_PAIRS``, ``K_LSQ``), which reduces straight into the
+block it makes one launch of ``csrc/general_range.cu``
+(``filodb_general_range_aggregate``), which reduces straight into the
 ``[G, J]`` group partials; on a CPU block it runs
 ``general_range_aggregate_plain``: ``kernels.range_kernel_plain`` and the
-segment aggregate. Its launches are counted in ``LAUNCHES``, apart from
-the window-stats rung's.
+segment aggregate. Its launches are counted in ``LAUNCHES``.
+
+``general_plan`` lays a launch out: warps per block (each on its own
+row, staged in a buffer of its own or read in place), steps per slice,
+the group partials, and a block's shared ``[steps]`` bounds on an exact
+shared grid.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from dataclasses import dataclass
+
 import torch
 
+from . import cuda_build
 from . import group_acc as GA
 from . import window_stats as WS
 from .kernels import pad_steps, range_kernel_plain
@@ -30,16 +38,121 @@ GENERAL_FUNCS = frozenset({
     "changes", "resets", "deriv",
 })
 
-# the fused kernel's function codes (csrc/window_stats.cu, enum WFunc)
+# the kernel's function codes (csrc/general_range.cu, enum GFunc)
 GENERAL_FUNC_CODES = {
-    "irate": 12, "idelta": 13, "stddev_over_time": 14, "stdvar_over_time": 15,
-    "z_score": 16, "changes": 17, "resets": 18, "deriv": 19,
+    "irate": 0, "idelta": 1, "stddev_over_time": 2, "stdvar_over_time": 3,
+    "z_score": 4, "changes": 5, "resets": 6, "deriv": 7,
 }
+# what each function reads of its window (the kernel's enum Kind)
+KINDS = {"irate": "last2", "idelta": "last2", "stddev_over_time": "moment2",
+         "stdvar_over_time": "moment2", "z_score": "moment2", "changes": "pairs",
+         "resets": "pairs", "deriv": "lsq"}
+MAX_SLICE_STEPS = 512  # steps per slice: each warp's [steps] run stays small
+# warps per block, each on its own row with one staging buffer: on an H100
+# 6 beat 2, 4 and 8 or tied them, and a second buffer per warp beat none
+# (tile_sweep.py --general)
+WARPS = 6
+MAX_WARPS = 8
 
-# launches of the kernel on the general codes since the last reset, and
-# the last launch's layout (group_acc.TilePlan)
+# launches of the kernel since the last reset, and the last launch's
+# layout (GeneralPlan)
 LAUNCHES = 0
 LAST_PLAN = None
+
+_lib = None
+
+
+@dataclass(frozen=True)
+class GeneralPlan:
+    """One launch's layout: ``warps`` per block, each on its own row with a
+    staging buffer of ``n_arrays`` arrays in shared memory (0 arrays: rows
+    read in place), ``steps`` per slice, group partials in shared memory or
+    not, one ``[steps]`` bounds table per block on an exact shared grid,
+    and the dynamic shared memory that takes."""
+
+    warps: int
+    steps: int
+    n_arrays: int
+    shared: bool
+    shared_bounds: bool
+    smem_bytes: int
+
+    @property
+    def staged(self) -> bool:
+        return self.n_arrays > 0
+
+    @property
+    def partials(self) -> str:
+        return "shared" if self.shared else "global"
+
+
+def _round4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+def general_smem_bytes(num_groups: int, steps: int, warps: int, row_words: int, n_arrays: int,
+                       shared: bool, shared_bounds: bool) -> int:
+    """Dynamic shared memory of a launch (``smem_words`` in the source,
+    which the C entry checks): the block's ``[G, steps]`` partials
+    (shared) and ``[steps]`` lo/hi (shared bounds), and per warp its
+    ``[steps]`` acc/cnt run, its row's ``[steps]`` lo/hi and its staging
+    buffer."""
+    part = _round4(2 * num_groups * steps) if shared else 0
+    sb = 2 * _round4(steps) if shared_bounds else 0
+    per_warp = 4 * _round4(steps) + n_arrays * row_words
+    return 4 * (part + sb + warps * per_warp)
+
+
+@functools.lru_cache(maxsize=256)
+def general_plan(num_groups: int, num_steps: int, row_words: int, n_arrays: int,
+                 shared_bounds: bool = False) -> GeneralPlan:
+    """The layout of a launch over ``num_steps`` steps into
+    ``num_groups`` groups that stages ``n_arrays`` arrays of ``row_words``
+    words per row: steps per slice up to ``MAX_SLICE_STEPS``; partials in
+    shared memory while ``2 * G * steps * 4`` bytes fit
+    ``group_acc.PARTIALS_BUDGET``; ``WARPS`` warps staging their rows
+    within ``group_acc.BLOCK_SMEM``, else fewer, and where one warp's row
+    does not fit, ``WARPS`` warps reading rows in place."""
+    steps = min(num_steps, MAX_SLICE_STEPS)
+    shared = 2 * num_groups * steps * 4 <= GA.PARTIALS_BUDGET
+
+    def plan(warps: int, narr: int) -> GeneralPlan:
+        return GeneralPlan(warps, steps, narr, shared, shared_bounds,
+                           general_smem_bytes(num_groups, steps, warps, row_words, narr, shared,
+                                              shared_bounds))
+
+    for warps in (WARPS, WARPS // 2, 1):
+        staged = plan(warps, n_arrays)
+        if n_arrays and staged.smem_bytes <= GA.BLOCK_SMEM:
+            return staged
+    return plan(WARPS, 0)
+
+
+def staged_arrays(func: str, is_counter: bool, is_delta: bool,
+                  distinct_raw: bool = False) -> int:
+    """How many [S, T] arrays the kernel stages for ``func``: ts and vals,
+    and raw for changes/resets of a gauge or delta counter that compare
+    raw neighbours, where the block's raw is a row of its own
+    (``distinct_raw``; staging gives those columns none: raw is vals). The
+    kernel lays out its buffers by this number (the plan's ``n_arrays``)
+    and refuses one too small for the function."""
+    diff_flags = is_counter and not is_delta
+    return 3 if func in ("changes", "resets") and distinct_raw and not diff_flags else 2
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the entry point's argument types on a built library."""
+    fn = lib.filodb_general_range_aggregate
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 18 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        _lib = bind(ctypes.CDLL(str(cuda_build.build("general_range"))))
+    return _lib
 
 
 def general_range_aggregate(func: str, op: str, block, gids: torch.Tensor, num_groups: int,
@@ -58,13 +171,37 @@ def general_range_aggregate(func: str, op: str, block, gids: torch.Tensor, num_g
 
 
 def _launch(func: str, op: str, block, gids, num_groups: int, params, is_counter: bool,
-            is_delta: bool, acc: torch.Tensor, cnt: torch.Tensor, plan=None) -> None:
-    """One launch of the kernel on ``func``'s general code into
-    ``acc``/``cnt`` ([G+1, J_pad], from ``group_acc.accumulators``);
-    raises if the launch fails."""
+            is_delta: bool, acc: torch.Tensor, cnt: torch.Tensor, plan=None,
+            lib=None) -> None:
+    """One launch of the kernel into ``acc``/``cnt`` ([G+1, J_pad], from
+    ``group_acc.accumulators``); raises if the launch fails. ``plan`` (a
+    ``GeneralPlan``) defaults to ``general_plan``'s, ``lib`` to the
+    package's build (a timing script may pass its own). A block on an
+    exact shared grid (``regular_ts``) takes its bounds from one table per
+    block."""
     global LAUNCHES, LAST_PLAN
-    LAST_PLAN = WS.launch_fused(GENERAL_FUNC_CODES[func], func, op, block, gids, num_groups,
-                                params, is_counter, is_delta, acc, cnt, plan)
+    raw = block.raw if block.raw is not None else block.vals
+    GA.check_aligned(ts=block.ts, vals=block.vals, raw=raw)
+    lib = lib or _load()
+    S, T = block.ts.shape
+    J = params.num_steps
+    if plan is None:
+        n_arrays = staged_arrays(func, is_counter, is_delta,
+                                 distinct_raw=raw.data_ptr() != block.vals.data_ptr())
+        plan = general_plan(num_groups, J, T, n_arrays, block.regular_ts is not None)
+    with torch.cuda.device(block.ts.device):
+        stream = torch.cuda.current_stream(block.ts.device).cuda_stream
+        err = lib.filodb_general_range_aggregate(
+            block.ts.data_ptr(), block.vals.data_ptr(), raw.data_ptr(), block.lens.data_ptr(),
+            gids.data_ptr(), S, T, J, acc.shape[1], num_groups,
+            int(params.start_ms - block.base_ms), int(params.step_ms), int(params.window_ms),
+            GENERAL_FUNC_CODES[func], GA.ACC_CODES[op], int(is_counter), int(is_delta),
+            plan.warps, plan.steps, plan.n_arrays, int(plan.shared), int(plan.shared_bounds),
+            plan.smem_bytes, acc.data_ptr(), cnt.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{func} general range kernel launch failed: cudaError {err}")
+    LAST_PLAN = plan
     LAUNCHES += 1
 
 
@@ -83,3 +220,4 @@ def general_range_aggregate_plain(func: str, op: str, block, gids: torch.Tensor,
                             is_counter=is_counter, is_delta=is_delta)
     out = apply_epilogue(sj, ("agg", op), gids, num_groups)
     return GA.mask_steps(out, params.num_steps)
+

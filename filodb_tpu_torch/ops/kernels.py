@@ -14,7 +14,7 @@ integer prefix difference instead of a mask. Two sums differ from
 range_kernel's on purpose (ROADMAP C): the stddev family's mean is the
 window's own sum (range_kernel differences whole-row f32 prefix sums), and
 deriv/predict_linear sum in float64. On the card the Hopper kernel
-of ``csrc/window_stats.cu`` computes the same functions
+of ``csrc/general_range.cu`` computes the same functions
 (``general_range.general_range_aggregate``); this version is what the CPU
 tests hold against the JAX package and what the card's kernel is held
 against.

@@ -230,19 +230,13 @@ def finish(func: str, agg: dict, start_off: int, step_ms: int, window_ms: int,
     raise ValueError(f"window-stats path does not support {func}")
 
 
-def staged_arrays(func: str, is_counter: bool, is_delta: bool,
-                  distinct_raw: bool = False) -> int:
+def staged_arrays(func: str, is_counter: bool, is_delta: bool) -> int:
     """How many [S, T] arrays the fused kernel stages for ``func``: ts;
-    vals unless it only counts; raw for the counter zero-crossing cap, and
-    for changes/resets of a gauge or delta counter that compare raw
-    neighbours, where the block's raw is a row of its own
-    (``distinct_raw``; staging gives those columns none: raw is vals).
-    The kernel lays out its buffers by this number (the plan's
-    ``n_arrays``) and refuses one too small for the function."""
+    vals unless it only counts; raw for the counter zero-crossing cap. The
+    kernel lays out its buffers by this number (the plan's ``n_arrays``)
+    and refuses one too small for the function."""
     if func in ("count_over_time", "present_over_time", "absent_over_time"):
         return 1
-    if func in ("changes", "resets"):
-        return 3 if distinct_raw and not (is_counter and not is_delta) else 2
     return 3 if is_counter and not is_delta and func in ("rate", "increase") else 2
 
 
@@ -271,7 +265,7 @@ def window_range_aggregate(func: str, op: str, block, gids: torch.Tensor, num_gr
 
 def run_fused(launch, plain, func: str, op: str, block, gids: torch.Tensor, num_groups: int,
               params, is_counter: bool, is_delta: bool) -> torch.Tensor:
-    """The body of both fused rungs' wrappers (window stats and general):
+    """The body of the window-stats and general rungs' wrappers:
     check the op and the inputs, run ``plain`` on a CPU block, else
     ``launch`` once into fresh accumulators and finish them to [G, J_pad]."""
     from .aggregations import SIMPLE_AGG_OPS
@@ -300,40 +294,27 @@ def _launch_range(func: str, op: str, block, gids, num_groups: int, params, is_c
     (a ``group_acc.TilePlan``) defaults to ``tile_plan``'s, ``lib`` to the
     package's build (a timing script may pass its own)."""
     global RANGE_LAUNCHES, LAST_PLAN
-    LAST_PLAN = launch_fused(WINDOW_FUNC_CODES[func], func, op, block, gids, num_groups, params,
-                             is_counter, is_delta, acc, cnt, plan, lib)
-    RANGE_LAUNCHES += 1
-
-
-def launch_fused(code: int, func: str, op: str, block, gids, num_groups: int, params,
-                 is_counter: bool, is_delta: bool, acc: torch.Tensor, cnt: torch.Tensor,
-                 plan=None, lib=None):
-    """One launch of ``filodb_window_range_aggregate`` on function code
-    ``code`` (the window-stats rung's or the general rung's); raises if the
-    launch fails and returns the plan it launched with. The callers count
-    their launches."""
     raw = block.raw if block.raw is not None else block.vals
     GA.check_aligned(ts=block.ts, vals=block.vals, raw=raw)
     lib = lib or _load()
     S, T = block.ts.shape
     J = params.num_steps
     if plan is None:
-        n_arrays = staged_arrays(func, is_counter, is_delta,
-                                 distinct_raw=raw.data_ptr() != block.vals.data_ptr())
-        plan = GA.tile_plan(num_groups, J, T, n_arrays)
+        plan = GA.tile_plan(num_groups, J, T, staged_arrays(func, is_counter, is_delta))
     with torch.cuda.device(block.ts.device):
         stream = torch.cuda.current_stream(block.ts.device).cuda_stream
         err = lib.filodb_window_range_aggregate(
             block.ts.data_ptr(), block.vals.data_ptr(), raw.data_ptr(), block.lens.data_ptr(),
             gids.data_ptr(), S, T, J, acc.shape[1], num_groups,
             int(params.start_ms - block.base_ms), int(params.step_ms), int(params.window_ms),
-            code, GA.ACC_CODES[op], int(is_counter), int(is_delta),
+            WINDOW_FUNC_CODES[func], GA.ACC_CODES[op], int(is_counter), int(is_delta),
             plan.rows, plan.n_arrays, int(plan.shared), plan.smem_bytes, acc.data_ptr(),
             cnt.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"{func} range kernel launch failed: cudaError {err}")
-    return plan
+    LAST_PLAN = plan
+    RANGE_LAUNCHES += 1
 
 
 def window_range_aggregate_plain(func: str, op: str, block, gids: torch.Tensor,

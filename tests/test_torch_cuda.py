@@ -1,5 +1,5 @@
 """The window-stats kernels (nine planes, and fused with finish and the
-group aggregate, on the window-stats and the general function codes) and
+group aggregate), the general range kernel (csrc/general_range.cu) and
 the regular-range kernel on the card against their plain versions, on both group-partial variants and on rows staged in
 shared memory or read in place; a cached superblock's warm hit and
 live-edge extension on the card; and the histogram range kernel
@@ -10,6 +10,7 @@ file imports no JAX so that it runs on a machine with only torch:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -321,7 +322,7 @@ def test_fused_path_allocates_no_grid_on_card(card):
     assert (WS.LAUNCHES, WS.RANGE_LAUNCHES, MK.LAUNCHES) == (before[0], before[1] + 1, before[2])
 
 
-# ---- the general kernel (the fused kernel on the general codes, B4) ----
+# ---- the general range kernel (csrc/general_range.cu, B4) ----
 
 GENERAL_STAGINGS = {
     "gauge": ({}, False, False), "corrected": ({"counter_corrected": True}, True, False),
@@ -478,6 +479,146 @@ def test_general_query_launches_once_on_card(card, func):
     assert obs == {"variant": "general"}
     assert (WS.LAUNCHES, WS.RANGE_LAUNCHES, MK.LAUNCHES, GR.LAUNCHES) == (
         before[0], before[1], before[2], before[3] + 1)
+
+
+def regular_general_block(staging: str, n_series=65, n=300, seed=0):
+    """The series of ``general_block`` moved onto one 10 s grid (a block
+    with shared bounds)."""
+    mode, counter, is_delta = GENERAL_STAGINGS[staging]
+    hb, _, _ = general_block(staging, n_series, n, seed)
+    rng = np.random.default_rng(seed + 1)
+    grid = BASE + 5_000 + np.arange(n, dtype=np.int64) * 10_000
+    series = [(grid, (rng.uniform(0, 10, n) if is_delta else
+                      np.cumsum(rng.uniform(0, 10, n)) if counter else
+                      np.round(50 + 20 * rng.standard_normal(n))))
+              for _ in range(n_series)]
+    b = stage_series(series, BASE, **mode)
+    assert b.regular_ts is not None
+    return b, counter, is_delta
+
+
+def assert_general(got, want, func, what):
+    """changes/resets bit-equal (integer counts), the rest rtol 2e-4 /
+    atol 1e-4; a grid of empty windows NaN throughout."""
+    if torch.isnan(want).all():
+        assert torch.isnan(got).all(), what
+    elif func in ("changes", "resets"):
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy(), err_msg=what)
+    else:
+        assert_same(got, want, 2e-4, 1e-4, what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staging", ["gauge", "diff", "shifted", "corrected"])
+@pytest.mark.parametrize("func", sorted(GR.GENERAL_FUNCS))
+def test_general_kernel_shared_bounds_on_card(card, func, staging):
+    """A regular block takes its windows from one [steps] table per block
+    (clamped by each row's length; padded rows empty)."""
+    hb, counter, is_delta = regular_general_block(staging)
+    b = hb.to_device(card)
+    params = RangeParams(BASE - 200_000, 60_000, 70, 300_000)
+    got, want = general_pair(b, func, "sum", own_groups(b, card), b.n_series, params, counter,
+                             is_delta)
+    assert GR.LAST_PLAN.shared_bounds and GR.LAST_PLAN.staged
+    assert_general(got, want, func, f"{func} {staging}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("func", sorted(GR.GENERAL_FUNCS))
+def test_general_kernel_long_windows_on_card(card, func):
+    """1 h windows (~360 samples: many times a lane's four-sample walk)."""
+    staging = {"changes": "diff", "resets": "diff", "idelta": "diff"}.get(func, "shifted")
+    hb, counter, is_delta = general_block(staging, n_series=40, n=1_500, seed=5)
+    b = hb.to_device(card)
+    params = RangeParams(BASE + 600_000, 300_000, 40, 3_600_000)
+    got, want = general_pair(b, func, "sum", own_groups(b, card), b.n_series, params, counter,
+                             is_delta)
+    assert_general(got, want, func, func)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [0, 1, 2, 3, 5])
+@pytest.mark.parametrize("func", sorted(GR.GENERAL_FUNCS))
+def test_general_kernel_short_windows_on_card(card, func, k):
+    """Windows of exactly k samples (10 s scrapes, k * 10 s windows ending
+    on a sample): empty, one and two samples included."""
+    from filodb_tpu_torch.ops.staging import block_from_arrays
+
+    rng = np.random.default_rng(k)
+    ts = np.full((8, 128), TS_PAD, np.int32)
+    ts[:6, :100] = np.arange(100) * 10_000 + np.arange(6)[:, None] * 1_000
+    vals = np.zeros((8, 128), np.float32)
+    vals[:6, :100] = np.round(50 + 20 * rng.standard_normal((6, 100)))
+    lens = np.array([100] * 6 + [0, 0], np.int32)
+    b = block_from_arrays(ts, vals, lens, BASE, np.zeros(8, np.float32), 6, device=card)
+    gids = torch.tensor([0, 1, 2, 3, 4, 5, 6, 6], dtype=torch.int64, device=card)
+    params = RangeParams(BASE + 300_000, 20_000, 30, k * 10_000)
+    got, want = general_pair(b, func, "sum", gids, 6, params, False, False)
+    assert_general(got, want, func, f"{func} k={k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staged", [True, False])
+@pytest.mark.parametrize("func", ["stddev_over_time", "z_score", "deriv", "changes"])
+def test_general_kernel_odd_step_counts_on_card(card, func, staged):
+    """37 steps (not a multiple of a warp's 32 lanes), rows staged or read
+    in place (changes then walks its windows instead of a prefix)."""
+    staging = "diff" if func == "changes" else "shifted"
+    hb, counter, is_delta = general_block(staging, n_series=100, seed=8)
+    b = hb.to_device(card)
+    params = params_for(num_steps=37)
+    G = b.n_series
+    gids = own_groups(b, card)
+    n_arrays = GR.staged_arrays(func, counter, is_delta) if staged else 0
+    plan = GR.general_plan(G, 37, b.ts.shape[1], n_arrays)
+    acc, cnt = GA.accumulators("sum", G, pad_steps(37), card)
+    GR._launch(func, "sum", b, gids, G, params, counter, is_delta, acc, cnt, plan=plan)
+    got = GA.mask_steps(GA.finish_groups("sum", acc, cnt, G), 37)
+    want = GR.general_range_aggregate_plain(func, "sum", b, gids, G, params, is_counter=counter,
+                                            is_delta=is_delta)
+    torch.cuda.synchronize()
+    assert GR.LAST_PLAN.staged == staged
+    assert_general(got, want, func, f"{func} staged={staged}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warps", [1, 2, 3, 8])
+@pytest.mark.parametrize("func", ["irate", "changes", "stddev_over_time", "deriv"])
+def test_general_kernel_layouts_on_card(card, func, warps):
+    """Other warps per block, grouped by zone."""
+    staging = "diff" if func == "changes" else "corrected" if func == "irate" else "shifted"
+    hb, counter, is_delta = general_block(staging, n_series=300, seed=9)
+    b = hb.to_device(card)
+    params = params_for()
+    gids = spread_groups(b, 8, card)
+    plan = GR.general_plan(8, params.num_steps, b.ts.shape[1],
+                           GR.staged_arrays(func, counter, is_delta))
+    plan = dataclasses.replace(plan, warps=warps, smem_bytes=GR.general_smem_bytes(
+        8, plan.steps, warps, b.ts.shape[1], plan.n_arrays, plan.shared, False))
+    acc, cnt = GA.accumulators("sum", 8, pad_steps(params.num_steps), card)
+    GR._launch(func, "sum", b, gids, 8, params, counter, is_delta, acc, cnt, plan=plan)
+    got = GA.mask_steps(GA.finish_groups("sum", acc, cnt, 8), params.num_steps)
+    want = GR.general_range_aggregate_plain(func, "sum", b, gids, 8, params, is_counter=counter,
+                                            is_delta=is_delta)
+    torch.cuda.synchronize()
+    if func == "changes":
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    else:
+        assert_same(got, want, 1e-3, 1e-5 * float(np.nanmax(np.abs(want.cpu().numpy()))), func)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("func", ["idelta", "resets", "stdvar_over_time", "deriv"])
+def test_general_kernel_slices_long_ranges_on_card(card, func):
+    """More steps than one slice: blockIdx.y slices of MAX_SLICE_STEPS."""
+    staging = "diff" if func in ("idelta", "resets") else "shifted"
+    hb, counter, is_delta = general_block(staging, n_series=20, n=2_000, seed=10)
+    b = hb.to_device(card)
+    params = RangeParams(BASE, 10_000, GR.MAX_SLICE_STEPS * 2 + 37, 120_000)
+    got, want = general_pair(b, func, "sum", own_groups(b, card), b.n_series, params, counter,
+                             is_delta)
+    assert GR.LAST_PLAN.steps == GR.MAX_SLICE_STEPS
+    assert_general(got, want, func, func)
 
 
 # ---- the regular kernel's group-partial variants and wide rows ----

@@ -332,13 +332,12 @@ def test_general_rung_refuses_what_it_does_not_compute():
         GR.general_range_aggregate("irate", "sum", block, gids.to(torch.int32), N_GROUPS, params)
 
 
-def test_general_codes_follow_the_window_stats_codes():
-    """One enum in csrc/window_stats.cu: the general codes come after the
-    window-stats codes, one per function."""
-    assert set(GR.GENERAL_FUNC_CODES) == GR.GENERAL_FUNCS
+def test_general_codes_are_the_kernels_own_enum():
+    """The general kernel (csrc/general_range.cu) has an enum of its own:
+    one code per function, 0..7, apart from the window-stats codes."""
+    assert set(GR.GENERAL_FUNC_CODES) == GR.GENERAL_FUNCS == set(GR.KINDS)
     assert not GR.GENERAL_FUNCS & WS.PALLAS_FUNCS
-    first = max(WS.WINDOW_FUNC_CODES.values()) + 1
-    assert sorted(GR.GENERAL_FUNC_CODES.values()) == list(range(first, first + 8))
+    assert sorted(GR.GENERAL_FUNC_CODES.values()) == list(range(8))
 
 
 @pytest.mark.parametrize("func,counter,is_delta,distinct_raw,want", [
@@ -350,7 +349,7 @@ def test_general_codes_follow_the_window_stats_codes():
 def test_staged_arrays_of_the_general_kinds(func, counter, is_delta, distinct_raw, want):
     """ts and vals; raw only where changes/resets compare raw neighbours of
     a row of their own."""
-    assert WS.staged_arrays(func, counter, is_delta, distinct_raw=distinct_raw) == want
+    assert GR.staged_arrays(func, counter, is_delta, distinct_raw=distinct_raw) == want
 
 
 # -- the ladder against _grid_variant ---------------------------------------------------

@@ -6,6 +6,7 @@ grid for the regular kernel), 111 steps, 5 m windows, sum over 1 group.
 
     python3 tile_sweep.py [--split]
     python3 tile_sweep.py --hist [--package-root DIR]
+    python3 tile_sweep.py --general [--package-root DIR]
 
 For each kernel and function it times the launch (the median of 20 calls
 between CUDA events, after warm-up) at every rows-per-tile layout -- the
@@ -34,6 +35,19 @@ threads per block, and built with the register budgets of ``HIST_BUILDS``.
 ``--package-root`` imports ``filodb_tpu_torch`` from
 another checkout (a parent commit unpacked into a gitignored directory), so
 that one call can time parent, change, change, parent on one card.
+
+With ``--general`` it times the general range kernel (``csrc/general_range.cu``,
+or the package's own where ``--package-root`` names a parent checkout) back
+to back for every function of ``general_range.GENERAL_FUNCS`` at phase 4's
+shape (100k irregular counters, 720 samples 5-15 s apart, corrected or
+diff-staged as phase 8's queries take them) and on the regular store's
+(the same on one 10 s grid), with phase 8's grouping (``by (zone)`` for
+changes and stddev_over_time, else one group). Where the package has
+``general_plan`` it also sweeps the warps per block, and times patched
+builds: teams of ``GENERAL_TEAMS`` lanes that stride each window and reduce
+it by shuffles (``general_team_patches``, for the functions that walk their
+windows), and the split of ``GENERAL_PATCHES`` (bounds only: no window
+read; reduce only: fixed windows instead of the searches).
 
 Prints the card's name and power limit, and ends with one JSON object of
 every time. Exits non-zero where no CUDA device is available.
@@ -83,6 +97,61 @@ HIST_PATCHES = {
                    ("hist_range.cu", "lo = lower_edge(rt, hi, wrap_add(t_j, -a.window));",
                     "lo = max(0, hi - 30);")],
 }
+# patches of the general kernel's split (``--general``): "bounds only"
+# searches every window but reads none of it (no prefix, no gather, no
+# scan); "reduce only" takes fixed windows of 30 samples, 6 further per
+# step (10 s samples, 60 s steps from 400 s) instead of the searches
+GENERAL_PATCHES = {
+    "bounds only": [("general_range.cu", "v = pair_value<KIND>(rt, rvc, lo, hi, a);",
+                     "v = (float)(hi - lo);"),
+                    ("general_range.cu",
+                     "v = window_value<KIND>(a, rt, rvc, rr, lo, hi, t_of(j0 + jl));",
+                     "v = (float)(hi - lo);"),
+                    ("general_range.cu", "            if (KIND == K_PAIRS && STAGED) {",
+                     "            if (false) {")],
+    "reduce only": [("general_range.cu", "search_bounds<!STAGED>(rt, n, t_j, a.window, lo, hi);",
+                     "for (int q = 0; q < Q; ++q) { hi[q] = min(n, (j0 + jq + 32 * q) * 6 + 40);"
+                     " lo[q] = max(0, hi[q] - 30); }")],
+}
+GENERAL_TEAMS = (2, 4, 8, 16, 32)  # lanes per window of the team builds (the kernel: 1)
+GENERAL_WARPS = (2, 4, 6, 8)  # warps per block swept by --general
+# phase 8's grouping: by (zone) for these, one group for the rest
+GENERAL_BY_ZONE = ("changes", "stddev_over_time")
+
+
+def general_team_patches(team: int):
+    """Patches that make the general kernel reduce each window by a team of
+    ``team`` lanes: the team takes one step of the warp's, its lanes stride
+    the window over consecutive samples, a ``__shfl_xor_sync`` chain sums
+    their partials, and the team's first lane keeps the value."""
+    reduce = (
+        "constexpr unsigned FULL = 0xffffffffu;\n"
+        f"constexpr int TEAM = {team};\n"
+        "template <typename X>\n"
+        "__device__ __forceinline__ X team_reduce(X x) {\n"
+        "    const unsigned lane = threadIdx.x & 31;\n"
+        "    const unsigned mask = TEAM >= 32 ? FULL\n"
+        "                                     : ((1u << (TEAM & 31)) - 1) << (lane & ~(TEAM - 1));\n"
+        "    for (int o = TEAM >> 1; o > 0; o >>= 1) x += __shfl_xor_sync(mask, x, o, TEAM);\n"
+        "    return x;\n"
+        "}\n")
+    walk = ("    int k = lo;\n    for (; k + 3 < hi; k += 4) {\n        f(k, 0);\n"
+            "        f(k + 1, 1);\n        f(k + 2, 2);\n        f(k + 3, 3);\n    }\n"
+            "    for (; k < hi; ++k) f(k, 0);\n")
+    return [("general_range.cu", "constexpr unsigned FULL = 0xffffffffu;\n", reduce),
+            ("general_range.cu", walk,
+             "    for (int k = lo + (int)(threadIdx.x & (TEAM - 1)); k < hi; k += TEAM) f(k, 0);\n"),
+            ("general_range.cu", "    return (x[0] + x[1]) + (x[2] + x[3]);",
+             "    return team_reduce((x[0] + x[1]) + (x[2] + x[3]));"),
+            ("general_range.cu", "    return x[0] + x[1];", "    return team_reduce(x[0] + x[1]);"),
+            ("general_range.cu", "for (int jl = lane; jl < ns; jl += 32) {\n"
+             "                const int lo = tb_lo[jl]",
+             "for (int jl = lane / TEAM; jl < ns; jl += 32 / TEAM) {\n"
+             "                const int lo = tb_lo[jl]"),
+            ("general_range.cu", "                if (!isnan(v)) {",
+             "                if ((lane & (TEAM - 1)) == 0 && !isnan(v)) {")]
+
+
 # register budgets of the histogram kernel (``--hist``): rows whose loads a
 # thread has in flight, and blocks per SM its registers are cut for
 HIST_BUILDS = {
@@ -261,12 +330,121 @@ def hist_main(package_root: str | None, card: str, device=None, n_series: int | 
     return 0
 
 
+def general_blocks(device, n_real: int = N_REAL, seed: int = 0):
+    """Phase 4's and the regular store's superblocks, made on the card from
+    a seed: ``n_real`` counters of 720 samples (5-15 s apart, or every
+    10 s), [S, 768] with the padded rows past them; each twice, corrected
+    (cumulative values) and diff-staged (the adjacent increments, one in
+    five zero), as phase 8's queries stage them."""
+    import torch
+
+    from filodb_tpu_torch.ops.staging import TS_PAD, StagedBlock
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    m = 720
+    S_pad = -(-n_real // 128) * 128 if n_real < N_REAL else S
+    lens = torch.zeros(S_pad, dtype=torch.int32, device=device)
+    lens[:n_real] = m
+    inc = torch.rand((n_real, m), generator=g, device=device) * 10
+    inc = torch.where(torch.rand((n_real, m), generator=g, device=device) < 0.2, 0.0, inc)
+    inc[:, 0] = 0.0
+    irregular = torch.cumsum(torch.randint(5_000, 15_001, (n_real, m), generator=g,
+                                           device=device, dtype=torch.int32), dim=1,
+                             dtype=torch.int32)
+    grid = torch.arange(m, dtype=torch.int32, device=device) * 10_000
+    out = {}
+    for store, rows in (("irregular", irregular), ("regular", grid.expand(n_real, m))):
+        ts = torch.full((S_pad, T), int(TS_PAD), dtype=torch.int32, device=device)
+        ts[:n_real, :m] = rows
+        for mode, v in (("corrected", torch.cumsum(inc, dim=1)), ("diff", inc)):
+            vals = torch.zeros((S_pad, T), dtype=torch.float32, device=device)
+            vals[:n_real, :m] = v
+            regular = grid.cpu().numpy() if store == "regular" else None
+            out[store, mode] = StagedBlock(ts, vals, lens, BASE, torch.zeros(S_pad, device=device),
+                                           n_real, [], regular_ts=regular)
+    return out
+
+
+def general_main(package_root: str | None, card: str, device=None, n_real: int = N_REAL,
+                 timer=back_to_back_ms) -> int:
+    """``--general``: the general range kernel of the package at
+    ``package_root`` (default this checkout's) for every function on both
+    stores, and (where the package has ``general_plan``) its warps-per-block
+    sweep, team builds and split builds."""
+    if package_root:
+        sys.path.insert(0, str(Path(package_root).resolve()))
+    import dataclasses
+
+    import torch
+
+    import filodb_tpu_torch
+    from filodb_tpu_torch.ops import general_range as GR
+    from filodb_tpu_torch.ops import group_acc as GA
+    from filodb_tpu_torch.ops.kernels import RangeParams, pad_steps
+
+    device = device or torch.device("cuda")
+    print(f"package {Path(filodb_tpu_torch.__file__).resolve().parent}")
+    redesigned = hasattr(GR, "general_plan")
+    splits, teams = {}, {}
+    if redesigned and device.type == "cuda":
+        builds = {**GENERAL_PATCHES, **{f"team={t}": general_team_patches(t) for t in GENERAL_TEAMS}}
+        with ThreadPoolExecutor(len(builds)) as pool:
+            libs = dict(zip(builds, pool.map(
+                lambda k: build_patched("general_range", builds[k], GR.bind), builds)))
+        splits = {k: libs[k] for k in GENERAL_PATCHES}
+        teams = {k: v for k, v in libs.items() if k not in GENERAL_PATCHES}
+    stores = general_blocks(device, n_real)
+    params = RangeParams(BASE + START_OFF, STEP, J, WINDOW)
+    times = {}
+    for (store, mode), block in stores.items():
+        S_pad = block.ts.shape[0]
+        for func in sorted(GR.GENERAL_FUNCS):
+            if (mode == "diff") != (func in ("changes", "resets", "idelta")):
+                continue
+            G = 8 if func in GENERAL_BY_ZONE else 1
+            gids = torch.full((S_pad,), G, dtype=torch.int64, device=device)
+            gids[:n_real] = torch.arange(n_real, device=device) % G
+            acc, cnt = GA.accumulators("sum", G, pad_steps(J), device)
+
+            def launch(plan=None, lib=None):
+                kw = {k: v for k, v in (("plan", plan), ("lib", lib)) if v is not None}
+                return lambda: GR._launch(func, "sum", block, gids, G, params, True, False,
+                                          acc, cnt, **kw)
+
+            key = f"{store} {func}"
+            times[key] = timer(launch())
+            plan = GR.LAST_PLAN
+            if redesigned:
+                times[f"{key}: the plan"] = (f"warps={plan.warps} n_arrays={plan.n_arrays} "
+                                             f"{plan.partials} "
+                                             f"shared_bounds={plan.shared_bounds}")
+                if GR.KINDS[func] in ("moment2", "lsq"):  # the kinds that walk their windows
+                    for name, lib in teams.items():
+                        times[f"{key}: {name}"] = timer(launch(lib=lib))
+                for warps in GENERAL_WARPS:
+                    if warps != plan.warps:
+                        smem = GR.general_smem_bytes(G, plan.steps, warps, T, plan.n_arrays,
+                                                     plan.shared, plan.shared_bounds)
+                        times[f"{key}: warps={warps}"] = timer(
+                            launch(dataclasses.replace(plan, warps=warps, smem_bytes=smem)))
+                for name, lib in splits.items():
+                    times[f"{key}: {name}"] = timer(launch(lib=lib))
+            for k, v in times.items():
+                if k == key or k.startswith(key + ":"):
+                    print(f"{k}: {v if isinstance(v, str) else f'{v:.4f} ms'}", flush=True)
+    print(card)
+    print(json.dumps({"card": card, "package": str(package_root or "."), "ms": times}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--split", action="store_true", help="also time patched copies")
     ap.add_argument("--hist", action="store_true", help="time the histogram kernel instead")
+    ap.add_argument("--general", action="store_true",
+                    help="time the general range kernel instead")
     ap.add_argument("--package-root", default=None,
-                    help="with --hist: import filodb_tpu_torch from this checkout")
+                    help="with --hist or --general: import filodb_tpu_torch from this checkout")
     args = ap.parse_args()
 
     import torch
@@ -274,11 +452,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("tile_sweep: no CUDA device is available", file=sys.stderr)
         return 2
-    if args.hist:
+    if args.hist or args.general:
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                "--format=csv,noheader"], capture_output=True, text=True,
                               check=True, timeout=60).stdout.strip()
-        return hist_main(args.package_root, card)
+        return (hist_main if args.hist else general_main)(args.package_root, card)
     from filodb_tpu_torch.ops import cuda_build
     from filodb_tpu_torch.ops import group_acc as GA
     from filodb_tpu_torch.ops import mxu_kernels as MK
