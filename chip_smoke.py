@@ -9,12 +9,14 @@ comes out.
 Phases (any failure raises and exits non-zero):
 
 1. Build ``filodb_tpu_torch/csrc/window_stats.cu``, ``regular_range.cu``,
-   ``hist_range.cu`` and ``general_range.cu`` with nvcc, and the histogram
-   kernel's two split builds (``tile_sweep.HIST_PATCHES``: search only,
-   fetch only), all at once, and bind their six entry points
-   (``filodb_window_stats``, ``filodb_window_range_aggregate``,
-   ``filodb_regular_range``, ``filodb_hist_range_aggregate``,
-   ``filodb_hist_resident``, ``filodb_general_range_aggregate``); print their
+   ``hist_range.cu``, ``general_range.cu`` and ``order_stats.cu`` with
+   nvcc, and the histogram kernel's two split builds
+   (``tile_sweep.HIST_PATCHES``: search only, fetch only), all at once, and
+   bind their eight entry points (``filodb_window_stats``,
+   ``filodb_window_range_aggregate``, ``filodb_regular_range``,
+   ``filodb_hist_range_aggregate``, ``filodb_hist_resident``,
+   ``filodb_general_range_aggregate``, ``filodb_topk_steps``,
+   ``filodb_segment_quantile``); print their
    ptxas lines (registers, shared memory, spills) and the card's name and
    power limit.
 2. Window stats (the nine-plane kernel), kernel vs plain on seeded
@@ -175,11 +177,42 @@ Phases (any failure raises and exits non-zero):
    whichever is longer. (A diff superblock restages under live-edge
    ingest, as in the JAX package: phase 8 does not extend one.)
 
+9. The fused epilogues (B9) at full width, on the superblocks phases 4,
+   5 and 8 staged (after phase 8 on phase 4's irregular store, and after
+   phase 8's regular query on phase 5's): ``topk(5, rate)``, ``bottomk(5,
+   irate)``, ``quantile(0.99, rate)``, ``quantile by (zone) (0.5,
+   stddev_over_time)``, ``topk(1000, rate)`` and ``quantile by (instance)
+   (0.5, rate)`` (100k groups of one series) over
+   ``http_requests_total[5m]`` on the irregular store, ``topk(10, rate)``
+   and ``quantile by (zone) (0.9, rate)`` on the regular one. Each runs
+   twice through ``QueryEngine`` (the first run's cache outcome printed,
+   the second a hit) with exactly two launches: the rung the ladder names
+   in its store mode, then one order-statistics kernel
+   (``filodb_topk_steps`` or ``filodb_segment_quantile``), and no other
+   kernel. The store-mode grid equals the rung's plain per-series grid
+   (rtol 1e-3, NaN masks equal); the kernel's [k, J] set equals
+   ``topk_steps_plain``'s on the same card grid bit for bit, and its
+   [G, J] quantiles ``segment_quantile_plain``'s (selected order
+   statistics bit-equal, interpolated ones within 2 ulp); the presented
+   rows equal the plain path's end to end (the plain grid, the plain
+   epilogue, ``_present_topk``): quantiles within rtol 1e-3 with NaN masks
+   equal, topk winner sets equal except at near ties (a series only one
+   side chose lies within rtol 1e-3 of the other side's boundary value).
+   Prints per query the order-statistics kernel's ms (median of 20, and
+   back to back) beside its bound (one read of the [J_pad, S_pad] grid,
+   the outputs written once), the plain version's ms and the library
+   call's (``torch.topk`` over the same grid; ``torch.nanquantile`` over
+   its real steps for a global quantile; none for a grouped one), and the
+   store launch's ms beside the sum aggregate's of the same function and
+   the store's bound (the rung's reads and the grid written once).
+
 Around every timed phase it prints the card's SM and memory clocks,
 temperature and power draw (nvidia-smi), before and after. Prints, in
 order at the end: one JSON object with phases 6 and 6b's numbers
 (``{"cache": ...}``), one with phases 7b-7d's (``{"hist": ...}``), one
-with the kernels' numbers, the card's
+with phase 9's (``{"epilogues": ...}``), one with the kernels' numbers
+(the order-statistics kernels' rows, and the store mode's numbers on the
+rungs' rows), the card's
 name and power limit as nvidia-smi gives them, and the result line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 where no CUDA device is available.
@@ -210,7 +243,8 @@ QUERIES = (
     "sum(rate(http_requests_total[5m]))",
     "sum by (zone) (rate(http_requests_total[5m]))",
 )
-SOURCES = ("window_stats", "regular_range", "hist_range", "general_range")  # csrc/<name>.cu
+SOURCES = ("window_stats", "regular_range", "hist_range", "general_range",
+           "order_stats")  # csrc/<name>.cu
 START_S = (BASE + 400_000) / 1000  # bench.py's range
 END_S = (BASE + N_SAMPLES * 10_000 - 200_000) / 1000
 # bench.py's ingest_impact: the range reaches past the newest sample (the
@@ -301,12 +335,13 @@ def compare_stats(got: dict, want: dict, rtol: float = 2e-4, atol: float = 1e-4)
 
 def build_kernels() -> dict:
     """Build every source and the histogram kernel's two split builds at
-    once (one nvcc each), bind the six entry points, print ptxas's lines
+    once (one nvcc each), bind the eight entry points, print ptxas's lines
     (registers, shared memory, spills) and return the split builds."""
     from filodb_tpu_torch.ops import cuda_build
     from filodb_tpu_torch.ops import general_range as GR
     from filodb_tpu_torch.ops import hist_kernels as HK
     from filodb_tpu_torch.ops import mxu_kernels as MK
+    from filodb_tpu_torch.ops import order_stats as OS
     from filodb_tpu_torch.ops import window_stats as WS
 
     t0 = time.perf_counter()
@@ -314,10 +349,12 @@ def build_kernels() -> dict:
         split = pool.submit(hist_split_libs)
         libs = list(pool.map(cuda_build.build, SOURCES))
         split_libs = split.result()
-    ws_lib, mk_lib, hk_lib, gr_lib = WS._load(), MK._load(), HK._load(), GR._load()
+    ws_lib, mk_lib, hk_lib, gr_lib, os_lib = (WS._load(), MK._load(), HK._load(), GR._load(),
+                                              OS._load())
     entries = [ws_lib.filodb_window_stats, ws_lib.filodb_window_range_aggregate,
                mk_lib.filodb_regular_range, hk_lib.filodb_hist_range_aggregate,
-               hk_lib.filodb_hist_resident, gr_lib.filodb_general_range_aggregate]
+               hk_lib.filodb_hist_resident, gr_lib.filodb_general_range_aggregate,
+               os_lib.filodb_topk_steps, os_lib.filodb_segment_quantile]
     print(f"phase1 built {', '.join(l.name for l in libs)} in {time.perf_counter() - t0:.1f} s; "
           f"entry points {', '.join(e.__name__ for e in entries)}")
     for name in SOURCES:
@@ -639,15 +676,19 @@ KERNEL_COUNTERS = {"window_stats": ("window_stats", "LAUNCHES"),
                    "window_range": ("window_stats", "RANGE_LAUNCHES"),
                    "general_range": ("general_range", "LAUNCHES"),
                    "regular_range": ("mxu_kernels", "LAUNCHES"),
-                   "hist_range": ("hist_kernels", "RANGE_LAUNCHES")}
+                   "hist_range": ("hist_kernels", "RANGE_LAUNCHES"),
+                   "order_stats": ("order_stats", "LAUNCHES")}
 RUNGS = {"mxu": "regular_range", "window_stats": "window_range", "general": "general_range"}
 
 
-def run_main(engine, q: str, want_class: str, rung: str, end_s: float = END_S):
+def run_main(engine, q: str, want_class: str, rung: str, end_s: float = END_S,
+             epilogue: bool = False):
     """One query through the user's entry point, with every launch count
     set to 0 just before and read just after; it must take ``rung`` on a
-    ``want_class`` grid and launch that rung's kernel once and no other.
-    Returns the result, its [G, J] on the host and the end-to-end seconds."""
+    ``want_class`` grid and launch that rung's kernel once and no other
+    (an ``epilogue`` query: the rung's kernel in its store mode and one
+    order-statistics kernel). Returns the result, its rows on the host and
+    the end-to-end seconds."""
     import importlib
 
     from filodb_tpu_torch.ops import aggregations as AGG
@@ -677,8 +718,8 @@ def run_main(engine, q: str, want_class: str, rung: str, end_s: float = END_S):
     kernel = RUNGS[rung]
     require(seen == [(want_class, rung)],
             f"{q}: grid class and rung {seen}, expected {[(want_class, rung)]}")
-    require(counts == {k: int(k == kernel) for k in KERNEL_COUNTERS},
-            f"{q}: launches {counts}, expected one {kernel} launch and no other")
+    want = {k: int(k == kernel or (epilogue and k == "order_stats")) for k in KERNEL_COUNTERS}
+    require(counts == want, f"{q}: launches {counts}, expected {want}")
     return res, vals, wall
 
 
@@ -1460,6 +1501,321 @@ def phase_general_regular(engine, card: str) -> dict:
                             "phase8", card)
     require((out.pop("result") > 0).all(), "changes: positive counts")
     return out
+
+
+# ---- phase 9: the fused epilogues (B9) ----
+
+# (query, rung) on phase 4's irregular store, then on phase 5's regular one
+EPILOGUE_IRREGULAR = (
+    ("topk(5, rate(http_requests_total[5m]))", "window_stats"),
+    ("bottomk(5, irate(http_requests_total[5m]))", "general"),
+    ("quantile(0.99, rate(http_requests_total[5m]))", "window_stats"),
+    ("quantile by (zone) (0.5, stddev_over_time(http_requests_total[5m]))", "general"),
+    ("topk(1000, rate(http_requests_total[5m]))", "window_stats"),
+    ("quantile by (instance) (0.5, rate(http_requests_total[5m]))", "window_stats"),
+)
+EPILOGUE_REGULAR = (
+    ("topk(10, rate(http_requests_total[5m]))", "mxu"),
+    ("quantile by (zone) (0.9, rate(http_requests_total[5m]))", "mxu"),
+)
+ORDER_KERNELS = {"topk_steps": "filodb_tpu/ops/aggregations.py:1904",
+                 "segment_quantile": "filodb_tpu/ops/aggregations.py:1923"}
+
+
+def epilogue_params(ex):
+    from filodb_tpu_torch.ops.kernels import RangeParams
+
+    return RangeParams(ex.start_ms - ex.offset_ms, ex.step_ms, ex.num_steps(), ex.window_ms)
+
+
+def series_plain(entry, ex, rung: str):
+    """The rung's plain per-series grid on the exec node's superblock, in
+    the store mode's layout ([J_pad, S_pad], padded rows and steps NaN)."""
+    from filodb_tpu_torch.ops import aggregations as AGG
+    from filodb_tpu_torch.ops import general_range as GR
+    from filodb_tpu_torch.ops import group_acc as GA
+    from filodb_tpu_torch.ops import mxu_kernels as MK
+    from filodb_tpu_torch.ops import window_stats as WS
+    from filodb_tpu_torch.ops.kernels import pad_steps
+
+    block, params, func = entry.block, epilogue_params(ex), ex.function or "last"
+    flags = {"is_counter": entry.is_counter, "is_delta": entry.is_delta}
+    if rung == "mxu":
+        wm = MK.window_matrices(block, params.start_ms - block.base_ms, params.step_ms,
+                                pad_steps(params.num_steps), params.window_ms)
+        raw = block.raw if block.raw is not None else block.vals
+        sj = MK.mxu_range_plain(func, block.vals, raw, wm, params.window_ms, **flags)
+    elif rung == "window_stats":
+        sj = WS.window_range_series_plain(func, block, params, **flags)
+    else:
+        sj = GR.general_range_series_plain(func, block, params, **flags)
+    return GA.series_grid(sj, AGG.zero_gids(block), 1, params.num_steps)
+
+
+def store_launch(entry, ex, rung: str, op: str, out, cnt):
+    """The rung's kernel alone, in the store mode (``op`` STORE, into
+    ``out``) or as the aggregate ``op`` of one group (into ``out``/``cnt``)."""
+    from filodb_tpu_torch.ops import aggregations as AGG
+    from filodb_tpu_torch.ops import general_range as GR
+    from filodb_tpu_torch.ops import mxu_kernels as MK
+    from filodb_tpu_torch.ops import window_stats as WS
+    from filodb_tpu_torch.ops.kernels import pad_steps
+
+    block, params, func = entry.block, epilogue_params(ex), ex.function or "last"
+    gids = AGG.zero_gids(block)
+    if rung == "mxu":
+        wm = MK.window_matrices(block, params.start_ms - block.base_ms, params.step_ms,
+                                pad_steps(params.num_steps), params.window_ms)
+        raw = block.raw if block.raw is not None else block.vals
+        return lambda: MK._launch(func, op, block.vals, raw, gids, 1, wm, params.num_steps,
+                                  entry.is_counter, entry.is_delta, out, cnt)
+    launch = WS._launch_range if rung == "window_stats" else GR._launch
+    return lambda: launch(func, op, block, gids, 1, params, entry.is_counter, entry.is_delta,
+                          out, cnt)
+
+
+def store_bound_bytes(entry, ex, rung: str) -> int:
+    """The least bytes of a store-mode launch: what the rung reads (as its
+    own bound counts it) and the real series' values at the real steps
+    written once ([J, n] of the [J_pad, S_pad] grid)."""
+    from filodb_tpu_torch.ops import mxu_kernels as MK
+    from filodb_tpu_torch.ops.kernels import pad_steps
+
+    block, J = entry.block, ex.num_steps()
+    n = len(entry.labels)
+    grid = J * n * 4
+    if rung == "mxu":
+        wm = MK.window_matrices(block, ex.start_ms - block.base_ms, ex.step_ms, pad_steps(J),
+                                ex.window_ms)
+        return regular_bound_bytes(wm, n, J, 0, "rate") + grid
+    if rung == "general":
+        return general_bound(entry, ex, 0)["bound_bytes"] + grid
+    return int(block.lens.sum()) * 12 + n * 12 + grid  # ts, vals, raw per sample; lens, gid
+
+
+def topk_sets_equal(got, want, what: str) -> None:
+    """Per step the same series indices with bit-equal values (the order
+    inside the k slots is free)."""
+    import torch
+
+    (gv, gi), (wv, wi) = got, want
+    require(gv.shape == wv.shape, f"{what}: shape {tuple(gv.shape)} != {tuple(wv.shape)}")
+    go, wo = torch.argsort(gi, dim=0), torch.argsort(wi, dim=0)
+    require(torch.equal(torch.gather(gi, 0, go), torch.gather(wi, 0, wo)),
+            f"{what}: the winner sets differ")
+    require(torch.equal(torch.gather(gv, 0, go).view(torch.int32),
+                        torch.gather(wv, 0, wo).view(torch.int32)),
+            f"{what}: the winners' values differ")
+
+
+def quantiles_equal(got, want, grid, members, q: float, what: str) -> int:
+    """NaN masks equal; selected order statistics (a whole rank) bit-equal;
+    interpolated ones within 2 ulp. Returns how many differ at all."""
+    import torch
+
+    require(torch.equal(torch.isnan(got), torch.isnan(want)), f"{what}: NaN masks differ")
+    G = members.num_groups
+    sizes = members.starts[1:].long() - members.starts[:-1].long()
+    gm = torch.repeat_interleave(torch.arange(G, device=grid.device), sizes)
+    present = (~torch.isnan(grid[:, members.perm.long()])).T.to(torch.float32)
+    count = torch.zeros((G, grid.shape[0]), device=grid.device).index_add_(0, gm, present)
+    rank = float(np.float32(min(max(q, 0.0), 1.0))) * torch.clamp(count - 1.0, min=0.0)
+    whole = (rank == torch.floor(rank)) & ~torch.isnan(want)
+    require(torch.equal(got[whole].view(torch.int32), want[whole].view(torch.int32)),
+            f"{what}: a selected order statistic differs")
+    m = ~torch.isnan(want) & torch.isfinite(want)
+    ulps = (got[m].view(torch.int32).long() - want[m].view(torch.int32).long()).abs()
+    require(not bool((ulps > 2).any()), f"{what}: an interpolated quantile is off by more "
+            f"than 2 ulp")
+    return int((ulps > 0).sum())
+
+
+def winners_match(got_labels, got, want_labels, want, bottom: bool, rtol: float,
+                  what: str) -> int:
+    """Presented topk rows against the plain path's: the series both chose
+    agree in value; per step the winning values, sorted, agree; a series
+    only one side chose at a step lies within rtol of the other side's
+    boundary value (a near tie). Returns the near ties."""
+    keys = {}
+    for labels in (got_labels, want_labels):
+        for l in labels:
+            keys.setdefault(tuple(sorted(l.items())), len(keys))
+    require(len({tuple(sorted(l.items())) for l in got_labels}) == len(got_labels),
+            f"{what}: a series presented twice")
+
+    def aligned(labels, vals):
+        out = np.full((len(keys), want.shape[1]), np.nan, np.float32)
+        out[[keys[tuple(sorted(l.items()))] for l in labels]] = vals
+        return out
+
+    g, w = aligned(got_labels, got), aligned(want_labels, want)
+    gh, wh = ~np.isnan(g), ~np.isnan(w)
+    require(np.allclose(g[gh & wh], w[gh & wh], rtol=rtol), f"{what}: a winner's values differ")
+    count = gh.sum(axis=0)
+    require(np.array_equal(count, wh.sum(axis=0)), f"{what}: winner counts differ")
+    gs, ws = np.sort(g, axis=0), np.sort(w, axis=0)  # NaN last
+    ranked = np.arange(len(keys))[:, None] < count[None, :]
+    require(np.allclose(gs[ranked], ws[ranked], rtol=rtol), f"{what}: winning values differ")
+    cols = np.arange(want.shape[1])
+    last = np.maximum(count - 1, 0)
+    g_edge = gs[last, cols] if bottom else gs[0]  # the worst winner of each step
+    w_edge = ws[last, cols] if bottom else ws[0]
+    only_g, only_w = gh & ~wh, wh & ~gh
+    require(np.allclose(g[only_g], w_edge[np.nonzero(only_g)[1]], rtol=rtol)
+            and np.allclose(w[only_w], g_edge[np.nonzero(only_w)[1]], rtol=rtol),
+            f"{what}: a step chose a series away from the boundary")
+    return int(only_g.sum())
+
+
+def run_epilogue_query(engine, q: str, rung: str, grid: str, card: str) -> dict:
+    """One phase-9 query: cold-or-hit then warm through the user's entry
+    point (the rung in its store mode and one order-statistics launch);
+    the store grid, the order statistic and the presented rows against
+    their plain versions; the launches timed."""
+    import torch
+
+    from filodb_tpu_torch.ops import aggregations as AGG
+    from filodb_tpu_torch.ops import group_acc as GA
+    from filodb_tpu_torch.ops import order_stats as OS
+    from filodb_tpu_torch.ops.kernels import pad_steps
+
+    runs = []
+    for attempt in ("first", "second"):
+        res, vals, wall = run_main(engine, q, grid, rung, epilogue=True)
+        st = res.stats
+        outcome = ("build" if st.cache_misses else "extend" if st.cache_extends
+                   else "hit" if st.cache_hits else "none")
+        if attempt == "second":
+            require(outcome == "hit" and st.bytes_staged == 0,
+                    f"{q}: the warm run must be a hit with no staging, stats {st}")
+        runs.append((res, vals, wall, outcome))
+    ex = exec_node(engine, q)
+    entry = ex.superblock(engine.context())
+    block, J, func = entry.block, ex.num_steps(), ex.function or "last"
+    params = epilogue_params(ex)
+    j_pad, s_pad = pad_steps(J), block.vals.shape[0]
+    flags = {"is_counter": entry.is_counter, "is_delta": entry.is_delta}
+    grid_k = AGG.fused_range_series(func, block, params, **flags)
+    grid_p = series_plain(entry, ex, rung)
+    store_err = compare(grid_k[:J], grid_p[:J], f"{q}: store grid vs plain", rtol=1e-3)
+    # the order statistics run over the real steps, as fused_topk/fused_quantile call them
+    n_real, grid_k, grid_p = block.n_series, grid_k[:J], grid_p[:J]
+    strip = ex.function is not None and ex.function not in ("last_over_time", "timestamp")
+    res, vals = runs[0][0], runs[0][1]
+    out = {"rung": rung, "first_run": runs[0][3], "first_ms": runs[0][2] * 1e3,
+           "warm_ms": runs[1][2] * 1e3, "store_max_abs_err": store_err,
+           "rows": len(res.grids[0].labels)}
+    if ex.op in ("topk", "bottomk"):
+        k, bottom = min(max(int(ex.params[0]), 1), s_pad), ex.op == "bottomk"
+        kname = "topk_steps"
+        got_k = OS.topk_steps(grid_k, k, bottom, n_real=n_real)
+        topk_sets_equal(got_k, OS.topk_steps_plain(grid_k, k, bottom), f"{q}: kernel vs plain")
+        out["max_abs_err"] = 0.0  # the sets and their values are bit-equal
+        wv, wi = OS.topk_steps_plain(grid_p, k, bottom)
+        want = ex._present_topk(wv.cpu().numpy(), wi.cpu().numpy(), entry.labels, strip,
+                                J).grids[0]
+        out["near_ties"] = winners_match(res.grids[0].labels, vals, want.labels,
+                                         want.values_np(), bottom, 1e-3, q)
+        require(len(res.grids[0].labels) <= k * J and np.isfinite(vals).any(),
+                f"{q}: {len(res.grids[0].labels)} rows")
+        kernel = lambda: OS.topk_steps(grid_k, k, bottom, n_real=n_real)  # noqa: E731
+        plain = lambda: OS.topk_steps_plain(grid_k, k, bottom)  # noqa: E731
+        library = lambda: torch.topk(grid_k[:, :n_real], k, dim=1)  # noqa: E731
+        library_call = f"torch.topk([J, n_real] of the grid, {k}, dim=1)"
+        out_bytes, G = k * J * 8, 1
+    else:
+        qv, kname = float(ex.params[0]), "segment_quantile"
+        members, G, labels = AGG.group_members_memo(block, entry.labels, ex.by, ex.without,
+                                                    strip_metric=strip)
+        got_q = OS.segment_quantile(grid_k, members, qv)
+        want_q = OS.segment_quantile_plain(grid_k, members, qv)
+        out["interpolated_differing"] = quantiles_equal(got_q, want_q, grid_k, members, qv,
+                                                        f"{q}: kernel vs plain")
+        m = ~torch.isnan(want_q)
+        out["max_abs_err"] = float((got_q[m].double() - want_q[m].double()).abs().max())
+        want = OS.segment_quantile_plain(grid_p, members, qv)
+        out["end_to_end_max_abs_err"] = compare(torch.as_tensor(vals, device=grid_k.device),
+                                                want, f"{q}: end to end vs plain", rtol=1e-3)
+        require(labels == res.grids[0].labels and len(labels) == G, f"{q}: group labels")
+        kernel = lambda: OS.segment_quantile(grid_k, members, qv)  # noqa: E731
+        plain = lambda: OS.segment_quantile_plain(grid_k, members, qv)  # noqa: E731
+        library, library_call = None, "none: no torch call computes a grouped quantile"
+        if G == 1:
+            library = lambda: torch.nanquantile(grid_k[:, :n_real], qv, dim=1)  # noqa: E731
+            library_call = f"torch.nanquantile([J, n_real] of the grid, {qv}, dim=1)"
+        # the output, and the member lists read once: perm, starts, large, small
+        out_bytes = G * J * 4 + members.perm.numel() * 4 + (G + 1) * 4 + G * 4
+    plan = OS.LAST_PLAN
+    buf = GA.series_buffer(s_pad, j_pad, J, block.vals.device)
+    acc, cnt = GA.accumulators("sum", 1, j_pad, block.vals.device)
+    store = store_launch(entry, ex, rung, GA.STORE, buf, buf)
+    agg = store_launch(entry, ex, rung, "sum", acc, cnt)
+    gpu_sample(f"phase9 {q!r} before")
+    out.update({
+        "kernel": kname, "groups": G, "order_plan": str(plan),
+        "kernel_ms": cuda_ms(kernel, reps=20), "kernel_ms_back_to_back": back_to_back_ms(kernel),
+        "store_ms": cuda_ms(store, reps=20), "store_ms_back_to_back": back_to_back_ms(store),
+        "aggregate_ms_back_to_back": back_to_back_ms(agg),
+        "plain_ms": cuda_ms(plain, reps=3, warmup=1),
+        "library_ms": cuda_ms(library, reps=20) if library else None,
+        "library_call": library_call,
+    })
+    gpu_sample(f"phase9 {q!r} after")
+    grid_bytes = J * n_real * 4  # the real series at the real steps, read once
+    out["bound_bytes"] = grid_bytes + out_bytes
+    out["bound_ms"] = out["bound_bytes"] / HBM_BYTES_PER_S * 1e3
+    out["store_bound_bytes"] = store_bound_bytes(entry, ex, rung)
+    out["store_bound_ms"] = out["store_bound_bytes"] / HBM_BYTES_PER_S * 1e3
+    lib = (f"{out['library_ms']:.4f} ms ({library_call})" if library else library_call)
+    print(f"phase9 query {q!r}: rung {rung} in store mode + {kname}; first run "
+          f"({out['first_run']}) {out['first_ms']:.1f} ms, warm (hit) {out['warm_ms']:.1f} ms "
+          f"end to end, 2 launches each; {out['rows']} rows x {J} steps; store grid "
+          f"[{j_pad}, {s_pad}] matches the plain rung (max_abs_err {store_err:.3g}, rtol 1e-3); "
+          f"{kname} equals its plain version on the same grid and the presented result the "
+          f"plain path's; {kname} {out['kernel_ms']:.4f} ms (median of 20; "
+          f"{out['kernel_ms_back_to_back']:.4f} back to back; {plan}), bound "
+          f"{out['bound_ms']:.4f} ms ({out['bound_bytes']} bytes), plain {out['plain_ms']:.3f} "
+          f"ms, library {lib}; store launch {out['store_ms']:.4f} ms "
+          f"({out['store_ms_back_to_back']:.4f} back to back; the sum aggregate of one group "
+          f"{out['aggregate_ms_back_to_back']:.4f}), store bound {out['store_bound_ms']:.4f} ms "
+          f"({out['store_bound_bytes']} bytes) on {card}")
+    return out
+
+
+def phase_epilogues(engine, card: str, queries, grid: str) -> dict:
+    """Phase 9 on one store: each epilogue query (``run_epilogue_query``)."""
+    return {q: run_epilogue_query(engine, q, rung, grid, card) for q, rung in queries}
+
+
+def epilogue_rows(per_query: dict, store_rows: dict) -> list:
+    """The kernels line's rows of the two order-statistics kernels (their
+    numbers from the first query of each), and the store mode's numbers
+    added to the rung rows in ``store_rows`` (rung -> row)."""
+    rows = []
+    for name, replaces in ORDER_KERNELS.items():
+        mine = {q: v for q, v in per_query.items() if v["kernel"] == name}
+        first = next(iter(mine.values()))
+        rows.append({
+            "name": name, "route": "cuda", "source": "filodb_tpu_torch/csrc/order_stats.cu",
+            "replaces": replaces, "launches": 2 * len(mine),
+            "max_abs_err": max(v["max_abs_err"] for v in mine.values()),
+            "ms": first["kernel_ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": "bytes",
+            "library_ms": first["library_ms"], "library_call": first["library_call"],
+            "ms_back_to_back": first["kernel_ms_back_to_back"],
+            "ms_is": next(iter(mine)) + ", phase 9", "queries": mine,
+        })
+    for rung, row in store_rows.items():
+        mine = {q: v for q, v in per_query.items() if v["rung"] == rung}
+        first = next(iter(mine.values()))
+        row["launches"] += 2 * len(mine)
+        row["store_launches"] = 2 * len(mine)
+        row.update({"store_ms": first["store_ms"],
+                    "store_ms_back_to_back": first["store_ms_back_to_back"],
+                    "store_aggregate_ms_back_to_back": first["aggregate_ms_back_to_back"],
+                    "store_bound_ms": first["store_bound_ms"],
+                    "store_ms_is": next(iter(mine)) + ", phase 9"})
+    return rows
 
 
 HIST_QUERY = "histogram_quantile(0.99, sum by (le) (rate(http_request_latency_bucket[5m])))"
@@ -2272,6 +2628,7 @@ def main() -> int:
     gpu_sample("phase3 after")
     wr_row, ws_row, engine, rate_result = phase_irregular_path(args.seed, device)
     general = phase_general_path(engine, card, rate_result)
+    epilogues = phase_epilogues(engine, card, EPILOGUE_IRREGULAR, "irregular")
     del engine
     gc.collect()  # the irregular store goes before the regular one is built
     torch.cuda.empty_cache()
@@ -2280,6 +2637,7 @@ def main() -> int:
                            min_batches=4, seed=args.seed)
     reg_row["launches"] += live["launches"]
     general_regular = phase_general_regular(engine, card)
+    epilogues.update(phase_epilogues(engine, card, EPILOGUE_REGULAR, "regular"))
     del engine
     gc.collect()  # the regular store goes before the jittered one is built
     torch.cuda.empty_cache()
@@ -2370,7 +2728,11 @@ def main() -> int:
     }
     print(json.dumps({"cache": {"phase6": live, "phase6b": live_jit}}))
     print(json.dumps({"hist": {"phase7b": bench_hist, "phase7c": irr_hist, "phase7d": card_hist}}))
-    print(json.dumps({"kernels": [ws_row, wr_row, general_row, reg_row, *hist_rows]}))
+    order_rows = epilogue_rows(epilogues, {"window_stats": wr_row, "general": general_row,
+                                           "mxu": reg_row})
+    print(json.dumps({"epilogues": {"phase9": epilogues}}))
+    print(json.dumps({"kernels": [ws_row, wr_row, general_row, reg_row, *hist_rows,
+                                  *order_rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

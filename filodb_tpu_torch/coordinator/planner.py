@@ -5,9 +5,13 @@ The port plans one shape: ``op by (...) (func(selector[w] [offset d]))``
 (or over a bare selector) with ``op`` in sum/count/avg/min/max and
 ``func`` in the JAX package's fused set ``FUSED_FUNCS``, which becomes a
 ``FusedAggregateExec``, and ``histogram_quantile(q, sum ... (...))`` of it,
-whose interpolation fuses into the same node. As in the JAX package's
-fused planner, ``@`` and range-function arguments stay off it. Every other
-plan raises ``NotImplementedError`` naming the missing piece.
+whose interpolation fuses into the same node; and the fused epilogues
+(``FUSED_EPI_OPS``): global ``topk``/``bottomk(k, ...)`` and ``quantile
+[by (...)] (q, ...)``. As in the JAX package's fused planner, ``@``,
+range-function arguments, grouped topk/bottomk and epilogue parameters
+other than one number stay off it (the JAX package runs them on its
+reference tree, ROADMAP A4). Every other plan raises
+``NotImplementedError`` naming the missing piece.
 """
 
 from __future__ import annotations
@@ -21,7 +25,8 @@ import torch
 from ..core.schemas import DatasetOptions, METRIC_TAG, PROM_METRIC_TAG, shard_group, shardkey_hash
 from ..memstore.index import _LITERAL_ALT
 from ..query import logical as L
-from ..query.exec.plans import FUSED_AGG_OPS, ExecPlan, FusedAggregateExec, QueryContext
+from ..query.exec.plans import (FUSED_AGG_OPS, FUSED_EPI_OPS, ExecPlan, FusedAggregateExec,
+                                QueryContext)
 from ..query.promql import query_range_to_logical_plan, query_to_logical_plan
 
 # the range functions of the fused path, the JAX package's set
@@ -140,29 +145,37 @@ class SingleClusterPlanner:
         fuses ``histogram_quantile(q, ...)`` on top (native histograms)."""
         if not self.params.fused_aggregate:
             raise NotImplementedError("the reference scatter tree (fused_aggregate=False) is not ported")
-        if p.op not in FUSED_AGG_OPS:
+        tree = "the JAX package's reference tree (ROADMAP A4), which is not ported"
+        if p.op in FUSED_AGG_OPS:
+            if p.params:
+                raise NotImplementedError(f"aggregation parameters {p.params!r} are not ported")
+        elif p.op in FUSED_EPI_OPS:
+            if len(p.params) != 1 or not isinstance(p.params[0], (int, float)):
+                raise NotImplementedError(
+                    f"{p.op} with parameters {p.params!r} runs on {tree}")
+            if p.op in ("topk", "bottomk") and (p.by or p.without):
+                raise NotImplementedError(f"grouped {p.op} runs on {tree}")
+        else:
             raise NotImplementedError(f"aggregation {p.op!r} is not ported")
-        if p.params:
-            raise NotImplementedError(f"aggregation parameters {p.params!r} are not ported")
         inner = p.inner
         if isinstance(inner, L.PeriodicSeriesWithWindowing):
             if inner.function not in FUSED_FUNCS:
                 raise NotImplementedError(f"range function {inner.function!r} is not ported")
             if inner.function_args:
-                raise NotImplementedError("range-function arguments are not ported")
+                raise NotImplementedError(f"range-function arguments run on {tree}")
             func, window = inner.function, inner.window_ms
         elif isinstance(inner, L.PeriodicSeries):
             func, window = None, inner.lookback_ms
         else:
             raise NotImplementedError(f"aggregation over {type(inner).__name__} is not ported")
         if inner.at_ms is not None:
-            raise NotImplementedError("the @ modifier is not ported")
+            raise NotImplementedError(f"the @ modifier runs on {tree}")
         return FusedAggregateExec(
             self.shards_for(inner.raw.filters), inner.raw.filters,
             inner.raw.start_ms, inner.raw.end_ms, inner.raw.column,
             p.op, p.by, p.without, func,
             inner.start_ms, inner.end_ms, inner.step_ms or 1, window,
-            inner.offset_ms, hist_quantile=hist_quantile,
+            inner.offset_ms, hist_quantile=hist_quantile, params=tuple(p.params),
         )
 
 

@@ -41,6 +41,11 @@
 //    atomics; when the warp's row changes group, and at its end, the run
 //    folds into the block's shared [G, steps] partials (global atomics when
 //    those exceed the wrapper's budget), flushed once per block.
+//    Store mode (acc_op ACC_STORE, the variant STORE: the fused epilogues
+//    topk/bottomk/quantile): the lane writes each of its steps' values,
+//    NaN included, straight to the step-major [J_pad, S] grid `acc`
+//    (group_acc.cuh Store; rows of the trash group as NaN) and keeps no
+//    run: no flush, no shared partials, and no [steps] acc/cnt per warp.
 // On an H100 at the main path's shape (tile_sweep.py --general) one lane
 // per window beat teams of 2-32 lanes that stride a window and reduce it
 // by __shfl_xor_sync (each window's fixed work and its shuffle chain are
@@ -124,16 +129,22 @@ constexpr int Q = 4;  // steps whose window searches one lane runs in lockstep
 
 __host__ __device__ __forceinline__ int64_t round4(int64_t x) { return (x + 3) & ~(int64_t)3; }
 
+// [steps] arrays per warp: its row's lo/hi table, and its acc/cnt run
+// unless it stores
+__host__ __device__ __forceinline__ int warp_tables(bool store) { return store ? 2 : 4; }
+
 // Words of dynamic shared memory (ops/general_range.general_smem_bytes
 // mirrors it): the block's [G, steps] acc/cnt partials (shared), its
-// [steps] lo/hi table (shared bounds), and per warp its [steps] acc/cnt
-// run, its row's [steps] lo/hi table and its staging buffer.
+// [steps] lo/hi table (shared bounds), and per warp its row's [steps]
+// lo/hi table, its [steps] acc/cnt run (not in store mode) and its
+// staging buffer.
 __host__ __device__ __forceinline__ int64_t smem_words(int G, int steps, int warps, int T,
                                                        int n_arrays, bool shared,
-                                                       bool shared_bounds) {
+                                                       bool shared_bounds, bool store) {
     const int64_t part = shared ? round4((int64_t)2 * G * steps) : 0;
     const int64_t sb = shared_bounds ? 2 * round4(steps) : 0;
-    return part + sb + (int64_t)warps * (4 * round4(steps) + (int64_t)n_arrays * T);
+    return part + sb +
+           (int64_t)warps * (warp_tables(store) * round4(steps) + (int64_t)n_arrays * T);
 }
 
 // the pair flag of sample k >= 1: a diff-staged value != 0 (changes) or
@@ -333,7 +344,7 @@ __device__ __forceinline__ void wait_all() {
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-template <int KIND, bool STAGED, bool SHARED>
+template <int KIND, bool STAGED, bool SHARED, bool STORE>
 __global__ void __launch_bounds__(MAX_WARPS * 32, MIN_BLOCKS)
     general_range_kernel(const GenArgs a) {
     extern __shared__ __align__(16) float smem[];
@@ -347,14 +358,16 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, MIN_BLOCKS)
     const int64_t nsb = a.shared_bounds ? round4(W) : 0;
     int* sb_lo = reinterpret_cast<int*>(smem + part);
     int* sb_hi = sb_lo + nsb;
-    float* runs = reinterpret_cast<float*>(sb_hi + nsb);
-    float* run_acc = runs + (int64_t)warp * 4 * round4(W);  // this warp's [steps] run
-    float* run_cnt = run_acc + round4(W);
-    int* tb_lo = reinterpret_cast<int*>(run_cnt + round4(W));  // this warp's row bounds
+    float* tables = reinterpret_cast<float*>(sb_hi + nsb);
+    const int64_t per_warp = (int64_t)warp_tables(STORE) * round4(W);
+    int* tb_lo = reinterpret_cast<int*>(tables + warp * per_warp);  // this warp's row bounds
     int* tb_hi = tb_lo + round4(W);
+    float* run_acc = reinterpret_cast<float*>(tb_hi + round4(W));  // its [steps] run
+    float* run_cnt = run_acc + round4(W);
     const int narr = a.n_arrays;
     const int64_t buf_words = (int64_t)narr * T;
-    float* stage = runs + (int64_t)a.warps * 4 * round4(W) + (int64_t)warp * buf_words;
+    float* stage = tables + a.warps * per_warp + (int64_t)warp * buf_words;
+    const group_acc::Store store{a.acc, a.S};
     const float ident = group_acc::identity(a.acc_op);
     auto t_of = [&](int j) { return wrap_add(a.start, wrap_mul(j, a.step)); };
     auto gid_of = [&](int64_t s) {  // -1 for the trash group G (padding) or no group
@@ -374,10 +387,11 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, MIN_BLOCKS)
             sb_lo[jl] = lower_edge(rt0, hi, wrap_add(t_j, -a.window));
         }
     }
-    for (int jl = lane; jl < W; jl += 32) {
-        run_acc[jl] = ident;
-        run_cnt[jl] = 0.0f;
-    }
+    if (!STORE)
+        for (int jl = lane; jl < W; jl += 32) {
+            run_acc[jl] = ident;
+            run_cnt[jl] = 0.0f;
+        }
     __syncthreads();  // the block's partials and bounds table are set
 
     // fold the warp's run into group g (the block's partials, or global)
@@ -419,7 +433,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, MIN_BLOCKS)
                 wait_all();
                 __syncwarp();
             }
-            if (g != g_run) {
+            if (!STORE && g != g_run) {
                 if (g_run >= 0) flush(g_run);
                 g_run = g;
             }
@@ -465,24 +479,30 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, MIN_BLOCKS)
                     v = pair_value<KIND>(rt, rvc, lo, hi, a);
                 else if (hi > lo)
                     v = window_value<KIND>(a, rt, rvc, rr, lo, hi, t_of(j0 + jl));
+                if (STORE) {
+                    store.put(s, j0 + jl, v);
+                    continue;
+                }
                 if (!isnan(v)) {
                     run_acc[jl] = combine(a.acc_op, run_acc[jl], v);
                     run_cnt[jl] += 1.0f;
                 }
             }
+        } else if (STORE) {  // a row of the trash group
+            for (int jl = lane; jl < ns; jl += 32) store.put(s, j0 + jl, group_acc::nan_f());
         }
         __syncwarp();  // before the next row refills the buffer and the bounds table
     }
-    if (g_run >= 0) flush(g_run);
+    if (!STORE && g_run >= 0) flush(g_run);
     if (SHARED) {  // the block's [G, steps] partials are columns j0 .. of the global arrays
         __syncthreads();
         group_acc::shared_flush(acc_s, cnt_s, a.G, W, a.acc + j0, a.cnt + j0, a.ld, a.acc_op);
     }
 }
 
-template <int KIND, bool STAGED, bool SHARED>
+template <int KIND, bool STAGED, bool SHARED, bool STORE = false>
 int launch(const GenArgs& a, int smem, int slices, cudaStream_t stream) {
-    auto kern = general_range_kernel<KIND, STAGED, SHARED>;
+    auto kern = general_range_kernel<KIND, STAGED, SHARED, STORE>;
     const int threads = 32 * a.warps;
     int resident = 0;  // also raises the kernel's shared-memory allowance to smem
     const cudaError_t err = row_tiles::persistent_grid(kern, smem, 1 << 30, &resident, threads);
@@ -495,6 +515,9 @@ int launch(const GenArgs& a, int smem, int slices, cudaStream_t stream) {
 
 template <int KIND>
 int launch_kind(const GenArgs& a, int shared, int smem, int slices, cudaStream_t st) {
+    if (a.acc_op == group_acc::ACC_STORE)
+        return a.n_arrays > 0 ? launch<KIND, true, false, true>(a, smem, slices, st)
+                              : launch<KIND, false, false, true>(a, smem, slices, st);
     if (a.n_arrays > 0)
         return shared ? launch<KIND, true, true>(a, smem, slices, st)
                       : launch<KIND, true, false>(a, smem, slices, st);
@@ -524,8 +547,10 @@ int kind_of(int func) {
 // steps per slice (ceil(J / steps) slices), `shared` [G, steps] partials
 // in shared memory, `shared_bounds` (every real row holds the samples of
 // row 0) and `smem_bytes` of dynamic shared memory, checked here, as is that the
-// staged arrays hold what the function reads. Launches on `stream` and
-// returns a cudaError_t (0 on success); it does not synchronise.
+// staged arrays hold what the function reads. acc_op ACC_STORE is the
+// store mode: acc is the [ld, S] grid, cnt is not read, `shared` must be
+// 0. Launches on `stream` and returns a cudaError_t (0 on success); it
+// does not synchronise.
 extern "C" int filodb_general_range_aggregate(
     const void* ts, const void* vals, const void* raw, const void* lens, const void* gids,
     int S, int T, int J, int ld, int G, int start, int step, int window, int func,
@@ -538,11 +563,12 @@ extern "C" int filodb_general_range_aggregate(
     // changes/resets of a gauge or delta counter compare raw neighbours
     const int reads = kind == K_PAIRS && !diff_flags && raw != vals ? 3 : 2;  // ts, vals, raw
     const int slices = steps > 0 ? (J + steps - 1) / steps : 0;
+    const bool store = acc_op == group_acc::ACC_STORE;
     if (kind < 0 || warps < 1 || warps > MAX_WARPS || steps < 1 ||
-        slices > 65535 || ld < J ||
+        slices > 65535 || ld < J || (store && shared) ||
         (n_arrays != 0 && (n_arrays < reads || n_arrays > 3 || T % 4 != 0)) ||
         (int64_t)smem_bytes !=
-            4 * smem_words(G, steps, warps, T, n_arrays, shared, shared_bounds))
+            4 * smem_words(G, steps, warps, T, n_arrays, shared, shared_bounds, store))
         return (int)cudaErrorInvalidValue;
     GenArgs a{(const int32_t*)ts, (const float*)vals, (const float*)raw, (const int32_t*)lens,
               (const long long*)gids, S, T, J, ld, G, (int32_t)start, (int32_t)step,

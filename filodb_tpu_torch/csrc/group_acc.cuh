@@ -24,6 +24,16 @@
 // min/max use ordered-int atomics: a float with its sign bit clear orders
 // as a signed int, one with it set orders reversed as an unsigned int.
 // They work on shared and global addresses alike.
+//
+// A third mode, the store (code ACC_STORE), serves the fused epilogues
+// (topk/bottomk/quantile): an order statistic across series needs every
+// series' value, so each (row s, step j) value is written once, NaN
+// included, to a step-major [J_pad, S_pad] grid at j * S_pad + s, and a
+// row of the trash group is written as NaN (the JAX package's n_real
+// mask). No atomics, no cnt array and no shared partials: Store::put is
+// one plain 4-byte store. A step's column across series is then contiguous
+// for the order-statistics kernels (order_stats.cu); the rungs' stores
+// scatter instead (neighbouring lanes take neighbouring steps of a row).
 
 #pragma once
 
@@ -34,7 +44,7 @@
 namespace group_acc {
 
 // group accumulators (ops/group_acc.py ACC_CODES)
-enum Acc { ACC_ADD = 0, ACC_MIN, ACC_MAX };
+enum Acc { ACC_ADD = 0, ACC_MIN, ACC_MAX, ACC_STORE };
 
 __device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
@@ -76,6 +86,17 @@ struct Sink {
     __device__ __forceinline__ void add(int64_t g, int j, float v) const {
         const int64_t i = g * ld + j;
         fold(acc + i, cnt + i, acc_op, v, 1.0f);
+    }
+};
+
+// The store mode's grid: value v of (row s, step j) at out[j * ld + s],
+// ld = S_pad (the rows of the launch).
+struct Store {
+    float* out;
+    int64_t ld;
+
+    __device__ __forceinline__ void put(int64_t s, int j, float v) const {
+        out[(int64_t)j * ld + s] = v;
     }
 };
 

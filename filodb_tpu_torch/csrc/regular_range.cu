@@ -13,6 +13,11 @@
 // ld) are not computed. The [G, J] finish (has = cnt > 0, the avg
 // division, NaN for empty groups) is a few torch ops in the wrapper.
 //
+// Store mode (acc_op ACC_STORE, the compile-time variant STORE: the fused
+// epilogues topk/bottomk/quantile): each (row, step < J) value is written
+// once, NaN included, to the step-major [J_pad, S] grid `acc` instead
+// (group_acc.cuh Store; rows of the trash group as NaN); no partials.
+//
 // Design. The TPU gathers with one-hot matmuls (vals @ F, vals @ L) and
 // sums windows with vals @ W. Here a load at lo[j], hi[j]-1 or hi[j]-2 is
 // the gather and a loop over [lo[j], hi[j]) the window sum, taken in index
@@ -179,7 +184,7 @@ __device__ __forceinline__ float step_value(const RegularArgs& a, const float* r
     return dv / fmaxf(dt_s, 1e-30f);
 }
 
-template <bool SHARED>
+template <bool SHARED, bool STORE>
 __global__ void __launch_bounds__(THREADS) regular_range_kernel(const RegularArgs a) {
     extern __shared__ __align__(16) float smem[];
     const int part = SHARED ? a.G * a.J : 0;
@@ -188,6 +193,7 @@ __global__ void __launch_bounds__(THREADS) regular_range_kernel(const RegularArg
     const int R = a.R;
     const group_acc::Sink sink = SHARED ? group_acc::Sink{acc_s, cnt_s, a.J, a.acc_op}
                                         : group_acc::Sink{a.acc, a.cnt, a.ld, a.acc_op};
+    const group_acc::Store store{a.acc, a.S};
     if (SHARED) {
         group_acc::shared_init(acc_s, cnt_s, part, a.acc_op);
         __syncthreads();
@@ -197,9 +203,13 @@ __global__ void __launch_bounds__(THREADS) regular_range_kernel(const RegularArg
         row_tiles::for_each_pair(min(R, a.S - (int)s0), a.J, [&](int r, int j) {
             const int64_t s = s0 + r;
             const long long g = __ldg(a.gids + s);
-            if (g < 0 || g >= a.G) return;  // trash group G (padding) or no group
+            if (g < 0 || g >= a.G) {  // trash group G (padding) or no group
+                if (STORE) store.put(s, j, group_acc::nan_f());
+                return;
+            }
             const float v = step_value(a, a.vals + s * a.T, a.raw + s * a.T, j);
-            if (!isnan(v)) sink.add(g, j, v);
+            if (STORE) store.put(s, j, v);
+            else if (!isnan(v)) sink.add(g, j, v);
         });
     });
     if (SHARED) {
@@ -208,9 +218,9 @@ __global__ void __launch_bounds__(THREADS) regular_range_kernel(const RegularArg
     }
 }
 
-template <bool SHARED>
+template <bool SHARED, bool STORE = false>
 int launch(const RegularArgs& a, int smem, cudaStream_t stream) {
-    auto kern = regular_range_kernel<SHARED>;
+    auto kern = regular_range_kernel<SHARED, STORE>;
     int grid = 0;
     const cudaError_t err = row_tiles::persistent_grid(kern, smem, (a.S + a.R - 1) / a.R, &grid);
     if (err != cudaSuccess) return (int)err;
@@ -224,8 +234,10 @@ int launch(const RegularArgs& a, int smem, cudaStream_t stream) {
 // identity (0, +inf or -inf) and cnt [G+1, ld] zeros; steps [0, J) are
 // computed. `rows` rows per tile; `shared` keeps the group partials in
 // shared memory; `smem_bytes` is the dynamic shared memory the wrapper
-// sized for them (checked here). Launches on `stream` and returns a
-// cudaError_t (0 on success); it does not synchronise.
+// sized for them (checked here). acc_op ACC_STORE is the store mode: acc
+// is the [ld, S] grid, cnt is not read, `shared` must be 0. Launches on
+// `stream` and returns a cudaError_t (0 on success); it does not
+// synchronise.
 extern "C" int filodb_regular_range(
     const void* vals, const void* raw, const void* gids, const void* lo,
     const void* hi, const void* idx, const void* count, const void* t_first, const void* t_last,
@@ -240,7 +252,9 @@ extern "C" int filodb_regular_range(
                   window_ms, func, acc_op, is_counter, is_delta, rows, (float*)acc,
                   (float*)cnt};
     const int64_t part = shared ? (((int64_t)2 * G * J + 3) & ~3) * 4 : 0;
-    if (rows < 1 || smem_bytes < part) return (int)cudaErrorInvalidValue;
+    const bool store = acc_op == group_acc::ACC_STORE;
+    if (rows < 1 || smem_bytes < part || (store && shared)) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
+    if (store) return launch<false, true>(a, smem_bytes, st);
     return shared ? launch<true>(a, smem_bytes, st) : launch<false>(a, smem_bytes, st);
 }

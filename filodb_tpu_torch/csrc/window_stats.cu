@@ -35,6 +35,10 @@
 // launch stages (n_arrays; the entry refuses too few for the function);
 // rows wider than the shared-memory budget are read in place from device
 // memory (n_arrays = 0, STAGED = false), the same code on other pointers.
+// Store mode (acc_op ACC_STORE, the variant STORE: the fused epilogues
+// topk/bottomk/quantile) writes each (row, step < J) value once, NaN
+// included, to the step-major [J_pad, S] grid `acc` instead
+// (group_acc.cuh Store; rows of the trash group as NaN); no partials.
 //
 // Bound of window_range_kernel: device-memory bytes -- each real sample's
 // ts, value and raw value read once, lens and gids, the [G, J] outputs --
@@ -248,7 +252,7 @@ __device__ __forceinline__ float window_value(const RangeArgs& a, const int32_t*
     return a.func == W_RATE ? res / (wf * 1e-3f) : res;
 }
 
-template <int KIND, bool STAGED, bool SHARED>
+template <int KIND, bool STAGED, bool SHARED, bool STORE>
 __global__ void __launch_bounds__(THREADS) window_range_kernel(const RangeArgs a) {
     extern __shared__ __align__(16) float smem[];
     const int part = SHARED ? a.G * a.J : 0;
@@ -260,6 +264,7 @@ __global__ void __launch_bounds__(THREADS) window_range_kernel(const RangeArgs a
     const int64_t buf_words = (int64_t)narr * R * T;
     const group_acc::Sink sink = SHARED ? group_acc::Sink{acc_s, cnt_s, a.J, a.acc_op}
                                         : group_acc::Sink{a.acc, a.cnt, a.ld, a.acc_op};
+    const group_acc::Store store{a.acc, a.S};
     if (SHARED) {
         group_acc::shared_init(acc_s, cnt_s, part, a.acc_op);
         __syncthreads();
@@ -279,8 +284,15 @@ __global__ void __launch_bounds__(THREADS) window_range_kernel(const RangeArgs a
         const float* buf = stage + b * buf_words;
         row_tiles::for_each_pair(min(R, a.S - (int)s0), a.J, [&](int r, int j) {
             const int64_t s = s0 + r;
+            // nvcc 12.8 (sm_90a) compiles the store variants' min(R, S - s0)
+            // without its negation, so a partial last tile ran all R rows
+            // and wrote past the grid's rows; the bound is checked again
+            if (STORE && s >= a.S) return;
             const long long g = __ldg(a.gids + s);
-            if (g < 0 || g >= a.G) return;  // trash group G (padding) or no group
+            if (g < 0 || g >= a.G) {  // trash group G (padding) or no group
+                if (STORE) store.put(s, j, group_acc::nan_f());
+                return;
+            }
             const int n = min(max(__ldg(a.lens + s), 0), T);
             const int32_t* rt;
             const float* rv;
@@ -295,7 +307,8 @@ __global__ void __launch_bounds__(THREADS) window_range_kernel(const RangeArgs a
                 rr = a.raw + s * T;
             }
             const float v = window_value<KIND>(a, rt, rv, rr, n, j);
-            if (!isnan(v)) sink.add(g, j, v);
+            if (STORE) store.put(s, j, v);
+            else if (!isnan(v)) sink.add(g, j, v);
         });
     });
     if (SHARED) {
@@ -304,9 +317,9 @@ __global__ void __launch_bounds__(THREADS) window_range_kernel(const RangeArgs a
     }
 }
 
-template <int KIND, bool STAGED, bool SHARED>
+template <int KIND, bool STAGED, bool SHARED, bool STORE = false>
 int launch_range(const RangeArgs& a, int smem, cudaStream_t stream) {
-    auto kern = window_range_kernel<KIND, STAGED, SHARED>;
+    auto kern = window_range_kernel<KIND, STAGED, SHARED, STORE>;
     int grid = 0;
     const cudaError_t err = row_tiles::persistent_grid(kern, smem, (a.S + a.R - 1) / a.R, &grid);
     if (err != cudaSuccess) return (int)err;
@@ -316,6 +329,9 @@ int launch_range(const RangeArgs& a, int smem, cudaStream_t stream) {
 
 template <int KIND>
 int launch_kind(const RangeArgs& a, int shared, int smem, cudaStream_t st) {
+    if (a.acc_op == group_acc::ACC_STORE)
+        return a.n_arrays > 0 ? launch_range<KIND, true, false, true>(a, smem, st)
+                              : launch_range<KIND, false, false, true>(a, smem, st);
     if (a.n_arrays > 0)
         return shared ? launch_range<KIND, true, true>(a, smem, st)
                       : launch_range<KIND, true, false>(a, smem, st);
@@ -348,8 +364,9 @@ int kind_of(int func, int is_delta) {
 // shared memory, 0 reads rows in place; `shared` keeps the group partials
 // there; `smem_bytes` is the dynamic shared memory the wrapper sized for
 // them (checked here, as is that the staged arrays hold what the function
-// reads). Launches on `stream` and returns a cudaError_t (0 on success);
-// it does not synchronise.
+// reads). acc_op ACC_STORE is the store mode: acc is the [ld, S] grid, cnt
+// is not read, `shared` must be 0. Launches on `stream` and returns a
+// cudaError_t (0 on success); it does not synchronise.
 extern "C" int filodb_window_range_aggregate(
     const void* ts, const void* vals, const void* raw, const void* lens, const void* gids,
     int S, int T, int J, int ld, int G, int start, int step, int window, int func,
@@ -366,7 +383,8 @@ extern "C" int filodb_window_range_aggregate(
     const int64_t part = shared ? (((int64_t)2 * G * J + 3) & ~3) * 4 : 0;
     const int64_t need = part + (int64_t)2 * rows * T * 4 * n_arrays;
     if (kind < 0 || rows < 1 || T % 4 != 0 || n_arrays > 3 ||
-        (n_arrays != 0 && n_arrays < reads) || smem_bytes < need)
+        (n_arrays != 0 && n_arrays < reads) || smem_bytes < need ||
+        (acc_op == group_acc::ACC_STORE && shared))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     switch (kind) {

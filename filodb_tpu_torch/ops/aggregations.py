@@ -9,6 +9,12 @@ sliced off. On the card every rung of ``fused_range_aggregate`` reduces
 inside its kernel; the segment reduce here is the plain versions'
 epilogue. ``fused_hist_range_aggregate`` is the histogram counterpart: a
 per-bucket sum to ``[G, J, B]``, or the ``[G, J]`` quantile.
+
+The fused epilogues (B9) ``topk``/``bottomk`` (global) and ``quantile by
+(...)`` need every series' value: ``fused_range_series`` runs the rung in
+its store mode to the step-major ``[J_pad, S_pad]`` grid, and
+``fused_topk`` / ``fused_quantile`` reduce it with one order-statistics
+launch (``order_stats``): two launches a query.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from . import general_range as GR
 from . import group_acc as GA
 from . import hist_kernels as HK
 from . import mxu_kernels as MK
+from . import order_stats as OS
 from . import window_stats as WS
 from .kernels import pad_steps
 from .staging import grid_class
@@ -100,6 +107,62 @@ def fused_range_aggregate(func: str, op: str, block, gids_padded: torch.Tensor,
             "general": GR.general_range_aggregate}[variant]
     return rung(func, op, block, gids_padded, num_groups, params, is_counter=is_counter,
                 is_delta=is_delta)
+
+
+def fused_range_series(func: str, block, params, is_counter: bool = False,
+                       is_delta: bool = False, obs: dict | None = None) -> torch.Tensor:
+    """``func(selector[w])`` of every series of a staged (super)block on
+    the rung ``grid_variant`` picks (written to ``obs["variant"]``), in its
+    store mode: one launch that writes the step-major [J_pad, S_pad] grid
+    on the device, the padded rows (``zero_gids``) and the steps past
+    ``params.num_steps`` NaN."""
+    variant = grid_variant(block, func, is_delta)
+    if obs is not None:
+        obs["variant"] = variant
+    rung = {"mxu": MK.regular_range_series, "window_stats": WS.window_range_series,
+            "general": GR.general_range_series}[variant]
+    return rung(func, block, zero_gids(block), 1, params, is_counter=is_counter,
+                is_delta=is_delta)
+
+
+def zero_gids(block) -> torch.Tensor:
+    """The global grouping of a block under the trash-group contract: int64
+    [S_padded] on the block's device, 0 for the real rows and 1 (the trash
+    group of one group) for the padded ones, which the store mode writes
+    as NaN (the JAX package's zero gids with its ``n_real`` mask).
+    Memoized on the block."""
+    s_pad = block.lens.shape[0]
+
+    def build():
+        gids = np.ones(s_pad, dtype=np.int64)
+        gids[: block.n_series] = 0
+        return torch.from_numpy(gids).to(block.lens.device)
+
+    return memo_on(block, "zero_gids_memo", s_pad, build)
+
+
+def fused_topk(func: str, block, k: int, bottom: bool, params, is_counter: bool = False,
+               is_delta: bool = False, obs: dict | None = None):
+    """Global ``topk(k, func(selector[w]))`` (``bottomk`` with
+    ``bottom``): the rung's store mode, then one ``order_stats.topk_steps``
+    launch over the real steps and series. Returns ([k, J] values, [k, J]
+    int32 series indices) on the device, J = ``params.num_steps``, k
+    capped at S_pad; only O(k J) reaches the host."""
+    grid = fused_range_series(func, block, params, is_counter=is_counter, is_delta=is_delta,
+                              obs=obs)
+    return OS.topk_steps(grid[: params.num_steps], k, bottom, n_real=block.n_series)
+
+
+def fused_quantile(func: str, block, members, q: float, params, is_counter: bool = False,
+                   is_delta: bool = False, obs: dict | None = None) -> torch.Tensor:
+    """``quantile(q, func(selector[w])) by (...)`` over the grouping whose
+    member lists are ``members`` (``order_stats.Members``, e.g.
+    ``group_members_memo``'s): the rung's store mode, then one
+    ``order_stats.segment_quantile`` launch over the real steps. Returns
+    [G, J] on the device, J = ``params.num_steps``."""
+    grid = fused_range_series(func, block, params, is_counter=is_counter, is_delta=is_delta,
+                              obs=obs)
+    return OS.segment_quantile(grid[: params.num_steps], members, q)
 
 
 def hist_variant(block) -> str:
@@ -204,3 +267,13 @@ def group_ids_memo(block, series_labels, by, without, strip_metric: bool = False
         return torch.from_numpy(gids_padded).to(block.lens.device), G, group_labels
 
     return memo_on(block, "group_ids_memo", key, build)
+
+
+def group_members_memo(block, series_labels, by, without, strip_metric: bool = False):
+    """The ``order_stats.Members`` of ``group_ids_memo``'s grouping (the
+    quantile kernel's member lists), memoized on the block under the same
+    key. Returns ``(members, num_groups, group_labels)``."""
+    gids, G, group_labels = group_ids_memo(block, series_labels, by, without, strip_metric)
+    key = (tuple(by) if by else None, tuple(without) if without else None, bool(strip_metric))
+    members = memo_on(block, "group_members_memo", key, lambda: OS.segment_members(gids, G))
+    return members, G, group_labels

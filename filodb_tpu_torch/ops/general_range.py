@@ -13,6 +13,8 @@ block it makes one launch of ``csrc/general_range.cu``
 ``[G, J]`` group partials; on a CPU block it runs
 ``general_range_aggregate_plain``: ``kernels.range_kernel_plain`` and the
 segment aggregate. Its launches are counted in ``LAUNCHES``.
+``general_range_series`` is the same kernel in its store mode (the fused
+epilogues): the per-series ``[J_pad, S_pad]`` grid.
 
 ``general_plan`` lays a launch out: warps per block (each on its own
 row, staged in a buffer of its own or read in place), steps per slice,
@@ -67,8 +69,9 @@ class GeneralPlan:
     """One launch's layout: ``warps`` per block, each on its own row with a
     staging buffer of ``n_arrays`` arrays in shared memory (0 arrays: rows
     read in place), ``steps`` per slice, group partials in shared memory or
-    not, one ``[steps]`` bounds table per block on an exact shared grid,
-    and the dynamic shared memory that takes."""
+    not (none in the store mode, ``store``), one ``[steps]`` bounds table
+    per block on an exact shared grid, and the dynamic shared memory that
+    takes."""
 
     warps: int
     steps: int
@@ -76,6 +79,7 @@ class GeneralPlan:
     shared: bool
     shared_bounds: bool
     smem_bytes: int
+    store: bool = False
 
     @property
     def staged(self) -> bool:
@@ -83,7 +87,7 @@ class GeneralPlan:
 
     @property
     def partials(self) -> str:
-        return "shared" if self.shared else "global"
+        return "store" if self.store else ("shared" if self.shared else "global")
 
 
 def _round4(x: int) -> int:
@@ -91,35 +95,36 @@ def _round4(x: int) -> int:
 
 
 def general_smem_bytes(num_groups: int, steps: int, warps: int, row_words: int, n_arrays: int,
-                       shared: bool, shared_bounds: bool) -> int:
+                       shared: bool, shared_bounds: bool, store: bool = False) -> int:
     """Dynamic shared memory of a launch (``smem_words`` in the source,
     which the C entry checks): the block's ``[G, steps]`` partials
-    (shared) and ``[steps]`` lo/hi (shared bounds), and per warp its
-    ``[steps]`` acc/cnt run, its row's ``[steps]`` lo/hi and its staging
-    buffer."""
+    (shared) and ``[steps]`` lo/hi (shared bounds), and per warp its row's
+    ``[steps]`` lo/hi, its ``[steps]`` acc/cnt run (not in the store mode)
+    and its staging buffer."""
     part = _round4(2 * num_groups * steps) if shared else 0
     sb = 2 * _round4(steps) if shared_bounds else 0
-    per_warp = 4 * _round4(steps) + n_arrays * row_words
+    per_warp = (2 if store else 4) * _round4(steps) + n_arrays * row_words
     return 4 * (part + sb + warps * per_warp)
 
 
 @functools.lru_cache(maxsize=256)
 def general_plan(num_groups: int, num_steps: int, row_words: int, n_arrays: int,
-                 shared_bounds: bool = False) -> GeneralPlan:
+                 shared_bounds: bool = False, store: bool = False) -> GeneralPlan:
     """The layout of a launch over ``num_steps`` steps into
-    ``num_groups`` groups that stages ``n_arrays`` arrays of ``row_words``
-    words per row: steps per slice up to ``MAX_SLICE_STEPS``; partials in
-    shared memory while ``2 * G * steps * 4`` bytes fit
+    ``num_groups`` groups (or, with ``store``, to the per-series grid, with
+    no partials) that stages ``n_arrays`` arrays of ``row_words`` words per
+    row: steps per slice up to ``MAX_SLICE_STEPS``; partials in shared
+    memory while ``2 * G * steps * 4`` bytes fit
     ``group_acc.PARTIALS_BUDGET``; ``WARPS`` warps staging their rows
     within ``group_acc.BLOCK_SMEM``, else fewer, and where one warp's row
     does not fit, ``WARPS`` warps reading rows in place."""
     steps = min(num_steps, MAX_SLICE_STEPS)
-    shared = 2 * num_groups * steps * 4 <= GA.PARTIALS_BUDGET
+    shared = not store and 2 * num_groups * steps * 4 <= GA.PARTIALS_BUDGET
 
     def plan(warps: int, narr: int) -> GeneralPlan:
         return GeneralPlan(warps, steps, narr, shared, shared_bounds,
                            general_smem_bytes(num_groups, steps, warps, row_words, narr, shared,
-                                              shared_bounds))
+                                              shared_bounds, store), store)
 
     for warps in (WARPS, WARPS // 2, 1):
         staged = plan(warps, n_arrays)
@@ -170,11 +175,27 @@ def general_range_aggregate(func: str, op: str, block, gids: torch.Tensor, num_g
                         num_groups, params, is_counter, is_delta)
 
 
+def general_range_series(func: str, block, gids: torch.Tensor, num_groups: int, params,
+                         is_counter: bool = False, is_delta: bool = False) -> torch.Tensor:
+    """``func(selector[w])`` of every series of a staged block -> the
+    step-major [J_pad, S_padded] grid on the block's device (the store
+    mode, for the fused epilogues): rows whose gid lies outside
+    ``[0, num_groups)`` (the trash group of padded rows) and steps past
+    ``params.num_steps`` are NaN. A CUDA block makes one launch of the
+    kernel's store variant; a CPU block runs ``general_range_series_plain``."""
+    if func not in GENERAL_FUNCS:
+        raise NotImplementedError(f"range function {func!r} is not on the general rung")
+    return WS.run_series(_launch, general_range_series_plain, func, block, gids, num_groups,
+                         params, is_counter, is_delta)
+
+
 def _launch(func: str, op: str, block, gids, num_groups: int, params, is_counter: bool,
             is_delta: bool, acc: torch.Tensor, cnt: torch.Tensor, plan=None,
             lib=None) -> None:
     """One launch of the kernel into ``acc``/``cnt`` ([G+1, J_pad], from
-    ``group_acc.accumulators``); raises if the launch fails. ``plan`` (a
+    ``group_acc.accumulators``), or with ``op`` ``group_acc.STORE`` into
+    the grid ``acc`` ([J_pad, S], from ``group_acc.series_buffer``; ``cnt``
+    is not read); raises if the launch fails. ``plan`` (a
     ``GeneralPlan``) defaults to ``general_plan``'s, ``lib`` to the
     package's build (a timing script may pass its own). A block on an
     exact shared grid (``regular_ts``) takes its bounds from one table per
@@ -185,17 +206,18 @@ def _launch(func: str, op: str, block, gids, num_groups: int, params, is_counter
     lib = lib or _load()
     S, T = block.ts.shape
     J = params.num_steps
+    store = op == GA.STORE
     if plan is None:
         n_arrays = staged_arrays(func, is_counter, is_delta,
                                  distinct_raw=raw.data_ptr() != block.vals.data_ptr())
-        plan = general_plan(num_groups, J, T, n_arrays, block.regular_ts is not None)
+        plan = general_plan(num_groups, J, T, n_arrays, block.regular_ts is not None, store)
     with torch.cuda.device(block.ts.device):
         stream = torch.cuda.current_stream(block.ts.device).cuda_stream
         err = lib.filodb_general_range_aggregate(
             block.ts.data_ptr(), block.vals.data_ptr(), raw.data_ptr(), block.lens.data_ptr(),
-            gids.data_ptr(), S, T, J, acc.shape[1], num_groups,
+            gids.data_ptr(), S, T, J, acc.shape[0 if store else 1], num_groups,
             int(params.start_ms - block.base_ms), int(params.step_ms), int(params.window_ms),
-            GENERAL_FUNC_CODES[func], GA.ACC_CODES[op], int(is_counter), int(is_delta),
+            GENERAL_FUNC_CODES[func], GA.acc_code(op), int(is_counter), int(is_delta),
             plan.warps, plan.steps, plan.n_arrays, int(plan.shared), int(plan.shared_bounds),
             plan.smem_bytes, acc.data_ptr(), cnt.data_ptr(), stream,
         )
@@ -213,11 +235,18 @@ def general_range_aggregate_plain(func: str, op: str, block, gids: torch.Tensor,
     epilogue; then NaN past ``params.num_steps``."""
     from .aggregations import apply_epilogue
 
-    raw = block.raw if block.raw is not None else block.vals
-    sj = range_kernel_plain(func, block.ts, block.vals, block.lens, block.baseline, raw,
-                            int(params.start_ms - block.base_ms), params.step_ms,
-                            params.window_ms, pad_steps(params.num_steps),
-                            is_counter=is_counter, is_delta=is_delta)
+    sj = general_range_series_plain(func, block, params, is_counter=is_counter,
+                                    is_delta=is_delta)
     out = apply_epilogue(sj, ("agg", op), gids, num_groups)
     return GA.mask_steps(out, params.num_steps)
 
+
+def general_range_series_plain(func: str, block, params, is_counter: bool = False,
+                               is_delta: bool = False) -> torch.Tensor:
+    """The [S_padded, J_pad] per-series values of the general rung in plain
+    torch: ``range_kernel_plain`` over the padded steps."""
+    raw = block.raw if block.raw is not None else block.vals
+    return range_kernel_plain(func, block.ts, block.vals, block.lens, block.baseline, raw,
+                              int(params.start_ms - block.base_ms), params.step_ms,
+                              params.window_ms, pad_steps(params.num_steps),
+                              is_counter=is_counter, is_delta=is_delta)

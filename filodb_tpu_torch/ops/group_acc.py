@@ -21,6 +21,12 @@ into, and their finish to ``[G, J]``.
 The plan's ``n_arrays`` goes to the kernel's C entry, which lays out its
 staging buffers by it: the host's size and the kernel's layout come from
 one number.
+
+The store mode (``ACC_STORE``, the fused epilogues topk/bottomk/quantile)
+writes every ``(row, step)`` value once to a step-major ``[J_pad, S_pad]``
+grid instead (``series_buffer``; its plain counterpart ``series_grid``;
+every rung's wrapper runs through ``run_series``): a plan with ``store``
+set reserves no partials.
 """
 
 from __future__ import annotations
@@ -30,7 +36,19 @@ from dataclasses import dataclass
 
 import torch
 
+from .kernels import pad_steps
+
 ACC_CODES = {"sum": 0, "count": 0, "avg": 0, "min": 1, "max": 2}
+# the store mode (csrc/group_acc.cuh ACC_STORE): each (row, step) value,
+# NaN included, to the [J_pad, S_pad] grid, trash rows as NaN; the
+# wrappers' launches take STORE in place of an op
+ACC_STORE = 3
+STORE = "store"
+
+
+def acc_code(op: str) -> int:
+    """The kernels' accumulator code of an op, or of ``STORE``."""
+    return ACC_STORE if op == STORE else ACC_CODES[op]
 
 STAGE_BUDGET = 40 * 1024  # both tile buffers, aiming at 4-5 blocks per SM
 PARTIALS_BUDGET = 56 * 1024  # shared [G, J] acc/cnt partials at most
@@ -42,12 +60,14 @@ MAX_TILE_ROWS = 8
 class TilePlan:
     """One launch's layout: ``rows`` per tile, ``n_arrays`` arrays staged
     per row in shared memory (0: rows read in place), group partials in
-    shared memory or not, and the dynamic shared memory that takes."""
+    shared memory or not (none in the store mode, ``store``), and the
+    dynamic shared memory that takes."""
 
     rows: int
     n_arrays: int
     shared: bool
     smem_bytes: int
+    store: bool = False
 
     @property
     def staged(self) -> bool:
@@ -55,31 +75,34 @@ class TilePlan:
 
     @property
     def partials(self) -> str:
-        return "shared" if self.shared else "global"
+        return "store" if self.store else ("shared" if self.shared else "global")
 
 
 def layout(num_groups: int, num_steps: int, row_words: int, n_arrays: int,
-           rows: int) -> TilePlan:
+           rows: int, store: bool = False) -> TilePlan:
     """The plan of ``rows`` rows per tile, each staging ``n_arrays`` arrays
     of ``row_words`` words in both buffers (``n_arrays`` 0: read in
-    place), with the group partials' variant chosen from the shape."""
-    part = 2 * num_groups * num_steps * 4
-    shared = part <= PARTIALS_BUDGET
+    place), with the group partials' variant chosen from the shape (none
+    in the store mode)."""
+    part = 0 if store else 2 * num_groups * num_steps * 4
+    shared = not store and part <= PARTIALS_BUDGET
     part = -(-part // 16) * 16 if shared else 0
-    return TilePlan(rows, n_arrays, shared, part + rows * 2 * row_words * 4 * n_arrays)
+    return TilePlan(rows, n_arrays, shared, part + rows * 2 * row_words * 4 * n_arrays, store)
 
 
 @functools.lru_cache(maxsize=256)
-def tile_plan(num_groups: int, num_steps: int, row_words: int, n_arrays: int) -> TilePlan:
+def tile_plan(num_groups: int, num_steps: int, row_words: int, n_arrays: int,
+              store: bool = False) -> TilePlan:
     """The layout of a launch over ``num_steps`` steps into ``num_groups``
-    groups that stages ``n_arrays`` arrays of ``row_words`` words per row
-    (0 arrays: a kernel that reads rows in place)."""
+    groups (or, with ``store``, to the per-series grid) that stages
+    ``n_arrays`` arrays of ``row_words`` words per row (0 arrays: a kernel
+    that reads rows in place)."""
     row_bytes = 2 * row_words * 4 * n_arrays  # both buffers
-    in_place = layout(num_groups, num_steps, row_words, 0, MAX_TILE_ROWS)
+    in_place = layout(num_groups, num_steps, row_words, 0, MAX_TILE_ROWS, store)
     if not row_bytes or in_place.smem_bytes + row_bytes > BLOCK_SMEM:
         return in_place
     rows = max(1, min(MAX_TILE_ROWS, STAGE_BUDGET // row_bytes))
-    return layout(num_groups, num_steps, row_words, n_arrays, rows)
+    return layout(num_groups, num_steps, row_words, n_arrays, rows, store)
 
 
 def accumulators(op: str, num_groups: int, width: int, device):
@@ -102,6 +125,41 @@ def finish_groups(op: str, acc: torch.Tensor, cnt: torch.Tensor, num_groups: int
     if op == "avg":
         return torch.where(has, acc / torch.clamp(cnt, min=1.0), nan)
     return torch.where(has, acc, nan)
+
+
+def series_buffer(num_rows: int, j_pad: int, num_steps: int, device) -> torch.Tensor:
+    """The store mode's ``[j_pad, num_rows]`` f32 grid before a launch:
+    the kernels write steps ``[0, num_steps)``; the padded steps are NaN."""
+    out = torch.empty((j_pad, num_rows), dtype=torch.float32, device=device)
+    out[num_steps:] = float("nan")
+    return out
+
+
+def run_series(device: torch.device, num_rows: int, gids: torch.Tensor, num_groups: int,
+               num_steps: int, plain, launch) -> torch.Tensor:
+    """The body of every rung's store-mode wrapper, after its checks: on a
+    CPU block the rung's plain per-series values (``plain()``, [S, J_pad])
+    through ``series_grid``; on a CUDA block one ``launch(out)`` of the
+    kernel in the store mode into a fresh grid from ``series_buffer``."""
+    if device.type == "cpu":
+        return series_grid(plain(), gids, num_groups, num_steps)
+    if device.type != "cuda":
+        raise ValueError(f"the range kernels run on cuda or cpu tensors, not {device}")
+    out = series_buffer(num_rows, pad_steps(num_steps), num_steps, device)
+    launch(out)
+    return out
+
+
+def series_grid(sj: torch.Tensor, gids: torch.Tensor, num_groups: int,
+                num_steps: int) -> torch.Tensor:
+    """The store mode in plain torch: the ``[S, J_pad]`` per-series grid
+    of a rung's plain version -> the kernels' step-major ``[J_pad, S]``,
+    rows outside ``[0, num_groups)`` (the trash group of padded rows) and
+    steps past ``num_steps`` NaN."""
+    real = ((gids >= 0) & (gids < num_groups))[:, None]
+    out = torch.where(real, sj, float("nan"))
+    out[:, num_steps:] = float("nan")
+    return out.T.contiguous()
 
 
 def mask_steps(out: torch.Tensor, num_steps: int) -> torch.Tensor:

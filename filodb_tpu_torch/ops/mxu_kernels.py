@@ -12,7 +12,8 @@ kernel ``csrc/regular_range.cu``, which gathers at the window bounds, sums
 the windows and reduces into ``[G+1, J]`` accumulators in one pass; on a CPU
 tensor it runs ``mxu_range_plain`` followed by the segment aggregate, the
 same function in plain torch. Steps past the query's ``num_steps`` are NaN
-in both.
+in both. ``regular_range_series`` is the same kernel in its store mode
+(the fused epilogues): the per-series ``[J_pad, S_pad]`` grid.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import torch
 
 from . import cuda_build
 from . import group_acc as GA
-from .group_acc import ACC_CODES
+from .group_acc import ACC_CODES  # noqa: F401 (re-exported: the ops the kernel takes)
 from .kernels import pad_steps
 
 # range functions the regular rung computes (aggregations.FUSED_MXU_FUNCS
@@ -256,8 +257,10 @@ def _launch(func: str, op: str, vals, raw, gids, num_groups: int, wm: WindowMatr
             num_steps: int, is_counter: bool, is_delta: bool, acc: torch.Tensor,
             cnt: torch.Tensor, plan=None, lib=None) -> None:
     """One launch of the regular kernel over the first ``num_steps`` steps
-    into ``acc``/``cnt`` ([G+1, J_pad], from ``group_acc.accumulators``);
-    raises if the launch fails. Rows are read in place; ``plan`` (a
+    into ``acc``/``cnt`` ([G+1, J_pad], from ``group_acc.accumulators``),
+    or with ``op`` ``group_acc.STORE`` into the grid ``acc`` ([J_pad, S],
+    from ``group_acc.series_buffer``; ``cnt`` is not read); raises if the
+    launch fails. Rows are read in place; ``plan`` (a
     ``group_acc.TilePlan``) defaults to ``tile_plan``'s, ``lib`` to the
     package's build (a timing script may pass its own)."""
     global LAUNCHES, LAST_PLAN
@@ -265,7 +268,7 @@ def _launch(func: str, op: str, vals, raw, gids, num_groups: int, wm: WindowMatr
     lib = lib or _load()
     S, T = vals.shape
     if plan is None:
-        plan = GA.tile_plan(num_groups, num_steps, 0, 0)
+        plan = GA.tile_plan(num_groups, num_steps, 0, 0, store=op == GA.STORE)
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream(vals.device).cuda_stream
         err = lib.filodb_regular_range(
@@ -273,7 +276,7 @@ def _launch(func: str, op: str, vals, raw, gids, num_groups: int, wm: WindowMatr
             wm.hi.data_ptr(), wm.idx.data_ptr(), wm.count.data_ptr(), wm.t_first.data_ptr(),
             wm.t_last.data_ptr(), wm.t_last2.data_ptr(), wm.out_t.data_ptr(),
             S, T, num_steps, wm.lo.shape[0], num_groups,
-            float(np.float32(wm.window_ms)), FUNC_CODES[func], ACC_CODES[op], int(is_counter),
+            float(np.float32(wm.window_ms)), FUNC_CODES[func], GA.acc_code(op), int(is_counter),
             int(is_delta), plan.rows, int(plan.shared), plan.smem_bytes,
             acc.data_ptr(), cnt.data_ptr(), stream,
         )
@@ -317,3 +320,29 @@ def regular_range_aggregate(func: str, op: str, block, gids: torch.Tensor, num_g
     _launch(func, op, block.vals, raw, gids, num_groups, wm, params.num_steps, is_counter,
             is_delta, acc, cnt)
     return GA.finish_groups(op, acc, cnt, num_groups)
+
+
+def regular_range_series(func: str, block, gids: torch.Tensor, num_groups: int, params,
+                         is_counter: bool = False, is_delta: bool = False) -> torch.Tensor:
+    """``func(selector[w])`` of every series of a block with a shared
+    regular grid -> the step-major [J_pad, S_padded] grid on the block's
+    device (the store mode, for the fused epilogues): rows whose gid lies
+    outside ``[0, num_groups)`` (the trash group of padded rows) and steps
+    past ``params.num_steps`` are NaN. A CUDA block makes one launch of the
+    kernel's store variant; a CPU block runs ``mxu_range_plain`` through
+    ``group_acc.series_grid``."""
+    if func not in FUSED_MXU_FUNCS:
+        raise NotImplementedError(f"range function {func!r} is not on the regular rung")
+    if block.regular_ts is None:
+        raise ValueError("regular_range_series needs a block with a shared regular grid")
+    raw = block.raw if block.raw is not None else block.vals
+    _check_inputs(block.vals, raw, gids)
+    start_off = int(params.start_ms - block.base_ms)
+    j_pad = pad_steps(params.num_steps)
+    wm = window_matrices(block, start_off, params.step_ms, j_pad, params.window_ms)
+    return GA.run_series(
+        block.vals.device, block.vals.shape[0], gids, num_groups, params.num_steps,
+        lambda: mxu_range_plain(func, block.vals, raw, wm, params.window_ms,
+                                is_counter=is_counter, is_delta=is_delta),
+        lambda out: _launch(func, GA.STORE, block.vals, raw, gids, num_groups, wm,
+                            params.num_steps, is_counter, is_delta, out, out))

@@ -617,11 +617,13 @@ def _append_to_parts(parts, block: StagedBlock, column: str, end_ms: int, mode: 
             ev1 = torch.cuda.Event(enable_timing=True)
             ev1.record()
             LAST_EXTENSION["device_events"] = (ev0, ev1)
-    if "group_ids_memo" in block.__dict__:
-        # grouping is a function of the unchanged series set: carrying the
-        # memo keeps an extended superblock's query free of the O(S)
-        # regroup; the window-matrix memo starts empty on the new grid
-        nb.group_ids_memo = dict(block.group_ids_memo)
+    for memo in ("group_ids_memo", "group_members_memo", "zero_gids_memo"):
+        # groupings (and the quantile's member lists) are functions of the
+        # unchanged series set: carrying the memos keeps an extended
+        # superblock's query free of the O(S) regroup; the window-matrix
+        # memo starts empty on the new grid
+        if memo in block.__dict__:
+            setattr(nb, memo, dict(block.__dict__[memo]))
     return nb
 
 

@@ -10,6 +10,8 @@ CUDA block it makes one launch of the fused kernel in
 no ``[S, J]`` plane in device memory); on a CPU block it runs
 ``window_range_aggregate_plain``: ``window_stats_plain`` -> ``finish`` ->
 the segment aggregate, the same function in plain torch.
+``window_range_series`` is the same kernel in its store mode (the fused
+epilogues): the per-series ``[J_pad, S_pad]`` grid (``run_series``).
 
 ``window_stats`` computes the nine per-series statistics planes (count,
 sum, min, max, first/last timestamp, first/last value and first raw
@@ -286,12 +288,44 @@ def run_fused(launch, plain, func: str, op: str, block, gids: torch.Tensor, num_
     return GA.finish_groups(op, acc, cnt, num_groups)
 
 
+def window_range_series(func: str, block, gids: torch.Tensor, num_groups: int, params,
+                        is_counter: bool = False, is_delta: bool = False) -> torch.Tensor:
+    """``func(selector[w])`` of every series of a staged block -> the
+    step-major [J_pad, S_padded] grid on the block's device (the store
+    mode, for the fused epilogues): rows whose gid lies outside
+    ``[0, num_groups)`` (the trash group of padded rows) and steps past
+    ``params.num_steps`` are NaN. A CUDA block makes one launch of the
+    fused kernel's store variant; a CPU block runs
+    ``window_range_series_plain``."""
+    if func not in PALLAS_FUNCS:
+        raise NotImplementedError(f"range function {func!r} is not on the window-stats rung")
+    return run_series(_launch_range, window_range_series_plain, func, block, gids, num_groups,
+                      params, is_counter, is_delta)
+
+
+def run_series(launch, plain, func: str, block, gids: torch.Tensor, num_groups: int, params,
+               is_counter: bool, is_delta: bool) -> torch.Tensor:
+    """The window-stats and general rungs' store-mode wrappers: check the
+    inputs, then ``group_acc.run_series`` with ``plain`` (the per-series
+    [S, J_pad] values) and one store-mode ``launch``."""
+    raw = block.raw if block.raw is not None else block.vals
+    _check_inputs(block.ts, block.vals, raw, block.lens)
+    _check_gids(gids, block.ts.shape[0], block.ts.device)
+    return GA.run_series(
+        block.ts.device, block.ts.shape[0], gids, num_groups, params.num_steps,
+        lambda: plain(func, block, params, is_counter=is_counter, is_delta=is_delta),
+        lambda out: launch(func, GA.STORE, block, gids, num_groups, params, is_counter,
+                           is_delta, out, out))
+
+
 def _launch_range(func: str, op: str, block, gids, num_groups: int, params, is_counter: bool,
                   is_delta: bool, acc: torch.Tensor, cnt: torch.Tensor, plan=None,
                   lib=None) -> None:
     """One launch of the fused kernel into ``acc``/``cnt`` ([G+1, J_pad],
-    from ``group_acc.accumulators``); raises if the launch fails. ``plan``
-    (a ``group_acc.TilePlan``) defaults to ``tile_plan``'s, ``lib`` to the
+    from ``group_acc.accumulators``), or with ``op`` ``group_acc.STORE``
+    into the grid ``acc`` ([J_pad, S], from ``group_acc.series_buffer``;
+    ``cnt`` is not read); raises if the launch fails. ``plan`` (a
+    ``group_acc.TilePlan``) defaults to ``tile_plan``'s, ``lib`` to the
     package's build (a timing script may pass its own)."""
     global RANGE_LAUNCHES, LAST_PLAN
     raw = block.raw if block.raw is not None else block.vals
@@ -299,15 +333,16 @@ def _launch_range(func: str, op: str, block, gids, num_groups: int, params, is_c
     lib = lib or _load()
     S, T = block.ts.shape
     J = params.num_steps
+    store = op == GA.STORE
     if plan is None:
-        plan = GA.tile_plan(num_groups, J, T, staged_arrays(func, is_counter, is_delta))
+        plan = GA.tile_plan(num_groups, J, T, staged_arrays(func, is_counter, is_delta), store)
     with torch.cuda.device(block.ts.device):
         stream = torch.cuda.current_stream(block.ts.device).cuda_stream
         err = lib.filodb_window_range_aggregate(
             block.ts.data_ptr(), block.vals.data_ptr(), raw.data_ptr(), block.lens.data_ptr(),
-            gids.data_ptr(), S, T, J, acc.shape[1], num_groups,
+            gids.data_ptr(), S, T, J, acc.shape[0 if store else 1], num_groups,
             int(params.start_ms - block.base_ms), int(params.step_ms), int(params.window_ms),
-            WINDOW_FUNC_CODES[func], GA.ACC_CODES[op], int(is_counter), int(is_delta),
+            WINDOW_FUNC_CODES[func], GA.acc_code(op), int(is_counter), int(is_delta),
             plan.rows, plan.n_arrays, int(plan.shared), plan.smem_bytes, acc.data_ptr(),
             cnt.data_ptr(), stream,
         )
@@ -326,6 +361,16 @@ def window_range_aggregate_plain(func: str, op: str, block, gids: torch.Tensor,
     ``params.num_steps``."""
     from .aggregations import apply_epilogue
 
+    sj = window_range_series_plain(func, block, params, is_counter=is_counter,
+                                   is_delta=is_delta)
+    out = apply_epilogue(sj, ("agg", op), gids, num_groups)
+    return GA.mask_steps(out, params.num_steps)
+
+
+def window_range_series_plain(func: str, block, params, is_counter: bool = False,
+                              is_delta: bool = False) -> torch.Tensor:
+    """The [S_padded, J_pad] per-series values of the window-stats rung in
+    plain torch: window stats -> finish, sliced to the block's padding."""
     raw = block.raw if block.raw is not None else block.vals
     j_pad = pad_steps(params.num_steps)
     start_off = int(params.start_ms - block.base_ms)
@@ -333,6 +378,4 @@ def window_range_aggregate_plain(func: str, op: str, block, gids: torch.Tensor,
                                params.step_ms, params.window_ms, j_pad)
     sj = finish(func, stats, start_off, params.step_ms, params.window_ms,
                 is_counter=is_counter, is_delta=is_delta)
-    sj = sj[: block.vals.shape[0], :j_pad]
-    out = apply_epilogue(sj, ("agg", op), gids, num_groups)
-    return GA.mask_steps(out, params.num_steps)
+    return sj[: block.vals.shape[0], :j_pad]

@@ -12,7 +12,11 @@ selection stages a ``[ΣS, T, B]`` superblock (per-shard bucket schemes
 unified first) and runs the histogram rung: per-bucket sums [G, J, B], or
 with ``histogram_quantile(q, sum ...)`` fused on top, the [G, J]
 quantiles. Classic-histogram suffixes (``m_bucket``, ``m_sum``,
-``m_count``, ``le=`` selections) resolve onto the native histogram.
+``m_count``, ``le=`` selections) resolve onto the native histogram. The
+fused epilogues (``FUSED_EPI_OPS``: global topk/bottomk, quantile by
+(...)) run the rung in its store mode to the per-series ``[J, S]`` grid
+and one order-statistics launch; only ``[k, J]`` (rebuilt into the
+winners' rows by ``_present_topk``) or ``[G, J]`` comes back.
 Shapes outside it raise ``NotImplementedError``: the reference tree it
 would fall back to is not ported.
 
@@ -120,6 +124,11 @@ _DROP_NAME_KEEP = {"last_over_time", "timestamp"}  # functions that keep _metric
 
 # aggregation ops the fused path computes as one segment reduce
 FUSED_AGG_OPS = frozenset({"sum", "count", "avg", "min", "max"})
+
+# aggregation ops the fused path computes as an epilogue over the rung's
+# per-series grid (aggregations.fused_topk / fused_quantile): only [k, J]
+# or [G, J] reaches the host
+FUSED_EPI_OPS = frozenset({"topk", "bottomk", "quantile"})
 
 
 def staged_block_for(ctx: QueryContext, shard, ids, cache_key, col_name: str,
@@ -300,12 +309,14 @@ class FusedAggregateExec(ExecPlan):
     superblock and ONE kernel launch (regular, window stats or general);
     only [G, J] reaches the host. Over native histograms: one launch of the histogram
     range kernel, with ``hist_quantile`` (the planner recognized
-    ``histogram_quantile(q, sum ...)``) folded into that same launch."""
+    ``histogram_quantile(q, sum ...)``) folded into that same launch. The
+    epilogue ops (``FUSED_EPI_OPS``, their k or q in ``params``): the rung
+    in its store mode, then one order-statistics launch."""
 
     def __init__(self, shard_nums, filters, raw_start_ms: int, raw_end_ms: int,
                  column, op: str, by, without, function,
                  start_ms: int, end_ms: int, step_ms: int, window_ms: int,
-                 offset_ms: int = 0, hist_quantile: float | None = None):
+                 offset_ms: int = 0, hist_quantile: float | None = None, params=()):
         self.shard_nums = list(shard_nums)
         self.filters: tuple[ColumnFilter, ...] = tuple(filters)
         self.raw_start_ms = raw_start_ms
@@ -321,6 +332,7 @@ class FusedAggregateExec(ExecPlan):
         self.window_ms = window_ms
         self.offset_ms = offset_ms
         self.hist_quantile = hist_quantile  # fused histogram_quantile(q, ...)
+        self.params = tuple(params)  # an epilogue op's k or q
 
     def num_steps(self) -> int:
         return int((self.end_ms - self.start_ms) // self.step_ms) + 1
@@ -335,7 +347,7 @@ class FusedAggregateExec(ExecPlan):
         over a scalar selection (classic ``le`` bucket series) is not
         ported."""
         if is_hist:
-            if self.op != "sum":
+            if self.op != "sum" or self.params:
                 raise NotImplementedError(
                     f"aggregation {self.op!r} over native histograms is not ported "
                     "(the histogram rung sums buckets)")
@@ -638,6 +650,22 @@ class FusedAggregateExec(ExecPlan):
         nsteps = self.num_steps()
         params = RangeParams(self.start_ms - self.offset_ms, self.step_ms, nsteps, self.window_ms)
         strip = self.function is not None and self.function not in _DROP_NAME_KEEP
+        if self.op in ("topk", "bottomk"):
+            # global: no label grouping, only [k, J] comes back
+            k = max(int(self.params[0]), 1)
+            vals, idx = AGG.fused_topk(func, got.block, k, self.op == "bottomk", params,
+                                       is_counter=got.is_counter, is_delta=got.is_delta,
+                                       obs=ctx.obs)
+            return self._present_topk(vals.cpu().numpy(), idx.cpu().numpy(), got.labels,
+                                      strip, nsteps)
+        if self.op == "quantile":
+            members, _, group_labels = AGG.group_members_memo(
+                got.block, got.labels, self.by, self.without, strip_metric=strip)
+            out = AGG.fused_quantile(func, got.block, members, float(self.params[0]), params,
+                                     is_counter=got.is_counter, is_delta=got.is_delta,
+                                     obs=ctx.obs)
+            return QueryResult(grids=[Grid(group_labels, self.start_ms, self.step_ms, nsteps,
+                                           out)])
         gids, G, group_labels = AGG.group_ids_memo(
             got.block, got.labels, self.by, self.without, strip_metric=strip)
         if got.is_hist:
@@ -655,3 +683,17 @@ class FusedAggregateExec(ExecPlan):
             func, self.op, got.block, gids, G, params,
             is_counter=got.is_counter, is_delta=got.is_delta, obs=ctx.obs)
         return QueryResult(grids=[Grid(group_labels, self.start_ms, self.step_ms, nsteps, out)])
+
+    def _present_topk(self, vals, idx, labels, strip: bool, nsteps: int) -> QueryResult:
+        """Prometheus topk/bottomk rows from the compact [k, J] winner set:
+        each winning series, in series order, keeps its own labels (the
+        metric stripped with ``strip``), with values at the steps it won and
+        NaN elsewhere; a non-finite winner is dropped. Built on the host in
+        O(k J) (a series wins a step at most once)."""
+        finite = np.isfinite(vals)
+        steps = np.nonzero(finite)[1]
+        used, row_of = np.unique(idx[finite], return_inverse=True)
+        v = np.full((len(used), nsteps), np.nan, np.float32)
+        v[row_of, steps] = vals[finite]
+        out_labels = [_strip_metric(labels[s]) if strip else labels[s] for s in used.tolist()]
+        return QueryResult(grids=[Grid(out_labels, self.start_ms, self.step_ms, nsteps, v)])

@@ -1043,3 +1043,307 @@ def test_hist_quantile_query_launches_both_kernels_once_on_card(card):
         assert res.stats.cache_hits == 1 and res.stats.cache_misses == 0
         assert np.isfinite(outs[0]).all()
         np.testing.assert_allclose(outs[1], outs[0], rtol=1e-3)
+
+
+# ---- the fused epilogues (B9): store modes and order statistics ----
+
+def assert_store(got, want, what, exact=False):
+    """A store-mode grid against its plain version: NaN masks equal, values
+    within rtol 2e-4 / atol 1e-4 (``exact``: bit-equal)."""
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    assert g.shape == w.shape, what
+    differ = np.argwhere(np.isnan(g) != np.isnan(w))
+    assert not len(differ), (what, [(tuple(i), g[tuple(i)], w[tuple(i)]) for i in differ[:10]])
+    m = ~np.isnan(w)
+    assert m.any(), what
+    if exact:
+        np.testing.assert_array_equal(g[m], w[m], err_msg=what)
+    else:
+        np.testing.assert_allclose(g[m], w[m], rtol=2e-4, atol=1e-4, err_msg=what)
+
+
+def store_pair(series_fn, plain_fn, func, b, params, counter, is_delta=False, launches=None):
+    """One store-mode launch of a rung and its plain grid: padded rows (the
+    trash group) and steps past num_steps NaN in both."""
+    gids = AGG.zero_gids(b)
+    mod, attr = launches
+    before = getattr(mod, attr)
+    got = series_fn(func, b, gids, 1, params, is_counter=counter, is_delta=is_delta)
+    assert getattr(mod, attr) == before + 1
+    sj = plain_fn(func, b, params, counter, is_delta)
+    want = GA.series_grid(sj, gids, 1, params.num_steps)
+    torch.cuda.synchronize()
+    assert got.shape == (pad_steps(params.num_steps), b.ts.shape[0])
+    return got, want
+
+
+def regular_series_plain(func, b, params, counter, is_delta):
+    wm = MK.window_matrices(b, params.start_ms - BASE, params.step_ms,
+                            pad_steps(params.num_steps), params.window_ms)
+    raw = b.raw if b.raw is not None else b.vals
+    return MK.mxu_range_plain(func, b.vals, raw, wm, params.window_ms, is_counter=counter,
+                              is_delta=is_delta)
+
+
+def window_series_plain(func, b, params, counter, is_delta):
+    return WS.window_range_series_plain(func, b, params, is_counter=counter, is_delta=is_delta)
+
+
+def general_series_plain(func, b, params, counter, is_delta):
+    return GR.general_range_series_plain(func, b, params, is_counter=counter, is_delta=is_delta)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gauge", "corrected", "diff"])
+@pytest.mark.parametrize("func", sorted(MK.FUSED_MXU_FUNCS))
+def test_regular_store_matches_plain_on_card(card, func, kind):
+    """The regular kernel's store variant: every row's value, bit-equal to
+    the plain version (no sum across rows to reorder)."""
+    mode = {"gauge": {}, "corrected": {"counter_corrected": True},
+            "diff": {"diff_encode": True}}[kind]
+    counter = kind != "gauge"
+    b = regular_block(counter, mode).to_device(card)
+    got, want = store_pair(MK.regular_range_series, regular_series_plain, func, b,
+                           RangeParams(BASE + 400_000, 60_000, 40, 300_000), counter,
+                           launches=(MK, "LAUNCHES"))
+    assert MK.LAST_PLAN.partials == "store"
+    assert_store(got, want, f"{func} {kind}", exact=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counter", [False, True], ids=["gauge", "counter"])
+@pytest.mark.parametrize("func", sorted(WS.PALLAS_FUNCS))
+def test_window_store_matches_plain_on_card(card, func, counter):
+    """The fused window-stats kernel's store variant, staged rows, on a
+    grid from before the first sample to past the last."""
+    b = block(counter).to_device(card)
+    got, want = store_pair(WS.window_range_series, window_series_plain, func, b,
+                           RangeParams(BASE - 200_000, 60_000, 70, 300_000), counter,
+                           launches=(WS, "RANGE_LAUNCHES"))
+    assert WS.LAST_PLAN.partials == "store" and WS.LAST_PLAN.staged
+    assert_store(got, want, func)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("func", ["rate", "sum_over_time", "count_over_time"])
+def test_window_store_rows_read_in_place_on_card(card, func):
+    b = array_block(9, 32_768, 4, True, card)
+    params = RangeParams(BASE + 400_000, 600_000, 30, 3_600_000)
+    got, want = store_pair(WS.window_range_series, window_series_plain, func, b, params, True,
+                           launches=(WS, "RANGE_LAUNCHES"))
+    assert not WS.LAST_PLAN.staged
+    assert_store(got, want, func)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staging, grid", [(s, "irregular") for s in sorted(GENERAL_STAGINGS)]
+                         + [(s, "regular") for s in ("gauge", "diff", "shifted", "corrected")])
+@pytest.mark.parametrize("func", sorted(GR.GENERAL_FUNCS))
+def test_general_store_matches_plain_on_card(card, func, staging, grid):
+    """The general kernel's store variant, on irregular rows and on one
+    10 s grid (the shared bounds table); changes/resets bit-equal."""
+    make = general_block if grid == "irregular" else regular_general_block
+    hb, counter, is_delta = make(staging)
+    b = hb.to_device(card)
+    got, want = store_pair(GR.general_range_series, general_series_plain, func, b,
+                           RangeParams(BASE - 200_000, 60_000, 70, 300_000), counter, is_delta,
+                           launches=(GR, "LAUNCHES"))
+    assert GR.LAST_PLAN.partials == "store" and GR.LAST_PLAN.smem_bytes == GR.general_smem_bytes(
+        1, GR.LAST_PLAN.steps, GR.LAST_PLAN.warps, b.ts.shape[1], GR.LAST_PLAN.n_arrays, False,
+        grid == "regular", True)
+    assert_store(got, want, f"{func} {staging} {grid}", exact=func in ("changes", "resets"))
+
+
+def order_grid(kind: str, J: int, S: int, n_real: int, seed: int, device):
+    """A seeded [J, S] store-mode grid (rows past n_real NaN): normal
+    values, small integers (exact ties), or with NaN columns, +-inf and
+    signed zeros."""
+    rng = np.random.default_rng(seed)
+    if kind == "ties":
+        v = rng.integers(0, 5, (J, S)).astype(np.float32)
+    else:
+        v = (50 + 20 * rng.standard_normal((J, S))).astype(np.float32)
+    if kind == "special":
+        for x, p in ((np.nan, 0.2), (np.inf, 0.05), (-np.inf, 0.05), (0.0, 0.05), (-0.0, 0.05)):
+            v[rng.random((J, S)) < p] = x
+        v[1] = np.nan  # an all-NaN step
+    v[:, n_real:] = np.nan
+    return torch.from_numpy(v).to(device)
+
+
+def assert_topk_sets(got, want, what):
+    """Per step the same winners (indices) with bit-equal values; the order
+    inside the k slots is free."""
+    (gv, gi), (wv, wi) = (tuple(t.cpu().numpy() for t in x) for x in (got, want))
+    assert gv.shape == wv.shape and gi.shape == wi.shape, what
+    go, wo = np.argsort(gi, axis=0), np.argsort(wi, axis=0)
+    np.testing.assert_array_equal(np.take_along_axis(gi, go, 0), np.take_along_axis(wi, wo, 0),
+                                  err_msg=what)
+    np.testing.assert_array_equal(np.take_along_axis(gv, go, 0).view(np.int32),
+                                  np.take_along_axis(wv, wo, 0).view(np.int32), err_msg=what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_real", [None, 900], ids=["all_rows", "real_rows"])
+@pytest.mark.parametrize("bottom", [False, True], ids=["topk", "bottomk"])
+@pytest.mark.parametrize("k", [1, 5, 100, 999, 1000])
+@pytest.mark.parametrize("kind", ["normal", "ties", "special"])
+def test_topk_kernel_matches_plain_on_card(card, kind, k, bottom, n_real):
+    """filodb_topk_steps against topk_steps_plain, k up to S (1000 rows,
+    900 real), the kernel reading every row or only the real ones (k past
+    900 fills the rest with the padded rows): the same winner sets,
+    bit-equal values."""
+    from filodb_tpu_torch.ops import order_stats as OS
+
+    grid = order_grid(kind, 16, 1000, 900, seed=k, device=card)
+    before = OS.LAUNCHES
+    got = OS.topk_steps(grid, k, bottom, n_real=n_real)
+    assert OS.LAUNCHES == before + 1 and OS.LAST_PLAN.kernel == "topk_steps"
+    want = OS.topk_steps_plain(grid, k, bottom)
+    torch.cuda.synchronize()
+    assert_topk_sets(got, want, f"{kind} k={k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 10, 1000])
+def test_topk_kernel_full_column_on_card(card, k):
+    """A column of 131,072 rows (100,000 real), the main path's width."""
+    from filodb_tpu_torch.ops import order_stats as OS
+
+    grid = order_grid("normal", 8, 131_072, 100_000, seed=k, device=card)
+    assert_topk_sets(OS.topk_steps(grid, k, n_real=100_000), OS.topk_steps_plain(grid, k),
+                     f"k={k}")
+
+
+def assert_quantiles(got, want, what):
+    """Selected order statistics bit-equal; interpolated ones within 2 ulp
+    (the kernel is built with -fmad=false, so they should be equal too)."""
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(w), err_msg=what)
+    m = np.isfinite(w)
+    np.testing.assert_array_max_ulp(g[m], w[m], maxulp=2)
+    np.testing.assert_array_equal(g[~m & ~np.isnan(w)], w[~m & ~np.isnan(w)], err_msg=what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [-0.5, 0.0, 0.25, 0.5, 0.99, 1.0, 1.5])
+@pytest.mark.parametrize("G", [1, 8, 100, 700, 900])
+@pytest.mark.parametrize("kind", ["normal", "ties", "special"])
+def test_segment_quantile_kernel_matches_plain_on_card(card, kind, G, q):
+    """filodb_segment_quantile against segment_quantile_plain on 900 real
+    rows of 1000: one group, 8 (large: a block each), 100 (of 9 members:
+    one thread each), 700 (mixed sizes, some empty) and 900 (of one)."""
+    from filodb_tpu_torch.ops import order_stats as OS
+
+    grid = order_grid(kind, 12, 1000, 900, seed=G, device=card)
+    gids = np.full(1000, G, np.int64)
+    rng = np.random.default_rng(G)
+    gids[:900] = (np.arange(900) % G if G != 700 else
+                  np.minimum(rng.zipf(1.5, 900), 700) - 1)
+    members = OS.segment_members(torch.from_numpy(gids).to(card), G)
+    before = OS.LAUNCHES
+    got = OS.segment_quantile(grid, members, q)
+    assert OS.LAUNCHES == before + 1 and OS.LAST_PLAN.kernel == "segment_quantile"
+    want = OS.segment_quantile_plain(grid, members, q)
+    torch.cuda.synchronize()
+    assert_quantiles(got, want, f"{kind} G={G} q={q}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 8, 100_000])
+def test_segment_quantile_kernel_full_width_on_card(card, G):
+    """100,000 real rows of 131,072: one group, 8 of 12,500 and 100,000
+    groups of one series (quantile by (instance))."""
+    from filodb_tpu_torch.ops import order_stats as OS
+
+    grid = order_grid("normal", 8, 131_072, 100_000, seed=G, device=card)
+    gids = torch.full((131_072,), G, dtype=torch.int64, device=card)
+    gids[:100_000] = torch.arange(100_000, device=card) % G
+    members = OS.segment_members(gids, G)
+    got = OS.segment_quantile(grid, members, 0.9)
+    assert OS.LAST_PLAN.block_segments == (G if G < 100_000 else 0)
+    assert_quantiles(got, OS.segment_quantile_plain(grid, members, 0.9), f"G={G}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("query", ["topk", "bottomk", "quantile"])
+@pytest.mark.parametrize("rung", ["mxu", "window_stats", "general"])
+def test_epilogue_query_launches_twice_on_card(card, rung, query):
+    """A fused epilogue is the rung in its store mode, then one
+    order-statistics launch over the real steps, and no other kernel of
+    the port; the result equals the plain order statistic of the store
+    grid."""
+    from filodb_tpu_torch.ops import order_stats as OS
+
+    if rung == "mxu":
+        b, func = regular_block(True, {"counter_corrected": True}, n_series=200).to_device(card), "rate"
+    else:
+        b, func = block(True, n_series=200).to_device(card), "rate" if rung == "window_stats" else "irate"
+    counters = ((WS, "LAUNCHES"), (WS, "RANGE_LAUNCHES"), (MK, "LAUNCHES"), (GR, "LAUNCHES"),
+                (OS, "LAUNCHES"))
+    before = [getattr(m, a) for m, a in counters]
+    obs = {}
+    if query == "quantile":
+        members = OS.segment_members(spread_groups(b, 8, card), 8)
+        out = AGG.fused_quantile(func, b, members, 0.9, params_for(), is_counter=True, obs=obs)
+        assert out.shape == (8, 60)
+    else:
+        vals, idx = AGG.fused_topk(func, b, 5, query == "bottomk", params_for(), is_counter=True,
+                                   obs=obs)
+        assert vals.shape == idx.shape == (5, 60)
+    torch.cuda.synchronize()
+    assert obs == {"variant": rung}
+    rung_counter = {"mxu": 2, "window_stats": 1, "general": 3}[rung]
+    after = [getattr(m, a) for m, a in counters]
+    assert [a - b for a, b in zip(after, before)] == [
+        int(i == rung_counter) + int(i == 4) for i in range(5)]
+    grid = AGG.fused_range_series(func, b, params_for(), is_counter=True)[:60]
+    if query == "quantile":
+        assert_quantiles(out, OS.segment_quantile_plain(grid, members, 0.9), rung)
+    else:
+        assert_topk_sets((vals, idx), OS.topk_steps_plain(grid, 5, query == "bottomk"), rung)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rung", ["window_staged", "window_in_place", "regular", "general"])
+def test_store_writes_only_its_grid_on_card(card, rung):
+    """13 rows (a partial last tile for every rows-per-tile choice): the
+    store launch writes exactly the [J, S] part of its grid -- a sentinel
+    in the padded steps survives -- and that part equals the plain grid.
+    (nvcc 12.8 compiled the window kernel's store variants so that a
+    partial last tile ran all its R rows, writing rows past S into the next
+    step's row.)"""
+    from filodb_tpu_torch.ops.staging import block_from_arrays
+
+    S, n = 13, 300
+    rng = np.random.default_rng(21)
+    ts = np.full((S, 512 if rung != "window_in_place" else 32_768), TS_PAD, np.int32)
+    if rung == "regular":
+        ts[:, :n] = 5_000 + np.arange(n) * 10_000
+    else:
+        ts[:, :n] = np.cumsum(rng.integers(5_000, 15_001, (S, n)), axis=1)
+    vals = np.zeros(ts.shape, np.float32)
+    vals[:, :n] = np.cumsum(rng.uniform(0, 10, (S, n)), axis=1)
+    b = block_from_arrays(ts, vals, np.full(S, n, np.int32), BASE, np.zeros(S, np.float32),
+                          S, device=card)
+    func = {"general": "irate", "regular": "rate"}.get(rung, "rate")
+    params = RangeParams(BASE + 400_000, 60_000, 37, 300_000)
+    gids = AGG.zero_gids(b)
+    j_pad = pad_steps(37)
+    out = torch.full((j_pad, S), 12345.0, device=card)
+    if rung == "regular":
+        wm = MK.window_matrices(b, 400_000, 60_000, j_pad, 300_000)
+        MK._launch(func, GA.STORE, b.vals, b.vals, gids, 1, wm, 37, False, False, out, out)
+        plain = regular_series_plain
+    elif rung == "general":
+        GR._launch(func, GA.STORE, b, gids, 1, params, False, False, out, out)
+        plain = general_series_plain
+    else:
+        WS._launch_range(func, GA.STORE, b, gids, 1, params, False, False, out, out)
+        assert WS.LAST_PLAN.staged == (rung == "window_staged")
+        assert S % WS.LAST_PLAN.rows
+        plain = window_series_plain
+    torch.cuda.synchronize()
+    assert bool((out[37:] == 12345.0).all()), rung
+    want = GA.series_grid(plain(func, b, params, False, False), gids, 1, 37)
+    assert_store(out[:37], want[:37], rung)

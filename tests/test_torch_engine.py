@@ -197,8 +197,8 @@ def test_instant_query_matches_jax(stores):
 
 
 @pytest.mark.parametrize("query", [
-    "topk(3, rate(http_requests_total[5m]))",
-    "quantile(0.9, rate(http_requests_total[5m]))",
+    "topk by (zone) (3, rate(http_requests_total[5m]))",
+    "stddev(rate(http_requests_total[5m]))",
     "sum(quantile_over_time(0.5, http_requests_total[5m]))",
     "sum(predict_linear(http_requests_total[5m], 60))",
     "sum(rate(http_requests_total[5m] @ 1600000600))",

@@ -233,6 +233,8 @@ def test_intra_shard_scheme_mismatch_raises():
 @pytest.mark.parametrize("q, match", [
     ("count(rate(http_request_latency[5m]))", "native histograms"),
     ("max by (instance) (rate(http_request_latency[5m]))", "native histograms"),
+    ("topk(3, rate(http_request_latency[5m]))", "native histograms"),
+    ("quantile(0.5, rate(http_request_latency[5m]))", "native histograms"),
     ("sum(avg_over_time(http_request_latency[3m]))", "histogram range function"),
     ("sum(irate(http_request_latency[5m]))", "histogram range function"),
     ("histogram_quantile(0.9, sum by (le) (rate(http_requests_total[5m])))", "classic le"),
