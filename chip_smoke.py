@@ -198,13 +198,24 @@ Phases (any failure raises and exits non-zero):
    epilogue, ``_present_topk``): quantiles within rtol 1e-3 with NaN masks
    equal, topk winner sets equal except at near ties (a series only one
    side chose lies within rtol 1e-3 of the other side's boundary value).
-   Prints per query the order-statistics kernel's ms (median of 20, and
-   back to back) beside its bound (one read of the [J_pad, S_pad] grid,
-   the outputs written once), the plain version's ms and the library
-   call's (``torch.topk`` over the same grid; ``torch.nanquantile`` over
-   its real steps for a global quantile; none for a grouped one), and the
-   store launch's ms beside the sum aggregate's of the same function and
-   the store's bound (the rung's reads and the grid written once).
+   Prints per query the order-statistics kernel's route and cluster size
+   (``order_stats.LAST_PLAN``: topk columns and the large groups staged in
+   the shared memory of a cluster of blocks, groups of one a thread each),
+   its ms (median of 20, and back to back) beside its bound (one read of
+   the real series at the real steps, the outputs written once), the plain
+   version's ms and the library call's (``torch.topk`` over the same grid;
+   ``torch.nanquantile`` over its real steps for a global quantile; none
+   for a grouped one), and the store launch's ms beside the sum
+   aggregate's of the same function and the store's bound (the rung's
+   reads and the grid written once).
+9b. The order-statistics kernels' streaming route, kernel only: a grid of
+   111 steps x 1,048,576 series drawn on the card (``order_grid_on_card``:
+   rate-like values to three decimals, 2 % NaN; 466 MB), past what a
+   cluster's shared memory holds, so both kernels read it from device
+   memory in every pass (route ``stream``); ``topk(5)`` and one global
+   ``quantile(0.99)`` against their plain versions (winner sets
+   bit-equal; quantiles equal, within 2 ulp where interpolated), timed
+   beside their bounds and the plain versions.
 
 Around every timed phase it prints the card's SM and memory clocks,
 temperature and power draw (nvidia-smi), before and after. Prints, in
@@ -1746,6 +1757,7 @@ def run_epilogue_query(engine, q: str, rung: str, grid: str, card: str) -> dict:
         # the output, and the member lists read once: perm, starts, large, small
         out_bytes = G * J * 4 + members.perm.numel() * 4 + (G + 1) * 4 + G * 4
     plan = OS.LAST_PLAN
+    out.update({"order_route": plan.route, "cluster": plan.cluster})
     buf = GA.series_buffer(s_pad, j_pad, J, block.vals.device)
     acc, cnt = GA.accumulators("sum", 1, j_pad, block.vals.device)
     store = store_launch(entry, ex, rung, GA.STORE, buf, buf)
@@ -1772,7 +1784,8 @@ def run_epilogue_query(engine, q: str, rung: str, grid: str, card: str) -> dict:
           f"end to end, 2 launches each; {out['rows']} rows x {J} steps; store grid "
           f"[{j_pad}, {s_pad}] matches the plain rung (max_abs_err {store_err:.3g}, rtol 1e-3); "
           f"{kname} equals its plain version on the same grid and the presented result the "
-          f"plain path's; {kname} {out['kernel_ms']:.4f} ms (median of 20; "
+          f"plain path's; {kname} route {plan.route}, cluster {plan.cluster} x {plan.threads} "
+          f"threads: {out['kernel_ms']:.4f} ms (median of 20; "
           f"{out['kernel_ms_back_to_back']:.4f} back to back; {plan}), bound "
           f"{out['bound_ms']:.4f} ms ({out['bound_bytes']} bytes), plain {out['plain_ms']:.3f} "
           f"ms, library {lib}; store launch {out['store_ms']:.4f} ms "
@@ -1782,15 +1795,76 @@ def run_epilogue_query(engine, q: str, rung: str, grid: str, card: str) -> dict:
     return out
 
 
+def order_grid_on_card(n_real: int, S: int, J: int, seed: int, device):
+    """A store-mode grid drawn on the card: [J, S] f32, per step ``n_real``
+    rate-like values (0-10 per second to three decimals, so about ten
+    series share each value at 100k) with 2 % NaN, the padded rows NaN."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    grid = torch.full((J, S), float("nan"), dtype=torch.float32, device=device)
+    v = torch.round(torch.rand((J, n_real), generator=g, device=device) * 10_000) / 1000
+    absent = torch.rand((J, n_real), generator=g, device=device) < 0.02
+    grid[:, :n_real] = torch.where(absent, float("nan"), v)
+    return grid
+
+
+STREAM_SERIES = 1 << 20  # phase 9b: past MAX_CLUSTER x MAX_SLICE keys
+
+
+def phase_order_stream(seed: int, device, card: str) -> dict:
+    """Phase 9b: both order-statistics kernels on the streaming route (a
+    column past the cluster's shared memory), against plain and timed."""
+    import torch
+
+    from filodb_tpu_torch.ops import order_stats as OS
+
+    n, J = STREAM_SERIES, int((END_S - START_S) // STEP_S) + 1
+    grid = order_grid_on_card(n, n, J, seed, device)
+    members = OS.segment_members(torch.zeros(n, dtype=torch.int64, device=device), 1)
+    out = {}
+    for kname, kernel, plain, extra in (
+            ("topk_steps", lambda: OS.topk_steps(grid, 5, n_real=n),
+             lambda: OS.topk_steps_plain(grid, 5), 5 * J * 8),
+            ("segment_quantile", lambda: OS.segment_quantile(grid, members, 0.99),
+             lambda: OS.segment_quantile_plain(grid, members, 0.99), J * 4 + n * 4 + 12)):
+        got, want = kernel(), plain()
+        plan = OS.LAST_PLAN
+        require(plan.route == "stream" and plan.cluster == OS.MAX_CLUSTER,
+                f"9b {kname}: route {plan.route}, cluster {plan.cluster}")
+        if kname == "topk_steps":
+            topk_sets_equal(got, want, "9b topk_steps kernel vs plain")
+            err = 0.0  # the sets and their values are bit-equal
+        else:
+            quantiles_equal(got, want, grid, members, 0.99, "9b segment_quantile vs plain")
+            m = ~torch.isnan(want)
+            err = float((got[m].double() - want[m].double()).abs().max())
+        gpu_sample(f"phase9b {kname} before")
+        row = {"order_route": plan.route, "cluster": plan.cluster, "threads": plan.threads,
+               "max_abs_err": err, "ms": cuda_ms(kernel, reps=20),
+               "ms_back_to_back": back_to_back_ms(kernel, reps=20),
+               "plain_ms": cuda_ms(plain, reps=3, warmup=1),
+               "bound_bytes": J * n * 4 + extra}
+        gpu_sample(f"phase9b {kname} after")
+        row["bound_ms"] = row["bound_bytes"] / HBM_BYTES_PER_S * 1e3
+        print(f"phase9b {kname} on {J} x {n} card-drawn series ({J * n * 4 / 1e6:.0f} MB): route "
+              f"{plan.route}, cluster {plan.cluster} x {plan.threads} threads; equals its plain "
+              f"version; {row['ms']:.4f} ms (median of 20; {row['ms_back_to_back']:.4f} back to "
+              f"back), bound {row['bound_ms']:.4f} ms, plain {row['plain_ms']:.3f} ms on {card}")
+        out[kname] = row
+    return out
+
+
 def phase_epilogues(engine, card: str, queries, grid: str) -> dict:
     """Phase 9 on one store: each epilogue query (``run_epilogue_query``)."""
     return {q: run_epilogue_query(engine, q, rung, grid, card) for q, rung in queries}
 
 
-def epilogue_rows(per_query: dict, store_rows: dict) -> list:
+def epilogue_rows(per_query: dict, store_rows: dict, stream: dict) -> list:
     """The kernels line's rows of the two order-statistics kernels (their
-    numbers from the first query of each), and the store mode's numbers
-    added to the rung rows in ``store_rows`` (rung -> row)."""
+    numbers from the first query of each, and phase 9b's streaming route),
+    and the store mode's numbers added to the rung rows in ``store_rows``
+    (rung -> row)."""
     rows = []
     for name, replaces in ORDER_KERNELS.items():
         mine = {q: v for q, v in per_query.items() if v["kernel"] == name}
@@ -1803,7 +1877,8 @@ def epilogue_rows(per_query: dict, store_rows: dict) -> list:
             "bound_ms": first["bound_ms"], "bound_by": "bytes",
             "library_ms": first["library_ms"], "library_call": first["library_call"],
             "ms_back_to_back": first["kernel_ms_back_to_back"],
-            "ms_is": next(iter(mine)) + ", phase 9", "queries": mine,
+            "ms_is": next(iter(mine)) + ", phase 9", "order_route": first["order_route"],
+            "cluster": first["cluster"], "queries": mine, "stream_route_phase9b": stream[name],
         })
     for rung, row in store_rows.items():
         mine = {q: v for q, v in per_query.items() if v["rung"] == rung}
@@ -2641,6 +2716,9 @@ def main() -> int:
     del engine
     gc.collect()  # the regular store goes before the jittered one is built
     torch.cuda.empty_cache()
+    order_stream = phase_order_stream(args.seed, device, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     jit_store = build_memstore(N_SERIES, N_SAMPLES, args.seed, "jitter")
     print(f"phase6b ingest: {N_SERIES} series x {N_SAMPLES} samples on bench.py's jittered "
@@ -2729,8 +2807,8 @@ def main() -> int:
     print(json.dumps({"cache": {"phase6": live, "phase6b": live_jit}}))
     print(json.dumps({"hist": {"phase7b": bench_hist, "phase7c": irr_hist, "phase7d": card_hist}}))
     order_rows = epilogue_rows(epilogues, {"window_stats": wr_row, "general": general_row,
-                                           "mxu": reg_row})
-    print(json.dumps({"epilogues": {"phase9": epilogues}}))
+                                           "mxu": reg_row}, order_stream)
+    print(json.dumps({"epilogues": {"phase9": epilogues, "phase9b": order_stream}}))
     print(json.dumps({"kernels": [ws_row, wr_row, general_row, reg_row, *hist_rows,
                                   *order_rows]}))
     print(card)

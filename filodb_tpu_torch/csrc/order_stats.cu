@@ -18,33 +18,48 @@
 //    real +inf sorts with the absent values) and NaN where count is 0.
 //    -0 sorts below +0 here, where JAX's argsort ties them; the result is
 //    the same, since the interpolation of two zeros is +0 whatever their
-//    signs.
+//    signs. A group of one member is interpolated too (a lone +inf gives
+//    inf + (inf - inf) * 0 = NaN, as the JAX formula does).
 //    Members come as `perm` (the real series ordered by group) and
 //    `starts` ([G+1]), so a group's members are perm[starts[g] ..
 //    starts[g+1]).
 //
-// Design. One block per (segment, step) of the query's real steps (the
-// caller passes J without the padded steps): for topk the segment is the
-// real series of the column (the padded rows, NaN, are not read), for a
-// quantile one group's members. The block runs the exact radix select of
-// order_select.cuh on order-preserving uint32 keys over its contiguous
-// column, gathered through perm for groups. topk then
-// compacts, in one more pass, the keys better than the threshold key and,
-// in index order, as many keys equal to it as are missing: a block scan
-// (warp ballots, then the warps' totals), which gives lax.top_k's tie rule
-// for any k <= S. The quantile selects the floor rank; the ceil rank is the
-// same key unless the run of equal keys ends there, else the smallest key
-// above it (one block min-reduction). Groups of at most SMALL members take
-// one thread each instead of a block (`small`; the rest are `large`), so
-// that 100k groups of one series (quantile by (instance)) do not pay a
-// block's four histogram passes per (group, step): the thread ranks its
-// few keys by counting.
-//
 // Bound: device-memory bytes, one read of the real series' values at the
 // real steps (and of perm) and the outputs written once; a few integer
-// operations per key and pass. The select reads a segment four times and topk a fifth (the
-// compaction); a column of 100,000 series is 400 KB, so those passes
-// stream from L2 or device memory, not shared memory (PERF.md).
+// operations per key and pass.
+//
+// Design. A segment (a step's column of real series for topk; one group's
+// members at one step for a quantile) is read from device memory once, by
+// a thread block cluster of C blocks (ops/order_stats.order_plan: C grows
+// in powers of two up to 8 until a block's slice is at most 16,384 keys),
+// each block staging its slice of keys in shared memory: a topk column, or
+// a group whose members are consecutive series (a global quantile), by one
+// bulk copy of the TMA engine; other groups key by key through perm. The
+// radix select of order_select.cuh then runs every pass on chip and merges
+// the blocks' histograms through distributed shared memory, one cluster
+// barrier a pass. A slice the block's dynamic shared memory cannot hold (a segment
+// past the cluster's) is read from device memory in every pass instead,
+// in the same kernel, so it stays exact for any n. Blocks of one segment
+// sit on neighbouring SMs and the J x C blocks of a topk fill every SM
+// where one block per step left some idle.
+// topk then compacts in one pass over the staged keys: a key better than
+// the threshold takes a slot from a shared counter at an offset the select
+// gives (the slots of a step hold its winners in no fixed order); of the
+// keys equal to it, the cluster takes the first take_eq in index order:
+// a block whose equal keys all fall before take_eq takes them from a
+// counter too, and only the block where take_eq falls ranks its own in
+// index order (a chunk per thread, one block scan), stopping there.
+// The quantile selects the floor rank; the ceil rank is the same key unless
+// the run of equal keys ends there, else the smallest key above it (one
+// cluster min-reduction).
+// Groups of at most SMALL members (quantile by (instance): 100k groups of
+// one) take a thread per (group, step) instead, a block TILE_GROUPS groups
+// at every step, TILE_STEPS steps at a time: lanes on neighbouring groups
+// of one step read, the results pass through a shared-memory transpose, and
+// lanes on neighbouring steps of one group write, so the [G, J] stores
+// coalesce; the member lists are read once per block; 32-bit index
+// arithmetic; the rank loop stops at the group's size, and groups of one
+// member take four steps' reads in flight.
 //
 // The build passes -fmad=false, so the interpolation rounds its multiply
 // and its add separately, as the plain PyTorch version does.
@@ -61,9 +76,19 @@ using order_select::ABSENT;
 using order_select::FULL;
 using order_select::key_of;
 using order_select::value_of;
+namespace cg = cooperative_groups;
 
 constexpr int SMALL = 16;  // groups of at most SMALL members: one thread each
 constexpr int MAX_THREADS = 1024;
+constexpr int MAX_SLICE = 49152;  // keys a block stages: 192 KB of dynamic shared memory
+constexpr int TILE_GROUPS = 32;   // the thread path: groups a block owns (one a lane) ...
+constexpr int TILE_STEPS = 32;    // ... walked over the steps this many at a time
+
+// keys per block of a segment of n keys in clusters of `cluster` blocks:
+// whole 16-byte groups, so that each slice of an aligned column is aligned
+__host__ __device__ __forceinline__ int64_t slice_of(int64_t n, int cluster) {
+    return ((n + cluster - 1) / cluster + 3) & ~(int64_t)3;
+}
 
 __device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
@@ -74,62 +99,211 @@ __device__ __forceinline__ uint32_t topk_key(float v, int bottom) {
     return ~key_of(x);
 }
 
-__global__ void __launch_bounds__(MAX_THREADS)
-    topk_steps_kernel(const float* __restrict__ grid, int ld, int n, int k, int bottom,
-                      float* __restrict__ vals, int* __restrict__ idx) {
-    __shared__ order_select::Scratch sel_sh;
-    __shared__ int warp_lt[order_select::MAX_WARPS], warp_eq[order_select::MAX_WARPS];
-    const int j = blockIdx.x, J = gridDim.x;
-    const float* col = grid + (int64_t)j * ld;
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+// Stages a slice whose m values lie contiguous at src (16-byte aligned) as
+// keys to_key(value) in shared memory: one bulk copy of its whole 16-byte
+// groups by the TMA engine (completion counted on an mbarrier), the rest
+// read by the threads meanwhile, then one pass that turns the copied values
+// into keys in place, counting their first digits and the ABSENT ones (what
+// order_select::stage does for a slice read key by key). Every thread of
+// the block calls it, after reset() and a block barrier.
+template <typename ToKey>
+__device__ void stage_run(const float* __restrict__ src, int m, ToKey to_key, uint32_t* keys,
+                          order_select::Scratch& sh) {
+    const int bulk = m & ~3;
+    const unsigned bar = (unsigned)__cvta_generic_to_shared(&sh.staged);
+    if (bulk > 0 && threadIdx.x == 0) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                     "r"(bulk * 4)
+                     : "memory");
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+            "[%3];\n" ::"r"((unsigned)__cvta_generic_to_shared(keys)),
+            "l"(src), "r"(bulk * 4), "r"(bar)
+            : "memory");
+    }
+    int absent = 0;
+    auto count = [&](uint32_t k) {
+        atomicAdd(&sh.hist[0][k >> 24], 1u);
+        absent += k == ABSENT;
+    };
+    for (int i = bulk + threadIdx.x; i < m; i += blockDim.x) {
+        const uint32_t k = to_key(__ldg(src + i));
+        keys[i] = k;
+        count(k);
+    }
+    if (bulk > 0) {
+        __syncthreads();  // the barrier is initialised before anyone waits on it
+        unsigned done = 0;
+        while (!done) {
+            asm volatile(
+                "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                " selp.u32 %0, 1, 0, p;\n}\n"
+                : "=r"(done)
+                : "r"(bar), "r"(0u)
+                : "memory");
+        }
+        uint4* k4 = reinterpret_cast<uint4*>(keys);
+        for (int v = threadIdx.x; v < bulk >> 2; v += blockDim.x) {
+            uint4 q = k4[v];
+            q.x = to_key(__uint_as_float(q.x));
+            q.y = to_key(__uint_as_float(q.y));
+            q.z = to_key(__uint_as_float(q.z));
+            q.w = to_key(__uint_as_float(q.w));
+            k4[v] = q;
+            count(q.x);
+            count(q.y);
+            count(q.z);
+            count(q.w);
+        }
+    }
+    absent = __reduce_add_sync(FULL, absent);
+    if ((threadIdx.x & 31) == 0 && absent) atomicAdd(&sh.absent, absent);
+}
+
+// the value a winner's topk key stands for (NaN where it is not finite)
+__device__ __forceinline__ float topk_value(uint32_t k, int bottom) {
+    const float x = value_of(~k);
+    const float v = bottom ? -x : x;
+    return isfinite(v) ? v : nan_f();
+}
+
+// One step's column of the n real series (col), this block's slice of it
+// [i0, i0 + m): select the kr-th best key over the cluster, then write the
+// winners of the slice into their slots of vals/idx (column j of [k, J]).
+template <bool STAGED>
+__device__ void topk_column(const float* __restrict__ col, int n, int slice, int k, int bottom,
+                            int j, int J, float* __restrict__ vals, int* __restrict__ idx,
+                            order_select::Scratch& sh, uint32_t* keys) {
+    const int me = (int)cg::this_cluster().block_rank();
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int i0 = min(n, me * slice), m = min(n, i0 + slice) - i0;
     // slots past the n real series take the padded rows n, n + 1, ... in
     // order: NaN rows, which rank below every real one and tie by index
-    const int kr = k < n ? k : n;
-    for (int s = kr + threadIdx.x; s < k; s += blockDim.x) {
-        vals[(int64_t)s * J + j] = nan_f();
-        idx[(int64_t)s * J + j] = s;
+    const int kr = min(k, n);
+    if (me == 0) {
+        for (int s = kr + threadIdx.x; s < k; s += blockDim.x) {
+            vals[(size_t)s * J + j] = nan_f();
+            idx[(size_t)s * J + j] = s;
+        }
     }
-    if (kr == 0) return;
-    auto key = [&](int i) { return topk_key(__ldg(col + i), bottom); };
-    const order_select::Selection sel =
-        order_select::select(n, key, [&](int) { return kr - 1; }, sel_sh);
-    const int take_eq = kr - sel.below;  // keys equal to the threshold to take, in index order
-    int base_lt = 0, base_eq = 0;         // taken so far (the same in every thread)
-    for (int i0 = 0; i0 < n; i0 += blockDim.x) {
-        const int i = i0 + threadIdx.x;
-        const float v = i < n ? __ldg(col + i) : 0.0f;
-        const uint32_t kv = i < n ? topk_key(v, bottom) : ABSENT;
-        const bool lt = i < n && kv < sel.key, eq = i < n && kv == sel.key;
-        const unsigned b_lt = __ballot_sync(FULL, lt), b_eq = __ballot_sync(FULL, eq);
-        if (lane == 0) {
-            warp_lt[warp] = __popc(b_lt);
-            warp_eq[warp] = __popc(b_eq);
+    if (kr == 0) return;  // the same in every block of the cluster
+    order_select::reset(sh);
+    __syncthreads();
+    auto src = [&](int i) { return topk_key(__ldg(col + i0 + i), bottom); };
+    const order_select::Slice<STAGED, decltype(src)> s{m, src, keys};
+    if (STAGED && ((uintptr_t)(col + i0) & 15) == 0)
+        stage_run(col + i0, m, [&](float v) { return topk_key(v, bottom); }, keys, sh);
+    else
+        order_select::stage(s, sh);
+    const order_select::Selection sel = order_select::select(s, [&](int) { return kr - 1; }, sh);
+    order_select::cluster_arrive();  // this block reads no other's shared memory again
+    const int take_eq = kr - sel.below;           // equal keys to take, the first in index order
+    const int room = take_eq - sel.equal_before;  // of them, this block's first `room`
+    const bool all_eq = room >= sel.equal_own;
+    auto put = [&](int slot, uint32_t kv, int i) {
+        vals[(size_t)slot * J + j] = topk_value(kv, bottom);
+        idx[(size_t)slot * J + j] = i0 + i;
+    };
+    // keys better than the threshold, and the equal ones where this block
+    // takes them all: a slot each from the block's counters, VEC keys a
+    // thread (staged keys as one 16-byte read), one atomic per warp
+    constexpr int VEC = STAGED ? 4 : 1;
+    for (int base = 0; base < m; base += VEC * (int)blockDim.x) {
+        const int i0v = base + VEC * (int)threadIdx.x;
+        uint32_t kv[VEC];
+        if constexpr (STAGED) {
+            if (i0v + 3 < m) {
+                const uint4 q = *reinterpret_cast<const uint4*>(keys + i0v);
+                kv[0] = q.x;
+                kv[1] = q.y;
+                kv[2] = q.z;
+                kv[3] = q.w;
+            } else {
+#pragma unroll
+                for (int u = 0; u < VEC; ++u) kv[u] = i0v + u < m ? keys[i0v + u] : ABSENT;
+            }
+        } else {
+            kv[0] = i0v < m ? src(i0v) : ABSENT;
+        }
+        int n_lt = 0, n_eq = 0;
+#pragma unroll
+        for (int u = 0; u < VEC; ++u) {
+            const bool live = i0v + u < m;
+            n_lt += live && kv[u] < sel.key;
+            n_eq += all_eq && live && kv[u] == sel.key;
+        }
+        if (!__any_sync(FULL, n_lt + n_eq)) continue;
+        int x_lt = n_lt, x_eq = n_eq;  // inclusive warp scans
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+            const int a = __shfl_up_sync(FULL, x_lt, o), b = __shfl_up_sync(FULL, x_eq, o);
+            if (lane >= o) {
+                x_lt += a;
+                x_eq += b;
+            }
+        }
+        int at_lt = 0, at_eq = 0;
+        if (lane == 31) {
+            if (x_lt) at_lt = atomicAdd(&sh.taken[0], x_lt);
+            if (x_eq) at_eq = atomicAdd(&sh.taken[1], x_eq);
+        }
+        int s_lt = sel.below_before + __shfl_sync(FULL, at_lt, 31) + x_lt - n_lt;
+        int s_eq = sel.below + sel.equal_before + __shfl_sync(FULL, at_eq, 31) + x_eq - n_eq;
+#pragma unroll
+        for (int u = 0; u < VEC; ++u) {
+            if (i0v + u >= m) continue;
+            if (kv[u] < sel.key) put(s_lt++, kv[u], i0v + u);
+            else if (all_eq && kv[u] == sel.key) put(s_eq++, kv[u], i0v + u);
+        }
+    }
+    if (!all_eq && room > 0) {  // take_eq falls in this block: its equal keys in index order
+        const int chunk = (m + (int)blockDim.x - 1) / (int)blockDim.x;
+        const int lo = min(m, (int)threadIdx.x * chunk), hi = min(m, lo + chunk);
+        int mine = 0;
+        for (int i = lo; i < hi; ++i) mine += s(i) == sel.key;
+        int incl = mine;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+            const int y = __shfl_up_sync(FULL, incl, o);
+            if (lane >= o) incl += y;
+        }
+        if (lane == 31) sh.warp_sum[warp] = incl;
+        __syncthreads();
+        if (warp == 0) {
+            const int nwarps = blockDim.x >> 5;
+            const int w = lane < nwarps ? sh.warp_sum[lane] : 0;
+            int wincl = w;
+#pragma unroll
+            for (int o = 1; o < 32; o <<= 1) {
+                const int y = __shfl_up_sync(FULL, wincl, o);
+                if (lane >= o) wincl += y;
+            }
+            if (lane < nwarps) sh.warp_sum[lane] = wincl - w;
         }
         __syncthreads();
-        int off_lt = 0, off_eq = 0, tot_lt = 0, tot_eq = 0;
-        for (int w = 0; w < nwarps; ++w) {
-            const int a = warp_lt[w], b = warp_eq[w];
-            off_lt += w < warp ? a : 0;
-            off_eq += w < warp ? b : 0;
-            tot_lt += a;
-            tot_eq += b;
+        int r = sh.warp_sum[warp] + incl - mine;  // this block's equal keys before lo
+        for (int i = lo; i < hi && r < room; ++i) {
+            const uint32_t kv = s(i);
+            if (kv == sel.key) put(sel.below + sel.equal_before + r++, kv, i);
         }
-        const unsigned before = (1u << lane) - 1u;
-        int slot = -1;
-        if (lt) slot = base_lt + off_lt + __popc(b_lt & before);
-        if (eq) {
-            const int r = base_eq + off_eq + __popc(b_eq & before);
-            if (r < take_eq) slot = sel.below + r;
-        }
-        if (slot >= 0) {
-            vals[(int64_t)slot * J + j] = isfinite(v) ? v : nan_f();
-            idx[(int64_t)slot * J + j] = i;
-        }
-        base_lt += tot_lt;
-        base_eq += tot_eq;
-        __syncthreads();  // before the warps' totals are rewritten
-        if (base_lt >= sel.below && base_eq >= take_eq) break;
     }
+    order_select::cluster_wait();  // no block of the cluster reads this one's shared memory now
+}
+
+__global__ void __launch_bounds__(MAX_THREADS)
+    topk_steps_kernel(const float* __restrict__ grid, int ld, int n, int slice, int cap, int k,
+                      int bottom, float* __restrict__ vals, int* __restrict__ idx) {
+    extern __shared__ __align__(16) uint32_t keys[];
+    __shared__ order_select::Scratch sh;
+    const int C = (int)cg::this_cluster().num_blocks();
+    const int j = blockIdx.x / C, J = gridDim.x / C;
+    const float* col = grid + (size_t)j * ld;
+    if (slice <= cap)
+        topk_column<true>(col, n, slice, k, bottom, j, J, vals, idx, sh, keys);
+    else
+        topk_column<false>(col, n, slice, k, bottom, j, J, vals, idx, sh, keys);
 }
 
 // rank = clip(q, 0, 1) * max(count - 1, 0) in f32 and its floor and ceil
@@ -159,111 +333,267 @@ __device__ __forceinline__ uint32_t quantile_key(float v) {
     return isnan(v) ? ABSENT : key_of(v);
 }
 
-__global__ void __launch_bounds__(MAX_THREADS)
-    segment_quantile_kernel(const float* __restrict__ grid, int S, int J,
-                            const int* __restrict__ perm, const int* __restrict__ starts,
-                            const int* __restrict__ large, int n_large,
-                            const int* __restrict__ small, int n_small, float q,
-                            float* __restrict__ out) {
-    __shared__ order_select::Scratch sel_sh;
-    __shared__ unsigned next_sh;
-    const int64_t b = blockIdx.x;
-    const int64_t block_items = (int64_t)n_large * J;
-    if (b < block_items) {  // one large group at one step, by the whole block
-        const int g = __ldg(large + b % n_large);
-        const int j = (int)(b / n_large);
-        const int st = __ldg(starts + g), n = __ldg(starts + g + 1) - st;
-        const float* col = grid + (int64_t)j * S;
-        const int* mem = perm + st;
-        auto key = [&](int i) { return quantile_key(__ldg(col + __ldg(mem + i))); };
-        int count = 0;
-        Rank r{};
-        const order_select::Selection sel = order_select::select(
-            n, key,
-            [&](int absent) {
-                count = n - absent;
-                r = rank_for(q, count);
-                return r.lo;
-            },
-            sel_sh);
-        uint32_t k_hi = sel.key;
-        if (r.hi > r.lo && r.hi >= sel.below + sel.equal)  // the run of equal keys ends at lo
-            k_hi = order_select::next_above(n, key, sel.key, &next_sh);
-        if (threadIdx.x == 0) out[(int64_t)g * J + j] = interpolate(count, r, sel.key, k_hi);
-        return;
-    }
-    // groups of at most SMALL members: one thread per (group, step)
-    const int64_t t = (b - block_items) * blockDim.x + threadIdx.x;
-    if (t >= (int64_t)n_small * J) return;
-    const int g = __ldg(small + t % n_small);
-    const int j = (int)(t / n_small);
-    const int st = __ldg(starts + g), n = __ldg(starts + g + 1) - st;
-    const float* col = grid + (int64_t)j * S;
+// One large group's n members at one step (col, mem), this block's slice
+// of them: the quantile over the cluster, written by rank 0 to *out.
+template <bool STAGED>
+__device__ void quantile_segment(const float* __restrict__ col, const int* __restrict__ mem,
+                                 int n, int slice, float q, float* __restrict__ out,
+                                 order_select::Scratch& sh, uint32_t* keys) {
+    const int me = (int)cg::this_cluster().block_rank();
+    const int i0 = min(n, me * slice), m = min(n, i0 + slice) - i0;
+    order_select::reset(sh);
+    __syncthreads();
+    auto src = [&](int i) { return quantile_key(__ldg(col + __ldg(mem + i0 + i))); };
+    const order_select::Slice<STAGED, decltype(src)> s{m, src, keys};
+    // members that are a run of consecutive series (perm ascends within a
+    // group, so its ends tell) are staged by one bulk copy
+    const int first = m > 0 ? __ldg(mem + i0) : 0;
+    if (STAGED && m > 0 && __ldg(mem + i0 + m - 1) - first == m - 1 &&
+        ((uintptr_t)(col + first) & 15) == 0)
+        stage_run(col + first, m, quantile_key, keys, sh);
+    else
+        order_select::stage(s, sh);
+    int count = 0;
+    Rank r{};
+    const order_select::Selection sel = order_select::select(
+        s,
+        [&](int absent) {
+            count = n - absent;
+            r = rank_for(q, count);
+            return r.lo;
+        },
+        sh);
+    uint32_t k_hi = sel.key;
+    if (r.hi > r.lo && r.hi >= sel.below + sel.equal)  // the run of equal keys ends at lo
+        k_hi = order_select::next_above(s, sel.key, sh);
+    order_select::cluster_arrive();
+    if (me == 0 && threadIdx.x == 0) *out = interpolate(count, r, sel.key, k_hi);
+    order_select::cluster_wait();
+}
+
+// the quantile of one small group (n <= SMALL members at p[0 .. n)) at one
+// step: each member's position in the sorted order is the count of keys
+// below it and of equal keys before it
+__device__ __forceinline__ float small_quantile(const float* __restrict__ col, const int (&p)[SMALL],
+                                                int n, float q) {
     uint32_t k[SMALL];
     int count = 0;
 #pragma unroll
     for (int i = 0; i < SMALL; ++i) {
-        k[i] = i < n ? quantile_key(__ldg(col + __ldg(perm + st + i))) : ABSENT;
-        count += i < n && k[i] != ABSENT;
+        if (i >= n) break;
+        k[i] = quantile_key(__ldg(col + p[i]));
+        count += k[i] != ABSENT;
     }
     const Rank r = rank_for(q, count);
     uint32_t k_lo = ABSENT, k_hi = ABSENT;
-    // member i's position in the sorted order: the keys below it, and the
-    // equal keys before it
 #pragma unroll
     for (int i = 0; i < SMALL; ++i) {
+        if (i >= n) break;
         int pos = 0;
 #pragma unroll
-        for (int m = 0; m < SMALL; ++m) pos += m < n && (k[m] < k[i] || (k[m] == k[i] && m < i));
-        if (i < n && pos == r.lo) k_lo = k[i];
-        if (i < n && pos == r.hi) k_hi = k[i];
+        for (int m = 0; m < SMALL; ++m) {
+            if (m >= n) break;
+            pos += k[m] < k[i] || (k[m] == k[i] && m < i);
+        }
+        if (pos == r.lo) k_lo = k[i];
+        if (pos == r.hi) k_hi = k[i];
     }
-    out[(int64_t)g * J + j] = interpolate(count, r, k_lo, k_hi);
+    return interpolate(count, r, k_lo, k_hi);
+}
+
+// the quantile of a group of at most one member, whose value (if any) is x:
+// small_quantile's arithmetic for n <= 1
+__device__ __forceinline__ float single_quantile(float x, int n, float q) {
+    const uint32_t k = n ? quantile_key(x) : ABSENT;
+    const int count = k != ABSENT;
+    return interpolate(count, rank_for(q, count), k, k);
+}
+
+// Block gt of the thread path: small groups gt * TILE_GROUPS .. (a lane
+// each) at every step, TILE_STEPS steps at a time: each warp takes steps of
+// the tile (lanes read neighbouring groups of one step), the results pass
+// through the shared tile, and lanes on neighbouring steps of one group
+// write them. A warp whose groups have at most one member each reads four
+// steps before it computes any.
+__device__ void quantile_groups(int gt, const float* __restrict__ grid, int S, int J,
+                                const int* __restrict__ perm, const int* __restrict__ starts,
+                                const int* __restrict__ small, int n_small, float q,
+                                float* __restrict__ out, float (*tile)[TILE_STEPS + 1]) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+    const int gi = gt * TILE_GROUPS + lane;
+    int st = 0, n = 0;
+    if (gi < n_small) {
+        const int g = __ldg(small + gi);
+        st = __ldg(starts + g);
+        n = __ldg(starts + g + 1) - st;
+    }
+    int p[SMALL];
+#pragma unroll
+    for (int i = 0; i < SMALL; ++i) {
+        if (i >= n) break;
+        p[i] = __ldg(perm + st + i);
+    }
+    const bool singles = __all_sync(FULL, n <= 1);
+    for (int j0 = 0; j0 < J; j0 += TILE_STEPS) {
+        if (singles) {
+            for (int jl0 = warp; jl0 < TILE_STEPS; jl0 += 4 * nwarps) {
+                float x[4];
+#pragma unroll
+                for (int u = 0; u < 4; ++u) {
+                    const int jl = jl0 + u * nwarps;
+                    x[u] = n && jl < TILE_STEPS && j0 + jl < J
+                               ? __ldg(grid + (size_t)(j0 + jl) * S + p[0]) : 0.0f;
+                }
+#pragma unroll
+                for (int u = 0; u < 4; ++u) {
+                    const int jl = jl0 + u * nwarps;
+                    if (jl < TILE_STEPS) tile[lane][jl] = single_quantile(x[u], n, q);
+                }
+            }
+        } else {
+            for (int jl = warp; jl < TILE_STEPS; jl += nwarps)
+                tile[lane][jl] = j0 + jl < J
+                                     ? small_quantile(grid + (size_t)(j0 + jl) * S, p, n, q)
+                                     : nan_f();
+        }
+        __syncthreads();
+        for (int e = threadIdx.x; e < TILE_GROUPS * TILE_STEPS; e += blockDim.x) {
+            const int r = e / TILE_STEPS, c = e % TILE_STEPS;
+            const int g_i = gt * TILE_GROUPS + r;
+            if (g_i < n_small && j0 + c < J)
+                out[(size_t)__ldg(small + g_i) * J + j0 + c] = tile[r][c];
+        }
+        __syncthreads();  // before the next steps overwrite the tile
+    }
+}
+
+__global__ void __launch_bounds__(MAX_THREADS)
+    segment_quantile_kernel(const float* __restrict__ grid, int S, int J,
+                            const int* __restrict__ perm, const int* __restrict__ starts,
+                            const int* __restrict__ large, int n_large,
+                            const int* __restrict__ small, int n_small, float q, int cap,
+                            float* __restrict__ out) {
+    extern __shared__ __align__(16) uint32_t keys[];
+    __shared__ union {
+        order_select::Scratch sel;
+        float tile[TILE_GROUPS][TILE_STEPS + 1];
+    } sh;
+    const int C = (int)cg::this_cluster().num_blocks();
+    const int large_blocks = n_large * J * C;
+    if ((int)blockIdx.x < large_blocks) {  // one large group at one step, by a cluster
+        const int seg = blockIdx.x / C;
+        const int gl = seg % n_large, j = seg / n_large;
+        const int g = __ldg(large + gl);
+        const int st = __ldg(starts + g), n = __ldg(starts + g + 1) - st;
+        const int slice = (int)slice_of(n, C);
+        const float* col = grid + (size_t)j * S;
+        float* o = out + (size_t)g * J + j;
+        if (slice <= cap)
+            quantile_segment<true>(col, perm + st, n, slice, q, o, sh.sel, keys);
+        else
+            quantile_segment<false>(col, perm + st, n, slice, q, o, sh.sel, keys);
+        return;
+    }
+    const int gt = blockIdx.x - large_blocks;
+    if (gt < (n_small + TILE_GROUPS - 1) / TILE_GROUPS)
+        quantile_groups(gt, grid, S, J, perm, starts, small, n_small, q, out, sh.tile);
 }
 
 bool bad_threads(int threads) {
     return threads < 32 || threads > MAX_THREADS || threads % 32 != 0;
 }
 
+// dynamic shared memory of a launch whose largest segment has n keys, in
+// clusters of `cluster` blocks: the largest slice's keys when a block can
+// stage them, else none (the streaming route)
+int64_t slice_bytes(int64_t n, int cluster) {
+    const int64_t slice = slice_of(n, cluster);
+    return slice <= MAX_SLICE ? slice * 4 : 0;
+}
+
+// Launches kernel on `stream` in clusters of `cluster` blocks with `smem`
+// bytes of dynamic shared memory (at most MAX_SLICE keys': the kernel is
+// allowed that much on the current device first).
+template <typename... Params, typename... Args>
+int launch(void (*kernel)(Params...), int64_t blocks, int threads, int cluster, int smem,
+           void* stream, Args... args) {
+    if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SLICE * 4);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)blocks);
+    cfg.blockDim = dim3((unsigned)threads);
+    cfg.dynamicSmemBytes = (size_t)smem;
+    cfg.stream = (cudaStream_t)stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, args...);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry for ctypes: global topk (bottom = 0) or bottomk (bottom =
 // 1) of each of the J steps of the grid (step j's column at grid + j * ld)
-// -> vals [k, J] f32 and idx [k, J] int32, 1 <= k <= ld, one block of
-// `threads` per step. Only the first n <= ld series of a column are read:
-// the rest are the padded rows, NaN, which fill the slots past n. The
-// slots of a step hold its winners in no fixed order (those better than
-// the k-th first). Launches on `stream` and returns a cudaError_t (0 on
+// -> vals [k, J] f32 and idx [k, J] int32, 1 <= k <= ld. Only the first
+// n <= ld series of a column are read: the rest are the padded rows, NaN,
+// which fill the slots past n. Each step takes a cluster of `cluster`
+// blocks (1-8) of `threads`, each block a slice of ceil(n / cluster) keys,
+// staged in `smem_bytes` of dynamic shared memory (which must equal the
+// slice's bytes, or 0 past MAX_SLICE keys: the streaming route). The slots
+// of a step hold its winners in no fixed order (those better than the
+// k-th first). Launches on `stream` and returns a cudaError_t (0 on
 // success); it does not synchronise.
 extern "C" int filodb_topk_steps(const void* grid, int ld, int n, int J, int k, int bottom,
-                                 int threads, void* vals, void* idx, void* stream) {
+                                 int cluster, int threads, int smem_bytes, void* vals, void* idx,
+                                 void* stream) {
     if (J <= 0) return 0;
-    if (ld <= 0 || n < 0 || n > ld || k < 1 || k > ld || bad_threads(threads))
+    if (ld <= 0 || n < 0 || n > ld || k < 1 || k > ld || bad_threads(threads) || cluster < 1 ||
+        cluster > order_select::MAX_CLUSTER || smem_bytes != slice_bytes(n, cluster))
         return (int)cudaErrorInvalidValue;
-    topk_steps_kernel<<<J, threads, 0, (cudaStream_t)stream>>>(
-        (const float*)grid, ld, n, k, bottom != 0, (float*)vals, (int*)idx);
-    return (int)cudaGetLastError();
+    const int slice = (int)slice_of(n, cluster);
+    return launch(topk_steps_kernel, (int64_t)J * cluster, threads, cluster, smem_bytes, stream,
+                  (const float*)grid, ld, n, slice, smem_bytes / 4, k, (int)(bottom != 0), (float*)vals,
+                  (int*)idx);
 }
 
-// Plain C entry for ctypes: quantile q of each group's members at each
-// step of the [J, S] grid -> out [G, J] f32. Members: perm [N] int32 (the
-// real series ordered by group), starts [G+1] int32; `large` lists the
-// n_large groups of more than SMALL members (a block of `threads` each per
-// step), `small` the n_small others (a thread each per step; none larger
-// than small_max, checked against SMALL). Every group is in one list.
-// Launches on `stream` and returns a cudaError_t (0 on success); it does
-// not synchronise.
+// Plain C entry for ctypes: quantile q of each group's members at each step
+// of the [J, S] grid -> out [G, J] f32. Members: perm [N] int32 (the real
+// series ordered by group, ascending within a group: a slice whose ends
+// differ by its length less one is a run of consecutive series), starts
+// [G+1] int32; `large` lists the n_large groups of more than SMALL members
+// (none larger than large_max; a cluster of `cluster` blocks of `threads`
+// each per step, each block a slice of the group's members staged in
+// `smem_bytes` of dynamic shared memory, which must equal the largest
+// slice's bytes, or 0 past MAX_SLICE keys: the streaming route), `small`
+// the n_small others (a thread each per step, 32 groups a block; none
+// larger than small_max, checked against SMALL). Every group is in one
+// list. Launches on `stream` and returns a cudaError_t (0 on success); it
+// does not synchronise.
 extern "C" int filodb_segment_quantile(const void* grid, int S, int J, const void* perm,
                                        const void* starts, const void* large, int n_large,
-                                       const void* small, int n_small, int small_max, float q,
-                                       int threads, void* out, void* stream) {
+                                       int large_max, const void* small, int n_small,
+                                       int small_max, float q, int cluster, int threads,
+                                       int smem_bytes, void* out, void* stream) {
     if (J <= 0 || n_large + n_small <= 0) return 0;
-    if (S <= 0 || n_large < 0 || n_small < 0 || small_max > SMALL || bad_threads(threads))
+    if (S <= 0 || n_large < 0 || n_small < 0 || small_max > SMALL || bad_threads(threads) ||
+        cluster < 1 || cluster > order_select::MAX_CLUSTER ||
+        (n_large > 0 && large_max <= SMALL) ||
+        smem_bytes != (n_large > 0 ? slice_bytes(large_max, cluster) : 0))
         return (int)cudaErrorInvalidValue;
-    const int64_t blocks = (int64_t)n_large * J + ((int64_t)n_small * J + threads - 1) / threads;
-    if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-    segment_quantile_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const float*)grid, S, J, (const int*)perm, (const int*)starts, (const int*)large,
-        n_large, (const int*)small, n_small, q, (float*)out);
-    return (int)cudaGetLastError();
+    const int64_t large_blocks = (int64_t)n_large * J * cluster;
+    const int64_t tiles = ((int64_t)n_small + TILE_GROUPS - 1) / TILE_GROUPS;
+    if (large_blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    return launch(segment_quantile_kernel,
+                  large_blocks + (tiles + cluster - 1) / cluster * cluster, threads, cluster,
+                  smem_bytes, stream, (const float*)grid, S, J, (const int*)perm,
+                  (const int*)starts, (const int*)large, n_large, (const int*)small, n_small, q,
+                  smem_bytes / 4, (float*)out);
 }

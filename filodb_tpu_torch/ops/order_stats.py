@@ -23,9 +23,16 @@ steps:
 
 On a CUDA tensor each wrapper makes one launch of its kernel in
 ``csrc/order_stats.cu`` (``filodb_topk_steps``, ``filodb_segment_quantile``;
-the shared radix select is ``csrc/order_select.cuh``) or raises; on a CPU
-tensor it runs its plain version (``topk_steps_plain``: a stable sort;
+the radix select they share is ``csrc/order_select.cuh``) or raises; on a
+CPU tensor it runs its plain version (``topk_steps_plain``: a stable sort;
 ``segment_quantile_plain``: two stable argsorts, as the JAX code sorts).
+``order_plan`` lays a launch out from the segment sizes alone: a segment
+(a step's column, or a large group at one step) takes a thread block
+cluster of up to ``MAX_CLUSTER`` blocks, each staging a slice of its keys
+in shared memory (route ``staged``), or reading them from device memory
+in every pass where a slice would pass ``MAX_SLICE`` keys (``stream``);
+groups of at most ``SMALL_SEGMENT`` members take a thread per (group,
+step) in tiles (``thread``, the route of a launch with no large group).
 Launches of both kernels count in ``LAUNCHES``; ``LAST_PLAN`` is the last
 launch's ``OrderPlan``.
 """
@@ -41,7 +48,18 @@ import torch
 from . import cuda_build
 
 SMALL_SEGMENT = 16  # groups of at most this many members: one thread each (the kernel's SMALL)
-THREADS = 1024  # threads per block of every launch
+MAX_CLUSTER = 8  # blocks of a cluster (the portable limit)
+SLICE_TARGET = 16_384  # keys per block the plan aims at: longer segments take a cluster
+MAX_SLICE = 49_152  # keys a block stages (192 KB of dynamic shared memory; the kernel's)
+# threads per block on the staged and thread routes: four staged blocks
+# share an SM (their shared memory), and the kernels' 64 registers a thread
+# leave room for four blocks of 256 threads (two of 512); the streaming
+# route keeps more keys in flight with 1024
+THREADS = 256
+STREAM_THREADS = 1024
+# the thread path: groups a block owns x steps it walks at a time (the
+# kernel's TILE_GROUPS, TILE_STEPS)
+TILE = (32, 32)
 
 # launches of both kernels since the last reset, and the last launch's
 # layout (OrderPlan)
@@ -53,13 +71,22 @@ _lib = None
 
 @dataclass(frozen=True)
 class OrderPlan:
-    """One launch: the kernel (``topk_steps`` or ``segment_quantile``),
-    threads per block, blocks, and per step the segments a block selects
-    alone and those a thread ranks (groups of at most ``SMALL_SEGMENT``)."""
+    """One launch: the kernel (``topk_steps`` or ``segment_quantile``), the
+    route of its large segments (``staged``, ``stream``; ``thread`` where
+    there are none), blocks per cluster, threads per block, blocks, dynamic
+    shared bytes per block, the keys per block of the largest segment, the
+    thread path's tile (groups a block owns, steps it walks at a time), and
+    per step the segments a cluster selects and those a thread ranks
+    (groups of at most ``SMALL_SEGMENT``)."""
 
     kernel: str
+    route: str
+    cluster: int
     threads: int
     blocks: int
+    smem_bytes: int
+    slice: int
+    tile: tuple[int, int]
     block_segments: int
     thread_segments: int
 
@@ -70,13 +97,15 @@ class Members:
     stably ordered by group), ``starts`` int32 [G+1] (group g's members are
     ``perm[starts[g]:starts[g+1]]``), the groups of more than
     ``SMALL_SEGMENT`` members (``large``) and the rest (``small``), int32,
-    and the size of the largest small group."""
+    and the sizes of the largest small and the largest large group (0
+    where there is none)."""
 
     perm: torch.Tensor
     starts: torch.Tensor
     large: torch.Tensor
     small: torch.Tensor
     small_max: int
+    large_max: int
 
     @property
     def num_groups(self) -> int:
@@ -99,7 +128,45 @@ def segment_members(gids: torch.Tensor, num_groups: int) -> Members:
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(gids.device)
 
     return Members(put(perm), put(starts), put(large), put(small),
-                   int(sizes[small].max()) if len(small) else 0)
+                   int(sizes[small].max()) if len(small) else 0,
+                   int(sizes[large].max()) if len(large) else 0)
+
+
+def cluster_for(n: int) -> int:
+    """Blocks per cluster for a segment of ``n`` keys: the least power of
+    two up to ``MAX_CLUSTER`` whose slices hold at most ``SLICE_TARGET``
+    keys each."""
+    c = 1
+    while c < MAX_CLUSTER and -(-n // c) > SLICE_TARGET:
+        c *= 2
+    return c
+
+
+def order_plan(kernel: str, segment, J: int, cluster: int | None = None,
+               threads: int | None = None) -> OrderPlan:
+    """The launch of ``kernel`` over J steps: ``segment`` is the column's
+    real series count for ``topk_steps`` and the ``Members`` for
+    ``segment_quantile``. The route, cluster and shared bytes follow from
+    the largest segment's size alone; ``cluster`` and ``threads`` override
+    the plan's choice (for timing other layouts)."""
+    if kernel == "topk_steps":
+        seg, n_large, n_small = int(segment), 1, 0
+    elif kernel == "segment_quantile":
+        seg, n_large, n_small = segment.large_max, segment.large.numel(), segment.small.numel()
+    else:
+        raise ValueError(f"unknown order-statistics kernel {kernel!r}")
+    c = cluster or (cluster_for(seg) if n_large else 1)
+    if not 1 <= c <= MAX_CLUSTER:
+        raise ValueError(f"a cluster holds 1 to {MAX_CLUSTER} blocks, not {c}")
+    slice_ = (-(-seg // c) + 3) & ~3 if n_large else 0  # whole 16-byte groups (the kernel's slice_of)
+    staged = slice_ <= MAX_SLICE
+    route = "thread" if not n_large else "staged" if staged else "stream"
+    if threads is None:
+        threads = STREAM_THREADS if route == "stream" else THREADS
+    tiles = -(-n_small // TILE[0])  # thread-path blocks
+    blocks = n_large * J * c + -(-tiles // c) * c
+    return OrderPlan(kernel, route, c, threads, blocks, 4 * slice_ if staged else 0, slice_,
+                     TILE, n_large, n_small)
 
 
 def order_keys(x: torch.Tensor) -> torch.Tensor:
@@ -157,12 +224,12 @@ def segment_quantile_plain(grid: torch.Tensor, members: Members, q: float) -> to
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the entry points' argument types on a built library."""
     fn = lib.filodb_topk_steps
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     fn = lib.filodb_segment_quantile
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     return lib
 
@@ -188,14 +255,16 @@ def _count(plan: OrderPlan) -> None:
     LAST_PLAN = plan
 
 
-def topk_steps(grid: torch.Tensor, k: int, bottom: bool = False, n_real: int | None = None):
+def topk_steps(grid: torch.Tensor, k: int, bottom: bool = False, n_real: int | None = None,
+               plan: OrderPlan | None = None, lib: ctypes.CDLL | None = None):
     """Per step of the [J, S] grid the ``min(k, S)`` best series: returns
     ([k, J] f32 values, [k, J] int32 series indices) on the grid's
     device. ``n_real`` (default S) says that only the first ``n_real``
     series of each step are real and the rest NaN, as the store mode
     writes padded rows: the kernel reads only those. A CUDA grid makes one
-    launch of ``filodb_topk_steps`` (and raises if the launch fails); a
-    CPU grid runs ``topk_steps_plain``."""
+    launch of ``filodb_topk_steps`` as ``plan`` (default ``order_plan``'s)
+    lays it out, from ``lib`` (default the built source), and raises if the
+    launch fails; a CPU grid runs ``topk_steps_plain``."""
     _check_grid(grid)
     if int(k) < 1:
         raise ValueError(f"k must be at least 1, got {k}")
@@ -206,42 +275,47 @@ def topk_steps(grid: torch.Tensor, k: int, bottom: bool = False, n_real: int | N
         raise ValueError(f"n_real must lie in [0, {S}], got {n_real}")
     if grid.device.type == "cpu":
         return topk_steps_plain(grid, k, bottom)
-    lib = _load()
+    plan = plan or order_plan("topk_steps", n, J)
+    lib = lib or _load()
     vals = torch.empty((k, J), dtype=torch.float32, device=grid.device)
     idx = torch.empty((k, J), dtype=torch.int32, device=grid.device)
     with torch.cuda.device(grid.device):
         stream = torch.cuda.current_stream(grid.device).cuda_stream
-        err = lib.filodb_topk_steps(grid.data_ptr(), S, n, J, k, int(bottom), THREADS,
-                                    vals.data_ptr(), idx.data_ptr(), stream)
+        err = lib.filodb_topk_steps(grid.data_ptr(), S, n, J, k, int(bottom), plan.cluster,
+                                    plan.threads, plan.smem_bytes, vals.data_ptr(),
+                                    idx.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"topk_steps kernel launch failed: cudaError {err}")
-    _count(OrderPlan("topk_steps", THREADS, J, 1, 0))
+        raise RuntimeError(f"topk_steps kernel launch failed ({plan}): cudaError {err}")
+    _count(plan)
     return vals, idx
 
 
-def segment_quantile(grid: torch.Tensor, members: Members, q: float) -> torch.Tensor:
+def segment_quantile(grid: torch.Tensor, members: Members, q: float,
+                     plan: OrderPlan | None = None, lib: ctypes.CDLL | None = None) -> torch.Tensor:
     """``quantile(q, ...)`` of each group's members at each step of the
     [J, S] grid -> [G, J] f32 on the grid's device. A CUDA grid makes one
-    launch of ``filodb_segment_quantile`` (and raises if the launch
-    fails); a CPU grid runs ``segment_quantile_plain``."""
+    launch of ``filodb_segment_quantile`` as ``plan`` (default
+    ``order_plan``'s) lays it out, from ``lib`` (default the built source),
+    and raises if the launch fails; a CPU grid runs
+    ``segment_quantile_plain``."""
     _check_grid(grid)
     if members.perm.device != grid.device:
         raise ValueError(f"members are on {members.perm.device}, the grid on {grid.device}")
     if grid.device.type == "cpu":
         return segment_quantile_plain(grid, members, q)
-    lib = _load()
     J, S = grid.shape
-    G = members.num_groups
-    out = torch.empty((G, J), dtype=torch.float32, device=grid.device)
-    n_large, n_small = members.large.numel(), members.small.numel()
+    plan = plan or order_plan("segment_quantile", members, J)
+    lib = lib or _load()
+    out = torch.empty((members.num_groups, J), dtype=torch.float32, device=grid.device)
     with torch.cuda.device(grid.device):
         stream = torch.cuda.current_stream(grid.device).cuda_stream
         err = lib.filodb_segment_quantile(
             grid.data_ptr(), S, J, members.perm.data_ptr(), members.starts.data_ptr(),
-            members.large.data_ptr(), n_large, members.small.data_ptr(), n_small,
-            members.small_max, float(np.float32(q)), THREADS, out.data_ptr(), stream)
+            members.large.data_ptr(), members.large.numel(), members.large_max,
+            members.small.data_ptr(), members.small.numel(), members.small_max,
+            float(np.float32(q)), plan.cluster, plan.threads, plan.smem_bytes, out.data_ptr(),
+            stream)
     if err != 0:
-        raise RuntimeError(f"segment_quantile kernel launch failed: cudaError {err}")
-    blocks = n_large * J + -(-n_small * J // THREADS)
-    _count(OrderPlan("segment_quantile", THREADS, blocks, n_large, n_small))
+        raise RuntimeError(f"segment_quantile kernel launch failed ({plan}): cudaError {err}")
+    _count(plan)
     return out

@@ -1347,3 +1347,136 @@ def test_store_writes_only_its_grid_on_card(card, rung):
     assert bool((out[37:] == 12345.0).all()), rung
     want = GA.series_grid(plain(func, b, params, False, False), gids, 1, 37)
     assert_store(out[:37], want[:37], rung)
+
+
+# -- the order-statistics kernels' routes: staged in one block or a cluster, streaming --
+
+# column and segment sizes at the routes' edges: 1, SMALL_SEGMENT and one past
+# it, one block's SLICE_TARGET +-1, the cluster's staging limit
+# (MAX_CLUSTER x MAX_SLICE) +-1, and the main path's 100,000
+ROUTE_SIZES = (1, 16, 17, 16_383, 16_384, 16_385, 100_000, 393_215, 393_216, 393_217)
+
+
+def route_column(J: int, n: int, seed: int, device, kind: str = "normal"):
+    """A [J, n + 3] grid of seeded values (``order_grid``'s kinds) with
+    three padded NaN rows."""
+    return order_grid(kind, J, n + 3, n, seed=seed, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bottom", [False, True], ids=["topk", "bottomk"])
+@pytest.mark.parametrize("n", ROUTE_SIZES)
+def test_topk_routes_match_plain_on_card(card, n, bottom):
+    """Each side of each route threshold: the plan's route and cluster, and
+    the winner sets bit-equal to topk_steps_plain's at k = 1, 5 and 1000."""
+    from filodb_tpu_torch.ops import order_stats as OS
+
+    grid = route_column(3, n, n, card, "ties")
+    want_plan = OS.order_plan("topk_steps", n, 3)
+    assert want_plan.route == ("stream" if n > 393_216 else "staged")
+    assert want_plan.cluster == min(8, 1 << (-(-n // 16_384) - 1).bit_length())
+    for k in (1, 5, 1000):
+        got = OS.topk_steps(grid, k, bottom, n_real=n)
+        assert OS.LAST_PLAN == want_plan
+        assert_topk_sets(got, OS.topk_steps_plain(grid, k, bottom), f"n={n} k={k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [0.0, 0.5, 0.99, 1.0, float("nan"), -1.0, 2.0])
+@pytest.mark.parametrize("n", ROUTE_SIZES)
+def test_segment_quantile_routes_match_plain_on_card(card, n, q):
+    """One group of n members spread over every 3rd row beside 40 groups of
+    one or two (a launch of both paths): the plan's route for the large
+    group and the quantiles against segment_quantile_plain (q outside [0,
+    1] clipped, a NaN q gives NaN)."""
+    from filodb_tpu_torch.ops import order_stats as OS
+
+    S = 3 * n + 80
+    grid = route_column(2, S - 3, n + 1, card, "special")
+    gids = torch.full((S,), 41, dtype=torch.int64, device=card)
+    gids[0 : 3 * n : 3] = 0
+    gids[3 * n : 3 * n + 77] = 1 + torch.arange(77, device=card) % 40
+    members = OS.segment_members(gids, 41)
+    got = OS.segment_quantile(grid, members, q)
+    plan = OS.LAST_PLAN
+    assert (plan.block_segments, plan.thread_segments) == ((1, 40) if n > 16 else (0, 41))
+    assert plan.route == ("thread" if n <= 16 else "stream" if n > 393_216 else "staged")
+    assert_quantiles(got, OS.segment_quantile_plain(grid, members, q), f"n={n} q={q}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 4])
+@pytest.mark.parametrize("n", ROUTE_SIZES)
+def test_segment_quantile_member_runs_match_plain_on_card(card, n, offset):
+    """A group whose members are n consecutive series from row ``offset``
+    (a bulk copy where its slices start 16-byte aligned: offset 0 and 4;
+    key by key through perm at offset 1) beside groups of one: the same
+    quantiles as segment_quantile_plain."""
+    from filodb_tpu_torch.ops import order_stats as OS
+
+    S = n + offset + 24
+    grid = route_column(3, S - 3, n + offset, card, "special")
+    gids = torch.full((S,), 22, dtype=torch.int64, device=card)
+    gids[offset:offset + n] = 0
+    gids[:offset] = 1 + torch.arange(offset, device=card)
+    gids[offset + n:offset + n + 20] = 1 + offset + torch.arange(20, device=card) % (21 - offset)
+    members = OS.segment_members(gids, 22)
+    for q in (0.0, 0.5, 0.99):
+        got = OS.segment_quantile(grid, members, q)
+        assert_quantiles(got, OS.segment_quantile_plain(grid, members, q), f"n={n} q={q}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5, 1000, 12_500, 12_501, 20_000, 100_000])
+def test_topk_equal_column_takes_ties_in_index_order_on_card(card, k):
+    """100,000 equal keys per step (and NaN rows past them): the winners are
+    the first k series, across the cluster's slices (12,500 keys a block)."""
+    from filodb_tpu_torch.ops import order_stats as OS
+
+    grid = torch.full((4, 100_003), 7.0, device=card)
+    grid[:, 100_000:] = float("nan")
+    for bottom in (False, True):
+        vals, idx = OS.topk_steps(grid, k, bottom, n_real=100_000)
+        assert OS.LAST_PLAN.cluster == 8
+        assert_topk_sets((vals, idx), OS.topk_steps_plain(grid, k, bottom), f"k={k}")
+        assert sorted(idx[:, 0].tolist()) == list(range(k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threads", [32, 256, 512, 1024])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_order_layouts_match_plain_on_card(card, cluster, threads):
+    """Every cluster size and block size the C entries take, on the same
+    100,000-series column (clusters of 1 and 2 stream it: their slices pass
+    MAX_SLICE) and on groups by zone: the same answers."""
+    from filodb_tpu_torch.ops import order_stats as OS
+
+    n = 100_000
+    grid = route_column(3, n, 5, card, "ties")
+    plan = OS.order_plan("topk_steps", n, 3, cluster=cluster, threads=threads)
+    assert plan.route == ("stream" if cluster <= 2 else "staged")
+    for k in (5, 1000):
+        got = OS.topk_steps(grid, k, n_real=n, plan=plan)
+        assert_topk_sets(got, OS.topk_steps_plain(grid, k), f"C={cluster} k={k}")
+    gids = torch.full((n + 3,), 8, dtype=torch.int64, device=card)
+    gids[:n] = torch.arange(n, device=card) % 8
+    members = OS.segment_members(gids, 8)
+    qplan = OS.order_plan("segment_quantile", members, 3, cluster=cluster, threads=threads)
+    got = OS.segment_quantile(grid, members, 0.5, plan=qplan)
+    assert_quantiles(got, OS.segment_quantile_plain(grid, members, 0.5), f"C={cluster}")
+
+
+@pytest.mark.cuda
+def test_order_entries_refuse_a_plan_they_do_not_share(card):
+    """The C entries count the shared bytes themselves and refuse another
+    count, and refuse more than MAX_CLUSTER blocks per cluster."""
+    import dataclasses
+
+    from filodb_tpu_torch.ops import order_stats as OS
+
+    grid = route_column(2, 1000, 1, card)
+    plan = OS.order_plan("topk_steps", 1000, 2)
+    for bad in (dataclasses.replace(plan, smem_bytes=plan.smem_bytes + 4),
+                dataclasses.replace(plan, cluster=16)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            OS.topk_steps(grid, 5, n_real=1000, plan=bad)

@@ -7,6 +7,7 @@ grid for the regular kernel), 111 steps, 5 m windows, sum over 1 group.
     python3 tile_sweep.py [--split]
     python3 tile_sweep.py --hist [--package-root DIR]
     python3 tile_sweep.py --general [--package-root DIR]
+    python3 tile_sweep.py --order [--split] [--package-root DIR]
 
 For each kernel and function it times the launch (the median of 20 calls
 between CUDA events, after warm-up) at every rows-per-tile layout -- the
@@ -48,6 +49,23 @@ builds: teams of ``GENERAL_TEAMS`` lanes that stride each window and reduce
 it by shuffles (``general_team_patches``, for the functions that walk their
 windows), and the split of ``GENERAL_PATCHES`` (bounds only: no window
 read; reduce only: fixed windows instead of the searches).
+
+With ``--order`` it times the two order-statistics kernels
+(``csrc/order_stats.cu``, or the package's own where ``--package-root``
+names a parent checkout) at phase 9's cases (``ORDER_CASES``: topk and
+bottomk at k = 5, 10, 1000; quantile over one group, 8 groups of every
+8th series, 100,000 groups of one) on one grid drawn on the card
+(``chip_smoke.order_grid_on_card``: 111 steps x 131,072 rows, 100,000
+real), back to back and per call, beside ``torch.topk`` /
+``torch.nanquantile``, each result first held against its plain version,
+and the host time a call of the public wrapper takes to enqueue its
+launch (``host_ms``).
+Where the package plans its launches (``order_stats.order_plan``) it also
+times every cluster size and block size of ``ORDER_LAYOUTS``; with
+``--split`` the patched builds of ``ORDER_PATCHES`` (select only, stage
+only, key by key), or on a one-block-per-segment package those of
+``BLOCK_ORDER_PATCHES`` (select only, compaction / next_above only,
+coalesced stores, no ``__match_any_sync``).
 
 Prints the card's name and power limit, and ends with one JSON object of
 every time. Exits non-zero where no CUDA device is available.
@@ -164,6 +182,80 @@ HIST_BUILDS = {
 }
 
 
+# ``--order``: phase 9's cases of the two order-statistics kernels: (name,
+# kernel, k or q, bottom, groups); groups 8 are every 8th series (by zone),
+# N_REAL groups one series each (by instance)
+ORDER_CASES = (
+    ("topk(5)", "topk", 5, False, 1), ("topk(10)", "topk", 10, False, 1),
+    ("topk(1000)", "topk", 1000, False, 1), ("bottomk(5)", "topk", 5, True, 1),
+    ("bottomk(10)", "topk", 10, True, 1), ("bottomk(1000)", "topk", 1000, True, 1),
+    ("quantile(0.99), G=1", "quantile", 0.99, False, 1),
+    ("quantile(0.5) by zone, G=8", "quantile", 0.5, False, 8),
+    ("quantile(0.5) by instance, G=100000", "quantile", 0.5, False, N_REAL),
+)
+# patches of ``--order --split`` for the one-block-per-segment kernels
+# (order_stats.cu before the cluster design; run with --package-root on
+# such a checkout): "select only" skips topk's compaction and the
+# quantile's next_above; "compaction / next_above only" replaces the select
+# by a fixed threshold (topk: nothing better, so the compaction walks the
+# whole column; quantile: next_above on every large segment); "coalesced
+# stores" writes the thread path's results at the thread's own index; "no
+# match" gives each key its own shared atomic instead of __match_any_sync
+BLOCK_ORDER_PATCHES = {
+    "select only": [
+        ("order_stats.cu", "    for (int i0 = 0; i0 < n; i0 += blockDim.x) {",
+         "    if (threadIdx.x == 0) idx[j] = (int)sel.key;\n"
+         "    for (int i0 = 0; i0 < 0; i0 += blockDim.x) {"),
+        ("order_stats.cu", "if (r.hi > r.lo && r.hi >= sel.below + sel.equal)", "if (false)")],
+    "compaction / next_above only": [
+        ("order_stats.cu", "    const order_select::Selection sel =\n"
+         "        order_select::select(n, key, [&](int) { return kr - 1; }, sel_sh);",
+         "    const order_select::Selection sel = {0u, 0, 0, 0};"),
+        ("order_stats.cu", "        const order_select::Selection sel = order_select::select(\n"
+         "            n, key,\n            [&](int absent) {\n                count = n - absent;\n"
+         "                r = rank_for(q, count);\n                return r.lo;\n"
+         "            },\n            sel_sh);",
+         "        count = n;\n        r = rank_for(q, count);\n"
+         "        const order_select::Selection sel = {0x80000000u, 0, 0, 0};"),
+        ("order_stats.cu", "if (r.hi > r.lo && r.hi >= sel.below + sel.equal)", "if (true)")],
+    "coalesced stores": [
+        ("order_stats.cu", "    out[(int64_t)g * J + j] = interpolate(count, r, k_lo, k_hi);",
+         "    out[t] = interpolate(count, r, k_lo, k_hi);")],
+    "no match": [
+        ("order_select.cuh", "const unsigned peers = __match_any_sync(FULL, digit);",
+         "const unsigned peers = 1u << lane;")],
+}
+
+
+# patches of ``--order --split`` for this package's kernels: "select only"
+# skips topk's compaction and the quantile's next_above; "stage only" also
+# stops the select after the first pass (one read of the segment into
+# shared memory, its first histogram and one merge); "key by key" stages a
+# topk column (and a quantile group of consecutive series) by the threads'
+# loads, 8 keys a thread in flight, instead of one bulk copy by the TMA
+# engine
+_SKIP_COMPACTION = ("order_stats.cu", "    const bool all_eq = room >= sel.equal_own;\n",
+                    "    const bool all_eq = room >= sel.equal_own;\n"
+                    "    if (threadIdx.x == 0) idx[j] = (int)sel.key;\n"
+                    "    if (m >= 0) {\n        order_select::cluster_wait();\n        return;\n"
+                    "    }\n")
+_SKIP_NEXT_ABOVE = ("order_stats.cu", "if (r.hi > r.lo && r.hi >= sel.below + sel.equal)",
+                    "if (false)")
+ORDER_PATCHES = {
+    "select only": [_SKIP_COMPACTION, _SKIP_NEXT_ABOVE],
+    "stage only": [_SKIP_COMPACTION, _SKIP_NEXT_ABOVE,
+                   ("order_select.cuh", "for (int pass = 0; pass < 4; ++pass) {",
+                    "for (int pass = 0; pass < 1; ++pass) {")],
+    "key by key": [("order_stats.cu", "if (STAGED && ((uintptr_t)(col + i0) & 15) == 0)",
+                    "if (false)"),
+                   ("order_stats.cu", "    if (STAGED && m > 0 && __ldg(mem + i0 + m - 1) - first == m - 1 &&",
+                    "    if (false &&")],
+}
+# (cluster, threads) layouts ``--order`` times beside the plan's choice
+ORDER_LAYOUTS = ((1, 256), (2, 256), (4, 256), (8, 256), (8, 128), (8, 512))
+ORDER_TILE_THREADS = (128, 256, 512)  # block sizes timed on the thread route
+
+
 def median_ms(fn, reps: int = 20) -> float:
     import torch
 
@@ -226,6 +318,25 @@ def build_patched(name: str, patches, bind) -> ctypes.CDLL:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on the patched {name}.cu:\n{proc.stderr}")
     return bind(ctypes.CDLL(str(out)))
+
+
+def host_ms(fn, reps: int = 200) -> float:
+    """Host ms per call of ``fn`` (what it takes to enqueue a launch: the
+    wrapper's Python, ctypes and the CUDA runtime), over ``reps`` calls
+    after warm-up, the device drained before and after."""
+    import time
+
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e3
 
 
 def back_to_back_ms(fn, reps: int = 50) -> float:
@@ -437,14 +548,131 @@ def general_main(package_root: str | None, card: str, device=None, n_real: int =
     return 0
 
 
+def order_launchers(OS, grid, n_real: int, kernel: str, arg, bottom: bool, members, lib=None,
+                    plan=None):
+    """A call of the package's order-statistics kernel on the grid: through
+    the wrapper where the package plans its launches (``order_plan``, with
+    an optional library and plan), else through the one-block C entry."""
+    import torch
+
+    J_, S_ = grid.shape
+    if hasattr(OS, "order_plan"):
+        if kernel == "topk":
+            return lambda: OS.topk_steps(grid, arg, bottom, n_real=n_real, plan=plan, lib=lib)
+        return lambda: OS.segment_quantile(grid, members, arg, plan=plan, lib=lib)
+    lib = lib or OS._load()
+    stream = torch.cuda.current_stream().cuda_stream
+    if kernel == "topk":
+        vals = torch.empty((arg, J_), dtype=torch.float32, device=grid.device)
+        idx = torch.empty((arg, J_), dtype=torch.int32, device=grid.device)
+        return lambda: lib.filodb_topk_steps(grid.data_ptr(), S_, n_real, J_, arg, int(bottom),
+                                             OS.THREADS, vals.data_ptr(), idx.data_ptr(), stream)
+    out = torch.empty((members.num_groups, J_), dtype=torch.float32, device=grid.device)
+    return lambda: lib.filodb_segment_quantile(
+        grid.data_ptr(), S_, J_, members.perm.data_ptr(), members.starts.data_ptr(),
+        members.large.data_ptr(), members.large.numel(), members.small.data_ptr(),
+        members.small.numel(), members.small_max, float(np.float32(arg)), OS.THREADS,
+        out.data_ptr(), stream)
+
+
+def order_main(package_root: str | None, card: str, split: bool, device=None,
+               n_real: int = N_REAL, timer=back_to_back_ms) -> int:
+    """``--order``: both order-statistics kernels of the package at
+    ``package_root`` (default this checkout's) at phase 9's cases
+    (``ORDER_CASES``) on one card-drawn grid, back to back and per call,
+    beside ``torch.topk`` / ``torch.nanquantile``; each result checked
+    against the plain version once. Where the package plans its launches,
+    also every cluster size and block size; with ``split``, the patched
+    builds of ``ORDER_PATCHES`` (or ``BLOCK_ORDER_PATCHES`` on a
+    one-block package)."""
+    if package_root:
+        sys.path.insert(0, str(Path(package_root).resolve()))
+    import dataclasses
+    import importlib.util
+
+    import torch
+
+    import filodb_tpu_torch
+    from filodb_tpu_torch.ops import order_stats as OS
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  Path(__file__).resolve().parent / "chip_smoke.py")
+    CS = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(CS)
+    device = device or torch.device("cuda")
+    planned = hasattr(OS, "order_plan")
+    print(f"package {Path(filodb_tpu_torch.__file__).resolve().parent} "
+          f"({'cluster plan' if planned else 'one block per segment'})")
+    OS._load()
+    libs = {}
+    if split and device.type == "cuda":
+        patches = ORDER_PATCHES if planned else BLOCK_ORDER_PATCHES
+        with ThreadPoolExecutor(len(patches)) as pool:
+            libs = dict(zip(patches, pool.map(
+                lambda k: build_patched("order_stats", patches[k], OS.bind), patches)))
+    grid = CS.order_grid_on_card(n_real, S, J, 0, device)
+    J_, S_ = grid.shape
+    times = {}
+    for name, kernel, arg, bottom, G in ORDER_CASES:
+        members = None
+        if kernel == "quantile":
+            gids = torch.full((S_,), G, dtype=torch.int64, device=device)
+            gids[:n_real] = torch.arange(n_real, device=device) % G
+            members = OS.segment_members(gids, G)
+        call = order_launchers(OS, grid, n_real, kernel, arg, bottom, members)
+        if kernel == "topk":
+            CS.topk_sets_equal(OS.topk_steps(grid, arg, bottom, n_real=n_real),
+                               OS.topk_steps_plain(grid, arg, bottom), name)
+        else:
+            CS.quantiles_equal(OS.segment_quantile(grid, members, arg),
+                               OS.segment_quantile_plain(grid, members, arg), grid, members, arg,
+                               name)
+        times[name] = timer(call)
+        times[f"{name}: per call"] = median_ms(call)
+        wrapper = ((lambda: OS.topk_steps(grid, arg, bottom, n_real=n_real)) if kernel == "topk"
+                   else (lambda: OS.segment_quantile(grid, members, arg)))
+        times[f"{name}: wrapper host"] = host_ms(wrapper)
+        if planned:
+            plan = OS.LAST_PLAN
+            times[f"{name}: the plan"] = (f"route={plan.route} cluster={plan.cluster} "
+                                          f"threads={plan.threads} blocks={plan.blocks} "
+                                          f"smem={plan.smem_bytes}")
+            layouts = (ORDER_LAYOUTS if plan.route != "thread"
+                       else [(1, threads) for threads in ORDER_TILE_THREADS])
+            for cluster, threads in layouts:
+                alt = OS.order_plan(plan.kernel, n_real if kernel == "topk" else members, J_,
+                                    cluster=cluster, threads=threads)
+                if (alt.cluster, alt.threads) != (plan.cluster, plan.threads):
+                    times[f"{name}: cluster={alt.cluster} threads={alt.threads}"] = timer(
+                        order_launchers(OS, grid, n_real, kernel, arg, bottom, members, plan=alt))
+        for variant, lib in libs.items():
+            times[f"{name}: {variant}"] = timer(
+                order_launchers(OS, grid, n_real, kernel, arg, bottom, members, lib=lib))
+        if kernel == "topk":
+            times[f"{name}: torch.topk"] = timer(
+                lambda: torch.topk(grid[:, :n_real], arg, dim=1, largest=not bottom))
+        elif G == 1:
+            times[f"{name}: torch.nanquantile"] = timer(
+                lambda: torch.nanquantile(grid[:, :n_real], arg, dim=1))
+        for k, v in times.items():
+            if k == name or k.startswith(name + ":"):
+                print(f"{k}: {v if isinstance(v, str) else f'{v:.4f} ms'}", flush=True)
+    print(card)
+    print(json.dumps({"card": card, "package": str(package_root or "."), "ms": times}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--split", action="store_true", help="also time patched copies")
     ap.add_argument("--hist", action="store_true", help="time the histogram kernel instead")
     ap.add_argument("--general", action="store_true",
                     help="time the general range kernel instead")
+    ap.add_argument("--order", action="store_true",
+                    help="time the two order-statistics kernels instead")
     ap.add_argument("--package-root", default=None,
-                    help="with --hist or --general: import filodb_tpu_torch from this checkout")
+                    help="with --hist, --general or --order: import filodb_tpu_torch from this "
+                         "checkout")
     args = ap.parse_args()
 
     import torch
@@ -452,10 +680,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("tile_sweep: no CUDA device is available", file=sys.stderr)
         return 2
-    if args.hist or args.general:
+    if args.hist or args.general or args.order:
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                "--format=csv,noheader"], capture_output=True, text=True,
                               check=True, timeout=60).stdout.strip()
+        if args.order:
+            return order_main(args.package_root, card, args.split)
         return (hist_main if args.hist else general_main)(args.package_root, card)
     from filodb_tpu_torch.ops import cuda_build
     from filodb_tpu_torch.ops import group_acc as GA
