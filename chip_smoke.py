@@ -9,14 +9,15 @@ comes out.
 Phases (any failure raises and exits non-zero):
 
 1. Build ``filodb_tpu_torch/csrc/window_stats.cu``, ``regular_range.cu``,
-   ``hist_range.cu``, ``general_range.cu`` and ``order_stats.cu`` with
-   nvcc, and the histogram kernel's two split builds
-   (``tile_sweep.HIST_PATCHES``: search only, fetch only), all at once, and
-   bind their eight entry points (``filodb_window_stats``,
+   ``hist_range.cu``, ``general_range.cu``, ``order_stats.cu`` and
+   ``sorted_window.cu`` with nvcc, and the histogram kernel's two split
+   builds (``tile_sweep.HIST_PATCHES``: search only, fetch only), all at
+   once, and bind their ten entry points (``filodb_window_stats``,
    ``filodb_window_range_aggregate``, ``filodb_regular_range``,
    ``filodb_hist_range_aggregate``, ``filodb_hist_resident``,
-   ``filodb_general_range_aggregate``, ``filodb_topk_steps``,
-   ``filodb_segment_quantile``); print their
+   ``filodb_hist_quantile_gather``, ``filodb_general_range_aggregate``,
+   ``filodb_topk_steps``, ``filodb_segment_quantile``,
+   ``filodb_sorted_window``); print their
    ptxas lines (registers, shared memory, spills) and the card's name and
    power limit.
 2. Window stats (the nine-plane kernel), kernel vs plain on seeded
@@ -216,12 +217,30 @@ Phases (any failure raises and exits non-zero):
    ``quantile(0.99)`` against their plain versions (winner sets
    bit-equal; quantiles equal, within 2 ulp where interpolated), timed
    beside their bounds and the plain versions.
+2d. The reference tree's kernels against their plain versions
+   (``phase_tree_kernels_vs_plain``, after 2c): the sorted-window kernel,
+   predict_linear and Holt-Winters on the general kernel, and the
+   standalone quantile over gathered classic rows.
+10. The reference tree at full width (``phase_tree``, after phase 9 on
+   phase 4's store and on phase 5's): ``TREE_QUERIES`` unaggregated, each
+   cold then warm, one launch of its rung per shard leaf and no other
+   kernel, the warm run a staging-cache hit on the same device copies;
+   [S, J] rows against the plain path; cold/warm latency, the host split,
+   the kernels' ms beside their bounds and plain ms.
+10b. Classic buckets (``phase_classic``, after 7d): 10,000 label sets x 12
+   ``le`` bounds of bench.py's histograms as 120,000 counters;
+   ``CLASSIC_QUERIES`` cold then warm, the aggregate and one gather each,
+   against the plain fold and bench.py's f64 oracle.
+10c. Time slicing (``phase_month``): 1,000 counters at 5 min over 30 days;
+   ``MONTH_QUERIES`` planned as two stitched slices, against the plain
+   path on the card.
 
 Around every timed phase it prints the card's SM and memory clocks,
 temperature and power draw (nvidia-smi), before and after. Prints, in
 order at the end: one JSON object with phases 6 and 6b's numbers
 (``{"cache": ...}``), one with phases 7b-7d's (``{"hist": ...}``), one
-with phase 9's (``{"epilogues": ...}``), one with the kernels' numbers
+with phase 9's (``{"epilogues": ...}``), one with phases 2d and 10-10c's
+(``{"tree": ...}``), one with the kernels' numbers
 (the order-statistics kernels' rows, and the store mode's numbers on the
 rungs' rows), the card's
 name and power limit as nvidia-smi gives them, and the result line
@@ -255,7 +274,7 @@ QUERIES = (
     "sum by (zone) (rate(http_requests_total[5m]))",
 )
 SOURCES = ("window_stats", "regular_range", "hist_range", "general_range",
-           "order_stats")  # csrc/<name>.cu
+           "order_stats", "sorted_window")  # csrc/<name>.cu
 START_S = (BASE + 400_000) / 1000  # bench.py's range
 END_S = (BASE + N_SAMPLES * 10_000 - 200_000) / 1000
 # bench.py's ingest_impact: the range reaches past the newest sample (the
@@ -346,7 +365,7 @@ def compare_stats(got: dict, want: dict, rtol: float = 2e-4, atol: float = 1e-4)
 
 def build_kernels() -> dict:
     """Build every source and the histogram kernel's two split builds at
-    once (one nvcc each), bind the eight entry points, print ptxas's lines
+    once (one nvcc each), bind the ten entry points, print ptxas's lines
     (registers, shared memory, spills) and return the split builds."""
     from filodb_tpu_torch.ops import cuda_build
     from filodb_tpu_torch.ops import general_range as GR
@@ -360,12 +379,15 @@ def build_kernels() -> dict:
         split = pool.submit(hist_split_libs)
         libs = list(pool.map(cuda_build.build, SOURCES))
         split_libs = split.result()
-    ws_lib, mk_lib, hk_lib, gr_lib, os_lib = (WS._load(), MK._load(), HK._load(), GR._load(),
-                                              OS._load())
+    from filodb_tpu_torch.ops import sorted_window as SW
+
+    ws_lib, mk_lib, hk_lib, gr_lib, os_lib, sw_lib = (
+        WS._load(), MK._load(), HK._load(), GR._load(), OS._load(), SW._load())
     entries = [ws_lib.filodb_window_stats, ws_lib.filodb_window_range_aggregate,
                mk_lib.filodb_regular_range, hk_lib.filodb_hist_range_aggregate,
-               hk_lib.filodb_hist_resident, gr_lib.filodb_general_range_aggregate,
-               os_lib.filodb_topk_steps, os_lib.filodb_segment_quantile]
+               hk_lib.filodb_hist_resident, hk_lib.filodb_hist_quantile_gather,
+               gr_lib.filodb_general_range_aggregate, os_lib.filodb_topk_steps,
+               os_lib.filodb_segment_quantile, sw_lib.filodb_sorted_window]
     print(f"phase1 built {', '.join(l.name for l in libs)} in {time.perf_counter() - t0:.1f} s; "
           f"entry points {', '.join(e.__name__ for e in entries)}")
     for name in SOURCES:
@@ -411,6 +433,75 @@ def random_block(S: int, T: int, counter: bool, rng, device):
     vals = np.where(mask, vals, 0).astype(np.float32)
     raw = np.where(mask, raw, 0).astype(np.float32)
     return [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (ts, vals, raw, lens)]
+
+
+WINDOW_KINDS = {  # kind -> (sample spacing in ms, low, high)
+    "irregular": (5_000, 15_001), "regular": (10_000, 10_001), "long": (5_000, 5_001)}
+
+
+def window_block(n_real: int, T: int, kind: str, counter: bool, seed: int, device):
+    """Seeded rows for the sorted-window and argument kernels (phase 2d,
+    the card and CPU tests), as a block on ``device``: ``irregular``
+    timestamps 5-15 s apart with a tied pair in every 7th row, one
+    ``regular`` 10 s grid shared by every real row, or ``long`` rows 5 s
+    apart (a 1 h window holds 720 samples); gauge values on a 0.5 lattice
+    (ties) with -0.0 and 0.0 among them, or shifted-counter values
+    (cumulative, from 0); NaN samples in every 5th row; on the irregular
+    grid row 1 has no sample and the lengths are ragged; rows past
+    ``n_real`` padded as staging pads them."""
+    from filodb_tpu_torch.ops.staging import TS_PAD, block_from_arrays, pad_series
+
+    rng = np.random.default_rng(seed)
+    S = pad_series(n_real)
+    lo, hi = WINDOW_KINDS[kind]
+    m = T - (T // 16 if kind != "long" else 48)
+    if kind == "regular":
+        lens = np.full(n_real, m, np.int32)
+        real = np.broadcast_to(3_000 + np.arange(T) * 10_000, (n_real, T)).astype(np.int64)
+    else:
+        lens = rng.integers(m // 2, m + 1, n_real).astype(np.int32)
+        real = rng.integers(0, 20_000, (n_real, 1)) + np.cumsum(rng.integers(lo, hi, (n_real, T)),
+                                                               axis=1)
+        if kind == "irregular":
+            lens[min(1, n_real - 1)] = 0 if n_real > 1 else lens[0]
+            real[::7, 5] = real[::7, 4]  # a tied pair
+    if counter:
+        vals = np.cumsum(rng.uniform(0, 10, (n_real, T)), axis=1)
+        vals -= vals[:, :1]
+    else:
+        vals = np.round(2 * (50 + 20 * rng.standard_normal((n_real, T)))) / 2
+        vals[rng.random((n_real, T)) < 0.03] = -0.0
+        vals[rng.random((n_real, T)) < 0.03] = 0.0
+    nan_rows = np.arange(0, n_real, 5)
+    vals[nan_rows[:, None], rng.integers(0, m // 2, (len(nan_rows), 3))] = np.nan
+    live = np.arange(T)[None, :] < lens[:, None]
+    ts = np.full((S, T), TS_PAD, np.int32)
+    ts[:n_real] = np.where(live, real, TS_PAD).astype(np.int32)
+    v = np.zeros((S, T), np.float32)
+    v[:n_real] = np.where(live, vals, 0.0)
+    L = np.zeros(S, np.int32)
+    L[:n_real] = lens
+    return block_from_arrays(ts, v, L, BASE, np.zeros(S, np.float32), n_real, device=device)
+
+
+def ulp_gap(got, want) -> int:
+    """The largest distance in units in the last place between two f32
+    tensors' finite values (their infinities and NaN masks must agree)."""
+    import torch
+
+    require(torch.equal(torch.isnan(got), torch.isnan(want)), "NaN masks differ")
+    inf = torch.isinf(want)
+    require(torch.equal(torch.isinf(got), inf) and torch.equal(got[inf], want[inf]),
+            "infinities differ")
+    m = torch.isfinite(want)
+    if not bool(m.any()):
+        return 0
+
+    def ordered(x):
+        i = x[m].contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(2**31) - i, i)
+
+    return int((ordered(got) - ordered(want)).abs().max())
 
 
 def phase_window_stats_vs_plain(seed: int, device) -> None:
@@ -688,7 +779,9 @@ KERNEL_COUNTERS = {"window_stats": ("window_stats", "LAUNCHES"),
                    "general_range": ("general_range", "LAUNCHES"),
                    "regular_range": ("mxu_kernels", "LAUNCHES"),
                    "hist_range": ("hist_kernels", "RANGE_LAUNCHES"),
-                   "order_stats": ("order_stats", "LAUNCHES")}
+                   "order_stats": ("order_stats", "LAUNCHES"),
+                   "sorted_window": ("sorted_window", "LAUNCHES"),
+                   "hist_quantile_gather": ("hist_kernels", "QUANTILE_LAUNCHES")}
 RUNGS = {"mxu": "regular_range", "window_stats": "window_range", "general": "general_range"}
 
 
@@ -2677,6 +2770,764 @@ def phase_hist_card_block(device, split_libs) -> dict:
             "quantile_max_abs_err": q_err, **timing}
 
 
+# -- phase 2d: the reference tree's kernels against their plain versions -----------
+
+TREE_SORTED_CASES = [("quantile_over_time", (q,)) for q in (-0.1, 0.0, 0.5, 0.9, 1.0, 1.1)] + [
+    ("median_absolute_deviation_over_time", ()), ("last_over_time_is_mad_outlier", (2.0, 1.0))]
+TREE_ARG_CASES = (("predict_linear", (600.0,)), ("predict_linear", (-45.5,)),
+                  ("double_exponential_smoothing", (0.3, 0.1)),
+                  ("double_exponential_smoothing", (0.9, 0.5)))
+
+
+def phase_tree_kernels_vs_plain(seed: int, device, sizes=(1, 65, 4096)) -> dict:
+    """Phase 2d: the sorted-window kernel (K2) and the general kernel's
+    predict_linear and Holt-Winters (K3) against their plain versions on
+    seeded blocks (``window_block``): S in {1, 65, 4096} x T in {128, 768}
+    on irregular and regular grids, gauge and shifted-counter values (tied
+    timestamps, NaN samples, a row with no sample; 8 s windows at T = 128,
+    empty and one-sample, 5 m at 768), and 5 s rows with 1 h windows of up
+    to 720 samples (the sorted kernel's warp route), one block of them 8192
+    wide (rows read in place); q in {-0.1, 0, 0.5,
+    0.9, 1, 1.1}. Sorted: within 2 ulp (order statistics bit-equal), NaN
+    masks and infinities equal; predict_linear and Holt-Winters: rtol 2e-4
+    / atol 1e-4, NaN masks equal. Then the standalone quantile (K1) on
+    seeded classic rows, bit-equal."""
+    import torch
+
+    from filodb_tpu_torch.ops import aggregations as AGG
+    from filodb_tpu_torch.ops import general_range as GR
+    from filodb_tpu_torch.ops import group_acc as GA
+    from filodb_tpu_torch.ops import hist_kernels as HK
+    from filodb_tpu_torch.ops import sorted_window as SW
+    from filodb_tpu_torch.ops.kernels import RangeParams
+
+    blocks = [(kind, S, T, counter, 300_000 if T == 768 else 8_000)
+              for S in sizes for T in (128, 768) for kind in ("irregular", "regular")
+              for counter in (False, True)]
+    blocks += [("long", S, 768, counter, 3_600_000) for S in sizes for counter in (False, True)]
+    blocks.append(("long", sizes[1], 8_192, False, 3_600_000))  # rows read in place
+    worst_ulp, arg_err, launches, long_windows = 0, 0.0, 0, 0
+    for i, (kind, S, T, counter, window) in enumerate(blocks):
+        b = window_block(S, T, kind, counter, seed + i, device)
+        start = BASE + (3_000_000 if kind == "long" else -60_000)
+        params = RangeParams(start, 30_000, 120, window)
+        for func, args in TREE_SORTED_CASES:
+            got = SW.sorted_window(func, b, params, args)
+            launches += 1
+            q, a1 = SW.func_args(args)
+            want = SW.sorted_window_plain(func, b.ts, b.vals, b.lens, int(start - BASE),
+                                          30_000, window, 120, q, a1)
+            want[S:] = float("nan")
+            gap = ulp_gap(got[:, :120], want)
+            require(gap <= 2, f"2d sorted {func}{args} {kind} S={S} T={T}: {gap} ulp")
+            require(SW.LAST_PLAN == SW.sorted_plan(T) and SW.LAST_PLAN.staged == (T < 8_192),
+                    f"2d: the sorted plan at T = {T}")
+            worst_ulp = max(worst_ulp, gap)
+        if kind == "long":
+            from filodb_tpu_torch.ops.kernels import _bounds
+
+            out_t = (int(start - BASE) + torch.arange(120, device=device) * 30_000).to(torch.int32)
+            lo, hi = _bounds(b.ts, b.lens, out_t, torch.tensor(window, dtype=torch.int32,
+                                                               device=device))
+            long_windows += int(((hi - lo) > SW.LANE_CAP).sum())
+        gids = AGG.zero_gids(b)
+        for func, args in TREE_ARG_CASES:
+            got = GR.general_range_series(func, b, gids, 1, params, args=args)
+            launches += 1
+            want = GA.series_grid(GR.general_range_series_plain(func, b, params, args=args), gids,
+                                  1, 120)
+            arg_err = max(arg_err, compare(got, want, f"2d {func}{args} {kind} S={S} T={T}",
+                                           rtol=2e-4, atol=1e-4))
+    require(long_windows > 0, "2d: no window reached the warp's radix route")
+    rng = np.random.default_rng(seed)
+    G, J, les = 40, 111, np.array([-1, 0.1, 0.5, 1, 5, np.inf], np.float32)
+    part = torch.tensor(np.cumsum(rng.poisson(3.0, (G, len(les), J)), axis=1)
+                        .reshape(G * len(les), J).astype(np.float32), device=device)
+    part[5:9, 3:7] = float("nan")
+    table = torch.arange(G * len(les), dtype=torch.int32, device=device).reshape(G, -1)
+    rows = torch.arange(G, dtype=torch.int32, device=device)
+    les_t = torch.tensor(les, device=device)
+    for q in (-0.1, 0.0, 0.5, 0.99, 1.0, 1.1):
+        out = torch.full((G, 128), float("nan"), device=device)
+        HK.histogram_quantile_gather(q, part, table, rows, les_t, J, out)
+        want = HK.histogram_quantile_gather_plain(q, part, table, les_t, J)
+        require(torch.equal(torch.isnan(out[:, :J]), torch.isnan(want)) and torch.equal(
+            out[:, :J][~torch.isnan(want)], want[~torch.isnan(want)]),
+            f"2d hist_quantile_gather q={q}: differs from plain")
+    print(f"phase2d sorted_window ({len(TREE_SORTED_CASES)} functions x {len(blocks)} blocks, "
+          f"{long_windows} windows past the {SW.LANE_CAP}-sample lane cap on the warp's radix "
+          f"route, rows of 8192 read in place) within "
+          f"{worst_ulp} ulp of plain; predict_linear and Holt-Winters on the general kernel "
+          f"match plain (max_abs_err {arg_err:.3g}); hist_quantile_gather bit-equal to plain "
+          f"at q in -0.1..1.1")
+    return {"sorted_max_ulp": worst_ulp, "arg_max_abs_err": arg_err, "launches": launches,
+            "radix_windows": long_windows}
+
+
+# -- phase 10: the reference tree at full width ------------------------------------
+
+# (query, rung on the irregular store, rung on the regular store)
+TREE_QUERIES = (
+    ("rate(http_requests_total[5m])", "window_stats", "mxu"),
+    ("http_requests_total", "window_stats", "mxu"),
+    ("irate(http_requests_total[5m])", "general", "mxu"),
+    ("quantile_over_time(0.9, http_requests_total[5m])", "sorted", "sorted"),
+    ("mad_over_time(http_requests_total[5m])", "sorted", "sorted"),
+    ("predict_linear(http_requests_total[5m], 600)", "general", "general"),
+    ("holt_winters(http_requests_total[5m], 0.3, 0.1)", "general", "general"),
+    ("timestamp_of_last_sample(http_requests_total[5m])", "host", "host"),
+    ("rate(http_requests_total[5m] offset 1m)", "window_stats", "mxu"),
+)
+TREE_KERNELS = {"mxu": "regular_range", "window_stats": "window_range",
+                "general": "general_range", "sorted": "sorted_window", "host": None}
+# operations per in-window sample of the tree's general functions, and their rate
+TREE_GENERAL_OPS = {"irate": (0, F32_OPS_PER_S), "predict_linear": (6, F64_OPS_PER_S),
+                    "double_exponential_smoothing": (8, F32_OPS_PER_S)}
+
+
+def run_tree(engine, q: str, rung: str):
+    """One unaggregated query through the user's entry point, every launch
+    count set to 0 just before and read just after: each shard leaf must
+    take ``rung`` and launch its kernel once (none for the host rung), and
+    no other kernel may launch. Returns the result, its [S, J] rows on the
+    host and the end-to-end seconds."""
+    import importlib
+
+    from filodb_tpu_torch.ops import kernels as K
+
+    mods = {name: importlib.import_module(f"filodb_tpu_torch.ops.{mod}")
+            for name, (mod, _) in KERNEL_COUNTERS.items()}
+    seen = []
+    dispatch = K._dispatch_range_function
+
+    def watched(*a, **k):
+        out = dispatch(*a, **k)
+        seen.append(out[1])
+        return out
+
+    K._dispatch_range_function = watched
+    try:
+        for name, (_, attr) in KERNEL_COUNTERS.items():
+            setattr(mods[name], attr, 0)
+        t0 = time.perf_counter()
+        res = engine.query_range(q, START_S, END_S, STEP_S)
+        rows = np.concatenate([g.values_np() for g in res.grids])
+        wall = time.perf_counter() - t0
+        counts = {name: getattr(mods[name], attr) for name, (_, attr) in KERNEL_COUNTERS.items()}
+    finally:
+        K._dispatch_range_function = dispatch
+    leaves = len(res.grids)
+    require(seen == [rung] * leaves, f"{q}: rungs {seen}, expected {rung} on {leaves} leaves")
+    want = {k: leaves if k == TREE_KERNELS[rung] else 0 for k in KERNEL_COUNTERS}
+    require(counts == want, f"{q}: launches {counts}, expected {want}")
+    return res, rows, wall
+
+
+def tree_leaves(engine, q: str):
+    """The query's leaves with their staged selections (warm: served from
+    the shards' staging caches, the device copies the query read): a list
+    of (mapper, RawGrid)."""
+    from filodb_tpu_torch.query.exec.plans import SelectRawPartitionsExec
+
+    plan = exec_node(engine, q)
+    leaves = plan.children() if plan.children() else [plan]
+    ctx = engine.context()
+    out = []
+    for leaf in leaves:
+        require(isinstance(leaf, SelectRawPartitionsExec), f"{q}: a leaf is {type(leaf)}")
+        for rg in leaf.do_execute(ctx).raw_grids:
+            out.append((leaf.transformers[0], rg))
+    require(ctx.stats.cache_misses == 0 and ctx.stats.bytes_staged == 0,
+            f"{q}: the leaves' warm reads staged ({ctx.stats})")
+    return out
+
+
+def tree_plain(mapper, rg):
+    """The leaf's [S, J] values through the plain version of its rung, on
+    the card."""
+    from filodb_tpu_torch.ops import general_range as GR
+    from filodb_tpu_torch.ops import mxu_kernels as MK
+    from filodb_tpu_torch.ops import sorted_window as SW
+    from filodb_tpu_torch.ops import window_stats as WS
+    from filodb_tpu_torch.ops.kernels import pad_steps, range_kernel_plain
+
+    func, params, b = mapper.function or "last", mapper.range_params(), rg.block
+    J, start_off = params.num_steps, int(params.start_ms - b.base_ms)
+    kw = {"is_counter": rg.is_counter, "is_delta": rg.is_delta}
+    variant = tree_variant(mapper, rg)
+    if variant == "host":  # the f32 ms offset of the last sample, exact below 2^24 ms
+        raw = b.raw if b.raw is not None else b.vals
+        t = range_kernel_plain("timestamp", b.ts, b.vals, b.lens, b.baseline, raw, start_off,
+                               params.step_ms, params.window_ms, J)
+        return (t.double() + b.base_ms) / 1e3
+    if variant == "sorted":
+        q, a1 = SW.func_args(mapper.args)
+        return SW.sorted_window_plain(func, b.ts, b.vals, b.lens, start_off, params.step_ms,
+                                      params.window_ms, J, q, a1)
+    if variant == "general":
+        return GR.general_range_series_plain(func, b, params, args=mapper.args, **kw)[:, :J]
+    if variant == "window_stats":
+        return WS.window_range_series_plain(func, b, params, **kw)[:, :J]
+    raw = b.raw if b.raw is not None else b.vals
+    wm = MK.window_matrices(b, start_off, params.step_ms, pad_steps(J), params.window_ms)
+    return MK.mxu_range_plain(func, b.vals, raw, wm, params.window_ms, **kw)[:, :J]
+
+
+def tree_variant(mapper, rg) -> str:
+    from filodb_tpu_torch.ops import aggregations as AGG
+    from filodb_tpu_torch.ops import general_range as GR
+    from filodb_tpu_torch.ops import sorted_window as SW
+
+    func = mapper.function or "last"
+    if func == "timestamp":
+        return "host"
+    if func in SW.SORTED_FUNCS:
+        return "sorted"
+    if func in GR.ARG_FUNCS:
+        return "general"
+    return AGG.grid_variant(rg.block, func, rg.is_delta)
+
+
+def tree_launch(mapper, rg):
+    """One store-mode (or sorted-window) launch of the leaf's rung into a
+    buffer of its own, for timing: returns the launch as a closure."""
+    import torch
+
+    from filodb_tpu_torch.ops import aggregations as AGG
+    from filodb_tpu_torch.ops import general_range as GR
+    from filodb_tpu_torch.ops import group_acc as GA
+    from filodb_tpu_torch.ops import mxu_kernels as MK
+    from filodb_tpu_torch.ops import sorted_window as SW
+    from filodb_tpu_torch.ops import window_stats as WS
+    from filodb_tpu_torch.ops.kernels import pad_steps
+
+    func, params, b = mapper.function or "last", mapper.range_params(), rg.block
+    J, S = params.num_steps, b.ts.shape[0]
+    variant = tree_variant(mapper, rg)
+    gids = AGG.zero_gids(b)
+    if variant == "sorted":
+        out = torch.full((S, pad_steps(J)), float("nan"), device=b.ts.device)
+        q, a1 = SW.func_args(mapper.args)
+        return lambda: SW._launch(func, b, params, q, a1, out)
+    out = GA.series_buffer(S, pad_steps(J), J, b.ts.device)
+    if variant == "general":
+        return lambda: GR._launch(func, GA.STORE, b, gids, 1, params, rg.is_counter, rg.is_delta,
+                                  out, out, args=mapper.args)
+    if variant == "window_stats":
+        return lambda: WS._launch_range(func, GA.STORE, b, gids, 1, params, rg.is_counter,
+                                        rg.is_delta, out, out)
+    raw = b.raw if b.raw is not None else b.vals
+    wm = MK.window_matrices(b, int(params.start_ms - b.base_ms), params.step_ms, pad_steps(J),
+                            params.window_ms)
+    return lambda: MK._launch(func, GA.STORE, b.vals, raw, gids, 1, wm, J, rg.is_counter,
+                              rg.is_delta, out, out)
+
+
+def tree_bound(leaves, variant: str) -> dict:
+    """The least time of the query's launches (one per leaf): bytes (each
+    real sample's timestamp and value read once -- the value alone on the
+    regular rung, raw too where the rung reads it -- each row's length,
+    the [S, J] output written once) over 3.35 TB/s, or the operations of
+    this run's windows over the peak rate of their type: the sorted
+    windows' n log2 n comparisons, the general functions' per-sample
+    arithmetic (``TREE_GENERAL_OPS``), whichever is larger."""
+    import torch
+
+    from filodb_tpu_torch.ops import general_range as GR
+    from filodb_tpu_torch.ops import window_stats as WS
+    from filodb_tpu_torch.ops.kernels import _bounds
+
+    need = ops = samples = 0
+    rate = F32_OPS_PER_S
+    for mapper, rg in leaves:
+        b, params, func = rg.block, mapper.range_params(), mapper.function or "last"
+        n, J = rg.block.n_series, params.num_steps
+        real = int(b.host_block.lens.sum()) if b.host_block is not None else int(b.lens.sum())
+        per = {"mxu": 4 * (2 if rg.is_counter and func in ("rate", "increase") else 1),
+               "window_stats": 4 * WS.staged_arrays(func, rg.is_counter, rg.is_delta),
+               "general": 4 * GR.staged_arrays(func, rg.is_counter, rg.is_delta),
+               "sorted": 8}[variant]
+        need += real * per + n * 4 + n * J * 4
+        if variant in ("sorted", "general"):
+            dev = b.ts.device
+            out_t = (int(params.start_ms - b.base_ms)
+                     + torch.arange(J, device=dev, dtype=torch.int64) * params.step_ms
+                     ).to(torch.int32)
+            lo, hi = _bounds(b.ts[:n], b.lens[:n], out_t,
+                             torch.tensor(params.window_ms, dtype=torch.int32, device=dev))
+            w = (hi - lo).clamp(min=0).double()
+            samples += int(w.sum())
+            if variant == "sorted":
+                ops += float((w * torch.log2(torch.clamp(w, min=1.0))).sum())
+            else:
+                per_sample, rate = TREE_GENERAL_OPS[func]
+                ops += int(w.sum()) * per_sample
+    bytes_ms, ops_ms = need / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bound_bytes": need,
+            "bytes_ms": bytes_ms, "operations": ops, "operations_ms": ops_ms,
+            "window_samples": samples}
+
+
+def dev_copies(engine) -> dict:
+    """id of every staging-cache entry's device copy, by (shard, key)."""
+    ms = engine.memstore
+    return {(s, k): id(e.dev_block) for s in ms.shard_nums(engine.dataset)
+            for k, e in ms.shard(engine.dataset, s).stage_cache.items()}
+
+
+def host_split(engine, q: str) -> dict:
+    """A warm query taken apart on the host: planning, the plan's execution
+    (cache hits, launches, the label strip), the label strip alone, and the
+    D2H of the [S, J] rows."""
+    import torch
+
+    from filodb_tpu_torch.query.exec.transformers import _strip_metric
+    from filodb_tpu_torch.query.promql import query_range_to_logical_plan
+
+    t0 = time.perf_counter()
+    plan = engine.planner.materialize(query_range_to_logical_plan(q, START_S, END_S, STEP_S))
+    t1 = time.perf_counter()
+    res = plan.execute(engine.context())
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for g in res.grids:
+        g.values_np()
+    t3 = time.perf_counter()
+    labels = [l for g in res.grids for l in g.labels]
+    t4 = time.perf_counter()
+    [_strip_metric(l) for l in labels]
+    t5 = time.perf_counter()
+    return {"plan_ms": (t1 - t0) * 1e3, "execute_ms": (t2 - t1) * 1e3, "d2h_ms": (t3 - t2) * 1e3,
+            "label_strip_ms": (t5 - t4) * 1e3}
+
+
+def phase_tree(engine, card: str, grid: str, sum_rate: np.ndarray) -> dict:
+    """Phase 10: the reference tree on a 100k-series store (phase 4's
+    irregular or phase 5's regular one): every ``TREE_QUERIES`` query
+    through ``QueryEngine`` cold (fresh caches: every shard staged again)
+    then warm (every shard leaf a staging-cache hit on the same device
+    copy: nothing staged, nothing uploaded), one launch of its rung's
+    kernel per leaf and no other kernel; the [S, J] rows against the
+    plain path on the card (rtol 1e-3, NaN masks equal); rate summed on
+    the host against phase 4/5's sum(rate) (rtol 1e-3). Prints cold and
+    warm latency, the host split and the kernel's ms beside its bound and
+    the plain version's ms."""
+    import torch
+
+    out = {}
+    for q, irr_rung, reg_rung in TREE_QUERIES:
+        rung = reg_rung if grid == "regular" else irr_rung
+        cold_cache(engine)
+        cold, cold_rows, cold_s = run_tree(engine, q, rung)
+        copies = dev_copies(engine)
+        warm, rows, warm_s = run_tree(engine, q, rung)
+        leaves = len(warm.grids)
+        st = warm.stats
+        require(st.cache_hits == leaves and st.cache_misses == 0 and st.bytes_staged == 0,
+                f"{q}: the warm run must hit every leaf's staging cache, stats {st}")
+        require(dev_copies(engine) == copies, f"{q}: the warm run made new device copies")
+        require(np.array_equal(np.isnan(rows), np.isnan(cold_rows)) and np.allclose(
+            rows, cold_rows, rtol=1e-3, equal_nan=True), f"{q}: warm differs from cold")
+        pairs = tree_leaves(engine, q)
+        want = torch.cat([tree_plain(m, rg)[: rg.block.n_series] for m, rg in pairs])
+        got = torch.as_tensor(rows, device=want.device, dtype=want.dtype)
+        err = compare(got, want, f"phase10 {grid} {q}", rtol=1e-3)
+        require(rows.shape[0] == N_SERIES and np.isfinite(rows).any(), f"{q}: {rows.shape}")
+        if q == TREE_QUERIES[0][0]:
+            total = np.nansum(rows.astype(np.float64), axis=0)
+            require(np.allclose(total, sum_rate[0], rtol=1e-3),
+                    f"{q}: the rows' sum differs from sum(rate)")
+        split = host_split(engine, q)
+        row = {"rung": rung, "leaves": leaves, "cold_ms": cold_s * 1e3, "warm_ms": warm_s * 1e3,
+               "staging_ms": (cold_s - warm_s) * 1e3, "max_abs_err": err, **split,
+               "launches": 2 * leaves if rung != "host" else 0}
+        if rung != "host":
+            launches = [tree_launch(m, rg) for m, rg in pairs]
+
+            def kernels():
+                for launch in launches:
+                    launch()
+
+            gpu_sample(f"phase10 {grid} {q!r} before")
+            row["kernel_ms"] = cuda_ms(kernels, reps=20)
+            row["kernel_ms_back_to_back"] = back_to_back_ms(kernels, reps=20)
+            gpu_sample(f"phase10 {grid} {q!r} after")
+            row["plain_ms"] = cuda_ms(lambda: [tree_plain(m, rg) for m, rg in pairs], reps=1,
+                                      warmup=0)
+            row.update(tree_bound(pairs, rung))
+            kern = (f"{TREE_KERNELS[rung]} x {leaves} leaves {row['kernel_ms']:.4f} ms (median "
+                    f"of 20; {row['kernel_ms_back_to_back']:.4f} ms back to back), bound "
+                    f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {row['bound_bytes']} bytes, "
+                    f"{row['operations']:.4g} operations), plain {row['plain_ms']:.2f} ms")
+        else:
+            kern = "no kernel (timestamp stays host f64)"
+        print(f"phase10 {grid} {q!r}: {rung}, {leaves} leaves, {rows.shape[0]} series x "
+              f"{rows.shape[1]} steps; cold {row['cold_ms']:.1f} ms, warm {row['warm_ms']:.1f} "
+              f"ms (hit on every leaf, no staging, the same device copies); warm split: plan "
+              f"{split['plan_ms']:.2f} ms, execute {split['execute_ms']:.2f} ms (of which label "
+              f"strip {split['label_strip_ms']:.2f} ms), D2H of [S, J] {split['d2h_ms']:.2f} "
+              f"ms; rows match plain (max_abs_err {err:.3g}); {kern}; on {card}")
+        out[q] = row
+    return out
+
+
+# -- phase 10b: classic buckets ----------------------------------------------------
+
+CLASSIC_SETS = 10_000  # label sets x 12 le bounds = 120,000 classic bucket series
+CLASSIC_QUERIES = (
+    (0.99, "histogram_quantile(0.99, sum by (le) (rate(http_request_latency_bucket[5m])))"),
+    (0.9, "histogram_quantile(0.9, sum by (le, zone) (rate(http_request_latency_bucket[5m])))"),
+)
+
+
+def le_label(le: float) -> str:
+    return "+Inf" if np.isinf(le) else f"{le:g}"
+
+
+def build_memstore_classic(n_sets: int):
+    """``n_sets`` label sets of bench.py's histograms (the first ``n_sets``
+    of ``build_memstore_hist``'s draws, seed 42) as classic bucket series:
+    one ``http_request_latency_bucket{le=...}`` counter per bucket, 720
+    samples at exactly 10 s on 8 shards; zone z{i % 8}. Returns the store
+    and the f64 sums over each zone's series of each bucket's extrapolated
+    rate at the query grid (bench.py's oracle, ``cpu_baseline_hist``'s
+    windows), [8, J, B]."""
+    from filodb_tpu_torch.core.records import SeriesBatch
+    from filodb_tpu_torch.core.schemas import METRIC_TAG, PROM_COUNTER, Dataset, shard_for
+    from filodb_tpu_torch.memstore.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.memstore.shard import StoreConfig
+
+    rng = np.random.default_rng(HIST_SEED)
+    ts = BASE + np.arange(N_SAMPLES, dtype=np.int64) * 10_000
+    ms = TimeSeriesMemStore(StoreConfig(max_chunk_size=N_SAMPLES))
+    ms.setup(Dataset("prometheus"), range(N_SHARDS))
+    lo_c, hi_c, factor = oracle_windows()
+    zone_sums = np.zeros((8, len(factor), N_BUCKETS))
+    blk = 2_000
+    for b0 in range(0, n_sets, blk):
+        n = min(blk, n_sets - b0)
+        incr = rng.poisson(2.0, size=(n, N_SAMPLES, N_BUCKETS)).astype(np.float64)
+        incr[..., -1] = incr.sum(-1)
+        hist = np.cumsum(np.cumsum(incr, axis=2), axis=1)
+        rng.uniform(0, 5, size=(n, N_SAMPLES))  # bench.py's sums: keep its stream
+        rates = (hist[:, hi_c] - hist[:, lo_c]) * factor[None, :, None] / (WINDOW_MS / 1e3)
+        for z in range(8):
+            zone_sums[z] += np.nansum(rates[(np.arange(b0, b0 + n) % 8) == z], axis=0)
+        for i in range(n):
+            for b, le in enumerate(HIST_LES):
+                tags = {METRIC_TAG: "http_request_latency_bucket", "_ws_": "demo",
+                        "_ns_": "App-2", "instance": f"host-{b0 + i}", "zone": f"z{(b0 + i) % 8}",
+                        "le": le_label(le)}
+                shard = ms.shard("prometheus", shard_for(tags, spread=SPREAD,
+                                                         num_shards=N_SHARDS))
+                shard.ingest_series(SeriesBatch(PROM_COUNTER, tags, ts, {"count": hist[i, :, b]}))
+    return ms, zone_sums
+
+
+def oracle_windows():
+    """bench.py's windows of the query grid on the 10 s grid from BASE:
+    the first and last sample of each step's window, and the f64
+    extrapolation factor (NaN below two samples)."""
+    num_steps = int((END_S - START_S) // STEP_S) + 1
+    out_t = np.int64(START_S * 1000) + np.arange(num_steps, dtype=np.int64) * int(STEP_S * 1000)
+    t0g = BASE + np.arange(N_SAMPLES, dtype=np.int64) * 10_000
+    hi1 = np.searchsorted(t0g, out_t, side="right")
+    lo1 = np.searchsorted(t0g, out_t - WINDOW_MS, side="right")
+    cnt = hi1 - lo1
+    lo_c, hi_c = np.minimum(lo1, N_SAMPLES - 1), np.minimum(hi1 - 1, N_SAMPLES - 1)
+    tf, tl = t0g[lo_c] / 1e3, t0g[hi_c] / 1e3
+    sampled = tl - tf
+    dur_start = tf - (out_t / 1e3 - WINDOW_MS / 1e3)
+    dur_end = out_t / 1e3 - tl
+    avg_dur = sampled / np.maximum(cnt - 1, 1)
+    ds = np.where(dur_start >= avg_dur * 1.1, avg_dur / 2, dur_start)
+    de = np.where(dur_end >= avg_dur * 1.1, avg_dur / 2, dur_end)
+    return lo_c, hi_c, np.where(cnt >= 2, (sampled + ds + de) / np.maximum(sampled, 1e-30),
+                                np.nan)
+
+
+def oracle_quantile(q: float, bucket_sum: np.ndarray) -> np.ndarray:
+    """bench.py's f64 histogram_quantile over [J, B] bucket sums."""
+    les = HIST_LES
+    total = bucket_sum[:, -1]
+    rank = q * total
+    meets = bucket_sum >= rank[:, None]
+    idx = np.where(meets.any(1), np.argmax(meets, axis=1), len(les) - 1)
+    c_hi = np.take_along_axis(bucket_sum, idx[:, None], axis=1)[:, 0]
+    c_lo = np.where(idx > 0, np.take_along_axis(bucket_sum, np.maximum(idx - 1, 0)[:, None],
+                                                axis=1)[:, 0], 0.0)
+    le_lo = np.where(idx > 0, les[np.maximum(idx - 1, 0)], 0.0)
+    frac = (rank - c_lo) / np.maximum(c_hi - c_lo, 1e-30)
+    val = np.where(idx == len(les) - 1, les[-2], le_lo + (les[idx] - le_lo) * frac)
+    return np.where((total > 0) & np.isfinite(total), val, np.nan)
+
+
+def run_classic(engine, q: str):
+    """One classic quantile through the user's entry point, every launch
+    count set to 0 just before and read just after: one launch of the
+    regular rung (the by-(le, ...) aggregate) and one standalone-quantile
+    gather (one bucket scheme), nothing else."""
+    import importlib
+
+    mods = {name: importlib.import_module(f"filodb_tpu_torch.ops.{mod}")
+            for name, (mod, _) in KERNEL_COUNTERS.items()}
+    for name, (_, attr) in KERNEL_COUNTERS.items():
+        setattr(mods[name], attr, 0)
+    t0 = time.perf_counter()
+    res = engine.query_range(q, START_S, END_S, STEP_S)
+    vals = res.grids[0].values_np()
+    wall = time.perf_counter() - t0
+    counts = {name: getattr(mods[name], attr) for name, (_, attr) in KERNEL_COUNTERS.items()}
+    want = {k: int(k in ("regular_range", "hist_quantile_gather")) for k in KERNEL_COUNTERS}
+    require(counts == want, f"{q}: launches {counts}, expected {want}")
+    return res, vals, wall
+
+
+def phase_classic(device, card: str) -> dict:
+    """Phase 10b: ``CLASSIC_QUERIES`` over 10,000 label sets x 12 le
+    bounds (``build_memstore_classic``), each cold then warm: one aggregate
+    launch plus one gather per scheme; [G, J] against the plain fold of the
+    same aggregate (rtol 1e-3) and bench.py's f64 oracle (rtol 5e-3); the
+    gather's ms beside its bound and the plain fold's ms."""
+    import torch
+
+    from filodb_tpu_torch.coordinator.planner import QueryEngine
+    from filodb_tpu_torch.ops import aggregations as AGG
+    from filodb_tpu_torch.ops import hist_kernels as HK
+    from filodb_tpu_torch.query.exec.transformers import classic_pivot
+
+    t0 = time.perf_counter()
+    ms, zone_sums = build_memstore_classic(CLASSIC_SETS)
+    print(f"phase10b ingest: {CLASSIC_SETS} label sets x {N_BUCKETS} le bounds = "
+          f"{CLASSIC_SETS * N_BUCKETS} classic bucket series x {N_SAMPLES} samples on "
+          f"{N_SHARDS} shards in {time.perf_counter() - t0:.1f} s")
+    engine = QueryEngine(ms, "prometheus")
+    out = {}
+    for q, query in CLASSIC_QUERIES:
+        cold_cache(engine)
+        cold, cold_vals, cold_s = run_classic(engine, query)
+        warm, vals, warm_s = run_classic(engine, query)
+        require(warm.stats.cache_hits == 1 and warm.stats.cache_misses == 0,
+                f"{query}: the warm run must hit the superblock, stats {warm.stats}")
+        labels = warm.grids[0].labels
+        ex = exec_node(engine, query)
+        entry = ex.superblock(engine.context())
+        gids, G, params = path_args(entry, ex)
+        agg = AGG.fused_range_aggregate(ex.function, ex.op, entry.block, gids, G, params,
+                                        is_counter=entry.is_counter, is_delta=entry.is_delta)
+        _, group_labels = AGG.group_ids_memo(entry.block, entry.labels, ex.by, ex.without,
+                                             strip_metric=True)[1:]
+        pivot = classic_pivot(group_labels, agg.device)
+        J = ex.num_steps()
+        plain = torch.full((len(pivot.labels), agg.shape[1]), float("nan"), device=agg.device)
+        for table, rws, les in pivot.schemes:
+            plain[rws.long(), :J] = HK.histogram_quantile_gather_plain(q, agg, table, les, J)
+        got = torch.as_tensor(vals, device=agg.device)
+        err = compare(got, plain[:, :J], f"phase10b {query} vs the plain fold", rtol=1e-3)
+        if ex.by == ("le",):
+            want = oracle_quantile(q, zone_sums.sum(0))[None, :]
+        else:
+            want = np.stack([oracle_quantile(q, zone_sums[int(l["zone"][1:])]) for l in labels])
+        oracle_err = compare(got.double(), torch.as_tensor(want, device=agg.device),
+                             f"phase10b {query} vs bench.py's f64 oracle", rtol=5e-3)
+        require(np.isfinite(vals).all(), f"{query}: non-finite quantiles")
+        (table, rws, les), = pivot.schemes
+        buf = torch.full_like(plain, float("nan"))
+
+        def gather():
+            HK.histogram_quantile_gather(q, agg, table, rws, les, J, buf)
+
+        k_ms = cuda_ms(gather, reps=20)
+        k_b2b = back_to_back_ms(gather)
+        p_ms = cuda_ms(lambda: HK.histogram_quantile_gather_plain(q, agg, table, les, J), reps=20)
+        Gq, B = table.shape
+        need = Gq * B * J * 4 + Gq * J * 4 + Gq * B * 4 + Gq * 4 + B * 4
+        bound_ms = need / HBM_BYTES_PER_S * 1e3
+        print(f"phase10b {query!r}: {G} by-(le, ...) groups -> {len(labels)} quantile rows x "
+              f"{J} steps; cold {cold_s * 1e3:.1f} ms, warm {warm_s * 1e3:.1f} ms; one "
+              f"regular_range launch plus one hist_quantile_gather launch (1 scheme) each; "
+              f"matches the plain fold (max_abs_err {err:.3g}) and bench.py's f64 oracle "
+              f"(max_abs_err {oracle_err:.3g}, rtol 5e-3); gather {k_ms:.4f} ms (median of 20; "
+              f"{k_b2b:.4f} ms back to back), bound {bound_ms:.6f} ms ({need} bytes), plain "
+              f"{p_ms:.4f} ms; on {card}")
+        out[query] = {"cold_ms": cold_s * 1e3, "warm_ms": warm_s * 1e3, "groups": G,
+                      "rows": len(labels), "max_abs_err": err, "oracle_max_abs_err": oracle_err,
+                      "kernel_ms": k_ms, "kernel_ms_back_to_back": k_b2b, "plain_ms": p_ms,
+                      "bound_ms": bound_ms, "bound_bytes": need, "aggregate_launches": 2,
+                      "gather_launches": 2}
+    return out
+
+
+# -- phase 10c: time slicing ---------------------------------------------------------
+
+MONTH_SERIES, MONTH_SAMPLE_MS, DAY_MS = 1_000, 300_000, 86_400_000
+MONTH_RANGE = ((BASE + 2 * 3_600_000) / 1000, (BASE + 30 * DAY_MS - 3_600_000) / 1000, 3_600.0)
+MONTH_QUERIES = ("sum(rate(http_requests_total[1h]))", "rate(http_requests_total[1h])")
+
+
+def plain_of(plan, ctx) -> dict:
+    """The plan's rows through the plain versions on the card, by labels:
+    a StitchRvsExec's slices stitched in time, a DistConcatExec's leaves,
+    a leaf's rows, a fused aggregate's [G, J]."""
+    from filodb_tpu_torch.ops import aggregations as AGG
+    from filodb_tpu_torch.ops import mxu_kernels as MK
+    from filodb_tpu_torch.ops import window_stats as WS
+    from filodb_tpu_torch.ops.kernels import pad_steps
+    from filodb_tpu_torch.query.exec import plans as P
+    from filodb_tpu_torch.query.exec.transformers import _strip_metric
+
+    if isinstance(plan, P.StitchRvsExec):
+        parts = [(c, plain_of(c, ctx)) for c in plan.children()]
+        step = parts[0][0].step_ms if isinstance(parts[0][0], P.FusedAggregateExec) else \
+            parts[0][0].children()[0].transformers[0].step_ms
+        starts = [c.start_ms if isinstance(c, P.FusedAggregateExec)
+                  else c.children()[0].transformers[0].start_ms for c, _ in parts]
+        ends = [c.end_ms if isinstance(c, P.FusedAggregateExec)
+                else c.children()[0].transformers[0].end_ms for c, _ in parts]
+        n = (max(ends) - min(starts)) // step + 1
+        out: dict = {}
+        for (c, rows), s0 in zip(parts, starts):
+            off = (s0 - min(starts)) // step
+            for k, v in rows.items():
+                row = out.setdefault(k, np.full(n, np.nan))
+                row[off: off + len(v)] = np.where(np.isnan(row[off: off + len(v)]), v,
+                                                  row[off: off + len(v)])
+        return out
+    if isinstance(plan, P.DistConcatExec):
+        out = {}
+        for c in plan.children():
+            out.update(plain_of(c, ctx))
+        return out
+    if isinstance(plan, P.SelectRawPartitionsExec):
+        out = {}
+        for rg in plan.do_execute(ctx).raw_grids:
+            mapper = plan.transformers[0]
+            vals = tree_plain(mapper, rg)[: rg.block.n_series].double().cpu().numpy()
+            for l, v in zip(rg.labels, vals):
+                out[tuple(sorted(_strip_metric(l).items()))] = v
+        return out
+    entry = plan.superblock(ctx)
+    b = entry.block
+    gids, G, params = path_args(entry, plan)
+    if b.regular_ts is not None:
+        wm = MK.window_matrices(b, int(params.start_ms - b.base_ms), params.step_ms,
+                                pad_steps(params.num_steps), params.window_ms)
+        raw = b.raw if b.raw is not None else b.vals
+        sj = MK.mxu_range_plain(plan.function, b.vals, raw, wm, params.window_ms,
+                                is_counter=entry.is_counter, is_delta=entry.is_delta)
+        g = AGG.apply_epilogue(sj, ("agg", plan.op), gids, G)
+    else:
+        g = WS.window_range_aggregate_plain(plan.function, plan.op, b, gids, G, params,
+                                            is_counter=entry.is_counter, is_delta=entry.is_delta)
+    _, _, labels = AGG.group_ids_memo(entry.block, entry.labels, plan.by, plan.without,
+                                      strip_metric=True)
+    vals = g[:, : plan.num_steps()].double().cpu().numpy()
+    return {tuple(sorted(l.items())): v for l, v in zip(labels, vals)}
+
+
+def phase_month(device, card: str) -> dict:
+    """Phase 10c: 1,000 counters at one sample per 5 min over 30 days (more
+    than a staged block's int32 ms span): ``MONTH_QUERIES`` over the whole
+    range at 1 h steps plan a ``StitchRvsExec`` of two time slices and equal
+    the plain path on the card (rtol 1e-3, NaN masks equal)."""
+    import torch
+
+    from filodb_tpu_torch.coordinator.planner import QueryEngine
+    from filodb_tpu_torch.core.records import SeriesBatch
+    from filodb_tpu_torch.core.schemas import PROM_COUNTER, Dataset, shard_for
+    from filodb_tpu_torch.memstore.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.query.exec import plans as P
+    from filodb_tpu_torch.query.promql import query_range_to_logical_plan
+
+    rng = np.random.default_rng(17)
+    n = 30 * DAY_MS // MONTH_SAMPLE_MS
+    ts = BASE + np.arange(n, dtype=np.int64) * MONTH_SAMPLE_MS
+    ms = TimeSeriesMemStore()
+    ms.setup(Dataset("prometheus"), range(N_SHARDS))
+    for i in range(MONTH_SERIES):
+        tags = series_tags(i)
+        ms.shard("prometheus", shard_for(tags, spread=SPREAD, num_shards=N_SHARDS)).ingest_series(
+            SeriesBatch(PROM_COUNTER, tags, ts, {"count": np.cumsum(rng.uniform(0, 10, n)) + 1e6}))
+    engine = QueryEngine(ms, "prometheus")
+    start, end, step = MONTH_RANGE
+    out = {}
+    for q in MONTH_QUERIES:
+        plan = engine.planner.materialize(query_range_to_logical_plan(q, start, end, step))
+        require(isinstance(plan, P.StitchRvsExec) and len(plan.children()) == 2,
+                f"{q}: planned {type(plan).__name__}, not two stitched slices")
+        t0 = time.perf_counter()
+        res = engine.query_range(q, start, end, step)
+        got = {tuple(sorted(l.items())): v for g in res.grids
+               for l, v in zip(g.labels, g.values_np())}
+        wall = time.perf_counter() - t0
+        want = plain_of(plan, engine.context())
+        require(sorted(got) == sorted(want), f"{q}: labels differ from the plain path")
+        err = max(compare(torch.as_tensor(got[k], dtype=torch.float64),
+                          torch.as_tensor(want[k]), f"phase10c {q}", rtol=1e-3) for k in want)
+        steps = len(next(iter(got.values())))
+        require(all(np.isfinite(v).mean() > 0.99 for v in got.values()), f"{q}: gaps")
+        print(f"phase10c {q!r}: 30 days at {int(step)} s steps ({steps} steps) as a "
+              f"StitchRvsExec of 2 slices ({', '.join(type(c).__name__ for c in plan.children())}),"
+              f" {len(got)} rows in {wall * 1e3:.1f} ms (cold); equals the plain path "
+              f"(max_abs_err {err:.3g}); on {card}")
+        out[q] = {"rows": len(got), "steps": steps, "cold_ms": wall * 1e3, "max_abs_err": err}
+    return out
+
+
+
+def tree_kernel_rows(tree: dict, kernels: dict, classic: dict, rung_rows: dict) -> list:
+    """The kernels line's rows of the tree's kernels (sorted_window, the
+    general kernel's predict_linear and Holt-Winters, the standalone
+    quantile), timed at phase 10's irregular store (phase 10b for the
+    quantile); phase 10's launches of the older rungs go to their rows."""
+    irr = tree["irregular"]
+    for per_store in tree.values():
+        for q, row in per_store.items():
+            func_rung = row["rung"]
+            if func_rung in rung_rows and not q.startswith(("predict_linear", "holt_winters")):
+                rung_rows[func_rung]["launches"] += row["launches"]
+
+    def row_of(name, source, replaces, queries, err, library=None):
+        runs = [tree[g][q] for g in tree for q in queries]
+        first = irr[queries[0]]
+        return {"name": name, "route": "cuda", "source": f"filodb_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": sum(r["launches"] for r in runs),
+                "max_abs_err": max([err] + [r["max_abs_err"] for r in runs]),
+                "ms": first["kernel_ms"], "plain_ms": first["plain_ms"],
+                "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+                "library_ms": None, "library_call": library or "none",
+                "ms_back_to_back": first["kernel_ms_back_to_back"],
+                "ms_is": f"{queries[0]}, phase 10, irregular store, all 8 leaves' launches",
+                "queries": {g: {q: tree[g][q] for q in queries} for g in tree}}
+
+    sorted_q = [q for q, r, _ in TREE_QUERIES if r == "sorted"]
+    rows = [
+        row_of("sorted_window", "sorted_window.cu", "filodb_tpu/ops/kernels.py:333", sorted_q,
+               0.0, "none: no torch call takes a quantile of every sliding window"),
+        row_of("general_range predict_linear", "general_range.cu",
+               "filodb_tpu/ops/kernels.py:232",
+               ["predict_linear(http_requests_total[5m], 600)"], kernels["arg_max_abs_err"]),
+        row_of("general_range holt_winters", "general_range.cu", "filodb_tpu/ops/kernels.py:289",
+               ["holt_winters(http_requests_total[5m], 0.3, 0.1)"], kernels["arg_max_abs_err"]),
+    ]
+    rows[0]["sorted_max_ulp_phase2d"] = kernels["sorted_max_ulp"]
+    rung_rows["mxu"]["launches"] += sum(r["aggregate_launches"] for r in classic.values())
+    first = classic[CLASSIC_QUERIES[0][1]]
+    rows.append({
+        "name": "hist_quantile_gather", "route": "cuda",
+        "source": "filodb_tpu_torch/csrc/hist_range.cu",
+        "replaces": "filodb_tpu/ops/hist_kernels.py:86",
+        "launches": sum(r["gather_launches"] for r in classic.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in classic.values()),
+        "ms": first["kernel_ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "library_call": "none: no torch call interpolates histogram_quantile",
+        "ms_back_to_back": first["kernel_ms_back_to_back"],
+        "ms_is": f"{CLASSIC_QUERIES[0][1]}, phase 10b", "queries": classic})
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2700,10 +3551,12 @@ def main() -> int:
     phase_fused_vs_plain(args.seed, device)
     phase_regular_vs_plain(args.seed, device)
     general_err = phase_general_vs_plain(args.seed, device)
+    tree_kernels = phase_tree_kernels_vs_plain(args.seed, device)
     gpu_sample("phase3 after")
     wr_row, ws_row, engine, rate_result = phase_irregular_path(args.seed, device)
     general = phase_general_path(engine, card, rate_result)
     epilogues = phase_epilogues(engine, card, EPILOGUE_IRREGULAR, "irregular")
+    tree = {"irregular": phase_tree(engine, card, "irregular", rate_result)}
     del engine
     gc.collect()  # the irregular store goes before the regular one is built
     torch.cuda.empty_cache()
@@ -2713,6 +3566,8 @@ def main() -> int:
     reg_row["launches"] += live["launches"]
     general_regular = phase_general_regular(engine, card)
     epilogues.update(phase_epilogues(engine, card, EPILOGUE_REGULAR, "regular"))
+    reg_rate = engine.query_range(QUERIES[0], START_S, END_S, STEP_S).grids[0].values_np()
+    tree["regular"] = phase_tree(engine, card, "regular", reg_rate)
     del engine
     gc.collect()  # the regular store goes before the jittered one is built
     torch.cuda.empty_cache()
@@ -2738,6 +3593,12 @@ def main() -> int:
     gc.collect()  # the irregular store goes before the card block is made
     torch.cuda.empty_cache()
     card_hist = phase_hist_card_block(device, split_libs)
+    gc.collect()  # the card block goes before the classic store is built
+    torch.cuda.empty_cache()
+    classic = phase_classic(device, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    month = phase_month(device, card)
     launches = add_launches(bench_hist["launches"], irr_hist["launches"])
     hist_rows = [{
         "name": "hist_range",
@@ -2809,8 +3670,12 @@ def main() -> int:
     order_rows = epilogue_rows(epilogues, {"window_stats": wr_row, "general": general_row,
                                            "mxu": reg_row}, order_stream)
     print(json.dumps({"epilogues": {"phase9": epilogues, "phase9b": order_stream}}))
+    tree_rows = tree_kernel_rows(tree, tree_kernels, classic,
+                                 {"window_stats": wr_row, "mxu": reg_row, "general": general_row})
+    print(json.dumps({"tree": {"phase2d": tree_kernels, "phase10": tree, "phase10b": classic,
+                               "phase10c": month}}))
     print(json.dumps({"kernels": [ws_row, wr_row, general_row, reg_row, *hist_rows,
-                                  *order_rows]}))
+                                  *order_rows, *tree_rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

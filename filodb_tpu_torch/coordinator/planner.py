@@ -1,17 +1,28 @@
 """Query planning and the engine facade (counterpart of
 ``filodb_tpu/coordinator/planner.py``; reference SingleClusterPlanner.scala).
 
-The port plans one shape: ``op by (...) (func(selector[w] [offset d]))``
-(or over a bare selector) with ``op`` in sum/count/avg/min/max and
-``func`` in the JAX package's fused set ``FUSED_FUNCS``, which becomes a
-``FusedAggregateExec``, and ``histogram_quantile(q, sum ... (...))`` of it,
-whose interpolation fuses into the same node; and the fused epilogues
-(``FUSED_EPI_OPS``): global ``topk``/``bottomk(k, ...)`` and ``quantile
-[by (...)] (q, ...)``. As in the JAX package's fused planner, ``@``,
-range-function arguments, grouped topk/bottomk and epilogue parameters
-other than one number stay off it (the JAX package runs them on its
-reference tree, ROADMAP A4). Every other plan raises
-``NotImplementedError`` naming the missing piece.
+The port plans two families of shapes:
+
+- the reference tree's first part: an unaggregated range function
+  ``func(selector[w] [offset d] [@ t])`` (every function of the JAX
+  ladder, arguments included) or a bare selector becomes one
+  ``SelectRawPartitionsExec`` per shard with a ``PeriodicSamplesMapper``
+  under a ``DistConcatExec`` (``_fanout``);
+- the fused aggregate: ``op by (...) (func(selector[w] [offset d]))`` (or
+  over a bare selector) with ``op`` in sum/count/avg/min/max and ``func``
+  in the JAX package's fused set ``FUSED_FUNCS`` becomes a
+  ``FusedAggregateExec``; ``histogram_quantile(q, sum ... (...))`` of it
+  folds the interpolation in (native histograms, or classic ``le`` series
+  grouped by ``le``); and the fused epilogues (``FUSED_EPI_OPS``): global
+  ``topk``/``bottomk(k, ...)`` and ``quantile [by (...)] (q, ...)``. As in
+  the JAX package's fused planner, ``@``, range-function arguments,
+  grouped topk/bottomk and epilogue parameters other than one number stay
+  off it (the JAX package runs them on its aggregate tree, ROADMAP A3).
+
+A range whose selection spans more than the int32 ms offsets of a staged
+block is cut into time slices planned one by one under a ``StitchRvsExec``
+(``materialize``). Every other plan raises ``NotImplementedError`` naming
+the missing piece.
 """
 
 from __future__ import annotations
@@ -24,9 +35,12 @@ import torch
 
 from ..core.schemas import DatasetOptions, METRIC_TAG, PROM_METRIC_TAG, shard_group, shardkey_hash
 from ..memstore.index import _LITERAL_ALT
+from ..ops import staging as ST
 from ..query import logical as L
-from ..query.exec.plans import (FUSED_AGG_OPS, FUSED_EPI_OPS, ExecPlan, FusedAggregateExec,
-                                QueryContext)
+from ..query.exec.plans import (FUSED_AGG_OPS, FUSED_EPI_OPS, DistConcatExec, EmptyResultExec,
+                                ExecPlan, FusedAggregateExec, QueryContext,
+                                SelectRawPartitionsExec, StitchRvsExec)
+from ..query.exec.transformers import PeriodicSamplesMapper
 from ..query.promql import query_range_to_logical_plan, query_to_logical_plan
 
 # the range functions of the fused path, the JAX package's set
@@ -126,17 +140,94 @@ class SingleClusterPlanner:
             return DatasetOptions()
 
     def materialize(self, plan: L.LogicalPlan) -> ExecPlan:
-        if isinstance(plan, L.Aggregate):
-            return self._try_fused_aggregate(plan)
-        if (isinstance(plan, L.ApplyInstantFunction) and plan.function == "histogram_quantile"
-                and len(plan.args) == 1 and isinstance(plan.args[0], (int, float))
-                and isinstance(plan.inner, L.Aggregate) and plan.inner.op == "sum"):
+        slices = self._wide_range_slices(plan)
+        if slices is None:
+            return self._materialize(plan)
+        # an over-wide range: the raw selector span exceeds a staged block's
+        # int32 ms offsets (staging.MAX_STAGE_SPAN_MS, ~24.8 days), so it is
+        # cut into slices, each staged from its own base, and stitched
+        return self._materialize_sliced(plan, slices)
+
+    def _wide_range_slices(self, plan) -> list[tuple[int, int]] | None:
+        """(delta_start_ms, delta_end_ms) trims cutting an over-wide range
+        query into slices whose raw selector span each fits the staged
+        int32 offsets, or None when the plan fits as it is (or has no range
+        grid to slice along)."""
+        raws = L.leaf_raw_series(plan)
+        if not raws:
+            return None
+        raw_lo = min(r.start_ms for r in raws)
+        raw_hi = max(r.end_ms for r in raws)
+        span = raw_hi - raw_lo
+        if span <= ST.MAX_STAGE_SPAN_MS:
+            return None
+        # the grid lives on the topmost periodic node (Aggregate and the
+        # function wrappers carry no times themselves)
+        node = plan
+        while node is not None and not isinstance(getattr(node, "start_ms", None), int):
+            node = getattr(node, "inner", None) or getattr(node, "vectors", None)
+        start = getattr(node, "start_ms", None)
+        end = getattr(node, "end_ms", None)
+        step = getattr(node, "step_ms", None) or 0
+        if not isinstance(start, int) or not isinstance(end, int) or step <= 0 or end <= start:
+            return None
+        # the window/lookback/offset margins around the grid ride along with
+        # every slice
+        margin = span - (end - start)
+        per = ST.MAX_STAGE_SPAN_MS - margin
+        if per < step:
+            return None  # the window alone overflows: unsliceable
+        k = int(per // step) + 1  # steps per slice: (k-1)*step <= per
+        n = int((end - start) // step) + 1
+        if k >= n:
+            return None
+        return [(a * step, (min(a + k, n) - 1 - (n - 1)) * step) for a in range(0, n, k)]
+
+    def _materialize_sliced(self, plan, slices) -> ExecPlan:
+        return StitchRvsExec([self._materialize(L.narrow_time(plan, ds, de))
+                              for ds, de in slices])
+
+    def _fanout(self, make_leaf, transformers, filters=None) -> ExecPlan:
+        """One leaf per selected local shard, each with ``transformers``,
+        under a ``DistConcatExec`` (one leaf alone; ``EmptyResultExec`` for
+        none)."""
+        leaves = []
+        for s in self.shards_for(filters):
+            leaf = make_leaf(s)
+            leaf.transformers.extend(transformers)
+            leaves.append(leaf)
+        if not leaves:
+            return EmptyResultExec()
+        if len(leaves) == 1:
+            return leaves[0]
+        return DistConcatExec(leaves)
+
+    def _materialize(self, p: L.LogicalPlan) -> ExecPlan:
+        if isinstance(p, L.PeriodicSeries):
+            mapper = PeriodicSamplesMapper(p.start_ms, p.end_ms, p.step_ms, None, None,
+                                           p.lookback_ms, p.offset_ms, p.at_ms)
+            return self._fanout(lambda s: SelectRawPartitionsExec(
+                s, p.raw.filters, p.raw.start_ms, p.raw.end_ms, p.raw.column), [mapper],
+                filters=p.raw.filters)
+        if isinstance(p, L.PeriodicSeriesWithWindowing):
+            mapper = PeriodicSamplesMapper(p.start_ms, p.end_ms, p.step_ms, p.function,
+                                           p.window_ms, offset_ms=p.offset_ms, at_ms=p.at_ms,
+                                           args=p.function_args)
+            return self._fanout(lambda s: SelectRawPartitionsExec(
+                s, p.raw.filters, p.raw.start_ms, p.raw.end_ms, p.raw.column), [mapper],
+                filters=p.raw.filters)
+        if isinstance(p, L.Aggregate):
+            return self._try_fused_aggregate(p)
+        if (isinstance(p, L.ApplyInstantFunction) and p.function == "histogram_quantile"
+                and len(p.args) == 1 and isinstance(p.args[0], (int, float))
+                and isinstance(p.inner, L.Aggregate) and p.inner.op == "sum"):
             # the canonical SRE chain histogram_quantile(q, sum by (le)
             # (rate(m_bucket[w]))): the interpolation fuses into the aggregate
-            return self._try_fused_aggregate(plan.inner, hist_quantile=float(plan.args[0]))
+            return self._try_fused_aggregate(p.inner, hist_quantile=float(p.args[0]))
         raise NotImplementedError(
-            f"{type(plan).__name__} plans are not ported: the port runs "
-            "aggregations over range functions or selectors only")
+            f"{type(p).__name__} plans are not ported: the port runs range functions, "
+            "selectors and aggregations over them (binary operators and instant "
+            "functions are ROADMAP A3)")
 
     def _try_fused_aggregate(self, p: L.Aggregate,
                              hist_quantile: float | None = None) -> FusedAggregateExec:
@@ -145,7 +236,8 @@ class SingleClusterPlanner:
         fuses ``histogram_quantile(q, ...)`` on top (native histograms)."""
         if not self.params.fused_aggregate:
             raise NotImplementedError("the reference scatter tree (fused_aggregate=False) is not ported")
-        tree = "the JAX package's reference tree (ROADMAP A4), which is not ported"
+        tree = ("the JAX package's reference tree (its aggregate part, ROADMAP A3), which is "
+                "not ported")
         if p.op in FUSED_AGG_OPS:
             if p.params:
                 raise NotImplementedError(f"aggregation parameters {p.params!r} are not ported")

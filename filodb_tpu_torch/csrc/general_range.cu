@@ -4,7 +4,9 @@
 // general_range_kernel (entry filodb_general_range_aggregate) replaces the
 // XLA program filodb_tpu/ops/kernels.py:141 range_kernel (B4) for the
 // functions window statistics cannot express -- irate, idelta,
-// stddev/stdvar_over_time, z_score, changes, resets, deriv -- with the
+// stddev/stdvar_over_time, z_score, changes, resets, deriv, and for the
+// reference tree predict_linear(t) and double_exponential_smoothing(sf, tf)
+// (kernels.py:289 _holt_winters; their arguments arg0, arg1) -- with the
 // ("agg", op) epilogue, as filodb_tpu/ops/aggregations.py
 // _fused_general_jit composes them. One launch computes, for every (row s,
 // step j < J), the function over the window (t_j - w, t_j] = samples
@@ -34,7 +36,9 @@
 // 4. Values: lane l takes steps l, l + 32, ...: irate/idelta read the
 //    samples at hi-1 and hi-2, changes/resets the prefix; the stddev family
 //    (two passes: the window sum, then the squared deviations from its
-//    mean), deriv (f64 sums of tc, v, tc^2, tc*v) and changes/resets on rows
+//    mean), deriv and predict_linear (f64 sums of tc, v, tc^2, tc*v),
+//    Holt-Winters (the level/trend recurrence, one sample after the
+//    other) and changes/resets on rows
 //    read in place walk the window four samples at a time into four
 //    (deriv: two) partial sums. The lane owns its steps of the warp's
 //    [steps] run, so values of rows in one group add up there without
@@ -70,7 +74,11 @@
 // dv / max(dt, 1e-30), changes/resets counting lo < i < hi (a cumulative
 // counter's diff-staged value != 0 or < 0, else raw[i] against raw[i-1]),
 // deriv's tc = (t - t_j) seconds rounded to f32 with the 1e-30 guard and
-// NaN below two samples. Two sums differ from range_kernel on purpose, as
+// NaN below two samples (predict_linear: the intercept plus the slope times
+// arg0 seconds, from the same sums), Holt-Winters' first sample as the
+// level, its second setting the trend to x1 - x0 and the level to x1, then
+// level' = sf x + (1 - sf)(level + trend), trend' = tf (level' - level) +
+// (1 - tf) trend, NaN below two samples. Two sums differ from range_kernel on purpose, as
 // in the plain version: the stddev family's mean is the window's own sum,
 // and deriv sums in f64. The build passes -fmad=false so that each f32
 // multiply and add rounds separately, as in the plain PyTorch version.
@@ -99,10 +107,10 @@ __device__ __forceinline__ int32_t wrap_sub(int32_t a, int32_t b) {
 // range functions (ops/general_range.py GENERAL_FUNC_CODES)
 enum GFunc {
     G_IRATE = 0, G_IDELTA, G_STDDEV_OVER_TIME, G_STDVAR_OVER_TIME, G_Z_SCORE, G_CHANGES,
-    G_RESETS, G_DERIV,
+    G_RESETS, G_DERIV, G_PREDICT_LINEAR, G_HOLT_WINTERS,
 };
 // what a function reads of its window: the kernel's template argument
-enum Kind { K_LAST2 = 0, K_MOMENT2, K_PAIRS, K_LSQ };
+enum Kind { K_LAST2 = 0, K_MOMENT2, K_PAIRS, K_LSQ, K_HW };
 
 struct GenArgs {
     const int32_t* ts;
@@ -113,6 +121,7 @@ struct GenArgs {
     int S, T, J, ld, G;
     int32_t start, step, window;
     int func, acc_op;
+    float arg0, arg1;   // predict_linear's horizon (s); Holt-Winters' sf, tf
     int diff_flags;     // a cumulative counter: changes/resets/idelta read diff-staged vals
     int warps;          // warps per block, each on its own row
     int steps;          // steps per slice
@@ -273,7 +282,20 @@ __device__ __forceinline__ float window_value(const GenArgs& a, const int32_t* r
         });
         return (float)total(flagged);
     }
-    // deriv: least-squares slope over (t - t_j) seconds; tc rounds to f32
+    if (KIND == K_HW) {  // Holt-Winters: the level after the window's samples in order
+        if (hi - lo < 2) return group_acc::nan_f();
+        const float sf = a.arg0, tf = a.arg1;
+        float trend = rv[lo + 1] - rv[lo];
+        float level = rv[lo + 1];
+        for (int k = lo + 2; k < hi; ++k) {
+            const float x = rv[k];
+            const float next = sf * x + (1.0f - sf) * (level + trend);
+            trend = tf * (next - level) + (1.0f - tf) * trend;
+            level = next;
+        }
+        return level;
+    }
+    // deriv (and predict_linear): least-squares slope over (t - t_j) seconds; tc rounds to f32
     // as in range_kernel, the sums run in f64 (tc * tc and tc * v of two
     // f32 values are exact there, so fma rounds as a multiply and an add).
     // An in-window t - t_j lies in (-w, 0]: below 2^22 it converts to f32
@@ -296,7 +318,10 @@ __device__ __forceinline__ float window_value(const GenArgs& a, const int32_t* r
     const double n = (double)(hi - lo);
     const double denom = n * s_tt - s_t * s_t;
     if (hi - lo < 2 || !(fabs(denom) >= 1e-30)) return group_acc::nan_f();
-    return (float)((n * s_tv - s_t * s_v) / denom);
+    const double slope = (n * s_tv - s_t * s_v) / denom;
+    if (a.func == G_DERIV) return (float)slope;
+    const double intercept = (s_v - slope * s_t) / fmax(n, 1.0);  // predict_linear at +arg0 s
+    return (float)(intercept + slope * (double)a.arg0);
 }
 
 __device__ __forceinline__ float combine(int acc_op, float x, float v) {
@@ -530,7 +555,8 @@ int kind_of(int func) {
         case G_IRATE: case G_IDELTA: return K_LAST2;
         case G_STDDEV_OVER_TIME: case G_STDVAR_OVER_TIME: case G_Z_SCORE: return K_MOMENT2;
         case G_CHANGES: case G_RESETS: return K_PAIRS;
-        case G_DERIV: return K_LSQ;
+        case G_DERIV: case G_PREDICT_LINEAR: return K_LSQ;
+        case G_HOLT_WINTERS: return K_HW;
         default: return -1;
     }
 }
@@ -549,12 +575,15 @@ int kind_of(int func) {
 // row 0) and `smem_bytes` of dynamic shared memory, checked here, as is that the
 // staged arrays hold what the function reads. acc_op ACC_STORE is the
 // store mode: acc is the [ld, S] grid, cnt is not read, `shared` must be
-// 0. Launches on `stream` and returns a cudaError_t (0 on success); it
-// does not synchronise.
+// 0. arg0 and arg1 are the function's arguments (predict_linear's horizon
+// in seconds; Holt-Winters' smoothing and trend factors), unread by the
+// other functions. Launches on `stream` and returns a cudaError_t (0 on
+// success); it does not synchronise.
 extern "C" int filodb_general_range_aggregate(
     const void* ts, const void* vals, const void* raw, const void* lens, const void* gids,
     int S, int T, int J, int ld, int G, int start, int step, int window, int func,
-    int acc_op, int is_counter, int is_delta, int warps, int steps, int n_arrays,
+    int acc_op, float arg0, float arg1, int is_counter, int is_delta, int warps, int steps,
+    int n_arrays,
     int shared, int shared_bounds, int smem_bytes, void* acc,
     void* cnt, void* stream) {
     if (S <= 0 || J <= 0 || G <= 0) return 0;
@@ -572,13 +601,14 @@ extern "C" int filodb_general_range_aggregate(
         return (int)cudaErrorInvalidValue;
     GenArgs a{(const int32_t*)ts, (const float*)vals, (const float*)raw, (const int32_t*)lens,
               (const long long*)gids, S, T, J, ld, G, (int32_t)start, (int32_t)step,
-              (int32_t)window, func, acc_op, diff_flags, warps, steps, n_arrays,
+              (int32_t)window, func, acc_op, arg0, arg1, diff_flags, warps, steps, n_arrays,
               shared_bounds, (float*)acc, (float*)cnt};
     cudaStream_t st = (cudaStream_t)stream;
     switch (kind) {
         case K_LAST2: return launch_kind<K_LAST2>(a, shared, smem_bytes, slices, st);
         case K_MOMENT2: return launch_kind<K_MOMENT2>(a, shared, smem_bytes, slices, st);
         case K_PAIRS: return launch_kind<K_PAIRS>(a, shared, smem_bytes, slices, st);
+        case K_HW: return launch_kind<K_HW>(a, shared, smem_bytes, slices, st);
         default: return launch_kind<K_LSQ>(a, shared, smem_bytes, slices, st);
     }
 }

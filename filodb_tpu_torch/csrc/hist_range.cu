@@ -15,7 +15,10 @@
 // straight into [G, J*B] group accumulators acc (the sum) and cnt (valid
 // members); no [S, J, B] plane reaches device memory. With a quantile, the
 // block that finishes a slice's partials last interpolates them into out
-// [G, J].
+// [G, J]. A second entry, filodb_hist_quantile_gather, is the standalone
+// quantile (hist_kernels.py:86) over classic le-labelled bucket series: it
+// gathers each group's cumulative counts from the rows of a finished
+// by-(le, ...) aggregate and applies the same rule (quantile_of).
 //
 // Design. A persistent grid of blocks (gridDim.x of them per slice) walks
 // tiles of R rows (row_tiles.cuh); the plan sizes a block to its slice's
@@ -194,15 +197,14 @@ __device__ __forceinline__ void window_values(const HistArgs& a, const float* ro
     }
 }
 
-// Prometheus histogram_quantile of one (group, step)'s finished partials:
-// `ar` / `cr` are its B bucket sums and member counts, read through L2
-// (they were written by other blocks' atomics in this launch).
-__device__ __forceinline__ float quantile_at(const float* ar, const float* cr, const float* les,
-                                             int B, float q) {
+// Prometheus histogram_quantile over B cumulative bucket counts bucket(i)
+// (NaN: no count) with bounds les [B] -- the one copy of the rule, which
+// the range launch folds in (quantile_at) and the standalone entry runs
+// over gathered rows (hist_quantile_gather_kernel).
+template <typename F>
+__device__ __forceinline__ float quantile_of(F bucket, const float* les, int B, float q) {
     const float NaN = group_acc::nan_f();
     const float INF = group_acc::inf_f();
-    // the finished group sum of bucket i: NaN where no member had a value
-    auto bucket = [&](int i) { return __ldcg(cr + i) > 0.0f ? __ldcg(ar + i) : NaN; };
     const float total = bucket(B - 1);
     const bool ok = total > 0.0f && isfinite(total);
     const float rank = fminf(fmaxf(q, 0.0f), 1.0f) * total;
@@ -235,6 +237,39 @@ __device__ __forceinline__ float quantile_at(const float* ar, const float* cr, c
     if (q < 0.0f) res = -INF;
     if (q > 1.0f) res = INF;
     return res;
+}
+
+// Prometheus histogram_quantile of one (group, step)'s finished partials:
+// `ar` / `cr` are its B bucket sums and member counts, read through L2
+// (they were written by other blocks' atomics in this launch).
+__device__ __forceinline__ float quantile_at(const float* ar, const float* cr, const float* les,
+                                             int B, float q) {
+    // the finished group sum of bucket i: NaN where no member had a value
+    return quantile_of(
+        [&](int i) { return __ldcg(cr + i) > 0.0f ? __ldcg(ar + i) : group_acc::nan_f(); }, les,
+        B, q);
+}
+
+// The standalone quantile (B7, filodb_tpu/ops/hist_kernels.py:86
+// histogram_quantile) over classic bucket series: one thread per (group g,
+// step j < J) gathers the group's B cumulative counts from the rows
+// table[g, 0..B) of the finished [*, ld] partials `part` (the by-(le, ...)
+// aggregate, NaN where a group had no member; a row index < 0 reads NaN)
+// and writes quantile_of into out[rows[g], j]. The threads of a warp take
+// consecutive steps of one group, so each bucket's read is one coalesced
+// row segment.
+__global__ void hist_quantile_gather_kernel(const float* part, int ld, const int32_t* table,
+                                            const int32_t* rows, const float* les, int G, int B,
+                                            int J, float q, float* out, int ld_out) {
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= (int64_t)G * J) return;
+    const int g = (int)(i / J), j = (int)(i - (int64_t)g * J);
+    const int32_t* tg = table + (int64_t)g * B;
+    auto bucket = [&](int b) {
+        const int32_t r = __ldg(tg + b);
+        return r >= 0 ? __ldg(part + (int64_t)r * ld + j) : group_acc::nan_f();
+    };
+    out[(int64_t)__ldg(rows + g) * ld_out + j] = quantile_of(bucket, les, B, q);
 }
 
 template <bool SHARED_BOUNDS, bool SHARED, bool STAGED, int V>
@@ -442,6 +477,29 @@ bool threads_ok(int threads) {
 }
 
 }  // namespace
+
+// Plain C entry for ctypes: histogram_quantile(q, .) of classic bucket
+// series (one bucket scheme): for each of G groups, its B cumulative
+// counts are the rows table[g, :] (int32 [G, B], le-ascending; < 0 reads
+// NaN) of the finished partials part [*, ld] at steps [0, J), with bounds
+// les [B] (les[B-1] = +inf); the quantiles go to out [*, ld_out] at rows
+// rows[g] (int32 [G]), steps [0, J). Launches on `stream` and returns a
+// cudaError_t (0 on success); it does not synchronise.
+extern "C" int filodb_hist_quantile_gather(const void* part, int ld, const void* table,
+                                           const void* rows, const void* les, int G, int B,
+                                           int J, float q, void* out, int ld_out,
+                                           void* stream) {
+    if (G <= 0 || J <= 0) return 0;
+    if (B <= 0 || ld < J || ld_out < J || !part || !table || !rows || !les || !out)
+        return (int)cudaErrorInvalidValue;
+    const int threads = 256;
+    const int64_t blocks = ((int64_t)G * J + threads - 1) / threads;
+    if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    hist_quantile_gather_kernel<<<(int)blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const float*)part, ld, (const int32_t*)table, (const int32_t*)rows, (const float*)les,
+        G, B, J, q, (float*)out, ld_out);
+    return (int)cudaGetLastError();
+}
 
 // Plain C entry for ctypes: how many blocks of the range kernel's variant
 // (shared_bounds, shared partials, staged ts rows, vector width vec) with

@@ -47,7 +47,10 @@ class StageEntry:
     instead of serving the pre-repair block. ``dirty_lo``/``dirty_hi`` are
     the union of the accepted-sample intervals (absolute ms, inclusive) of
     the ingests that dirtied the entry; the repair declines when
-    ``dirty_lo`` reaches below the staged heads."""
+    ``dirty_lo`` reaches below the staged heads. ``dev_block`` is the
+    block's copy on the device a tree leaf reads (``plans.device_copy_for``;
+    None until one is made), counted in ``nbytes`` and dropped with a
+    repair."""
 
     block: object
     nbytes: int
@@ -55,6 +58,7 @@ class StageEntry:
     repairing: bool = False
     dirty_lo: int | None = None
     dirty_hi: int | None = None
+    dev_block: object = None
 
 
 # how many per-version ingest effects a shard keeps: the proof window for

@@ -14,7 +14,10 @@ block it makes one launch of ``csrc/general_range.cu``
 ``general_range_aggregate_plain``: ``kernels.range_kernel_plain`` and the
 segment aggregate. Its launches are counted in ``LAUNCHES``.
 ``general_range_series`` is the same kernel in its store mode (the fused
-epilogues): the per-series ``[J_pad, S_pad]`` grid.
+epilogues, and the reference tree's leaves): the per-series ``[J_pad,
+S_pad]`` grid; there it also takes the functions with arguments
+(``ARG_FUNCS``: ``predict_linear(t)`` and ``double_exponential_smoothing(sf,
+tf)``), which the fused planner refuses as the JAX package's does.
 
 ``general_plan`` lays a launch out: warps per block (each on its own
 row, staged in a buffer of its own or read in place), steps per slice,
@@ -40,15 +43,22 @@ GENERAL_FUNCS = frozenset({
     "changes", "resets", "deriv",
 })
 
+# the functions with arguments the kernel also computes, in its store mode
+# only (the reference tree): predict_linear's horizon, Holt-Winters' factors
+ARG_FUNCS = frozenset({"predict_linear", "double_exponential_smoothing"})
+TREE_FUNCS = GENERAL_FUNCS | ARG_FUNCS
+
 # the kernel's function codes (csrc/general_range.cu, enum GFunc)
 GENERAL_FUNC_CODES = {
     "irate": 0, "idelta": 1, "stddev_over_time": 2, "stdvar_over_time": 3,
-    "z_score": 4, "changes": 5, "resets": 6, "deriv": 7,
+    "z_score": 4, "changes": 5, "resets": 6, "deriv": 7, "predict_linear": 8,
+    "double_exponential_smoothing": 9,
 }
 # what each function reads of its window (the kernel's enum Kind)
 KINDS = {"irate": "last2", "idelta": "last2", "stddev_over_time": "moment2",
          "stdvar_over_time": "moment2", "z_score": "moment2", "changes": "pairs",
-         "resets": "pairs", "deriv": "lsq"}
+         "resets": "pairs", "deriv": "lsq", "predict_linear": "lsq",
+         "double_exponential_smoothing": "hw"}
 MAX_SLICE_STEPS = 512  # steps per slice: each warp's [steps] run stays small
 # warps per block, each on its own row with one staging buffer: on an H100
 # 6 beat 2, 4 and 8 or tied them, and a second buffer per warp beat none
@@ -148,7 +158,8 @@ def staged_arrays(func: str, is_counter: bool, is_delta: bool,
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the entry point's argument types on a built library."""
     fn = lib.filodb_general_range_aggregate
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 18 + [ctypes.c_void_p] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_float] * 2
+                   + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
     return lib
 
@@ -176,22 +187,32 @@ def general_range_aggregate(func: str, op: str, block, gids: torch.Tensor, num_g
 
 
 def general_range_series(func: str, block, gids: torch.Tensor, num_groups: int, params,
-                         is_counter: bool = False, is_delta: bool = False) -> torch.Tensor:
+                         is_counter: bool = False, is_delta: bool = False,
+                         args=()) -> torch.Tensor:
     """``func(selector[w])`` of every series of a staged block -> the
     step-major [J_pad, S_padded] grid on the block's device (the store
-    mode, for the fused epilogues): rows whose gid lies outside
-    ``[0, num_groups)`` (the trash group of padded rows) and steps past
-    ``params.num_steps`` are NaN. A CUDA block makes one launch of the
-    kernel's store variant; a CPU block runs ``general_range_series_plain``."""
-    if func not in GENERAL_FUNCS:
+    mode, for the fused epilogues and the reference tree): rows whose gid
+    lies outside ``[0, num_groups)`` (the trash group of padded rows) and
+    steps past ``params.num_steps`` are NaN. ``args`` are an ``ARG_FUNCS``
+    function's arguments. A CUDA block makes one launch of the kernel's
+    store variant; a CPU block runs ``general_range_series_plain``."""
+    if func not in TREE_FUNCS:
         raise NotImplementedError(f"range function {func!r} is not on the general rung")
-    return WS.run_series(_launch, general_range_series_plain, func, block, gids, num_groups,
-                         params, is_counter, is_delta)
+    return WS.run_series(functools.partial(_launch, args=args),
+                         functools.partial(general_range_series_plain, args=args), func, block,
+                         gids, num_groups, params, is_counter, is_delta)
+
+
+def func_args(args) -> tuple[float, float]:
+    """(arg0, arg1) as f32 values, 0 where absent (the JAX dispatch's
+    ``np.float32`` casts)."""
+    a = [float(torch.tensor(x, dtype=torch.float32)) for x in tuple(args)[:2]]
+    return tuple(a + [0.0] * (2 - len(a)))
 
 
 def _launch(func: str, op: str, block, gids, num_groups: int, params, is_counter: bool,
             is_delta: bool, acc: torch.Tensor, cnt: torch.Tensor, plan=None,
-            lib=None) -> None:
+            lib=None, args=()) -> None:
     """One launch of the kernel into ``acc``/``cnt`` ([G+1, J_pad], from
     ``group_acc.accumulators``), or with ``op`` ``group_acc.STORE`` into
     the grid ``acc`` ([J_pad, S], from ``group_acc.series_buffer``; ``cnt``
@@ -199,7 +220,7 @@ def _launch(func: str, op: str, block, gids, num_groups: int, params, is_counter
     ``GeneralPlan``) defaults to ``general_plan``'s, ``lib`` to the
     package's build (a timing script may pass its own). A block on an
     exact shared grid (``regular_ts``) takes its bounds from one table per
-    block."""
+    block. ``args`` are an ``ARG_FUNCS`` function's arguments."""
     global LAUNCHES, LAST_PLAN
     raw = block.raw if block.raw is not None else block.vals
     GA.check_aligned(ts=block.ts, vals=block.vals, raw=raw)
@@ -207,6 +228,7 @@ def _launch(func: str, op: str, block, gids, num_groups: int, params, is_counter
     S, T = block.ts.shape
     J = params.num_steps
     store = op == GA.STORE
+    arg0, arg1 = func_args(args)
     if plan is None:
         n_arrays = staged_arrays(func, is_counter, is_delta,
                                  distinct_raw=raw.data_ptr() != block.vals.data_ptr())
@@ -217,7 +239,7 @@ def _launch(func: str, op: str, block, gids, num_groups: int, params, is_counter
             block.ts.data_ptr(), block.vals.data_ptr(), raw.data_ptr(), block.lens.data_ptr(),
             gids.data_ptr(), S, T, J, acc.shape[0 if store else 1], num_groups,
             int(params.start_ms - block.base_ms), int(params.step_ms), int(params.window_ms),
-            GENERAL_FUNC_CODES[func], GA.acc_code(op), int(is_counter), int(is_delta),
+            GENERAL_FUNC_CODES[func], GA.acc_code(op), arg0, arg1, int(is_counter), int(is_delta),
             plan.warps, plan.steps, plan.n_arrays, int(plan.shared), int(plan.shared_bounds),
             plan.smem_bytes, acc.data_ptr(), cnt.data_ptr(), stream,
         )
@@ -242,11 +264,12 @@ def general_range_aggregate_plain(func: str, op: str, block, gids: torch.Tensor,
 
 
 def general_range_series_plain(func: str, block, params, is_counter: bool = False,
-                               is_delta: bool = False) -> torch.Tensor:
+                               is_delta: bool = False, args=()) -> torch.Tensor:
     """The [S_padded, J_pad] per-series values of the general rung in plain
     torch: ``range_kernel_plain`` over the padded steps."""
     raw = block.raw if block.raw is not None else block.vals
+    arg0, arg1 = func_args(args)
     return range_kernel_plain(func, block.ts, block.vals, block.lens, block.baseline, raw,
                               int(params.start_ms - block.base_ms), params.step_ms,
                               params.window_ms, pad_steps(params.num_steps),
-                              is_counter=is_counter, is_delta=is_delta)
+                              is_counter=is_counter, is_delta=is_delta, arg0=arg0, arg1=arg1)

@@ -19,6 +19,14 @@ function followed by a per-bucket group sum to ``[G, J, B]``;
   the block that finishes a slice's partials last interpolates them into
   ``[G, J_pad]`` -- returning the quantiles and the partials.
 
+``histogram_quantile_gather`` is the standalone quantile (B7's
+``histogram_quantile``) over classic ``le``-labelled bucket series: one
+launch of ``filodb_hist_quantile_gather`` per bucket scheme gathers each
+group's cumulative counts from the rows of a finished by-(le, ...)
+aggregate through an index table and applies the same rule
+(``histogram_quantile_gather_plain`` on a CPU tensor); its launches are
+counted in ``QUANTILE_LAUNCHES``.
+
 ``hist_plan`` lays a launch out (rows per tile, whole-step slices, the
 bucket vector width, shared or global partials, shared memory) and
 ``hist_grid`` sizes its persistent grid; ``hist_buffers`` carves the
@@ -64,6 +72,7 @@ MAX_PART_SLICES = 8  # slices that shared [G, steps*B] partials may take, else g
 # is the last launch's HistPlan and LAST_GRID its (blocks per slice, slices)
 RANGE_LAUNCHES = 0
 FOLDED_QUANTILES = 0
+QUANTILE_LAUNCHES = 0  # of filodb_hist_quantile_gather
 LAST_PLAN = None
 LAST_GRID = None
 
@@ -80,6 +89,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn = lib.filodb_hist_resident
     fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    fn = lib.filodb_hist_quantile_gather
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                   + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -492,3 +505,58 @@ def hist_quantile(q: float, acc: torch.Tensor, cnt: torch.Tensor, num_groups: in
         raise ValueError(f"hist_quantile takes cpu tensors, not {dev}: on the card the "
                          "quantile is folded into the range launch (hist_range_quantile)")
     return hist_quantile_plain(q, acc, cnt, num_groups, les, num_steps)
+
+
+def histogram_quantile_gather_plain(q: float, part: torch.Tensor, table: torch.Tensor,
+                                    les: torch.Tensor, num_steps: int) -> torch.Tensor:
+    """[G, num_steps]: ``histogram_quantile_plain`` over the cumulative
+    counts of each group gathered from the rows ``table[g, :]`` (int32
+    [G, B]; < 0 reads NaN) of the finished partials ``part`` [*, ld]."""
+    idx = table.to(torch.int64)
+    rows = part[idx.clamp(min=0), :num_steps]  # [G, B, J]
+    rows = torch.where((idx >= 0)[:, :, None], rows, float("nan"))
+    return histogram_quantile_plain(q, rows.permute(0, 2, 1), les)
+
+
+def histogram_quantile_gather(q: float, part: torch.Tensor, table: torch.Tensor,
+                              rows: torch.Tensor, les: torch.Tensor, num_steps: int,
+                              out: torch.Tensor) -> torch.Tensor:
+    """``histogram_quantile(q, .)`` of the classic bucket groups of one
+    bucket scheme: group g's counts are the rows ``table[g, :]`` (int32
+    [G, B], le-ascending) of the finished by-(le, ...) partials ``part``
+    (f32 [*, ld], NaN where a group had no member), its bounds ``les``
+    (f32 [B], the last +inf); the quantiles go to ``out[rows[g],
+    :num_steps]`` (``rows`` int32 [G]). A CUDA tensor makes one launch of
+    the kernel; a CPU tensor runs ``histogram_quantile_gather_plain``.
+    Returns ``out``."""
+    global QUANTILE_LAUNCHES
+    dev = part.device
+    G, B = table.shape if table.dim() == 2 else (-1, -1)
+    if G < 0 or B < 1:
+        raise ValueError(f"table must be [G, B], got {tuple(table.shape)}")
+    _check("part", part, torch.float32, tuple(part.shape), dev)
+    _check("table", table, torch.int32, (G, B), dev)
+    _check("rows", rows, torch.int32, (G,), dev)
+    _check("les", les, torch.float32, (B,), dev)
+    _check("out", out, torch.float32, tuple(out.shape), dev)
+    if part.dim() != 2 or out.dim() != 2 or min(part.shape[1], out.shape[1]) < num_steps:
+        raise ValueError(f"part {tuple(part.shape)} / out {tuple(out.shape)} hold fewer than "
+                         f"{num_steps} steps")
+    if G == 0:
+        return out
+    if dev.type == "cpu":
+        out[rows.to(torch.int64), :num_steps] = histogram_quantile_gather_plain(
+            q, part, table, les, num_steps)
+        return out
+    if dev.type != "cuda":
+        raise ValueError(f"histogram_quantile_gather runs on cuda or cpu tensors, not {dev}")
+    lib = _load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.filodb_hist_quantile_gather(
+            part.data_ptr(), part.shape[1], table.data_ptr(), rows.data_ptr(), les.data_ptr(),
+            G, B, int(num_steps), float(q), out.data_ptr(), out.shape[1], stream)
+    if err != 0:
+        raise RuntimeError(f"hist_quantile_gather kernel launch failed: cudaError {err}")
+    QUANTILE_LAUNCHES += 1
+    return out

@@ -1,5 +1,15 @@
-"""Range-query grid parameters and the general range kernel's plain version
-(counterpart of ``filodb_tpu/ops/kernels.py``).
+"""Range-query grid parameters, the general range kernel's plain version
+and the reference tree's range-function ladder (counterpart of
+``filodb_tpu/ops/kernels.py``).
+
+``run_range_function`` / ``_dispatch_range_function`` evaluate one range
+function over a staged block for the tree's leaves, as the JAX package's
+ladder does, mapped onto the port's rungs (each one launch, in its store
+mode, the ``[J_pad, S_pad]`` grid transposed to ``[S, J]``): ``timestamp``
+on the host in f64 (``_host_timestamp``), the sorted-window functions on
+``sorted_window`` (B8), and the rest on the rung
+``aggregations.grid_variant`` picks (regular, window stats or general),
+with the functions that take arguments on the general kernel.
 
 ``range_kernel_plain`` is ``range_kernel`` (B4) in plain torch, line for
 line: for every (series, step) the window ``(t_j - w, t_j]`` is the samples
@@ -24,6 +34,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 NAN = float("nan")
@@ -121,12 +132,14 @@ def _extrapolated(delta, t_first, t_last, count, v_first_raw, out_t, window, is_
 
 def range_kernel_plain(func: str, ts, vals, lens, baseline, raw, start_off: int, step_ms: int,
                        window: int, num_steps: int, is_counter: bool = False,
-                       is_delta: bool = False, arg0: float = 0.0) -> torch.Tensor:
+                       is_delta: bool = False, arg0: float = 0.0,
+                       arg1: float = 0.0) -> torch.Tensor:
     """[S, num_steps] f32 results of one range function over a staged
     block (ts int32 [S, T], vals/raw f32 [S, T], lens int32 [S]), as
     ``filodb_tpu.ops.kernels.range_kernel`` computes them; ``arg0`` is
-    predict_linear's horizon in seconds. ``baseline`` is unused, as there.
-    ``double_exponential_smoothing`` is not ported."""
+    predict_linear's horizon in seconds, ``arg0``/``arg1`` Holt-Winters'
+    smoothing and trend factors (f32, as the JAX dispatch casts them).
+    ``baseline`` is unused, as there."""
     dev = ts.device
     f32, i32 = torch.float32, torch.int32
     window = torch.tensor(window, dtype=i32, device=dev)
@@ -219,7 +232,8 @@ def range_kernel_plain(func: str, ts, vals, lens, baseline, raw, start_off: int,
         ok = (count >= 2) & (denom.abs() >= 1e-30)
         if func == "deriv":
             return torch.where(ok, slope.to(f32), NAN)
-        return torch.where(ok, (intercept + slope * arg0).to(f32), NAN)
+        horizon = float(torch.tensor(arg0, dtype=f32))
+        return torch.where(ok, (intercept + slope * horizon).to(f32), NAN)
     if func in ("rate", "increase", "delta"):
         if is_delta:
             # delta-temporality counters: each sample is the increase
@@ -241,5 +255,129 @@ def range_kernel_plain(func: str, ts, vals, lens, baseline, raw, start_off: int,
         r = dv / torch.clamp(dt_s, min=1e-30) if func == "irate" else dv
         return torch.where(ok, r, NAN)
     if func == "double_exponential_smoothing":
-        raise NotImplementedError("double_exponential_smoothing (_holt_winters) is not ported")
+        return _holt_winters(vals, lo, hi, arg0, arg1)
     raise ValueError(f"unknown range function {func}")
+
+
+def _holt_winters(vals, lo, hi, sf: float, tf: float) -> torch.Tensor:
+    """Holt's double exponential smoothing per window, as the JAX
+    package's ``_holt_winters`` scans it: the first sample is the level,
+    the second sets the trend to x1 - x0 and the level to x1, then
+    level' = sf x + (1 - sf)(level + trend), trend' = tf (level' - level)
+    + (1 - tf) trend; NaN below two samples. The scan runs over the k-th
+    sample of every window at once, k < the longest window."""
+    f32 = torch.float32
+    sf = torch.tensor(sf, dtype=f32, device=vals.device)
+    tf = torch.tensor(tf, dtype=f32, device=vals.device)
+    n = hi - lo
+    level = torch.zeros(n.shape, dtype=f32, device=vals.device)
+    trend = torch.zeros_like(level)
+    for k in range(int(n.max()) if n.numel() else 0):
+        x = _gather(vals, lo + k)
+        live = k < n
+        if k == 0:
+            level = torch.where(live, x, level)
+        elif k == 1:
+            trend = torch.where(live, x - level, trend)
+            level = torch.where(live, x, level)
+        else:
+            nxt = sf * x + (1 - sf) * (level + trend)
+            trend = torch.where(live, tf * (nxt - level) + (1 - tf) * trend, trend)
+            level = torch.where(live, nxt, level)
+    return torch.where(n >= 2, level, NAN)
+
+
+# -- the reference tree's ladder ---------------------------------------------
+
+
+def _host_arrays(block):
+    """(ts, lens) of a block as host numpy: the host-staged block a device
+    copy was made from (a tree leaf's), else fetched."""
+    if block.host_block is not None:
+        return np.asarray(block.host_block.ts), np.asarray(block.host_block.lens)
+    return block.ts.cpu().numpy(), block.lens.cpu().numpy()
+
+
+def _host_timestamp(block, params: RangeParams) -> np.ndarray:
+    """timestamp() computed on the host from the int32 ts array in f64.
+
+    The device grid is f32, which represents integer ms offsets exactly only
+    up to 2^24 (~4.6h); Prometheus returns exact sample timestamps, so this
+    function never goes through an f32 kernel. Returns absolute seconds
+    [S, J_pad] f64 (NaN = no sample in window)."""
+    j_pad = pad_steps(params.num_steps)
+    out_t = (np.int64(params.start_ms - block.base_ms)
+             + np.arange(j_pad, dtype=np.int64) * params.step_ms)
+    ts_host, lens_np = _host_arrays(block)
+    S = ts_host.shape[0]
+    out = np.full((S, j_pad), np.nan)
+
+    def row_for(ts1: np.ndarray) -> np.ndarray:
+        hi = np.searchsorted(ts1, out_t, side="right")
+        lo = np.searchsorted(ts1, out_t - params.window_ms, side="right")
+        has = hi > lo
+        t_last = ts1[np.minimum(hi - 1, len(ts1) - 1)]
+        return np.where(has, (t_last + block.base_ms) / 1e3, np.nan)
+
+    if block.regular_ts is not None and block.n_series > 0:
+        ts1 = np.asarray(block.regular_ts)[: int(lens_np[0])].astype(np.int64)
+        out[: block.n_series] = row_for(ts1)[None, :]
+        return out
+    # irregular grids: one batched searchsorted over all series via per-row
+    # offsets (rows are sorted and TS_PAD sorts after every real offset)
+    n = block.n_series
+    if n == 0:
+        return out
+    ts_np = ts_host[:n].astype(np.int64)
+    T = ts_np.shape[1]
+    lens_n = lens_np[:n].astype(np.int64)
+    stride = np.int64(1) << 33  # > any int32 ms offset incl. TS_PAD
+    row_off = (np.arange(n, dtype=np.int64) * stride)[:, None]
+    flat = (ts_np + row_off).ravel()
+    hi = np.searchsorted(flat, (out_t[None, :] + row_off).ravel(), side="right")
+    lo = np.searchsorted(
+        flat, ((out_t - params.window_ms)[None, :] + row_off).ravel(), side="right")
+    hi = np.minimum(hi.reshape(n, -1) - np.arange(n)[:, None] * T, lens_n[:, None])
+    lo = np.minimum(lo.reshape(n, -1) - np.arange(n)[:, None] * T, lens_n[:, None])
+    has = hi > lo
+    t_last = np.take_along_axis(ts_np, np.maximum(hi - 1, 0), axis=1)
+    out[:n] = np.where(has, (t_last + block.base_ms) / 1e3, np.nan)
+    return out
+
+
+def run_range_function(func: str, block, params: RangeParams, is_counter: bool = False,
+                       is_delta: bool = False, args: tuple = ()):
+    """One range function over a staged block for a tree leaf: [S_padded,
+    J_pad] values (a tensor on the block's device; f64 numpy for
+    ``timestamp``); the caller slices [:n_series, :num_steps]."""
+    return _dispatch_range_function(func, block, params, is_counter=is_counter,
+                                    is_delta=is_delta, args=args)[0]
+
+
+def _dispatch_range_function(func: str, block, params: RangeParams, is_counter: bool = False,
+                             is_delta: bool = False, args: tuple = ()):
+    """Returns ``(grid, variant)``, the variant the rung that served it:
+    ``host`` (timestamp), ``sorted`` (B8), else the store mode of the rung
+    ``aggregations.grid_variant`` picks -- ``mxu`` (the regular kernel),
+    ``window_stats`` or ``general`` -- and ``general`` for the functions
+    with arguments (predict_linear, double_exponential_smoothing). The
+    JAX ladder's MXU functions the regular store mode does not take
+    (min/max_over_time, changes, resets, deriv, predict_linear,
+    absent_over_time) take the window-stats or general kernel on a regular
+    grid, and jittered grids take them too (no B5, no B6)."""
+    from . import aggregations as AGG
+    from . import general_range as GR
+    from . import sorted_window as SW
+
+    if func == "timestamp":
+        return _host_timestamp(block, params), "host"
+    if func in SW.SORTED_FUNCS:
+        return SW.sorted_window(func, block, params, args), "sorted"
+    if func in GR.ARG_FUNCS:
+        grid = GR.general_range_series(func, block, AGG.zero_gids(block), 1, params,
+                                       is_counter=is_counter, is_delta=is_delta, args=args)
+        return grid.T, "general"
+    obs: dict = {}
+    grid = AGG.fused_range_series(func, block, params, is_counter=is_counter,
+                                  is_delta=is_delta, obs=obs)
+    return grid.T, obs["variant"]

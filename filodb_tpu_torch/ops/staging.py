@@ -102,6 +102,9 @@ class StagedBlock:
     h_lens: np.ndarray | None = field(default=None, repr=False)
     h_raw: np.ndarray | None = field(default=None, repr=False)
     h_dev: np.ndarray | None = field(default=None, repr=False)
+    # a device copy's host-staged source (``device_copy``): what host-side
+    # readers (the f64 timestamp, scan accounting) read instead of the card
+    host_block: "StagedBlock | None" = field(default=None, repr=False)
 
     @property
     def shape(self):
@@ -134,6 +137,23 @@ class StagedBlock:
         if self.raw is not None:
             self.raw = put(self.raw)
         return self
+
+
+def device_copy(block: StagedBlock, device) -> StagedBlock:
+    """A copy of a host-staged block's arrays on ``device`` (one upload)
+    with its grid class (not the jitter deviations, which no kernel reads),
+    linked to the host block (``host_block``); the host block is left as
+    it is. On the CPU the tensors share the host
+    arrays' memory, which no append rewrites (repairs build new arrays)."""
+
+    def put(a):
+        return None if a is None else torch.as_tensor(a).to(device)
+
+    return StagedBlock(
+        put(block.ts), put(block.vals), put(block.lens), block.base_ms, put(block.baseline),
+        block.n_series, block.part_refs, raw=put(block.raw), regular_ts=block.regular_ts,
+        nominal_ts=block.nominal_ts, maxdev_ms=block.maxdev_ms, host_block=block,
+    )
 
 
 def staged_nbytes(block: StagedBlock) -> int:

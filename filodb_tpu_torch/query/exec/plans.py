@@ -1,7 +1,15 @@
 """ExecPlan tree (counterpart of ``filodb_tpu/query/exec/plans.py``;
 reference query/exec/ExecPlan.scala).
 
-The port runs one exec node: ``FusedAggregateExec``, the single-dispatch
+The reference tree's first part: ``SelectRawPartitionsExec`` leaves (one
+per shard; a shard's staged selection, on the query's device, through the
+shard's staging cache) carrying a ``PeriodicSamplesMapper``
+(``transformers``), under ``DistConcatExec`` (the shards' grids side by
+side) and ``StitchRvsExec`` (time slices of a selection wider than the
+int32 span, stitched by labels), with ``EmptyResultExec`` where no shard
+is selected: unaggregated range functions and selectors.
+
+The fused aggregate: ``FusedAggregateExec``, the single-dispatch
 cross-shard aggregate ``op by (...) (func(selector[w]))``. It stages every
 matching series of its shards into one superblock on the device and runs
 the rung its grid class and function pick (``aggregations.grid_variant``):
@@ -17,16 +25,20 @@ fused epilogues (``FUSED_EPI_OPS``: global topk/bottomk, quantile by
 (...)) run the rung in its store mode to the per-series ``[J, S]`` grid
 and one order-statistics launch; only ``[k, J]`` (rebuilt into the
 winners' rows by ``_present_topk``) or ``[G, J]`` comes back.
-Shapes outside it raise ``NotImplementedError``: the reference tree it
-would fall back to is not ported.
+``histogram_quantile(q, sum by (le, ...) (...))`` over classic ``le``
+series folds the by-(le, ...) partials with one standalone-quantile launch
+per bucket scheme. Shapes outside it raise ``NotImplementedError``: the
+aggregate tree it would fall back to is not ported.
 
 Superblocks are cached on the memstore (``staging.SuperblockCache``) keyed
 by their member shards' version vector, and per-shard blocks flow through
 each shard's staging cache (``staged_block_for``). A warm query is served
 from the cache with no staging; ingest disjoint from the staged range
 re-stamps the entry; a uniform live-edge append extends it; anything else
-restages. Unlike the JAX package, per-shard staged blocks stay on the host:
-only the superblock occupies the card.
+restages. A tree leaf's block is the device copy its shard's staging-cache
+entry keeps beside the host block (made once at stage time, counted in the
+entry's bytes, dropped with the entry or its repair), so a warm leaf
+uploads nothing.
 """
 
 from __future__ import annotations
@@ -48,11 +60,16 @@ from ...ops import aggregations as AGG
 from ...ops import staging as ST
 from ...ops.hist_kernels import FUSED_HIST_FUNCS
 from ...ops.kernels import RangeParams
-from ..rangevector import Grid, QueryResult, QueryStats
-
-
-class QueryError(ValueError):
-    pass
+from ...singleflight import memo_on
+from ..rangevector import Grid, QueryResult, QueryStats, RawGrid
+from .transformers import (  # noqa: F401 (QueryError and _DROP_NAME_KEEP are re-exported)
+    _DROP_NAME_KEEP,
+    PeriodicSamplesMapper,
+    QueryError,
+    _strip_metric,
+    classic_histogram_quantile,
+    classic_pivot,
+)
 
 
 @dataclass
@@ -77,16 +94,33 @@ class QueryContext:
 
 
 class ExecPlan:
-    """Base: leaf plans implement do_execute."""
+    """Base: leaf plans implement do_execute; transformers fold after it."""
+
+    def __init__(self):
+        self.transformers: list = []
 
     def execute(self, ctx: QueryContext) -> QueryResult:
         ctx.check_deadline()
         res = self.do_execute(ctx)
+        for tr in self.transformers:
+            res = apply_transformer(tr, res, ctx)
         res.stats = ctx.stats
         return res
 
     def do_execute(self, ctx: QueryContext) -> QueryResult:
         raise NotImplementedError
+
+    def children(self) -> list:
+        return []
+
+    def args_str(self) -> str:
+        return ""
+
+
+def apply_transformer(tr, res: QueryResult, ctx: QueryContext) -> QueryResult:
+    if isinstance(tr, PeriodicSamplesMapper):
+        return QueryResult(grids=tr.apply_raw(res.raw_grids), stats=res.stats)
+    raise NotImplementedError(f"transformer {type(tr).__name__} is not ported")
 
 
 # Counter staging is function-driven (the reference corrects counters only
@@ -120,7 +154,13 @@ def _stage_mode_for_function(func: str | None) -> str:
     return "raw"
 
 
-_DROP_NAME_KEEP = {"last_over_time", "timestamp"}  # functions that keep _metric_
+def _counter_stage_mode(transformers) -> str:
+    """The staging mode of a counter column from the range function the
+    leaf's PeriodicSamplesMapper applies (default: raw selector read)."""
+    for tr in transformers:
+        if isinstance(tr, PeriodicSamplesMapper):
+            return _stage_mode_for_function(tr.function)
+    return "raw"
 
 # aggregation ops the fused path computes as one segment reduce
 FUSED_AGG_OPS = frozenset({"sum", "count", "avg", "min", "max"})
@@ -132,11 +172,14 @@ FUSED_EPI_OPS = frozenset({"topk", "bottomk", "quantile"})
 
 
 def staged_block_for(ctx: QueryContext, shard, ids, cache_key, col_name: str,
-                     start_ms: int, end_ms: int, stage_mode: str) -> ST.StagedBlock:
+                     start_ms: int, end_ms: int, stage_mode: str,
+                     device=None) -> ST.StagedBlock:
     """A shard's host-staged block of a selection, through the shard's
     staging cache: serve a clean hit, repair a dirty one by appending
     (``staging.append_to_block``: live-edge panels pay only the tail), else
-    stage afresh and insert under the effect-log check.
+    stage afresh and insert under the effect-log check. With ``device``
+    (a tree leaf) it returns the block's device copy instead, which the
+    entry keeps (``device_copy_for``).
 
     The key's layout ``(filters, start_ms, end_ms, ...)`` is load-bearing:
     the shard's ``_invalidate_stage_range`` reads k[1]/k[2] as the staged
@@ -164,7 +207,8 @@ def staged_block_for(ctx: QueryContext, shard, ids, cache_key, col_name: str,
             with shard._lock:
                 hit.repairing = False
                 if repaired is not None:
-                    hit.block = repaired
+                    hit.block = repaired  # its device copy, if any, went stale
+                    hit.dev_block = None
                     hit.nbytes = ST.staged_nbytes(repaired)
                 elif shard.stage_cache.get(cache_key) is hit:
                     del shard.stage_cache[cache_key]  # never leave a stale entry
@@ -175,11 +219,15 @@ def staged_block_for(ctx: QueryContext, shard, ids, cache_key, col_name: str,
     if hit is not None:
         if not claimed:
             ctx.stats.bump(cache_hits=1)
-        return hit.block
+        block = hit.block
+        return block if device is None else device_copy_for(shard, cache_key, block, device)
     block = ST.stage_from_shard(shard, ids, col_name, start_ms, end_ms, stage_mode)
     nbytes = ST.staged_nbytes(block)
     ctx.stats.bump(bytes_staged=nbytes, cache_misses=1)
     block.keep_mirrors()  # the append repair writes the mirrors
+    dev = ST.device_copy(block, device) if device is not None else None
+    if dev is not None:
+        nbytes += ST.staged_nbytes(dev)
     # an ingest that landed mid-stage ran its invalidation before this entry
     # existed: cache it only when the effect log proves every bump since
     # version_at_stage disjoint from the staged range
@@ -192,8 +240,32 @@ def staged_block_for(ctx: QueryContext, shard, ids, cache_key, col_name: str,
             used = sum(e.nbytes for e in shard.stage_cache.values())
             while shard.stage_cache and used + nbytes > shard.config.stage_cache_bytes:
                 used -= shard.stage_cache.pop(next(iter(shard.stage_cache))).nbytes
-            shard.stage_cache[cache_key] = StageEntry(block, nbytes)
-    return block
+            shard.stage_cache[cache_key] = StageEntry(block, nbytes, dev_block=dev)
+    return block if dev is None else dev
+
+
+def device_copy_for(shard, cache_key, block: ST.StagedBlock, device) -> ST.StagedBlock:
+    """The device copy of a shard's cached host block: the one its entry
+    keeps when it was made from this very block on this device, else a new
+    copy (``staging.device_copy``), kept on the entry and counted in its
+    bytes while the entry still holds ``block``."""
+    device = torch.device(device)
+    with shard._lock:
+        entry = shard.stage_cache.get(cache_key)
+        dev = entry.dev_block if entry is not None and entry.block is block else None
+    # "cuda" names the current card, whose tensors say "cuda:0"
+    if dev is not None and dev.ts.device.type == device.type and device.index in (
+            None, dev.ts.device.index):
+        return dev
+    dev = ST.device_copy(block, device)
+    with shard._lock:
+        entry = shard.stage_cache.get(cache_key)
+        if entry is not None and entry.block is block:
+            if entry.dev_block is not None:
+                entry.nbytes -= ST.staged_nbytes(entry.dev_block)
+            entry.dev_block = dev
+            entry.nbytes += ST.staged_nbytes(dev)
+    return dev
 
 
 def _histogram_suffix_rewrite(filters):
@@ -254,9 +326,10 @@ def _uniform_scheme(parts, les) -> bool:
 
 
 def _slice_bucket(block, les, bucket_le: float):
-    """``m_bucket{le=...}``: one bucket of a host-staged [S, T, B] block as
-    a scalar counter block. Returns (block, le label), or None when the
-    scheme has no such bound (within ``_LE_TOL``)."""
+    """``m_bucket{le=...}``: one bucket of a staged [S, T, B] block (on the
+    host or the device) as a scalar counter block. Returns (block, le
+    label), or None when the scheme has no such bound (within
+    ``_LE_TOL``)."""
     if les is None:
         return None
     les64 = np.asarray(les, dtype=np.float64)
@@ -267,7 +340,8 @@ def _slice_bucket(block, les, bucket_le: float):
         b_idx = int(hits[0]) if len(hits) else -1
     if b_idx < 0:
         return None
-    vals = np.ascontiguousarray(block.vals[..., b_idx])
+    vals = block.vals[..., b_idx]
+    vals = vals.contiguous() if isinstance(vals, torch.Tensor) else np.ascontiguousarray(vals)
     sliced = ST.StagedBlock(
         block.ts, vals, block.lens, block.base_ms, block.baseline[..., b_idx],
         block.n_series, block.part_refs, raw=vals, regular_ts=block.regular_ts,
@@ -277,8 +351,156 @@ def _slice_bucket(block, les, bucket_le: float):
     return sliced, le_str
 
 
-def _strip_metric(labels: dict) -> dict:
-    return {k: v for k, v in labels.items() if k not in (METRIC_TAG, "__name__")}
+class SelectRawPartitionsExec(ExecPlan):
+    """reference MultiSchemaPartitionsExec:26 + SelectRawPartitionsExec:161:
+    partition lookup in one shard, grouping by schema, then each schema's
+    selection staged through the shard's staging cache as a block on the
+    query's device. Produces one ``RawGrid`` per schema found."""
+
+    def __init__(self, shard_num: int, filters, start_ms: int, end_ms: int, column=None):
+        super().__init__()
+        self.shard_num = shard_num
+        self.filters = tuple(filters)
+        self.start_ms = start_ms
+        self.end_ms = end_ms
+        self.column = column
+
+    def args_str(self) -> str:
+        fs = ",".join(f"{f.column}{f.op}{f.value}" for f in self.filters)
+        return f"shard={self.shard_num} filters=[{fs}] range=[{self.start_ms},{self.end_ms}]"
+
+    def do_execute(self, ctx: QueryContext) -> QueryResult:
+        shard = ctx.memstore.shard(ctx.dataset, self.shard_num)
+        pids = shard.lookup_partitions(self.filters, self.start_ms, self.end_ms)
+        column_override = hist_bucket_le = None
+        if not len(pids):
+            # classic-histogram suffix rewrite (reference MultiSchemaPartitionsExec
+            # :49-80): m_sum / m_count select the histogram schema's sum/count
+            # columns; m_bucket{le=...} one bucket of the native histogram
+            rewritten, column_override, hist_bucket_le = _histogram_suffix_rewrite(self.filters)
+            if rewritten is not None:
+                pids = shard.lookup_partitions(rewritten, self.start_ms, self.end_ms)
+        if len(pids) > ctx.max_series:
+            raise QueryError(f"query selects {len(pids)} series > limit {ctx.max_series}")
+        by_schema: dict[str, list] = {}
+        for pid in pids:
+            part = shard.partition(int(pid))
+            by_schema.setdefault(part.schema.name, []).append((int(pid), part))
+        res = QueryResult()
+        for schema_name, members in by_schema.items():
+            ctx.check_deadline()
+            ids = [pid for pid, _ in members]
+            parts = [part for _, part in members]
+            schema = parts[0].schema
+            col_name = self.column or column_override or schema.value_column
+            try:
+                col = schema.column(col_name)
+            except KeyError:
+                col_name = schema.value_column
+                col = schema.column(col_name)
+            is_hist = col.ctype == ColumnType.HISTOGRAM
+            is_counter, is_delta = col.is_counter, col.is_delta
+            stage_mode = (_counter_stage_mode(self.transformers)
+                          if is_counter and not is_delta and not is_hist else "raw")
+            cache_key = (self.filters, self.start_ms, self.end_ms, col_name, schema_name,
+                         stage_mode)
+            block = staged_block_for(ctx, shard, ids, cache_key, col_name, self.start_ms,
+                                     self.end_ms, stage_mode, device=ctx.device)
+            ctx.stats.bump(series_scanned=len(ids),
+                           samples_scanned=int(np.asarray(block.host_block.lens).sum()))
+            if ctx.stats.samples_scanned > ctx.max_samples:
+                raise QueryError(f"query would scan {ctx.stats.samples_scanned} samples > "
+                                 f"limit {ctx.max_samples}")
+            les = parts[0].bucket_les if is_hist else None
+            # a cached block holds the same partitions, whose tags never change
+            labels = memo_on(block, "labels_memo", None, lambda: [dict(p.tags) for p in parts])
+            if is_hist and hist_bucket_le is not None and les is not None:
+                sliced = _slice_bucket(block, les, hist_bucket_le)  # m_bucket{le=...}
+                if sliced is None:
+                    continue  # no such bucket
+                block, le_str = sliced
+                labels = [dict(l, le=le_str) for l in labels]
+                is_hist, is_counter = False, True
+            res.raw_grids.append(RawGrid(block, labels, schema_name, col_name, is_counter,
+                                         is_delta, is_hist, les if is_hist else None))
+        return res
+
+
+class EmptyResultExec(ExecPlan):
+    def do_execute(self, ctx: QueryContext) -> QueryResult:
+        return QueryResult()
+
+
+class NonLeafExecPlan(ExecPlan):
+    """A node over child plans, which run in order, one after the other
+    (the JAX package's remote children and partial results are not
+    ported)."""
+
+    def __init__(self, child_plans):
+        super().__init__()
+        self.child_plans = list(child_plans)
+
+    def children(self) -> list:
+        return self.child_plans
+
+    @staticmethod
+    def _annotate_child_error(child: ExecPlan, e: Exception) -> Exception:
+        """The child's identity appended to its error's message, the type kept."""
+        note = f"{type(child).__name__}({child.args_str()})"
+        msg = str(e.args[0]) if e.args else str(e)
+        if note not in msg:
+            e.args = (f"{msg} [child {note}]",) + tuple(e.args[1:])
+        return e
+
+    def execute_children(self, ctx: QueryContext) -> list[QueryResult]:
+        results = []
+        for c in self.child_plans:
+            try:
+                results.append(c.execute(ctx))
+            except QueryError as e:
+                raise self._annotate_child_error(c, e)
+        return results
+
+
+class DistConcatExec(NonLeafExecPlan):
+    """Concatenate child results (reference DistConcatExec)."""
+
+    def do_execute(self, ctx: QueryContext) -> QueryResult:
+        out = QueryResult()
+        for r in self.execute_children(ctx):
+            out.grids.extend(r.grids)
+            out.raw_grids.extend(r.raw_grids)
+        return out
+
+
+class StitchRvsExec(NonLeafExecPlan):
+    """Merge results of time-split children: the same series over disjoint
+    step ranges, matched by labels (reference StitchRvsExec:177)."""
+
+    def do_execute(self, ctx: QueryContext) -> QueryResult:
+        results = [r for r in self.execute_children(ctx) if r.grids]
+        if not results:
+            return QueryResult()
+        key_to_row: dict[tuple, dict] = {}
+        step = results[0].grids[0].step_ms
+        starts = [g.start_ms for r in results for g in r.grids]
+        ends = [g.start_ms + (g.num_steps - 1) * g.step_ms for r in results for g in r.grids]
+        start, end = min(starts), max(ends)
+        nsteps = int((end - start) // step) + 1
+        for r in results:
+            for g in r.grids:
+                v = g.values_np()
+                off = int((g.start_ms - start) // step)
+                for i, lbls in enumerate(g.labels):
+                    key = tuple(sorted(lbls.items()))
+                    row = key_to_row.setdefault(
+                        key, {"labels": lbls, "vals": np.full(nsteps, np.nan, np.float32)})
+                    seg = row["vals"][off: off + g.num_steps]
+                    row["vals"][off: off + g.num_steps] = np.where(np.isnan(seg), v[i], seg)
+        labels = [r["labels"] for r in key_to_row.values()]
+        vals = (np.stack([r["vals"] for r in key_to_row.values()]) if key_to_row
+                else np.zeros((0, nsteps), np.float32))
+        return QueryResult(grids=[Grid(labels, start, step, nsteps, vals)])
 
 
 @dataclass
@@ -317,6 +539,7 @@ class FusedAggregateExec(ExecPlan):
                  column, op: str, by, without, function,
                  start_ms: int, end_ms: int, step_ms: int, window_ms: int,
                  offset_ms: int = 0, hist_quantile: float | None = None, params=()):
+        super().__init__()
         self.shard_nums = list(shard_nums)
         self.filters: tuple[ColumnFilter, ...] = tuple(filters)
         self.raw_start_ms = raw_start_ms
@@ -343,9 +566,10 @@ class FusedAggregateExec(ExecPlan):
     def _check_shape(self, is_hist: bool) -> None:
         """Raise for an op or function the fused kernels do not model on the
         resolved schema, before any stats bump or staging: over histograms
-        only ``sum`` of ``FUSED_HIST_FUNCS``; and ``histogram_quantile``
-        over a scalar selection (classic ``le`` bucket series) is not
-        ported."""
+        only ``sum`` of ``FUSED_HIST_FUNCS``. ``histogram_quantile`` over a
+        scalar selection reads classic ``le`` bucket series: a grouping that
+        drops ``le`` leaves none, the QueryError the JAX package's tree
+        raises (``classic_histogram_quantile``)."""
         if is_hist:
             if self.op != "sum" or self.params:
                 raise NotImplementedError(
@@ -355,9 +579,17 @@ class FusedAggregateExec(ExecPlan):
                 raise NotImplementedError(
                     f"histogram range function {self.function!r} is not ported "
                     f"(ported: {sorted(FUSED_HIST_FUNCS)})")
-        elif self.hist_quantile is not None:
-            raise NotImplementedError(
-                "histogram_quantile over scalar series (classic le buckets) is not ported")
+        elif self.hist_quantile is not None and not self._keeps_le():
+            raise QueryError(
+                "histogram_quantile needs native-histogram input or "
+                "le-labeled classic bucket series"
+            )
+
+    def _keeps_le(self) -> bool:
+        """Whether the grouping keeps an ``le`` label on its groups."""
+        if self.by is not None:
+            return "le" in self.by
+        return bool(self.without) and "le" not in self.without
 
     def _serve_hit(self, ctx: QueryContext, hit: SuperblockEntry) -> SuperblockEntry:
         """Limits and stats for a cached superblock: limits are per request,
@@ -378,8 +610,10 @@ class FusedAggregateExec(ExecPlan):
         from the superblock cache kept on the memstore, refreshed or rebuilt
         on a miss (None for an empty selection)."""
         if self.raw_end_ms - self.raw_start_ms > ST.MAX_STAGE_SPAN_MS:
-            raise NotImplementedError(
-                "selector span wider than int32 ms offsets: time slicing is not ported")
+            # the planner slices such a range (StitchRvsExec) before any exec
+            # is built; an exec assembled outside it cannot stage it
+            raise QueryError("selector span wider than int32 ms offsets: plan it through "
+                             "the planner, which slices it in time")
         stage_mode = _stage_mode_for_function(self.function)
         cache = getattr(ctx.memstore, "_superblock_cache", None)
         if cache is None:
@@ -682,6 +916,19 @@ class FusedAggregateExec(ExecPlan):
         out = AGG.fused_range_aggregate(
             func, self.op, got.block, gids, G, params,
             is_counter=got.is_counter, is_delta=got.is_delta, obs=ctx.obs)
+        if self.hist_quantile is not None:
+            # classic buckets (le kept by the grouping, _check_shape): the
+            # [G', J] by-(le, ...) partials pivot into per-group cumulative
+            # counts (the index tables memoized with the group ids), one
+            # standalone-quantile launch per bucket scheme
+            key = (tuple(self.by) if self.by else None,
+                   tuple(self.without) if self.without else None, strip)
+            pivot = memo_on(got.block, "classic_pivot_memo", key,
+                            lambda: classic_pivot(group_labels, out.device))
+            q_labels, q_vals = classic_histogram_quantile(self.hist_quantile, group_labels, out,
+                                                          nsteps, pivot=pivot)
+            return QueryResult(grids=[Grid([_strip_metric(l) for l in q_labels], self.start_ms,
+                                           self.step_ms, nsteps, q_vals)])
         return QueryResult(grids=[Grid(group_labels, self.start_ms, self.step_ms, nsteps, out)])
 
     def _present_topk(self, vals, idx, labels, strip: bool, nsteps: int) -> QueryResult:

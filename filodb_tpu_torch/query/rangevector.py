@@ -4,7 +4,9 @@ reference RangeVector.scala:129).
 Results travel as grids: a batch of series sharing one step grid with a
 dense ``[S, J]`` value matrix (NaN = absent), and for native histograms
 the ``[S, J, B]`` bucket values with their bounds. ``values`` and ``hist``
-may be torch tensors on the card; they convert to numpy at the edge.
+may be torch tensors on the card; they convert to numpy at the edge. A
+tree leaf's staged selection travels as a ``RawGrid`` until its
+``PeriodicSamplesMapper`` turns it into a grid.
 """
 
 from __future__ import annotations
@@ -48,6 +50,21 @@ class Grid:
 
 
 @dataclass
+class RawGrid:
+    """Pre-periodic staged raw samples of one schema (reference
+    RawDataRangeVector): the staged block on the query's device."""
+
+    block: Any  # ops.staging.StagedBlock
+    labels: list[dict]
+    schema_name: str
+    value_column: str
+    is_counter: bool
+    is_delta: bool
+    is_histogram: bool
+    les: np.ndarray | None = None
+
+
+@dataclass
 class QueryStats:
     """reference QuerySession.queryStats (ExecPlan.scala:430)."""
 
@@ -73,3 +90,4 @@ class QueryResult:
     grids: list[Grid] = field(default_factory=list)
     stats: QueryStats = field(default_factory=QueryStats)
     result_type: str = "matrix"  # matrix | vector
+    raw_grids: list[RawGrid] = field(default_factory=list)  # a tree leaf's staged selection

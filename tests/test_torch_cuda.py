@@ -4,7 +4,11 @@ the regular-range kernel on the card against their plain versions, on both group
 shared memory or read in place; a cached superblock's warm hit and
 live-edge extension on the card; and the histogram range kernel
 (csrc/hist_range.cu) and the quantile folded into its launch against
-their plain versions, with one launch per histogram query. These tests need an NVIDIA card and skip without one; the
+their plain versions, with one launch per histogram query; and the
+reference tree's kernels -- the sorted-window kernel
+(csrc/sorted_window.cu, both routes, q outside [0, 1]), predict_linear and
+Holt-Winters on the general kernel, the standalone quantile over gathered
+classic rows -- against their plain versions. These tests need an NVIDIA card and skip without one; the
 file imports no JAX so that it runs on a machine with only torch:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -1480,3 +1484,174 @@ def test_order_entries_refuse_a_plan_they_do_not_share(card):
                 dataclasses.replace(plan, cluster=16)):
         with pytest.raises(RuntimeError, match="launch failed"):
             OS.topk_steps(grid, 5, n_real=1000, plan=bad)
+
+
+# -- the reference tree's kernels: sorted windows (B8), predict_linear and
+# Holt-Winters on the general kernel (B4), the standalone quantile (B7) --
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+SORTED_CASES = [  # (kind, n_real, T, window ms)
+    ("irregular", 65, 128, 300_000), ("irregular", 65, 128, 8_000), ("regular", 65, 768, 300_000),
+    ("long", 65, 768, 3_600_000), ("long", 9, 8_192, 3_600_000),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counter", [False, True], ids=["gauge", "counter"])
+@pytest.mark.parametrize("case", SORTED_CASES, ids=lambda c: f"{c[0]}-T{c[2]}-w{c[3]}")
+@pytest.mark.parametrize("func, args", [
+    ("quantile_over_time", (-0.1,)), ("quantile_over_time", (0.5,)),
+    ("quantile_over_time", (0.9,)), ("quantile_over_time", (1.1,)),
+    ("median_absolute_deviation_over_time", ()), ("last_over_time_is_mad_outlier", (2.0, 1.0)),
+])
+def test_sorted_window_matches_plain_on_card(card, func, args, case, counter):
+    """The sorted-window kernel against its plain version: order
+    statistics bit-equal, interpolations within 2 ulp, NaN masks and
+    infinities equal; one launch; the long rows' 1 h windows of up to 720
+    samples take the warp's radix route, and rows 8192 wide are read in
+    place."""
+    from filodb_tpu_torch.ops import sorted_window as SW
+
+    cs = _chip_smoke()
+    kind, n_real, T, window = case
+    b = cs.window_block(n_real, T, kind, counter, 3, card)
+    params = RangeParams(BASE - 60_000, 30_000, 150 if kind != "long" else 120, window)
+    before = SW.LAUNCHES
+    got = SW.sorted_window(func, b, params, args)
+    assert SW.LAUNCHES == before + 1
+    assert SW.LAST_PLAN == SW.sorted_plan(T) and SW.LAST_PLAN.staged == (T < 8_192)
+    q, a1 = SW.func_args(args)
+    want = SW.sorted_window_plain(func, b.ts, b.vals, b.lens, int(params.start_ms - BASE),
+                                  params.step_ms, window, params.num_steps, q, a1)
+    want[n_real:] = float("nan")
+    J = params.num_steps
+    assert bool(torch.isnan(got[:, J:]).all())
+    assert cs.ulp_gap(got[:, :J], want) <= 2, (func, args, case)
+    if kind == "long":
+        lens = b.lens.cpu().numpy()
+        assert lens.max() > SW.LANE_CAP  # windows past the lane cap: the radix select ran
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counter", [False, True], ids=["gauge", "counter"])
+@pytest.mark.parametrize("kind", ["irregular", "regular"])
+@pytest.mark.parametrize("func, args", [("predict_linear", (600.0,)), ("predict_linear", (-30.0,)),
+                                        ("double_exponential_smoothing", (0.3, 0.1)),
+                                        ("double_exponential_smoothing", (0.9, 0.5))])
+def test_general_argument_functions_match_plain_on_card(card, func, args, kind, counter):
+    """predict_linear and Holt-Winters, the general kernel's store mode with
+    its arguments, against range_kernel_plain: rtol 2e-4 / atol 1e-4, NaN
+    masks equal."""
+    cs = _chip_smoke()
+    b = cs.window_block(65, 384, kind, counter, 5, card)
+    params = RangeParams(BASE - 60_000, 30_000, 150, 300_000)
+    gids = AGG.zero_gids(b)
+    before = GR.LAUNCHES
+    got = GR.general_range_series(func, b, gids, 1, params, args=args)
+    assert GR.LAUNCHES == before + 1
+    want = GA.series_grid(GR.general_range_series_plain(func, b, params, args=args), gids, 1,
+                          params.num_steps)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(got), torch.isnan(want)), func
+    m = ~torch.isnan(want)
+    assert torch.allclose(got[m], want[m], rtol=2e-4, atol=1e-4), func
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [-0.1, 0.0, 0.25, 0.9, 0.99, 1.0, 1.1])
+def test_hist_quantile_gather_matches_plain_on_card(card, q):
+    """The standalone quantile over gathered classic rows (two bucket
+    schemes, groups with no member at some steps, a first bound <= 0)
+    against histogram_quantile_gather_plain, bit-equal (NaN masks too)."""
+    from filodb_tpu_torch.ops import hist_kernels as HK
+
+    rng = np.random.default_rng(9)
+    G, J = 40, 111
+    schemes = [np.array([0.1, 0.5, 1, 5, np.inf], np.float32),
+               np.array([-1, 0, 2.5, 10, 50, 100, np.inf], np.float32)]
+    rows, tables, row_of = [], [], []
+    for g in range(G):
+        les = schemes[g % 2]
+        c = np.cumsum(rng.poisson(3.0, (len(les), J)), axis=0).astype(np.float32)
+        c[:, rng.random(J) < 0.1] = np.nan
+        tables.append(np.arange(len(rows), len(rows) + len(les)))
+        rows.extend(c)
+        row_of.append(g)
+    part = torch.tensor(np.stack(rows), device=card)
+    out = torch.full((G, 128), float("nan"), device=card)
+    want = torch.full_like(out, float("nan"))
+    before = HK.QUANTILE_LAUNCHES
+    for s, les in enumerate(schemes):
+        gs = [g for g in range(G) if g % 2 == s]
+        table = torch.tensor(np.stack([tables[g] for g in gs]).astype(np.int32), device=card)
+        rws = torch.tensor(np.array(gs, np.int32), device=card)
+        les_t = torch.tensor(les, device=card)
+        HK.histogram_quantile_gather(q, part, table, rws, les_t, J, out)
+        want[rws.long(), :J] = HK.histogram_quantile_gather_plain(q, part, table, les_t, J)
+    assert HK.QUANTILE_LAUNCHES == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(out), torch.isnan(want))
+    m = ~torch.isnan(want)
+    assert torch.equal(out[m], want[m])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("query, counter", [
+    ("quantile_over_time(0.9, m[5m])", ("sorted_window", "LAUNCHES")),
+    ("predict_linear(m[5m], 600)", ("general_range", "LAUNCHES")),
+    ("rate(m[5m])", ("window_stats", "RANGE_LAUNCHES")),
+])
+def test_tree_query_launches_once_per_leaf_on_card(card, query, counter):
+    """An unaggregated query on the card: one launch of its rung per shard
+    leaf; the warm repeat hits every leaf's staging-cache entry and reads
+    the same device copies (none made again: a "cuda" query device against
+    copies on "cuda:0"); its rows equal the CPU engine's on the same store
+    (rtol 1e-3, NaN masks equal)."""
+    import importlib
+
+    from filodb_tpu_torch.coordinator.planner import QueryEngine
+    from filodb_tpu_torch.core.records import SeriesBatch
+    from filodb_tpu_torch.core.schemas import METRIC_TAG, PROM_COUNTER, Dataset, shard_for
+    from filodb_tpu_torch.memstore.memstore import TimeSeriesMemStore
+
+    rng = np.random.default_rng(4)
+    ms = TimeSeriesMemStore()
+    ms.setup(Dataset("prometheus"), range(4))
+    for i in range(64):
+        tags = {METRIC_TAG: "m", "_ws_": "w", "_ns_": "n", "instance": f"h{i}"}
+        ts = BASE + np.cumsum(rng.integers(5_000, 15_001, 200)).astype(np.int64)
+        ms.shard("prometheus", shard_for(tags, spread=2, num_shards=4)).ingest_series(
+            SeriesBatch(PROM_COUNTER, tags, ts, {"count": np.cumsum(rng.uniform(0, 9, 200))}))
+    mod = importlib.import_module(f"filodb_tpu_torch.ops.{counter[0]}")
+    eng = QueryEngine(ms, "prometheus")
+    start, end = (BASE + 400_000) / 1000, (BASE + 1_400_000) / 1000
+    setattr(mod, counter[1], 0)
+    cold = eng.query_range(query, start, end, 60)
+    leaves = len(cold.grids)
+    assert getattr(mod, counter[1]) == leaves > 1
+
+    def copies():
+        return {(s, k): id(e.dev_block) for s in range(4)
+                for k, e in ms.shard("prometheus", s).stage_cache.items()}
+
+    before = copies()
+    warm = eng.query_range(query, start, end, 60)
+    assert getattr(mod, counter[1]) == 2 * leaves
+    assert warm.stats.cache_hits == leaves and warm.stats.bytes_staged == 0
+    assert copies() == before
+    want = QueryEngine(ms, "prometheus", device="cpu").query_range(query, start, end, 60)
+    for g, w in zip(warm.grids, want.grids):
+        assert g.labels == w.labels
+        gv, wv = g.values_np(), w.values_np()
+        np.testing.assert_array_equal(np.isnan(gv), np.isnan(wv))
+        np.testing.assert_allclose(gv[~np.isnan(wv)], wv[~np.isnan(wv)], rtol=1e-3)

@@ -196,19 +196,63 @@ def test_instant_query_matches_jax(stores):
     np.testing.assert_allclose(as_rows(got)[1], as_rows(want)[1], rtol=2e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("query", [
-    "topk by (zone) (3, rate(http_requests_total[5m]))",
-    "stddev(rate(http_requests_total[5m]))",
-    "sum(quantile_over_time(0.5, http_requests_total[5m]))",
-    "sum(predict_linear(http_requests_total[5m], 60))",
-    "sum(rate(http_requests_total[5m] @ 1600000600))",
-    "sum(rate(http_requests_total[5m])) * 2",
-    "rate(http_requests_total[5m])",
+@pytest.fixture(scope="module")
+def hist_store():
+    """A port memstore of native histograms (``http_request_latency``)."""
+    from filodb_tpu.testkit import histogram_batch
+    from filodb_tpu_torch.core.records import RecordBatch
+
+    jb = histogram_batch(n_series=6, n_samples=120, start_ms=BASE,
+                         metric="http_request_latency")
+    pms = TimeSeriesMemStore()
+    pms.setup(S.Dataset("prometheus"), range(N_SHARDS))
+    pms.ingest_routed("prometheus", RecordBatch(S.SCHEMAS[jb.schema.name], jb.timestamps,
+                                                dict(jb.values), jb.tags,
+                                                bucket_les=jb.bucket_les), SPREAD)
+    return pms
+
+
+# the shapes that still raise: the aggregate tree, binary operators and
+# instant functions (ROADMAP A3), and the tree over native histograms (A2b)
+@pytest.mark.parametrize("query, store", [
+    ("topk by (zone) (3, rate(http_requests_total[5m]))", "irregular"),
+    ("stddev(rate(http_requests_total[5m]))", "irregular"),
+    ("sum(quantile_over_time(0.5, http_requests_total[5m]))", "irregular"),
+    ("sum(predict_linear(http_requests_total[5m], 60))", "irregular"),
+    ("sum(rate(http_requests_total[5m] @ 1600000600))", "irregular"),
+    ("sum(rate(http_requests_total[5m])) * 2", "irregular"),
+    ("abs(rate(http_requests_total[5m]))", "irregular"),
+    ("http_requests_total * 2", "irregular"),
+    ("rate(http_request_latency[5m])", "hist"),
 ])
-def test_unsupported_shapes_raise(stores, query):
-    engine = QueryEngine(stores["irregular"][1], "prometheus", device="cpu")
+def test_unsupported_shapes_raise(stores, hist_store, query, store):
+    pms = hist_store if store == "hist" else stores[store][1]
+    engine = QueryEngine(pms, "prometheus", device="cpu")
     with pytest.raises(NotImplementedError):
         engine.query_range(query, START_S, END_S, STEP_S)
+
+
+@pytest.mark.parametrize("grid", ["irregular", "regular"])
+@pytest.mark.parametrize("query", ["rate(http_requests_total[5m])", "node_temp"])
+def test_unaggregated_queries_match_jax(stores, grid, query):
+    """Once refused above, a bare rate and a selector now run on the
+    reference tree (one leaf per shard): the JAX engine's rows, by labels,
+    NaN masks equal, values within rtol 2e-4 / atol 1e-4."""
+    jms, pms = stores[grid]
+
+    def by_labels(res):
+        return {tuple(sorted(l.items())): v for g in res.grids
+                for l, v in zip(g.labels, g.values_np())}
+
+    want = by_labels(JaxEngine(jms, "prometheus").query_range(query, START_S, END_S, STEP_S))
+    got = by_labels(QueryEngine(pms, "prometheus", device="cpu").query_range(
+        query, START_S, END_S, STEP_S))
+    assert sorted(got) == sorted(want) and len(want) == N_SERIES // 2
+    for k, w in want.items():
+        np.testing.assert_array_equal(np.isnan(got[k]), np.isnan(w))
+        m = ~np.isnan(w)
+        assert m.any()
+        np.testing.assert_allclose(got[k][m], w[m], rtol=2e-4, atol=1e-4)
 
 
 def test_default_device_is_the_card(stores, monkeypatch):

@@ -229,9 +229,18 @@ def test_range_kernel_plain_other_functions_match_jax(func, staging):
 
 
 def test_range_kernel_plain_refuses_holt_winters():
+    """It refused double_exponential_smoothing until the general kernel
+    took Holt-Winters: now it computes it, as range_kernel's _holt_winters
+    scan does (rtol 2e-4 / atol 1e-4, NaN masks equal)."""
     arrays = block_arrays(staged("irregular", "gauge"))
-    with pytest.raises(NotImplementedError, match="double_exponential_smoothing"):
-        port_range("double_exponential_smoothing", arrays, 0, 60_000, False, False)
+    want = np.asarray(jax_range_kernel(
+        "double_exponential_smoothing", *arrays, np.int32(0), np.int32(60_000),
+        np.int32(WINDOW), J, arg0=np.float32(0.3), arg1=np.float32(0.1)))
+    got = range_kernel_plain("double_exponential_smoothing",
+                             *(torch.from_numpy(a) for a in arrays), 0, 60_000, WINDOW, J,
+                             arg0=0.3, arg1=0.1).numpy()
+    assert_close(got, want, "double_exponential_smoothing")
+    assert not np.isnan(got).all()
 
 
 def test_moment_mean_is_the_window_sum():
@@ -334,10 +343,14 @@ def test_general_rung_refuses_what_it_does_not_compute():
 
 def test_general_codes_are_the_kernels_own_enum():
     """The general kernel (csrc/general_range.cu) has an enum of its own:
-    one code per function, 0..7, apart from the window-stats codes."""
-    assert set(GR.GENERAL_FUNC_CODES) == GR.GENERAL_FUNCS == set(GR.KINDS)
-    assert not GR.GENERAL_FUNCS & WS.PALLAS_FUNCS
-    assert sorted(GR.GENERAL_FUNC_CODES.values()) == list(range(8))
+    one code per function, 0..9 (the fused functions 0..7, the tree's
+    predict_linear and double_exponential_smoothing 8 and 9), apart from
+    the window-stats codes."""
+    assert set(GR.GENERAL_FUNC_CODES) == GR.TREE_FUNCS == set(GR.KINDS)
+    assert GR.TREE_FUNCS == GR.GENERAL_FUNCS | GR.ARG_FUNCS
+    assert not GR.TREE_FUNCS & WS.PALLAS_FUNCS
+    assert sorted(GR.GENERAL_FUNC_CODES[f] for f in GR.GENERAL_FUNCS) == list(range(8))
+    assert sorted(GR.GENERAL_FUNC_CODES.values()) == list(range(10))
 
 
 @pytest.mark.parametrize("func,counter,is_delta,distinct_raw,want", [
@@ -700,18 +713,23 @@ def test_live_edge_cache_sequence_matches_jax(query, on_append):
 
 def test_offset_selection_keys_its_own_superblock(stores):
     """An offset query stages its own (shifted) range: a later query
-    without offset does not hit its superblock, and the same offset does."""
+    without offset does not hit its superblock, and the same offset does.
+    The shards' blocks of the range without offset are staged first (a
+    query against a throwaway superblock cache), so the one miss counted
+    below is the superblock's, whatever ran before."""
     _, pms = stores["irregular"]
-    pms._superblock_cache = None
     eng = QueryEngine(pms, "prometheus", device="cpu")
     q = "sum(changes(http_requests_total[5m]))"
+    pms._superblock_cache = None
+    eng.query_range(q, START_S, END_S, STEP_S)
+    pms._superblock_cache = None
     first = eng.query_range(q.replace("[5m]", "[5m] offset 2m"), START_S, END_S, STEP_S)
     assert len(pms._superblock_cache._d) == 1
     again = eng.query_range(q.replace("[5m]", "[5m] offset 2m"), START_S, END_S, STEP_S)
     assert again.stats.cache_hits == 1 and again.stats.cache_misses == 0
     np.testing.assert_array_equal(rows_of(again)[1], rows_of(first)[1])
     other = eng.query_range(q, START_S, END_S, STEP_S)
-    assert other.stats.cache_misses == 1  # the superblock; its shards' blocks may be cached
+    assert other.stats.cache_misses == 1  # the superblock; its shards' blocks are cached
     keys = list(pms._superblock_cache._d)
     assert len(keys) == 2 and {k[6] for k in keys} == {"diff"}
     # (dataset, shards, filters, raw start, raw end, ...): two staged ranges, 2 min apart

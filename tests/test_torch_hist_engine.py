@@ -237,14 +237,31 @@ def test_intra_shard_scheme_mismatch_raises():
     ("quantile(0.5, rate(http_request_latency[5m]))", "native histograms"),
     ("sum(avg_over_time(http_request_latency[3m]))", "histogram range function"),
     ("sum(irate(http_request_latency[5m]))", "histogram range function"),
-    ("histogram_quantile(0.9, sum by (le) (rate(http_requests_total[5m])))", "classic le"),
-    ("histogram_quantile(0.9, sum(rate(http_requests_total[5m])))", "classic le"),
     ("histogram_quantile(0.9, max(rate(http_request_latency[5m])))", "not ported"),
     ("histogram_fraction(0, 0.5, sum(rate(http_request_latency[5m])))", "not ported"),
 ])
 def test_unsupported_hist_shapes_raise(stores, q, match):
     with pytest.raises(NotImplementedError, match=match):
         QueryEngine(stores[1], "ds", device="cpu").query_range(q, START, END, STEP)
+
+
+@pytest.mark.parametrize("q", [
+    "histogram_quantile(0.9, sum by (le) (rate(http_requests_total[5m])))",
+    "histogram_quantile(0.9, sum(rate(http_requests_total[5m])))",
+])
+def test_classic_quantile_without_le_raises_as_jax(stores, q):
+    """histogram_quantile over scalar series that carry no ``le``: both
+    packages raise the same error type with the same message -- the
+    QueryError of the classic fold where the grouping drops ``le``, and,
+    grouped by an ``le`` the series lack, the ValueError of parsing its
+    empty value as a bound."""
+    jms, pms = stores
+    with pytest.raises(ValueError) as want:
+        JaxEngine(jms, "ds").query_range(q, START, END, STEP)
+    with pytest.raises(ValueError) as got:
+        QueryEngine(pms, "ds", device="cpu").query_range(q, START, END, STEP)
+    assert type(got.value).__name__ == type(want.value).__name__
+    assert str(got.value) == str(want.value)
 
 
 def test_unsupported_shape_on_a_cached_superblock_raises(stores):
