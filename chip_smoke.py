@@ -9,15 +9,17 @@ comes out.
 Phases (any failure raises and exits non-zero):
 
 1. Build ``filodb_tpu_torch/csrc/window_stats.cu``, ``regular_range.cu``,
-   ``hist_range.cu``, ``general_range.cu``, ``order_stats.cu`` and
-   ``sorted_window.cu`` with nvcc, and the histogram kernel's two split
-   builds (``tile_sweep.HIST_PATCHES``: search only, fetch only), all at
-   once, and bind their ten entry points (``filodb_window_stats``,
+   ``hist_range.cu``, ``general_range.cu``, ``order_stats.cu``,
+   ``sorted_window.cu`` and ``segment_agg.cu`` with nvcc, and the
+   histogram kernel's two split builds (``tile_sweep.HIST_PATCHES``: search
+   only, fetch only), all at once, and bind their twelve entry points
+   (``filodb_window_stats``,
    ``filodb_window_range_aggregate``, ``filodb_regular_range``,
    ``filodb_hist_range_aggregate``, ``filodb_hist_resident``,
    ``filodb_hist_quantile_gather``, ``filodb_general_range_aggregate``,
    ``filodb_topk_steps``, ``filodb_segment_quantile``,
-   ``filodb_sorted_window``); print their
+   ``filodb_segment_topk``, ``filodb_sorted_window``,
+   ``filodb_segment_aggregate``); print their
    ptxas lines (registers, shared memory, spills) and the card's name and
    power limit.
 2. Window stats (the nine-plane kernel), kernel vs plain on seeded
@@ -223,7 +225,9 @@ Phases (any failure raises and exits non-zero):
    standalone quantile over gathered classic rows.
 10. The reference tree at full width (``phase_tree``, after phase 9 on
    phase 4's store and on phase 5's): ``TREE_QUERIES`` unaggregated, each
-   cold then warm, one launch of its rung per shard leaf and no other
+   first (only the phase's first query with fresh caches: the later cold
+   repeats were cut to keep the script's time) then warm, one launch of
+   its rung per shard leaf and no other
    kernel, the warm run a staging-cache hit on the same device copies;
    [S, J] rows against the plain path; cold/warm latency, the host split,
    the kernels' ms beside their bounds and plain ms.
@@ -234,13 +238,33 @@ Phases (any failure raises and exits non-zero):
 10c. Time slicing (``phase_month``): 1,000 counters at 5 min over 30 days;
    ``MONTH_QUERIES`` planned as two stitched slices, against the plain
    path on the card.
+2e. The tree's aggregate kernels against their plain versions
+   (``phase_tree_aggregates_vs_plain``, after 2d): the segment aggregate
+   (``csrc/segment_agg.cu``, K1) and the grouped top-k
+   (``filodb_segment_topk`` in ``csrc/order_stats.cu``, K2) on seeded
+   100,000 x 111 blocks read in place: G = 1, 8, 100,000 groups of one and
+   3,000 groups (past K1's shared-memory budget), k in {1, 3, 1000}, 2 %
+   NaN, ties, +-inf and signed zeros; K1's count/min/max/group and K2's
+   kept values and thresholds bit-equal, K1's sum/sumsq within rtol 1e-4.
+11. The tree's aggregates, operators and instant functions at full width
+   (``phase_tree_aggregates``, after phase 10 on phase 4's store and on
+   phase 5's): ``TREE_AGG_QUERIES`` (all on the irregular store but
+   count_values; stddev, topk by zone and count_values on the regular
+   one) and ``UNFUSED_QUERY`` (with ``fused_aggregate=False``, held against
+   the fused answer, irregular store), each cold then warm, each launch count checked against the plan
+   (``expected_launches``: one rung launch per leaf and fused aggregate,
+   K1 per map phase, K2 per candidate filter and topk root, one quantile
+   per quantile root, no other kernel), the rows against the plain path on
+   the card (``plain_kernels``); then K1 and K2 timed at those shapes
+   beside their bounds, plain versions and library lines
+   (``tree_agg_kernels``).
 
 Around every timed phase it prints the card's SM and memory clocks,
 temperature and power draw (nvidia-smi), before and after. Prints, in
 order at the end: one JSON object with phases 6 and 6b's numbers
 (``{"cache": ...}``), one with phases 7b-7d's (``{"hist": ...}``), one
-with phase 9's (``{"epilogues": ...}``), one with phases 2d and 10-10c's
-(``{"tree": ...}``), one with the kernels' numbers
+with phase 9's (``{"epilogues": ...}``), one with phases 2d, 2e, 10-10c
+and 11's (``{"tree": ...}``), one with the kernels' numbers
 (the order-statistics kernels' rows, and the store mode's numbers on the
 rungs' rows), the card's
 name and power limit as nvidia-smi gives them, and the result line
@@ -274,7 +298,7 @@ QUERIES = (
     "sum by (zone) (rate(http_requests_total[5m]))",
 )
 SOURCES = ("window_stats", "regular_range", "hist_range", "general_range",
-           "order_stats", "sorted_window")  # csrc/<name>.cu
+           "order_stats", "sorted_window", "segment_agg")  # csrc/<name>.cu
 START_S = (BASE + 400_000) / 1000  # bench.py's range
 END_S = (BASE + N_SAMPLES * 10_000 - 200_000) / 1000
 # bench.py's ingest_impact: the range reaches past the newest sample (the
@@ -284,6 +308,14 @@ LIVE_END_S = (BASE + (N_SAMPLES + MAX_APPEND_BATCHES + 20) * 10_000) / 1000
 LIVE_QUERY = QUERIES[0]
 MAX_BATCHES = 40  # N_SAMPLES + 40 <= 768, the superblock's padded width
 JITTER_PHASE_MS = 5_000  # no jittered slot within 5 % of the 5 m staging boundary
+
+
+T0 = time.perf_counter()
+
+
+def elapsed(tag: str) -> None:
+    """The script's seconds so far, after a phase."""
+    print(f"elapsed {time.perf_counter() - T0:.1f} s after {tag}")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -365,7 +397,7 @@ def compare_stats(got: dict, want: dict, rtol: float = 2e-4, atol: float = 1e-4)
 
 def build_kernels() -> dict:
     """Build every source and the histogram kernel's two split builds at
-    once (one nvcc each), bind the ten entry points, print ptxas's lines
+    once (one nvcc each), bind the twelve entry points, print ptxas's lines
     (registers, shared memory, spills) and return the split builds."""
     from filodb_tpu_torch.ops import cuda_build
     from filodb_tpu_torch.ops import general_range as GR
@@ -379,15 +411,17 @@ def build_kernels() -> dict:
         split = pool.submit(hist_split_libs)
         libs = list(pool.map(cuda_build.build, SOURCES))
         split_libs = split.result()
+    from filodb_tpu_torch.ops import segment_agg as SA
     from filodb_tpu_torch.ops import sorted_window as SW
 
-    ws_lib, mk_lib, hk_lib, gr_lib, os_lib, sw_lib = (
-        WS._load(), MK._load(), HK._load(), GR._load(), OS._load(), SW._load())
+    ws_lib, mk_lib, hk_lib, gr_lib, os_lib, sw_lib, sa_lib = (
+        WS._load(), MK._load(), HK._load(), GR._load(), OS._load(), SW._load(), SA._load())
     entries = [ws_lib.filodb_window_stats, ws_lib.filodb_window_range_aggregate,
                mk_lib.filodb_regular_range, hk_lib.filodb_hist_range_aggregate,
                hk_lib.filodb_hist_resident, hk_lib.filodb_hist_quantile_gather,
                gr_lib.filodb_general_range_aggregate, os_lib.filodb_topk_steps,
-               os_lib.filodb_segment_quantile, sw_lib.filodb_sorted_window]
+               os_lib.filodb_segment_quantile, os_lib.filodb_segment_topk,
+               sw_lib.filodb_sorted_window, sa_lib.filodb_segment_aggregate]
     print(f"phase1 built {', '.join(l.name for l in libs)} in {time.perf_counter() - t0:.1f} s; "
           f"entry points {', '.join(e.__name__ for e in entries)}")
     for name in SOURCES:
@@ -3105,9 +3139,11 @@ def host_split(engine, q: str) -> dict:
 def phase_tree(engine, card: str, grid: str, sum_rate: np.ndarray) -> dict:
     """Phase 10: the reference tree on a 100k-series store (phase 4's
     irregular or phase 5's regular one): every ``TREE_QUERIES`` query
-    through ``QueryEngine`` cold (fresh caches: every shard staged again)
-    then warm (every shard leaf a staging-cache hit on the same device
-    copy: nothing staged, nothing uploaded), one launch of its rung's
+    through ``QueryEngine`` twice -- first (the phase's first query with
+    fresh caches, every shard staged again; later ones on the caches their
+    predecessors left, a miss where their staging mode is new) then warm
+    (every shard leaf a staging-cache hit on the same device copy: nothing
+    staged, nothing uploaded) -- one launch of its rung's
     kernel per leaf and no other kernel; the [S, J] rows against the
     plain path on the card (rtol 1e-3, NaN masks equal); rate summed on
     the host against phase 4/5's sum(rate) (rtol 1e-3). Prints cold and
@@ -3118,7 +3154,8 @@ def phase_tree(engine, card: str, grid: str, sum_rate: np.ndarray) -> dict:
     out = {}
     for q, irr_rung, reg_rung in TREE_QUERIES:
         rung = reg_rung if grid == "regular" else irr_rung
-        cold_cache(engine)
+        if q == TREE_QUERIES[0][0]:
+            cold_cache(engine)  # the phase's first query only: the others may hit
         cold, cold_rows, cold_s = run_tree(engine, q, rung)
         copies = dev_copies(engine)
         warm, rows, warm_s = run_tree(engine, q, rung)
@@ -3163,7 +3200,7 @@ def phase_tree(engine, card: str, grid: str, sum_rate: np.ndarray) -> dict:
         else:
             kern = "no kernel (timestamp stays host f64)"
         print(f"phase10 {grid} {q!r}: {rung}, {leaves} leaves, {rows.shape[0]} series x "
-              f"{rows.shape[1]} steps; cold {row['cold_ms']:.1f} ms, warm {row['warm_ms']:.1f} "
+              f"{rows.shape[1]} steps; first {row['cold_ms']:.1f} ms, warm {row['warm_ms']:.1f} "
               f"ms (hit on every leaf, no staging, the same device copies); warm split: plan "
               f"{split['plan_ms']:.2f} ms, execute {split['execute_ms']:.2f} ms (of which label "
               f"strip {split['label_strip_ms']:.2f} ms), D2H of [S, J] {split['d2h_ms']:.2f} "
@@ -3476,6 +3513,510 @@ def phase_month(device, card: str) -> dict:
 
 
 
+# -- phase 2e: the tree's aggregate kernels against their plain versions --------------
+
+AGG_TREE_GROUPS = ("one", "eight", "each", "past_shared")  # phase 2e's groupings
+
+
+def agg_tree_block(kind: str, S: int, J: int, seed: int, device):
+    """Phase 2e's [S, J] values: rate-like to three decimals (ties), 2 % NaN
+    and, for ``special``, +-inf and signed zeros; the transposed view of a
+    step-major [J + 1, S + 3] grid on the card, as a tree leaf holds it."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    v = np.round(rng.uniform(0, 10, (J, S)), 3).astype(np.float32)
+    if kind == "special":
+        for x, p in ((np.inf, 0.005), (-np.inf, 0.005), (0.0, 0.02), (-0.0, 0.02)):
+            v[rng.random((J, S)) < p] = x
+    v[rng.random((J, S)) < 0.02] = np.nan
+    big = np.full((J + 1, S + 3), np.nan, np.float32)
+    big[:J, :S] = v
+    return torch.from_numpy(big).to(device).T[:S, :J]
+
+
+def agg_tree_gids(groups: str, S: int, seed: int) -> np.ndarray:
+    """G = 1, 8 interleaved (bench.py's zones), S groups of one, and 3000
+    groups of random sizes (past K1's shared-memory budget: global
+    atomics; K2's large groups on clusters, the rest a thread each)."""
+    rng = np.random.default_rng(seed)
+    return {"one": np.zeros(S, np.int64), "eight": np.arange(S) % 8, "each": np.arange(S),
+            "past_shared": rng.integers(0, 3000, S)}[groups]
+
+
+def phase_tree_aggregates_vs_plain(seed: int, device, S: int = N_SERIES, J: int = 111) -> dict:
+    """Phase 2e: the segment aggregate (K1, ``csrc/segment_agg.cu``) and the
+    grouped top-k (K2, ``filodb_segment_topk``) against their plain versions
+    on the card, on seeded [S, J] blocks read in place (step-major) in each
+    grouping of ``AGG_TREE_GROUPS`` (2 % NaN; ties; +-inf and signed zeros
+    in the ``special`` blocks): K1's count, min, max and group bit-equal,
+    sum and sumsq within rtol 1e-4 (another order), NaN masks equal; K2 at
+    k in {1, 3, 1000}, topk and bottomk: kept values and thresholds
+    bit-equal."""
+    import torch
+
+    from filodb_tpu_torch.ops import aggregations as AGG
+    from filodb_tpu_torch.ops import order_stats as OS
+    from filodb_tpu_torch.ops import segment_agg as SA
+
+    k1_err, k1_cases, k2_cases, routes = 0.0, 0, 0, set()
+    for b, kind in enumerate(("normal", "special")):
+        v = agg_tree_block(kind, S, J, seed + b, device)
+        grid = SA.step_major(v)
+        for groups in AGG_TREE_GROUPS:
+            gids_np = agg_tree_gids(groups, S, seed)
+            G = int(gids_np.max()) + 1
+            gids = torch.from_numpy(gids_np).to(device)
+            got = SA.segment_components(v, gids, G, SA.COMPONENTS)
+            for c in SA.COMPONENTS:
+                want = AGG.segment_aggregate(c, v, gids, G)
+                what = f"2e segment_aggregate {c} {kind} {groups}"
+                if c in ("sum", "sumsq"):
+                    k1_err = max(k1_err, compare(got[c], want, what, rtol=1e-4))
+                else:
+                    require(torch.equal(torch.isnan(got[c]), torch.isnan(want)) and torch.equal(
+                        got[c].view(torch.int32)[~torch.isnan(want)],
+                        want.view(torch.int32)[~torch.isnan(want)]), f"{what}: differs")
+            k1_cases += 1
+            members = OS.segment_members(gids, G)
+            for k in (1, 3, 1000):
+                for bottom in (False, True):
+                    out, thr = OS.segment_topk(grid, members, k, bottom)
+                    routes.add(OS.LAST_PLAN.route)
+                    w_out, w_thr = OS.segment_topk_plain(grid, members, k, bottom)
+                    require(torch.equal(out.view(torch.int32), w_out.view(torch.int32))
+                            and torch.equal(thr.view(torch.int32), w_thr.view(torch.int32)),
+                            f"2e segment_topk {kind} {groups} k={k} bottom={bottom}: differs "
+                            f"from plain")
+                    k2_cases += 1
+    torch.cuda.synchronize()
+    print(f"phase2e segment_aggregate ({k1_cases} blocks of {S} x {J}: G = 1, 8, {S}, 3000) "
+          f"count/min/max/group bit-equal to plain, sum/sumsq within rtol 1e-4 (max_abs_err "
+          f"{k1_err:.3g}); segment_topk ({k2_cases} cases, k in 1, 3, 1000, routes "
+          f"{sorted(routes)}) bit-equal to plain")
+    return {"segment_aggregate_max_abs_err": k1_err, "segment_aggregate_blocks": k1_cases,
+            "segment_topk_cases": k2_cases, "segment_topk_routes": sorted(routes)}
+
+
+# -- phase 11: the tree's aggregates, operators and instant functions -----------------
+
+AT_S = int(END_S)
+# (query, the stores it runs on): every query on the irregular store (the
+# window-stats, general and sorted rungs under the tree), and on the
+# regular store (the regular rung's store mode) the two that feed K1 and
+# K2 and count_values; each cold query restages the shards (5-9 s on the
+# card's host), so running all of them on both stores took the script
+# past 1000 s
+TREE_AGG_QUERIES = (
+    ("stddev(rate(http_requests_total[5m]))", ("irregular", "regular")),
+    ("stdvar by (zone) (rate(http_requests_total[5m]))", ("irregular",)),
+    ("group by (zone) (http_requests_total)", ("irregular",)),
+    ("sum(quantile_over_time(0.5, http_requests_total[5m]))", ("irregular",)),
+    (f"sum(rate(http_requests_total[5m] @ {AT_S}))", ("irregular",)),
+    ("topk by (zone) (3, rate(http_requests_total[5m]))", ("irregular", "regular")),
+    ("quantile(0.9, abs(rate(http_requests_total[5m])))", ("irregular",)),
+    ('count_values("c", changes(http_requests_total[5m]))', ("regular",)),
+    ("rate(http_requests_total[5m]) * 2", ("irregular",)),
+    ("rate(http_requests_total[5m]) > bool 0.1", ("irregular",)),
+    ("rate(http_requests_total[5m]) / irate(http_requests_total[5m])", ("irregular",)),
+    ("rate(http_requests_total[5m]) / on (zone) group_left "
+     "sum by (zone) (rate(http_requests_total[5m]))", ("irregular",)),
+)
+# with fused_aggregate=False, held against the fused answer (irregular store)
+UNFUSED_QUERY = "sum by (zone) (rate(http_requests_total[5m]))"
+RUNG_COUNTERS = ("window_range", "general_range", "regular_range", "sorted_window")
+TREE_AGG_COUNTERS = dict(KERNEL_COUNTERS, segment_agg=("segment_agg", "LAUNCHES"))
+
+
+def expected_launches(plan) -> dict:
+    """The launches a tree plan makes: a rung per leaf with a range
+    function and per fused aggregate; K1 per map phase (a leaf's
+    ``AggregateMapReduce``, or a root over a subtree); K2 per candidate
+    filter and per topk/bottomk root; one quantile per quantile root."""
+    from filodb_tpu_torch.query.exec import plans as P
+    from filodb_tpu_torch.query.exec import transformers as TR
+
+    want = {"rungs": 0, "segment_agg": 0, "segment_topk": 0, "segment_quantile": 0}
+
+    def walk(node):
+        if isinstance(node, (P.SelectRawPartitionsExec, P.FusedAggregateExec)):
+            want["rungs"] += 1
+        for tr in node.transformers:
+            if isinstance(tr, P.AggregateMapReduce):
+                want["segment_agg"] += 1
+            elif isinstance(tr, TR.TopkCandidateFilter):
+                want["segment_topk"] += 1
+        if isinstance(node, P.AggregatePresentExec):
+            if node.op in P._PARTIAL_COMPONENTS:
+                want["segment_agg"] += 1
+            elif node.op in ("topk", "bottomk"):
+                want["segment_topk"] += 1
+            elif node.op == "quantile":
+                want["segment_quantile"] += 1
+        for c in node.children():
+            walk(c)
+
+    walk(plan)
+    return want
+
+
+def run_tree_agg(engine, q: str):
+    """One phase-11 query through the user's entry point, every launch
+    count set to 0 just before and read just after: each leaf one rung
+    launch, the map phases and roots their K1/K2/quantile launches
+    (``expected_launches``), no other kernel. Returns the result, its rows
+    by labels, the end-to-end seconds and the counts with the host split
+    (``plan_ms``: planning it alone; ``execute_ms``: the engine's call to
+    the card's last kernel; ``rows_ms``: the rows to the host by labels,
+    the D2H included)."""
+    import importlib
+
+    import torch
+
+    mods = {name: importlib.import_module(f"filodb_tpu_torch.ops.{mod}")
+            for name, (mod, _) in TREE_AGG_COUNTERS.items()}
+    t0 = time.perf_counter()
+    want = expected_launches(exec_node(engine, q))
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    for name, (_, attr) in TREE_AGG_COUNTERS.items():
+        setattr(mods[name], attr, 0)
+    t0 = time.perf_counter()
+    res = engine.query_range(q, START_S, END_S, STEP_S)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rows = {tuple(sorted(l.items())): v for g in res.grids
+            for l, v in zip(g.labels, g.values_np())}
+    wall = time.perf_counter() - t0
+    counts = {name: getattr(mods[name], attr) for name, (_, attr) in TREE_AGG_COUNTERS.items()}
+    got = {"rungs": sum(counts[k] for k in RUNG_COUNTERS), "segment_agg": counts["segment_agg"],
+           "order_stats": counts["order_stats"]}
+    need = {"rungs": want["rungs"], "segment_agg": want["segment_agg"],
+            "order_stats": want["segment_topk"] + want["segment_quantile"]}
+    require(got == need, f"{q}: launches {counts}, expected {need}")
+    others = {k: v for k, v in counts.items()
+              if k not in RUNG_COUNTERS and k not in ("segment_agg", "order_stats") and v}
+    require(not others, f"{q}: other kernels launched: {others}")
+    split = {"plan_ms": plan_ms, "execute_ms": (t1 - t0) * 1e3,
+             "rows_ms": (wall - (t1 - t0)) * 1e3}
+    return res, rows, wall, {**counts, **want, **split}
+
+
+def plain_dispatch(func, block, params, is_counter=False, is_delta=False, args=()):
+    """``kernels._dispatch_range_function`` through the plain versions, on
+    the card: (the [S, J] values, the variant)."""
+    from filodb_tpu_torch.ops import aggregations as AGG
+    from filodb_tpu_torch.ops import general_range as GR
+    from filodb_tpu_torch.ops import mxu_kernels as MK
+    from filodb_tpu_torch.ops import sorted_window as SW
+    from filodb_tpu_torch.ops import window_stats as WS
+    from filodb_tpu_torch.ops.kernels import _host_timestamp, pad_steps
+
+    kw = {"is_counter": is_counter, "is_delta": is_delta}
+    J, start_off = params.num_steps, int(params.start_ms - block.base_ms)
+    if func == "timestamp":
+        return _host_timestamp(block, params), "host"
+    if func in SW.SORTED_FUNCS:
+        q, a1 = SW.func_args(args)
+        return SW.sorted_window_plain(func, block.ts, block.vals, block.lens, start_off,
+                                      params.step_ms, params.window_ms, J, q, a1), "sorted"
+    if func in GR.ARG_FUNCS:
+        return GR.general_range_series_plain(func, block, params, args=args, **kw), "general"
+    variant = AGG.grid_variant(block, func, is_delta)
+    if variant == "general":
+        return GR.general_range_series_plain(func, block, params, **kw), variant
+    if variant == "window_stats":
+        return WS.window_range_series_plain(func, block, params, **kw), variant
+    raw = block.raw if block.raw is not None else block.vals
+    wm = MK.window_matrices(block, start_off, params.step_ms, pad_steps(J), params.window_ms)
+    return MK.mxu_range_plain(func, block.vals, raw, wm, params.window_ms, **kw), variant
+
+
+def plain_fused(func, op, block, gids, G, params, is_counter=False, is_delta=False, obs=None):
+    """``aggregations.fused_range_aggregate`` through the plain versions."""
+    from filodb_tpu_torch.ops import aggregations as AGG
+
+    sj, _ = plain_dispatch(func, block, params, is_counter, is_delta)
+    return AGG.apply_epilogue(sj, ("agg", op), gids, G)
+
+
+class plain_kernels:
+    """Within it, the engine runs its rungs, K1, K2 and the quantile
+    through their plain versions (on the card's tensors)."""
+
+    def __enter__(self):
+        from filodb_tpu_torch.ops import aggregations as AGG
+        from filodb_tpu_torch.ops import kernels as K
+        from filodb_tpu_torch.ops import order_stats as OS
+        from filodb_tpu_torch.ops import segment_agg as SA
+
+        def components(values, gids, G, comps, lib=None):
+            return {c: AGG.segment_aggregate(c, values, gids.long(), G) for c in comps}
+
+        def topk(grid, members, k, bottom=False, plan=None, lib=None):
+            return OS.segment_topk_plain(grid, members, k, bottom)
+
+        def quantile(grid, members, q, plan=None, lib=None):
+            return OS.segment_quantile_plain(grid, members, q)
+
+        self.saved = [(K, "_dispatch_range_function"), (AGG, "fused_range_aggregate"),
+                      (SA, "segment_components"), (OS, "segment_topk"),
+                      (OS, "segment_quantile")]
+        self.saved = [(m, a, getattr(m, a)) for m, a in self.saved]
+        for (m, a, _), f in zip(self.saved, (plain_dispatch, plain_fused, components, topk,
+                                             quantile)):
+            setattr(m, a, f)
+        return self
+
+    def __exit__(self, *exc):
+        for m, a, f in self.saved:
+            setattr(m, a, f)
+        return False
+
+
+def rows_match(got: dict, want: dict, what: str, rtol: float = 1e-3) -> float:
+    """Labels equal, NaN masks equal, values within rtol; the largest
+    absolute difference."""
+    require(sorted(got) == sorted(want), f"{what}: labels differ from the plain path "
+            f"({len(got)} vs {len(want)} rows)")
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k]
+        require(np.array_equal(np.isnan(g), np.isnan(w)), f"{what}: NaN masks differ at {k}")
+        m = ~np.isnan(w)
+        require(np.allclose(g[m], w[m], rtol=rtol), f"{what}: values differ at {k}")
+        fin = m & np.isfinite(w)
+        if fin.any():
+            worst = max(worst, float(np.max(np.abs(g[fin].astype(np.float64) - w[fin]))))
+    return worst
+
+
+def grouped_winners_match(got: dict, want: dict, group: str, what: str) -> int:
+    """topk by (group) against the plain path: per group phase 9's rule
+    (``winners_match``: the same winners except at near ties). Returns
+    the near ties."""
+    ties = 0
+    for z in sorted({dict(k)[group] for k in want}):
+        g = {k: v for k, v in got.items() if dict(k)[group] == z}
+        w = {k: v for k, v in want.items() if dict(k)[group] == z}
+        ties += winners_match([dict(k) for k in g], np.stack(list(g.values())),
+                              [dict(k) for k in w], np.stack(list(w.values())), False, 1e-3,
+                              f"{what} {group}={z}")
+    return ties
+
+
+def bool_rows_match(got: dict, want: dict, rate: dict, threshold: float, what: str) -> int:
+    """``rate > bool x`` against the plain path: a 0/1 that differs only
+    where the plain rate lies within rtol 1e-3 of x. Returns those flips."""
+    require(sorted(got) == sorted(want), f"{what}: labels differ from the plain path")
+    flips = 0
+    for k, w in want.items():
+        g = got[k]
+        require(np.array_equal(np.isnan(g), np.isnan(w)), f"{what}: NaN masks differ at {k}")
+        d = ~np.isnan(w) & (g != w)
+        require(np.allclose(rate[k][d], threshold, rtol=1e-3),
+                f"{what}: a comparison differs away from the threshold at {k}")
+        flips += int(d.sum())
+    return flips
+
+
+def check_tree_agg(engine, q: str, rows: dict, grid: str) -> dict:
+    """Phase 11's answer against the plain path on the card, by labels."""
+    with plain_kernels():
+        want = {tuple(sorted(l.items())): v for g in engine.query_range(
+            q, START_S, END_S, STEP_S).grids for l, v in zip(g.labels, g.values_np())}
+        rate = None
+        if " > bool " in q:
+            base = q.split(" > bool ")[0]
+            rate = {tuple(sorted(l.items())): v for g in engine.query_range(
+                base, START_S, END_S, STEP_S).grids for l, v in zip(g.labels, g.values_np())}
+    what = f"phase11 {grid} {q}"
+    require(want and all(np.isfinite(v).any() for v in rows.values()),
+            f"{what}: an empty or all-NaN answer")
+    if q.startswith("topk by (zone)"):
+        return {"near_ties": grouped_winners_match(rows, want, "zone", what)}
+    if rate is not None:
+        return {"near_threshold_flips": bool_rows_match(rows, want, rate,
+                                                        float(q.split(" > bool ")[1]), what)}
+    return {"max_abs_err": rows_match(rows, want, what)}
+
+
+def phase_tree_aggregates(engine, card: str, grid: str) -> dict:
+    """Phase 11: ``TREE_AGG_QUERIES`` on a 100k-series store (phase 4's
+    irregular or phase 5's regular one: the queries listed for it), and on
+    the irregular one ``UNFUSED_QUERY`` with ``fused_aggregate=False``:
+    each through ``QueryEngine`` cold (fresh
+    caches) then warm, with its launches checked (``run_tree_agg``), the
+    warm rows equal to the cold ones (rtol 1e-3) and to the plain path on
+    the card (``check_tree_agg``: rtol 1e-3, NaN masks equal; topk winner
+    sets equal except at near ties; a comparison's 0/1 equal except where
+    the plain rate is within rtol 1e-3 of the threshold); the unfused
+    answer equal to the fused one (rtol 1e-3). Prints cold and warm ms and
+    the warm run's host split."""
+    from filodb_tpu_torch.coordinator.planner import PlannerParams, QueryEngine
+
+    out = {}
+    unfused = QueryEngine(engine.memstore, engine.dataset,
+                          params=PlannerParams(fused_aggregate=False))
+    runs = [(q, engine) for q, stores in TREE_AGG_QUERIES if grid in stores]
+    if grid == "irregular":
+        runs.append((UNFUSED_QUERY, unfused))
+    for q, eng in runs:
+        cold_cache(eng)
+        _, cold_rows, cold_s, _ = run_tree_agg(eng, q)
+        res, rows, warm_s, counts = run_tree_agg(eng, q)
+        require(sorted(rows) == sorted(cold_rows) and all(
+            np.allclose(rows[k], cold_rows[k], rtol=1e-3, equal_nan=True) for k in rows),
+            f"{q}: warm differs from cold")
+        split = {k: counts.pop(k) for k in ("plan_ms", "execute_ms", "rows_ms")}
+        row = {"cold_ms": cold_s * 1e3, "warm_ms": warm_s * 1e3, "rows": len(rows),
+               "launches": counts, **check_tree_agg(eng, q, rows, grid), **split}
+        if eng is unfused:
+            fused = {tuple(sorted(l.items())): v for g in engine.query_range(
+                q, START_S, END_S, STEP_S).grids for l, v in zip(g.labels, g.values_np())}
+            row["vs_fused_max_abs_err"] = rows_match(rows, fused, f"phase11 {grid} unfused {q}")
+            q = f"{q} [fused_aggregate=False]"
+        print(f"phase11 {grid} {q!r}: {row['rows']} rows; cold {row['cold_ms']:.1f} ms, warm "
+              f"{row['warm_ms']:.1f} ms (warm split: plan {row['plan_ms']:.2f}, execute "
+              f"{row['execute_ms']:.2f}, rows to the host {row['rows_ms']:.2f} ms); launches "
+              f"{ {k: v for k, v in counts.items() if v} }; matches the plain path "
+              f"({ {k: v for k, v in row.items() if k in ('max_abs_err', 'near_ties', 'near_threshold_flips', 'vs_fused_max_abs_err')} }); "
+              f"on {card}")
+        out[q] = row
+    return out
+
+
+def tree_agg_kernels(engine, card: str, grid: str) -> dict:
+    """K1 and K2 timed at phase 11's shapes on ``grid``'s store: K1 over
+    ``stddev(rate)``'s 8 leaves (G = 1, three components) and
+    ``stdvar by (zone)``'s (G = 8); K2 over ``topk by (zone) (3, rate)``'s
+    8 leaf filters (G = 8 each) and its root; each all leaves' launches
+    together (median of 20 calls, and back to back), beside the bound (the
+    grid read once, the outputs written once, 3.35 TB/s), the plain
+    versions' ms and the library line: ``index_add_`` of the sum component
+    (K1), none for a grouped top-k (``torch.topk`` at G = 1 over the same
+    leaves' grids printed as a reference)."""
+    import torch
+
+    from filodb_tpu_torch.ops import aggregations as AGG
+    from filodb_tpu_torch.ops import order_stats as OS
+    from filodb_tpu_torch.ops import segment_agg as SA
+    from filodb_tpu_torch.query.exec.transformers import grid_members
+
+    rate_q = "rate(http_requests_total[5m])"
+    grids = engine.query_range(rate_q, START_S, END_S, STEP_S).grids  # one per leaf
+    out = {}
+    for name, by, comps in (("stddev", None, ("sum", "sumsq", "count")),
+                            ("stdvar by (zone)", ["zone"], ("sum", "sumsq", "count"))):
+        leaves = []
+        for g in grids:
+            v = g.values[: g.n_series, : g.num_steps]
+            members, G, _, gids = grid_members(g, by, None, v.device)
+            leaves.append((v, gids, G))
+        need = sum((v.numel() + len(comps) * G * v.shape[1]) * 4 + v.shape[0] * 4
+                   for v, _, G in leaves)
+
+        def k1():
+            for v, gids, G in leaves:
+                SA.segment_components(v, gids, G, comps)
+
+        def k1_plain():
+            for v, gids, G in leaves:
+                for c in comps:
+                    AGG.segment_aggregate(c, v, gids, G)
+
+        v0 = [(torch.nan_to_num(v.contiguous(), nan=0.0), gids,
+               torch.zeros((G, v.shape[1]), device=v.device)) for v, gids, G in leaves]
+
+        def library():
+            for v, gids, acc in v0:
+                acc.index_add_(0, gids, v)
+
+        out[f"segment_aggregate {name}"] = {
+            "ms": cuda_ms(k1, reps=20), "ms_back_to_back": back_to_back_ms(k1, reps=20),
+            "plain_ms": cuda_ms(k1_plain, reps=3, warmup=1),
+            "library_ms": back_to_back_ms(library, reps=20),
+            "bound_ms": need / HBM_BYTES_PER_S * 1e3, "bound_bytes": need,
+            "leaves": len(leaves), "groups": leaves[0][2]}
+    leaves = []
+    for g in grids:
+        v = g.values[: g.n_series, : g.num_steps]
+        members, G, _, gids = grid_members(g, ["zone"], None, v.device)
+        leaves.append((SA.step_major(v), members))
+    need = sum(grid.numel() * 8 + grid.shape[1] * 4 + m.starts.numel() * 4
+               + m.num_groups * grid.shape[0] * 4 for grid, m in leaves)
+
+    def k2():
+        for grid, m in leaves:
+            OS.segment_topk(grid, m, 3)
+
+    def k2_plain():
+        for grid, m in leaves:
+            OS.segment_topk_plain(grid, m, 3)
+
+    def topk_g1():
+        for grid, _ in leaves:
+            torch.topk(grid, 3, dim=1)
+
+    out["segment_topk by (zone) (3)"] = {
+        "ms": cuda_ms(k2, reps=20), "ms_back_to_back": back_to_back_ms(k2, reps=20),
+        "plain_ms": cuda_ms(k2_plain, reps=3, warmup=1), "library_ms": None,
+        "torch_topk_g1_ms": back_to_back_ms(topk_g1, reps=20), "route": OS.LAST_PLAN.route,
+        "bound_ms": need / HBM_BYTES_PER_S * 1e3, "bound_bytes": need, "leaves": len(leaves)}
+    for name, r in out.items():
+        lib = (f"index_add_ of the sum {r['library_ms']:.4f} ms" if r["library_ms"] is not None
+               else f"no library call for a grouped top-k (torch.topk at G = 1 over the same "
+                    f"grids {r['torch_topk_g1_ms']:.4f} ms)")
+        print(f"phase11 {grid} kernel {name} x {r['leaves']} leaves: {r['ms']:.4f} ms (median of "
+              f"20; {r['ms_back_to_back']:.4f} ms back to back), bound {r['bound_ms']:.4f} ms "
+              f"(bytes: {r['bound_bytes']}), plain {r['plain_ms']:.3f} ms, {lib}; on {card}")
+    return out
+
+
+def tree_agg_rows(tree_agg: dict, kernels: dict, phase2e: dict, rung_rows: dict,
+                  other_rows: list) -> list:
+    """The kernels line's rows of K1 and K2, timed at phase 11's irregular
+    store; phase 11's launches of the rungs, sorted_window and
+    segment_quantile go to their rows."""
+    seg_launches = topk_launches = quantile_launches = sorted_launches = 0
+    for per_store in tree_agg.values():
+        for q, row in per_store.items():
+            c = row["launches"]
+            seg_launches += 2 * c["segment_agg"]  # cold and warm
+            topk_launches += 2 * c["segment_topk"]
+            quantile_launches += 2 * c["segment_quantile"]
+            sorted_launches += 2 * c["sorted_window"]
+            for counter, key in (("window_range", "window_stats"), ("regular_range", "mxu"),
+                                 ("general_range", "general")):
+                rung_rows[key]["launches"] += 2 * c[counter]
+    for r in other_rows:
+        r["launches"] += {"segment_quantile": quantile_launches,
+                          "sorted_window": sorted_launches}.get(r["name"], 0)
+    k1, k2 = kernels["segment_aggregate stddev"], kernels["segment_topk by (zone) (3)"]
+    errs = [r.get("max_abs_err", 0.0) for per in tree_agg.values() for r in per.values()]
+    return [{
+        "name": "segment_aggregate", "route": "cuda",
+        "source": "filodb_tpu_torch/csrc/segment_agg.cu",
+        "replaces": "filodb_tpu/ops/aggregations.py:49", "launches": seg_launches,
+        "max_abs_err": max([phase2e["segment_aggregate_max_abs_err"]] + errs),
+        "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+        "bound_by": "bytes", "library_ms": k1["library_ms"],
+        "library_call": "torch.index_add_ of the sum component alone",
+        "ms_back_to_back": k1["ms_back_to_back"],
+        "ms_is": "stddev(rate(http_requests_total[5m])), phase 11, irregular store, all 8 "
+                 "leaves' launches", "by_zone": kernels["segment_aggregate stdvar by (zone)"]},
+        {"name": "segment_topk", "route": "cuda",
+         "source": "filodb_tpu_torch/csrc/order_stats.cu",
+         "replaces": "filodb_tpu/ops/aggregations.py:1904", "launches": topk_launches,
+         "max_abs_err": 0.0, "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": k2["bound_ms"], "bound_by": "bytes", "library_ms": None,
+         "library_call": "none for a grouped top-k; torch.topk(grid, 3, dim=1) at G = 1 over "
+                         f"the same grids {k2['torch_topk_g1_ms']:.4f} ms",
+         "ms_back_to_back": k2["ms_back_to_back"], "route_of_leaves": k2["route"],
+         "ms_is": "topk by (zone) (3, rate(http_requests_total[5m])), phase 11, irregular "
+                  "store, the 8 leaf filters' launches",
+         "cases_phase2e": phase2e["segment_topk_cases"]}]
+
+
 def tree_kernel_rows(tree: dict, kernels: dict, classic: dict, rung_rows: dict) -> list:
     """The kernels line's rows of the tree's kernels (sorted_window, the
     general kernel's predict_linear and Holt-Winters, the standalone
@@ -3552,11 +4093,18 @@ def main() -> int:
     phase_regular_vs_plain(args.seed, device)
     general_err = phase_general_vs_plain(args.seed, device)
     tree_kernels = phase_tree_kernels_vs_plain(args.seed, device)
+    tree_aggs_2e = phase_tree_aggregates_vs_plain(args.seed, device)
     gpu_sample("phase3 after")
+    elapsed("phases 1-3")
     wr_row, ws_row, engine, rate_result = phase_irregular_path(args.seed, device)
     general = phase_general_path(engine, card, rate_result)
     epilogues = phase_epilogues(engine, card, EPILOGUE_IRREGULAR, "irregular")
+    elapsed("phases 4, 8, 9 (irregular)")
     tree = {"irregular": phase_tree(engine, card, "irregular", rate_result)}
+    elapsed("phase 10 (irregular)")
+    tree_agg = {"irregular": phase_tree_aggregates(engine, card, "irregular")}
+    agg_kernels = tree_agg_kernels(engine, card, "irregular")
+    elapsed("phase 11 (irregular)")
     del engine
     gc.collect()  # the irregular store goes before the regular one is built
     torch.cuda.empty_cache()
@@ -3567,7 +4115,11 @@ def main() -> int:
     general_regular = phase_general_regular(engine, card)
     epilogues.update(phase_epilogues(engine, card, EPILOGUE_REGULAR, "regular"))
     reg_rate = engine.query_range(QUERIES[0], START_S, END_S, STEP_S).grids[0].values_np()
+    elapsed("phases 5, 6, 8, 9 (regular)")
     tree["regular"] = phase_tree(engine, card, "regular", reg_rate)
+    elapsed("phase 10 (regular)")
+    tree_agg["regular"] = phase_tree_aggregates(engine, card, "regular")
+    elapsed("phase 11 (regular)")
     del engine
     gc.collect()  # the regular store goes before the jittered one is built
     torch.cuda.empty_cache()
@@ -3599,6 +4151,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     month = phase_month(device, card)
+    elapsed("phases 9b, 6b, 7a-7d, 10b, 10c")
     launches = add_launches(bench_hist["launches"], irr_hist["launches"])
     hist_rows = [{
         "name": "hist_range",
@@ -3670,12 +4223,15 @@ def main() -> int:
     order_rows = epilogue_rows(epilogues, {"window_stats": wr_row, "general": general_row,
                                            "mxu": reg_row}, order_stream)
     print(json.dumps({"epilogues": {"phase9": epilogues, "phase9b": order_stream}}))
-    tree_rows = tree_kernel_rows(tree, tree_kernels, classic,
-                                 {"window_stats": wr_row, "mxu": reg_row, "general": general_row})
-    print(json.dumps({"tree": {"phase2d": tree_kernels, "phase10": tree, "phase10b": classic,
-                               "phase10c": month}}))
+    rung_rows = {"window_stats": wr_row, "mxu": reg_row, "general": general_row}
+    tree_rows = tree_kernel_rows(tree, tree_kernels, classic, rung_rows)
+    agg_rows = tree_agg_rows(tree_agg, agg_kernels, tree_aggs_2e, rung_rows,
+                             order_rows + tree_rows)
+    print(json.dumps({"tree": {"phase2d": tree_kernels, "phase2e": tree_aggs_2e, "phase10": tree,
+                               "phase10b": classic, "phase10c": month, "phase11": tree_agg,
+                               "phase11_kernels": agg_kernels}}))
     print(json.dumps({"kernels": [ws_row, wr_row, general_row, reg_row, *hist_rows,
-                                  *order_rows, *tree_rows]}))
+                                  *order_rows, *tree_rows, *agg_rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

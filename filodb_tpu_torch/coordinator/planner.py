@@ -1,28 +1,33 @@
 """Query planning and the engine facade (counterpart of
 ``filodb_tpu/coordinator/planner.py``; reference SingleClusterPlanner.scala).
 
-The port plans two families of shapes:
+The port plans:
 
-- the reference tree's first part: an unaggregated range function
+- the reference tree: an unaggregated range function
   ``func(selector[w] [offset d] [@ t])`` (every function of the JAX
   ladder, arguments included) or a bare selector becomes one
   ``SelectRawPartitionsExec`` per shard with a ``PeriodicSamplesMapper``
-  under a ``DistConcatExec`` (``_fanout``);
+  under a ``DistConcatExec`` (``_fanout``); aggregates over any subtree
+  (``_materialize_aggregate_tree``: the map phase pushed onto each shard,
+  a ``ReduceAggregateExec`` or, for the non-mergeable ops, an
+  ``AggregatePresentExec``), instant functions, binary operators (vector
+  joins, set operators, scalar operands), sort, limit, absent, label
+  functions and scalar plans;
 - the fused aggregate: ``op by (...) (func(selector[w] [offset d]))`` (or
   over a bare selector) with ``op`` in sum/count/avg/min/max and ``func``
   in the JAX package's fused set ``FUSED_FUNCS`` becomes a
   ``FusedAggregateExec``; ``histogram_quantile(q, sum ... (...))`` of it
   folds the interpolation in (native histograms, or classic ``le`` series
   grouped by ``le``); and the fused epilogues (``FUSED_EPI_OPS``): global
-  ``topk``/``bottomk(k, ...)`` and ``quantile [by (...)] (q, ...)``. As in
-  the JAX package's fused planner, ``@``, range-function arguments,
-  grouped topk/bottomk and epilogue parameters other than one number stay
-  off it (the JAX package runs them on its aggregate tree, ROADMAP A3).
+  ``topk``/``bottomk(k, ...)`` and ``quantile [by (...)] (q, ...)``. Every
+  other aggregate shape (``_try_fused_aggregate`` returns None where the
+  JAX package's does) takes the tree; a fused exec falls back to it at run
+  time for a selection of several schemas.
 
 A range whose selection spans more than the int32 ms offsets of a staged
 block is cut into time slices planned one by one under a ``StitchRvsExec``
-(``materialize``). Every other plan raises ``NotImplementedError`` naming
-the missing piece.
+(``materialize``). Subqueries, ``_filodb_chunkmeta_all`` and the metadata
+plans raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -37,10 +42,17 @@ from ..core.schemas import DatasetOptions, METRIC_TAG, PROM_METRIC_TAG, shard_gr
 from ..memstore.index import _LITERAL_ALT
 from ..ops import staging as ST
 from ..query import logical as L
-from ..query.exec.plans import (FUSED_AGG_OPS, FUSED_EPI_OPS, DistConcatExec, EmptyResultExec,
-                                ExecPlan, FusedAggregateExec, QueryContext,
-                                SelectRawPartitionsExec, StitchRvsExec)
-from ..query.exec.transformers import PeriodicSamplesMapper
+from ..query.exec.joins import (BinaryJoinExec, ScalarPlanExec, ScalarVaryingExec,
+                                ScalarVectorOpExec, SetOperatorExec)
+from ..query.exec.plans import (_PARTIAL_COMPONENTS, FUSED_AGG_OPS, FUSED_EPI_OPS,
+                                AggregateMapReduce, AggregatePresentExec, CountValuesMergeExec,
+                                DistConcatExec, EmptyResultExec, ExecPlan, FusedAggregateExec,
+                                QueryContext, ReduceAggregateExec, SelectRawPartitionsExec,
+                                StitchRvsExec)
+from ..query.exec.transformers import (AbsentFunctionMapper, CountValuesMapReduce,
+                                       InstantVectorFunctionMapper, LimitFunctionMapper,
+                                       MiscellaneousFunctionMapper, PeriodicSamplesMapper,
+                                       QueryError, SortFunctionMapper, TopkCandidateFilter)
 from ..query.promql import query_range_to_logical_plan, query_to_logical_plan
 
 # the range functions of the fused path, the JAX package's set
@@ -66,8 +78,8 @@ class PlannerParams:
     # total shards in the cluster (the ingest-routing modulus); None = the
     # memstore owns the whole cluster
     num_shards: int | None = None
-    # single-dispatch cross-shard aggregates; the reference scatter tree the
-    # JAX package runs with this off is not ported
+    # single-dispatch cross-shard aggregates; off, every aggregate takes the
+    # reference tree
     fused_aggregate: bool = True
 
 
@@ -217,58 +229,167 @@ class SingleClusterPlanner:
                 s, p.raw.filters, p.raw.start_ms, p.raw.end_ms, p.raw.column), [mapper],
                 filters=p.raw.filters)
         if isinstance(p, L.Aggregate):
-            return self._try_fused_aggregate(p)
-        if (isinstance(p, L.ApplyInstantFunction) and p.function == "histogram_quantile"
-                and len(p.args) == 1 and isinstance(p.args[0], (int, float))
-                and isinstance(p.inner, L.Aggregate) and p.inner.op == "sum"):
-            # the canonical SRE chain histogram_quantile(q, sum by (le)
-            # (rate(m_bucket[w]))): the interpolation fuses into the aggregate
-            return self._try_fused_aggregate(p.inner, hist_quantile=float(p.args[0]))
-        raise NotImplementedError(
-            f"{type(p).__name__} plans are not ported: the port runs range functions, "
-            "selectors and aggregations over them (binary operators and instant "
-            "functions are ROADMAP A3)")
+            return self._materialize_aggregate(p)
+        if isinstance(p, L.BinaryJoin):
+            lhs, rhs = self._materialize(p.lhs), self._materialize(p.rhs)
+            if p.op in ("and", "or", "unless"):
+                return SetOperatorExec(lhs, rhs, p.op, p.on, p.ignoring)
+            return BinaryJoinExec(lhs, rhs, p.op, p.cardinality, p.on, p.ignoring, p.include,
+                                  p.return_bool)
+        if isinstance(p, L.ScalarVectorBinaryOperation):
+            vec = self._materialize(p.vector)
+            sc = p.scalar
+            if isinstance(sc, _SCALAR_PLANS):
+                # evaluated at execution on the vector's own grid
+                times = _plan_times(p.vector)
+                if times is not None:
+                    start, end, step = times
+                    sexec = ScalarPlanExec(sc, start, step, int((end - start) // step) + 1)
+                else:
+                    sexec = ScalarPlanExec(sc, getattr(sc, "start_ms", 0),
+                                           getattr(sc, "step_ms", 1) or 1, 1)
+                return ScalarVectorOpExec(vec, sexec, p.op, p.scalar_is_lhs, p.return_bool)
+            if isinstance(sc, L.ScalarVaryingDoublePlan):
+                sexec = ScalarVaryingExec(self._materialize(sc.inner), sc.function)
+                return ScalarVectorOpExec(vec, sexec, p.op, p.scalar_is_lhs, p.return_bool)
+            raise QueryError(f"unsupported scalar operand {sc}")
+        if isinstance(p, L.ApplyInstantFunction):
+            if (p.function == "histogram_quantile" and len(p.args) == 1
+                    and isinstance(p.args[0], (int, float))
+                    and isinstance(p.inner, L.Aggregate) and p.inner.op == "sum"):
+                # the canonical SRE chain histogram_quantile(q, sum by (le)
+                # (rate(m_bucket[w]))): the interpolation fuses into the aggregate
+                fused = self._try_fused_aggregate(p.inner, hist_quantile=float(p.args[0]))
+                if fused is not None:
+                    return fused
+            return self._with(p.inner, InstantVectorFunctionMapper(p.function, p.args))
+        if isinstance(p, L.ApplyMiscellaneousFunction):
+            if p.function == "_filodb_chunkmeta_all":
+                raise NotImplementedError(
+                    "_filodb_chunkmeta_all (chunk metadata) is not ported: ROADMAP A3, metadata")
+            return self._with(p.inner, MiscellaneousFunctionMapper(p.function, p.str_args))
+        if isinstance(p, L.ApplySortFunction):
+            return self._with(p.inner, SortFunctionMapper(p.descending))
+        if isinstance(p, L.ApplyAbsentFunction):
+            nsteps = int((p.end_ms - p.start_ms) // p.step_ms) + 1 if p.step_ms else 1
+            return self._with(p.inner, AbsentFunctionMapper(p.filters, p.start_ms,
+                                                            p.step_ms or 1, nsteps))
+        if isinstance(p, L.ApplyLimitFunction):
+            return self._with(p.inner, LimitFunctionMapper(p.limit))
+        if isinstance(p, _SCALAR_PLANS):
+            nsteps = int((p.end_ms - p.start_ms) // p.step_ms) + 1 if p.step_ms else 1
+            return ScalarPlanExec(p, p.start_ms, p.step_ms or 1, nsteps)
+        if isinstance(p, L.ScalarVaryingDoublePlan):
+            return ScalarVaryingExec(self._materialize(p.inner), p.function)
+        if isinstance(p, (L.SubqueryWithWindowing, L.TopLevelSubquery)):
+            raise NotImplementedError(
+                "subqueries (SubqueryWindowExec) are not ported: ROADMAP A3, subqueries")
+        if isinstance(p, (L.LabelValues, L.LabelNames, L.SeriesKeysByFilters,
+                          L.TsCardinalities)):
+            raise NotImplementedError(
+                f"{type(p).__name__} (metadata) plans are not ported: ROADMAP A3, metadata")
+        raise NotImplementedError(f"{type(p).__name__} plans are not ported")
+
+    def _with(self, inner: L.LogicalPlan, transformer) -> ExecPlan:
+        """``inner``'s plan with ``transformer`` folded onto its result."""
+        plan = self._materialize(inner)
+        plan.transformers.append(transformer)
+        return plan
+
+    def _materialize_aggregate(self, p: L.Aggregate) -> ExecPlan:
+        fused = self._try_fused_aggregate(p)
+        return fused if fused is not None else self._materialize_aggregate_tree(p)
 
     def _try_fused_aggregate(self, p: L.Aggregate,
-                             hist_quantile: float | None = None) -> FusedAggregateExec:
-        """``op by (...) (range_fn(selector[w]))`` with every shard local
-        becomes one FusedAggregateExec over one superblock; ``hist_quantile``
-        fuses ``histogram_quantile(q, ...)`` on top (native histograms)."""
+                             hist_quantile: float | None = None) -> FusedAggregateExec | None:
+        """``op by (...) (range_fn(selector[w]))`` over the local shards as
+        one FusedAggregateExec over one superblock (``hist_quantile`` fuses
+        ``histogram_quantile(q, ...)`` on top); None for every shape the
+        fused kernels do not model, which takes the tree. The tree of the
+        same query is the exec's fallback, built at first use."""
         if not self.params.fused_aggregate:
-            raise NotImplementedError("the reference scatter tree (fused_aggregate=False) is not ported")
-        tree = ("the JAX package's reference tree (its aggregate part, ROADMAP A3), which is "
-                "not ported")
+            return None
         if p.op in FUSED_AGG_OPS:
             if p.params:
-                raise NotImplementedError(f"aggregation parameters {p.params!r} are not ported")
+                return None
         elif p.op in FUSED_EPI_OPS:
             if len(p.params) != 1 or not isinstance(p.params[0], (int, float)):
-                raise NotImplementedError(
-                    f"{p.op} with parameters {p.params!r} runs on {tree}")
+                return None
             if p.op in ("topk", "bottomk") and (p.by or p.without):
-                raise NotImplementedError(f"grouped {p.op} runs on {tree}")
+                return None  # grouped: the tree's per-shard candidate filter
         else:
-            raise NotImplementedError(f"aggregation {p.op!r} is not ported")
+            return None
         inner = p.inner
         if isinstance(inner, L.PeriodicSeriesWithWindowing):
-            if inner.function not in FUSED_FUNCS:
-                raise NotImplementedError(f"range function {inner.function!r} is not ported")
-            if inner.function_args:
-                raise NotImplementedError(f"range-function arguments run on {tree}")
+            if inner.function not in FUSED_FUNCS or inner.function_args:
+                return None
             func, window = inner.function, inner.window_ms
         elif isinstance(inner, L.PeriodicSeries):
             func, window = None, inner.lookback_ms
         else:
-            raise NotImplementedError(f"aggregation over {type(inner).__name__} is not ported")
+            return None
         if inner.at_ms is not None:
-            raise NotImplementedError(f"the @ modifier runs on {tree}")
+            return None
+        shards = self.shards_for(inner.raw.filters)
+        if not shards:
+            return None
+
+        def fallback():
+            tree = self._materialize_aggregate_tree(p)
+            if hist_quantile is not None:
+                tree.transformers.append(
+                    InstantVectorFunctionMapper("histogram_quantile", (hist_quantile,)))
+            return tree
+
         return FusedAggregateExec(
-            self.shards_for(inner.raw.filters), inner.raw.filters,
-            inner.raw.start_ms, inner.raw.end_ms, inner.raw.column,
+            shards, inner.raw.filters, inner.raw.start_ms, inner.raw.end_ms, inner.raw.column,
             p.op, p.by, p.without, func,
             inner.start_ms, inner.end_ms, inner.step_ms or 1, window,
             inner.offset_ms, hist_quantile=hist_quantile, params=tuple(p.params),
+            fallback=fallback,
         )
+
+    def _materialize_aggregate_tree(self, p: L.Aggregate) -> ExecPlan:
+        """The reference tree of an aggregate: the mergeable ops' map phase
+        pushed onto every shard subtree under a ``ReduceAggregateExec``;
+        topk/bottomk's per-shard candidate filter and count_values'
+        per-shard counts under their roots; the rest gathered by an
+        ``AggregatePresentExec``."""
+        inner = self._materialize(p.inner)
+        shards = isinstance(inner, DistConcatExec) and not inner.transformers
+        if p.op in _PARTIAL_COMPONENTS:
+            children = inner.child_plans if shards else [inner]
+            for child in children:
+                child.transformers.append(AggregateMapReduce(p.op, p.by, p.without))
+            return ReduceAggregateExec(children, p.op, p.by, p.without)
+        if p.op in ("topk", "bottomk") and p.params and shards:
+            k = max(int(p.params[0]), 1)
+            for child in inner.child_plans:
+                child.transformers.append(
+                    TopkCandidateFilter(k, p.op == "bottomk", p.by, p.without))
+        elif p.op == "count_values" and p.params and shards:
+            for child in inner.child_plans:
+                child.transformers.append(CountValuesMapReduce(str(p.params[0]), p.by,
+                                                               p.without))
+            return CountValuesMergeExec(inner.child_plans)
+        return AggregatePresentExec([inner], p.op, p.params, p.by, p.without)
+
+
+_SCALAR_PLANS = (L.ScalarFixedDoublePlan, L.ScalarTimeBasedPlan, L.ScalarBinaryOperation)
+
+
+def _plan_times(p: L.LogicalPlan):
+    """(start_ms, end_ms, step_ms) of the first node under ``p`` that has a
+    step grid."""
+    if hasattr(p, "start_ms") and hasattr(p, "step_ms") and hasattr(p, "end_ms"):
+        return p.start_ms, p.end_ms, p.step_ms or 1
+    for f in getattr(p, "__dataclass_fields__", {}):
+        v = getattr(p, f)
+        if isinstance(v, L.LogicalPlan):
+            t = _plan_times(v)
+            if t is not None:
+                return t
+    return None
 
 
 def resolve_device(device=None) -> torch.device:
@@ -300,11 +421,13 @@ class QueryEngine:
         plan = query_range_to_logical_plan(
             promql, start_s, end_s, step_s, self.planner.params.lookback_ms)
         res = self.planner.materialize(plan).execute(self.context())
-        res.result_type = "matrix"
+        if res.result_type == "matrix" or res.grids:
+            res.result_type = "matrix"
         return res
 
     def query_instant(self, promql: str, time_s: float):
         plan = query_to_logical_plan(promql, time_s, self.planner.params.lookback_ms)
         res = self.planner.materialize(plan).execute(self.context())
-        res.result_type = "vector"
+        if res.result_type == "matrix":
+            res.result_type = "vector"
         return res

@@ -23,6 +23,16 @@
 //    Members come as `perm` (the real series ordered by group) and
 //    `starts` ([G+1]), so a group's members are perm[starts[g] ..
 //    starts[g+1]).
+// 3. segment_topk_kernel (entry filodb_segment_topk) replaces topk_mask
+//    (aggregations.py:1904) as the JAX package's AggregatePresentExec
+//    (query/exec/plans.py:2440) calls it once per group: per (group,
+//    step), the min(k, size) best members keep their values (ties to the
+//    lower series index), the rest and any kept non-finite value are NaN;
+//    with the (group, step)'s threshold, the k-th best value, which the
+//    tree's per-shard candidate filter reads (TopkCandidateFilter,
+//    transformers.py:484). Large groups take a cluster per step and the
+//    same select as the quantile's; small groups a thread per (group,
+//    step), each member ranked by counting.
 //
 // Bound: device-memory bytes, one read of the real series' values at the
 // real steps (and of perm) and the outputs written once; a few integer
@@ -499,6 +509,156 @@ __global__ void __launch_bounds__(MAX_THREADS)
         quantile_groups(gt, grid, S, J, perm, starts, small, n_small, q, out, sh.tile);
 }
 
+// -- 3. the grouped top-k ------------------------------------------------------
+
+// the k-th best key as a value in the caller's terms (topk: the value, a
+// NaN as -inf; bottomk: the value, a NaN as +inf): the threshold a
+// candidate filter compares with
+__device__ __forceinline__ float topk_threshold(uint32_t k, int bottom) {
+    const float x = value_of(~k);
+    return bottom ? -x : x;
+}
+
+// One large group's n members at one step (col, mem), this block's slice
+// of them: select the kr-th best key over the cluster (kr = min(k, n)),
+// then write every member of the slice to out_col at its series index:
+// its value where it is kept and finite, else NaN. Kept are the keys
+// better than the threshold and, of those equal to it, the first take_eq
+// in series order (perm ascends within a group). Rank 0 writes the
+// threshold to *thr.
+template <bool STAGED>
+__device__ void topk_segment(const float* __restrict__ col, const int* __restrict__ mem, int n,
+                             int slice, int k, int bottom, float* __restrict__ out_col,
+                             float* __restrict__ thr, order_select::Scratch& sh, uint32_t* keys) {
+    const int me = (int)cg::this_cluster().block_rank();
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int i0 = min(n, me * slice), m = min(n, i0 + slice) - i0;
+    const int kr = min(k, n);
+    order_select::reset(sh);
+    __syncthreads();
+    auto src = [&](int i) { return topk_key(__ldg(col + __ldg(mem + i0 + i)), bottom); };
+    const order_select::Slice<STAGED, decltype(src)> s{m, src, keys};
+    const int first = m > 0 ? __ldg(mem + i0) : 0;
+    const bool run = m > 0 && __ldg(mem + i0 + m - 1) - first == m - 1;  // consecutive series
+    if (STAGED && run && ((uintptr_t)(col + first) & 15) == 0)
+        stage_run(col + first, m, [&](float v) { return topk_key(v, bottom); }, keys, sh);
+    else
+        order_select::stage(s, sh);
+    const order_select::Selection sel = order_select::select(s, [&](int) { return kr - 1; }, sh);
+    order_select::cluster_arrive();  // this block reads no other's shared memory again
+    const int take_eq = kr - sel.below;           // equal keys kept, the first in series order
+    const int room = take_eq - sel.equal_before;  // of them, this block's first `room`
+    const bool all_eq = sel.equal_own <= room;
+    const bool ordered = !all_eq && room > 0;  // take_eq falls inside this block's equal keys
+    auto put = [&](int i, uint32_t kv, bool keep) {
+        out_col[__ldg(mem + i0 + i)] = keep ? topk_value(kv, bottom) : nan_f();
+    };
+    for (int i = threadIdx.x; i < m; i += blockDim.x) {
+        const uint32_t kv = s(i);
+        if (kv != sel.key) put(i, kv, kv < sel.key);
+        else if (!ordered) put(i, kv, all_eq);
+    }
+    if (ordered) {  // this block's equal keys in series order: a chunk per thread, one scan
+        const int chunk = (m + (int)blockDim.x - 1) / (int)blockDim.x;
+        const int lo = min(m, (int)threadIdx.x * chunk), hi = min(m, lo + chunk);
+        int mine = 0;
+        for (int i = lo; i < hi; ++i) mine += s(i) == sel.key;
+        int incl = mine;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+            const int y = __shfl_up_sync(FULL, incl, o);
+            if (lane >= o) incl += y;
+        }
+        if (lane == 31) sh.warp_sum[warp] = incl;
+        __syncthreads();
+        if (warp == 0) {
+            const int nwarps = blockDim.x >> 5;
+            const int w = lane < nwarps ? sh.warp_sum[lane] : 0;
+            int wincl = w;
+#pragma unroll
+            for (int o = 1; o < 32; o <<= 1) {
+                const int y = __shfl_up_sync(FULL, wincl, o);
+                if (lane >= o) wincl += y;
+            }
+            if (lane < nwarps) sh.warp_sum[lane] = wincl - w;
+        }
+        __syncthreads();
+        int r = sh.warp_sum[warp] + incl - mine;  // this block's equal keys before lo
+        for (int i = lo; i < hi; ++i) {
+            const uint32_t kv = s(i);
+            if (kv == sel.key) put(i, kv, r++ < room);
+        }
+    }
+    if (me == 0 && threadIdx.x == 0) *thr = topk_threshold(sel.key, bottom);
+    order_select::cluster_wait();  // no block of the cluster reads this one's shared memory now
+}
+
+// One small group (n <= SMALL members at p[0 .. n)) at one step: each
+// member's rank is the count of better keys and of equal keys before it;
+// the first kr ranks are kept.
+__device__ __forceinline__ void topk_small(const float* __restrict__ col, const int* __restrict__ p,
+                                           int n, int k, int bottom, float* __restrict__ out_col,
+                                           float* __restrict__ thr) {
+    uint32_t key[SMALL];
+    int idx[SMALL];
+#pragma unroll
+    for (int i = 0; i < SMALL; ++i) {
+        if (i >= n) break;
+        idx[i] = __ldg(p + i);
+        key[i] = topk_key(__ldg(col + idx[i]), bottom);
+    }
+    const int kr = min(k, n);
+    if (kr == 0) *thr = nan_f();
+#pragma unroll
+    for (int i = 0; i < SMALL; ++i) {
+        if (i >= n) break;
+        int pos = 0;
+#pragma unroll
+        for (int m = 0; m < SMALL; ++m) {
+            if (m >= n) break;
+            pos += key[m] < key[i] || (key[m] == key[i] && m < i);
+        }
+        out_col[idx[i]] = pos < kr ? topk_value(key[i], bottom) : nan_f();
+        if (pos == kr - 1) *thr = topk_threshold(key[i], bottom);
+    }
+}
+
+__global__ void __launch_bounds__(MAX_THREADS)
+    segment_topk_kernel(const float* __restrict__ grid, int ld, int J,
+                        const int* __restrict__ perm, const int* __restrict__ starts,
+                        const int* __restrict__ large, int n_large,
+                        const int* __restrict__ small, int n_small, int k, int bottom, int cap,
+                        float* __restrict__ out, int ld_out, float* __restrict__ thr) {
+    extern __shared__ __align__(16) uint32_t keys[];
+    __shared__ order_select::Scratch sh;
+    const int C = (int)cg::this_cluster().num_blocks();
+    const int large_blocks = n_large * J * C;
+    if ((int)blockIdx.x < large_blocks) {  // one large group at one step, by a cluster
+        const int seg = blockIdx.x / C;
+        const int gl = seg % n_large, j = seg / n_large;
+        const int g = __ldg(large + gl);
+        const int st = __ldg(starts + g), n = __ldg(starts + g + 1) - st;
+        const int slice = (int)slice_of(n, C);
+        const float* col = grid + (size_t)j * ld;
+        float* o = out + (size_t)j * ld_out;
+        float* t = thr + (size_t)g * J + j;
+        if (slice <= cap)
+            topk_segment<true>(col, perm + st, n, slice, k, bottom, o, t, sh, keys);
+        else
+            topk_segment<false>(col, perm + st, n, slice, k, bottom, o, t, sh, keys);
+        return;
+    }
+    // a thread per (small group, step), neighbouring threads on neighbouring
+    // groups of one step
+    const int64_t e = (int64_t)(blockIdx.x - large_blocks) * blockDim.x + threadIdx.x;
+    if (e >= (int64_t)n_small * J) return;
+    const int gi = (int)(e % n_small), j = (int)(e / n_small);
+    const int g = __ldg(small + gi);
+    const int st = __ldg(starts + g), n = __ldg(starts + g + 1) - st;
+    topk_small(grid + (size_t)j * ld, perm + st, n, k, bottom, out + (size_t)j * ld_out,
+               thr + (size_t)g * J + j);
+}
+
 bool bad_threads(int threads) {
     return threads < 32 || threads > MAX_THREADS || threads % 32 != 0;
 }
@@ -596,4 +756,37 @@ extern "C" int filodb_segment_quantile(const void* grid, int S, int J, const voi
                   smem_bytes, stream, (const float*)grid, S, J, (const int*)perm,
                   (const int*)starts, (const int*)large, n_large, (const int*)small, n_small, q,
                   smem_bytes / 4, (float*)out);
+}
+
+// Plain C entry for ctypes: topk (bottom = 0) or bottomk (bottom = 1) of
+// each group's members at each of the J steps of the grid (step j's column
+// at grid + j * ld) -> out, step j's column at out + j * ld_out: every
+// member's value where it is among its group's min(k, size) best at the
+// step (a NaN ranking last, ties to the lower series index, -0 below +0)
+// and finite, else NaN; and thr [G, J] f32, the min(k, size)-th best value
+// of each (group, step) (a NaN as -inf for topk, +inf for bottomk). The
+// members, `large` and `small` lists, clusters and shared bytes as for
+// filodb_segment_quantile; a small group takes a thread per step.
+// Columns of out at no member's index are not written. Launches on
+// `stream` and returns a cudaError_t (0 on success); it does not
+// synchronise.
+extern "C" int filodb_segment_topk(const void* grid, int ld, int J, const void* perm,
+                                   const void* starts, const void* large, int n_large,
+                                   int large_max, const void* small, int n_small, int small_max,
+                                   int k, int bottom, int cluster, int threads, int smem_bytes,
+                                   void* out, int ld_out, void* thr, void* stream) {
+    if (J <= 0 || n_large + n_small <= 0) return 0;
+    if (ld <= 0 || ld_out <= 0 || k < 1 || n_large < 0 || n_small < 0 || small_max > SMALL ||
+        bad_threads(threads) || cluster < 1 || cluster > order_select::MAX_CLUSTER ||
+        (n_large > 0 && large_max <= SMALL) ||
+        smem_bytes != (n_large > 0 ? slice_bytes(large_max, cluster) : 0))
+        return (int)cudaErrorInvalidValue;
+    const int64_t large_blocks = (int64_t)n_large * J * cluster;
+    const int64_t tiles = ((int64_t)n_small * J + threads - 1) / threads;
+    if (large_blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    return launch(segment_topk_kernel, large_blocks + (tiles + cluster - 1) / cluster * cluster,
+                  threads, cluster, smem_bytes, stream, (const float*)grid, ld, J,
+                  (const int*)perm, (const int*)starts, (const int*)large, n_large,
+                  (const int*)small, n_small, k, (int)(bottom != 0), smem_bytes / 4, (float*)out,
+                  ld_out, (float*)thr);
 }

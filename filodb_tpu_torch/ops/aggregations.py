@@ -58,7 +58,11 @@ def grid_variant(block, func: str, is_delta: bool = False) -> str:
 
 def segment_aggregate(op: str, values: torch.Tensor, group_ids: torch.Tensor,
                       num_groups: int) -> torch.Tensor:
-    """values [S, J] (NaN = absent), group_ids [S] int64 -> [num_groups, J]."""
+    """values [S, J] (NaN = absent), group_ids [S] int64 -> [num_groups, J].
+    Besides the simple ops, the tree's components: ``sumsq`` (the sum of
+    the f32 squares) and ``group`` (1.0 where the group has a value). min
+    and max order the floats totally (-0 below +0), as the kernels'
+    ordered-int atomics do."""
     S, J = values.shape
     valid = ~torch.isnan(values)
     zeros = torch.zeros((num_groups, J), dtype=values.dtype, device=values.device)
@@ -67,19 +71,24 @@ def segment_aggregate(op: str, values: torch.Tensor, group_ids: torch.Tensor,
     nan = float("nan")
     if op == "count":
         return torch.where(has, count, nan)
-    if op in ("sum", "avg"):
-        s = zeros.index_add(0, group_ids, torch.where(valid, values, 0.0))
-        if op == "sum":
-            return torch.where(has, s, nan)
-        return torch.where(has, s / torch.clamp(count, min=1.0), nan)
+    if op == "group":
+        return torch.where(has, 1.0, nan)
+    if op in ("sum", "avg", "sumsq"):
+        x = values * values if op == "sumsq" else values
+        s = zeros.index_add(0, group_ids, torch.where(valid, x, 0.0))
+        if op == "avg":
+            return torch.where(has, s / torch.clamp(count, min=1.0), nan)
+        return torch.where(has, s, nan)
     if op in ("min", "max"):
         big = float("inf") if op == "min" else float("-inf")
-        vm = torch.where(valid, values, big)
-        init = torch.full((num_groups, J), big, dtype=values.dtype, device=values.device)
-        r = init.scatter_reduce(0, group_ids[:, None].expand(S, J), vm,
+        keys = OS.order_keys(torch.where(valid, values, big))
+        init = OS.order_keys(torch.full((num_groups, J), big, dtype=values.dtype,
+                                        device=values.device))
+        r = init.scatter_reduce(0, group_ids[:, None].expand(S, J), keys,
                                 "amin" if op == "min" else "amax", include_self=True)
-        return torch.where(has, r, nan)
-    raise NotImplementedError(f"aggregation {op!r} is not ported (ported: {SIMPLE_AGG_OPS})")
+        return torch.where(has, OS.order_keys(r.view(torch.float32)).view(torch.float32), nan)
+    raise NotImplementedError(
+        f"aggregation {op!r} is not ported (ported: {SIMPLE_AGG_OPS}, sumsq, group)")
 
 
 def apply_epilogue(sj: torch.Tensor, epilogue: tuple, gids: torch.Tensor,
@@ -218,6 +227,39 @@ def fused_hist_range_aggregate(func: str, block, gids_padded: torch.Tensor, num_
     acc, cnt = HK.hist_range_partials(func, block, gids_padded, num_groups, params,
                                       windows=windows, is_delta=is_delta)
     return GA.finish_groups("sum", acc, cnt, num_groups).reshape(num_groups, j_pad, -1)
+
+
+def count_values_key(x: float, decimals: int = 10) -> str:
+    """The JAX package's count_values label of a value: ``{x:.10g}``, its
+    trailing zeros and point stripped where it has a point."""
+    s = f"{x:.{decimals}g}"
+    return s.rstrip("0").rstrip(".") if "." in s else s
+
+
+def count_values(values: np.ndarray, decimals: int = 10) -> dict:
+    """Host count_values (reference CountValuesRowAggregator): value
+    string -> [J] f64 counts, NaN where the string has no value at the
+    step; strings in the order their first value appears step by step, as
+    the JAX package's loop inserts them. Each distinct f32 value is
+    formatted once."""
+    vals = np.asarray(values, dtype=np.float32)
+    J = vals.shape[1]
+    jj, ii = np.nonzero(~np.isnan(vals.T))  # step-major, series order within a step
+    if not len(jj):
+        return {}
+    bits = vals.T[jj, ii].view(np.uint32)
+    ubits, first, inv = np.unique(bits, return_index=True, return_inverse=True)
+    strings = [count_values_key(float(x), decimals) for x in ubits.view(np.float32)]
+    key_first: dict = {}
+    for s, f in zip(strings, first):
+        key_first[s] = min(key_first.get(s, f), f)
+    keys = sorted(key_first, key=key_first.__getitem__)
+    kid = {s: i for i, s in enumerate(keys)}
+    of_unique = np.array([kid[s] for s in strings], dtype=np.int64)
+    counts = np.bincount(of_unique[inv.ravel()] * J + jj, minlength=len(keys) * J)
+    counts = counts.reshape(len(keys), J).astype(np.float64)
+    rows = np.where(counts > 0, counts, np.nan)
+    return {s: rows[i] for i, s in enumerate(keys)}
 
 
 def group_ids_for(series_labels: list[dict], by: list[str] | None, without: list[str] | None):

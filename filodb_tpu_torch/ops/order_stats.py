@@ -13,6 +13,13 @@ steps:
   float's total order (-0 below +0), as ``lax.top_k`` ranks; a winner whose
   value is not finite comes back as NaN. The order inside the k slots is
   free.
+- ``segment_topk(grid, members, k, bottom)`` -> ``([J, n] kept values,
+  [G, J] thresholds)``: topk/bottomk by (...) (B9 grouped, the JAX
+  ``topk_mask`` of each group's rows, as the tree's root and its per-shard
+  candidate filter call it): per (group, step) the ``min(k, size)`` best
+  members keep their finite values, ranked as ``topk_steps`` ranks, ties
+  to the lower series index; the threshold is the ``min(k, size)``-th best
+  value (a NaN as -inf for topk, +inf for bottomk).
 - ``segment_quantile(grid, members, q)`` -> ``[G, J]``: per (group, step)
   the JAX package's interpolated quantile of the group's non-NaN values
   (``rank = clip(q, 0, 1) * max(count - 1, 0)`` in f32; NaN sorts as +inf;
@@ -22,7 +29,8 @@ steps:
   (``Members``, from ``segment_members``) lists each group's real series.
 
 On a CUDA tensor each wrapper makes one launch of its kernel in
-``csrc/order_stats.cu`` (``filodb_topk_steps``, ``filodb_segment_quantile``;
+``csrc/order_stats.cu`` (``filodb_topk_steps``, ``filodb_segment_quantile``,
+``filodb_segment_topk``;
 the radix select they share is ``csrc/order_select.cuh``) or raises; on a
 CPU tensor it runs its plain version (``topk_steps_plain``: a stable sort;
 ``segment_quantile_plain``: two stable argsorts, as the JAX code sorts).
@@ -32,8 +40,9 @@ cluster of up to ``MAX_CLUSTER`` blocks, each staging a slice of its keys
 in shared memory (route ``staged``), or reading them from device memory
 in every pass where a slice would pass ``MAX_SLICE`` keys (``stream``);
 groups of at most ``SMALL_SEGMENT`` members take a thread per (group,
-step) in tiles (``thread``, the route of a launch with no large group).
-Launches of both kernels count in ``LAUNCHES``; ``LAST_PLAN`` is the last
+step) in tiles (``thread``, the route of a launch with no large group;
+``segment_topk`` a thread per (group, step)). Launches of the kernels
+count in ``LAUNCHES``; ``LAST_PLAN`` is the last
 launch's ``OrderPlan``.
 """
 
@@ -151,7 +160,7 @@ def order_plan(kernel: str, segment, J: int, cluster: int | None = None,
     the plan's choice (for timing other layouts)."""
     if kernel == "topk_steps":
         seg, n_large, n_small = int(segment), 1, 0
-    elif kernel == "segment_quantile":
+    elif kernel in ("segment_quantile", "segment_topk"):
         seg, n_large, n_small = segment.large_max, segment.large.numel(), segment.small.numel()
     else:
         raise ValueError(f"unknown order-statistics kernel {kernel!r}")
@@ -163,7 +172,9 @@ def order_plan(kernel: str, segment, J: int, cluster: int | None = None,
     route = "thread" if not n_large else "staged" if staged else "stream"
     if threads is None:
         threads = STREAM_THREADS if route == "stream" else THREADS
-    tiles = -(-n_small // TILE[0])  # thread-path blocks
+    # thread-path blocks: TILE[0] groups at every step, or (segment_topk) a
+    # thread per (group, step)
+    tiles = -(-n_small // TILE[0]) if kernel != "segment_topk" else -(-n_small * J // threads)
     blocks = n_large * J * c + -(-tiles // c) * c
     return OrderPlan(kernel, route, c, threads, blocks, 4 * slice_ if staged else 0, slice_,
                      TILE, n_large, n_small)
@@ -221,6 +232,36 @@ def segment_quantile_plain(grid: torch.Tensor, members: Members, q: float) -> to
     return torch.where(count > 0, out, float("nan"))
 
 
+def segment_topk_plain(grid: torch.Tensor, members: Members, k: int, bottom: bool = False):
+    """``segment_topk`` in plain torch: per step one stable sort of the
+    members by (group, key descending), series order breaking ties, then
+    the first ``min(k, size)`` of each group kept (the JAX ``topk_mask`` of
+    each group's rows)."""
+    J, n = grid.shape
+    G = members.num_groups
+    dev = grid.device
+    perm = members.perm.long()
+    starts = members.starts.long()
+    sizes = starts[1:] - starts[:-1]
+    gm = torch.repeat_interleave(torch.arange(G, device=dev), sizes)  # [N], ascending
+    v = grid[:, perm]  # [J, N]
+    x = torch.where(torch.isnan(v), float("-inf"), -v if bottom else v)
+    # ascending composite: group, then the better key first (stable: series order)
+    worse = (2**31 - 1) - order_keys(x).long()
+    order = torch.argsort(gm[None, :] * 2**32 + worse, dim=1, stable=True)
+    pos = torch.arange(perm.numel(), device=dev)[None, :] - starts[gm][None, :]  # rank in group
+    kr = torch.clamp(sizes, max=int(k))
+    kept_sorted = (pos < kr[gm][None, :]).expand(J, -1)
+    keep = torch.zeros_like(kept_sorted).scatter_(1, order, kept_sorted)
+    vals = torch.where(keep & torch.isfinite(v), v, float("nan"))
+    out = torch.full((J, n), float("nan"), dtype=torch.float32, device=dev)
+    out[:, perm] = vals
+    at = (starts[:-1] + kr - 1).clamp(min=0)  # the kr-th best of each group, sorted
+    best = torch.gather(x, 1, order)[:, at]  # [J, G]
+    thr = torch.where(kr[None, :] > 0, -best if bottom else best, float("nan"))
+    return out, thr.T.contiguous()
+
+
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the entry points' argument types on a built library."""
     fn = lib.filodb_topk_steps
@@ -230,6 +271,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                       ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    fn = lib.filodb_segment_topk
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -319,3 +365,48 @@ def segment_quantile(grid: torch.Tensor, members: Members, q: float,
         raise RuntimeError(f"segment_quantile kernel launch failed ({plan}): cudaError {err}")
     _count(plan)
     return out
+
+
+def segment_topk(grid: torch.Tensor, members: Members, k: int, bottom: bool = False,
+                 plan: OrderPlan | None = None, lib: ctypes.CDLL | None = None):
+    """``topk``/``bottomk by (...) (k, ...)`` of the [J, n] step-major grid
+    (the series contiguous at each step; a column view of a wider grid
+    does), whose n columns are exactly the members: returns ``(out [J, n],
+    thr [G, J])`` f32 on the grid's device -- ``out`` each series' value
+    where it is among its group's ``min(k, size)`` best at the step (a NaN
+    ranking last, as -inf for topk and +inf for bottomk; ties to the lower
+    series index; -0 below +0) and finite, else NaN; ``thr`` the
+    ``min(k, size)``-th best value of each (group, step), a NaN as the
+    fill. A CUDA grid makes one launch of ``filodb_segment_topk`` as
+    ``plan`` (default ``order_plan``'s) lays it out, from ``lib`` (default
+    the built source), and raises if the launch fails; a CPU grid runs
+    ``segment_topk_plain``."""
+    if grid.dim() != 2 or grid.dtype != torch.float32 or (grid.shape[1] > 1
+                                                            and grid.stride(1) != 1):
+        raise ValueError(f"the grid must be a [J, n] float32 tensor with its series "
+                         f"contiguous, got {tuple(grid.shape)} {grid.dtype}")
+    if int(k) < 1:
+        raise ValueError(f"k must be at least 1, got {k}")
+    J, n = grid.shape
+    if members.perm.numel() != n or members.perm.device != grid.device:
+        raise ValueError(f"the members must be the grid's {n} series on {grid.device}")
+    if grid.device.type == "cpu":
+        return segment_topk_plain(grid, members, k, bottom)
+    if grid.device.type != "cuda":
+        raise ValueError(f"order statistics run on cuda or cpu tensors, not {grid.device}")
+    plan = plan or order_plan("segment_topk", members, J)
+    lib = lib or _load()
+    out = torch.empty((J, n), dtype=torch.float32, device=grid.device)
+    thr = torch.empty((members.num_groups, J), dtype=torch.float32, device=grid.device)
+    with torch.cuda.device(grid.device):
+        stream = torch.cuda.current_stream(grid.device).cuda_stream
+        err = lib.filodb_segment_topk(
+            grid.data_ptr(), max(grid.stride(0), n, 1), J, members.perm.data_ptr(),
+            members.starts.data_ptr(), members.large.data_ptr(), members.large.numel(),
+            members.large_max, members.small.data_ptr(), members.small.numel(),
+            members.small_max, min(int(k), 2**31 - 1), int(bottom), plan.cluster, plan.threads,
+            plan.smem_bytes, out.data_ptr(), max(n, 1), thr.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"segment_topk kernel launch failed ({plan}): cudaError {err}")
+    _count(plan)
+    return out, thr

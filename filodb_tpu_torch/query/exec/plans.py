@@ -27,8 +27,20 @@ and one order-statistics launch; only ``[k, J]`` (rebuilt into the
 winners' rows by ``_present_topk``) or ``[G, J]`` comes back.
 ``histogram_quantile(q, sum by (le, ...) (...))`` over classic ``le``
 series folds the by-(le, ...) partials with one standalone-quantile launch
-per bucket scheme. Shapes outside it raise ``NotImplementedError``: the
-aggregate tree it would fall back to is not ported.
+per bucket scheme. A selection of several scalar schemas falls back to
+the aggregate tree (``fallback``, built lazily by the planner).
+
+The reference tree's aggregate part: ``AggregateMapReduce`` on each shard
+leaf reduces its grid on the device into the mergeable ``[G, J]``
+components of ``_PARTIAL_COMPONENTS`` (one launch of the segment
+aggregate, ``ops.segment_agg``); only those reach the host, where
+``ReduceAggregateExec`` merges them by group labels and presents the op in
+f32 numpy, as in the JAX package. ``AggregatePresentExec`` answers the
+non-mergeable ops over any subtree on the device: topk/bottomk by (...)
+through one ``order_stats.segment_topk`` launch (after each shard's
+``TopkCandidateFilter``), quantile through ``order_stats.segment_quantile``,
+limitk, and the mergeable ops over a join; count_values counts on the host
+(``CountValuesMapReduce`` per shard, ``CountValuesMergeExec``).
 
 Superblocks are cached on the memstore (``staging.SuperblockCache``) keyed
 by their member shards' version vector, and per-shard blocks flow through
@@ -62,13 +74,20 @@ from ...ops.hist_kernels import FUSED_HIST_FUNCS
 from ...ops.kernels import RangeParams
 from ...singleflight import memo_on
 from ..rangevector import Grid, QueryResult, QueryStats, RawGrid
+from ...ops import order_stats as OS
+from ...ops import segment_agg as SA
+from . import transformers as TR
 from .transformers import (  # noqa: F401 (QueryError and _DROP_NAME_KEEP are re-exported)
     _DROP_NAME_KEEP,
+    A2B,
     PeriodicSamplesMapper,
     QueryError,
     _strip_metric,
     classic_histogram_quantile,
     classic_pivot,
+    grid_grouping,
+    grid_members,
+    grid_values,
 )
 
 
@@ -120,6 +139,9 @@ class ExecPlan:
 def apply_transformer(tr, res: QueryResult, ctx: QueryContext) -> QueryResult:
     if isinstance(tr, PeriodicSamplesMapper):
         return QueryResult(grids=tr.apply_raw(res.raw_grids), stats=res.stats)
+    if isinstance(tr, GRID_TRANSFORMERS):
+        return QueryResult(grids=tr.apply(res.grids), stats=res.stats,
+                           result_type=res.result_type)
     raise NotImplementedError(f"transformer {type(tr).__name__} is not ported")
 
 
@@ -533,12 +555,15 @@ class FusedAggregateExec(ExecPlan):
     range kernel, with ``hist_quantile`` (the planner recognized
     ``histogram_quantile(q, sum ...)``) folded into that same launch. The
     epilogue ops (``FUSED_EPI_OPS``, their k or q in ``params``): the rung
-    in its store mode, then one order-statistics launch."""
+    in its store mode, then one order-statistics launch. A selection of
+    several schemas runs ``fallback()`` instead (the planner's aggregate
+    tree of the same query, built at first use)."""
 
     def __init__(self, shard_nums, filters, raw_start_ms: int, raw_end_ms: int,
                  column, op: str, by, without, function,
                  start_ms: int, end_ms: int, step_ms: int, window_ms: int,
-                 offset_ms: int = 0, hist_quantile: float | None = None, params=()):
+                 offset_ms: int = 0, hist_quantile: float | None = None, params=(),
+                 fallback=None):
         super().__init__()
         self.shard_nums = list(shard_nums)
         self.filters: tuple[ColumnFilter, ...] = tuple(filters)
@@ -556,6 +581,23 @@ class FusedAggregateExec(ExecPlan):
         self.offset_ms = offset_ms
         self.hist_quantile = hist_quantile  # fused histogram_quantile(q, ...)
         self.params = tuple(params)  # an epilogue op's k or q
+        self._fallback_factory = fallback
+        self._fallback: ExecPlan | None = None
+
+    @property
+    def fallback(self) -> ExecPlan:
+        if self._fallback is None:
+            if self._fallback_factory is None:
+                raise NotImplementedError("this fused aggregate has no tree to fall back to")
+            self._fallback = self._fallback_factory()
+        return self._fallback
+
+    def _fall(self, ctx: QueryContext, reason: str) -> QueryResult:
+        """Answer from the aggregate tree (the JAX package's reasons; the
+        port's one is ``mixed_schemas``)."""
+        ctx.obs["path"] = "fallback"
+        ctx.obs["fallback"] = reason
+        return self.fallback.execute(ctx)
 
     def num_steps(self) -> int:
         return int((self.end_ms - self.start_ms) // self.step_ms) + 1
@@ -608,7 +650,8 @@ class FusedAggregateExec(ExecPlan):
     def superblock(self, ctx: QueryContext) -> SuperblockEntry | None:
         """The selection of every shard as one superblock on ``ctx.device``,
         from the superblock cache kept on the memstore, refreshed or rebuilt
-        on a miss (None for an empty selection)."""
+        on a miss (None for an empty selection; the reason, a string, for a
+        selection the tree must answer)."""
         if self.raw_end_ms - self.raw_start_ms > ST.MAX_STAGE_SPAN_MS:
             # the planner slices such a range (StitchRvsExec) before any exec
             # is built; an exec assembled outside it cannot stage it
@@ -768,7 +811,7 @@ class FusedAggregateExec(ExecPlan):
         return self._serve_hit(ctx, new_entry)
 
     def _build_superblock(self, ctx: QueryContext, stage_mode: str, cache, versions, hints,
-                          hint_key) -> SuperblockEntry | None:
+                          hint_key) -> SuperblockEntry | str | None:
         rewritten, col_override, bucket_le = _histogram_suffix_rewrite(self.filters)
         blocks, labels, block_les = [], [], []
         schema_name = col_name = None
@@ -794,7 +837,7 @@ class FusedAggregateExec(ExecPlan):
             parts = [shard.partition(int(p)) for p in pids]
             names = {p.schema.name for p in parts}
             if len(names) > 1 or (schema_name is not None and names != {schema_name}):
-                raise NotImplementedError("mixed schemas in one selection are not ported")
+                return "mixed_schemas"
             schema_name = parts[0].schema.name
             schema = parts[0].schema
             col_name = self.column or (suffixed and col_override) or schema.value_column
@@ -831,8 +874,7 @@ class FusedAggregateExec(ExecPlan):
                 les, hist_col, sliced_hist = None, False, True
                 is_counter, is_delta = True, False
             if blocks and hist_col != is_hist:
-                raise NotImplementedError(
-                    "histogram and scalar series in one selection are not ported")
+                return "mixed_schemas"  # scalar and histogram blocks cannot mix
             is_hist = hist_col
             blocks.append(block)
             block_les.append(les)
@@ -878,6 +920,8 @@ class FusedAggregateExec(ExecPlan):
     def do_execute(self, ctx: QueryContext) -> QueryResult:
         func = self.function or "last"
         got = self.superblock(ctx)
+        if isinstance(got, str):
+            return self._fall(ctx, got)
         if got is None:
             return QueryResult()
         ctx.obs["path"] = "fused"
@@ -944,3 +988,311 @@ class FusedAggregateExec(ExecPlan):
         v[row_of, steps] = vals[finite]
         out_labels = [_strip_metric(labels[s]) if strip else labels[s] for s in used.tolist()]
         return QueryResult(grids=[Grid(out_labels, self.start_ms, self.step_ms, nsteps, v)])
+
+
+# -- the reference tree's aggregates ------------------------------------------
+
+# ops whose partial state merges across shards: op -> components
+_PARTIAL_COMPONENTS = {
+    "sum": ("sum",),
+    "count": ("count",),
+    "min": ("min",),
+    "max": ("max",),
+    "group": ("group",),
+    "avg": ("sum", "count"),
+    "stddev": ("sum", "sumsq", "count"),
+    "stdvar": ("sum", "sumsq", "count"),
+}
+
+
+def _common_device(grids):
+    """The device of the grids' tensors: the card where any is on it."""
+    for g in grids:
+        if isinstance(g.values, torch.Tensor) and g.values.device.type != "cpu":
+            return g.values.device
+    return torch.device("cpu")
+
+
+def stack_step_major(grids) -> torch.Tensor:
+    """The grids' rows side by side as one contiguous step-major [J, N] f32
+    tensor on their common device (J the widest grid's steps; a narrower
+    grid NaN past its steps)."""
+    dev = _common_device(grids)
+    mats = [grid_values(g).to(dev) for g in grids]
+    J = max(m.shape[1] for m in mats)
+    if all(m.shape[1] == J for m in mats):
+        return torch.cat([m.T for m in mats], dim=1)
+    out = torch.full((J, sum(m.shape[0] for m in mats)), float("nan"), dtype=torch.float32,
+                     device=dev)
+    r = 0
+    for m in mats:
+        out[: m.shape[1], r: r + m.shape[0]] = m.T
+        r += m.shape[0]
+    return out
+
+
+def _check_scalar(grids, what: str) -> None:
+    if any(g.hist is not None for g in grids):
+        raise NotImplementedError(f"{what} over native histograms (the hist component): {A2B}")
+
+
+def _partial_aggregate(op: str, grids: list, by, without):
+    """Leaf-side map phase: the grids' rows reduced by label group on their
+    device into the op's components (one segment-aggregate launch). Returns
+    (group_labels, components name -> [G, J] f32 numpy, grid meta)."""
+    if not grids:
+        return [], {}, None
+    _check_scalar(grids, f"aggregation {op}")
+    meta = grids[0]
+    if len(grids) == 1:
+        # a single grid stays where it is (a leaf's step-major store grid is
+        # read in place); only the [G, J] components reach the host
+        vals = grid_values(meta)
+        gids, G, group_labels = grid_grouping(meta, by, without, vals.device)
+    else:
+        vals = stack_step_major(grids).T
+        labels = [l for g in grids for l in g.labels]
+        gids_np, group_labels = AGG.group_ids_for(labels, list(by) if by else None,
+                                                  list(without) if without else None)
+        G = len(group_labels)
+        gids = torch.from_numpy(gids_np.astype(np.int64)).to(vals.device)
+    need = _PARTIAL_COMPONENTS[op]
+    got = SA.segment_components(vals, gids, G, need)
+    host = torch.stack([got[c] for c in need]).cpu().numpy()
+    return group_labels, dict(zip(need, host)), meta
+
+
+def _merge_partials(op: str, partials):
+    """Reduce phase: merge shard partials by group label key (host f32)."""
+    key_to: dict[tuple, dict] = {}
+    meta = None
+    for group_labels, comps, m in partials:
+        if "hist" in comps:
+            raise NotImplementedError(f"merging the hist component: {A2B}")
+        if m is not None:
+            meta = m
+        for gi, lbls in enumerate(group_labels):
+            key = tuple(sorted(lbls.items()))
+            slot = key_to.setdefault(key, {"labels": lbls, "comps": {}})
+            for name, arr in comps.items():
+                cur = slot["comps"].get(name)
+                row = arr[gi]
+                if cur is None:
+                    slot["comps"][name] = row.copy()
+                elif name in ("sum", "count", "sumsq"):
+                    slot["comps"][name] = np.where(
+                        np.isnan(cur), row, np.where(np.isnan(row), cur, cur + row))
+                elif name == "min":
+                    slot["comps"][name] = np.fmin(cur, row)
+                elif name in ("max", "group"):
+                    slot["comps"][name] = np.fmax(cur, row)
+    return key_to, meta
+
+
+def _present(op: str, key_to, meta) -> QueryResult:
+    """The op's [G, J] from the merged components (host f32, as the JAX
+    package computes it: stddev is sqrt(sumsq/count - mean^2), clamped at
+    0)."""
+    if meta is None:
+        return QueryResult()
+    labels, rows = [], []
+    for slot in key_to.values():
+        c = slot["comps"]
+        if op in ("sum", "count", "min", "max", "group"):
+            v = c[op]
+        elif op == "avg":
+            v = c["sum"] / c["count"]
+        else:  # stddev, stdvar
+            mean = c["sum"] / c["count"]
+            var = np.maximum(c["sumsq"] / c["count"] - mean**2, 0.0)
+            v = var if op == "stdvar" else np.sqrt(var)
+        labels.append(slot["labels"])
+        rows.append(v)
+    vals = np.stack(rows) if rows else np.zeros((0, meta.num_steps), np.float32)
+    return QueryResult(grids=[Grid(labels, meta.start_ms, meta.step_ms, meta.num_steps, vals)])
+
+
+@dataclass
+class AggregateMapReduce:
+    """The map phase as a transformer pushed onto shard leaves (reference
+    AggregateMapReduce): the partial components as ``__comp__`` grids."""
+
+    op: str
+    by: tuple | None
+    without: tuple | None
+
+    def apply(self, grids: list) -> list:
+        return partials_to_grids(*_partial_aggregate(self.op, grids, self.by, self.without))
+
+
+def partials_to_grids(group_labels, comps, meta) -> list:
+    """Per-group partial components as ``__comp__``-labelled host grids."""
+    if meta is None:
+        return []
+    return [Grid([dict(l, __comp__=name) for l in group_labels], meta.start_ms, meta.step_ms,
+                 meta.num_steps, arr) for name, arr in comps.items()]
+
+
+def collect_partials(result: QueryResult, default_op: str):
+    """A child's ``__comp__`` grids back into (group_labels, comps, meta);
+    rows without the label are final values of ``default_op``."""
+    meta = None
+    comp_rows: dict[str, dict[tuple, np.ndarray]] = {}
+    labels_by_key: dict[tuple, dict] = {}
+    for g in result.grids:
+        _check_scalar([g], "a partial aggregate")
+        if meta is None:
+            meta = g
+        v = g.values_np()
+        for i, l in enumerate(g.labels):
+            comp = l.get("__comp__", default_op)
+            base = {k: x for k, x in l.items() if k != "__comp__"}
+            key = tuple(sorted(base.items()))
+            labels_by_key[key] = base
+            comp_rows.setdefault(comp, {})[key] = v[i]
+    if meta is None:
+        return None
+    keys = list(labels_by_key)
+    comps = {}
+    for comp, rows in comp_rows.items():
+        proto = next(iter(rows.values()))
+        comps[comp] = np.stack([rows.get(k, np.full(proto.shape, np.nan, np.float32))
+                                for k in keys])
+    return [labels_by_key[k] for k in keys], comps, meta
+
+
+class ReduceAggregateExec(NonLeafExecPlan):
+    """reference ReduceAggregateExec: merge the children's partials."""
+
+    def __init__(self, child_plans, op: str, by=None, without=None):
+        super().__init__(child_plans)
+        self.op = op
+        self.by = by
+        self.without = without
+
+    def args_str(self) -> str:
+        return f"op={self.op} by={self.by} without={self.without}"
+
+    def do_execute(self, ctx: QueryContext) -> QueryResult:
+        partials = []
+        for r in self.execute_children(ctx):
+            p = collect_partials(r, self.op)
+            if p is not None:
+                partials.append(p)
+        return _present(self.op, *_merge_partials(self.op, partials))
+
+
+class CountValuesMergeExec(NonLeafExecPlan):
+    """The root of a pushed-down count_values: the children's count rows
+    summed by label set (shards own disjoint series), on the host."""
+
+    def do_execute(self, ctx: QueryContext) -> QueryResult:
+        grids = [g for r in self.execute_children(ctx) for g in r.grids]
+        if not grids:
+            return QueryResult()
+        meta = grids[0]
+        J = meta.num_steps
+        merged: dict[tuple, np.ndarray] = {}
+        keys: dict[tuple, dict] = {}
+        for g in grids:
+            vals = g.values_np()
+            for i, lbls in enumerate(g.labels):
+                key = tuple(sorted(lbls.items()))
+                row = vals[i, :J]
+                have = merged.get(key)
+                if have is None:
+                    merged[key] = np.array(row, np.float32)
+                    keys[key] = lbls
+                else:  # NaN-aware: a count plus an absence is the count
+                    both = np.isfinite(have) & np.isfinite(row)
+                    only_b = ~np.isfinite(have) & np.isfinite(row)
+                    have[both] += row[both]
+                    have[only_b] = row[only_b]
+        labels = [keys[k] for k in merged]
+        v = np.stack(list(merged.values())) if merged else np.zeros((0, J), np.float32)
+        return QueryResult(grids=[Grid(labels, meta.start_ms, meta.step_ms, J, v)])
+
+
+class AggregatePresentExec(NonLeafExecPlan):
+    """The root of the non-mergeable ops over any subtree (reference
+    AggregatePresentExec): the children's rows side by side on the device
+    (step-major), then topk/bottomk by (...) (one ``segment_topk``
+    launch), limitk, quantile (one ``segment_quantile`` launch), the
+    mergeable ops (one segment-aggregate launch, merged and presented on
+    the host) or count_values (on the host). topk/bottomk/limitk return
+    each group's kept rows, groups in order and rows in series order."""
+
+    def __init__(self, child_plans, op: str, params=(), by=None, without=None):
+        super().__init__(child_plans)
+        self.op = op
+        self.params = params
+        self.by = by
+        self.without = without
+
+    def args_str(self) -> str:
+        return f"op={self.op} params={self.params} by={self.by} without={self.without}"
+
+    def do_execute(self, ctx: QueryContext) -> QueryResult:
+        grids = [g for r in self.execute_children(ctx) for g in r.grids]
+        if not grids:
+            return QueryResult()
+        op = self.op
+        _check_scalar(grids, f"aggregation {op}")
+        if op in _PARTIAL_COMPONENTS:
+            return _present(op, *_merge_partials(op, [_partial_aggregate(op, grids, self.by,
+                                                                         self.without)]))
+        meta = grids[0]
+        all_labels = [l for g in grids for l in g.labels]
+        by = list(self.by) if self.by else None
+        without = list(self.without) if self.without else None
+        if op == "count_values":
+            vals = TR.stack_values_np(grids)
+            gids, group_labels = AGG.group_ids_for(all_labels, by, without)
+            label = str(self.params[0])
+            out_labels, out_rows = [], []
+            for gi, gl in enumerate(group_labels):
+                for valstr, row in AGG.count_values(vals[gids == gi]).items():
+                    out_labels.append(dict(gl, **{label: valstr}))
+                    out_rows.append(row[: meta.num_steps])
+            v = (np.stack(out_rows).astype(np.float32) if out_rows
+                 else np.zeros((0, meta.num_steps), np.float32))
+            return QueryResult(grids=[Grid(out_labels, meta.start_ms, meta.step_ms,
+                                           meta.num_steps, v)])
+        if op not in ("topk", "bottomk", "limitk", "quantile"):
+            raise QueryError(f"unsupported aggregation {op}")
+        grid = stack_step_major(grids)  # [J, N]
+        if len(grids) == 1:
+            members, G, group_labels, _ = grid_members(meta, by, without, grid.device)
+        else:
+            gids_np, group_labels = AGG.group_ids_for(all_labels, by, without)
+            G = len(group_labels)
+            members = OS.segment_members(torch.from_numpy(gids_np.astype(np.int64)).to(
+                grid.device), G)
+        if op == "quantile":
+            out = OS.segment_quantile(grid, members, float(self.params[0]))
+            return QueryResult(grids=[Grid(group_labels, meta.start_ms, meta.step_ms,
+                                           meta.num_steps, out)])
+        k = max(int(self.params[0]), 1)
+        perm = members.perm.long()
+        if op == "limitk":
+            starts = members.starts.long()
+            sizes = starts[1:] - starts[:-1]
+            gm = torch.repeat_interleave(torch.arange(G, device=grid.device), sizes)
+            first = perm[torch.arange(perm.numel(), device=grid.device) - starts[gm] < k]
+            kept = torch.zeros(grid.shape[1], dtype=torch.bool, device=grid.device)
+            kept[first] = True
+            out = grid
+        else:
+            out, _ = OS.segment_topk(grid, members, k, op == "bottomk")
+            kept = torch.ones(grid.shape[1], dtype=torch.bool, device=grid.device)
+        kept &= ~torch.isnan(out).all(dim=0)
+        rows = perm[kept[perm]]  # groups in order, series order within a group
+        rows_h = rows.cpu().numpy()
+        return QueryResult(grids=[Grid([all_labels[i] for i in rows_h], meta.start_ms,
+                                       meta.step_ms, meta.num_steps, out[:, rows].T)])
+
+
+GRID_TRANSFORMERS = (AggregateMapReduce, TR.InstantVectorFunctionMapper,
+                     TR.ScalarOperationMapper, TR.MiscellaneousFunctionMapper,
+                     TR.SortFunctionMapper, TR.LimitFunctionMapper, TR.AbsentFunctionMapper,
+                     TR.TopkCandidateFilter, TR.CountValuesMapReduce)

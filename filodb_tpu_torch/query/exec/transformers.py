@@ -13,20 +13,37 @@ grid), the metric strip and ``absent_over_time``'s host reduction.
 cumulative counts on the host (an index table per bucket scheme), then one
 launch of the standalone quantile per scheme
 (``hist_kernels.histogram_quantile_gather``).
+
+The reference tree's second part: instant functions
+(``InstantVectorFunctionMapper``), scalar operators (``apply_binop``,
+``ScalarOperationMapper``), the label, sort, limit and absent mappers, and
+the map phases of the non-mergeable aggregates pushed onto shard leaves
+(``TopkCandidateFilter``, whose per-(group, step) thresholds come from one
+``order_stats.segment_topk`` launch, and ``CountValuesMapReduce``, on the
+host). Values stay on the device they were computed on (a tensor; a host
+grid as a CPU tensor); ``timestamp()`` and the time components are f64 on
+the host, as in the JAX package. The native-histogram functions raise
+``NotImplementedError`` (ROADMAP A2b).
 """
 
 from __future__ import annotations
 
+import calendar
+import datetime as _dt
+import re
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ...core.schemas import METRIC_TAG
+from ...ops import aggregations as AGG
 from ...ops import hist_kernels as HK
 from ...ops import kernels as K
+from ...ops import order_stats as OS
+from ...ops import segment_agg as SA
 from ...singleflight import memo_on
-from ..rangevector import Grid, RawGrid
+from ..rangevector import Grid, RawGrid, ScalarResult
 
 _DROP_NAME_KEEP = {"last_over_time", "timestamp"}  # functions that keep _metric_
 
@@ -85,7 +102,9 @@ class PeriodicSamplesMapper:
                 # memoized on the block, as its labels are (a warm leaf strips nothing)
                 labels = memo_on(rg.block, "stripped_labels_memo", id(rg.labels),
                                  lambda: [_strip_metric(l) for l in rg.labels])
-            g = Grid(list(labels), self.start_ms, self.step_ms, nsteps, vals)
+            # the source lets the map phases memoize groupings on the block
+            g = Grid(list(labels), self.start_ms, self.step_ms, nsteps, vals,
+                     source=(rg.block, id(labels)))
             if self.function == "absent_over_time":
                 g = self._absent_reduce(g)
             out.append(g)
@@ -122,7 +141,7 @@ class ClassicPivot:
     schemes: list
 
 
-def classic_pivot(labels, device="cpu") -> ClassicPivot:
+def classic_pivot(labels, device) -> ClassicPivot:
     """Group ``le``-labelled rows by their other labels and stack the
     groups of one bucket scheme (their sorted bounds) into one index table
     on ``device`` (``classic_histogram_quantile``'s pivot in the JAX
@@ -173,3 +192,380 @@ def classic_histogram_quantile(q: float, labels, values, num_steps: int, pivot=N
     for table, rows, les in pivot.schemes:
         HK.histogram_quantile_gather(q, values, table, rows, les, num_steps, out)
     return pivot.labels, out
+
+
+# -- the reference tree's second part -------------------------------------------
+
+A2B = "the reference tree over native histograms is ROADMAP A2b, not ported"
+
+
+def grid_values(g: Grid) -> torch.Tensor:
+    """A grid's real rows and steps as a [n, J] f32 tensor on the device
+    its values live on (a host array as a CPU tensor)."""
+    v = g.values
+    if not isinstance(v, torch.Tensor):
+        v = torch.as_tensor(np.asarray(v), dtype=torch.float32)
+    elif v.dtype != torch.float32:
+        v = v.float()
+    return v[: g.n_series, : g.num_steps]
+
+
+def grid_grouping(g: Grid, by, without, device):
+    """``(gids, G, group_labels)`` of a grid's rows (``group_ids_for``),
+    gids int64 [n] on ``device``; memoized on a leaf grid's staged block
+    (keyed by its label list, which the block memoizes)."""
+    def build():
+        gids, labels = AGG.group_ids_for(g.labels, list(by) if by else None,
+                                         list(without) if without else None)
+        return torch.from_numpy(gids.astype(np.int64)).to(device), len(labels), labels
+
+    if g.source is None:
+        return build()
+    return memo_on(g.source[0], "tree_groups_memo", _grouping_key(g, by, without, device), build)
+
+
+def grid_members(g: Grid, by, without, device):
+    """``(members, G, group_labels, gids)``: ``grid_grouping`` and its
+    ``order_stats.Members``, memoized beside it."""
+    gids, G, labels = grid_grouping(g, by, without, device)
+    if g.source is None:
+        return OS.segment_members(gids, G), G, labels, gids
+    members = memo_on(g.source[0], "tree_members_memo", _grouping_key(g, by, without, device),
+                      lambda: OS.segment_members(gids, G))
+    return members, G, labels, gids
+
+
+def _grouping_key(g: Grid, by, without, device) -> tuple:
+    return (g.source[1], tuple(by) if by else None, tuple(without) if without else None,
+            str(device))
+
+
+_ELEMENTWISE = {
+    "abs": torch.abs, "ceil": torch.ceil, "floor": torch.floor, "exp": torch.exp,
+    "ln": torch.log, "log2": torch.log2, "log10": torch.log10, "sqrt": torch.sqrt,
+    "sgn": torch.sign, "acos": torch.acos, "acosh": torch.acosh,
+    "asin": torch.asin, "asinh": torch.asinh, "atan": torch.atan,
+    "atanh": torch.atanh, "cos": torch.cos, "cosh": torch.cosh, "sin": torch.sin,
+    "sinh": torch.sinh, "tan": torch.tan, "tanh": torch.tanh,
+    "deg": torch.rad2deg, "rad": torch.deg2rad,
+}
+
+_TIME_COMPONENT = {
+    "minute": lambda d: d.minute, "hour": lambda d: d.hour,
+    "month": lambda d: d.month, "year": lambda d: d.year,
+    "day_of_month": lambda d: d.day, "day_of_week": lambda d: (d.weekday() + 1) % 7,
+    "day_of_year": lambda d: d.timetuple().tm_yday,
+    "days_in_month": lambda d: calendar.monthrange(d.year, d.month)[1],
+}
+
+# instant functions over native histograms (ROADMAP A2b)
+_HIST_FUNCS = frozenset({"histogram_fraction", "histogram_bucket", "histogram_max_quantile",
+                         "histogram_max_quantile_even", "hist_to_prom_vectors"})
+
+
+def time_components(f: str, times_ms) -> np.ndarray:
+    """``f`` (a ``_TIME_COMPONENT``) of each UTC time, f64."""
+    return np.array([_TIME_COMPONENT[f](_dt.datetime.fromtimestamp(t / 1e3, _dt.timezone.utc))
+                     for t in times_ms], dtype=np.float64)
+
+
+@dataclass
+class InstantVectorFunctionMapper:
+    """Instant functions over each grid (reference InstantVectorFunctionMapper
+    + InstantFunction.scala): elementwise math and clamp/round/or_vector on
+    the values' device, ``timestamp()`` and the time components f64 on the
+    host, ``histogram_quantile`` over classic ``le`` rows through the
+    standalone quantile."""
+
+    function: str
+    args: tuple = ()
+
+    def apply(self, grids: list[Grid]) -> list[Grid]:
+        return [self._one(g) for g in grids]
+
+    def _one(self, g: Grid) -> Grid:
+        f = self.function
+        if g.hist is not None or f in _HIST_FUNCS:
+            raise NotImplementedError(f"{f} over native histograms: {A2B}")
+        labels = [_strip_metric(l) for l in g.labels]
+        if f == "histogram_quantile":
+            out_labels, vals = classic_histogram_quantile(float(np.float32(self.args[0])),
+                                                          g.labels, grid_values(g), g.num_steps)
+            return Grid([_strip_metric(l) for l in out_labels], g.start_ms, g.step_ms,
+                        g.num_steps, vals)
+        if f == "timestamp" or f in _TIME_COMPONENT:
+            times = g.step_times_ms()
+            t = times.astype(np.float64) / 1e3 if f == "timestamp" else time_components(f, times)
+            return Grid(labels, g.start_ms, g.step_ms, g.num_steps,
+                        np.where(np.isnan(g.values_np()), np.nan, t[None, :]))
+        v = grid_values(g)
+        if f == "clamp":
+            v = torch.clamp(v, float(np.float32(self.args[0])), float(np.float32(self.args[1])))
+        elif f == "clamp_min":
+            v = torch.maximum(v, _scalar(self.args[0], v))
+        elif f == "clamp_max":
+            v = torch.minimum(v, _scalar(self.args[0], v))
+        elif f == "round":
+            to = _scalar(self.args[0] if self.args else 1.0, v)
+            v = torch.round(v / to) * to
+        elif f == "or_vector":
+            v = torch.where(torch.isnan(v), _scalar(self.args[0], v), v)
+        elif f in _ELEMENTWISE:
+            v = _ELEMENTWISE[f](v)
+        else:
+            raise QueryError(f"unknown instant function {f}")
+        return Grid(labels, g.start_ms, g.step_ms, g.num_steps, v)
+
+
+def _scalar(x, like: torch.Tensor) -> torch.Tensor:
+    """A number as a 0-d f32 tensor beside ``like``."""
+    return torch.tensor(float(x), dtype=torch.float32, device=like.device)
+
+
+_BINOPS = {
+    "+": lambda a, b: a + b,
+    "-": lambda a, b: a - b,
+    "*": lambda a, b: a * b,
+    "/": lambda a, b: a / b,
+    "%": lambda a, b: torch.where(b != 0, a - torch.floor(a / b) * b, float("nan")),
+    "^": lambda a, b: torch.pow(a, b),
+    "atan2": lambda a, b: torch.atan2(a, b),
+}
+_CMPOPS = {
+    "==": lambda a, b: a == b,
+    "!=": lambda a, b: a != b,
+    ">": lambda a, b: a > b,
+    "<": lambda a, b: a < b,
+    ">=": lambda a, b: a >= b,
+    "<=": lambda a, b: a <= b,
+}
+
+
+def apply_binop(op: str, lhs: torch.Tensor, rhs: torch.Tensor, return_bool: bool) -> torch.Tensor:
+    """Elementwise arithmetic or comparison of f32 tensors with PromQL's
+    filter semantics: a comparison keeps the left value where it holds
+    (NaN elsewhere), or with ``bool`` gives 1/0 where both sides have a
+    value; ``%`` is a floored modulo, NaN at 0."""
+    if op in _BINOPS:
+        return _BINOPS[op](lhs, rhs)
+    cmp = _CMPOPS[op](lhs, rhs)
+    if return_bool:
+        both = ~(torch.isnan(lhs) | torch.isnan(rhs))
+        return torch.where(both, cmp.to(torch.float32), float("nan"))
+    return torch.where(cmp, lhs, float("nan"))
+
+
+@dataclass
+class ScalarOperationMapper:
+    """vector op scalar (reference ScalarOperationMapper): the scalar a
+    number or a ``ScalarResult`` (one value a step, NaN past its steps);
+    the metric name kept only by a comparison without ``bool``."""
+
+    op: str
+    scalar: ScalarResult | float
+    scalar_is_lhs: bool
+    return_bool: bool = False
+
+    def apply(self, grids: list[Grid]) -> list[Grid]:
+        out = []
+        for g in grids:
+            v = grid_values(g)
+            s = self.scalar
+            if isinstance(s, ScalarResult):
+                sv = np.full(v.shape[1], np.nan)
+                n = min(len(s.values), v.shape[1])
+                sv[:n] = np.asarray(s.values)[:n]
+                sv = torch.as_tensor(sv, dtype=torch.float32, device=v.device)[None, :]
+            else:
+                sv = _scalar(s, v)
+            a, b = (sv, v) if self.scalar_is_lhs else (v, sv)
+            res = apply_binop(self.op, a, b, self.return_bool).expand(v.shape)
+            keep_name = self.op in _CMPOPS and not self.return_bool
+            labels = g.labels if keep_name else [_strip_metric(l) for l in g.labels]
+            out.append(Grid(labels, g.start_ms, g.step_ms, g.num_steps, res))
+        return out
+
+
+@dataclass
+class MiscellaneousFunctionMapper:
+    """label_replace / label_join, and the planner's no-op markers."""
+
+    function: str
+    str_args: tuple = ()
+
+    def apply(self, grids: list[Grid]) -> list[Grid]:
+        if self.function in ("optimize_with_agg", "no_optimize"):
+            return grids  # planner-level markers; no-op at execution
+        if self.function == "label_replace":
+            dst, repl, src, regex_s = self.str_args
+            pat = re.compile(regex_s)
+            for g in grids:
+                new_labels = []
+                for l in g.labels:
+                    m = pat.fullmatch(l.get(src, ""))
+                    l2 = dict(l)
+                    if m:
+                        val = m.expand(repl.replace("$", "\\"))
+                        if val:
+                            l2[dst] = val
+                        else:
+                            l2.pop(dst, None)
+                    new_labels.append(l2)
+                g.labels = new_labels
+                g.source = None  # groupings memoized on the block hold the old labels
+            return grids
+        if self.function == "label_join":
+            dst, sep, *srcs = self.str_args
+            for g in grids:
+                g.labels = [{**l, dst: sep.join(l.get(s, "") for s in srcs)} for l in g.labels]
+                g.source = None
+            return grids
+        raise QueryError(f"unknown misc function {self.function}")
+
+
+@dataclass
+class SortFunctionMapper:
+    """sort()/sort_desc(): series ordered by their last step's value (on
+    the host; a NaN sorts last)."""
+
+    descending: bool = False
+
+    def apply(self, grids: list[Grid]) -> list[Grid]:
+        out = []
+        for g in grids:
+            if g.hist is not None:
+                raise NotImplementedError(f"sort over native histograms: {A2B}")
+            v = g.values_np()
+            key = np.where(np.isnan(v[:, -1]), -np.inf if not self.descending else np.inf,
+                           v[:, -1])
+            order = np.argsort(-key if self.descending else key, kind="stable")
+            out.append(Grid([g.labels[i] for i in order], g.start_ms, g.step_ms, g.num_steps,
+                            v[order]))
+        return out
+
+
+@dataclass
+class LimitFunctionMapper:
+    """limit(n): the first n series, grid by grid."""
+
+    limit: int
+
+    def apply(self, grids: list[Grid]) -> list[Grid]:
+        out = []
+        budget = self.limit
+        for g in grids:
+            if budget <= 0:
+                break
+            take = min(budget, g.n_series)
+            out.append(Grid(g.labels[:take], g.start_ms, g.step_ms, g.num_steps,
+                            grid_values(g)[:take]))
+            budget -= take
+        return out
+
+
+@dataclass
+class AbsentFunctionMapper:
+    """absent(v): 1 where no series has a value at the step (reference
+    AbsentFunctionMapper); the labels of the selector's equality matchers."""
+
+    filters: tuple = ()
+    start_ms: int = 0
+    step_ms: int = 1
+    num_steps: int = 1
+
+    def apply(self, grids: list[Grid]) -> list[Grid]:
+        start_ms, step_ms, num_steps = self.start_ms, self.step_ms, self.num_steps
+        if grids:
+            start_ms, step_ms, num_steps = grids[0].start_ms, grids[0].step_ms, grids[0].num_steps
+        present = np.zeros(num_steps, dtype=bool)
+        for g in grids:
+            v = grid_values(g)
+            if v.numel():
+                present[: v.shape[1]] |= (~torch.isnan(v)).any(dim=0).cpu().numpy()
+        vals = np.where(present, np.nan, 1.0)[None, :].astype(np.float32)
+        labels = {f.column: f.value for f in self.filters
+                  if getattr(f, "op", "") == "=" and f.column not in (METRIC_TAG, "__name__")}
+        return [Grid([labels], start_ms, step_ms, num_steps, vals)]
+
+
+@dataclass
+class TopkCandidateFilter:
+    """The per-shard map phase of a root topk/bottomk by (...): keep only
+    the series in this shard's per-(group, step) top k at some step
+    (reference TopBottomKRowAggregator's per-node heaps). Ties at the k-th
+    value are kept, a superset, so the root's answer is exact. The
+    thresholds come from one ``order_stats.segment_topk`` launch on the
+    grid's device; a group of at most k series keeps every row."""
+
+    k: int
+    bottom: bool = False
+    by: tuple | None = None
+    without: tuple | None = None
+
+    def apply(self, grids: list[Grid]) -> list[Grid]:
+        out = []
+        for g in grids:
+            if g.hist is not None:
+                raise NotImplementedError(f"topk over native histograms: {A2B}")
+            if g.n_series <= self.k:
+                out.append(g)
+                continue
+            v = grid_values(g)
+            members, G, _, gids = grid_members(g, self.by, self.without, v.device)
+            _, thr = OS.segment_topk(SA.step_major(v), members, self.k, self.bottom)
+            t = thr[gids]  # [n, J]: each row's group threshold
+            fill = float("inf") if self.bottom else float("-inf")
+            vv = torch.where(torch.isnan(v), fill, v)
+            cand = (vv <= t) if self.bottom else (vv >= t)
+            keep = (cand & torch.isfinite(v)).any(dim=1)
+            sizes = members.starts[1:] - members.starts[:-1]
+            keep |= (sizes <= self.k)[gids]
+            rows = torch.nonzero(keep).flatten()
+            rows_h = rows.cpu().numpy()
+            out.append(Grid([g.labels[i] for i in rows_h], g.start_ms, g.step_ms, g.num_steps,
+                            v[rows]))
+        return out
+
+
+@dataclass
+class CountValuesMapReduce:
+    """The per-shard map phase of a root count_values: one row per (group,
+    value string) with this shard's per-step counts, on the host (shards
+    own disjoint series, so the root sums rows of equal labels)."""
+
+    label: str
+    by: tuple | None = None
+    without: tuple | None = None
+
+    def apply(self, grids: list[Grid]) -> list[Grid]:
+        if not grids:
+            return grids
+        all_labels = [l for g in grids for l in g.labels]
+        if not all_labels:
+            return [grids[0]]
+        vals = stack_values_np(grids)
+        gids, group_labels = AGG.group_ids_for(
+            all_labels, list(self.by) if self.by else None,
+            list(self.without) if self.without else None)
+        meta = grids[0]
+        out_labels, out_rows = [], []
+        for gi, gl in enumerate(group_labels):
+            for valstr, row in AGG.count_values(vals[gids == gi]).items():
+                out_labels.append(dict(gl, **{self.label: valstr}))
+                out_rows.append(row[: meta.num_steps])
+        v = (np.stack(out_rows).astype(np.float32) if out_rows
+             else np.zeros((0, meta.num_steps), np.float32))
+        return [Grid(out_labels, meta.start_ms, meta.step_ms, meta.num_steps, v)]
+
+
+def stack_values_np(grids: list[Grid]) -> np.ndarray:
+    """The grids' rows stacked on the host as one f32 [N, J] array (J the
+    widest grid's steps, NaN-padded)."""
+    mats = [g.values_np() for g in grids]
+    J = max(m.shape[1] for m in mats)
+    vals = np.full((sum(m.shape[0] for m in mats), J), np.nan, np.float32)
+    r = 0
+    for m in mats:
+        vals[r: r + m.shape[0], : m.shape[1]] = m
+        r += m.shape[0]
+    return vals

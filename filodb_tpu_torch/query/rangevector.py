@@ -6,7 +6,8 @@ dense ``[S, J]`` value matrix (NaN = absent), and for native histograms
 the ``[S, J, B]`` bucket values with their bounds. ``values`` and ``hist``
 may be torch tensors on the card; they convert to numpy at the edge. A
 tree leaf's staged selection travels as a ``RawGrid`` until its
-``PeriodicSamplesMapper`` turns it into a grid.
+``PeriodicSamplesMapper`` turns it into a grid. A scalar plan's answer is
+a ``ScalarResult``: one f64 value per step, on the host.
 """
 
 from __future__ import annotations
@@ -29,10 +30,16 @@ class Grid:
     values: Any  # [S, J] tensor or numpy; J >= num_steps (padding allowed)
     hist: Any | None = None  # [S, J, B] bucket values of a histogram result
     les: np.ndarray | None = None  # [B] bucket bounds of ``hist``
+    # the staged block a tree leaf's grid was computed from (its row
+    # order): the map phases memoize their groupings on it
+    source: Any = None
 
     @property
     def n_series(self) -> int:
         return len(self.labels)
+
+    def step_times_ms(self) -> np.ndarray:
+        return self.start_ms + np.arange(self.num_steps, dtype=np.int64) * self.step_ms
 
     def values_np(self) -> np.ndarray:
         """[S, num_steps] numpy array (fetched from the card if needed)."""
@@ -65,6 +72,16 @@ class RawGrid:
 
 
 @dataclass
+class ScalarResult:
+    """A scalar per step (the PromQL scalar type), on the host."""
+
+    start_ms: int
+    step_ms: int
+    num_steps: int
+    values: np.ndarray  # [J]
+
+
+@dataclass
 class QueryStats:
     """reference QuerySession.queryStats (ExecPlan.scala:430)."""
 
@@ -85,9 +102,10 @@ class QueryStats:
 
 @dataclass
 class QueryResult:
-    """Exec output: a list of grids."""
+    """Exec output: a list of grids, or a scalar."""
 
     grids: list[Grid] = field(default_factory=list)
     stats: QueryStats = field(default_factory=QueryStats)
-    result_type: str = "matrix"  # matrix | vector
+    result_type: str = "matrix"  # matrix | vector | scalar
     raw_grids: list[RawGrid] = field(default_factory=list)  # a tree leaf's staged selection
+    scalar: ScalarResult | None = None

@@ -8,7 +8,8 @@ their plain versions, with one launch per histogram query; and the
 reference tree's kernels -- the sorted-window kernel
 (csrc/sorted_window.cu, both routes, q outside [0, 1]), predict_linear and
 Holt-Winters on the general kernel, the standalone quantile over gathered
-classic rows -- against their plain versions. These tests need an NVIDIA card and skip without one; the
+classic rows, the tree's segment aggregate (csrc/segment_agg.cu) and
+grouped top-k (csrc/order_stats.cu) -- against their plain versions. These tests need an NVIDIA card and skip without one; the
 file imports no JAX so that it runs on a machine with only torch:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -1655,3 +1656,138 @@ def test_tree_query_launches_once_per_leaf_on_card(card, query, counter):
         gv, wv = g.values_np(), w.values_np()
         np.testing.assert_array_equal(np.isnan(gv), np.isnan(wv))
         np.testing.assert_allclose(gv[~np.isnan(wv)], wv[~np.isnan(wv)], rtol=1e-3)
+
+
+# -- the reference tree's aggregate part: the segment aggregate (K1) and the
+# grouped top-k (K2) ------------------------------------------------------------------------
+
+
+def tree_grid(kind: str, S: int, J: int, seed: int, device, store: bool = True):
+    """[S, J] values on the card, rate-like to three decimals (ties), with
+    2 % NaN; ``special`` adds +-inf and signed zeros. ``store``: the
+    transposed view of a step-major [J + 3, S + 5] grid, as a tree leaf
+    holds it; else a row-major tensor."""
+    rng = np.random.default_rng(seed)
+    v = np.round(rng.gamma(2.0, 0.3, (S, J)), 3).astype(np.float32)
+    if kind == "special":
+        for x, p in ((np.inf, 0.01), (-np.inf, 0.01), (0.0, 0.03), (-0.0, 0.03)):
+            v[rng.random((S, J)) < p] = x
+    v[rng.random((S, J)) < 0.02] = np.nan
+    if not store:
+        return torch.from_numpy(v).to(device)
+    big = np.full((J + 3, S + 5), np.nan, np.float32)
+    big[:J, :S] = v.T
+    return torch.from_numpy(big).to(device).T[:S, :J]
+
+
+def tree_gids(groups: str, S: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return {"one": np.zeros(S, np.int64), "eight": np.arange(S) % 8, "each": np.arange(S),
+            "sparse": rng.integers(0, 3000, S), "skewed": np.minimum(
+                rng.geometric(0.002, S) - 1, 999)}[groups]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", [True, False], ids=["step_major", "row_major"])
+@pytest.mark.parametrize("groups", ["one", "eight", "each", "sparse"])
+@pytest.mark.parametrize("kind", ["normal", "special"])
+def test_segment_aggregate_kernel_matches_plain_on_card(card, kind, groups, store):
+    """filodb_segment_aggregate against segment_aggregate per component on
+    9000 series x 111 steps: one group and 8 (shared-memory partials), a
+    group each and 3000 sparse groups (global atomics); count, min, max and
+    group bit-equal, sum and sumsq within rtol 1e-4 (another order)."""
+    from filodb_tpu_torch.ops import segment_agg as SA
+
+    S, J = 9000, 111
+    v = tree_grid(kind, S, J, seed=len(groups), device=card, store=store)
+    gids = torch.from_numpy(tree_gids(groups, S, 3)).to(card)
+    G = int(gids.max()) + 1
+    before, transposes = SA.LAUNCHES, SA.TRANSPOSES
+    got = SA.segment_components(v, gids, G, SA.COMPONENTS)
+    assert SA.LAUNCHES == before + 1 and SA.TRANSPOSES == transposes + (not store)
+    want = SA.segment_components(v.cpu(), gids.cpu(), G, SA.COMPONENTS)
+    torch.cuda.synchronize()
+    for c in SA.COMPONENTS:
+        g, w = got[c].cpu(), want[c]
+        assert torch.equal(torch.isnan(g), torch.isnan(w)), c
+        m = ~torch.isnan(w)
+        if c in ("sum", "sumsq"):
+            torch.testing.assert_close(g[m], w[m], rtol=1e-4, atol=1e-5)
+        else:
+            assert torch.equal(g[m].view(torch.int32), w[m].view(torch.int32)), c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bottom", [False, True], ids=["topk", "bottomk"])
+@pytest.mark.parametrize("k", [1, 3, 1000])
+@pytest.mark.parametrize("groups", ["one", "eight", "each", "skewed"])
+@pytest.mark.parametrize("kind", ["normal", "special"])
+def test_segment_topk_kernel_matches_plain_on_card(card, kind, groups, k, bottom):
+    """filodb_segment_topk against segment_topk_plain on 20,000 series x
+    111 steps read in place from a step-major grid: one group and 8 (a
+    cluster per step), a group each (a thread each), and skewed sizes
+    (both routes): kept values and thresholds bit-equal."""
+    from filodb_tpu_torch.ops import order_stats as OS
+    from filodb_tpu_torch.ops import segment_agg as SA
+
+    S, J = 20_000, 111
+    v = tree_grid(kind, S, J, seed=k, device=card)
+    gids = tree_gids(groups, S, 5)
+    G = int(gids.max()) + 1
+    members = OS.segment_members(torch.from_numpy(gids).to(card), G)
+    grid = SA.step_major(v)
+    before = OS.LAUNCHES
+    out, thr = OS.segment_topk(grid, members, k, bottom)
+    assert OS.LAUNCHES == before + 1 and OS.LAST_PLAN.kernel == "segment_topk"
+    cpu_members = OS.segment_members(torch.from_numpy(gids), G)
+    want_out, want_thr = OS.segment_topk_plain(grid.cpu(), cpu_members, k, bottom)
+    torch.cuda.synchronize()
+    for g, w in ((out.cpu(), want_out), (thr.cpu(), want_thr)):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("query, launches", [  # kernel: (per leaf, at the root)
+    ("stddev by (zone) (rate(m[5m]))", {"segment_agg": (1, 0), "order_stats": (0, 0)}),
+    ("topk by (zone) (2, rate(m[5m]))", {"segment_agg": (0, 0), "order_stats": (1, 1)}),
+    ("quantile by (zone) (0.5, abs(rate(m[5m])))",
+     {"segment_agg": (0, 0), "order_stats": (0, 1)}),
+])
+def test_tree_aggregates_launch_their_kernels_on_card(card, query, launches):
+    """A tree aggregate through the engine on the card: K1 once per shard
+    leaf (the map phase), K2 once per leaf filter and once at the root, the
+    quantile once at the root; the answer equals the CPU engine's (rtol
+    1e-3, NaN masks equal)."""
+    import importlib
+
+    from filodb_tpu_torch.coordinator.planner import QueryEngine
+    from filodb_tpu_torch.core.records import SeriesBatch
+    from filodb_tpu_torch.core.schemas import METRIC_TAG, PROM_COUNTER, Dataset, shard_for
+    from filodb_tpu_torch.memstore.memstore import TimeSeriesMemStore
+
+    rng = np.random.default_rng(6)
+    ms = TimeSeriesMemStore()
+    ms.setup(Dataset("prometheus"), range(4))
+    for i in range(96):
+        tags = {METRIC_TAG: "m", "_ws_": "w", "_ns_": "n", "instance": f"h{i}",
+                "zone": f"z{i % 3}"}
+        ts = BASE + np.cumsum(rng.integers(5_000, 15_001, 200)).astype(np.int64)
+        ms.shard("prometheus", shard_for(tags, spread=2, num_shards=4)).ingest_series(
+            SeriesBatch(PROM_COUNTER, tags, ts, {"count": np.cumsum(rng.uniform(0, 9, 200))}))
+    mods = {n: importlib.import_module(f"filodb_tpu_torch.ops.{n}")
+            for n in ("segment_agg", "order_stats")}
+    for m in mods.values():
+        m.LAUNCHES = 0
+    start, end = (BASE + 400_000) / 1000, (BASE + 1_400_000) / 1000
+    got = QueryEngine(ms, "prometheus").query_range(query, start, end, 60)
+    leaves = sum(1 for s in range(4) if ms.shard("prometheus", s).stage_cache)
+    assert {n: m.LAUNCHES for n, m in mods.items()} == {
+        n: a * leaves + b for n, (a, b) in launches.items()}
+    want = QueryEngine(ms, "prometheus", device="cpu").query_range(query, start, end, 60)
+    rows = {tuple(sorted(l.items())): v for g in got.grids for l, v in zip(g.labels,
+                                                                             g.values_np())}
+    for g in want.grids:
+        for l, w in zip(g.labels, g.values_np()):
+            v = rows[tuple(sorted(l.items()))]
+            np.testing.assert_array_equal(np.isnan(v), np.isnan(w))
+            np.testing.assert_allclose(v[~np.isnan(w)], w[~np.isnan(w)], rtol=1e-3)

@@ -212,24 +212,54 @@ def hist_store():
     return pms
 
 
-# the shapes that still raise: the aggregate tree, binary operators and
-# instant functions (ROADMAP A3), and the tree over native histograms (A2b)
+# the shapes that still raise: the tree over native histograms (ROADMAP
+# A2b) and subqueries
 @pytest.mark.parametrize("query, store", [
-    ("topk by (zone) (3, rate(http_requests_total[5m]))", "irregular"),
-    ("stddev(rate(http_requests_total[5m]))", "irregular"),
-    ("sum(quantile_over_time(0.5, http_requests_total[5m]))", "irregular"),
-    ("sum(predict_linear(http_requests_total[5m], 60))", "irregular"),
-    ("sum(rate(http_requests_total[5m] @ 1600000600))", "irregular"),
-    ("sum(rate(http_requests_total[5m])) * 2", "irregular"),
-    ("abs(rate(http_requests_total[5m]))", "irregular"),
-    ("http_requests_total * 2", "irregular"),
     ("rate(http_request_latency[5m])", "hist"),
+    ("stddev(rate(http_request_latency[5m]))", "hist"),
+    ("histogram_fraction(0, 0.5, rate(http_request_latency[5m]))", "hist"),
+    ("histogram_bucket(0.5, rate(http_request_latency[5m]))", "hist"),
+    ("abs(rate(http_request_latency[5m]))", "hist"),
+    ("topk by (zone) (3, rate(http_request_latency[5m]))", "hist"),
+    ('count_values("c", rate(http_request_latency[5m]))', "hist"),
+    ("max_over_time(rate(http_requests_total[5m])[10m:1m])", "irregular"),
+    ("rate(http_requests_total[5m])[30m:1m]", "irregular"),
 ])
 def test_unsupported_shapes_raise(stores, hist_store, query, store):
     pms = hist_store if store == "hist" else stores[store][1]
     engine = QueryEngine(pms, "prometheus", device="cpu")
     with pytest.raises(NotImplementedError):
         engine.query_range(query, START_S, END_S, STEP_S)
+
+
+# the eight scalar shapes the port refused before its tree had an aggregate
+# part, operators and instant functions: now answered, as the JAX engine does
+@pytest.mark.parametrize("query", [
+    "topk by (zone) (3, rate(http_requests_total[5m]))",
+    "stddev(rate(http_requests_total[5m]))",
+    "sum(quantile_over_time(0.5, http_requests_total[5m]))",
+    "sum(predict_linear(http_requests_total[5m], 60))",
+    "sum(rate(http_requests_total[5m] @ 1600000600))",
+    "sum(rate(http_requests_total[5m])) * 2",
+    "abs(rate(http_requests_total[5m]))",
+    "http_requests_total * 2",
+])
+def test_once_unsupported_shapes_match_jax(stores, query):
+    jms, pms = stores["irregular"]
+
+    def by_labels(res):
+        return {tuple(sorted(l.items())): np.asarray(v, np.float64) for g in res.grids
+                for l, v in zip(g.labels, g.values_np())}
+
+    want = by_labels(JaxEngine(jms, "prometheus").query_range(query, START_S, END_S, STEP_S))
+    got = by_labels(QueryEngine(pms, "prometheus", device="cpu").query_range(
+        query, START_S, END_S, STEP_S))
+    assert sorted(got) == sorted(want) and want
+    for k, w in want.items():
+        np.testing.assert_array_equal(np.isnan(got[k]), np.isnan(w))
+        m = ~np.isnan(w)
+        assert m.any()
+        np.testing.assert_allclose(got[k][m], w[m], rtol=2e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("grid", ["irregular", "regular"])

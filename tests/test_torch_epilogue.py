@@ -521,11 +521,38 @@ def test_instant_epilogues_match_jax(stores, query):
     "topk(3, predict_linear(http_requests_total[5m], 60))",
 ])
 def test_shapes_the_jax_fused_planner_refuses_raise(stores, query):
-    """Grouped topk/bottomk, ``@`` and function arguments: the JAX package
-    runs them on its reference tree (A4), which the port has not."""
-    engine = QueryEngine(stores["irregular"][1], "prometheus", device="cpu")
-    with pytest.raises(NotImplementedError):
-        engine.query_range(query, START_S, END_S, STEP_S)
+    """Grouped topk/bottomk, ``@`` and function arguments: the JAX fused
+    planner refuses them and answers them on its reference tree; the
+    port's planner refuses them the same way, and its tree gives the JAX
+    engine's rows (by labels, NaN masks equal, within the tolerance; topk
+    and bottomk per group under the near-tie rule)."""
+    eng = QueryEngine(stores["irregular"][1], "prometheus", device="cpu")
+    plan = query_range_to_logical_plan(query, START_S, END_S, STEP_S)
+    assert eng.planner._try_fused_aggregate(plan) is None
+    want, got, _ = run_both(stores, "irregular", query)
+    if query.startswith(("topk", "bottomk")):
+        # per group of the grouping, the near-tie rule (predict_linear sums
+        # in f64 in the port, ROADMAP C)
+        k, bottom = int(query.split("(")[-2].split(",")[0]), query.startswith("bottomk")
+
+        def group(l):
+            if "by (zone)" in query:
+                return l.get("zone")
+            if "without (instance)" in query:
+                return tuple(sorted((a, b) for a, b in l.items() if a != "instance"))
+            return None
+
+        for key in {group(l) for l in want[0]}:
+            pick = [[i for i, l in enumerate(res[0]) if group(l) == key] for res in (got, want)]
+            assert_topk_matches(([got[0][i] for i in pick[0]], got[1][pick[0]]),
+                                ([want[0][i] for i in pick[1]], want[1][pick[1]]), k, bottom,
+                                f"{query} {key}")
+        return
+    rows_w = {tuple(sorted(l.items())): r for l, r in zip(*want)}
+    rows_g = {tuple(sorted(l.items())): r for l, r in zip(*got)}
+    assert sorted(rows_g) == sorted(rows_w) and rows_w, query
+    for key, w in rows_w.items():
+        assert_rows_close(rows_g[key], w, f"{query} {key}")
 
 
 @pytest.mark.parametrize("op, params", [
@@ -534,14 +561,21 @@ def test_shapes_the_jax_fused_planner_refuses_raise(stores, query):
 ])
 def test_epilogue_parameters_other_than_one_number_raise(stores, op, params):
     """As the JAX fused planner: exactly one numeric parameter, else the
-    reference tree (A4), which the port has not."""
+    reference tree (its ``AggregatePresentExec``), in both planners."""
     import dataclasses
 
+    from filodb_tpu.coordinator.planner import SingleClusterPlanner as JaxPlanner
+    from filodb_tpu.query.promql import query_range_to_logical_plan as jax_plan
+    from filodb_tpu_torch.query.exec.plans import AggregatePresentExec
+
     eng = QueryEngine(stores["irregular"][1], "prometheus", device="cpu")
-    plan = query_range_to_logical_plan(f"{op}(3, rate(http_requests_total[5m]))", START_S,
-                                       END_S, STEP_S)
-    with pytest.raises(NotImplementedError, match="reference tree"):
-        eng.planner.materialize(dataclasses.replace(plan, params=params))
+    q = f"{op}(3, rate(http_requests_total[5m]))"
+    plan = dataclasses.replace(query_range_to_logical_plan(q, START_S, END_S, STEP_S),
+                               params=params)
+    assert eng.planner._try_fused_aggregate(plan) is None
+    assert isinstance(eng.planner.materialize(plan), AggregatePresentExec)
+    jplan = dataclasses.replace(jax_plan(q, START_S, END_S, STEP_S), params=params)
+    assert JaxPlanner(stores["irregular"][0], "prometheus")._try_fused_aggregate(jplan) is None
 
 
 def test_a_topk_query_reports_its_rung(stores):
