@@ -12,14 +12,15 @@ Phases (any failure raises and exits non-zero):
    ``hist_range.cu``, ``general_range.cu``, ``order_stats.cu``,
    ``sorted_window.cu`` and ``segment_agg.cu`` with nvcc, and the
    histogram kernel's two split builds (``tile_sweep.HIST_PATCHES``: search
-   only, fetch only), all at once, and bind their twelve entry points
+   only, fetch only), all at once, and bind their fourteen entry points
    (``filodb_window_stats``,
    ``filodb_window_range_aggregate``, ``filodb_regular_range``,
    ``filodb_hist_range_aggregate``, ``filodb_hist_resident``,
    ``filodb_hist_quantile_gather``, ``filodb_general_range_aggregate``,
    ``filodb_topk_steps``, ``filodb_segment_quantile``,
    ``filodb_segment_topk``, ``filodb_sorted_window``,
-   ``filodb_segment_aggregate``); print their
+   ``filodb_segment_aggregate``, ``filodb_hist_range_series``,
+   ``filodb_hist_instant``); print their
    ptxas lines (registers, shared memory, spills) and the card's name and
    power limit.
 2. Window stats (the nine-plane kernel), kernel vs plain on seeded
@@ -259,12 +260,37 @@ Phases (any failure raises and exits non-zero):
    beside their bounds, plain versions and library lines
    (``tree_agg_kernels``).
 
+2f. The tree-over-histograms kernels against their plain versions
+   (``phase_hist_tree_vs_plain``, after 2e): K1, the histogram range
+   kernel's store mode (``hist_range_series``), for every function of
+   ``FUSED_HIST_FUNCS`` x is_delta on 7a's seeded blocks with shared and
+   per-series bounds, bit-equal to ``hist_series_plain``; K2
+   (``hist_instant``: histogram_quantile, its ``even`` variant and
+   histogram_fraction) on 4096 x 111 x 12 card-drawn bucket values with
+   edge rows, first bounds 0.005, 0 and -1, row-major, the store's
+   permuted view and a 6-bucket grid in one launch, within 2 ulp of the
+   plain versions.
+12. The reference tree over native histograms (``phase_hist_tree``, after
+   7b on its store and after 7c on its irregular one): ``HIST_TREE_QUERIES``
+   (7c: the first two) and ``HIST_UNFUSED_QUERY`` with
+   ``fused_aggregate=False``, each first (only the first query restages)
+   then warm, the launches checked against the plan
+   (``expected_hist_launches``: K1 per shard leaf, K2 per histogram
+   function node, a segment aggregate per leaf's map phase, no other
+   kernel); the warm answer against the plain path on the card (K1's
+   buckets bit-equal, K2's values within 2 ulp), the unfused quantile
+   against the fused one (rtol 1e-3); cold and warm ms with the warm split
+   (execute, rows to the host: the D2H of a 100k-row ``[S, J, B]``
+   answer); K1 and K2 timed over the leaves beside their bounds and plain
+   versions (``time_hist_tree_kernels``).
+
 Around every timed phase it prints the card's SM and memory clocks,
 temperature and power draw (nvidia-smi), before and after. Prints, in
 order at the end: one JSON object with phases 6 and 6b's numbers
 (``{"cache": ...}``), one with phases 7b-7d's (``{"hist": ...}``), one
 with phase 9's (``{"epilogues": ...}``), one with phases 2d, 2e, 10-10c
-and 11's (``{"tree": ...}``), one with the kernels' numbers
+and 11's (``{"tree": ...}``), one with phases 2f and 12's
+(``{"hist_tree": ...}``), one with the kernels' numbers
 (the order-statistics kernels' rows, and the store mode's numbers on the
 rungs' rows), the card's
 name and power limit as nvidia-smi gives them, and the result line
@@ -397,7 +423,7 @@ def compare_stats(got: dict, want: dict, rtol: float = 2e-4, atol: float = 1e-4)
 
 def build_kernels() -> dict:
     """Build every source and the histogram kernel's two split builds at
-    once (one nvcc each), bind the twelve entry points, print ptxas's lines
+    once (one nvcc each), bind the fourteen entry points, print ptxas's lines
     (registers, shared memory, spills) and return the split builds."""
     from filodb_tpu_torch.ops import cuda_build
     from filodb_tpu_torch.ops import general_range as GR
@@ -421,7 +447,8 @@ def build_kernels() -> dict:
                hk_lib.filodb_hist_resident, hk_lib.filodb_hist_quantile_gather,
                gr_lib.filodb_general_range_aggregate, os_lib.filodb_topk_steps,
                os_lib.filodb_segment_quantile, os_lib.filodb_segment_topk,
-               sw_lib.filodb_sorted_window, sa_lib.filodb_segment_aggregate]
+               sw_lib.filodb_sorted_window, sa_lib.filodb_segment_aggregate,
+               hk_lib.filodb_hist_range_series, hk_lib.filodb_hist_instant]
     print(f"phase1 built {', '.join(l.name for l in libs)} in {time.perf_counter() - t0:.1f} s; "
           f"entry points {', '.join(e.__name__ for e in entries)}")
     for name in SOURCES:
@@ -516,6 +543,15 @@ def window_block(n_real: int, T: int, kind: str, counter: bool, seed: int, devic
     L = np.zeros(S, np.int32)
     L[:n_real] = lens
     return block_from_arrays(ts, v, L, BASE, np.zeros(S, np.float32), n_real, device=device)
+
+
+def abs_gap(got, want) -> float:
+    """The largest absolute difference between two f32 tensors' finite
+    values (``ulp_gap`` has held their NaN and infinity masks equal)."""
+    import torch
+
+    m = torch.isfinite(want)
+    return float((got[m].double() - want[m].double()).abs().max()) if bool(m.any()) else 0.0
 
 
 def ulp_gap(got, want) -> int:
@@ -2032,11 +2068,12 @@ HIST_IRREGULAR_SERIES = 50_000
 
 
 def hist_tags(i: int) -> dict:
-    """bench.py's tags of histogram series ``i`` (its ``build_memstore_hist``)."""
+    """bench.py's tags of histogram series ``i`` (its ``build_memstore_hist``)
+    and a ``zone`` of eight, which phase 12's ``sum by (zone)`` groups by."""
     from filodb_tpu_torch.core.schemas import METRIC_TAG
 
     return {METRIC_TAG: "http_request_latency", "_ws_": "demo", "_ns_": "App-2",
-            "instance": f"host-{i}"}
+            "instance": f"host-{i}", "zone": f"z{i % 8}"}
 
 
 def build_memstore_hist(n_series: int, grid: str):
@@ -2660,8 +2697,9 @@ def phase_hist_live_edge(engine, device) -> dict:
             "final_max_abs_err": err, "launches": launches}
 
 
-def phase_hist_bench(device, split_libs) -> dict:
-    """7b: bench.py's hist_quantile workload end to end."""
+def phase_hist_bench(device, split_libs):
+    """7b: bench.py's hist_quantile workload end to end. Returns its numbers
+    and its engine (phase 12 runs on the same store)."""
     import torch
 
     from filodb_tpu_torch.coordinator.planner import QueryEngine
@@ -2696,13 +2734,13 @@ def phase_hist_bench(device, split_libs) -> dict:
     return {"cold_ms": run["cold_ms"], "warm_ms": run["warm_ms"], "superblock_bytes": nbytes,
             "max_abs_err": err, "range_max_abs_err": range_err, "quantile_max_abs_err": q_err,
             "launches": add_launches(run["launches"], live["launches"]), **timing,
-            "live_edge": live}
+            "live_edge": live}, engine
 
 
-def phase_hist_irregular(device, n_series: int, split_libs) -> dict:
+def phase_hist_irregular(device, n_series: int, split_libs):
     """7c: the per-series bounds entry at scale: the same store on irregular
     5-15 s scrapes, the canonical query cold then warm on ``hist_general``,
-    against the plain path."""
+    against the plain path. Returns its numbers and its engine."""
     import torch
 
     from filodb_tpu_torch.coordinator.planner import QueryEngine
@@ -2721,9 +2759,10 @@ def phase_hist_irregular(device, n_series: int, split_libs) -> dict:
           f"(max_abs_err {err:.3g})")
     range_err, q_err = check_hist_partials(entry, ex, "phase7c")
     timing = time_hist_kernels(entry, ex, device, "phase7c", split_libs)
+    del entry
     return {"series": n_series, "cold_ms": run["cold_ms"], "warm_ms": run["warm_ms"],
             "max_abs_err": err, "range_max_abs_err": range_err, "quantile_max_abs_err": q_err,
-            "launches": run["launches"], **timing}
+            "launches": run["launches"], **timing}, engine
 
 
 def hist_block_bulk_on_card(n_real: int, m: int, seed: int, device):
@@ -4069,6 +4108,446 @@ def tree_kernel_rows(tree: dict, kernels: dict, classic: dict, rung_rows: dict) 
     return rows
 
 
+# -- phases 2f and 12: the reference tree over native histograms -----------------------
+
+# K2's cases: (op, q or (lower, upper))
+HIST_INSTANT_CASES = ([("quantile", q) for q in (-0.1, 0.0, 0.5, 0.99, 1.0, 1.1)]
+                      + [("quantile_even", q) for q in (0.25, 0.9)]
+                      + [("fraction", b) for b in ((0.0, 0.25), (-np.inf, np.inf), (-np.inf, 0.1),
+                                                   (0.001, 0.002), (0.25, 0.5), (1.0, np.inf))])
+
+
+def hist_instant_plain(op: str, arg, h, les):
+    """K2's plain version for one case."""
+    from filodb_tpu_torch.ops import hist_kernels as HK
+
+    if op == "fraction":
+        return HK.histogram_fraction_plain(arg[0], arg[1], h, les)
+    return HK.histogram_quantile_plain(arg, h, les, even=op == "quantile_even")
+
+
+def hist_instant_call(op: str, arg, hists: list, les: list) -> list:
+    """K2's wrapper for one case over a node's grids (one launch on card
+    tensors)."""
+    from filodb_tpu_torch.ops import hist_kernels as HK
+
+    kw = {"lower": arg[0], "upper": arg[1]} if op == "fraction" else {"q": arg}
+    return HK.hist_instant(op, hists, les, **kw)
+
+
+def instant_grid_on_card(S: int, J: int, first_le: float, seed: int, device):
+    """[S, J, 12] cumulative bucket values drawn on the card (rate-like, to
+    three decimals, so that ties across buckets occur) with the edge rows: an
+    all-NaN row, a zero total, a NaN inside, counts only in the +Inf bucket;
+    bounds ``HIST_LES`` with ``first_le`` first."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    incr = torch.round(torch.rand((S, J, N_BUCKETS), generator=g, device=device) * 2e3) / 1e3
+    incr = torch.where(torch.rand((S, J, N_BUCKETS), generator=g, device=device) < 0.3, 0.0, incr)
+    h = torch.cumsum(incr, dim=-1)
+    h[0] = float("nan")
+    h[1] = 0.0
+    h[2, :, 3] = float("nan")
+    h[3, :, :-1] = 0.0
+    les = HIST_LES.astype(np.float32).copy()
+    les[0] = first_le
+    return h, torch.from_numpy(les).to(device)
+
+
+def phase_hist_tree_vs_plain(seed: int, device) -> dict:
+    """2f: the two kernels of the tree over native histograms against their
+    plain versions on seeded card blocks. K1 (the range kernel's store
+    mode, ``hist_range_series``): every function of FUSED_HIST_FUNCS x
+    is_delta on 7a's blocks (300 and 3000 real rows of 12 buckets, padded
+    rows, NaN bucket counts), shared bounds on the regular ones and bounds
+    searched per series on the irregular ones: bit-equal to
+    ``hist_series_plain`` (padded rows NaN). K2 (``hist_instant``): each op
+    of ``HIST_INSTANT_CASES`` on 4096 x 111 x 12 bucket values drawn on the
+    card with the edge rows, first bounds 0.005, 0 and -1, in one launch
+    with the same grid read through the store's permuted view and a
+    6-bucket grid of other bounds: each within 2 ulp of its plain version,
+    NaN and infinity masks equal."""
+    import torch
+
+    from filodb_tpu_torch.ops import aggregations as AGG
+    from filodb_tpu_torch.ops import hist_kernels as HK
+    from filodb_tpu_torch.ops.kernels import RangeParams, pad_steps
+
+    rng = np.random.default_rng(seed + 13)
+    params = RangeParams(BASE - 120_000, 60_000, 80, WINDOW_MS)
+    j_pad = pad_steps(params.num_steps)
+    k1_cases, k1_err = 0, 0.0
+    for grid, n_real in (("regular", 300), ("irregular", 300), ("regular", 3000),
+                         ("irregular", 3000)):
+        block = hist_block_on_card(grid, n_real, 400, rng, device)
+        windows = AGG._hist_shared_windows(block, params, j_pad) if grid == "regular" else None
+        gids = AGG.zero_gids(block)
+        for func in sorted(HK.FUSED_HIST_FUNCS):
+            for is_delta in (False, True):
+                got = HK.hist_range_series(func, block, gids, params, windows, is_delta)
+                want = HK.hist_series_plain(func, block, gids, params, windows, is_delta)
+                what = f"2f {grid} {func} delta={is_delta} ({n_real} rows)"
+                err = compare(got, want, what, rtol=0.0)
+                require(err == 0.0, f"{what}: not bit-equal (max_abs_err {err})")
+                k1_err = max(k1_err, err)
+                require(bool(torch.isnan(got[:, :, block.n_series:]).all()),
+                        f"{what}: padded rows not NaN")
+                k1_cases += 1
+        plan = HK.LAST_SERIES_PLAN
+        print(f"phase2f {grid} block {list(block.vals.shape)} ({block.n_series} real rows): "
+              f"hist_range_series bit-equal to plain for {2 * len(HK.FUSED_HIST_FUNCS)} cases "
+              f"({plan.rows} rows per tile, {plan.slices} slice(s) of {plan.steps} steps, "
+              f"float{plan.vec}, {plan.threads} threads, ts "
+              f"{'staged' if plan.staged else 'in place'})")
+    worst_ulp = k2_cases = 0
+    k2_err = 0.0
+    for first_le in (0.005, 0.0, -1.0):
+        h, les = instant_grid_on_card(4096, 111, first_le, seed + 14, device)
+        store = h.permute(1, 2, 0).contiguous().permute(2, 0, 1)
+        few, few_les = h[:1000, :, 6:].contiguous(), les[6:].contiguous()
+        grids = (("row-major", h, les), ("store", store, les), ("6 buckets", few, few_les))
+        for op, arg in HIST_INSTANT_CASES:
+            before = HK.INSTANT_LAUNCHES
+            outs = hist_instant_call(op, arg, [g for _, g, _ in grids], [b for *_, b in grids])
+            require(HK.INSTANT_LAUNCHES == before + 1, f"2f {op}: one launch for three grids")
+            for (layout, grid_t, b), got in zip(grids, outs):
+                want = hist_instant_plain(op, arg, grid_t, b)
+                gap = ulp_gap(got, want)
+                require(gap <= 2, f"2f {op} {arg} les[0]={first_le} {layout}: {gap} ulp")
+                worst_ulp, k2_err = max(worst_ulp, gap), max(k2_err, abs_gap(got, want))
+                k2_cases += 1
+    del h, store, few
+    print(f"phase2f hist_instant within {worst_ulp} ulp (max_abs_err {k2_err}) of plain "
+          f"(<= 2 ulp required) over "
+          f"{k2_cases} cases: {len(HIST_INSTANT_CASES)} ops x first bounds 0.005, 0, -1 x "
+          f"row-major, store and 6-bucket grids, the three in one launch")
+    return {"series_cases": k1_cases, "series_max_abs_err": k1_err, "instant_cases": k2_cases,
+            "instant_max_ulp": worst_ulp, "instant_max_abs_err": k2_err}
+
+
+HIST_TREE_QUERIES = (
+    "rate(http_request_latency[5m])",
+    "histogram_quantile(0.99, rate(http_request_latency[5m]))",
+    "histogram_fraction(0, 0.25, rate(http_request_latency[5m]))",
+    "histogram_bucket(0.5, rate(http_request_latency[5m]))",
+)
+# with fused_aggregate=False, held against the fused answer
+HIST_UNFUSED_QUERY = "histogram_quantile(0.9, sum by (zone) (rate(http_request_latency[5m])))"
+HIST_TREE_COUNTERS = dict(KERNEL_COUNTERS, segment_agg=("segment_agg", "LAUNCHES"),
+                          hist_series=("hist_kernels", "SERIES_LAUNCHES"),
+                          hist_instant=("hist_kernels", "INSTANT_LAUNCHES"))
+
+
+def expected_hist_launches(plan) -> dict:
+    """The launches a histogram tree plan makes: K1 per shard leaf; K2 per
+    histogram-function node (all the grids it sees in one launch); a
+    segment aggregate per leaf's map phase."""
+    from filodb_tpu_torch.query.exec import plans as P
+    from filodb_tpu_torch.query.exec import transformers as TR
+
+    leaves = []
+
+    def walk(node):
+        if isinstance(node, P.SelectRawPartitionsExec):
+            leaves.append(node)
+        for c in node.children():
+            walk(c)
+
+    walk(plan)
+    funcs = sum(isinstance(t, TR.InstantVectorFunctionMapper) and t.function in
+                TR._HIST_INSTANT_OPS for t in plan.transformers)
+    maps = sum(isinstance(t, P.AggregateMapReduce) for leaf in leaves for t in leaf.transformers)
+    return {"hist_series": len(leaves), "hist_instant": funcs, "segment_agg": maps}
+
+
+def hist_tree_result(res, device):
+    """A histogram tree query's answer on ``device``: the buckets [N, J, B]
+    of a histogram result, else the values [N, J] (the grids' rows
+    stacked)."""
+    import torch
+
+    from filodb_tpu_torch.query.exec.transformers import grid_hist, grid_values
+
+    if res.grids and res.grids[0].hist is not None:
+        return torch.cat([grid_hist(g, device) for g in res.grids])
+    return torch.cat([grid_values(g).to(device) for g in res.grids])
+
+
+def run_hist_tree(engine, q: str):
+    """One phase-12 query through the user's entry point, every launch count
+    set to 0 just before and read just after: the launches of
+    ``expected_hist_launches`` and no other kernel. Returns the result, its
+    answer on the card, the end-to-end seconds (rows to the host included)
+    and the counts with the warm split (``plan_ms`` planning alone,
+    ``execute_ms`` the engine's call to the card's last kernel,
+    ``rows_ms`` the rows -- [S, J, B] buckets of a histogram answer -- to
+    the host)."""
+    import importlib
+
+    import torch
+
+    mods = {name: importlib.import_module(f"filodb_tpu_torch.ops.{mod}")
+            for name, (mod, _) in HIST_TREE_COUNTERS.items()}
+    t0 = time.perf_counter()
+    want = expected_hist_launches(exec_node(engine, q))
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    for name, (_, attr) in HIST_TREE_COUNTERS.items():
+        setattr(mods[name], attr, 0)
+    t0 = time.perf_counter()
+    res = engine.query_range(q, START_S, END_S, STEP_S)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for g in res.grids:
+        g.values_np()
+        g.hist_np()
+    wall = time.perf_counter() - t0
+    counts = {name: getattr(mods[name], attr) for name, (_, attr) in HIST_TREE_COUNTERS.items()}
+    got = {k: counts[k] for k in want}
+    require(got == want, f"{q}: launches {counts}, expected {want}")
+    others = {k: v for k, v in counts.items() if k not in want and v}
+    require(not others, f"{q}: other kernels launched: {others}")
+    return res, hist_tree_result(res, engine.device), wall, {**want, "plan_ms": plan_ms,
+                                              "execute_ms": (t1 - t0) * 1e3,
+                                              "rows_ms": (wall - (t1 - t0)) * 1e3}
+
+
+class plain_hist_tree:
+    """Within it, the engine runs K1, K2 and the segment aggregate through
+    their plain versions (on the card's tensors)."""
+
+    def __enter__(self):
+        from filodb_tpu_torch.ops import aggregations as AGG
+        from filodb_tpu_torch.ops import hist_kernels as HK
+        from filodb_tpu_torch.ops import segment_agg as SA
+
+        def series(func, block, gids, params, windows=None, is_delta=False):
+            return HK.hist_series_plain(func, block, gids, params, windows, is_delta)
+
+        def instant(op, hists, les, q=0.0, lower=0.0, upper=0.0):
+            arg = (lower, upper) if op == "fraction" else q
+            return [hist_instant_plain(op, arg, h, b) for h, b in zip(hists, les)]
+
+        def components(values, gids, G, comps, lib=None):
+            return {c: AGG.segment_aggregate(c, values, gids.long(), G) for c in comps}
+
+        self.saved = [(m, a, getattr(m, a)) for m, a in (
+            (HK, "hist_range_series"), (HK, "hist_instant"), (SA, "segment_components"))]
+        for (m, a, _), f in zip(self.saved, (series, instant, components)):
+            setattr(m, a, f)
+        return self
+
+    def __exit__(self, *exc):
+        for m, a, f in self.saved:
+            setattr(m, a, f)
+        return False
+
+
+def hist_tree_leaves(engine, q: str):
+    """The query's leaves' staged selections on the card (warm: served from
+    the shards' staging caches) with their mappers: (mapper, RawGrid)."""
+    from filodb_tpu_torch.query.exec.plans import SelectRawPartitionsExec
+
+    plan = exec_node(engine, q)
+    out = []
+
+    def walk(node):
+        if isinstance(node, SelectRawPartitionsExec):
+            ctx = engine.context()
+            for rg in node.do_execute(ctx).raw_grids:
+                out.append((node.transformers[0], rg))
+            require(ctx.stats.cache_misses == 0, f"{q}: a leaf's warm read staged")
+        for c in node.children():
+            walk(c)
+
+    walk(plan)
+    return out
+
+
+def time_hist_tree_kernels(pairs, card: str, phase: str) -> dict:
+    """K1 over the query's leaves (every leaf's store launch into a buffer
+    of its own), and K2's histogram_quantile(0.99) over those leaves'
+    grids (one launch for all of them): each median of 20 calls and back
+    to back, beside the bound (bytes at 3.35 TB/s: K1 the buckets at the
+    windows' distinct first and last samples, each row's timestamps on
+    per-series bounds, gids and the [S, J, B] grid written once; K2 the
+    grid read once and [S, J] written once) and the plain versions' ms."""
+    import torch
+
+    from filodb_tpu_torch.ops import aggregations as AGG
+    from filodb_tpu_torch.ops import hist_kernels as HK
+    from filodb_tpu_torch.ops.kernels import pad_steps
+
+    launches, grids, k1_bytes, k2_bytes = [], [], 0, 0
+    for mapper, rg in pairs:
+        b, params = rg.block, mapper.range_params()
+        J, (S, T, B) = params.num_steps, b.vals.shape
+        windows = (AGG._hist_shared_windows(b, params, pad_steps(J))
+                   if AGG.hist_variant(b) == "hist_shared" else None)
+        gids = AGG.zero_gids(b)
+        out = torch.empty((J, B, S), dtype=torch.float32, device=b.vals.device)
+
+        def launch(b=b, gids=gids, params=params, windows=windows, out=out):
+            HK._launch_series("rate", b, gids, params, windows, False, out)
+
+        launches.append(launch)
+        launches[-1]()
+        grids.append((b, gids, params, windows, out.permute(2, 0, 1)[: b.n_series]))
+        bound, _, _ = hist_bound_bytes(b, params, 0, windows)
+        k1_bytes += bound + b.n_series * J * B * 4
+        k2_bytes += b.n_series * J * (B + 1) * 4
+    les = torch.from_numpy(HIST_LES.astype(np.float32)).to(pairs[0][1].block.vals.device)
+
+    def k1():
+        for launch in launches:
+            launch()
+
+    def k2():  # one launch for the 8 leaf grids, as the plan node makes it
+        HK.hist_instant("quantile", [h for *_, h in grids], [les] * len(grids), q=0.99)
+
+    gpu_sample(f"{phase} before")
+    k1_ms, k1_b2b = cuda_ms(k1, reps=20), back_to_back_ms(k1, reps=20)
+    plan = HK.LAST_SERIES_PLAN
+    k2_ms, k2_b2b = cuda_ms(k2, reps=20), back_to_back_ms(k2, reps=20)
+    gpu_sample(f"{phase} after")
+    k1_plain = cuda_ms(lambda: [HK.hist_series_plain("rate", b, g, p, w)
+                                for b, g, p, w, _ in grids], reps=1, warmup=1)
+    k2_plain = cuda_ms(lambda: [HK.histogram_quantile_plain(0.99, h, les) for *_, h in grids],
+                       reps=3, warmup=1)
+    to_ms = 1e3 / HBM_BYTES_PER_S
+    row = {"k1_ms": k1_ms, "k1_ms_back_to_back": k1_b2b, "k1_plain_ms": k1_plain,
+           "k1_bound_ms": k1_bytes * to_ms, "k1_bound_bytes": k1_bytes,
+           "k1_plan": {"rows": plan.rows, "slices": plan.slices, "steps": plan.steps,
+                       "vec": plan.vec, "threads": plan.threads, "staged": plan.staged},
+           "k2_ms": k2_ms, "k2_ms_back_to_back": k2_b2b, "k2_plain_ms": k2_plain,
+           "k2_bound_ms": k2_bytes * to_ms, "k2_bound_bytes": k2_bytes, "leaves": len(pairs)}
+    print(f"{phase}: K1 hist_range_series x {len(pairs)} leaves {k1_ms:.4f} ms (median of 20; "
+          f"{k1_b2b:.4f} ms back to back; {plan.rows} rows per tile, {plan.threads} threads, "
+          f"ts {'staged' if plan.staged else 'in place'}), bound {row['k1_bound_ms']:.4f} ms "
+          f"({k1_bytes} bytes), plain {k1_plain:.2f} ms; K2 hist_instant quantile, one "
+          f"launch over {len(pairs)} grids, {k2_ms:.4f} ms ({k2_b2b:.4f} ms back to back), bound "
+          f"{row['k2_bound_ms']:.4f} ms ({k2_bytes} bytes), plain {k2_plain:.3f} ms; on {card}")
+    return row
+
+
+def phase_hist_tree(engine, card: str, grid: str, queries) -> dict:
+    """Phase 12: the reference tree over native histograms on a histogram
+    store (7b's regular one, after its live edge, or 7c's irregular one):
+    ``queries`` through ``QueryEngine``, each first (the phase's first with
+    fresh caches, every shard staged; the others read the staging caches
+    it filled) then warm, with their launches checked (``run_hist_tree``),
+    the warm answer equal to the first and to the plain path on the card
+    (K1's buckets and K2's bucket slice bit-equal, K2's values within 2
+    ulp); then ``HIST_UNFUSED_QUERY`` with fused_aggregate=False, against
+    the plain path and the fused answer (rtol 1e-3), the fused one's launch
+    checked by ``run_hist``; then K1 and K2 timed at the leaves' shapes."""
+    import torch
+
+    from filodb_tpu_torch.coordinator.planner import PlannerParams, QueryEngine
+
+    out, launches = {}, {"hist_series": 0, "hist_instant": 0, "segment_agg": 0}
+    unfused = QueryEngine(engine.memstore, engine.dataset,
+                          params=PlannerParams(fused_aggregate=False))
+    for i, (q, eng) in enumerate([(q, engine) for q in queries] + [(HIST_UNFUSED_QUERY,
+                                                                     unfused)]):
+        if i == 0:
+            cold_cache(engine)
+        _, first, first_s, c1 = run_hist_tree(eng, q)
+        res, warm, warm_s, c2 = run_hist_tree(eng, q)
+        for k in launches:
+            launches[k] += c1[k] + c2[k]
+        require(torch.equal(torch.isnan(warm), torch.isnan(first)) and torch.allclose(
+            warm, first, rtol=1e-3, equal_nan=True), f"{q}: warm differs from first")
+        st = res.stats
+        require(st.cache_misses == 0 and st.bytes_staged == 0,
+                f"{q}: the warm run must stage nothing, stats {st}")
+        with plain_hist_tree():
+            want = hist_tree_result(eng.query_range(q, START_S, END_S, STEP_S), eng.device)
+        abs_err = None
+        if "quantile" in q or "fraction" in q:
+            err = float(ulp_gap(warm, want)) if eng is engine else compare(
+                warm, want, f"phase12 {grid} {q}", rtol=1e-3)
+            if eng is engine:
+                require(err <= 2, f"phase12 {grid} {q}: {err} ulp from the plain path")
+                abs_err = abs_gap(warm, want)
+        else:
+            err = compare(warm, want, f"phase12 {grid} {q}", rtol=0.0)
+            require(err == 0.0, f"phase12 {grid} {q}: not bit-equal to the plain path")
+        require(bool(torch.isfinite(warm).any()), f"{q}: no finite value")
+        row = {"first_ms": first_s * 1e3, "warm_ms": warm_s * 1e3, "rows": int(warm.shape[0]),
+               "shape": list(warm.shape), "vs_plain": err, "vs_plain_abs_err": abs_err,
+               **{k: c2[k] for k in ("plan_ms", "execute_ms", "rows_ms")},
+               "launches": {k: c2[k] for k in launches}}
+        if eng is unfused:
+            fused_res, _, _, counts = run_hist(engine, q, grid, "hist_shared" if
+                                               grid == "regular" else "hist_general")
+
+            def by_labels(r):
+                return {tuple(sorted(l.items())): v for g in r.grids
+                        for l, v in zip(g.labels, g.values_np())}
+
+            row["vs_fused_max_abs_err"] = rows_match(by_labels(res), by_labels(fused_res),
+                                                     f"phase12 {grid} unfused vs fused")
+            row["groups"] = len(fused_res.grids[0].labels)
+            row["fused_launches"] = counts
+            q = f"{q} [fused_aggregate=False]"
+        print(f"phase12 {grid} {q!r}: answer {row['shape']}; first {row['first_ms']:.1f} ms, "
+              f"warm {row['warm_ms']:.1f} ms (warm split: plan {row['plan_ms']:.2f}, execute "
+              f"{row['execute_ms']:.2f}, rows to the host {row['rows_ms']:.2f} ms); launches "
+              f"{row['launches']}; vs plain {err:.3g}"
+              f"{'' if 'vs_fused_max_abs_err' not in row else '; vs fused %.3g' % row['vs_fused_max_abs_err']}"
+              f"; on {card}")
+        out[q] = row
+    timing = time_hist_tree_kernels(hist_tree_leaves(engine, queries[0]), card,
+                                    f"phase12 {grid}")
+    return {"queries": out, "launches": launches, **timing}
+
+
+def hist_tree_rows(hist_tree: dict, phase2f: dict) -> list:
+    """The kernels line's rows of K1 and K2, timed at phase 12's regular
+    store (7b's: 100k histograms, 8 leaves)."""
+    reg = hist_tree["regular"]
+    launches = {k: sum(t["launches"][k] for t in hist_tree.values())
+                for k in ("hist_series", "hist_instant")}
+    errs = [r["vs_plain"] for t in hist_tree.values() for q, r in t["queries"].items()
+            if "quantile" not in q and "fraction" not in q]
+    return [{
+        "name": "hist_range_series", "route": "cuda",
+        "source": "filodb_tpu_torch/csrc/hist_range.cu",
+        "replaces": "filodb_tpu/ops/hist_kernels.py:29",
+        "also_replaces": "filodb_tpu/ops/hist_kernels.py:157 (_hist_range_shared)",
+        "launches": launches["hist_series"],
+        "max_abs_err": max([phase2f["series_max_abs_err"]] + errs),
+        "ms": reg["k1_ms"], "plain_ms": reg["k1_plain_ms"], "bound_ms": reg["k1_bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "library_call": "none: no torch call computes a windowed, extrapolated per-bucket rate",
+        "ms_back_to_back": reg["k1_ms_back_to_back"], "plan": reg["k1_plan"],
+        "ms_is": "rate(http_request_latency[5m]), phase 12, 7b's regular store, all 8 leaves' "
+                 "launches",
+        "per_series_bounds": {k: hist_tree["irregular"][k] for k in (
+            "k1_ms", "k1_ms_back_to_back", "k1_plain_ms", "k1_bound_ms")}
+        if "irregular" in hist_tree else None,
+    }, {
+        "name": "hist_instant", "route": "cuda",
+        "source": "filodb_tpu_torch/csrc/hist_range.cu",
+        "replaces": "filodb_tpu/ops/hist_kernels.py:124",
+        "also_replaces": "filodb_tpu/ops/hist_kernels.py:86 (histogram_quantile, with even)",
+        "launches": launches["hist_instant"],
+        "max_abs_err": max([phase2f["instant_max_abs_err"]] + [
+            r["vs_plain_abs_err"] for t in hist_tree.values() for r in t["queries"].values()
+            if r["vs_plain_abs_err"] is not None]),
+        "max_ulp": max([phase2f["instant_max_ulp"]] + [
+            r["vs_plain"] for t in hist_tree.values() for r in t["queries"].values()
+            if r["vs_plain_abs_err"] is not None]),
+        "ms": reg["k2_ms"], "plain_ms": reg["k2_plain_ms"], "bound_ms": reg["k2_bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "library_call": "none: no torch call interpolates histogram_quantile or "
+                        "histogram_fraction",
+        "ms_back_to_back": reg["k2_ms_back_to_back"],
+        "ms_is": "histogram_quantile(0.99, .) over rate(http_request_latency[5m])'s 8 leaf "
+                 "grids in one launch, phase 12, 7b's regular store"}]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4094,6 +4573,7 @@ def main() -> int:
     general_err = phase_general_vs_plain(args.seed, device)
     tree_kernels = phase_tree_kernels_vs_plain(args.seed, device)
     tree_aggs_2e = phase_tree_aggregates_vs_plain(args.seed, device)
+    hist_2f = phase_hist_tree_vs_plain(args.seed, device)
     gpu_sample("phase3 after")
     elapsed("phases 1-3")
     wr_row, ws_row, engine, rate_result = phase_irregular_path(args.seed, device)
@@ -4138,10 +4618,17 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     range_err, q_err = phase_hist_vs_plain(args.seed, device)
-    bench_hist = phase_hist_bench(device, split_libs)
+    bench_hist, hist_engine = phase_hist_bench(device, split_libs)
+    hist_tree = {"regular": phase_hist_tree(hist_engine, card, "regular", HIST_TREE_QUERIES)}
+    elapsed("phases 7a, 7b, 12 (regular)")
+    del hist_engine
     gc.collect()  # bench.py's histogram store goes before the irregular one is built
     torch.cuda.empty_cache()
-    irr_hist = phase_hist_irregular(device, HIST_IRREGULAR_SERIES, split_libs)
+    irr_hist, hist_engine = phase_hist_irregular(device, HIST_IRREGULAR_SERIES, split_libs)
+    hist_tree["irregular"] = phase_hist_tree(hist_engine, card, "irregular",
+                                             HIST_TREE_QUERIES[:2])
+    elapsed("phases 7c, 12 (irregular)")
+    del hist_engine
     gc.collect()  # the irregular store goes before the card block is made
     torch.cuda.empty_cache()
     card_hist = phase_hist_card_block(device, split_libs)
@@ -4153,6 +4640,10 @@ def main() -> int:
     month = phase_month(device, card)
     elapsed("phases 9b, 6b, 7a-7d, 10b, 10c")
     launches = add_launches(bench_hist["launches"], irr_hist["launches"])
+    for t in hist_tree.values():  # the fused answers phase 12 held the tree against
+        for row in t["queries"].values():
+            if "fused_launches" in row:
+                launches = add_launches(launches, row["fused_launches"])
     hist_rows = [{
         "name": "hist_range",
         "route": "cuda",
@@ -4227,11 +4718,14 @@ def main() -> int:
     tree_rows = tree_kernel_rows(tree, tree_kernels, classic, rung_rows)
     agg_rows = tree_agg_rows(tree_agg, agg_kernels, tree_aggs_2e, rung_rows,
                              order_rows + tree_rows)
+    agg_rows[0]["launches"] += sum(t["launches"]["segment_agg"] for t in hist_tree.values())
+    hist_rows_12 = hist_tree_rows(hist_tree, hist_2f)
     print(json.dumps({"tree": {"phase2d": tree_kernels, "phase2e": tree_aggs_2e, "phase10": tree,
                                "phase10b": classic, "phase10c": month, "phase11": tree_agg,
                                "phase11_kernels": agg_kernels}}))
+    print(json.dumps({"hist_tree": {"phase2f": hist_2f, "phase12": hist_tree}}))
     print(json.dumps({"kernels": [ws_row, wr_row, general_row, reg_row, *hist_rows,
-                                  *order_rows, *tree_rows, *agg_rows]}))
+                                  *order_rows, *tree_rows, *agg_rows, *hist_rows_12]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

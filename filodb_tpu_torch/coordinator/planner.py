@@ -22,7 +22,9 @@ The port plans:
   ``topk``/``bottomk(k, ...)`` and ``quantile [by (...)] (q, ...)``. Every
   other aggregate shape (``_try_fused_aggregate`` returns None where the
   JAX package's does) takes the tree; a fused exec falls back to it at run
-  time for a selection of several schemas.
+  time for a selection of several schemas and for a histogram shape the
+  fused kernels do not model (any op but ``sum``, a function outside the
+  fused set, one shard's partitions on different bucket schemes).
 
 A range whose selection spans more than the int32 ms offsets of a staged
 block is cut into time slices planned one by one under a ``StitchRvsExec``

@@ -111,6 +111,8 @@ struct HistArgs {
     unsigned int* arrivals;   // [slices] arrival counters, zero (quantile)
     float* acc;
     float* cnt;
+    float* series;   // [J, B, ld_series] per-series values (store mode)
+    int64_t ld_series;
 };
 
 __host__ __device__ __forceinline__ int64_t round4(int64_t x) { return (x + 3) & ~(int64_t)3; }
@@ -199,10 +201,13 @@ __device__ __forceinline__ void window_values(const HistArgs& a, const float* ro
 
 // Prometheus histogram_quantile over B cumulative bucket counts bucket(i)
 // (NaN: no count) with bounds les [B] -- the one copy of the rule, which
-// the range launch folds in (quantile_at) and the standalone entry runs
-// over gathered rows (hist_quantile_gather_kernel).
+// the range launch folds in (quantile_at), the standalone entry runs over
+// gathered rows (hist_quantile_gather_kernel) and the instant kernel over
+// each (row, step) of a grid (hist_instant_kernel, with `even`:
+// histogram_max_quantile_even's count + 1 positions).
 template <typename F>
-__device__ __forceinline__ float quantile_of(F bucket, const float* les, int B, float q) {
+__device__ __forceinline__ float quantile_of(F bucket, const float* les, int B, float q,
+                                             bool even = false) {
     const float NaN = group_acc::nan_f();
     const float INF = group_acc::inf_f();
     const float total = bucket(B - 1);
@@ -228,7 +233,8 @@ __device__ __forceinline__ float quantile_of(F bucket, const float* les, int B, 
     const float le_hi = __ldg(les + k);
     const float le_lo = k > 0 ? __ldg(les + k - 1) : (__ldg(les) > 0.0f ? 0.0f : -INF);
     const float highest_finite = B >= 2 ? __ldg(les + B - 2) : __ldg(les);
-    const float denom = c_hi - c_lo;
+    // even: the samples spread over count + 1 positions (hist_kernels.py:111)
+    const float denom = even ? (c_hi - c_lo) + 1.0f : c_hi - c_lo;
     const float frac = (rank - c_lo) / (isnan(denom) ? denom : fmaxf(denom, 1e-30f));
     float val = le_lo + (le_hi - le_lo) * frac;
     if (k == B - 1) val = highest_finite;  // the +Inf bucket: the highest finite bound
@@ -237,6 +243,38 @@ __device__ __forceinline__ float quantile_of(F bucket, const float* les, int B, 
     if (q < 0.0f) res = -INF;
     if (q > 1.0f) res = INF;
     return res;
+}
+
+// jnp.clip(x, 0, 1) and jnp.maximum(x, floor): a NaN passes through
+__device__ __forceinline__ float clip01(float x) { return x < 0.0f ? 0.0f : (x > 1.0f ? 1.0f : x); }
+__device__ __forceinline__ float max_or_nan(float x, float floor) {
+    return isnan(x) || x > floor ? x : floor;
+}
+
+// promql histogram_fraction(lower, upper, .) over B cumulative bucket
+// counts bucket(i) with bounds les [B] (les[B-1] = +inf), line for line
+// filodb_tpu/ops/hist_kernels.py:124: the share of the observations in
+// [lower, upper], each bound's cumulative count interpolated linearly in
+// its bucket (cum_at); NaN where the total is not positive.
+template <typename F>
+__device__ __forceinline__ float fraction_of(F bucket, const float* les, int B, float lower,
+                                             float upper) {
+    const float INF = group_acc::inf_f();
+    auto cum_at = [&](float x) {
+        int xb = 0;  // searchsorted(les, x), side left: the bounds below x
+        for (int i = 0; i < B; ++i) xb += __ldg(les + i) < x;
+        xb = min(xb, B - 1);
+        const float c_hi = bucket(xb);
+        const float c_lo = xb > 0 ? bucket(xb - 1) : 0.0f;
+        const float le_hi = __ldg(les + xb);
+        const float le_lo = xb > 0 ? __ldg(les + xb - 1) : (__ldg(les) > 0.0f ? 0.0f : -INF);
+        const float width = le_hi - le_lo;
+        const float w = isfinite(width) ? (x - le_lo) / max_or_nan(width, 1e-30f) : 1.0f;
+        return c_lo + (c_hi - c_lo) * clip01(w);
+    };
+    const float total = bucket(B - 1);
+    const float frac = (cum_at(upper) - cum_at(lower)) / max_or_nan(total, 1e-30f);
+    return total > 0.0f ? clip01(frac) : group_acc::nan_f();
 }
 
 // Prometheus histogram_quantile of one (group, step)'s finished partials:
@@ -272,7 +310,97 @@ __global__ void hist_quantile_gather_kernel(const float* part, int ld, const int
     out[(int64_t)__ldg(rows + g) * ld_out + j] = quantile_of(bucket, les, B, q);
 }
 
-template <bool SHARED_BOUNDS, bool SHARED, bool STAGED, int V>
+// The instant histogram functions (filodb_tpu/ops/hist_kernels.py:86
+// histogram_quantile, with `even`, and :124 histogram_fraction) over the
+// grids of one plan node, in one launch: up to MAX_GRIDS [S_g, J, B_g]
+// grids of per-series bucket values, each read through its own strides (in
+// floats: ss per row, sj per step, sb per bucket) with its own bounds
+// les_g [B_g], their rows numbered one after the other (grid g's from
+// row0[g]). One thread per (row r, step j) reads its B_g buckets and
+// writes one f32 to the step-major out[j * ld_out + r]. The threads of a
+// warp take consecutive rows of one step, so each bucket's read is one
+// coalesced segment where a grid's rows are contiguous (ss = 1: the store
+// mode's [J, B, S] grid).
+enum HOp { HOP_QUANTILE = 0, HOP_QUANTILE_EVEN, HOP_FRACTION };
+constexpr int MAX_GRIDS = 32;  // grids a launch takes (ops/hist_kernels.py MAX_GRIDS)
+
+struct InstantArgs {
+    const float* h[MAX_GRIDS];
+    const float* les[MAX_GRIDS];
+    int64_t ss[MAX_GRIDS], sj[MAX_GRIDS], sb[MAX_GRIDS];
+    int64_t row0[MAX_GRIDS + 1];  // grid g's rows are [row0[g], row0[g + 1])
+    int B[MAX_GRIDS];
+    int n_grids, J, op;
+    float q, lower, upper;
+    float* out;
+    int64_t ld_out;
+};
+
+__global__ void hist_instant_kernel(const __grid_constant__ InstantArgs a) {
+    const int64_t rows = a.row0[a.n_grids];
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= rows * a.J) return;
+    const int j = (int)(i / rows);
+    const int64_t r = i - (int64_t)j * rows;
+    int g = 0;
+    while (r >= a.row0[g + 1]) ++g;
+    const float* p = a.h[g] + (r - a.row0[g]) * a.ss[g] + j * a.sj[g];
+    const int64_t sb = a.sb[g];
+    auto bucket = [&](int b) { return __ldg(p + b * sb); };
+    a.out[(int64_t)j * a.ld_out + r] =
+        a.op == HOP_FRACTION ? fraction_of(bucket, a.les[g], a.B[g], a.lower, a.upper)
+                             : quantile_of(bucket, a.les[g], a.B[g], a.q, a.op == HOP_QUANTILE_EVEN);
+}
+
+// The store mode's values of one tile: the range function of every (row r
+// < rows, step j0 + jl, bucket) to the step-major series[(j * B + b) *
+// ld_series + s0 + r]; each value is written once (no atomic, no group
+// partials). A thread takes (column vector, row) items with the rows
+// fastest, so the lanes of a warp store runs of consecutive rows of one
+// (step, bucket) plane; UNROLL items' loads are issued before any is
+// stored. A padded row (group < 0) is NaN. The row bound is checked again
+// at the store: nvcc 12.8 miscompiled a store variant's tile bound once
+// (ROADMAP C, "Closed").
+template <int V, bool SHARED_BOUNDS>
+__device__ __forceinline__ void store_tile(const HistArgs& a, const float* tile_vals, int64_t s0,
+                                           int rows, int j0, int cv_n, int nvec,
+                                           const int* gid_s, const int* lo_s, const int* hi_s,
+                                           const float* fac_s, bool win_sum, float w_s) {
+    const int B = a.B;
+    const int items = cv_n * rows;
+    for (int it0 = threadIdx.x; it0 < items; it0 += UNROLL * blockDim.x) {
+        float v[UNROLL][V];
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+            const int it = it0 + u * blockDim.x;
+            if (it >= items) continue;
+            const int cv = it / rows, r = it - cv * rows;
+            const int jl = cv / nvec, b0 = (cv - jl * nvec) * V;
+            if (gid_s[r] < 0) {
+                for (int i = 0; i < V; ++i) v[u][i] = group_acc::nan_f();
+                continue;
+            }
+            const int k = SHARED_BOUNDS ? jl : r * a.steps + jl;
+            window_values<V>(a, tile_vals + (int64_t)r * a.T * B + b0, lo_s[k], hi_s[k],
+                             fac_s[k], win_sum, w_s, v[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+            const int it = it0 + u * blockDim.x;
+            if (it >= items) continue;
+            const int cv = it / rows, r = it - cv * rows;
+            const int64_t s = s0 + r;
+            if (s >= a.S) continue;
+            const int jl = cv / nvec, b0 = (cv - jl * nvec) * V;
+            float* o = a.series + ((int64_t)(j0 + jl) * B + b0) * a.ld_series + s;
+            for (int i = 0; i < V; ++i) o[(int64_t)i * a.ld_series] = v[u][i];
+        }
+    }
+}
+
+// STORE: the store mode (store_tile) instead of the group sums; no
+// partials, no quantile.
+template <bool SHARED_BOUNDS, bool SHARED, bool STAGED, int V, bool STORE = false>
 __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS) hist_range_kernel(const HistArgs a) {
     extern __shared__ __align__(16) float smem[];
     __shared__ int last_s;
@@ -370,6 +498,12 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS) hist_range_kernel(con
             }
             __syncthreads();
             const float* tile_vals = a.vals + s0 * a.T * B;
+            if constexpr (STORE) {
+                store_tile<V, SHARED_BOUNDS>(a, tile_vals, s0, rows, j0, cv_n, nvec, gid_s, lo_s,
+                                             hi_s, fac_s, win_sum, w_s);
+                __syncthreads();  // before the next tile rewrites the gids and bounds
+                return;
+            }
             for (int cv = threadIdx.x; cv < cv_n; cv += blockDim.x) {
                 const int jl = cv / nvec;
                 const int b0 = (cv - jl * nvec) * V;
@@ -409,6 +543,7 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS) hist_range_kernel(con
             __syncthreads();  // before the next tile rewrites the gids and bounds
         });
 
+    if (STORE) return;
     if (SHARED)  // the block's [G, steps*B] partials are columns j0*B .. of the global arrays
         group_acc::shared_flush(acc_s, cnt_s, a.G, width, a.acc + (int64_t)j0 * B,
                                 a.cnt + (int64_t)j0 * B, a.ld, group_acc::ACC_ADD);
@@ -445,6 +580,29 @@ cudaError_t launch_vec(const HistArgs& a, int vec, int smem, int threads, int gr
     if (vec == 4) return launch_range<SB, SH, ST, 4>(a, smem, threads, grid, slices, st);
     if (vec == 2) return launch_range<SB, SH, ST, 2>(a, smem, threads, grid, slices, st);
     return launch_range<SB, SH, ST, 1>(a, smem, threads, grid, slices, st);
+}
+
+// the store mode: its persistent grid shares the resident blocks among
+// the slices, at least one each and no more than a slice's tiles
+template <bool SB, bool ST, int V>
+cudaError_t launch_series(const HistArgs& a, int smem, int threads, int slices,
+                          cudaStream_t stream) {
+    auto kern = hist_range_kernel<SB, false, ST, V, true>;
+    int resident = 0;
+    const cudaError_t err = row_tiles::persistent_grid(kern, smem, 1 << 30, &resident, threads);
+    if (err != cudaSuccess) return err;
+    const int tiles = (a.S + a.R - 1) / a.R;
+    const int grid = max(1, min(tiles, resident / slices));
+    kern<<<dim3(grid, slices), threads, smem, stream>>>(a);
+    return cudaGetLastError();
+}
+
+template <bool SB, bool ST>
+cudaError_t series_vec(const HistArgs& a, int vec, int smem, int threads, int slices,
+                       cudaStream_t st) {
+    if (vec == 4) return launch_series<SB, ST, 4>(a, smem, threads, slices, st);
+    if (vec == 2) return launch_series<SB, ST, 2>(a, smem, threads, slices, st);
+    return launch_series<SB, ST, 1>(a, smem, threads, slices, st);
 }
 
 template <bool SB, bool SH, bool ST, int V>
@@ -501,6 +659,101 @@ extern "C" int filodb_hist_quantile_gather(const void* part, int ld, const void*
     return (int)cudaGetLastError();
 }
 
+// Plain C entry for ctypes: the instant histogram functions of n_grids
+// (<= MAX_GRIDS) [S_g, J, B_g] grids of per-series bucket values in one
+// launch: grid g at h[g] (f32, strides strides[3g .. 3g+2] in floats: row,
+// step, bucket) with bounds les[g] [B[g]] (the last +inf); its rows are
+// rows row0[g] .. row0[g+1] of out (host arrays: h and les of n_grids
+// pointers, strides of 3 n_grids, B of n_grids, row0 of n_grids + 1
+// starting at 0). op 0 histogram_quantile(q, .), 1 the same over
+// count + 1 positions (histogram_max_quantile_even), 2
+// histogram_fraction(lower, upper, .); into the step-major out
+// [J, ld_out] (ld_out >= row0[n_grids]). Launches on `stream` and returns
+// a cudaError_t (0 on success); it does not synchronise.
+extern "C" int filodb_hist_instant(const void* const* h, const long long* strides,
+                                   const void* const* les, const int* B,
+                                   const long long* row0, int n_grids, int J, int op, float q,
+                                   float lower, float upper, void* out, long long ld_out,
+                                   void* stream) {
+    if (n_grids < 1 || n_grids > MAX_GRIDS || J < 0 || op < HOP_QUANTILE ||
+        op > HOP_FRACTION || !h || !strides || !les || !B || !row0 || !out || row0[0] != 0)
+        return (int)cudaErrorInvalidValue;
+    InstantArgs a{};
+    for (int g = 0; g < n_grids; ++g) {
+        if (!h[g] || !les[g] || B[g] < 1 || row0[g + 1] < row0[g])
+            return (int)cudaErrorInvalidValue;
+        a.h[g] = (const float*)h[g];
+        a.les[g] = (const float*)les[g];
+        a.ss[g] = strides[3 * g];
+        a.sj[g] = strides[3 * g + 1];
+        a.sb[g] = strides[3 * g + 2];
+        a.B[g] = B[g];
+        a.row0[g + 1] = row0[g + 1];
+    }
+    const int64_t rows = row0[n_grids];
+    if (ld_out < rows) return (int)cudaErrorInvalidValue;
+    if (rows == 0 || J == 0) return 0;
+    a.n_grids = n_grids;
+    a.J = J;
+    a.op = op;
+    a.q = q;
+    a.lower = lower;
+    a.upper = upper;
+    a.out = (float*)out;
+    a.ld_out = ld_out;
+    const int threads = 256;
+    const int64_t blocks = (rows * J + threads - 1) / threads;
+    if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    hist_instant_kernel<<<(int)blocks, threads, 0, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+// Plain C entry for ctypes: the range kernel's store mode, func(m[w]) of
+// every series of a [S, T, B] histogram block into the step-major out
+// [J, B, ld_out] (ld_out >= S): out[(j * B + b) * ld_out + s] for every
+// step j < J, bucket b and row s < S, each written once; a row whose
+// gids[s] is not 0 (padding) is NaN. Bounds as filodb_hist_range_aggregate
+// takes them (shared_bounds: the [J] lo, hi, t_first, t_last; else ts and
+// lens, staged or searched in place), and the layout from the wrapper's
+// plan (ops/hist_kernels.hist_plan with store=True): `rows` rows per tile,
+// `steps` steps per slice, buckets fetched `vec` at a time, `threads`
+// threads, `smem_bytes` of dynamic shared memory (checked here; no group
+// partials). Launches on `stream` and returns a cudaError_t (0 on
+// success); it does not synchronise.
+extern "C" int filodb_hist_range_series(
+    const void* ts, const void* vals, const void* lens, const void* gids, const void* lo,
+    const void* hi, const void* t_first, const void* t_last, int S, int T, int B, int J,
+    int start, int step, int window, int func, int is_delta, int shared_bounds, int rows,
+    int steps, int vec, int staged, int threads, int smem_bytes, void* out, long long ld_out,
+    void* stream) {
+    if (S <= 0 || J <= 0 || B <= 0) return 0;
+    const bool bounds_ok = shared_bounds ? (lo && hi && t_first && t_last) : (ts && lens);
+    const bool vec_ok = (vec == 1 || vec == 2 || vec == 4) && B % vec == 0 &&
+                        (uintptr_t)vals % (4 * vec) == 0;
+    const bool staged_ok = !staged || (!shared_bounds && T % 4 == 0 && (uintptr_t)ts % 16 == 0);
+    if (func < H_RATE || func > H_LAST || rows < 1 || steps < 1 || !threads_ok(threads) ||
+        (J + steps - 1) / steps > 65535 || ld_out < S || !out || !gids || !bounds_ok ||
+        !vec_ok || !staged_ok ||
+        (int64_t)smem_bytes != 4 * smem_words(1, B, steps, rows, T, shared_bounds, false, staged))
+        return (int)cudaErrorInvalidValue;
+    HistArgs a{(const int32_t*)ts, (const float*)vals, (const int32_t*)lens,
+               (const long long*)gids, (const int32_t*)lo, (const int32_t*)hi,
+               (const int32_t*)t_first, (const int32_t*)t_last, nullptr, S, T, B, J,
+               J * B, 1, (int32_t)start, (int32_t)step, (int32_t)window, func, is_delta, rows,
+               steps, 0, 0.0f, 0, nullptr, nullptr, nullptr, nullptr, (float*)out,
+               (int64_t)ld_out};
+    const int slices = (J + steps - 1) / steps;
+    cudaStream_t st = (cudaStream_t)stream;
+    cudaError_t err;
+    if (shared_bounds)
+        err = series_vec<true, false>(a, vec, smem_bytes, threads, slices, st);
+    else if (staged)
+        err = series_vec<false, true>(a, vec, smem_bytes, threads, slices, st);
+    else
+        err = series_vec<false, false>(a, vec, smem_bytes, threads, slices, st);
+    return (int)err;
+}
+
 // Plain C entry for ctypes: how many blocks of the range kernel's variant
 // (shared_bounds, shared partials, staged ts rows, vector width vec) with
 // smem_bytes of dynamic shared memory and `threads` threads fit on the
@@ -554,7 +807,7 @@ extern "C" int filodb_hist_range_aggregate(
                (const int32_t*)t_first, (const int32_t*)t_last, (const float*)les, S, T, B, J,
                ld, G, (int32_t)start, (int32_t)step, (int32_t)window, func, is_delta, rows,
                steps, quantile, q, ld_out, (float*)out, (unsigned int*)arrivals, (float*)acc,
-               (float*)cnt};
+               (float*)cnt, nullptr, 0};
     const int slices = (J + steps - 1) / steps;
     cudaStream_t st = (cudaStream_t)stream;
     cudaError_t err;

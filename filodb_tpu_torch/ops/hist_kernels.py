@@ -27,6 +27,21 @@ aggregate through an index table and applies the same rule
 (``histogram_quantile_gather_plain`` on a CPU tensor); its launches are
 counted in ``QUANTILE_LAUNCHES``.
 
+The reference tree over native histograms (ROADMAP A2b) takes two more
+entries of the same source. ``hist_range_series`` is the range kernel's
+store mode (``filodb_hist_range_series``, K1): every (row, step, bucket)
+value written once to a step-major ``[J, B, S]`` grid, no group partials;
+a tree leaf's ``run_hist_range_function`` returns its permuted ``[S, J,
+B]`` view, which the map phase's segment aggregate reads in place.
+``hist_instant`` (``filodb_hist_instant``, K2) computes histogram_quantile
+(with the ``even`` variant of histogram_max_quantile_even) or
+histogram_fraction for every (row, step) of a plan node's ``[S_g, J,
+B_g]`` grids of any strides, in one launch, into a step-major ``[J, sum
+S_g]`` buffer. Their launches count in
+``SERIES_LAUNCHES`` and ``INSTANT_LAUNCHES``; their plain versions are
+``hist_series_plain``, ``histogram_quantile_plain`` and
+``histogram_fraction_plain``.
+
 ``hist_plan`` lays a launch out (rows per tile, whole-step slices, the
 bucket vector width, shared or global partials, shared memory) and
 ``hist_grid`` sizes its persistent grid; ``hist_buffers`` carves the
@@ -45,6 +60,7 @@ import ctypes
 import functools
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from . import cuda_build
@@ -63,6 +79,10 @@ HIST_FUNC_CODES = {"rate": 0, "increase": 1, "delta": 2, "sum_over_time": 3, "la
 
 MAX_THREADS = 384  # threads per block at most (csrc/hist_range.cu MAX_THREADS)
 HIST_TILE_ROWS = 16  # rows per tile (fewer when staged ts rows must fit STAGE_BUDGET)
+# the store mode's rows per tile: on an H100 its 8 leaves of 12,500 x 111 x
+# 12 ran faster at 8 rows than at 16 and 32 (shared bounds) and than at 4
+# and 16 (per-series bounds; PERF.md section 6)
+SERIES_TILE_ROWS = 8
 STAGE_BUDGET = 48 * 1024  # both ts tile buffers of per-series bounds
 BOUNDS_BUDGET = 24 * 1024  # the [R, steps] lo/hi/factor table of a tile
 MAX_PART_SLICES = 8  # slices that shared [G, steps*B] partials may take, else global
@@ -73,8 +93,16 @@ MAX_PART_SLICES = 8  # slices that shared [G, steps*B] partials may take, else g
 RANGE_LAUNCHES = 0
 FOLDED_QUANTILES = 0
 QUANTILE_LAUNCHES = 0  # of filodb_hist_quantile_gather
+SERIES_LAUNCHES = 0  # of filodb_hist_range_series (the store mode, K1)
+INSTANT_LAUNCHES = 0  # of filodb_hist_instant (K2)
 LAST_PLAN = None
 LAST_GRID = None
+LAST_SERIES_PLAN = None  # the last store-mode launch's HistPlan
+
+# the instant kernel's op codes (csrc/hist_range.cu, enum HOp), and the
+# grids one launch takes at most (MAX_GRIDS)
+INSTANT_OPS = {"quantile": 0, "quantile_even": 1, "fraction": 2}
+MAX_GRIDS = 32
 
 _lib = None
 _resident: dict = {}
@@ -93,6 +121,14 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.filodb_hist_quantile_gather
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
                    + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.filodb_hist_range_series
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 16
+                   + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.filodb_hist_instant
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float] * 3
+                   + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -198,14 +234,17 @@ def hist_partials_plain(func: str, block, gids: torch.Tensor, num_groups: int, p
     return acc, cnt
 
 
-def histogram_quantile_plain(q: float, buckets: torch.Tensor, les: torch.Tensor) -> torch.Tensor:
+def histogram_quantile_plain(q: float, buckets: torch.Tensor, les: torch.Tensor,
+                             even: bool = False) -> torch.Tensor:
     """Prometheus histogram_quantile over cumulative bucket counts [..., B]
     with bounds ``les`` [B] (les[-1] = +inf), line for line the JAX
     package's ``histogram_quantile``: linear interpolation in the first
-    bucket whose count reaches ``q`` x the total; the +Inf bucket returns
-    the highest finite bound; a first bound <= 0 has no lower bound (-inf:
-    the bucket's upper bound is returned); a total that is not positive and
-    finite gives NaN; q < 0 gives -inf and q > 1 +inf."""
+    bucket whose count reaches ``q`` x the total (``even``: over the
+    bucket's count + 1 positions, histogram_max_quantile_even); the +Inf
+    bucket returns the highest finite bound; a first bound <= 0 has no
+    lower bound (-inf: the bucket's upper bound is returned); a total that
+    is not positive and finite gives NaN; q < 0 gives -inf and q > 1
+    +inf."""
     f32 = torch.float32
     B = buckets.shape[-1]
     les = les.to(device=buckets.device, dtype=f32)
@@ -223,7 +262,8 @@ def histogram_quantile_plain(q: float, buckets: torch.Tensor, les: torch.Tensor)
     first_lo = torch.where(les[0] > 0, 0.0, float("-inf"))
     le_lo = torch.where(idx > 0, les[below], first_lo)
     highest_finite = les[B - 2] if B >= 2 else les[0]
-    frac = (rank - c_lo) / torch.clamp(c_hi - c_lo, min=1e-30)
+    denom = (c_hi - c_lo) + 1.0 if even else c_hi - c_lo
+    frac = (rank - c_lo) / torch.clamp(denom, min=1e-30)
     val = le_lo + (le_hi - le_lo) * frac
     val = torch.where(idx == B - 1, highest_finite, val)
     val = torch.where(torch.isneginf(le_lo), le_hi, val)
@@ -233,6 +273,39 @@ def histogram_quantile_plain(q: float, buckets: torch.Tensor, les: torch.Tensor)
     if q > 1:
         out = torch.full_like(out, float("inf"))
     return out
+
+
+def histogram_fraction_plain(lower: float, upper: float, buckets: torch.Tensor,
+                             les: torch.Tensor) -> torch.Tensor:
+    """promql histogram_fraction(lower, upper, .) over cumulative bucket
+    counts [..., B] with bounds ``les`` [B] (les[-1] = +inf), line for line
+    the JAX package's ``histogram_fraction``: each bound's cumulative count
+    interpolated linearly in the first bucket whose bound reaches it
+    (``searchsorted``, clipped to the top bucket; below a first bound > 0
+    from 0, else from -inf with the whole bucket), the difference over the
+    total clipped to [0, 1]; NaN where the total is not positive. The
+    bounds are f32, as the JAX package casts them."""
+    f32 = torch.float32
+    B = buckets.shape[-1]
+    dev = buckets.device
+    les = les.to(device=dev, dtype=f32)
+    first_lo = torch.where(les[0] > 0, 0.0, float("-inf"))
+
+    def cum_at(x: float):
+        xv = torch.tensor(x, dtype=f32, device=dev)
+        xb = min(int((les < xv).sum()), B - 1)  # searchsorted, side left
+        c_hi = buckets[..., xb]
+        c_lo = buckets[..., xb - 1] if xb > 0 else torch.zeros_like(c_hi)
+        le_hi = les[xb]
+        le_lo = les[xb - 1] if xb > 0 else first_lo
+        width = le_hi - le_lo
+        w = torch.where(torch.isfinite(width), (xv - le_lo) / torch.clamp(width, min=1e-30), 1.0)
+        return c_lo + (c_hi - c_lo) * torch.clamp(w, 0.0, 1.0)
+
+    total = buckets[..., -1]
+    frac = (cum_at(float(np.float32(upper))) - cum_at(float(np.float32(lower)))) / torch.clamp(
+        total, min=1e-30)
+    return torch.where(total > 0, torch.clamp(frac, 0.0, 1.0), float("nan"))
 
 
 def hist_quantile_plain(q: float, acc: torch.Tensor, cnt: torch.Tensor, num_groups: int,
@@ -281,10 +354,11 @@ class HistPlan:
     shared: bool
     staged: bool
     smem_bytes: int
+    store: bool = False  # the store mode (per-series values, no partials)
 
     @property
     def partials(self) -> str:
-        return "shared" if self.shared else "global"
+        return "store" if self.store else "shared" if self.shared else "global"
 
 
 def hist_smem_bytes(G: int, B: int, steps: int, rows: int, T: int, shared_bounds: bool,
@@ -300,7 +374,7 @@ def hist_smem_bytes(G: int, B: int, steps: int, rows: int, T: int, shared_bounds
 
 @functools.lru_cache(maxsize=256)
 def hist_plan(T: int, num_steps: int, B: int, num_groups: int,
-              shared_bounds: bool) -> HistPlan:
+              shared_bounds: bool, store: bool = False) -> HistPlan:
     """The range kernel's layout for rows of ``T`` samples of ``B`` buckets,
     ``num_steps`` steps and ``num_groups`` groups.
 
@@ -317,26 +391,31 @@ def hist_plan(T: int, num_steps: int, B: int, num_groups: int,
       Slices are balanced: ``steps = ceil(J / slices)``.
     - A block has one thread per column vector of its slice (``steps * B /
       vec``), in as few passes of at most ``MAX_THREADS`` as cover them,
-      rounded up to whole warps: no warp idles through a partial pass."""
+      rounded up to whole warps: no warp idles through a partial pass.
+    - ``store`` (the store mode, ``num_groups`` 1): at most
+      ``SERIES_TILE_ROWS`` rows per tile and no partials, so slices only
+      keep the bounds table within its budget, and a block's threads cover
+      the (column vector, row) items of a tile the same way."""
     J = num_steps
     vec = 4 if B % 4 == 0 else 2 if B % 2 == 0 else 1
     row_bytes = 2 * T * 4
     staged = not shared_bounds and row_bytes <= STAGE_BUDGET
-    rows = (max(1, min(HIST_TILE_ROWS, STAGE_BUDGET // row_bytes)) if staged
-            else HIST_TILE_ROWS)
+    most = SERIES_TILE_ROWS if store else HIST_TILE_ROWS
+    rows = max(1, min(most, STAGE_BUDGET // row_bytes)) if staged else most
     cap = max(1, BOUNDS_BUDGET // (12 * (1 if shared_bounds else rows)))
     step_part = 2 * num_groups * B * 4  # one step's shared partials
     part_cap = GA.PARTIALS_BUDGET // step_part
-    shared = part_cap >= 1 and -(-J // min(part_cap, J)) <= MAX_PART_SLICES
+    shared = not store and part_cap >= 1 and -(-J // min(part_cap, J)) <= MAX_PART_SLICES
     if shared:
         cap = min(cap, part_cap)
     slices = -(-J // min(cap, J))
     steps = -(-J // slices)
-    cols = steps * (B // vec)
-    per_pass = -(-cols // -(-cols // MAX_THREADS))
+    items = steps * (B // vec) * (rows if store else 1)
+    per_pass = -(-items // -(-items // MAX_THREADS))
     threads = -(-per_pass // 32) * 32
     return HistPlan(rows, steps, slices, vec, threads, shared, staged,
-                    hist_smem_bytes(num_groups, B, steps, rows, T, shared_bounds, shared, staged))
+                    hist_smem_bytes(num_groups, B, steps, rows, T, shared_bounds, shared, staged),
+                    store)
 
 
 def hist_grid(plan: HistPlan, S: int, resident: int) -> tuple[int, int]:
@@ -420,6 +499,142 @@ def hist_range_quantile(q: float, func: str, block, gids: torch.Tensor, num_grou
     _launch_range(func, block, gids, num_groups, params, windows, is_delta, acc, cnt,
                   quantile=(q, les, out, arrivals))
     return out, acc, cnt
+
+
+def hist_series_plain(func: str, block, gids: torch.Tensor, params, windows=None,
+                      is_delta: bool = False) -> torch.Tensor:
+    """The store mode's function in plain torch: ``hist_range_plain`` at
+    the first ``params.num_steps`` steps, the rows whose ``gids`` entry is
+    not 0 NaN, as the step-major [J, B, S] grid."""
+    sjb = hist_range_plain(func, block, params, windows, is_delta)[:, : params.num_steps]
+    sjb = torch.where((gids == 0)[:, None, None], sjb, float("nan"))
+    return sjb.permute(1, 2, 0).contiguous()
+
+
+def hist_range_series(func: str, block, gids: torch.Tensor, params, windows=None,
+                      is_delta: bool = False) -> torch.Tensor:
+    """``func(m[w])`` of every series of a [S, T, B] histogram block, the
+    store mode of the range kernel: the step-major [J, B, S] grid (J =
+    ``params.num_steps``; bucket b of step j of row s at [j, b, s]), the
+    rows whose ``gids`` entry (int64 [S]) is not 0 -- padding -- NaN.
+    ``windows`` are the shared [J_pad] bounds of a regular grid, else
+    bounds are searched per series. A CUDA block makes one launch of
+    ``filodb_hist_range_series`` (and raises if the launch fails), counted
+    in ``SERIES_LAUNCHES``; a CPU block runs ``hist_series_plain``."""
+    dev, _, B = _check_block(func, block, gids, params, windows)
+    if dev.type == "cpu":
+        return hist_series_plain(func, block, gids, params, windows, is_delta)
+    S = block.vals.shape[0]
+    out = torch.empty((params.num_steps, B, S), dtype=torch.float32, device=dev)
+    _launch_series(func, block, gids, params, windows, is_delta, out)
+    return out
+
+
+def _launch_series(func: str, block, gids, params, windows, is_delta: bool,
+                   out: torch.Tensor) -> None:
+    """One launch of the store mode into ``out`` ([J, B, ld] f32, ld >= S;
+    every (step, bucket, row) below (J, B, S) is written) in ``hist_plan``'s
+    layout with ``store``. Raises if the launch fails."""
+    global SERIES_LAUNCHES, LAST_SERIES_PLAN
+    S, T, B = block.vals.shape
+    dev = block.vals.device
+    shared_bounds = windows is not None
+    plan = hist_plan(T, params.num_steps, B, 1, shared_bounds, store=True)
+    if out.dim() != 3 or out.shape[:2] != (params.num_steps, B) or out.stride(1) < S or (
+            out.stride(2) != 1 or out.stride(0) != B * out.stride(1)):
+        raise ValueError(f"out must be a [J, B, ld >= {S}] grid, got {tuple(out.shape)} "
+                         f"strides {out.stride()}")
+    if shared_bounds:
+        lo, hi, tf, tl = (w.data_ptr() for w in windows)
+        ts = lens = None
+    else:
+        lo = hi = tf = tl = None
+        ts, lens = block.ts.data_ptr(), block.lens.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _load().filodb_hist_range_series(
+            ts, block.vals.data_ptr(), lens, gids.data_ptr(), lo, hi, tf, tl,
+            S, T, B, params.num_steps, int(params.start_ms - block.base_ms),
+            int(params.step_ms), int(params.window_ms), HIST_FUNC_CODES[func], int(is_delta),
+            int(shared_bounds), plan.rows, plan.steps, plan.vec, int(plan.staged), plan.threads,
+            plan.smem_bytes, out.data_ptr(), out.stride(1), stream)
+    if err != 0:
+        raise RuntimeError(f"hist_range_series kernel launch failed: cudaError {err}")
+    SERIES_LAUNCHES += 1
+    LAST_SERIES_PLAN = plan
+
+
+def run_hist_range_function(func: str, block, params, is_delta: bool = False) -> torch.Tensor:
+    """A tree leaf's histogram range function (the JAX package's
+    ``run_hist_range_function``): [S, J, B] per-series bucket values (J =
+    ``params.num_steps``, the padded rows NaN), the permuted view of the
+    store mode's step-major [J, B, S] grid (``hist_range_series``: one
+    launch), over the shared bounds of a regular block
+    (``aggregations.hist_variant``) or bounds searched per series."""
+    from . import aggregations as AGG
+
+    windows = (AGG._hist_shared_windows(block, params, pad_steps(params.num_steps))
+               if AGG.hist_variant(block) == "hist_shared" else None)
+    grid = hist_range_series(func, block, AGG.zero_gids(block), params, windows, is_delta)
+    return grid.permute(2, 0, 1)
+
+
+def hist_instant(op: str, hists: list, les: list, q: float = 0.0, lower: float = 0.0,
+                 upper: float = 0.0) -> list:
+    """The instant histogram functions of a plan node's grids: each of
+    ``hists`` a [S_g, J, B_g] f32 grid of bucket values (any strides, one J
+    for all) with its bounds in ``les`` (f32 [B_g] on its device, the last
+    +inf) -> a [S_g, J] f32 grid each: ``quantile`` histogram_quantile(q,
+    .), ``quantile_even`` the same over count + 1 positions, ``fraction``
+    histogram_fraction(lower, upper, .). On the card the grids take one
+    launch of ``filodb_hist_instant`` (per ``MAX_GRIDS`` of them) into one
+    step-major [J, sum S_g] buffer, counted in ``INSTANT_LAUNCHES``, each
+    answer a transposed view of its columns; it raises if the launch fails.
+    On the CPU each grid runs ``histogram_quantile_plain`` /
+    ``histogram_fraction_plain``."""
+    global INSTANT_LAUNCHES
+    if op not in INSTANT_OPS:
+        raise ValueError(f"unknown instant histogram op {op!r} (known: {sorted(INSTANT_OPS)})")
+    if not hists or len(hists) != len(les):
+        raise ValueError(f"{len(hists)} grids with {len(les)} bucket bounds")
+    dev, J = hists[0].device, hists[0].shape[1] if hists[0].dim() == 3 else -1
+    for h, b in zip(hists, les):
+        if h.dim() != 3 or h.dtype != torch.float32 or h.shape[1] != J:
+            raise ValueError(f"hists must be [S, {J}, B] float32 tensors, got "
+                             f"{tuple(h.shape)} {h.dtype}")
+        if h.device != dev:
+            raise ValueError(f"hist is on {h.device}, not {dev}")
+        _check("les", b, torch.float32, (h.shape[2],), dev)
+    if dev.type == "cpu":
+        if op == "fraction":
+            return [histogram_fraction_plain(lower, upper, h, b) for h, b in zip(hists, les)]
+        return [histogram_quantile_plain(q, h, b, even=op == "quantile_even")
+                for h, b in zip(hists, les)]
+    if dev.type != "cuda":
+        raise ValueError(f"hist_instant runs on cuda or cpu tensors, not {dev}")
+    row0 = np.concatenate([[0], np.cumsum([h.shape[0] for h in hists])]).astype(np.int64)
+    out = torch.empty((J, int(row0[-1])), dtype=torch.float32, device=dev)
+    lib = _load() if out.numel() else None
+    for g0 in range(0, len(hists) if out.numel() else 0, MAX_GRIDS):
+        part = hists[g0: g0 + MAX_GRIDS]
+        n = len(part)
+        if row0[g0 + n] == row0[g0]:
+            continue  # no rows: no launch
+        ptrs = np.array([h.data_ptr() for h in part], dtype=np.uint64)
+        les_ptrs = np.array([b.data_ptr() for b in les[g0: g0 + n]], dtype=np.uint64)
+        strides = np.array([h.stride() for h in part], dtype=np.int64).reshape(-1)
+        buckets = np.array([h.shape[2] for h in part], dtype=np.int32)
+        rows = (row0[g0: g0 + n + 1] - row0[g0]).astype(np.int64)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.filodb_hist_instant(
+                ptrs.ctypes.data, strides.ctypes.data, les_ptrs.ctypes.data, buckets.ctypes.data,
+                rows.ctypes.data, n, J, INSTANT_OPS[op], float(q), float(lower), float(upper),
+                out[:, int(row0[g0]):].data_ptr(), out.stride(0), stream)
+        if err != 0:
+            raise RuntimeError(f"hist_instant kernel launch failed: cudaError {err}")
+        INSTANT_LAUNCHES += 1
+    return [out[:, int(a): int(b)].T for a, b in zip(row0[:-1], row0[1:])]
 
 
 def resident_blocks(plan: HistPlan, shared_bounds: bool, device, lib=None) -> int:

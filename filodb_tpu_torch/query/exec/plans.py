@@ -27,8 +27,12 @@ and one order-statistics launch; only ``[k, J]`` (rebuilt into the
 winners' rows by ``_present_topk``) or ``[G, J]`` comes back.
 ``histogram_quantile(q, sum by (le, ...) (...))`` over classic ``le``
 series folds the by-(le, ...) partials with one standalone-quantile launch
-per bucket scheme. A selection of several scalar schemas falls back to
-the aggregate tree (``fallback``, built lazily by the planner).
+per bucket scheme. A selection of several schemas, and a shape the fused
+kernels do not model (``_unsupported_shape``: a histogram op other than
+``sum``, a function outside ``FUSED_HIST_FUNCS``, partitions of one shard
+on different bucket schemes), falls back to the aggregate tree
+(``fallback``, built lazily by the planner), decided before any scan
+stats or staging, on a build and on a cache hit.
 
 The reference tree's aggregate part: ``AggregateMapReduce`` on each shard
 leaf reduces its grid on the device into the mergeable ``[G, J]``
@@ -40,7 +44,11 @@ non-mergeable ops over any subtree on the device: topk/bottomk by (...)
 through one ``order_stats.segment_topk`` launch (after each shard's
 ``TopkCandidateFilter``), quantile through ``order_stats.segment_quantile``,
 limitk, and the mergeable ops over a join; count_values counts on the host
-(``CountValuesMapReduce`` per shard, ``CountValuesMergeExec``).
+(``CountValuesMapReduce`` per shard, ``CountValuesMergeExec``). Over
+native histograms the map phase is ``sum`` only (``_partial_hist``: one
+segment-aggregate launch over a leaf's ``[n, J, B]`` grid seen as J * B
+steps), the ``hist`` component merged and presented on the host in f32
+with bucket schemes unified there, as in the JAX package.
 
 Superblocks are cached on the memstore (``staging.SuperblockCache``) keyed
 by their member shards' version vector, and per-shard blocks flow through
@@ -56,7 +64,7 @@ uploads nothing.
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any
 
 import numpy as np
@@ -79,13 +87,13 @@ from ...ops import segment_agg as SA
 from . import transformers as TR
 from .transformers import (  # noqa: F401 (QueryError and _DROP_NAME_KEEP are re-exported)
     _DROP_NAME_KEEP,
-    A2B,
     PeriodicSamplesMapper,
     QueryError,
     _strip_metric,
     classic_histogram_quantile,
     classic_pivot,
     grid_grouping,
+    grid_hist,
     grid_members,
     grid_values,
 )
@@ -139,6 +147,10 @@ class ExecPlan:
 def apply_transformer(tr, res: QueryResult, ctx: QueryContext) -> QueryResult:
     if isinstance(tr, PeriodicSamplesMapper):
         return QueryResult(grids=tr.apply_raw(res.raw_grids), stats=res.stats)
+    if isinstance(tr, TR.InstantVectorFunctionMapper):
+        # a host histogram grid feeds the instant kernel on the query's device
+        return QueryResult(grids=tr.apply(res.grids, ctx.device), stats=res.stats,
+                           result_type=res.result_type)
     if isinstance(tr, GRID_TRANSFORMERS):
         return QueryResult(grids=tr.apply(res.grids), stats=res.stats,
                            result_type=res.result_type)
@@ -593,8 +605,9 @@ class FusedAggregateExec(ExecPlan):
         return self._fallback
 
     def _fall(self, ctx: QueryContext, reason: str) -> QueryResult:
-        """Answer from the aggregate tree (the JAX package's reasons; the
-        port's one is ``mixed_schemas``)."""
+        """Answer from the aggregate tree (the JAX package's reasons: a
+        selection of several schemas, ``mixed_schemas``, or a shape of
+        ``_unsupported_shape``)."""
         ctx.obs["path"] = "fallback"
         ctx.obs["fallback"] = reason
         return self.fallback.execute(ctx)
@@ -605,27 +618,23 @@ class FusedAggregateExec(ExecPlan):
     def _versions(self, ctx: QueryContext) -> tuple:
         return tuple(ctx.memstore.shard(ctx.dataset, s).version for s in self.shard_nums)
 
-    def _check_shape(self, is_hist: bool) -> None:
-        """Raise for an op or function the fused kernels do not model on the
-        resolved schema, before any stats bump or staging: over histograms
-        only ``sum`` of ``FUSED_HIST_FUNCS``. ``histogram_quantile`` over a
-        scalar selection reads classic ``le`` bucket series: a grouping that
-        drops ``le`` leaves none, the QueryError the JAX package's tree
-        raises (``classic_histogram_quantile``)."""
+    def _unsupported_shape(self, is_hist: bool) -> str | None:
+        """The reason the tree must answer a shape the fused kernels do not
+        model on the resolved schema, or None (the JAX package's reasons),
+        decided before any stats bump or staging: over histograms only
+        ``sum`` of ``FUSED_HIST_FUNCS`` (``hist_op``, ``hist_func``).
+        ``histogram_quantile`` over a scalar selection reads classic ``le``
+        bucket series: a grouping that drops ``le`` leaves none
+        (``hist_quantile_scalar``), and the tree raises the JAX package's
+        QueryError (``classic_histogram_quantile``)."""
         if is_hist:
             if self.op != "sum" or self.params:
-                raise NotImplementedError(
-                    f"aggregation {self.op!r} over native histograms is not ported "
-                    "(the histogram rung sums buckets)")
+                return "hist_op"
             if (self.function or "last") not in FUSED_HIST_FUNCS:
-                raise NotImplementedError(
-                    f"histogram range function {self.function!r} is not ported "
-                    f"(ported: {sorted(FUSED_HIST_FUNCS)})")
+                return "hist_func"
         elif self.hist_quantile is not None and not self._keeps_le():
-            raise QueryError(
-                "histogram_quantile needs native-histogram input or "
-                "le-labeled classic bucket series"
-            )
+            return "hist_quantile_scalar"
+        return None
 
     def _keeps_le(self) -> bool:
         """Whether the grouping keeps an ``le`` label on its groups."""
@@ -633,10 +642,14 @@ class FusedAggregateExec(ExecPlan):
             return "le" in self.by
         return bool(self.without) and "le" not in self.without
 
-    def _serve_hit(self, ctx: QueryContext, hit: SuperblockEntry) -> SuperblockEntry:
+    def _serve_hit(self, ctx: QueryContext, hit: SuperblockEntry) -> SuperblockEntry | str:
         """Limits and stats for a cached superblock: limits are per request,
-        so a hit never serves a query the build would have rejected."""
-        self._check_shape(hit.is_hist)
+        so a hit never serves a query the build would have rejected. A
+        shape the fused kernels do not model on the block's schema returns
+        its fallback reason instead, as the build does."""
+        reason = self._unsupported_shape(hit.is_hist)
+        if reason is not None:
+            return reason
         if hit.max_shard_series > ctx.max_series:
             raise QueryError(
                 f"query selects {hit.max_shard_series} series > limit {ctx.max_series}")
@@ -848,7 +861,15 @@ class FusedAggregateExec(ExecPlan):
                 col = schema.column(col_name)
             hist_col = col.ctype == ColumnType.HISTOGRAM
             # decided before staging: a le= slice lands scalar
-            self._check_shape(hist_col and bucket_le is None)
+            reason = self._unsupported_shape(hist_col and bucket_le is None)
+            if reason is not None:
+                return reason
+            les = parts[0].bucket_les if hist_col else None
+            if hist_col and not _uniform_scheme(parts, les):
+                # partitions of one shard on different bucket schemes: one
+                # [S, T, B] block has one le vector (the JAX package's
+                # "hist_scheme", decided here before the shard is staged)
+                return "hist_scheme"
             is_counter, is_delta = col.is_counter, col.is_delta
             # histogram columns always stage raw cumulative bucket counts
             mode = stage_mode if is_counter and not is_delta and not hist_col else "raw"
@@ -857,10 +878,6 @@ class FusedAggregateExec(ExecPlan):
             block = staged_block_for(ctx, shard, pids, cache_key, col_name,
                                      self.raw_start_ms, self.raw_end_ms, mode)
             part_labels = [dict(p.tags) for p in parts]
-            les = parts[0].bucket_les if hist_col else None
-            if hist_col and not _uniform_scheme(parts, les):
-                raise NotImplementedError(
-                    "histogram partitions of one shard on different bucket schemes are not ported")
             if hist_col and bucket_le is not None:
                 # m_bucket{le=...}: one bucket as a scalar counter block
                 sliced = _slice_bucket(block, les, bucket_le)
@@ -961,7 +978,7 @@ class FusedAggregateExec(ExecPlan):
             func, self.op, got.block, gids, G, params,
             is_counter=got.is_counter, is_delta=got.is_delta, obs=ctx.obs)
         if self.hist_quantile is not None:
-            # classic buckets (le kept by the grouping, _check_shape): the
+            # classic buckets (le kept by the grouping, _unsupported_shape): the
             # [G', J] by-(le, ...) partials pivot into per-group cumulative
             # counts (the index tables memoized with the group ids), one
             # standalone-quantile launch per bucket scheme
@@ -1005,11 +1022,11 @@ _PARTIAL_COMPONENTS = {
 }
 
 
-def _common_device(grids):
-    """The device of the grids' tensors: the card where any is on it."""
-    for g in grids:
-        if isinstance(g.values, torch.Tensor) and g.values.device.type != "cpu":
-            return g.values.device
+def _common_device(arrays):
+    """The device of the arrays' tensors: the card where any is on it."""
+    for a in arrays:
+        if isinstance(a, torch.Tensor) and a.device.type != "cpu":
+            return a.device
     return torch.device("cpu")
 
 
@@ -1017,7 +1034,7 @@ def stack_step_major(grids) -> torch.Tensor:
     """The grids' rows side by side as one contiguous step-major [J, N] f32
     tensor on their common device (J the widest grid's steps; a narrower
     grid NaN past its steps)."""
-    dev = _common_device(grids)
+    dev = _common_device([g.values for g in grids])
     mats = [grid_values(g).to(dev) for g in grids]
     J = max(m.shape[1] for m in mats)
     if all(m.shape[1] == J for m in mats):
@@ -1031,18 +1048,15 @@ def stack_step_major(grids) -> torch.Tensor:
     return out
 
 
-def _check_scalar(grids, what: str) -> None:
-    if any(g.hist is not None for g in grids):
-        raise NotImplementedError(f"{what} over native histograms (the hist component): {A2B}")
-
-
 def _partial_aggregate(op: str, grids: list, by, without):
     """Leaf-side map phase: the grids' rows reduced by label group on their
     device into the op's components (one segment-aggregate launch). Returns
-    (group_labels, components name -> [G, J] f32 numpy, grid meta)."""
+    (group_labels, components name -> [G, J] f32 numpy, grid meta); over
+    native histograms ``_partial_hist``'s."""
     if not grids:
         return [], {}, None
-    _check_scalar(grids, f"aggregation {op}")
+    if any(g.hist is not None for g in grids):
+        return _partial_hist(op, grids, by, without)
     meta = grids[0]
     if len(grids) == 1:
         # a single grid stays where it is (a leaf's step-major store grid is
@@ -1062,13 +1076,76 @@ def _partial_aggregate(op: str, grids: list, by, without):
     return group_labels, dict(zip(need, host)), meta
 
 
+def _partial_hist(op: str, grids: list, by, without):
+    """The map phase over native histogram grids (reference
+    HistSumRowAggregator): only ``sum``, the JAX package's errors
+    otherwise and for a scalar grid among them. Grids on different bucket
+    schemes are unified on the host (``unify_schemes``, the grid meta then
+    carrying the union bounds); the per-bucket group sum is one
+    segment-aggregate launch over the [n, J, B] grid seen as J * B steps
+    (a leaf's store-mode grid read in place). The ``sum`` component of
+    the NaN placeholder values is NaN, as the JAX package computes it, and
+    takes no launch. Returns (group_labels, {"sum": [G, J], "hist": [G, J,
+    B]} f32 numpy, grid meta)."""
+    if any(g.hist is None for g in grids):
+        raise QueryError("cannot aggregate histogram and scalar series together")
+    if op != "sum":
+        raise QueryError(f"aggregation {op} not supported over native histograms (use sum)")
+    meta = grids[0]
+    if len(grids) == 1:
+        h = grid_hist(meta)
+        gids, G, group_labels = grid_grouping(meta, by, without, h.device)
+    else:
+        dev = _common_device([g.hist for g in grids])
+        hists = [grid_hist(g, dev) for g in grids]
+        les_list = [g.les for g in grids if g.les is not None]
+        if len(les_list) == len(grids) and not all(same_scheme(l, les_list[0])
+                                                   for l in les_list[1:]):
+            unified, union, changed = unify_schemes([h.cpu().numpy() for h in hists], les_list)
+            if changed:
+                hists = [torch.from_numpy(u).to(dev) for u in unified]
+                meta = replace(meta, les=union)
+        h = torch.cat(hists)
+        labels = [l for g in grids for l in g.labels]
+        gids_np, group_labels = AGG.group_ids_for(labels, list(by) if by else None,
+                                                  list(without) if without else None)
+        G = len(group_labels)
+        gids = torch.from_numpy(gids_np.astype(np.int64)).to(dev)
+    n, J, B = h.shape
+    sums = SA.segment_components(h.reshape(n, J * B), gids, G, ("sum",))["sum"]
+    J_vals = max(g.num_steps for g in grids)
+    comps = {"sum": np.full((G, J_vals), np.nan, np.float32),
+             "hist": sums.reshape(G, J, B).cpu().numpy()}
+    return group_labels, comps, meta
+
+
+def _unify_hist_partials(partials):
+    """Pre-pass of ``_merge_partials``: partials whose ``hist`` components
+    lie on different bucket schemes are remapped onto the union bounds
+    (``unify_schemes``, on the host), so that the merge adds aligned
+    buckets; their metas carry the union."""
+    hist_idx = [i for i, (_, comps, m) in enumerate(partials)
+                if "hist" in comps and m is not None and m.les is not None]
+    if len(hist_idx) <= 1:
+        return partials
+    unified, union, changed = unify_schemes([partials[i][1]["hist"] for i in hist_idx],
+                                            [partials[i][2].les for i in hist_idx])
+    if not changed:
+        return partials
+    out = list(partials)
+    for i, h in zip(hist_idx, unified):
+        gl, comps, m = partials[i]
+        out[i] = (gl, dict(comps, hist=h), replace(m, les=union))
+    return out
+
+
 def _merge_partials(op: str, partials):
-    """Reduce phase: merge shard partials by group label key (host f32)."""
+    """Reduce phase: merge shard partials by group label key (host f32;
+    ``hist`` components as sums, after ``_unify_hist_partials``)."""
     key_to: dict[tuple, dict] = {}
     meta = None
+    partials = _unify_hist_partials(partials)
     for group_labels, comps, m in partials:
-        if "hist" in comps:
-            raise NotImplementedError(f"merging the hist component: {A2B}")
         if m is not None:
             meta = m
         for gi, lbls in enumerate(group_labels):
@@ -1079,7 +1156,7 @@ def _merge_partials(op: str, partials):
                 row = arr[gi]
                 if cur is None:
                     slot["comps"][name] = row.copy()
-                elif name in ("sum", "count", "sumsq"):
+                elif name in ("sum", "count", "sumsq", "hist"):
                     slot["comps"][name] = np.where(
                         np.isnan(cur), row, np.where(np.isnan(row), cur, cur + row))
                 elif name == "min":
@@ -1092,13 +1169,17 @@ def _merge_partials(op: str, partials):
 def _present(op: str, key_to, meta) -> QueryResult:
     """The op's [G, J] from the merged components (host f32, as the JAX
     package computes it: stddev is sqrt(sumsq/count - mean^2), clamped at
-    0)."""
+    0); a group with a ``hist`` component keeps its [J, B] buckets beside
+    NaN values, on the meta's bounds."""
     if meta is None:
         return QueryResult()
-    labels, rows = [], []
+    labels, rows, hist_rows = [], [], []
     for slot in key_to.values():
         c = slot["comps"]
-        if op in ("sum", "count", "min", "max", "group"):
+        if "hist" in c:
+            hist_rows.append(c["hist"])
+            v = np.full(c["hist"].shape[0], np.nan, np.float32)
+        elif op in ("sum", "count", "min", "max", "group"):
             v = c[op]
         elif op == "avg":
             v = c["sum"] / c["count"]
@@ -1109,7 +1190,9 @@ def _present(op: str, key_to, meta) -> QueryResult:
         labels.append(slot["labels"])
         rows.append(v)
     vals = np.stack(rows) if rows else np.zeros((0, meta.num_steps), np.float32)
-    return QueryResult(grids=[Grid(labels, meta.start_ms, meta.step_ms, meta.num_steps, vals)])
+    hist = np.stack(hist_rows) if hist_rows else None
+    return QueryResult(grids=[Grid(labels, meta.start_ms, meta.step_ms, meta.num_steps, vals,
+                                   hist=hist, les=meta.les if hist is not None else None)])
 
 
 @dataclass
@@ -1125,31 +1208,43 @@ class AggregateMapReduce:
         return partials_to_grids(*_partial_aggregate(self.op, grids, self.by, self.without))
 
 
+# component names whose [G, J, B] payload rides the grid's ``hist`` field
+_CUBE_COMPS = ("hist",)
+
+
 def partials_to_grids(group_labels, comps, meta) -> list:
-    """Per-group partial components as ``__comp__``-labelled host grids."""
+    """Per-group partial components as ``__comp__``-labelled host grids
+    (a ``hist`` component in the grid's buckets, NaN values beside it)."""
     if meta is None:
         return []
-    return [Grid([dict(l, __comp__=name) for l in group_labels], meta.start_ms, meta.step_ms,
-                 meta.num_steps, arr) for name, arr in comps.items()]
+    out = []
+    for name, arr in comps.items():
+        cube = name in _CUBE_COMPS
+        out.append(Grid([dict(l, __comp__=name) for l in group_labels], meta.start_ms,
+                        meta.step_ms, meta.num_steps,
+                        np.full(arr.shape[:2], np.nan, np.float32) if cube else arr,
+                        hist=arr if cube else None, les=meta.les if cube else None))
+    return out
 
 
 def collect_partials(result: QueryResult, default_op: str):
     """A child's ``__comp__`` grids back into (group_labels, comps, meta);
-    rows without the label are final values of ``default_op``."""
+    rows without the label are final values of ``default_op``. The meta is
+    a grid with bucket bounds where there is one."""
     meta = None
     comp_rows: dict[str, dict[tuple, np.ndarray]] = {}
     labels_by_key: dict[tuple, dict] = {}
     for g in result.grids:
-        _check_scalar([g], "a partial aggregate")
-        if meta is None:
+        if g.les is not None or meta is None:
             meta = g
         v = g.values_np()
+        h = g.hist_np()
         for i, l in enumerate(g.labels):
             comp = l.get("__comp__", default_op)
             base = {k: x for k, x in l.items() if k != "__comp__"}
             key = tuple(sorted(base.items()))
             labels_by_key[key] = base
-            comp_rows.setdefault(comp, {})[key] = v[i]
+            comp_rows.setdefault(comp, {})[key] = h[i] if comp in _CUBE_COMPS else v[i]
     if meta is None:
         return None
     keys = list(labels_by_key)
@@ -1237,8 +1332,7 @@ class AggregatePresentExec(NonLeafExecPlan):
         if not grids:
             return QueryResult()
         op = self.op
-        _check_scalar(grids, f"aggregation {op}")
-        if op in _PARTIAL_COMPONENTS:
+        if op in _PARTIAL_COMPONENTS:  # histogram buckets pass through (_partial_hist)
             return _present(op, *_merge_partials(op, [_partial_aggregate(op, grids, self.by,
                                                                          self.without)]))
         meta = grids[0]

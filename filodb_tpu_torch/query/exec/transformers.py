@@ -7,7 +7,11 @@ the operator stages folded onto a leaf exec's output.
 (``RawGrid``) into the ``[S, J]`` grid of one range function through the
 range-function ladder (``ops.kernels.run_range_function``: one launch per
 leaf), with ``offset``, ``@`` (one evaluation step broadcast across the
-grid), the metric strip and ``absent_over_time``'s host reduction.
+grid), the metric strip and ``absent_over_time``'s host reduction. A
+native-histogram leaf takes one launch of the histogram range kernel's
+store mode (``hist_kernels.run_hist_range_function``): its ``[S, J, B]``
+buckets beside NaN placeholder values, as in the JAX package (whose
+``@`` broadcast drops the buckets; the port answers the same).
 ``classic_histogram_quantile`` is ``histogram_quantile`` over classic
 ``le``-labelled bucket rows: the pivot of the rows into per-group
 cumulative counts on the host (an index table per bucket scheme), then one
@@ -22,8 +26,12 @@ the map phases of the non-mergeable aggregates pushed onto shard leaves
 ``order_stats.segment_topk`` launch, and ``CountValuesMapReduce``, on the
 host). Values stay on the device they were computed on (a tensor; a host
 grid as a CPU tensor); ``timestamp()`` and the time components are f64 on
-the host, as in the JAX package. The native-histogram functions raise
-``NotImplementedError`` (ROADMAP A2b).
+the host, as in the JAX package. Over native histogram grids the
+quantiles and histogram_fraction take one launch of the instant kernel
+(``hist_kernels.hist_instant``) for a node's grids, histogram_bucket and
+hist_to_prom_vectors slice and gather where the grid lies, sort orders
+the buckets with their rows and the candidate filter passes them
+through.
 """
 
 from __future__ import annotations
@@ -88,23 +96,34 @@ class PeriodicSamplesMapper:
         for rg in raws:
             func = self.function or "last"
             params = self.range_params()
+            hist = None
             if rg.is_histogram:
-                raise NotImplementedError(
-                    "range functions over native histograms on the reference tree "
-                    "(run_hist_range_function, [S, J, B] grids) are not ported: ROADMAP A2b")
-            vals = K.run_range_function(func, rg.block, params, is_counter=rg.is_counter,
-                                        is_delta=rg.is_delta, args=self.args)
-            if self.at_ms is not None:
-                # @ fixes the evaluation time: the one step broadcast across the grid
-                vals = _broadcast_first_step(vals, max(nsteps, 1))
+                if func not in HK.FUSED_HIST_FUNCS:
+                    raise QueryError(
+                        f"function {self.function} is not supported on native histograms")
+                hist = HK.run_hist_range_function(func, rg.block, params, is_delta=rg.is_delta)
+                # the scalar rows beside the buckets are a NaN placeholder, as in JAX
+                vals = torch.full((hist.shape[0], max(nsteps, 1) if self.at_ms is not None
+                                   else hist.shape[1]), float("nan"), dtype=torch.float32,
+                                  device=hist.device)
+                if self.at_ms is not None:
+                    # the JAX package's @ broadcast replaces the grid's values and
+                    # drops its buckets (Grid.with_values): the port answers the same
+                    hist = None
+            else:
+                vals = K.run_range_function(func, rg.block, params, is_counter=rg.is_counter,
+                                            is_delta=rg.is_delta, args=self.args)
+                if self.at_ms is not None:
+                    # @ fixes the evaluation time: the one step broadcast across the grid
+                    vals = _broadcast_first_step(vals, max(nsteps, 1))
             labels = rg.labels
             if self.function and self.function not in _DROP_NAME_KEEP:
                 # memoized on the block, as its labels are (a warm leaf strips nothing)
                 labels = memo_on(rg.block, "stripped_labels_memo", id(rg.labels),
                                  lambda: [_strip_metric(l) for l in rg.labels])
             # the source lets the map phases memoize groupings on the block
-            g = Grid(list(labels), self.start_ms, self.step_ms, nsteps, vals,
-                     source=(rg.block, id(labels)))
+            g = Grid(list(labels), self.start_ms, self.step_ms, nsteps, vals, hist=hist,
+                     les=rg.les if hist is not None else None, source=(rg.block, id(labels)))
             if self.function == "absent_over_time":
                 g = self._absent_reduce(g)
             out.append(g)
@@ -196,8 +215,6 @@ def classic_histogram_quantile(q: float, labels, values, num_steps: int, pivot=N
 
 # -- the reference tree's second part -------------------------------------------
 
-A2B = "the reference tree over native histograms is ROADMAP A2b, not ported"
-
 
 def grid_values(g: Grid) -> torch.Tensor:
     """A grid's real rows and steps as a [n, J] f32 tensor on the device
@@ -208,6 +225,17 @@ def grid_values(g: Grid) -> torch.Tensor:
     elif v.dtype != torch.float32:
         v = v.float()
     return v[: g.n_series, : g.num_steps]
+
+
+def grid_hist(g: Grid, device=None) -> torch.Tensor:
+    """A histogram grid's real rows and steps as a [n, J, B] f32 tensor:
+    the tensor it holds (a leaf's store-mode view on the card), or its host
+    array (the host merge phase's answer) uploaded to ``device`` (the CPU
+    without one)."""
+    h = g.hist
+    if not isinstance(h, torch.Tensor):
+        h = torch.as_tensor(np.asarray(h, dtype=np.float32)).to(device or "cpu")
+    return h[: g.n_series, : g.num_steps]
 
 
 def grid_grouping(g: Grid, by, without, device):
@@ -258,9 +286,11 @@ _TIME_COMPONENT = {
     "days_in_month": lambda d: calendar.monthrange(d.year, d.month)[1],
 }
 
-# instant functions over native histograms (ROADMAP A2b)
-_HIST_FUNCS = frozenset({"histogram_fraction", "histogram_bucket", "histogram_max_quantile",
-                         "histogram_max_quantile_even", "hist_to_prom_vectors"})
+# the functions of native histogram grids the instant kernel computes: its op
+# for each
+_HIST_INSTANT_OPS = {"histogram_quantile": "quantile", "histogram_max_quantile": "quantile",
+                     "histogram_max_quantile_even": "quantile_even",
+                     "histogram_fraction": "fraction"}
 
 
 def time_components(f: str, times_ms) -> np.ndarray:
@@ -275,19 +305,49 @@ class InstantVectorFunctionMapper:
     + InstantFunction.scala): elementwise math and clamp/round/or_vector on
     the values' device, ``timestamp()`` and the time components f64 on the
     host, ``histogram_quantile`` over classic ``le`` rows through the
-    standalone quantile."""
+    standalone quantile. Over native histogram grids: the quantiles and
+    ``histogram_fraction`` take one launch of the instant kernel for all
+    of the node's grids (``hist_kernels.hist_instant``; a host grid, the
+    merge phase's answer, is uploaded to ``device`` first),
+    ``histogram_bucket`` a slice of one bucket, ``hist_to_prom_vectors``
+    the buckets as ``le`` rows gathered where they lie; any other function
+    reads the grid's NaN placeholder values, as in JAX."""
 
     function: str
     args: tuple = ()
 
-    def apply(self, grids: list[Grid]) -> list[Grid]:
-        return [self._one(g) for g in grids]
+    def apply(self, grids: list[Grid], device=None) -> list[Grid]:
+        f = self.function
+        # grids without buckets first, grid by grid (a classic quantile, or
+        # the JAX package's error), then the native ones in one launch
+        out = [self._one(g) if g.hist is None or f not in _HIST_INSTANT_OPS else None
+               for g in grids]
+        native = [i for i, g in enumerate(grids) if g.hist is not None
+                  and f in _HIST_INSTANT_OPS]
+        if native:
+            hists = [grid_hist(grids[i], device) for i in native]
+            les = [_les_on(grids[i], h.device) for i, h in zip(native, hists)]
+            kw = ({"lower": float(np.float32(self.args[0])),
+                   "upper": float(np.float32(self.args[1]))} if f == "histogram_fraction"
+                  else {"q": float(np.float32(self.args[0]))})
+            for i, vals in zip(native, HK.hist_instant(_HIST_INSTANT_OPS[f], hists, les, **kw)):
+                g = grids[i]
+                out[i] = Grid([_strip_metric(l) for l in g.labels], g.start_ms, g.step_ms,
+                              g.num_steps, vals)
+        return out
 
     def _one(self, g: Grid) -> Grid:
         f = self.function
-        if g.hist is not None or f in _HIST_FUNCS:
-            raise NotImplementedError(f"{f} over native histograms: {A2B}")
         labels = [_strip_metric(l) for l in g.labels]
+        if f in ("histogram_max_quantile", "histogram_max_quantile_even"):
+            # a grid without buckets: the JAX package's own error
+            raise ValueError("None is not a valid value for jnp.array")
+        if f == "histogram_fraction":
+            raise QueryError("histogram_fraction needs native-histogram input")
+        if f == "histogram_bucket":
+            return _histogram_bucket(g, float(self.args[0]), labels)
+        if f == "hist_to_prom_vectors":
+            return _hist_to_prom(g)
         if f == "histogram_quantile":
             out_labels, vals = classic_histogram_quantile(float(np.float32(self.args[0])),
                                                           g.labels, grid_values(g), g.num_steps)
@@ -315,6 +375,50 @@ class InstantVectorFunctionMapper:
         else:
             raise QueryError(f"unknown instant function {f}")
         return Grid(labels, g.start_ms, g.step_ms, g.num_steps, v)
+
+
+def _les_on(g: Grid, device) -> torch.Tensor:
+    """A histogram grid's bucket bounds as f32 [B] on ``device``."""
+    return torch.as_tensor(np.asarray(g.les, dtype=np.float32)).to(device)
+
+
+def _histogram_bucket(g: Grid, le: float, labels) -> Grid:
+    """histogram_bucket(le, h): one bucket's values where the grid lies
+    (reference HistogramBucketImpl: a bound within 1e-10, +Inf the top
+    bucket, NaN rows where none matches), labels stripped with ``le`` set."""
+    if g.hist is None:
+        raise QueryError("histogram_bucket needs native-histogram input")
+    les = np.asarray(g.les, dtype=np.float64)
+    if np.isinf(le):
+        idx = len(les) - 1
+    else:
+        matches = np.nonzero(np.abs(les - le) < 1e-10)[0]
+        idx = int(matches[0]) if len(matches) else -1
+    if idx < 0:
+        vals = np.full((g.n_series, g.num_steps), np.nan, np.float32)
+    else:
+        vals = g.hist[: g.n_series, : g.num_steps, idx]
+    le_str = "+Inf" if idx >= 0 and np.isinf(les[idx]) else f"{le:g}"
+    return Grid([dict(l, le=le_str) for l in labels], g.start_ms, g.step_ms, g.num_steps, vals)
+
+
+def _hist_to_prom(g: Grid) -> Grid:
+    """A native histogram grid exploded into classic bucket rows (reference
+    HistToPromSeriesMapper): each series' buckets in order, labelled with
+    their ``le`` on the host, the rows gathered where the grid lies; a grid
+    without buckets passes through."""
+    if g.hist is None:
+        return g
+    h = g.hist[: g.n_series, : g.num_steps]
+    if not isinstance(h, torch.Tensor):
+        h = torch.as_tensor(np.asarray(h, dtype=np.float32))
+    S, J, B = h.shape
+    labels = []
+    for l in g.labels:
+        for b in range(B):
+            le = g.les[b]
+            labels.append(dict(l, le="+Inf" if np.isinf(le) else f"{le:g}"))
+    return Grid(labels, g.start_ms, g.step_ms, g.num_steps, h.permute(0, 2, 1).reshape(S * B, J))
 
 
 def _scalar(x, like: torch.Tensor) -> torch.Tensor:
@@ -433,14 +537,17 @@ class SortFunctionMapper:
     def apply(self, grids: list[Grid]) -> list[Grid]:
         out = []
         for g in grids:
-            if g.hist is not None:
-                raise NotImplementedError(f"sort over native histograms: {A2B}")
             v = g.values_np()
             key = np.where(np.isnan(v[:, -1]), -np.inf if not self.descending else np.inf,
                            v[:, -1])
             order = np.argsort(-key if self.descending else key, kind="stable")
+            hist = None
+            if g.hist is not None:  # the buckets follow their rows, where they lie
+                hist = g.hist[: g.n_series, : g.num_steps]
+                hist = hist[torch.as_tensor(order, device=hist.device)] if isinstance(
+                    hist, torch.Tensor) else np.asarray(hist)[order]
             out.append(Grid([g.labels[i] for i in order], g.start_ms, g.step_ms, g.num_steps,
-                            v[order]))
+                            v[order], hist, g.les))
         return out
 
 
@@ -505,10 +612,8 @@ class TopkCandidateFilter:
     def apply(self, grids: list[Grid]) -> list[Grid]:
         out = []
         for g in grids:
-            if g.hist is not None:
-                raise NotImplementedError(f"topk over native histograms: {A2B}")
-            if g.n_series <= self.k:
-                out.append(g)
+            if g.hist is not None or g.n_series <= self.k:
+                out.append(g)  # a histogram grid passes through, as in JAX
                 continue
             v = grid_values(g)
             members, G, _, gids = grid_members(g, self.by, self.without, v.device)

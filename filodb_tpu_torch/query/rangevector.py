@@ -48,12 +48,15 @@ class Grid:
         return v[: self.n_series, : self.num_steps]
 
     def hist_np(self) -> np.ndarray | None:
-        """[S, num_steps, B] numpy array of a histogram result, else None."""
+        """[S, num_steps, B] numpy array of a histogram result, else None. A
+        tensor's real rows and steps are made contiguous where they lie
+        (on the card for a leaf's step-major view) and fetched in one
+        copy."""
         if self.hist is None:
             return None
-        h = self.hist
-        h = h.detach().cpu().numpy() if isinstance(h, torch.Tensor) else np.asarray(h)
-        return h[: self.n_series, : self.num_steps]
+        h = self.hist[: self.n_series, : self.num_steps]
+        return h.detach().contiguous().cpu().numpy() if isinstance(h, torch.Tensor) else (
+            np.asarray(h))
 
 
 @dataclass

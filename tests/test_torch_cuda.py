@@ -1050,6 +1050,252 @@ def test_hist_quantile_query_launches_both_kernels_once_on_card(card):
         np.testing.assert_allclose(outs[1], outs[0], rtol=1e-3)
 
 
+# ---- the reference tree over native histograms: K1's store mode, K2 ----
+
+def hist_store_pair(b, func, is_delta, params=HIST_PARAMS):
+    """One store-mode launch (K1) and its plain grid, both [J, B, S]."""
+    from filodb_tpu_torch.ops import hist_kernels as HK
+
+    gids = AGG.zero_gids(b)
+    windows = hist_windows(b, params)
+    before = HK.SERIES_LAUNCHES
+    got = HK.hist_range_series(func, b, gids, params, windows, is_delta)
+    assert HK.SERIES_LAUNCHES == before + 1
+    want = HK.hist_series_plain(func, b, gids, params, windows, is_delta)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("is_delta", [False, True], ids=["cumulative", "delta"])
+@pytest.mark.parametrize("func", HIST_FUNCS)
+@pytest.mark.parametrize("grid", ["regular", "irregular"])
+def test_hist_store_matches_plain_on_card(card, grid, func, is_delta):
+    """K1, the range kernel's store mode: every (step, bucket, row) equals
+    the plain version bit for bit (NaN bucket counts inside their windows,
+    padded rows NaN)."""
+    from filodb_tpu_torch.ops import hist_kernels as HK
+
+    b = hist_block(grid, card)
+    got, want = hist_store_pair(b, func, is_delta)
+    assert got.shape == (HIST_PARAMS.num_steps, len(HIST_LES), b.vals.shape[0])
+    assert HK.LAST_SERIES_PLAN.store and not HK.LAST_SERIES_PLAN.shared
+    assert torch.isnan(got[:, :, b.n_series:]).all()
+    assert_store(got, want, f"{grid} {func}", exact=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 12, 40])
+@pytest.mark.parametrize("grid", ["regular", "irregular"])
+def test_hist_store_bucket_widths_on_card(card, grid, B):
+    """Every vector width (B = 1, 3: one bucket at a time; 12, 40: four)."""
+    b = shared_hist_block(grid, card, 700, 200, 3, B)
+    got, want = hist_store_pair(b, "rate", False)
+    assert_store(got, want, f"{grid} B={B}", exact=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["shared", "staged", "in_place"])
+def test_hist_store_writes_only_its_grid_on_card(card, route):
+    """13 rows (a partial last tile for every rows-per-tile choice) into a
+    grid of 20 columns filled with a sentinel: the launch writes exactly
+    the [J, B, :13] part -- the sentinel in columns 13.. survives -- and
+    that part equals the plain grid. (The store's own row bound: nvcc 12.8
+    once compiled a store variant's partial last tile to run all its
+    rows.)"""
+    from filodb_tpu_torch.ops import hist_kernels as HK
+    from filodb_tpu_torch.ops.staging import stage_histogram_series
+
+    S, n, B = 13, 300, 12
+    rng = np.random.default_rng(23)
+    series = []
+    for _ in range(S):
+        ts = (BASE + 5_000 + np.arange(n, dtype=np.int64) * 10_000 if route == "shared"
+              else BASE + np.cumsum(rng.integers(5_000, 15_001, n)).astype(np.int64))
+        incr = rng.poisson(2.0, size=(n, B)).astype(np.float64)
+        series.append((ts, np.cumsum(np.cumsum(incr, axis=1), axis=0)))
+    b = stage_histogram_series(series, BASE, B, [(0, i) for i in range(S)])
+    T = 8192 if route == "in_place" else b.ts.shape[1]  # in place: past the staging budget
+    ts = np.full((S, T), TS_PAD, np.int32)
+    ts[:, : b.ts.shape[1]] = b.ts[:S]
+    vals = np.zeros((S, T, B), np.float32)
+    vals[:, : b.ts.shape[1]] = b.vals[:S]
+    # no padded rows: the last tile of every rows-per-tile choice is partial
+    b = dataclasses.replace(b, ts=ts, vals=vals, lens=b.lens[:S], baseline=b.baseline[:S])
+    b = b.to_device(card)
+    params = RangeParams(BASE + 400_000, 60_000, 37, 300_000)
+    S_pad = b.vals.shape[0]
+    out = torch.full((37, B, S_pad + 7), 12345.0, device=card)
+    windows = hist_windows(b, params)
+    assert (windows is not None) == (route == "shared")
+    HK._launch_series("rate", b, AGG.zero_gids(b), params, windows, False, out)
+    plan = HK.LAST_SERIES_PLAN
+    assert plan.staged == (route == "staged") and S_pad % plan.rows
+    torch.cuda.synchronize()
+    assert bool((out[:, :, S_pad:] == 12345.0).all()), route
+    want = HK.hist_series_plain("rate", b, AGG.zero_gids(b), params, windows)
+    assert_store(out[:, :, :S_pad], want, route, exact=True)
+
+
+def instant_edge_grid(card, first_le: float):
+    """[rows, J, B] cumulative counts on the card with the edge rows: all
+    NaN, a zero total, a NaN inside, counts only in the +Inf bucket, ties
+    across buckets; and bounds with ``first_le`` first."""
+    rng = np.random.default_rng(31)
+    les = np.array([first_le, 0.1, 0.25, 0.5, 1.0, 2.5, np.inf], np.float32)
+    h = np.cumsum(rng.poisson(1.5, size=(300, 9, len(les))).astype(np.float32), axis=-1)
+    h[0] = np.nan
+    h[1] = 0.0
+    h[2, :, 3] = np.nan
+    h[3, :, :-1] = 0.0
+    h[4, :, 1:4] = h[4, :, 1:2]
+    return torch.from_numpy(h).to(card), torch.from_numpy(les).to(card)
+
+
+def assert_within_ulps(got, want, ulps: int, what: str):
+    """NaN and infinity masks equal, finite values within ``ulps`` f32 ulps."""
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(w), err_msg=what)
+    np.testing.assert_array_equal(np.isinf(g), np.isinf(w), err_msg=what)
+    np.testing.assert_array_equal(g[np.isinf(w)], w[np.isinf(w)], err_msg=what)
+    m = np.isfinite(w)
+    gap = np.abs(g[m].view(np.int32).astype(np.int64) - w[m].view(np.int32).astype(np.int64))
+    assert (gap <= ulps).all() or np.allclose(g[m], w[m], rtol=0, atol=1e-30), (what, gap.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["row_major", "store"])
+@pytest.mark.parametrize("first_le", [0.005, 0.0, -1.0])
+@pytest.mark.parametrize("op, arg", [("quantile", q) for q in (-0.1, 0.0, 0.5, 0.99, 1.0, 1.1)]
+                         + [("quantile_even", q) for q in (0.25, 0.9)]
+                         + [("fraction", b) for b in ((0.0, 0.25), (-np.inf, np.inf),
+                                                      (-np.inf, 0.1), (0.001, 0.002),
+                                                      (0.25, 0.5), (1.0, np.inf))])
+def test_hist_instant_matches_plain_on_card(card, op, arg, first_le, layout):
+    """K2 against its plain versions on edge rows, over a row-major grid and
+    the store's permuted view: within 2 ulp (the interpolations round as
+    the plain version's separate f32 operations do), NaN and infinity masks
+    equal; one launch each."""
+    from filodb_tpu_torch.ops import hist_kernels as HK
+
+    h, les = instant_edge_grid(card, first_le)
+    if layout == "store":
+        h = h.permute(1, 2, 0).contiguous().permute(2, 0, 1)
+    # a second grid of other bounds (and fewer buckets) in the same launch
+    h2, les2 = h[:77, :, :5].contiguous(), les[:5].clone()
+    les2[-1] = float("inf")
+    kw = {"lower": arg[0], "upper": arg[1]} if op == "fraction" else {"q": arg}
+    before = HK.INSTANT_LAUNCHES
+    got, got2 = HK.hist_instant(op, [h, h2], [les, les2], **kw)
+    assert HK.INSTANT_LAUNCHES == before + 1 and got.shape == h.shape[:2]
+    assert got.stride() == (1, h.shape[0] + 77)  # a view of the step-major [J, sum S] buffer
+    for g, grid, b in ((got, h, les), (got2, h2, les2)):
+        want = (HK.histogram_fraction_plain(arg[0], arg[1], grid, b) if op == "fraction"
+                else HK.histogram_quantile_plain(arg, grid, b, even=op == "quantile_even"))
+        assert_within_ulps(g, want, 2, f"{op} {arg} les[0]={first_le} B={grid.shape[2]}")
+
+
+@pytest.mark.cuda
+def test_hist_instant_takes_many_grids_on_card(card):
+    """More grids than one launch takes (MAX_GRIDS): one launch per
+    MAX_GRIDS, each grid's answer its own plain one."""
+    from filodb_tpu_torch.ops import hist_kernels as HK
+
+    h, les = instant_edge_grid(card, 0.005)
+    grids = [h[i * 7: i * 7 + 5 + i % 3] for i in range(HK.MAX_GRIDS + 3)]
+    before = HK.INSTANT_LAUNCHES
+    outs = HK.hist_instant("quantile", grids, [les] * len(grids), q=0.9)
+    assert HK.INSTANT_LAUNCHES == before + 2
+    for g, o in zip(grids, outs):
+        assert_within_ulps(o, HK.histogram_quantile_plain(0.9, g, les), 2, "many grids")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", ["regular", "irregular"])
+def test_hist_store_then_segment_sum_equals_fused_on_card(card, grid):
+    """A leaf's K1 grid read in place by one segment-aggregate launch (the
+    map phase's per-bucket sum, J * B steps) equals the fused kernel's
+    group sums of the same block (rtol 1e-3: both reorder f32 sums)."""
+    from filodb_tpu_torch.ops import hist_kernels as HK
+    from filodb_tpu_torch.ops import segment_agg as SA
+
+    b = hist_block(grid, card, n_real=900)
+    n, G = b.n_series, 7
+    grid_t = HK.run_hist_range_function("rate", b, HIST_PARAMS)[:n]  # [n, J, B] view
+    J, B = grid_t.shape[1:]
+    gids = torch.arange(n, device=card) % G
+    before = (SA.LAUNCHES, SA.TRANSPOSES)
+    sums = SA.segment_components(grid_t.reshape(n, J * B), gids, G, ("sum",))["sum"]
+    assert (SA.LAUNCHES, SA.TRANSPOSES) == (before[0] + 1, before[1])  # read in place
+    padded = hist_gids(G, b.vals.shape[0], n, card)
+    acc, cnt = HK.hist_range_partials("rate", b, padded, G, HIST_PARAMS, hist_windows(
+        b, HIST_PARAMS))
+    want = GA.finish_groups("sum", acc, cnt, G)[:, : J * B]
+    torch.cuda.synchronize()
+    g, w = sums.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+    m = ~np.isnan(w)
+    np.testing.assert_allclose(g[m], w[m], rtol=1e-3, atol=1e-5 * float(np.abs(w[m]).max()))
+
+
+@pytest.mark.cuda
+def test_hist_tree_launches_on_card(card):
+    """The tree over native histograms on the card: one K1 launch per shard
+    leaf, one K2 launch per histogram-function node (all its grids: the
+    leaves', or the root's merged one), one segment aggregate per map
+    phase, nothing on the fused kernel; the answers equal the same queries
+    on the CPU engine (plain versions; rtol 1e-3)."""
+    from filodb_tpu_torch.coordinator.planner import PlannerParams, QueryEngine
+    from filodb_tpu_torch.core.histograms import custom_buckets
+    from filodb_tpu_torch.core.records import RecordBatch
+    from filodb_tpu_torch.core.schemas import METRIC_TAG, PROM_HISTOGRAM, Dataset
+    from filodb_tpu_torch.memstore.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.ops import hist_kernels as HK
+    from filodb_tpu_torch.ops import segment_agg as SA
+
+    rng = np.random.default_rng(6)
+    les = custom_buckets(HIST_LES[:-1]).bounds()
+    n, m = 64, 200
+    ts = BASE + np.cumsum(rng.integers(5_000, 15_001, (n, m)), axis=1)
+    incr = rng.poisson(2.0, size=(n, m, len(les))).astype(np.float64)
+    h = np.cumsum(np.cumsum(incr, axis=2), axis=1)
+    tags = [{METRIC_TAG: "lat", "_ws_": "w", "_ns_": "n", "instance": f"h{i}",
+             "zone": f"z{i % 3}"} for i in range(n)]
+    ms = TimeSeriesMemStore()
+    ms.setup(Dataset("ds"), range(4))
+    ms.ingest_routed("ds", RecordBatch(
+        PROM_HISTOGRAM, ts.ravel(), {"sum": h[..., -1].ravel(), "count": h[..., -1].ravel(),
+                                     "h": h.reshape(-1, len(les))},
+        [t for t in tags for _ in range(m)], les), spread=2)
+    params = PlannerParams(fused_aggregate=False)
+    eng, cpu = QueryEngine(ms, "ds", params=params), QueryEngine(ms, "ds", params=params,
+                                                                   device="cpu")
+    start, end = (BASE + 400_000) / 1000, (BASE + 1_500_000) / 1000
+    leaves = len(cpu.query_range("rate(lat[5m])", start, end, 60).grids)  # shards with data
+    assert leaves > 1
+    for q, k2, sa in (("rate(lat[5m])", 0, 0),
+                      ("histogram_quantile(0.9, rate(lat[5m]))", 1, 0),
+                      ("histogram_fraction(0, 0.25, rate(lat[5m]))", 1, 0),
+                      ("histogram_bucket(0.5, rate(lat[5m]))", 0, 0),
+                      ("histogram_quantile(0.9, sum by (zone) (rate(lat[5m])))", 1, 1)):
+        before = (HK.SERIES_LAUNCHES, HK.INSTANT_LAUNCHES, SA.LAUNCHES, HK.RANGE_LAUNCHES)
+        res = eng.query_range(q, start, end, 60)
+        after = (HK.SERIES_LAUNCHES, HK.INSTANT_LAUNCHES, SA.LAUNCHES, HK.RANGE_LAUNCHES)
+        want_sa = sa * leaves
+        assert tuple(a - b for a, b in zip(after, before)) == (leaves, k2, want_sa, 0), q
+
+        def rows(r):
+            return {tuple(sorted(l.items())): v for g in r.grids
+                    for l, v in zip(g.labels, g.values_np())}
+
+        got, want = rows(res), rows(cpu.query_range(q, start, end, 60))
+        assert sorted(got) == sorted(want) and want, q
+        for k, w in want.items():
+            np.testing.assert_array_equal(np.isnan(got[k]), np.isnan(w))
+            mm = ~np.isnan(w)
+            np.testing.assert_allclose(got[k][mm], w[mm], rtol=1e-3, atol=1e-6)
+
+
 # ---- the fused epilogues (B9): store modes and order statistics ----
 
 def assert_store(got, want, what, exact=False):

@@ -198,22 +198,42 @@ def test_instant_query_matches_jax(stores):
 
 @pytest.fixture(scope="module")
 def hist_store():
-    """A port memstore of native histograms (``http_request_latency``)."""
+    """JAX and port memstores of the same native histograms
+    (``http_request_latency``)."""
     from filodb_tpu.testkit import histogram_batch
     from filodb_tpu_torch.core.records import RecordBatch
 
     jb = histogram_batch(n_series=6, n_samples=120, start_ms=BASE,
                          metric="http_request_latency")
-    pms = TimeSeriesMemStore()
+    jms, pms = JaxMemStore(), TimeSeriesMemStore()
+    jms.setup(JS.Dataset("prometheus"), range(N_SHARDS))
     pms.setup(S.Dataset("prometheus"), range(N_SHARDS))
+    jms.ingest_routed("prometheus", jb, SPREAD)
     pms.ingest_routed("prometheus", RecordBatch(S.SCHEMAS[jb.schema.name], jb.timestamps,
                                                 dict(jb.values), jb.tags,
                                                 bucket_les=jb.bucket_les), SPREAD)
-    return pms
+    return jms, pms
 
 
-# the shapes that still raise: the tree over native histograms (ROADMAP
-# A2b) and subqueries
+def hist_answer(run):
+    """("ok", rows and buckets by labels) of a query, or ("error", type
+    name, text)."""
+    try:
+        res = run()
+    except Exception as e:  # the JAX package's errors are part of its answer
+        return ("error", type(e).__name__, str(e))
+    out = {}
+    for g in res.grids:
+        h = g.hist_np()
+        for i, (lbls, v) in enumerate(zip(g.labels, g.values_np())):
+            out[tuple(sorted(lbls.items()))] = (np.asarray(v, np.float64),
+                                                None if h is None else np.asarray(h[i]))
+    return ("ok", out)
+
+
+# the shapes the port once refused: the tree over native histograms, now
+# answered as the JAX engine answers them (values, buckets and errors),
+# and subqueries, which still raise
 @pytest.mark.parametrize("query, store", [
     ("rate(http_request_latency[5m])", "hist"),
     ("stddev(rate(http_request_latency[5m]))", "hist"),
@@ -226,10 +246,30 @@ def hist_store():
     ("rate(http_requests_total[5m])[30m:1m]", "irregular"),
 ])
 def test_unsupported_shapes_raise(stores, hist_store, query, store):
-    pms = hist_store if store == "hist" else stores[store][1]
-    engine = QueryEngine(pms, "prometheus", device="cpu")
-    with pytest.raises(NotImplementedError):
-        engine.query_range(query, START_S, END_S, STEP_S)
+    if store != "hist":
+        engine = QueryEngine(stores[store][1], "prometheus", device="cpu")
+        with pytest.raises(NotImplementedError):
+            engine.query_range(query, START_S, END_S, STEP_S)
+        return
+    jms, pms = hist_store
+    want = hist_answer(lambda: JaxEngine(jms, "prometheus").query_range(
+        query, START_S, END_S, STEP_S))
+    got = hist_answer(lambda: QueryEngine(pms, "prometheus", device="cpu").query_range(
+        query, START_S, END_S, STEP_S))
+    assert got[0] == want[0], (got, want)
+    if want[0] == "error":
+        assert got[1:] == want[1:]
+        return
+    assert sorted(got[1]) == sorted(want[1])
+    for k, (w, wh) in want[1].items():
+        g, gh = got[1][k]
+        for a, b in ((g, w), (gh, wh)):
+            assert (a is None) == (b is None)
+            if b is None:
+                continue
+            np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+            m = ~np.isnan(b)
+            np.testing.assert_allclose(a[m], b[m], rtol=2e-4, atol=1e-4)
 
 
 # the eight scalar shapes the port refused before its tree had an aggregate

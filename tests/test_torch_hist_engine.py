@@ -10,7 +10,9 @@ second query hits. The sequence primes the JAX engine with that extra
 query.) Group labels and NaN masks must be
 equal, values within rtol 2e-4 / atol 1e-4 (tests/test_pallas.py's
 tolerance). Plus the schemas, records and partitions the slice adds, and
-the shapes the port does not take, which raise NotImplementedError."""
+the shapes the fused kernels do not model, which fall back to the tree
+(on a build and on a cache hit) and answer as the JAX engine does, or
+raise its error."""
 
 import numpy as np
 import pytest
@@ -208,28 +210,56 @@ def test_heterogeneous_schemes_match_jax(q):
 
 
 def test_intra_shard_scheme_mismatch_raises():
+    """Partitions of one shard on different bucket schemes: the fused exec
+    falls back to the tree (the JAX package's ``hist_scheme``) before it
+    stages anything, and the tree answers as the JAX engine's does -- with
+    the shard's first partition's bounds for all of them
+    (``parts[0].bucket_les``)."""
     rng = np.random.default_rng(7)
-    pms = TimeSeriesMemStore()
+    jms, pms = JaxMemStore(), TimeSeriesMemStore()
+    jms.setup(JS.Dataset("ds"), [0])
     pms.setup(S.Dataset("ds"), [0])
     ts = BASE + np.arange(120, dtype=np.int64) * 10_000
     for i, bounds in enumerate(([0.1, 1, 5], [0.2, 1, 5])):
         scheme = custom_buckets(bounds)
         incr = rng.poisson(2.0, size=(120, scheme.num_buckets)).astype(np.float64)
         hist = np.cumsum(np.cumsum(incr, axis=1), axis=0)
-        pms.shard("ds", 0).ingest_series(R.SeriesBatch(
-            S.PROM_HISTOGRAM, {S.METRIC_TAG: "lat_mixed", "_ws_": "w", "_ns_": "n",
-                               "instance": f"h{i}"},
-            ts, {"sum": hist[:, -1], "count": hist[:, -1], "h": hist},
-            bucket_les=scheme.bounds()))
+        tags = {S.METRIC_TAG: "lat_mixed", "_ws_": "w", "_ns_": "n", "instance": f"h{i}"}
+        vals = {"sum": hist[:, -1], "count": hist[:, -1], "h": hist}
+        jms.shard("ds", 0).ingest_series(JR.SeriesBatch(JS.PROM_HISTOGRAM, tags, ts, vals,
+                                                        bucket_les=scheme.bounds()))
+        pms.shard("ds", 0).ingest_series(R.SeriesBatch(S.PROM_HISTOGRAM, tags, ts, vals,
+                                                       bucket_les=scheme.bounds()))
     start = (BASE + 400_000) / 1000
-    with pytest.raises(NotImplementedError, match="bucket schemes"):
-        QueryEngine(pms, "ds", device="cpu").query_range("sum(rate(lat_mixed[5m]))", start,
-                                                         start + 300, 60)
+    for q in ("sum(rate(lat_mixed[5m]))",
+              "histogram_quantile(0.5, sum(rate(lat_mixed[5m])))",
+              "rate(lat_mixed[5m])"):
+        got, _ = assert_parity(jms, pms, q, start, start + 300, 60)
+        assert got.grids and np.isfinite(got.grids[0].values_np()).any() or got.grids[0].hist_np(
+        ) is not None
+    eng = QueryEngine(pms, "ds", device="cpu")
+    ctx = eng.context()
+    from filodb_tpu_torch.query.promql import query_range_to_logical_plan
+
+    plan = eng.planner.materialize(query_range_to_logical_plan(
+        "sum(rate(lat_mixed[5m]))", start, start + 300, 60))
+    plan.execute(ctx)
+    assert ctx.obs["fallback"] == "hist_scheme"
 
 
-# -- shapes the port does not take ----------------------------------------------
+# -- shapes the fused kernels do not model: the tree answers them ---------------------
 
 
+def answer(engine, q):
+    """("ok", the result) of a query, or ("error", type name, text)."""
+    try:
+        return "ok", engine.query_range(q, START, END, STEP)
+    except Exception as e:  # the JAX package's errors are part of its answer
+        return "error", type(e).__name__, str(e)
+
+
+# (query, the refusal the port gave before the tree took these shapes: the
+# case's id)
 @pytest.mark.parametrize("q, match", [
     ("count(rate(http_request_latency[5m]))", "native histograms"),
     ("max by (instance) (rate(http_request_latency[5m]))", "native histograms"),
@@ -241,8 +271,16 @@ def test_intra_shard_scheme_mismatch_raises():
     ("histogram_fraction(0, 0.5, sum(rate(http_request_latency[5m])))", "not ported"),
 ])
 def test_unsupported_hist_shapes_raise(stores, q, match):
-    with pytest.raises(NotImplementedError, match=match):
-        QueryEngine(stores[1], "ds", device="cpu").query_range(q, START, END, STEP)
+    """Each shape answers as the JAX engine does: its rows and buckets, or
+    its error's type and text."""
+    jms, pms = stores
+    want = answer(JaxEngine(jms, "ds"), q)
+    got = answer(QueryEngine(pms, "ds", device="cpu"), q)
+    assert got[0] == want[0], (q, got, want)
+    if want[0] == "error":
+        assert got[1:] == want[1:], q
+    else:
+        assert_parity(jms, pms, q)
 
 
 @pytest.mark.parametrize("q", [
@@ -265,12 +303,29 @@ def test_classic_quantile_without_le_raises_as_jax(stores, q):
 
 
 def test_unsupported_shape_on_a_cached_superblock_raises(stores):
-    """A hit decides the shape before it serves: the cached histogram
-    superblock of sum(rate) refuses count(rate) as the build does."""
-    eng = QueryEngine(stores[1], "ds", device="cpu")
+    """A hit decides the shape before it serves: on the cached histogram
+    superblock of sum(rate), count(rate) falls back to the tree as the
+    build does (``hist_op``), before any stats bump, and raises the JAX
+    engine's error."""
+    from filodb_tpu_torch.query.promql import query_range_to_logical_plan
+
+    jms, pms = stores
+    eng = QueryEngine(pms, "ds", device="cpu")
     eng.query_range("sum(rate(http_request_latency[5m]))", START, END, STEP)
-    with pytest.raises(NotImplementedError, match="native histograms"):
-        eng.query_range("count(rate(http_request_latency[5m]))", START, END, STEP)
+    q = "count(rate(http_request_latency[5m]))"
+    want = answer(JaxEngine(jms, "ds"), q)
+    assert want[0] == "error" and answer(eng, q) == want
+    plan = eng.planner.materialize(query_range_to_logical_plan(q, START, END, STEP))
+    ctx = eng.context()
+    with pytest.raises(ValueError):
+        plan.execute(ctx)
+    assert ctx.obs == {"path": "fallback", "fallback": "hist_op"}
+    # the superblock hit counts (as the JAX package counts it) but scans
+    # nothing: the series scanned are the first tree leaf's, which raised
+    shard = plan.fallback.child_plans[0].shard_num
+    leaf_series = sum(p.schema.name == "prom-histogram"
+                      for p in pms.shard("ds", shard).partitions.values())
+    assert ctx.stats.cache_hits == 2 and ctx.stats.series_scanned == leaf_series < 24
 
 
 # -- the superblock cache and the live-edge extension ----------------------------

@@ -173,6 +173,34 @@ PLAN_CASES = {
 }
 
 
+STORE_PLAN_CASES = {
+    # (T, J, B, shared_bounds): (rows, steps, slices, threads, staged)
+    "bench_shared": ((768, 111, 12, True), (8, 111, 1, 384, False)),
+    "bench_per_series": ((768, 111, 12, False), (8, 111, 1, 384, True)),
+    "short_rows": ((64, 111, 12, False), (8, 111, 1, 384, True)),
+    "long_rows": ((8192, 111, 12, False), (8, 111, 1, 384, False)),
+    "wide_rows": ((1536, 111, 6, False), (4, 111, 1, 352, True)),
+    "many_steps": ((768, 1000, 12, False), (8, 250, 4, 384, True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STORE_PLAN_CASES))
+def test_hist_store_plan_is_exact(case):
+    """The store mode's layout: at most SERIES_TILE_ROWS rows per tile (fewer
+    when both staged ts buffers must fit), no partials, the bounds table
+    within its budget, a block's threads over (column vector, row) items."""
+    (T, J, B, sb), want = STORE_PLAN_CASES[case]
+    plan = HK.hist_plan(T, J, B, 1, sb, store=True)
+    assert (plan.rows, plan.steps, plan.slices, plan.threads, plan.staged) == want
+    assert plan.store and not plan.shared and plan.rows <= HK.SERIES_TILE_ROWS
+    assert plan.smem_bytes == 4 * smem_words(1, B, plan.steps, plan.rows, T, sb, False,
+                                             plan.staged)
+    assert 12 * (1 if sb else plan.rows) * plan.steps <= HK.BOUNDS_BUDGET
+    assert plan.smem_bytes <= GA.BLOCK_SMEM
+    if plan.staged:
+        assert 2 * plan.rows * T * 4 <= HK.STAGE_BUDGET
+
+
 @pytest.mark.parametrize("case", sorted(PLAN_CASES))
 def test_hist_plan_is_exact(case):
     (T, J, B, G, sb), want = PLAN_CASES[case]

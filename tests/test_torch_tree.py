@@ -350,10 +350,27 @@ def test_classic_suffixes_match_jax(hist_stores, query):
 
 
 def test_native_histogram_tree_raises(hist_stores):
-    _, pms = hist_stores
-    with pytest.raises(NotImplementedError, match="A2b"):
-        QueryEngine(pms, "prometheus", device="cpu").query_range(
-            "rate(http_request_latency[5m])", START_S, END_S, STEP_S)
+    """The tree over native histograms, once refused here, answers as the
+    JAX engine does: every series' NaN placeholder values beside its
+    per-bucket rates (tests/test_torch_hist_tree.py holds the rest of
+    ROADMAP A2b)."""
+    jms, pms = hist_stores
+    q = "rate(http_request_latency[5m])"
+    want = JaxEngine(jms, "prometheus").query_range(q, START_S, END_S, STEP_S)
+    got = QueryEngine(pms, "prometheus", device="cpu").query_range(q, START_S, END_S, STEP_S)
+    assert sorted(by_labels(got)) == sorted(by_labels(want))
+    assert all(np.isnan(v).all() for v in by_labels(got).values())
+
+    def buckets(res):
+        return {tuple(sorted(l.items())): np.asarray(h, np.float64)
+                for g in res.grids for l, h in zip(g.labels, g.hist_np())}
+
+    b_got, b_want = buckets(got), buckets(want)
+    assert sorted(b_got) == sorted(b_want) and b_want
+    for k, w in b_want.items():
+        np.testing.assert_array_equal(np.isnan(b_got[k]), np.isnan(w))
+        m = ~np.isnan(w)
+        np.testing.assert_allclose(b_got[k][m], w[m], rtol=RTOL, atol=ATOL)
 
 
 def test_series_limit_matches_jax(stores):
