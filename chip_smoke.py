@@ -11,8 +11,9 @@ Phases (any failure raises and exits non-zero):
 1. Build ``filodb_tpu_torch/csrc/window_stats.cu``, ``regular_range.cu``,
    ``hist_range.cu``, ``general_range.cu``, ``order_stats.cu``,
    ``sorted_window.cu`` and ``segment_agg.cu`` with nvcc, and the
-   histogram kernel's two split builds (``tile_sweep.HIST_PATCHES``: search
-   only, fetch only), all at once, and bind their fourteen entry points
+   histogram kernel's split builds (``tile_sweep.HIST_PATCHES``: search
+   only and fetch only of the aggregate; compute only and store only of
+   the store mode), all at once, and bind their fourteen entry points
    (``filodb_window_stats``,
    ``filodb_window_range_aggregate``, ``filodb_regular_range``,
    ``filodb_hist_range_aggregate``, ``filodb_hist_resident``,
@@ -244,9 +245,11 @@ Phases (any failure raises and exits non-zero):
    (``csrc/segment_agg.cu``, K1) and the grouped top-k
    (``filodb_segment_topk`` in ``csrc/order_stats.cu``, K2) on seeded
    100,000 x 111 blocks read in place: G = 1, 8, 100,000 groups of one and
-   3,000 groups (past K1's shared-memory budget), k in {1, 3, 1000}, 2 %
-   NaN, ties, +-inf and signed zeros; K1's count/min/max/group and K2's
-   kept values and thresholds bit-equal, K1's sum/sumsq within rtol 1e-4.
+   3,000 groups (past K1's shared-memory budget), 2 % NaN, ties, +-inf and
+   signed zeros; K2 also over a shard leaf's 12,500 series (the step
+   route), at k in {1, 3, 16, 32, 33, 1000}; K1's count/min/max/group and K2's
+   kept values and thresholds bit-equal (K2's max_abs_err measured), K1's
+   sum/sumsq within rtol 1e-4.
 11. The tree's aggregates, operators and instant functions at full width
    (``phase_tree_aggregates``, after phase 10 on phase 4's store and on
    phase 5's): ``TREE_AGG_QUERIES`` (all on the irregular store but
@@ -257,8 +260,9 @@ Phases (any failure raises and exits non-zero):
    K1 per map phase, K2 per candidate filter and topk root, one quantile
    per quantile root, no other kernel), the rows against the plain path on
    the card (``plain_kernels``); then K1 and K2 timed at those shapes
-   beside their bounds, plain versions and library lines
-   (``tree_agg_kernels``).
+   beside their bounds, plain versions and library lines, K2 also on the
+   device alone (``torch.profiler``) and on its two routes alternating
+   (per-group, step, step, per-group; ``tree_agg_kernels``).
 
 2f. The tree-over-histograms kernels against their plain versions
    (``phase_hist_tree_vs_plain``, after 2e): K1, the histogram range
@@ -282,7 +286,8 @@ Phases (any failure raises and exits non-zero):
    against the fused one (rtol 1e-3); cold and warm ms with the warm split
    (execute, rows to the host: the D2H of a 100k-row ``[S, J, B]``
    answer); K1 and K2 timed over the leaves beside their bounds and plain
-   versions (``time_hist_tree_kernels``).
+   versions, K1 also on the device alone and in its split builds (compute
+   only, store only; ``time_hist_tree_kernels``).
 
 Around every timed phase it prints the card's SM and memory clocks,
 temperature and power draw (nvidia-smi), before and after. Prints, in
@@ -392,6 +397,26 @@ def back_to_back_ms(fn, reps: int = 50) -> float:
     return a.elapsed_time(b) / reps
 
 
+def device_ms(fn, match: str, reps: int = 20) -> float:
+    """Device ms per call of ``fn`` in the kernels whose name holds
+    ``match``, from ``torch.profiler``'s CUDA activity over ``reps`` calls
+    after warm-up: the kernels alone, where back-to-back launches shorter
+    than their host enqueue would time the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+                for e in prof.key_averages() if match in e.key)
+    return total / reps / 1e3
+
+
 def compare(got, want, what: str, rtol: float, atol: float = 0.0) -> float:
     """NaN masks equal and values within rtol/atol; returns the largest
     absolute difference."""
@@ -422,7 +447,7 @@ def compare_stats(got: dict, want: dict, rtol: float = 2e-4, atol: float = 1e-4)
 
 
 def build_kernels() -> dict:
-    """Build every source and the histogram kernel's two split builds at
+    """Build every source and the histogram kernel's split builds at
     once (one nvcc each), bind the fourteen entry points, print ptxas's lines
     (registers, shared memory, spills) and return the split builds."""
     from filodb_tpu_torch.ops import cuda_build
@@ -2460,7 +2485,9 @@ def hist_bound_bytes(block, params, G: int, windows):
 
 def hist_split_libs() -> dict:
     """The histogram kernel's split builds (``tile_sweep.HIST_PATCHES``):
-    "search only" and "fetch only", each built apart and bound."""
+    "search only" and "fetch only" of the aggregate, "store: compute only"
+    and "store: store only" of the store mode, each built apart and
+    bound."""
     import importlib.util
     from pathlib import Path
 
@@ -2508,7 +2535,8 @@ def time_hist_kernel(block, gids, G: int, params, windows, func: str, les, devic
     f_ms, f_b2b = cuda_ms(launch(True), reps=20), back_to_back_ms(launch(True))
     split = {}
     for name, lib in (split_libs or {}).items():
-        split[name] = back_to_back_ms(launch(False, lib=lib))
+        if not name.startswith("store:"):  # the store mode's split: phase 12
+            split[name] = back_to_back_ms(launch(False, lib=lib))
     sweep = {}
     for rows in rows_sweep:
         layout = dataclasses.replace(plan, rows=rows, smem_bytes=HK.hist_smem_bytes(
@@ -3555,6 +3583,8 @@ def phase_month(device, card: str) -> dict:
 # -- phase 2e: the tree's aggregate kernels against their plain versions --------------
 
 AGG_TREE_GROUPS = ("one", "eight", "each", "past_shared")  # phase 2e's groupings
+LEAF_SERIES = N_SERIES // N_SHARDS  # a shard leaf's series: K2's step route
+TOPK_KS = (1, 3, 16, 32, 33, 1000)  # phase 2e's k: the step route up to 16, the per-group one past it
 
 
 def agg_tree_block(kind: str, S: int, J: int, seed: int, device):
@@ -3590,8 +3620,11 @@ def phase_tree_aggregates_vs_plain(seed: int, device, S: int = N_SERIES, J: int 
     grouping of ``AGG_TREE_GROUPS`` (2 % NaN; ties; +-inf and signed zeros
     in the ``special`` blocks): K1's count, min, max and group bit-equal,
     sum and sumsq within rtol 1e-4 (another order), NaN masks equal; K2 at
-    k in {1, 3, 1000}, topk and bottomk: kept values and thresholds
-    bit-equal."""
+    each k of ``TOPK_KS``, topk and bottomk, over S series (the per-group
+    route: a cluster per (large group, step)) and over a shard leaf's
+    ``LEAF_SERIES`` (the step route: every group of a step in one block):
+    kept values and thresholds bit-equal, their largest absolute
+    difference measured."""
     import torch
 
     from filodb_tpu_torch.ops import aggregations as AGG
@@ -3601,7 +3634,6 @@ def phase_tree_aggregates_vs_plain(seed: int, device, S: int = N_SERIES, J: int 
     k1_err, k1_cases, k2_cases, routes = 0.0, 0, 0, set()
     for b, kind in enumerate(("normal", "special")):
         v = agg_tree_block(kind, S, J, seed + b, device)
-        grid = SA.step_major(v)
         for groups in AGG_TREE_GROUPS:
             gids_np = agg_tree_gids(groups, S, seed)
             G = int(gids_np.max()) + 1
@@ -3617,24 +3649,34 @@ def phase_tree_aggregates_vs_plain(seed: int, device, S: int = N_SERIES, J: int 
                         got[c].view(torch.int32)[~torch.isnan(want)],
                         want.view(torch.int32)[~torch.isnan(want)]), f"{what}: differs")
             k1_cases += 1
-            members = OS.segment_members(gids, G)
-            for k in (1, 3, 1000):
-                for bottom in (False, True):
-                    out, thr = OS.segment_topk(grid, members, k, bottom)
-                    routes.add(OS.LAST_PLAN.route)
-                    w_out, w_thr = OS.segment_topk_plain(grid, members, k, bottom)
-                    require(torch.equal(out.view(torch.int32), w_out.view(torch.int32))
-                            and torch.equal(thr.view(torch.int32), w_thr.view(torch.int32)),
-                            f"2e segment_topk {kind} {groups} k={k} bottom={bottom}: differs "
-                            f"from plain")
-                    k2_cases += 1
+    k2_err = 0.0
+    for n in (S, LEAF_SERIES):  # a shard's width: the step route; 100k: the per-group route
+        for b, kind in enumerate(("normal", "special")):
+            grid = SA.step_major(agg_tree_block(kind, n, J, seed + b, device))
+            for groups in AGG_TREE_GROUPS:
+                gids_np = agg_tree_gids(groups, n, seed)
+                members = OS.segment_members(torch.from_numpy(gids_np).to(device),
+                                             int(gids_np.max()) + 1)
+                for k in TOPK_KS:
+                    for bottom in (False, True):
+                        out, thr = OS.segment_topk(grid, members, k, bottom)
+                        routes.add(OS.LAST_PLAN.route)
+                        w_out, w_thr = OS.segment_topk_plain(grid, members, k, bottom)
+                        what = f"2e segment_topk {kind} {groups} n={n} k={k} bottom={bottom}"
+                        require(torch.equal(out.view(torch.int32), w_out.view(torch.int32))
+                                and torch.equal(thr.view(torch.int32), w_thr.view(torch.int32)),
+                                f"{what}: differs from plain")
+                        k2_err = max(k2_err, abs_gap(out, w_out), abs_gap(thr, w_thr))
+                        k2_cases += 1
     torch.cuda.synchronize()
     print(f"phase2e segment_aggregate ({k1_cases} blocks of {S} x {J}: G = 1, 8, {S}, 3000) "
           f"count/min/max/group bit-equal to plain, sum/sumsq within rtol 1e-4 (max_abs_err "
-          f"{k1_err:.3g}); segment_topk ({k2_cases} cases, k in 1, 3, 1000, routes "
-          f"{sorted(routes)}) bit-equal to plain")
+          f"{k1_err:.3g}); segment_topk ({k2_cases} cases over {S} and {LEAF_SERIES} series, "
+          f"k in {', '.join(map(str, TOPK_KS))}, routes {sorted(routes)}) bit-equal to plain "
+          f"(max_abs_err {k2_err})")
     return {"segment_aggregate_max_abs_err": k1_err, "segment_aggregate_blocks": k1_cases,
-            "segment_topk_cases": k2_cases, "segment_topk_routes": sorted(routes)}
+            "segment_topk_cases": k2_cases, "segment_topk_routes": sorted(routes),
+            "segment_topk_max_abs_err": k2_err}
 
 
 # -- phase 11: the tree's aggregates, operators and instant functions -----------------
@@ -3928,8 +3970,10 @@ def tree_agg_kernels(engine, card: str, grid: str) -> dict:
     """K1 and K2 timed at phase 11's shapes on ``grid``'s store: K1 over
     ``stddev(rate)``'s 8 leaves (G = 1, three components) and
     ``stdvar by (zone)``'s (G = 8); K2 over ``topk by (zone) (3, rate)``'s
-    8 leaf filters (G = 8 each) and its root; each all leaves' launches
-    together (median of 20 calls, and back to back), beside the bound (the
+    8 leaf filters (G = 8 each), also on the device alone
+    (``torch.profiler``: back to back, the launches are shorter than their
+    host enqueue) and on both its routes alternating; each all leaves'
+    launches together (median of 20 calls, and back to back), beside the bound (the
     grid read once, the outputs written once, 3.35 TB/s), the plain
     versions' ms and the library line: ``index_add_`` of the sum component
     (K1), none for a grouped top-k (``torch.topk`` at G = 1 over the same
@@ -3984,9 +4028,10 @@ def tree_agg_kernels(engine, card: str, grid: str) -> dict:
     need = sum(grid.numel() * 8 + grid.shape[1] * 4 + m.starts.numel() * 4
                + m.num_groups * grid.shape[0] * 4 for grid, m in leaves)
 
-    def k2():
+    def k2(by_step=None):
         for grid, m in leaves:
-            OS.segment_topk(grid, m, 3)
+            plan = OS.order_plan("segment_topk", m, grid.shape[0], by_step=by_step, k=3)
+            OS.segment_topk(grid, m, 3, plan=plan)
 
     def k2_plain():
         for grid, m in leaves:
@@ -3996,18 +4041,33 @@ def tree_agg_kernels(engine, card: str, grid: str) -> dict:
         for grid, _ in leaves:
             torch.topk(grid, 3, dim=1)
 
+    k2()
+    route = OS.LAST_PLAN.route
+    # the per-group route (the design the step route replaced, the same
+    # build) beside it, alternating: group, step, step, group
+    alt = {"group": [], "step": []}
+    for by_step in (False, True, True, False):
+        name = "step" if by_step else "group"
+        alt[name].append({"ms_back_to_back": back_to_back_ms(lambda: k2(by_step), reps=20),
+                          "device_ms": device_ms(lambda: k2(by_step), "segment_topk")})
     out["segment_topk by (zone) (3)"] = {
         "ms": cuda_ms(k2, reps=20), "ms_back_to_back": back_to_back_ms(k2, reps=20),
+        "device_ms": device_ms(k2, "segment_topk"), "routes_alternating": alt,
         "plain_ms": cuda_ms(k2_plain, reps=3, warmup=1), "library_ms": None,
-        "torch_topk_g1_ms": back_to_back_ms(topk_g1, reps=20), "route": OS.LAST_PLAN.route,
+        "torch_topk_g1_ms": back_to_back_ms(topk_g1, reps=20), "route": route,
         "bound_ms": need / HBM_BYTES_PER_S * 1e3, "bound_bytes": need, "leaves": len(leaves)}
     for name, r in out.items():
         lib = (f"index_add_ of the sum {r['library_ms']:.4f} ms" if r["library_ms"] is not None
                else f"no library call for a grouped top-k (torch.topk at G = 1 over the same "
                     f"grids {r['torch_topk_g1_ms']:.4f} ms)")
+        dev = f", device {r['device_ms']:.4f} ms" if "device_ms" in r else ""
         print(f"phase11 {grid} kernel {name} x {r['leaves']} leaves: {r['ms']:.4f} ms (median of "
-              f"20; {r['ms_back_to_back']:.4f} ms back to back), bound {r['bound_ms']:.4f} ms "
-              f"(bytes: {r['bound_bytes']}), plain {r['plain_ms']:.3f} ms, {lib}; on {card}")
+              f"20; {r['ms_back_to_back']:.4f} ms back to back{dev}), bound {r['bound_ms']:.4f} "
+              f"ms (bytes: {r['bound_bytes']}), plain {r['plain_ms']:.3f} ms, {lib}; on {card}")
+    alt = out["segment_topk by (zone) (3)"]["routes_alternating"]
+    print(f"phase11 {grid} segment_topk by route, alternating group, step, step, group: " + "; ".join(
+        f"{k} back to back {[round(x['ms_back_to_back'], 4) for x in v]} ms, device "
+        f"{[round(x['device_ms'], 4) for x in v]} ms" for k, v in alt.items()))
     return out
 
 
@@ -4046,11 +4106,13 @@ def tree_agg_rows(tree_agg: dict, kernels: dict, phase2e: dict, rung_rows: dict,
         {"name": "segment_topk", "route": "cuda",
          "source": "filodb_tpu_torch/csrc/order_stats.cu",
          "replaces": "filodb_tpu/ops/aggregations.py:1904", "launches": topk_launches,
-         "max_abs_err": 0.0, "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+         "max_abs_err": phase2e["segment_topk_max_abs_err"], "ms": k2["ms"],
+         "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": "bytes", "library_ms": None,
          "library_call": "none for a grouped top-k; torch.topk(grid, 3, dim=1) at G = 1 over "
                          f"the same grids {k2['torch_topk_g1_ms']:.4f} ms",
-         "ms_back_to_back": k2["ms_back_to_back"], "route_of_leaves": k2["route"],
+         "ms_back_to_back": k2["ms_back_to_back"], "device_ms": k2["device_ms"],
+         "routes_alternating": k2["routes_alternating"], "route_of_leaves": k2["route"],
          "ms_is": "topk by (zone) (3, rate(http_requests_total[5m])), phase 11, irregular "
                   "store, the 8 leaf filters' launches",
          "cases_phase2e": phase2e["segment_topk_cases"]}]
@@ -4364,14 +4426,17 @@ def hist_tree_leaves(engine, q: str):
     return out
 
 
-def time_hist_tree_kernels(pairs, card: str, phase: str) -> dict:
+def time_hist_tree_kernels(pairs, card: str, phase: str, split_libs=None) -> dict:
     """K1 over the query's leaves (every leaf's store launch into a buffer
-    of its own), and K2's histogram_quantile(0.99) over those leaves'
-    grids (one launch for all of them): each median of 20 calls and back
-    to back, beside the bound (bytes at 3.35 TB/s: K1 the buckets at the
-    windows' distinct first and last samples, each row's timestamps on
-    per-series bounds, gids and the [S, J, B] grid written once; K2 the
-    grid read once and [S, J] written once) and the plain versions' ms."""
+    of its own), and K2's histogram_quantile(0.99) over those leaves' grids
+    (one launch for all of them): each median of 20 calls and back to
+    back, K1 also on the device alone (``torch.profiler``) and in the store
+    mode's split builds (``store: compute only``: no store; ``store: store
+    only``: fixed values, no fetch, no search), beside the bound (bytes at 3.35 TB/s: K1
+    the buckets at the windows' distinct first and last samples, each
+    row's timestamps on per-series bounds, gids and the [S, J, B] grid
+    written once; K2 the grid read once and [S, J] written once) and the
+    plain versions' ms."""
     import torch
 
     from filodb_tpu_torch.ops import aggregations as AGG
@@ -4387,8 +4452,8 @@ def time_hist_tree_kernels(pairs, card: str, phase: str) -> dict:
         gids = AGG.zero_gids(b)
         out = torch.empty((J, B, S), dtype=torch.float32, device=b.vals.device)
 
-        def launch(b=b, gids=gids, params=params, windows=windows, out=out):
-            HK._launch_series("rate", b, gids, params, windows, False, out)
+        def launch(b=b, gids=gids, params=params, windows=windows, out=out, lib=None):
+            HK._launch_series("rate", b, gids, params, windows, False, out, lib=lib)
 
         launches.append(launch)
         launches[-1]()
@@ -4398,15 +4463,18 @@ def time_hist_tree_kernels(pairs, card: str, phase: str) -> dict:
         k2_bytes += b.n_series * J * (B + 1) * 4
     les = torch.from_numpy(HIST_LES.astype(np.float32)).to(pairs[0][1].block.vals.device)
 
-    def k1():
+    def k1(lib=None):
         for launch in launches:
-            launch()
+            launch(lib=lib)
 
     def k2():  # one launch for the 8 leaf grids, as the plan node makes it
         HK.hist_instant("quantile", [h for *_, h in grids], [les] * len(grids), q=0.99)
 
     gpu_sample(f"{phase} before")
     k1_ms, k1_b2b = cuda_ms(k1, reps=20), back_to_back_ms(k1, reps=20)
+    k1_dev = device_ms(k1, "hist_range", reps=10)
+    split = {name: back_to_back_ms(lambda lib=lib: k1(lib), reps=20)
+             for name, lib in (split_libs or {}).items() if name.startswith("store:")}
     plan = HK.LAST_SERIES_PLAN
     k2_ms, k2_b2b = cuda_ms(k2, reps=20), back_to_back_ms(k2, reps=20)
     gpu_sample(f"{phase} after")
@@ -4415,22 +4483,25 @@ def time_hist_tree_kernels(pairs, card: str, phase: str) -> dict:
     k2_plain = cuda_ms(lambda: [HK.histogram_quantile_plain(0.99, h, les) for *_, h in grids],
                        reps=3, warmup=1)
     to_ms = 1e3 / HBM_BYTES_PER_S
-    row = {"k1_ms": k1_ms, "k1_ms_back_to_back": k1_b2b, "k1_plain_ms": k1_plain,
+    row = {"k1_ms": k1_ms, "k1_ms_back_to_back": k1_b2b, "k1_device_ms": k1_dev,
+           "k1_split_ms_back_to_back": split, "k1_plain_ms": k1_plain,
            "k1_bound_ms": k1_bytes * to_ms, "k1_bound_bytes": k1_bytes,
            "k1_plan": {"rows": plan.rows, "slices": plan.slices, "steps": plan.steps,
                        "vec": plan.vec, "threads": plan.threads, "staged": plan.staged},
            "k2_ms": k2_ms, "k2_ms_back_to_back": k2_b2b, "k2_plain_ms": k2_plain,
            "k2_bound_ms": k2_bytes * to_ms, "k2_bound_bytes": k2_bytes, "leaves": len(pairs)}
+    split_note = "".join(f"; {k} {v:.4f} ms" for k, v in split.items())
     print(f"{phase}: K1 hist_range_series x {len(pairs)} leaves {k1_ms:.4f} ms (median of 20; "
-          f"{k1_b2b:.4f} ms back to back; {plan.rows} rows per tile, {plan.threads} threads, "
-          f"ts {'staged' if plan.staged else 'in place'}), bound {row['k1_bound_ms']:.4f} ms "
+          f"{k1_b2b:.4f} ms back to back; device {k1_dev:.4f} ms; {plan.rows} rows per tile, "
+          f"{plan.threads} threads, ts {'staged' if plan.staged else 'in place'}{split_note}), "
+          f"bound {row['k1_bound_ms']:.4f} ms "
           f"({k1_bytes} bytes), plain {k1_plain:.2f} ms; K2 hist_instant quantile, one "
           f"launch over {len(pairs)} grids, {k2_ms:.4f} ms ({k2_b2b:.4f} ms back to back), bound "
           f"{row['k2_bound_ms']:.4f} ms ({k2_bytes} bytes), plain {k2_plain:.3f} ms; on {card}")
     return row
 
 
-def phase_hist_tree(engine, card: str, grid: str, queries) -> dict:
+def phase_hist_tree(engine, card: str, grid: str, queries, split_libs=None) -> dict:
     """Phase 12: the reference tree over native histograms on a histogram
     store (7b's regular one, after its live edge, or 7c's irregular one):
     ``queries`` through ``QueryEngine``, each first (the phase's first with
@@ -4499,7 +4570,7 @@ def phase_hist_tree(engine, card: str, grid: str, queries) -> dict:
               f"; on {card}")
         out[q] = row
     timing = time_hist_tree_kernels(hist_tree_leaves(engine, queries[0]), card,
-                                    f"phase12 {grid}")
+                                    f"phase12 {grid}", split_libs)
     return {"queries": out, "launches": launches, **timing}
 
 
@@ -4521,11 +4592,13 @@ def hist_tree_rows(hist_tree: dict, phase2f: dict) -> list:
         "ms": reg["k1_ms"], "plain_ms": reg["k1_plain_ms"], "bound_ms": reg["k1_bound_ms"],
         "bound_by": "bytes", "library_ms": None,
         "library_call": "none: no torch call computes a windowed, extrapolated per-bucket rate",
-        "ms_back_to_back": reg["k1_ms_back_to_back"], "plan": reg["k1_plan"],
+        "ms_back_to_back": reg["k1_ms_back_to_back"], "device_ms": reg["k1_device_ms"],
+        "split_ms_back_to_back": reg["k1_split_ms_back_to_back"], "plan": reg["k1_plan"],
         "ms_is": "rate(http_request_latency[5m]), phase 12, 7b's regular store, all 8 leaves' "
                  "launches",
         "per_series_bounds": {k: hist_tree["irregular"][k] for k in (
-            "k1_ms", "k1_ms_back_to_back", "k1_plain_ms", "k1_bound_ms")}
+            "k1_ms", "k1_ms_back_to_back", "k1_device_ms", "k1_split_ms_back_to_back",
+            "k1_plain_ms", "k1_bound_ms")}
         if "irregular" in hist_tree else None,
     }, {
         "name": "hist_instant", "route": "cuda",
@@ -4619,14 +4692,15 @@ def main() -> int:
 
     range_err, q_err = phase_hist_vs_plain(args.seed, device)
     bench_hist, hist_engine = phase_hist_bench(device, split_libs)
-    hist_tree = {"regular": phase_hist_tree(hist_engine, card, "regular", HIST_TREE_QUERIES)}
+    hist_tree = {"regular": phase_hist_tree(hist_engine, card, "regular", HIST_TREE_QUERIES,
+                                            split_libs)}
     elapsed("phases 7a, 7b, 12 (regular)")
     del hist_engine
     gc.collect()  # bench.py's histogram store goes before the irregular one is built
     torch.cuda.empty_cache()
     irr_hist, hist_engine = phase_hist_irregular(device, HIST_IRREGULAR_SERIES, split_libs)
     hist_tree["irregular"] = phase_hist_tree(hist_engine, card, "irregular",
-                                             HIST_TREE_QUERIES[:2])
+                                             HIST_TREE_QUERIES[:2], split_libs)
     elapsed("phases 7c, 12 (irregular)")
     del hist_engine
     gc.collect()  # the irregular store goes before the card block is made

@@ -30,9 +30,12 @@
 //    lower series index), the rest and any kept non-finite value are NaN;
 //    with the (group, step)'s threshold, the k-th best value, which the
 //    tree's per-shard candidate filter reads (TopkCandidateFilter,
-//    transformers.py:484). Large groups take a cluster per step and the
-//    same select as the quantile's; small groups a thread per (group,
-//    step), each member ranked by counting.
+//    transformers.py:484). Where a block can stage a step's whole column
+//    (at most STEP_KEYS series: a shard leaf's) and k <= STEP_MAX_K,
+//    segment_topk_step_kernel selects every group of a step in one block
+//    from the column staged once (3b below); else large groups take a
+//    cluster per step and the same select as the quantile's, small groups
+//    a thread per (group, step), each member ranked by counting.
 //
 // Bound: device-memory bytes, one read of the real series' values at the
 // real steps (and of perm) and the outputs written once; a few integer
@@ -659,6 +662,235 @@ __global__ void __launch_bounds__(MAX_THREADS)
                thr + (size_t)g * J + j);
 }
 
+// -- 3b. the grouped top-k, one block a step --------------------------------------
+//
+// Every group of one step in one block, for k <= STEP_MAX_K (the
+// dashboards' top few per zone; past it the per-group route measured
+// faster): the step's column of n keys and perm are read once,
+// coalesced, into shared memory (16-byte loads, twelve in flight a thread),
+// and the keys gathered there into group order, so that each group's keys
+// are one run in shared memory (perm ascends within a group: a run's
+// order is series order). A group of at most SMALL members takes a thread
+// (ranked by counting); a larger one a warp: all kept where it has at most
+// k members, else each lane keeps its KMAX best (key, position) pairs of a
+// strided share of the run sorted in registers (KMAX: k rounded up to a
+// power of two) and the warp pops the best head k times (a shuffle
+// reduction each). Ordering by (key, position) keeps the first take_eq of
+// the keys equal to the threshold in series order, as topk_segment does.
+// Kept members set a bit of a shared bitmap by series index; the block
+// then writes the whole column, coalesced. Bound: the column read and
+// written once (perm is read by every step's block, from L2).
+
+constexpr int STEP_THREADS = 256;  // threads of a step's block at most (registers: KMAX pairs)
+constexpr int STEP_KEYS = 24576;   // a column the step route stages at most (two copies)
+constexpr int STEP_MAX_K = 16;     // the largest k the step route takes (a lane's list in registers)
+constexpr int STEP_UNROLL = 4;     // keys a lane of a warp's select reads before it ranks any
+constexpr int STAGE_UNROLL = 12;   // 16-byte loads of the column (and of perm) a thread has in flight
+
+__host__ __device__ __forceinline__ int64_t round4(int64_t x) { return (x + 3) & ~(int64_t)3; }
+
+// dynamic shared memory of the step route over n keys: the column's keys,
+// the same in group order and the kept bitmap, each in whole 16-byte
+// groups
+__host__ __device__ __forceinline__ int64_t step_bytes(int64_t n) {
+    return 4 * (2 * round4(n) + round4((n + 31) / 32));
+}
+
+// Stages the step's column of m values at src as topk keys in shared
+// memory, and perm (m member indices, group by group) beside them, by
+// 16-byte loads where both are 16-byte aligned (STAGE_UNROLL of each in
+// flight a thread), the rest one by one; then replaces each entry of the
+// copied perm by its member's key (a thread reads and writes its own
+// entries). Every thread of the block calls it.
+__device__ void stage_column(const float* __restrict__ src, const int* __restrict__ perm, int m,
+                             int bottom, uint32_t* keys, uint32_t* sorted) {
+    const bool vec = (((uintptr_t)src | (uintptr_t)perm) & 15) == 0;
+    const int nv = vec ? m >> 2 : 0;
+    const float4* src4 = reinterpret_cast<const float4*>(src);
+    const int4* perm4 = reinterpret_cast<const int4*>(perm);
+    for (int v0 = threadIdx.x; v0 < nv; v0 += STAGE_UNROLL * blockDim.x) {
+        float4 x[STAGE_UNROLL];
+        int4 p[STAGE_UNROLL];
+#pragma unroll
+        for (int u = 0; u < STAGE_UNROLL; ++u) {
+            const int v = v0 + u * blockDim.x;
+            if (v < nv) {
+                x[u] = __ldg(src4 + v);
+                p[u] = __ldg(perm4 + v);
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < STAGE_UNROLL; ++u) {
+            const int v = v0 + u * blockDim.x;
+            if (v >= nv) continue;
+            reinterpret_cast<uint4*>(keys)[v] =
+                make_uint4(topk_key(x[u].x, bottom), topk_key(x[u].y, bottom),
+                           topk_key(x[u].z, bottom), topk_key(x[u].w, bottom));
+            reinterpret_cast<int4*>(sorted)[v] = p[u];
+        }
+    }
+    for (int i = 4 * nv + threadIdx.x; i < m; i += blockDim.x) {
+        keys[i] = topk_key(__ldg(src + i), bottom);
+        sorted[i] = (uint32_t)__ldg(perm + i);
+    }
+    __syncthreads();  // every key is in place
+    for (int i = threadIdx.x; i < m; i += blockDim.x) sorted[i] = keys[sorted[i]];
+}
+
+__device__ __forceinline__ void mark_kept(uint32_t* kept, int i) {
+    atomicOr(kept + (i >> 5), 1u << (i & 31));
+}
+
+// (key, position in the group's run) as one ascending order: better keys
+// first, ties to the earlier series
+__device__ __forceinline__ unsigned long long ranked(uint32_t key, int i) {
+    return ((unsigned long long)key << 32) | (uint32_t)i;
+}
+
+// A small group (n <= SMALL keys at run[0 .. n), members p[0 .. n)) by one
+// thread: each member's rank is the count of better keys and of equal keys
+// before it.
+__device__ __forceinline__ void step_small(const uint32_t* run, const int* __restrict__ p, int n,
+                                           int k, int bottom, uint32_t* kept, float* thr) {
+    uint32_t key[SMALL];
+#pragma unroll
+    for (int i = 0; i < SMALL; ++i) {
+        if (i >= n) break;
+        key[i] = run[i];
+    }
+    const int kr = min(k, n);
+    if (kr == 0) *thr = nan_f();
+#pragma unroll
+    for (int i = 0; i < SMALL; ++i) {
+        if (i >= n) break;
+        int pos = 0;
+#pragma unroll
+        for (int m = 0; m < SMALL; ++m) {
+            if (m >= n) break;
+            pos += key[m] < key[i] || (key[m] == key[i] && m < i);
+        }
+        if (pos < kr) mark_kept(kept, __ldg(p + i));
+        if (pos == kr - 1) *thr = topk_threshold(key[i], bottom);
+    }
+}
+
+// A group of n > SMALL keys at run[0 .. n) (members p[0 .. n)) by one
+// warp (k <= KMAX): all kept where n <= k, else the warp's merge of its
+// lanes' sorted lists. From KMAX = 8 on, a key is also dropped at once
+// when it is no better than tau, the least of the lanes' KMAX-th best
+// pairs (with KMAX >= k, each of those bounds the warp's k-th best),
+// refreshed after every round of reads. The winners' positions wait in
+// `win` (the warp's 32 ints of shared memory) and are marked together.
+template <int KMAX>
+__device__ void step_warp(const uint32_t* run, const int* __restrict__ p, int n, int k,
+                          int bottom, uint32_t* kept, float* thr, int* win) {
+    const int lane = threadIdx.x & 31;
+    if (n <= k) {  // every member kept; the threshold is the worst key
+        uint32_t worst = 0;
+        for (int i = lane; i < n; i += 32) {
+            mark_kept(kept, __ldg(p + i));
+            worst = max(worst, run[i]);
+        }
+        worst = __reduce_max_sync(FULL, worst);
+        if (lane == 0) *thr = topk_threshold(worst, bottom);
+        return;
+    }
+    unsigned long long best[KMAX];  // this lane's KMAX best, ascending
+#pragma unroll
+    for (int t = 0; t < KMAX; ++t) best[t] = ~0ull;
+    unsigned long long tau = ~0ull;
+    for (int base = 0; base < n; base += 32 * STEP_UNROLL) {  // every lane each round: tau's shuffles
+        const int i0 = base + lane;
+        uint32_t key[STEP_UNROLL];
+#pragma unroll
+        for (int u = 0; u < STEP_UNROLL; ++u) key[u] = i0 + 32 * u < n ? run[i0 + 32 * u] : 0u;
+#pragma unroll
+        for (int u = 0; u < STEP_UNROLL; ++u) {
+            const int i = i0 + 32 * u;
+            unsigned long long x = ranked(key[u], i);
+            if (i >= n || x >= best[KMAX - 1] || x >= tau) continue;
+#pragma unroll
+            for (int t = 0; t < KMAX; ++t) {  // insert: x bubbles to its place
+                const unsigned long long lo = x < best[t] ? x : best[t];
+                x = x < best[t] ? best[t] : x;
+                best[t] = lo;
+            }
+        }
+        if (KMAX >= 8) {
+            tau = best[KMAX - 1];
+#pragma unroll
+            for (int o = 16; o > 0; o >>= 1) {
+                const unsigned long long y = __shfl_xor_sync(FULL, tau, o);
+                tau = y < tau ? y : tau;
+            }
+        }
+    }
+    unsigned long long last = 0;
+    for (int r = 0; r < k; ++r) {  // the warp's r-th best: the least head
+        unsigned long long m = best[0];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+            const unsigned long long y = __shfl_xor_sync(FULL, m, o);
+            m = y < m ? y : m;
+        }
+        if (best[0] == m) {  // this lane's head (positions differ: one lane)
+            win[r] = (int)(uint32_t)m;
+#pragma unroll
+            for (int t = 0; t + 1 < KMAX; ++t) best[t] = best[t + 1];
+            best[KMAX - 1] = ~0ull;
+        }
+        last = m;
+    }
+    __syncwarp();
+    if (lane < k) mark_kept(kept, __ldg(p + win[lane]));
+    if (lane == 0) *thr = topk_threshold((uint32_t)(last >> 32), bottom);
+    __syncwarp();  // `win` is read before the warp's next group rewrites it
+}
+
+template <int KMAX>
+__global__ void __launch_bounds__(STEP_THREADS)
+    segment_topk_step_kernel(const float* __restrict__ grid, int ld, int n,
+                             const int* __restrict__ perm, const int* __restrict__ starts,
+                             const int* __restrict__ large, int n_large,
+                             const int* __restrict__ small, int n_small, int k, int bottom,
+                             float* __restrict__ out, int ld_out, float* __restrict__ thr) {
+    extern __shared__ __align__(16) uint32_t keys[];
+    __shared__ int win[STEP_THREADS / 32][32];  // each warp's winners' positions
+    const int j = blockIdx.x, J = gridDim.x;
+    uint32_t* sorted = keys + round4(n);  // the keys in group order
+    uint32_t* kept = sorted + round4(n);
+    for (int w = threadIdx.x; w < (n + 31) / 32; w += blockDim.x) kept[w] = 0;
+    stage_column(grid + (size_t)j * ld, perm, n, bottom, keys, sorted);
+    __syncthreads();
+    auto group = [&](const int* list, int i, int& st, int& size) {
+        const int g = __ldg(list + i);
+        st = __ldg(starts + g);
+        size = __ldg(starts + g + 1) - st;
+        return g;
+    };
+    for (int i = threadIdx.x; i < n_small; i += blockDim.x) {
+        int st, size;
+        const int g = group(small, i, st, size);
+        step_small(sorted + st, perm + st, size, k, bottom, kept, thr + (size_t)g * J + j);
+    }
+    for (int i = threadIdx.x >> 5; i < n_large; i += blockDim.x >> 5) {
+        int st, size;
+        const int g = group(large, i, st, size);
+        step_warp<KMAX>(sorted + st, perm + st, size, k, bottom, kept, thr + (size_t)g * J + j,
+                        win[threadIdx.x >> 5]);
+    }
+    __syncthreads();  // every kept bit is set
+    float* o = out + (size_t)j * ld_out;
+    auto value = [&](int i) {
+        return (kept[i >> 5] >> (i & 31)) & 1u ? topk_value(keys[i], bottom) : nan_f();
+    };
+    const int nv = ((uintptr_t)o & 15) == 0 ? n >> 2 : 0;
+    for (int v = threadIdx.x; v < nv; v += blockDim.x)
+        reinterpret_cast<float4*>(o)[v] =
+            make_float4(value(4 * v), value(4 * v + 1), value(4 * v + 2), value(4 * v + 3));
+    for (int i = 4 * nv + threadIdx.x; i < n; i += blockDim.x) o[i] = value(i);
+}
+
 bool bad_threads(int threads) {
     return threads < 32 || threads > MAX_THREADS || threads % 32 != 0;
 }
@@ -672,14 +904,14 @@ int64_t slice_bytes(int64_t n, int cluster) {
 }
 
 // Launches kernel on `stream` in clusters of `cluster` blocks with `smem`
-// bytes of dynamic shared memory (at most MAX_SLICE keys': the kernel is
-// allowed that much on the current device first).
+// bytes of dynamic shared memory (the kernel is allowed that much, and at
+// least MAX_SLICE keys', on the current device first).
 template <typename... Params, typename... Args>
 int launch(void (*kernel)(Params...), int64_t blocks, int threads, int cluster, int smem,
            void* stream, Args... args) {
     if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SLICE * 4);
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           smem > MAX_SLICE * 4 ? smem : MAX_SLICE * 4);
     if (err != cudaSuccess) return (int)err;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3((unsigned)blocks);
@@ -760,26 +992,49 @@ extern "C" int filodb_segment_quantile(const void* grid, int S, int J, const voi
 
 // Plain C entry for ctypes: topk (bottom = 0) or bottomk (bottom = 1) of
 // each group's members at each of the J steps of the grid (step j's column
-// at grid + j * ld) -> out, step j's column at out + j * ld_out: every
-// member's value where it is among its group's min(k, size) best at the
-// step (a NaN ranking last, ties to the lower series index, -0 below +0)
-// and finite, else NaN; and thr [G, J] f32, the min(k, size)-th best value
-// of each (group, step) (a NaN as -inf for topk, +inf for bottomk). The
-// members, `large` and `small` lists, clusters and shared bytes as for
-// filodb_segment_quantile; a small group takes a thread per step.
-// Columns of out at no member's index are not written. Launches on
+// at grid + j * ld, its first n series the members) -> out, step j's
+// column at out + j * ld_out: every member's value where it is among its
+// group's min(k, size) best at the step (a NaN ranking last, ties to the
+// lower series index, -0 below +0) and finite, else NaN; and thr [G, J]
+// f32, the min(k, size)-th best value of each (group, step) (a NaN as -inf
+// for topk, +inf for bottomk). Members: perm [n] int32 (the series ordered
+// by group, ascending within a group), starts [G+1] int32; `large` lists
+// the n_large groups of more than SMALL members (none larger than
+// large_max), `small` the n_small others (none larger than small_max).
+// by_step: a block of `threads` per step selects every group of it from
+// the column staged in `smem_bytes` of dynamic shared memory (which must
+// be step_bytes(n); cluster 1; n <= STEP_KEYS; k <= STEP_MAX_K). Else a
+// large group takes a cluster of `cluster` blocks per step (shared bytes
+// as for filodb_segment_quantile) and a small one a thread per step;
+// columns of out at no member's index are not written. Launches on
 // `stream` and returns a cudaError_t (0 on success); it does not
 // synchronise.
-extern "C" int filodb_segment_topk(const void* grid, int ld, int J, const void* perm,
+extern "C" int filodb_segment_topk(const void* grid, int ld, int n, int J, const void* perm,
                                    const void* starts, const void* large, int n_large,
                                    int large_max, const void* small, int n_small, int small_max,
-                                   int k, int bottom, int cluster, int threads, int smem_bytes,
-                                   void* out, int ld_out, void* thr, void* stream) {
+                                   int k, int bottom, int by_step, int cluster, int threads,
+                                   int smem_bytes, void* out, int ld_out, void* thr,
+                                   void* stream) {
     if (J <= 0 || n_large + n_small <= 0) return 0;
     if (ld <= 0 || ld_out <= 0 || k < 1 || n_large < 0 || n_small < 0 || small_max > SMALL ||
         bad_threads(threads) || cluster < 1 || cluster > order_select::MAX_CLUSTER ||
-        (n_large > 0 && large_max <= SMALL) ||
-        smem_bytes != (n_large > 0 ? slice_bytes(large_max, cluster) : 0))
+        (n_large > 0 && large_max <= SMALL))
+        return (int)cudaErrorInvalidValue;
+    if (by_step) {
+        if (n < 0 || n > STEP_KEYS || ld < n || ld_out < n || cluster != 1 || k > STEP_MAX_K ||
+            threads > STEP_THREADS || smem_bytes != step_bytes(n))
+            return (int)cudaErrorInvalidValue;
+        auto kern = k <= 1   ? segment_topk_step_kernel<1>
+                    : k <= 2 ? segment_topk_step_kernel<2>
+                    : k <= 4 ? segment_topk_step_kernel<4>
+                    : k <= 8 ? segment_topk_step_kernel<8>
+                             : segment_topk_step_kernel<16>;
+        return launch(kern, J, threads, 1, smem_bytes, stream, (const float*)grid, ld, n,
+                      (const int*)perm, (const int*)starts, (const int*)large, n_large,
+                      (const int*)small, n_small, k, (int)(bottom != 0), (float*)out, ld_out,
+                      (float*)thr);
+    }
+    if (smem_bytes != (n_large > 0 ? slice_bytes(large_max, cluster) : 0))
         return (int)cudaErrorInvalidValue;
     const int64_t large_blocks = (int64_t)n_large * J * cluster;
     const int64_t tiles = ((int64_t)n_small * J + threads - 1) / threads;

@@ -531,10 +531,11 @@ def hist_range_series(func: str, block, gids: torch.Tensor, params, windows=None
 
 
 def _launch_series(func: str, block, gids, params, windows, is_delta: bool,
-                   out: torch.Tensor) -> None:
+                   out: torch.Tensor, lib=None) -> None:
     """One launch of the store mode into ``out`` ([J, B, ld] f32, ld >= S;
     every (step, bucket, row) below (J, B, S) is written) in ``hist_plan``'s
-    layout with ``store``. Raises if the launch fails."""
+    layout with ``store``; ``lib`` (default the built library) lets a sweep
+    time patched builds. Raises if the launch fails."""
     global SERIES_LAUNCHES, LAST_SERIES_PLAN
     S, T, B = block.vals.shape
     dev = block.vals.device
@@ -552,7 +553,7 @@ def _launch_series(func: str, block, gids, params, windows, is_delta: bool,
         ts, lens = block.ts.data_ptr(), block.lens.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _load().filodb_hist_range_series(
+        err = (lib or _load()).filodb_hist_range_series(
             ts, block.vals.data_ptr(), lens, gids.data_ptr(), lo, hi, tf, tl,
             S, T, B, params.num_steps, int(params.start_ms - block.base_ms),
             int(params.step_ms), int(params.window_ms), HIST_FUNC_CODES[func], int(is_delta),

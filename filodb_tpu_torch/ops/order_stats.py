@@ -41,9 +41,11 @@ in shared memory (route ``staged``), or reading them from device memory
 in every pass where a slice would pass ``MAX_SLICE`` keys (``stream``);
 groups of at most ``SMALL_SEGMENT`` members take a thread per (group,
 step) in tiles (``thread``, the route of a launch with no large group;
-``segment_topk`` a thread per (group, step)). Launches of the kernels
-count in ``LAUNCHES``; ``LAST_PLAN`` is the last
-launch's ``OrderPlan``.
+``segment_topk`` a thread per (group, step)). ``segment_topk`` over a
+column of at most ``STEP_KEYS`` series (a shard leaf's) at k up to
+``STEP_MAX_K`` takes the ``step`` route instead: a block per step stages
+the column once and selects every group of it there. Launches of the kernels count in
+``LAUNCHES``; ``LAST_PLAN`` is the last launch's ``OrderPlan``.
 """
 
 from __future__ import annotations
@@ -69,6 +71,14 @@ STREAM_THREADS = 1024
 # the thread path: groups a block owns x steps it walks at a time (the
 # kernel's TILE_GROUPS, TILE_STEPS)
 TILE = (32, 32)
+# segment_topk's step route: a block of STEP_THREADS per step selects every
+# group from the step's column staged twice in shared memory (column and
+# group order), for columns of at most STEP_KEYS series (the kernel's)
+STEP_THREADS = 256
+STEP_KEYS = 24_576
+# the step route's largest k (a lane's sorted list in registers; at k = 32
+# the per-group route measured faster on an H100)
+STEP_MAX_K = 16
 
 # launches of both kernels since the last reset, and the last launch's
 # layout (OrderPlan)
@@ -80,12 +90,15 @@ _lib = None
 
 @dataclass(frozen=True)
 class OrderPlan:
-    """One launch: the kernel (``topk_steps`` or ``segment_quantile``), the
-    route of its large segments (``staged``, ``stream``; ``thread`` where
-    there are none), blocks per cluster, threads per block, blocks, dynamic
-    shared bytes per block, the keys per block of the largest segment, the
-    thread path's tile (groups a block owns, steps it walks at a time), and
-    per step the segments a cluster selects and those a thread ranks
+    """One launch: the kernel (``topk_steps``, ``segment_quantile`` or
+    ``segment_topk``), the route of its large segments (``staged``,
+    ``stream``; ``thread`` where there are none; ``step`` for a
+    ``segment_topk`` whose column a block stages whole, every group of a
+    step in one block), blocks per cluster, threads per block, blocks,
+    dynamic shared bytes per block, the keys per block of the largest
+    segment (``step``: the column), the thread path's tile (groups a block
+    owns, steps it walks at a time), and per step the segments a cluster
+    (``step``: a warp or the block) selects and those a thread ranks
     (groups of at most ``SMALL_SEGMENT``)."""
 
     kernel: str
@@ -151,13 +164,37 @@ def cluster_for(n: int) -> int:
     return c
 
 
+def step_smem_bytes(n: int) -> int:
+    """The step route's dynamic shared memory over a column of ``n`` series
+    (the kernel's ``step_bytes``): the keys in column order and in group
+    order and the kept bitmap, each in whole 16-byte groups."""
+    return 4 * (2 * ((n + 3) // 4 * 4) + (-(-n // 32) + 3) // 4 * 4)
+
+
 def order_plan(kernel: str, segment, J: int, cluster: int | None = None,
-               threads: int | None = None) -> OrderPlan:
+               threads: int | None = None, by_step: bool | None = None,
+               k: int | None = None) -> OrderPlan:
     """The launch of ``kernel`` over J steps: ``segment`` is the column's
     real series count for ``topk_steps`` and the ``Members`` for
-    ``segment_quantile``. The route, cluster and shared bytes follow from
-    the largest segment's size alone; ``cluster`` and ``threads`` override
-    the plan's choice (for timing other layouts)."""
+    ``segment_quantile`` and ``segment_topk``. The route, cluster and shared
+    bytes follow from the largest segment's size alone; ``segment_topk``
+    (at ``k``, default any the step route takes) takes the step route
+    wherever a block can stage its column (at most ``STEP_KEYS`` members)
+    and ``k`` is at most ``STEP_MAX_K``. ``cluster``, ``threads`` and
+    ``by_step`` override the plan's choice (for timing other layouts)."""
+    step_k = k is None or int(k) <= STEP_MAX_K
+    if kernel == "segment_topk" and (segment.perm.numel() <= STEP_KEYS and step_k
+                                     if by_step is None else by_step):
+        n = segment.perm.numel()
+        if n > STEP_KEYS:
+            raise ValueError(f"the step route stages at most {STEP_KEYS} series, not {n}")
+        if not step_k:
+            raise ValueError(f"the step route takes k up to {STEP_MAX_K}, not {k}")
+        threads = threads or STEP_THREADS
+        if not 32 <= threads <= STEP_THREADS or threads % 32:
+            raise ValueError(f"a step's block takes 32 to {STEP_THREADS} threads, not {threads}")
+        return OrderPlan(kernel, "step", 1, threads, J, step_smem_bytes(n), n, TILE,
+                         segment.large.numel(), segment.small.numel())
     if kernel == "topk_steps":
         seg, n_large, n_small = int(segment), 1, 0
     elif kernel in ("segment_quantile", "segment_topk"):
@@ -273,8 +310,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                       ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     fn = lib.filodb_segment_topk
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 8
                    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
@@ -394,18 +431,19 @@ def segment_topk(grid: torch.Tensor, members: Members, k: int, bottom: bool = Fa
         return segment_topk_plain(grid, members, k, bottom)
     if grid.device.type != "cuda":
         raise ValueError(f"order statistics run on cuda or cpu tensors, not {grid.device}")
-    plan = plan or order_plan("segment_topk", members, J)
+    plan = plan or order_plan("segment_topk", members, J, k=k)
     lib = lib or _load()
     out = torch.empty((J, n), dtype=torch.float32, device=grid.device)
     thr = torch.empty((members.num_groups, J), dtype=torch.float32, device=grid.device)
     with torch.cuda.device(grid.device):
         stream = torch.cuda.current_stream(grid.device).cuda_stream
         err = lib.filodb_segment_topk(
-            grid.data_ptr(), max(grid.stride(0), n, 1), J, members.perm.data_ptr(),
+            grid.data_ptr(), max(grid.stride(0), n, 1), n, J, members.perm.data_ptr(),
             members.starts.data_ptr(), members.large.data_ptr(), members.large.numel(),
             members.large_max, members.small.data_ptr(), members.small.numel(),
-            members.small_max, min(int(k), 2**31 - 1), int(bottom), plan.cluster, plan.threads,
-            plan.smem_bytes, out.data_ptr(), max(n, 1), thr.data_ptr(), stream)
+            members.small_max, min(int(k), 2**31 - 1), int(bottom), int(plan.route == "step"),
+            plan.cluster, plan.threads, plan.smem_bytes, out.data_ptr(), max(n, 1),
+            thr.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"segment_topk kernel launch failed ({plan}): cudaError {err}")
     _count(plan)

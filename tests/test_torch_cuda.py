@@ -1104,10 +1104,30 @@ def test_hist_store_writes_only_its_grid_on_card(card, route):
     once compiled a store variant's partial last tile to run all its
     rows.)"""
     from filodb_tpu_torch.ops import hist_kernels as HK
+
+    b = hist_rows_block(card, 13, route)
+    params = RangeParams(BASE + 400_000, 60_000, 37, 300_000)
+    S_pad, B = b.vals.shape[0], b.vals.shape[2]
+    out = torch.full((37, B, S_pad + 7), 12345.0, device=card)
+    windows = hist_windows(b, params)
+    assert (windows is not None) == (route == "shared")
+    HK._launch_series("rate", b, AGG.zero_gids(b), params, windows, False, out)
+    plan = HK.LAST_SERIES_PLAN
+    assert plan.staged == (route == "staged") and S_pad % plan.rows
+    torch.cuda.synchronize()
+    assert bool((out[:, :, S_pad:] == 12345.0).all()), route
+    want = HK.hist_series_plain("rate", b, AGG.zero_gids(b), params, windows)
+    assert_store(out[:, :, :S_pad], want, route, exact=True)
+
+
+def hist_rows_block(card, S: int, route: str, B: int = 12, n: int = 300, seed: int = 23):
+    """S histogram rows with no padded row (every tile partial where S is
+    not a multiple of the tile): on one 10 s grid (``shared``) or 5-15 s
+    apart, staged (``staged``) or with rows past the staging budget
+    (``in_place``)."""
     from filodb_tpu_torch.ops.staging import stage_histogram_series
 
-    S, n, B = 13, 300, 12
-    rng = np.random.default_rng(23)
+    rng = np.random.default_rng(seed)
     series = []
     for _ in range(S):
         ts = (BASE + 5_000 + np.arange(n, dtype=np.int64) * 10_000 if route == "shared"
@@ -1120,21 +1140,42 @@ def test_hist_store_writes_only_its_grid_on_card(card, route):
     ts[:, : b.ts.shape[1]] = b.ts[:S]
     vals = np.zeros((S, T, B), np.float32)
     vals[:, : b.ts.shape[1]] = b.vals[:S]
-    # no padded rows: the last tile of every rows-per-tile choice is partial
     b = dataclasses.replace(b, ts=ts, vals=vals, lens=b.lens[:S], baseline=b.baseline[:S])
-    b = b.to_device(card)
+    return b.to_device(card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 37, 95])
+@pytest.mark.parametrize("route", ["shared", "staged", "in_place"])
+def test_hist_store_odd_row_counts_on_card(card, route, S):
+    """S = 1, and row counts that are not a multiple of 4 or of the tile:
+    the wrapper's [J, B, S] grid equals the plain grid bit for bit, on
+    every bound route."""
+    from filodb_tpu_torch.ops import hist_kernels as HK
+
+    b = hist_rows_block(card, S, route, seed=23 + S)
     params = RangeParams(BASE + 400_000, 60_000, 37, 300_000)
-    S_pad = b.vals.shape[0]
-    out = torch.full((37, B, S_pad + 7), 12345.0, device=card)
+    gids = AGG.zero_gids(b)
     windows = hist_windows(b, params)
-    assert (windows is not None) == (route == "shared")
-    HK._launch_series("rate", b, AGG.zero_gids(b), params, windows, False, out)
-    plan = HK.LAST_SERIES_PLAN
-    assert plan.staged == (route == "staged") and S_pad % plan.rows
+    got = HK.hist_range_series("rate", b, gids, params, windows)
+    assert got.shape == (37, 12, S)
+    want = HK.hist_series_plain("rate", b, gids, params, windows)
     torch.cuda.synchronize()
-    assert bool((out[:, :, S_pad:] == 12345.0).all()), route
-    want = HK.hist_series_plain("rate", b, AGG.zero_gids(b), params, windows)
-    assert_store(out[:, :, :S_pad], want, route, exact=True)
+    assert_store(got, want, f"{route} S={S}", exact=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", ["regular", "irregular"])
+def test_hist_store_many_buckets_on_card(card, grid):
+    """300 buckets a sample (the slices of a wide step): bit-equal to
+    plain, padded rows NaN."""
+    from filodb_tpu_torch.ops import hist_kernels as HK
+
+    b = shared_hist_block(grid, card, 150, 120, 5, 300)
+    params = RangeParams(BASE - 120_000, 60_000, 23, 300_000)
+    got, want = hist_store_pair(b, "rate", False, params)
+    assert torch.isnan(got[:, :, b.n_series:]).all()
+    assert_store(got, want, f"{grid} B=300", exact=True)
 
 
 def instant_edge_grid(card, first_le: float):
@@ -1964,15 +2005,19 @@ def test_segment_aggregate_kernel_matches_plain_on_card(card, kind, groups, stor
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", ["plan", "group"])
 @pytest.mark.parametrize("bottom", [False, True], ids=["topk", "bottomk"])
-@pytest.mark.parametrize("k", [1, 3, 1000])
+@pytest.mark.parametrize("k", [1, 3, 16, 32, 33, 1000])
 @pytest.mark.parametrize("groups", ["one", "eight", "each", "skewed"])
 @pytest.mark.parametrize("kind", ["normal", "special"])
-def test_segment_topk_kernel_matches_plain_on_card(card, kind, groups, k, bottom):
+def test_segment_topk_kernel_matches_plain_on_card(card, kind, groups, k, bottom, route):
     """filodb_segment_topk against segment_topk_plain on 20,000 series x
-    111 steps read in place from a step-major grid: one group and 8 (a
-    cluster per step), a group each (a thread each), and skewed sizes
-    (both routes): kept values and thresholds bit-equal."""
+    111 steps read in place from a step-major grid: one group and 8, a
+    group each and skewed sizes; as the plan routes it (the step route,
+    every group of a step in one block with a thread or a warp a group,
+    for k <= STEP_MAX_K; the per-group route past it) and on the
+    per-group route (a cluster per (large group, step), a thread per
+    small one): kept values and thresholds bit-equal."""
     from filodb_tpu_torch.ops import order_stats as OS
     from filodb_tpu_torch.ops import segment_agg as SA
 
@@ -1983,9 +2028,56 @@ def test_segment_topk_kernel_matches_plain_on_card(card, kind, groups, k, bottom
     members = OS.segment_members(torch.from_numpy(gids).to(card), G)
     grid = SA.step_major(v)
     before = OS.LAUNCHES
-    out, thr = OS.segment_topk(grid, members, k, bottom)
+    plan = OS.order_plan("segment_topk", members, J, by_step=False) if route == "group" else None
+    out, thr = OS.segment_topk(grid, members, k, bottom, plan=plan)
     assert OS.LAUNCHES == before + 1 and OS.LAST_PLAN.kernel == "segment_topk"
+    assert (OS.LAST_PLAN.route == "step") == (route == "plan" and k <= OS.STEP_MAX_K)
     cpu_members = OS.segment_members(torch.from_numpy(gids), G)
+    want_out, want_thr = OS.segment_topk_plain(grid.cpu(), cpu_members, k, bottom)
+    torch.cuda.synchronize()
+    for g, w in ((out.cpu(), want_out), (thr.cpu(), want_thr)):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+def topk_edge_grid(S: int, J: int, seed: int, device):
+    """[J, S] step-major values whose columns test the tie rule: step 0 all
+    equal, step 1 all NaN, step 2 only +0 and -0, step 3 +-inf and NaN, the
+    rest values to one decimal (many ties) with NaN, signed zeros and
+    infinities mixed in."""
+    rng = np.random.default_rng(seed)
+    v = np.round(rng.uniform(-2, 2, (J, S)), 1).astype(np.float32)
+    for x, p in ((np.nan, 0.05), (0.0, 0.05), (-0.0, 0.05), (np.inf, 0.01), (-np.inf, 0.01)):
+        v[rng.random((J, S)) < p] = x
+    v[0] = 1.5
+    v[1] = np.nan
+    v[2] = np.where(rng.random(S) < 0.5, 0.0, -0.0)
+    v[3] = rng.choice(np.array([np.inf, -np.inf, np.nan], np.float32), S)
+    return torch.from_numpy(v).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bottom", [False, True], ids=["topk", "bottomk"])
+@pytest.mark.parametrize("k", [1, 3, 16, 32, 33, 1000])
+@pytest.mark.parametrize("S", [3000, 60_000])
+def test_segment_topk_ties_and_mixed_groups_on_card(card, S, k, bottom):
+    """Ties, all-tie and all-NaN columns, +-0 and +-inf, groups of 1 to 16
+    members beside groups of 17 to 2,000 and one of the rest, on a column
+    the step route stages (3,000 series, k <= STEP_MAX_K) and on one past it
+    (60,000: the per-group route): bit-equal to plain."""
+    from filodb_tpu_torch.ops import order_stats as OS
+
+    J = 9
+    grid = topk_edge_grid(S, J, k + S, card)
+    rng = np.random.default_rng(S)
+    sizes = [int(x) for x in rng.integers(1, 17, 60)] + [17, 18, 33, 64, 500]
+    sizes += [2000] if S > 10_000 else []
+    sizes.append(S - sum(sizes))
+    gids = rng.permutation(np.repeat(np.arange(len(sizes)), sizes))
+    members = OS.segment_members(torch.from_numpy(gids).to(card), len(sizes))
+    out, thr = OS.segment_topk(grid, members, k, bottom)
+    assert OS.LAST_PLAN.route == ("step" if S <= OS.STEP_KEYS and k <= OS.STEP_MAX_K
+                                  else "staged")
+    cpu_members = OS.segment_members(torch.from_numpy(gids), len(sizes))
     want_out, want_thr = OS.segment_topk_plain(grid.cpu(), cpu_members, k, bottom)
     torch.cuda.synchronize()
     for g, w in ((out.cpu(), want_out), (thr.cpu(), want_thr)):

@@ -469,13 +469,189 @@ def test_a_group_of_one_is_interpolated_not_copied(value):
     assert np.isnan(twin).all() == (not np.isfinite(value))
 
 
+# -- segment_topk's step route: its plan and a twin of its selection ---------------------
+
+STEP_GROUP_SIZES = (*range(1, 18), 31, 32, 33, 34, 64, 100, 999, 1000, 1001, 1034, 5000)
+
+
+def step_members(sizes, seed: int):
+    """Members of groups of the given sizes, their series interleaved at
+    random (zones interleave so), and the column count."""
+    rng = np.random.default_rng(seed)
+    gids = rng.permutation(np.repeat(np.arange(len(sizes)), sizes))
+    return OS.segment_members(torch.from_numpy(gids.astype(np.int64)), len(sizes)), len(gids)
+
+
+@pytest.mark.parametrize("J", [1, 111])
+@pytest.mark.parametrize("n", [0, 1, 17, 12_500, 24_575, 24_576, 24_577, 100_000])
+def test_segment_topk_takes_the_step_route_while_a_block_stages_the_column(n, J):
+    """One block a step, cluster 1, the column's keys (in column and in
+    group order) and its kept bitmap in whole 16-byte groups, while the
+    column fits STEP_KEYS keys; past it the per-group route of a cluster
+    per (large group, step)."""
+    gids = torch.from_numpy(np.arange(n) % 8)
+    members = OS.segment_members(gids, 8)
+    plan = OS.order_plan("segment_topk", members, J)
+    if n <= OS.STEP_KEYS:
+        assert (plan.route, plan.cluster, plan.blocks, plan.slice) == ("step", 1, J, n)
+        assert plan.threads == OS.STEP_THREADS
+        assert plan.smem_bytes == 8 * ((n + 3) // 4 * 4) + 4 * ((-(-n // 32) + 3) // 4 * 4)
+        assert plan.smem_bytes + STATIC_SMEM <= BLOCK_SMEM and plan.smem_bytes % 16 == 0
+        assert (plan.block_segments, plan.thread_segments) == (
+            members.large.numel(), members.small.numel())
+    else:
+        assert plan.route in ("staged", "stream") and plan.blocks >= 8 * J
+    text = (cuda_build.CSRC / "order_stats.cu").read_text()
+    assert f"constexpr int STEP_THREADS = {OS.STEP_THREADS};" in text
+    assert f"constexpr int STEP_KEYS = {OS.STEP_KEYS};" in text
+
+
+@pytest.mark.parametrize("by_step", [True, False])
+def test_segment_topk_route_can_be_forced(by_step):
+    """``by_step`` overrides the plan (the sweep times the per-group route
+    beside the step route); the step route refuses a column past MAX_SLICE
+    and blocks past STEP_THREADS threads."""
+    members, _ = step_members((20, 30, 5), 0)
+    plan = OS.order_plan("segment_topk", members, 7, by_step=by_step)
+    assert (plan.route == "step") == by_step
+    if not by_step:  # a cluster per (large group, step), a thread per (small group, step)
+        assert plan.route == "staged" and plan.blocks == 2 * 7 + 1
+    big = OS.segment_members(torch.zeros(OS.STEP_KEYS + 1, dtype=torch.int64), 1)
+    with pytest.raises(ValueError, match="stages at most"):
+        OS.order_plan("segment_topk", big, 3, by_step=True)
+    with pytest.raises(ValueError, match="threads"):
+        OS.order_plan("segment_topk", members, 3, threads=512, by_step=True)
+    with pytest.raises(ValueError, match="takes k up to"):
+        OS.order_plan("segment_topk", members, 3, by_step=True, k=OS.STEP_MAX_K + 1)
+
+
+@pytest.mark.parametrize("k", [1, 3, 16, 32, 33, 1000])
+def test_segment_topk_route_follows_k(k):
+    """k up to STEP_MAX_K (a lane's sorted list of pairs in registers)
+    takes the step route; past it the per-group route, whose selects
+    measured faster than the block's one group after another."""
+    members, _ = step_members((20, 30, 5), 0)
+    plan = OS.order_plan("segment_topk", members, 7, k=k)
+    assert (plan.route == "step") == (k <= OS.STEP_MAX_K)
+    text = (cuda_build.CSRC / "order_stats.cu").read_text()
+    assert f"constexpr int STEP_MAX_K = {OS.STEP_MAX_K};" in text
+
+
+def kmax_of(k: int) -> int:
+    """The kernel's template: the least power of two >= k (k <= STEP_MAX_K)."""
+    m = 1
+    while m < k:
+        m *= 2
+    return m
+
+
+def topk_value_twin(key: np.ndarray, bottom: bool) -> np.ndarray:
+    x = value_of(~np.asarray(key, np.uint32))
+    v = -x if bottom else x
+    return np.where(np.isfinite(v), v, np.float32(np.nan)).astype(np.float32)
+
+
+def threshold_twin(key, bottom: bool) -> np.float32:
+    x = value_of(~np.uint32(key))
+    return np.float32(-x if bottom else x)
+
+
+def step_twin(col: np.ndarray, members, k: int, bottom: bool):
+    """``segment_topk_step_kernel`` on one step's column of n values (k <=
+    STEP_MAX_K): ([n] kept values, [G] thresholds). Keys as ``topk_key``,
+    gathered into group order; a group of at most SMALL members ranks each
+    by counting (better keys, and equal keys earlier in member order); a
+    larger one of at most k members keeps all (threshold its worst key);
+    else each of 32 lanes keeps the KMAX least (key, position) pairs of
+    the run's entries lane, lane + 32, ... and the warp pops the least
+    head k times (the kernel's tau only drops pairs no better than a lane's
+    KMAX-th best, which cannot be among the k popped)."""
+    keys = topk_key(col, bottom)
+    n = len(col)
+    perm, starts = members.perm.numpy(), members.starts.numpy()
+    kept = np.zeros(n, bool)
+    thr = np.full(members.num_groups, np.nan, np.float32)
+    kmax = kmax_of(k)
+    for g in range(members.num_groups):
+        mem = perm[starts[g]:starts[g + 1]]
+        size = len(mem)
+        kr = min(k, size)
+        if size == 0:
+            continue
+        gk = keys[mem]
+        if size <= OS.SMALL_SEGMENT:
+            pos = np.array([int(((gk < gk[i]) | ((gk == gk[i]) & (np.arange(size) < i))).sum())
+                            for i in range(size)])
+            kept[mem[pos < kr]] = True
+            thr[g] = threshold_twin(gk[pos == kr - 1][0], bottom)
+        elif size <= k:
+            kept[mem] = True
+            thr[g] = threshold_twin(gk.max(), bottom)
+        elif k <= kmax:
+            pairs = (gk.astype(np.uint64) << np.uint64(32)) | np.arange(size, dtype=np.uint64)
+            lanes = [np.sort(pairs[lane::32])[:kmax] for lane in range(32)]
+            heads = [0] * 32
+            last = None
+            for _ in range(k):  # the warp's least head, popped
+                cand = [(lanes[l][heads[l]], l) for l in range(32) if heads[l] < len(lanes[l])]
+                last, lane = min(cand)
+                heads[lane] += 1
+                kept[mem[int(last & np.uint64(0xFFFFFFFF))]] = True
+            thr[g] = threshold_twin(int(last >> np.uint64(32)), bottom)
+        else:
+            raise ValueError(f"the step route takes k up to {OS.STEP_MAX_K}, not {k}")
+    out = np.where(kept, topk_value_twin(keys, bottom), np.float32(np.nan)).astype(np.float32)
+    return out, thr
+
+
+def step_grid(J: int, n: int, seed: int) -> np.ndarray:
+    """[J, n] values with ties (one decimal), +-0, +-inf and NaN; step 0
+    all equal, step 1 all NaN, step 2 only signed zeros."""
+    rng = np.random.default_rng(seed)
+    v = np.round(rng.uniform(-2, 2, (J, n)), 1).astype(np.float32)
+    for x, p in ((np.nan, 0.05), (0.0, 0.05), (-0.0, 0.05), (np.inf, 0.01), (-np.inf, 0.01)):
+        v[rng.random((J, n)) < p] = x
+    v[0] = 1.5
+    if J > 2:
+        v[1] = np.nan
+        v[2] = np.where(rng.random(n) < 0.5, 0.0, -0.0)
+    return v
+
+
+@pytest.mark.parametrize("bottom", [False, True], ids=["topk", "bottomk"])
+@pytest.mark.parametrize("k", [1, 3, 5, 16, 32, 33, 1000])
+def test_step_twin_matches_plain_and_jax(k, bottom):
+    """The step route's selection (a thread or a warp merge a group, by
+    size), restated in numpy, against ``segment_topk_plain`` and the JAX
+    ``topk_mask`` of each group's rows, over groups of 1 to 5,000 members
+    with ties, +-0, +-inf and NaN: kept values (and signs) and thresholds
+    bit-equal; past STEP_MAX_K (32, 33, 1000) the plain version alone
+    against JAX, as the per-group route's twin ``cluster_select`` holds
+    it."""
+    members, n = step_members(STEP_GROUP_SIZES, k)
+    J = 5
+    v = step_grid(J, n, k + 7)
+    p_out, p_thr = OS.segment_topk_plain(torch.from_numpy(v), members, k, bottom)
+    perm, starts = members.perm.numpy(), members.starts.numpy()
+    for j in range(J if k <= OS.STEP_MAX_K else 0):
+        out, thr = step_twin(v[j], members, k, bottom)
+        assert_same_bits(out, p_out[j].numpy())
+        assert_same_bits(thr, p_thr[:, j].numpy())
+    for g in range(members.num_groups):
+        mem = np.sort(perm[starts[g]:starts[g + 1]])
+        want = np.asarray(JAGG.topk_mask(jnp.asarray(v[:, mem].T), min(k, len(mem)),
+                                         bottom=bottom)).T
+        assert_same_bits(p_out[:, mem].numpy(), want)
+
+
 # -- tile_sweep.py --order's split builds ---------------------------------------------
 
 
-@pytest.mark.parametrize("patch", [p for ps in tile_sweep.ORDER_PATCHES.values() for p in ps],
+@pytest.mark.parametrize("patch", [p for ps in (*tile_sweep.ORDER_PATCHES.values(),
+                                                *tile_sweep.STEP_PATCHES.values()) for p in ps],
                          ids=lambda p: p[1].strip()[:40])
 def test_order_patch_targets_are_in_the_sources(patch):
-    """``tile_sweep.py --order --split`` patches these lines of csrc/: each
-    must appear there exactly once."""
+    """``tile_sweep.py --order --split`` and ``--segment-topk --split`` patch
+    these lines of csrc/: each must appear there exactly once."""
     fname, old, _ = patch
     assert (cuda_build.CSRC / fname).read_text().count(old) == 1

@@ -75,6 +75,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import shutil
 import subprocess
@@ -115,6 +116,21 @@ HIST_PATCHES = {
                    ("hist_range.cu", "lo = lower_edge(rt, hi, wrap_add(t_j, -a.window));",
                     "lo = max(0, hi - 30);")],
 }
+# the store mode's split (``--hist-store --split`` and chip_smoke.py phase
+# 12): "store: compute only" computes every value but stores none (a
+# discarded comparison keeps the work); "store: store only" stores fixed
+# values, copies no ts and takes fixed windows (no search, no bucket fetch)
+HIST_PATCHES.update({
+    "store: compute only": [("hist_range.cu",
+                             "            for (int i = 0; i < V; ++i) o[(int64_t)i * a.ld_series] = v[u][i];",
+                             "            for (int i = 0; i < V; ++i)\n"
+                             "                if (v[u][i] == 1234.5f) o[(int64_t)i * a.ld_series] = v[u][i];")],
+    "store: store only": [("hist_range.cu",
+                           "            window_values<V>(a, tile_vals + (int64_t)r * a.T * B + b0, lo_s[k], hi_s[k],\n"
+                           "                             fac_s[k], win_sum, w_s, v[u]);",
+                           "            for (int i = 0; i < V; ++i) v[u][i] = fac_s[k] + (float)(lo_s[k] + i);"),
+                          *HIST_PATCHES["fetch only"]],
+})
 # patches of the general kernel's split (``--general``): "bounds only"
 # searches every window but reads none of it (no prefix, no gather, no
 # scan); "reduce only" takes fixed windows of 30 samples, 6 further per
@@ -339,6 +355,26 @@ def host_ms(fn, reps: int = 200) -> float:
     return (t1 - t0) / reps * 1e3
 
 
+def device_ms(fn, match: str, reps: int = 20) -> float:
+    """Device ms per call of ``fn`` spent in the kernels whose name holds
+    ``match``, from ``torch.profiler``'s CUDA activity over ``reps`` calls
+    after warm-up: the kernels alone, where back to back launches would
+    time the host's enqueue instead."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+                for e in prof.key_averages() if match in e.key)
+    return total / reps / 1e3
+
+
 def back_to_back_ms(fn, reps: int = 50) -> float:
     """Device ms per call of ``fn`` launched ``reps`` times between two events."""
     import torch
@@ -436,6 +472,219 @@ def hist_main(package_root: str | None, card: str, device=None, n_series: int | 
         for k, v in times.items():
             if k.startswith(name):
                 print(f"{k}: {v if isinstance(v, str) else f'{v:.4f} ms'}", flush=True)
+    print(card)
+    print(json.dumps({"card": card, "package": str(package_root or "."), "ms": times}))
+    return 0
+
+
+CS_SEED = 42  # chip_smoke.HIST_SEED: bench.py's histogram seed
+STORE_LEAVES = 8  # phase 12's leaves: 8 shards of 7b's 100k (shared bounds) and 7c's 50k
+
+
+def store_leaves(device, n_series: int, regular: bool, seed: int):
+    """One leaf's block of ``n_series`` card-made histograms (phase 12's
+    shard shape: a twelfth of 7b's 100k on bench.py's 10 s grid, or of 7c's
+    50k on irregular scrapes)."""
+    import torch
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  Path(__file__).resolve().parent / "chip_smoke.py")
+    CS = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(CS)
+    block = CS.hist_block_bulk_on_card(n_series, CS.N_SAMPLES, seed, device)
+    if regular:
+        block.lens[:n_series] = CS.N_SAMPLES
+        lane = torch.arange(block.ts.shape[1], device=device)
+        grid = torch.where(lane < CS.N_SAMPLES, lane * 10_000, 2**31 - 1).to(torch.int32)
+        block.ts[:n_series] = grid
+        block.vals[n_series // 2] = block.vals[0]  # the generator's empty series gets samples
+        block.regular_ts = grid.cpu().numpy()
+    return CS, block
+
+
+def store_main(package_root: str | None, card: str, split: bool, device=None,
+               sizes=(12_500, 6_250), timer=back_to_back_ms) -> int:
+    """``--hist-store``: the histogram range kernel's store mode (K1 of the
+    tree over histograms, ``filodb_hist_range_series``) of the package at
+    ``package_root`` (default this checkout's) at phase 12's shapes: 8 leaf
+    launches of ``rate`` over a leaf of 12,500 histograms on bench.py's
+    regular grid (shared bounds, 7b's 100k over 8 shards) and over 6,250
+    on irregular scrapes (per-series bounds, 7c's 50k), each launch into a
+    grid of its own, back to back and on the device (``torch.profiler``);
+    beside them the fused aggregate over the same reads (``hist_range``
+    into one group), ``fill_`` of the 8 grids (the writes alone) and, with
+    ``split``, the patched builds of the ``store:`` entries of
+    ``HIST_PATCHES`` ("compute only": no store; "store only": fixed
+    values, no fetch, no search). Each launch is first held bit-equal to
+    ``hist_series_plain`` on one leaf."""
+    if package_root:
+        sys.path.insert(0, str(Path(package_root).resolve()))
+    import torch
+
+    import filodb_tpu_torch
+    from filodb_tpu_torch.ops import aggregations as AGG
+    from filodb_tpu_torch.ops import hist_kernels as HK
+    from filodb_tpu_torch.ops.kernels import RangeParams, pad_steps
+
+    device = device or torch.device("cuda")
+    print(f"package {Path(filodb_tpu_torch.__file__).resolve().parent}")
+    HK._load()
+    libs = {}
+    if split and device.type == "cuda":
+        patches = {k: v for k, v in HIST_PATCHES.items() if k.startswith("store:")}
+        with ThreadPoolExecutor(len(patches)) as pool:
+            libs = dict(zip(patches, pool.map(
+                lambda k: build_patched("hist_range", patches[k], HK.bind), patches)))
+    times = {}
+    for name, n, regular in (("shared bounds", sizes[0], True),
+                             ("per-series bounds", sizes[1], False)):
+        CS, block = store_leaves(device, n, regular, CS_SEED if regular else CS_SEED + 1)
+        J = int((CS.END_S - CS.START_S) // CS.STEP_S) + 1
+        params = RangeParams(int(CS.START_S * 1000), int(CS.STEP_S * 1000), J, CS.WINDOW_MS)
+        windows = (AGG._hist_shared_windows(block, params, pad_steps(J)) if regular else None)
+        gids = AGG.zero_gids(block)
+        S, T, B = block.vals.shape
+        outs = [torch.empty((J, B, S), dtype=torch.float32, device=device)
+                for _ in range(STORE_LEAVES)]
+        want = HK.hist_series_plain("rate", block, gids, params, windows)
+
+        def leaves(lib=None):
+            kw = {"lib": lib} if lib else {}
+            return lambda: [HK._launch_series("rate", block, gids, params, windows, False,
+                                              o, **kw) for o in outs]
+
+        leaves()()
+        torch.cuda.synchronize()
+        if not torch.equal(outs[0].view(torch.int32), want.view(torch.int32)):
+            raise RuntimeError(f"{name}: K1 differs from hist_series_plain")
+        times[f"{name}: K1 x {STORE_LEAVES} leaves"] = timer(leaves(), reps=20)
+        times[f"{name}: K1 device"] = device_ms(leaves(), "hist_range", reps=10)
+        times[f"{name}: the plan"] = str(HK.LAST_SERIES_PLAN)
+        for variant, lib in libs.items():
+            times[f"{name}: {variant}"] = timer(leaves(lib=lib), reps=20)
+        acc = torch.zeros((2, pad_steps(J) * B), device=device)
+        cnt = torch.zeros_like(acc)
+        times[f"{name}: fused aggregate x {STORE_LEAVES} (the reads alone)"] = timer(
+            lambda: [HK._launch_range("rate", block, gids, 1, params, windows, False, acc, cnt)
+                     for _ in outs], reps=20)
+        times[f"{name}: fill_ of the {STORE_LEAVES} grids (the writes alone)"] = timer(
+            lambda: [o.fill_(1.0) for o in outs], reps=20)
+        times[f"{name}: grid bytes written"] = STORE_LEAVES * J * B * S * 4
+        for k, v in times.items():
+            if k.startswith(name):
+                print(f"{k}: {v if isinstance(v, (str, int)) else f'{v:.4f} ms'}", flush=True)
+        del outs, block, want
+        torch.cuda.empty_cache()
+    print(card)
+    print(json.dumps({"card": card, "package": str(package_root or "."), "ms": times}))
+    return 0
+
+
+TOPK_KS = (1, 3, 8, 16, 32, 33, 1000)  # --segment-topk: k of each case (3: phase 11's)
+# patches of ``--segment-topk --split`` for the step route: "step: launch
+# only" returns at once (the launch and its 100 KB blocks); "step: stage
+# only" returns once the column and its group-ordered copy are in shared
+# memory; "step: no output" selects but writes no column
+STEP_PATCHES = {
+    "step: launch only": [("order_stats.cu", "    const int j = blockIdx.x, J = gridDim.x;",
+                           "    const int j = blockIdx.x, J = gridDim.x;\n    if (k > 0) return;")],
+    "step: stage only": [("order_stats.cu",
+                          "    stage_column(grid + (size_t)j * ld, perm, n, bottom, keys, sorted);",
+                          "    stage_column(grid + (size_t)j * ld, perm, n, bottom, keys, sorted);\n"
+                          "    if (k > 0) return;")],
+    "step: no output": [("order_stats.cu", "    __syncthreads();  // every kept bit is set",
+                         "    if (k > 0) return;")],
+}
+
+
+def topk_leaf(device, n: int, seed: int):
+    """One leaf's ``rate``-like [J, n] step-major grid drawn on the card
+    (``chip_smoke.order_grid_on_card``'s values) and its members by zone:
+    every 8th series a group, as bench.py's tags interleave them."""
+    import torch
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  Path(__file__).resolve().parent / "chip_smoke.py")
+    CS = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(CS)
+    from filodb_tpu_torch.ops import order_stats as OS
+
+    grid = CS.order_grid_on_card(n, n, J, seed, device)[:, :n].contiguous()
+    gids = torch.arange(n, device=device) % 8
+    return grid, OS.segment_members(gids, 8)
+
+
+def topk_main(package_root: str | None, card: str, split: bool = False, device=None,
+              n: int = 12_500, timer=back_to_back_ms) -> int:
+    """``--segment-topk``: the grouped top-k (K2 of the tree's map phase,
+    ``filodb_segment_topk``) of the package at ``package_root`` (default
+    this checkout's) at phase 11's shape: ``topk by (zone) (k, rate)`` over
+    8 leaf grids of ``n`` series x 111 steps in 8 interleaved groups, all
+    8 launches back to back, for each k of ``TOPK_KS``, topk and bottomk;
+    where the package has the step route, also the per-group route of the
+    same build (the design the step route replaced), alternating: group,
+    step, step, group, and with ``split`` (at k = 3 and 16) the step route's
+    patched builds of ``STEP_PATCHES`` on the device. Every launch is first
+    held bit-equal to ``segment_topk_plain``."""
+    if package_root:
+        sys.path.insert(0, str(Path(package_root).resolve()))
+    import torch
+
+    import filodb_tpu_torch
+    from filodb_tpu_torch.ops import order_stats as OS
+
+    device = device or torch.device("cuda")
+    print(f"package {Path(filodb_tpu_torch.__file__).resolve().parent}")
+    OS._load()
+    leaves = [topk_leaf(device, n, seed) for seed in range(8)]
+    stepped = "by_step" in OS.order_plan.__code__.co_varnames
+    routes = ("group", "step", "step", "group") if stepped else ("plan",)
+    libs = {}
+    if split and stepped and device.type == "cuda":
+        with ThreadPoolExecutor(len(STEP_PATCHES)) as pool:
+            libs = dict(zip(STEP_PATCHES, pool.map(
+                lambda k: build_patched("order_stats", STEP_PATCHES[k], OS.bind), STEP_PATCHES)))
+    times = {}
+    for k in TOPK_KS:
+        for bottom in (False, True):
+            name = f"{'bottomk' if bottom else 'topk'} by (zone) ({k})"
+            plans = {}
+            for route in set(routes):
+                if route == "step" and k > OS.STEP_MAX_K:
+                    continue  # the step route takes k up to STEP_MAX_K
+                plan = (OS.order_plan("segment_topk", leaves[0][1], J, by_step=route == "step",
+                                      k=k) if stepped else None)
+                plans[route] = plan
+                grid, members = leaves[0]
+                out, thr = OS.segment_topk(grid, members, k, bottom, plan=plan)
+                w_out, w_thr = OS.segment_topk_plain(grid, members, k, bottom)
+                if not (torch.equal(out.view(torch.int32), w_out.view(torch.int32))
+                        and torch.equal(thr.view(torch.int32), w_thr.view(torch.int32))):
+                    raise RuntimeError(f"{name} ({route}): differs from segment_topk_plain")
+            for i, route in enumerate(routes):
+                if route not in plans:
+                    continue
+                plan = plans[route]
+
+                def call(plan=plan):
+                    return [OS.segment_topk(g, m, k, bottom, plan=plan) for g, m in leaves]
+
+                times.setdefault(f"{name}: {route}", []).append(timer(call, reps=20))
+                times.setdefault(f"{name}: {route} device", []).append(
+                    device_ms(call, "segment_topk"))
+                times.setdefault(f"{name}: {route} host per call", []).append(
+                    host_ms(lambda: call(), reps=20) / len(leaves))
+            for variant, lib in libs.items() if "step" in plans and k in (3, 16) else ():
+                plan = plans["step"]
+                times[f"{name}: {variant} device"] = device_ms(
+                    lambda: [OS.segment_topk(g, m, k, bottom, plan=plan, lib=lib)
+                             for g, m in leaves], "segment_topk")
+            if k == 3 and not bottom:
+                times[f"{name}: torch.topk at G = 1"] = timer(
+                    lambda: [torch.topk(g, 3, dim=1) for g, _ in leaves], reps=20)
+            for key, v in times.items():
+                if key.startswith(name):
+                    print(f"{key}: {v}", flush=True)
     print(card)
     print(json.dumps({"card": card, "package": str(package_root or "."), "ms": times}))
     return 0
@@ -668,6 +917,10 @@ def main() -> int:
     ap.add_argument("--hist", action="store_true", help="time the histogram kernel instead")
     ap.add_argument("--general", action="store_true",
                     help="time the general range kernel instead")
+    ap.add_argument("--segment-topk", action="store_true",
+                    help="time the grouped top-k (the tree's K2) instead")
+    ap.add_argument("--hist-store", action="store_true",
+                    help="time the histogram kernel's store mode (the tree's K1) instead")
     ap.add_argument("--order", action="store_true",
                     help="time the two order-statistics kernels instead")
     ap.add_argument("--package-root", default=None,
@@ -680,12 +933,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("tile_sweep: no CUDA device is available", file=sys.stderr)
         return 2
-    if args.hist or args.general or args.order:
+    if args.hist or args.general or args.order or args.hist_store or args.segment_topk:
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                "--format=csv,noheader"], capture_output=True, text=True,
                               check=True, timeout=60).stdout.strip()
         if args.order:
             return order_main(args.package_root, card, args.split)
+        if args.hist_store:
+            return store_main(args.package_root, card, args.split)
+        if args.segment_topk:
+            return topk_main(args.package_root, card, args.split)
         return (hist_main if args.hist else general_main)(args.package_root, card)
     from filodb_tpu_torch.ops import cuda_build
     from filodb_tpu_torch.ops import group_acc as GA
