@@ -417,6 +417,54 @@ def device_ms(fn, match: str, reps: int = 20) -> float:
     return total / reps / 1e3
 
 
+def graph_ms(fn, reps: int = 50) -> float:
+    """Device ms per call of ``fn`` captured ``reps`` times into one CUDA
+    graph and replayed between two CUDA events (median of 5 replays): a
+    launch shorter than its host enqueue, which back to back would time,
+    without the host in the way; the graph's gap between two kernels is in
+    it. ``torch.profiler`` reads such a kernel too, but in this script's
+    long process it missed the short launches of phase 10b."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return float(np.median(times))
+
+
+def host_ms(fn, reps: int = 200) -> float:
+    """Host ms per call of ``fn``: what it takes to enqueue a launch (the
+    wrapper's Python, ctypes and the CUDA runtime), the device drained
+    before and after."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e3
+
+
 def compare(got, want, what: str, rtol: float, atol: float = 0.0) -> float:
     """NaN masks equal and values within rtol/atol; returns the largest
     absolute difference."""
@@ -2892,7 +2940,9 @@ def phase_tree_kernels_vs_plain(seed: int, device, sizes=(1, 65, 4096)) -> dict:
     0.9, 1, 1.1}. Sorted: within 2 ulp (order statistics bit-equal), NaN
     masks and infinities equal; predict_linear and Holt-Winters: rtol 2e-4
     / atol 1e-4, NaN masks equal. Then the standalone quantile (K1) on
-    seeded classic rows, bit-equal."""
+    seeded classic rows (``gather_inputs``: G in {1, 8,
+    1000, 3000} x B in {1, 2, 12, 33, 64} x q in {-0.1, 0, 0.5, 0.99, 1,
+    1.1}), bit-equal, NaN masks too, and no out row written but its own."""
     import torch
 
     from filodb_tpu_torch.ops import aggregations as AGG
@@ -2940,29 +2990,66 @@ def phase_tree_kernels_vs_plain(seed: int, device, sizes=(1, 65, 4096)) -> dict:
             arg_err = max(arg_err, compare(got, want, f"2d {func}{args} {kind} S={S} T={T}",
                                            rtol=2e-4, atol=1e-4))
     require(long_windows > 0, "2d: no window reached the warp's radix route")
-    rng = np.random.default_rng(seed)
-    G, J, les = 40, 111, np.array([-1, 0.1, 0.5, 1, 5, np.inf], np.float32)
-    part = torch.tensor(np.cumsum(rng.poisson(3.0, (G, len(les), J)), axis=1)
-                        .reshape(G * len(les), J).astype(np.float32), device=device)
-    part[5:9, 3:7] = float("nan")
-    table = torch.arange(G * len(les), dtype=torch.int32, device=device).reshape(G, -1)
-    rows = torch.arange(G, dtype=torch.int32, device=device)
-    les_t = torch.tensor(les, device=device)
-    for q in (-0.1, 0.0, 0.5, 0.99, 1.0, 1.1):
-        out = torch.full((G, 128), float("nan"), device=device)
-        HK.histogram_quantile_gather(q, part, table, rows, les_t, J, out)
-        want = HK.histogram_quantile_gather_plain(q, part, table, les_t, J)
-        require(torch.equal(torch.isnan(out[:, :J]), torch.isnan(want)) and torch.equal(
-            out[:, :J][~torch.isnan(want)], want[~torch.isnan(want)]),
-            f"2d hist_quantile_gather q={q}: differs from plain")
+    gather_err, gather_cases = 0.0, 0
+    for G in GATHER_GROUPS:
+        for B in GATHER_BUCKETS:
+            part, table, rows, les_t, n_out = gather_inputs(G, B, 111, seed + G + B, device)
+            HK.check_gather_table(table, rows, les_t)
+            for q in GATHER_QS:
+                out = torch.full((n_out, 128), float("nan"), device=device)
+                HK.histogram_quantile_gather(q, part, table, rows, les_t, 111, out)
+                want = torch.full_like(out, float("nan"))
+                want[rows.long(), :111] = HK.histogram_quantile_gather_plain(
+                    q, part, table, les_t, 111)
+                m = ~torch.isnan(want)
+                require(torch.equal(torch.isnan(out), ~m) and torch.equal(out[m], want[m]),
+                        f"2d hist_quantile_gather G={G} B={B} q={q}: differs from plain")
+                gather_err = max(gather_err, float((out[m] - want[m]).abs().max())
+                                 if m.any() else 0.0)
+                gather_cases += 1
     print(f"phase2d sorted_window ({len(TREE_SORTED_CASES)} functions x {len(blocks)} blocks, "
           f"{long_windows} windows past the {SW.LANE_CAP}-sample lane cap on the warp's radix "
           f"route, rows of 8192 read in place) within "
           f"{worst_ulp} ulp of plain; predict_linear and Holt-Winters on the general kernel "
           f"match plain (max_abs_err {arg_err:.3g}); hist_quantile_gather bit-equal to plain "
-          f"at q in -0.1..1.1")
+          f"in {gather_cases} cases (G {GATHER_GROUPS}, B {GATHER_BUCKETS}, q {GATHER_QS}; "
+          f"groups with no member, rows < 0)")
     return {"sorted_max_ulp": worst_ulp, "arg_max_abs_err": arg_err, "launches": launches,
-            "radix_windows": long_windows}
+            "radix_windows": long_windows, "gather_max_abs_err": gather_err,
+            "gather_cases": gather_cases}
+
+
+GATHER_GROUPS = (1, 8, 1_000, 3_000)  # phase 2d's classic quantile groups
+GATHER_BUCKETS = (1, 2, 12, 33, 64)
+GATHER_QS = (-0.1, 0.0, 0.5, 0.99, 1.0, 1.1)
+
+
+def gather_inputs(G: int, B: int, J: int, seed: int, device):
+    """(part, table, rows, les, out rows) of G classic groups of B buckets:
+    cumulative counts in the rows of a by-(le, ...) aggregate's partials
+    ([G * B + 7, 128], a few counts absent), the groups' rows in a drawn
+    order, every 5th group with no member (all its rows NaN), every 7th
+    group with one table entry < 0, bounds with a first one <= 0 in every
+    other scheme; the quantiles go to every other of 2 G out rows."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    les = np.sort(rng.uniform(0.05, 50.0, B - 1)).astype(np.float32)
+    if B > 1 and seed % 2:
+        les[0] = -1.0
+    les = np.concatenate([les, [np.inf]]).astype(np.float32)
+    n_rows = G * B + 7
+    part = np.full((n_rows, 128), np.nan, np.float32)
+    counts = np.cumsum(rng.poisson(3.0, (G, B, 111)), axis=1).astype(np.float32)
+    counts[rng.random(counts.shape) < 0.02] = np.nan
+    counts[::5] = np.nan  # a group with no member
+    perm = rng.permutation(n_rows)[: G * B]
+    part[perm, :J] = counts.reshape(G * B, 111)[:, :J]
+    table = perm.reshape(G, B).astype(np.int32)
+    table[::7, B // 2] = -1
+    rows = (2 * rng.permutation(G) + 1).astype(np.int32)
+    return (torch.tensor(part, device=device), torch.tensor(table, device=device),
+            torch.tensor(rows, device=device), torch.tensor(les, device=device), 2 * G)
 
 
 # -- phase 10: the reference tree at full width ------------------------------------
@@ -3442,22 +3529,32 @@ def phase_classic(device, card: str) -> dict:
         def gather():
             HK.histogram_quantile_gather(q, agg, table, rws, les, J, buf)
 
+        def empty():
+            HK.empty_launch(Gq, J, agg.device)
+
+        Gq, B = table.shape
         k_ms = cuda_ms(gather, reps=20)
         k_b2b = back_to_back_ms(gather)
+        k_graph = graph_ms(gather)
+        k_host = host_ms(gather)
+        floor_graph = graph_ms(empty)
         p_ms = cuda_ms(lambda: HK.histogram_quantile_gather_plain(q, agg, table, les, J), reps=20)
-        Gq, B = table.shape
         need = Gq * B * J * 4 + Gq * J * 4 + Gq * B * 4 + Gq * 4 + B * 4
         bound_ms = need / HBM_BYTES_PER_S * 1e3
         print(f"phase10b {query!r}: {G} by-(le, ...) groups -> {len(labels)} quantile rows x "
               f"{J} steps; cold {cold_s * 1e3:.1f} ms, warm {warm_s * 1e3:.1f} ms; one "
               f"regular_range launch plus one hist_quantile_gather launch (1 scheme) each; "
               f"matches the plain fold (max_abs_err {err:.3g}) and bench.py's f64 oracle "
-              f"(max_abs_err {oracle_err:.3g}, rtol 5e-3); gather {k_ms:.4f} ms (median of 20; "
-              f"{k_b2b:.4f} ms back to back), bound {bound_ms:.6f} ms ({need} bytes), plain "
-              f"{p_ms:.4f} ms; on {card}")
+              f"(max_abs_err {oracle_err:.3g}, rtol 5e-3); gather {k_ms:.4f} ms a call between "
+              f"events (median of 20), {k_b2b:.4f} ms back to back, {k_graph:.5f} ms on the "
+              f"device (CUDA graph replay), host enqueue {k_host:.4f} ms a call; an empty "
+              f"kernel over the same blocks {floor_graph:.5f} ms on the device (graph replay); "
+              f"bound {bound_ms:.6f} ms ({need} bytes), plain {p_ms:.4f} ms; on {card}")
         out[query] = {"cold_ms": cold_s * 1e3, "warm_ms": warm_s * 1e3, "groups": G,
                       "rows": len(labels), "max_abs_err": err, "oracle_max_abs_err": oracle_err,
-                      "kernel_ms": k_ms, "kernel_ms_back_to_back": k_b2b, "plain_ms": p_ms,
+                      "kernel_ms": k_ms, "kernel_ms_back_to_back": k_b2b,
+                      "kernel_device_ms": k_graph, "host_enqueue_ms": k_host,
+                      "empty_launch_device_ms": floor_graph, "plain_ms": p_ms,
                       "bound_ms": bound_ms, "bound_bytes": need, "aggregate_launches": 2,
                       "gather_launches": 2}
     return out
@@ -4118,11 +4215,13 @@ def tree_agg_rows(tree_agg: dict, kernels: dict, phase2e: dict, rung_rows: dict,
          "cases_phase2e": phase2e["segment_topk_cases"]}]
 
 
-def tree_kernel_rows(tree: dict, kernels: dict, classic: dict, rung_rows: dict) -> list:
+def tree_kernel_rows(tree: dict, kernels: dict, classic: dict, rung_rows: dict,
+                     subqueries: dict) -> list:
     """The kernels line's rows of the tree's kernels (sorted_window, the
     general kernel's predict_linear and Holt-Winters, the standalone
     quantile), timed at phase 10's irregular store (phase 10b for the
-    quantile); phase 10's launches of the older rungs go to their rows."""
+    quantile); phase 10's launches of the older rungs go to their rows, and
+    phase 13's launches to their kernels' rows."""
     irr = tree["irregular"]
     for per_store in tree.values():
         for q, row in per_store.items():
@@ -4155,19 +4254,286 @@ def tree_kernel_rows(tree: dict, kernels: dict, classic: dict, rung_rows: dict) 
     ]
     rows[0]["sorted_max_ulp_phase2d"] = kernels["sorted_max_ulp"]
     rung_rows["mxu"]["launches"] += sum(r["aggregate_launches"] for r in classic.values())
+    by_kernel = {"window_range": rung_rows["window_stats"], "regular_range": rung_rows["mxu"],
+                 "general_range": rung_rows["general"], "sorted_window": rows[0]}
+    for per_store in subqueries.values():  # phase 13: inner leaves, fused inners, outer launches
+        for row in per_store.values():
+            for name, n in row.get("launches", {}).items() if isinstance(row, dict) else ():
+                by_kernel[name]["launches"] += n
     first = classic[CLASSIC_QUERIES[0][1]]
     rows.append({
         "name": "hist_quantile_gather", "route": "cuda",
         "source": "filodb_tpu_torch/csrc/hist_range.cu",
         "replaces": "filodb_tpu/ops/hist_kernels.py:86",
         "launches": sum(r["gather_launches"] for r in classic.values()),
-        "max_abs_err": max(r["max_abs_err"] for r in classic.values()),
+        "max_abs_err": max([kernels["gather_max_abs_err"]]
+                           + [r["max_abs_err"] for r in classic.values()]),
+        "max_abs_err_phase2d": kernels["gather_max_abs_err"],
         "ms": first["kernel_ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
         "bound_by": "bytes", "library_ms": None,
         "library_call": "none: no torch call interpolates histogram_quantile",
         "ms_back_to_back": first["kernel_ms_back_to_back"],
-        "ms_is": f"{CLASSIC_QUERIES[0][1]}, phase 10b", "queries": classic})
+        "device_ms": first["kernel_device_ms"], "host_enqueue_ms": first["host_enqueue_ms"],
+        "empty_launch_device_ms": first["empty_launch_device_ms"],
+        "ms_is": f"{CLASSIC_QUERIES[0][1]}, phase 10b; device_ms and empty_launch_device_ms "
+                 f"by CUDA graph replay", "queries": classic})
     return rows
+
+
+# -- phase 13: subqueries, the raw export and the metadata plans ------------------------
+
+# (query, instant, repeatable): phase 13's subqueries on phase 4's and phase
+# 5's stores. deriv's inner sum by zone is the fused aggregate, whose float
+# atomics add its 12,500 rates a zone in another order each run; the slope
+# of those sums moves by more than rtol 1e-3 between runs, so its warm run
+# is held to the first by labels and NaN masks only (each run's outer
+# launch is held to its plain version over its own re-staged block)
+SUBQUERY_QUERIES = (
+    ("max_over_time(rate(http_requests_total[5m])[10m:1m])", False, True),
+    ("quantile_over_time(0.9, rate(http_requests_total[5m])[10m:1m])", False, True),
+    ("deriv(sum by (zone) (rate(http_requests_total[5m]))[30m:1m])", False, False),
+    ("rate(http_requests_total[5m])[10m:1m]", True, True),
+)
+# the raw export's selection: 990 of bench.py's 100k instances (host-1000 .. host-99009)
+RAW_EXPORT_QUERY = 'http_requests_total{instance=~"host-[0-9]*00[0-9]"}[5m]'
+
+
+def subquery_plain(func: str, variant: str, b, params, is_counter: bool, args):
+    """A subquery's outer range function through the plain version of the
+    rung that served it, over the same re-staged block on the card: [S_pad,
+    J] values."""
+    from filodb_tpu_torch.ops import general_range as GR
+    from filodb_tpu_torch.ops import mxu_kernels as MK
+    from filodb_tpu_torch.ops import sorted_window as SW
+    from filodb_tpu_torch.ops import window_stats as WS
+    from filodb_tpu_torch.ops.kernels import pad_steps
+
+    J, start_off = params.num_steps, int(params.start_ms - b.base_ms)
+    if variant == "sorted":
+        q, a1 = SW.func_args(args)
+        return SW.sorted_window_plain(func, b.ts, b.vals, b.lens, start_off, params.step_ms,
+                                      params.window_ms, J, q, a1)
+    if variant == "general":
+        return GR.general_range_series_plain(func, b, params, args=args,
+                                             is_counter=is_counter)[:, :J]
+    if variant == "window_stats":
+        return WS.window_range_series_plain(func, b, params, is_counter=is_counter)[:, :J]
+    raw = b.raw if b.raw is not None else b.vals
+    wm = MK.window_matrices(b, start_off, params.step_ms, pad_steps(J), params.window_ms)
+    return MK.mxu_range_plain(func, b.vals, raw, wm, params.window_ms,
+                              is_counter=is_counter)[:, :J]
+
+
+def run_subquery(engine, q: str, instant: bool):
+    """One phase-13 query through the engine's planner and the plan's
+    execution (the entry points' own calls, so that the context's host split
+    can be read), every launch count set to 0 just before and read just
+    after: each range-function dispatch (the inner leaves and each inner
+    grid's outer launch) one launch of its rung's kernel, a fused inner
+    aggregate one of its rung's, and no other kernel. Returns the rows by
+    labels, the end-to-end seconds, the host split, the launch counts and
+    the outer dispatches (func, variant, block, params, is_counter, args,
+    output)."""
+    import importlib
+    from collections import Counter
+
+    import torch
+
+    from filodb_tpu_torch.ops import kernels as K
+    from filodb_tpu_torch.query.exec.joins import SubqueryWindowExec
+    from filodb_tpu_torch.query.promql import query_range_to_logical_plan, query_to_logical_plan
+
+    mods = {name: importlib.import_module(f"filodb_tpu_torch.ops.{mod}")
+            for name, (mod, _) in KERNEL_COUNTERS.items()}
+    seen, outer = [], []
+    dispatch = K._dispatch_range_function
+
+    def watched(func, block, params, **kw):
+        out = dispatch(func, block, params, **kw)
+        seen.append(out[1])
+        if not block.part_refs:  # a re-staged inner grid: a leaf's block names its partitions
+            outer.append((func, out[1], block, params, kw.get("is_counter", False),
+                          kw.get("args", ()), out[0]))
+        return out
+
+    t0 = time.perf_counter()
+    logical = (query_to_logical_plan(q, END_S) if instant
+               else query_range_to_logical_plan(q, START_S, END_S, STEP_S))
+    plan = engine.planner.materialize(logical)
+    t1 = time.perf_counter()
+    ctx = engine.context()
+    K._dispatch_range_function = watched
+    try:
+        for name, (_, attr) in KERNEL_COUNTERS.items():
+            setattr(mods[name], attr, 0)
+        t2 = time.perf_counter()
+        res = plan.execute(ctx)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        rows = {tuple(sorted(l.items())): v for g in res.grids
+                for l, v in zip(g.labels, g.values_np())}
+        t4 = time.perf_counter()
+        counts = {name: getattr(mods[name], attr) for name, (_, attr) in KERNEL_COUNTERS.items()}
+    finally:
+        K._dispatch_range_function = dispatch
+    want = Counter(TREE_KERNELS[v] for v in seen if TREE_KERNELS[v])
+    if ctx.obs.get("path") == "fused":
+        want[RUNGS[ctx.obs["variant"]]] += 1
+    want = {k: want.get(k, 0) for k in KERNEL_COUNTERS}
+    require(counts == want, f"{q}: launches {counts}, expected {want} (rungs {seen})")
+    require(isinstance(plan, SubqueryWindowExec) != instant,
+            f"{q}: planned as {type(plan).__name__}")
+    splits = ctx.obs.get("subquery", [])
+    split = {"plan_ms": (t1 - t0) * 1e3, "execute_ms": (t3 - t2) * 1e3,
+             "rows_ms": (t4 - t3) * 1e3}
+    for k in ("inner_ms", "fetch_ms", "restage_ms", "upload_ms", "launch_ms"):
+        split[k] = sum(sp[k] for sp in splits)
+    return rows, t4 - t0, split, counts, outer, plan
+
+
+def check_subquery_outer(outer, what: str) -> float:
+    """Each outer launch's rows against the plain version of its rung over
+    the same re-staged block (rtol 1e-3, NaN masks equal)."""
+    err = 0.0
+    for func, variant, block, params, is_counter, args, got in outer:
+        if variant == "host":
+            continue
+        want = subquery_plain(func, variant, block, params, is_counter, args)
+        n, J = block.n_series, params.num_steps
+        err = max(err, compare(got[:n, :J], want[:n, :J], f"{what} ({variant})", rtol=1e-3))
+    return err
+
+
+def restage_check(engine, plan) -> dict:
+    """The subquery's inner grids as one [rows, J'] array on the host
+    re-staged by ``stage_step_rows`` against ``stage_series`` over the same
+    (times, values) pairs of each row: bit-equal, counter-corrected as the
+    outer rate re-stages them and raw."""
+    from filodb_tpu_torch.ops import staging as ST
+
+    inner = plan.child_plans[0].execute(engine.context())
+    v = np.concatenate([g.values_np() for g in inner.grids])
+    times = inner.grids[0].step_times_ms()
+    base = plan.start_ms - plan.window_ms - plan.offset_ms
+    series = [(times[~np.isnan(r)], r[~np.isnan(r)].astype(np.float64)) for r in v]
+    out = {"rows": int(v.shape[0])}
+    for corrected in (True, False):
+        t0 = time.perf_counter()
+        got = ST.stage_step_rows(v, times, base, counter_corrected=corrected)
+        t1 = time.perf_counter()
+        want = ST.stage_series(series, base, counter_corrected=corrected)
+        t2 = time.perf_counter()
+        for name in ("ts", "vals", "lens", "baseline", "raw", "base64"):
+            a, b = getattr(got, name), getattr(want, name)
+            require((a is None) == (b is None) and (b is None or (
+                a.shape == b.shape and np.array_equal(a.view(np.uint8), b.view(np.uint8)))),
+                f"phase13 re-staging ({'corrected' if corrected else 'raw'}): {name} differs "
+                f"from stage_series")
+        require(got.regular_ts is None if want.regular_ts is None
+                else np.array_equal(got.regular_ts, want.regular_ts),
+                "phase13 re-staging: the grid class differs from stage_series")
+        key = "corrected" if corrected else "raw"
+        out[f"{key}_ms"] = (t1 - t0) * 1e3
+        out[f"{key}_stage_series_ms"] = (t2 - t1) * 1e3
+    return out
+
+
+def phase_subqueries(engine, card: str, grid: str) -> dict:
+    """Phase 13 on a 100k-series store (phase 4's irregular or phase
+    5's regular one): each ``SUBQUERY_QUERIES`` query first (on the caches
+    phase 11 and the queries before it left: phase 11 has just staged the
+    inner selection cold) then warm, through ``run_subquery`` (launches
+    checked), warm
+    equal to first (rtol 1e-3; labels and NaN masks only where not
+    repeatable), each outer launch against its rung's plain
+    version over the same re-staged block (``check_subquery_outer``); the
+    host split of the warm run (plan, inner execution, fetch, re-stage,
+    upload, outer launches, rows to the host); on the irregular store the
+    re-staging of the first query's 100k inner rows against
+    ``stage_series`` (``restage_check``). Then the metadata plans and a raw
+    export of 990 series, each against a direct scan of the shards'
+    partitions."""
+    from filodb_tpu_torch.core.filters import ColumnFilter
+
+    t_phase = time.perf_counter()
+    out = {}
+    for i, (q, instant, repeatable) in enumerate(SUBQUERY_QUERIES):
+        first_rows, first_s, first_split, first_counts, first_outer, plan = run_subquery(
+            engine, q, instant)
+        first_err = check_subquery_outer(first_outer, f"phase13 {grid} {q} (first)")
+        del first_outer
+        rows, warm_s, split, counts, outer, plan = run_subquery(engine, q, instant)
+        err = check_subquery_outer(outer, f"phase13 {grid} {q}")
+        require(sorted(rows) == sorted(first_rows) and rows and all(
+            np.array_equal(np.isnan(rows[k]), np.isnan(first_rows[k])) for k in rows),
+            f"phase13 {q}: warm rows or NaN masks differ from the first run")
+        rel = max(float(np.nanmax(np.abs(rows[k] - first_rows[k]) / np.maximum(
+            np.abs(first_rows[k]), 1e-30), initial=0.0)) for k in rows)
+        require(rel <= 1e-3 or not repeatable, f"phase13 {q}: warm differs from the first run "
+                f"by {rel:.3g} relative")
+        nonnan = sum(int(np.isfinite(v).sum()) for v in rows.values())
+        require(nonnan > 0, f"phase13 {q}: no finite value")
+        row = {"first_ms": first_s * 1e3, "warm_ms": warm_s * 1e3, "rows": len(rows),
+               "warm_vs_first_max_rel": rel,
+               "finite_values": nonnan,
+               "launches": {k: v + first_counts[k] for k, v in counts.items()
+                            if v + first_counts[k]},
+               "outer_rungs": sorted({o[1] for o in outer}), "outer_launches": len(outer),
+               "max_abs_err": max(err, first_err), "first_split": first_split, **split}
+        if i == 0 and grid == "irregular":
+            row["restage"] = restage_check(engine, plan)
+        out[q] = row
+        print(f"phase13 {grid} {q!r}{' (instant)' if instant else ''}: {len(rows)} rows; first "
+              f"{first_s * 1e3:.1f} ms, warm {warm_s * 1e3:.1f} ms (plan {split['plan_ms']:.1f}, "
+              f"execute {split['execute_ms']:.1f}: inner {split['inner_ms']:.1f}, fetch "
+              f"{split['fetch_ms']:.1f}, re-stage {split['restage_ms']:.1f}, upload "
+              f"{split['upload_ms']:.1f}, outer launches {split['launch_ms']:.1f}; rows to the "
+              f"host {split['rows_ms']:.1f}); launches of both runs {row['launches']} (outer "
+              f"{row['outer_rungs']} x {len(outer)}); outer matches plain (max_abs_err "
+              f"{row['max_abs_err']:.3g}); warm vs first {rel:.3g} relative{'; re-staged ' + str(row['restage']) if 'restage' in row else ''}; "
+              f"on {card}")
+        del outer
+    ms, ds = engine.memstore, engine.dataset
+    parts = [p for sh in ms.shards(ds) for p in sh.partitions.values()]
+    meta = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        got = fn()
+        meta[name] = {"host_ms": (time.perf_counter() - t0) * 1e3}
+        return got
+
+    got = timed("label_values zone", lambda: engine.label_values([], "zone", 0, 2**62))
+    require(got == sorted({p.tags["zone"] for p in parts}), "phase13 label_values differ")
+    got = timed("label_names", lambda: engine.label_names([], 0, 2**62))
+    require(got == sorted({k for p in parts for k in p.tags}), "phase13 label_names differ")
+    regex = ColumnFilter("instance", "=~", "host-1[0-9]*7")
+    got = timed("series instance=~host-1[0-9]*7", lambda: engine.series([regex], 0, 2**62))
+    want = sorted(tuple(sorted(p.tags.items())) for p in parts if regex.matches(p.tags["instance"]))
+    require(sorted(tuple(sorted(t.items())) for t in got) == want and want,
+            "phase13 series differ")
+    meta["series instance=~host-1[0-9]*7"]["series"] = len(got)
+    got = timed("ts_cardinalities depth 3", lambda: engine.ts_cardinalities([], 3))
+    require([(tuple(r["prefix"]), r["ts_count"]) for r in got] == [
+        (("demo", "App-2", "http_requests_total"), len(parts))], "phase13 ts_cardinalities differ")
+    t0 = time.perf_counter()
+    res = engine.query_range(RAW_EXPORT_QUERY, START_S, END_S, STEP_S)
+    meta["raw export"] = {"host_ms": (time.perf_counter() - t0) * 1e3, "series": len(res.raw)}
+    lo = int(START_S * 1000) - 300_000
+    sel = ColumnFilter("instance", "=~", "host-[0-9]*00[0-9]")
+    want = {p.tags["instance"]: p.samples_in_range(lo, int(END_S * 1000), "count")
+            for p in parts if sel.matches(p.tags["instance"])}
+    require(len(res.raw) == len(want) > 0 and all(
+        np.array_equal(ts, want[l["instance"]][0]) and np.array_equal(v, want[l["instance"]][1])
+        for l, ts, v in res.raw), "phase13 raw export differs from the partitions' samples")
+    print(f"phase13 {grid} metadata: " + "; ".join(
+        f"{k} {v['host_ms']:.1f} ms" + (f" ({v['series']} series)" if "series" in v else "")
+        for k, v in meta.items()) + f", each equal to a direct scan of the {len(parts)} "
+        f"partitions; on {card}")
+    out["metadata"] = meta
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase13 {grid}: {out['phase_s']:.1f} s")
+    return out
 
 
 # -- phases 2f and 12: the reference tree over native histograms -----------------------
@@ -4658,6 +5024,8 @@ def main() -> int:
     tree_agg = {"irregular": phase_tree_aggregates(engine, card, "irregular")}
     agg_kernels = tree_agg_kernels(engine, card, "irregular")
     elapsed("phase 11 (irregular)")
+    subqueries = {"irregular": phase_subqueries(engine, card, "irregular")}
+    elapsed("phase 13 (irregular)")
     del engine
     gc.collect()  # the irregular store goes before the regular one is built
     torch.cuda.empty_cache()
@@ -4673,6 +5041,8 @@ def main() -> int:
     elapsed("phase 10 (regular)")
     tree_agg["regular"] = phase_tree_aggregates(engine, card, "regular")
     elapsed("phase 11 (regular)")
+    subqueries["regular"] = phase_subqueries(engine, card, "regular")
+    elapsed("phase 13 (regular)")
     del engine
     gc.collect()  # the regular store goes before the jittered one is built
     torch.cuda.empty_cache()
@@ -4789,17 +5159,18 @@ def main() -> int:
                                            "mxu": reg_row}, order_stream)
     print(json.dumps({"epilogues": {"phase9": epilogues, "phase9b": order_stream}}))
     rung_rows = {"window_stats": wr_row, "mxu": reg_row, "general": general_row}
-    tree_rows = tree_kernel_rows(tree, tree_kernels, classic, rung_rows)
+    tree_rows = tree_kernel_rows(tree, tree_kernels, classic, rung_rows, subqueries)
     agg_rows = tree_agg_rows(tree_agg, agg_kernels, tree_aggs_2e, rung_rows,
                              order_rows + tree_rows)
     agg_rows[0]["launches"] += sum(t["launches"]["segment_agg"] for t in hist_tree.values())
     hist_rows_12 = hist_tree_rows(hist_tree, hist_2f)
     print(json.dumps({"tree": {"phase2d": tree_kernels, "phase2e": tree_aggs_2e, "phase10": tree,
                                "phase10b": classic, "phase10c": month, "phase11": tree_agg,
-                               "phase11_kernels": agg_kernels}}))
+                               "phase11_kernels": agg_kernels, "phase13": subqueries}}))
     print(json.dumps({"hist_tree": {"phase2f": hist_2f, "phase12": hist_tree}}))
     print(json.dumps({"kernels": [ws_row, wr_row, general_row, reg_row, *hist_rows,
                                   *order_rows, *tree_rows, *agg_rows, *hist_rows_12]}))
+    elapsed("all phases")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,8 +28,15 @@ The port plans:
 
 A range whose selection spans more than the int32 ms offsets of a staged
 block is cut into time slices planned one by one under a ``StitchRvsExec``
-(``materialize``). Subqueries, ``_filodb_chunkmeta_all`` and the metadata
-plans raise ``NotImplementedError`` naming their ROADMAP item.
+(``materialize``). Subqueries nest at any depth: ``func(<expr>[w:s])``
+becomes a ``SubqueryWindowExec`` over the inner expression's plan, a
+top-level ``<expr>[w:s]`` the inner plan itself. A top-level range
+selector ``m[w]`` exports its raw samples (one ``RawChunkExportExec`` per
+shard), and ``_filodb_chunkmeta_all`` its chunks (``ChunkMetaExec``). The
+metadata plans (label values and names, series, cardinalities) run on the
+local shards (``MetadataExec``, ``TsCardinalitiesExec``); the JAX
+package's scatter to peer processes needs the server's transport
+(ROADMAP A6), so a planner given peers raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -45,17 +52,18 @@ from ..memstore.index import _LITERAL_ALT
 from ..ops import staging as ST
 from ..query import logical as L
 from ..query.exec.joins import (BinaryJoinExec, ScalarPlanExec, ScalarVaryingExec,
-                                ScalarVectorOpExec, SetOperatorExec)
+                                ScalarVectorOpExec, SetOperatorExec, SubqueryWindowExec)
 from ..query.exec.plans import (_PARTIAL_COMPONENTS, FUSED_AGG_OPS, FUSED_EPI_OPS,
-                                AggregateMapReduce, AggregatePresentExec, CountValuesMergeExec,
-                                DistConcatExec, EmptyResultExec, ExecPlan, FusedAggregateExec,
-                                QueryContext, ReduceAggregateExec, SelectRawPartitionsExec,
-                                StitchRvsExec)
+                                AggregateMapReduce, AggregatePresentExec, ChunkMetaExec,
+                                CountValuesMergeExec, DistConcatExec, EmptyResultExec, ExecPlan,
+                                FusedAggregateExec, QueryContext, RawChunkExportExec,
+                                ReduceAggregateExec, SelectRawPartitionsExec, StitchRvsExec)
 from ..query.exec.transformers import (AbsentFunctionMapper, CountValuesMapReduce,
                                        InstantVectorFunctionMapper, LimitFunctionMapper,
                                        MiscellaneousFunctionMapper, PeriodicSamplesMapper,
                                        QueryError, SortFunctionMapper, TopkCandidateFilter)
 from ..query.promql import query_range_to_logical_plan, query_to_logical_plan
+from ..query.rangevector import QueryResult
 
 # the range functions of the fused path, the JAX package's set
 # (filodb_tpu/query/exec/plans.py FUSED_FUNCS): every one runs on some rung
@@ -83,6 +91,70 @@ class PlannerParams:
     # single-dispatch cross-shard aggregates; off, every aggregate takes the
     # reference tree
     fused_aggregate: bool = True
+    # base URLs of peer processes owning the cluster's other shards: the
+    # JAX package scatters to them; the port has no transport to do so
+    # until its server lands (ROADMAP A6), so a planner given any raises
+    peer_endpoints: tuple = ()
+
+
+class TsCardinalitiesExec(ExecPlan):
+    """Cardinality scan by shard-key prefix (reference TsCardExec): the
+    records ``depth`` keys deep under ``prefix`` of every local shard's
+    cardinality trie, merged by prefix, the largest first."""
+
+    def __init__(self, prefix: Sequence[str], depth: int | None = None):
+        super().__init__()
+        self.prefix = tuple(prefix)
+        self.depth = depth if depth is not None else len(self.prefix) + 1
+
+    def args_str(self) -> str:
+        return f"prefix={','.join(self.prefix)} depth={self.depth}"
+
+    def do_execute(self, ctx: QueryContext) -> QueryResult:
+        merged: dict[tuple, dict] = {}
+        for sh in ctx.memstore.shards(ctx.dataset):
+            for rec in sh.cardinality.scan(list(self.prefix), self.depth):
+                slot = merged.setdefault(rec.prefix, {"prefix": list(rec.prefix), "ts_count": 0,
+                                                      "active": 0, "children": 0})
+                slot["ts_count"] += rec.ts_count
+                slot["active"] += rec.active_ts_count
+                slot["children"] = max(slot["children"], rec.children)
+        return QueryResult(metadata=sorted(merged.values(), key=lambda r: -r["ts_count"]),
+                           result_type="metadata")
+
+
+class MetadataExec(ExecPlan):
+    """Label values, label names and the label sets of the matching series
+    over the local shards (reference MetadataExecPlan execs), at most
+    ``limit`` of them where one is set."""
+
+    def __init__(self, kind: str, filters, start_ms: int, end_ms: int,
+                 label: str | None = None, limit=None):
+        super().__init__()
+        self.kind = kind
+        self.filters = tuple(filters)
+        self.start_ms = start_ms
+        self.end_ms = end_ms
+        self.label = label
+        self.limit = limit
+
+    def do_execute(self, ctx: QueryContext) -> QueryResult:
+        ms, ds = ctx.memstore, ctx.dataset
+        if self.kind == "label_values":
+            meta = ms.label_values(ds, self.filters, self.label, self.start_ms, self.end_ms,
+                                   self.limit)
+        elif self.kind == "label_names":
+            meta = ms.label_names(ds, self.filters, self.start_ms, self.end_ms)
+        elif self.kind == "series":
+            meta = [dict(t) for t in ms.series(ds, self.filters, self.start_ms, self.end_ms,
+                                               self.limit)]
+        else:
+            raise QueryError(f"unknown metadata query {self.kind}")
+        return QueryResult(metadata=meta, result_type="metadata")
+
+
+_METADATA_KINDS = {L.LabelValues: "label_values", L.LabelNames: "label_names",
+                   L.SeriesKeysByFilters: "series"}
 
 
 class SingleClusterPlanner:
@@ -96,6 +168,10 @@ class SingleClusterPlanner:
         self.dataset = dataset
         self.params = params or PlannerParams()
         self._shards = shard_nums
+        if self.params.peer_endpoints:
+            raise NotImplementedError(
+                "peer scatter (peer_endpoints) is not ported: it needs the server's transport, "
+                "ROADMAP A6")
 
     def shards_for(self, filters) -> list[int]:
         """Shard fan-out for a selector (reference shardsFromFilters): when
@@ -230,6 +306,10 @@ class SingleClusterPlanner:
             return self._fanout(lambda s: SelectRawPartitionsExec(
                 s, p.raw.filters, p.raw.start_ms, p.raw.end_ms, p.raw.column), [mapper],
                 filters=p.raw.filters)
+        if isinstance(p, L.RawSeries):
+            # a top-level m[w]: the raw samples, read on the host
+            return self._fanout(lambda s: RawChunkExportExec(s, p.filters, p.start_ms, p.end_ms,
+                                                             p.column), [], filters=p.filters)
         if isinstance(p, L.Aggregate):
             return self._materialize_aggregate(p)
         if isinstance(p, L.BinaryJoin):
@@ -267,8 +347,14 @@ class SingleClusterPlanner:
             return self._with(p.inner, InstantVectorFunctionMapper(p.function, p.args))
         if isinstance(p, L.ApplyMiscellaneousFunction):
             if p.function == "_filodb_chunkmeta_all":
-                raise NotImplementedError(
-                    "_filodb_chunkmeta_all (chunk metadata) is not ported: ROADMAP A3, metadata")
+                leaves = L.leaf_raw_series(p)
+                if len(leaves) != 1:
+                    raise QueryError("_filodb_chunkmeta_all needs exactly one selector, "
+                                     f"got {len(leaves)}")
+                raw = leaves[0]
+                plans = [ChunkMetaExec(s, raw.filters, raw.start_ms, raw.end_ms)
+                         for s in self.shards_for(raw.filters)]
+                return plans[0] if len(plans) == 1 else DistConcatExec(plans)
             return self._with(p.inner, MiscellaneousFunctionMapper(p.function, p.str_args))
         if isinstance(p, L.ApplySortFunction):
             return self._with(p.inner, SortFunctionMapper(p.descending))
@@ -283,13 +369,17 @@ class SingleClusterPlanner:
             return ScalarPlanExec(p, p.start_ms, p.step_ms or 1, nsteps)
         if isinstance(p, L.ScalarVaryingDoublePlan):
             return ScalarVaryingExec(self._materialize(p.inner), p.function)
-        if isinstance(p, (L.SubqueryWithWindowing, L.TopLevelSubquery)):
-            raise NotImplementedError(
-                "subqueries (SubqueryWindowExec) are not ported: ROADMAP A3, subqueries")
-        if isinstance(p, (L.LabelValues, L.LabelNames, L.SeriesKeysByFilters,
-                          L.TsCardinalities)):
-            raise NotImplementedError(
-                f"{type(p).__name__} (metadata) plans are not ported: ROADMAP A3, metadata")
+        if isinstance(p, L.SubqueryWithWindowing):
+            return SubqueryWindowExec(self._materialize(p.inner), p.function, p.window_ms,
+                                      p.sub_step_ms, p.start_ms, p.end_ms, p.step_ms,
+                                      p.offset_ms, p.function_args)
+        if isinstance(p, L.TopLevelSubquery):
+            return self._materialize(p.inner)  # the inner grid at its own steps
+        if isinstance(p, L.TsCardinalities):
+            return TsCardinalitiesExec(p.shard_key_prefix, p.num_groups)
+        if type(p) in _METADATA_KINDS:
+            return MetadataExec(_METADATA_KINDS[type(p)], p.filters, p.start_ms, p.end_ms,
+                                label=getattr(p, "label", None))
         raise NotImplementedError(f"{type(p).__name__} plans are not ported")
 
     def _with(self, inner: L.LogicalPlan, transformer) -> ExecPlan:
@@ -426,6 +516,27 @@ class QueryEngine:
         if res.result_type == "matrix" or res.grids:
             res.result_type = "matrix"
         return res
+
+    def label_values(self, filters, label: str, start_ms: int, end_ms: int, limit=None):
+        ep = self.planner.materialize(L.LabelValues(label, tuple(filters), start_ms, end_ms))
+        if limit:
+            ep.limit = int(limit)
+        return ep.execute(self.context()).metadata
+
+    def label_names(self, filters, start_ms: int, end_ms: int):
+        ep = self.planner.materialize(L.LabelNames(tuple(filters), start_ms, end_ms))
+        return ep.execute(self.context()).metadata
+
+    def series(self, filters, start_ms: int, end_ms: int, limit=None):
+        ep = self.planner.materialize(L.SeriesKeysByFilters(tuple(filters), start_ms, end_ms))
+        if limit:
+            ep.limit = int(limit)
+        return ep.execute(self.context()).metadata
+
+    def ts_cardinalities(self, prefix, depth: int | None = None):
+        prefix = tuple(prefix)
+        plan = L.TsCardinalities(prefix, depth if depth is not None else len(prefix) + 1)
+        return self.planner.materialize(plan).execute(self.context()).metadata
 
     def query_instant(self, promql: str, time_s: float):
         plan = query_to_logical_plan(promql, time_s, self.planner.params.lookback_ms)

@@ -4,7 +4,8 @@
 Tag postings as Python sets: equality filters read their posting set,
 negative and regex filters scan the label's value dictionary. PromQL
 semantics: a matcher the empty string satisfies also matches series that
-lack the tag.
+lack the tag. The metadata queries (label names, label values, the label
+sets of the matching series) read the same postings.
 """
 
 from __future__ import annotations
@@ -79,3 +80,27 @@ class SetBasedPartKeyIndex:
         if limit is not None:
             out = out[:limit]
         return np.asarray(out, dtype=np.int32)
+
+    def label_names(self, filters: Sequence[ColumnFilter], start_ts: int,
+                    end_ts: int) -> list[str]:
+        if not filters:
+            return sorted(self._postings.keys())
+        names: set[str] = set()
+        for p in self.part_ids_from_filters(filters, start_ts, end_ts):
+            names |= set(self._tags[int(p)].keys())
+        return sorted(names)
+
+    def label_values(self, filters: Sequence[ColumnFilter], label: str, start_ts: int,
+                     end_ts: int, limit: int | None = None) -> list[str]:
+        if not filters:
+            vals = sorted(self._postings.get(label, {}).keys())
+        else:
+            pids = self.part_ids_from_filters(filters, start_ts, end_ts)
+            vset = {self._tags[int(p)].get(label) for p in pids}
+            vals = sorted(v for v in vset if v is not None)
+        return vals[:limit] if limit else vals
+
+    def partkeys_from_filters(self, filters: Sequence[ColumnFilter], start_ts: int,
+                              end_ts: int, limit: int | None = None) -> list[Mapping[str, str]]:
+        return [self._tags[int(p)]
+                for p in self.part_ids_from_filters(filters, start_ts, end_ts, limit)]

@@ -1,11 +1,12 @@
 """Memstore facade: per-dataset shard map (counterpart of
-``filodb_tpu/memstore/memstore.py``; reference L2: TimeSeriesMemStore.scala:26).
+``filodb_tpu/memstore/memstore.py``; reference L2: TimeSeriesMemStore.scala:26),
+with the metadata queries over every shard of a dataset.
 """
 
 from __future__ import annotations
 
 from contextlib import ExitStack, contextmanager
-from typing import Iterable, Sequence
+from typing import Iterable, Mapping, Sequence
 
 from ..core.records import RecordBatch
 from ..core.schemas import Dataset
@@ -43,8 +44,36 @@ class TimeSeriesMemStore:
     def shard_nums(self, dataset: str) -> list[int]:
         return sorted(self._datasets.get(dataset, {}).keys())
 
+    def shards(self, dataset: str) -> list[TimeSeriesShard]:
+        return list(self._datasets.get(dataset, {}).values())
+
     def dataset(self, name: str) -> Dataset:
         return self._dataset_meta[name]
+
+    # -- metadata ------------------------------------------------------------
+
+    def label_values(self, dataset: str, filters, label: str, start_ts: int, end_ts: int,
+                     limit=None) -> list[str]:
+        vals: set[str] = set()
+        for sh in self.shards(dataset):
+            vals.update(sh.label_values(filters, label, start_ts, end_ts, limit))
+        out = sorted(vals)
+        return out[:limit] if limit else out
+
+    def label_names(self, dataset: str, filters, start_ts: int, end_ts: int) -> list[str]:
+        names: set[str] = set()
+        for sh in self.shards(dataset):
+            names.update(sh.label_names(filters, start_ts, end_ts))
+        return sorted(names)
+
+    def series(self, dataset: str, filters, start_ts: int, end_ts: int,
+               limit=None) -> list[Mapping[str, str]]:
+        out: list[Mapping[str, str]] = []
+        for sh in self.shards(dataset):
+            out.extend(sh.partkeys(filters, start_ts, end_ts, limit))
+            if limit and len(out) >= limit:
+                return out[:limit]
+        return out
 
     # -- ingest --------------------------------------------------------------
 

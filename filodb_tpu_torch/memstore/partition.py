@@ -31,6 +31,11 @@ class Chunk:
     def column(self, name: str) -> np.ndarray:
         return self.arrays[name]
 
+    @property
+    def nbytes_encoded(self) -> int:
+        """Bytes of the chunk's encoded form: 0, none is kept."""
+        return 0
+
 
 class TimeSeriesPartition:
     """Write buffer + sealed chunk list for one series. A histogram column
@@ -112,6 +117,12 @@ class TimeSeriesPartition:
         return chunk
 
     # -- read --------------------------------------------------------------
+
+    def num_samples(self) -> int:
+        return sum(c.n for c in self.chunks) + self._buf_len
+
+    def chunks_in_range(self, t0: int, t1: int) -> list[Chunk]:
+        return [c for c in self.chunks if c.end_ts >= t0 and c.start_ts <= t1]
 
     def samples_in_range(self, t0: int, t1: int, col: str) -> tuple[np.ndarray, np.ndarray]:
         """All samples with t0 <= ts <= t1 for one column, including the open

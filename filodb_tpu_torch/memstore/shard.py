@@ -9,6 +9,10 @@ time range was left untouched. The shard's staging cache holds host-staged
 blocks of selections; an ingest marks the entries it overlaps dirty, for
 the next query to repair by appending (``staging.append_to_block``).
 
+The shard counts its series by shard-key prefix (``cardinality``) and
+answers the metadata queries from its index (label names and values, the
+label sets of the matching series).
+
 Not ported: headroom eviction, on-demand paging, cardinality quotas,
 append listeners (standing queries) and the index's end-time lifecycle.
 """
@@ -24,6 +28,7 @@ import numpy as np
 
 from ..core.filters import ColumnFilter
 from ..core.records import RecordBatch, SeriesBatch
+from .cardinality import CardinalityTracker
 from .index import SetBasedPartKeyIndex
 from .partition import DEFAULT_MAX_CHUNK_SIZE, TimeSeriesPartition
 
@@ -73,6 +78,7 @@ class TimeSeriesShard:
         self.shard_num = shard_num
         self.config = config or StoreConfig()
         self.index = SetBasedPartKeyIndex()
+        self.cardinality = CardinalityTracker()
         self.partitions: dict[int, TimeSeriesPartition] = {}
         self._by_partkey: dict[bytes, int] = {}
         self._next_part_id = 0
@@ -227,6 +233,7 @@ class TimeSeriesShard:
     def _create_partition(self, sb: SeriesBatch, pk: bytes, start_ts: int) -> int:
         if len(self.partitions) >= self.config.max_partitions:
             raise MemoryError(f"shard {self.shard_num}: partition limit reached")
+        self.cardinality.series_created(sb.tags)
         pid = self._next_part_id
         self._next_part_id += 1
         self.partitions[pid] = TimeSeriesPartition(
@@ -244,3 +251,12 @@ class TimeSeriesShard:
 
     def partition(self, part_id: int) -> TimeSeriesPartition:
         return self.partitions[int(part_id)]
+
+    def label_values(self, filters, label: str, start_ts: int, end_ts: int, limit=None):
+        return self.index.label_values(filters, label, start_ts, end_ts, limit)
+
+    def label_names(self, filters, start_ts: int, end_ts: int):
+        return self.index.label_names(filters, start_ts, end_ts)
+
+    def partkeys(self, filters, start_ts: int, end_ts: int, limit=None):
+        return self.index.partkeys_from_filters(filters, start_ts, end_ts, limit)

@@ -122,6 +122,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
                    + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    fn = lib.filodb_empty_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     fn = lib.filodb_hist_range_series
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 16
                    + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
@@ -734,6 +737,19 @@ def histogram_quantile_gather_plain(q: float, part: torch.Tensor, table: torch.T
     return histogram_quantile_plain(q, rows.permute(0, 2, 1), les)
 
 
+def check_gather_table(table: torch.Tensor, rows: torch.Tensor, les: torch.Tensor) -> None:
+    """The checks of one bucket scheme's gather table (``table`` int32 [G,
+    B], ``rows`` int32 [G], ``les`` f32 [B], contiguous, on one device),
+    made once where the table is built (``transformers.classic_pivot``,
+    memoized with it) rather than on every launch."""
+    G, B = table.shape if table.dim() == 2 else (-1, -1)
+    if G < 0 or B < 1:
+        raise ValueError(f"table must be [G, B], got {tuple(table.shape)}")
+    _check("table", table, torch.int32, (G, B), table.device)
+    _check("rows", rows, torch.int32, (G,), table.device)
+    _check("les", les, torch.float32, (B,), table.device)
+
+
 def histogram_quantile_gather(q: float, part: torch.Tensor, table: torch.Tensor,
                               rows: torch.Tensor, les: torch.Tensor, num_steps: int,
                               out: torch.Tensor) -> torch.Tensor:
@@ -742,18 +758,15 @@ def histogram_quantile_gather(q: float, part: torch.Tensor, table: torch.Tensor,
     [G, B], le-ascending) of the finished by-(le, ...) partials ``part``
     (f32 [*, ld], NaN where a group had no member), its bounds ``les``
     (f32 [B], the last +inf); the quantiles go to ``out[rows[g],
-    :num_steps]`` (``rows`` int32 [G]). A CUDA tensor makes one launch of
-    the kernel; a CPU tensor runs ``histogram_quantile_gather_plain``.
-    Returns ``out``."""
+    :num_steps]`` (``rows`` int32 [G]). The three come checked by
+    ``check_gather_table`` where they were built (they are memoized with
+    the pivot); each call checks ``part`` and ``out``. A CUDA tensor makes
+    one launch of the kernel; a CPU tensor runs
+    ``histogram_quantile_gather_plain``. Returns ``out``."""
     global QUANTILE_LAUNCHES
-    dev = part.device
-    G, B = table.shape if table.dim() == 2 else (-1, -1)
-    if G < 0 or B < 1:
-        raise ValueError(f"table must be [G, B], got {tuple(table.shape)}")
+    dev = table.device
+    G, B = table.shape
     _check("part", part, torch.float32, tuple(part.shape), dev)
-    _check("table", table, torch.int32, (G, B), dev)
-    _check("rows", rows, torch.int32, (G,), dev)
-    _check("les", les, torch.float32, (B,), dev)
     _check("out", out, torch.float32, tuple(out.shape), dev)
     if part.dim() != 2 or out.dim() != 2 or min(part.shape[1], out.shape[1]) < num_steps:
         raise ValueError(f"part {tuple(part.shape)} / out {tuple(out.shape)} hold fewer than "
@@ -776,3 +789,16 @@ def histogram_quantile_gather(q: float, part: torch.Tensor, table: torch.Tensor,
         raise RuntimeError(f"hist_quantile_gather kernel launch failed: cudaError {err}")
     QUANTILE_LAUNCHES += 1
     return out
+
+
+def empty_launch(G: int, num_steps: int, device) -> None:
+    """An empty kernel over the blocks a gather of G groups x ``num_steps``
+    steps launches, on ``device``'s current stream: the card's floor for a
+    launch made as the gather's is (ctypes, the same stream), timed beside
+    it. Not counted anywhere."""
+    lib = _load()
+    with torch.cuda.device(device):
+        err = lib.filodb_empty_launch(G, int(num_steps),
+                                      torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed: cudaError {err}")

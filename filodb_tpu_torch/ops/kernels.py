@@ -371,6 +371,15 @@ def _dispatch_range_function(func: str, block, params: RangeParams, is_counter: 
 
     if func == "timestamp":
         return _host_timestamp(block, params), "host"
+    if (func in SW.SORTED_FUNCS or func in GR.ARG_FUNCS
+            or AGG.grid_variant(block, func, is_delta) != "mxu"):
+        # the window rungs take the start as an int32 offset from the block's
+        # base: one past it (a subquery window over ~24.8 days) raises the
+        # JAX ladder's OverflowError (NumPy's, word for word), on the CPU and
+        # the card alike
+        start_off = int(params.start_ms) - int(block.base_ms)
+        if not -2**31 <= start_off < 2**31:
+            raise OverflowError(f"Python integer {start_off} out of bounds for int32")
     if func in SW.SORTED_FUNCS:
         return SW.sorted_window(func, block, params, args), "sorted"
     if func in GR.ARG_FUNCS:

@@ -298,6 +298,75 @@ def stage_series(
     return block
 
 
+def stage_step_rows(values: np.ndarray, times_ms: np.ndarray, base_ms: int,
+                    counter_corrected: bool = False) -> StagedBlock:
+    """``stage_series`` of the rows of a step grid, as a subquery re-stages
+    its inner result: row i of ``values`` (f32 [n, J], NaN = absent) at
+    ``times_ms`` (int64 [J]) becomes the series of its non-NaN steps, raw
+    or ``counter_corrected``. No loop per row: the kept steps of every row
+    move to the left in order with their times (one column selection where
+    all rows keep the same steps, else a stable sort of each row's absent
+    flags), and the counter correction runs on the compacted [n, maxlen]
+    f64 matrix in ``counter_correct``'s order of operations (a row's drops
+    summed left to right by ``np.cumsum``, added to its values, which a row
+    of one sample keeps as they are), so the block is bit-equal to
+    ``stage_series`` over the same ``(times[keep], row[keep])`` pairs."""
+    v = np.asarray(values, dtype=np.float32)
+    times_ms = np.asarray(times_ms, dtype=np.int64)
+    n = v.shape[0]
+    keep = ~np.isnan(v)
+    m = keep.sum(axis=1).astype(np.int32)
+    maxlen = max(1, int(m.max()) if n else 0)
+    if n and m[0] and not (keep != keep[0]).any():
+        cols = np.nonzero(keep[0])[0]
+        cv, ct = v[:, cols], np.broadcast_to(times_ms[cols], (n, len(cols)))
+    else:
+        order = np.argsort(~keep, axis=1, kind="stable")[:, :maxlen]  # kept steps first
+        cv, ct = np.take_along_axis(v, order, axis=1), times_ms[order]
+    absent = np.arange(cv.shape[1]) >= m[:, None]  # the tail past each row's kept steps
+    S, T, w = pad_series(max(n, 1)), pad_time(maxlen), cv.shape[1]
+    out_ts = np.full((S, T), TS_PAD, dtype=np.int32)
+    out_ts[:n, :w] = (ct - base_ms).astype(np.int32)
+    out_ts[:n, :w][absent] = TS_PAD
+    out_vals = np.zeros((S, T), dtype=np.float32)
+    lens = np.zeros(S, dtype=np.int32)
+    lens[:n] = m
+    baseline = np.zeros(S, dtype=np.float32)
+    if not counter_corrected:
+        out_vals[:n, :w] = cv
+        out_vals[:n, :w][absent] = 0.0
+        block = StagedBlock(out_ts, out_vals, lens, base_ms, baseline, n, [])
+    else:
+        packed = cv.astype(np.float64)  # NaN in the tail: no drop, no valid slot reads it
+        drops = np.where(packed[:, 1:] < packed[:, :-1], packed[:, :-1], 0.0)
+        corrected = np.zeros_like(packed)
+        np.cumsum(drops, axis=1, out=corrected[:, 1:])
+        corrected += packed
+        one = m == 1
+        corrected[one] = packed[one]  # counter_correct returns a lone sample as it is
+        b = packed[:, :1]
+        out_vals[:n, :w] = corrected - b
+        out_vals[:n, :w][absent] = 0.0
+        out_raw = np.zeros((S, T), dtype=np.float32)
+        out_raw[:n, :w] = cv
+        out_raw[:n, :w][absent] = 0.0
+        real = m > 0
+        last = np.maximum(m - 1, 0)[:, None]
+        baseline[:n] = np.where(real, b[:, 0], 0.0)
+        base64 = np.zeros(S, dtype=np.float64)
+        base64[:n] = np.where(real, b[:, 0], 0.0)
+        cont_raw = np.zeros(S, dtype=np.float64)
+        cont_corr = np.zeros(S, dtype=np.float64)
+        cont_raw[:n] = np.where(real, np.take_along_axis(packed, last, axis=1)[:, 0], 0.0)
+        cont_corr[:n] = np.where(real, np.take_along_axis(corrected, last, axis=1)[:, 0], 0.0)
+        block = StagedBlock(out_ts, out_vals, lens, base_ms, baseline, n, [], raw=out_raw)
+        block.base64 = base64
+        block.cont = (cont_raw, cont_corr)
+    block.regular_ts, block.nominal_ts, block.ts_dev, block.maxdev_ms = detect_shared_grid(
+        out_ts, lens, n, T, S)
+    return block
+
+
 def stage_histogram_series(series: list[tuple[np.ndarray, np.ndarray]], base_ms: int,
                            n_buckets: int, part_refs: list | None = None) -> StagedBlock:
     """``stage_series`` for histograms: per-series (ts_ms int64, [n, B]

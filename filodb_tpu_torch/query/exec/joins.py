@@ -1,19 +1,27 @@
-"""Binary joins, set operators and scalar plans (counterpart of
+"""Binary joins, set operators, scalar plans and subqueries (counterpart of
 ``filodb_tpu/query/exec/joins.py``; reference query/exec/BinaryJoinExec.scala,
-SetOperatorExec.scala, the scalar execs).
+SetOperatorExec.scala, the scalar execs, subquery materialization).
 
 Label matching runs on the host over the series' label keys; the matched
 rows are gathered with index tensors and combined on the device the
 children's values live on (``transformers.apply_binop``). Scalar plans
-evaluate on the host, one value a step.
+evaluate on the host, one value a step. A subquery's inner grids come to
+the host, are re-staged as series without a loop per row
+(``staging.stage_step_rows``), go back to the query's device in one upload
+and take the range function's rung (``kernels.run_range_function``): one
+launch per inner grid.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
 from ...core.schemas import METRIC_TAG
+from ...ops import kernels as K
+from ...ops import staging as ST
 from .. import logical as L
 from ..rangevector import Grid, QueryResult, ScalarResult
 from .plans import ExecPlan, NonLeafExecPlan, QueryContext, stack_step_major
@@ -284,3 +292,61 @@ class ScalarVectorOpExec(NonLeafExecPlan):
                                                                           np.array([np.nan]))
         mapper = ScalarOperationMapper(self.op, scalar, self.scalar_is_lhs, self.return_bool)
         return QueryResult(grids=mapper.apply(vres.grids), stats=vres.stats)
+
+
+# subquery range functions whose inner rows re-stage reset-corrected
+_COUNTERISH = frozenset({"rate", "increase", "irate"})
+
+
+class SubqueryWindowExec(NonLeafExecPlan):
+    """``func(<expr>[window:step])`` (reference subquery materialization in
+    DefaultPlanner): the range function over the inner expression's step
+    grid, each inner grid's rows re-staged as series from
+    ``start - window - offset`` and windowed at the outer steps. The host
+    split of each grid (ms: fetch, re-stage, upload, launch) and the
+    inner execution's go to ``ctx.obs["subquery"]``."""
+
+    def __init__(self, child: ExecPlan, function: str, window_ms: int, sub_step_ms: int,
+                 start_ms: int, end_ms: int, step_ms: int, offset_ms: int = 0, args=()):
+        super().__init__([child])
+        self.function = function
+        self.window_ms = window_ms
+        self.sub_step_ms = sub_step_ms
+        self.start_ms = start_ms
+        self.end_ms = end_ms
+        self.step_ms = step_ms
+        self.offset_ms = offset_ms
+        self.args = args
+
+    def args_str(self):
+        return f"fn={self.function} window={self.window_ms} substep={self.sub_step_ms}"
+
+    def do_execute(self, ctx: QueryContext) -> QueryResult:
+        t0 = time.perf_counter()
+        (r,) = self.execute_children(ctx)
+        split = {"inner_ms": (time.perf_counter() - t0) * 1e3, "fetch_ms": 0.0,
+                 "restage_ms": 0.0, "upload_ms": 0.0, "launch_ms": 0.0, "rows": 0}
+        nsteps = int((self.end_ms - self.start_ms) // self.step_ms) + 1
+        counterish = self.function in _COUNTERISH
+        params = K.RangeParams(self.start_ms - self.offset_ms, self.step_ms, nsteps,
+                               self.window_ms)
+        base_ms = self.start_ms - self.window_ms - self.offset_ms
+        out = []
+        for g in r.grids:
+            t1 = time.perf_counter()
+            v = g.values_np()
+            t2 = time.perf_counter()
+            host = ST.stage_step_rows(v, g.step_times_ms(), base_ms, counter_corrected=counterish)
+            t3 = time.perf_counter()
+            block = ST.device_copy(host, ctx.device)
+            t4 = time.perf_counter()
+            vals = K.run_range_function(self.function, block, params, is_counter=counterish,
+                                        args=self.args)
+            t5 = time.perf_counter()
+            for key, a, b in (("fetch_ms", t1, t2), ("restage_ms", t2, t3),
+                              ("upload_ms", t3, t4), ("launch_ms", t4, t5)):
+                split[key] += (b - a) * 1e3
+            split["rows"] += v.shape[0]
+            out.append(Grid(list(g.labels), self.start_ms, self.step_ms, nsteps, vals))
+        ctx.obs.setdefault("subquery", []).append(split)
+        return QueryResult(grids=out)

@@ -465,6 +465,64 @@ class EmptyResultExec(ExecPlan):
         return QueryResult()
 
 
+class ChunkMetaExec(ExecPlan):
+    """``_filodb_chunkmeta_all`` (reference SelectChunkInfosExec): one shard's
+    matching series with their sealed chunks in the range. The port keeps
+    no encoded chunks (``memstore/partition.py``), so ``encodedBytes`` is 0,
+    as in the JAX package where its store does not encode on seal."""
+
+    def __init__(self, shard_num: int, filters, start_ms: int, end_ms: int):
+        super().__init__()
+        self.shard_num = shard_num
+        self.filters = tuple(filters)
+        self.start_ms = start_ms
+        self.end_ms = end_ms
+
+    def do_execute(self, ctx: QueryContext) -> QueryResult:
+        shard = ctx.memstore.shard(ctx.dataset, self.shard_num)
+        out = []
+        for pid in shard.lookup_partitions(self.filters, self.start_ms, self.end_ms):
+            part = shard.partition(int(pid))
+            out.append({
+                "labels": dict(part.tags),
+                "schema": part.schema.name,
+                "numChunks": len(part.chunks),
+                "bufferedSamples": part.num_samples() - sum(c.n for c in part.chunks),
+                "chunks": [{"startTime": c.start_ts, "endTime": c.end_ts, "numRows": c.n,
+                            "encodedBytes": c.nbytes_encoded}
+                           for c in part.chunks_in_range(self.start_ms, self.end_ms)],
+            })
+        return QueryResult(metadata=out, result_type="metadata")
+
+
+class RawChunkExportExec(ExecPlan):
+    """A top-level range selector ``m[w]`` (reference SelectRawPartitionsExec
+    without periodic mapping): one shard's matching series with their
+    samples in the range, on the host."""
+
+    def __init__(self, shard_num: int, filters, start_ms: int, end_ms: int, column=None):
+        super().__init__()
+        self.shard_num = shard_num
+        self.filters = tuple(filters)
+        self.start_ms = start_ms
+        self.end_ms = end_ms
+        self.column = column
+
+    def args_str(self) -> str:
+        return f"shard={self.shard_num} range=[{self.start_ms},{self.end_ms}]"
+
+    def do_execute(self, ctx: QueryContext) -> QueryResult:
+        shard = ctx.memstore.shard(ctx.dataset, self.shard_num)
+        raw = []
+        for pid in shard.lookup_partitions(self.filters, self.start_ms, self.end_ms):
+            part = shard.partition(int(pid))
+            ts, vals = part.samples_in_range(self.start_ms, self.end_ms,
+                                             self.column or part.schema.value_column)
+            if len(ts):
+                raw.append((dict(part.tags), ts, vals))
+        return QueryResult(raw=raw)
+
+
 class NonLeafExecPlan(ExecPlan):
     """A node over child plans, which run in order, one after the other
     (the JAX package's remote children and partial results are not
@@ -497,13 +555,19 @@ class NonLeafExecPlan(ExecPlan):
 
 
 class DistConcatExec(NonLeafExecPlan):
-    """Concatenate child results (reference DistConcatExec)."""
+    """Concatenate child results (reference DistConcatExec): grids, staged
+    selections, raw exports and metadata records side by side."""
 
     def do_execute(self, ctx: QueryContext) -> QueryResult:
         out = QueryResult()
         for r in self.execute_children(ctx):
             out.grids.extend(r.grids)
             out.raw_grids.extend(r.raw_grids)
+            if r.raw:
+                out.raw = (out.raw or []) + r.raw
+            if r.metadata is not None:
+                out.metadata = (out.metadata or []) + r.metadata
+                out.result_type = r.result_type
         return out
 
 

@@ -164,7 +164,8 @@ def classic_pivot(labels, device) -> ClassicPivot:
     """Group ``le``-labelled rows by their other labels and stack the
     groups of one bucket scheme (their sorted bounds) into one index table
     on ``device`` (``classic_histogram_quantile``'s pivot in the JAX
-    package); raises QueryError when a row carries no ``le``."""
+    package), checked once for the gather (``check_gather_table``); raises
+    QueryError when a row carries no ``le``."""
     groups: dict = {}
     order: list = []
     for i, l in enumerate(labels):
@@ -190,8 +191,10 @@ def classic_pivot(labels, device) -> ClassicPivot:
     for scheme, entries in by_scheme.items():
         table = np.array([idx for _, idx in entries], dtype=np.int32).reshape(len(entries), -1)
         rows = np.array([g for g, _ in entries], dtype=np.int32)
-        schemes.append(tuple(torch.from_numpy(a).to(device) for a in (
-            table, rows, np.array(scheme, dtype=np.float32))))
+        gather = tuple(torch.from_numpy(a).to(device) for a in (
+            table, rows, np.array(scheme, dtype=np.float32)))
+        HK.check_gather_table(*gather)  # once: the launches trust the memoized table
+        schemes.append(gather)
     return ClassicPivot([dict(key) for key in order], schemes)
 
 

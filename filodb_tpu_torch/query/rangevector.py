@@ -105,10 +105,15 @@ class QueryStats:
 
 @dataclass
 class QueryResult:
-    """Exec output: a list of grids, or a scalar."""
+    """Exec output: a list of grids, a scalar, the raw samples of a
+    top-level range selector (``raw``: one (labels, ts int64 ms, values)
+    per series) or a metadata answer (``metadata``: label values or names,
+    series label sets, cardinality or chunk records)."""
 
     grids: list[Grid] = field(default_factory=list)
     stats: QueryStats = field(default_factory=QueryStats)
-    result_type: str = "matrix"  # matrix | vector | scalar
+    result_type: str = "matrix"  # matrix | vector | scalar | metadata
     raw_grids: list[RawGrid] = field(default_factory=list)  # a tree leaf's staged selection
     scalar: ScalarResult | None = None
+    raw: list[tuple[dict, np.ndarray, np.ndarray]] | None = None
+    metadata: list | None = None

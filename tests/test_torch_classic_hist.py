@@ -207,3 +207,80 @@ def test_gather_plain_matches_jax_histogram_quantile(q):
     np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
     m = ~np.isnan(want)
     np.testing.assert_allclose(got[m], want[m], rtol=RTOL, atol=ATOL)
+
+
+def _load_script(name: str):
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        name, Path(__file__).resolve().parents[1] / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("G, B", [(g, b) for g in (1, 8, 40) for b in (1, 2, 12, 33, 64)])
+def test_gather_phase2d_cases_match_jax(G, B):
+    """chip_smoke.py phase 2d's gather inputs (groups with no member, table
+    entries < 0, a first bound <= 0 in every other scheme) through the
+    wrapper on CPU tensors against the JAX ``histogram_quantile`` over the
+    same gathered [G, J, B] counts, at phase 2d's q: NaN masks equal, values
+    within the module's tolerance, and no out row written but the groups'
+    (a sentinel elsewhere, and past the steps, survives)."""
+    import jax.numpy as jnp
+
+    from filodb_tpu.ops.hist_kernels import histogram_quantile as jax_hq
+
+    cs = _load_script("chip_smoke")
+    part, table, rows, les, n_out = cs.gather_inputs(G, B, 111, G + B, "cpu")
+    HK.check_gather_table(table, rows, les)
+    idx = table.numpy().astype(np.int64)
+    grid = np.where((idx >= 0)[:, :, None], part.numpy()[np.maximum(idx, 0), :111], np.nan)
+    for q in cs.GATHER_QS:
+        out = torch.full((n_out, 128), 7.5)
+        HK.histogram_quantile_gather(q, part, table, rows, les, 111, out)
+        want = np.asarray(jax_hq(np.float32(q), jnp.asarray(grid.transpose(0, 2, 1)),
+                                 jnp.asarray(les.numpy())))
+        got = out.numpy()[rows.numpy()][:, :111]
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want), err_msg=f"q={q}")
+        m = ~np.isnan(want)
+        np.testing.assert_allclose(got[m], want[m], rtol=RTOL, atol=ATOL, err_msg=f"q={q}")
+        untouched = np.ones(n_out, bool)
+        untouched[rows.numpy()] = False
+        assert (out.numpy()[untouched] == 7.5).all() and (out.numpy()[:, 111:] == 7.5).all()
+
+
+@pytest.mark.parametrize("case", ["table_dtype", "table_1d", "table_no_buckets", "rows_length",
+                                  "rows_dtype", "les_length", "les_strided"])
+def test_gather_table_checks_raise(case):
+    """``check_gather_table``, made once where a pivot is built (the
+    wrapper then checks only ``part`` and ``out``), refuses a table, rows
+    or bounds the kernel would misread; a well-formed scheme passes."""
+    table = torch.arange(12, dtype=torch.int32).reshape(3, 4)
+    rows = torch.arange(3, dtype=torch.int32)
+    les = torch.tensor([0.1, 0.5, 1.0, float("inf")])
+    HK.check_gather_table(table, rows, les)
+    bad = {"table_dtype": (table.long(), rows, les),
+           "table_1d": (table.reshape(-1), rows, les),
+           "table_no_buckets": (table[:, :0], rows, les[:0]),
+           "rows_length": (table, rows[:2], les),
+           "rows_dtype": (table, rows.long(), les),
+           "les_length": (table, rows, les[:3]),
+           "les_strided": (table, rows, torch.tensor([0.1, 0, 0.5, 0, 1.0, 0, 9, 0])[::2])}[case]
+    with pytest.raises((TypeError, ValueError)):
+        HK.check_gather_table(*bad)
+
+
+@pytest.mark.parametrize("patch", [p for ps in _load_script("tile_sweep").GATHER_PATCHES.values()
+                                   for p in ps])
+def test_gather_patch_targets_are_in_the_source(patch):
+    """tile_sweep.py --classic-gather builds the gather's tiled design by
+    patching these lines of csrc/: each must appear exactly once, or the
+    build cannot be made on the card."""
+    from filodb_tpu_torch.ops import cuda_build
+
+    fname, old, new = patch
+    text = (cuda_build.CSRC / fname).read_text()
+    assert text.count(old) == 1, f"{fname}: {old.strip()}"
+    assert new != old

@@ -1894,6 +1894,31 @@ def test_hist_quantile_gather_matches_plain_on_card(card, q):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("G, B", [(g, b) for g in (1, 8, 1000, 3000) for b in (1, 2, 12, 33, 64)])
+def test_hist_quantile_gather_phase2d_cases_on_card(card, G, B):
+    """chip_smoke.py phase 2d's gather cases (groups with no member, table
+    entries < 0, a first bound <= 0) against
+    histogram_quantile_gather_plain: bit-equal at every q, one launch a
+    call, and no out row written but the group rows (a sentinel elsewhere,
+    and past the query's steps, survives)."""
+    from filodb_tpu_torch.ops import hist_kernels as HK
+
+    part, table, rows, les, n_out = _chip_smoke().gather_inputs(G, B, 111, G + B, card)
+    HK.check_gather_table(table, rows, les)
+    for q in (-0.1, 0.0, 0.5, 0.99, 1.0, 1.1):
+        out = torch.full((n_out, 128), 7.5, device=card)
+        before = HK.QUANTILE_LAUNCHES
+        HK.histogram_quantile_gather(q, part, table, rows, les, 111, out)
+        assert HK.QUANTILE_LAUNCHES == before + 1
+        want = torch.full_like(out, 7.5)
+        want[rows.long(), :111] = HK.histogram_quantile_gather_plain(q, part, table, les, 111)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.isnan(out), torch.isnan(want)), q
+        m = ~torch.isnan(want)
+        assert torch.equal(out[m], want[m]), q
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("query, counter", [
     ("quantile_over_time(0.9, m[5m])", ("sorted_window", "LAUNCHES")),
     ("predict_linear(m[5m], 600)", ("general_range", "LAUNCHES")),

@@ -231,9 +231,9 @@ def hist_answer(run):
     return ("ok", out)
 
 
-# the shapes the port once refused: the tree over native histograms, now
-# answered as the JAX engine answers them (values, buckets and errors),
-# and subqueries, which still raise
+# the shapes the port once refused: the tree over native histograms and
+# subqueries, now answered as the JAX engine answers them (values, buckets
+# and errors)
 @pytest.mark.parametrize("query, store", [
     ("rate(http_request_latency[5m])", "hist"),
     ("stddev(rate(http_request_latency[5m]))", "hist"),
@@ -246,12 +246,7 @@ def hist_answer(run):
     ("rate(http_requests_total[5m])[30m:1m]", "irregular"),
 ])
 def test_unsupported_shapes_raise(stores, hist_store, query, store):
-    if store != "hist":
-        engine = QueryEngine(stores[store][1], "prometheus", device="cpu")
-        with pytest.raises(NotImplementedError):
-            engine.query_range(query, START_S, END_S, STEP_S)
-        return
-    jms, pms = hist_store
+    jms, pms = hist_store if store == "hist" else stores[store]
     want = hist_answer(lambda: JaxEngine(jms, "prometheus").query_range(
         query, START_S, END_S, STEP_S))
     got = hist_answer(lambda: QueryEngine(pms, "prometheus", device="cpu").query_range(

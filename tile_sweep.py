@@ -8,6 +8,7 @@ grid for the regular kernel), 111 steps, 5 m windows, sum over 1 group.
     python3 tile_sweep.py --hist [--package-root DIR]
     python3 tile_sweep.py --general [--package-root DIR]
     python3 tile_sweep.py --order [--split] [--package-root DIR]
+    python3 tile_sweep.py --classic-gather
 
 For each kernel and function it times the launch (the median of 20 calls
 between CUDA events, after warm-up) at every rows-per-tile layout -- the
@@ -66,6 +67,23 @@ times every cluster size and block size of ``ORDER_LAYOUTS``; with
 only, key by key), or on a one-block-per-segment package those of
 ``BLOCK_ORDER_PATCHES`` (select only, compaction / next_above only,
 coalesced stores, no ``__match_any_sync``).
+
+With ``--classic-gather`` it times the standalone quantile of classic
+buckets (``filodb_hist_quantile_gather``) at phase 10b's shapes (the
+partials of 120,000 ``le`` counters: G = 1 group by ``le``, G = 8 by ``(le,
+zone)``; B = 12, J = 111) and at G = 32 to 3,000 drawn on the card, in the
+kernel's design (one thread per group and step) and in the tiled design
+that ``GATHER_PATCHES`` builds (blocks of groups x steps, the groups' row
+indices staged in shared memory and every count read issued before use),
+alternating kernel, tiled, tiled, kernel: the device time from
+``torch.profiler`` and from 50 launches captured in a CUDA graph and
+replayed (``chip_smoke.graph_ms``), 50 launches back to back, and the host
+time a call of the wrapper takes to enqueue beside a bare ctypes call of
+the entry, the wrapper's per-call checks (``part``, ``out``) and the
+table's checks made once a pivot (``check_gather_table``); beside them an
+empty kernel over the same blocks (``hist_kernels.empty_launch``), the
+card's floor for any launch. Each design is first held bit-equal to
+``histogram_quantile_gather_plain``.
 
 Prints the card's name and power limit, and ends with one JSON object of
 every time. Exits non-zero where no CUDA device is available.
@@ -911,6 +929,173 @@ def order_main(package_root: str | None, card: str, split: bool, device=None,
     return 0
 
 
+GATHER_CASES = ((1, "phase 10b by le"), (8, "phase 10b by (le, zone)"), (32, "drawn"),
+                (128, "drawn"), (512, "drawn"), (1_000, "drawn"), (3_000, "drawn"))
+GATHER_B, GATHER_J, GATHER_LD = 12, 111, 128
+# the tiled design of the classic quantile gather, built apart: a block of
+# groups x steps (the steps of the query up to 128, rounded up to a warp,
+# and as many groups as fill 256 threads, halved where shared memory would
+# not hold them) stages its groups' row indices in shared memory; each
+# thread issues the count reads of a chunk of B rounded up to 16, 32 or 64,
+# unrolled, before it uses any, parks them in its column of a [B][steps]
+# tile, and reads them back through the shared quantile_of
+GATHER_TILED = r"""template <int CH>
+__global__ void hist_quantile_gather_tiled_kernel(const float* part, int ld,
+                                                  const int32_t* table, const int32_t* rows,
+                                                  const float* les, int G, int B, int J,
+                                                  float q, float* out, int ld_out) {
+    extern __shared__ __align__(16) float smem[];
+    const int TS = blockDim.x, t = threadIdx.x, y = threadIdx.y;
+    const int g = blockIdx.x * blockDim.y + y;
+    int32_t* s_row = reinterpret_cast<int32_t*>(smem) + y * B;
+    float* s_cnt = smem + blockDim.y * B + (int64_t)y * B * TS;
+    if (g < G) {
+        const int32_t* tg = table + (int64_t)g * B;
+        for (int b = t; b < B; b += TS) s_row[b] = __ldg(tg + b);
+    }
+    __syncthreads();
+    const int j = blockIdx.y * TS + t;
+    if (g >= G || j >= J) return;
+    const float* pj = part + j;
+    for (int b0 = 0; b0 < B; b0 += CH) {
+        float c[CH];
+#pragma unroll
+        for (int u = 0; u < CH; ++u) {
+            const int32_t r = b0 + u < B ? s_row[b0 + u] : -1;
+            c[u] = r >= 0 ? __ldg(pj + (int64_t)r * ld) : group_acc::nan_f();
+        }
+#pragma unroll
+        for (int u = 0; u < CH; ++u)
+            if (b0 + u < B) s_cnt[(b0 + u) * TS + t] = c[u];
+    }
+    const float* mine = s_cnt + t;
+    out[(int64_t)__ldg(rows + g) * ld_out + j] =
+        quantile_of([&](int i) { return mine[i * TS]; }, les, B, q);
+}
+
+void tiled_gather_launch(cudaStream_t st, const float* part, int ld, const int32_t* table,
+                         const int32_t* rows, const float* les, int G, int B, int J, float q,
+                         float* out, int ld_out) {
+    int steps = min(128, (J + 31) / 32 * 32), groups = max(1, 256 / steps);
+    auto smem = [&] { return 4 * (int64_t)groups * B * (steps + 1); };
+    while (smem() > 232448 && groups > 1) groups /= 2;
+    while (smem() > 232448 && steps > 1) steps /= 2;
+    auto kern = B <= 16 ? hist_quantile_gather_tiled_kernel<16>
+              : B <= 32 ? hist_quantile_gather_tiled_kernel<32>
+                        : hist_quantile_gather_tiled_kernel<64>;
+    if (smem() > 48 * 1024)
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem());
+    const dim3 grid((G + groups - 1) / groups, (J + steps - 1) / steps);
+    kern<<<grid, dim3(steps, groups), (size_t)smem(), st>>>(part, ld, table, rows, les, G, B,
+                                                           J, q, out, ld_out);
+}
+
+"""
+GATHER_PATCHES = {
+    "tiled": [("hist_range.cu", "// An empty kernel: the card's floor for a launch through ctypes",
+               GATHER_TILED + "// An empty kernel: the card's floor for a launch through ctypes"),
+              ("hist_range.cu", "    hist_quantile_gather_kernel<<<(int)blocks, GATHER_THREADS, 0, "
+                                "(cudaStream_t)stream>>>(",
+               "    tiled_gather_launch((cudaStream_t)stream,")],
+}
+
+
+def gather_case(G: int, seed: int, device):
+    """(part, table, rows, les, out) of G classic groups of 12 buckets on
+    the card: cumulative counts as a by-(le, ...) aggregate leaves them
+    ([G * B, 128], 111 real steps, a few absent), each group's rows in a
+    drawn order, as the pivot's index table sees the aggregate's groups."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    B, J = GATHER_B, GATHER_J
+    counts = torch.poisson(torch.full((G, B, GATHER_LD), 3.0, device=device), generator=g)
+    part = counts.cumsum(1).reshape(G * B, GATHER_LD).contiguous()
+    part[torch.rand(part.shape, device=device, generator=g) < 0.01] = float("nan")
+    part[:, J:] = float("nan")
+    table = torch.randperm(G * B, device=device, generator=g).to(torch.int32).reshape(G, B)
+    table = table.sort(dim=1).values.contiguous()  # any rows: the pivot sorts by le only
+    rows = torch.randperm(G, device=device, generator=g).to(torch.int32)
+    les = torch.tensor([0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, float("inf")],
+                       device=device)
+    out = torch.full((G, GATHER_LD), float("nan"), device=device)
+    return part, table, rows, les, out
+
+
+def gather_main(card: str, device=None) -> int:
+    """``--classic-gather``: the classic-bucket quantile gather and its
+    tiled design at ``GATHER_CASES``, alternating, beside an empty launch."""
+    import torch
+
+    from filodb_tpu_torch.ops import hist_kernels as HK
+
+    device = device or torch.device("cuda")
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  Path(__file__).resolve().parent / "chip_smoke.py")
+    CS = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(CS)
+    libs = {"kernel": HK._load(),
+            "tiled": build_patched("hist_range", GATHER_PATCHES["tiled"], HK.bind)}
+    times = {}
+    for G, what in GATHER_CASES:
+        part, table, rows, les, out = gather_case(G, G, device)
+        HK.check_gather_table(table, rows, les)
+        B, J = GATHER_B, GATHER_J
+        want = torch.full_like(out, float("nan"))
+        want[rows.long(), :J] = HK.histogram_quantile_gather_plain(0.99, part, table, les, J)
+        args = (part.data_ptr(), part.shape[1], table.data_ptr(), rows.data_ptr(),
+                les.data_ptr(), G, B, J, 0.99, out.data_ptr(), out.shape[1])
+
+        def launch(lib):  # on the stream current at the call (a graph captures a side one)
+            return lib.filodb_hist_quantile_gather(
+                *args, torch.cuda.current_stream(device).cuda_stream)
+
+        for d, lib in libs.items():
+            out.fill_(float("nan"))
+            if launch(lib) != 0:
+                raise RuntimeError(f"G = {G}, {d}: launch failed")
+            torch.cuda.synchronize()
+            if not (torch.equal(torch.isnan(out), torch.isnan(want))
+                    and torch.equal(out[~torch.isnan(want)], want[~torch.isnan(want)])):
+                raise RuntimeError(f"G = {G}, {d}: differs from histogram_quantile_gather_plain")
+        name = f"G = {G} ({what})"
+        for d in ("kernel", "tiled", "tiled", "kernel"):
+            def bare(lib=libs[d]):
+                launch(lib)
+
+            for key, fn in ((f"{name}: {d} device", lambda: device_ms(bare, "gather")),
+                            (f"{name}: {d} graph replay", lambda: CS.graph_ms(bare)),
+                            (f"{name}: {d} back to back", lambda: back_to_back_ms(bare)),
+                            (f"{name}: {d} bare ctypes host per call", lambda: host_ms(bare))):
+                times.setdefault(key, []).append(fn())
+
+        def call():
+            HK.histogram_quantile_gather(0.99, part, table, rows, les, J, out)
+
+        def empty():
+            HK.empty_launch(G, J, device)
+
+        for key, fn in ((f"{name}: wrapper host per call", lambda: host_ms(call)),
+                        (f"{name}: empty launch device", lambda: device_ms(empty, "empty_kernel")),
+                        (f"{name}: empty launch graph replay", lambda: CS.graph_ms(empty)),
+                        (f"{name}: empty launch back to back", lambda: back_to_back_ms(empty))):
+            times[key] = fn()
+        times[f"{name}: the wrapper's per-call checks host per call"] = host_ms(lambda: [
+            HK._check(n, t, t.dtype, tuple(t.shape), part.device)
+            for n, t in (("part", part), ("out", out))])
+        times[f"{name}: check_gather_table host per call"] = host_ms(
+            lambda: HK.check_gather_table(table, rows, les))
+        need = G * B * J * 4 + G * J * 4 + G * B * 4 + G * 4 + B * 4
+        times[f"{name}: bound bytes"] = need
+        times[f"{name}: bound ms"] = need / 3.35e12 * 1e3
+        for key, v in times.items():
+            if key.startswith(name):
+                print(f"{key}: {v}", flush=True)
+    print(card)
+    print(json.dumps({"card": card, "ms": times}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--split", action="store_true", help="also time patched copies")
@@ -923,6 +1108,8 @@ def main() -> int:
                     help="time the histogram kernel's store mode (the tree's K1) instead")
     ap.add_argument("--order", action="store_true",
                     help="time the two order-statistics kernels instead")
+    ap.add_argument("--classic-gather", action="store_true",
+                    help="time the classic-bucket quantile gather and its tiled design instead")
     ap.add_argument("--package-root", default=None,
                     help="with --hist, --general or --order: import filodb_tpu_torch from this "
                          "checkout")
@@ -933,10 +1120,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("tile_sweep: no CUDA device is available", file=sys.stderr)
         return 2
-    if args.hist or args.general or args.order or args.hist_store or args.segment_topk:
+    if (args.hist or args.general or args.order or args.hist_store or args.segment_topk
+            or args.classic_gather):
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                "--format=csv,noheader"], capture_output=True, text=True,
                               check=True, timeout=60).stdout.strip()
+        if args.classic_gather:
+            return gather_main(card)
         if args.order:
             return order_main(args.package_root, card, args.split)
         if args.hist_store:
