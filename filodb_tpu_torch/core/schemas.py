@@ -2,8 +2,9 @@
 ``filodb_tpu/core/schemas.py``; reference L1: Schemas.scala, Column.scala,
 Dataset.scala:38).
 
-The port keeps the schemas the query path reads (``gauge``,
-``prom-counter`` and the five native-histogram schemas) and the hashing
+The port keeps the schemas the query path reads (``gauge``, ``untyped``,
+``prom-counter``, ``delta-counter`` and the five native-histogram schemas,
+without the JAX package's downsampling specs) and the hashing
 that routes a series to its shard. The hashes are byte-identical to the
 JAX package's, so one series lands on the same shard in both packages.
 """
@@ -68,8 +69,13 @@ def _register(s: Schema) -> Schema:
 
 
 GAUGE = _register(Schema("gauge", [_ts(), Column("value", ColumnType.DOUBLE)], "value"))
+UNTYPED = _register(Schema("untyped", [_ts(), Column("value", ColumnType.DOUBLE)], "value"))
 PROM_COUNTER = _register(
     Schema("prom-counter", [_ts(), Column("count", ColumnType.DOUBLE, is_counter=True)], "count")
+)
+# delta temporality: each sample is already the increase over its interval
+DELTA_COUNTER = _register(
+    Schema("delta-counter", [_ts(), Column("count", ColumnType.DOUBLE, is_delta=True)], "count")
 )
 # native histograms: cumulative bucket counts in the "h" column, [n, B] per
 # sample, beside the sum and count counters

@@ -1,6 +1,10 @@
 // Regular-grid range function fused with the group aggregate, on Hopper
 // (sm_90a).
 //
+// Also the rest of the JAX package's MXU rung (the reference tree's leaves
+// on a regular grid): B5 mxu_pair_count (filodb_tpu/ops/mxu_kernels.py:364,
+// changes/resets), mxu_minmax (:371), mxu_regression (:400, deriv and
+// predict_linear) and mxu_range_kernel's absent_over_time arm (:304).
 // Replaces two XLA programs of the JAX package that
 // filodb_tpu/ops/aggregations.py:_fused_mxu_jit runs as one: B2
 // mxu_range_kernel (filodb_tpu/ops/mxu_kernels.py:250) and B3
@@ -34,8 +38,9 @@
 // else global atomics.
 //
 // Bound. Device-memory bytes: the sectors of vals (and of raw, for the
-// counter zero-crossing cap) that the function reads, gids, and the
-// outputs; a few dozen flops per (row, step).
+// counter zero-crossing cap and changes/resets) that the function reads,
+// gids, and the outputs; a few dozen flops per (row, step), plus a pass
+// over the window for the B5 functions.
 //
 // Semantics kept line by line from mxu_range_kernel: f32 Prometheus
 // extrapolation of rate/increase/delta with the zero-crossing cap read from
@@ -61,8 +66,11 @@ using row_tiles::THREADS;
 enum Func {
     SUM_OVER_TIME = 0, COUNT_OVER_TIME, AVG_OVER_TIME, LAST, FIRST_OVER_TIME,
     PRESENT_OVER_TIME, STDDEV_OVER_TIME, STDVAR_OVER_TIME, Z_SCORE, RATE,
-    INCREASE, DELTA, IRATE, IDELTA,
+    INCREASE, DELTA, IRATE, IDELTA, CHANGES, RESETS, MIN_OVER_TIME, MAX_OVER_TIME,
+    DERIV, PREDICT_LINEAR, ABSENT_OVER_TIME,
 };
+
+constexpr float MINMAX_SENTINEL = 3e38f;  // mxu_minmax's sentinel
 
 struct RegularArgs {
     const float* vals;
@@ -76,8 +84,13 @@ struct RegularArgs {
     const float* tl;
     const float* tl2;
     const float* out_t;
+    const int32_t* rts;      // deriv/predict_linear: the shared ts [T]
+    const double* out_t64;   // their step times [ld], f64
+    const float* st;         // sum of Wt over each window [ld]
+    const float* stt;        // sum of W * tc^2 over each window [ld]
     int S, T, J, ld, G;
     float window_ms;
+    float lead;  // predict_linear's horizon (s)
     int func, acc_op, is_counter, is_delta;
     int R;  // rows per tile
     float* acc;
@@ -109,6 +122,47 @@ __device__ __forceinline__ float step_value(const RegularArgs& a, const float* r
     const bool has2 = count >= 2.0f;
     if (func == COUNT_OVER_TIME) return has ? count : NaN;
     if (func == PRESENT_OVER_TIME) return has ? 1.0f : NaN;
+    if (func == ABSENT_OVER_TIME) return has ? NaN : 1.0f;
+    if (func >= CHANGES && func <= PREDICT_LINEAR) {
+        if (!has) return NaN;
+        const int lo = __ldg(a.lo + j), hi = __ldg(a.hi + j);
+        if (func == CHANGES || func == RESETS) {
+            // flagged pairs (t-1, t) with lo < t < hi, read from raw (the
+            // differences of a diff-staged counter, else the values)
+            const bool diffs = a.is_counter && !a.is_delta;
+            float n = 0.0f;
+            for (int t = lo + 1; t < hi; ++t) {
+                const float x = rraw[t];
+                const float ref = diffs ? 0.0f : rraw[t - 1];
+                n += (func == CHANGES ? x != ref : x < ref) ? 1.0f : 0.0f;
+            }
+            return n;
+        }
+        if (func == MIN_OVER_TIME || func == MAX_OVER_TIME) {
+            const bool is_min = func == MIN_OVER_TIME;
+            float r = MINMAX_SENTINEL;
+            for (int t = lo; t < hi; ++t) r = fminf(r, is_min ? row[t] : -row[t]);
+            return is_min ? r : -r;
+        }
+        // least squares with time centred at the step (tc in s, rounded to
+        // f32 once from f64, as the host's Wt)
+        const double ot = __ldg(a.out_t64 + j);
+        float sv = 0.0f, stv = 0.0f;
+        for (int t = lo; t < hi; ++t) {
+            const float v = row[t];
+            const float tc = (float)(((double)__ldg(a.rts + t) - ot) * 1e-3);
+            sv += v;
+            stv += v * tc;
+        }
+        const float st = __ldg(a.st + j), stt = __ldg(a.stt + j);
+        const float denom = count * stt - st * st;
+        const bool small = fabsf(denom) < 1e-30f;
+        const float slope = (count * stv - st * sv) / (small ? 1.0f : denom);
+        if (!has2 || small) return NaN;
+        if (func == DERIV) return slope;
+        const float intercept = (sv - slope * st) / fmaxf(count, 1.0f);
+        return intercept + slope * a.lead;
+    }
     const int iF = __ldg(a.idx + j);
     const int iL = __ldg(a.idx + a.ld + j);
     const float w_s = a.window_ms * 1e-3f;
@@ -241,20 +295,24 @@ int launch(const RegularArgs& a, int smem, cudaStream_t stream) {
 extern "C" int filodb_regular_range(
     const void* vals, const void* raw, const void* gids, const void* lo,
     const void* hi, const void* idx, const void* count, const void* t_first, const void* t_last,
-    const void* t_last2, const void* out_t, int S, int T, int J, int ld, int G,
-    float window_ms, int func, int acc_op, int is_counter, int is_delta, int rows,
+    const void* t_last2, const void* out_t, const void* rts, const void* out_t64,
+    const void* st, const void* stt, int S, int T, int J, int ld, int G,
+    float window_ms, float lead, int func, int acc_op, int is_counter, int is_delta, int rows,
     int shared, int smem_bytes, void* acc, void* cnt, void* stream) {
     if (S <= 0 || J <= 0 || G <= 0) return 0;
+    if ((func == DERIV || func == PREDICT_LINEAR) && (!rts || !out_t64 || !st || !stt))
+        return (int)cudaErrorInvalidValue;
     RegularArgs a{(const float*)vals, (const float*)raw, (const long long*)gids,
                   (const int32_t*)lo, (const int32_t*)hi, (const int32_t*)idx,
                   (const float*)count, (const float*)t_first, (const float*)t_last,
-                  (const float*)t_last2, (const float*)out_t, S, T, J, ld, G,
-                  window_ms, func, acc_op, is_counter, is_delta, rows, (float*)acc,
+                  (const float*)t_last2, (const float*)out_t, (const int32_t*)rts,
+                  (const double*)out_t64, (const float*)st, (const float*)stt, S, T, J, ld, G,
+                  window_ms, lead, func, acc_op, is_counter, is_delta, rows, (float*)acc,
                   (float*)cnt};
     const int64_t part = shared ? (((int64_t)2 * G * J + 3) & ~3) * 4 : 0;
     const bool store = acc_op == group_acc::ACC_STORE;
     if (rows < 1 || smem_bytes < part || (store && shared)) return (int)cudaErrorInvalidValue;
-    cudaStream_t st = (cudaStream_t)stream;
-    if (store) return launch<false, true>(a, smem_bytes, st);
-    return shared ? launch<true>(a, smem_bytes, st) : launch<false>(a, smem_bytes, st);
+    cudaStream_t strm = (cudaStream_t)stream;
+    if (store) return launch<false, true>(a, smem_bytes, strm);
+    return shared ? launch<true>(a, smem_bytes, strm) : launch<false>(a, smem_bytes, strm);
 }

@@ -273,6 +273,9 @@ __global__ void __launch_bounds__(THREADS) window_range_kernel(const RangeArgs a
         const int64_t s0 = (int64_t)tile * R;
         row_tiles::issue_tile(a.ts, a.vals, a.raw, narr, s0, min(R, a.S - (int)s0), R, T,
                               stage + b * buf_words, [&](int r) {
+                                  // a partial last tile copies no row past S
+                                  // (the store variants' bound, below)
+                                  if (s0 + r >= a.S) return 0;
                                   const long long g = __ldg(a.gids + s0 + r);
                                   if (g < 0 || g >= a.G) return 0;
                                   const int n = min(max(__ldg(a.lens + s0 + r), 0), T);

@@ -27,6 +27,7 @@ from ..singleflight import memo_on
 from . import general_range as GR
 from . import group_acc as GA
 from . import hist_kernels as HK
+from . import mxu_jitter as JR
 from . import mxu_kernels as MK
 from . import order_stats as OS
 from . import window_stats as WS
@@ -35,25 +36,86 @@ from .staging import grid_class
 
 SIMPLE_AGG_OPS = ("sum", "count", "avg", "min", "max")
 
+# the jitter and masked rungs' fused functions (the JAX package's
+# FUSED_JITTER_FUNCS): the regular rung's set and min/max_over_time
+FUSED_JITTER_FUNCS = MK.FUSED_MXU_FUNCS | {"min_over_time", "max_over_time"}
 
-def grid_variant(block, func: str, is_delta: bool = False) -> str:
-    """Kernel-variant ladder for one fused dispatch, from the block's grid
-    class and the function (the JAX package's ``_grid_variant`` and
-    ``_pallas_variant``, as far as the port's rungs reach): ``mxu`` (exact
-    shared grid: the regular kernel) for ``FUSED_MXU_FUNCS`` unless it is
-    irate/idelta of a delta counter, else ``window_stats`` for
-    ``PALLAS_FUNCS``, else ``general`` (B4) for ``GENERAL_FUNCS``. The JAX
-    package's jitter and masked rungs (B6) are not ported: a near-regular
-    grid takes ``window_stats`` or ``general``, whose windows are exact."""
-    if (block.regular_ts is not None and func in MK.FUSED_MXU_FUNCS
-            and not (is_delta and func in ("irate", "idelta"))):
-        return "mxu"
-    if func in WS.PALLAS_FUNCS:
-        return "window_stats"
+
+def general_rung(func: str, block=None) -> str:
+    """The port's rung where the JAX ladder takes ``general`` or ``pallas``:
+    ``general`` (B4) for ``GENERAL_FUNCS``, ``window_stats`` for the
+    functions the general kernel does not compute (``PALLAS_FUNCS``; both
+    kernels' windows are exact, so the answers agree)."""
     if func in GR.GENERAL_FUNCS:
         return "general"
-    raise NotImplementedError(
-        f"range function {func!r} on a {grid_class(block)} grid is not ported")
+    if func in WS.PALLAS_FUNCS:
+        return "window_stats"
+    where = f" on a {grid_class(block)} grid" if block is not None else ""
+    raise NotImplementedError(f"range function {func!r}{where} is not ported")
+
+
+def grid_variant(block, func: str, is_delta: bool = False, window_ms=None) -> str:
+    """Kernel-variant ladder for one fused dispatch, from the block's grid
+    class and the function: the JAX package's ``_grid_variant`` -- ``mxu``
+    (exact shared grid: the regular kernel) for ``FUSED_MXU_FUNCS`` >
+    ``jitter`` (near-regular) > ``masked`` (missed scrapes) for
+    ``FUSED_JITTER_FUNCS``, none of them for irate/idelta of a delta
+    counter -- with ``_fused_dispatch``'s decline where ``window_ms`` is
+    given (a window not wider than twice the grid's deviation bound), then
+    ``general_rung`` in place of the JAX ``general`` and ``pallas``."""
+    if not (is_delta and func in ("irate", "idelta")):
+        if block.regular_ts is not None:
+            if func in MK.FUSED_MXU_FUNCS:
+                return "mxu"
+        elif block.nominal_ts is not None:
+            if func in FUSED_JITTER_FUNCS and (
+                    window_ms is None or JR.window_ok(window_ms, block.maxdev_ms)):
+                return "jitter"
+        elif block.mgrid is not None:
+            if func in FUSED_JITTER_FUNCS and (
+                    window_ms is None or JR.window_ok(window_ms, block.mgrid.maxdev_ms)):
+                return "masked"
+    return general_rung(func, block)
+
+
+# each rung's module and the prefix of its aggregate and store-mode entry
+# points (looked up at each call: ``<prefix>_aggregate``, ``<prefix>_series``)
+_RUNGS = {"mxu": (MK, "regular_range"), "jitter": (JR, "jitter_range"),
+          "masked": (JR, "masked_range"), "window_stats": (WS, "window_range"),
+          "general": (GR, "general_range")}
+
+
+def rung_aggregate(variant: str):
+    """The rung's aggregate entry point (``regular_range_aggregate``, ...)."""
+    mod, prefix = _RUNGS[variant]
+    return getattr(mod, f"{prefix}_aggregate")
+
+
+def rung_series(variant: str):
+    """The rung's store-mode entry point (``regular_range_series``, ...)."""
+    mod, prefix = _RUNGS[variant]
+    return getattr(mod, f"{prefix}_series")
+
+
+def rung_series_plain(variant: str, func: str, block, params, is_counter: bool = False,
+                      is_delta: bool = False, args: tuple = ()) -> torch.Tensor:
+    """The [S_pad, J_pad] per-series values of a rung through its plain
+    version, on the block's device (what a rung's store mode computes)."""
+    kw = {"is_counter": is_counter, "is_delta": is_delta}
+    if variant == "general":
+        return GR.general_range_series_plain(func, block, params, args=args, **kw)
+    if variant == "window_stats":
+        return WS.window_range_series_plain(func, block, params, **kw)
+    start_off = int(params.start_ms - block.base_ms)
+    j_pad = pad_steps(params.num_steps)
+    if variant == "mxu":
+        raw = block.raw if block.raw is not None else block.vals
+        wm = MK.window_matrices(block, start_off, params.step_ms, j_pad, params.window_ms)
+        return MK.mxu_range_plain(func, block.vals, raw, wm, params.window_ms, args=args, **kw)
+    masked = variant == "masked"
+    wm = (JR.masked_window_matrices if masked else JR.jitter_window_matrices)(
+        block, start_off, params.step_ms, j_pad, params.window_ms)
+    return JR._plain(masked, func, block, wm, params, is_counter, is_delta)
 
 
 def segment_aggregate(op: str, values: torch.Tensor, group_ids: torch.Tensor,
@@ -104,34 +166,32 @@ def fused_range_aggregate(func: str, op: str, block, gids_padded: torch.Tensor,
                           num_groups: int, params, is_counter: bool = False,
                           is_delta: bool = False, obs: dict | None = None) -> torch.Tensor:
     """``op by (...) (func(selector[w]))`` over a staged (super)block on
-    the device, on the rung ``grid_variant`` picks (written to
-    ``obs["variant"]`` when ``obs`` is given): one launch of the regular
-    kernel (``mxu``), the fused window-stats kernel (``window_stats``) or
-    the general kernel (``general``). Returns the [G, J_pad] group values on the device (NaN past
-    ``params.num_steps``); no [S, J] grid is allocated."""
-    variant = grid_variant(block, func, is_delta)
+    the device, on the rung ``grid_variant`` picks for the query's window
+    (written to ``obs["variant"]`` when ``obs`` is given): one launch of
+    the regular kernel (``mxu``), the jitter kernel (``jitter``, or its
+    ``masked`` variant), the fused window-stats kernel (``window_stats``)
+    or the general kernel (``general``). Returns the [G, J_pad] group
+    values on the device (NaN past ``params.num_steps``); no [S, J] grid
+    is allocated."""
+    variant = grid_variant(block, func, is_delta, params.window_ms)
     if obs is not None:
         obs["variant"] = variant
-    rung = {"mxu": MK.regular_range_aggregate, "window_stats": WS.window_range_aggregate,
-            "general": GR.general_range_aggregate}[variant]
-    return rung(func, op, block, gids_padded, num_groups, params, is_counter=is_counter,
-                is_delta=is_delta)
+    return rung_aggregate(variant)(func, op, block, gids_padded, num_groups, params,
+                                   is_counter=is_counter, is_delta=is_delta)
 
 
 def fused_range_series(func: str, block, params, is_counter: bool = False,
                        is_delta: bool = False, obs: dict | None = None) -> torch.Tensor:
     """``func(selector[w])`` of every series of a staged (super)block on
-    the rung ``grid_variant`` picks (written to ``obs["variant"]``), in its
-    store mode: one launch that writes the step-major [J_pad, S_pad] grid
-    on the device, the padded rows (``zero_gids``) and the steps past
-    ``params.num_steps`` NaN."""
-    variant = grid_variant(block, func, is_delta)
+    the rung ``grid_variant`` picks for the query's window (written to
+    ``obs["variant"]``), in its store mode: one launch that writes the
+    step-major [J_pad, S_pad] grid on the device, the padded rows
+    (``zero_gids``) and the steps past ``params.num_steps`` NaN."""
+    variant = grid_variant(block, func, is_delta, params.window_ms)
     if obs is not None:
         obs["variant"] = variant
-    rung = {"mxu": MK.regular_range_series, "window_stats": WS.window_range_series,
-            "general": GR.general_range_series}[variant]
-    return rung(func, block, zero_gids(block), 1, params, is_counter=is_counter,
-                is_delta=is_delta)
+    return rung_series(variant)(func, block, zero_gids(block), 1, params,
+                                is_counter=is_counter, is_delta=is_delta)
 
 
 def zero_gids(block) -> torch.Tensor:
@@ -178,8 +238,9 @@ def hist_variant(block) -> str:
     """The histogram rung of a block: ``hist_shared`` (shared [J] window
     bounds) on a regular grid, else ``hist_general`` (bounds searched per
     series). The JAX package takes a jitter variant on near-regular grids
-    (``_fused_hist_jitter_jit``), which needs the jitter window structures
-    (B6); the general kernel's windows are exact, so the answers agree."""
+    (``_fused_hist_jitter_jit``), whose kernel (``_hist_range_jitter``) is
+    not ported; the general kernel's windows are exact, so the answers
+    agree."""
     return "hist_shared" if block.regular_ts is not None else "hist_general"
 
 

@@ -354,25 +354,53 @@ def run_range_function(func: str, block, params: RangeParams, is_counter: bool =
                                     is_delta=is_delta, args=args)[0]
 
 
-def _dispatch_range_function(func: str, block, params: RangeParams, is_counter: bool = False,
-                             is_delta: bool = False, args: tuple = ()):
-    """Returns ``(grid, variant)``, the variant the rung that served it:
-    ``host`` (timestamp), ``sorted`` (B8), else the store mode of the rung
-    ``aggregations.grid_variant`` picks -- ``mxu`` (the regular kernel),
-    ``window_stats`` or ``general`` -- and ``general`` for the functions
-    with arguments (predict_linear, double_exponential_smoothing). The
-    JAX ladder's MXU functions the regular store mode does not take
-    (min/max_over_time, changes, resets, deriv, predict_linear,
-    absent_over_time) take the window-stats or general kernel on a regular
-    grid, and jittered grids take them too (no B5, no B6)."""
+def tree_rung(func: str, block, params: RangeParams, is_delta: bool = False,
+              args: tuple = ()) -> str:
+    """The rung of the JAX package's tree ladder that serves ``func`` over
+    ``block``: ``host`` (timestamp); ``mxu`` (the regular kernel's store
+    mode) for ``MXU_FUNCS`` on a regular grid, predict_linear's horizon
+    included; ``jitter``, then ``masked``, for ``JITTER_FUNCS`` without
+    arguments, each of which declines a window not wider than twice its
+    grid's deviation bound; none of these for irate/idelta of a delta
+    counter; then ``sorted`` (B8), ``general`` for the functions with
+    arguments (predict_linear, double_exponential_smoothing) and
+    ``aggregations.general_rung`` (window stats or general) in place of the
+    JAX ``pallas`` and ``general``."""
     from . import aggregations as AGG
     from . import general_range as GR
+    from . import mxu_jitter as JR
+    from . import mxu_kernels as MK
     from . import sorted_window as SW
 
     if func == "timestamp":
+        return "host"
+    delta_i = is_delta and func in ("irate", "idelta")
+    if block.regular_ts is not None and func in MK.MXU_FUNCS and not delta_i:
+        return "mxu"
+    if not delta_i and not args and func in JR.JITTER_FUNCS:
+        if block.nominal_ts is not None and JR.window_ok(params.window_ms, block.maxdev_ms):
+            return "jitter"
+        if block.mgrid is not None and JR.window_ok(params.window_ms, block.mgrid.maxdev_ms):
+            return "masked"
+    if func in SW.SORTED_FUNCS:
+        return "sorted"
+    if func in GR.ARG_FUNCS:
+        return "general"
+    return AGG.general_rung(func, block)
+
+
+def _dispatch_range_function(func: str, block, params: RangeParams, is_counter: bool = False,
+                             is_delta: bool = False, args: tuple = ()):
+    """Returns ``(grid, variant)``: the [S_pad, J_pad] values of the rung
+    ``tree_rung`` picks (its store mode transposed, the sorted-window
+    kernel, or the host's timestamp) and that rung's name."""
+    from . import aggregations as AGG
+    from . import sorted_window as SW
+
+    variant = tree_rung(func, block, params, is_delta, args)
+    if variant == "host":
         return _host_timestamp(block, params), "host"
-    if (func in SW.SORTED_FUNCS or func in GR.ARG_FUNCS
-            or AGG.grid_variant(block, func, is_delta) != "mxu"):
+    if variant not in ("mxu", "jitter", "masked"):
         # the window rungs take the start as an int32 offset from the block's
         # base: one past it (a subquery window over ~24.8 days) raises the
         # JAX ladder's OverflowError (NumPy's, word for word), on the CPU and
@@ -380,13 +408,9 @@ def _dispatch_range_function(func: str, block, params: RangeParams, is_counter: 
         start_off = int(params.start_ms) - int(block.base_ms)
         if not -2**31 <= start_off < 2**31:
             raise OverflowError(f"Python integer {start_off} out of bounds for int32")
-    if func in SW.SORTED_FUNCS:
+    if variant == "sorted":
         return SW.sorted_window(func, block, params, args), "sorted"
-    if func in GR.ARG_FUNCS:
-        grid = GR.general_range_series(func, block, AGG.zero_gids(block), 1, params,
-                                       is_counter=is_counter, is_delta=is_delta, args=args)
-        return grid.T, "general"
-    obs: dict = {}
-    grid = AGG.fused_range_series(func, block, params, is_counter=is_counter,
-                                  is_delta=is_delta, obs=obs)
-    return grid.T, obs["variant"]
+    grid = AGG.rung_series(variant)(func, block, AGG.zero_gids(block), 1, params,
+                                    is_counter=is_counter, is_delta=is_delta,
+                                    **({"args": args} if args else {}))
+    return grid.T, variant

@@ -13,7 +13,15 @@ the windows and reduces into ``[G+1, J]`` accumulators in one pass; on a CPU
 tensor it runs ``mxu_range_plain`` followed by the segment aggregate, the
 same function in plain torch. Steps past the query's ``num_steps`` are NaN
 in both. ``regular_range_series`` is the same kernel in its store mode
-(the fused epilogues): the per-series ``[J_pad, S_pad]`` grid.
+(the fused epilogues and the reference tree): the per-series
+``[J_pad, S_pad]`` grid.
+
+Beyond ``FUSED_MXU_FUNCS`` the kernel computes the rest of the JAX
+package's ``MXU_FUNCS`` (``mxu_pair_count``, ``mxu_minmax``,
+``mxu_regression`` and ``absent_over_time``), which the tree takes on a
+regular grid: changes/resets count flagged pairs inside the window,
+min/max scan it, deriv/predict_linear sum ``v`` and ``v * tc`` in f32
+against the host's time moments (``WindowMatrices.ensure_regression``).
 """
 
 from __future__ import annotations
@@ -37,13 +45,24 @@ FUSED_MXU_FUNCS = {
     "rate", "increase", "delta", "idelta", "irate",
 }
 
+# every range function of the regular rung (the JAX package's MXU_FUNCS);
+# the fused ladder takes only FUSED_MXU_FUNCS here, the tree all of them
+# (timestamp is the host's)
+MXU_FUNCS = FUSED_MXU_FUNCS | {
+    "absent_over_time", "timestamp", "changes", "resets", "deriv", "predict_linear",
+    "min_over_time", "max_over_time",
+}
+
 # the kernel's codes (csrc/regular_range.cu, enums Func and Acc)
 FUNC_CODES = {
     "sum_over_time": 0, "count_over_time": 1, "avg_over_time": 2, "last": 3,
     "last_over_time": 3, "first_over_time": 4, "present_over_time": 5,
     "stddev_over_time": 6, "stdvar_over_time": 7, "z_score": 8, "rate": 9,
-    "increase": 10, "delta": 11, "irate": 12, "idelta": 13,
+    "increase": 10, "delta": 11, "irate": 12, "idelta": 13, "changes": 14,
+    "resets": 15, "min_over_time": 16, "max_over_time": 17, "deriv": 18,
+    "predict_linear": 19, "absent_over_time": 20,
 }
+MINMAX_SENTINEL = 3e38  # mxu_minmax's sentinel for samples outside a window
 # kernel launches since the last reset, and the last launch's layout
 # (group_acc.TilePlan)
 LAUNCHES = 0
@@ -63,7 +82,10 @@ class WindowMatrices:
     - ``idx`` int32 [3, J]: first / last / second-to-last positions,
       clipped to the row (the kernel's gathers);
     - ``W``, ``F``, ``L``, ``L2`` f32 [T, J]: window membership and the
-      one-hot selections, which only the plain version reads."""
+      one-hot selections, which only the plain version reads;
+    - built at first use, as the JAX package's lazy builders: the pair
+      membership ``P`` (``ensure_pairs``) and deriv's time moments
+      (``ensure_regression``)."""
 
     def __init__(self, ts1: np.ndarray, n_valid: int, start_off: int, step_ms: int,
                  num_steps: int, window_ms: int, device):
@@ -104,6 +126,32 @@ class WindowMatrices:
         self.out_t = put(out_t.astype(np.float64).astype(np.float32))
         self.idx = put(idx)
         self.W, self.F, self.L, self.L2 = map(put, (W, F, L, L2))
+        self._put, self._ts1, self._W = put, ts1, W
+        self._lo, self._hi, self._T, self._out_t = lo, hi, T, out_t.astype(np.float64)
+
+    def ensure_pairs(self) -> None:
+        """``P`` f32 [T, J]: pair (t-1, t) lies in window j when lo < t < hi
+        (changes, resets; the plain version's matmul)."""
+        if "P" not in self.__dict__:
+            tidx = np.arange(self._T)[:, None]
+            self.P = self._put(((tidx > self._lo[None, :]) & (tidx < self._hi[None, :]))
+                               .astype(np.float32))
+
+    def ensure_regression(self) -> None:
+        """deriv/predict_linear's time moments, built as the JAX package
+        builds them: ``tc`` = (ts - out_t) / 1000 in f64, ``Wt`` = W * tc
+        rounded to f32 once, ``st`` its f32 column sums, ``stt`` the f64
+        sums of W * tc^2 rounded to f32; and ``rts`` (the shared ts, int32)
+        and ``out_t64`` (f64) from which the kernel takes each ``tc``."""
+        if "st" not in self.__dict__:
+            tc = (self._ts1.astype(np.float64)[:, None] - self._out_t[None, :]) * 1e-3
+            Wt = (self._W * tc).astype(np.float32)
+            self.Wt = self._put(Wt)
+            self.st = self._put(Wt.sum(0))
+            self.stt = self._put((self._W * tc * tc).sum(0).astype(np.float64)
+                                 .astype(np.float32))
+            self.rts = self._put(np.asarray(self._ts1, np.int32))
+            self.out_t64 = self._put(self._out_t)
 
 
 def window_matrices(block, start_off: int, step_ms: int, num_steps: int,
@@ -119,20 +167,35 @@ def window_matrices(block, start_off: int, step_ms: int, num_steps: int,
 
 
 def _window_sum(x: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
-    """``x @ W`` for a 0/1 window matrix, summed in index order over t:
-    the kernel's order, so the f32 rounding of the two agrees."""
+    """``x @ W`` summed in index order over t, each product rounded first:
+    the kernel's order, so the f32 rounding of the two agrees (W a 0/1
+    window matrix, or deriv's ``Wt``)."""
     out = torch.zeros((x.shape[0], W.shape[1]), dtype=x.dtype, device=x.device)
     for t in range(W.shape[0]):
         out = out + x[:, t : t + 1] * W[t]
     return out
 
 
+def window_scan_min(v: torch.Tensor, lo, hi) -> torch.Tensor:
+    """[S, J] minimum of ``v`` over each step's shared index range [lo[j],
+    hi[j]) (host ints), ``MINMAX_SENTINEL`` for an empty range: the scan the
+    kernels make, which equals the JAX package's tile hierarchy (a minimum
+    is exact)."""
+    out = torch.full((v.shape[0], len(lo)), MINMAX_SENTINEL, dtype=v.dtype, device=v.device)
+    for j, (a, b) in enumerate(zip(lo, hi)):
+        if b > a:
+            out[:, j] = torch.clamp(v[:, a:b].amin(1), max=MINMAX_SENTINEL)
+    return out
+
+
 def mxu_range_plain(func: str, vals: torch.Tensor, raw: torch.Tensor, wm: WindowMatrices,
-                    window_ms, is_counter: bool = False, is_delta: bool = False) -> torch.Tensor:
+                    window_ms, is_counter: bool = False, is_delta: bool = False,
+                    args: tuple = ()) -> torch.Tensor:
     """[S, T] values of a regular block -> [S, J] range function, every
-    branch of the JAX package's ``mxu_range_kernel`` in plain torch. The
-    selections are one-hot matmuls in f32 (TF32 off); window sums are
-    ``_window_sum``."""
+    branch of the JAX package's ``mxu_range_kernel``, ``mxu_pair_count``,
+    ``mxu_minmax`` and ``mxu_regression`` in plain torch. The selections
+    and pair counts are f32 matmuls (TF32 off); window sums are
+    ``_window_sum``; min/max scan each window (``window_scan_min``)."""
     if vals.is_cuda and torch.get_float32_matmul_precision() != "highest":
         raise RuntimeError("mxu_range_plain needs f32 matmuls: TF32 must stay off")
     f32 = torch.float32
@@ -167,6 +230,36 @@ def mxu_range_plain(func: str, vals: torch.Tensor, raw: torch.Tensor, wm: Window
         return torch.where(has, gF(vals), nan)
     if func == "present_over_time":
         return torch.where(has, 1.0, nan)[None, :] * ones
+    if func == "absent_over_time":
+        return torch.where(has, nan, 1.0)[None, :] * ones
+    if func in ("changes", "resets"):
+        # raw value movement; diff-staged counters carry the differences
+        wm.ensure_pairs()
+        if is_counter and not is_delta:
+            flag = (raw != 0) if func == "changes" else (raw < 0)
+        else:
+            prev = torch.cat([raw[:, :1], raw[:, :-1]], dim=1)
+            flag = (raw != prev) if func == "changes" else (raw < prev)
+        return torch.where(has, flag.to(f32) @ wm.P, nan)
+    if func in ("min_over_time", "max_over_time"):
+        v = vals if func == "min_over_time" else -vals
+        r = window_scan_min(v, wm._lo.tolist(), wm._hi.tolist())
+        r = r if func == "min_over_time" else -r
+        return torch.where(has[None, :], r, nan)
+    if func in ("deriv", "predict_linear"):
+        wm.ensure_regression()
+        sv = _window_sum(vals, wm.W)
+        stv = _window_sum(vals, wm.Wt)  # each v * tc rounded, then summed in order
+        n = count[None, :]
+        denom = n * wm.stt[None, :] - (wm.st * wm.st)[None, :]
+        small = torch.abs(denom) < 1e-30
+        slope = (n * stv - wm.st[None, :] * sv) / torch.where(small, 1.0, denom)
+        ok = (count >= 2)[None, :] & ~small
+        if func == "deriv":
+            return torch.where(ok, slope, nan)
+        lead = torch.tensor(np.float32(args[0]) if args else 0.0, dtype=f32, device=vals.device)
+        intercept = (sv - slope * wm.st[None, :]) / torch.clamp(n, min=1.0)
+        return torch.where(ok, intercept + slope * lead, nan)
     if func in ("stddev_over_time", "stdvar_over_time", "z_score"):
         s = _window_sum(vals, wm.W)
         s2 = _window_sum(vals * vals, wm.W)
@@ -222,7 +315,7 @@ def mxu_range_plain(func: str, vals: torch.Tensor, raw: torch.Tensor, wm: Window
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the entry point's argument types on a built library."""
     fn = lib.filodb_regular_range
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float]
+    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
                    + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
     return lib
@@ -255,7 +348,7 @@ def _check_inputs(vals, raw, gids) -> None:
 
 def _launch(func: str, op: str, vals, raw, gids, num_groups: int, wm: WindowMatrices,
             num_steps: int, is_counter: bool, is_delta: bool, acc: torch.Tensor,
-            cnt: torch.Tensor, plan=None, lib=None) -> None:
+            cnt: torch.Tensor, plan=None, lib=None, args: tuple = ()) -> None:
     """One launch of the regular kernel over the first ``num_steps`` steps
     into ``acc``/``cnt`` ([G+1, J_pad], from ``group_acc.accumulators``),
     or with ``op`` ``group_acc.STORE`` into the grid ``acc`` ([J_pad, S],
@@ -269,14 +362,20 @@ def _launch(func: str, op: str, vals, raw, gids, num_groups: int, wm: WindowMatr
     S, T = vals.shape
     if plan is None:
         plan = GA.tile_plan(num_groups, num_steps, 0, 0, store=op == GA.STORE)
+    regression = func in ("deriv", "predict_linear")
+    if regression:
+        wm.ensure_regression()
+    moments = [wm.rts, wm.out_t64, wm.st, wm.stt] if regression else [None] * 4
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream(vals.device).cuda_stream
         err = lib.filodb_regular_range(
             vals.data_ptr(), raw.data_ptr(), gids.data_ptr(), wm.lo.data_ptr(),
             wm.hi.data_ptr(), wm.idx.data_ptr(), wm.count.data_ptr(), wm.t_first.data_ptr(),
             wm.t_last.data_ptr(), wm.t_last2.data_ptr(), wm.out_t.data_ptr(),
+            *[0 if m is None else m.data_ptr() for m in moments],
             S, T, num_steps, wm.lo.shape[0], num_groups,
-            float(np.float32(wm.window_ms)), FUNC_CODES[func], GA.acc_code(op), int(is_counter),
+            float(np.float32(wm.window_ms)), float(np.float32(args[0]) if args else 0.0),
+            FUNC_CODES[func], GA.acc_code(op), int(is_counter),
             int(is_delta), plan.rows, int(plan.shared), plan.smem_bytes,
             acc.data_ptr(), cnt.data_ptr(), stream,
         )
@@ -286,9 +385,14 @@ def _launch(func: str, op: str, vals, raw, gids, num_groups: int, wm: WindowMatr
     LAST_PLAN = plan
 
 
+def _check_func(func: str) -> None:
+    if func not in FUNC_CODES:
+        raise NotImplementedError(f"range function {func!r} is not on the regular rung")
+
+
 def regular_range_aggregate(func: str, op: str, block, gids: torch.Tensor, num_groups: int,
                             params, is_counter: bool = False,
-                            is_delta: bool = False) -> torch.Tensor:
+                            is_delta: bool = False, args: tuple = ()) -> torch.Tensor:
     """``op by (...) (func(selector[w]))`` over a block with a shared
     regular grid -> [G, J_pad] group values on the block's device; steps
     past ``params.num_steps`` are NaN. ``gids`` is int64 [S_padded],
@@ -297,8 +401,7 @@ def regular_range_aggregate(func: str, op: str, block, gids: torch.Tensor, num_g
     ``mxu_range_plain`` and the segment aggregate."""
     from .aggregations import SIMPLE_AGG_OPS, apply_epilogue
 
-    if func not in FUSED_MXU_FUNCS:
-        raise NotImplementedError(f"range function {func!r} is not on the regular rung")
+    _check_func(func)
     if op not in SIMPLE_AGG_OPS:
         raise NotImplementedError(f"aggregation {op!r} is not ported (ported: {SIMPLE_AGG_OPS})")
     if block.regular_ts is None:
@@ -311,28 +414,28 @@ def regular_range_aggregate(func: str, op: str, block, gids: torch.Tensor, num_g
     device = block.vals.device.type
     if device == "cpu":
         sj = mxu_range_plain(func, block.vals, raw, wm, params.window_ms,
-                             is_counter=is_counter, is_delta=is_delta)
+                             is_counter=is_counter, is_delta=is_delta, args=args)
         return GA.mask_steps(apply_epilogue(sj, ("agg", op), gids, num_groups),
                              params.num_steps)
     if device != "cuda":
         raise ValueError(f"regular_range_aggregate runs on cuda or cpu tensors, not {device}")
     acc, cnt = GA.accumulators(op, num_groups, wm.lo.shape[0], block.vals.device)
     _launch(func, op, block.vals, raw, gids, num_groups, wm, params.num_steps, is_counter,
-            is_delta, acc, cnt)
+            is_delta, acc, cnt, args=args)
     return GA.finish_groups(op, acc, cnt, num_groups)
 
 
 def regular_range_series(func: str, block, gids: torch.Tensor, num_groups: int, params,
-                         is_counter: bool = False, is_delta: bool = False) -> torch.Tensor:
+                         is_counter: bool = False, is_delta: bool = False,
+                         args: tuple = ()) -> torch.Tensor:
     """``func(selector[w])`` of every series of a block with a shared
     regular grid -> the step-major [J_pad, S_padded] grid on the block's
     device (the store mode, for the fused epilogues): rows whose gid lies
     outside ``[0, num_groups)`` (the trash group of padded rows) and steps
     past ``params.num_steps`` are NaN. A CUDA block makes one launch of the
     kernel's store variant; a CPU block runs ``mxu_range_plain`` through
-    ``group_acc.series_grid``."""
-    if func not in FUSED_MXU_FUNCS:
-        raise NotImplementedError(f"range function {func!r} is not on the regular rung")
+    ``group_acc.series_grid``. ``args`` is predict_linear's horizon."""
+    _check_func(func)
     if block.regular_ts is None:
         raise ValueError("regular_range_series needs a block with a shared regular grid")
     raw = block.raw if block.raw is not None else block.vals
@@ -343,6 +446,6 @@ def regular_range_series(func: str, block, gids: torch.Tensor, num_groups: int, 
     return GA.run_series(
         block.vals.device, block.vals.shape[0], gids, num_groups, params.num_steps,
         lambda: mxu_range_plain(func, block.vals, raw, wm, params.window_ms,
-                                is_counter=is_counter, is_delta=is_delta),
+                                is_counter=is_counter, is_delta=is_delta, args=args),
         lambda out: _launch(func, GA.STORE, block.vals, raw, gids, num_groups, wm,
-                            params.num_steps, is_counter, is_delta, out, out))
+                            params.num_steps, is_counter, is_delta, out, out, args=args))

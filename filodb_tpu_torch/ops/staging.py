@@ -17,18 +17,22 @@ padded ``[series, time]`` block, which moves to the device once:
   (``stage_histogram_series``), one bucket scheme per block.
 - Every block is classified by its time grid (``grid_class``): ``regular``
   when every real series shares one exact timestamp vector (the regular
-  range kernel), ``jitter`` when the series are near-regular, else
-  ``irregular`` (the window-stats kernel). The JAX package's ``holes``
-  class (its masked missing-scrape grid) is not ported: such blocks stay
-  ``irregular``.
+  range kernel), ``jitter`` when the series are near-regular (the jitter
+  kernel, which derives each sample's deviation from ``ts`` and
+  ``nominal_ts`` on the device), ``holes`` when they are near-regular with
+  missed scrapes (a slot-aligned ``MaskedGrid`` sidecar, the masked
+  kernel; a shard's or a superblock's is built by its device copy, on
+  the device, and stays there), else ``irregular`` (the window-stats and
+  general kernels).
+  ``stage_from_shard`` repairs ragged jittered edges (``_slot_align``), so
+  such a selection stays ``jitter``.
 
 Live ingest does not restage a cached block: ``append_to_block`` (a
 shard's host-staged block) and ``extend_superblock`` (the cross-shard
 superblock on the device) append the samples that arrived past its head,
 from host mirrors that ``to_device(keep_host=True)`` keeps, and
 ``SuperblockCache`` holds superblocks keyed by their member shards' version
-vector. The JAX package's ``_slot_align`` (ragged jittered edges) is not
-ported.
+vector. A ``holes`` block is restaged, not extended, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -63,6 +67,317 @@ TS_PAD = np.int32(2**31 - 1)  # padded slots sort after every real timestamp
 # Widest selector span a staged block represents exactly (int32 ms offsets).
 MAX_STAGE_SPAN_MS = 2**31 - 2
 
+# masked (missed-scrape) grids tolerate at most this share of holes
+MAX_HOLE_FRAC = 0.05
+
+# the sidecar's planes, all the masked kernel reads (csrc/jitter_range.cu,
+# MASKED). Validity, deviations and raw values at the valid slots are read
+# from them (``MaskedGrid.valid``/``dev``/``raw``), so no other is kept.
+MASKED_PLANES = ("vals", "cc", "ffv", "ffd", "bfv", "bfd", "ff2v", "ff2d", "bfraw")
+
+
+@dataclass
+class MaskedGrid:
+    """Slot-aligned sidecar of near-regular data with missed scrapes (the
+    JAX package's ``MaskedGrid``). The packed block stays canonical; the
+    sidecar maps each sample to its nominal slot and carries per-slot
+    values, running count and forward/backward fills, so the masked kernel
+    evaluates first/last/rate at shared slot indices. All [S, T'] f32
+    tensors on the device that built them, holes 0 (T' counts slots and
+    may exceed the block's T):
+
+    - vals: the value at each valid slot
+    - ffv/ffd: value / time offset of the last valid slot <= t
+      (ffd = R[t'] - R[t] + dev[s, t'])
+    - bfv/bfd: value / time offset of the first valid slot >= t
+    - ff2v/ff2d: value / time offset of the second-to-last valid slot <= t
+    - bfraw: backward fill of raw values (the counter extrapolation cap)
+    - cc: the running count of valid slots
+
+    The JAX package's ``valid``, ``dev`` and ``raw`` planes are derived
+    (``masked_fills``' invariant: at a valid slot ffd is its deviation and
+    bfraw its raw value)."""
+
+    nominal_ts: np.ndarray  # [T'] int32 ms offsets of the slot grid
+    n_valid: int  # real slot count (grid width; <= T')
+    interval_ms: float  # refined nominal interval
+    maxdev_ms: int
+    vals: torch.Tensor
+    ffv: torch.Tensor
+    ffd: torch.Tensor
+    bfv: torch.Tensor
+    bfd: torch.Tensor
+    ff2v: torch.Tensor
+    ff2d: torch.Tensor
+    bfraw: torch.Tensor | None
+    cc: torch.Tensor
+
+    @property
+    def valid(self) -> torch.Tensor:
+        """1 at a slot that holds a sample, else 0 (from the running count)."""
+        return torch.diff(self.cc, dim=1, prepend=torch.zeros_like(self.cc[:, :1]))
+
+    @property
+    def dev(self) -> torch.Tensor:
+        """Each valid slot's deviation from its nominal time (ms), holes 0."""
+        return torch.where(self.valid > 0, self.ffd, 0.0)
+
+    @property
+    def raw(self) -> torch.Tensor | None:
+        """Each valid slot's raw value (counters only), holes 0."""
+        return None if self.bfraw is None else torch.where(self.valid > 0, self.bfraw, 0.0)
+
+    def device_copy(self, device) -> "MaskedGrid":
+        """This grid with its planes on ``device`` (the same tensors where
+        they already lie there); this grid is left as it is."""
+        planes = {f: None if getattr(self, f) is None else getattr(self, f).to(device)
+                  for f in MASKED_PLANES}
+        return MaskedGrid(self.nominal_ts, self.n_valid, self.interval_ms, self.maxdev_ms,
+                          **planes)
+
+    def nbytes(self) -> int:
+        return sum(int(getattr(self, f).nbytes) for f in MASKED_PLANES
+                   if getattr(self, f) is not None)
+
+
+def _flatten(cleaned):
+    """Series as (every sample's int64 ts concatenated, per-series counts);
+    ``cleaned`` is a list of (ts, values) or already that pair."""
+    if isinstance(cleaned, tuple):
+        return cleaned
+    lens = np.fromiter((len(ts) for ts, _ in cleaned), np.int64, len(cleaned))
+    flat = (np.concatenate([ts for ts, _ in cleaned]).astype(np.int64) if len(cleaned)
+            else np.zeros(0, np.int64))
+    return flat, lens
+
+
+def _slot_indices(ts, lens, t0: float, interval: float):
+    """Every sample's nominal slot index rint((ts - t0) / interval) in one
+    pass over the concatenated samples ``ts`` of series of ``lens``
+    samples, and whether any series puts two samples in one slot."""
+    k = np.rint((ts.astype(np.float64) - t0) / interval).astype(np.int64)
+    inner = np.ones(max(len(k) - 1, 0), bool)
+    ends = np.cumsum(lens)[:-1]
+    inner[ends[(ends > 0) & (ends < len(k))] - 1] = False  # pairs across two series
+    return k, bool((np.diff(k)[inner] < 1).any())
+
+
+def _snap_flat(cleaned):
+    """``_snap_slots`` over concatenated series (``_flatten``): (interval_ms,
+    t0_ms, slots, ts, counts) or None."""
+    ts, lens = _flatten(cleaned)
+    if not len(lens) or (lens < 2).any():
+        return None
+    ends = np.cumsum(lens)
+    longest = int(np.argmax(lens))  # the first of the longest, as max(key=len)
+    ref = ts[ends[longest] - lens[longest]: ends[longest]]
+    d = np.diff(ref)
+    if not len(d) or (d <= 0).any():
+        return None
+    est = float(np.median(d))
+    if est <= 0:
+        return None
+    k = np.rint(d / est)
+    if (k < 1).any():
+        return None
+    # least-squares interval over the reference series
+    interval = float(d.sum()) / float(k.sum())
+    if interval <= 0:
+        return None
+    t0 = float(ref[0])
+    slots, clash = _slot_indices(ts, lens, t0, interval)
+    if clash:
+        return None  # two samples snapped to one slot: not this grid
+    return interval, t0, slots, ts, lens
+
+
+def _snap_slots(cleaned) -> tuple[float, float, list] | None:
+    """A shared nominal grid of series with missed scrapes: (interval_ms,
+    t0_ms, [per-series slot indices]), or None when the data is not
+    near-regular with holes (the JAX package's rule)."""
+    snap = _snap_flat(cleaned)
+    if snap is None:
+        return None
+    interval, t0, slots, _, lens = snap
+    return interval, t0, np.split(slots, np.cumsum(lens)[:-1])
+
+
+def masked_fills(valid, m_vals, m_dev, m_raw, R, device=None):
+    """Forward/backward fills over slot-aligned masked arrays (the
+    ``MaskedGrid`` fill semantics); ``R`` is the int64 nominal offset
+    vector. Returns (ffv, ffd, bfv, bfd, ff2v, ff2d, bfraw), f32 tensors on
+    ``device`` (default the host's threads).
+
+    A slot with no valid neighbour in the fill's direction carries value 0
+    and a signed time sentinel (-3e38 forward, +3e38 backward): at a valid
+    slot ffd == bfd == dev (|.| <= maxdev), at a hole ffd <= -(interval -
+    maxdev) and bfd >= interval - maxdev, so window membership and slot
+    validity are decided from the time fills alone. Computed in the JAX
+    package's operations (gathers, f64 offsets, one rounding to f32), so the
+    planes equal its numpy ones."""
+    T = valid.shape[1]
+
+    def put(a):
+        return torch.as_tensor(a).to(device or "cpu")
+
+    V = put(valid) > 0
+    tind = torch.arange(T, device=V.device)
+    ffi = torch.cummax(torch.where(V, tind, -1), dim=1).values
+    rev = torch.cummax(torch.where(V.flip(1), tind, -1), dim=1).values.flip(1)
+    bfi = torch.where(rev >= 0, T - 1 - rev, T)
+    del rev
+    ff2i = torch.where(ffi >= 1, torch.gather(ffi, 1, (ffi - 1).clamp(0, T - 1)), -1)
+    Rf = put(np.asarray(R, np.float64))
+    dev, vals = put(m_dev), put(m_vals)
+
+    def fill(src, idx, t_sentinel, times=True):
+        ok = (idx >= 0) & (idx < T)
+        ic = idx.clamp(0, T - 1)
+        v = torch.where(ok, torch.gather(src, 1, ic), 0.0)
+        if not times:
+            return v, None
+        dd = (Rf[ic] - Rf[None, :]) + torch.gather(dev, 1, ic).double()
+        return v, torch.where(ok, dd, t_sentinel).float()
+
+    ffv, ffd = fill(vals, ffi, -3e38)
+    bfv, bfd = fill(vals, bfi, 3e38)
+    ff2v, ff2d = fill(vals, ff2i, -3e38)
+    bfraw = fill(put(m_raw), bfi, 3e38, times=False)[0] if m_raw is not None else None
+    return ffv, ffd, bfv, bfd, ff2v, ff2d, bfraw
+
+
+def _build_masked_grid(cleaned, base_ms, out_vals, out_raw, lens, T: int, S: int,
+                       grid=None, device=None) -> MaskedGrid | None:
+    """Slot-align packed values onto a shared nominal grid with validity
+    holes; None when the deviation bound or the hole share fails.
+    ``cleaned`` lists the series' (ts, values), or is ``_flatten``'s pair.
+    ``grid`` forces an (interval_ms, t0_abs_ms) pair (``harmonize_masked``:
+    every block on one common grid, slot 0 at t0). The planes are built on
+    ``device`` (default the host's threads) and stay there."""
+    if grid is None:
+        snap = _snap_flat(cleaned)
+        if snap is None:
+            return None
+        interval, t0, k, ts, counts = snap
+        starts = np.cumsum(counts) - counts
+        kmin = int(k[starts].min())
+    else:
+        interval, t0 = grid
+        ts, counts = _flatten(cleaned)
+        k, clash = _slot_indices(ts, counts, t0, interval)
+        if clash or (k < 0).any():
+            return None
+        kmin = 0
+    kmax = int(k[np.cumsum(counts) - 1].max())
+    width = kmax - kmin + 1
+    # the sidecar is as wide as the slot span, which holes stretch past the
+    # packed width
+    T = max(T, pad_time(width))
+    n = len(counts)
+    if grid is None and int(counts.sum()) < n * width * (1.0 - MAX_HOLE_FRAC):
+        return None
+    nom_abs = np.rint(t0 + (kmin + np.arange(T, dtype=np.float64)) * interval).astype(np.int64)
+    # every sample at once (row i's are out_vals[i, :lens[i]], in order),
+    # scattered on ``device`` into flat [S * T] planes
+    slots = k - kmin
+    dv = ts - nom_abs[slots]
+    md = int(np.abs(dv).max())
+    if 2 * md >= interval:
+        return None  # the jitter rung's bound
+    packed = np.arange(out_vals.shape[1])[None, :] < np.asarray(lens)[:n, None]
+    at = torch.from_numpy(np.repeat(np.arange(n), counts) * T + slots).to(device or "cpu")
+
+    def plane(values=None):
+        p = torch.zeros(S * T, dtype=torch.float32, device=at.device)
+        p[at] = 1.0 if values is None else torch.from_numpy(
+            np.ascontiguousarray(values, np.float32)).to(at.device)
+        return p.view(S, T)
+
+    valid = plane()
+    m_vals = plane(out_vals[:n][packed])
+    m_dev = plane(dv.astype(np.float32))
+    m_raw = plane(out_raw[:n][packed]) if out_raw is not None else None
+    R = (nom_abs - base_ms).astype(np.int64)
+    if R.max() > 2**31 - 2 or R.min() < -(2**31):
+        return None
+    ffv, ffd, bfv, bfd, ff2v, ff2d, bfraw = masked_fills(valid, m_vals, m_dev, m_raw, R,
+                                                         device)
+    del m_dev, m_raw
+    nominal = np.full(T, TS_PAD, dtype=np.int32)
+    nominal[:width] = R[:width].astype(np.int32)
+    return MaskedGrid(
+        nominal_ts=nominal, n_valid=width, interval_ms=float(interval), maxdev_ms=md,
+        vals=m_vals, ffv=ffv, ffd=ffd, bfv=bfv, bfd=bfd, ff2v=ff2v, ff2d=ff2d, bfraw=bfraw,
+        cc=torch.cumsum(valid, 1, dtype=torch.float64).float(),
+    )
+
+
+def harmonize_masked(blocks) -> bool:
+    """Rebuild the masked grids of host blocks on one common nominal grid
+    (the earliest anchor, the mean interval), so that blocks staged apart
+    share one window structure; widths may differ, validity covers the
+    rest. False (blocks untouched) when the grids cannot be reconciled."""
+    real = [b for b in blocks if b.n_series > 0]
+    if not real or len({b.base_ms for b in real}) != 1:
+        return False
+    base = real[0].base_ms
+    ints, anchors = [], []
+    for b in real:
+        # a block's grid evidence: its masked grid, or its (near-)regular grid
+        if b.mgrid is not None:
+            src = np.asarray(b.mgrid.nominal_ts)[: b.mgrid.n_valid]
+        elif b.regular_ts is not None or b.nominal_ts is not None:
+            m = int(np.asarray(b.lens)[0])
+            grid = b.regular_ts if b.regular_ts is not None else b.nominal_ts
+            src = np.asarray(grid)[:m]
+        else:
+            return False
+        src = src.astype(np.int64)
+        if len(src) < 2:
+            return False
+        d = np.diff(src)
+        if (d <= 0).any():
+            return False
+        est = float(np.median(d))
+        k = np.rint(d / est)
+        if est <= 0 or (k < 1).any():
+            return False
+        ints.append(float(d.sum()) / float(k.sum()))
+        anchors.append(int(src[0]))
+    interval = float(np.mean(ints))
+    if interval <= 0 or max(abs(x - interval) for x in ints) > 0.01 * interval:
+        return False
+    t0_abs = float(min(anchors) + base)
+    rebuilt = []
+    for b in real:
+        ts_np = np.asarray(b.ts)
+        lens = np.asarray(b.lens)
+        cleaned = [(ts_np[i, : lens[i]].astype(np.int64) + base, None)
+                   for i in range(b.n_series)]
+        mg = _build_masked_grid(cleaned, base, np.asarray(b.vals),
+                                np.asarray(b.raw) if b.raw is not None else None,
+                                lens, b.ts.shape[1], b.vals.shape[0], grid=(interval, t0_abs))
+        if mg is None:
+            return False
+        rebuilt.append(mg)
+    md = max(mg.maxdev_ms for mg in rebuilt)
+    if 2 * md >= interval:
+        return False
+    width = max(mg.n_valid for mg in rebuilt)
+    if any(width > mg.cc.shape[1] for mg in rebuilt):
+        return False  # a block cannot advertise slots its sidecar cannot hold
+    for b, mg in zip(real, rebuilt):
+        T = len(mg.nominal_ts)
+        R = np.rint((t0_abs - base) + np.arange(T, dtype=np.float64) * interval).astype(np.int64)
+        nominal = np.full(T, TS_PAD, dtype=np.int32)
+        nominal[:width] = R[:width].astype(np.int32)
+        mg.nominal_ts = nominal
+        mg.n_valid = width
+        mg.maxdev_ms = md
+        b.mgrid = mg
+        b.__dict__.pop("masked_matrices_memo", None)
+    return True
+
 
 @dataclass
 class StagedBlock:
@@ -83,11 +398,16 @@ class StagedBlock:
     # length, so the window bounds are series-independent (host numpy)
     regular_ts: np.ndarray | None = None  # [T] int32 shared offsets, or None
     # near-regular grid: equal sample counts, each sample within half the
-    # minimum nominal interval of a shared nominal grid (host numpy; no
-    # kernel of the port reads them yet)
+    # minimum nominal interval of a shared nominal grid (host numpy). The
+    # deviations stay on the host (the live-edge mirror): the jitter kernel
+    # takes each one as ts - nominal_ts, which equals ts_dev exactly
     nominal_ts: np.ndarray | None = None  # [T] int32 shared nominal offsets
     ts_dev: np.ndarray | None = None  # [S, T] f32 per-sample deviation (ms)
     maxdev_ms: int = 0  # bound on |ts - nominal|
+    # near-regular grid with missed scrapes: the slot-aligned sidecar, or
+    # (``mgrid_deferred``, a shard's host block) built by each device copy
+    mgrid: MaskedGrid | None = None
+    mgrid_deferred: bool = False
     # f64 state for exact appends: the unrounded per-series baseline
     # (shifted and corrected modes; the f32 baseline rounds by up to 64 at
     # 1e9) and, for corrected counters, (last raw, last corrected) value
@@ -126,6 +446,8 @@ class StagedBlock:
         extended under live ingest instead of restaged."""
         if keep_host:
             self.keep_mirrors()
+        if self.mgrid_deferred:
+            self.mgrid, self.mgrid_deferred = masked_of(self, device), False
 
         def put(a):
             return torch.as_tensor(a).to(device)
@@ -136,31 +458,41 @@ class StagedBlock:
         self.baseline = put(self.baseline)
         if self.raw is not None:
             self.raw = put(self.raw)
+        if self.mgrid is not None:
+            self.mgrid = self.mgrid.device_copy(device)
         return self
 
 
 def device_copy(block: StagedBlock, device) -> StagedBlock:
     """A copy of a host-staged block's arrays on ``device`` (one upload)
-    with its grid class (not the jitter deviations, which no kernel reads),
-    linked to the host block (``host_block``); the host block is left as
-    it is. On the CPU the tensors share the host
+    with its grid class and the masked sidecar (not the jitter deviations,
+    which the kernel derives), linked to the host block (``host_block``);
+    the host block is left as it is. A deferred sidecar is built on
+    ``device`` for this copy alone. On the CPU the tensors share the host
     arrays' memory, which no append rewrites (repairs build new arrays)."""
 
     def put(a):
         return None if a is None else torch.as_tensor(a).to(device)
 
+    if block.mgrid is not None:
+        mgrid = block.mgrid.device_copy(device)
+    else:
+        mgrid = masked_of(block, device) if block.mgrid_deferred else None
     return StagedBlock(
         put(block.ts), put(block.vals), put(block.lens), block.base_ms, put(block.baseline),
         block.n_series, block.part_refs, raw=put(block.raw), regular_ts=block.regular_ts,
-        nominal_ts=block.nominal_ts, maxdev_ms=block.maxdev_ms, host_block=block,
+        nominal_ts=block.nominal_ts, maxdev_ms=block.maxdev_ms, mgrid=mgrid,
+        host_block=block,
     )
 
 
 def staged_nbytes(block: StagedBlock) -> int:
-    """Bytes of every array a staged block holds (the caches' byte
-    budgets); reads ``.nbytes``, so device tensors are never fetched."""
+    """Bytes of every array a staged block holds, the masked sidecar's
+    planes included (the caches' byte budgets); reads ``.nbytes``, so
+    device tensors are never fetched."""
     arrays = (block.ts, block.vals, block.raw, block.baseline, block.lens, block.ts_dev)
-    return sum(int(a.nbytes) for a in arrays if a is not None)
+    total = sum(int(a.nbytes) for a in arrays if a is not None)
+    return total + (block.mgrid.nbytes() if block.mgrid is not None else 0)
 
 
 def detect_shared_grid(out_ts: np.ndarray, lens: np.ndarray, n: int, T: int, S: int):
@@ -194,11 +526,14 @@ def detect_shared_grid(out_ts: np.ndarray, lens: np.ndarray, n: int, T: int, S: 
 
 def grid_class(block) -> str:
     """``regular`` (exact shared grid) > ``jitter`` (near-regular) >
-    ``irregular``; the fused kernel ladder keys on it."""
+    ``holes`` (near-regular with missed scrapes, the masked sidecar) >
+    ``irregular``; the kernel ladders key on it."""
     if block.regular_ts is not None:
         return "regular"
     if block.nominal_ts is not None:
         return "jitter"
+    if block.mgrid is not None:
+        return "holes"
     return "irregular"
 
 
@@ -230,6 +565,7 @@ def stage_series(
     counter_corrected: bool = False,
     diff_encode: bool = False,
     time_headroom: int = 0,
+    sidecar: bool = True,
 ) -> StagedBlock:
     """Build a host StagedBlock from per-series (ts_ms int64, values f64)
     pairs. Four modes: raw values (default), ``counter_corrected``
@@ -239,7 +575,9 @@ def stage_series(
     and ``subtract_baseline`` (raw minus the first value, no correction).
     ``time_headroom`` extra columns let live-edge appends land before the
     padded width forces a restage. The block's grid is classified
-    (``detect_shared_grid``)."""
+    (``detect_shared_grid``, else the masked grid on the host's threads, or
+    with ``sidecar`` false left to the block's device copies:
+    ``mgrid_deferred``)."""
     n = len(series)
     cleaned: list[tuple[np.ndarray, np.ndarray]] = []
     maxlen = 1
@@ -288,9 +626,15 @@ def stage_series(
         else:
             out_vals[i, :m] = vals.astype(np.float32)
     regular, nominal, ts_dev, maxdev = detect_shared_grid(out_ts, lens, n, T, S)
+    mgrid = None
+    holey = n > 1 and regular is None and nominal is None
+    if holey and sidecar:
+        # unequal counts, or equal counts on misaligned slots: the masked grid
+        mgrid = _build_masked_grid(cleaned[:n], base_ms, out_vals, out_raw, lens, T, S)
     block = StagedBlock(out_ts, out_vals, lens, base_ms, baseline, n,
                         part_refs or [], raw=out_raw, regular_ts=regular,
-                        nominal_ts=nominal, ts_dev=ts_dev, maxdev_ms=maxdev)
+                        nominal_ts=nominal, ts_dev=ts_dev, maxdev_ms=maxdev, mgrid=mgrid,
+                        mgrid_deferred=holey and not sidecar)
     if counter_corrected or subtract_baseline:
         block.base64 = base64
     if counter_corrected:
@@ -310,7 +654,8 @@ def stage_step_rows(values: np.ndarray, times_ms: np.ndarray, base_ms: int,
     f64 matrix in ``counter_correct``'s order of operations (a row's drops
     summed left to right by ``np.cumsum``, added to its values, which a row
     of one sample keeps as they are), so the block is bit-equal to
-    ``stage_series`` over the same ``(times[keep], row[keep])`` pairs."""
+    ``stage_series(..., sidecar=False)`` over the same ``(times[keep],
+    row[keep])`` pairs: a masked grid is built by the block's device copy."""
     v = np.asarray(values, dtype=np.float32)
     times_ms = np.asarray(times_ms, dtype=np.int64)
     n = v.shape[0]
@@ -364,7 +709,25 @@ def stage_step_rows(values: np.ndarray, times_ms: np.ndarray, base_ms: int,
         block.cont = (cont_raw, cont_corr)
     block.regular_ts, block.nominal_ts, block.ts_dev, block.maxdev_ms = detect_shared_grid(
         out_ts, lens, n, T, S)
+    block.mgrid_deferred = n > 1 and block.regular_ts is None and block.nominal_ts is None
     return block
+
+
+def masked_of(block: StagedBlock, device=None) -> MaskedGrid | None:
+    """The masked sidecar of a host block whose grid is neither regular nor
+    jittered (``stage_series``' rule, from the packed rows; its planes
+    built on ``device``), else None."""
+    n = block.n_series
+    if n <= 1 or block.regular_ts is not None or block.nominal_ts is not None:
+        return None
+    if block.vals.ndim != 2 or int(block.lens[:n].min()) < 1:
+        return None
+    lens = np.asarray(block.lens[:n], np.int64)
+    packed = np.arange(block.ts.shape[1])[None, :] < lens[:, None]
+    flat = block.ts[:n][packed].astype(np.int64) + block.base_ms  # row by row, in order
+    return _build_masked_grid((flat, lens), block.base_ms, block.vals, block.raw,
+                              block.lens, block.ts.shape[1], block.ts.shape[0],
+                              device=device)
 
 
 def stage_histogram_series(series: list[tuple[np.ndarray, np.ndarray]], base_ms: int,
@@ -413,6 +776,7 @@ def block_from_arrays(ts, vals, lens, base_ms: int, baseline, n_series: int,
         int(n_series), [], raw=raw, regular_ts=regular, nominal_ts=nominal,
         ts_dev=ts_dev, maxdev_ms=maxdev,
     )
+    block.mgrid_deferred = True  # built on ``device`` (to_device)
     return block.to_device(device)
 
 
@@ -426,7 +790,9 @@ def stage_from_shard(shard, part_ids, column: str, start_ms: int, end_ms: int,
     A small-to-medium block whose range reaches past its newest sample (the
     live edge) gets 256 columns of headroom, so appends land before the
     padded width forces a restage; historical ranges never append and
-    never pay the wider T."""
+    never pay the wider T. A masked grid is not built here but by the
+    block's device copies (``device_copy``); a superblock builds its own
+    once over its rows (``concat_blocks``)."""
     series, refs = [], []
     for pid in part_ids:
         part = shard.partition(int(pid))
@@ -437,13 +803,83 @@ def stage_from_shard(shard, part_ids, column: str, start_ms: int, end_ms: int,
         return stage_histogram_series(series, start_ms, widths.pop(), refs)
     newest = max((int(ts[-1]) for ts, _ in series if len(ts)), default=None)
     live_edge = newest is not None and end_ms >= newest
-    return stage_series(
-        series, start_ms, refs,
-        counter_corrected=mode == "corrected",
-        subtract_baseline=mode == "shifted",
-        diff_encode=mode == "diff",
-        time_headroom=256 if live_edge and len(series) <= 8192 else 0,
-    )
+
+    def stage(sr):
+        return stage_series(
+            sr, start_ms, refs,
+            counter_corrected=mode == "corrected",
+            subtract_baseline=mode == "shifted",
+            diff_encode=mode == "diff",
+            time_headroom=256 if live_edge and len(series) <= 8192 else 0,
+            sidecar=False,
+        )
+
+    block = stage(series)
+    if block.regular_ts is None and block.nominal_ts is None and block.n_series > 1:
+        aligned = _slot_align(shard, part_ids, column, series, start_ms, end_ms)
+        if aligned is not None:
+            block = stage(aligned)
+    return block
+
+
+def _slot_align(shard, part_ids, column, series, start_ms: int, end_ms: int):
+    """Repair the ragged edges of a near-regular selection (the JAX
+    package's rule). A jittered sample just outside [start_ms, end_ms] is
+    read for some series and not others, so the counts differ by one or
+    two and the grid is not detected as jittered. Re-read with a margin of
+    one interval, map every sample to its nominal slot and trim every
+    series to the common slots that can reach a window: a slot at nominal
+    g <= start - maxdev has ts <= start for every series, and one at g >
+    end + maxdev has ts > end. Returns the aligned series, or None when the
+    data is not near-regular (the packed staging stays)."""
+    lens = [len(t) for t, _ in series]
+    if not lens or min(lens) < 2 or max(lens) - min(lens) > 2:
+        return None
+    ref = series[int(np.argmax(lens))][0]
+    diffs = np.diff(ref)
+    # the endpoints' estimate: a sample's jitter costs O(maxdev / n)
+    interval = float(ref[-1] - ref[0]) / (len(ref) - 1)
+    if interval <= 0 or (np.abs(diffs - interval) > 0.45 * interval).any():
+        return None
+    anchor = float(ref[0])
+    margin = int(round(interval))
+    per = []
+    md = 0.0
+    for pid in part_ids:
+        ts, v = shard.partition(int(pid)).samples_in_range(start_ms - margin, end_ms + margin,
+                                                           column)
+        if v.ndim == 2 or len(ts) < 2:
+            return None
+        if np.isnan(v).any():
+            return None  # staleness holes: the packed staging handles them
+        k = np.rint((ts.astype(np.float64) - anchor) / interval).astype(np.int64)
+        if (np.diff(k) != 1).any():
+            return None  # missed scrapes: not slot-contiguous
+        md = max(md, float(np.abs(ts - (anchor + k * interval)).max()))
+        per.append((k, ts, v))
+    if 2.0 * md >= 0.9 * interval:
+        return None
+    # the slots that can reach a window of the staged range
+    k_need_lo = int(np.ceil((start_ms - md - anchor) / interval - 1e-9))
+    while anchor + k_need_lo * interval <= start_ms - md:
+        k_need_lo += 1
+    k_need_hi = int(np.floor((end_ms + md - anchor) / interval + 1e-9))
+    while anchor + k_need_hi * interval > end_ms + md:
+        k_need_hi -= 1
+    # clamped to the slots where data exists at all (a live-edge end past
+    # every newest sample must not demand future slots)
+    k_need_lo = max(k_need_lo, min(k[0] for k, _, _ in per))
+    k_need_hi = min(k_need_hi, max(k[-1] for k, _, _ in per))
+    k_lo = max(k[0] for k, _, _ in per)
+    k_hi = min(k[-1] for k, _, _ in per)
+    if k_lo > k_need_lo or k_hi < k_need_hi or k_need_hi < k_need_lo:
+        return None  # a needed slot is missing for some series
+    out = []
+    width = k_need_hi - k_need_lo + 1
+    for k, ts, v in per:
+        o = k_need_lo - int(k[0])
+        out.append((ts[o : o + width], v[o : o + width]))
+    return out
 
 
 # timings and sizes of the last superblock extension that appended columns:
@@ -726,7 +1162,9 @@ def concat_blocks(blocks) -> StagedBlock:
     The shared regular grid survives when every non-empty block advertises
     the identical ``regular_ts``; otherwise the grid is detected again over
     the concatenated rows (members of different padded widths can still
-    agree exactly, and near-regular rows keep their ``jitter`` class)."""
+    agree exactly, near-regular rows keep their ``jitter`` class, and rows
+    with missed scrapes get one masked sidecar, ``holes``, which the
+    superblock's device copy builds: ``mgrid_deferred``)."""
     real = [b for b in blocks if b.n_series > 0] or list(blocks[:1])
     if not real or len({b.base_ms for b in real}) != 1:
         raise ValueError("concat_blocks needs blocks that share one base_ms")
@@ -773,6 +1211,11 @@ def concat_blocks(blocks) -> StagedBlock:
     out = StagedBlock(ts, vals, lens, real[0].base_ms, baseline, S, part_refs, raw=raw,
                       regular_ts=regular, nominal_ts=nominal, ts_dev=ts_dev,
                       maxdev_ms=maxdev)
+    # one slot grid over the concatenated rows (members snapped apart would
+    # not share one window structure), built once, by the superblock's
+    # device copy (``to_device``)
+    out.mgrid_deferred = (not is_hist and S > 1 and regular is None and nominal is None
+                          and int(lens[:S].min()) >= 2)
     # the f64 append state rides along (a snapshot: the members' own state
     # moves on under their repairs), so the superblock can be extended
     if all(b.base64 is not None for b in real):

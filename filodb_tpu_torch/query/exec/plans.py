@@ -146,7 +146,7 @@ class ExecPlan:
 
 def apply_transformer(tr, res: QueryResult, ctx: QueryContext) -> QueryResult:
     if isinstance(tr, PeriodicSamplesMapper):
-        return QueryResult(grids=tr.apply_raw(res.raw_grids), stats=res.stats)
+        return QueryResult(grids=tr.apply_raw(res.raw_grids, stats=ctx.stats), stats=res.stats)
     if isinstance(tr, TR.InstantVectorFunctionMapper):
         # a host histogram grid feeds the instant kernel on the query's device
         return QueryResult(grids=tr.apply(res.grids, ctx.device), stats=res.stats,
@@ -1015,6 +1015,7 @@ class FusedAggregateExec(ExecPlan):
             vals, idx = AGG.fused_topk(func, got.block, k, self.op == "bottomk", params,
                                        is_counter=got.is_counter, is_delta=got.is_delta,
                                        obs=ctx.obs)
+            ctx.stats.note_rung(ctx.obs["variant"])
             return self._present_topk(vals.cpu().numpy(), idx.cpu().numpy(), got.labels,
                                       strip, nsteps)
         if self.op == "quantile":
@@ -1023,6 +1024,7 @@ class FusedAggregateExec(ExecPlan):
             out = AGG.fused_quantile(func, got.block, members, float(self.params[0]), params,
                                      is_counter=got.is_counter, is_delta=got.is_delta,
                                      obs=ctx.obs)
+            ctx.stats.note_rung(ctx.obs["variant"])
             return QueryResult(grids=[Grid(group_labels, self.start_ms, self.step_ms, nsteps,
                                            out)])
         gids, G, group_labels = AGG.group_ids_memo(
@@ -1031,6 +1033,7 @@ class FusedAggregateExec(ExecPlan):
             out = AGG.fused_hist_range_aggregate(
                 func, got.block, gids, G, params, got.les_dev, q=self.hist_quantile,
                 is_delta=got.is_delta, obs=ctx.obs)
+            ctx.stats.note_rung(ctx.obs["variant"])
             if self.hist_quantile is not None:
                 # the quantile ran on the card: [G, J] is all that comes back
                 labels = [_strip_metric(l) for l in group_labels]
@@ -1041,6 +1044,7 @@ class FusedAggregateExec(ExecPlan):
         out = AGG.fused_range_aggregate(
             func, self.op, got.block, gids, G, params,
             is_counter=got.is_counter, is_delta=got.is_delta, obs=ctx.obs)
+        ctx.stats.note_rung(ctx.obs["variant"])
         if self.hist_quantile is not None:
             # classic buckets (le kept by the grouping, _unsupported_shape): the
             # [G', J] by-(le, ...) partials pivot into per-group cumulative

@@ -90,7 +90,9 @@ class PeriodicSamplesMapper:
         eval_steps = 1 if self.at_ms is not None else self.num_steps()
         return K.RangeParams(eval_start, self.step_ms, eval_steps, window)
 
-    def apply_raw(self, raws: list[RawGrid]) -> list[Grid]:
+    def apply_raw(self, raws: list[RawGrid], stats=None) -> list[Grid]:
+        """One range-function launch per leaf grid; ``stats`` (a
+        ``QueryStats``) counts the rung that served each."""
         out: list[Grid] = []
         nsteps = self.num_steps()
         for rg in raws:
@@ -102,6 +104,8 @@ class PeriodicSamplesMapper:
                     raise QueryError(
                         f"function {self.function} is not supported on native histograms")
                 hist = HK.run_hist_range_function(func, rg.block, params, is_delta=rg.is_delta)
+                if stats is not None:
+                    stats.note_rung(AGG.hist_variant(rg.block))
                 # the scalar rows beside the buckets are a NaN placeholder, as in JAX
                 vals = torch.full((hist.shape[0], max(nsteps, 1) if self.at_ms is not None
                                    else hist.shape[1]), float("nan"), dtype=torch.float32,
@@ -111,8 +115,11 @@ class PeriodicSamplesMapper:
                     # drops its buckets (Grid.with_values): the port answers the same
                     hist = None
             else:
-                vals = K.run_range_function(func, rg.block, params, is_counter=rg.is_counter,
-                                            is_delta=rg.is_delta, args=self.args)
+                vals, variant = K._dispatch_range_function(
+                    func, rg.block, params, is_counter=rg.is_counter, is_delta=rg.is_delta,
+                    args=self.args)
+                if stats is not None:
+                    stats.note_rung(variant)
                 if self.at_ms is not None:
                     # @ fixes the evaluation time: the one step broadcast across the grid
                     vals = _broadcast_first_step(vals, max(nsteps, 1))
@@ -274,7 +281,9 @@ def _grouping_key(g: Grid, by, without, device) -> tuple:
 _ELEMENTWISE = {
     "abs": torch.abs, "ceil": torch.ceil, "floor": torch.floor, "exp": torch.exp,
     "ln": torch.log, "log2": torch.log2, "log10": torch.log10, "sqrt": torch.sqrt,
-    "sgn": torch.sign, "acos": torch.acos, "acosh": torch.acosh,
+    # jnp.sign: NaN (absence) and signed zeros stay as they are
+    "sgn": lambda v: torch.where((v == 0) | torch.isnan(v), v, torch.sign(v)),
+    "acos": torch.acos, "acosh": torch.acosh,
     "asin": torch.asin, "asinh": torch.asinh, "atan": torch.atan,
     "atanh": torch.atanh, "cos": torch.cos, "cosh": torch.cosh, "sin": torch.sin,
     "sinh": torch.sinh, "tan": torch.tan, "tanh": torch.tanh,

@@ -97,10 +97,18 @@ class QueryStats:
     cache_hits: int = 0
     cache_misses: int = 0
     cache_extends: int = 0
+    # the rungs that served the query's range functions: variant -> launches
+    # (a fused aggregate one, a tree leaf one per shard; ``host`` for the
+    # host's timestamp)
+    rungs: dict = field(default_factory=dict)
 
     def bump(self, **deltas: int) -> None:
         for k, v in deltas.items():
             setattr(self, k, getattr(self, k) + v)
+
+    def note_rung(self, variant: str) -> None:
+        """Count one range-function dispatch served by ``variant``."""
+        self.rungs[variant] = self.rungs.get(variant, 0) + 1
 
 
 @dataclass

@@ -9,7 +9,10 @@ reference tree's kernels -- the sorted-window kernel
 (csrc/sorted_window.cu, both routes, q outside [0, 1]), predict_linear and
 Holt-Winters on the general kernel, the standalone quantile over gathered
 classic rows, the tree's segment aggregate (csrc/segment_agg.cu) and
-grouped top-k (csrc/order_stats.cu) -- against their plain versions. These tests need an NVIDIA card and skip without one; the
+grouped top-k (csrc/order_stats.cu) -- against their plain versions; the
+regular kernel's B5 codes and both variants of the jitter kernel
+(csrc/jitter_range.cu) against theirs, and jittered and holey stores
+through the engine. These tests need an NVIDIA card and skip without one; the
 file imports no JAX so that it runs on a machine with only torch:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -25,7 +28,9 @@ import torch
 from filodb_tpu_torch.ops import aggregations as AGG
 from filodb_tpu_torch.ops import general_range as GR
 from filodb_tpu_torch.ops import group_acc as GA
+from filodb_tpu_torch.ops import mxu_jitter as JR
 from filodb_tpu_torch.ops import mxu_kernels as MK
+from filodb_tpu_torch.ops import staging as ST
 from filodb_tpu_torch.ops import window_stats as WS
 from filodb_tpu_torch.ops.kernels import RangeParams, pad_steps
 from filodb_tpu_torch.ops.staging import TS_PAD, stage_series
@@ -2146,6 +2151,151 @@ def test_tree_aggregates_launch_their_kernels_on_card(card, query, launches):
     leaves = sum(1 for s in range(4) if ms.shard("prometheus", s).stage_cache)
     assert {n: m.LAUNCHES for n, m in mods.items()} == {
         n: a * leaves + b for n, (a, b) in launches.items()}
+    want = QueryEngine(ms, "prometheus", device="cpu").query_range(query, start, end, 60)
+    rows = {tuple(sorted(l.items())): v for g in got.grids for l, v in zip(g.labels,
+                                                                             g.values_np())}
+    for g in want.grids:
+        for l, w in zip(g.labels, g.values_np()):
+            v = rows[tuple(sorted(l.items()))]
+            np.testing.assert_array_equal(np.isnan(v), np.isnan(w))
+            np.testing.assert_allclose(v[~np.isnan(w)], w[~np.isnan(w)], rtol=1e-3)
+
+
+# ---- B5: the regular kernel's other functions; B6: the jitter and masked rungs ----
+
+B5_FUNCS = sorted(MK.MXU_FUNCS - MK.FUSED_MXU_FUNCS - {"timestamp"})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gauge", "diff", "shifted"])
+@pytest.mark.parametrize("func", B5_FUNCS)
+def test_regular_b5_codes_match_plain_on_card(card, func, kind):
+    """changes/resets, min/max, deriv, predict_linear and absent_over_time
+    on the regular kernel: the store mode bit-equal to the plain version,
+    and the aggregate at G = S within rtol 2e-4."""
+    mode = {"gauge": {}, "diff": {"diff_encode": True},
+            "shifted": {"subtract_baseline": True}}[kind]
+    counter = kind != "gauge"
+    b = regular_block(counter, mode).to_device(card)
+    args = (600.0,) if func == "predict_linear" else ()
+    params = RangeParams(BASE + 400_000, 60_000, 40, 300_000)
+    gids = AGG.zero_gids(b)
+    before = MK.LAUNCHES
+    got = MK.regular_range_series(func, b, gids, 1, params, is_counter=counter, args=args)
+    assert MK.LAUNCHES == before + 1
+    wm = MK.window_matrices(b, params.start_ms - BASE, params.step_ms,
+                            pad_steps(params.num_steps), params.window_ms)
+    raw = b.raw if b.raw is not None else b.vals
+    sj = MK.mxu_range_plain(func, b.vals, raw, wm, params.window_ms, is_counter=counter,
+                            args=args)
+    want = GA.series_grid(sj, gids, 1, params.num_steps)
+    torch.cuda.synchronize()
+    if func == "absent_over_time":
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+    else:
+        assert_store(got, want, f"{func} {kind}", exact=True)
+    own = torch.full((b.vals.shape[0],), b.n_series, dtype=torch.int64, device=card)
+    own[: b.n_series] = torch.arange(b.n_series, device=card)
+    agg = MK.regular_range_aggregate(func, "sum", b, own, b.n_series, params,
+                                     is_counter=counter, args=args)
+    ref = GA.mask_steps(AGG.apply_epilogue(sj, ("agg", "sum"), own, b.n_series),
+                        params.num_steps)
+    g, w = agg.cpu().numpy(), ref.cpu().numpy()
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(w), err_msg=func)
+    np.testing.assert_allclose(g[~np.isnan(w)], w[~np.isnan(w)], rtol=2e-4, atol=1e-4)
+
+
+def near_regular_block(kind: str, mode: dict, counter: bool, n_series=65, n=300, seed=0):
+    """Series on a 10 s grid, each sample moved by up to +-5 % (``jitter``),
+    with two missed scrapes a series (``holes``)."""
+    rng = np.random.default_rng(seed)
+    nominal = BASE + 5_000 + np.arange(n, dtype=np.int64) * 10_000
+    series = []
+    for i in range(n_series):
+        ts = nominal + np.rint(rng.uniform(-0.05, 0.05, n) * 10_000).astype(np.int64)
+        vals = (np.cumsum(rng.uniform(0, 10, n)) + 1e3) if counter else 50 + 20 * rng.standard_normal(n)
+        if kind == "holes":
+            drop = [7 + i % 50, 100 + (3 * i) % 150]
+            ts, vals = np.delete(ts, drop), np.delete(vals, drop)
+        series.append((ts, vals))
+    blk = stage_series(series, BASE, **mode)
+    assert ST.grid_class(blk) == kind
+    return blk
+
+
+JITTER_KINDS = {"gauge": {}, "corrected": {"counter_corrected": True},
+                "diff": {"diff_encode": True}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staging", sorted(JITTER_KINDS))
+@pytest.mark.parametrize("kind", ["jitter", "holes"])
+@pytest.mark.parametrize("func", sorted(JR.JITTER_FUNCS))
+def test_jitter_kernel_matches_plain_on_card(card, func, kind, staging):
+    """Both variants of csrc/jitter_range.cu: the store mode bit-equal to
+    the plain version, the aggregate at G = S within rtol 2e-4 and at G = 3
+    within rtol 1e-3 (atomics reorder a group's sums); one launch each."""
+    counter = staging != "gauge"
+    b = near_regular_block(kind, JITTER_KINDS[staging], counter).to_device(card)
+    masked = kind == "holes"
+    params = RangeParams(BASE + 400_000, 60_000, 40, 300_000)
+    attr = "MASKED_LAUNCHES" if masked else "JITTER_LAUNCHES"
+    series = JR.masked_range_series if masked else JR.jitter_range_series
+    got, want = store_pair(series, lambda f, blk, p, c, d: JR._plain(masked, f, blk, (
+        JR.masked_window_matrices if masked else JR.jitter_window_matrices)(
+            blk, p.start_ms - BASE, p.step_ms, pad_steps(p.num_steps), p.window_ms),
+        p, c, d), func, b, params, counter, launches=(JR, attr))
+    if func == "absent_over_time":
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+    else:
+        assert_store(got, want, f"{func} {kind} {staging}", exact=True)
+    agg = JR.masked_range_aggregate if masked else JR.jitter_range_aggregate
+    for G, rtol in ((b.n_series, 2e-4), (3, 1e-3)):
+        gids = torch.full((b.vals.shape[0],), G, dtype=torch.int64, device=card)
+        gids[: b.n_series] = torch.arange(b.n_series, device=card) % G
+        got = agg(func, "sum", b, gids, G, params, is_counter=counter)
+        ref = GA.mask_steps(AGG.apply_epilogue(want.T, ("agg", "sum"), gids, G),
+                            params.num_steps)
+        g, w = got.cpu().numpy(), ref.cpu().numpy()
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(w), err_msg=f"{func} G={G}")
+        np.testing.assert_allclose(g[~np.isnan(w)], w[~np.isnan(w)], rtol=rtol, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["jitter", "holes"])
+@pytest.mark.parametrize("query", [
+    "sum(rate(m[5m]))", "sum by (zone) (min_over_time(m[5m]))", "topk(3, irate(m[5m]))",
+    "changes(m[5m])", "max_over_time(m[5m])",
+])
+def test_near_regular_engine_on_card(card, kind, query):
+    """A jittered or holey store through the engine on the card: the
+    fused queries and the tree's leaves on the jitter/masked rung (changes
+    on the general one, as the JAX ladder), equal to the CPU engine's."""
+    from filodb_tpu_torch.coordinator.planner import QueryEngine
+    from filodb_tpu_torch.core.records import SeriesBatch
+    from filodb_tpu_torch.core.schemas import METRIC_TAG, PROM_COUNTER, Dataset, shard_for
+    from filodb_tpu_torch.memstore.memstore import TimeSeriesMemStore
+
+    rng = np.random.default_rng(7)
+    ms = TimeSeriesMemStore()
+    ms.setup(Dataset("prometheus"), range(2))
+    nominal = BASE + 5_000 + np.arange(200, dtype=np.int64) * 10_000
+    for i in range(40):
+        tags = {METRIC_TAG: "m", "_ws_": "w", "_ns_": "n", "instance": f"h{i}",
+                "zone": f"z{i % 3}"}
+        ts = nominal + np.rint(rng.uniform(-0.05, 0.05, 200) * 10_000).astype(np.int64)
+        vals = np.cumsum(rng.uniform(0, 9, 200))
+        if kind == "holes":
+            keep = np.ones(200, bool)
+            keep[[20 + i, 90 + i]] = False
+            ts, vals = ts[keep], vals[keep]
+        ms.shard("prometheus", shard_for(tags, spread=1, num_shards=2)).ingest_series(
+            SeriesBatch(PROM_COUNTER, tags, ts, {"count": vals}))
+    start, end = (BASE + 400_000) / 1000, (BASE + 1_600_000) / 1000
+    got = QueryEngine(ms, "prometheus").query_range(query, start, end, 60)
+    rung = "general" if query.startswith("changes") else (
+        "masked" if kind == "holes" else "jitter")
+    assert set(got.stats.rungs) == {rung}, got.stats.rungs
     want = QueryEngine(ms, "prometheus", device="cpu").query_range(query, start, end, 60)
     rows = {tuple(sorted(l.items())): v for g in got.grids for l, v in zip(g.labels,
                                                                              g.values_np())}

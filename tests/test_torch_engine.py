@@ -372,3 +372,104 @@ def test_result_reports_fused_mxu_path(stores):
     assert grid_class(ex.superblock(engine.context()).block) == "regular"
     assert res.stats.series_scanned == N_SERIES // 2
     assert res.stats.samples_scanned > 0
+
+
+# -- the untyped and delta-counter schemas ------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["untyped", "delta-counter"])
+def test_schema_matches_the_jax_registry(name):
+    """The two scalar schemas the port lacked, with the JAX package's
+    columns (the downsampling specs wait for A7)."""
+    want, got = JS.SCHEMAS[name], S.SCHEMAS[name]
+    assert got.value_column == want.value_column
+    assert [(c.name, c.ctype.value, c.is_counter, c.is_delta) for c in got.columns] == [
+        (c.name, c.ctype.value, c.is_counter, c.is_delta) for c in want.columns]
+
+
+def delta_data(grid: str, seed: int = 4):
+    """``delta-counter`` (per-interval increases) and ``untyped`` series on
+    each grid class: exact 10 s, +-5 % jitter, that with missed scrapes,
+    or irregular 5-15 s."""
+    rng = np.random.default_rng(seed)
+    nominal = BASE + 3_000 + np.arange(N_SAMPLES, dtype=np.int64) * 10_000
+    out = []
+    for metric, schema in (("http_requests_total", "delta-counter"), ("node_load", "untyped")):
+        for i in range(N_SERIES // 2):
+            if grid == "irregular":
+                ts = BASE + np.cumsum(rng.integers(5_000, 15_000, N_SAMPLES)).astype(np.int64)
+            elif grid == "regular":
+                ts = nominal
+            else:
+                ts = nominal + np.rint(rng.uniform(-0.05, 0.05, N_SAMPLES) * 1e4).astype(np.int64)
+            vals = rng.uniform(0, 10, N_SAMPLES)
+            if grid == "holes":
+                keep = np.ones(N_SAMPLES, bool)
+                keep[rng.choice(np.arange(1, N_SAMPLES - 1), 2, replace=False)] = False
+                ts, vals = ts[keep], vals[keep]
+            tags = {S.METRIC_TAG: metric, "_ws_": "demo", "_ns_": "App-2",
+                    "instance": f"host-{i}", "zone": f"z{i % 4}"}
+            out.append((tags, schema, ts, vals))
+    return out
+
+
+DELTA_GRIDS = {"regular": "mxu", "jitter": "jitter", "holes": "masked",
+               "irregular": "window_stats"}
+DELTA_QUERIES = [
+    ("sum(rate(http_requests_total[5m]))", None),
+    ("sum by (zone) (increase(http_requests_total[5m]))", None),
+    ("sum(sum_over_time(http_requests_total[5m]))", None),
+    ("sum(irate(http_requests_total[5m]))", "general"),
+    ("max(idelta(http_requests_total[5m]))", "general"),
+    ("sum(rate_over_delta(http_requests_total[5m]))", None),
+    ("sum(increase_over_delta(http_requests_total[5m]))", None),
+    ("rate(http_requests_total[5m])", None),
+    ("irate(http_requests_total[5m])", "general"),
+    ("avg by (zone) (node_load)", None),
+    ("max(max_over_time(node_load[5m]))", None),
+]
+
+
+def build_schema_stores(data):
+    """``build_stores`` with each series in its schema's value column."""
+    jms, pms = JaxMemStore(), TimeSeriesMemStore()
+    jms.setup(JS.Dataset("prometheus"), range(N_SHARDS))
+    pms.setup(S.Dataset("prometheus"), range(N_SHARDS))
+    for tags, schema, ts, vals in data:
+        col = S.SCHEMAS[schema].value_column
+        shard = S.shard_for(tags, SPREAD, N_SHARDS)
+        jms.shard("prometheus", shard).ingest_series(JaxSeriesBatch(
+            schema=JS.SCHEMAS[schema], tags=tags, timestamps=ts, values={col: vals}))
+        pms.shard("prometheus", shard).ingest_series(SeriesBatch(
+            schema=S.SCHEMAS[schema], tags=tags, timestamps=ts, values={col: vals}))
+    return jms, pms
+
+
+@pytest.fixture(scope="module")
+def delta_stores():
+    return {grid: build_schema_stores(delta_data(grid)) for grid in DELTA_GRIDS}
+
+
+@pytest.mark.parametrize("grid", sorted(DELTA_GRIDS))
+@pytest.mark.parametrize("query,rung", DELTA_QUERIES, ids=[q for q, _ in DELTA_QUERIES])
+def test_delta_counters_and_untyped_match_jax(delta_stores, query, rung, grid):
+    """Delta counters and untyped series ingest and answer as in the JAX
+    engine on every rung: rate/increase/sum_over_time (and the _over_delta
+    aliases) on the grid's own rung, irate/idelta excluded from the
+    regular, jitter and masked rungs (the general one)."""
+    jms, pms = delta_stores[grid]
+    want = JaxEngine(jms, "prometheus").query_range(query, START_S, END_S, STEP_S)
+    got = QueryEngine(pms, "prometheus", device="cpu").query_range(query, START_S, END_S, STEP_S)
+    if rung is None and "node_load" not in query:
+        rung = DELTA_GRIDS[grid]
+    if rung is not None:
+        assert set(got.stats.rungs) == {rung}, got.stats.rungs
+    want_rows = {tuple(sorted(l.items())): v for g in want.grids
+                 for l, v in zip(g.labels, g.values_np())}
+    got_rows = {tuple(sorted(l.items())): v for g in got.grids
+                for l, v in zip(g.labels, g.values_np())}
+    assert sorted(got_rows) == sorted(want_rows) and want_rows
+    for k, w in want_rows.items():
+        np.testing.assert_array_equal(np.isnan(got_rows[k]), np.isnan(w), err_msg=query)
+        m = ~np.isnan(w)
+        np.testing.assert_allclose(got_rows[k][m], w[m], rtol=2e-4, atol=1e-4, err_msg=query)

@@ -428,8 +428,12 @@ def assert_topk_matches(got, want, k: int, bottom: bool, what: str):
 
 
 def expected_rung(grid: str, func: str) -> str:
+    """The JAX ladder's rung (its ``general`` as the port's general rung or
+    window stats)."""
     if grid == "regular" and func in JAGG.FUSED_MXU_FUNCS:
         return "mxu"
+    if grid == "jitter" and func in JAGG.FUSED_JITTER_FUNCS:
+        return "jitter"
     return "window_stats" if func in PALLAS_FUNCS else "general"
 
 

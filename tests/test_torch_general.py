@@ -31,6 +31,7 @@ from filodb_tpu.core import schemas as JS
 from filodb_tpu.core.records import SeriesBatch as JaxSeriesBatch
 from filodb_tpu.memstore.memstore import TimeSeriesMemStore as JaxMemStore
 from filodb_tpu.ops import aggregations as JAGG
+from filodb_tpu.ops import staging as JST
 from filodb_tpu.ops.kernels import range_kernel as jax_range_kernel
 from filodb_tpu.ops.staging import stage_series as jax_stage_series
 from filodb_tpu.query.exec import plans as JPLANS
@@ -392,23 +393,37 @@ def ladder_blocks():
 def test_ladder_blocks_have_the_grid_classes():
     blocks = ladder_blocks()
     assert {k: grid_class(p) for k, (_, p) in blocks.items()} == {
-        "regular": "regular", "jitter": "jitter", "holes": "irregular",
+        "regular": "regular", "jitter": "jitter", "holes": "holes",
         "irregular": "irregular"}
-    assert blocks["holes"][0].mgrid is not None  # the JAX package's masked grid
+    assert {k: JST.grid_class(j) for k, (j, _) in blocks.items()} == {
+        k: grid_class(p) for k, (_, p) in blocks.items()}
 
 
 @pytest.mark.parametrize("func", sorted(JPLANS.FUSED_FUNCS))
 def test_grid_variant_maps_the_jax_ladder(func):
-    """Every (grid class, is_delta) of a fused function: the JAX ``mxu``
-    is the port's; its ``jitter``/``masked``/``general`` rungs are the
-    port's ``window_stats`` for ``PALLAS_FUNCS`` and ``general`` for the
-    rest. Nothing in FUSED_FUNCS raises."""
+    """Every (grid class, is_delta) of a fused function: the port's rung is
+    the JAX package's ``_grid_variant`` exactly, its ``general`` being the
+    port's ``general`` for ``GENERAL_FUNCS`` and ``window_stats`` for the
+    rest (``general_rung``); and ``_fused_dispatch``'s decline -- the jitter
+    and masked rungs' window structure not ``ok`` for a window of twice the
+    grid's deviation bound -- maps the same way. Nothing in FUSED_FUNCS
+    raises."""
+    from filodb_tpu.ops import mxu_jitter as JMJ
+
+    general = "general" if func in GR.GENERAL_FUNCS else "window_stats"
     for grid, (jb, pb) in ladder_blocks().items():
         for is_delta in (False, True):
             jvar, _ = JAGG._grid_variant(jb, func, is_delta)
-            want = "mxu" if jvar == "mxu" else (
-                "window_stats" if func in WS.PALLAS_FUNCS else "general")
+            want = general if jvar == "general" else jvar
             assert AGG.grid_variant(pb, func, is_delta) == want, (grid, is_delta, jvar)
+            if jvar not in ("jitter", "masked"):
+                continue
+            md = jb.maxdev_ms if jvar == "jitter" else jb.mgrid.maxdev_ms
+            build = (JMJ.jitter_window_matrices if jvar == "jitter"
+                     else JMJ.masked_window_matrices)
+            for window in (2 * md, 2 * md + 1):
+                ok = build(jb, 400_000, 60_000, 32, window).ok
+                assert AGG.grid_variant(pb, func, is_delta, window) == (jvar if ok else general)
 
 
 def test_fused_funcs_are_the_jax_packages():
@@ -608,6 +623,8 @@ def expected_rung(query: str, grid: str) -> str:
     func = getattr(inner, "function", None) or "last"
     if grid == "regular" and func in JAGG.FUSED_MXU_FUNCS:
         return "mxu"
+    if grid == "jitter" and func in JAGG.FUSED_JITTER_FUNCS:
+        return "jitter"
     return "window_stats" if func in WS.PALLAS_FUNCS else "general"
 
 

@@ -48,8 +48,9 @@ def make_series(kind: str, n_series=6, n=120, seed=0, phase=3_000):
 
 
 def jax_class(block) -> str:
-    c = JST.grid_class(block)
-    return "irregular" if c == "holes" else c
+    """The JAX package's grid class, which the port now has for every grid
+    (``holes`` included)."""
+    return JST.grid_class(block)
 
 
 def assert_grid_equal(got, want):
@@ -61,6 +62,7 @@ def assert_grid_equal(got, want):
             np.testing.assert_array_equal(g, np.asarray(w), err_msg=name)
             assert g.dtype == np.asarray(w).dtype, name
     assert got.maxdev_ms == want.maxdev_ms
+    assert (got.mgrid is None) == (getattr(want, "mgrid", None) is None)
     assert ST.grid_class(got) == jax_class(want)
 
 
@@ -104,7 +106,7 @@ def test_stage_series_grid_and_arrays_match_jax(kind, mode):
 def test_grid_classes_cover_the_ladder():
     classes = {k: ST.grid_class(ST.stage_series(make_series(k, seed=3), BASE)) for k in KINDS}
     assert classes == {"regular": "regular", "jitter": "jitter", "irregular": "irregular",
-                       "ragged": "irregular", "empty": "irregular"}
+                       "ragged": "holes", "empty": "irregular"}
 
 
 def test_nominal_midrange_matches_jax():

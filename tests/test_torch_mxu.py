@@ -3,7 +3,10 @@ numpy inputs: ``WindowMatrices``, ``mxu_range_plain`` against
 ``mxu_range_kernel`` (under both of the JAX package's fetch strategies,
 ``FILODB_MXU_FETCH=gather`` and ``matmul``, as tests/test_fetch_parity.py
 forces them), and ``regular_range_aggregate`` on the CPU against the JAX
-package's fused MXU dispatch (``_fused_mxu_jit``).
+package's fused MXU dispatch (``_fused_mxu_jit``); the B5 codes
+(changes/resets, min/max, deriv/predict_linear, absent_over_time) against
+``run_mxu_range_function``, deriv and predict_linear by the JAX-or-oracle
+rule.
 
 Tolerance rtol 2e-4 / atol 1e-4 (as tests/test_pallas.py): the window sums
 are taken in another order. NaN masks must be identical."""
@@ -198,7 +201,7 @@ def test_regular_range_aggregate_rejects_bad_inputs():
     with pytest.raises(ValueError):
         MK.regular_range_aggregate("rate", "sum", pb, gids[:3], 1, params)
     with pytest.raises(NotImplementedError):
-        MK.regular_range_aggregate("changes", "sum", pb, gids, 1, params)
+        MK.regular_range_aggregate("quantile_over_time", "sum", pb, gids, 1, params)
     with pytest.raises(NotImplementedError):
         MK.regular_range_aggregate("rate", "stddev", pb, gids, 1, params)
     irregular = ST.stage_series([(np.array([BASE, BASE + 7_000]), np.array([1.0, 2.0])),
@@ -209,5 +212,88 @@ def test_regular_range_aggregate_rejects_bad_inputs():
 
 
 def test_kernel_codes_cover_the_functions():
-    assert set(MK.FUNC_CODES) == MK.FUSED_MXU_FUNCS == JAGG.FUSED_MXU_FUNCS
+    """The fused set is the JAX package's; the kernel codes cover the rest
+    of its MXU rung (the tree's), timestamp being the host's."""
+    assert MK.FUSED_MXU_FUNCS == JAGG.FUSED_MXU_FUNCS
+    assert MK.MXU_FUNCS == JMK.MXU_FUNCS
+    assert set(MK.FUNC_CODES) == MK.MXU_FUNCS - {"timestamp"}
     assert set(MK.ACC_CODES) == {"sum", "count", "avg", "min", "max"}
+
+
+# -- B5: the rest of the MXU rung ----------------------------------------------------------
+
+B5_FUNCS = sorted(MK.MXU_FUNCS - MK.FUSED_MXU_FUNCS - {"timestamp"})
+
+
+def regression_oracle(func, ts1, vals, n_valid, start_off, step, J, window, lead):
+    """deriv/predict_linear in float64 over the regular windows of the f32
+    values (tc rounded to f32 once, as both packages take it), and the
+    windows' sample counts."""
+    ts = ts1[:n_valid].astype(np.int64)
+    out_t = start_off + np.arange(J, dtype=np.int64) * step
+    hi = np.searchsorted(ts, out_t, side="right")
+    lo = np.searchsorted(ts, out_t - window, side="right")
+    v64 = np.asarray(vals, np.float64)
+    out = np.full((v64.shape[0], J), np.nan)
+    for j in range(J):
+        if hi[j] - lo[j] < 2:
+            continue
+        tc = ((ts[lo[j]:hi[j]] - out_t[j]) * 1e-3).astype(np.float32).astype(np.float64)
+        w = v64[:, lo[j]:hi[j]]
+        n = float(hi[j] - lo[j])
+        denom = n * (tc * tc).sum() - tc.sum() ** 2
+        slope = (n * (w * tc).sum(1) - tc.sum() * w.sum(1)) / denom
+        out[:, j] = slope if func == "deriv" else (w.sum(1) - slope * tc.sum()) / n + slope * lead
+    return out, np.broadcast_to(hi - lo, out.shape)
+
+
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+@pytest.mark.parametrize("kind", ["gauge", "counter-corrected", "counter-shifted",
+                                  "counter-diff"])
+@pytest.mark.parametrize("func", B5_FUNCS)
+def test_b5_codes_match_jax(func, kind, grid):
+    """The regular rung's B5 codes through ``mxu_range_plain`` against the
+    JAX package's ``run_mxu_range_function`` (``mxu_pair_count``,
+    ``mxu_minmax``, ``mxu_regression``, the absent arm): counts and
+    extremes exact, deriv and predict_linear by the JAX-or-oracle rule."""
+    from tests.test_torch_general import assert_jax_or_oracle
+
+    jb, pb, counter = blocks(kind, seed=31 + len(grid))
+    start_off, step, window = GRIDS[grid]
+    args = (600.0,) if func == "predict_linear" else ()
+    want = np.asarray(JMK.run_mxu_range_function(
+        func, jb, JK.RangeParams(BASE + start_off, step, NUM_STEPS, window),
+        is_counter=counter, args=args))[:, :NUM_STEPS]
+    params = RangeParams(BASE + start_off, step, NUM_STEPS, window)
+    got = MK.regular_range_series(func, pb, torch.from_numpy(
+        np.where(np.arange(pb.vals.shape[0]) < pb.n_series, 0, 1)), 1, params,
+        is_counter=counter, args=args).T.numpy()[:, :NUM_STEPS]
+    n = pb.n_series
+    what = f"{func} {kind} {grid}"
+    if func in ("deriv", "predict_linear"):
+        exact, count = regression_oracle(func, pb.regular_ts, pb.vals.numpy()[:n],
+                                         int(pb.lens[0]), start_off, step, NUM_STEPS, window,
+                                         600.0)
+        assert_jax_or_oracle(got[:n], want[:n], exact, count, what)
+    elif func in ("changes", "resets", "min_over_time", "max_over_time"):
+        np.testing.assert_array_equal(np.isnan(got[:n]), np.isnan(want[:n]), err_msg=what)
+        np.testing.assert_array_equal(got[:n][~np.isnan(want[:n])],
+                                      want[:n][~np.isnan(want[:n])], err_msg=what)
+    else:
+        assert_close(got[:n], want[:n], what)
+
+
+def test_window_matrices_lazy_builders_match_jax():
+    """``ensure_pairs`` and ``ensure_regression`` build the JAX package's
+    P, Wt, st and stt."""
+    jb, pb, _ = blocks("gauge", seed=3)
+    jwm = JMK.window_matrices(jb, START - BASE, STEP, pad_steps(NUM_STEPS), WINDOW)
+    pwm = MK.window_matrices(pb, START - BASE, STEP, pad_steps(NUM_STEPS), WINDOW)
+    jwm.ensure_pairs()
+    jwm.ensure_regression()
+    pwm.ensure_pairs()
+    pwm.ensure_regression()
+    np.testing.assert_array_equal(pwm.P.numpy(), jwm.P)
+    np.testing.assert_array_equal(pwm.Wt.numpy(), jwm.Wt)
+    np.testing.assert_array_equal(pwm.st.numpy(), jwm.st)
+    np.testing.assert_array_equal(pwm.stt.numpy(), jwm.stt.astype(np.float32))

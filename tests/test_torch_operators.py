@@ -325,3 +325,41 @@ def test_limit_matches_jax(engines, query):
                                    f'absent({G} > 75)', f'absent({G}{{zone="z1"}} > 200)'])
 def test_absent_matches_jax(engines, query):
     check(engines, query)
+
+
+# -- sgn over absent steps -------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def nan_engines():
+    """tests/test_torch_engine.py's stores on both grids with one sample in
+    three set NaN and every fifth series cut short (absent steps)."""
+    from tests.test_torch_engine import build_stores, make_data
+
+    out = {}
+    for grid in ("irregular", "regular"):
+        data = []
+        for i, (tags, schema, ts, vals) in enumerate(make_data(grid)):
+            vals = vals.copy()
+            vals[::3] = np.nan
+            if i % 5 == 1:
+                ts, vals = ts[: len(ts) // 2], vals[: len(vals) // 2]
+            data.append((tags, schema, ts, vals))
+        jms, pms = build_stores(data)
+        out[grid] = (JaxEngine(jms, "prometheus"), QueryEngine(pms, "prometheus", device="cpu"))
+    return out
+
+
+@pytest.mark.parametrize("grid", ["irregular", "regular"])
+@pytest.mark.parametrize("query", ["sgn(node_temp - 50)",
+                                   "sgn(rate(http_requests_total[5m]) - 5)"])
+def test_sgn_keeps_absent_steps_as_jax(nan_engines, query, grid):
+    """``sgn`` of an absent step is absent (NaN), as ``jnp.sign`` keeps it;
+    the JAX answer has absent steps, so the case is exercised."""
+    from tests.test_torch_engine import END_S as E_END, START_S as E_START, STEP_S as E_STEP
+
+    jax_engine, port_engine = nan_engines[grid]
+    want = by_labels(jax_engine.query_range(query, E_START, E_END, E_STEP))
+    got = by_labels(port_engine.query_range(query, E_START, E_END, E_STEP))
+    assert any(np.isnan(w).any() for w in want.values())
+    assert_same(got, want, query)

@@ -342,3 +342,19 @@ def test_restage_wraps_past_the_int32_span_as_stage_series():
     for corrected in (False, True):
         assert_same_block(ST.stage_step_rows(v, times, base, counter_corrected=corrected),
                           ST.stage_series(series, base, counter_corrected=corrected))
+
+
+@pytest.mark.parametrize("query,instant", [
+    (f"max_over_time({G}[30d:5m])", True), (f"max_over_time({G}[30d:5m])", False),
+    (f"min_over_time({G}[25d:1h])", True), (f"absent_over_time({G}[30d:5m])", True),
+])
+def test_wide_window_minmax_answers_as_jax(stores, query, instant):
+    """min/max_over_time and absent_over_time over a re-staged grid wider
+    than the int32 span: the JAX package's MXU rung answers them, and the
+    port's regular rung now takes them too (B5), so both answer alike
+    where the window-stats rung raised."""
+    jms, pms = stores["irregular"]
+    run = (lambda: JaxEngine(jms, "prometheus").query_instant(query, END_S)) if instant else (
+        lambda: JaxEngine(jms, "prometheus").query_range(query, START_S, END_S, STEP_S))
+    assert answer(run)[0] == "ok"
+    assert_matches_jax(jms, pms, query, instant=instant)

@@ -257,24 +257,26 @@ LADDER_FUNCS = ["rate", "irate", "idelta", "changes", "resets", "deriv", "predic
                 "min_over_time", "absent_over_time", "avg_over_time", "stddev_over_time",
                 "quantile_over_time", "median_absolute_deviation_over_time",
                 "double_exponential_smoothing", "timestamp"]
-# the rung each JAX variant maps onto (the port has no B5 or B6): JAX mxu
-# functions outside the regular store mode take window stats or general
-PORT_RUNG = {"rate": "mxu", "irate": "mxu", "idelta": "mxu", "avg_over_time": "mxu",
-             "stddev_over_time": "mxu", "changes": "general", "resets": "general",
-             "deriv": "general", "predict_linear": "general",
-             "double_exponential_smoothing": "general", "min_over_time": "window_stats",
-             "absent_over_time": "window_stats", "quantile_over_time": "sorted",
-             "median_absolute_deviation_over_time": "sorted", "timestamp": "host"}
+def port_rung(jvariant: str, func: str, args) -> str:
+    """The port's rung of a JAX ladder variant: the same name, but JAX's
+    ``general`` and ``pallas`` map to the general kernel for its functions
+    and the functions with arguments, and to window stats for the rest."""
+    from filodb_tpu_torch.ops import aggregations as AGG
+    from filodb_tpu_torch.ops import general_range as GR
+
+    if jvariant not in ("general", "pallas"):
+        return jvariant
+    return "general" if args or func in GR.ARG_FUNCS else AGG.general_rung(func)
 
 
 @pytest.mark.parametrize("grid", GRIDS)
 @pytest.mark.parametrize("func", LADDER_FUNCS)
 def test_ladder_maps_the_jax_rungs(stores, func, grid):
-    """The rung that serves each function on each grid: on a regular grid
-    the JAX package's MXU functions that the regular store mode takes stay
-    ``mxu`` and the rest go to window stats or general; the jitter rung's
-    functions take window stats or general (no B6); sorted and host as in
-    JAX. The values match the JAX dispatch's (rtol 2e-4 / atol 1e-4; the
+    """The rung that serves each function on each grid is the JAX
+    package's tree ladder's (``port_rung``): ``mxu`` for its MXU functions on
+    a regular grid (B5 included), ``jitter`` for the jitter functions
+    without arguments on a jittered grid, sorted and host as in JAX. The
+    values match the JAX dispatch's (rtol 2e-4 / atol 1e-4; the
     JAX-or-oracle rule needs raw data, so the ORACLE functions run on the
     gauge's rows only where JAX agrees with the port)."""
     from filodb_tpu.ops import staging as JST
@@ -293,14 +295,12 @@ def test_ladder_maps_the_jax_rungs(stores, func, grid):
     got, variant = K._dispatch_range_function(func, dev, params, args=args)
     jparams = JK.RangeParams(int(START_S * 1000), 60_000, 17, 300_000)
     want, jvariant = JK._dispatch_range_function(func, jblock, jparams, args=args)
-    if grid == "regular" and func in PORT_RUNG:
-        assert variant == PORT_RUNG[func], (func, variant, jvariant)
-    elif func in ("quantile_over_time", "median_absolute_deviation_over_time"):
-        assert variant == jvariant == "sorted"
-    elif func == "timestamp":
-        assert variant == jvariant == "host"
-    else:
-        assert variant in ("window_stats", "general"), (func, variant)
+    assert variant == port_rung(jvariant, func, args), (func, variant, jvariant)
+    assert variant == K.tree_rung(func, dev, params, args=args)
+    if grid == "regular" and func not in ("quantile_over_time", "timestamp",
+                                          "median_absolute_deviation_over_time",
+                                          "double_exponential_smoothing"):
+        assert variant == "mxu", func
     n = block.n_series
     g = np.asarray(got[:n, :17], np.float64)
     w = np.asarray(want, np.float64)[:n, :17]
