@@ -13,7 +13,7 @@ Phases (any failure raises and exits non-zero):
    ``sorted_window.cu``, ``segment_agg.cu`` and ``jitter_range.cu`` with
    nvcc, and the histogram kernel's split builds (``tile_sweep.HIST_PATCHES``:
    search only and fetch only of the aggregate; compute only and store only
-   of the store mode), all at once, and bind their fifteen entry points
+   of the store mode), all at once, and bind their seventeen entry points
    (``filodb_window_stats``,
    ``filodb_window_range_aggregate``, ``filodb_regular_range``,
    ``filodb_hist_range_aggregate``, ``filodb_hist_resident``,
@@ -21,7 +21,8 @@ Phases (any failure raises and exits non-zero):
    ``filodb_topk_steps``, ``filodb_segment_quantile``,
    ``filodb_segment_topk``, ``filodb_sorted_window``,
    ``filodb_segment_aggregate``, ``filodb_hist_range_series``,
-   ``filodb_hist_instant``, ``filodb_jitter_range``); print their
+   ``filodb_hist_instant``, ``filodb_jitter_range``,
+   ``filodb_hist_range_jitter``, ``filodb_hist_jitter_resident``); print their
    ptxas lines (registers, shared memory, spills) and the card's name and
    power limit.
 2. Window stats (the nine-plane kernel), kernel vs plain on seeded
@@ -315,7 +316,9 @@ Phases (any failure raises and exits non-zero):
    window stats, one ms more the jitter rungs, whose narrow windows are
    held to plain too); max_abs_err per code.
 14. bench.py's ``fused_jitter`` stores through the port at full width
-   (``phase_fused_jitter``, after 9b): 100k counters on 8 shards, 720
+   (``phase_fused_jitter``, after 9b): 50k counters (``FUSED_JITTER_SERIES``:
+   bench.py's 100k cut to half, to keep the script's time; 6b
+   runs on the jittered one) on 8 shards, 720
    samples at 10 s, jitter 0.05, phase 5 s, seed 42, ``hole_frac`` 0
    (grid ``jitter``) and 0.01 (``holes``). ``FUSED_JITTER_QUERIES`` first
    then warm: the fused aggregates one launch of the jitter kernel
@@ -330,9 +333,48 @@ Phases (any failure raises and exits non-zero):
    superblock (rtol 5e-3: f32 atomic sums of 100k values up to 1e9;
    sum(count_over_time) exactly), that rung's kernel timed back to back
    alternating with the jitter kernel; sum(rate) against bench.py's f64 oracle (rtol 5e-3); the warm
-   p50 of sum(rate) against phase 5's (bench.py's ratio); the holey
-   store's first query (its cold staging) beside a cold build without the
-   masked sidecar.
+   p50 of sum(rate) against phase 5's (bench.py's ratio, here at half
+   phase 5's series); the holey store's first query (its cold staging and
+   the masked sidecar, built at the masked rung's first read) with the
+   sidecar's own build time.
+15. The server (``phase_http``, after phase 13 on phase 5's store):
+   ``api/http.serve_background`` over that engine on the card, on
+   127.0.0.1. ``HTTP_RANGE_QUERIES`` (the north star, by zone, topk(5,
+   rate), an unaggregated rate over the 1,000 series of an ``instance``
+   regex: the tree), the north star's instant form, labels, the values of
+   ``zone`` and a series request limited to 10, each held against
+   ``QueryEngine`` called directly on the card (labels and timestamps
+   exact, values rtol 1e-5: group atomics may move an ulp); each
+   query's warm p50 over ``HTTP_RUNS`` runs through HTTP beside the
+   engine's, with the server's split from its ``Server-Timing`` header
+   (plan, execute -- the launch and the rest of the plan's run --,
+   transfer from the device, render) and the socket's share (the
+   client's wall less the server's). Then a remote write of 1,000 new
+   series x 10 samples at the live edge (the port's prompb codec),
+   ``/api/v1/read`` of them (equal to what was written), a ``count()``
+   that sees them, an ``/ingest/prom`` body, ``/metrics``, and
+   ``/debug/superblocks`` and ``/debug/resources``: the ledger's drift 0
+   on every kind, its ``superblock`` bytes equal to the cache's own walk,
+   their device ``cuda:0``.
+15b. The CLI (``phase_cli``): ``python -m filodb_tpu_torch.cli serve``
+   in a subprocess with no device flag (it must take the card), ``cli
+   ingest-csv`` of 50 series x 60 rows and ``cli query-range`` of a ``sum
+   by (zone) (rate(...))`` held against a CPU engine on the same rows;
+   ``/debug/resources`` must show the server's engine and superblock on
+   the card. The subprocess is ended in every case.
+16. The histogram jitter mode (B1; ``phase_hist_jitter``, after phase 12's
+   regular store): bench.py's 100k x 12-bucket ``hist_quantile`` draws
+   (7b's, drawn once: ``build_memstore_hists`` ingests each block into
+   both stores) on bench.py's ``fused_jitter`` timestamps (+-5 % of 10 s
+   around a 5 s phase). The SRE panel through a server on the store's
+   engine, cold then warm, and through the engine directly (warm p50 over
+   ``HTTP_RUNS``), each exactly one ``hist_range`` launch in the jitter
+   mode with the quantile folded in; ``sum by (le)`` one launch, no fold;
+   [G, J] against the plain path (rtol 1e-3) and an f64 oracle over each
+   series' own timestamps (``cpu_baseline_hist_series``, rtol 5e-3); the
+   aggregate mode at G = S per series against plain (rtol 2e-4 / atol
+   1e-4); the kernel per call and back to back, alternating with
+   ``hist_general`` on the same superblock, beside its bound in bytes.
 
 Around every timed phase it prints the card's SM and memory clocks,
 temperature and power draw (nvidia-smi), before and after. Prints, in
@@ -341,7 +383,8 @@ order at the end: one JSON object with phases 6 and 6b's numbers
 with phase 9's (``{"epilogues": ...}``), one with phases 2d, 2e, 10-10c
 and 11's (``{"tree": ...}``), one with phases 2f and 12's
 (``{"hist_tree": ...}``), one with phases 2g and 14's (``{"jitter":
-...}``), one with the kernels' numbers
+...}``), one with phases 15 and 15b's (``{"server": ...}``; phase 16's
+is in ``{"hist": ...}``), one with the kernels' numbers
 (the order-statistics kernels' rows, and the store mode's numbers on the
 rungs' rows), the card's
 name and power limit as nvidia-smi gives them, and the result line
@@ -368,6 +411,9 @@ SPREAD = 3
 STEP_S = 60.0
 WINDOW_MS = 300_000
 N_SERIES = 100_000
+# phase 14's stores (and phase 6b on the jittered one): bench.py's
+# fused_jitter stores cut to half its series to keep the script's time
+FUSED_JITTER_SERIES = 50_000
 N_SAMPLES = 720
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 QUERIES = (
@@ -542,7 +588,7 @@ def compare_stats(got: dict, want: dict, rtol: float = 2e-4, atol: float = 1e-4)
 
 def build_kernels() -> dict:
     """Build every source and the histogram kernel's split builds at
-    once (one nvcc each), bind the fifteen entry points, print ptxas's lines
+    once (one nvcc each), bind the seventeen entry points, print ptxas's lines
     (registers, shared memory, spills) and return the split builds."""
     from filodb_tpu_torch.ops import cuda_build
     from filodb_tpu_torch.ops import general_range as GR
@@ -570,7 +616,8 @@ def build_kernels() -> dict:
                os_lib.filodb_segment_quantile, os_lib.filodb_segment_topk,
                sw_lib.filodb_sorted_window, sa_lib.filodb_segment_aggregate,
                hk_lib.filodb_hist_range_series, hk_lib.filodb_hist_instant,
-               jr_lib.filodb_jitter_range]
+               jr_lib.filodb_jitter_range, hk_lib.filodb_hist_range_jitter,
+               hk_lib.filodb_hist_jitter_resident]
     print(f"phase1 built {', '.join(l.name for l in libs)} in {time.perf_counter() - t0:.1f} s; "
           f"entry points {', '.join(e.__name__ for e in entries)}")
     for name in SOURCES:
@@ -1489,7 +1536,8 @@ def phase_live_edge(engine, device, phase: str, grid: str, n_idle: int, n_busy: 
 
     rung = "mxu" if grid == "regular" else "jitter"
     ms = engine.memstore
-    tags_list = [series_tags(i) for i in range(N_SERIES)]
+    n_series = sum(len(sh.partitions) for sh in ms.shards("prometheus"))
+    tags_list = [series_tags(i) for i in range(n_series)]
     rng = np.random.default_rng(seed + 7)
     ev0 = M.superblock_events()
     launches = [0]
@@ -1592,11 +1640,11 @@ def phase_live_edge(engine, device, phase: str, grid: str, n_idle: int, n_busy: 
     idle_ms, busy_ms = float(np.mean(idle)) * 1e3, float(np.mean(busy)) * 1e3
     per = extensions[-1]
     busy_ext = len(extensions) - 1
-    print(f"{phase} live edge ({grid}, {N_SERIES} series, {LIVE_QUERY!r} to {LIVE_END_S:.0f} s): "
+    print(f"{phase} live edge ({grid}, {n_series} series, {LIVE_QUERY!r} to {LIVE_END_S:.0f} s): "
           f"cold {cold_s * 1e3:.1f} ms, idle mean {idle_ms:.2f} ms over {n_idle}, busy mean "
           f"{busy_ms:.2f} ms over {len(busy)} ({busy_ext} of them extended the superblock, "
           f"{busy_batches} batches landed meanwhile), busy/idle {busy_ms / idle_ms:.2f} x; "
-          f"{sent[0]} batches in all, {np.mean(ingest_s):.2f} s per {N_SERIES}-row ingest_routed "
+          f"{sent[0]} batches in all, {np.mean(ingest_s):.2f} s per {n_series}-row ingest_routed "
           f"(mean of {len(ingest_s)}), outcomes {events}")
     for i, e in enumerate(extensions):
         print(f"{phase} extension {i}: {e['series']} series x {e['columns']} columns, "
@@ -1609,7 +1657,7 @@ def phase_live_edge(engine, device, phase: str, grid: str, n_idle: int, n_busy: 
           f"lens bit-equal to the fresh build's, vals max diff {diffs['vals']:.3g}, raw "
           f"{diffs['raw']:.3g}")
     return {
-        "grid": grid, "series": N_SERIES, "cold_ms": cold_s * 1e3, "idle_mean_ms": idle_ms,
+        "grid": grid, "series": n_series, "cold_ms": cold_s * 1e3, "idle_mean_ms": idle_ms,
         "busy_mean_ms": busy_ms, "busy_over_idle": busy_ms / idle_ms, "idle_ms": [
             t * 1e3 for t in idle], "busy_ms": [t * 1e3 for t in busy], "batches": sent[0],
         "busy_batches": busy_batches, "busy_extensions": busy_ext,
@@ -2302,7 +2350,19 @@ def build_memstore_hist(n_series: int, grid: str):
     720 samples each, drawn per block of 2000 series from seed 42 as
     bench.py draws them; ``regular`` is bench.py's store (every 10 s from
     BASE), ``irregular`` moves every series onto its own 5-15 s intervals
-    (drawn from a second stream, so the bucket counts stay bench.py's)."""
+    (drawn from a second stream, so the bucket counts stay bench.py's),
+    ``jitter`` onto bench.py's ``fused_jitter`` timestamps (``build_memstore``
+    with jitter 0.05 and phase 5 s: the 10 s grid shifted by 5 s, each
+    sample moved by a rounded uniform +-5 % of the interval, drawn from a
+    third stream)."""
+    return build_memstore_hists(n_series, (grid,))[grid]
+
+
+def build_memstore_hists(n_series: int, grids) -> dict:
+    """``build_memstore_hist``'s stores of several ``grids`` from one draw:
+    each block of 2000 series' bucket counts is drawn once and ingested
+    into every store with its grid's timestamps (phase 7b's regular store
+    and phase 16's jittered one). Returns grid -> memstore."""
     from filodb_tpu_torch.core.records import SeriesBatch
     from filodb_tpu_torch.core.schemas import PROM_HISTOGRAM, Dataset, shard_for
     from filodb_tpu_torch.memstore.memstore import TimeSeriesMemStore
@@ -2310,26 +2370,58 @@ def build_memstore_hist(n_series: int, grid: str):
 
     rng = np.random.default_rng(HIST_SEED)
     gaps = np.random.default_rng(HIST_SEED + 1)
+    jit = np.random.default_rng(HIST_SEED + 2)
     ts = BASE + np.arange(N_SAMPLES, dtype=np.int64) * 10_000
-    ms = TimeSeriesMemStore(StoreConfig(max_chunk_size=N_SAMPLES))
-    ms.setup(Dataset("prometheus"), range(N_SHARDS))
+    nominal = ts + JITTER_PHASE_MS
+    stores = {}
+    for grid in grids:
+        stores[grid] = TimeSeriesMemStore(StoreConfig(max_chunk_size=N_SAMPLES))
+        stores[grid].setup(Dataset("prometheus"), range(N_SHARDS))
     blk = 2_000
-    for b0 in range(0, n_series, blk):
+
+    def draw(b0):
         n = min(blk, n_series - b0)
         incr = rng.poisson(2.0, size=(n, N_SAMPLES, N_BUCKETS)).astype(np.float64)
         incr[..., -1] = incr.sum(-1)  # +Inf bucket grows with everything
         hist = np.cumsum(np.cumsum(incr, axis=2), axis=1)
-        count = hist[..., -1]
         total = np.cumsum(rng.uniform(0, 5, size=(n, N_SAMPLES)), axis=1)
-        if grid == "irregular":
-            row_ts = BASE + np.cumsum(gaps.integers(5_000, 15_001, (n, N_SAMPLES)), axis=1)
-        for i in range(n):
-            tags = hist_tags(b0 + i)
-            shard = ms.shard("prometheus", shard_for(tags, spread=SPREAD, num_shards=N_SHARDS))
-            shard.ingest_series(SeriesBatch(
-                PROM_HISTOGRAM, tags, row_ts[i] if grid == "irregular" else ts,
-                {"sum": total[i], "count": count[i], "h": hist[i]}, bucket_les=HIST_LES))
-    return ms
+        rows = {"regular": np.broadcast_to(ts, (n, N_SAMPLES))}
+        if "irregular" in grids:
+            rows["irregular"] = BASE + np.cumsum(gaps.integers(5_000, 15_001, (n, N_SAMPLES)),
+                                                 axis=1)
+        if "jitter" in grids:
+            rows["jitter"] = nominal + np.rint(
+                jit.uniform(-0.05, 0.05, (n, N_SAMPLES)) * 10_000).astype(np.int64)
+        return hist, total, rows
+
+    # the draws of the next block run on a helper thread (numpy's generators
+    # release the GIL) while this one ingests the current block; one thread
+    # draws in block order, so the stores are those of sequential draws
+    with ThreadPoolExecutor(1) as pool:
+        pending = pool.submit(draw, 0) if n_series > 0 else None
+        for b0 in range(0, n_series, blk):
+            hist, total, rows = pending.result()
+            pending = pool.submit(draw, b0 + blk) if b0 + blk < n_series else None
+            count = hist[..., -1]
+            for i in range(len(hist)):
+                tags = hist_tags(b0 + i)
+                shard_num = shard_for(tags, spread=SPREAD, num_shards=N_SHARDS)
+                for grid, ms in stores.items():
+                    ms.shard("prometheus", shard_num).ingest_series(SeriesBatch(
+                        PROM_HISTOGRAM, tags, rows[grid][i],
+                        {"sum": total[i], "count": count[i], "h": hist[i]},
+                        bucket_les=HIST_LES))
+    return stores
+
+
+def whole_series(part, col: str):
+    """(timestamps, values) of every sample of a partition: its one sealed
+    chunk's arrays as they are (the stores here seal each series in one
+    chunk of ``N_SAMPLES``), else ``samples_in_range``."""
+    if len(part.chunks) == 1 and part.num_samples() == part.chunks[0].n:
+        arrays = part.chunks[0].arrays
+        return arrays["timestamp"], arrays[col]
+    return part.samples_in_range(-(2**62), 2**62, col)
 
 
 def cpu_baseline_hist(ms) -> np.ndarray:
@@ -2363,10 +2455,17 @@ def cpu_baseline_hist(ms) -> np.ndarray:
     bucket_sum = np.zeros((num_steps, len(les)), dtype=np.float64)
     blk = 4_000
     for b0 in range(0, len(parts), blk):
-        H = np.stack([parts[i].samples_in_range(int(t0g[0]), int(t0g[-1]), "h")[1]
+        H = np.stack([whole_series(parts[i], "h")[1]
                       for i in range(b0, min(b0 + blk, len(parts)))])
         dlt = H[:, hi_c] - H[:, lo_c]
         bucket_sum += np.nansum(dlt * factor[None, :, None] / (WINDOW_MS / 1e3), axis=0)
+    return quantile_of_bucket_sums(bucket_sum, Q)
+
+
+def quantile_of_bucket_sums(bucket_sum: np.ndarray, Q: float) -> np.ndarray:
+    """bench.py's f64 histogram_quantile of [J, B] summed cumulative
+    buckets over ``HIST_LES`` (the +Inf top-bucket rule): [J]."""
+    les = HIST_LES
     total = bucket_sum[:, -1]
     rank = Q * total
     meets = bucket_sum >= rank[:, None]
@@ -2516,8 +2615,8 @@ def run_hist(engine, q: str, want_class: str, want_variant: str, end_s: float = 
     seen = []
     ladder = AGG.hist_variant
 
-    def watched(block):
-        variant = ladder(block)
+    def watched(block, *args):
+        variant = ladder(block, *args)
         seen.append((grid_class(block), variant))
         return variant
 
@@ -2525,26 +2624,28 @@ def run_hist(engine, q: str, want_class: str, want_variant: str, end_s: float = 
     try:
         for name, (_, attr) in KERNEL_COUNTERS.items():
             setattr(mods[name], attr, 0)
-        HK.FOLDED_QUANTILES = 0
+        HK.FOLDED_QUANTILES = HK.JITTER_LAUNCHES = 0
         t0 = time.perf_counter()
         res = engine.query_range(q, START_S, end_s, STEP_S)
         vals = res.grids[0].values_np()
         wall = time.perf_counter() - t0
         counts = {name: getattr(mods[name], attr) for name, (_, attr) in KERNEL_COUNTERS.items()}
         counts["hist_quantile"] = HK.FOLDED_QUANTILES
+        counts["hist_jitter"] = HK.JITTER_LAUNCHES
     finally:
         AGG.hist_variant = ladder
     require(seen == [(want_class, want_variant)],
             f"{q}: grid class and variant {seen}, expected {[(want_class, want_variant)]}")
     want = {k: int(k == "hist_range") for k in KERNEL_COUNTERS}
     want["hist_quantile"] = folds
+    want["hist_jitter"] = int(want_variant == "hist_jitter")  # of the hist_range launches
     require(counts == want, f"{q}: launches {counts}, expected {want}")
     return res, vals, wall, counts
 
 
-# the kernels JSON line's histogram rows: the range kernel's launches and
-# the quantiles folded into them
-HIST_KERNELS = ("hist_range", "hist_quantile")
+# the kernels JSON line's histogram rows: the range kernel's launches, the
+# quantiles folded into them and the launches in the jitter mode
+HIST_KERNELS = ("hist_range", "hist_quantile", "hist_jitter")
 
 
 def add_launches(total: dict, counts: dict) -> dict:
@@ -2562,7 +2663,10 @@ def hist_plain(entry, ex, q: float):
     gids, G, params = path_args(entry, ex)
     windows = (AGG._hist_shared_windows(entry.block, params, pad_steps(params.num_steps))
                if entry.block.regular_ts is not None else None)
-    acc, cnt = HK.hist_partials_plain(ex.function, entry.block, gids, G, params, windows)
+    jitter = (AGG._hist_jitter_windows(entry.block, params)
+              if AGG.hist_variant(entry.block, params) == "hist_jitter" else None)
+    acc, cnt = HK.hist_partials_plain(ex.function, entry.block, gids, G, params, windows,
+                                      jitter=jitter)
     return HK.hist_quantile_plain(q, acc, cnt, G, entry.les_dev, params.num_steps)[:, : ex.num_steps()]
 
 
@@ -2921,17 +3025,20 @@ def phase_hist_live_edge(engine, device) -> dict:
 
 
 def phase_hist_bench(device, split_libs):
-    """7b: bench.py's hist_quantile workload end to end. Returns its numbers
-    and its engine (phase 12 runs on the same store)."""
+    """7b: bench.py's hist_quantile workload end to end. Returns its numbers,
+    its engine (phase 12 runs on the same store) and phase 16's jittered
+    store, built from the same draws."""
     import torch
 
     from filodb_tpu_torch.coordinator.planner import QueryEngine
     from filodb_tpu_torch.ops import staging as ST
 
     t0 = time.perf_counter()
-    ms = build_memstore_hist(N_SERIES, "regular")
+    stores = build_memstore_hists(N_SERIES, ("regular", "jitter"))
+    ms = stores["regular"]
     print(f"phase7b ingest: {N_SERIES} histogram series x {N_SAMPLES} samples x {N_BUCKETS} "
-          f"buckets (bench.py's build_memstore_hist, seed {HIST_SEED}) on {N_SHARDS} shards in "
+          f"buckets (bench.py's build_memstore_hist, seed {HIST_SEED}) on {N_SHARDS} shards, "
+          f"and phase 16's store of the same draws on bench.py's fused_jitter timestamps, in "
           f"{time.perf_counter() - t0:.1f} s")
     engine = QueryEngine(ms, "prometheus")
     run = hist_cold_warm(engine, "phase7b", "regular", "hist_shared")
@@ -2957,7 +3064,7 @@ def phase_hist_bench(device, split_libs):
     return {"cold_ms": run["cold_ms"], "warm_ms": run["warm_ms"], "superblock_bytes": nbytes,
             "max_abs_err": err, "range_max_abs_err": range_err, "quantile_max_abs_err": q_err,
             "launches": add_launches(run["launches"], live["launches"]), **timing,
-            "live_edge": live}, engine
+            "live_edge": live}, engine, stores["jitter"]
 
 
 def phase_hist_irregular(device, n_series: int, split_libs):
@@ -5512,14 +5619,14 @@ def fused_jitter_query(engine, q: str, kind: str, want_class: str, rung: str, ca
 
 def phase_fused_jitter(device, card: str, regular_p50_ms: float):
     """Phase 14: bench.py's ``fused_jitter`` stores through the port at full
-    width: 100k counters on 8 shards, 720 samples at 10 s, jitter 0.05,
+    width: ``FUSED_JITTER_SERIES`` counters on 8 shards, 720 samples at 10 s, jitter 0.05,
     phase 5 s, seed 42, with no missed scrape (``jitter5pct``: grid class
     ``jitter``) and 1 % missed (``jitter_holes``: ``holes``). Each of
     ``FUSED_JITTER_QUERIES`` first then warm (``fused_jitter_query``); the
     sum(rate) against bench.py's f64 oracle (``oracle_sum_rate``, rtol
     5e-3); the warm p50 of sum(rate) over ``WARM_P50_RUNS`` runs against
     phase 5's regular store's (bench.py's ratio); the holey store's cold
-    staging with and without the masked sidecar. Returns the phase's rows
+    first query with its sidecar's build timed. Returns the phase's rows
     and the jittered store, which phase 6b extends."""
     from filodb_tpu_torch.coordinator.planner import QueryEngine
     from filodb_tpu_torch.ops import staging as ST
@@ -5527,12 +5634,28 @@ def phase_fused_jitter(device, card: str, regular_p50_ms: float):
     out, keep = {}, None
     for label, holes, want_class, rung in FUSED_JITTER_STORES:
         t0 = time.perf_counter()
-        ms = build_memstore(N_SERIES, N_SAMPLES, 42, "jitter", hole_frac=holes)
+        ms = build_memstore(FUSED_JITTER_SERIES, N_SAMPLES, 42, "jitter", hole_frac=holes)
         ingest_s = time.perf_counter() - t0
         engine = QueryEngine(ms, "prometheus")
+        # the sidecar's build inside the holey store's first query (the masked
+        # rung's first read of its superblock), timed where it runs
+        sidecar_s = []
+        build_sidecar = ST.masked_of
+
+        def timed_masked_of(*a, **k):
+            t1 = time.perf_counter()
+            try:
+                return build_sidecar(*a, **k)
+            finally:
+                sidecar_s.append(time.perf_counter() - t1)
+
+        ST.masked_of = timed_masked_of
         rows = {}
-        for q, kind in FUSED_JITTER_QUERIES:
-            rows[q] = fused_jitter_query(engine, q, kind, want_class, rung, card, label)
+        try:
+            for q, kind in FUSED_JITTER_QUERIES:
+                rows[q] = fused_jitter_query(engine, q, kind, want_class, rung, card, label)
+        finally:
+            ST.masked_of = build_sidecar
         oracle = oracle_sum_rate(ms)
         got = engine.query_range(QUERIES[0], START_S, END_S, STEP_S).grids[0].values_np()[0]
         require(np.allclose(got, oracle, rtol=5e-3),
@@ -5550,24 +5673,19 @@ def phase_fused_jitter(device, card: str, regular_p50_ms: float):
                "warm_p50_ms": p50, "p50_over_regular": p50 / regular_p50_ms,
                "cold_staging_s": stage_s, "superblock_bytes": ST.staged_nbytes(entry.block)}
         if rung == "masked":
-            saved = ST._build_masked_grid
-            ST._build_masked_grid = lambda *a, **k: None
-            try:
-                _, bare, bare_s = stage_again(engine, QUERIES[0])
-            finally:
-                ST._build_masked_grid = saved
-            require(ST.grid_class(bare.block) == "irregular", "phase14: the bare build's class")
-            res["cold_staging_without_sidecar_s"] = bare_s
-            res["superblock_bytes_without_sidecar"] = ST.staged_nbytes(bare.block)
-            cold_cache(engine)
+            require(bool(sidecar_s) and entry.block.mgrid is not None,
+                    "phase14: the holey superblock's sidecar was not built")
+            res["sidecar_build_s"] = sidecar_s[0]
+            res["sidecar_bytes"] = entry.block.mgrid.nbytes()
         out[label] = res
-        print(f"phase14 {label}: {N_SERIES} series ingested in {ingest_s:.1f} s; sum(rate) "
+        print(f"phase14 {label}: {FUSED_JITTER_SERIES} series ingested in {ingest_s:.1f} s; "
+              f"sum(rate) "
               f"matches bench.py's f64 oracle (max rel {oracle_rel:.3g}, rtol 5e-3); warm p50 "
               f"{p50:.2f} ms over {WARM_P50_RUNS} runs, {p50 / regular_p50_ms:.2f} x the regular "
-              f"store's {regular_p50_ms:.2f} ms (phase 5); cold first query {stage_s:.2f} s, "
+              f"100k store's {regular_p50_ms:.2f} ms (phase 5); cold first query {stage_s:.2f} s, "
               f"superblock {res['superblock_bytes']} bytes"
-              + (f"; without the sidecar {res['cold_staging_without_sidecar_s']:.2f} s, "
-                 f"{res['superblock_bytes_without_sidecar']} bytes" if rung == "masked" else "")
+              + (f", of which the sidecar's build {res['sidecar_build_s']:.2f} s and "
+                 f"{res['sidecar_bytes']} bytes" if rung == "masked" else "")
               + f" on {card}")
         if rung == "jitter":
             keep = ms
@@ -5633,6 +5751,525 @@ def jitter_kernel_rows(phase2g: dict, phase14: dict, live_jit: dict, reg_row: di
     return rows
 
 
+# -- phases 15, 15b and 16: the server, the CLI and the histogram jitter mode ----
+
+HTTP_RANGE_QUERIES = (
+    QUERIES[0],
+    QUERIES[1],
+    "topk(5, rate(http_requests_total[5m]))",
+    'rate(http_requests_total{instance=~"host-1[0-9]{3}"}[5m])',  # 1000 series: the tree
+)
+HTTP_RUNS = 5  # warm runs per request for the p50s
+REMOTE_SERIES, REMOTE_SAMPLES = 1_000, 10
+
+
+def http_call(base: str, path: str, data: bytes | None = None, headers: dict | None = None,
+              timeout: float = 300.0):
+    """One request; returns (status, headers, body, wall seconds). A status
+    of 400 and above is returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=data, headers=headers or {},
+                                 method="POST" if data is not None else "GET")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            body = r.read()
+            return r.status, dict(r.headers), body, time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read(), time.perf_counter() - t0
+
+
+def http_json(base: str, path: str, **kw):
+    status, headers, body, wall = http_call(base, path, **kw)
+    require(status == 200, f"{path}: HTTP {status} {body[:300]!r}")
+    return json.loads(body), headers, wall
+
+
+def server_timing(headers: dict) -> dict:
+    """The Server-Timing header's phases, in ms."""
+    out = {}
+    for part in (headers.get("Server-Timing") or "").split(","):
+        name, _, dur = part.strip().partition(";dur=")
+        if name:
+            out[name] = float(dur)
+    return out
+
+
+def public_labels(labels: dict) -> tuple:
+    from filodb_tpu_torch.core.schemas import METRIC_TAG
+
+    return tuple(sorted(("__name__" if k == METRIC_TAG else k, v) for k, v in labels.items()
+                        if not k.startswith("__comp__")))
+
+
+def engine_rows(res) -> dict:
+    """An engine answer as the renderer sees it: labels -> (ms timestamps,
+    values) of its non-NaN steps."""
+    out = {}
+    for g in res.grids:
+        vals, times = g.values_np(), g.step_times_ms()
+        for lbls, row in zip(g.labels, vals):
+            keep = ~np.isnan(row)
+            if keep.any():
+                out[public_labels(lbls)] = (times[keep], row[keep].astype(np.float64))
+    return out
+
+
+def http_rows(payload: dict) -> dict:
+    out = {}
+    for r in payload["data"]["result"]:
+        pts = r["values"] if "values" in r else [r["value"]]
+        out[tuple(sorted(r["metric"].items()))] = (
+            np.array([round(float(t) * 1000) for t, _ in pts], np.int64),
+            np.array([float(v) for _, v in pts], np.float64))
+    return out
+
+
+def rows_equal_http(got: dict, want: dict, what: str, rtol: float = 1e-5) -> float:
+    """Labels and timestamps exact, values within rtol (the NaN steps are
+    the ones the renderer leaves out). Returns the largest relative
+    difference."""
+    require(set(got) == set(want), f"{what}: label sets differ ({len(got)} vs {len(want)})")
+    worst = 0.0
+    for k, (t, v) in want.items():
+        gt, gv = got[k]
+        require(np.array_equal(gt, t), f"{what} {k}: timestamps differ")
+        with np.errstate(invalid="ignore", divide="ignore"):
+            rel = np.abs(gv - v) / np.maximum(np.abs(v), 1e-30)
+        require(bool(np.all((np.abs(gv - v) <= rtol * np.abs(v)) | (gv == v))),
+                f"{what} {k}: values outside rtol {rtol}")
+        worst = max(worst, float(np.max(rel, initial=0.0)))
+    return worst
+
+
+def p50(xs) -> float:
+    return float(np.median(xs))
+
+
+def phase_http(engine, card: str) -> dict:
+    """15: the port's HTTP server (``api/http.serve_background``) over
+    phase 5's engine on the card. Every answer is held against the engine
+    called directly; each request's warm p50 over HTTP beside the engine's,
+    with the server's split (Server-Timing: plan, execute -- the launch and
+    the rest of the plan's run --, transfer from the device, render) and
+    the socket's share (the client's wall less the server's)."""
+    import urllib.parse
+
+    from filodb_tpu_torch.api import prompb, snappy
+    from filodb_tpu_torch.api.http import serve_background
+    from filodb_tpu_torch.core.schemas import METRIC_TAG
+
+    srv, port = serve_background(engine, port=0)
+    base = f"http://127.0.0.1:{port}"
+    out: dict = {"queries": {}}
+    try:
+        grid = f"&start={START_S}&end={END_S}&step={STEP_S}"
+        for q in HTTP_RANGE_QUERIES:
+            path = f"/api/v1/query_range?query={urllib.parse.quote(q)}{grid}"
+            http_json(base, path)  # the first through the server: staging, if any
+            walls, splits, direct = [], [], []
+            for _ in range(HTTP_RUNS):
+                payload, headers, wall = http_json(base, path)
+                walls.append(wall * 1e3)
+                splits.append(server_timing(headers))
+                t0 = time.perf_counter()
+                res = engine.query_range(q, START_S, END_S, STEP_S)
+                want = engine_rows(res)
+                direct.append((time.perf_counter() - t0) * 1e3)
+            rel = rows_equal_http(http_rows(payload), want, f"phase15 {q}")
+            split = {k: p50([s.get(k, 0.0) for s in splits])
+                     for k in ("plan", "execute", "transfer", "render")}
+            split["socket"] = p50([w - sum(s.values()) for w, s in zip(walls, splits)])
+            row = {"http_p50_ms": p50(walls), "direct_p50_ms": p50(direct), "split_ms": split,
+                   "series": len(want), "max_rel_err": rel}
+            out["queries"][q] = row
+            print(f"phase15 {q!r}: {len(want)} series over HTTP equal the engine's (labels and "
+                  f"timestamps exact, values rtol 1e-5, max rel {rel:.3g}); warm p50 HTTP "
+                  f"{row['http_p50_ms']:.2f} ms vs direct {row['direct_p50_ms']:.2f} ms; split "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in split.items()) + f" ms on {card}")
+        t_inst = END_S
+        payload, _, wall = http_json(base, f"/api/v1/query?query="
+                                           f"{urllib.parse.quote(QUERIES[0])}&time={t_inst}")
+        res = engine.query_instant(QUERIES[0], t_inst)
+        got = http_rows(payload)
+        want = {k: (np.array([round(t_inst * 1000)]), v[-1:]) for k, (t, v) in
+                engine_rows(res).items()}
+        out["instant_max_rel_err"] = rows_equal_http(got, want, "phase15 instant")
+        out["instant_ms"] = wall * 1e3
+        names, _, _ = http_json(base, "/api/v1/labels")
+        want_names = sorted("__name__" if n == METRIC_TAG else n
+                            for n in engine.label_names([], 0, int((time.time() + 1e9) * 1000)))
+        require(sorted(names["data"]) == want_names, f"phase15 labels {names['data']}")
+        zones, _, _ = http_json(base, "/api/v1/label/zone/values")
+        require(zones["data"] == engine.label_values([], "zone", 0,
+                                                     int((time.time() + 1e9) * 1000)),
+                f"phase15 zone values {zones['data']}")
+        match = 'http_requests_total{zone="z3"}'
+        series, _, _ = http_json(base, f"/api/v1/series?match[]={urllib.parse.quote(match)}"
+                                       f"&limit=10")
+        from filodb_tpu_torch.api.http import _matchers_from
+
+        want_series = [dict(public_labels(t)) for t in engine.series(
+            _matchers_from(match), 0, int((time.time() + 1e9) * 1000), limit=10)]
+        require(series["data"] == want_series and len(want_series) == 10,
+                f"phase15 series {series['data'][:2]}")
+        # remote write at the live edge (a new metric: the phase-5 superblocks
+        # stay as they were), then remote read and a query that sees it
+        t_edge = BASE + N_SAMPLES * 10_000
+        written = [prompb.TimeSeries(
+            [("__name__", "remote_write_demo"), ("instance", f"host-{i}"), ("zone", f"z{i % 8}")],
+            [(float(i + k), t_edge + k * 10_000) for k in range(REMOTE_SAMPLES)])
+            for i in range(REMOTE_SERIES)]
+        body = snappy.compress(prompb.encode_write_request(written))
+        t0 = time.perf_counter()
+        status, _, _, _ = http_call(base, "/api/v1/write", data=body, headers={
+            "Content-Type": "application/x-protobuf", "Content-Encoding": "snappy"})
+        write_ms = (time.perf_counter() - t0) * 1e3
+        require(status == 204, f"phase15 remote write: HTTP {status}")
+        query = prompb.Query(t_edge, t_edge + REMOTE_SAMPLES * 10_000,
+                             [prompb.LabelMatcher(0, "__name__", "remote_write_demo")])
+        status, _, raw, read_s = http_call(base, "/api/v1/read", data=snappy.compress(
+            prompb.encode_read_request([query])))
+        require(status == 200, f"phase15 remote read: HTTP {status}")
+        (result,) = prompb.decode_read_response(snappy.decompress(raw))
+        got = {tuple(sorted(s.labels)): s.samples for s in result}
+        want = {tuple(sorted(s.labels)): s.samples for s in written}
+        require(got == want, f"phase15 remote read: {len(got)} series, not what was written")
+        t_last = (t_edge + (REMOTE_SAMPLES - 1) * 10_000) / 1000
+        payload, _, _ = http_json(base, f"/api/v1/query?query=count(remote_write_demo)"
+                                        f"&time={t_last}")
+        direct = engine.query_instant("count(remote_write_demo)", t_last)
+        require(payload["data"]["result"][0]["value"][1] == str(float(REMOTE_SERIES))
+                and float(direct.grids[0].values_np()[0, -1]) == REMOTE_SERIES,
+                f"phase15 count(remote_write_demo): {payload['data']['result']}")
+        prom = "# TYPE smoke_prom_total counter\n" + "\n".join(
+            f'smoke_prom_total{{instance="p{i}"}} {i} {t_edge}' for i in range(50))
+        payload, _, _ = http_json(base, "/ingest/prom", data=prom.encode(),
+                                  headers={"Content-Type": "text/plain"})
+        require(payload["data"] == {"ingested": 50}, f"phase15 /ingest/prom {payload}")
+        status, _, metrics, _ = http_call(base, "/metrics")
+        text = metrics.decode()
+        require(status == 200 and "filodb_device_bytes" in text and "filodb_queries_total" in text,
+                "phase15 /metrics lacks the ledger's or the engine's families")
+        sb, _, _ = http_json(base, "/debug/superblocks")
+        res_, _, _ = http_json(base, "/debug/resources")
+        kinds = res_["data"]["kinds"]
+        cache = engine.memstore._superblock_cache
+        require(all(k["drift"] == 0 for k in kinds.values()), f"phase15 ledger drift {kinds}")
+        require(sb["data"]["ledger_bytes"] == sb["data"]["bytes"] == cache._walk()
+                and kinds["superblock"]["ledger"] == cache._walk(),
+                f"phase15 superblock bytes: {sb['data']['ledger_bytes']}, "
+                f"{sb['data']['bytes']}, walk {cache._walk()}")
+        devices = res_["data"]["devices"]
+        require(set(devices.get("superblock", {})) == {"cuda:0"},
+                f"phase15 superblock devices {devices}")
+        out.update(remote_write_ms=write_ms, remote_read_ms=read_s * 1e3,
+                   superblock_bytes=sb["data"]["bytes"], ledger=kinds, devices=devices)
+        print(f"phase15: instant {out['instant_ms']:.1f} ms; labels, zone values and a limited "
+              f"series request equal the engine's; remote write of {REMOTE_SERIES} x "
+              f"{REMOTE_SAMPLES} samples {write_ms:.1f} ms, read back equal in "
+              f"{read_s * 1e3:.1f} ms, count() sees them; /ingest/prom 50 rows; ledger drift 0, "
+              f"superblock bytes {sb['data']['bytes']} = the cache's walk, devices {devices}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    return out
+
+
+CLI_SERIES, CLI_SAMPLES = 50, 60
+
+
+def phase_cli(card: str) -> dict:
+    """15b: ``python -m filodb_tpu_torch.cli serve`` in a subprocess with
+    no device flag (it must take the card), ``cli ingest-csv`` of a small
+    CSV and ``cli query-range``, held against the same rows through a CPU
+    engine; ``/debug/resources`` must show the card."""
+    import socket
+    import tempfile
+    import threading
+    from pathlib import Path
+
+    from filodb_tpu_torch.coordinator.planner import PlannerParams, QueryEngine
+    from filodb_tpu_torch.core.records import gauge_batch
+    from filodb_tpu_torch.core.schemas import Dataset
+    from filodb_tpu_torch.memstore.memstore import TimeSeriesMemStore
+
+    root = Path(__file__).resolve().parent
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    base = f"http://127.0.0.1:{port}"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "filodb_tpu_torch.cli", "serve", "--port",
+                             str(port)], cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines: list = []
+    ready = threading.Event()
+
+    def drain():
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("listening on"):
+                ready.set()
+
+    threading.Thread(target=drain, daemon=True).start()
+    try:
+        require(ready.wait(180), f"phase15b: the server did not start: {''.join(lines)[-2000:]}")
+        start_s = time.perf_counter() - t0
+        rng = np.random.default_rng(7)
+        rows = []
+        for i in range(CLI_SERIES):
+            v = np.cumsum(rng.uniform(0, 10, CLI_SAMPLES))
+            for k in range(CLI_SAMPLES):
+                rows.append(("cli_requests_total", f"instance=c{i};zone=z{i % 4}",
+                             BASE + k * 15_000, float(v[k])))
+        with tempfile.TemporaryDirectory() as tmp:
+            csv_path = Path(tmp) / "rows.csv"
+            csv_path.write_text("".join(f"{m},{t},{ts},{v!r}\n" for m, t, ts, v in rows))
+
+            def cli(*args):
+                out = subprocess.run([sys.executable, "-m", "filodb_tpu_torch.cli", *args,
+                                      "--host", base], cwd=root, capture_output=True,
+                                     text=True, timeout=300)
+                require(out.returncode == 0, f"phase15b cli {args[0]}: {out.stderr[-2000:]}")
+                return json.loads(out.stdout)
+
+            t1 = time.perf_counter()
+            ingested = cli("ingest-csv", str(csv_path))
+            ingest_s = time.perf_counter() - t1
+        require(ingested["data"]["ingested"] == len(rows), f"phase15b ingest-csv {ingested}")
+        q = "sum by (zone) (rate(cli_requests_total[5m]))"
+        start, end, step = (BASE + 400_000) / 1000, (BASE + 800_000) / 1000, 30
+        t1 = time.perf_counter()
+        got = cli("query-range", q, "--start", str(start), "--end", str(end), "--step",
+                  str(step))
+        query_s = time.perf_counter() - t1
+        # the same rows as the /ingest route stores them, through a CPU engine
+        ms = TimeSeriesMemStore()
+        ms.setup(Dataset("prometheus"), range(8))
+        recs = [({"__name__": m, **dict(kv.split("=") for kv in t.split(";"))}, ts, v)
+                for m, t, ts, v in rows]
+        ms.ingest_routed("prometheus", gauge_batch("cli_requests_total", recs), spread=3)
+        want = QueryEngine(ms, "prometheus", PlannerParams(num_shards=8), device="cpu")
+        rel = rows_equal_http(http_rows(got), engine_rows(want.query_range(q, start, end, step)),
+                              "phase15b query-range")
+        res, _, _ = http_json(base, "/debug/resources")
+        dev = res["data"]["engine_device"]
+        devices = res["data"]["devices"]
+        require(dev.startswith("cuda") and "cuda:0" in devices.get("superblock", {}),
+                f"phase15b: the server ran on {dev} ({devices}), not the card")
+        print(f"phase15b: cli serve (no device flag) on {dev}, ready in {start_s:.1f} s; "
+              f"ingest-csv {len(rows)} rows in {ingest_s:.2f} s; query-range {q!r} equals a CPU "
+              f"engine on the same rows (max rel {rel:.3g}) in {query_s:.2f} s; "
+              f"/debug/resources devices {devices} on {card}")
+        return {"device": dev, "ready_s": start_s, "ingest_s": ingest_s, "query_s": query_s,
+                "max_rel_err": rel, "devices": devices}
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def cpu_baseline_hist_series(ms) -> np.ndarray:
+    """The f64 oracle of the SRE panel over each series' own timestamps
+    (``cpu_baseline_hist`` assumes one shared grid): per series and step its
+    window's first and last sample by search, the extrapolated per-bucket
+    rate, the bucket-wise sum across series, histogram_quantile(0.99): [J]."""
+    num_steps = int((END_S - START_S) // STEP_S) + 1
+    out_t = np.int64(START_S * 1000) + np.arange(num_steps, dtype=np.int64) * int(STEP_S * 1000)
+    parts = [p for s in ms.shard_nums("prometheus")
+             for p in ms.shard("prometheus", s).partitions.values()]
+    bucket_sum = np.zeros((num_steps, len(HIST_LES)), dtype=np.float64)
+    w_s = WINDOW_MS / 1e3
+    blk = 2_000
+    for b0 in range(0, len(parts), blk):
+        pairs = [whole_series(p, "h") for p in parts[b0:b0 + blk]]
+        T = np.stack([t for t, _ in pairs]).astype(np.int64, copy=False)
+        H = np.stack([h for _, h in pairs]).astype(np.float64, copy=False)
+        rows = np.arange(len(pairs))[:, None]
+        m = T.shape[1]
+        # every row's searches at once: rows sorted apart by an offset of 2^42 ms
+        shift = rows << 42
+        flat = (T + shift).ravel()
+        hi = np.searchsorted(flat, out_t[None, :] + shift, side="right") - rows * m
+        lo = np.searchsorted(flat, out_t[None, :] - WINDOW_MS + shift, side="right") - rows * m
+        cnt = hi - lo
+        lo_c, hi_c = np.minimum(lo, m - 1), np.clip(hi - 1, 0, m - 1)
+        tf, tl = T[rows, lo_c] / 1e3, T[rows, hi_c] / 1e3
+        sampled = tl - tf
+        dur_start = tf - (out_t[None, :] - WINDOW_MS) / 1e3
+        dur_end = out_t[None, :] / 1e3 - tl
+        avg_dur = sampled / np.maximum(cnt - 1, 1)
+        thresh = avg_dur * 1.1
+        ds = np.where(dur_start >= thresh, avg_dur / 2, dur_start)
+        de = np.where(dur_end >= thresh, avg_dur / 2, dur_end)
+        factor = np.where(cnt >= 2, (sampled + ds + de) / np.maximum(sampled, 1e-30), np.nan)
+        dlt = H[rows, hi_c] - H[rows, lo_c]
+        bucket_sum += np.nansum(dlt * factor[:, :, None] / w_s, axis=0)
+    return quantile_of_bucket_sums(bucket_sum, 0.99)
+
+
+def hist_jitter_bound_bytes(block, params, G: int, wm) -> tuple[int, int]:
+    """Bytes the jitter mode must move over the real rows and steps: each
+    real row's buckets at the distinct first and last samples of its
+    windows with two samples or more (``sample_bytes``), each row's
+    timestamps at the distinct edge and first/last slots the step table
+    names (read in place), its gid, the step table and acc/cnt written
+    once. Returns (bound bytes, sample bytes)."""
+    import torch
+
+    from filodb_tpu_torch.ops import hist_kernels as HK
+    from filodb_tpu_torch.ops import mxu_jitter as MJ
+
+    n, J, B = block.n_series, params.num_steps, block.vals.shape[2]
+    lo, hi, _ = HK.jitter_windows_plain(block, wm, int(params.window_ms))
+    lo, hi = lo[:n, :J], hi[:n, :J]
+    two = (hi - lo) >= 2
+    pos = torch.cat([torch.where(two, lo, -1), torch.where(two, hi - 1, -1)], dim=1)
+    pos = torch.sort(pos, dim=1).values
+    new = (pos[:, 1:] != pos[:, :-1]) & (pos[:, 1:] >= 0)
+    sample_bytes = (int(new.sum()) + int((pos[:, 0] >= 0).sum())) * B * 4
+    d = MJ.step_vectors(wm)
+    slots = torch.cat([d["idx"][k][:J] for k in (MJ.F0, MJ.L0, MJ.KLO, MJ.KHI)])
+    ts_bytes = n * int(torch.unique(slots).numel()) * 4
+    other = ts_bytes + n * 8 + J * MJ.STEP_BYTES + 2 * G * J * B * 4
+    return sample_bytes + other, sample_bytes
+
+
+def phase_hist_jitter(ms, device, card: str) -> dict:
+    """16: the SRE panel on bench.py's histograms at bench.py's
+    ``fused_jitter`` timestamps (phase 7b's draws): through a server on the
+    store's engine (cold, then warm) and through the engine directly, each
+    one ``hist_range`` launch in the jitter mode with the quantile folded
+    in; [G, J] against the plain path (rtol 1e-3) and an f64 oracle over the
+    series' own timestamps (rtol 5e-3); the aggregate mode at G = S per
+    series against the plain version (rtol 2e-4 / atol 1e-4); the kernel
+    per call and back to back, alternating with ``hist_general`` on the same
+    superblock, beside its bound."""
+    import urllib.parse
+
+    import torch
+
+    from filodb_tpu_torch.api.http import serve_background
+    from filodb_tpu_torch.coordinator.planner import QueryEngine
+    from filodb_tpu_torch.ops import aggregations as AGG
+    from filodb_tpu_torch.ops import group_acc as GA
+    from filodb_tpu_torch.ops import hist_kernels as HK
+    from filodb_tpu_torch.ops import staging as ST
+    from filodb_tpu_torch.ops.kernels import pad_steps
+
+    engine = QueryEngine(ms, "prometheus")
+    srv, port = serve_background(engine, port=0)
+    base = f"http://127.0.0.1:{port}"
+    path = (f"/api/v1/query_range?query={urllib.parse.quote(HIST_QUERY)}&start={START_S}"
+            f"&end={END_S}&step={STEP_S}")
+    launches = {k: 0 for k in HIST_KERNELS}
+    http_ms = {}
+    try:
+        for label in ("cold", "warm"):
+            HK.RANGE_LAUNCHES = HK.JITTER_LAUNCHES = HK.FOLDED_QUANTILES = 0
+            payload, headers, wall = http_json(base, path)
+            counts = {"hist_range": HK.RANGE_LAUNCHES, "hist_quantile": HK.FOLDED_QUANTILES,
+                      "hist_jitter": HK.JITTER_LAUNCHES}
+            require(counts == {"hist_range": 1, "hist_quantile": 1, "hist_jitter": 1},
+                    f"phase16 HTTP {label}: launches {counts}")
+            launches = add_launches(launches, counts)
+            http_ms[label] = wall * 1e3
+            http_ms[f"{label}_split"] = server_timing(headers)
+        direct_ms = []
+        for _ in range(HTTP_RUNS):
+            res, vals, wall, counts = run_hist(engine, HIST_QUERY, "jitter", "hist_jitter")
+            launches = add_launches(launches, counts)
+            direct_ms.append(wall * 1e3)
+        rel = rows_equal_http(http_rows(payload), engine_rows(res), "phase16 HTTP vs direct")
+        sum_res, _, sum_s, counts = run_hist(engine, HIST_SUM_QUERY, "jitter", "hist_jitter",
+                                             folds=0)
+        launches = add_launches(launches, counts)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    ex = exec_node(engine, HIST_QUERY)
+    entry = ex.superblock(engine.context())
+    block = entry.block
+    got = torch.from_numpy(vals).to(device)
+    err = compare(got, hist_plain(entry, ex, 0.99), "16: [G, J] vs the plain path", rtol=1e-3)
+    t0 = time.perf_counter()
+    ref = cpu_baseline_hist_series(ms)
+    oracle_s = time.perf_counter() - t0
+    with np.errstate(invalid="ignore"):
+        match = np.allclose(vals[0], ref, rtol=5e-3, equal_nan=True)
+    require(match, f"16: [G, J] differs from the f64 oracle: {vals[0][:8]} vs {ref[:8]}")
+    gids, G, params = path_args(entry, ex)
+    wm = AGG._hist_jitter_windows(block, params)
+    # the aggregate mode with each series its own group, per series
+    S, n = block.vals.shape[0], block.n_series
+    gs = torch.full((S,), n, dtype=torch.int64, device=device)
+    gs[:n] = torch.arange(n, device=device)
+    acc, cnt = HK.hist_range_partials(ex.function, block, gs, n, params, jitter=wm)
+    pa, pc = HK.hist_partials_plain(ex.function, block, gs, n, params, jitter=wm)
+    require(torch.equal(cnt[:n], pc[:n]), "16: G = S member counts differ from plain")
+    per_series = compare(GA.finish_groups("sum", acc, cnt, n), GA.finish_groups("sum", pa, pc, n),
+                         "16: G = S per series vs plain", rtol=2e-4, atol=1e-4)
+    del acc, cnt, pa, pc, gs
+    torch.cuda.empty_cache()
+    # the kernel alone, and hist_general on the same superblock, alternating
+    J, B = params.num_steps, block.vals.shape[2]
+    j_pad = pad_steps(J)
+    les = entry.les_dev
+
+    def launcher(jitter):
+        plan = HK.hist_plan(block.vals.shape[1], J, B, G, False, jitter=jitter is not None)
+        a, c, arr = HK.hist_buffers(G, j_pad * B, plan.slices, device)
+        o = torch.full((G, j_pad), float("nan"), dtype=torch.float32, device=device)
+        return lambda: HK._launch_range(ex.function, block, gids, G, params, None, False, a, c,
+                                        quantile=(0.99, les, o, arr), jitter=jitter)
+
+    jit_launch, gen_launch = launcher(wm), launcher(None)
+    gpu_sample("phase16 before")
+    j_ms = cuda_ms(jit_launch, reps=20)
+    j_b2b, g_b2b = [], []
+    for _ in range(2):
+        j_b2b.append(back_to_back_ms(jit_launch))
+        g_b2b.append(back_to_back_ms(gen_launch))
+    g_ms = cuda_ms(gen_launch, reps=20)
+    gpu_sample("phase16 after")
+    plain_ms = cuda_ms(lambda: HK.hist_partials_plain(ex.function, block, gids, G, params,
+                                                      jitter=wm), reps=3, warmup=1)
+    bound, sample_bytes = hist_jitter_bound_bytes(block, params, G, wm)
+    to_ms = 1e3 / HBM_BYTES_PER_S
+    plan = HK.hist_plan(block.vals.shape[1], J, B, G, False, jitter=True)
+    row = {"http_cold_ms": http_ms["cold"], "http_warm_ms": http_ms["warm"],
+           "http_warm_split_ms": http_ms["warm_split"], "direct_warm_p50_ms": p50(direct_ms),
+           "http_vs_direct_max_rel": rel, "sum_by_le_ms": sum_s * 1e3,
+           "superblock_bytes": ST.staged_nbytes(block), "max_abs_err": err,
+           "per_series_max_abs_err": per_series, "oracle_s": oracle_s,
+           "ms": j_ms, "ms_back_to_back": min(j_b2b), "back_to_back_runs": j_b2b,
+           "general_ms": g_ms, "general_ms_back_to_back": min(g_b2b),
+           "general_back_to_back_runs": g_b2b, "plain_ms": plain_ms,
+           "bound_ms": bound * to_ms, "bound_bytes": bound, "sample_bytes": sample_bytes,
+           "rows": plan.rows, "partials": plan.partials, "threads": plan.threads,
+           "launches": launches}
+    print(f"phase16 {HIST_QUERY!r}: grid jitter, variant hist_jitter, {n} series; HTTP cold "
+          f"{http_ms['cold']:.1f} ms, warm {http_ms['warm']:.1f} ms (split "
+          + ", ".join(f"{k} {v:.2f}" for k, v in http_ms["warm_split"].items())
+          + f" ms), direct warm p50 {row['direct_warm_p50_ms']:.2f} ms; one hist_range launch "
+          f"in the jitter mode each; [G, J] matches the plain path (max_abs_err {err:.3g}), the "
+          f"f64 oracle over per-series timestamps (rtol 5e-3, {oracle_s:.1f} s on the host) and "
+          f"the HTTP answer (max rel {rel:.3g}); G = S per series vs plain max_abs_err "
+          f"{per_series:.3g}; kernel {j_ms:.4f} ms (median of 20), back to back "
+          + " / ".join(f"{x:.4f}" for x in j_b2b) + f" ms vs hist_general {g_ms:.4f} ms, back to "
+          f"back " + " / ".join(f"{x:.4f}" for x in g_b2b) + f" ms (alternating); bound "
+          f"{bound * to_ms:.4f} ms ({bound} bytes at 3.35 TB/s); plain {plain_ms:.2f} ms "
+          f"on {card}")
+    del entry
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5690,6 +6327,10 @@ def main() -> int:
     elapsed("phase 11 (regular)")
     subqueries["regular"] = phase_subqueries(engine, card, "regular")
     elapsed("phase 13 (regular)")
+    http = phase_http(engine, card)
+    elapsed("phase 15")
+    cli = phase_cli(card)
+    elapsed("phase 15b")
     del engine
     gc.collect()  # the regular store goes before the jittered one is built
     torch.cuda.empty_cache()
@@ -5707,12 +6348,17 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     range_err, q_err = phase_hist_vs_plain(args.seed, device)
-    bench_hist, hist_engine = phase_hist_bench(device, split_libs)
+    bench_hist, hist_engine, jit_hist_store = phase_hist_bench(device, split_libs)
     hist_tree = {"regular": phase_hist_tree(hist_engine, card, "regular", HIST_TREE_QUERIES,
                                             split_libs)}
     elapsed("phases 7a, 7b, 12 (regular)")
     del hist_engine
-    gc.collect()  # bench.py's histogram store goes before the irregular one is built
+    gc.collect()  # bench.py's histogram store goes before phase 16's superblock is built
+    torch.cuda.empty_cache()
+    hist_jitter = phase_hist_jitter(jit_hist_store, device, card)
+    elapsed("phase 16")
+    del jit_hist_store
+    gc.collect()  # the jittered histograms go before the irregular ones are built
     torch.cuda.empty_cache()
     irr_hist, hist_engine = phase_hist_irregular(device, HIST_IRREGULAR_SERIES, split_libs)
     hist_tree["irregular"] = phase_hist_tree(hist_engine, card, "irregular",
@@ -5730,6 +6376,8 @@ def main() -> int:
     month = phase_month(device, card)
     elapsed("phases 9b, 6b, 7a-7d, 10b, 10c")
     launches = add_launches(bench_hist["launches"], irr_hist["launches"])
+    # phase 16's folded quantiles (its range launches are the hist_jitter row's)
+    launches["hist_quantile"] += hist_jitter["launches"]["hist_quantile"]
     for t in hist_tree.values():  # the fused answers phase 12 held the tree against
         for row in t["queries"].values():
             if "fused_launches" in row:
@@ -5773,6 +6421,24 @@ def main() -> int:
         "library_call": "none: no torch call interpolates histogram_quantile",
         "ms_per_call": bench_hist["quantile_ms"],
         "ms_is": "back to back, a range launch with the quantile folded in less one without it",
+    }, {
+        "name": "hist_jitter",
+        "route": "cuda",
+        "source": "filodb_tpu_torch/csrc/hist_range.cu",
+        "replaces": "filodb_tpu/ops/hist_kernels.py:207",
+        "launches": hist_jitter["launches"]["hist_jitter"],
+        "max_abs_err": max(hist_jitter["max_abs_err"], hist_jitter["per_series_max_abs_err"]),
+        "ms": hist_jitter["ms"],
+        "plain_ms": hist_jitter["plain_ms"],
+        "bound_ms": hist_jitter["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "library_call": "none: no torch call computes a windowed, extrapolated per-bucket rate",
+        "ms_back_to_back": hist_jitter["ms_back_to_back"],
+        "bound_bytes": hist_jitter["bound_bytes"],
+        "hist_general_ms": hist_jitter["general_ms"],
+        "hist_general_ms_back_to_back": hist_jitter["general_ms_back_to_back"],
+        "ms_is": "the jitter mode with the quantile folded in, phase 16's superblock",
     }]
 
     first = general[GENERAL_QUERIES[0][0]]
@@ -5800,7 +6466,9 @@ def main() -> int:
         "queries": {**general, f"{REGULAR_GENERAL_QUERY} (regular store)": general_regular},
     }
     print(json.dumps({"cache": {"phase6": live, "phase6b": live_jit}}))
-    print(json.dumps({"hist": {"phase7b": bench_hist, "phase7c": irr_hist, "phase7d": card_hist}}))
+    print(json.dumps({"hist": {"phase7b": bench_hist, "phase7c": irr_hist, "phase7d": card_hist,
+                               "phase16": hist_jitter}}))
+    print(json.dumps({"server": {"phase15": http, "phase15b": cli}}))
     order_rows = epilogue_rows(epilogues, {"window_stats": wr_row, "general": general_row,
                                            "mxu": reg_row}, order_stream)
     for per in fused_jitter.values():  # phase 14's general leaves and topk order statistics

@@ -7,3 +7,5 @@ ops, coordinator) and imports nothing of it, nor JAX. Its entry point,
 passes ``device="cpu"``; the range function runs in the hand-written
 kernel ``csrc/window_stats.cu`` (``ops/window_stats.py``).
 """
+
+__version__ = "0.1.0"

@@ -41,7 +41,9 @@ package's scatter to peer processes needs the server's transport
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
+import time
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -95,6 +97,12 @@ class PlannerParams:
     # JAX package scatters to them; the port has no transport to do so
     # until its server lands (ROADMAP A6), so a planner given any raises
     peer_endpoints: tuple = ()
+    # the default of the partial-results stance (a request's own choice
+    # wins); every shard is local to the port, so no answer is partial
+    allow_partial_results: bool = False
+    # queries slower than this many seconds go to the slow-query log
+    # (``metrics.SLOW_QUERY_LOG``); None disables
+    slow_query_threshold_s: float | None = None
 
 
 class TsCardinalitiesExec(ExecPlan):
@@ -509,12 +517,51 @@ class QueryEngine:
         return QueryContext(self.memstore, self.dataset, self.device,
                             max_series=params.max_series, deadline_s=params.deadline_s)
 
-    def query_range(self, promql: str, start_s: float, end_s: float, step_s: float):
-        plan = query_range_to_logical_plan(
-            promql, start_s, end_s, step_s, self.planner.params.lookback_ms)
-        res = self.planner.materialize(plan).execute(self.context())
+    def query_range(self, promql: str, start_s: float, end_s: float, step_s: float,
+                    allow_partial_results: bool | None = None, trace_id: str | None = None,
+                    parent_span_id: str | None = None):
+        """PromQL range query. ``allow_partial_results`` (None: the
+        planner's default) is the request's partial-results stance; every
+        shard is local, so the answer is never partial. ``trace_id`` and
+        ``parent_span_id`` join the query's span tree (``res.trace``) to an
+        upstream trace. ``res.phases`` holds the seconds of ``plan``
+        (parse and materialize) and ``execute``."""
+
+        def plan():
+            return query_range_to_logical_plan(
+                promql, start_s, end_s, step_s, self.planner.params.lookback_ms)
+
+        res = self._run(promql, plan, allow_partial_results, trace_id, parent_span_id)
         if res.result_type == "matrix" or res.grids:
             res.result_type = "matrix"
+        return res
+
+    def _run(self, promql: str, plan, allow_partial_results, trace_id, parent_span_id):
+        """Plan and execute one query under its root span; count it in
+        ``filodb_queries_total`` and ``filodb_query_latency_seconds``, and
+        in the slow-query log past the threshold."""
+        from .. import metrics as M
+
+        if allow_partial_results is not None and not isinstance(allow_partial_results, bool):
+            raise TypeError("allow_partial_results must be a bool or None")
+        t0 = time.perf_counter()
+        with M.span("query", promql=promql) as root:
+            if trace_id:
+                root.trace_id = str(trace_id)
+                root.parent_id = parent_span_id
+            exec_plan = self.planner.materialize(plan())
+            t1 = time.perf_counter()
+            res = exec_plan.execute(self.context())
+        t2 = time.perf_counter()
+        res.trace = root
+        res.phases = {"plan": t1 - t0, "execute": t2 - t1}
+        M.REGISTRY.counter("filodb_queries", dataset=self.dataset).inc()
+        M.REGISTRY.histogram("filodb_query_latency_seconds", dataset=self.dataset).observe(
+            t2 - t0, exemplar={"trace_id": root.trace_id})
+        thr = self.planner.params.slow_query_threshold_s
+        if thr is not None and t2 - t0 >= thr:
+            M.SLOW_QUERY_LOG.record(promql, t2 - t0, self.dataset, trace=root,
+                                    stats=dataclasses.asdict(res.stats))
         return res
 
     def label_values(self, filters, label: str, start_ms: int, end_ms: int, limit=None):
@@ -538,9 +585,14 @@ class QueryEngine:
         plan = L.TsCardinalities(prefix, depth if depth is not None else len(prefix) + 1)
         return self.planner.materialize(plan).execute(self.context()).metadata
 
-    def query_instant(self, promql: str, time_s: float):
-        plan = query_to_logical_plan(promql, time_s, self.planner.params.lookback_ms)
-        res = self.planner.materialize(plan).execute(self.context())
+    def query_instant(self, promql: str, time_s: float,
+                      allow_partial_results: bool | None = None, trace_id: str | None = None,
+                      parent_span_id: str | None = None):
+        """PromQL instant query; the keywords as ``query_range`` takes them."""
+        res = self._run(
+            promql, lambda: query_to_logical_plan(promql, time_s,
+                                                  self.planner.params.lookback_ms),
+            allow_partial_results, trace_id, parent_span_id)
         if res.result_type == "matrix":
             res.result_type = "vector"
         return res

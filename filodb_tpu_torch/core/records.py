@@ -9,6 +9,7 @@ consumes.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Mapping, Sequence
 
@@ -112,6 +113,23 @@ class SeriesBatch:
     values: dict[str, np.ndarray]
     bucket_les: np.ndarray | None = None  # histogram schemas only
 
-    @property
+    @functools.cached_property
     def partkey(self) -> bytes:
         return canonical_partkey(self.tags)
+
+
+def gauge_batch(metric: str, samples, schema: Schema | None = None) -> RecordBatch:
+    """(tags, ts_ms, value) triples -> a RecordBatch of ``schema`` (default
+    gauge), each series' metric defaulting to ``metric``."""
+    from .schemas import GAUGE, METRIC_TAG
+
+    schema = schema or GAUGE
+    tags_list, ts, vals = [], [], []
+    for tags, t, v in samples:
+        full = dict(tags)
+        full.setdefault(METRIC_TAG, metric)
+        tags_list.append(full)
+        ts.append(t)
+        vals.append(v)
+    return RecordBatch(schema, np.asarray(ts, dtype=np.int64),
+                       {schema.value_column: np.asarray(vals, dtype=np.float64)}, tags_list)

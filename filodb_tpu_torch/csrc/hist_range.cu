@@ -34,6 +34,20 @@
 //    extrapolation factor are searched once in shared memory
 //    (window_search.cuh) into a [R, steps] table that the step's B bucket
 //    lanes read. Shared bounds: the [steps] table is filled once per block.
+//    Jitter (B1, filodb_tpu/ops/hist_kernels.py:207 _hist_range_jitter, as
+//    _fused_hist_jitter_jit :283 composes it, entry
+//    filodb_hist_range_jitter): a near-regular grid's window is its step's
+//    certain range [clo, chi) of the shared step table
+//    (ops/mxu_jitter.JitterWindowMatrices.steps, jitter_steps.cuh) and at
+//    most one edge slot each side (klo = clo - 1, khi = chi), in it for a
+//    row when the row's deviation ts - nominal at the slot passes the
+//    edge's bound. So each (row, step) pair reads the step's row of the
+//    table and two of the row's timestamps in place (four for the rate
+//    family: the first and last sample's), and its [lo, hi) window and
+//    extrapolation factor go to the same [R, steps] table: no search, no
+//    staged ts rows and no [S, T] deviation plane. The factor takes the
+//    boundary times relative to the window's start in f32, in the JAX
+//    order.
 // 2. Fetch. A thread owns fixed column vectors of the slice -- V
 //    contiguous buckets of one step, fetched whole as float4 (V = 4) or
 //    float2 where B allows -- and walks the tile's rows, two at a time
@@ -71,6 +85,7 @@
 #include <stdint.h>
 
 #include "group_acc.cuh"
+#include "jitter_steps.cuh"
 #include "row_tiles.cuh"
 #include "window_search.cuh"
 
@@ -115,6 +130,7 @@ struct HistArgs {
     float* cnt;
     float* series;   // [J, B, ld_series] per-series values (store mode)
     int64_t ld_series;
+    const jitter_steps::StepRow* jsteps;  // [J] the jitter mode's step table
 };
 
 __host__ __device__ __forceinline__ int64_t round4(int64_t x) { return (x + 3) & ~(int64_t)3; }
@@ -199,6 +215,41 @@ __device__ __forceinline__ void window_values(const HistArgs& a, const float* ro
     } else {
         for (int i = 0; i < V; ++i) v[i] = NaN;
     }
+}
+
+// The jitter mode's window [lo, hi) of row s at step j and, for the rate
+// family, its extrapolation factor (_hist_range_jitter's in_lo / in_hi,
+// tf_rel / tl_rel and factor, f32 in the JAX order): each edge slot is in
+// the window when the row's deviation there passes the slot's bound.
+__device__ __forceinline__ void jitter_bounds(const HistArgs& a, int64_t s, int j, bool extrap,
+                                              int& lo, int& hi, float& f) {
+    using namespace jitter_steps;
+    const StepRow& r = a.jsteps[j];
+    const int32_t* rt = a.ts + s * a.T;
+    const int flags = __ldg(&r.flags);
+    auto dev = [&](const int* i, const int* nom) {
+        return (float)((long long)__ldg(rt + __ldg(i)) - (long long)__ldg(nom));
+    };
+    const bool c0 = flags & C0POS;
+    const float dKlo = dev(&r.iKlo, &r.nKlo), dKhi = dev(&r.iKhi, &r.nKhi);
+    const bool in_lo = (flags & HAS_KLO) && dKlo > __ldg(&r.blo_rel);
+    const bool in_hi = (flags & HAS_KHI) && dKhi <= __ldg(&r.ehi_rel);
+    lo = in_lo ? __ldg(&r.iKlo) : __ldg(&r.clo);
+    hi = in_hi ? __ldg(&r.iKhi) + 1 : __ldg(&r.chi);
+    f = 0.0f;
+    const float cnt = __ldg(&r.count0) + (float)in_lo + (float)in_hi;
+    if (!extrap || cnt < 2.0f) return;
+    const float klo_t = __ldg(&r.Klo_rel) + dKlo, khi_t = __ldg(&r.Khi_rel) + dKhi;
+    const float tf_rel = in_lo ? klo_t : (c0 ? __ldg(&r.F0_rel) + dev(&r.iF0, &r.nF0) : khi_t);
+    const float tl_rel = in_hi ? khi_t : (c0 ? __ldg(&r.L0_rel) + dev(&r.iL0, &r.nL0) : klo_t);
+    const float sampled = (tl_rel - tf_rel) * 1e-3f;
+    const float dur_start = tf_rel * 1e-3f;
+    const float dur_end = ((float)a.window - tl_rel) * 1e-3f;
+    const float avg_dur = sampled / fmaxf(cnt - 1.0f, 1.0f);
+    const float thresh = avg_dur * 1.1f;
+    const float ds = dur_start >= thresh ? avg_dur / 2.0f : dur_start;
+    const float de = dur_end >= thresh ? avg_dur / 2.0f : dur_end;
+    f = (sampled + ds + de) / fmaxf(sampled, 1e-30f);
 }
 
 // Prometheus histogram_quantile over B cumulative bucket counts bucket(i)
@@ -421,7 +472,9 @@ __device__ __forceinline__ void store_tile(const HistArgs& a, const float* tile_
 
 // STORE: the store mode (store_tile) instead of the group sums; no
 // partials, no quantile.
-template <bool SHARED_BOUNDS, bool SHARED, bool STAGED, int V, bool STORE = false>
+// JITTER: the jitter mode's bounds (SHARED_BOUNDS and STAGED false).
+template <bool SHARED_BOUNDS, bool SHARED, bool STAGED, int V, bool STORE = false,
+          bool JITTER = false>
 __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS) hist_range_kernel(const HistArgs a) {
     extern __shared__ __align__(16) float smem[];
     __shared__ int last_s;
@@ -504,7 +557,9 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS) hist_range_kernel(con
                     const int64_t s = s0 + r;
                     int lo = 0, hi = 0;
                     float f = 0.0f;
-                    if (gid_of(s) >= 0) {
+                    if (JITTER) {
+                        if (gid_of(s) >= 0) jitter_bounds(a, s, j0 + jl, extrap, lo, hi, f);
+                    } else if (gid_of(s) >= 0) {
                         const int32_t* rt = STAGED ? buf + (int64_t)r * a.T : a.ts + s * a.T;
                         const int32_t t_j = t_of(j0 + jl);
                         hi = count_le<!STAGED>(rt, len_of(s), t_j);
@@ -584,10 +639,10 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS) hist_range_kernel(con
     if (threadIdx.x == 0) a.arrivals[blockIdx.y] = 0;  // ready for the next launch
 }
 
-template <bool SB, bool SH, bool ST, int V>
+template <bool SB, bool SH, bool ST, int V, bool JT = false>
 cudaError_t launch_range(const HistArgs& a, int smem, int threads, int grid, int slices,
                          cudaStream_t stream) {
-    auto kern = hist_range_kernel<SB, SH, ST, V>;
+    auto kern = hist_range_kernel<SB, SH, ST, V, false, JT>;
     int resident = 0;  // also raises the kernel's shared-memory allowance to smem
     const cudaError_t err = row_tiles::persistent_grid(kern, smem, 1 << 30, &resident, threads);
     if (err != cudaSuccess) return err;
@@ -626,10 +681,32 @@ cudaError_t series_vec(const HistArgs& a, int vec, int smem, int threads, int sl
     return launch_series<SB, ST, 1>(a, smem, threads, slices, st);
 }
 
-template <bool SB, bool SH, bool ST, int V>
+template <bool SB, bool SH, bool ST, int V, bool JT = false>
 cudaError_t resident_of(int smem, int threads, int* blocks) {
-    return row_tiles::persistent_grid(hist_range_kernel<SB, SH, ST, V>, smem, 1 << 30, blocks,
-                                      threads);
+    return row_tiles::persistent_grid(hist_range_kernel<SB, SH, ST, V, false, JT>, smem,
+                                      1 << 30, blocks, threads);
+}
+
+// the jitter mode's kernels: per-series bounds tables, no staged rows
+template <bool SH>
+cudaError_t jitter_vec(const HistArgs& a, int vec, int smem, int threads, int grid, int slices,
+                       cudaStream_t st) {
+    if (vec == 4) return launch_range<false, SH, false, 4, true>(a, smem, threads, grid, slices, st);
+    if (vec == 2) return launch_range<false, SH, false, 2, true>(a, smem, threads, grid, slices, st);
+    return launch_range<false, SH, false, 1, true>(a, smem, threads, grid, slices, st);
+}
+
+cudaError_t jitter_resident(bool sh, int vec, int smem, int threads, int* blocks) {
+#define FILODB_JITTER_RESIDENT(SH)                                                    \
+    if (sh == SH) {                                                                   \
+        if (vec == 4) return resident_of<false, SH, false, 4, true>(smem, threads, blocks); \
+        if (vec == 2) return resident_of<false, SH, false, 2, true>(smem, threads, blocks); \
+        return resident_of<false, SH, false, 1, true>(smem, threads, blocks);         \
+    }
+    FILODB_JITTER_RESIDENT(true)
+    FILODB_JITTER_RESIDENT(false)
+#undef FILODB_JITTER_RESIDENT
+    return cudaErrorInvalidValue;
 }
 
 cudaError_t resident_vec(bool sb, bool sh, bool st, int vec, int smem, int threads,
@@ -851,4 +928,50 @@ extern "C" int filodb_hist_range_aggregate(
         err = shared ? launch_vec<false, true, false>(a, vec, smem_bytes, threads, grid, slices, st)
                      : launch_vec<false, false, false>(a, vec, smem_bytes, threads, grid, slices, st);
     return (int)err;
+}
+
+// Plain C entry for ctypes: how many blocks of the jitter mode's kernel
+// (shared partials, vector width vec) with smem_bytes of dynamic shared
+// memory and `threads` threads fit on the current card at once, into
+// *blocks. Returns a cudaError_t (0 on success).
+extern "C" int filodb_hist_jitter_resident(int shared, int vec, int smem_bytes, int threads,
+                                           int* blocks) {
+    if ((vec != 1 && vec != 2 && vec != 4) || !threads_ok(threads))
+        return (int)cudaErrorInvalidValue;
+    return (int)jitter_resident(shared, vec, smem_bytes, threads, blocks);
+}
+
+// Plain C entry for ctypes: filodb_hist_range_aggregate's jitter mode (B1)
+// over a near-regular [S, T, B] histogram block: each row's window at step
+// j is the step table's (steps [J] rows of jitter_steps::StepRow,
+// ops/mxu_jitter.JitterWindowMatrices.steps) with the edge slots tested
+// against the row's deviation ts - nominal (ts [S, T]). Everything else --
+// acc, cnt, the layout from ops/hist_kernels.hist_plan(..., jitter=True)
+// (per-series bounds tables, no staged rows), the quantile -- as
+// filodb_hist_range_aggregate takes it. Launches on `stream` and returns a
+// cudaError_t (0 on success); it does not synchronise.
+extern "C" int filodb_hist_range_jitter(
+    const void* ts, const void* vals, const void* gids, const void* steps_table, int S, int T,
+    int B, int J, int ld, int G, int window, int func, int is_delta, int rows, int steps,
+    int vec, int shared, int threads, int grid, int smem_bytes, void* acc, void* cnt,
+    int quantile, float q, const void* les, void* out, int ld_out, void* arrivals,
+    void* stream) {
+    if (S <= 0 || J <= 0 || G <= 0 || B <= 0) return 0;
+    const bool quantile_ok = !quantile || (les && out && arrivals && ld_out >= J);
+    const bool vec_ok = (vec == 1 || vec == 2 || vec == 4) && B % vec == 0 &&
+                        (uintptr_t)vals % (4 * vec) == 0;
+    if (func < H_RATE || func > H_LAST || rows < 1 || steps < 1 || grid < 1 ||
+        !threads_ok(threads) || (J + steps - 1) / steps > 65535 || ld < J * B || !ts ||
+        !steps_table || !gids || !quantile_ok || !vec_ok ||
+        (int64_t)smem_bytes != 4 * smem_words(G, B, steps, rows, T, false, shared, false))
+        return (int)cudaErrorInvalidValue;
+    HistArgs a{(const int32_t*)ts, (const float*)vals, nullptr, (const long long*)gids,
+               nullptr, nullptr, nullptr, nullptr, (const float*)les, S, T, B, J, ld, G, 0, 0,
+               (int32_t)window, func, is_delta, rows, steps, quantile, q, ld_out, (float*)out,
+               (unsigned int*)arrivals, (float*)acc, (float*)cnt, nullptr, 0,
+               (const jitter_steps::StepRow*)steps_table};
+    const int slices = (J + steps - 1) / steps;
+    cudaStream_t st = (cudaStream_t)stream;
+    return (int)(shared ? jitter_vec<true>(a, vec, smem_bytes, threads, grid, slices, st)
+                        : jitter_vec<false>(a, vec, smem_bytes, threads, grid, slices, st));
 }

@@ -55,6 +55,7 @@
 #include <stdint.h>
 
 #include "group_acc.cuh"
+#include "jitter_steps.cuh"
 #include "row_tiles.cuh"
 
 namespace {
@@ -72,18 +73,7 @@ enum Func {
 
 constexpr float SENTINEL = 3e38f;
 
-// One step's window structure (ops/mxu_jitter.py STEP_FIELDS), 24 words.
-struct StepRow {
-    int clo, chi;                      // certain range [clo, chi)
-    int iF0, iL0, iL2, iKlo, iKhi;     // selection indices, clipped to the row
-    int flags;                         // 1 c0pos, 2 c0ge2, 4 has_klo, 8 has_khi
-    float count0;                      // certain count
-    float F0_rel, L0_rel, L2_rel, Klo_rel, Khi_rel;  // nominal times - window start
-    float blo_rel, ehi_rel;            // membership bounds of klo, khi
-    int nF0, nL0, nL2, nKlo, nKhi;     // nominal offsets at the indices (JITTER)
-    int pad[3];
-};
-static_assert(sizeof(StepRow) == 96, "StepRow is 24 words");
+using jitter_steps::StepRow;
 
 struct JitterArgs {
     const float* vals;   // JITTER: the block's vals; MASKED: the sidecar's

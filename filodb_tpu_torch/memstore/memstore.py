@@ -75,6 +75,33 @@ class TimeSeriesMemStore:
                 return out[:limit]
         return out
 
+    def metric_metadata(self, dataset: str) -> dict[str, list[dict]]:
+        """The Prometheus /api/v1/metadata payload from the live schemas:
+        one entry per metric, its type (counter/gauge/histogram/unknown)
+        that of a representative series' schema (the JAX package's rule)."""
+        from ..core.filters import equals
+        from ..core.schemas import METRIC_TAG
+
+        out: dict[str, list[dict]] = {}
+        for sh in self.shards(dataset):
+            for metric in sh.label_values([], METRIC_TAG, 0, 2**62):
+                if metric in out:
+                    continue
+                pids = sh.lookup_partitions([equals(METRIC_TAG, metric)], 0, 2**62, limit=1)
+                if not len(pids):
+                    continue
+                name = sh.partition(int(pids[0])).schema.name
+                if "histogram" in name:
+                    mtype = "histogram"
+                elif "counter" in name:
+                    mtype = "counter"
+                elif name == "untyped":
+                    mtype = "unknown"
+                else:
+                    mtype = "gauge"
+                out[metric] = [{"type": mtype, "help": "", "unit": ""}]
+        return dict(sorted(out.items()))
+
     # -- ingest --------------------------------------------------------------
 
     def ingest(self, dataset: str, shard_num: int, batch: RecordBatch) -> int:

@@ -85,7 +85,18 @@ class TimeSeriesPartition:
             values = {k: v[keep] for k, v in values.items()}
         n = len(timestamps)
         written = 0
+        cap = self.max_chunk_size
         while written < n:
+            if self._buf is None and n - written >= cap:
+                # a whole chunk of the run seals at once: one copy of each
+                # column, the chunk a filled buffer would seal
+                sl = slice(written, written + cap)
+                arrays = {"timestamp": np.array(timestamps[sl], dtype=np.int64)}
+                arrays.update((k, np.array(v[sl])) for k, v in values.items())
+                self.chunks.append(Chunk(int(arrays["timestamp"][0]),
+                                         int(arrays["timestamp"][-1]), cap, arrays))
+                written += cap
+                continue
             if self._buf is None:
                 self._alloc_buf(values)
             take = min(self.max_chunk_size - self._buf_len, n - written)

@@ -65,6 +65,88 @@ class StageEntry:
     dirty_hi: int | None = None
     dev_block: object = None
 
+    def __setattr__(self, name, value):
+        # a change of a cached entry's bytes moves its cache's ledger account
+        if name == "nbytes":
+            acct, old = self.__dict__.get("_account"), self.__dict__.get("nbytes")
+            if acct is not None and old is not None and value != old:
+                if value > old:
+                    acct.alloc(value - old, count=0)
+                else:
+                    acct.free(old - value, "replace", count=0)
+        object.__setattr__(self, name, value)
+
+
+def _entry_devices(entry: StageEntry) -> dict:
+    """An entry's bytes by device: its host block and its device copy."""
+    from ..ops.staging import block_device, staged_nbytes
+
+    out: dict = {}
+    for b in (entry.block, entry.dev_block):
+        if b is not None:
+            dev = block_device(b)
+            out[dev] = out.get(dev, 0) + staged_nbytes(b)
+    return out
+
+
+class StageCache(dict):
+    """A shard's staging cache (cache key -> ``StageEntry``) that keeps its
+    ledger account (kind ``staged_block``) in step: an entry's bytes are
+    debited when it is stored, credited when it leaves, and moved when its
+    ``nbytes`` changes (a repair, a device copy, a built sidecar)."""
+
+    def __init__(self, name: str):
+        super().__init__()
+        from ..ledger import LEDGER
+
+        self.account = LEDGER.register(self, "staged_block", walker=StageCache._walk, name=name,
+                                       device_walker=StageCache._walk_devices)
+
+    def _walk(self) -> int:
+        return sum(sum(_entry_devices(e).values()) for e in list(self.values()))
+
+    def _walk_devices(self) -> dict:
+        out: dict = {}
+        for e in list(self.values()):
+            for dev, n in _entry_devices(e).items():
+                out[dev] = out.get(dev, 0) + n
+        return out
+
+    def _release(self, entry: StageEntry, reason: str) -> None:
+        if entry.__dict__.get("_account") is not None:
+            object.__setattr__(entry, "_account", None)
+            self.account.free(entry.nbytes, reason)
+
+    def __setitem__(self, key, entry: StageEntry) -> None:
+        old = self.get(key)
+        if old is not None and old is not entry:
+            self._release(old, "replace")
+        super().__setitem__(key, entry)
+        if entry.__dict__.get("_account") is None:
+            object.__setattr__(entry, "_account", self.account)
+            self.account.alloc(entry.nbytes)
+
+    def __delitem__(self, key) -> None:
+        entry = self[key]
+        super().__delitem__(key)
+        self._release(entry, "drop")
+
+    _MISSING = object()
+
+    def pop(self, key, default=_MISSING):
+        if key not in self:
+            if default is StageCache._MISSING:
+                raise KeyError(key)
+            return default
+        entry = super().pop(key)
+        self._release(entry, "evict")
+        return entry
+
+    def clear(self) -> None:
+        for entry in list(self.values()):
+            self._release(entry, "invalidate")
+        super().clear()
+
 
 # how many per-version ingest effects a shard keeps: the proof window for
 # the insert-time overlap check and superblock revalidation. A reader older
@@ -87,7 +169,7 @@ class TimeSeriesShard:
         # one (version, lo_ms, hi_ms, full) per version bump
         self._effects: deque = deque(maxlen=EFFECT_LOG_MAX)
         # cache key (filters, start_ms, end_ms, ...) -> StageEntry
-        self.stage_cache: dict = {}
+        self.stage_cache = StageCache(f"{dataset}/shard-{shard_num}")
 
     # -- effect log ----------------------------------------------------------
 

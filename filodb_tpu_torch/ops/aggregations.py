@@ -32,7 +32,7 @@ from . import mxu_kernels as MK
 from . import order_stats as OS
 from . import window_stats as WS
 from .kernels import pad_steps
-from .staging import grid_class
+from .staging import grid_class, sidecar
 
 SIMPLE_AGG_OPS = ("sum", "count", "avg", "min", "max")
 
@@ -50,7 +50,7 @@ def general_rung(func: str, block=None) -> str:
         return "general"
     if func in WS.PALLAS_FUNCS:
         return "window_stats"
-    where = f" on a {grid_class(block)} grid" if block is not None else ""
+    where = f" on a {grid_class(block, build=False)} grid" if block is not None else ""
     raise NotImplementedError(f"range function {func!r}{where} is not ported")
 
 
@@ -71,9 +71,8 @@ def grid_variant(block, func: str, is_delta: bool = False, window_ms=None) -> st
             if func in FUSED_JITTER_FUNCS and (
                     window_ms is None or JR.window_ok(window_ms, block.maxdev_ms)):
                 return "jitter"
-        elif block.mgrid is not None:
-            if func in FUSED_JITTER_FUNCS and (
-                    window_ms is None or JR.window_ok(window_ms, block.mgrid.maxdev_ms)):
+        elif func in FUSED_JITTER_FUNCS and sidecar(block) is not None:
+            if window_ms is None or JR.window_ok(window_ms, block.mgrid.maxdev_ms):
                 return "masked"
     return general_rung(func, block)
 
@@ -234,14 +233,32 @@ def fused_quantile(func: str, block, members, q: float, params, is_counter: bool
     return OS.segment_quantile(grid[: params.num_steps], members, q)
 
 
-def hist_variant(block) -> str:
-    """The histogram rung of a block: ``hist_shared`` (shared [J] window
-    bounds) on a regular grid, else ``hist_general`` (bounds searched per
-    series). The JAX package takes a jitter variant on near-regular grids
-    (``_fused_hist_jitter_jit``), whose kernel (``_hist_range_jitter``) is
-    not ported; the general kernel's windows are exact, so the answers
-    agree."""
-    return "hist_shared" if block.regular_ts is not None else "hist_general"
+def hist_variant(block, params=None) -> str:
+    """The histogram rung of a block, the JAX ladder's
+    (``fused_hist_range_aggregate``): ``hist_shared`` (shared [J] window
+    bounds) on a regular grid; with the query's ``params``, ``hist_jitter``
+    (the jitter mode, B1) on a near-regular grid whose window structure
+    (``mxu_jitter.jitter_window_matrices``) is ``ok``, where a decline
+    counts ``grid_jitter`` in ``metrics.record_fused_fallback``; else
+    ``hist_general`` (bounds searched per series). The tree's leaves ask
+    without ``params`` and keep the general kernel, as the JAX tree does."""
+    if block.regular_ts is not None:
+        return "hist_shared"
+    if params is not None and block.nominal_ts is not None:
+        if _hist_jitter_windows(block, params).ok:
+            return "hist_jitter"
+        from ..metrics import record_fused_fallback
+
+        record_fused_fallback("grid_jitter")
+    return "hist_general"
+
+
+def _hist_jitter_windows(block, params):
+    """The jitter window structure of a near-regular histogram block for one
+    query grid (memoized on the block)."""
+    return JR.jitter_window_matrices(block, int(params.start_ms - block.base_ms),
+                                     params.step_ms, pad_steps(params.num_steps),
+                                     params.window_ms)
 
 
 def _hist_shared_windows(block, params, j_pad: int):
@@ -277,16 +294,17 @@ def fused_hist_range_aggregate(func: str, block, gids_padded: torch.Tensor, num_
     the quantile folded in, returning [G, J_pad] ``histogram_quantile(q,
     ...)`` over the bounds ``les`` (f32 [B] on the block's device). Steps
     past ``params.num_steps`` are NaN."""
-    variant = hist_variant(block)
+    variant = hist_variant(block, params)
     if obs is not None:
         obs["variant"] = variant
     j_pad = pad_steps(params.num_steps)
     windows = _hist_shared_windows(block, params, j_pad) if variant == "hist_shared" else None
+    jitter = _hist_jitter_windows(block, params) if variant == "hist_jitter" else None
     if q is not None:
         return HK.hist_range_quantile(q, func, block, gids_padded, num_groups, params, les,
-                                      windows=windows, is_delta=is_delta)[0]
+                                      windows=windows, is_delta=is_delta, jitter=jitter)[0]
     acc, cnt = HK.hist_range_partials(func, block, gids_padded, num_groups, params,
-                                      windows=windows, is_delta=is_delta)
+                                      windows=windows, is_delta=is_delta, jitter=jitter)
     return GA.finish_groups("sum", acc, cnt, num_groups).reshape(num_groups, j_pad, -1)
 
 

@@ -13,8 +13,12 @@ function followed by a per-bucket group sum to ``[G, J, B]``;
 
 - ``hist_range_partials``: the range function of every (row, step, bucket)
   reduced straight into ``[G+1, J_pad * B]`` accumulators (``group_acc``),
-  over the shared ``[J]`` window bounds of a regular grid (``windows``) or
-  bounds searched per series;
+  over the shared ``[J]`` window bounds of a regular grid (``windows``),
+  the shared step table of a near-regular one (``jitter``, a
+  ``mxu_jitter.JitterWindowMatrices``; the jitter mode, B1, entry
+  ``filodb_hist_range_jitter``: each row's window is the step's certain
+  range and the edge slots its deviation ``ts - nominal`` lets in, so no
+  search) or bounds searched per series;
 - ``hist_range_quantile``: the same launch with the quantile folded in --
   the block that finishes a slice's partials last interpolates them into
   ``[G, J_pad]`` -- returning the quantiles and the partials.
@@ -65,6 +69,7 @@ import torch
 
 from . import cuda_build
 from . import group_acc as GA
+from . import mxu_jitter as MJ
 from .kernels import pad_steps
 
 # histogram range functions of the fused path ("last" is the plain
@@ -91,6 +96,7 @@ MAX_PART_SLICES = 8  # slices that shared [G, steps*B] partials may take, else g
 # FOLDED_QUANTILES of those that carried the quantile epilogue; LAST_PLAN
 # is the last launch's HistPlan and LAST_GRID its (blocks per slice, slices)
 RANGE_LAUNCHES = 0
+JITTER_LAUNCHES = 0  # of RANGE_LAUNCHES, those in the jitter mode (filodb_hist_range_jitter)
 FOLDED_QUANTILES = 0
 QUANTILE_LAUNCHES = 0  # of filodb_hist_quantile_gather
 SERIES_LAUNCHES = 0  # of filodb_hist_range_series (the store mode, K1)
@@ -129,6 +135,14 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 16
                    + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    fn = lib.filodb_hist_range_jitter
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 16 + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    fn = lib.filodb_hist_jitter_resident
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
     fn = lib.filodb_hist_instant
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float] * 3
                    + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
@@ -166,19 +180,24 @@ def _extrap_factor(cnt, tf, tl, out_t, window_ms: int):
     return (sampled + dur_start + dur_end) / torch.clamp(sampled, min=1e-30)
 
 
-def hist_range_plain(func: str, block, params, windows=None, is_delta: bool = False):
+def hist_range_plain(func: str, block, params, windows=None, is_delta: bool = False,
+                     jitter=None):
     """[S, T, B] histogram block -> [S, J_pad, B] per-bucket range function
     in plain torch: the JAX package's ``_hist_range_shared`` with the
-    shared [J] ``windows`` (lo, hi, t_first, t_last) of a regular grid, else
-    its ``hist_range_kernel`` with bounds searched per series. Window sums
-    are taken in index order inside the window, as the kernel takes them."""
+    shared [J] ``windows`` (lo, hi, t_first, t_last) of a regular grid,
+    ``_hist_range_jitter`` over the step table of ``jitter`` (a
+    ``mxu_jitter.JitterWindowMatrices``: ``hist_jitter_plain``), else its
+    ``hist_range_kernel`` with bounds searched per series. Window sums are
+    taken in index order inside the window, as the kernel takes them."""
     if func not in FUSED_HIST_FUNCS:
         raise NotImplementedError(f"histogram range function {func!r} is not ported")
+    if jitter is not None:
+        return hist_jitter_plain(func, block, jitter, params, is_delta)
     vals = block.vals
     S, T, B = vals.shape
     dev = vals.device
     J = pad_steps(params.num_steps)
-    i32, f32 = torch.int32, torch.float32
+    i32 = torch.int32
     start_off = int(params.start_ms - block.base_ms)
     window = int(params.window_ms)
     out_t = (start_off + torch.arange(J, dtype=torch.int64, device=dev)
@@ -196,17 +215,26 @@ def hist_range_plain(func: str, block, params, windows=None, is_delta: bool = Fa
         tf = torch.gather(ts, 1, lo.clamp(0, T - 1))
         tl = torch.gather(ts, 1, (hi - 1).clamp(0, T - 1))
         factor = _extrap_factor(hi - lo, tf, tl, out_t[None, :], window)
+    return _window_values_plain(func, vals, lo, hi, factor, window, is_delta)
+
+
+def _window_values_plain(func: str, vals, lo, hi, factor, window: int, is_delta: bool):
+    """The per-bucket range function of every row's [S, J] windows [lo, hi)
+    with their extrapolation ``factor`` (broadcast to [S, J]) -> [S, J, B]:
+    the kernel's ``window_values``."""
+    S, T, B = vals.shape
+    J = lo.shape[1]
     cnt = hi - lo
 
     def take(idx):  # [S, J] sample positions -> [S, J, B]
         return torch.gather(vals, 1, idx.clamp(0, T - 1)[:, :, None].expand(S, J, B))
 
     nan = float("nan")
-    w_s = torch.tensor(window, dtype=f32, device=dev) * 1e-3
+    w_s = torch.tensor(window, dtype=torch.float32, device=vals.device) * 1e-3
     if func in ("last", "last_over_time"):
         return torch.where((cnt > 0)[:, :, None], take(hi - 1), nan)
     if func == "sum_over_time" or (is_delta and func in ("rate", "increase")):
-        sm = torch.zeros((S, J, B), dtype=f32, device=dev)
+        sm = torch.zeros((S, J, B), dtype=torch.float32, device=vals.device)
         for i in range(int(cnt.max()) if cnt.numel() else 0):
             k = lo + i
             sm = sm + torch.where((k < hi)[:, :, None], take(k), 0.0)
@@ -219,13 +247,59 @@ def hist_range_plain(func: str, block, params, windows=None, is_delta: bool = Fa
     return torch.where((cnt >= 2)[:, :, None], res, nan)
 
 
+def jitter_windows_plain(block, wm, window_ms: int):
+    """The jitter mode's [S, J_pad] windows ``(lo, hi)`` (int64) and
+    extrapolation factors (f32) of a near-regular block over the step table
+    of ``wm`` (``mxu_jitter.JitterWindowMatrices``), as the kernel's
+    ``jitter_bounds`` computes them: the certain range, each edge slot in
+    it where the row's deviation ``ts - nominal`` there passes the slot's
+    bound; the boundary times relative to the window's start in f32, in the
+    JAX package's order (``_hist_range_jitter``)."""
+    d = MJ.step_vectors(wm)
+    ts = block.ts
+    f32 = torch.float32
+
+    def dev(k):
+        return (ts[:, d["idx"][k]].to(torch.int64) - d["nom"][k]).to(f32)
+
+    dKlo, dKhi = dev(MJ.KLO), dev(MJ.KHI)
+    in_lo = d["has_klo"] & (dKlo > d["blo_rel"])
+    in_hi = d["has_khi"] & (dKhi <= d["ehi_rel"])
+    cnt = d["count0"] + in_lo + in_hi
+    lo = torch.where(in_lo, d["idx"][MJ.KLO], d["clo"])
+    hi = torch.where(in_hi, d["idx"][MJ.KHI] + 1, d["chi"])
+    c0 = d["c0pos"]
+    klo_t, khi_t = d["Klo_rel"] + dKlo, d["Khi_rel"] + dKhi
+    tf_rel = torch.where(in_lo, klo_t, torch.where(c0, d["F0_rel"] + dev(MJ.F0), khi_t))
+    tl_rel = torch.where(in_hi, khi_t, torch.where(c0, d["L0_rel"] + dev(MJ.L0), klo_t))
+    sampled = (tl_rel - tf_rel) * 1e-3
+    dur_start = tf_rel * 1e-3
+    dur_end = (torch.tensor(np.float32(window_ms), device=ts.device) - tl_rel) * 1e-3
+    avg_dur = sampled / torch.clamp(cnt - 1.0, min=1.0)
+    thresh = avg_dur * 1.1
+    ds = torch.where(dur_start >= thresh, avg_dur / 2.0, dur_start)
+    de = torch.where(dur_end >= thresh, avg_dur / 2.0, dur_end)
+    factor = (sampled + ds + de) / torch.clamp(sampled, min=1e-30)
+    return lo, hi, factor
+
+
+def hist_jitter_plain(func: str, block, wm, params, is_delta: bool = False) -> torch.Tensor:
+    """The jitter mode's range function in plain torch: [S, T, B] ->
+    [S, J_pad, B] over the windows of ``jitter_windows_plain``."""
+    if func not in FUSED_HIST_FUNCS:
+        raise NotImplementedError(f"histogram range function {func!r} is not ported")
+    lo, hi, factor = jitter_windows_plain(block, wm, int(params.window_ms))
+    return _window_values_plain(func, block.vals, lo, hi, factor, int(params.window_ms),
+                                is_delta)
+
+
 def hist_partials_plain(func: str, block, gids: torch.Tensor, num_groups: int, params,
-                        windows=None, is_delta: bool = False):
+                        windows=None, is_delta: bool = False, jitter=None):
     """The range kernel's function in plain torch: ``hist_range_plain`` ->
     the per-bucket sum over the flattened [S, J_pad * B] grid into
     ``(acc, cnt)`` [G+1, J_pad * B] (NaN is absence; padded rows go to the
     trash group G), with the steps past ``params.num_steps`` empty."""
-    sjb = hist_range_plain(func, block, params, windows, is_delta)
+    sjb = hist_range_plain(func, block, params, windows, is_delta, jitter)
     S, J, B = sjb.shape
     flat = sjb.reshape(S, J * B)
     valid = ~torch.isnan(flat)
@@ -377,7 +451,7 @@ def hist_smem_bytes(G: int, B: int, steps: int, rows: int, T: int, shared_bounds
 
 @functools.lru_cache(maxsize=256)
 def hist_plan(T: int, num_steps: int, B: int, num_groups: int,
-              shared_bounds: bool, store: bool = False) -> HistPlan:
+              shared_bounds: bool, store: bool = False, jitter: bool = False) -> HistPlan:
     """The range kernel's layout for rows of ``T`` samples of ``B`` buckets,
     ``num_steps`` steps and ``num_groups`` groups.
 
@@ -395,6 +469,9 @@ def hist_plan(T: int, num_steps: int, B: int, num_groups: int,
     - A block has one thread per column vector of its slice (``steps * B /
       vec``), in as few passes of at most ``MAX_THREADS`` as cover them,
       rounded up to whole warps: no warp idles through a partial pass.
+    - ``jitter`` (the jitter mode): per-series bounds tables read from the
+      step table, so no ts rows are staged and tiles take
+      ``HIST_TILE_ROWS`` rows.
     - ``store`` (the store mode, ``num_groups`` 1): at most
       ``SERIES_TILE_ROWS`` rows per tile and no partials, so slices only
       keep the bounds table within its budget, and a block's threads cover
@@ -402,7 +479,7 @@ def hist_plan(T: int, num_steps: int, B: int, num_groups: int,
     J = num_steps
     vec = 4 if B % 4 == 0 else 2 if B % 2 == 0 else 1
     row_bytes = 2 * T * 4
-    staged = not shared_bounds and row_bytes <= STAGE_BUDGET
+    staged = not shared_bounds and not jitter and row_bytes <= STAGE_BUDGET
     most = SERIES_TILE_ROWS if store else HIST_TILE_ROWS
     rows = max(1, min(most, STAGE_BUDGET // row_bytes)) if staged else most
     cap = max(1, BOUNDS_BUDGET // (12 * (1 if shared_bounds else rows)))
@@ -442,7 +519,7 @@ def hist_buffers(num_groups: int, width: int, slices: int, device):
     return acc, cnt, buf[2 * n:2 * n + slices].view(torch.int32)
 
 
-def _check_block(func: str, block, gids: torch.Tensor, params, windows):
+def _check_block(func: str, block, gids: torch.Tensor, params, windows, jitter=None):
     if func not in FUSED_HIST_FUNCS:
         raise NotImplementedError(f"histogram range function {func!r} is not ported")
     vals = block.vals
@@ -456,6 +533,11 @@ def _check_block(func: str, block, gids: torch.Tensor, params, windows):
     if windows is not None:
         for name, w in zip(("lo", "hi", "t_first", "t_last"), windows):
             _check(name, w, torch.int32, (j_pad,), dev)
+    elif jitter is not None:
+        if not jitter.ok:
+            raise ValueError("the jitter window structure declined this window (ok false)")
+        _check("steps", jitter.steps, torch.int32, (j_pad, MJ.STEP_WORDS), dev)
+        _check("ts", block.ts, torch.int32, (S, T), dev)
     else:
         _check("ts", block.ts, torch.int32, (S, T), dev)
         _check("lens", block.lens, torch.int32, (S,), dev)
@@ -465,25 +547,31 @@ def _check_block(func: str, block, gids: torch.Tensor, params, windows):
 
 
 def hist_range_partials(func: str, block, gids: torch.Tensor, num_groups: int, params,
-                        windows=None, is_delta: bool = False):
+                        windows=None, is_delta: bool = False, jitter=None):
     """``sum by (...) (func(m[w]))`` over a [S, T, B] histogram block ->
     ``(acc, cnt)`` [G+1, J_pad * B] group partials on the block's device
     (bucket b of step j at column j * B + b; group G is the trash group of
     padded rows). ``windows`` are the shared [J_pad] bounds (lo, hi,
-    t_first, t_last) of a regular grid, else bounds are searched per
-    series. A CUDA block makes one launch of the range kernel (and raises
-    if the launch fails); a CPU block runs ``hist_partials_plain``."""
-    dev, j_pad, B = _check_block(func, block, gids, params, windows)
+    t_first, t_last) of a regular grid, ``jitter`` the window structure
+    (``mxu_jitter.JitterWindowMatrices``) of a near-regular one, else
+    bounds are searched per series. A CUDA block makes one launch of the
+    range kernel (and raises if the launch fails); a CPU block runs
+    ``hist_partials_plain``."""
+    dev, j_pad, B = _check_block(func, block, gids, params, windows, jitter)
     if dev.type == "cpu":
-        return hist_partials_plain(func, block, gids, num_groups, params, windows, is_delta)
-    plan = hist_plan(block.vals.shape[1], params.num_steps, B, num_groups, windows is not None)
+        return hist_partials_plain(func, block, gids, num_groups, params, windows, is_delta,
+                                   jitter)
+    plan = hist_plan(block.vals.shape[1], params.num_steps, B, num_groups, windows is not None,
+                     jitter=jitter is not None)
     acc, cnt, arrivals = hist_buffers(num_groups, j_pad * B, plan.slices, dev)
-    _launch_range(func, block, gids, num_groups, params, windows, is_delta, acc, cnt)
+    _launch_range(func, block, gids, num_groups, params, windows, is_delta, acc, cnt,
+                  jitter=jitter)
     return acc, cnt
 
 
 def hist_range_quantile(q: float, func: str, block, gids: torch.Tensor, num_groups: int,
-                        params, les: torch.Tensor, windows=None, is_delta: bool = False):
+                        params, les: torch.Tensor, windows=None, is_delta: bool = False,
+                        jitter=None):
     """``histogram_quantile(q, sum by (...) (func(m[w])))`` over a [S, T, B]
     histogram block with bounds ``les`` (f32 [B], les[-1] = +inf) -> ``(out,
     acc, cnt)``: the [G, J_pad] quantiles (NaN past ``num_steps``) and the
@@ -491,16 +579,18 @@ def hist_range_quantile(q: float, func: str, block, gids: torch.Tensor, num_grou
     launch of the range kernel with the quantile folded in (and raises if
     the launch fails); a CPU block runs ``hist_partials_plain`` and
     ``hist_quantile_plain``."""
-    dev, j_pad, B = _check_block(func, block, gids, params, windows)
+    dev, j_pad, B = _check_block(func, block, gids, params, windows, jitter)
     _check("les", les, torch.float32, (B,), dev)
     if dev.type == "cpu":
-        acc, cnt = hist_partials_plain(func, block, gids, num_groups, params, windows, is_delta)
+        acc, cnt = hist_partials_plain(func, block, gids, num_groups, params, windows, is_delta,
+                                       jitter)
         return hist_quantile_plain(q, acc, cnt, num_groups, les, params.num_steps), acc, cnt
-    plan = hist_plan(block.vals.shape[1], params.num_steps, B, num_groups, windows is not None)
+    plan = hist_plan(block.vals.shape[1], params.num_steps, B, num_groups, windows is not None,
+                     jitter=jitter is not None)
     acc, cnt, arrivals = hist_buffers(num_groups, j_pad * B, plan.slices, dev)
     out = torch.full((num_groups, j_pad), float("nan"), dtype=torch.float32, device=dev)
     _launch_range(func, block, gids, num_groups, params, windows, is_delta, acc, cnt,
-                  quantile=(q, les, out, arrivals))
+                  quantile=(q, les, out, arrivals), jitter=jitter)
     return out, acc, cnt
 
 
@@ -641,18 +731,25 @@ def hist_instant(op: str, hists: list, les: list, q: float = 0.0, lower: float =
     return [out[:, int(a): int(b)].T for a, b in zip(row0[:-1], row0[1:])]
 
 
-def resident_blocks(plan: HistPlan, shared_bounds: bool, device, lib=None) -> int:
-    """Blocks of the plan's kernel variant that fit on the card at once
-    (asked once per device, variant and shared memory)."""
+def resident_blocks(plan: HistPlan, shared_bounds: bool, device, lib=None,
+                    jitter: bool = False) -> int:
+    """Blocks of the plan's kernel variant (``jitter``: the jitter mode's)
+    that fit on the card at once (asked once per device, variant and shared
+    memory)."""
     lib = lib or _load()
-    key = (str(device), id(lib), shared_bounds, plan.shared, plan.staged, plan.vec,
+    key = (str(device), id(lib), shared_bounds, jitter, plan.shared, plan.staged, plan.vec,
            plan.smem_bytes, plan.threads)
     if key not in _resident:
         n = ctypes.c_int(0)
         with torch.cuda.device(device):
-            err = lib.filodb_hist_resident(int(shared_bounds), int(plan.shared),
-                                           int(plan.staged), plan.vec, plan.smem_bytes,
-                                           plan.threads, ctypes.byref(n))
+            if jitter:
+                err = lib.filodb_hist_jitter_resident(int(plan.shared), plan.vec,
+                                                      plan.smem_bytes, plan.threads,
+                                                      ctypes.byref(n))
+            else:
+                err = lib.filodb_hist_resident(int(shared_bounds), int(plan.shared),
+                                               int(plan.staged), plan.vec, plan.smem_bytes,
+                                               plan.threads, ctypes.byref(n))
         if err != 0 or n.value < 1:
             raise RuntimeError(f"hist_range occupancy query failed: cudaError {err}")
         _resident[key] = n.value
@@ -661,20 +758,47 @@ def resident_blocks(plan: HistPlan, shared_bounds: bool, device, lib=None) -> in
 
 def _launch_range(func: str, block, gids, num_groups: int, params, windows, is_delta: bool,
                   acc: torch.Tensor, cnt: torch.Tensor, quantile=None, plan=None,
-                  lib=None) -> None:
+                  lib=None, jitter=None) -> None:
     """One launch of the range kernel into ``acc``/``cnt`` ([G+1, J_pad * B],
     zeros); with ``quantile`` = (q, les, out, arrivals) the quantile epilogue
     runs in the same launch into ``out`` [G, J_pad] (``arrivals``: one zeroed
     int32 counter per slice). ``plan`` (default ``hist_plan``'s) and ``lib``
     (default the built library) let a layout sweep time other layouts and
-    patched builds. Raises if the launch fails."""
-    global RANGE_LAUNCHES, FOLDED_QUANTILES, LAST_PLAN, LAST_GRID
+    patched builds; ``jitter`` (a ``mxu_jitter.JitterWindowMatrices``) takes
+    the jitter mode (``filodb_hist_range_jitter``). Raises if the launch
+    fails."""
+    global RANGE_LAUNCHES, JITTER_LAUNCHES, FOLDED_QUANTILES, LAST_PLAN, LAST_GRID
     S, T, B = block.vals.shape
     dev = block.vals.device
     shared_bounds = windows is not None
-    plan = plan or hist_plan(T, params.num_steps, B, num_groups, shared_bounds)
+    plan = plan or hist_plan(T, params.num_steps, B, num_groups, shared_bounds,
+                             jitter=jitter is not None)
     lib = lib or _load()
-    grid = hist_grid(plan, S, resident_blocks(plan, shared_bounds, dev, lib))
+    grid = hist_grid(plan, S, resident_blocks(plan, shared_bounds, dev, lib,
+                                              jitter=jitter is not None))
+    q, les, out, arrivals = quantile if quantile is not None else (0.0, None, None, None)
+    if quantile is not None and arrivals.numel() < plan.slices:
+        raise ValueError(f"{arrivals.numel()} arrival counters for {plan.slices} slices")
+    if jitter is not None:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.filodb_hist_range_jitter(
+                block.ts.data_ptr(), block.vals.data_ptr(), gids.data_ptr(),
+                jitter.steps.data_ptr(), S, T, B, params.num_steps, acc.shape[1], num_groups,
+                int(params.window_ms), HIST_FUNC_CODES[func], int(is_delta), plan.rows,
+                plan.steps, plan.vec, int(plan.shared), plan.threads, grid[0],
+                plan.smem_bytes, acc.data_ptr(), cnt.data_ptr(), int(quantile is not None),
+                float(q), les.data_ptr() if les is not None else None,
+                out.data_ptr() if out is not None else None,
+                out.shape[1] if out is not None else 0,
+                arrivals.data_ptr() if arrivals is not None else None, stream)
+        if err != 0:
+            raise RuntimeError(f"hist_range_jitter kernel launch failed: cudaError {err}")
+        RANGE_LAUNCHES += 1
+        JITTER_LAUNCHES += 1
+        FOLDED_QUANTILES += quantile is not None
+        LAST_PLAN, LAST_GRID = plan, grid
+        return
     # the bounds' source: the shared [J] windows, or each row's ts and lens
     if shared_bounds:
         lo, hi, tf, tl = (w.data_ptr() for w in windows)
@@ -682,9 +806,6 @@ def _launch_range(func: str, block, gids, num_groups: int, params, windows, is_d
     else:
         lo = hi = tf = tl = None
         ts, lens = block.ts.data_ptr(), block.lens.data_ptr()
-    q, les, out, arrivals = quantile if quantile is not None else (0.0, None, None, None)
-    if quantile is not None and arrivals.numel() < plan.slices:
-        raise ValueError(f"{arrivals.numel()} arrival counters for {plan.slices} slices")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.filodb_hist_range_aggregate(

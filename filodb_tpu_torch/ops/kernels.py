@@ -371,6 +371,7 @@ def tree_rung(func: str, block, params: RangeParams, is_delta: bool = False,
     from . import mxu_jitter as JR
     from . import mxu_kernels as MK
     from . import sorted_window as SW
+    from . import staging as ST
 
     if func == "timestamp":
         return "host"
@@ -380,7 +381,9 @@ def tree_rung(func: str, block, params: RangeParams, is_delta: bool = False,
     if not delta_i and not args and func in JR.JITTER_FUNCS:
         if block.nominal_ts is not None and JR.window_ok(params.window_ms, block.maxdev_ms):
             return "jitter"
-        if block.mgrid is not None and JR.window_ok(params.window_ms, block.mgrid.maxdev_ms):
+        if (block.regular_ts is None and block.nominal_ts is None
+                and ST.sidecar(block) is not None
+                and JR.window_ok(params.window_ms, block.mgrid.maxdev_ms)):
             return "masked"
     if func in SW.SORTED_FUNCS:
         return "sorted"

@@ -38,6 +38,7 @@ from . import cuda_build
 from . import group_acc as GA
 from .kernels import pad_steps
 from .mxu_kernels import FUNC_CODES, MINMAX_SENTINEL, window_scan_min
+from .staging import sidecar
 
 # the jitter and masked rungs' functions on the tree (JAX JITTER_FUNCS)
 JITTER_FUNCS = {
@@ -141,17 +142,45 @@ class JitterWindowMatrices:
                                 -(2 * md) - 1).astype(np.float32)
         self.clo = np.clip(clo, 0, T).astype(np.int32)
         self.chi = np.clip(chi, 0, T).astype(np.int32)
-        nom = nominal_ts.astype(np.int64)[self.idx]  # [5, J]
-        flags = (c0pos * 1 | c0ge2 * 2 | has_klo * 4 | has_khi * 8).astype(np.int32)
-        table = np.zeros((J, STEP_WORDS), np.int32)
+        self.steps = self._table(nominal_ts, device)
+
+    def _table(self, nominal_ts: np.ndarray, device) -> torch.Tensor:
+        """The kernel's int32 [J, STEP_WORDS] step table on ``device``."""
+        nom = np.asarray(nominal_ts).astype(np.int64)[self.idx]  # [5, J]
+        flags = (self.c0pos * 1 | self.c0ge2 * 2 | self.has_klo * 4
+                 | self.has_khi * 8).astype(np.int32)
+        table = np.zeros((self.idx.shape[1], STEP_WORDS), np.int32)
         table[:, 0], table[:, 1] = self.clo, self.chi
         table[:, 2:7] = self.idx.T
         table[:, 7] = flags
-        table[:, 8:16] = np.stack([
-            self.count0, self.F0_rel, self.L0_rel, self.L2_rel, self.Klo_rel, self.Khi_rel,
-            self.blo_rel, self.ehi_rel], axis=1).view(np.int32)
+        table[:, 8:16] = np.stack([getattr(self, name).astype(np.float32)
+                                   for name in _STEP_F32], axis=1).view(np.int32)
         table[:, 16:21] = np.clip(nom.T, -2**31, 2**31 - 1).astype(np.int32)
-        self.steps = torch.from_numpy(table).to(device)
+        return torch.from_numpy(table).to(device)
+
+    @classmethod
+    def from_hist_args(cls, hwa, nominal_ts: np.ndarray, window_ms: int, maxdev_ms: int,
+                       device) -> "JitterWindowMatrices":
+        """The structure from the JAX package's histogram jitter arguments
+        (``_hist_jwm_args`` order: clo, chi, idx, count0, c0pos, has_klo,
+        has_khi, F0_rel, L0_rel, Klo_rel, Khi_rel, blo_rel, ehi_rel; any
+        arrays ``np.asarray`` takes) over the block's ``nominal_ts``, so one
+        structure feeds both packages. The histogram kernel reads no
+        second-to-last slot: ``L2_rel`` is 0 there."""
+        wm = cls.__new__(cls)
+        (clo, chi, idx, count0, c0pos, has_klo, has_khi, F0_rel, L0_rel, Klo_rel, Khi_rel,
+         blo_rel, ehi_rel) = (np.asarray(a) for a in hwa)
+        wm.ok, wm.window_ms, wm.maxdev_ms = True, int(window_ms), int(maxdev_ms)
+        wm.clo, wm.chi, wm.idx = clo.astype(np.int32), chi.astype(np.int32), idx.astype(np.int32)
+        wm.count0 = count0.astype(np.float32)
+        wm.c0pos, wm.has_klo, wm.has_khi = (c0pos.astype(bool), has_klo.astype(bool),
+                                            has_khi.astype(bool))
+        wm.c0ge2 = wm.count0 >= 2
+        wm.F0_rel, wm.L0_rel, wm.Klo_rel, wm.Khi_rel, wm.blo_rel, wm.ehi_rel = (
+            a.astype(np.float32) for a in (F0_rel, L0_rel, Klo_rel, Khi_rel, blo_rel, ehi_rel))
+        wm.L2_rel = np.zeros_like(wm.F0_rel)
+        wm.steps = wm._table(nominal_ts, device)
+        return wm
 
 
 # the f32 vectors of the step table's words 8..15, in order
@@ -564,7 +593,7 @@ def _launch(masked: bool, func: str, op: str, planes: dict, gids, num_groups: in
 def _prepare(masked: bool, func: str, block, params, gids):
     if func not in JITTER_FUNCS:
         raise NotImplementedError(f"range function {func!r} is not on the jitter rung")
-    if masked and block.mgrid is None:
+    if masked and sidecar(block) is None:
         raise ValueError("the masked rung needs a block with a masked sidecar (holes)")
     if not masked and block.nominal_ts is None:
         raise ValueError("the jitter rung needs a block with a nominal grid (jitter)")

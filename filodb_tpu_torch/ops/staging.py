@@ -405,9 +405,13 @@ class StagedBlock:
     ts_dev: np.ndarray | None = None  # [S, T] f32 per-sample deviation (ms)
     maxdev_ms: int = 0  # bound on |ts - nominal|
     # near-regular grid with missed scrapes: the slot-aligned sidecar, or
-    # (``mgrid_deferred``, a shard's host block) built by each device copy
+    # (``mgrid_deferred``) built where the block lies the first time the
+    # masked rung reads it (``sidecar``)
     mgrid: MaskedGrid | None = None
     mgrid_deferred: bool = False
+    # callbacks ``hook(block, nbytes)`` of the caches holding the block,
+    # told when a deferred sidecar adds ``nbytes`` to it
+    grow_hooks: list = field(default_factory=list, repr=False)
     # f64 state for exact appends: the unrounded per-series baseline
     # (shifted and corrected modes; the f32 baseline rounds by up to 64 at
     # 1e9) and, for corrected counters, (last raw, last corrected) value
@@ -446,8 +450,6 @@ class StagedBlock:
         extended under live ingest instead of restaged."""
         if keep_host:
             self.keep_mirrors()
-        if self.mgrid_deferred:
-            self.mgrid, self.mgrid_deferred = masked_of(self, device), False
 
         def put(a):
             return torch.as_tensor(a).to(device)
@@ -467,23 +469,66 @@ def device_copy(block: StagedBlock, device) -> StagedBlock:
     """A copy of a host-staged block's arrays on ``device`` (one upload)
     with its grid class and the masked sidecar (not the jitter deviations,
     which the kernel derives), linked to the host block (``host_block``);
-    the host block is left as it is. A deferred sidecar is built on
-    ``device`` for this copy alone. On the CPU the tensors share the host
-    arrays' memory, which no append rewrites (repairs build new arrays)."""
+    the host block is left as it is. A deferred sidecar stays deferred:
+    ``sidecar`` builds it on ``device`` for this copy alone, the first time
+    the masked rung reads it. On the CPU the tensors share the host arrays'
+    memory, which no append rewrites (repairs build new arrays)."""
 
     def put(a):
         return None if a is None else torch.as_tensor(a).to(device)
 
-    if block.mgrid is not None:
-        mgrid = block.mgrid.device_copy(device)
-    else:
-        mgrid = masked_of(block, device) if block.mgrid_deferred else None
+    mgrid = block.mgrid.device_copy(device) if block.mgrid is not None else None
     return StagedBlock(
         put(block.ts), put(block.vals), put(block.lens), block.base_ms, put(block.baseline),
         block.n_series, block.part_refs, raw=put(block.raw), regular_ts=block.regular_ts,
         nominal_ts=block.nominal_ts, maxdev_ms=block.maxdev_ms, mgrid=mgrid,
-        host_block=block,
+        mgrid_deferred=block.mgrid_deferred and mgrid is None, host_block=block,
     )
+
+
+_SIDECAR_LOCK = threading.Lock()
+
+
+def sidecar(block: StagedBlock) -> "MaskedGrid | None":
+    """The block's masked sidecar, built on the block's device the first
+    time a caller asks for a deferred one (the masked rung's ladders,
+    ``aggregations.grid_variant`` and ``kernels.tree_rung``, and nothing
+    else), from the host arrays it was staged from: a device copy's
+    ``host_block``, the mirrors ``to_device(keep_host=True)`` keeps, else
+    one fetch of its own arrays. Memoized on the block; the caches holding
+    it are told the bytes it adds (``grow_hooks``). None where the grid is
+    not holey, and for a host-staged block (numpy), whose device copies
+    build their own."""
+    if not block.mgrid_deferred or not isinstance(block.vals, torch.Tensor):
+        return block.mgrid
+    with _SIDECAR_LOCK:
+        if block.mgrid_deferred:
+            before = staged_nbytes(block)
+            device = block.vals.device if isinstance(block.vals, torch.Tensor) else None
+            block.mgrid = masked_of(_host_arrays(block), device)
+            block.mgrid_deferred = False
+            grown = staged_nbytes(block) - before
+            for hook in list(block.grow_hooks):
+                hook(block, grown)
+    return block.mgrid
+
+
+def _host_arrays(block: StagedBlock) -> StagedBlock:
+    """A host view of a block's ts, vals, lens and raw (``masked_of``'s
+    inputs): the block itself on the host, its ``host_block``, its mirrors,
+    or one fetch of the device arrays."""
+    if not isinstance(block.ts, torch.Tensor):
+        return block
+    if block.host_block is not None:
+        return block.host_block
+    if block.h_ts is not None:
+        ts, vals, lens, raw = block.h_ts, block.h_vals, block.h_lens, block.h_raw
+    else:
+        def fetch(a):
+            return None if a is None else a.detach().cpu().numpy()
+
+        ts, vals, lens, raw = (fetch(a) for a in (block.ts, block.vals, block.lens, block.raw))
+    return StagedBlock(ts, vals, lens, block.base_ms, None, block.n_series, [], raw=raw)
 
 
 def staged_nbytes(block: StagedBlock) -> int:
@@ -493,6 +538,13 @@ def staged_nbytes(block: StagedBlock) -> int:
     arrays = (block.ts, block.vals, block.raw, block.baseline, block.lens, block.ts_dev)
     total = sum(int(a.nbytes) for a in arrays if a is not None)
     return total + (block.mgrid.nbytes() if block.mgrid is not None else 0)
+
+
+def block_device(block: StagedBlock) -> str:
+    """The device a block's arrays lie on, as the ledger labels it
+    (``cpu`` for numpy or CPU tensors, else e.g. ``cuda:0``)."""
+    v = block.vals
+    return str(v.device) if isinstance(v, torch.Tensor) else "cpu"
 
 
 def detect_shared_grid(out_ts: np.ndarray, lens: np.ndarray, n: int, T: int, S: int):
@@ -524,15 +576,19 @@ def detect_shared_grid(out_ts: np.ndarray, lens: np.ndarray, n: int, T: int, S: 
     return None, None, None, 0
 
 
-def grid_class(block) -> str:
+def grid_class(block, build: bool = True) -> str:
     """``regular`` (exact shared grid) > ``jitter`` (near-regular) >
     ``holes`` (near-regular with missed scrapes, the masked sidecar) >
-    ``irregular``; the kernel ladders key on it."""
+    ``irregular``; the kernel ladders key on it. Telling holes from
+    irregular builds a deferred sidecar (``sidecar``); with ``build`` false
+    such a block is ``unclassified``."""
     if block.regular_ts is not None:
         return "regular"
     if block.nominal_ts is not None:
         return "jitter"
-    if block.mgrid is not None:
+    if block.mgrid_deferred and not build:
+        return "unclassified"
+    if sidecar(block) is not None:
         return "holes"
     return "irregular"
 
@@ -1259,6 +1315,37 @@ class SuperblockCache:
         self._pins: dict = {}
         self._lock = threading.Lock()
         self._flight = KeyedSingleFlight(max_keys=4 * max_entries, alive=lambda k: k in self._d)
+        from ..ledger import LEDGER
+
+        self.ledger = LEDGER.register(self, "superblock", walker=SuperblockCache._walk,
+                                      name="superblock_cache",
+                                      device_walker=SuperblockCache._walk_devices)
+
+    def _blocks(self) -> list:
+        with self._lock:
+            values = [v for _, v, _ in self._d.values()]
+        return [getattr(v, "block", v) for v in values]
+
+    def _walk(self) -> int:
+        """The cached superblocks' true bytes (the ledger's drift check)."""
+        return sum(staged_nbytes(b) for b in self._blocks())
+
+    def _walk_devices(self) -> dict:
+        out: dict = {}
+        for b in self._blocks():
+            dev = block_device(b)
+            out[dev] = out.get(dev, 0) + staged_nbytes(b)
+        return out
+
+    def _grown(self, key, block, nbytes: int) -> None:
+        """A cached superblock's deferred sidecar was built (``sidecar``):
+        its entry counts the bytes."""
+        with self._lock:
+            hit = self._d.get(key)
+            if hit is None or getattr(hit[1], "block", hit[1]) is not block:
+                return
+            self._d[key] = (hit[0], hit[1], hit[2] + nbytes)
+        self.ledger.alloc(nbytes, count=0)
 
     def build_lock(self, key) -> threading.Lock:
         """Per-key single flight for superblock builds: identical cold queries
@@ -1301,8 +1388,10 @@ class SuperblockCache:
         """Remove an entry outright (an extension that wrote its mirrors but
         could not commit: it must never be served or extended again)."""
         with self._lock:
-            self._d.pop(key, None)
+            gone = self._d.pop(key, None)
             self._meta.pop(key, None)
+        if gone is not None:
+            self.ledger.free(gone[2], "drop")
 
     def note(self, key, outcome: str) -> None:
         """Record an entry's last maintenance outcome."""
@@ -1330,23 +1419,34 @@ class SuperblockCache:
         the whole budget is not stored."""
         if nbytes > self.max_bytes:
             return
+        freed = []
         with self._lock:
-            self._d.pop(key, None)
+            old = self._d.pop(key, None)
+            if old is not None:
+                freed.append((old[2], "replace"))
             used = sum(e[2] for e in self._d.values())
             while self._d and (len(self._d) >= self.max_entries
                                or used + nbytes > self.max_bytes):
                 ek = next((k for k in self._d if k not in self._pins), None)
                 if ek is None:
                     break  # only pinned entries left: run over budget
-                used -= self._d.pop(ek)[2]
+                evicted = self._d.pop(ek)[2]
+                used -= evicted
+                freed.append((evicted, "evict"))
                 self._meta.pop(ek, None)
             self._d[key] = (versions, value, nbytes)
+            block = getattr(value, "block", value)
+            if isinstance(block, StagedBlock) and block.mgrid_deferred:
+                block.grow_hooks.append(lambda b, n, key=key: self._grown(key, b, n))
             prev = self._meta.get(key)
             self._meta[key] = {
                 "created": time.time(),
                 "hits": prev["hits"] if prev else 0,
                 "last_outcome": prev["last_outcome"] if prev else None,
             }
+        for n, reason in freed:
+            self.ledger.free(n, reason)
+        self.ledger.alloc(nbytes)
 
     def snapshot(self) -> list[dict]:
         """One dict per cached entry: key, bytes, age, hits, last outcome,
@@ -1372,7 +1472,8 @@ class SuperblockCache:
                 entry["series"] = int(getattr(value, "series", 0) or block.n_series)
                 entry["shape"] = list(block.vals.shape)
                 entry["stage_mode"] = getattr(value, "stage_mode", None)
-                entry["grid"] = grid_class(block)
+                entry["grid"] = grid_class(block, build=False)
+                entry["device"] = block_device(block)
             out.append(entry)
         return out
 

@@ -63,6 +63,7 @@ uploads nothing.
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass, field, replace
 from typing import Any
@@ -275,7 +276,24 @@ def staged_block_for(ctx: QueryContext, shard, ids, cache_key, col_name: str,
             while shard.stage_cache and used + nbytes > shard.config.stage_cache_bytes:
                 used -= shard.stage_cache.pop(next(iter(shard.stage_cache))).nbytes
             shard.stage_cache[cache_key] = StageEntry(block, nbytes, dev_block=dev)
+    _count_sidecar(shard, cache_key, dev)
     return block if dev is None else dev
+
+
+_MEMSTORE_ATTR_LOCK = threading.Lock()
+
+
+def _memstore_attr(memstore, name: str, make):
+    """The memstore's ``name`` attribute, made by ``make()`` on first use
+    under a lock: concurrent first queries share one superblock cache."""
+    value = getattr(memstore, name, None)
+    if value is None:
+        with _MEMSTORE_ATTR_LOCK:
+            value = getattr(memstore, name, None)
+            if value is None:
+                value = make()
+                setattr(memstore, name, value)
+    return value
 
 
 def device_copy_for(shard, cache_key, block: ST.StagedBlock, device) -> ST.StagedBlock:
@@ -299,7 +317,23 @@ def device_copy_for(shard, cache_key, block: ST.StagedBlock, device) -> ST.Stage
                 entry.nbytes -= ST.staged_nbytes(entry.dev_block)
             entry.dev_block = dev
             entry.nbytes += ST.staged_nbytes(dev)
+    _count_sidecar(shard, cache_key, dev)
     return dev
+
+
+def _count_sidecar(shard, cache_key, dev: ST.StagedBlock | None) -> None:
+    """Count a device copy's deferred sidecar in its entry's bytes once
+    ``staging.sidecar`` builds it (the masked rung's first read)."""
+    if dev is None or not dev.mgrid_deferred:
+        return
+
+    def grown(b, nbytes):
+        with shard._lock:
+            entry = shard.stage_cache.get(cache_key)
+            if entry is not None and entry.dev_block is b:
+                entry.nbytes += nbytes
+
+    dev.grow_hooks.append(grown)
 
 
 def _histogram_suffix_rewrite(filters):
@@ -735,14 +769,10 @@ class FusedAggregateExec(ExecPlan):
             raise QueryError("selector span wider than int32 ms offsets: plan it through "
                              "the planner, which slices it in time")
         stage_mode = _stage_mode_for_function(self.function)
-        cache = getattr(ctx.memstore, "_superblock_cache", None)
-        if cache is None:
-            cache = ctx.memstore._superblock_cache = ST.SuperblockCache()
+        cache = _memstore_attr(ctx.memstore, "_superblock_cache", ST.SuperblockCache)
         # for a gauge or delta column every function stages raw: the schema
         # hint learned on the first build keys those under one entry
-        hints = getattr(ctx.memstore, "_fused_mode_hints", None)
-        if hints is None:
-            hints = ctx.memstore._fused_mode_hints = {}
+        hints = _memstore_attr(ctx.memstore, "_fused_mode_hints", dict)
         hint_key = (ctx.dataset, self.filters, self.column)
         hint = hints.get(hint_key)
         key_mode = stage_mode

@@ -91,6 +91,10 @@ class QueryStats:
     series_scanned: int = 0
     samples_scanned: int = 0
     bytes_staged: int = 0
+    # the JAX package's host CPU and device dispatch nanoseconds; the port
+    # does not measure them (0)
+    cpu_ns: int = 0
+    kernel_ns: int = 0
     # staging and superblock cache events of the query's staging path: hits
     # (served cached), misses (a full stage or build), extends (an in-place
     # append repair or superblock extension)
@@ -125,3 +129,23 @@ class QueryResult:
     scalar: ScalarResult | None = None
     raw: list[tuple[dict, np.ndarray, np.ndarray]] | None = None
     metadata: list | None = None
+    # the partial-results protocol of the JAX package: warnings for lost
+    # children and ``partial``; every shard is local to the port, so these
+    # stay empty and False
+    warnings: list[dict] = field(default_factory=list)
+    partial: bool = False
+    # the query's root span (``metrics.Span``) and its host phases in
+    # seconds (``plan``, ``execute``), set by ``QueryEngine``
+    trace: Any | None = None
+    phases: dict = field(default_factory=dict)
+
+    def all_series(self):
+        """Iterate (labels, ts_ms[], values[]) dropping NaN points."""
+        for g in self.grids:
+            vals = g.values_np()
+            times = g.step_times_ms()
+            for i, lbls in enumerate(g.labels):
+                row = vals[i]
+                m = ~np.isnan(row)
+                if m.any():
+                    yield lbls, times[m], row[m]

@@ -721,9 +721,11 @@ def live_store(grid: str, n_series=64, n=120, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("grid", ["regular", "jitter"])
 def test_warm_hit_and_extension_on_card(card, grid):
-    """A warm query is one launch from the cache; a live-edge append
-    extends the superblock on the card: its tensors equal a fresh upload of
-    its mirrors, and the old block's tensors are untouched."""
+    """A warm query is one launch from the cache, of the rung the JAX
+    ladder takes (the regular kernel on the regular grid, the jitter
+    kernel on the jittered one); a live-edge append extends
+    the superblock on the card: its tensors equal a fresh upload of its
+    mirrors, and the old block's tensors are untouched."""
     from filodb_tpu_torch import metrics as M
     from filodb_tpu_torch.coordinator.planner import QueryEngine
 
@@ -731,11 +733,12 @@ def test_warm_hit_and_extension_on_card(card, grid):
     eng = QueryEngine(ms, "ds")
     q, start, end = "sum(rate(m[5m]))", (BASE + 400_000) / 1000, (BASE + 2_000_000) / 1000
     eng.query_range(q, start, end, 60)
-    launches = (WS.RANGE_LAUNCHES, MK.LAUNCHES)
+    launches = (WS.RANGE_LAUNCHES, MK.LAUNCHES, JR.JITTER_LAUNCHES)
     res = eng.query_range(q, start, end, 60)
     assert res.stats.cache_hits == 1 and res.stats.cache_misses == 0
-    counts = (WS.RANGE_LAUNCHES - launches[0], MK.LAUNCHES - launches[1])
-    assert counts == ((0, 1) if grid == "regular" else (1, 0))
+    counts = (WS.RANGE_LAUNCHES - launches[0], MK.LAUNCHES - launches[1],
+              JR.JITTER_LAUNCHES - launches[2])
+    assert counts == ((0, 1, 0) if grid == "regular" else (0, 0, 1))
     old = next(iter(ms._superblock_cache._d.values()))[1].block
     before = {k: getattr(old, k).clone() for k in ("ts", "vals", "raw", "lens")}
     extends = M.superblock_events()["extend"]
@@ -2304,3 +2307,99 @@ def test_near_regular_engine_on_card(card, kind, query):
             v = rows[tuple(sorted(l.items()))]
             np.testing.assert_array_equal(np.isnan(v), np.isnan(w))
             np.testing.assert_allclose(v[~np.isnan(w)], w[~np.isnan(w)], rtol=1e-3)
+
+
+# -- the histogram range kernel's jitter mode (B1) ------------------------------
+
+
+def jitter_hist_block(card, n_real=300, m=400, B=12, seed=0, jitter=500):
+    """Seeded cumulative histograms on one 10 s nominal grid (phase 5 s),
+    each sample within +-``jitter`` ms of it, all the same length; on the
+    card, with padded rows past ``n_real``."""
+    from filodb_tpu_torch.ops.staging import stage_histogram_series
+
+    rng = np.random.default_rng(seed)
+    nominal = BASE + 5_000 + np.arange(m, dtype=np.int64) * 10_000
+    series = []
+    for _ in range(n_real):
+        incr = rng.poisson(2.0, size=(m, B)).astype(np.float64)
+        incr[:, -1] = incr.sum(1)
+        series.append((nominal + rng.integers(-jitter, jitter + 1, m),
+                       np.cumsum(np.cumsum(incr, axis=1), axis=0)))
+    b = stage_histogram_series(series, BASE, B, [(0, i) for i in range(n_real)])
+    assert b.nominal_ts is not None
+    return b.to_device(card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 8, "S"])
+@pytest.mark.parametrize("is_delta", [False, True], ids=["cumulative", "delta"])
+@pytest.mark.parametrize("func", HIST_FUNCS)
+def test_hist_jitter_kernel_matches_plain_on_card(card, func, is_delta, G):
+    """The jitter mode (one launch, counted in JITTER_LAUNCHES) against
+    hist_jitter_plain's group sums on the same step table: at G = S each
+    row is its own group, so the sums are the plain values (rtol 2e-4 /
+    atol 1e-4 with member counts equal); at G = 1 and 8 atomics reorder
+    the f32 sums (rtol 1e-3); the folded quantile against
+    hist_quantile_plain of the launch's own partials."""
+    from filodb_tpu_torch.ops import hist_kernels as HK
+
+    b = jitter_hist_block(card)
+    n = b.n_series
+    groups = n if G == "S" else G
+    gids = hist_gids(groups, b.vals.shape[0], n, card)
+    assert AGG.hist_variant(b, HIST_PARAMS) == "hist_jitter"
+    wm = AGG._hist_jitter_windows(b, HIST_PARAMS)
+    les = torch.tensor(hist_les(b.vals.shape[2]), dtype=torch.float32, device=card)
+    before = (HK.RANGE_LAUNCHES, HK.JITTER_LAUNCHES)
+    out, acc, cnt = HK.hist_range_quantile(0.9, func, b, gids, groups, HIST_PARAMS, les,
+                                           is_delta=is_delta, jitter=wm)
+    assert (HK.RANGE_LAUNCHES, HK.JITTER_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert not HK.LAST_PLAN.staged
+    want_acc, want_cnt = HK.hist_partials_plain(func, b, gids, groups, HIST_PARAMS,
+                                                is_delta=is_delta, jitter=wm)
+    torch.cuda.synchronize()
+    if G == "S":
+        assert_partials_match(acc, cnt, want_acc, want_cnt, groups, rtol=2e-4, atol=1e-4)
+    else:
+        fin = GA.finish_groups("sum", want_acc, want_cnt, groups)
+        atol = 1e-5 * float(torch.nan_to_num(fin, nan=0.0).abs().max())
+        assert_partials_match(acc, cnt, want_acc, want_cnt, groups, rtol=1e-3, atol=atol)
+    assert_quantiles_match(out, HK.hist_quantile_plain(0.9, acc, cnt, groups, les,
+                                                       HIST_PARAMS.num_steps))
+
+
+@pytest.mark.cuda
+def test_hist_jitter_through_the_engine_on_card(card):
+    """The SRE panel over a store of jittered histograms: one range launch
+    in the jitter mode, and the answer of the same engine on the CPU."""
+    from filodb_tpu_torch.coordinator.planner import QueryEngine
+    from filodb_tpu_torch.core.records import SeriesBatch
+    from filodb_tpu_torch.core.schemas import METRIC_TAG, PROM_HISTOGRAM, Dataset, shard_for
+    from filodb_tpu_torch.memstore.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.ops import hist_kernels as HK
+
+    rng = np.random.default_rng(3)
+    les = np.append(hist_les(12)[:-1], np.inf)
+    m = 300
+    ms = TimeSeriesMemStore()
+    ms.setup(Dataset("prometheus"), range(8))
+    nominal = BASE + 5_000 + np.arange(m, dtype=np.int64) * 10_000
+    for i in range(2000):
+        tags = {METRIC_TAG: "http_request_latency", "instance": f"host-{i}"}
+        incr = rng.poisson(2.0, size=(m, 12)).astype(np.float64)
+        incr[:, -1] = incr.sum(1)
+        h = np.cumsum(np.cumsum(incr, axis=1), axis=0)
+        ms.shard("prometheus", shard_for(tags, spread=3, num_shards=8)).ingest_series(
+            SeriesBatch(PROM_HISTOGRAM, tags, nominal + rng.integers(-500, 501, m),
+                        {"sum": h[:, -1], "count": h[:, -1], "h": h}, bucket_les=les))
+    q = "histogram_quantile(0.99, sum by (le) (rate(http_request_latency_bucket[5m])))"
+    args = ((BASE + 400_000) / 1000, (BASE + 2_800_000) / 1000, 60)
+    before = HK.JITTER_LAUNCHES
+    got = QueryEngine(ms, "prometheus").query_range(q, *args)
+    assert HK.JITTER_LAUNCHES == before + 1
+    want = QueryEngine(ms, "prometheus", device="cpu").query_range(q, *args)
+    g, w = got.grids[0].values_np(), want.grids[0].values_np()
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+    assert np.isfinite(w).any()
+    np.testing.assert_allclose(g[~np.isnan(w)], w[~np.isnan(w)], rtol=1e-3)

@@ -100,14 +100,16 @@ def test_not_near_regular_is_not_holes():
 def test_concat_and_restaged_rows_build_the_jax_grid():
     """The superblock's concatenation snaps all rows onto one slot grid, and
     a subquery's re-staged step rows with NaN steps build the grid that
-    ``stage_series`` builds, as in the JAX package: each built once, by
-    the block's device copy."""
+    ``stage_series`` builds, as in the JAX package: each built once, on
+    the block's device, at its first masked read (``staging.sidecar``)."""
     a, b = near_regular(seed=4, holes=True), near_regular(seed=5, holes=True)
     jblocks = [JST.stage_series(s, BASE) for s in (a, b)]
     pblocks = [ST.stage_series(s, BASE) for s in (a, b)]
     superblock = ST.concat_blocks(pblocks)
-    assert superblock.mgrid is None and superblock.mgrid_deferred  # built by its device copy
-    assert_same_grid(superblock.to_device("cpu").mgrid, JST.concat_blocks(jblocks).mgrid)
+    assert superblock.mgrid is None and superblock.mgrid_deferred  # built on the device
+    on_device = superblock.to_device("cpu")
+    assert on_device.mgrid is None and on_device.mgrid_deferred  # at its first masked read
+    assert_same_grid(ST.sidecar(on_device), JST.concat_blocks(jblocks).mgrid)
     rng = np.random.default_rng(6)
     times = BASE + 60_000 * np.arange(1, 41, dtype=np.int64)
     v = rng.uniform(0, 5, (7, 40)).astype(np.float32)
@@ -156,7 +158,9 @@ def test_device_copy_holds_the_kernel_planes_and_counts_them():
 def test_deferred_sidecar_is_built_by_the_device_copy(staging):
     """A host block staged with ``sidecar=False`` (a shard's, in the
     planner's cache) holds no sidecar and counts none; its device copy
-    builds the one ``stage_series`` builds, and so does ``to_device``."""
+    builds the one ``stage_series`` builds at its first masked read
+    (``staging.sidecar``, which ``grid_class`` asks), and so does a block
+    moved by ``to_device``."""
     flags, counter, delta = STAGINGS[staging]
     series = near_regular(seed=0, holes=True, counter=counter and not delta)
     eager = ST.stage_series(series, BASE, **flags)
@@ -166,7 +170,9 @@ def test_deferred_sidecar_is_built_by_the_device_copy(staging):
     dev = ST.device_copy(lazy, "cpu")
     assert ST.grid_class(dev) == "holes" and lazy.mgrid is None
     assert_same_grid(dev.mgrid, eager.mgrid)
-    assert_same_grid(lazy.to_device("cpu").mgrid, eager.mgrid)
+    moved = lazy.to_device("cpu")
+    assert moved.mgrid is None and moved.mgrid_deferred
+    assert_same_grid(ST.sidecar(moved), eager.mgrid)
 
 
 @pytest.mark.parametrize("grid", sorted(QUERY_GRIDS))
@@ -322,3 +328,34 @@ def test_holey_superblock_restages_under_live_ingest():
     assert got.stats.rungs == {"masked": 1}
     want = jax_engine.query_range(q, START_S, end, STEP_S)
     assert_rows(by_labels(got), by_labels(want), q)
+
+
+@pytest.mark.parametrize("query", ["changes(http_requests_total[5m])", "deriv(node_temp[5m])"])
+def test_general_leaves_build_no_sidecar(monkeypatch, query):
+    """A tree leaf whose function runs on the general rung reads no sidecar,
+    so its device copy of a holey block builds none; a ``rate`` leaf on the
+    masked rung builds it once per copy (not again when the next query hits
+    the copy), and the entry counts its bytes: the ledger's walk of the
+    staging caches equals their balance."""
+    from filodb_tpu_torch.ledger import LEDGER
+
+    _, pms = mirrored_stores(near_regular_data(holes=True, seed=12))
+    engine = QueryEngine(pms, "prometheus", device="cpu")
+    builds = []
+    real = ST.masked_of
+    monkeypatch.setattr(ST, "masked_of", lambda *a, **k: builds.append(1) or real(*a, **k))
+    res = engine.query_range(query, START_S, END_S, STEP_S)
+    assert set(res.stats.rungs) == {"general"}
+    entries = [e for sh in pms.shards("prometheus") for e in sh.stage_cache.values()]
+    assert entries and not builds
+    assert all(e.dev_block.mgrid is None and e.dev_block.mgrid_deferred for e in entries)
+    for _ in range(2):
+        res = engine.query_range("rate(http_requests_total[5m])", START_S, END_S, STEP_S)
+        assert set(res.stats.rungs) == {"masked"}
+    leaves = res.stats.rungs["masked"]
+    assert len(builds) == leaves
+    for sh in pms.shards("prometheus"):
+        for e in sh.stage_cache.values():
+            assert e.nbytes == ST.staged_nbytes(e.block) + ST.staged_nbytes(e.dev_block)
+            assert sh.stage_cache.account.walk() == sh.stage_cache.account.bytes
+    assert all(k["drift"] == 0 for k in LEDGER.verify()["kinds"].values())

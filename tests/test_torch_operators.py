@@ -363,3 +363,65 @@ def test_sgn_keeps_absent_steps_as_jax(nan_engines, query, grid):
     got = by_labels(port_engine.query_range(query, E_START, E_END, E_STEP))
     assert any(np.isnan(w).any() for w in want.values())
     assert_same(got, want, query)
+
+
+def predict_linear_oracle(data, steps, window_ms: int, horizon_s: float) -> dict:
+    """``predict_linear(node_temp[5m], h)`` in float64 from the ingested
+    samples (NaN samples absent): the least-squares line over each window,
+    times relative to the step, evaluated ``h`` seconds ahead."""
+    out = {}
+    for tags, _, ts, vals in data:
+        if tags[S.METRIC_TAG] != "node_temp":
+            continue
+        pred = np.full(len(steps), np.nan)
+        for j, t_j in enumerate(steps):
+            m = (ts <= t_j) & (ts > t_j - window_ms) & ~np.isnan(vals)
+            tc, v, n = (ts[m] - t_j) * 1e-3, vals[m], int(m.sum())
+            denom = n * (tc * tc).sum() - tc.sum() ** 2
+            if n >= 2 and abs(denom) >= 1e-30:
+                slope = (n * (tc * v).sum() - tc.sum() * v.sum()) / denom
+                pred[j] = (v.sum() - slope * tc.sum()) / n + slope * horizon_s
+        out[tuple(sorted((k, v) for k, v in tags.items() if k != S.METRIC_TAG))] = pred
+    return out
+
+
+def test_predict_linear_on_the_nan_store_is_held_to_the_oracle(nan_engines):
+    """``predict_linear(node_temp[5m], 60)`` on the irregular store with one
+    sample in three NaN: the port within rtol 2e-4 / atol 1e-4 of a float64
+    oracle at every step, no farther from it than the JAX package, and equal
+    to JAX wherever JAX agrees with the oracle (ROADMAP C, sums in f64
+    against f32)."""
+    from tests.test_torch_engine import END_S as E_END, START_S as E_START, STEP_S as E_STEP
+    from tests.test_torch_engine import make_data
+
+    data = []
+    for i, (tags, schema, ts, vals) in enumerate(make_data("irregular")):
+        vals = vals.copy()
+        vals[::3] = np.nan
+        if i % 5 == 1:
+            ts, vals = ts[: len(ts) // 2], vals[: len(vals) // 2]
+        data.append((tags, schema, ts, vals))
+    q = "predict_linear(node_temp[5m], 60)"
+    jax_engine, port_engine = nan_engines["irregular"]
+    strip = lambda rows: {tuple(kv for kv in k if kv[0] != S.METRIC_TAG): v  # noqa: E731
+                          for k, v in rows.items()}
+    want = strip(by_labels(jax_engine.query_range(q, E_START, E_END, E_STEP)))
+    got = strip(by_labels(port_engine.query_range(q, E_START, E_END, E_STEP)))
+    steps = np.arange(int(E_START * 1000), int(E_END * 1000) + 1, int(E_STEP * 1000))
+    exact = predict_linear_oracle(data, steps, 300_000, 60.0)
+    assert sorted(got) == sorted(want) == sorted(k for k, v in exact.items()
+                                                 if not np.isnan(v).all())
+    worst = {"port": 0.0, "jax": 0.0}
+    for k, x in exact.items():
+        if k not in got:
+            continue
+        g, w = got[k], want[k]
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(x), err_msg=str(k))
+        np.testing.assert_array_equal(np.isnan(w), np.isnan(x), err_msg=str(k))
+        m = ~np.isnan(x)
+        np.testing.assert_allclose(g[m], x[m], rtol=RTOL, atol=ATOL, err_msg=f"{k} vs oracle")
+        jax_ok = np.isclose(w[m], x[m], rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(g[m][jax_ok], w[m][jax_ok], rtol=RTOL, atol=ATOL)
+        worst["port"] = max(worst["port"], float(np.abs(g[m] - x[m]).max(initial=0.0)))
+        worst["jax"] = max(worst["jax"], float(np.abs(w[m] - x[m]).max(initial=0.0)))
+    assert worst["port"] <= worst["jax"], worst
