@@ -161,9 +161,10 @@ Phases (any failure raises and exits non-zero):
    series, the query again must extend (not restage) the cached
    superblock; the held block stays unchanged, and a fresh build's ts, lens
    and vals equal the extended block's bit for bit.
-7c. The per-series bounds at scale: bench.py's histograms, cut to 25k
+7c. The per-series bounds at scale: bench.py's histograms, cut to 6,250
    series (``HIST_IRREGULAR_SERIES``; 50k before the jitter rungs' phase
-   14, cut to keep the script's time), on irregular 5-15 s scrapes, the
+   14, 25k before phase 17, cut to keep the script's time), on irregular
+   5-15 s scrapes, the
    canonical query cold then warm on ``hist_general``, against the plain
    path and with 7b's partials check, with the kernel's times and bounds.
    (Its superblock is not extended: an irregular histogram superblock
@@ -247,8 +248,9 @@ Phases (any failure raises and exits non-zero):
    the kernels' ms beside their bounds and plain ms. On the regular store
    predict_linear takes the regular kernel's B5 code, as the JAX ladder's
    MXU rung.
-10b. Classic buckets (``phase_classic``, after 7d): 10,000 label sets x 12
-   ``le`` bounds of bench.py's histograms as 120,000 counters;
+10b. Classic buckets (``phase_classic``, after 7d): 2,500 label sets x 12
+   ``le`` bounds of bench.py's histograms as 30,000 counters (10,000 sets
+   before phase 17, cut to keep the script's time);
    ``CLASSIC_QUERIES`` cold then warm, the aggregate and one gather each,
    against the plain fold and bench.py's f64 oracle.
 10c. Time slicing (``phase_month``): 1,000 counters at 5 min over 30 days;
@@ -316,9 +318,9 @@ Phases (any failure raises and exits non-zero):
    window stats, one ms more the jitter rungs, whose narrow windows are
    held to plain too); max_abs_err per code.
 14. bench.py's ``fused_jitter`` stores through the port at full width
-   (``phase_fused_jitter``, after 9b): 50k counters (``FUSED_JITTER_SERIES``:
-   bench.py's 100k cut to half, to keep the script's time; 6b
-   runs on the jittered one) on 8 shards, 720
+   (``phase_fused_jitter``, after 9b): 12.5k counters (``FUSED_JITTER_SERIES``:
+   bench.py's 100k cut to a half before phase 17 and to an eighth since,
+   to keep the script's time; 6b runs on the jittered one) on 8 shards, 720
    samples at 10 s, jitter 0.05, phase 5 s, seed 42, ``hole_frac`` 0
    (grid ``jitter``) and 0.01 (``holes``). ``FUSED_JITTER_QUERIES`` first
    then warm: the fused aggregates one launch of the jitter kernel
@@ -333,8 +335,8 @@ Phases (any failure raises and exits non-zero):
    superblock (rtol 5e-3: f32 atomic sums of 100k values up to 1e9;
    sum(count_over_time) exactly), that rung's kernel timed back to back
    alternating with the jitter kernel; sum(rate) against bench.py's f64 oracle (rtol 5e-3); the warm
-   p50 of sum(rate) against phase 5's (bench.py's ratio, here at half
-   phase 5's series); the holey store's first query (its cold staging and
+   p50 of sum(rate) against phase 5's (bench.py's ratio, here at an eighth
+   of phase 5's series); the holey store's first query (its cold staging and
    the masked sidecar, built at the masked rung's first read) with the
    sidecar's own build time.
 15. The server (``phase_http``, after phase 13 on phase 5's store):
@@ -375,6 +377,34 @@ Phases (any failure raises and exits non-zero):
    aggregate mode at G = S per series against plain (rtol 2e-4 / atol
    1e-4); the kernel per call and back to back, alternating with
    ``hist_general`` on the same superblock, beside its bound in bytes.
+17. Persistence at full size (``phase_persistence``, after 15b; the memstore
+   lifecycle of ``store/`` and ``memstore/``): a ``FiloServer`` on the card
+   with ``store_root`` in a temporary directory and the default 400-sample
+   chunks ingests phase 5's draws (``build_memstore(..., ms=)``: 100k
+   counters x 720 samples on 8 shards). 17a: ``POST /admin/flush``; prints
+   the chunks and partkeys written, the seconds, the bytes on disk and per
+   sample, and the codec tier (the g++ library; no Python-tier call may
+   run). 17b: a second server on the same root recovers at ``start``
+   (seconds printed) and answers the north star and ``sum by (zone)`` over
+   HTTP, cold then warm, each one ``regular_range`` launch on the regular
+   rung, equal to phase 5's answers (rtol 1e-5, the same NaN steps); and a
+   one-``instance`` tree ``rate``. 17c: ``evict_for_headroom(target_bytes=0)``
+   on every shard drops every flushed chunk (tier 2); the north star pages
+   them back in (pages and seconds printed) and equals 17b's answer bit for
+   bit. 17d: with the column store detached (attached, a query pages the
+   evicted chunks back in, as in the JAX package), ``evict_for_retention``
+   with the cutoff at the first chunk's end (whole chunks go; the middle of
+   the range rounded up to a chunk); the north star over HTTP, one launch,
+   must match the plain path on the card over the same evicted store, every
+   step before the cutoff absent. Then, the store attached again, a second
+   tier-2 eviction and the one-``instance`` rate: it reads only that
+   series' frames (bytes printed, equal to their manifest lengths) and
+   equals 17b's answer. ``/debug/resources`` shows drift 0 after each
+   eviction. The store is removed at the end.
+
+Before phase 1 the process holds glibc's heap trimming off as the port's
+server does at start (``server.tune_heap``); the host times of every phase
+are taken so.
 
 Around every timed phase it prints the card's SM and memory clocks,
 temperature and power draw (nvidia-smi), before and after. Prints, in
@@ -384,7 +414,8 @@ with phase 9's (``{"epilogues": ...}``), one with phases 2d, 2e, 10-10c
 and 11's (``{"tree": ...}``), one with phases 2f and 12's
 (``{"hist_tree": ...}``), one with phases 2g and 14's (``{"jitter":
 ...}``), one with phases 15 and 15b's (``{"server": ...}``; phase 16's
-is in ``{"hist": ...}``), one with the kernels' numbers
+is in ``{"hist": ...}``), one with phase 17's (``{"persistence": ...}``),
+one with the kernels' numbers
 (the order-statistics kernels' rows, and the store mode's numbers on the
 rungs' rows), the card's
 name and power limit as nvidia-smi gives them, and the result line
@@ -412,8 +443,8 @@ STEP_S = 60.0
 WINDOW_MS = 300_000
 N_SERIES = 100_000
 # phase 14's stores (and phase 6b on the jittered one): bench.py's
-# fused_jitter stores cut to half its series to keep the script's time
-FUSED_JITTER_SERIES = 50_000
+# fused_jitter stores cut to an eighth of its series to keep the script's time
+FUSED_JITTER_SERIES = 12_500
 N_SAMPLES = 720
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 QUERIES = (
@@ -943,7 +974,7 @@ def series_tags(i: int) -> dict:
 
 
 def build_memstore(n_series: int, n_samples: int, seed: int, grid: str,
-                   hole_frac: float = 0.0):
+                   hole_frac: float = 0.0, ms=None):
     """``n_series`` counters on 8 shards, ingested through the port's shard
     API, values cumsum(uniform(0, 10)) + 1e9, drawn per block of 10k series
     as bench.py draws them. ``grid``: ``regular`` is bench.py's store
@@ -953,15 +984,18 @@ def build_memstore(n_series: int, n_samples: int, seed: int, grid: str,
     interval), and with ``hole_frac`` its missed scrapes (that share of each
     series' interior slots dropped, drawn per series as bench.py draws
     them; seed 42 is bench.py's store); ``irregular`` has strictly
-    increasing 5-15 s intervals."""
+    increasing 5-15 s intervals. ``ms``: ingest into that memstore (a
+    server's, with its chunk size) instead of a new one sealing each
+    series in one chunk."""
     from filodb_tpu_torch.core.records import SeriesBatch
     from filodb_tpu_torch.core.schemas import PROM_COUNTER, Dataset, shard_for
     from filodb_tpu_torch.memstore.memstore import TimeSeriesMemStore
     from filodb_tpu_torch.memstore.shard import StoreConfig
 
     rng = np.random.default_rng(seed)
-    ms = TimeSeriesMemStore(StoreConfig(max_chunk_size=n_samples))
-    ms.setup(Dataset("prometheus"), range(N_SHARDS))
+    if ms is None:
+        ms = TimeSeriesMemStore(StoreConfig(max_chunk_size=n_samples))
+        ms.setup(Dataset("prometheus"), range(N_SHARDS))
     phase = JITTER_PHASE_MS if grid == "jitter" else 0
     nominal = BASE + phase + np.arange(n_samples, dtype=np.int64) * 10_000
     blk = 10_000
@@ -2329,10 +2363,10 @@ HIST_SUM_QUERY = "sum by (le) (rate(http_request_latency_bucket[5m]))"
 N_BUCKETS = 12  # bench.py's PROM_DEFAULT scheme (11 finite bounds + Inf)
 HIST_LES = np.array([0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, np.inf])
 HIST_SEED = 42  # bench.py's build_memstore_hist
-# 7c's store: bench.py's histograms on irregular scrapes, cut to half the
-# series so that the whole run stays within half its time limit (building a
-# 100k-series histogram store takes the host about 100 s)
-HIST_IRREGULAR_SERIES = 25_000
+# 7c's store: bench.py's histograms on irregular scrapes, cut to a sixteenth
+# of the series so that the whole run stays within its time budget (building
+# a 100k-series histogram store takes the host about 100 s)
+HIST_IRREGULAR_SERIES = 6_250
 
 
 def hist_tags(i: int) -> dict:
@@ -3628,7 +3662,7 @@ def phase_tree(engine, card: str, grid: str, sum_rate: np.ndarray) -> dict:
 
 # -- phase 10b: classic buckets ----------------------------------------------------
 
-CLASSIC_SETS = 10_000  # label sets x 12 le bounds = 120,000 classic bucket series
+CLASSIC_SETS = 2_500  # label sets x 12 le bounds = 30,000 classic bucket series
 CLASSIC_QUERIES = (
     (0.99, "histogram_quantile(0.99, sum by (le) (rate(http_request_latency_bucket[5m])))"),
     (0.9, "histogram_quantile(0.9, sum by (le, zone) (rate(http_request_latency_bucket[5m])))"),
@@ -3739,7 +3773,7 @@ def run_classic(engine, q: str):
 
 
 def phase_classic(device, card: str) -> dict:
-    """Phase 10b: ``CLASSIC_QUERIES`` over 10,000 label sets x 12 le
+    """Phase 10b: ``CLASSIC_QUERIES`` over ``CLASSIC_SETS`` label sets x 12 le
     bounds (``build_memstore_classic``), each cold then warm: one aggregate
     launch plus one gather per scheme; [G, J] against the plain fold of the
     same aggregate (rtol 1e-3) and bench.py's f64 oracle (rtol 5e-3); the
@@ -6270,6 +6304,286 @@ def phase_hist_jitter(ms, device, card: str) -> dict:
     return row
 
 
+PERSIST_SERIES = N_SERIES  # phase 17's store: phase 5's draws at full size
+
+
+def counted_http(base: str, path: str):
+    """One HTTP request with every launch count set to 0 just before and
+    read just after, and the fused ladder's choices seen meanwhile.
+    Returns (payload, wall seconds, counts, [(grid class, rung)])."""
+    import importlib
+
+    from filodb_tpu_torch.ops import aggregations as AGG
+    from filodb_tpu_torch.ops.staging import grid_class
+
+    mods = {name: importlib.import_module(f"filodb_tpu_torch.ops.{mod}")
+            for name, (mod, _) in KERNEL_COUNTERS.items()}
+    seen = []
+    ladder = AGG.grid_variant
+
+    def watched(block, func, is_delta=False, window_ms=None):
+        variant = ladder(block, func, is_delta, window_ms)
+        seen.append((grid_class(block), variant))
+        return variant
+
+    AGG.grid_variant = watched
+    try:
+        for name, (_, attr) in KERNEL_COUNTERS.items():
+            setattr(mods[name], attr, 0)
+        payload, _, wall = http_json(base, path)
+        counts = {name: getattr(mods[name], attr) for name, (_, attr) in KERNEL_COUNTERS.items()}
+    finally:
+        AGG.grid_variant = ladder
+    return payload, wall, counts, seen
+
+
+def one_regular_launch(counts: dict, seen: list, what: str) -> None:
+    want = {k: int(k == "regular_range") for k in KERNEL_COUNTERS}
+    require(seen == [("regular", "mxu")] and counts == want,
+            f"{what}: ladder {seen}, launches {counts}; expected one regular_range launch on "
+            f"the regular rung")
+
+
+def drift_zero(base: str, what: str) -> dict:
+    res, _, _ = http_json(base, "/debug/resources")
+    kinds = res["data"]["kinds"]
+    require(all(k["drift"] == 0 for k in kinds.values()), f"{what}: ledger drift {kinds}")
+    return kinds
+
+
+def cached_block(engine):
+    """The one staged superblock in the engine's superblock cache."""
+    entries = [v for _, v, _ in engine.memstore._superblock_cache._d.values()]
+    require(len(entries) == 1, f"expected one cached superblock, found {len(entries)}")
+    return entries[0].block
+
+
+def blocks_bit_equal(a, b) -> bool:
+    """Two staged blocks hold the same bits: every array (floats as their
+    bit patterns, so NaN padding compares), the rows' part refs, the base."""
+    import torch
+
+    def bits(x):
+        if x is None:
+            return None
+        t = torch.as_tensor(x)
+        if t.is_floating_point():
+            t = t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+        return t
+
+    for name in ("ts", "vals", "lens", "baseline", "raw"):
+        x, y = bits(getattr(a, name)), bits(getattr(b, name))
+        if (x is None) != (y is None) or (x is not None and not torch.equal(x, y.to(x.device))):
+            return False
+    return a.part_refs == b.part_refs and a.base_ms == b.base_ms and a.n_series == b.n_series
+
+
+def dir_bytes(root: str) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+
+
+def phase_persistence(seed: int, device, card: str, want: dict) -> dict:
+    """17: flush, restart and recovery, on-demand paging and retention at
+    full size through the port's server on the card (``want``: phase 5's
+    answers to ``QUERIES`` as ``engine_rows``). Returns the phase's numbers
+    and its ``regular_range`` launches."""
+    import shutil
+    import tempfile
+    import urllib.parse
+
+    from filodb_tpu_torch.core import encodings as ENC
+    from filodb_tpu_torch.core.schemas import canonical_partkey, hash64
+    from filodb_tpu_torch.server import FiloServer
+
+    one = series_tags(PERSIST_SERIES // 2 + 1)  # the one-instance rate's series
+    instance_q = f'rate(http_requests_total{{instance="{one["instance"]}"}}[5m])'
+    root = tempfile.mkdtemp(prefix="filodb-store-")
+    cfg = {"store_root": root, "shards": N_SHARDS, "spread": SPREAD,
+           "retention_hours": 10**7,  # the 2020 samples stay until 17d evicts them
+           "flush_interval_s": 10**9}  # the maintenance loop flushes nothing by itself
+    grid = f"&start={START_S}&end={END_S}&step={STEP_S}"
+    paths = {q: f"/api/v1/query_range?query={urllib.parse.quote(q)}{grid}"
+             for q in QUERIES + (instance_q,)}
+    out: dict = {"series": PERSIST_SERIES}
+    launches = 0
+    servers = []
+    try:
+        # 17a: ingest into a server with a column store, then flush it
+        srv = FiloServer(cfg, device=device)
+        servers.append(srv)
+        base = f"http://127.0.0.1:{srv.start(port=0)}"
+        t0 = time.perf_counter()
+        build_memstore(PERSIST_SERIES, N_SAMPLES, seed, "regular", ms=srv.memstore)
+        out["ingest_s"] = time.perf_counter() - t0
+        tiers = dict(ENC.TIER_CALLS)
+        t0 = time.perf_counter()
+        flushed, _, _ = http_json(base, "/admin/flush", data=b"")
+        out["flush_s"] = time.perf_counter() - t0
+        flush_calls = {k: ENC.TIER_CALLS[k] - tiers[k] for k in tiers}
+        require(flush_calls["library"] > 0 and flush_calls["python"] == 0,
+                f"phase17a: codec calls by tier {flush_calls}: the library must run them all")
+        chunks, keys = flushed["data"]["chunks_written"], flushed["data"]["partkeys_written"]
+        require(keys == PERSIST_SERIES and chunks == 2 * PERSIST_SERIES,
+                f"phase17a: flushed {chunks} chunks, {keys} partkeys")
+        disk = dir_bytes(root)
+        out.update(chunks=chunks, partkeys=keys, disk_bytes=disk,
+                   bytes_per_sample=disk / (PERSIST_SERIES * N_SAMPLES),
+                   flush_codec_calls=flush_calls)
+        print(f"phase17a: {PERSIST_SERIES} series x {N_SAMPLES} samples ingested into a server "
+              f"with a column store in {out['ingest_s']:.1f} s; POST /admin/flush wrote {chunks} "
+              f"chunks and {keys} partkeys in {out['flush_s']:.2f} s, {disk} bytes on disk "
+              f"({out['bytes_per_sample']:.3f} bytes a sample, 16 raw); codec calls by tier "
+              f"{flush_calls} (the g++ library)")
+        srv.stop()
+        servers.remove(srv)
+        del srv
+        gc.collect()
+
+        # 17b: a second server on the same root recovers, then answers
+        tiers = dict(ENC.TIER_CALLS)
+        t0 = time.perf_counter()
+        srv = FiloServer(cfg, device=device)
+        servers.append(srv)
+        base = f"http://127.0.0.1:{srv.start(port=0)}"
+        out["recover_s"] = time.perf_counter() - t0
+        rec_calls = {k: ENC.TIER_CALLS[k] - tiers[k] for k in tiers}
+        require(rec_calls["library"] > 0 and rec_calls["python"] == 0,
+                f"phase17b: codec calls by tier {rec_calls}")
+        n_parts = sum(sh.num_partitions for sh in srv.memstore.shards("prometheus"))
+        require(n_parts == PERSIST_SERIES, f"phase17b: recovered {n_parts} series")
+        answers, out["queries"] = {}, {}
+        for q in QUERIES:
+            runs = {}
+            for run in ("cold", "warm"):
+                payload, wall, counts, seen = counted_http(base, paths[q])
+                one_regular_launch(counts, seen, f"phase17b {q} ({run})")
+                launches += 1
+                got = http_rows(payload)
+                rel = rows_equal_http(got, want[q], f"phase17b {q} ({run}) vs phase 5")
+                runs[run] = {"ms": wall * 1e3, "max_rel_err": rel}
+                if run == "cold":
+                    answers[q] = payload["data"]["result"]
+            out["queries"][q] = runs
+            print(f"phase17b {q!r} over HTTP on the recovered server: cold "
+                  f"{runs['cold']['ms']:.1f} ms, warm {runs['warm']['ms']:.1f} ms, one "
+                  f"regular_range launch each on the regular rung; equal to phase 5's answer "
+                  f"(rtol 1e-5, max rel {max(r['max_rel_err'] for r in runs.values()):.3g}, the "
+                  f"same NaN steps)")
+        payload, wall, counts, _ = counted_http(base, paths[instance_q])
+        launches += counts["regular_range"]
+        answers[instance_q] = payload["data"]["result"]
+        require(len(answers[instance_q]) == 1, "phase17b: the one-instance rate")
+        print(f"phase17b: recovery (start, 8 shards) {out['recover_s']:.1f} s; codec calls by "
+              f"tier {rec_calls}; the one-instance tree rate {wall * 1e3:.1f} ms on {card}")
+
+        # 17c: tier-2 eviction of every flushed chunk, then page-in on demand
+        shards = srv.memstore.shards("prometheus")
+        before = cached_block(srv.engine)
+        freed = sum(sh.evict_for_headroom(target_bytes=0) for sh in shards)
+        require(not len(srv.memstore._superblock_cache),
+                "phase17c: the eviction left a stale superblock cached")
+        require(all(not p.chunks for sh in shards for p in sh.partitions.values()),
+                "phase17c: a flushed chunk survived a tier-2 eviction")
+        drift_zero(base, "phase17c after the eviction")
+        pages0 = sum(sh.odp_stats_pages for sh in shards)
+        page_s = [0.0]
+
+        def timed(page_in):
+            def run(*a, **k):
+                t = time.perf_counter()
+                try:
+                    return page_in(*a, **k)
+                finally:
+                    page_s[0] += time.perf_counter() - t
+            return run
+
+        for sh in shards:
+            sh.odp_page_in = timed(sh.odp_page_in)
+        try:
+            payload, wall, counts, seen = counted_http(base, paths[QUERIES[0]])
+        finally:
+            for sh in shards:
+                del sh.odp_page_in  # the class's method again
+        one_regular_launch(counts, seen, "phase17c paged-in north star")
+        launches += 1
+        pages = sum(sh.odp_stats_pages for sh in shards) - pages0
+        require(pages == 2 * PERSIST_SERIES, f"phase17c: {pages} chunks paged in")
+        require(blocks_bit_equal(cached_block(srv.engine), before),
+                "phase17c: the paged-in superblock differs from 17b's")
+        del before
+        rel = rows_equal_http(http_rows(payload), http_rows({"data": {"result": answers[
+            QUERIES[0]]}}), "phase17c paged-in north star vs 17b")
+        out["evict"] = {"freed_bytes": freed, "pages": pages, "page_in_query_ms": wall * 1e3,
+                        "page_in_s": page_s[0], "max_rel_err_vs_17b": rel}
+        print(f"phase17c: evict_for_headroom(target_bytes=0) freed {freed} bytes (tier 2, every "
+              f"flushed chunk; the cached superblock dropped with them); the north star paged "
+              f"{pages} chunks back in, {wall:.2f} s end to end ({page_s[0]:.2f} s of it the page-in: "
+              f"reading, decoding and attaching the frames), one regular_range launch; its "
+              f"superblock bit-equal to 17b's, its answer within rtol 1e-5 of 17b's (max rel "
+              f"{rel:.3g}: the group atomics order the f32 sums anew each launch); ledger "
+              f"drift 0")
+
+        # 17d: retention on the memory-only store (attached, the column store
+        # would page the evicted chunks back in, as in the JAX package)
+        for sh in shards:
+            sh.odp_store = None
+        cutoff = BASE + srv.store_config.max_chunk_size * 10_000
+        now = cutoff + srv.store_config.retention_ms
+        dropped = sum(sh.evict_for_retention(now) for sh in shards)
+        require(dropped == PERSIST_SERIES * srv.store_config.max_chunk_size,
+                f"phase17d: retention dropped {dropped} samples")
+        drift_zero(base, "phase17d after retention")
+        payload, wall, counts, seen = counted_http(base, paths[QUERIES[0]])
+        one_regular_launch(counts, seen, "phase17d north star after retention")
+        launches += 1
+        got = http_rows(payload)
+        with plain_kernels():
+            plain = engine_rows(srv.engine.query_range(QUERIES[0], START_S, END_S, STEP_S))
+        require(set(got) == set(plain) and len(got) == 1, "phase17d: labels differ")
+        (gt, gv), (pt, pv) = next(iter(got.values())), next(iter(plain.values()))
+        require(np.array_equal(gt, pt), "phase17d: steps differ from the plain path")
+        require(np.allclose(gv, pv, rtol=1e-3), "phase17d: values differ from the plain path")
+        require(gt.min() >= cutoff, f"phase17d: a step before the cutoff answered ({gt.min()})")
+        out["retention"] = {"cutoff_ms": cutoff, "dropped_samples": dropped, "query_ms": wall * 1e3,
+                            "steps": int(len(gt)), "max_abs_err": float(np.max(np.abs(gv - pv)))}
+        print(f"phase17d: evict_for_retention at {cutoff} ms dropped {dropped} samples; the north "
+              f"star over HTTP ({wall * 1e3:.1f} ms, one regular_range launch) answers {len(gt)} "
+              f"of {int((END_S - START_S) // STEP_S) + 1} steps, none before the cutoff, and "
+              f"matches the plain path on the card (rtol 1e-3, max_abs_err "
+              f"{out['retention']['max_abs_err']:.3g})")
+
+        # 17c again: a second eviction, then one series paged in by its frames
+        for sh in shards:
+            sh.odp_store = srv.column_store
+        freed2 = sum(sh.evict_for_headroom(target_bytes=0) for sh in shards)
+        drift_zero(base, "phase17c after the second eviction")
+        store = srv.column_store
+        store.stats_selective_bytes = 0
+        payload, wall, counts, _ = counted_http(base, paths[instance_q])
+        launches += counts["regular_range"]
+        read = store.stats_selective_bytes
+        pk = f"{hash64(canonical_partkey(one)):016x}"
+        frames = sum(e["len"] for s in range(N_SHARDS)
+                     for e in store._manifest("prometheus", s) or [] if e["pk"] == pk)
+        total = sum(e["len"] for s in range(N_SHARDS) for e in store._manifest("prometheus", s))
+        require(read == frames > 0, f"phase17c: read {read} bytes, the series' frames {frames}")
+        require(payload["data"]["result"] == answers[instance_q],
+                "phase17c: the one-instance rate differs from 17b's")
+        out["selective"] = {"freed_bytes": freed2, "bytes_read": read, "store_frame_bytes": total,
+                            "query_ms": wall * 1e3}
+        print(f"phase17c: after a second eviction ({freed2} bytes) the one-instance rate read "
+              f"{read} bytes (that series' frames; the store's frames {total}) in "
+              f"{wall * 1e3:.1f} ms, equal to 17b's answer; ledger drift 0 on {card}")
+    finally:
+        for srv in servers:
+            srv.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6281,12 +6595,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     from filodb_tpu_torch.coordinator.planner import QueryEngine
+    from filodb_tpu_torch.server import tune_heap
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 matmuls in full f32
     device = torch.device("cuda")
+    heap_tuned = tune_heap()  # as the port's server tunes its process at start
     split_libs = build_kernels()
     card = card_line()
-    print(f"phase1 card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(f"phase1 card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
+          f"glibc heap trimming held off (server.tune_heap): {heap_tuned}")
 
     gpu_sample("phase2 before")
     phase_window_stats_vs_plain(args.seed, device)
@@ -6331,8 +6648,15 @@ def main() -> int:
     elapsed("phase 15")
     cli = phase_cli(card)
     elapsed("phase 15b")
+    reg_answers = {q: engine_rows(engine.query_range(q, START_S, END_S, STEP_S))
+                   for q in QUERIES}
     del engine
-    gc.collect()  # the regular store goes before the jittered one is built
+    gc.collect()  # the regular store goes before phase 17's is built
+    torch.cuda.empty_cache()
+    persistence = phase_persistence(args.seed, device, card, reg_answers)
+    reg_row["launches"] += persistence["launches"]
+    elapsed("phase 17")
+    gc.collect()  # phase 17's servers go before the jittered store is built
     torch.cuda.empty_cache()
     order_stream = phase_order_stream(args.seed, device, card)
     gc.collect()
@@ -6469,6 +6793,7 @@ def main() -> int:
     print(json.dumps({"hist": {"phase7b": bench_hist, "phase7c": irr_hist, "phase7d": card_hist,
                                "phase16": hist_jitter}}))
     print(json.dumps({"server": {"phase15": http, "phase15b": cli}}))
+    print(json.dumps({"persistence": {"phase17": persistence}}))
     order_rows = epilogue_rows(epilogues, {"window_stats": wr_row, "general": general_row,
                                            "mxu": reg_row}, order_stream)
     for per in fused_jitter.values():  # phase 14's general leaves and topk order statistics

@@ -11,11 +11,13 @@ Served:
   GET      /api/v1/labels, /api/v1/label/<name>/values, /api/v1/series,
            /api/v1/metadata, /api/v1/status/buildinfo, /api/v1/status/flags
            (and /config: the JAX defaults the port holds off),
-           /api/v1/cardinality, /admin/health
+           /api/v1/cardinality, /api/v1/query_exemplars (the OpenMetrics
+           exemplars /ingest/prom keeps), /admin/health
   GET      /metrics (Prometheus text or OpenMetrics), /debug/slow_queries,
            /debug/superblocks, /debug/resources (the device ledger)
   POST     /ingest (JSON lines), /ingest/prom, /ingest/influx,
-           /api/v1/write (remote write), /api/v1/read (remote read)
+           /api/v1/write (remote write), /api/v1/read (remote read),
+           /admin/flush (the server's flush, when it attached one)
 
 Every other route of the JAX handler belongs to a subsystem the port has
 not got yet and answers 501 with a Prometheus-style error body naming its
@@ -48,16 +50,14 @@ from . import promjson as J
 # route -> the ROADMAP item that brings its subsystem to the port
 UNPORTED = {
     "/__members": "A9 (federation and the cluster)",
-    "/admin/flush": "A4 (the memstore's lifecycle and persistence)",
     "/debug/querylog": "A6 (observability: the query log)",
     "/api/v1/query_profile": "A6 (observability: the query log)",
     "/debug/kernels": "A6 (observability: the kernel observatory)",
     "/debug/costmodel": "A6 (observability: the cost model)",
     "/debug/scheduler": "A5 (scheduling and admission)",
     "/debug/cluster": "A9 (federation and the cluster)",
-    "/debug/index": "A4 (the part-key index at scale)",
+    "/debug/index": "A4b (the part-key index at scale)",
     "/debug/profile": "A6 (observability: the sampling profiler)",
-    "/api/v1/query_exemplars": "A4 (exemplars and metric metadata)",
     "/api/v1/standing/register": "A5 (standing queries)",
     "/api/v1/standing/unregister": "A5 (standing queries)",
     "/api/v1/standing/subscribe": "A5 (standing queries)",
@@ -123,6 +123,9 @@ def _pull_grids(res) -> float:
 class PromApiHandler(BaseHTTPRequestHandler):
     engine: QueryEngine = None  # set by make_server
     auth_token: str | None = None  # optional bearer auth (make_server)
+    # the server's zero-argument flush (FiloServer.flush_now) behind POST
+    # /admin/flush (reference AdminRoutes)
+    flush_hook = None
     protocol_version = "HTTP/1.1"
     GZIP_MIN_BYTES = 1024
     STREAM_MIN_SAMPLES = 200_000  # above this, query_range streams chunked
@@ -308,6 +311,15 @@ class PromApiHandler(BaseHTTPRequestHandler):
 
                 return self._send(200, J.success({"version": __version__,
                                                   "application": "filodb-tpu"}))
+            if path == "/admin/flush" and self.command == "POST":
+                if self.flush_hook is None:
+                    return self._send(404, J.error("not_found", "no flusher attached"))
+                self._read_raw()  # drain: keep-alive connections desync otherwise
+                res = self.flush_hook()
+                return self._send(200, J.success({"chunks_written": res.chunks_written,
+                                                  "partkeys_written": res.partkeys_written}))
+            if path == "/api/v1/query_exemplars":
+                return self._query_exemplars()
             if path == "/admin/health":
                 return self._send(200, {"status": "healthy",
                                         "shards": len(self.engine.memstore.shards(
@@ -564,17 +576,37 @@ class PromApiHandler(BaseHTTPRequestHandler):
         depth = int(self._q(p, "depth", str(len(prefix) + 1)))
         return self._send(200, J.success(self.engine.ts_cardinalities(prefix, depth)))
 
+    def _query_exemplars(self):
+        """Prometheus /api/v1/query_exemplars: the exemplars of the series a
+        query's selectors match, within [start, end]."""
+        from ..query.logical import leaf_raw_series
+        from ..query.promql import query_to_logical_plan
+
+        p = self._params()
+        query = self._q(p, "query")
+        if not query:
+            return self._send(400, J.error("bad_data", "missing query"))
+        start = _parse_time(self._q(p, "start") or "0")
+        end = _parse_time(self._q(p, "end") or str(2**31))
+        out = []
+        for leaf in leaf_raw_series(query_to_logical_plan(query, end)):
+            out.extend(self.engine.memstore.query_exemplars(
+                self.engine.dataset, leaf.filters, int(start * 1000), int(end * 1000)))
+        return self._send(200, J.success(out))
+
     def _ingest_prom(self):
         """Prometheus text exposition ingest (counters route to the
-        prom-counter schema by their # TYPE comments). OpenMetrics
-        exemplars are parsed and not kept (ROADMAP A4)."""
+        prom-counter schema by their # TYPE comments); OpenMetrics
+        exemplars ride beside their samples and are kept on their series."""
         from ..gateway.parsers import prom_text_to_batches_and_exemplars
 
         text = self._read_body()
         n = 0
-        batches, _exemplars = prom_text_to_batches_and_exemplars(text, int(time.time() * 1000))
+        batches, exemplars = prom_text_to_batches_and_exemplars(text, int(time.time() * 1000))
         for batch in batches:
             n += self.engine.memstore.ingest_routed(self.engine.dataset, batch, spread=3)
+        if exemplars:
+            self.engine.memstore.add_exemplars(self.engine.dataset, 3, exemplars)
         return self._send(200, J.success({"ingested": n}))
 
     def _ingest_influx(self):
@@ -633,7 +665,8 @@ class PromApiHandler(BaseHTTPRequestHandler):
 
 
 def register_shard_stats_collector(engine: QueryEngine) -> None:
-    """Scrape-time per-shard gauges (``filodb_shard_partitions``) in the
+    """Scrape-time per-shard gauges (``filodb_shard_partitions``, rows
+    ingested and skipped, partitions evicted, chunks flushed) in the
     registry, keyed per engine; the closure holds the memstore weakly and
     unregisters itself once the store is gone."""
     import weakref
@@ -650,21 +683,27 @@ def register_shard_stats_collector(engine: QueryEngine) -> None:
             REGISTRY.unregister_collector(key)
             return
         for sh in memstore.shards(ds):
-            REGISTRY.gauge("filodb_shard_partitions", dataset=ds,
-                           shard=str(sh.shard_num)).set(float(len(sh.partitions)))
+            for name, v in (("filodb_shard_partitions", sh.num_partitions),
+                            ("filodb_shard_rows_ingested", sh.stats.rows_ingested),
+                            ("filodb_shard_rows_skipped", sh.stats.rows_skipped),
+                            ("filodb_shard_partitions_evicted", sh.stats.partitions_evicted),
+                            ("filodb_shard_chunks_flushed", sh.stats.chunks_flushed)):
+                REGISTRY.gauge(name, dataset=ds, shard=str(sh.shard_num)).set(float(v))
 
     REGISTRY.register_collector(key, collect)
 
 
 def make_server(engine: QueryEngine, host: str = "127.0.0.1", port: int = 9090,
-                auth_token: str | None = None,
-                result_plane: dict | None = None) -> ThreadingHTTPServer:
+                auth_token: str | None = None, result_plane: dict | None = None,
+                flush_hook=None) -> ThreadingHTTPServer:
     """An HTTP server over ``engine`` (not started). ``result_plane`` takes
-    the config's ``stream_min_samples`` and ``stream_block_rows``."""
+    the config's ``stream_min_samples`` and ``stream_block_rows``;
+    ``flush_hook`` answers POST /admin/flush."""
     from .. import ledger  # noqa: F401 -- registers the ledger's /metrics collector
 
     register_shard_stats_collector(engine)
-    attrs = {"engine": engine, "auth_token": auth_token}
+    attrs = {"engine": engine, "auth_token": auth_token,
+             "flush_hook": staticmethod(flush_hook) if flush_hook else None}
     if result_plane:
         attrs["STREAM_MIN_SAMPLES"] = int(
             result_plane.get("stream_min_samples", PromApiHandler.STREAM_MIN_SAMPLES))
@@ -677,10 +716,11 @@ def make_server(engine: QueryEngine, host: str = "127.0.0.1", port: int = 9090,
 
 
 def serve_background(engine: QueryEngine, host: str = "127.0.0.1", port: int = 0,
-                     auth_token: str | None = None, result_plane: dict | None = None):
+                     auth_token: str | None = None, result_plane: dict | None = None,
+                     flush_hook=None):
     """Start the API server on a thread; returns (server, actual_port).
     ``server.shutdown()`` then ``server.server_close()`` stop it."""
-    srv = make_server(engine, host, port, auth_token, result_plane)
+    srv = make_server(engine, host, port, auth_token, result_plane, flush_hook)
     t = threading.Thread(target=srv.serve_forever, daemon=True, name="filodb-http")
     t.start()
     return srv, srv.server_address[1]

@@ -11,11 +11,13 @@ Usage:
   python -m filodb_tpu_torch.cli series       --host URL 'm{job="x"}'
   python -m filodb_tpu_torch.cli ingest-csv   --host URL data.csv   (metric,tags,ts_ms,value)
   python -m filodb_tpu_torch.cli partkey      'm{job="x"}'          (debug: hash/shard)
+  python -m filodb_tpu_torch.cli cardbust     --store DIR 'm{job="x"}'
+  python -m filodb_tpu_torch.cli copy-store   --src DIR --dst DIR
 
-``serve`` takes the card unless ``--device cpu`` is given. The store tools
-of the JAX CLI (``downsample-batch``, ``churn-find``, ``cardbust``,
-``copy-store``) work on a persisted store, which the port has not got:
-they raise, naming their ROADMAP item.
+``serve`` takes the card unless ``--device cpu`` is given. ``cardbust``
+deletes the persisted series a selector matches; ``copy-store`` copies a
+column store's chunks and partkeys into another. The JAX CLI's
+``downsample-batch`` and ``churn-find`` raise, naming ROADMAP A7.
 """
 
 from __future__ import annotations
@@ -109,11 +111,53 @@ def cmd_partkey(args):
     )
 
 
+def _shard_nums(root: str, dataset: str) -> list[int]:
+    import os
+
+    return sorted(int(d.split("-")[1]) for d in os.listdir(os.path.join(root, dataset))
+                  if d.startswith("shard-"))
+
+
+def _matchers_from_selector(expr: str):
+    from .core.filters import ColumnFilter
+    from .core.schemas import METRIC_TAG
+    from .query.promql import Parser
+
+    sel = Parser(expr).selector()
+    filters = list(sel.matchers)
+    if sel.metric:
+        filters.append(ColumnFilter(METRIC_TAG, "=", sel.metric))
+    return filters
+
+
+def cmd_cardbust(args):
+    """Delete the persisted series a selector matches (reference
+    CardinalityBusterMain)."""
+    from .store.columnstore import LocalColumnStore
+    from .store.repair import bust_cardinality
+
+    deleted = bust_cardinality(LocalColumnStore(args.store), args.dataset,
+                               _shard_nums(args.store, args.dataset),
+                               _matchers_from_selector(args.selector))
+    _print({"series_deleted": deleted})
+
+
+def cmd_copy_store(args):
+    """Copy chunks and partkeys between stores (reference ChunkCopier)."""
+    from .store.columnstore import LocalColumnStore
+    from .store.repair import copy_chunks, copy_partkeys
+
+    src, dst = LocalColumnStore(args.src), LocalColumnStore(args.dst)
+    shard_nums = _shard_nums(args.src, args.dataset)
+    n_chunks = copy_chunks(src, dst, args.dataset, shard_nums)
+    n_keys = copy_partkeys(src, dst, args.dataset, shard_nums)
+    _print({"chunks_copied": n_chunks, "partkeys_copied": n_keys})
+
+
 def _unported(item: str):
     def cmd(args):
         raise NotImplementedError(
-            f"{args.cmd} works on a persisted store, which filodb_tpu_torch has not got "
-            f"yet (ROADMAP {item})")
+            f"{args.cmd} is not ported to filodb_tpu_torch yet (ROADMAP {item})")
 
     return cmd
 
@@ -181,7 +225,7 @@ def main(argv=None):
     sp.add_argument("selector")
     sp.set_defaults(fn=cmd_partkey)
 
-    # the JAX CLI's store tools, with their arguments: they raise
+    # the JAX CLI's downsampling tools, with their arguments: they raise
     sp = sub.add_parser("downsample-batch")
     sp.add_argument("--store", required=True)
     sp.add_argument("--dataset", default="prometheus")
@@ -213,13 +257,13 @@ def main(argv=None):
     sp.add_argument("--store", required=True)
     sp.add_argument("--dataset", default="prometheus")
     sp.add_argument("selector")
-    sp.set_defaults(fn=_unported("A4"))
+    sp.set_defaults(fn=cmd_cardbust)
 
     sp = sub.add_parser("copy-store")
     sp.add_argument("--src", required=True)
     sp.add_argument("--dst", required=True)
     sp.add_argument("--dataset", default="prometheus")
-    sp.set_defaults(fn=_unported("A4"))
+    sp.set_defaults(fn=cmd_copy_store)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -10,8 +10,7 @@ own copy of the JAX package's transport).
 
 The JAX client's gRPC transport (``grpc_endpoint``) and Arrow result
 frames are not ported: the first raises (ROADMAP A9), results always come
-as JSON. Its failover siblings (replicated frontends, A9) and exemplar
-reads (A4) are left out.
+as JSON. Its failover siblings (replicated frontends, A9) are left out.
 """
 
 from __future__ import annotations
@@ -157,6 +156,9 @@ class FiloClient:
 
     def cardinality(self, prefix: Sequence[str] = (), depth: int | None = None):
         return self._get("/api/v1/cardinality", prefix=",".join(prefix) or None, depth=depth)
+
+    def exemplars(self, promql: str, start_s: float, end_s: float):
+        return self._get("/api/v1/query_exemplars", query=promql, start=start_s, end=end_s)
 
     # -- ingest / admin ----------------------------------------------------------
 

@@ -32,8 +32,8 @@ DEFAULTS: dict = {
     "retention_hours": 72,
     "groups_per_shard": 16,
     "max_partitions_per_shard": 1_000_000,
-    # "python" = vectorized posting-bitmap index (default), "native" = C++
-    # posting lists, "set" = the retained set-arithmetic oracle
+    # the port's index is the set-arithmetic one for "python" (the JAX
+    # default's name) and "set"; "native" is ROADMAP A4b
     "index_backend": "python",
     # opt-in HBM tier for hot posting bitmaps (doc/perf.md "Vectorized
     # part-key index": all-equality selectors over staged bitmaps resolve

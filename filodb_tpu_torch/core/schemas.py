@@ -12,6 +12,7 @@ JAX package's, so one series lands on the same shard in both packages.
 from __future__ import annotations
 
 import enum
+import functools
 import hashlib
 from dataclasses import dataclass, field
 from typing import Mapping, Sequence
@@ -45,6 +46,12 @@ class Schema:
     columns: Sequence[Column]
     value_column: str  # the default column queries read
 
+    @property
+    def schema_id(self) -> int:
+        """Stable 16-bit id from the name and column layout, as the JAX
+        package computes it (the column store's frames carry it)."""
+        return _schema_id(self.name, tuple((c.name, c.ctype.value) for c in self.columns))
+
     def column(self, name: str) -> Column:
         for c in self.columns:
             if c.name == name:
@@ -54,6 +61,13 @@ class Schema:
     @property
     def has_histogram(self) -> bool:
         return any(c.ctype == ColumnType.HISTOGRAM for c in self.columns)
+
+
+@functools.lru_cache(maxsize=None)
+def _schema_id(name: str, layout: tuple) -> int:
+    h = hashlib.blake2b((name + "|" + ",".join(f"{c}:{t}" for c, t in layout)).encode(),
+                        digest_size=2).digest()
+    return int.from_bytes(h, "little")
 
 
 def _ts() -> Column:

@@ -5,13 +5,18 @@ Tag postings as Python sets: equality filters read their posting set,
 negative and regex filters scan the label's value dictionary. PromQL
 semantics: a matcher the empty string satisfies also matches series that
 lack the tag. The metadata queries (label names, label values, the label
-sets of the matching series) read the same postings.
+sets of the matching series) read the same postings. Each part id carries
+its start and end time: the end time is the "still ingesting" sentinel
+until the flush cycle marks the series ended (``update_end_time``), and
+time-filtered lookups prune by both. Retention removes a part id with its
+postings (``remove``). The bitmap index of the JAX package, its postings
+and its native core are ROADMAP A4b.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Mapping, Sequence
+from typing import Iterable, Mapping, Sequence
 
 import numpy as np
 
@@ -39,6 +44,40 @@ class SetBasedPartKeyIndex:
         self._all.add(part_id)
         for k, v in tags.items():
             self._postings.setdefault(k, {}).setdefault(v, set()).add(part_id)
+
+    def update_end_time(self, part_id: int, end_ts: int) -> None:
+        self._end[part_id] = end_ts
+
+    def remove(self, part_ids: Iterable[int]) -> None:
+        """Drop part ids with their postings; a label left with no value
+        goes too, so ``label_names`` no longer lists it."""
+        for pid in part_ids:
+            tags = self._tags.pop(pid, None)
+            if tags is None:
+                continue
+            self._all.discard(pid)
+            self._start.pop(pid, None)
+            self._end.pop(pid, None)
+            for k, v in tags.items():
+                s = self._postings.get(k, {}).get(v)
+                if s is not None:
+                    s.discard(pid)
+                    if not s:
+                        del self._postings[k][v]
+                        if not self._postings[k]:
+                            del self._postings[k]
+
+    def start_time(self, part_id: int) -> int:
+        return self._start[part_id]
+
+    def end_time(self, part_id: int) -> int:
+        return self._end[part_id]
+
+    def tags_of(self, part_id: int) -> Mapping[str, str]:
+        return self._tags[part_id]
+
+    def __len__(self) -> int:
+        return len(self._all)
 
     def _ids_for_filter(self, f: ColumnFilter) -> set[int]:
         vals = self._postings.get(f.column, {})

@@ -1,6 +1,6 @@
 """Memstore facade: per-dataset shard map (counterpart of
 ``filodb_tpu/memstore/memstore.py``; reference L2: TimeSeriesMemStore.scala:26),
-with the metadata queries over every shard of a dataset.
+with the metadata queries and the exemplars over every shard of a dataset.
 """
 
 from __future__ import annotations
@@ -34,6 +34,15 @@ class TimeSeriesMemStore:
         for s in nums:
             if s not in shards:
                 shards[s] = TimeSeriesShard(dataset.name, s, self.store_config)
+                shards[s].evict_hooks.append(self._drop_stale_superblocks)
+
+    def _drop_stale_superblocks(self, shard) -> None:
+        """An eviction changed ``shard``'s resident data: drop the cached
+        superblocks that hold its series, freeing their device memory (a
+        later query of theirs restages anyway)."""
+        cache = getattr(self, "_superblock_cache", None)
+        if cache is not None:
+            cache.drop_where(lambda key: key[0] == shard.dataset and shard.shard_num in key[1])
 
     def total_shards(self, dataset: str) -> int:
         return self._total_shards[dataset]
@@ -104,8 +113,8 @@ class TimeSeriesMemStore:
 
     # -- ingest --------------------------------------------------------------
 
-    def ingest(self, dataset: str, shard_num: int, batch: RecordBatch) -> int:
-        return self.shard(dataset, shard_num).ingest(batch)
+    def ingest(self, dataset: str, shard_num: int, batch: RecordBatch, offset: int = -1) -> int:
+        return self.shard(dataset, shard_num).ingest(batch, offset)
 
     def ingest_routed(self, dataset: str, batch: RecordBatch, spread: int) -> int:
         """Route a mixed batch to owned shards by shard-key hash (gateway
@@ -122,6 +131,38 @@ class TimeSeriesMemStore:
             for s in owned:
                 n += shards[s].ingest(subs[s])
         return n
+
+    # -- exemplars (OpenMetrics) ---------------------------------------------
+
+    def add_exemplars(self, dataset: str, spread: int, items) -> int:
+        """Attach exemplars, items ``(tags, ts_ms, value, exemplar_labels)``,
+        to their series; a series that does not exist is skipped (exemplars
+        ride beside samples and never create a series)."""
+        from ..core.schemas import canonical_partkey, shard_for
+
+        shards = self._datasets[dataset]
+        options = self._dataset_meta[dataset].options
+        num_shards = self.total_shards(dataset)
+        n = 0
+        for tags, ts_ms, value, ex_labels in items:
+            sh = shards.get(shard_for(tags, spread, num_shards, options))
+            if sh is not None and sh.add_exemplar(canonical_partkey(tags), ts_ms, value,
+                                                  ex_labels):
+                n += 1
+        return n
+
+    def query_exemplars(self, dataset: str, filters, start_ms: int, end_ms: int) -> list[dict]:
+        """The Prometheus /api/v1/query_exemplars shape: for each matching
+        series, its exemplars within [start, end]."""
+        out = []
+        for sh in self.shards(dataset):
+            for pid in sh.lookup_partitions(filters, start_ms, end_ms):
+                part = sh.partition(int(pid))
+                exs = [{"labels": lbls, "value": f"{val:g}", "timestamp": ts / 1000.0}
+                       for ts, val, lbls in part.exemplars if start_ms <= ts <= end_ms]
+                if exs:
+                    out.append({"seriesLabels": dict(part.tags), "exemplars": exs})
+        return out
 
 
 @contextmanager

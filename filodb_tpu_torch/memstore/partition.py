@@ -3,8 +3,13 @@
 memstore/TimeSeriesPartition.scala:64).
 
 A partition appends into a numpy write buffer and seals fixed-max-size
-``Chunk``s. Sealed chunks keep their decoded arrays: the JAX package's
-default does not encode on seal either, so the codecs stay out of the port.
+``Chunk``s. A sealed chunk holds its decoded arrays, its encoded form
+(``core/encodings.py``: at seal when ``encode_on_seal``, else at flush) or
+both; reads go through ``Chunk.column``, which decodes an encoded-only
+chunk. Flush marks a watermark (``flushed_until``); headroom eviction drops
+the decoded arrays of flushed chunks (tier 1) or the flushed chunks
+themselves (tier 2, paged back from the column store on demand), and
+retention drops whole chunks that end before its cutoff.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from typing import Mapping
 
 import numpy as np
 
+from ..core.encodings import Encoded, decode, encode_double_rows, encode_hist, encode_int64_rows
 from ..core.schemas import ColumnType, Schema
 
 DEFAULT_MAX_CHUNK_SIZE = 400  # samples per chunk (reference store config default)
@@ -26,15 +32,56 @@ class Chunk:
     start_ts: int
     end_ts: int
     n: int
-    arrays: dict[str, np.ndarray]
+    # decoded columns (None once only the encoded form is kept)
+    arrays: dict[str, np.ndarray] | None
+    # encoded columns (at seal with encode_on_seal, else at flush)
+    encoded: dict[str, Encoded] | None = None
 
     def column(self, name: str) -> np.ndarray:
-        return self.arrays[name]
+        arrays = self.arrays
+        if arrays is not None:
+            return arrays[name]
+        return decode(self.encoded[name])
+
+    def ensure_encoded(self, schema: Schema) -> dict[str, Encoded]:
+        if self.encoded is None:
+            encode_chunks(schema, [self])
+        return self.encoded
+
+    def drop_decoded(self, schema: Schema) -> None:
+        """Keep only the encoded form (reference: the post-optimize() state)."""
+        self.ensure_encoded(schema)
+        self.arrays = None
 
     @property
     def nbytes_encoded(self) -> int:
-        """Bytes of the chunk's encoded form: 0, none is kept."""
-        return 0
+        return sum(e.nbytes for e in self.encoded.values()) if self.encoded else 0
+
+
+def encode_chunks(schema: Schema, chunks) -> None:
+    """``ensure_encoded`` of every chunk of ``schema`` not yet encoded, each
+    scalar column's chunks of one length encoded together (the same bytes)."""
+    todo = [c for c in chunks if c.encoded is None]
+    encoded: list[dict] = [{} for _ in todo]
+    for col in schema.columns:
+        by_len: dict[int, list[int]] = {}
+        for i, c in enumerate(todo):
+            if col.name in c.arrays:
+                by_len.setdefault(len(c.arrays[col.name]), []).append(i)
+        for idx in by_len.values():
+            arrays = [todo[i].arrays[col.name] for i in idx]
+            if col.ctype in (ColumnType.TIMESTAMP, ColumnType.LONG):
+                encs = encode_int64_rows(np.stack(arrays))
+            elif col.ctype == ColumnType.DOUBLE:
+                encs = encode_double_rows(np.stack(arrays))
+            elif col.ctype == ColumnType.HISTOGRAM:
+                encs = [encode_hist(a) for a in arrays]
+            else:
+                continue
+            for i, e in zip(idx, encs):
+                encoded[i][col.name] = e
+    for c, e in zip(todo, encoded):
+        c.encoded = e
 
 
 class TimeSeriesPartition:
@@ -43,11 +90,14 @@ class TimeSeriesPartition:
     partition's ``bucket_les`` bounds."""
 
     __slots__ = ("part_id", "tags", "schema", "partkey", "chunks", "_buf",
-                 "_buf_len", "max_chunk_size", "bucket_les", "_hwm")
+                 "_buf_len", "max_chunk_size", "encode_on_seal", "bucket_les",
+                 "flushed_until", "_hwm", "exemplars")
+
+    MAX_EXEMPLARS = 64  # ring-buffer cap per series (OpenMetrics exemplars)
 
     def __init__(self, part_id: int, tags: Mapping[str, str], schema: Schema,
                  partkey: bytes, max_chunk_size: int = DEFAULT_MAX_CHUNK_SIZE,
-                 bucket_les: np.ndarray | None = None):
+                 encode_on_seal: bool = False, bucket_les: np.ndarray | None = None):
         self.part_id = part_id
         self.tags = dict(tags)
         self.schema = schema
@@ -56,8 +106,18 @@ class TimeSeriesPartition:
         self._buf: dict[str, np.ndarray] | None = None
         self._buf_len = 0
         self.max_chunk_size = max_chunk_size
+        self.encode_on_seal = encode_on_seal
         self.bucket_les = bucket_les
-        self._hwm: int = -(2**62)  # newest ingested timestamp
+        self.flushed_until: int = -(2**62)  # flush watermark (ts)
+        # newest ingested timestamp; it outlives evicted chunks, so the
+        # out-of-order guard holds after a tier-2 reclaim
+        self._hwm: int = -(2**62)
+        self.exemplars: list[tuple[int, float, dict]] = []  # (ts_ms, value, labels)
+
+    def add_exemplar(self, ts_ms: int, value: float, labels: dict) -> None:
+        self.exemplars.append((int(ts_ms), float(value), dict(labels)))
+        if len(self.exemplars) > self.MAX_EXEMPLARS:
+            del self.exemplars[: len(self.exemplars) - self.MAX_EXEMPLARS]
 
     # -- ingest ------------------------------------------------------------
 
@@ -93,8 +153,11 @@ class TimeSeriesPartition:
                 sl = slice(written, written + cap)
                 arrays = {"timestamp": np.array(timestamps[sl], dtype=np.int64)}
                 arrays.update((k, np.array(v[sl])) for k, v in values.items())
-                self.chunks.append(Chunk(int(arrays["timestamp"][0]),
-                                         int(arrays["timestamp"][-1]), cap, arrays))
+                chunk = Chunk(int(arrays["timestamp"][0]), int(arrays["timestamp"][-1]),
+                              cap, arrays)
+                if self.encode_on_seal:
+                    chunk.ensure_encoded(self.schema)
+                self.chunks.append(chunk)
                 written += cap
                 continue
             if self._buf is None:
@@ -113,7 +176,26 @@ class TimeSeriesPartition:
         return n
 
     def latest_ts(self) -> int:
+        """The newest sample's timestamp: the write buffer's last, else the
+        last chunk's end, never below the ingest high-water mark (a chunk
+        recovered or paged in moves no mark)."""
+        buf, n = self._buf, self._buf_len
+        if buf is not None and n:
+            return max(int(buf["timestamp"][n - 1]), self._hwm)
+        chunks = self.chunks
+        if chunks:
+            return max(chunks[-1].end_ts, self._hwm)
         return self._hwm
+
+    def earliest_ts(self) -> int:
+        """The oldest resident sample's timestamp (2**62 when none is)."""
+        chunks = self.chunks
+        if chunks:
+            return chunks[0].start_ts
+        buf, n = self._buf, self._buf_len
+        if buf is not None and n:
+            return int(buf["timestamp"][0])
+        return 2**62
 
     def switch_buffers(self) -> Chunk | None:
         """Seal the write buffer into a chunk (reference switchBuffers:232)."""
@@ -122,6 +204,8 @@ class TimeSeriesPartition:
         n = self._buf_len
         arrays = {k: v[:n].copy() for k, v in self._buf.items()}
         chunk = Chunk(int(arrays["timestamp"][0]), int(arrays["timestamp"][-1]), n, arrays)
+        if self.encode_on_seal:
+            chunk.ensure_encoded(self.schema)
         self.chunks.append(chunk)
         self._buf = None
         self._buf_len = 0
@@ -191,3 +275,65 @@ class TimeSeriesPartition:
         if hist and self.bucket_les is not None:
             return np.empty(0, dtype=np.int64), np.empty((0, len(self.bucket_les)))
         return np.empty(0, dtype=np.int64), np.empty(0)
+
+    # -- flush / eviction ---------------------------------------------------
+
+    def unflushed_chunks(self) -> list[Chunk]:
+        return [c for c in self.chunks if c.start_ts > self.flushed_until]
+
+    def mark_flushed(self, until_ts: int) -> None:
+        self.flushed_until = max(self.flushed_until, until_ts)
+
+    def resident_bytes(self) -> int:
+        """Host bytes of this series: the write buffer, the decoded chunk
+        arrays and the encoded forms."""
+        n = 0
+        buf = self._buf
+        if buf is not None:
+            n += sum(a.nbytes for a in buf.values())
+        for c in self.chunks:
+            if c.arrays is not None:
+                n += sum(a.nbytes for a in c.arrays.values())
+            n += c.nbytes_encoded
+        return n
+
+    def drop_decoded_flushed(self) -> int:
+        """Tier-1 reclaim: flushed chunks keep only their encoded form.
+        Returns the bytes freed."""
+        freed = 0
+        for c in self.chunks:
+            if c.end_ts <= self.flushed_until and c.arrays is not None:
+                decoded = sum(a.nbytes for a in c.arrays.values())
+                had_enc = c.nbytes_encoded
+                c.drop_decoded(self.schema)
+                freed += decoded - (c.nbytes_encoded - had_enc)
+        return freed
+
+    def drop_flushed_chunks(self) -> int:
+        """Tier-2 reclaim: flushed chunks leave memory, to be paged back from
+        the column store on demand (reference evictPartitions +
+        DemandPagedChunkStore). Returns the bytes freed."""
+        freed = 0
+        keep = []
+        for c in self.chunks:
+            if c.end_ts <= self.flushed_until:
+                if c.arrays is not None:
+                    freed += sum(a.nbytes for a in c.arrays.values())
+                freed += c.nbytes_encoded
+            else:
+                keep.append(c)
+        self.chunks = keep
+        return freed
+
+    def evict_before(self, cutoff_ts: int) -> int:
+        """Drop the whole chunks that end before ``cutoff_ts``; returns the
+        samples dropped."""
+        dropped = 0
+        keep = []
+        for c in self.chunks:
+            if c.end_ts < cutoff_ts:
+                dropped += c.n
+            else:
+                keep.append(c)
+        self.chunks = keep
+        return dropped

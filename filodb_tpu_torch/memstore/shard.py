@@ -1,6 +1,7 @@
 """One shard of the in-memory store (counterpart of
 ``filodb_tpu/memstore/shard.py``; reference L2: TimeSeriesShard.scala:268 —
-ingest loop :939, partition creation :1193, lookup :2097).
+ingest loop :939, partition creation :1193, flush pipeline :1273-1636,
+eviction :1709-1799, lookup :2097).
 
 A shard owns the partkey -> partition map and the tag index. ``version``
 moves on every ingest, and every move records one entry in a bounded
@@ -9,28 +10,52 @@ time range was left untouched. The shard's staging cache holds host-staged
 blocks of selections; an ingest marks the entries it overlaps dirty, for
 the next query to repair by appending (``staging.append_to_block``).
 
-The shard counts its series by shard-key prefix (``cardinality``) and
-answers the metadata queries from its index (label names and values, the
-label sets of the matching series).
+The shard counts its series by shard-key prefix (``cardinality``, with
+its quotas) and answers the metadata queries from its index (label names
+and values, the label sets of the matching series).
 
-Not ported: headroom eviction, on-demand paging, cardinality quotas,
-append listeners (standing queries) and the index's end-time lifecycle.
+The lifecycle: flush tasks by flush group (``create_flush_task``, which
+``store/flush.FlushCoordinator`` persists), the index's end times
+(``update_index_end_times``), retention (``evict_for_retention``), the two
+tiers of headroom eviction over the evictable queue
+(``evict_for_headroom``) and on-demand paging from the column store
+(``odp_page_in``). Every eviction, page-in and recovery bumps ``version``
+with a full effect and clears the staging cache, paying its ledger
+account back; ``evict_hooks`` let the memstore drop the superblocks an
+eviction made stale. Append listeners hear each committed ingest.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import deque
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Callable, Mapping, Sequence
 
 import numpy as np
 
 from ..core.filters import ColumnFilter
 from ..core.records import RecordBatch, SeriesBatch
+from ..core.schemas import ColumnType, Schema
 from .cardinality import CardinalityTracker
 from .index import SetBasedPartKeyIndex
-from .partition import DEFAULT_MAX_CHUNK_SIZE, TimeSeriesPartition
+from .partition import DEFAULT_MAX_CHUNK_SIZE, Chunk, TimeSeriesPartition
+
+NUM_FLUSH_GROUPS = 16  # reference groups-per-shard default
+
+
+@dataclass
+class ShardStats:
+    """reference TimeSeriesShardStats (TimeSeriesShard.scala:41-150)."""
+
+    rows_ingested: int = 0
+    rows_skipped: int = 0
+    partitions_created: int = 0
+    partitions_evicted: int = 0
+    chunks_flushed: int = 0
+    headroom_evictions: int = 0
+    bytes_reclaimed: int = 0
 
 
 @dataclass
@@ -38,9 +63,46 @@ class StoreConfig:
     """Per-dataset store tuning (reference store/IngestionConfig.scala)."""
 
     max_chunk_size: int = DEFAULT_MAX_CHUNK_SIZE
+    retention_ms: int = 3 * 24 * 3_600_000
+    encode_on_seal: bool = False
+    groups_per_shard: int = NUM_FLUSH_GROUPS
     max_partitions: int = 1_000_000
     # staging-cache byte budget per shard
     stage_cache_bytes: int = 2 << 30
+    # resident chunk bytes per shard; past it headroom eviction runs
+    # (reference shard-mem-size + ensureHeadroom watermarks)
+    max_resident_bytes: int = 8 << 30
+    # eviction takes residency down to this share of the budget
+    evict_target_fraction: float = 0.75
+
+
+class EvictablePartIdQueueSet:
+    """Dedup FIFO of headroom-eviction candidates (reference
+    EvictablePartIdQueueSet.scala). A partition enters when a flush task is
+    cut for it or chunks are paged in, and leaves when tier 2 reclaims it
+    or retention removes it; a re-offer moves it to the back, so the head
+    is the partition flushed longest ago."""
+
+    __slots__ = ("_q",)
+
+    def __init__(self):
+        self._q: dict[int, None] = {}  # insertion-ordered dedup set
+
+    def offer(self, part_id: int) -> None:
+        self._q.pop(part_id, None)
+        self._q[part_id] = None
+
+    def remove(self, part_id: int) -> None:
+        self._q.pop(part_id, None)
+
+    def snapshot(self) -> list[int]:
+        return list(self._q)
+
+    def __len__(self) -> int:
+        return len(self._q)
+
+    def __contains__(self, part_id: int) -> bool:
+        return part_id in self._q
 
 
 @dataclass
@@ -164,12 +226,37 @@ class TimeSeriesShard:
         self.partitions: dict[int, TimeSeriesPartition] = {}
         self._by_partkey: dict[bytes, int] = {}
         self._next_part_id = 0
+        self.stats = ShardStats()
         self._lock = threading.RLock()
+        self._ingested_offset = -1  # stream offset watermark (Kafka analog)
         self.version = 0
         # one (version, lo_ms, hi_ms, full) per version bump
         self._effects: deque = deque(maxlen=EFFECT_LOG_MAX)
         # cache key (filters, start_ms, end_ms, ...) -> StageEntry
         self.stage_cache = StageCache(f"{dataset}/shard-{shard_num}")
+        # cb(dataset, shard_num, lo_ms, hi_ms, full) after each committed
+        # ingest, outside the lock: wake signals, not truth
+        self._append_listeners: list[Callable] = []
+        # cb(shard) after an eviction changed resident data, outside the lock
+        self.evict_hooks: list[Callable] = []
+        # the column store that pages evicted chunks back in (reference
+        # OnDemandPagingShard.scala:26); None keeps the shard memory-only
+        self.odp_store = None
+        self.odp_stats_pages = 0
+        self.evictable = EvictablePartIdQueueSet()
+        # the index's end-time lifecycle (reference updateIndexWithEndTime,
+        # TimeSeriesShard.scala:987-993): part ids marked ended, and each
+        # series' newest sample at the previous flush
+        self._ended: set[int] = set()
+        self._flush_watermark: dict[int, int] = {}
+        # partkeys whose flushed chunks tier 2 reclaimed (reference
+        # evictedPartKeys, TimeSeriesShard.scala:540)
+        self.evicted_keys: set[bytes] = set()
+        self._ingests_since_headroom_check = 0
+        # residency: the last measurement plus an estimate of bytes since,
+        # so the walk over every partition runs only near the budget
+        self._resident_last = 0
+        self._approx_new_bytes = 0
 
     # -- effect log ----------------------------------------------------------
 
@@ -215,6 +302,32 @@ class TimeSeriesShard:
     def _ingest_effects_since_locked(self, since_version: int, lo, hi):
         return self._ingest_effects_interval_locked(since_version, lo, hi)[0]
 
+    # -- append notification -------------------------------------------------
+
+    def add_append_listener(self, cb: Callable) -> None:
+        """Register ``cb(dataset, shard_num, lo_ms, hi_ms, full)``, called
+        after each ingest commits, outside the shard lock (a listener that
+        re-enters the shard would deadlock under it). A wake signal: the
+        effect log stays the truth, so a lost call is harmless."""
+        self._append_listeners.append(cb)
+
+    def remove_append_listener(self, cb: Callable) -> None:
+        try:
+            self._append_listeners.remove(cb)
+        except ValueError:
+            pass
+
+    def _notify_append(self, lo, hi, full: bool) -> None:
+        for cb in list(self._append_listeners):
+            try:
+                cb(self.dataset, self.shard_num, lo, hi, full)
+            except Exception:  # noqa: BLE001 -- a sick listener must not break ingest
+                pass
+
+    def _notify_evicted(self) -> None:
+        for cb in list(self.evict_hooks):
+            cb(self)
+
     # -- staging cache -------------------------------------------------------
 
     def _clear_stage_cache(self) -> None:
@@ -253,10 +366,11 @@ class TimeSeriesShard:
 
     # -- ingest --------------------------------------------------------------
 
-    def ingest(self, batch: RecordBatch) -> int:
+    def ingest(self, batch: RecordBatch, offset: int = -1) -> int:
         """Ingest a columnar record batch as one version bump (reference
         ingest:939): records are grouped by series and appended in bulk.
-        Returns the number of rows ingested."""
+        ``offset`` moves the stream watermark a flush checkpoints. Returns
+        the number of rows ingested."""
         n = 0
         with self._lock:
             np0 = len(self.partitions)
@@ -274,14 +388,29 @@ class TimeSeriesShard:
                     raw_min = acc if raw_min is None else min(raw_min, acc)
                     min_ts = lo if min_ts is None else min(min_ts, lo)
                     max_ts = hi if max_ts is None else max(max_ts, hi)
+            if offset >= 0:
+                self._ingested_offset = max(self._ingested_offset, offset)
             self.version += 1
-            self._invalidate_stage_range(min_ts, max_ts, len(self.partitions) != np0,
-                                         raw_lo=raw_min)
+            new_series = len(self.partitions) != np0
+            self._invalidate_stage_range(min_ts, max_ts, new_series, raw_lo=raw_min)
+        if n and self._append_listeners:
+            self._notify_append(min_ts, max_ts, new_series or min_ts is None)
+        self.stats.rows_ingested += n
+        # the headroom check of the ingest path (reference ensureFreeSpace):
+        # the walk runs only when the estimate could be over budget
+        self._approx_new_bytes += n * 24  # ts 8 + value 8 + slack
+        self._ingests_since_headroom_check += 1
+        if self._ingests_since_headroom_check >= 64:
+            self._ingests_since_headroom_check = 0
+            if self._resident_last + self._approx_new_bytes > self.config.max_resident_bytes:
+                self.evict_for_headroom()
         return n
 
     def ingest_series(self, sb: SeriesBatch) -> int:
         """Append one series' samples, creating its partition on first
         sight, as one version bump. Returns the number of rows ingested."""
+        lo = hi = None
+        full = True
         with self._lock:
             self.version += 1
             np0 = len(self.partitions)
@@ -290,12 +419,15 @@ class TimeSeriesShard:
             if len(sb.timestamps):
                 raw = int(sb.timestamps.min())
                 lo = raw if prev_end is None else min(raw, prev_end)
+                hi = int(sb.timestamps.max())
                 acc = raw if prev_end is None else max(raw, prev_end + 1)
-                self._invalidate_stage_range(lo, int(sb.timestamps.max()),
-                                             len(self.partitions) != np0, raw_lo=acc)
+                full = len(self.partitions) != np0
+                self._invalidate_stage_range(lo, hi, full, raw_lo=acc)
             else:
                 self._record_effect(0, 0, True)
                 self._clear_stage_cache()
+        if n and self._append_listeners:
+            self._notify_append(lo, hi, full)
         return n
 
     def _ingest_series(self, sb: SeriesBatch) -> int:
@@ -303,27 +435,41 @@ class TimeSeriesShard:
         pid = self._by_partkey.get(pk)
         if pid is None:
             start = int(sb.timestamps.min()) if len(sb.timestamps) else 0
-            pid = self._create_partition(sb, pk, start)
+            pid = self._create_partition(sb.tags, sb.schema, pk, sb.bucket_les, start_ts=start)
+        elif pid in self._ended:
+            # the series ingests again: back to the still-ingesting sentinel
+            self.index.update_end_time(pid, 2**62)
+            self._ended.discard(pid)
         ts = sb.timestamps
         values = sb.values
         if len(ts) > 1 and not (np.diff(ts) >= 0).all():
             order = np.argsort(ts, kind="stable")
             ts = ts[order]
             values = {k: v[order] for k, v in values.items()}
-        return self.partitions[pid].ingest(ts, values)
+        got = self.partitions[pid].ingest(ts, values)
+        self.stats.rows_skipped += len(ts) - got
+        return got
 
-    def _create_partition(self, sb: SeriesBatch, pk: bytes, start_ts: int) -> int:
+    def _create_partition(self, tags: Mapping[str, str], schema: Schema, pk: bytes,
+                          bucket_les=None, start_ts: int = 0, end_ts: int = 2**62) -> int:
+        """reference createNewPartition:1193, the index's addPartKey and the
+        cardinality count (its quota raises before anything changes).
+        ``end_ts`` below the sentinel indexes the series as ended (recovery
+        passes the persisted end time)."""
         if len(self.partitions) >= self.config.max_partitions:
             raise MemoryError(f"shard {self.shard_num}: partition limit reached")
-        self.cardinality.series_created(sb.tags)
+        self.cardinality.series_created(tags)
         pid = self._next_part_id
         self._next_part_id += 1
         self.partitions[pid] = TimeSeriesPartition(
-            pid, sb.tags, sb.schema, pk, max_chunk_size=self.config.max_chunk_size,
-            bucket_les=sb.bucket_les,
+            pid, tags, schema, pk, max_chunk_size=self.config.max_chunk_size,
+            encode_on_seal=self.config.encode_on_seal, bucket_les=bucket_les,
         )
         self._by_partkey[pk] = pid
-        self.index.add_partkey(pid, dict(sb.tags), start_ts=start_ts)
+        self.index.add_partkey(pid, dict(tags), start_ts=start_ts, end_ts=end_ts)
+        if end_ts < 2**62:
+            self._ended.add(pid)
+        self.stats.partitions_created += 1
         return pid
 
     def lookup_partitions(self, filters: Sequence[ColumnFilter], start_ts: int,
@@ -342,3 +488,228 @@ class TimeSeriesShard:
 
     def partkeys(self, filters, start_ts: int, end_ts: int, limit=None):
         return self.index.partkeys_from_filters(filters, start_ts, end_ts, limit)
+
+    # -- flush / eviction ------------------------------------------------------
+
+    def flush_group_of(self, part_id: int) -> int:
+        """Partitions flush in groups, round robin (reference
+        prepareFlushGroup:1273: group = partId % groups)."""
+        return part_id % self.config.groups_per_shard
+
+    def create_flush_task(self, group: int) -> list:
+        """``(partition, chunks)`` of one flush group's sealed chunks not
+        yet flushed, each write buffer sealed first (doFlushSteps:1462);
+        the store layer persists them, then calls ``mark_flushed``."""
+        out = []
+        groups = self.config.groups_per_shard
+        with self._lock:
+            for pid, part in self.partitions.items():
+                if pid % groups != group:
+                    continue
+                part.switch_buffers()
+                chunks = part.unflushed_chunks()
+                if chunks:
+                    out.append((part, chunks))
+                    self.evictable.offer(pid)  # reclaimable once persisted
+        return out
+
+    def update_index_end_times(self) -> int:
+        """Give the series that stopped ingesting a real end time in the
+        index (reference updateIndexWithEndTime,
+        TimeSeriesShard.scala:987-993): a series whose newest sample did not
+        move since the previous flush is ended. Called once a flush cycle;
+        returns the series newly ended."""
+        n = 0
+        with self._lock:
+            for pid, part in self.partitions.items():
+                if pid in self._ended:
+                    continue
+                latest = part.latest_ts()
+                if latest <= -(2**61):
+                    continue  # never ingested
+                if self._flush_watermark.get(pid) == latest:
+                    self.index.update_end_time(pid, latest)
+                    self._ended.add(pid)
+                    n += 1
+                else:
+                    self._flush_watermark[pid] = latest
+        return n
+
+    def _changed_in_place(self) -> None:
+        """Resident data moved under the caches: bump the version with a
+        full effect and clear the staging cache (caller holds the lock)."""
+        self.version += 1
+        self._record_effect(0, 0, True)
+        self._clear_stage_cache()
+
+    def evict_for_retention(self, now_ms: int | None = None) -> int:
+        """Drop the chunks older than retention and remove the partitions
+        left empty (reference evictPartitions:1709). An empty partition
+        stays, as a shell the index routes to on-demand paging, while a
+        column store is attached and its last sample lies within retention.
+        Returns the samples dropped."""
+        now_ms = now_ms if now_ms is not None else int(time.time() * 1000)
+        cutoff = now_ms - self.config.retention_ms
+        dropped = 0
+        dead: list[int] = []
+        with self._lock:
+            for pid, part in self.partitions.items():
+                dropped += part.evict_before(cutoff)
+                if part.num_samples() != 0:
+                    continue
+                if self.odp_store is None or self.index.end_time(pid) < cutoff:
+                    dead.append(pid)
+            for pid in dead:
+                part = self.partitions.pop(pid)
+                self._by_partkey.pop(part.partkey, None)
+                self.index.remove([pid])
+                self.cardinality.series_removed(part.tags)
+                self._ended.discard(pid)
+                self._flush_watermark.pop(pid, None)
+                self.evicted_keys.discard(part.partkey)
+                self.evictable.remove(pid)
+                self.stats.partitions_evicted += 1
+            if dropped or dead:
+                self._changed_in_place()
+        if dropped or dead:
+            self._notify_evicted()
+        return dropped
+
+    def add_exemplar(self, partkey: bytes, ts_ms: int, value: float, labels) -> bool:
+        """Attach an exemplar to an existing series; False when there is no
+        such series (exemplars never create one)."""
+        with self._lock:
+            pid = self._by_partkey.get(partkey)
+            if pid is None:
+                return False
+            self.partitions[pid].add_exemplar(ts_ms, value, labels)
+            return True
+
+    def resident_bytes(self) -> int:
+        """Host bytes of every series' data in this shard."""
+        with self._lock:
+            return sum(p.resident_bytes() for p in self.partitions.values())
+
+    def evict_for_headroom(self, target_bytes: int | None = None) -> int:
+        """Reclaim chunk memory until residency is under the watermark
+        (reference evictForHeadroom, TimeSeriesShard.scala:1799), walking
+        the evictable queue from its head: tier 1 drops the decoded arrays
+        of flushed chunks (their encoded form stays readable); tier 2, only
+        with a column store attached, drops flushed chunks outright for
+        on-demand paging to bring back. Unflushed data is never dropped.
+        Returns the bytes freed."""
+        budget = self.config.max_resident_bytes
+        resident = self.resident_bytes()
+        self._resident_last = resident
+        self._approx_new_bytes = 0
+        if target_bytes is None:
+            if resident <= budget:
+                return 0
+            target = int(budget * self.config.evict_target_fraction)
+        else:
+            target = target_bytes
+            if resident <= target:
+                return 0
+        freed = 0
+        with self._lock:
+            cands = [self.partitions[pid] for pid in self.evictable.snapshot()
+                     if pid in self.partitions]
+            for part in cands:
+                if resident - freed <= target:
+                    break
+                freed += part.drop_decoded_flushed()
+            if resident - freed > target and self.odp_store is not None:
+                for part in cands:
+                    if resident - freed <= target:
+                        break
+                    got = part.drop_flushed_chunks()
+                    if got:
+                        freed += got
+                        self.evicted_keys.add(part.partkey)
+                        self.evictable.remove(part.part_id)  # back at its next flush
+            if freed:
+                self._resident_last = resident - freed
+                self._changed_in_place()
+                self.stats.headroom_evictions += 1
+                self.stats.bytes_reclaimed += freed
+        if freed:
+            self._notify_evicted()
+        return freed
+
+    def odp_page_in(self, part_ids, start_ms: int, end_ms: int) -> int:
+        """Page persisted chunks of ``part_ids`` back in where the query
+        starts before what is resident (reference scanPartitions' paging,
+        OnDemandPagingShard.scala:147), reading only those series' frames in
+        the range (``read_chunks_selective``). Returns the chunks paged in."""
+        if self.odp_store is None:
+            return 0
+        from ..core.encodings import decode_many
+        from ..core.schemas import canonical_partkey
+        from ..store.columnstore import gc_paused
+
+        need: dict[bytes, TimeSeriesPartition] = {}
+        for pid in part_ids:
+            part = self.partitions.get(int(pid))
+            if part is not None and part.earliest_ts() > start_ms:
+                need[part.partkey] = part
+        if not need:
+            return 0
+        n = 0
+        # a frame's tags are its partition's, in the same order (one dict
+        # wrote both): matched by their items, no partkey built a frame
+        by_items = {tuple(p.tags.items()): p for p in need.values()}
+        with self._lock, gc_paused():
+            frames = []
+            resident: dict[int, set] = {}
+            for header, _, encs in self.odp_store.read_chunks_selective(
+                    self.dataset, self.shard_num, list(need), start_ms, end_ms):
+                part = by_items.get(tuple(header["tags"].items()))
+                if part is None:
+                    part = need.get(canonical_partkey(header["tags"]))
+                if part is None:
+                    continue
+                starts = resident.get(part.part_id)
+                if starts is None:
+                    starts = resident[part.part_id] = {c.start_ts for c in part.chunks}
+                if header["start"] in starts:
+                    continue  # already resident
+                starts.add(header["start"])
+                frames.append((part, header, encs))
+            # every frame's columns decoded together
+            arrays = iter(decode_many([e for _, _, encs in frames for e in encs]))
+            for part, header, encs in frames:
+                encoded = dict(zip(header["cols"], encs))
+                decoded = {name: as_column(part.schema, name, next(arrays)) for name in encoded}
+                part.chunks.append(Chunk(header["start"], header["end"], header["n"], decoded,
+                                         encoded))
+                part.mark_flushed(header["end"])
+                n += 1
+            for part in need.values():
+                part.chunks.sort(key=lambda c: c.start_ts)
+                if n:
+                    from ..store.flush import _reconcile_chunks
+
+                    _reconcile_chunks(part)
+                self.evictable.offer(part.part_id)  # paged in: evictable again
+            if n:
+                self._changed_in_place()
+                self.odp_stats_pages += n
+        return n
+
+    @property
+    def num_partitions(self) -> int:
+        return len(self.partitions)
+
+    @property
+    def ingested_offset(self) -> int:
+        return self._ingested_offset
+
+
+def as_column(schema: Schema, name: str, a: np.ndarray) -> np.ndarray:
+    """A decoded column as the partition holds it: a DOUBLE column as
+    float64 (an integral run travels as int64)."""
+    try:
+        is_double = schema.column(name).ctype == ColumnType.DOUBLE
+    except KeyError:
+        is_double = False
+    return a.astype(np.float64, copy=False) if is_double else a

@@ -447,9 +447,17 @@ class StagedBlock:
     def to_device(self, device, keep_host: bool = False) -> "StagedBlock":
         """Move the block's arrays to ``device``; returns self for chaining.
         ``keep_host`` first keeps the host mirrors, so the block can be
-        extended under live ingest instead of restaged."""
-        if keep_host:
+        extended under live ingest instead of restaged. Off the CPU the
+        mirrors take the host arrays themselves (the device holds copies,
+        and nothing else keeps the arrays); on the CPU the device tensors
+        alias them, so the mirrors are copies."""
+        if keep_host and torch.device(device).type == "cpu":
             self.keep_mirrors()
+        elif keep_host:
+            self.h_ts, self.h_vals, self.h_lens, self.h_raw = (
+                np.asarray(self.ts), np.asarray(self.vals), np.asarray(self.lens),
+                None if self.raw is None else np.asarray(self.raw))
+            self.h_dev = np.array(self.ts_dev, copy=True) if self.ts_dev is not None else None
 
         def put(a):
             return torch.as_tensor(a).to(device)
@@ -635,6 +643,10 @@ def stage_series(
     with ``sidecar`` false left to the block's device copies:
     ``mgrid_deferred``)."""
     n = len(series)
+    rows = _equal_rows(series)
+    if rows is not None:
+        return _stage_rows(series, *rows, base_ms, part_refs, subtract_baseline,
+                           counter_corrected, diff_encode, time_headroom, sidecar)
     cleaned: list[tuple[np.ndarray, np.ndarray]] = []
     maxlen = 1
     for ts, vals in series:
@@ -691,6 +703,80 @@ def stage_series(
                         part_refs or [], raw=out_raw, regular_ts=regular,
                         nominal_ts=nominal, ts_dev=ts_dev, maxdev_ms=maxdev, mgrid=mgrid,
                         mgrid_deferred=holey and not sidecar)
+    if counter_corrected or subtract_baseline:
+        block.base64 = base64
+    if counter_corrected:
+        block.cont = (cont_raw, cont_corr)
+    return block
+
+
+def _equal_rows(series) -> tuple[np.ndarray, np.ndarray] | None:
+    """The series as ``[n, m]`` int64 timestamps and f64 values when there
+    are several, all of one length m >= 2 with int64 timestamps and f64
+    values and no NaN (a selection on a shared grid); else None. Ragged
+    series keep the loop: padding them into a matrix cost more than it
+    saved (`PERF.md` §6)."""
+    if len(series) < 2:
+        return None
+    m = len(series[0][0])
+    if m < 2:
+        return None
+    for ts, vals in series:
+        if (len(ts) != m or len(vals) != m or ts.dtype != np.int64 or vals.dtype != np.float64
+                or vals.ndim != 1):
+            return None
+    vals = np.stack([v for _, v in series])
+    if np.isnan(vals).any():
+        return None
+    return np.stack([t for t, _ in series]), vals
+
+
+def _stage_rows(series, ts: np.ndarray, vals: np.ndarray, base_ms: int, part_refs,
+                subtract_baseline: bool, counter_corrected: bool, diff_encode: bool,
+                time_headroom: int, sidecar: bool) -> StagedBlock:
+    """``stage_series`` of ``_equal_rows``'s rows, every step over the
+    whole ``[n, m]`` matrix: the per-row loop's operations in its order
+    (``counter_correct``'s drops summed left to right per row by
+    ``np.cumsum``), so the block is bit-equal to the loop's."""
+    n, m = vals.shape
+    S = pad_series(n)
+    T = pad_time(m + max(time_headroom, 0))
+    out_ts = np.full((S, T), TS_PAD, dtype=np.int32)
+    out_ts[:n, :m] = (ts - base_ms).astype(np.int32)
+    out_vals = np.zeros((S, T), dtype=np.float32)
+    out_raw = np.zeros((S, T), dtype=np.float32) if counter_corrected else None
+    lens = np.zeros(S, dtype=np.int32)
+    lens[:n] = m
+    baseline = np.zeros(S, dtype=np.float32)
+    base64 = np.zeros(S, dtype=np.float64)
+    cont_raw = np.zeros(S, dtype=np.float64)
+    cont_corr = np.zeros(S, dtype=np.float64)
+    if counter_corrected or subtract_baseline:
+        b = vals[:, 0]
+        baseline[:n] = b
+        base64[:n] = b
+    if counter_corrected:
+        drops = np.where(vals[:, 1:] < vals[:, :-1], vals[:, :-1], 0.0)
+        corr = np.zeros_like(vals)
+        np.cumsum(drops, axis=1, out=corr[:, 1:])
+        corrected = vals + corr
+        cont_raw[:n] = vals[:, -1]
+        cont_corr[:n] = corrected[:, -1]
+        out_vals[:n, :m] = (corrected - b[:, None]).astype(np.float32)
+        out_raw[:n, :m] = vals.astype(np.float32)
+    elif diff_encode:
+        out_vals[:n, 1:m] = np.diff(vals, axis=1).astype(np.float32)
+    elif subtract_baseline:
+        out_vals[:n, :m] = (vals - b[:, None]).astype(np.float32)
+    else:
+        out_vals[:n, :m] = vals.astype(np.float32)
+    regular, nominal, ts_dev, maxdev = detect_shared_grid(out_ts, lens, n, T, S)
+    holey = regular is None and nominal is None
+    mgrid = (_build_masked_grid(series, base_ms, out_vals, out_raw, lens, T, S)
+             if holey and sidecar else None)
+    block = StagedBlock(out_ts, out_vals, lens, base_ms, baseline, n, part_refs or [],
+                        raw=out_raw, regular_ts=regular, nominal_ts=nominal, ts_dev=ts_dev,
+                        maxdev_ms=maxdev, mgrid=mgrid, mgrid_deferred=holey and not sidecar)
     if counter_corrected or subtract_baseline:
         block.base64 = base64
     if counter_corrected:
@@ -1392,6 +1478,18 @@ class SuperblockCache:
             self._meta.pop(key, None)
         if gone is not None:
             self.ledger.free(gone[2], "drop")
+
+    def drop_where(self, pred) -> int:
+        """Remove every entry whose key satisfies ``pred`` (pinned or not:
+        its data changed under it); returns how many went."""
+        with self._lock:
+            keys = [k for k in self._d if pred(k)]
+            gone = [self._d.pop(k) for k in keys]
+            for k in keys:
+                self._meta.pop(k, None)
+        for g in gone:
+            self.ledger.free(g[2], "drop")
+        return len(gone)
 
     def note(self, key, outcome: str) -> None:
         """Record an entry's last maintenance outcome."""

@@ -450,6 +450,9 @@ class SelectRawPartitionsExec(ExecPlan):
                 pids = shard.lookup_partitions(rewritten, self.start_ms, self.end_ms)
         if len(pids) > ctx.max_series:
             raise QueryError(f"query selects {len(pids)} series > limit {ctx.max_series}")
+        if shard.odp_store is not None and len(pids):
+            # evicted chunks come back from the column store before staging
+            shard.odp_page_in(pids, self.start_ms, self.end_ms)
         by_schema: dict[str, list] = {}
         for pid in pids:
             part = shard.partition(int(pid))
@@ -501,9 +504,9 @@ class EmptyResultExec(ExecPlan):
 
 class ChunkMetaExec(ExecPlan):
     """``_filodb_chunkmeta_all`` (reference SelectChunkInfosExec): one shard's
-    matching series with their sealed chunks in the range. The port keeps
-    no encoded chunks (``memstore/partition.py``), so ``encodedBytes`` is 0,
-    as in the JAX package where its store does not encode on seal."""
+    matching series with their sealed chunks in the range; ``encodedBytes``
+    is a chunk's encoded size, 0 until it is encoded (at seal with
+    ``encode_on_seal``, else at flush), as in the JAX package."""
 
     def __init__(self, shard_num: int, filters, start_ms: int, end_ms: int):
         super().__init__()
@@ -941,6 +944,14 @@ class FusedAggregateExec(ExecPlan):
             # accounting before any le= slice, as the JAX package counts it
             total += len(pids)
             max_shard_series = max(max_shard_series, len(pids))
+            if shard.odp_store is not None and shard.odp_page_in(
+                    pids, self.raw_start_ms, self.raw_end_ms):
+                # the page-in bumped this shard's version: the build reads
+                # the paged-in state, so it is stamped with the new version
+                # (the JAX package's stays stale, and its next query builds
+                # again)
+                i = self.shard_nums.index(s)
+                versions = versions[:i] + (shard.version,) + versions[i + 1:]
             parts = [shard.partition(int(p)) for p in pids]
             names = {p.schema.name for p in parts}
             if len(names) > 1 or (schema_name is not None and names != {schema_name}):

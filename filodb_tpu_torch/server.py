@@ -1,21 +1,27 @@
 """The port's standalone server (counterpart of ``filodb_tpu/server.py``;
-reference L7 NewFiloServerMain.scala:25): a memory-only store of
-``shards`` shards, a ``QueryEngine`` on the card (or the CPU when asked)
-and the Prometheus HTTP API (``api/http.py``).
+reference L7 NewFiloServerMain.scala:25): a store of ``shards`` shards,
+recovered from its column store at start, a ``QueryEngine`` on the card
+(or the CPU when asked), the Prometheus HTTP API (``api/http.py``) and a
+maintenance loop that flushes every ``flush_interval_s`` and evicts by
+retention and headroom.
 
 Config is the JSON dict of ``config.py``, e.g.::
 
     {"dataset": "prometheus", "shards": 8, "spread": 3, "http_port": 9090,
-     "device": null}
+     "store_root": "/var/lib/filodb", "flush_interval_s": 3600,
+     "retention_hours": 72, "device": null}
 
-``device`` null (the default) serves on the card and raises where there is
-none; ``"cpu"`` serves on the CPU. A config that asks for a subsystem the
-port has not got raises ``NotImplementedError`` naming its ROADMAP item
-(``unported_settings``): persistence and flush (A4), scheduling, standing
-queries and coalescing (A5), self-telemetry, SLOs and alerting (A6),
-downsampling and pre-aggregation (A7), the device index tier (A8), the
-cluster and gRPC (A9). The JAX defaults that turn such subsystems on by
-themselves are off in the port (``config.PORT_OFF``).
+``store_root`` null keeps the store in memory (``NullColumnStore``);
+otherwise flushes go to a ``LocalColumnStore`` there, which also pages
+evicted chunks back in. ``device`` null (the default) serves on the card
+and raises where there is none; ``"cpu"`` serves on the CPU. A config that
+asks for a subsystem the port has not got raises ``NotImplementedError``
+naming its ROADMAP item (``unported_settings``): the part-key index at
+scale (A4b), scheduling, standing queries and coalescing (A5),
+self-telemetry, SLOs and alerting (A6), downsampling and pre-aggregation
+(A7), the device index tier (A8), the cluster and gRPC (A9). The JAX
+defaults that turn such subsystems on by themselves are off in the port
+(``config.PORT_OFF``).
 """
 
 from __future__ import annotations
@@ -23,12 +29,15 @@ from __future__ import annotations
 import json
 import logging
 import threading
+import time
 
 from .api.http import serve_background
 from .coordinator.planner import PlannerParams, QueryEngine, resolve_device
 from .core.schemas import Dataset
 from .memstore.memstore import TimeSeriesMemStore
 from .memstore.shard import StoreConfig
+from .store.columnstore import LocalColumnStore, NullColumnStore
+from .store.flush import FlushCoordinator, recover_shard
 
 log = logging.getLogger("filodb_tpu_torch.server")
 
@@ -38,10 +47,8 @@ def unported_settings(cfg: dict) -> list[str]:
     got, each with its ROADMAP item."""
     q, dist = cfg["query"], cfg.get("distributed") or {}
     checks = [
-        (cfg.get("store_root"), "store_root: persistence and flush (ROADMAP A4)"),
-        (cfg.get("quotas"), "quotas: cardinality quotas (ROADMAP A4)"),
-        (cfg.get("index_backend", "python") != "python",
-         "index_backend: the part-key index at scale (ROADMAP A4)"),
+        (cfg.get("index_backend", "python") not in ("python", "set"),
+         "index_backend: the part-key index at scale (ROADMAP A4b)"),
         (cfg.get("index_device_postings"), "index_device_postings: the device index tier "
          "(ROADMAP A8)"),
         (int(q.get("parallelism", 0) or 0) > 0, "query.parallelism: the query scheduler "
@@ -77,9 +84,33 @@ def unported_settings(cfg: dict) -> list[str]:
     return [why for asked, why in checks if asked]
 
 
+# glibc's mallopt parameters (malloc.h)
+_M_TRIM_THRESHOLD, _M_TOP_PAD, _M_MMAP_THRESHOLD = -1, -2, -3
+
+
+def tune_heap() -> bool:
+    """Keep glibc from trimming a thread's heap back to the system at every
+    large free. A request handler thread that pages chunks in or stages a
+    selection allocates and frees hundreds of thousands of small arrays;
+    with the default threshold its arena shrinks and regrows around them,
+    page faults each time (phase 17 of ``chip_smoke.py`` staged at a third
+    of the speed after a page-in). Setting a threshold freezes glibc's
+    dynamic mmap threshold at 128 KiB, which would map and fault every
+    larger array afresh, so it is set where the dynamic one ends, 32 MiB.
+    Returns False where the C library has no ``mallopt``."""
+    import ctypes
+
+    try:
+        mallopt = ctypes.CDLL(None).mallopt
+    except (OSError, AttributeError):
+        return False
+    return bool(mallopt(_M_TRIM_THRESHOLD, 1 << 30) and mallopt(_M_TOP_PAD, 64 << 20)
+                and mallopt(_M_MMAP_THRESHOLD, 32 << 20))
+
+
 class FiloServer:
-    """A memory-only server: ``start`` serves the HTTP API on a thread and
-    runs the maintenance loop; ``stop`` ends both."""
+    """``start`` recovers the shards from the column store, serves the HTTP
+    API on a thread and runs the maintenance loop; ``stop`` ends both."""
 
     def __init__(self, config: dict | None = None, device=None):
         from .config import load_config
@@ -91,18 +122,31 @@ class FiloServer:
                                       + "; ".join(missing))
         self.config = cfg
         self.device = resolve_device(device if device is not None else cfg.get("device"))
+        tune_heap()
         self.dataset = cfg["dataset"]
         self.n_shards = int(cfg["shards"])
         self.spread = int(cfg["spread"])
         self.http_port = int(cfg["http_port"])
-        self.maintenance_interval_s = min(float(cfg["flush_interval_s"]), 60.0)
+        self.flush_interval_s = float(cfg["flush_interval_s"])
+        self.maintenance_interval_s = min(self.flush_interval_s, 60.0)
         self.store_config = StoreConfig(
             max_chunk_size=int(cfg["max_chunk_size"]),
+            retention_ms=int(float(cfg["retention_hours"]) * 3_600_000),
+            groups_per_shard=int(cfg["groups_per_shard"]),
             max_partitions=int(cfg["max_partitions_per_shard"]),
         )
         self.memstore = TimeSeriesMemStore(self.store_config)
         self.memstore.setup(Dataset(self.dataset), range(self.n_shards),
                             total_shards=self.n_shards)
+        for q in cfg.get("quotas") or []:
+            for sh in self.memstore.shards(self.dataset):
+                sh.cardinality.set_quota(tuple(q["prefix"]), int(q["quota"]))
+        root = cfg.get("store_root")
+        self.column_store = LocalColumnStore(root) if root else NullColumnStore()
+        if root:
+            for sh in self.memstore.shards(self.dataset):
+                sh.odp_store = self.column_store
+        self.flusher = FlushCoordinator(self.memstore, self.column_store)
         q = cfg["query"]
         slow = q.get("slow_query_threshold_s")
         from .metrics import SLOW_QUERY_LOG
@@ -123,14 +167,23 @@ class FiloServer:
         self._threads: list[threading.Thread] = []
         self._http = None
 
+    def recover(self) -> dict[int, int]:
+        """Rebuild the shards from the column store; returns each shard's
+        offset to replay its ingestion stream from (-1: none)."""
+        offsets = {s: recover_shard(self.memstore, self.column_store, self.dataset, s)
+                   for s in self.memstore.shard_nums(self.dataset)}
+        log.info("recovered %d shards: %s", len(offsets), offsets)
+        return offsets
+
     def start(self, port: int | None = None) -> int:
-        """Serve the HTTP API (``port`` 0: any free port) and start the
-        maintenance loop; returns the port."""
+        """Recover, serve the HTTP API (``port`` 0: any free port) and start
+        the maintenance loop; returns the port."""
+        self.recover()
         self._http, actual = serve_background(
             self.engine, host=self.config.get("http_host") or "127.0.0.1",
             port=self.http_port if port is None else port,
             auth_token=self.config.get("http_auth_token"),
-            result_plane=self.config.get("result_plane"))
+            result_plane=self.config.get("result_plane"), flush_hook=self.flush_now)
         t = threading.Thread(target=self._maintenance_loop, daemon=True,
                              name="filodb-maintenance")
         t.start()
@@ -150,16 +203,33 @@ class FiloServer:
         self._threads.clear()
 
     def _maintenance_loop(self) -> None:
-        """Refresh the device ledger's gauges every interval, so
-        ``filodb_device_bytes`` stays current between scrapes. Flush and
-        retention eviction come with persistence (ROADMAP A4)."""
+        """Every interval: flush once ``flush_interval_s`` has passed, evict
+        by retention and headroom (reference flush timer + evictForHeadroom),
+        and refresh the device ledger's gauges so ``filodb_device_bytes``
+        stays current between scrapes."""
         from .ledger import LEDGER
 
+        last_flush = time.time()
         while not self._stop.wait(self.maintenance_interval_s):
+            now = time.time()
+            if now - last_flush >= self.flush_interval_s:
+                try:
+                    self.flush_now()
+                except Exception:  # noqa: BLE001 -- the loop must outlive a bad tick
+                    log.exception("flush failed")
+                last_flush = now
+            for sh in self.memstore.shards(self.dataset):
+                sh.evict_for_retention()
+                sh.evict_for_headroom()
             try:
                 LEDGER.publish()
-            except Exception:  # noqa: BLE001 -- the loop must outlive a bad tick
+            except Exception:  # noqa: BLE001
                 log.exception("ledger refresh failed")
+
+    def flush_now(self):
+        """Flush every shard of the dataset (the ``/admin/flush`` route);
+        returns the ``FlushResult`` totals."""
+        return self.flusher.flush_all(self.dataset)
 
 
 def main(argv=None):

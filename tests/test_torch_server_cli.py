@@ -110,9 +110,7 @@ def test_server_without_a_card_raises(monkeypatch):
 
 
 UNPORTED_CONFIGS = [
-    ({"store_root": "/nowhere"}, "A4"),
-    ({"quotas": [{"prefix": ["a"], "quota": 1}]}, "A4"),
-    ({"index_backend": "native"}, "A4"),
+    ({"index_backend": "native"}, "A4b"),
     ({"index_device_postings": True}, "A8"),
     ({"query": {"parallelism": 4}}, "A5"),
     ({"query": {"batch_window_ms": 2.0}}, "A5"),
@@ -217,10 +215,10 @@ def test_cli_query_range_answers_as_jax(both_servers):
 
 
 def test_cli_store_tools_raise_with_their_roadmap_item():
-    out = subprocess.run([sys.executable, "-m", "filodb_tpu_torch.cli", "copy-store", "--src",
-                          "a", "--dst", "b"], cwd=ROOT, capture_output=True, text=True,
+    out = subprocess.run([sys.executable, "-m", "filodb_tpu_torch.cli", "downsample-batch",
+                          "--store", "a"], cwd=ROOT, capture_output=True, text=True,
                          timeout=60)
-    assert out.returncode != 0 and "ROADMAP A4" in out.stderr
+    assert out.returncode != 0 and "ROADMAP A7" in out.stderr
 
 
 def test_client_against_both_servers(both_servers):

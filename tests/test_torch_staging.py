@@ -117,3 +117,65 @@ def test_to_device_keeps_values():
     for k, v in host.items():
         assert torch.equal(getattr(block, k), torch.from_numpy(v)), k
     assert ST.staged_nbytes(block) == sum(v.nbytes for v in host.values())
+
+
+def equal_length_series(kind: str, n_series=37, n=150, seed=3):
+    """Series of one length (``ragged``: of lengths n - 0..6, which stage
+    by the loop): on one 10 s grid, jittered around it, or on irregular
+    intervals; counters with a reset and with -0.0 and tied values."""
+    rng = np.random.default_rng(seed)
+    grid = BASE + 10_000 * np.arange(n, dtype=np.int64)
+    series = []
+    for i in range(n_series):
+        ts = {"regular": grid,
+              "jitter": grid + rng.integers(-400, 401, n),
+              "irregular": BASE + np.cumsum(rng.integers(5000, 15000, n)),
+              "ragged": BASE + np.cumsum(rng.integers(5000, 15000, n))}[kind].astype(np.int64)
+        vals = np.cumsum(rng.uniform(0, 10, n)) + 1e9
+        vals[n // 2:] -= vals[n // 2] - 3.0
+        vals[7] = vals[6]
+        if i == 0:
+            vals[:3] = -0.0
+        m = n - (i % 7 if kind == "ragged" else 0)
+        series.append((ts[:m], vals[:m]))
+    return series
+
+
+@pytest.mark.parametrize("kind", ["regular", "jitter", "irregular"])
+@pytest.mark.parametrize("mode", sorted(MODES) + ["diff"])
+@pytest.mark.parametrize("sidecar", [False, True])
+def test_equal_length_rows_stage_as_the_loop_does(kind, mode, sidecar, monkeypatch):
+    """The whole-matrix staging of equal-length series (``_stage_rows``) is
+    bit-equal to the per-series loop, and to the JAX package's staging."""
+    series = equal_length_series(kind)
+    refs = [(1, i) for i in range(len(series))]
+    kw = {"diff": {"diff_encode": True}}.get(mode, MODES.get(mode, {}))
+    assert ST._equal_rows(series) is not None
+    got = ST.stage_series(series, BASE, refs, time_headroom=5, sidecar=sidecar, **kw)
+    monkeypatch.setattr(ST, "_equal_rows", lambda s: None)
+    want = ST.stage_series(series, BASE, refs, time_headroom=5, sidecar=sidecar, **kw)
+    assert_block_equal(got, want)
+    for name in ("regular_ts", "nominal_ts", "ts_dev", "base64"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            np.testing.assert_array_equal(a, b, err_msg=name)
+    assert got.maxdev_ms == want.maxdev_ms and got.mgrid_deferred == want.mgrid_deferred
+    assert (got.mgrid is None) == (want.mgrid is None)
+    if got.cont is not None:
+        for a, b in zip(got.cont, want.cont):
+            np.testing.assert_array_equal(a.view(np.int64), b.view(np.int64))
+    if mode != "diff":
+        assert_block_equal(got, JST.stage_series(series, BASE, refs, time_headroom=5, **kw))
+
+
+def test_rows_of_other_shapes_take_the_loop():
+    """One series, ragged lengths, NaN or f32 values: the loop."""
+    series = equal_length_series("regular", n_series=4)
+    assert ST._equal_rows(series[:1]) is None  # one series
+    assert ST._equal_rows(equal_length_series("ragged", n_series=4)) is None
+    assert ST._equal_rows([(t[:-1], v[:-1]) for t, v in series[:1]] + series[1:]) is None
+    nan = [(t, v.copy()) for t, v in series]
+    nan[2][1][5] = np.nan
+    assert ST._equal_rows(nan) is None
+    assert ST._equal_rows([(t, v.astype(np.float32)) for t, v in series]) is None
