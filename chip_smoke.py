@@ -10,10 +10,11 @@ Phases (any failure raises and exits non-zero):
 
 1. Build ``filodb_tpu_torch/csrc/window_stats.cu``, ``regular_range.cu``,
    ``hist_range.cu``, ``general_range.cu``, ``order_stats.cu``,
-   ``sorted_window.cu``, ``segment_agg.cu`` and ``jitter_range.cu`` with
+   ``sorted_window.cu``, ``segment_agg.cu``, ``jitter_range.cu`` and
+   ``postings.cu`` with
    nvcc, and the histogram kernel's split builds (``tile_sweep.HIST_PATCHES``:
    search only and fetch only of the aggregate; compute only and store only
-   of the store mode), all at once, and bind their seventeen entry points
+   of the store mode), all at once, and bind their eighteen entry points
    (``filodb_window_stats``,
    ``filodb_window_range_aggregate``, ``filodb_regular_range``,
    ``filodb_hist_range_aggregate``, ``filodb_hist_resident``,
@@ -22,7 +23,8 @@ Phases (any failure raises and exits non-zero):
    ``filodb_segment_topk``, ``filodb_sorted_window``,
    ``filodb_segment_aggregate``, ``filodb_hist_range_series``,
    ``filodb_hist_instant``, ``filodb_jitter_range``,
-   ``filodb_hist_range_jitter``, ``filodb_hist_jitter_resident``); print their
+   ``filodb_hist_range_jitter``, ``filodb_hist_jitter_resident``,
+   ``filodb_postings_intersect``); print their
    ptxas lines (registers, shared memory, spills) and the card's name and
    power limit.
 2. Window stats (the nine-plane kernel), kernel vs plain on seeded
@@ -401,6 +403,28 @@ Phases (any failure raises and exits non-zero):
    series' frames (bytes printed, equal to their manifest lengths) and
    equals 17b's answer. ``/debug/resources`` shows drift 0 after each
    eviction. The store is removed at the end.
+18. The part-key index at scale (after 10c). 18a: bench.py's
+   ``index_regex`` shape, 1,000,000 part keys of its 5-tag schema, on the
+   three backends (``PartKeyIndex``, ``NativePartKeyIndex``,
+   ``SetBasedPartKeyIndex``): the native and set builds run in two spawned
+   worker processes started before phase 1 (``start_index_workers``), the
+   bitmap index here; every probe of the 64-pattern Grafana storm pool
+   and the five spot probes selects identical ids on the three; build
+   seconds, warm regex, eq and cold regex lookups/s printed (host only).
+   18b: the device tier on that bitmap index, on the card: all-equality
+   selectors of 2 to 5 matchers (``TIER_SELECTORS``) stage after
+   ``min_hits`` host lookups; each then resolves with exactly one launch
+   of ``csrc/postings.cu`` (B11), its words bit-equal to the plain version
+   on the card and to the host AND; the kernel per call (median of 20
+   between events), back to back and on the device (graph replay), an
+   empty launch over the same blocks, the bound ((M + 1) W 8 bytes), the
+   M - 1 ``torch.bitwise_and`` calls, the lookup's p50 with the tier and on
+   the host path; ledger drift 0. 18c: bench.py's ``query_hicard`` (4
+   tenants x 2,000 counters, 120 samples) through the engine on the card on
+   each backend: bit-equal superblocks, answers within rtol 1e-5 (group
+   atomics), cold and warm p50, one ``regular_range`` launch a query; with
+   the tier, a cold build resolves each shard's selector with one B11
+   launch beside the rung's one, a warm hit with the rung's alone.
 
 Before phase 1 the process holds glibc's heap trimming off as the port's
 server does at start (``server.tune_heap``); the host times of every phase
@@ -415,7 +439,7 @@ and 11's (``{"tree": ...}``), one with phases 2f and 12's
 (``{"hist_tree": ...}``), one with phases 2g and 14's (``{"jitter":
 ...}``), one with phases 15 and 15b's (``{"server": ...}``; phase 16's
 is in ``{"hist": ...}``), one with phase 17's (``{"persistence": ...}``),
-one with the kernels' numbers
+one with phase 18's (``{"index": ...}``), one with the kernels' numbers
 (the order-statistics kernels' rows, and the store mode's numbers on the
 rungs' rows), the card's
 name and power limit as nvidia-smi gives them, and the result line
@@ -452,7 +476,8 @@ QUERIES = (
     "sum by (zone) (rate(http_requests_total[5m]))",
 )
 SOURCES = ("window_stats", "regular_range", "hist_range", "general_range",
-           "order_stats", "sorted_window", "segment_agg", "jitter_range")  # csrc/<name>.cu
+           "order_stats", "sorted_window", "segment_agg", "jitter_range",
+           "postings")  # csrc/<name>.cu
 START_S = (BASE + 400_000) / 1000  # bench.py's range
 END_S = (BASE + N_SAMPLES * 10_000 - 200_000) / 1000
 # bench.py's ingest_impact: the range reaches past the newest sample (the
@@ -619,7 +644,7 @@ def compare_stats(got: dict, want: dict, rtol: float = 2e-4, atol: float = 1e-4)
 
 def build_kernels() -> dict:
     """Build every source and the histogram kernel's split builds at
-    once (one nvcc each), bind the seventeen entry points, print ptxas's lines
+    once (one nvcc each), bind the eighteen entry points, print ptxas's lines
     (registers, shared memory, spills) and return the split builds."""
     from filodb_tpu_torch.ops import cuda_build
     from filodb_tpu_torch.ops import general_range as GR
@@ -634,12 +659,13 @@ def build_kernels() -> dict:
         split = pool.submit(hist_split_libs)
         libs = list(pool.map(cuda_build.build, SOURCES))
         split_libs = split.result()
+    from filodb_tpu_torch.ops import postings_kernels as PK
     from filodb_tpu_torch.ops import segment_agg as SA
     from filodb_tpu_torch.ops import sorted_window as SW
 
-    ws_lib, mk_lib, hk_lib, gr_lib, os_lib, sw_lib, sa_lib, jr_lib = (
+    ws_lib, mk_lib, hk_lib, gr_lib, os_lib, sw_lib, sa_lib, jr_lib, pk_lib = (
         WS._load(), MK._load(), HK._load(), GR._load(), OS._load(), SW._load(), SA._load(),
-        JR._load())
+        JR._load(), PK._load())
     entries = [ws_lib.filodb_window_stats, ws_lib.filodb_window_range_aggregate,
                mk_lib.filodb_regular_range, hk_lib.filodb_hist_range_aggregate,
                hk_lib.filodb_hist_resident, hk_lib.filodb_hist_quantile_gather,
@@ -648,7 +674,7 @@ def build_kernels() -> dict:
                sw_lib.filodb_sorted_window, sa_lib.filodb_segment_aggregate,
                hk_lib.filodb_hist_range_series, hk_lib.filodb_hist_instant,
                jr_lib.filodb_jitter_range, hk_lib.filodb_hist_range_jitter,
-               hk_lib.filodb_hist_jitter_resident]
+               hk_lib.filodb_hist_jitter_resident, pk_lib.filodb_postings_intersect]
     print(f"phase1 built {', '.join(l.name for l in libs)} in {time.perf_counter() - t0:.1f} s; "
           f"entry points {', '.join(e.__name__ for e in entries)}")
     for name in SOURCES:
@@ -6584,6 +6610,376 @@ def phase_persistence(seed: int, device, card: str, want: dict) -> dict:
     return out
 
 
+# -- phase 18: the part-key index at scale ----------------------------------------
+
+INDEX_KEYS = 1_000_000  # bench.py's index_regex: 1M part keys
+INDEX_BACKENDS = ("python", "native", "set")
+INDEX_REPS = {"python": 2000, "native": 2000, "set": 128}  # the set index scans 10k values
+TIER_SELECTORS = (  # 18b: all-equality selectors of 2 to 5 matchers, 50k to 100 ids
+    (("_ws_", "demo"), ("_ns_", "ns7")),
+    (("_ws_", "demo"), ("_ns_", "ns7"), ("dc", "dc7")),
+    (("_ws_", "demo"), ("_ns_", "ns7"), ("dc", "dc7"), ("_metric_", "metric_7")),
+    (("_ws_", "demo"), ("_ns_", "ns7"), ("dc", "dc7"), ("_metric_", "metric_7"), ("host", "h7")),
+)
+HICARD_TENANTS, HICARD_SERIES, HICARD_SAMPLES = 4, 2_000, 120  # bench.py's query_hicard
+HICARD_QUERY = 'sum(rate(http_requests_total{_ns_="App-1"}[5m]))'
+HICARD_RANGE = ((BASE + 400_000) / 1000, (BASE + 1_100_000) / 1000, 60.0)
+
+
+def index_tags(i: int) -> dict:
+    """bench.py's 5-tag schema of part key ``i``."""
+    return {"_metric_": f"metric_{i % 1000}", "host": f"h{i % 10_000}", "dc": f"dc{i % 10}",
+            "_ws_": "demo", "_ns_": f"ns{i % 20}"}
+
+
+def index_probes():
+    """bench.py's 64-pattern Grafana storm pool, its five spot probes (eq,
+    prefix, literal alternation, eq and regex, != and eq) and the 64 cold
+    patterns."""
+    from filodb_tpu_torch.core.filters import ColumnFilter, equals, regex
+
+    pool = [[regex("host", f"h1{i:02d}[0-9]?")] for i in range(64)]
+    spots = [[equals("_metric_", "metric_5")], [regex("host", "h123.*")],
+             [regex("host", "h1|h2|h33")], [equals("_ws_", "demo"), regex("host", "h77[0-9]?")],
+             [ColumnFilter("dc", "!=", "dc3"), equals("_ns_", "ns7")]]
+    cold = [[regex("host", f"h2{i:02d}[0-9]?")] for i in range(64)]
+    return pool, spots, cold
+
+
+def build_index(backend: str, n: int):
+    """An index of ``backend`` over ``n`` part keys through ``add_partkey``;
+    returns it and the build's seconds."""
+    from filodb_tpu_torch.memstore.index import PartKeyIndex, SetBasedPartKeyIndex
+    from filodb_tpu_torch.memstore.index_native import NativePartKeyIndex
+
+    cls = {"python": PartKeyIndex, "native": NativePartKeyIndex,
+           "set": SetBasedPartKeyIndex}[backend]
+    t0 = time.perf_counter()
+    idx = cls()
+    for i in range(n):
+        idx.add_partkey(i, index_tags(i), 0)
+    return idx, time.perf_counter() - t0
+
+
+def measure_index(idx, backend: str) -> dict:
+    """bench.py's index_regex measurements on ``idx``: every probe's ids,
+    warm regex lookups/s over the pool (after one pass fills the match
+    cache), eq lookups/s and cold regex lookups/s."""
+    pool, spots, cold = index_probes()
+    ids = [idx.part_ids_from_filters(f, 0, 2**62) for f in pool + spots]
+    reps = INDEX_REPS[backend]
+    for f in pool:
+        idx.part_ids_from_filters(f, 0, 2**62)
+    t0 = time.perf_counter()
+    for k in range(reps):
+        idx.part_ids_from_filters(pool[k % len(pool)], 0, 2**62)
+    warm = reps / (time.perf_counter() - t0)
+    f_eq = spots[0]
+    idx.part_ids_from_filters(f_eq, 0, 2**62)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        idx.part_ids_from_filters(f_eq, 0, 2**62)
+    eq = reps / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for f in cold:
+        idx.part_ids_from_filters(f, 0, 2**62)
+    cold_rate = len(cold) / (time.perf_counter() - t0)
+    return {"warm_regex_per_s": warm, "eq_per_s": eq, "cold_regex_per_s": cold_rate,
+            "reps": reps, "ids": ids}
+
+
+def index_backend_run(backend: str, n: int) -> dict:
+    """18a for one backend in a worker process: build, measure, return the
+    numbers and the probes' ids (the index stays in the worker)."""
+    idx, build_s = build_index(backend, n)
+    out = measure_index(idx, backend)
+    out["build_s"] = build_s
+    return out
+
+
+def start_index_workers(n: int):
+    """18a's native and set builds in two spawned processes, started at the
+    script's beginning so that they run beside the card's phases; the
+    bitmap index is built in this process at phase 18 (18b stages it)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn"))
+    return pool, {b: pool.submit(index_backend_run, b, n) for b in INDEX_BACKENDS[1:]}
+
+
+def phase_index_regex(workers, n: int, card: str):
+    """18a: bench.py's index_regex shape at ``n`` part keys on the three
+    backends; every probe's ids identical across them. Host only. Returns
+    the numbers and the bitmap index."""
+    pool, futures = workers
+    idx, build_s = build_index("python", n)
+    rows = {"python": dict(measure_index(idx, "python"), build_s=build_s)}
+    for b, fut in futures.items():
+        rows[b] = fut.result()
+    pool.shutdown(wait=True)
+    want = rows["set"]["ids"]
+    n_probes = len(want)
+    for b in ("python", "native"):
+        for k, (got, w) in enumerate(zip(rows[b]["ids"], want)):
+            require(np.array_equal(np.asarray(got), np.asarray(w)),
+                    f"phase18a: {b} probe {k} selects {len(got)} ids, the set oracle {len(w)}")
+    out = {}
+    for b in INDEX_BACKENDS:
+        r = rows.pop(b)
+        r.pop("ids")
+        out[b] = r
+        print(f"phase18a {b}: {n} part keys built in {r['build_s']:.2f} s; warm regex "
+              f"{r['warm_regex_per_s']:.1f} lookups/s ({r['reps']} over the 64-pattern pool), "
+              f"eq {r['eq_per_s']:.1f}/s, cold regex {r['cold_regex_per_s']:.1f}/s"
+              + ("" if b == "python" else " (in a worker process started before phase 1)"))
+    print(f"phase18a: all {n_probes} probes select identical ids on the three backends "
+          f"(host only; the card beside: {card})")
+    return out, idx
+
+
+def tier_host_words(idx, sel) -> np.ndarray:
+    """The selector's AND taken on the host from the containers' words."""
+    from filodb_tpu_torch.memstore import postings as P
+
+    nw = P.nwords(idx._nbits)
+    out = None
+    for label, value in sel:
+        kind, data = idx._labels[label].containers[value].view(idx._nbits)
+        w = P.grow_words(data if kind == "d" else P.ids_to_dense(data, nw), nw)
+        out = w.copy() if out is None else out & w
+    return out
+
+
+def phase_index_tier(idx, device, card: str) -> dict:
+    """18b: the device tier on 18a's bitmap index: the selectors stage after
+    ``min_hits`` host lookups; each then resolves with exactly one B11
+    launch, its words bit-equal to the plain version on the card and to the
+    host AND; the kernel timed beside its bound, an empty launch over the
+    same blocks and the library's M - 1 ``torch.bitwise_and`` calls; the
+    lookup's latency with the tier against the host path; ledger drift 0."""
+    import torch
+
+    from filodb_tpu_torch.core.filters import equals
+    from filodb_tpu_torch.ledger import LEDGER
+    from filodb_tpu_torch.memstore.index_device import DevicePostingsTier
+    from filodb_tpu_torch.ops import postings_kernels as PK
+
+    tier = DevicePostingsTier(idx, device, name="phase18b")
+    tier.sweep_min_interval_s = float("inf")  # staged by the maintain() below
+    idx.traffic.clear()
+    filters = [[equals(k, v) for k, v in sel] for sel in TIER_SELECTORS]
+    host_ids, host_ms = [], []
+    for f in filters:  # the host path, min_hits times: traffic for the tier to stage
+        idx.device_tier = tier
+        for _ in range(tier.min_hits):
+            idx.part_ids_from_filters(f, 0, 2**62)
+        idx.device_tier = None
+        host_ids.append(idx.part_ids_from_filters(f, 0, 2**62))
+        t = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            idx.part_ids_from_filters(f, 0, 2**62)
+            t.append(time.perf_counter() - t0)
+        host_ms.append(float(np.median(t)) * 1e3)
+    idx.device_tier = tier
+    staged = tier.maintain()
+    require(staged == 5, f"phase18b: staged {staged} bitmaps, expected the 5 hot ones")
+    W = next(iter(tier._staged.values())).dev.shape[0]
+    rows, launches = [], 0
+    for sel, f, want_ids, h_ms in zip(TIER_SELECTORS, filters, host_ids, host_ms):
+        M = len(sel)
+        before, inter = PK.LAUNCHES, tier.stats["intersections"]
+        got_ids = idx.part_ids_from_filters(f, 0, 2**62)
+        require(PK.LAUNCHES == before + 1 and tier.stats["intersections"] == inter + 1,
+                f"phase18b {sel}: {PK.LAUNCHES - before} B11 launches, expected one")
+        launches += 1
+        require(np.array_equal(got_ids, want_ids),
+                f"phase18b {sel}: {len(got_ids)} ids with the tier, {len(want_ids)} on the host")
+        rows_dev = [tier._staged[kv].dev for kv in sel]
+        out = torch.empty(W, dtype=torch.int64, device=device)
+        got = PK.intersect_words(rows_dev, out)
+        plain = PK.intersect_words_plain(rows_dev)
+        require(torch.equal(got, plain), f"phase18b {sel}: kernel differs from plain")
+        require(np.array_equal(PK.device_words_to_host(got), tier_host_words(idx, sel)),
+                f"phase18b {sel}: kernel differs from the host AND")
+        k_ms = cuda_ms(lambda: PK.intersect_words(rows_dev, out), reps=20)
+        k_b2b = back_to_back_ms(lambda: PK.intersect_words(rows_dev, out))
+        k_graph = graph_ms(lambda: PK.intersect_words(rows_dev, out))
+        empty = graph_ms(lambda: PK.empty_launch(W, device))
+
+        def library():
+            acc = torch.bitwise_and(rows_dev[0], rows_dev[1])
+            for r in rows_dev[2:]:
+                torch.bitwise_and(acc, r, out=acc)
+            return acc
+
+        lib_ms = cuda_ms(library, reps=20)
+        lib_graph = graph_ms(library)
+        p_ms = cuda_ms(lambda: PK.intersect_words_plain(rows_dev), reps=20)
+        d2h_ms = cuda_ms(lambda: out.cpu(), reps=20)
+        t, b = [], PK.LAUNCHES
+        for _ in range(20):
+            t0 = time.perf_counter()
+            idx.part_ids_from_filters(f, 0, 2**62)
+            t.append(time.perf_counter() - t0)
+        require(PK.LAUNCHES - b == 20, f"phase18b {sel}: {PK.LAUNCHES - b} launches in 20 "
+                f"lookups")
+        launches += 20
+        tier_ms = float(np.median(t)) * 1e3
+        need = (M + 1) * W * 8
+        bound_ms = need / HBM_BYTES_PER_S * 1e3
+        print(f"phase18b M={M} {[f'{k}={v}' for k, v in sel]}: {len(got_ids)} ids; one B11 "
+              f"launch, bit-equal to plain and to the host AND; kernel {k_ms:.4f} ms a call "
+              f"(median of 20 between events), {k_b2b:.4f} ms back to back, {k_graph:.5f} ms "
+              f"on the device (graph replay); empty launch over the same blocks {empty:.5f} "
+              f"ms; bound {bound_ms:.6f} ms ({need} bytes, W={W}); library ({M - 1} "
+              f"torch.bitwise_and) {lib_ms:.4f} ms, {lib_graph:.5f} ms on the device; plain "
+              f"{p_ms:.4f} ms; the result's copy to the host {d2h_ms:.4f} ms; lookup p50 "
+              f"{tier_ms:.4f} ms with the tier against {h_ms:.4f} ms on the host; on {card}")
+        rows.append({"M": M, "ids": int(len(got_ids)), "kernel_ms": k_ms,
+                     "kernel_ms_back_to_back": k_b2b, "kernel_device_ms": k_graph,
+                     "empty_launch_device_ms": empty, "bound_ms": bound_ms, "bound_bytes": need,
+                     "library_ms": lib_ms, "library_device_ms": lib_graph, "plain_ms": p_ms,
+                     "d2h_ms": d2h_ms, "lookup_tier_ms": tier_ms, "lookup_host_ms": h_ms})
+    kinds = LEDGER.verify()["kinds"]
+    require(all(k["drift"] == 0 for k in kinds.values()), f"phase18b: ledger drift {kinds}")
+    snap = tier.snapshot()
+    require(snap["staged_bytes"] == snap["ledger_bytes"] == 5 * W * 8,
+            f"phase18b: staged {snap['staged_bytes']} bytes, ledger {snap['ledger_bytes']}")
+    print(f"phase18b: {launches} B11 launches on the lookup path; {snap['staged_bytes']} bytes "
+          f"staged, ledger drift 0 ({kinds.get('index_postings')}); tier stats {snap['stats']}")
+    idx.device_tier = None
+    tier.clear()
+    return {"W": W, "launches": launches, "max_abs_err": 0.0, "selectors": rows,
+            "stats": snap["stats"]}
+
+
+def hicard_batches():
+    """bench.py's query_hicard store (``counter_batch`` of the JAX testkit,
+    seed 7, for each of 4 tenants): 2,000 counters a tenant, 120 samples
+    10 s apart, as the port's record batches."""
+    from filodb_tpu_torch.core.records import RecordBatch
+    from filodb_tpu_torch.core.schemas import METRIC_TAG, PROM_COUNTER
+
+    ts = BASE + np.arange(HICARD_SAMPLES, dtype=np.int64) * 10_000
+    out = []
+    for ns in range(HICARD_TENANTS):
+        rng = np.random.default_rng(7)
+        vals = np.cumsum(rng.uniform(0, 10, size=(HICARD_SERIES, HICARD_SAMPLES)), axis=1)
+        tags = [{METRIC_TAG: "http_requests_total", "_ws_": "demo", "_ns_": f"App-{ns}",
+                 "instance": f"host-{i}", "job": "api"} for i in range(HICARD_SERIES)]
+        out.append(RecordBatch(PROM_COUNTER, np.tile(ts, HICARD_SERIES),
+                               {"count": vals.ravel()},
+                               [t for t in tags for _ in range(HICARD_SAMPLES)]))
+    return out
+
+
+def hicard_engine(device, **config):
+    from filodb_tpu_torch.coordinator.planner import QueryEngine
+    from filodb_tpu_torch.core.schemas import Dataset
+    from filodb_tpu_torch.memstore.memstore import TimeSeriesMemStore
+    from filodb_tpu_torch.memstore.shard import StoreConfig
+
+    ms = TimeSeriesMemStore(StoreConfig(**config))
+    ms.setup(Dataset("prometheus"), range(N_SHARDS))
+    for batch in hicard_batches():
+        ms.ingest_routed("prometheus", batch, spread=SPREAD)
+    return QueryEngine(ms, "prometheus", device=device)
+
+
+def hicard_run(engine):
+    """One hicard query with every launch count and B11's at 0 just before;
+    returns the [G, J] on the host, the wall seconds and the counts."""
+    import importlib
+
+    from filodb_tpu_torch.ops import postings_kernels as PK
+
+    mods = {name: importlib.import_module(f"filodb_tpu_torch.ops.{mod}")
+            for name, (mod, _) in KERNEL_COUNTERS.items()}
+    for name, (_, attr) in KERNEL_COUNTERS.items():
+        setattr(mods[name], attr, 0)
+    PK.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = engine.query_range(HICARD_QUERY, *HICARD_RANGE)
+    vals = res.grids[0].values_np()
+    wall = time.perf_counter() - t0
+    counts = {name: getattr(mods[name], attr) for name, (_, attr) in KERNEL_COUNTERS.items()}
+    counts["postings_intersect"] = PK.LAUNCHES
+    return vals, wall, counts
+
+
+def phase_index_hicard(device, card: str) -> dict:
+    """18c: bench.py's query_hicard through the port's engine on the card,
+    on each index backend: the staged superblocks bit-equal, the answers
+    within rtol 1e-5 (the regular kernel's group atomics add in a new order
+    each launch), warm p50 each, one regular_range launch a query; then the
+    bitmap index with the device tier: after ``min_hits`` cold builds and a
+    ``maintain``, a cold build resolves every shard's selector with one B11
+    launch beside the rung's one launch, and the answer stays."""
+    import torch
+
+    one_rung = {k: int(k == "regular_range") for k in KERNEL_COUNTERS}
+    blocks, answers, out = {}, {}, {}
+    for backend in INDEX_BACKENDS:
+        engine = hicard_engine(device, index_backend=backend)
+        vals, cold_s, counts = hicard_run(engine)
+        require(counts == dict(one_rung, postings_intersect=0),
+                f"phase18c {backend}: launches {counts}")
+        warm = []
+        for _ in range(10):
+            v, w, counts = hicard_run(engine)
+            require(counts == dict(one_rung, postings_intersect=0),
+                    f"phase18c {backend} warm: launches {counts}")
+            warm.append(w)
+        require(np.isfinite(vals).all() and vals.shape[0] == 1,
+                f"phase18c {backend}: answer {vals.shape}")
+        blocks[backend], answers[backend] = cached_block(engine), vals
+        out[backend] = {"cold_ms": cold_s * 1e3, "warm_p50_ms": p50(warm) * 1e3}
+        print(f"phase18c {backend}: {HICARD_QUERY} over {HICARD_TENANTS * HICARD_SERIES} "
+              f"counters, {blocks[backend].n_series} series staged; cold "
+              f"{cold_s * 1e3:.1f} ms, warm p50 {p50(warm) * 1e3:.3f} ms; one regular_range "
+              f"launch each")
+        del engine
+    for backend in ("native", "set"):
+        require(blocks_bit_equal(blocks[backend], blocks["python"]),
+                f"phase18c: the {backend} backend's superblock differs from the bitmap index's")
+        err = compare(torch.from_numpy(answers[backend]), torch.from_numpy(answers["python"]),
+                      f"phase18c {backend} vs python", rtol=1e-5)
+        out[backend]["max_abs_err_vs_python"] = err
+    print("phase18c: the three backends stage bit-equal superblocks; answers within rtol 1e-5")
+    engine = hicard_engine(device, index_device_postings=True, index_device_min_hits=2,
+                           index_device=str(device))
+    shards = engine.memstore.shards("prometheus")
+    for _ in range(2):  # min_hits cold builds: each shard's selector is looked up
+        cold_cache(engine)
+        hicard_run(engine)
+    staged = sum(sh.index.device_tier.maintain() for sh in shards)
+    holders = sum(1 for sh in shards if "App-1" in sh.index.value_counts("_ns_"))
+    require(staged == 2 * holders, f"phase18c tier: staged {staged}, {holders} shards hold App-1")
+    cold_cache(engine)
+    before = sum(sh.index.device_tier.stats["intersections"] for sh in shards)
+    vals, cold_s, counts = hicard_run(engine)
+    resolved = sum(sh.index.device_tier.stats["intersections"] for sh in shards) - before
+    require(resolved == holders and counts == dict(one_rung, postings_intersect=holders),
+            f"phase18c tier: launches {counts}, {resolved} lookups resolved by the tier, "
+            f"{holders} shards hold App-1")
+    require(blocks_bit_equal(cached_block(engine), blocks["python"]),
+            "phase18c tier: the superblock differs from the bitmap index's")
+    err = compare(torch.from_numpy(vals), torch.from_numpy(answers["python"]),
+                  "phase18c tier vs python", rtol=1e-5)
+    _, warm_s, counts = hicard_run(engine)
+    require(counts == dict(one_rung, postings_intersect=0),
+            f"phase18c tier warm: launches {counts} (a hit looks nothing up)")
+    print(f"phase18c tier: a cold build resolves the selector on {resolved} shards with one "
+          f"B11 launch each beside one regular_range launch ({cold_s * 1e3:.1f} ms), a warm "
+          f"hit takes the rung's launch alone ({warm_s * 1e3:.3f} ms); answer within rtol "
+          f"1e-5 of the bitmap index's (max_abs_err {err:.3g}); on {card}")
+    out["tier"] = {"cold_ms": cold_s * 1e3, "warm_ms": warm_s * 1e3, "launches": holders,
+                   "max_abs_err_vs_python": err}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6600,6 +6996,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 matmuls in full f32
     device = torch.device("cuda")
     heap_tuned = tune_heap()  # as the port's server tunes its process at start
+    index_workers = start_index_workers(INDEX_KEYS)  # 18a's native and set builds, beside
     split_libs = build_kernels()
     card = card_line()
     print(f"phase1 card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
@@ -6699,6 +7096,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     month = phase_month(device, card)
     elapsed("phases 9b, 6b, 7a-7d, 10b, 10c")
+    gc.collect()
+    torch.cuda.empty_cache()
+    index_regex, index = phase_index_regex(index_workers, INDEX_KEYS, card)
+    index_tier = phase_index_tier(index, device, card)
+    del index
+    gc.collect()
+    index_hicard = phase_index_hicard(device, card)
+    elapsed("phase 18")
     launches = add_launches(bench_hist["launches"], irr_hist["launches"])
     # phase 16's folded quantiles (its range launches are the hist_jitter row's)
     launches["hist_quantile"] += hist_jitter["launches"]["hist_quantile"]
@@ -6817,9 +7222,33 @@ def main() -> int:
                                "phase11_kernels": agg_kernels, "phase13": subqueries}}))
     print(json.dumps({"hist_tree": {"phase2f": hist_2f, "phase12": hist_tree}}))
     print(json.dumps({"jitter": {"phase2g": jitter_2g, "phase14": fused_jitter}}))
+    print(json.dumps({"index": {"phase18a": index_regex, "phase18b": index_tier,
+                                "phase18c": index_hicard}}))
+    two = index_tier["selectors"][0]  # M = 2: the library's one torch.bitwise_and
+    postings_row = {
+        "name": "postings_intersect",
+        "route": "cuda",
+        "source": "filodb_tpu_torch/csrc/postings.cu",
+        "replaces": "filodb_tpu/ops/postings_kernels.py:58",
+        "launches": index_tier["launches"] + index_hicard["tier"]["launches"],
+        "max_abs_err": index_tier["max_abs_err"],
+        "ms": two["kernel_ms"],
+        "plain_ms": two["plain_ms"],
+        "bound_ms": two["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": two["library_ms"],
+        "library_call": "torch.bitwise_and(a, b) at M = 2; no single torch call AND-reduces M "
+                        "bitmaps (M - 1 calls in the selectors' rows)",
+        "ms_back_to_back": two["kernel_ms_back_to_back"],
+        "device_ms": two["kernel_device_ms"],
+        "empty_launch_device_ms": two["empty_launch_device_ms"],
+        "bound_bytes": two["bound_bytes"],
+        "ms_is": f"M = 2 of {index_tier['W']} words, phase 18b",
+        "selectors": index_tier["selectors"],
+    }
     print(json.dumps({"kernels": [ws_row, wr_row, general_row, reg_row, *hist_rows,
                                   *order_rows, *tree_rows, *agg_rows, *hist_rows_12,
-                                  *jitter_rows]}))
+                                  *jitter_rows, postings_row]}))
     elapsed("all phases")
     print(card)
     print(json.dumps({"ok": True, "device": {

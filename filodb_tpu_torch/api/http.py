@@ -14,7 +14,10 @@ Served:
            /api/v1/cardinality, /api/v1/query_exemplars (the OpenMetrics
            exemplars /ingest/prom keeps), /admin/health
   GET      /metrics (Prometheus text or OpenMetrics), /debug/slow_queries,
-           /debug/superblocks, /debug/resources (the device ledger)
+           /debug/superblocks, /debug/resources (the device ledger),
+           /debug/index (the part-key index: per-label cardinality and
+           postings bytes, the device tier's staged bitmaps, ?label=
+           drill-down)
   POST     /ingest (JSON lines), /ingest/prom, /ingest/influx,
            /api/v1/write (remote write), /api/v1/read (remote read),
            /admin/flush (the server's flush, when it attached one)
@@ -56,7 +59,6 @@ UNPORTED = {
     "/debug/costmodel": "A6 (observability: the cost model)",
     "/debug/scheduler": "A5 (scheduling and admission)",
     "/debug/cluster": "A9 (federation and the cluster)",
-    "/debug/index": "A4b (the part-key index at scale)",
     "/debug/profile": "A6 (observability: the sampling profiler)",
     "/api/v1/standing/register": "A5 (standing queries)",
     "/api/v1/standing/unregister": "A5 (standing queries)",
@@ -334,6 +336,8 @@ class PromApiHandler(BaseHTTPRequestHandler):
                 return self._resources()
             if path == "/debug/superblocks":
                 return self._superblocks()
+            if path == "/debug/index":
+                return self._index_debug()
             if path == "/api/v1/cardinality":
                 return self._cardinality()
             if path == "/ingest":
@@ -569,6 +573,55 @@ class PromApiHandler(BaseHTTPRequestHandler):
             "ledger_bytes": cache.ledger.bytes if cache is not None else 0,
         }))
 
+    def _index_debug(self):
+        """Part-key index introspection: per-label cardinality and postings
+        footprint per shard, the label dictionary rolled up over shards, the
+        device tier's staged bitmaps where it is on, and with ``?label=`` the
+        top values of that label by series count."""
+        from ..memstore.cardinality import label_top_values
+
+        p = self._params()
+        drill_label = self._q(p, "label")
+        ds = self.engine.dataset
+        shards = []
+        labels_rollup: dict[str, dict] = {}
+        drill: dict[str, int] = {}
+        total_bytes = device_bytes = 0
+        for sh in self.engine.memstore.shards(ds):
+            st = sh.index_stats()
+            if drill_label:
+                for rec in label_top_values(sh.index, drill_label, k=50):
+                    drill[rec["value"]] = drill.get(rec["value"], 0) + rec["series"]
+            for k, rec in st.get("labels", {}).items():
+                slot = labels_rollup.setdefault(k, {"values": 0, "postings_bytes": 0})
+                slot["values"] += rec["values"]
+                slot["postings_bytes"] += rec["postings_bytes"]
+            total_bytes += st.get("postings_bytes", 0)
+            dev = st.get("device")
+            if dev:
+                device_bytes += dev.get("staged_bytes", 0)
+            shards.append({
+                "shard": sh.shard_num,
+                "part_keys": st.get("num_part_keys", 0),
+                "postings_bytes": st.get("postings_bytes", 0),
+                "dictionary_size": st.get("dictionary_size", 0),
+                "lookups": st.get("lookups", 0),
+                "device": dev,
+            })
+        return self._send(200, J.success({
+            "dataset": ds,
+            "shards": shards,
+            # a label's values summed over shards (its cross-shard
+            # cardinality is at most this sum)
+            "labels": dict(sorted(labels_rollup.items(),
+                                  key=lambda kv: -kv[1]["postings_bytes"])),
+            "postings_bytes": total_bytes,
+            "device_staged_bytes": device_bytes,
+            "label_values": (sorted(({"value": v, "series": n} for v, n in drill.items()),
+                                    key=lambda r: (-r["series"], r["value"]))[:50]
+                             if drill_label else None),
+        }))
+
     def _cardinality(self):
         """Per-shard-key-prefix cardinality (reference TsCardinalities)."""
         p = self._params()
@@ -666,7 +719,9 @@ class PromApiHandler(BaseHTTPRequestHandler):
 
 def register_shard_stats_collector(engine: QueryEngine) -> None:
     """Scrape-time per-shard gauges (``filodb_shard_partitions``, rows
-    ingested and skipped, partitions evicted, chunks flushed) in the
+    ingested and skipped, partitions evicted, chunks flushed, and the
+    index's ``filodb_index_postings_bytes``, ``filodb_index_dictionary_size``
+    and ``filodb_index_device_staged_bytes``) in the
     registry, keyed per engine; the closure holds the memstore weakly and
     unregisters itself once the store is gone."""
     import weakref
@@ -683,11 +738,16 @@ def register_shard_stats_collector(engine: QueryEngine) -> None:
             REGISTRY.unregister_collector(key)
             return
         for sh in memstore.shards(ds):
+            ist = sh.index_stats()
+            dev = ist.get("device") or {}
             for name, v in (("filodb_shard_partitions", sh.num_partitions),
                             ("filodb_shard_rows_ingested", sh.stats.rows_ingested),
                             ("filodb_shard_rows_skipped", sh.stats.rows_skipped),
                             ("filodb_shard_partitions_evicted", sh.stats.partitions_evicted),
-                            ("filodb_shard_chunks_flushed", sh.stats.chunks_flushed)):
+                            ("filodb_shard_chunks_flushed", sh.stats.chunks_flushed),
+                            ("filodb_index_postings_bytes", ist.get("postings_bytes", 0)),
+                            ("filodb_index_dictionary_size", ist.get("dictionary_size", 0)),
+                            ("filodb_index_device_staged_bytes", dev.get("staged_bytes", 0))):
                 REGISTRY.gauge(name, dataset=ds, shard=str(sh.shard_num)).set(float(v))
 
     REGISTRY.register_collector(key, collect)

@@ -32,12 +32,13 @@ DEFAULTS: dict = {
     "retention_hours": 72,
     "groups_per_shard": 16,
     "max_partitions_per_shard": 1_000_000,
-    # the port's index is the set-arithmetic one for "python" (the JAX
-    # default's name) and "set"; "native" is ROADMAP A4b
+    # the part-key index: "python" (the posting-bitmap index), "native"
+    # (its C++ core; raises where g++ fails) or "set" (set arithmetic)
     "index_backend": "python",
-    # opt-in HBM tier for hot posting bitmaps (doc/perf.md "Vectorized
-    # part-key index": all-equality selectors over staged bitmaps resolve
-    # as one tiny jit intersection; ledger kind index_postings)
+    # opt-in device tier for hot posting bitmaps ("python" backend only):
+    # all-equality selectors over staged bitmaps resolve as one launch of
+    # the postings intersection on the server's device; ledger kind
+    # index_postings
     "index_device_postings": False,
     "index_device_min_hits": 16,
     "index_device_max_bytes": 64 << 20,

@@ -5,6 +5,8 @@ prefix has seen, which ``TsCardinalitiesExec`` scans, with per-prefix
 quotas enforced where a shard creates a partition (``QuotaExceededError``,
 raised before anything is counted), the counts of series that stop or are
 removed by retention, and a JSON snapshot (the reference's RocksDB store).
+``label_top_values`` ranks one label's values by series count off the
+part-key index.
 """
 
 from __future__ import annotations
@@ -130,3 +132,12 @@ class CardinalityTracker:
             p = tuple(rec["p"])
             t._counts[p] = CardinalityRecord(p, rec["t"], rec["a"], rec["c"])
         return t
+
+
+def label_top_values(index, label: str, k: int = 20) -> list[dict]:
+    """Top-K values of one label by live-series count, off the part-key
+    index's posting containers (no posting walk): "which value of this
+    label is exploding", for the /debug/index?label= drill-down."""
+    counts = index.value_counts(label)
+    top = sorted(counts.items(), key=lambda kv: (-kv[1], kv[0]))[: int(k)]
+    return [{"value": v, "series": n} for v, n in top]

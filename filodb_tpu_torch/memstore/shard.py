@@ -10,9 +10,12 @@ time range was left untouched. The shard's staging cache holds host-staged
 blocks of selections; an ingest marks the entries it overlaps dirty, for
 the next query to repair by appending (``staging.append_to_block``).
 
-The shard counts its series by shard-key prefix (``cardinality``, with
-its quotas) and answers the metadata queries from its index (label names
-and values, the label sets of the matching series).
+The shard's index is ``config.index_backend``'s (``_make_index``: the
+posting-bitmap ``PartKeyIndex`` by default, the C++ core or the set
+index), with the opt-in device tier of hot posting bitmaps. The shard
+counts its series by shard-key prefix (``cardinality``, with its quotas)
+and answers the metadata queries from its index (label names and values,
+the label sets of the matching series).
 
 The lifecycle: flush tasks by flush group (``create_flush_task``, which
 ``store/flush.FlushCoordinator`` persists), the index's end times
@@ -39,7 +42,7 @@ from ..core.filters import ColumnFilter
 from ..core.records import RecordBatch, SeriesBatch
 from ..core.schemas import ColumnType, Schema
 from .cardinality import CardinalityTracker
-from .index import SetBasedPartKeyIndex
+from .index import PartKeyIndex, SetBasedPartKeyIndex
 from .partition import DEFAULT_MAX_CHUNK_SIZE, Chunk, TimeSeriesPartition
 
 NUM_FLUSH_GROUPS = 16  # reference groups-per-shard default
@@ -67,6 +70,19 @@ class StoreConfig:
     encode_on_seal: bool = False
     groups_per_shard: int = NUM_FLUSH_GROUPS
     max_partitions: int = 1_000_000
+    # "python" (the vectorized posting-bitmap index, the default) |
+    # "native" (the C++ posting-list core; raises where g++ fails) | "set"
+    # (the set-arithmetic index, the fuzz tests' oracle)
+    index_backend: str = "python"
+    # opt-in device tier for hot posting bitmaps (index_device.py): an
+    # all-equality selector whose matchers are staged resolves as one launch
+    # of the postings intersection. Off by default: the index then never
+    # touches a device. "python" backend only.
+    index_device_postings: bool = False
+    index_device_min_hits: int = 16
+    index_device_max_bytes: int = 64 << 20
+    # the tier's device: None for the card, or "cpu"
+    index_device: str | None = None
     # staging-cache byte budget per shard
     stage_cache_bytes: int = 2 << 30
     # resident chunk bytes per shard; past it headroom eviction runs
@@ -221,7 +237,7 @@ class TimeSeriesShard:
         self.dataset = dataset
         self.shard_num = shard_num
         self.config = config or StoreConfig()
-        self.index = SetBasedPartKeyIndex()
+        self.index = self._make_index()
         self.cardinality = CardinalityTracker()
         self.partitions: dict[int, TimeSeriesPartition] = {}
         self._by_partkey: dict[bytes, int] = {}
@@ -257,6 +273,48 @@ class TimeSeriesShard:
         # so the walk over every partition runs only near the budget
         self._resident_last = 0
         self._approx_new_bytes = 0
+
+    # -- index ---------------------------------------------------------------
+
+    def _make_index(self):
+        """The index of ``config.index_backend``, with the device tier when
+        ``index_device_postings`` asks for it. Unlike the JAX package, a
+        native core that does not build raises, and the tier with another
+        backend than "python" is a ``ValueError``: the native backend answers
+        equality selectors in C++ and never reaches the tier."""
+        backend = self.config.index_backend
+        if self.config.index_device_postings and backend != "python":
+            raise ValueError(f"index_device_postings needs index_backend=\"python\", not "
+                             f"{backend!r}: that backend resolves equality selectors outside "
+                             f"the bitmap path the device tier serves")
+        if backend == "python":
+            idx = PartKeyIndex()
+        elif backend == "native":
+            from .index_native import NativePartKeyIndex
+
+            return NativePartKeyIndex()
+        elif backend == "set":
+            return SetBasedPartKeyIndex()
+        else:
+            raise ValueError(f"unknown index_backend {backend!r} (python, native or set)")
+        if self.config.index_device_postings:
+            from .index_device import DevicePostingsTier
+
+            idx.device_tier = DevicePostingsTier(
+                idx, self.config.index_device or "cuda",
+                min_hits=self.config.index_device_min_hits,
+                max_bytes=self.config.index_device_max_bytes,
+                name=f"{self.dataset}/shard-{self.shard_num}/index",
+            )
+        return idx
+
+    def index_stats(self) -> dict:
+        """Introspection for /debug/index and the filodb_index_* gauges (the
+        set backend reports a minimal shape)."""
+        if hasattr(self.index, "postings_stats"):
+            return self.index.postings_stats()
+        return {"num_part_keys": len(self.index), "labels": {},
+                "postings_bytes": 0, "dictionary_size": 0, "device": None}
 
     # -- effect log ----------------------------------------------------------
 

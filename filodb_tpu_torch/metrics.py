@@ -1,7 +1,8 @@
 """Metrics and tracing of the port (counterpart of ``filodb_tpu/metrics.py``;
 reference FilodbMetrics.scala Kamon facade and Kamon spans).
 
-- ``Registry``: counters, gauges and histograms with their Prometheus text
+- ``Registry``: counters, gauges and histograms (``MicroHistogram`` for
+  the index's microsecond lookups) with their Prometheus text
   exposition (served at /metrics by ``api/http.py``), plus scrape-time
   collectors for gauges refreshed on demand (the device ledger's, the
   shards').
@@ -78,6 +79,14 @@ class Histogram:
                 self.exemplars[i] = (dict(exemplar), float(v), time.time())
 
 
+class MicroHistogram(Histogram):
+    """Histogram with sub-millisecond bounds for host paths that complete in
+    microseconds (index lookups): the standard bounds start at 1 ms."""
+
+    BOUNDS = (5e-6, 1e-5, 2.5e-5, 5e-5, 1e-4, 2.5e-4, 5e-4,
+              1e-3, 5e-3, 2.5e-2, 0.1, 0.5)
+
+
 def escape_label_value(v) -> str:
     """Prometheus text-format label escaping: backslash, double-quote and
     newline must be escaped or the exposition line is unparseable."""
@@ -109,6 +118,10 @@ HELP_TEXTS: dict[str, str] = {
     "filodb_render_seconds": "Result-body encode seconds per format (json-native|json-numpy JSON tiers, arrow peer frames).",
     "filodb_response_bytes": "Uncompressed result-body bytes sent per format (json|arrow).",
     "filodb_render_stream_stalls": "Streamed-render encoder waits on a device->host block (D2H the double-buffer failed to hide).",
+    "filodb_index_lookup_seconds": "Part-key index lookup latency by matcher cost class (eq|in|prefix|regex|neg).",
+    "filodb_index_postings_bytes": "Host posting-bitmap footprint of the part-key index, per shard.",
+    "filodb_index_device_staged_bytes": "Posting bitmaps staged to the device by the index's opt-in hot tier, per shard.",
+    "filodb_index_dictionary_size": "Distinct (label, value) dictionary entries in the part-key index, per shard.",
 }
 
 
@@ -149,6 +162,11 @@ class Registry:
 
     def histogram(self, name: str, **labels) -> Histogram:
         return self._get(Histogram, name, labels)
+
+    def micro_histogram(self, name: str, **labels) -> MicroHistogram:
+        """Histogram with microsecond buckets (a family keeps one layout:
+        this or ``histogram``, never both)."""
+        return self._get(MicroHistogram, name, labels)
 
     def _render_exemplar(self, ex) -> str:
         labels, value, ts = ex

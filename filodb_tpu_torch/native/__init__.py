@@ -1,12 +1,15 @@
-"""The host codec library of the port (counterpart of ``filodb_tpu/native``'s
-codec half): ``codecs.cpp`` (NibblePack's pack and unpack) compiled by g++
-at first use into ``_build/`` beside the package, named by a hash of its
-source and flags, and bound with ctypes.
+"""The host C++ libraries of the port (counterpart of ``filodb_tpu/native``'s
+codec and index halves): ``codecs.cpp`` (NibblePack's pack and unpack) and
+``index.cpp`` (the part-key index's posting-list core, bound by
+``memstore/index_native.py``), each compiled by g++ at first use into
+``_build/`` beside the package, named by a hash of its source and flags,
+and bound with ctypes.
 
-The build writes a temporary file and renames it into place, so a process
-that loads the library while another builds it reads a whole file or none.
-A failed build raises: nothing falls back to the Python tier by itself
-(``core/encodings.py`` runs that tier only when its caller asks).
+``build_library`` writes a temporary file and renames it into place, so a
+process that loads a library while another builds it reads a whole file
+or none. A failed build raises: nothing falls back to a Python tier by
+itself (``core/encodings.py`` runs its Python tier only when its caller
+asks; the index backend ``"native"`` raises).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from pathlib import Path
 import numpy as np
 
 SRC = Path(__file__).resolve().parent / "codecs.cpp"
+INDEX_SRC = Path(__file__).resolve().parent / "index.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC")
 
@@ -29,17 +33,19 @@ _lock = threading.Lock()
 _lib = None
 
 
-def library_path() -> Path:
-    """Where the library of the current source and flags lives."""
-    h = hashlib.sha256(SRC.read_bytes())
+def library_path(src: Path | None = None, stem: str = "libfilodbcodecs") -> Path:
+    """Where the library of ``src`` (default the codecs) and the flags lives."""
+    src = SRC if src is None else src
+    h = hashlib.sha256(src.read_bytes())
     h.update(" ".join(GXX_FLAGS).encode())
-    return BUILD_DIR / f"libfilodbcodecs-{h.hexdigest()[:12]}.so"
+    return BUILD_DIR / f"{stem}-{h.hexdigest()[:12]}.so"
 
 
-def build() -> Path:
-    """Compile ``codecs.cpp`` unless its library exists; returns its path.
-    Raises ``RuntimeError`` when g++ fails or is missing."""
-    out = library_path()
+def build_library(src: Path, stem: str) -> Path:
+    """Compile ``src`` into ``_build/<stem>-<hash>.so`` unless that library
+    exists; returns its path. Raises ``RuntimeError`` when g++ fails or is
+    missing."""
+    out = library_path(src, stem)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -47,18 +53,23 @@ def build() -> Path:
     os.close(fd)
     try:
         try:
-            proc = subprocess.run(["g++", *GXX_FLAGS, str(SRC), "-o", tmp],
+            proc = subprocess.run(["g++", *GXX_FLAGS, str(src), "-o", tmp],
                                   capture_output=True, text=True, check=False, timeout=300)
         except FileNotFoundError as e:
-            raise RuntimeError("g++ not found: the codec library cannot be built") from e
+            raise RuntimeError(f"g++ not found: {src.name} cannot be built") from e
         if proc.returncode != 0:
-            raise RuntimeError(f"g++ failed on {SRC.name} ({proc.returncode}):\n"
+            raise RuntimeError(f"g++ failed on {src.name} ({proc.returncode}):\n"
                                f"{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def build() -> Path:
+    """The codec library, compiled unless it exists."""
+    return build_library(SRC, "libfilodbcodecs")
 
 
 def lib() -> ctypes.CDLL:

@@ -16,10 +16,13 @@ otherwise flushes go to a ``LocalColumnStore`` there, which also pages
 evicted chunks back in. ``device`` null (the default) serves on the card
 and raises where there is none; ``"cpu"`` serves on the CPU. A config that
 asks for a subsystem the port has not got raises ``NotImplementedError``
-naming its ROADMAP item (``unported_settings``): the part-key index at
-scale (A4b), scheduling, standing queries and coalescing (A5),
-self-telemetry, SLOs and alerting (A6), downsampling and pre-aggregation
-(A7), the device index tier (A8), the cluster and gRPC (A9). The JAX
+naming its ROADMAP item (``unported_settings``): scheduling, standing
+queries and coalescing (A5), self-telemetry, SLOs and alerting (A6),
+downsampling and pre-aggregation (A7), the cluster and gRPC (A9). The
+index settings pass through to every shard's ``StoreConfig``:
+``index_backend`` ("python", "native" or "set") and
+``index_device_postings`` with its ``index_device_min_hits`` and
+``index_device_max_bytes``, the tier staging on the server's device. The JAX
 defaults that turn such subsystems on by themselves are off in the port
 (``config.PORT_OFF``).
 """
@@ -47,10 +50,6 @@ def unported_settings(cfg: dict) -> list[str]:
     got, each with its ROADMAP item."""
     q, dist = cfg["query"], cfg.get("distributed") or {}
     checks = [
-        (cfg.get("index_backend", "python") not in ("python", "set"),
-         "index_backend: the part-key index at scale (ROADMAP A4b)"),
-        (cfg.get("index_device_postings"), "index_device_postings: the device index tier "
-         "(ROADMAP A8)"),
         (int(q.get("parallelism", 0) or 0) > 0, "query.parallelism: the query scheduler "
          "(ROADMAP A5)"),
         (float(q.get("batch_window_ms", 0) or 0) > 0, "query.batch_window_ms: cross-query "
@@ -134,6 +133,11 @@ class FiloServer:
             retention_ms=int(float(cfg["retention_hours"]) * 3_600_000),
             groups_per_shard=int(cfg["groups_per_shard"]),
             max_partitions=int(cfg["max_partitions_per_shard"]),
+            index_backend=cfg["index_backend"],
+            index_device_postings=bool(cfg["index_device_postings"]),
+            index_device_min_hits=int(cfg["index_device_min_hits"]),
+            index_device_max_bytes=int(cfg["index_device_max_bytes"]),
+            index_device=str(self.device),
         )
         self.memstore = TimeSeriesMemStore(self.store_config)
         self.memstore.setup(Dataset(self.dataset), range(self.n_shards),

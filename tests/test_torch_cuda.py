@@ -2403,3 +2403,53 @@ def test_hist_jitter_through_the_engine_on_card(card):
     np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
     assert np.isfinite(w).any()
     np.testing.assert_allclose(g[~np.isnan(w)], w[~np.isnan(w)], rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [16_384, 15_625, 1, 2])
+@pytest.mark.parametrize("M", [1, 2, 3, 6, 64, 65, 130])
+def test_postings_intersect_matches_plain(card, M, W):
+    """B11 (csrc/postings.cu) bit-equal to its plain version: separate rows
+    (16-byte loads where W is even) and rows of one [M, W] tensor (odd W
+    leaves odd rows unaligned: the word-at-a-time pass); past 64 rows the
+    wrapper chains launches, one per 64."""
+    from filodb_tpu_torch.ops import postings_kernels as PK
+
+    rng = np.random.default_rng(M * 7 + W)
+    words = (rng.integers(0, 2**64, (M, W), dtype=np.uint64)
+             | rng.integers(0, 2**64, (M, W), dtype=np.uint64))
+    stacked = PK.host_words_to_device(words, card)
+    rows = [PK.host_words_to_device(w, card) for w in words]
+    want = PK.intersect_words_plain(stacked)
+    np.testing.assert_array_equal(PK.device_words_to_host(want),
+                                  np.bitwise_and.reduce(words, axis=0))
+    for inp in (rows, stacked):
+        before = PK.LAUNCHES
+        got = PK.intersect_words(inp)
+        torch.cuda.synchronize()
+        assert PK.LAUNCHES == before + max(1, -(-(M - 1) // 63))
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_postings_tier_resolves_with_one_launch_on_card(card):
+    from filodb_tpu_torch.core.filters import equals
+    from filodb_tpu_torch.memstore.index import PartKeyIndex, SetBasedPartKeyIndex
+    from filodb_tpu_torch.memstore.index_device import DevicePostingsTier
+    from filodb_tpu_torch.ops import postings_kernels as PK
+
+    idx, ref = PartKeyIndex(), SetBasedPartKeyIndex()
+    for pid in range(20_000):
+        tags = {"_ws_": "demo", "_ns_": f"ns{pid % 20}", "dc": f"dc{pid % 10}",
+                "host": f"h{pid % 1000}"}
+        idx.add_partkey(pid, tags, 0)
+        ref.add_partkey(pid, tags, 0)
+    idx.device_tier = DevicePostingsTier(idx, card, min_hits=1)
+    f = [equals("_ws_", "demo"), equals("_ns_", "ns3"), equals("dc", "dc3")]
+    idx.part_ids_from_filters(f, 0, 2**62)
+    assert idx.device_tier.maintain() == 3
+    before = PK.LAUNCHES
+    got = idx.part_ids_from_filters(f, 0, 2**62)
+    assert PK.LAUNCHES == before + 1
+    assert got.tolist() == ref.part_ids_from_filters(f, 0, 2**62).tolist()
+    assert idx.device_tier.stats["intersections"] == 1
