@@ -14,7 +14,7 @@ Phases (any failure raises and exits non-zero):
    ``postings.cu`` with
    nvcc, and the histogram kernel's split builds (``tile_sweep.HIST_PATCHES``:
    search only and fetch only of the aggregate; compute only and store only
-   of the store mode), all at once, and bind their eighteen entry points
+   of the store mode), all at once, and bind their twenty-two entry points
    (``filodb_window_stats``,
    ``filodb_window_range_aggregate``, ``filodb_regular_range``,
    ``filodb_hist_range_aggregate``, ``filodb_hist_resident``,
@@ -24,7 +24,9 @@ Phases (any failure raises and exits non-zero):
    ``filodb_segment_aggregate``, ``filodb_hist_range_series``,
    ``filodb_hist_instant``, ``filodb_jitter_range``,
    ``filodb_hist_range_jitter``, ``filodb_hist_jitter_resident``,
-   ``filodb_postings_intersect``); print their
+   ``filodb_postings_intersect`` and the lane modes
+   ``filodb_regular_range_lanes``, ``filodb_general_range_lanes``,
+   ``filodb_jitter_range_lanes``, ``filodb_hist_range_lanes``); print their
    ptxas lines (registers, shared memory, spills) and the card's name and
    power limit.
 2. Window stats (the nine-plane kernel), kernel vs plain on seeded
@@ -425,6 +427,39 @@ Phases (any failure raises and exits non-zero):
    atomics), cold and warm p50, one ``regular_range`` launch a query; with
    the tier, a cold build resolves each shard's selector with one B11
    launch beside the rung's one, a warm hit with the rung's alone.
+19. Concurrent dashboards: cross-query batching and admission (A5's first
+   half, B12). 19a (after 15b, phase 5's store): bench.py's
+   ``concurrent_qps``: 16 clients, its 16 variants (``by (zone)``,
+   ``(zone,_ns_)``, ``(zone,_ws_)``, ``(zone,_ns_,_ws_)`` x 5m, 4m, 3m,
+   2m), batch window 200 ms and ``batch_max`` 16, 3 s a mode (bench.py's 6
+   s, cut to keep the script's time), against the same aligned plans with
+   batching off (a dispatch scheduler of window 0); one coalesced round of
+   all 16 is one launch of the regular kernel's lane mode a superblock, every
+   variant's answer within rtol 1e-5 of its solo answer (equal NaN masks);
+   the aligned staging ranges put 5m/4m and 3m/2m on two superblocks, as
+   in the JAX package, so the round is one lane-mode launch for each;
+   qps, p50 and p99 in both modes, launches per batched group (1), lanes a
+   launch and merged window groups; the largest group's kernel (median of 20
+   between events, and back to back) beside its bound and the 16 solo
+   launches it replaces. 19b: one batched group on each other lane mode,
+   through the ops layer on a cached superblock: ``sum by (...) (irate)``
+   on phase 4's irregular store (general), ``sum(rate)`` and ``sum by
+   (zone)`` over two windows on phase 14's jittered and holey stores
+   (jitter, masked), ``histogram_quantile(q, sum by (le) (rate))`` at q
+   0.5, 0.9, 0.99 over two windows on 7b's store (the quantiles folded in)
+   and ``topk(5, rate)`` over three windows on phase 5's (the lane store
+   mode, then an order-statistics launch a lane): the launch count, each
+   lane against its solo dispatch (rtol 1e-5; topk: the store grids
+   bit-equal to the solo store launches, each step's winning values
+   bit-equal, the series chosen free between exactly tied values) and the lane
+   mode's plain version (rtol 1e-3, as phases 2b-2g hold a kernel's group
+   sums against ``index_add``), the batched dispatch against the solo ones,
+   beside the bound. 19c: the HTTP
+   API over phase 5's store with batching and a quota that sheds tenant
+   App-2 after one query: App-1's queries answer, App-2's second gets 429
+   with ``Retry-After`` and the structured warning, four identical
+   concurrent requests share one execution, ``/debug/scheduler`` and
+   ``/metrics`` show the sheds and the batches.
 
 Before phase 1 the process holds glibc's heap trimming off as the port's
 server does at start (``server.tune_heap``); the host times of every phase
@@ -439,7 +474,8 @@ and 11's (``{"tree": ...}``), one with phases 2f and 12's
 (``{"hist_tree": ...}``), one with phases 2g and 14's (``{"jitter":
 ...}``), one with phases 15 and 15b's (``{"server": ...}``; phase 16's
 is in ``{"hist": ...}``), one with phase 17's (``{"persistence": ...}``),
-one with phase 18's (``{"index": ...}``), one with the kernels' numbers
+one with phase 18's (``{"index": ...}``), one with phase 19's
+(``{"batching": ...}``), one with the kernels' numbers
 (the order-statistics kernels' rows, and the store mode's numbers on the
 rungs' rows), the card's
 name and power limit as nvidia-smi gives them, and the result line
@@ -644,7 +680,7 @@ def compare_stats(got: dict, want: dict, rtol: float = 2e-4, atol: float = 1e-4)
 
 def build_kernels() -> dict:
     """Build every source and the histogram kernel's split builds at
-    once (one nvcc each), bind the eighteen entry points, print ptxas's lines
+    once (one nvcc each), bind the twenty-two entry points, print ptxas's lines
     (registers, shared memory, spills) and return the split builds."""
     from filodb_tpu_torch.ops import cuda_build
     from filodb_tpu_torch.ops import general_range as GR
@@ -674,7 +710,9 @@ def build_kernels() -> dict:
                sw_lib.filodb_sorted_window, sa_lib.filodb_segment_aggregate,
                hk_lib.filodb_hist_range_series, hk_lib.filodb_hist_instant,
                jr_lib.filodb_jitter_range, hk_lib.filodb_hist_range_jitter,
-               hk_lib.filodb_hist_jitter_resident, pk_lib.filodb_postings_intersect]
+               hk_lib.filodb_hist_jitter_resident, pk_lib.filodb_postings_intersect,
+               mk_lib.filodb_regular_range_lanes, gr_lib.filodb_general_range_lanes,
+               jr_lib.filodb_jitter_range_lanes, hk_lib.filodb_hist_range_lanes]
     print(f"phase1 built {', '.join(l.name for l in libs)} in {time.perf_counter() - t0:.1f} s; "
           f"entry points {', '.join(e.__name__ for e in entries)}")
     for name in SOURCES:
@@ -1348,24 +1386,36 @@ def time_window_stats(block, n_series: int, ex, j_pad: int) -> dict:
     }
 
 
+def regular_positions(wm, num_steps: int, func: str) -> tuple:
+    """The sample positions of a row's vals and of its raw plane (the
+    counter zero-crossing cap) that the function reads over the query's
+    window bounds."""
+    lo = wm.lo.cpu().numpy()[:num_steps].astype(np.int64)
+    hi = wm.hi.cpu().numpy()[:num_steps].astype(np.int64)
+    if func == "rate":
+        ok = hi - lo >= 2
+        return np.concatenate([lo[ok], hi[ok] - 1]), lo[ok]
+    # sum_over_time: every sample of every window
+    vals_pos = np.concatenate([np.arange(a, b) for a, b in zip(lo, hi)] + [np.empty(0, np.int64)])
+    return vals_pos, np.empty(0, np.int64)
+
+
+def sector_bytes(positions) -> int:
+    """The bytes of the distinct 32-byte sectors that f32 samples at
+    ``positions`` of one row lie in (rows are 32-byte aligned, so every row
+    reads the same sectors)."""
+    return len(np.unique(np.asarray(positions, np.int64) * 4 // 32)) * 32
+
+
 def regular_bound_bytes(wm, n_series: int, num_steps: int, G: int, func: str) -> int:
     """Bytes the function must move over the real rows and steps, from the
     query's window bounds: the 32-byte sectors of a row's vals (and raw,
-    for the counter zero-crossing cap) that it reads, times the rows (rows
-    are 32-byte aligned, so each reads the same sectors); each real row's
-    gid; the seven per-step arrays; acc and cnt at [G, num_steps]."""
-    lo = wm.lo.cpu().numpy()[:num_steps].astype(np.int64)
-    hi = wm.hi.cpu().numpy()[:num_steps].astype(np.int64)
-    count = hi - lo
-    if func == "rate":
-        ok = count >= 2
-        vals_pos = np.concatenate([lo[ok], hi[ok] - 1])
-        raw_pos = lo[ok]
-    else:  # sum_over_time: every sample of every window
-        vals_pos = np.concatenate([np.arange(a, b) for a, b in zip(lo, hi)] + [np.empty(0, np.int64)])
-        raw_pos = np.empty(0, np.int64)
-    sectors = len(np.unique(vals_pos * 4 // 32)) + len(np.unique(raw_pos * 4 // 32))
-    return sectors * 32 * n_series + n_series * 8 + 7 * num_steps * 4 + 2 * G * num_steps * 4
+    for the counter zero-crossing cap) that it reads, times the rows; each
+    real row's gid; the seven per-step arrays; acc and cnt at [G,
+    num_steps]."""
+    vals_pos, raw_pos = regular_positions(wm, num_steps, func)
+    row = sector_bytes(vals_pos) + sector_bytes(raw_pos)
+    return row * n_series + n_series * 8 + 7 * num_steps * 4 + 2 * G * num_steps * 4
 
 
 def phase_regular_path(seed: int, device):
@@ -2804,10 +2854,12 @@ def sampled_positions(block, params, windows, r0: int, r1: int):
     return torch.sort(pos, dim=1).values
 
 
-def hist_bound_bytes(block, params, G: int, windows):
+def hist_bound_bytes(block, params, G: int, windows, union=()):
     """Bytes the range kernel's function must move over the real rows and
     steps: each real row's buckets at the distinct first and last samples
-    of its windows with two samples or more (``sample_bytes``), plus, on
+    of its windows with two samples or more (``sample_bytes``; with
+    ``union``, more ``(params, windows)`` grids whose samples join the
+    distinct set, each byte counted once), plus, on
     per-series bounds, each real row's timestamps (the window search); each
     row's gid (and length), the [J] bounds, and acc/cnt written once. Also
     the sector floor: the bytes of the 32-byte sectors those samples touch
@@ -2815,6 +2867,8 @@ def hist_bound_bytes(block, params, G: int, windows):
     count in 64- and 128-byte units, the granularities in which the memory
     system may move them. Returns (bound bytes, sample bytes, {unit: floor
     bytes} for units 32, 64 and 128)."""
+    import torch
+
     n, J = block.n_series, params.num_steps
     T, B = block.vals.shape[1], block.vals.shape[2]
     width = B * 4
@@ -2822,7 +2876,9 @@ def hist_bound_bytes(block, params, G: int, windows):
     unit_bytes = {32: 0, 64: 0, 128: 0}
     for r0 in range(0, n, 8192):
         r1 = min(n, r0 + 8192)
-        pos = sampled_positions(block, params, windows, r0, r1)
+        pos = torch.sort(torch.cat([sampled_positions(block, p, w, r0, r1)
+                                    for p, w in ((params, windows), *union)], dim=1),
+                         dim=1).values
         new = (pos[:, 1:] != pos[:, :-1]) & (pos[:, 1:] >= 0)
         sample_bytes += (int(new.sum()) + int((pos[:, 0] >= 0).sum())) * width
         # row s's sample k lies at byte (s * T + k) * width of vals
@@ -4130,6 +4186,12 @@ TREE_AGG_ONCE = frozenset({
     f"sum(rate(http_requests_total[5m] @ {AT_S}))",
     "rate(http_requests_total[5m]) * 2",
     "rate(http_requests_total[5m]) > bool 0.1",
+    # since phase 19: the script's time (their warm runs took 1.0-4.1 s each)
+    "group by (zone) (http_requests_total)",
+    "sum(quantile_over_time(0.5, http_requests_total[5m]))",
+    "rate(http_requests_total[5m]) / irate(http_requests_total[5m])",
+    "rate(http_requests_total[5m]) / on (zone) group_left "
+    "sum by (zone) (rate(http_requests_total[5m]))",
 })
 # with fused_aggregate=False, held against the fused answer (irregular store)
 UNFUSED_QUERY = "sum by (zone) (rate(http_requests_total[5m]))"
@@ -5677,7 +5739,7 @@ def fused_jitter_query(engine, q: str, kind: str, want_class: str, rung: str, ca
     return row
 
 
-def phase_fused_jitter(device, card: str, regular_p50_ms: float):
+def phase_fused_jitter(device, card: str, regular_p50_ms: float, lane_hook=None):
     """Phase 14: bench.py's ``fused_jitter`` stores through the port at full
     width: ``FUSED_JITTER_SERIES`` counters on 8 shards, 720 samples at 10 s, jitter 0.05,
     phase 5 s, seed 42, with no missed scrape (``jitter5pct``: grid class
@@ -5686,8 +5748,9 @@ def phase_fused_jitter(device, card: str, regular_p50_ms: float):
     sum(rate) against bench.py's f64 oracle (``oracle_sum_rate``, rtol
     5e-3); the warm p50 of sum(rate) over ``WARM_P50_RUNS`` runs against
     phase 5's regular store's (bench.py's ratio); the holey store's cold
-    first query with its sidecar's build timed. Returns the phase's rows
-    and the jittered store, which phase 6b extends."""
+    first query with its sidecar's build timed; ``lane_hook(label, rung,
+    engine)`` on each store after its queries (phase 19b). Returns the
+    phase's rows and the jittered store, which phase 6b extends."""
     from filodb_tpu_torch.coordinator.planner import QueryEngine
     from filodb_tpu_torch.ops import staging as ST
 
@@ -5737,6 +5800,8 @@ def phase_fused_jitter(device, card: str, regular_p50_ms: float):
                     "phase14: the holey superblock's sidecar was not built")
             res["sidecar_build_s"] = sidecar_s[0]
             res["sidecar_bytes"] = entry.block.mgrid.nbytes()
+        if lane_hook is not None:
+            res["lanes"] = lane_hook(label, rung, engine)
         out[label] = res
         print(f"phase14 {label}: {FUSED_JITTER_SERIES} series ingested in {ingest_s:.1f} s; "
               f"sum(rate) "
@@ -6980,6 +7045,722 @@ def phase_index_hicard(device, card: str) -> dict:
     return out
 
 
+# -- phase 19: concurrent dashboards (cross-query batching, admission) ----------------
+
+QPS_CLIENTS = 16  # bench.py's concurrent_qps
+QPS_BATCH_WINDOW_MS = 200.0
+QPS_DURATION_S = 3.0  # bench.py's 6 s per mode, cut to keep the script's time
+QPS_BYS = (" by (zone)", " by (zone,_ns_)", " by (zone,_ws_)", " by (zone,_ns_,_ws_)")
+QPS_WINDOWS = ("5m", "4m", "3m", "2m")
+QPS_VARIANTS = tuple(f"sum{QPS_BYS[i % 4]} (rate(http_requests_total[{QPS_WINDOWS[(i // 4) % 4]}]))"
+                     for i in range(QPS_CLIENTS))
+LANE_SUM_RTOL = 1e-5  # sums, avg and histogram lanes: group atomics add in launch order
+PLAIN_RTOL = 1e-3  # against the plain version's index_add: atomics reorder a group's f32 sums
+# (lane module, its entry-point prefix, the kernels line's row)
+LANE_ROWS = {
+    "mxu": ("mxu_kernels", "regular_range", "regular_range lanes",
+            "filodb_tpu/ops/aggregations.py:1233"),
+    "general": ("general_range", "general_range", "general_range lanes",
+                "filodb_tpu/ops/aggregations.py:1208"),
+    "jitter": ("mxu_jitter", "jitter_range", "jitter_range lanes",
+               "filodb_tpu/ops/aggregations.py:1261"),
+    "masked": ("mxu_jitter", "masked_range", "jitter_range lanes",
+               "filodb_tpu/ops/aggregations.py:1291"),
+    "hist_shared": ("hist_kernels", "hist_range", "hist_range lanes",
+                    "filodb_tpu/ops/hist_kernels.py:486"),
+    "hist_general": ("hist_kernels", "hist_range", "hist_range lanes",
+                     "filodb_tpu/ops/hist_kernels.py:507"),
+}
+
+
+def lane_module(variant: str):
+    import importlib
+
+    return importlib.import_module(f"filodb_tpu_torch.ops.{LANE_ROWS[variant][0]}")
+
+
+def qps_measure(engine, duration_s: float) -> dict:
+    """bench.py's concurrent_qps loop: QPS_CLIENTS threads each re-issue
+    their variant until the deadline, every answer brought to the host;
+    qps over the wall, p50/p99 of the per-query latencies."""
+    import threading
+
+    lat = [[] for _ in QPS_VARIANTS]
+    gate = threading.Barrier(len(QPS_VARIANTS) + 1)
+    stop = [0.0]
+
+    def client(i):
+        gate.wait()
+        while time.perf_counter() < stop[0]:
+            t0 = time.perf_counter()
+            for g in engine.query_range(QPS_VARIANTS[i], START_S, END_S, STEP_S).grids:
+                g.values_np()
+            lat[i].append(time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(QPS_VARIANTS))]
+    for t in threads:
+        t.start()
+    stop[0] = time.perf_counter() + duration_s
+    t0 = time.perf_counter()
+    gate.wait()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    flat = [x for per in lat for x in per]
+    return {"queries": len(flat), "qps": len(flat) / wall,
+            "p50_ms": float(np.percentile(flat, 50) * 1e3),
+            "p99_ms": float(np.percentile(flat, 99) * 1e3)}
+
+
+def coalesced_round(engine, sched, queries):
+    """``queries`` at once through ``engine`` with the batch window held until
+    every one has joined; the answers by query."""
+    import threading
+
+    hold = threading.Event()
+    sched._waiter = lambda ev, s: hold.wait(60)
+    q0 = sched.stats["queries"]
+    out, errors = {}, {}
+
+    def run(q):
+        try:
+            out[q] = engine.query_range(q, START_S, END_S, STEP_S)
+        except Exception as e:  # noqa: BLE001 -- re-raised below
+            errors[q] = e
+
+    threads = [threading.Thread(target=run, args=(q,)) for q in queries]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + 60
+    while sched.stats["queries"] - q0 < len(queries) and time.monotonic() < deadline:
+        time.sleep(0.001)
+    hold.set()
+    for t in threads:
+        t.join(120)
+    sched._waiter = None
+    require(not errors, f"phase19: a coalesced query failed: {errors}")
+    return out
+
+
+def lanes_match(got, want, what: str, exact: bool, rtol: float = LANE_SUM_RTOL) -> float:
+    """Each lane's answer against its solo answer (or the plain version's):
+    equal NaN masks, equal values (``exact``) or within ``rtol``; the
+    largest difference."""
+    err = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.cpu().numpy().astype(np.float64), w.cpu().numpy().astype(np.float64)
+        require(g.shape == w.shape and (np.isnan(g) == np.isnan(w)).all(),
+                f"{what} lane {i}: NaN masks differ from solo")
+        m = ~np.isnan(w)
+        if exact:
+            require(bool((g[m] == w[m]).all()), f"{what} lane {i}: differs from solo")
+        else:
+            require(np.allclose(g[m], w[m], rtol=rtol, atol=1e-6),
+                    f"{what} lane {i}: differs beyond rtol {rtol}")
+        err = max(err, float(np.max(np.abs(g[m] - w[m]), initial=0.0)))
+    return err
+
+
+def topk_match(got, want, grids, u_of_lane, n_real: int, what: str) -> None:
+    """topk lanes (``([k, J] values, [k, J] series indices)``) against their
+    solo launches over the lanes' store grids ``grids`` [U, J_pad, S_pad]
+    (bit-equal to the solo store launches, checked by the caller): each
+    step's winning values bit-equal to the solo ones; each returned index a
+    distinct real row whose value in the lane's grid is the value returned
+    beside it; and where lane and solo chose different series at a step,
+    the values of the series that differ equal (exact ties)."""
+    for i, ((v, idx), (sv, sidx)) in enumerate(zip(got, want)):
+        J = v.shape[1]
+        g = grids[u_of_lane[i]][:J].cpu().numpy()
+        v, idx, sv, sidx = (t.cpu().numpy() for t in (v, idx, sv, sidx))
+        require(np.array_equal(np.sort(v, 0), np.sort(sv, 0), equal_nan=True),
+                f"{what} lane {i}: the winners' values differ from solo")
+        require(bool(((idx >= 0) & (idx < n_real)).all()),
+                f"{what} lane {i}: an index outside the real rows")
+        require(np.array_equal(g[np.arange(J)[None, :], idx], v, equal_nan=True),
+                f"{what} lane {i}: an index does not point at its value")
+        for j in range(J):
+            mine, solo = set(idx[:, j].tolist()), set(sidx[:, j].tolist())
+            require(len(mine) == idx.shape[0], f"{what} lane {i} step {j}: repeated index")
+            a, b = sorted(mine - solo), sorted(solo - mine)
+            require(np.array_equal(np.sort(g[j, a]), np.sort(g[j, b]), equal_nan=True),
+                    f"{what} lane {i} step {j}: series differ from solo beyond exact ties")
+
+
+def torch_equal_nan(a, b) -> bool:
+    import torch
+
+    return bool(torch.equal(torch.isnan(a), torch.isnan(b))) and bool(
+        torch.equal(a[~torch.isnan(a)], b[~torch.isnan(b)]))
+
+
+def lane_bound(variant: str, func: str, block, batch, lanes, counter: bool, delta: bool) -> dict:
+    """The least time of one lane-mode launch: the superblock bytes that
+    its U unique windows read together, each byte once (the union of the
+    32-byte sectors, or of the samples, that any of their windows touches;
+    the jitter and general rungs read every real slot whatever the window),
+    the lanes' int32 [L, S_pad] gids and their [G, J] acc/cnt (the store
+    mode: the [U, J, S_pad] grids), over 3.35 TB/s."""
+    from filodb_tpu_torch.ops import aggregations as AGG
+    from filodb_tpu_torch.ops import mxu_kernels as MK
+    from filodb_tpu_torch.ops.kernels import RangeParams
+
+    J, S_pad, n_real = batch.num_steps, block.vals.shape[0], block.n_series
+    U = len(batch.ukeys)
+    grids = [RangeParams(so + block.base_ms, sm, J, w) for so, sm, w in batch.ukeys]
+    if variant == "mxu":
+        pos = [regular_positions(MK.window_matrices(block, so, sm, batch.j_pad, w), J, func)
+               for so, sm, w in batch.ukeys]
+        row = (sector_bytes(np.concatenate([p[0] for p in pos]))
+               + sector_bytes(np.concatenate([p[1] for p in pos])))
+        read = row * n_real + U * 7 * J * 4
+    elif variant in ("jitter", "masked"):
+        read = jitter_bound_bytes(variant, func, block, n_real, J, counter, delta) - n_real * 8
+    elif variant == "general":
+        read = int(block.lens[:n_real].sum()) * 8 + n_real * 4
+    else:
+        windows = [AGG._hist_shared_windows(block, p, batch.j_pad)
+                   if variant == "hist_shared" else None for p in grids]
+        read = hist_bound_bytes(block, grids[0], 0, windows[0],
+                                union=tuple(zip(grids[1:], windows[1:])))[0] - n_real * 8
+        if variant == "hist_shared":
+            read += (U - 1) * 4 * J * 4  # each further window's [J] bounds
+    width = J * (block.vals.shape[2] if block.vals.dim() == 3 else 1)
+    gids = len(lanes) * S_pad * 4 if batch.gids is not None else S_pad * 4
+    out = sum(2 * l[1] * width * 4 for l in lanes) if batch.gids is not None else \
+        U * J * S_pad * 4
+    need = read + gids + out
+    return {"bound_ms": need / HBM_BYTES_PER_S * 1e3, "bound_bytes": need,
+            "window_bytes": read, "gids_bytes": gids, "out_bytes": out}
+
+
+def lane_kernels(variant: str, kind: str, func: str, block, batch, lanes, counter: bool,
+                 delta: bool, les=None, quantile: bool = False) -> tuple:
+    """The lane-mode kernel of a batched group and the L solo kernels it
+    replaces, each a function that launches into outputs allocated here
+    once: no allocation, finish or order statistics in a timed call.
+    ``kind`` "topk" times the store modes (the order-statistics launches
+    are the same L on both sides). Returns (lane launch, solo launches)."""
+    import torch
+
+    from filodb_tpu_torch.ops import aggregations as AGG
+    from filodb_tpu_torch.ops import general_range as GR
+    from filodb_tpu_torch.ops import group_acc as GA
+    from filodb_tpu_torch.ops import hist_kernels as HK
+    from filodb_tpu_torch.ops import mxu_jitter as JR
+    from filodb_tpu_torch.ops import mxu_kernels as MK
+
+    dev = block.vals.device
+    L, G, J, j_pad, S = len(lanes), batch.G, batch.num_steps, batch.j_pad, block.vals.shape[0]
+    if kind == "hist":
+        B = block.vals.shape[2]
+        bufs = HK.lane_buffers(block, batch, lanes, quantile)
+        solo = []
+        for gids, G_l, q, p in lanes:
+            windows = (AGG._hist_shared_windows(block, p, j_pad)
+                       if variant == "hist_shared" else None)
+            plan = HK.hist_plan(block.vals.shape[1], p.num_steps, B, G_l, windows is not None)
+            acc, cnt, arrivals = HK.hist_buffers(G_l, j_pad * B, plan.slices, dev)
+            out = torch.full((G_l, j_pad), float("nan"), dtype=torch.float32, device=dev)
+            solo.append((gids, G_l, p, windows, acc, cnt,
+                         (q, les, out, arrivals) if quantile else None))
+
+        def hist_solos():
+            for gids, G_l, p, windows, acc, cnt, qt in solo:
+                HK._launch_range(func, block, gids, G_l, p, windows, delta, acc, cnt, quantile=qt)
+
+        return (lambda: HK._launch_lanes(func, block, batch, les, quantile, delta, bufs),
+                hist_solos)
+    store = kind != "agg"
+    op = GA.STORE if store else "sum"
+    if store:
+        acc = cnt = GA.lane_series_buffer(len(batch.ukeys), S, j_pad, J, dev)
+    else:
+        acc, cnt = GA.lane_accumulators(op, L, G, j_pad, dev)
+    solo = []
+    for (gids, G_l, _q, p), u in zip(lanes, batch.u_of_lane):
+        if store:
+            gids, G_l = AGG.zero_gids(block), 1
+            a = c = GA.series_buffer(S, j_pad, p.num_steps, dev)
+        else:
+            a, c = GA.accumulators(op, G_l, j_pad, dev)
+        solo.append((gids, G_l, p, u, a, c))
+    raw = block.raw if block.raw is not None else block.vals
+    wms = batch.windows.get("wms")
+    if variant == "mxu":
+        def lane():
+            MK._launch_lanes(func, op, block.vals, raw, batch, counter, delta, acc, cnt)
+
+        def one(gids, G_l, p, u, a, c):
+            MK._launch(func, op, block.vals, raw, gids, G_l, wms[u], p.num_steps, counter,
+                       delta, a, c)
+    elif variant == "general":
+        def lane():
+            GR._launch_lanes(func, op, block, batch, counter, delta, acc, cnt)
+
+        def one(gids, G_l, p, u, a, c):
+            GR._launch(func, op, block, gids, G_l, p, counter, delta, a, c)
+    else:
+        masked = variant == "masked"
+        planes = JR._lane_prepare(masked, func, block)
+        maxdev = JR._maxdev(masked, block)
+
+        def lane():
+            JR._launch_lanes(masked, func, op, planes, batch, counter, delta, maxdev, acc, cnt)
+
+        def one(gids, G_l, p, u, a, c):
+            JR._launch(masked, func, op, planes, gids, G_l, wms[u], p.num_steps, counter, delta,
+                       maxdev, a, c)
+
+    def solos():
+        for args in solo:
+            one(*args)
+
+    return lane, solos
+
+
+def lane_group(label: str, variant: str, func: str, kind: str, block, lanes, counter: bool,
+               delta: bool, card: str, les=None, quantile: bool = False, solo=None) -> dict:
+    """One batched group on a cached superblock through the ops layer: the
+    lanes' dispatch (its launches counted from 0: one lane-mode launch, and
+    for topk lanes one order-statistics launch a lane), each lane held to
+    its solo dispatch (``solo(lane)``) and to the lane mode's plain version
+    on the card. Timed (median of 20 between CUDA events, and back to
+    back): the lane-mode kernel alone and the L solo kernels alone
+    (``lane_kernels``), beside the bound; the batched dispatch and the L
+    solo dispatches (allocation, finish and order statistics included); the
+    plain version once."""
+    import torch
+
+    from filodb_tpu_torch.ops import aggregations as AGG
+    from filodb_tpu_torch.ops import hist_kernels as HK
+    from filodb_tpu_torch.ops import order_stats as OS
+    from filodb_tpu_torch.ops.kernels import pad_steps
+
+    mod = lane_module(variant)
+    prefix = LANE_ROWS[variant][1]
+    j_pad = pad_steps(max(l[3].num_steps for l in lanes))
+    batch = AGG._batched_stacks(block, lanes, variant, kind, j_pad)
+    if kind == "hist":
+        def run():
+            return AGG.fused_batched_hist(func, block, lanes, les, quantile, delta)
+    else:
+        epilogue = ("agg", "sum") if kind == "agg" else ("topk", 5, False)
+
+        def run():
+            return AGG.fused_batched_scalar(func, epilogue, block, lanes, counter, delta)
+    mod.LANE_LAUNCHES = 0
+    OS.LAUNCHES = 0
+    if kind == "hist":
+        HK.LANE_FOLDED = 0
+    got = run()
+    torch.cuda.synchronize()
+    launches = {"lanes": mod.LANE_LAUNCHES, "order_stats": OS.LAUNCHES}
+    require(mod.LANE_LAUNCHES == 1, f"phase19 {label}: {mod.LANE_LAUNCHES} lane-mode launches")
+    require(OS.LAUNCHES == (len(lanes) if kind == "topk" else 0),
+            f"phase19 {label}: {OS.LAUNCHES} order-statistics launches")
+    if quantile:
+        require(HK.LANE_FOLDED == 1, f"phase19 {label}: the quantiles were not folded in")
+    want = [solo(l) for l in lanes]
+    t0 = time.perf_counter()
+    if kind == "hist":
+        plain = HK.hist_range_lanes_plain(func, block, lanes, batch, les, quantile, delta)
+    elif kind == "agg":
+        plain = getattr(mod, f"{prefix}_lanes_plain")(func, "sum", block, lanes, batch, counter,
+                                                      delta)
+    else:
+        plain = getattr(mod, f"{prefix}_lanes_series_plain")(func, block, batch, counter, delta)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if kind == "topk":
+        grids = getattr(mod, f"{prefix}_lanes_series")(func, block, batch, counter, delta)
+        require(torch_equal_nan(grids, plain), f"phase19 {label}: store grids differ from plain")
+        for l, u in zip(lanes, batch.u_of_lane):  # and from each lane's solo store launch
+            require(torch_equal_nan(grids[u], AGG.fused_range_series(
+                func, block, l[3], is_counter=counter, is_delta=delta)),
+                f"phase19 {label}: a store grid differs from its solo store launch")
+        topk_match(got, want, grids, batch.u_of_lane, block.n_series, f"phase19 {label} vs solo")
+        err_solo = err_plain = 0.0
+    else:
+        err_solo = lanes_match(got, want, f"phase19 {label} vs solo", exact=False)
+        err_plain = lanes_match(got, plain, f"phase19 {label} vs plain", exact=False,
+                                rtol=PLAIN_RTOL)
+    lane_k, solo_k = lane_kernels(variant, kind, func, block, batch, lanes, counter, delta,
+                                  les, quantile)
+    ms, b2b = cuda_ms(lane_k, 20), back_to_back_ms(lane_k, 20)
+    solo_ms, solo_b2b = cuda_ms(solo_k, 20), back_to_back_ms(solo_k, 20)
+    disp_ms, disp_b2b = cuda_ms(run, 20), back_to_back_ms(run, 20)
+    solo_disp_ms = cuda_ms(lambda: [solo(l) for l in lanes], 20)
+    solo_disp_b2b = back_to_back_ms(lambda: [solo(l) for l in lanes], 20)
+    bound = lane_bound(variant, func, block, batch, lanes, counter, delta)
+    row = {"variant": variant, "lanes": len(lanes), "windows": len(batch.ukeys), "G": batch.G,
+           "plan": str(mod.LAST_LANE_PLAN), "launches": launches, "ms": ms, "ms_back_to_back": b2b,
+           "solo_ms": solo_ms, "solo_ms_back_to_back": solo_b2b, "dispatch_ms": disp_ms,
+           "dispatch_ms_back_to_back": disp_b2b, "solo_dispatch_ms": solo_disp_ms,
+           "solo_dispatch_ms_back_to_back": solo_disp_b2b, "plain_ms": plain_ms,
+           "max_abs_err": err_plain, "vs_solo_max_abs_err": err_solo, **bound}
+    print(f"phase19 {label}: {len(lanes)} lanes over {len(batch.ukeys)} windows ({variant}, "
+          f"G {batch.G}, {row['plan']}): launches {launches}; lanes match solo "
+          f"(max abs {err_solo:.3g}) and the plain version ({err_plain:.3g}); the lane-mode "
+          f"kernel {ms:.4f} ms (median of 20; {b2b:.4f} back to back) against its {len(lanes)} "
+          f"solo kernels {solo_ms:.4f} ms ({solo_b2b:.4f}); bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_bytes']} bytes: windows {bound['window_bytes']}, gids "
+          f"{bound['gids_bytes']}, out {bound['out_bytes']}); the batched dispatch {disp_ms:.4f} "
+          f"ms ({disp_b2b:.4f}) against the solo dispatches {solo_disp_ms:.4f} ms "
+          f"({solo_disp_b2b:.4f}); plain {plain_ms:.1f} ms; on {card}")
+    return row
+
+
+def fused_lanes(engine, q: str, specs) -> tuple:
+    """The cached superblock of fused query ``q`` and one lane per ``(by,
+    window_ms, q)`` spec on it: ``(entry, ex, lanes)``."""
+    from filodb_tpu_torch.ops import aggregations as AGG
+    from filodb_tpu_torch.ops.kernels import RangeParams
+
+    ex = exec_node(engine, q)
+    entry = ex.superblock(engine.context())
+    lanes = []
+    for by, w, qv in specs:
+        if by == "topk":
+            gids, G = AGG.zero_gids(entry.block), 1
+        else:
+            gids, G, _ = AGG.group_ids_memo(entry.block, entry.labels, by, None,
+                                            strip_metric=True)
+        lanes.append((gids, G, qv, RangeParams(ex.start_ms - ex.offset_ms, ex.step_ms,
+                                               ex.num_steps(), w)))
+    return entry, ex, lanes
+
+
+def solo_scalar(entry, func: str, kind: str):
+    from filodb_tpu_torch.ops import aggregations as AGG
+
+    if kind == "topk":
+        return lambda l: AGG.fused_topk(func, entry.block, 5, False, l[3],
+                                        is_counter=entry.is_counter, is_delta=entry.is_delta)
+    return lambda l: AGG.fused_range_aggregate(func, "sum", entry.block, l[0], l[1], l[3],
+                                               is_counter=entry.is_counter,
+                                               is_delta=entry.is_delta)
+
+
+def phase_lanes_general(engine, card: str) -> dict:
+    """19b on phase 4's irregular store: ``sum by (...) (irate)`` lanes of
+    three groupings over two windows, one launch of the general rung's lane
+    mode."""
+    q = "sum by (zone) (irate(http_requests_total[5m]))"
+    specs = [(["zone"], 300_000, 0.0), (["zone", "_ns_"], 300_000, 0.0), (None, 300_000, 0.0),
+             (["zone"], 240_000, 0.0)]
+    entry, _, lanes = fused_lanes(engine, q, specs)
+    return lane_group("19b general (irregular, irate)", "general", "irate", "agg", entry.block,
+                      lanes, entry.is_counter, entry.is_delta, card,
+                      solo=solo_scalar(entry, "irate", "agg"))
+
+
+def phase_lanes_jitter(label: str, rung: str, engine, card: str) -> dict:
+    """19b on phase 14's jittered or holey store: ``sum(rate)`` lanes over
+    two windows, one launch of the jitter kernel's lane mode."""
+    specs = [(None, 300_000, 0.0), (["zone"], 300_000, 0.0), (None, 240_000, 0.0),
+             (["zone"], 240_000, 0.0)]
+    entry, _, lanes = fused_lanes(engine, QUERIES[0], specs)
+    return lane_group(f"19b {rung} ({label}, rate)", rung, "rate", "agg", entry.block, lanes,
+                      entry.is_counter, entry.is_delta, card,
+                      solo=solo_scalar(entry, "rate", "agg"))
+
+
+def phase_lanes_hist(engine, card: str) -> dict:
+    """19b on 7b's histogram store: ``histogram_quantile(q, sum by (le)
+    (rate))`` lanes at q 0.5, 0.9, 0.99 over two windows, each lane's q
+    folded into one launch of the histogram kernel's lane mode."""
+    from filodb_tpu_torch.ops import aggregations as AGG
+
+    specs = [(None, w, qv) for w in (300_000, 240_000) for qv in (0.5, 0.9, 0.99)]
+    entry, _, lanes = fused_lanes(engine, HIST_QUERY, specs)
+    variant = AGG.hist_variant(entry.block, lanes[0][3])
+
+    def solo(l):
+        return AGG.fused_hist_range_aggregate("rate", entry.block, l[0], l[1], l[3],
+                                              entry.les_dev, q=l[2], is_delta=entry.is_delta)
+
+    return lane_group(f"19b {variant} (7b, histogram_quantile)", variant, "rate", "hist",
+                      entry.block, lanes, False, entry.is_delta, card, les=entry.les_dev,
+                      quantile=True, solo=solo)
+
+
+def phase_lanes_topk(engine, card: str) -> dict:
+    """19b on phase 5's regular store: ``topk(5, rate)`` lanes over two
+    windows: one launch of the lane store mode, then one order-statistics
+    launch a lane (1 + L)."""
+    specs = [("topk", w, 0.0) for w in (300_000, 240_000, 180_000)]
+    entry, _, lanes = fused_lanes(engine, QUERIES[0], specs)
+    return lane_group("19b mxu topk (regular, rate)", "mxu", "rate", "topk", entry.block, lanes,
+                      entry.is_counter, entry.is_delta, card,
+                      solo=solo_scalar(entry, "rate", "topk"))
+
+
+def phase_concurrent_qps(engine, card: str) -> dict:
+    """19a: bench.py's ``concurrent_qps`` on phase 5's regular store: 16
+    clients, its 16 variants (four group-bys x four windows), batch window
+    200 ms and batch_max 16, against the same plans with batching off (a
+    dispatch scheduler of window 0 over the same aligned superblock). Every
+    variant's batched answer held to its solo one (rtol 1e-5, equal NaN
+    masks); each batched group exactly one lane-mode launch; qps, p50, p99
+    in both modes; the lane-mode kernel of a 16-lane group timed beside its
+    bound and beside the solo launches it replaces."""
+    import torch
+
+    from filodb_tpu_torch.coordinator.planner import PlannerParams, QueryEngine
+    from filodb_tpu_torch.ops import group_acc as GA
+    from filodb_tpu_torch.ops import mxu_kernels as MK
+    from filodb_tpu_torch.query.scheduler import DispatchScheduler
+
+    sched = DispatchScheduler(QPS_BATCH_WINDOW_MS, QPS_CLIENTS)
+    batched = QueryEngine(engine.memstore, engine.dataset, PlannerParams(
+        batch_window_ms=QPS_BATCH_WINDOW_MS, batch_max=QPS_CLIENTS, dispatch_scheduler=sched))
+    solo = QueryEngine(engine.memstore, engine.dataset, PlannerParams(
+        batch_window_ms=QPS_BATCH_WINDOW_MS, dispatch_scheduler=DispatchScheduler(0)))
+    t0 = time.perf_counter()
+    want = {q: solo.query_range(q, START_S, END_S, STEP_S) for q in QPS_VARIANTS}
+    warm_s = time.perf_counter() - t0
+    captured = []
+    real = MK.regular_range_lanes
+
+    def capture(*a, **k):
+        captured.append((a, k))
+        return real(*a, **k)
+
+    MK.regular_range_lanes = capture
+    try:
+        MK.LANE_LAUNCHES = 0
+        got = coalesced_round(batched, sched, QPS_VARIANTS)
+    finally:
+        MK.regular_range_lanes = real
+    torch.cuda.synchronize()
+    # the aligned staging ranges (planner.FUSED_ALIGN_MS) of 5m/4m and 3m/2m
+    # windows differ at bench.py's start, so the 16 lanes span two superblocks
+    # (as in the JAX package): one launch for each
+    blocks = {id(a[2]) for a, _ in captured}
+    require(MK.LANE_LAUNCHES == len(captured) == len(blocks)
+            and sum(len(a[3]) for a, _ in captured) == QPS_CLIENTS,
+            f"phase19a: the coalesced round took {MK.LANE_LAUNCHES} lane launches over "
+            f"{len(blocks)} superblocks")
+    err = 0.0
+    for q in QPS_VARIANTS:
+        a, b = engine_rows(got[q]), engine_rows(want[q])
+        require(sorted(a) == sorted(b), f"phase19a {q}: batched groups differ from solo")
+        err = max(err, lanes_match([torch.from_numpy(np.asarray(a[k])) for k in sorted(a)],
+                                   [torch.from_numpy(np.asarray(b[k])) for k in sorted(b)],
+                                   f"phase19a {q}", exact=False))
+    merged0 = sched.stats["merged_windows"]
+    off = qps_measure(solo, QPS_DURATION_S)
+    before = dict(sched.stats)
+    MK.LANE_LAUNCHES = MK.LAUNCHES = 0
+    on = qps_measure(batched, QPS_DURATION_S)
+    torch.cuda.synchronize()
+    lane_launches, solo_launches = MK.LANE_LAUNCHES, MK.LAUNCHES
+    d = {k: sched.stats[k] - before[k] for k in before}
+    require(lane_launches == d["batched"],
+            f"phase19a: {lane_launches} lane launches for {d['batched']} batched groups")
+    lanes_per_launch = (d["queries"] - d["coalesced"] - d["solo"]) / max(d["batched"], 1)
+    # the kernel of the round's largest group, and the solo launches it replaces
+    args, kw = max(captured, key=lambda c: len(c[0][3]))
+    func, op, block, lanes, batch = args[:5]
+    counter, delta = kw["is_counter"], kw["is_delta"]
+    raw = block.raw if block.raw is not None else block.vals
+    acc, cnt = GA.lane_accumulators(op, len(lanes), batch.G, batch.j_pad, block.vals.device)
+
+    def lane_kernel():
+        MK._launch_lanes(func, op, block.vals, raw, batch, counter, delta, acc, cnt)
+
+    solo_bufs = []
+    for gids, G, _q, p in lanes:
+        wm = MK.window_matrices(block, int(p.start_ms - block.base_ms), p.step_ms, batch.j_pad,
+                                p.window_ms)
+        solo_bufs.append((gids, G, wm, p.num_steps,
+                          *GA.accumulators(op, G, batch.j_pad, block.vals.device)))
+
+    def solo_kernels():
+        for gids, G, wm, n, a, c in solo_bufs:
+            MK._launch(func, op, block.vals, raw, gids, G, wm, n, counter, delta, a, c)
+
+    ms, b2b = cuda_ms(lane_kernel, 20), back_to_back_ms(lane_kernel)
+    solo_ms, solo_b2b = cuda_ms(solo_kernels, 20), back_to_back_ms(solo_kernels)
+    t0 = time.perf_counter()
+    plain = MK.regular_range_lanes_plain(func, op, block, lanes, batch, counter, delta)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    kern = MK.regular_range_lanes(func, op, block, lanes, batch, counter, delta)
+    err_plain = lanes_match(kern, plain, "phase19a kernel vs plain", exact=False,
+                            rtol=PLAIN_RTOL)
+    bound = lane_bound("mxu", func, block, batch, lanes, counter, delta)
+    solo_bound = sum(regular_bound_bytes(b[2], block.n_series, b[3], b[1], func)
+                     for b in solo_bufs) / HBM_BYTES_PER_S * 1e3
+    row = {"off": off, "on": on, "qps_ratio": on["qps"] / off["qps"],
+           "warm_solo_s": warm_s, "dispatch_stats": d, "lanes_per_launch": lanes_per_launch,
+           "lane_launches": lane_launches, "solo_launches_while_batched": solo_launches,
+           "launches_per_batched_group": lane_launches / max(d["batched"], 1),
+           "merged_windows": sched.stats["merged_windows"] - merged0,
+           "round_launches": len(captured), "round_superblocks": len(blocks),
+           "kernel_ms": ms, "kernel_ms_back_to_back": b2b, "solo16_ms": solo_ms,
+           "solo16_ms_back_to_back": solo_b2b, "solo16_bound_ms": solo_bound,
+           "plain_ms": plain_ms, "max_abs_err": err_plain, "vs_solo_max_abs_err": err,
+           "plan": str(MK.LAST_LANE_PLAN), "lanes": len(lanes), "windows": len(batch.ukeys),
+           "G": batch.G, **bound}
+    print(f"phase19a concurrent_qps ({QPS_CLIENTS} clients, {QPS_DURATION_S:.0f} s a mode, "
+          f"window {QPS_BATCH_WINDOW_MS:.0f} ms, batch_max {QPS_CLIENTS}): batched {on['qps']:.1f} "
+          f"qps, p50 {on['p50_ms']:.2f} ms, p99 {on['p99_ms']:.2f} ms; off {off['qps']:.1f} qps, "
+          f"p50 {off['p50_ms']:.2f} ms, p99 {off['p99_ms']:.2f} ms ({row['qps_ratio']:.2f} x); "
+          f"{d['batched']} batched groups, {lane_launches} lane launches "
+          f"({row['launches_per_batched_group']:.2f} a group), {lanes_per_launch:.2f} lanes a "
+          f"launch, {row['merged_windows']} merged window groups, {d['solo']} solo, "
+          f"{d['fallback']} fallback, {d['error']} error; every variant equal to solo "
+          f"(max abs {err:.3g}); on {card}")
+    print(f"phase19a kernel: {len(lanes)} lanes over {len(batch.ukeys)} windows ({row['plan']}) "
+          f"{ms:.4f} ms (median of 20; {b2b:.4f} back to back), bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_bytes']} bytes: windows {bound['window_bytes']}, gids "
+          f"{bound['gids_bytes']}, out {bound['out_bytes']}); the {len(lanes)} solo launches "
+          f"{solo_ms:.4f} ms ({solo_b2b:.4f} back to back, bound {solo_bound:.4f}); plain "
+          f"{plain_ms:.1f} ms, "
+          f"max abs {err_plain:.3g} against it; on {card}")
+    return row
+
+
+ADMISSION_QUOTAS = {"demo/App-2": {"rate": 0.001, "burst": 1}}  # one query, then shed
+
+
+def phase_admission(engine, card: str) -> dict:
+    """19c: the port's HTTP API over phase 5's store with batching (5 ms)
+    and a quota that sheds tenant App-2 after one query, none on App-1:
+    App-1's queries all answer, App-2's second gets 429 with Retry-After and
+    the structured warning; four identical concurrent requests share one
+    execution; ``/debug/scheduler`` and ``/metrics`` show the sheds and the
+    batches."""
+    import threading
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+
+    from filodb_tpu_torch import metrics as M
+    from filodb_tpu_torch.api.http import serve_background
+    from filodb_tpu_torch.coordinator.planner import PlannerParams, QueryEngine
+    from filodb_tpu_torch.query.scheduler import AdmissionController
+
+    adm = AdmissionController(ADMISSION_QUOTAS)
+    eng = QueryEngine(engine.memstore, engine.dataset, PlannerParams(
+        batch_window_ms=5.0, batch_max=16, admission=adm))
+    srv, port = serve_background(eng)
+    base = f"http://127.0.0.1:{port}"
+
+    def url(q):
+        return (f"{base}/api/v1/query_range?query={urllib.parse.quote(q)}&start={START_S}"
+                f"&end={END_S}&step={STEP_S}")
+
+    def get(u):
+        try:
+            with urllib.request.urlopen(u, timeout=120) as r:
+                return r.status, dict(r.headers), json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, dict(e.headers), json.loads(e.read())
+
+    try:
+        app1 = [get(url(f'sum(rate(http_requests_total{{_ws_="demo",_ns_="App-1"}}[{w}]))'))[0]
+                for w in ("5m", "4m", "3m")]
+        require(app1 == [200] * 3, f"phase19c: App-1 answered {app1}")
+        q2 = 'sum by (zone) (rate(http_requests_total{_ws_="demo",_ns_="App-2"}[5m]))'
+        first, second = get(url(q2)), get(url(q2))
+        require(first[0] == 200 and second[0] == 429, f"phase19c: App-2 got {first[0]}, "
+                f"{second[0]}")
+        retry = int(second[1]["Retry-After"])
+        warning = second[2]["warnings"][0]
+        require(retry >= 1 and warning["reason"] == "admission_rejected"
+                and warning["ns"] == "App-2", f"phase19c: the shed's answer {second}")
+        # identical concurrent requests: the leader is held until the three
+        # followers wait on its execution
+        coalesced = M.REGISTRY.counter("filodb_queries_coalesced")
+        c0 = coalesced.value
+        real_run = eng._run
+
+        def held(*a, **k):
+            deadline = time.monotonic() + 30
+            while coalesced.value - c0 < 3 and time.monotonic() < deadline:
+                time.sleep(0.001)
+            return real_run(*a, **k)
+
+        eng._run = held
+        q = "sum(rate(http_requests_total[5m]))"
+        codes = []
+        ths = [threading.Thread(target=lambda: codes.append(get(url(q))[0])) for _ in range(4)]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(120)
+        eng._run = real_run
+        shared = coalesced.value - c0
+        require(codes == [200] * 4 and shared == 3,
+                f"phase19c: identical requests {codes}, {shared} coalesced")
+        snap = get(f"{base}/debug/scheduler")[2]["data"]
+        require(snap["admission"]["tenants"]["demo/App-2"]["shed"] == 1
+                and snap["batch"]["dispatches"] >= 1, f"phase19c: /debug/scheduler {snap}")
+        with urllib.request.urlopen(f"{base}/metrics", timeout=60) as r:
+            text = r.read().decode()
+        for line in ('filodb_admission_total{ns="App-2",outcome="shed_rate",ws="demo"} 1',
+                     "filodb_batch_dispatches_total", "filodb_queries_coalesced_total"):
+            require(line in text, f"phase19c: /metrics lacks {line}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    row = {"app1": app1, "app2": [first[0], second[0]], "retry_after_s": retry,
+           "warning": warning, "coalesced": shared, "scheduler": snap}
+    print(f"phase19c admission over HTTP: App-1 {app1}, App-2 {row['app2']} (Retry-After "
+          f"{retry} s, {warning['outcome']}); 4 identical concurrent requests, {shared} "
+          f"coalesced; /debug/scheduler: {snap['admission']['shed_total']} shed, "
+          f"{snap['batch']['dispatches']} dispatches; on {card}")
+    return row
+
+
+def lane_rows(qps: dict, groups: dict) -> list:
+    """The kernels line's rows of the four lane modes: the regular one from
+    19a (its launches the measured batched run's), the others from their 19b
+    group (the jitter row's masked group beside it); ``ms`` is each lane
+    mode's kernel alone."""
+    rows = [{
+        "name": "regular_range lanes", "route": "cuda",
+        "source": "filodb_tpu_torch/csrc/regular_range.cu",
+        "replaces": LANE_ROWS["mxu"][3],
+        "launches": qps["lane_launches"] + groups["topk"]["launches"]["lanes"],
+        "max_abs_err": max(qps["max_abs_err"], groups["topk"]["max_abs_err"]),
+        "ms": qps["kernel_ms"], "plain_ms": qps["plain_ms"], "bound_ms": qps["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "library_call": "none: no torch call computes windowed functions for many lanes",
+        "ms_back_to_back": qps["kernel_ms_back_to_back"], "solo_launches_ms": qps["solo16_ms"],
+        "solo_launches_ms_back_to_back": qps["solo16_ms_back_to_back"],
+        "ms_is": f"the lane-mode kernel of 19a's {qps['lanes']}-lane group ({qps['windows']} "
+                 "windows), phase 5's selection",
+        "topk_group": groups["topk"],
+    }]
+    for key, name in (("general", "general_range lanes"), ("jitter", "jitter_range lanes"),
+                      ("hist", "hist_range lanes")):
+        g = groups[key]
+        row = {"name": name, "route": "cuda",
+               "source": f"filodb_tpu_torch/csrc/{name.split()[0]}.cu",
+               "replaces": LANE_ROWS[g["variant"]][3], "launches": g["launches"]["lanes"],
+               "max_abs_err": g["max_abs_err"], "ms": g["ms"], "plain_ms": g["plain_ms"],
+               "bound_ms": g["bound_ms"], "bound_by": "bytes", "library_ms": None,
+               "library_call": "none: no torch call computes windowed functions for many lanes",
+               "ms_back_to_back": g["ms_back_to_back"], "solo_launches_ms": g["solo_ms"],
+               "solo_launches_ms_back_to_back": g["solo_ms_back_to_back"],
+               "dispatch_ms": g["dispatch_ms"], "solo_dispatches_ms": g["solo_dispatch_ms"],
+               "ms_is": f"the lane-mode kernel alone of 19b's {g['lanes']}-lane group "
+                        f"({g['windows']} windows, outputs allocated once), beside its "
+                        f"{g['lanes']} solo kernels alone"}
+        if key == "jitter":
+            m = groups["masked"]
+            row["launches"] += m["launches"]["lanes"]
+            row["max_abs_err"] = max(row["max_abs_err"], m["max_abs_err"])
+            row["masked_group"] = m
+            row["replaces_also"] = [LANE_ROWS["masked"][3]]
+        rows.append(row)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7024,6 +7805,8 @@ def main() -> int:
     elapsed("phase 11 (irregular)")
     subqueries = {"irregular": phase_subqueries(engine, card, "irregular")}
     elapsed("phase 13 (irregular)")
+    lane_groups = {"general": phase_lanes_general(engine, card)}
+    elapsed("phase 19b (irregular)")
     del engine
     gc.collect()  # the irregular store goes before the regular one is built
     torch.cuda.empty_cache()
@@ -7045,6 +7828,10 @@ def main() -> int:
     elapsed("phase 15")
     cli = phase_cli(card)
     elapsed("phase 15b")
+    qps = phase_concurrent_qps(engine, card)
+    lane_groups["topk"] = phase_lanes_topk(engine, card)
+    admission = phase_admission(engine, card)
+    elapsed("phases 19a, 19b, 19c (regular)")
     reg_answers = {q: engine_rows(engine.query_range(q, START_S, END_S, STEP_S))
                    for q in QUERIES}
     del engine
@@ -7058,8 +7845,11 @@ def main() -> int:
     order_stream = phase_order_stream(args.seed, device, card)
     gc.collect()
     torch.cuda.empty_cache()
-    fused_jitter, jit_store = phase_fused_jitter(device, card, reg_row["warm_p50_ms"])
-    elapsed("phase 14")
+    fused_jitter, jit_store = phase_fused_jitter(
+        device, card, reg_row["warm_p50_ms"],
+        lane_hook=lambda label, rung, eng: lane_groups.__setitem__(
+            rung, phase_lanes_jitter(label, rung, eng, card)))
+    elapsed("phases 14, 19b")
     gc.collect()
     live_jit = phase_live_edge(QueryEngine(jit_store, "prometheus"), device, "phase6b", "jitter",
                                n_idle=5, n_busy=4, min_batches=1, seed=args.seed)
@@ -7072,7 +7862,8 @@ def main() -> int:
     bench_hist, hist_engine, jit_hist_store = phase_hist_bench(device, split_libs)
     hist_tree = {"regular": phase_hist_tree(hist_engine, card, "regular", HIST_TREE_QUERIES,
                                             split_libs)}
-    elapsed("phases 7a, 7b, 12 (regular)")
+    lane_groups["hist"] = phase_lanes_hist(hist_engine, card)
+    elapsed("phases 7a, 7b, 12, 19b (regular)")
     del hist_engine
     gc.collect()  # bench.py's histogram store goes before phase 16's superblock is built
     torch.cuda.empty_cache()
@@ -7224,6 +8015,8 @@ def main() -> int:
     print(json.dumps({"jitter": {"phase2g": jitter_2g, "phase14": fused_jitter}}))
     print(json.dumps({"index": {"phase18a": index_regex, "phase18b": index_tier,
                                 "phase18c": index_hicard}}))
+    print(json.dumps({"batching": {"phase19a": qps, "phase19b": lane_groups,
+                                   "phase19c": admission}}, default=str))
     two = index_tier["selectors"][0]  # M = 2: the library's one torch.bitwise_and
     postings_row = {
         "name": "postings_intersect",
@@ -7248,7 +8041,7 @@ def main() -> int:
     }
     print(json.dumps({"kernels": [ws_row, wr_row, general_row, reg_row, *hist_rows,
                                   *order_rows, *tree_rows, *agg_rows, *hist_rows_12,
-                                  *jitter_rows, postings_row]}))
+                                  *jitter_rows, postings_row, *lane_rows(qps, lane_groups)]}))
     elapsed("all phases")
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -35,6 +35,7 @@ included), ``transfer`` (device to host) and ``render``.
 from __future__ import annotations
 
 import json
+import math
 import re
 import threading
 import time
@@ -57,15 +58,14 @@ UNPORTED = {
     "/api/v1/query_profile": "A6 (observability: the query log)",
     "/debug/kernels": "A6 (observability: the kernel observatory)",
     "/debug/costmodel": "A6 (observability: the cost model)",
-    "/debug/scheduler": "A5 (scheduling and admission)",
     "/debug/cluster": "A9 (federation and the cluster)",
     "/debug/profile": "A6 (observability: the sampling profiler)",
-    "/api/v1/standing/register": "A5 (standing queries)",
-    "/api/v1/standing/unregister": "A5 (standing queries)",
-    "/api/v1/standing/subscribe": "A5 (standing queries)",
-    "/api/v1/standing": "A5 (standing queries)",
-    "/debug/standing": "A5 (standing queries)",
-    "/api/v1/rules/record": "A5 (standing queries: recording rules)",
+    "/api/v1/standing/register": "A5b (standing queries)",
+    "/api/v1/standing/unregister": "A5b (standing queries)",
+    "/api/v1/standing/subscribe": "A5b (standing queries)",
+    "/api/v1/standing": "A5b (standing queries)",
+    "/debug/standing": "A5b (standing queries)",
+    "/api/v1/rules/record": "A5b (standing queries: recording rules)",
     "/api/v1/rules/alert": "A6 (observability: the alerting plane)",
     "/api/v1/rules": "A6 (observability: the alerting plane)",
     "/api/v1/alerts": "A6 (observability: the alerting plane)",
@@ -336,6 +336,8 @@ class PromApiHandler(BaseHTTPRequestHandler):
                 return self._resources()
             if path == "/debug/superblocks":
                 return self._superblocks()
+            if path == "/debug/scheduler":
+                return self._scheduler()
             if path == "/debug/index":
                 return self._index_debug()
             if path == "/api/v1/cardinality":
@@ -365,7 +367,19 @@ class PromApiHandler(BaseHTTPRequestHandler):
         except NotImplementedError as e:
             self._send(501, J.error("not_implemented", str(e)))
         except (PromQLError, QueryError, ValueError) as e:
-            if str(e).startswith("query exceeded deadline"):
+            from ..coordinator.scheduler import QueryRejected
+            from ..query.scheduler import AdmissionRejected
+
+            if isinstance(e, AdmissionRejected):
+                # an admission shed: 429, back off for the bucket's drain
+                # time (Retry-After), with the structured warning
+                payload = J.error("throttled", str(e))
+                payload["warnings"] = [e.warning()]
+                self._send(429, payload,
+                           headers={"Retry-After": str(max(1, math.ceil(e.retry_after_s)))})
+            elif isinstance(e, QueryRejected):  # the query pool is saturated
+                self._send(503, J.error("unavailable", str(e)))
+            elif str(e).startswith("query exceeded deadline"):
                 self._send(503, J.error("timeout", str(e)))
             else:
                 self._send(400, J.error("bad_data", str(e)))
@@ -373,6 +387,17 @@ class PromApiHandler(BaseHTTPRequestHandler):
             self._send(500, J.error("internal", f"{type(e).__name__}: {e}"))
 
     # -- endpoints --------------------------------------------------------
+
+    def _scheduler(self):
+        """The dispatch scheduler's window, queue and batching outcomes and
+        the admission controller's per-tenant balances and sheds (each
+        None where the engine has none)."""
+        params = self.engine.planner.params
+        sched, adm = params.dispatch_scheduler, params.admission
+        return self._send(200, J.success({
+            "batch": sched.snapshot() if sched is not None else None,
+            "admission": adm.snapshot() if adm is not None else None,
+        }))
 
     def _query_range(self):
         p = self._params()

@@ -68,6 +68,18 @@ def fetch_raw(url: str, auth_token: str | None = None, timeout: float = 60,
                     raw = gzip.decompress(raw)
                 return raw, r.headers
         except urllib.error.HTTPError as e:
+            if e.code == 429:
+                # the server's admission control shed the request: surface
+                # the typed rejection with its Retry-After, never retry into it
+                from .query.scheduler import AdmissionRejected
+
+                try:
+                    retry_after = float(e.headers.get("Retry-After") or 1.0)
+                except (TypeError, ValueError):
+                    retry_after = 1.0
+                raise AdmissionRejected(f"remote peer shed request: HTTP 429 {e.reason}",
+                                        retry_after_s=retry_after,
+                                        outcome="shed_remote") from e
             if e.code < 500:
                 raise QueryError(f"remote request failed: HTTP {e.code} {e.reason}") from e
             last_err = e  # 5xx: transient, retry

@@ -7,8 +7,8 @@ The keys and their defaults are the JAX package's, with these differences:
 - ``device``: where the server's queries run: ``None`` for the card (the
   default; with no card the server raises), or ``"cpu"``.
 - Subsystems the JAX package turns on by itself and the port has not got
-  yet are off here (``PORT_OFF``, shown at ``/api/v1/status/flags``): the
-  query scheduler pool, executable pre-warm, standing queries, the rollup
+  yet are off here (``PORT_OFF``, shown at ``/api/v1/status/flags``):
+  executable pre-warm, standing queries, the rollup
   tier and its chooser, and the TPU watch log; the result plane's peer
   exchange is JSON (the port serves no Arrow frames).
 - ``compile_cache_dir`` is gone: the port's kernels build with nvcc into
@@ -323,9 +323,8 @@ DEFAULTS: dict = {
 # (path, the port's value, why): JAX defaults that switch on a subsystem the
 # port has not got; the port's DEFAULTS hold them off
 PORT_OFF = (
-    (("query", "parallelism"), 0, "query scheduler pool (ROADMAP A5)"),
-    (("query", "prewarm", "enabled"), False, "executable pre-warm (ROADMAP A5)"),
-    (("standing", "enabled"), False, "standing queries (ROADMAP A5)"),
+    (("query", "prewarm", "enabled"), False, "executable pre-warm (ROADMAP A5b)"),
+    (("standing", "enabled"), False, "standing queries (ROADMAP A5b)"),
     (("rollup", "enabled"), False, "sketch rollup tier (ROADMAP A7)"),
     (("rollup", "chooser", "enabled"), False, "rollup chooser (ROADMAP A7)"),
     (("result_plane", "peer_exchange"), "json", "Arrow peer frames (need pyarrow)"),

@@ -103,6 +103,24 @@ class PlannerParams:
     # queries slower than this many seconds go to the slow-query log
     # (``metrics.SLOW_QUERY_LOG``); None disables
     slow_query_threshold_s: float | None = None
+    # the shared query pool (coordinator/scheduler.QueryScheduler): queries
+    # run on it with fail-fast admission and their deadline; None runs them
+    # on the caller's thread
+    scheduler: object | None = None
+    # concurrent identical range queries share one execution (in flight
+    # only, never a cache: coordinator/scheduler.SingleFlight)
+    coalesce_identical: bool = True
+    # cross-query batching (query/scheduler.DispatchScheduler): concurrent
+    # fused dispatches over one superblock collect for batch_window_ms and
+    # run as one lane-mode launch; 0 disables (every launch as without
+    # batching). A shared scheduler may be passed in; else the engine
+    # builds one when the window is positive.
+    batch_window_ms: float = 0.0
+    batch_max: int = 32
+    dispatch_scheduler: object | None = None
+    # per-tenant admission (query/scheduler.AdmissionController), consulted
+    # before execution; None admits everything
+    admission: object | None = None
 
 
 class TsCardinalitiesExec(ExecPlan):
@@ -441,13 +459,30 @@ class SingleClusterPlanner:
                     InstantVectorFunctionMapper("histogram_quantile", (hist_quantile,)))
             return tree
 
+        raw_start, raw_end = self._fused_raw_range(inner.raw.start_ms, inner.raw.end_ms)
         return FusedAggregateExec(
-            shards, inner.raw.filters, inner.raw.start_ms, inner.raw.end_ms, inner.raw.column,
+            shards, inner.raw.filters, raw_start, raw_end, inner.raw.column,
             p.op, p.by, p.without, func,
             inner.start_ms, inner.end_ms, inner.step_ms or 1, window,
             inner.offset_ms, hist_quantile=hist_quantile, params=tuple(p.params),
             fallback=fallback,
         )
+
+    # Under cross-query batching the staged range of a fused exec is aligned
+    # (start floored, end ceiled to FUSED_ALIGN_MS): panels that differ only
+    # in window, offset or a live-edge end then resolve to ONE cached
+    # superblock, the batcher's coalescing key. A wider staged range is
+    # safe: result windows come from the query's grid, never from the
+    # block's bounds.
+    FUSED_ALIGN_MS = 300_000
+
+    def _fused_raw_range(self, start_ms: int, end_ms: int) -> tuple[int, int]:
+        """A fused exec's staged range: aligned when batching is on, as
+        given (the plans of an engine without batching) when it is off."""
+        if self.params.batch_window_ms <= 0:
+            return start_ms, end_ms
+        a = self.FUSED_ALIGN_MS
+        return start_ms - start_ms % a, end_ms + (-end_ms) % a
 
     def _materialize_aggregate_tree(self, p: L.Aggregate) -> ExecPlan:
         """The reference tree of an aggregate: the mergeable ops' map phase
@@ -503,19 +538,34 @@ def resolve_device(device=None) -> torch.device:
 
 
 class QueryEngine:
-    """Top-level facade: PromQL string -> executed result on ``device``."""
+    """Top-level facade: PromQL string -> executed result on ``device``.
+
+    Concurrent identical range queries share one execution
+    (``coalesce_identical``); a query is priced by the cost model and
+    passes admission (``params.admission``) before it runs, on the shared
+    pool when one is configured (``params.scheduler``); fused launches go
+    through the dispatch scheduler (``params.dispatch_scheduler``, built
+    from ``batch_window_ms`` when not given)."""
 
     def __init__(self, memstore, dataset: str, params: PlannerParams | None = None,
                  shard_nums: Sequence[int] | None = None, device=None):
+        from ..query.scheduler import DispatchScheduler
+        from .scheduler import SingleFlight
+
         self.memstore = memstore
         self.dataset = dataset
         self.device = resolve_device(device)
         self.planner = SingleClusterPlanner(memstore, dataset, shard_nums=shard_nums, params=params)
+        self._single_flight = SingleFlight()
+        p = self.planner.params
+        if p.dispatch_scheduler is None and p.batch_window_ms > 0:
+            p.dispatch_scheduler = DispatchScheduler(p.batch_window_ms, p.batch_max)
 
     def context(self) -> QueryContext:
         params = self.planner.params
         return QueryContext(self.memstore, self.dataset, self.device,
-                            max_series=params.max_series, deadline_s=params.deadline_s)
+                            max_series=params.max_series, deadline_s=params.deadline_s,
+                            dispatch_scheduler=params.dispatch_scheduler)
 
     def query_range(self, promql: str, start_s: float, end_s: float, step_s: float,
                     allow_partial_results: bool | None = None, trace_id: str | None = None,
@@ -525,22 +575,68 @@ class QueryEngine:
         shard is local, so the answer is never partial. ``trace_id`` and
         ``parent_span_id`` join the query's span tree (``res.trace``) to an
         upstream trace. ``res.phases`` holds the seconds of ``plan``
-        (parse and materialize) and ``execute``."""
+        (parse and materialize) and ``execute``. With
+        ``coalesce_identical`` a concurrent identical query (same text,
+        grid and stance) shares this one's execution, its trace included."""
 
         def plan():
             return query_range_to_logical_plan(
                 promql, start_s, end_s, step_s, self.planner.params.lookback_ms)
 
-        res = self._run(promql, plan, allow_partial_results, trace_id, parent_span_id)
+        def run():
+            return self._run(promql, plan, allow_partial_results, trace_id, parent_span_id,
+                             grid=(int(step_s * 1000), int((end_s - start_s) * 1000)))
+
+        params = self.planner.params
+        if params.coalesce_identical:
+            allow = (params.allow_partial_results if allow_partial_results is None
+                     else bool(allow_partial_results))
+            res = self._single_flight.run(
+                (self.dataset, promql, float(start_s), float(end_s), float(step_s), allow), run,
+                timeout_s=params.deadline_s)
+        else:
+            res = run()
         if res.result_type == "matrix" or res.grids:
             res.result_type = "matrix"
         return res
 
-    def _run(self, promql: str, plan, allow_partial_results, trace_id, parent_span_id):
-        """Plan and execute one query under its root span; count it in
-        ``filodb_queries_total`` and ``filodb_query_latency_seconds``, and
-        in the slow-query log past the threshold."""
+    def _admit(self, plan, ctx: QueryContext, promql: str, step_ms: int, span_ms: int):
+        """Price the query through the cost model (fingerprint EWMA, family
+        prior, flat prior) onto ``ctx.predicted_cost_s`` and claim its
+        admission slots for the length of its execution: a context manager,
+        a no-op one without a controller. Raises
+        ``query.scheduler.AdmissionRejected`` on a shed."""
+        import contextlib
+
+        from ..metering import tenant_of_plan
+        from ..query.costmodel import COST_MODEL, family_of, promql_fingerprint
+
+        steps = (int(span_ms // step_ms) + 1) if step_ms > 0 else 1
+        fp = promql_fingerprint(self.dataset, promql, step_ms, span_ms)
+        cost_s, _source = COST_MODEL.predict(fp, steps=steps, family=family_of(promql))
+        ctx.predicted_cost_s = cost_s
+        ctx.obs["cost_fingerprint"] = fp
+        admission = self.planner.params.admission
+        if admission is None:
+            return contextlib.nullcontext()
+        ws, ns = tenant_of_plan(plan)
+        return admission.admit(ws, ns, cost_s=cost_s)
+
+    def _execute(self, exec_plan, ctx: QueryContext):
+        """Execute on the shared pool when configured, else inline."""
+        sched = self.planner.params.scheduler
+        if sched is None:
+            return exec_plan.execute(ctx)
+        return sched.run(lambda: exec_plan.execute(ctx), deadline_s=ctx.deadline_s)
+
+    def _run(self, promql: str, plan, allow_partial_results, trace_id, parent_span_id,
+             grid: tuple = (0, 0)):
+        """Plan, admit and execute one query under its root span; count it
+        in ``filodb_queries_total`` and ``filodb_query_latency_seconds``,
+        in the slow-query log past the threshold, and feed its realized
+        cost (``QueryStats.kernel_ns``) to the cost model."""
         from .. import metrics as M
+        from ..query.costmodel import COST_MODEL
 
         if allow_partial_results is not None and not isinstance(allow_partial_results, bool):
             raise TypeError("allow_partial_results must be a bool or None")
@@ -549,12 +645,23 @@ class QueryEngine:
             if trace_id:
                 root.trace_id = str(trace_id)
                 root.parent_id = parent_span_id
-            exec_plan = self.planner.materialize(plan())
+            logical = plan()
+            exec_plan = self.planner.materialize(logical)
             t1 = time.perf_counter()
-            res = exec_plan.execute(self.context())
+            ctx = self.context()
+            with self._admit(logical, ctx, promql, *grid):
+                res = self._execute(exec_plan, ctx)
         t2 = time.perf_counter()
         res.trace = root
         res.phases = {"plan": t1 - t0, "execute": t2 - t1}
+        realized = ctx.stats.kernel_ns / 1e9
+        COST_MODEL.observe({
+            "fingerprint": ctx.obs.get("cost_fingerprint"), "promql": promql, "status": "ok",
+            "realized_cost_s": realized if realized > 0 else None,
+            "predicted_cost_s": ctx.predicted_cost_s,
+            "grid": {"steps": (grid[1] // grid[0] + 1) if grid[0] > 0 else 1},
+            "stats": {"series_scanned": ctx.stats.series_scanned},
+        })
         M.REGISTRY.counter("filodb_queries", dataset=self.dataset).inc()
         M.REGISTRY.histogram("filodb_query_latency_seconds", dataset=self.dataset).observe(
             t2 - t0, exemplar={"trace_id": root.trace_id})

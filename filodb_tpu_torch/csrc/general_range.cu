@@ -612,3 +612,142 @@ extern "C" int filodb_general_range_aggregate(
         default: return launch_kind<K_LSQ>(a, shared, smem_bytes, slices, st);
     }
 }
+
+// Lane mode (B12: _batched_general_jit, filodb_tpu/ops/aggregations.py:1208,
+// which runs range_kernel once per unique window and _apply_epilogue once
+// per lane). One launch over U unique windows (blockIdx.y = u; start, step
+// and window [U] int32): a block walks tiles of rows, its threads take the
+// tile's (row, step) pairs flattened (row_tiles.cuh), each searches its
+// window [lo, hi) in the row in place (window_search.cuh) and computes the
+// value once (pair_value / window_value, the solo kernel's functions), then
+// folds it into every lane of u at the lane's group (group_acc.cuh
+// lanes::). STORE: the [U, ld, S] store grids, rows outside the group of
+// gids[0] NaN. A simple layout, not the solo kernel's warp per row: no
+// staging, no shared bounds table, a search per (row, step). Bound: each
+// real sample's ts and vals read once per window (U times), L * S * 4
+// bytes of gids and the [L, G, J] outputs.
+namespace {
+
+template <int KIND, bool SHARED, bool STORE>
+__global__ void __launch_bounds__(row_tiles::THREADS) general_lanes_kernel(
+    const GenArgs a0, const lanes::Table t, const int32_t* start, const int32_t* step,
+    const int32_t* window, int R) {
+    extern __shared__ __align__(16) float smem[];
+    __shared__ int lane_s[lanes::MAX_LANES];
+    __shared__ int nl_s;
+    const int u = blockIdx.y;
+    GenArgs a = a0;  // window u's grid
+    a.start = __ldg(start + u);
+    a.step = __ldg(step + u);
+    a.window = __ldg(window + u);
+    if (STORE) {
+        if (threadIdx.x == 0) nl_s = 0;
+    } else {
+        lanes::collect(t, u, lane_s, &nl_s);
+    }
+    __syncthreads();
+    const int nl = nl_s;
+    if (SHARED) {
+        lanes::init(smem, nl, t.G, a.J, a.acc_op);
+        __syncthreads();
+    }
+    const group_acc::Store store{a.acc + (int64_t)u * a.ld * a.S, a.S};
+    auto value = [&](int64_t s, int j) {
+        const int n = min(max(__ldg(a.lens + s), 0), a.T);
+        const int32_t* rt = a.ts + s * a.T;
+        const float* rv = a.vals + s * a.T;
+        const float* rr = a.raw + s * a.T;
+        const int32_t t_j = wrap_add(a.start, wrap_mul(j, a.step));
+        const int hi = count_le<true>(rt, n, t_j);
+        const int lo = min(lower_edge(rt, hi, wrap_add(t_j, -a.window)), hi);
+        if constexpr (KIND == K_LAST2) {
+            return pair_value<KIND>(rt, rv, lo, hi, a);
+        } else {
+            return hi > lo ? window_value<KIND>(a, rt, rv, rr, lo, hi, t_j) : group_acc::nan_f();
+        }
+    };
+    row_tiles::for_each_tile<false>(a.S, R, [](int, int) {}, [&](int tile, int) {
+        const int64_t s0 = (int64_t)tile * R;
+        row_tiles::for_each_pair(min(R, a.S - (int)s0), a.J, [&](int r, int j) {
+            const int64_t s = s0 + r;
+            if (s >= a.S) return;
+            if (STORE) {
+                const int g = __ldg(t.gids + s);
+                store.put(s, j, g < 0 || g >= t.G ? group_acc::nan_f() : value(s, j));
+                return;
+            }
+            if (!lanes::wants(t, lane_s, nl, s)) return;
+            const float v = value(s, j);
+            if (!isnan(v)) lanes::add<SHARED>(t, lane_s, nl, smem, a.J, s, j, v);
+        });
+    });
+    if (SHARED) {
+        __syncthreads();
+        lanes::flush(t, lane_s, nl, smem, a.J, 0);
+    }
+}
+
+template <int KIND, bool SHARED, bool STORE>
+int launch_lanes(const GenArgs& a, const lanes::Table& t, const int32_t* const* win, int U,
+                 int R, int smem, cudaStream_t stream) {
+    auto kern = general_lanes_kernel<KIND, SHARED, STORE>;
+    int resident = 0;  // also raises the kernel's shared-memory allowance to smem
+    const cudaError_t err = row_tiles::persistent_grid(kern, smem, 1 << 30, &resident);
+    if (err != cudaSuccess) return (int)err;
+    const int tiles = (a.S + R - 1) / R;
+    const int grid = max(1, min(tiles, resident / U));
+    kern<<<dim3(grid, U), row_tiles::THREADS, smem, stream>>>(a, t, win[0], win[1], win[2], R);
+    return (int)cudaGetLastError();
+}
+
+template <int KIND>
+int lanes_kind(const GenArgs& a, const lanes::Table& t, const int32_t* const* win, int U, int R,
+               bool store, bool shared, int smem, cudaStream_t st) {
+    if (store) return launch_lanes<KIND, false, true>(a, t, win, U, R, smem, st);
+    return shared ? launch_lanes<KIND, true, false>(a, t, win, U, R, smem, st)
+                  : launch_lanes<KIND, false, false>(a, t, win, U, R, smem, st);
+}
+
+}  // namespace
+
+// Plain C entry for ctypes: the lane mode of filodb_general_range_aggregate.
+// ts, vals, raw, lens as the solo entry takes them; start, step and window
+// [U] int32, one per unique window; gids [L, S] int32 and u_of_lane [L]
+// int32 (L <= lanes::MAX_LANES); acc and cnt [L, G+1, ld] at the op's
+// identity and zero; `rows` rows per tile. `shared` keeps every lane's
+// partials in shared memory, sized by the wrapper for `lanes_max` lanes of
+// one window (`smem_bytes`, checked here). acc_op ACC_STORE: acc is the
+// [U, ld, S] grids, gids [1, S] (rows outside [0, G) NaN), cnt and
+// u_of_lane unread, `shared` 0. Steps [0, J) are computed. Launches on
+// `stream` and returns a cudaError_t (0 on success); it does not
+// synchronise.
+extern "C" int filodb_general_range_lanes(
+    const void* ts, const void* vals, const void* raw, const void* lens, const void* start,
+    const void* step, const void* window, int S, int T, int J, int ld, int U, const void* gids,
+    const void* u_of_lane, int L, int G, int func, int acc_op, float arg0, float arg1,
+    int is_counter, int is_delta, int rows, int shared, int lanes_max, int smem_bytes,
+    void* acc, void* cnt, void* stream) {
+    if (S <= 0 || J <= 0 || G <= 0 || U <= 0 || L <= 0) return 0;
+    const int kind = kind_of(func);
+    const bool store = acc_op == group_acc::ACC_STORE;
+    const int64_t part = shared ? (((int64_t)2 * lanes_max * G * J + 3) & ~3) * 4 : 0;
+    if (kind < 0 || rows < 1 || ld < J || U > 65535 || L > lanes::MAX_LANES || lanes_max < 1 ||
+        lanes_max > L || smem_bytes < part || (store && shared) || !start || !step ||
+        !window || !gids || (!store && !u_of_lane))
+        return (int)cudaErrorInvalidValue;
+    GenArgs a{(const int32_t*)ts, (const float*)vals, (const float*)raw, (const int32_t*)lens,
+              nullptr, S, T, J, ld, G, 0, 0, 0, func, acc_op, arg0, arg1,
+              is_counter && !is_delta, 1, J, 0, 0, (float*)acc, (float*)cnt};
+    const lanes::Table t{(const int32_t*)gids, (const int32_t*)u_of_lane, L, S, G,
+                         (int64_t)(G + 1) * ld, ld, acc_op, (float*)acc, (float*)cnt};
+    const int32_t* win[3] = {(const int32_t*)start, (const int32_t*)step, (const int32_t*)window};
+    cudaStream_t st = (cudaStream_t)stream;
+    switch (kind) {
+        case K_LAST2: return lanes_kind<K_LAST2>(a, t, win, U, rows, store, shared, smem_bytes, st);
+        case K_MOMENT2:
+            return lanes_kind<K_MOMENT2>(a, t, win, U, rows, store, shared, smem_bytes, st);
+        case K_PAIRS: return lanes_kind<K_PAIRS>(a, t, win, U, rows, store, shared, smem_bytes, st);
+        case K_HW: return lanes_kind<K_HW>(a, t, win, U, rows, store, shared, smem_bytes, st);
+        default: return lanes_kind<K_LSQ>(a, t, win, U, rows, store, shared, smem_bytes, st);
+    }
+}

@@ -127,3 +127,91 @@ __device__ __forceinline__ void shared_flush(const float* acc_s, const float* cn
 }
 
 }  // namespace group_acc
+
+
+// Lane mode of the fused kernels (cross-query batching, B12): one launch
+// serves L queries over one superblock. Each of U unique windows is
+// blockIdx.y of the launch; a block computes its rows' value of window u
+// once and folds it into every lane l with u_of_lane[l] == u, at that
+// lane's group gids[l, s]. Each lane has its own [G+1, ld] accumulators in
+// the global [L, G+1, ld] arrays, and while 2 * lanes(u) * G * width
+// floats fit the wrapper's budget (ops/group_acc.tile_plan counts the
+// lanes), its own [G, width] partials in shared memory, flushed once per
+// block; past it every value goes to the global arrays with atomics.
+namespace lanes {
+
+constexpr int MAX_LANES = 64;  // lanes a launch takes (ops/group_acc.MAX_LANES)
+
+struct Table {
+    const int32_t* gids;       // [L, S] lane group ids; outside [0, G): not in the lane
+    const int32_t* u_of_lane;  // [L] the unique window of each lane
+    int L;
+    int64_t S;                 // a gids row's length
+    int G;
+    int64_t lane_words;        // one lane's [G+1, ld] accumulators
+    int ld;
+    int acc_op;
+    float* acc;                // [L, G+1, ld]
+    float* cnt;
+};
+
+// The lanes of window u into lane_s and their count into *n (thread 0);
+// the caller synchronises before reading them.
+__device__ __forceinline__ void collect(const Table& t, int u, int* lane_s, int* n) {
+    if (threadIdx.x == 0) {
+        int k = 0;
+        for (int l = 0; l < t.L; ++l)
+            if (__ldg(t.u_of_lane + l) == u) lane_s[k++] = l;
+        *n = k;
+    }
+}
+
+// whether row s belongs to a group of any of the block's nl lanes
+__device__ __forceinline__ bool wants(const Table& t, const int* lane_s, int nl, int64_t s) {
+    for (int k = 0; k < nl; ++k) {
+        const int g = __ldg(t.gids + (int64_t)lane_s[k] * t.S + s);
+        if (g >= 0 && g < t.G) return true;
+    }
+    return false;
+}
+
+// the block's lanes' shared [G, width] acc/cnt pairs at the identity:
+// lane k's acc at part_s + 2 k G width, its cnt G width after it
+__device__ __forceinline__ void init(float* part_s, int nl, int G, int width, int acc_op) {
+    const int64_t n = (int64_t)G * width;
+    for (int k = 0; k < nl; ++k)
+        group_acc::shared_init(part_s + 2 * k * n, part_s + (2 * k + 1) * n, (int)n, acc_op);
+}
+
+// fold value v of row s at column c into every lane of the block
+template <bool SHARED>
+__device__ __forceinline__ void add(const Table& t, const int* lane_s, int nl, float* part_s,
+                                    int width, int64_t s, int c, float v) {
+    const int64_t n = (int64_t)t.G * width;
+    for (int k = 0; k < nl; ++k) {
+        const int l = lane_s[k];
+        const int g = __ldg(t.gids + (int64_t)l * t.S + s);
+        if (g < 0 || g >= t.G) continue;
+        if (SHARED) {
+            const int64_t i = 2 * k * n + (int64_t)g * width + c;
+            group_acc::fold(part_s + i, part_s + i + n, t.acc_op, v, 1.0f);
+        } else {
+            const int64_t i = l * t.lane_words + (int64_t)g * t.ld + c;
+            group_acc::fold(t.acc + i, t.cnt + i, t.acc_op, v, 1.0f);
+        }
+    }
+}
+
+// fold the block's shared partials into each lane's global arrays from
+// column col0 (the caller synchronises after the last add)
+__device__ __forceinline__ void flush(const Table& t, const int* lane_s, int nl,
+                                      const float* part_s, int width, int64_t col0) {
+    const int64_t n = (int64_t)t.G * width;
+    for (int k = 0; k < nl; ++k) {
+        const int64_t o = lane_s[k] * t.lane_words + col0;
+        group_acc::shared_flush(part_s + 2 * k * n, part_s + (2 * k + 1) * n, t.G, width, t.acc + o,
+                     t.cnt + o, t.ld, t.acc_op);
+    }
+}
+
+}  // namespace lanes

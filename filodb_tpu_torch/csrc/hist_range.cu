@@ -975,3 +975,174 @@ extern "C" int filodb_hist_range_jitter(
     return (int)(shared ? jitter_vec<true>(a, vec, smem_bytes, threads, grid, slices, st)
                         : jitter_vec<false>(a, vec, smem_bytes, threads, grid, slices, st));
 }
+
+// Lane mode (B12: _batched_hist_shared_jit and _batched_hist_jit,
+// filodb_tpu/ops/hist_kernels.py:486 and :507, which run the per-bucket
+// range grid once per unique window and _hist_epilogue once per lane). One
+// launch over U unique windows (blockIdx.y = u): the shared bounds of a
+// regular grid stacked [U, ldw] (lo, hi, t_first, t_last), else bounds
+// searched per (row, step) in place; start, step and window [U] int32. A
+// block walks tiles of rows and its threads take the tile's (row, column)
+// pairs, column j * B + b flattened, so a warp reads neighbouring buckets
+// of one sample; each value (window_values, the solo kernel's function)
+// is computed once and folded into every lane of u at the lane's group
+// (group_acc.cuh lanes::). With a quantile, the last block of window u to
+// finish interpolates each of its lanes' [G, J] quantiles with the lane's
+// own q (qs [L]) into out [L, G, ld_out], as the solo kernel folds its
+// quantile in. Bound: the sampled buckets each window reads, U times, L *
+// S * 4 bytes of gids and the [L, G, J, B] partials.
+namespace {
+
+template <bool SHARED_BOUNDS, bool SHARED>
+__global__ void __launch_bounds__(row_tiles::THREADS) hist_lanes_kernel(
+    const HistArgs a0, const lanes::Table t, const int32_t* start, const int32_t* step,
+    const int32_t* window, int ldw, const float* qs) {
+    extern __shared__ __align__(16) float smem[];
+    __shared__ int lane_s[lanes::MAX_LANES];
+    __shared__ int nl_s;
+    __shared__ int last_s;
+    const int u = blockIdx.y;
+    HistArgs a = a0;  // window u's grid
+    a.start = __ldg(start + u);
+    a.step = __ldg(step + u);
+    a.window = __ldg(window + u);
+    if (SHARED_BOUNDS) {
+        const int64_t wo = (int64_t)u * ldw;
+        a.lo += wo;
+        a.hi += wo;
+        a.t_first += wo;
+        a.t_last += wo;
+    }
+    lanes::collect(t, u, lane_s, &nl_s);
+    __syncthreads();
+    const int nl = nl_s;
+    const int B = a.B;
+    const int width = a.J * B;
+    if (SHARED) {
+        lanes::init(smem, nl, t.G, width, group_acc::ACC_ADD);
+        __syncthreads();
+    }
+    const float w_s = (float)a.window * 1e-3f;
+    const bool win_sum =
+        a.func == H_SUM_OVER_TIME || (a.is_delta && (a.func == H_RATE || a.func == H_INCREASE));
+    const bool extrap = !win_sum && a.func != H_LAST;
+    const int R = a.R;
+    row_tiles::for_each_tile<false>(a.S, R, [](int, int) {}, [&](int tile, int) {
+        const int64_t s0 = (int64_t)tile * R;
+        row_tiles::for_each_pair(min(R, a.S - (int)s0), width, [&](int r, int c) {
+            const int64_t s = s0 + r;
+            if (s >= a.S || !lanes::wants(t, lane_s, nl, s)) return;
+            const int j = c / B, b = c - j * B;
+            const int32_t t_j = wrap_add(a.start, wrap_mul(j, a.step));
+            int lo, hi;
+            float f = 0.0f;
+            if (SHARED_BOUNDS) {
+                lo = __ldg(a.lo + j);
+                hi = __ldg(a.hi + j);
+                if (extrap && hi - lo >= 2)
+                    f = extrap_factor(hi - lo, __ldg(a.t_first + j), __ldg(a.t_last + j), t_j,
+                                      a.window);
+            } else {
+                const int32_t* rt = a.ts + s * a.T;
+                const int n = min(max(__ldg(a.lens + s), 0), a.T);
+                hi = count_le<true>(rt, n, t_j);
+                const int32_t t_lo = wrap_add(t_j, -a.window);
+                lo = lower_edge(rt, hi, t_lo);
+                if (extrap && hi - lo >= 2)
+                    f = extrap_factor(hi - lo, __ldg(rt + lo), __ldg(rt + hi - 1), t_j, a.window);
+            }
+            float v[1];
+            window_values<1>(a, a.vals + s * a.T * B + b, lo, hi, f, win_sum, w_s, v);
+            if (!isnan(v[0])) lanes::add<SHARED>(t, lane_s, nl, smem, width, s, c, v[0]);
+        });
+    });
+    if (SHARED) {
+        __syncthreads();
+        lanes::flush(t, lane_s, nl, smem, width, 0);
+    }
+    if (!a.quantile) return;
+    __threadfence();  // this block's partials are visible before it arrives
+    __syncthreads();
+    if (threadIdx.x == 0) last_s = atomicAdd(a.arrivals + u, 1u) == gridDim.x - 1;
+    __syncthreads();
+    if (!last_s) return;
+    __threadfence();
+    for (int k = 0; k < nl; ++k) {
+        const int l = lane_s[k];
+        const float q = __ldg(qs + l);
+        const float* acc = a.acc + l * t.lane_words;
+        const float* cnt = a.cnt + l * t.lane_words;
+        float* out = a.out + (int64_t)l * t.G * a.ld_out;
+        for (int i = threadIdx.x; i < t.G * a.J; i += blockDim.x) {
+            const int g = i / a.J, j = i - g * a.J;
+            const int64_t o = (int64_t)g * a.ld + (int64_t)j * B;
+            out[(int64_t)g * a.ld_out + j] = quantile_at(acc + o, cnt + o, a.les, B, q);
+        }
+    }
+    if (threadIdx.x == 0) a.arrivals[u] = 0;  // ready for the next launch
+}
+
+template <bool SB, bool SH>
+cudaError_t launch_lanes(const HistArgs& a, const lanes::Table& t, const int32_t* const* win,
+                         int ldw, const float* qs, int U, int smem, cudaStream_t stream) {
+    auto kern = hist_lanes_kernel<SB, SH>;
+    int resident = 0;  // also raises the kernel's shared-memory allowance to smem
+    const cudaError_t err =
+        row_tiles::persistent_grid(kern, smem, 1 << 30, &resident, row_tiles::THREADS);
+    if (err != cudaSuccess) return err;
+    const int tiles = (a.S + a.R - 1) / a.R;
+    const int grid = max(1, min(tiles, resident / U));  // blocks per window
+    kern<<<dim3(grid, U), row_tiles::THREADS, smem, stream>>>(a, t, win[0], win[1], win[2], ldw,
+                                                              qs);
+    return cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry for ctypes: the lane mode of filodb_hist_range_aggregate.
+// vals [S, T, B]; with shared_bounds lo, hi, t_first, t_last [U, ldw]
+// int32, else ts [S, T] and lens [S]; start, step and window [U] int32;
+// gids [L, S] int32 and u_of_lane [L] int32 (L <= lanes::MAX_LANES); acc
+// and cnt [L, G+1, ld] zeros, ld >= J * B; `rows` rows per tile (a
+// persistent grid per window). `shared` keeps every lane's [G, J * B] partials in
+// shared memory, sized by the wrapper for `lanes_max` lanes of one window
+// (`smem_bytes`, checked here). With `quantile`: bounds les [B], qs [L]
+// f32, out [L, G, ld_out] written at steps [0, J), and `arrivals` [U]
+// zeroed counters, left at zero. Launches on `stream` and returns a
+// cudaError_t (0 on success); it does not synchronise.
+extern "C" int filodb_hist_range_lanes(
+    const void* ts, const void* vals, const void* lens, const void* lo, const void* hi,
+    const void* t_first, const void* t_last, int ldw, const void* start, const void* step,
+    const void* window, int S, int T, int B, int J, int ld, int U, const void* gids,
+    const void* u_of_lane, int L, int G, int func, int is_delta, int shared_bounds, int rows,
+    int shared, int lanes_max, int smem_bytes, void* acc, void* cnt, int quantile,
+    const void* qs, const void* les, void* out, int ld_out, void* arrivals, void* stream) {
+    if (S <= 0 || J <= 0 || G <= 0 || B <= 0 || U <= 0 || L <= 0) return 0;
+    const bool bounds_ok = shared_bounds ? (lo && hi && t_first && t_last && ldw >= J)
+                                         : (ts && lens);
+    const bool quantile_ok = !quantile || (qs && les && out && arrivals && ld_out >= J);
+    const int64_t part = shared ? (((int64_t)2 * lanes_max * G * J * B + 3) & ~3) * 4 : 0;
+    if (func < H_RATE || func > H_LAST || rows < 1 || U > 65535 || ld < J * B ||
+        L > lanes::MAX_LANES || lanes_max < 1 || lanes_max > L || smem_bytes < part ||
+        !bounds_ok || !quantile_ok || !start || !step || !window || !gids || !u_of_lane)
+        return (int)cudaErrorInvalidValue;
+    HistArgs a{(const int32_t*)ts, (const float*)vals, (const int32_t*)lens, nullptr,
+               (const int32_t*)lo, (const int32_t*)hi, (const int32_t*)t_first,
+               (const int32_t*)t_last, (const float*)les, S, T, B, J, ld, G, 0, 0, 0, func,
+               is_delta, rows, J, quantile, 0.0f, ld_out, (float*)out, (unsigned int*)arrivals,
+               (float*)acc, (float*)cnt, nullptr, 0, nullptr};
+    const lanes::Table t{(const int32_t*)gids, (const int32_t*)u_of_lane, L, S, G,
+                         (int64_t)(G + 1) * ld, ld, group_acc::ACC_ADD, (float*)acc,
+                         (float*)cnt};
+    const int32_t* win[3] = {(const int32_t*)start, (const int32_t*)step, (const int32_t*)window};
+    const float* q = (const float*)qs;
+    cudaStream_t st = (cudaStream_t)stream;
+    cudaError_t err;
+    if (shared_bounds)
+        err = shared ? launch_lanes<true, true>(a, t, win, ldw, q, U, smem_bytes, st)
+                     : launch_lanes<true, false>(a, t, win, ldw, q, U, smem_bytes, st);
+    else
+        err = shared ? launch_lanes<false, true>(a, t, win, ldw, q, U, smem_bytes, st)
+                     : launch_lanes<false, false>(a, t, win, ldw, q, U, smem_bytes, st);
+    return (int)err;
+}

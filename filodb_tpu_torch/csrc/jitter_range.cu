@@ -400,3 +400,127 @@ extern "C" int filodb_jitter_range(
     return masked ? dispatch<true>(a, store, shared, smem_bytes, st)
                   : dispatch<false>(a, store, shared, smem_bytes, st);
 }
+
+// Lane mode (B12: _batched_jitter_jit and _batched_masked_jit,
+// filodb_tpu/ops/aggregations.py:1261 and :1291, which run the jitter or
+// masked kernel once per unique window and _apply_epilogue once per lane).
+// One launch over U unique windows (blockIdx.y = u): the step tables are
+// stacked [U, ld] with window_ms [U]; a block computes each (row, step)
+// value of window u once (jitter_value / masked_value, the solo kernel's
+// functions) and folds it into every lane of u at the lane's group
+// (group_acc.cuh lanes::). STORE: the [U, ld, S] store grids, rows outside
+// the group of gids[0] NaN. The step table is read through L1 (no
+// staging). Bound: the planes each window reads, U times, L * S * 4 bytes
+// of gids and the [L, G, J] outputs. min/max_over_time have no lane mode
+// (as the JAX package has no batched twin of its fused minmax programs).
+namespace {
+
+template <bool MASKED, bool SHARED, bool STORE>
+__global__ void __launch_bounds__(THREADS) jitter_lanes_kernel(const JitterArgs a0,
+                                                               const lanes::Table t,
+                                                               const float* window_ms) {
+    extern __shared__ __align__(16) float smem[];
+    __shared__ int lane_s[lanes::MAX_LANES];
+    __shared__ int nl_s;
+    const int u = blockIdx.y;
+    JitterArgs a = a0;  // window u's step table
+    a.steps += (int64_t)u * a.ld;
+    a.window_ms = __ldg(window_ms + u);
+    if (STORE) {
+        if (threadIdx.x == 0) nl_s = 0;
+    } else {
+        lanes::collect(t, u, lane_s, &nl_s);
+    }
+    __syncthreads();
+    const int nl = nl_s;
+    if (SHARED) {
+        lanes::init(smem, nl, t.G, a.J, a.acc_op);
+        __syncthreads();
+    }
+    const group_acc::Store store{a.acc + (int64_t)u * a.ld * a.S, a.S};
+    const int R = a.R;
+    row_tiles::for_each_tile<false>(a.S, R, [](int, int) {}, [&](int tile, int) {
+        const int64_t s0 = (int64_t)tile * R;
+        row_tiles::for_each_pair(min(R, a.S - (int)s0), a.J, [&](int r, int j) {
+            const int64_t s = s0 + r;
+            if (s >= a.S) return;
+            if (STORE) {
+                const int g = __ldg(t.gids + s);
+                store.put(s, j, g < 0 || g >= t.G ? group_acc::nan_f()
+                                : (MASKED ? masked_value(a, s, a.steps[j])
+                                          : jitter_value(a, s, a.steps[j])));
+                return;
+            }
+            if (!lanes::wants(t, lane_s, nl, s)) return;
+            const float v = MASKED ? masked_value(a, s, a.steps[j]) : jitter_value(a, s, a.steps[j]);
+            if (!isnan(v)) lanes::add<SHARED>(t, lane_s, nl, smem, a.J, s, j, v);
+        });
+    });
+    if (SHARED) {
+        __syncthreads();
+        lanes::flush(t, lane_s, nl, smem, a.J, 0);
+    }
+}
+
+template <bool MASKED, bool SHARED, bool STORE>
+int launch_lanes(const JitterArgs& a, const lanes::Table& t, const float* window_ms, int U,
+                 int smem, cudaStream_t stream) {
+    auto kern = jitter_lanes_kernel<MASKED, SHARED, STORE>;
+    int resident = 0;  // also raises the kernel's shared-memory allowance to smem
+    const cudaError_t err = row_tiles::persistent_grid(kern, smem, 1 << 30, &resident);
+    if (err != cudaSuccess) return (int)err;
+    const int tiles = (a.S + a.R - 1) / a.R;
+    const int grid = max(1, min(tiles, resident / U));
+    kern<<<dim3(grid, U), THREADS, smem, stream>>>(a, t, window_ms);
+    return (int)cudaGetLastError();
+}
+
+template <bool MASKED>
+int dispatch_lanes(const JitterArgs& a, const lanes::Table& t, const float* w, int U, bool store,
+                   bool shared, int smem, cudaStream_t st) {
+    if (store) return launch_lanes<MASKED, false, true>(a, t, w, U, smem, st);
+    return shared ? launch_lanes<MASKED, true, false>(a, t, w, U, smem, st)
+                  : launch_lanes<MASKED, false, false>(a, t, w, U, smem, st);
+}
+
+}  // namespace
+
+// Plain C entry for ctypes: the lane mode of filodb_jitter_range. The
+// planes as filodb_jitter_range takes them; `steps` the [U, ld] stacked
+// step tables and window_ms [U] f32, one per unique window; gids [L, S]
+// int32 and u_of_lane [L] int32 (L <= lanes::MAX_LANES); acc and cnt
+// [L, G+1, ld] at the op's identity and zero. `shared` keeps every lane's
+// partials in shared memory, sized by the wrapper for `lanes_max` lanes of
+// one window (`smem_bytes`, checked here). acc_op ACC_STORE: acc is the
+// [U, ld, S] grids, gids [1, S] (rows outside [0, G) NaN), cnt and
+// u_of_lane unread, `shared` 0. Steps [0, J) are computed. Launches on
+// `stream` and returns a cudaError_t (0 on success); it does not
+// synchronise.
+extern "C" int filodb_jitter_range_lanes(
+    int masked, const void* vals, const void* ts, const void* raw, const void* cc,
+    const void* ffv, const void* ffd, const void* bfv, const void* bfd, const void* ff2v,
+    const void* ff2d, const void* bfraw, const void* steps, const void* window_ms, int S,
+    int T, int J, int ld, int U, float maxdev, const void* gids, const void* u_of_lane, int L,
+    int G, int func, int acc_op, int is_counter, int is_delta, int rows, int shared,
+    int lanes_max, int smem_bytes, void* acc, void* cnt, void* stream) {
+    if (S <= 0 || J <= 0 || G <= 0 || U <= 0 || L <= 0) return 0;
+    const bool store = acc_op == group_acc::ACC_STORE;
+    const int64_t part = shared ? (((int64_t)2 * lanes_max * G * J + 3) & ~3) * 4 : 0;
+    if (func == MIN_OVER_TIME || func == MAX_OVER_TIME || rows < 1 || ld < J || U > 65535 ||
+        L > lanes::MAX_LANES || lanes_max < 1 || lanes_max > L || smem_bytes < part ||
+        (store && shared) || !steps || !window_ms || !gids || (!store && !u_of_lane))
+        return (int)cudaErrorInvalidValue;
+    if (masked ? !(cc && ffv && ffd && bfv && bfd && ff2v && ff2d && bfraw) : !(ts && raw))
+        return (int)cudaErrorInvalidValue;
+    JitterArgs a{(const float*)vals, (const int32_t*)ts, (const float*)raw, (const float*)cc,
+                 (const float*)ffv, (const float*)ffd, (const float*)bfv, (const float*)bfd,
+                 (const float*)ff2v, (const float*)ff2d, (const float*)bfraw, nullptr,
+                 (const StepRow*)steps, S, T, J, ld, G, 0.0f, maxdev, func, acc_op, is_counter,
+                 is_delta, rows, 0, (float*)acc, (float*)cnt};
+    const lanes::Table t{(const int32_t*)gids, (const int32_t*)u_of_lane, L, S, G,
+                         (int64_t)(G + 1) * ld, ld, acc_op, (float*)acc, (float*)cnt};
+    const float* w = (const float*)window_ms;
+    cudaStream_t st = (cudaStream_t)stream;
+    return masked ? dispatch_lanes<true>(a, t, w, U, store, shared, smem_bytes, st)
+                  : dispatch_lanes<false>(a, t, w, U, store, shared, smem_bytes, st);
+}

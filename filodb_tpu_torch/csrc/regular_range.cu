@@ -316,3 +316,127 @@ extern "C" int filodb_regular_range(
     if (store) return launch<false, true>(a, smem_bytes, strm);
     return shared ? launch<true>(a, smem_bytes, strm) : launch<false>(a, smem_bytes, strm);
 }
+
+// Lane mode (B12: the cross-query batched program _batched_mxu_jit,
+// filodb_tpu/ops/aggregations.py:1233, which runs mxu_range_kernel once per
+// unique window and _apply_epilogue once per lane). One launch over U
+// unique windows (blockIdx.y = u) serves L lanes: the window tables are
+// stacked [U, ld] ([U, 3, ld] for idx) with window_ms [U]; a block
+// computes each (row, step) value of window u once (step_value, the solo
+// kernel's function) and folds it into every lane of u at the lane's
+// group (group_acc.cuh lanes::). STORE: the [U, ld, S] store grids of the
+// fused epilogues, one per unique window, rows outside the group of
+// gids[0] NaN. Bound: the sectors of vals (and raw) each window reads, U
+// times, plus L * S * 4 bytes of gids and the [L, G, J] outputs; the
+// lanes' group atomics grow with L, which shared partials absorb while
+// they fit.
+namespace {
+
+template <bool SHARED, bool STORE>
+__global__ void __launch_bounds__(THREADS) regular_lanes_kernel(const RegularArgs a0,
+                                                                const lanes::Table t,
+                                                                const float* window_ms) {
+    extern __shared__ __align__(16) float smem[];
+    __shared__ int lane_s[lanes::MAX_LANES];
+    __shared__ int nl_s;
+    const int u = blockIdx.y;
+    RegularArgs a = a0;  // window u's tables
+    const int64_t wo = (int64_t)u * a.ld;
+    a.lo += wo;
+    a.hi += wo;
+    a.count += wo;
+    a.tf += wo;
+    a.tl += wo;
+    a.tl2 += wo;
+    a.out_t += wo;
+    a.idx += 3 * wo;
+    a.window_ms = __ldg(window_ms + u);
+    if (STORE) {
+        if (threadIdx.x == 0) nl_s = 0;
+    } else {
+        lanes::collect(t, u, lane_s, &nl_s);
+    }
+    __syncthreads();
+    const int nl = nl_s;
+    if (SHARED) {
+        lanes::init(smem, nl, t.G, a.J, a.acc_op);
+        __syncthreads();
+    }
+    const group_acc::Store store{a.acc + wo * a.S, a.S};
+    const int R = a.R;
+    row_tiles::for_each_tile<false>(a.S, R, [](int, int) {}, [&](int tile, int) {
+        const int64_t s0 = (int64_t)tile * R;
+        row_tiles::for_each_pair(min(R, a.S - (int)s0), a.J, [&](int r, int j) {
+            const int64_t s = s0 + r;
+            if (s >= a.S) return;
+            if (STORE) {
+                const int g = __ldg(t.gids + s);
+                store.put(s, j, g < 0 || g >= t.G
+                                    ? group_acc::nan_f()
+                                    : step_value(a, a.vals + s * a.T, a.raw + s * a.T, j));
+                return;
+            }
+            if (!lanes::wants(t, lane_s, nl, s)) return;
+            const float v = step_value(a, a.vals + s * a.T, a.raw + s * a.T, j);
+            if (!isnan(v)) lanes::add<SHARED>(t, lane_s, nl, smem, a.J, s, j, v);
+        });
+    });
+    if (SHARED) {
+        __syncthreads();
+        lanes::flush(t, lane_s, nl, smem, a.J, 0);
+    }
+}
+
+template <bool SHARED, bool STORE>
+int launch_lanes(const RegularArgs& a, const lanes::Table& t, const float* window_ms, int U,
+                 int smem, cudaStream_t stream) {
+    auto kern = regular_lanes_kernel<SHARED, STORE>;
+    int resident = 0;  // also raises the kernel's shared-memory allowance to smem
+    const cudaError_t err = row_tiles::persistent_grid(kern, smem, 1 << 30, &resident);
+    if (err != cudaSuccess) return (int)err;
+    const int tiles = (a.S + a.R - 1) / a.R;
+    const int grid = max(1, min(tiles, resident / U));
+    kern<<<dim3(grid, U), THREADS, smem, stream>>>(a, t, window_ms);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry for ctypes: the lane mode. lo, hi, count, t_first, t_last,
+// t_last2, out_t are [U, ld] (idx [U, 3, ld]) and window_ms [U] f32, one
+// row per unique window; gids [L, S] int32 and u_of_lane [L] int32 (L <=
+// lanes::MAX_LANES); acc and cnt [L, G+1, ld] at the op's identity and
+// zero. `shared` keeps every lane's partials in shared memory, sized by
+// the wrapper for `lanes_max` lanes of one window (`smem_bytes`, checked
+// here). acc_op ACC_STORE: acc is the [U, ld, S] grids, gids [1, S] (rows
+// outside [0, G) NaN), cnt and u_of_lane unread, `shared` 0. Steps [0, J)
+// are computed. Launches on `stream` and returns a cudaError_t (0 on
+// success); it does not synchronise.
+extern "C" int filodb_regular_range_lanes(
+    const void* vals, const void* raw, const void* lo, const void* hi, const void* idx,
+    const void* count, const void* t_first, const void* t_last, const void* t_last2,
+    const void* out_t, const void* window_ms, int S, int T, int J, int ld, int U,
+    const void* gids, const void* u_of_lane, int L, int G, int func, int acc_op,
+    int is_counter, int is_delta, int rows, int shared, int lanes_max, int smem_bytes,
+    void* acc, void* cnt, void* stream) {
+    if (S <= 0 || J <= 0 || G <= 0 || U <= 0 || L <= 0) return 0;
+    const bool store = acc_op == group_acc::ACC_STORE;
+    const int64_t part = shared ? (((int64_t)2 * lanes_max * G * J + 3) & ~3) * 4 : 0;
+    if (func == DERIV || func == PREDICT_LINEAR || rows < 1 || ld < J || U > 65535 ||
+        L > lanes::MAX_LANES || lanes_max < 1 || lanes_max > L || smem_bytes < part ||
+        (store && shared) || !window_ms || !gids || (!store && !u_of_lane))
+        return (int)cudaErrorInvalidValue;
+    RegularArgs a{(const float*)vals, (const float*)raw, nullptr, (const int32_t*)lo,
+                  (const int32_t*)hi, (const int32_t*)idx, (const float*)count,
+                  (const float*)t_first, (const float*)t_last, (const float*)t_last2,
+                  (const float*)out_t, nullptr, nullptr, nullptr, nullptr, S, T, J, ld, G,
+                  0.0f, 0.0f, func, acc_op, is_counter, is_delta, rows, (float*)acc,
+                  (float*)cnt};
+    const lanes::Table t{(const int32_t*)gids, (const int32_t*)u_of_lane, L, S, G,
+                         (int64_t)(G + 1) * ld, ld, acc_op, (float*)acc, (float*)cnt};
+    const float* w = (const float*)window_ms;
+    cudaStream_t strm = (cudaStream_t)stream;
+    if (store) return launch_lanes<false, true>(a, t, w, U, smem_bytes, strm);
+    return shared ? launch_lanes<true, false>(a, t, w, U, smem_bytes, strm)
+                  : launch_lanes<false, false>(a, t, w, U, smem_bytes, strm);
+}

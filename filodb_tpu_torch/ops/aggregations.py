@@ -398,3 +398,182 @@ def group_members_memo(block, series_labels, by, without, strip_metric: bool = F
     key = (tuple(by) if by else None, tuple(without) if without else None, bool(strip_metric))
     members = memo_on(block, "group_members_memo", key, lambda: OS.segment_members(gids, G))
     return members, G, group_labels
+
+
+# -- cross-query batching (B12) ------------------------------------------------
+#
+# One launch of a rung's lane mode serves L concurrent queries over one
+# superblock (query/scheduler.DispatchScheduler): U unique (start, step,
+# window) triples each get one range grid, and every lane folds its
+# window's values by its own group ids. A lane is ``(grouping, G, q,
+# params)``: the int64 [S_pad] group ids of an aggregate or histogram lane
+# (``zero_gids`` for topk, the ``order_stats.Members`` for quantile), its
+# group count, its q and its ``RangeParams``. The JAX package pads lanes
+# and windows to powers of two so that XLA compiles few shapes; the port
+# has no compile cache, so a launch computes and writes its real lanes
+# only, each at its own position.
+
+# the rungs with a lane mode, and their modules' entry-point prefixes
+# (``<prefix>_lanes``, ``<prefix>_lanes_series``)
+_LANE_RUNGS = {"mxu": (MK, "regular_range"), "jitter": (JR, "jitter_range"),
+               "masked": (JR, "masked_range"), "general": (GR, "general_range")}
+_BATCH_STACK_MEMO_MAX = 64
+
+
+def _pow2(n: int, lo: int = 1) -> int:
+    q = max(lo, 1)
+    while q < n:
+        q *= 2
+    return q
+
+
+def _unique_windows(params_list, base_ms: int):
+    """(the unique window of each lane, the unique (start offset, step,
+    window) triples in order of first appearance)."""
+    uniq: dict[tuple, int] = {}
+    u_idx = []
+    for p in params_list:
+        k = (int(p.start_ms - base_ms), int(p.step_ms), int(p.window_ms))
+        u_idx.append(uniq.setdefault(k, len(uniq)))
+    return u_idx, list(uniq)
+
+
+def batch_variant_supported(block, func: str, kind: str, is_delta: bool) -> bool:
+    """Whether a fused dispatch's rung has a lane mode, decided before the
+    scheduler groups it (the JAX package's ``batch_variant_supported``): a
+    jittered histogram grid, min/max_over_time on the jitter and masked
+    rungs and the window-stats rung run solo. The JAX package batches
+    dispatches of its general rung that the port serves on window stats
+    (``general_rung``); those run solo here."""
+    if kind == "hist":
+        return block.regular_ts is not None or block.nominal_ts is None
+    variant = grid_variant(block, func, is_delta)
+    if variant in ("jitter", "masked") and func in ("min_over_time", "max_over_time"):
+        return False
+    return variant in _LANE_RUNGS
+
+
+def lanes_variant(block, func: str, kind: str, is_delta: bool, params_list) -> str | None:
+    """The rung every lane's solo run takes, where they all take the same
+    one and it has a lane mode; else None (the group runs solo: a merged
+    window that the jitter bound declines, or more lanes than one launch
+    takes, ``group_acc.MAX_LANES``)."""
+    if len(params_list) > GA.MAX_LANES or not batch_variant_supported(block, func, kind,
+                                                                      is_delta):
+        return None
+    if kind == "hist":
+        variants = {hist_variant(block, p) for p in params_list}
+        ok = ("hist_shared", "hist_general")
+    else:
+        variants = {grid_variant(block, func, is_delta, p.window_ms) for p in params_list}
+        ok = _LANE_RUNGS
+    return variants.pop() if len(variants) == 1 and next(iter(variants)) in ok else None
+
+
+class LaneBatch:
+    """The stacked inputs of one lane-mode launch, memoized on the block
+    per lane composition (``_batched_stacks``): ``u_of_lane`` (host list and
+    int32 [L] on the device), the unique windows ``ukeys`` and the rung's
+    stacked window structure ``windows``, the int32 [L, S_pad] lane group
+    ids ``gids`` (a lane's padded rows -1; None for topk and quantile
+    lanes, whose store launch reads ``store_gids``, the zero gids as
+    int32 [1, S_pad]), the largest group count ``G``, the largest
+    ``num_steps`` and the shared ``j_pad``."""
+
+    def __init__(self, block, lanes, variant: str, kind: str, j_pad: int):
+        dev = block.vals.device
+        self.u_of_lane, self.ukeys = _unique_windows([l[3] for l in lanes], block.base_ms)
+        self.u_dev = torch.tensor(self.u_of_lane, dtype=torch.int32, device=dev)
+        self.j_pad = j_pad
+        self.num_steps = max(l[3].num_steps for l in lanes)
+        self.G = max(l[1] for l in lanes)
+        self.lanes_max = max(self.u_of_lane.count(u) for u in range(len(self.ukeys)))
+        self.gids = self.store_gids = None
+        if kind in ("agg", "hist"):
+            self.gids = torch.stack([torch.where(g < G, g, -1).to(torch.int32)
+                                     for g, G, _q, _p in lanes]).contiguous()
+        else:
+            self.store_gids = zero_gids(block).to(torch.int32)[None, :].contiguous()
+        self.windows = self._windows(block, variant)
+
+    def _windows(self, block, variant: str):
+        dev = block.vals.device
+        i32 = torch.int32
+        if variant == "mxu":
+            return MK.lane_windows(block, self.ukeys, self.j_pad)
+        if variant in ("jitter", "masked"):
+            return JR.lane_windows(variant == "masked", block, self.ukeys, self.j_pad)
+        grid = {name: torch.tensor([k[i] for k in self.ukeys], dtype=i32, device=dev)
+                for i, name in enumerate(("start", "step", "window"))}
+        if variant == "hist_shared":
+            from .kernels import RangeParams
+
+            wins = [_hist_shared_windows(block, RangeParams(so + block.base_ms, sm,
+                                                            self.num_steps, w), self.j_pad)
+                    for so, sm, w in self.ukeys]
+            grid["bounds"] = tuple(torch.stack([w[i] for w in wins]).contiguous()
+                                   for i in range(4))
+        return grid
+
+
+def _batched_stacks(block, lanes, variant: str, kind: str, j_pad: int) -> LaneBatch:
+    """The ``LaneBatch`` of a lane composition, memoized on the block
+    (``singleflight.memo_on``: one build under concurrency) by the variant,
+    kind, ``j_pad`` and each lane's window and grouping identity (the
+    groupings are themselves memoized on the block, so their ids are stable
+    for its life). A recurring dashboard round pays no host-to-device copy
+    after its first occurrence."""
+    sig = tuple((int(p.start_ms - block.base_ms), int(p.step_ms), int(p.window_ms),
+                 int(p.num_steps), id(g), G) for g, G, _q, p in lanes)
+    key = (variant, kind, j_pad, sig)
+    cache = block.__dict__.get("_batch_stacks")
+    if cache is not None and len(cache) > _BATCH_STACK_MEMO_MAX:
+        cache.clear()  # bounded: stacks rebuild in one call
+    return memo_on(block, "_batch_stacks", key,
+                   lambda: LaneBatch(block, lanes, variant, kind, j_pad))
+
+
+def fused_batched_scalar(func: str, epilogue: tuple, block, lanes, is_counter: bool,
+                         is_delta: bool) -> list:
+    """One lane-mode dispatch serving the scalar fused queries ``lanes``
+    over one superblock, each output in its solo dispatch's shape and on
+    the rung its solo run takes (``lanes_variant``): ``("agg", op)`` lanes
+    one launch of the rung's lane mode ([G_l, J_pad] each); topk/bottomk
+    and quantile lanes one launch of its lane store mode (every unique
+    window's [J_pad, S_pad] grid once) and then each lane's
+    order-statistics launch over its window's grid (1 + L launches)."""
+    kind = "agg" if epilogue[0] == "agg" else epilogue[0]
+    variant = lanes_variant(block, func, kind, is_delta, [l[3] for l in lanes])
+    if variant is None:
+        raise ValueError(f"the lanes of {func!r} do not share a rung with a lane mode")
+    j_pad = pad_steps(max(l[3].num_steps for l in lanes))
+    batch = _batched_stacks(block, lanes, variant, kind, j_pad)
+    mod, prefix = _LANE_RUNGS[variant]
+    if kind == "agg":
+        return getattr(mod, f"{prefix}_lanes")(func, epilogue[1], block, lanes, batch,
+                                               is_counter=is_counter, is_delta=is_delta)
+    grids = getattr(mod, f"{prefix}_lanes_series")(func, block, batch, is_counter=is_counter,
+                                                   is_delta=is_delta)
+    out = []
+    for (grouping, _G, q, params), u in zip(lanes, batch.u_of_lane):
+        grid = grids[u][: params.num_steps]
+        if kind == "topk":
+            out.append(OS.topk_steps(grid, max(int(epilogue[1]), 1), bool(epilogue[2]),
+                                     n_real=block.n_series))
+        else:
+            out.append(OS.segment_quantile(grid, grouping, q))
+    return out
+
+
+def fused_batched_hist(func: str, block, lanes, les: torch.Tensor, quantile: bool,
+                       is_delta: bool) -> list:
+    """One launch of the histogram range kernel's lane mode serving the
+    histogram queries ``lanes`` over one [S, T, B] superblock: each lane's
+    [G_l, J_pad, B] bucket sums, or with ``quantile`` its [G_l, J_pad]
+    ``histogram_quantile`` at its own q folded into the same launch."""
+    variant = lanes_variant(block, func, "hist", is_delta, [l[3] for l in lanes])
+    if variant is None:
+        raise ValueError(f"the lanes of {func!r} do not share a histogram rung with a lane mode")
+    j_pad = pad_steps(max(l[3].num_steps for l in lanes))
+    batch = _batched_stacks(block, lanes, variant, "hist", j_pad)
+    return HK.hist_range_lanes(func, block, lanes, batch, les, quantile, is_delta=is_delta)

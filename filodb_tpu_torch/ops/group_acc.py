@@ -54,6 +54,7 @@ STAGE_BUDGET = 40 * 1024  # both tile buffers, aiming at 4-5 blocks per SM
 PARTIALS_BUDGET = 56 * 1024  # shared [G, J] acc/cnt partials at most
 BLOCK_SMEM = 227 * 1024  # the most dynamic shared memory a block may use
 MAX_TILE_ROWS = 8
+MAX_LANES = 64  # lanes one lane-mode launch takes (csrc/group_acc.cuh lanes::MAX_LANES)
 
 
 @dataclass(frozen=True)
@@ -79,12 +80,13 @@ class TilePlan:
 
 
 def layout(num_groups: int, num_steps: int, row_words: int, n_arrays: int,
-           rows: int, store: bool = False) -> TilePlan:
+           rows: int, store: bool = False, lanes: int = 1) -> TilePlan:
     """The plan of ``rows`` rows per tile, each staging ``n_arrays`` arrays
     of ``row_words`` words in both buffers (``n_arrays`` 0: read in
     place), with the group partials' variant chosen from the shape (none
-    in the store mode)."""
-    part = 0 if store else 2 * num_groups * num_steps * 4
+    in the store mode): a lane-mode launch keeps ``lanes`` pairs of
+    partials, one for each lane of a window."""
+    part = 0 if store else 2 * lanes * num_groups * num_steps * 4
     shared = not store and part <= PARTIALS_BUDGET
     part = -(-part // 16) * 16 if shared else 0
     return TilePlan(rows, n_arrays, shared, part + rows * 2 * row_words * 4 * n_arrays, store)
@@ -92,17 +94,18 @@ def layout(num_groups: int, num_steps: int, row_words: int, n_arrays: int,
 
 @functools.lru_cache(maxsize=256)
 def tile_plan(num_groups: int, num_steps: int, row_words: int, n_arrays: int,
-              store: bool = False) -> TilePlan:
+              store: bool = False, lanes: int = 1) -> TilePlan:
     """The layout of a launch over ``num_steps`` steps into ``num_groups``
     groups (or, with ``store``, to the per-series grid) that stages
     ``n_arrays`` arrays of ``row_words`` words per row (0 arrays: a kernel
-    that reads rows in place)."""
+    that reads rows in place); a lane-mode launch counts the most
+    ``lanes`` any one window serves."""
     row_bytes = 2 * row_words * 4 * n_arrays  # both buffers
-    in_place = layout(num_groups, num_steps, row_words, 0, MAX_TILE_ROWS, store)
+    in_place = layout(num_groups, num_steps, row_words, 0, MAX_TILE_ROWS, store, lanes)
     if not row_bytes or in_place.smem_bytes + row_bytes > BLOCK_SMEM:
         return in_place
     rows = max(1, min(MAX_TILE_ROWS, STAGE_BUDGET // row_bytes))
-    return layout(num_groups, num_steps, row_words, n_arrays, rows, store)
+    return layout(num_groups, num_steps, row_words, n_arrays, rows, store, lanes)
 
 
 def accumulators(op: str, num_groups: int, width: int, device):
@@ -177,3 +180,49 @@ def check_aligned(**tensors) -> None:
         if t.data_ptr() % 16 or (t.dim() == 2 and t.shape[1] % 4):
             raise ValueError(f"{name} rows must start on 16-byte boundaries "
                              f"(data_ptr {t.data_ptr():#x}, shape {tuple(t.shape)})")
+
+
+# -- lane mode (cross-query batching) ------------------------------------------
+
+
+def lane_accumulators(op: str, lanes: int, num_groups: int, width: int, device):
+    """``acc`` and ``cnt`` ``[lanes, num_groups + 1, width]``: each lane's
+    accumulators of ``accumulators``."""
+    init = {"min": float("inf"), "max": float("-inf")}.get(op, 0.0)
+    acc = torch.full((lanes, num_groups + 1, width), init, dtype=torch.float32, device=device)
+    cnt = torch.zeros((lanes, num_groups + 1, width), dtype=torch.float32, device=device)
+    return acc, cnt
+
+
+def finish_lanes(op: str, acc: torch.Tensor, cnt: torch.Tensor, lanes) -> list:
+    """Each lane's ``[G_l, J_pad]`` values from its slice of the lane
+    accumulators: ``finish_groups`` over its own G_l groups, NaN past its
+    own ``num_steps``. ``lanes`` are ``(grouping, G, q, params)``."""
+    return [mask_steps(finish_groups(op, acc[i], cnt[i], G), params.num_steps)
+            for i, (_g, G, _q, params) in enumerate(lanes)]
+
+
+def lanes_plain(series_of_window, op: str, lanes, u_of_lane) -> list:
+    """The lane mode in plain torch, from the rung's solo plain version:
+    ``series_of_window(u)`` (the [S_pad, J_pad] per-series values of unique
+    window u) once per window, then each lane's solo epilogue (the
+    ``("agg", op)`` segment aggregate over its own group ids, NaN past its
+    own ``num_steps``): bit-equal to the lanes' solo runs by construction."""
+    from .aggregations import apply_epilogue
+
+    grids: dict = {}
+    out = []
+    for (gids, G, _q, params), u in zip(lanes, u_of_lane):
+        if u not in grids:
+            grids[u] = series_of_window(u)
+        out.append(mask_steps(apply_epilogue(grids[u], ("agg", op), gids, G), params.num_steps))
+    return out
+
+
+def lane_series_buffer(windows: int, num_rows: int, j_pad: int, num_steps: int,
+                       device) -> torch.Tensor:
+    """The store mode's ``[windows, j_pad, num_rows]`` grids of a lane-mode
+    launch, one ``series_buffer`` per unique window."""
+    out = torch.empty((windows, j_pad, num_rows), dtype=torch.float32, device=device)
+    out[:, num_steps:] = float("nan")
+    return out

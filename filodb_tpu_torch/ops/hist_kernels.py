@@ -104,6 +104,9 @@ INSTANT_LAUNCHES = 0  # of filodb_hist_instant (K2)
 LAST_PLAN = None
 LAST_GRID = None
 LAST_SERIES_PLAN = None  # the last store-mode launch's HistPlan
+LANE_LAUNCHES = 0  # of filodb_hist_range_lanes (the lane mode, B12)
+LANE_FOLDED = 0  # of LANE_LAUNCHES, those that folded the lanes' quantiles in
+LAST_LANE_PLAN = None  # the last lane-mode launch's group_acc.TilePlan
 
 # the instant kernel's op codes (csrc/hist_range.cu, enum HOp), and the
 # grids one launch takes at most (MAX_GRIDS)
@@ -142,6 +145,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn = lib.filodb_hist_jitter_resident
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    fn = lib.filodb_hist_range_lanes
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     fn = lib.filodb_hist_instant
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float] * 3
@@ -300,14 +309,20 @@ def hist_partials_plain(func: str, block, gids: torch.Tensor, num_groups: int, p
     ``(acc, cnt)`` [G+1, J_pad * B] (NaN is absence; padded rows go to the
     trash group G), with the steps past ``params.num_steps`` empty."""
     sjb = hist_range_plain(func, block, params, windows, is_delta, jitter)
+    return _partials_of(sjb, gids, num_groups, params.num_steps)
+
+
+def _partials_of(sjb: torch.Tensor, gids: torch.Tensor, num_groups: int, num_steps: int):
+    """The per-bucket group sum of a [S, J_pad, B] grid into ``(acc, cnt)``
+    [G+1, J_pad * B], the steps past ``num_steps`` empty."""
     S, J, B = sjb.shape
     flat = sjb.reshape(S, J * B)
     valid = ~torch.isnan(flat)
     zeros = torch.zeros((num_groups + 1, J * B), dtype=flat.dtype, device=flat.device)
     acc = zeros.index_add(0, gids, torch.where(valid, flat, 0.0))
     cnt = zeros.index_add(0, gids, valid.to(flat.dtype))
-    acc[:, params.num_steps * B:] = 0.0
-    cnt[:, params.num_steps * B:] = 0.0
+    acc[:, num_steps * B:] = 0.0
+    cnt[:, num_steps * B:] = 0.0
     return acc, cnt
 
 
@@ -923,3 +938,125 @@ def empty_launch(G: int, num_steps: int, device) -> None:
                                       torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"empty kernel launch failed: cudaError {err}")
+
+
+# -- lane mode (cross-query batching, B12) -------------------------------------
+
+
+def _lane_windows_of(batch, u: int):
+    """Window u's shared [J_pad] bounds of a lane batch (None: searched
+    per series)."""
+    bounds = batch.windows.get("bounds")
+    return None if bounds is None else tuple(b[u] for b in bounds)
+
+
+def hist_range_lanes_plain(func: str, block, lanes, batch, les: torch.Tensor, quantile: bool,
+                           is_delta: bool = False) -> list:
+    """The lane mode in plain torch: ``hist_range_plain`` once per unique
+    window, then each lane's per-bucket group sum and, with ``quantile``,
+    ``hist_quantile_plain`` at its own q -- the solo plain version's steps,
+    so each lane is bit-equal to its solo run."""
+    from .kernels import RangeParams
+
+    grids: dict = {}
+    out = []
+    for (gids, G, q, params), u in zip(lanes, batch.u_of_lane):
+        if u not in grids:
+            so, sm, w = batch.ukeys[u]
+            grids[u] = hist_range_plain(func, block, RangeParams(so + block.base_ms, sm,
+                                                                 batch.num_steps, w),
+                                        _lane_windows_of(batch, u), is_delta)
+        acc, cnt = _partials_of(grids[u], gids, G, params.num_steps)
+        if quantile:
+            out.append(hist_quantile_plain(q, acc, cnt, G, les, params.num_steps))
+        else:
+            out.append(GA.finish_groups("sum", acc, cnt, G).reshape(G, batch.j_pad, -1))
+    return out
+
+
+def lane_buffers(block, batch, lanes, quantile: bool) -> dict:
+    """The outputs of one histogram lane-mode launch over ``block``: the
+    lanes' zeroed ``acc``/``cnt`` [L, G+1, J_pad * B], one zeroed int32
+    arrival counter a unique window (the launch leaves them at zero), and
+    with ``quantile`` the [L, G, J_pad] quantiles (NaN) and each lane's q
+    (f32 [L])."""
+    dev = block.vals.device
+    L, G, U, j_pad = len(lanes), batch.G, len(batch.ukeys), batch.j_pad
+    width = j_pad * block.vals.shape[2]
+    n = L * (G + 1) * width
+    buf = torch.zeros(2 * n + _round4(U), dtype=torch.float32, device=dev)
+    out = {"acc": buf[:n].view(L, G + 1, width), "cnt": buf[n:2 * n].view(L, G + 1, width),
+           "arrivals": buf[2 * n:2 * n + U].view(torch.int32), "out": None, "qs": None}
+    if quantile:
+        out["out"] = torch.full((L, G, j_pad), float("nan"), dtype=torch.float32, device=dev)
+        out["qs"] = torch.tensor([float(np.float32(l[2])) for l in lanes], dtype=torch.float32,
+                                 device=dev)
+    return out
+
+
+def _launch_lanes(func: str, block, batch, les: torch.Tensor, quantile: bool, is_delta: bool,
+                  bufs: dict, plan=None, lib=None) -> None:
+    """One launch of the histogram kernel's lane mode over ``batch`` (an
+    ``aggregations.LaneBatch``) into ``bufs`` (``lane_buffers``'s), each
+    lane's q folded in with ``quantile``; raises if the launch fails."""
+    global LANE_LAUNCHES, LANE_FOLDED, LAST_LANE_PLAN
+    vals = block.vals
+    S, T, B = vals.shape
+    dev = vals.device
+    acc, cnt, out, qs = bufs["acc"], bufs["cnt"], bufs["out"], bufs["qs"]
+    L, G, U, J, j_pad = acc.shape[0], batch.G, len(batch.ukeys), batch.num_steps, batch.j_pad
+    width = j_pad * B
+    if plan is None:
+        plan = GA.tile_plan(G, J * B, 0, 0, lanes=batch.lanes_max)
+    bounds = batch.windows.get("bounds")
+    w = batch.windows
+    lib = lib or _load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.filodb_hist_range_lanes(
+            block.ts.data_ptr(), vals.data_ptr(), block.lens.data_ptr(),
+            *[0 if bounds is None else b.data_ptr() for b in (bounds or (None,) * 4)], j_pad,
+            w["start"].data_ptr(), w["step"].data_ptr(), w["window"].data_ptr(), S, T, B, J,
+            width, U, batch.gids.data_ptr(), batch.u_dev.data_ptr(), L, G,
+            HIST_FUNC_CODES[func], int(is_delta), int(bounds is not None), plan.rows,
+            int(plan.shared), batch.lanes_max, plan.smem_bytes, acc.data_ptr(), cnt.data_ptr(),
+            int(quantile), 0 if qs is None else qs.data_ptr(), les.data_ptr(),
+            0 if out is None else out.data_ptr(), j_pad, bufs["arrivals"].data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"hist_range lane-mode launch failed: cudaError {err}")
+    LANE_LAUNCHES += 1
+    LANE_FOLDED += int(quantile)
+    LAST_LANE_PLAN = plan
+
+
+def hist_range_lanes(func: str, block, lanes, batch, les: torch.Tensor, quantile: bool,
+                     is_delta: bool = False, plan=None, lib=None) -> list:
+    """``sum by (...) (func(m[w]))`` of every lane of ``batch`` (an
+    ``aggregations.LaneBatch``) over a [S, T, B] histogram block -> each
+    lane's [G_l, J_pad, B] bucket sums, or with ``quantile`` its [G_l,
+    J_pad] ``histogram_quantile`` at the lane's own q; NaN past each lane's
+    ``num_steps``. A CUDA block makes ONE launch of the lane mode (the
+    quantiles folded in; raises if it fails); a CPU block runs
+    ``hist_range_lanes_plain``."""
+    if func not in FUSED_HIST_FUNCS:
+        raise NotImplementedError(f"histogram range function {func!r} is not ported")
+    B = block.vals.shape[2]
+    dev = block.vals.device
+    _check("les", les, torch.float32, (B,), dev)
+    if dev.type == "cpu":
+        return hist_range_lanes_plain(func, block, lanes, batch, les, quantile, is_delta)
+    if dev.type != "cuda":
+        raise ValueError(f"the histogram range kernel runs on cuda or cpu tensors, not {dev}")
+    bufs = lane_buffers(block, batch, lanes, quantile)
+    _launch_lanes(func, block, batch, les, quantile, is_delta, bufs, plan, lib)
+    acc, cnt, out, j_pad = bufs["acc"], bufs["cnt"], bufs["out"], batch.j_pad
+    if quantile:
+        return [GA.mask_steps(out[i, :G_l], params.num_steps)
+                for i, (_g, G_l, _q, params) in enumerate(lanes)]
+    res = []
+    for i, (_g, G_l, _q, params) in enumerate(lanes):
+        sums = GA.finish_groups("sum", acc[i], cnt[i], G_l).reshape(G_l, j_pad, B)
+        sums[:, params.num_steps:] = float("nan")
+        res.append(sums)
+    return res

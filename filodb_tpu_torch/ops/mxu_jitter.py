@@ -60,6 +60,9 @@ STEP_BYTES = 4 * STEP_WORDS
 JITTER_LAUNCHES = 0
 MASKED_LAUNCHES = 0
 LAST_PLAN = None
+# the lane mode's launches (both variants) and the last one's layout
+LANE_LAUNCHES = 0
+LAST_LANE_PLAN = None
 
 _lib = None
 
@@ -511,6 +514,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
                    + [ctypes.c_float] * 2 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
+    fn = lib.filodb_jitter_range_lanes
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
+                   + [ctypes.c_float] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p] * 3)
+    fn.restype = ctypes.c_int
     return lib
 
 
@@ -685,3 +693,189 @@ def masked_range_series(func: str, block, gids: torch.Tensor, num_groups: int, p
     """``jitter_range_series`` over a ``holes`` block's sidecar."""
     return _series(True, func, block, gids, num_groups, params, is_counter, is_delta)
 
+
+
+# -- lane mode (cross-query batching, B12) -------------------------------------
+
+
+def lane_windows(masked: bool, block, ukeys, j_pad: int) -> dict:
+    """The stacked window structure of a lane-mode launch: each unique
+    window ``(start_off, step, window)`` of ``ukeys`` its window structure
+    (``wms``, the solo launches' memo), their step tables stacked [U, j_pad,
+    STEP_WORDS] and window_ms [U] f32. Raises where a window's structure
+    declines it (``ok`` false): ``aggregations.lanes_variant`` keeps such
+    groups solo."""
+    build = masked_window_matrices if masked else jitter_window_matrices
+    wms = [build(block, so, sm, j_pad, w) for so, sm, w in ukeys]
+    if not all(w.ok for w in wms):
+        raise ValueError("a window of the batch is not wider than twice the grid's deviation "
+                         "bound")
+    return {"wms": wms, "steps": torch.stack([w.steps for w in wms]).contiguous(),
+            "window_ms": torch.tensor([float(np.float32(w)) for *_, w in ukeys],
+                                      dtype=torch.float32, device=block.vals.device)}
+
+
+def _launch_lanes(masked: bool, func: str, op: str, planes: dict, batch, is_counter: bool,
+                  is_delta: bool, maxdev_ms: int, acc: torch.Tensor, cnt: torch.Tensor,
+                  plan=None, lib=None) -> None:
+    """One launch of the jitter kernel's lane mode (``masked``: its MASKED
+    variant) over ``batch`` (an ``aggregations.LaneBatch``) into the lanes'
+    ``acc``/``cnt`` ([L, G+1, J_pad]), or with ``op`` ``group_acc.STORE``
+    into the [U, J_pad, S] grids ``acc``; raises if the launch fails."""
+    global LANE_LAUNCHES, LAST_LANE_PLAN
+    lib = lib or _load()
+    vals = planes["vals"]
+    S, T = vals.shape
+    store = op == GA.STORE
+    gids = batch.store_gids if store else batch.gids
+    L, G = (1, 1) if store else (gids.shape[0], batch.G)
+    lanes_max = 1 if store else batch.lanes_max
+    if plan is None:
+        plan = GA.tile_plan(G, batch.num_steps, 0, 0, store=store, lanes=lanes_max)
+    w = batch.windows
+
+    def ptr(name):
+        t = planes.get(name)
+        return 0 if t is None else t.data_ptr()
+
+    with torch.cuda.device(vals.device):
+        stream = torch.cuda.current_stream(vals.device).cuda_stream
+        err = lib.filodb_jitter_range_lanes(
+            int(masked), vals.data_ptr(), ptr("ts"), ptr("raw"), ptr("cc"), ptr("ffv"),
+            ptr("ffd"), ptr("bfv"), ptr("bfd"), ptr("ff2v"), ptr("ff2d"), ptr("bfraw"),
+            w["steps"].data_ptr(), w["window_ms"].data_ptr(), S, T, batch.num_steps,
+            batch.j_pad, len(batch.ukeys), float(np.float32(maxdev_ms)), gids.data_ptr(),
+            batch.u_dev.data_ptr(), L, G, FUNC_CODES[func], GA.acc_code(op), int(is_counter),
+            int(is_delta), plan.rows, int(plan.shared), lanes_max, plan.smem_bytes,
+            acc.data_ptr(), cnt.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"jitter_range lane-mode launch failed: cudaError {err}")
+    LANE_LAUNCHES += 1
+    LAST_LANE_PLAN = plan
+
+
+def _lane_prepare(masked: bool, func: str, block) -> dict:
+    if func not in JITTER_FUNCS or func in ("min_over_time", "max_over_time"):
+        raise NotImplementedError(f"range function {func!r} has no lane mode on the jitter rung")
+    if masked and sidecar(block) is None:
+        raise ValueError("the masked rung needs a block with a masked sidecar (holes)")
+    if not masked and block.nominal_ts is None:
+        raise ValueError("the jitter rung needs a block with a nominal grid (jitter)")
+    planes = _planes(masked, block)
+    GA.check_aligned(**planes)
+    return planes
+
+
+def _lane_series_plain(masked: bool, func: str, block, batch, u: int, is_counter: bool,
+                       is_delta: bool):
+    wm, window = batch.windows["wms"][u], batch.ukeys[u][2]
+    if masked:
+        return masked_range_plain(func, block.mgrid, wm, window, is_counter, is_delta)
+    raw = block.raw if block.raw is not None else block.vals
+    return jitter_range_plain(func, block.vals, block.ts, raw, wm, window, is_counter, is_delta)
+
+
+def _lanes_plain(masked: bool, func: str, op: str, block, lanes, batch, is_counter: bool = False,
+                 is_delta: bool = False) -> list:
+    """The lane mode in plain torch: the variant's plain version once per
+    unique window, each lane's segment aggregate (``group_acc.lanes_plain``)."""
+    return GA.lanes_plain(
+        lambda u: _lane_series_plain(masked, func, block, batch, u, is_counter, is_delta), op,
+        lanes, batch.u_of_lane)
+
+
+def _lanes_series_plain(masked: bool, func: str, block, batch, is_counter: bool = False,
+                        is_delta: bool = False) -> torch.Tensor:
+    """The lane store mode in plain torch: each unique window's plain
+    version through ``group_acc.series_grid``."""
+    return torch.stack([
+        GA.series_grid(_lane_series_plain(masked, func, block, batch, u, is_counter, is_delta),
+                       batch.store_gids[0], 1, batch.num_steps) for u in range(len(batch.ukeys))])
+
+
+def _lanes(masked: bool, func: str, op: str, block, lanes, batch, is_counter: bool,
+           is_delta: bool) -> list:
+    from .aggregations import SIMPLE_AGG_OPS
+
+    if op not in SIMPLE_AGG_OPS:
+        raise NotImplementedError(f"aggregation {op!r} is not ported (ported: {SIMPLE_AGG_OPS})")
+    planes = _lane_prepare(masked, func, block)
+    device = planes["vals"].device
+    if device.type == "cpu":
+        return _lanes_plain(masked, func, op, block, lanes, batch, is_counter, is_delta)
+    if device.type != "cuda":
+        raise ValueError(f"the jitter rung runs on cuda or cpu tensors, not {device}")
+    acc, cnt = GA.lane_accumulators(op, len(lanes), batch.G, batch.j_pad, device)
+    _launch_lanes(masked, func, op, planes, batch, is_counter, is_delta, _maxdev(masked, block),
+                  acc, cnt)
+    return GA.finish_lanes(op, acc, cnt, lanes)
+
+
+def _lanes_series(masked: bool, func: str, block, batch, is_counter: bool,
+                  is_delta: bool) -> torch.Tensor:
+    planes = _lane_prepare(masked, func, block)
+    vals = planes["vals"]
+    U, S = len(batch.ukeys), vals.shape[0]
+    if vals.device.type == "cpu":
+        return _lanes_series_plain(masked, func, block, batch, is_counter, is_delta)
+    if vals.device.type != "cuda":
+        raise ValueError(f"the jitter rung runs on cuda or cpu tensors, not {vals.device}")
+    out = GA.lane_series_buffer(U, S, batch.j_pad, batch.num_steps, vals.device)
+    _launch_lanes(masked, func, GA.STORE, planes, batch, is_counter, is_delta,
+                  _maxdev(masked, block), out, out)
+    return out
+
+
+def jitter_range_lanes_plain(func: str, op: str, block, lanes, batch, is_counter: bool = False,
+                             is_delta: bool = False) -> list:
+    """The JITTER variant's lane mode in plain torch (``_lanes_plain``)."""
+    return _lanes_plain(False, func, op, block, lanes, batch, is_counter, is_delta)
+
+
+def jitter_range_lanes_series_plain(func: str, block, batch, is_counter: bool = False,
+                                    is_delta: bool = False) -> torch.Tensor:
+    """The JITTER variant's lane store mode in plain torch."""
+    return _lanes_series_plain(False, func, block, batch, is_counter, is_delta)
+
+
+def masked_range_lanes_plain(func: str, op: str, block, lanes, batch, is_counter: bool = False,
+                             is_delta: bool = False) -> list:
+    """The MASKED variant's lane mode in plain torch (``_lanes_plain``)."""
+    return _lanes_plain(True, func, op, block, lanes, batch, is_counter, is_delta)
+
+
+def masked_range_lanes_series_plain(func: str, block, batch, is_counter: bool = False,
+                                    is_delta: bool = False) -> torch.Tensor:
+    """The MASKED variant's lane store mode in plain torch."""
+    return _lanes_series_plain(True, func, block, batch, is_counter, is_delta)
+
+
+def jitter_range_lanes(func: str, op: str, block, lanes, batch, is_counter: bool = False,
+                       is_delta: bool = False) -> list:
+    """``op by (...) (func(selector[w]))`` of every lane of ``batch`` (an
+    ``aggregations.LaneBatch``) over a ``jitter`` block -> each lane's
+    [G_l, J_pad] values, NaN past its own ``num_steps``: ONE launch of the
+    JITTER variant's lane mode on a CUDA block, ``jitter_range_lanes_plain``
+    on a CPU block."""
+    return _lanes(False, func, op, block, lanes, batch, is_counter, is_delta)
+
+
+def jitter_range_lanes_series(func: str, block, batch, is_counter: bool = False,
+                              is_delta: bool = False) -> torch.Tensor:
+    """Every unique window's store grid of a ``jitter`` block -> [U, J_pad,
+    S_pad] (ONE launch of the lane store mode)."""
+    return _lanes_series(False, func, block, batch, is_counter, is_delta)
+
+
+def masked_range_lanes(func: str, op: str, block, lanes, batch, is_counter: bool = False,
+                       is_delta: bool = False) -> list:
+    """``jitter_range_lanes`` over a ``holes`` block's sidecar (the MASKED
+    variant)."""
+    return _lanes(True, func, op, block, lanes, batch, is_counter, is_delta)
+
+
+def masked_range_lanes_series(func: str, block, batch, is_counter: bool = False,
+                              is_delta: bool = False) -> torch.Tensor:
+    """``jitter_range_lanes_series`` over a ``holes`` block's sidecar."""
+    return _lanes_series(True, func, block, batch, is_counter, is_delta)

@@ -64,9 +64,11 @@ FUNC_CODES = {
 }
 MINMAX_SENTINEL = 3e38  # mxu_minmax's sentinel for samples outside a window
 # kernel launches since the last reset, and the last launch's layout
-# (group_acc.TilePlan)
+# (group_acc.TilePlan); the lane mode's launches are counted apart
 LAUNCHES = 0
 LAST_PLAN = None
+LANE_LAUNCHES = 0
+LAST_LANE_PLAN = None
 
 _lib = None
 
@@ -318,6 +320,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
                    + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
+    fn = lib.filodb_regular_range_lanes
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 3)
+    fn.restype = ctypes.c_int
     return lib
 
 
@@ -449,3 +455,125 @@ def regular_range_series(func: str, block, gids: torch.Tensor, num_groups: int, 
                                 is_counter=is_counter, is_delta=is_delta, args=args),
         lambda out: _launch(func, GA.STORE, block.vals, raw, gids, num_groups, wm,
                             params.num_steps, is_counter, is_delta, out, out, args=args))
+
+
+# -- lane mode (cross-query batching, B12) -------------------------------------
+
+
+def lane_windows(block, ukeys, j_pad: int) -> dict:
+    """The stacked window tables of a lane-mode launch: each unique window
+    ``(start_off, step, window)`` of ``ukeys`` its ``WindowMatrices``
+    (``wms``, the solo launches' memo), their [U, j_pad] tables ([U, 3,
+    j_pad] idx) and window_ms [U] f32."""
+    wms = [window_matrices(block, so, sm, j_pad, w) for so, sm, w in ukeys]
+
+    def stk(attr):
+        return torch.stack([getattr(w, attr) for w in wms]).contiguous()
+
+    out = {"wms": wms, "window_ms": torch.tensor([float(np.float32(w)) for *_, w in ukeys],
+                                                 dtype=torch.float32, device=block.vals.device)}
+    for attr in ("lo", "hi", "idx", "count", "t_first", "t_last", "t_last2", "out_t"):
+        out[attr] = stk(attr)
+    return out
+
+
+def _launch_lanes(func: str, op: str, vals, raw, batch, is_counter: bool, is_delta: bool,
+                  acc: torch.Tensor, cnt: torch.Tensor, plan=None, lib=None) -> None:
+    """One launch of the regular kernel's lane mode over ``batch`` (an
+    ``aggregations.LaneBatch``) into the lanes' ``acc``/``cnt`` ([L, G+1,
+    J_pad], from ``group_acc.lane_accumulators``), or with ``op``
+    ``group_acc.STORE`` into the [U, J_pad, S] grids ``acc``; raises if the
+    launch fails. ``plan`` defaults to ``tile_plan``'s for the most lanes
+    of one window."""
+    global LANE_LAUNCHES, LAST_LANE_PLAN
+    GA.check_aligned(vals=vals, raw=raw)
+    lib = lib or _load()
+    store = op == GA.STORE
+    S, T = vals.shape
+    gids = batch.store_gids if store else batch.gids
+    L, G = (1, 1) if store else (gids.shape[0], batch.G)
+    lanes_max = 1 if store else batch.lanes_max
+    if plan is None:
+        plan = GA.tile_plan(G, batch.num_steps, 0, 0, store=store, lanes=lanes_max)
+    w = batch.windows
+    with torch.cuda.device(vals.device):
+        stream = torch.cuda.current_stream(vals.device).cuda_stream
+        err = lib.filodb_regular_range_lanes(
+            vals.data_ptr(), raw.data_ptr(), w["lo"].data_ptr(), w["hi"].data_ptr(),
+            w["idx"].data_ptr(), w["count"].data_ptr(), w["t_first"].data_ptr(),
+            w["t_last"].data_ptr(), w["t_last2"].data_ptr(), w["out_t"].data_ptr(),
+            w["window_ms"].data_ptr(), S, T, batch.num_steps, batch.j_pad, len(batch.ukeys),
+            gids.data_ptr(), batch.u_dev.data_ptr(), L, G, FUNC_CODES[func], GA.acc_code(op),
+            int(is_counter), int(is_delta), plan.rows, int(plan.shared), lanes_max,
+            plan.smem_bytes, acc.data_ptr(), cnt.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"regular_range lane-mode launch failed: cudaError {err}")
+    LANE_LAUNCHES += 1
+    LAST_LANE_PLAN = plan
+
+
+def _lane_series_plain(func: str, block, batch, u: int, is_counter: bool, is_delta: bool):
+    raw = block.raw if block.raw is not None else block.vals
+    return mxu_range_plain(func, block.vals, raw, batch.windows["wms"][u], batch.ukeys[u][2],
+                           is_counter=is_counter, is_delta=is_delta)
+
+
+def regular_range_lanes_plain(func: str, op: str, block, lanes, batch, is_counter: bool = False,
+                              is_delta: bool = False) -> list:
+    """The lane mode in plain torch: ``mxu_range_plain`` once per unique
+    window, each lane's segment aggregate (``group_acc.lanes_plain``)."""
+    return GA.lanes_plain(
+        lambda u: _lane_series_plain(func, block, batch, u, is_counter, is_delta), op, lanes,
+        batch.u_of_lane)
+
+
+def regular_range_lanes_series_plain(func: str, block, batch, is_counter: bool = False,
+                                     is_delta: bool = False) -> torch.Tensor:
+    """The lane store mode in plain torch: each unique window's
+    ``mxu_range_plain`` through ``group_acc.series_grid``."""
+    return torch.stack([
+        GA.series_grid(_lane_series_plain(func, block, batch, u, is_counter, is_delta),
+                       batch.store_gids[0], 1, batch.num_steps) for u in range(len(batch.ukeys))])
+
+
+def regular_range_lanes(func: str, op: str, block, lanes, batch, is_counter: bool = False,
+                        is_delta: bool = False) -> list:
+    """``op by (...) (func(selector[w]))`` of every lane of ``batch`` over a
+    block with a shared regular grid -> each lane's [G_l, J_pad] group
+    values, NaN past its own ``num_steps``. ``lanes`` are ``(gids, G, q,
+    params)``. A CUDA block makes ONE launch of the lane mode (and raises
+    if it fails); a CPU block runs ``regular_range_lanes_plain``."""
+    from .aggregations import SIMPLE_AGG_OPS
+
+    _check_func(func)
+    if op not in SIMPLE_AGG_OPS:
+        raise NotImplementedError(f"aggregation {op!r} is not ported (ported: {SIMPLE_AGG_OPS})")
+    raw = block.raw if block.raw is not None else block.vals
+    device = block.vals.device
+    if device.type == "cpu":
+        return regular_range_lanes_plain(func, op, block, lanes, batch, is_counter, is_delta)
+    if device.type != "cuda":
+        raise ValueError(f"regular_range_lanes runs on cuda or cpu tensors, not {device}")
+    acc, cnt = GA.lane_accumulators(op, len(lanes), batch.G, batch.j_pad, device)
+    _launch_lanes(func, op, block.vals, raw, batch, is_counter, is_delta, acc, cnt)
+    return GA.finish_lanes(op, acc, cnt, lanes)
+
+
+def regular_range_lanes_series(func: str, block, batch, is_counter: bool = False,
+                               is_delta: bool = False) -> torch.Tensor:
+    """The store grids of every unique window of ``batch`` -> [U, J_pad,
+    S_pad], each ``regular_range_series``'s grid of its window (padded rows
+    and steps past the batch's ``num_steps`` NaN): ONE launch of the lane
+    store mode on a CUDA block, the plain version on a CPU block."""
+    _check_func(func)
+    raw = block.raw if block.raw is not None else block.vals
+    device = block.vals.device
+    U, S = len(batch.ukeys), block.vals.shape[0]
+    if device.type == "cpu":
+        return regular_range_lanes_series_plain(func, block, batch, is_counter, is_delta)
+    if device.type != "cuda":
+        raise ValueError(f"regular_range_lanes_series runs on cuda or cpu tensors, not {device}")
+    out = GA.lane_series_buffer(U, S, batch.j_pad, batch.num_steps, device)
+    _launch_lanes(func, GA.STORE, block.vals, raw, batch, is_counter, is_delta, out, out)
+    return out

@@ -80,7 +80,7 @@ from ...metrics import record_superblock_event
 from ...ops import aggregations as AGG
 from ...ops import staging as ST
 from ...ops.hist_kernels import FUSED_HIST_FUNCS
-from ...ops.kernels import RangeParams
+from ...ops.kernels import RangeParams, pad_steps
 from ...singleflight import memo_on
 from ..rangevector import Grid, QueryResult, QueryStats, RawGrid
 from ...ops import order_stats as OS
@@ -113,12 +113,21 @@ class QueryContext:
     stats: QueryStats = field(default_factory=QueryStats)
     # path annotations: which exec path and kernel variant served the query
     obs: dict = field(default_factory=dict)
+    # the cross-query batcher the fused dispatches go through (None, or one
+    # whose window is 0: every launch runs solo) and the cost model's
+    # prediction of this query, which feeds its adaptive window
+    dispatch_scheduler: Any = None
+    predicted_cost_s: float = 0.0
     _start_time: float = field(default_factory=time.monotonic)
 
     def check_deadline(self) -> None:
         elapsed = time.monotonic() - self._start_time
         if elapsed > self.deadline_s:
             raise QueryError(f"query exceeded deadline: {elapsed:.1f}s > {self.deadline_s:.1f}s")
+
+    def remaining_deadline_s(self) -> float:
+        """Seconds left before the query's deadline (at least 1 ms)."""
+        return max(self.deadline_s - (time.monotonic() - self._start_time), 0.001)
 
 
 class ExecPlan:
@@ -1039,7 +1048,35 @@ class FusedAggregateExec(ExecPlan):
             cache.put(sb_key, versions, value, ST.staged_nbytes(block))
         return value
 
+    def _dispatch_fused(self, ctx: QueryContext, request):
+        """Run one fused launch: through the context's dispatch scheduler
+        when it batches and the rung has a lane mode
+        (``aggregations.batch_variant_supported``), where concurrent
+        queries over this superblock coalesce into one lane-mode launch;
+        else ``request.run_single()``, exactly the launch of an engine
+        without batching. The host wall of the launch (the group's shared
+        launch when batched; no device sync) goes to
+        ``ctx.stats.kernel_ns``."""
+        sched = ctx.dispatch_scheduler
+        request.predicted_cost_s = float(ctx.predicted_cost_s or 0.0)
+        t0 = time.perf_counter()
+        if (sched is not None and sched.enabled and AGG.batch_variant_supported(
+                request.block, request.func, request.kind, request.is_delta)):
+            request.timeout_s = ctx.remaining_deadline_s()
+            ctx.obs["batched"] = True
+            out = sched.dispatch(request)
+            wall = request.exec_seconds
+            if wall is None:  # a duplicate lane: its own request never ran
+                wall = time.perf_counter() - t0
+        else:
+            out = request.run_single()
+            wall = time.perf_counter() - t0
+        ctx.stats.bump(kernel_ns=int(wall * 1e9))
+        return out
+
     def do_execute(self, ctx: QueryContext) -> QueryResult:
+        from ..scheduler import FusedRequest
+
         func = self.function or "last"
         got = self.superblock(ctx)
         if isinstance(got, str):
@@ -1050,42 +1087,61 @@ class FusedAggregateExec(ExecPlan):
         nsteps = self.num_steps()
         params = RangeParams(self.start_ms - self.offset_ms, self.step_ms, nsteps, self.window_ms)
         strip = self.function is not None and self.function not in _DROP_NAME_KEEP
+        j_pad = pad_steps(nsteps)
+
+        def request(kind, epilogue, grouping, G, qv, run_single, **kw):
+            return FusedRequest(block=got.block, func=func, kind=kind, epilogue=epilogue,
+                                gids_dev=grouping, G=G, qv=qv, params=params, j_pad=j_pad,
+                                is_counter=got.is_counter, is_delta=got.is_delta,
+                                run_single=run_single, **kw)
+
         if self.op in ("topk", "bottomk"):
             # global: no label grouping, only [k, J] comes back
             k = max(int(self.params[0]), 1)
-            vals, idx = AGG.fused_topk(func, got.block, k, self.op == "bottomk", params,
+            vals, idx = self._dispatch_fused(ctx, request(
+                "topk", ("topk", k, self.op == "bottomk"), AGG.zero_gids(got.block), 1, 0.0,
+                lambda: AGG.fused_topk(func, got.block, k, self.op == "bottomk", params,
                                        is_counter=got.is_counter, is_delta=got.is_delta,
-                                       obs=ctx.obs)
-            ctx.stats.note_rung(ctx.obs["variant"])
+                                       obs=ctx.obs)))
+            self._note_rung(ctx, got, func, params)
             return self._present_topk(vals.cpu().numpy(), idx.cpu().numpy(), got.labels,
                                       strip, nsteps)
         if self.op == "quantile":
-            members, _, group_labels = AGG.group_members_memo(
+            members, G, group_labels = AGG.group_members_memo(
                 got.block, got.labels, self.by, self.without, strip_metric=strip)
-            out = AGG.fused_quantile(func, got.block, members, float(self.params[0]), params,
-                                     is_counter=got.is_counter, is_delta=got.is_delta,
-                                     obs=ctx.obs)
-            ctx.stats.note_rung(ctx.obs["variant"])
+            q = float(self.params[0])
+            out = self._dispatch_fused(ctx, request(
+                "quantile", ("quantile",), members, G, q,
+                lambda: AGG.fused_quantile(func, got.block, members, q, params,
+                                           is_counter=got.is_counter, is_delta=got.is_delta,
+                                           obs=ctx.obs)))
+            self._note_rung(ctx, got, func, params)
             return QueryResult(grids=[Grid(group_labels, self.start_ms, self.step_ms, nsteps,
                                            out)])
         gids, G, group_labels = AGG.group_ids_memo(
             got.block, got.labels, self.by, self.without, strip_metric=strip)
         if got.is_hist:
-            out = AGG.fused_hist_range_aggregate(
-                func, got.block, gids, G, params, got.les_dev, q=self.hist_quantile,
-                is_delta=got.is_delta, obs=ctx.obs)
-            ctx.stats.note_rung(ctx.obs["variant"])
-            if self.hist_quantile is not None:
+            hq = self.hist_quantile
+            out = self._dispatch_fused(ctx, request(
+                "hist", (), gids, G, float(hq or 0.0),
+                lambda: AGG.fused_hist_range_aggregate(
+                    func, got.block, gids, G, params, got.les_dev, q=hq,
+                    is_delta=got.is_delta, obs=ctx.obs),
+                les_dev=got.les_dev, hist_q=hq is not None))
+            self._note_rung(ctx, got, func, params)
+            if hq is not None:
                 # the quantile ran on the card: [G, J] is all that comes back
                 labels = [_strip_metric(l) for l in group_labels]
                 return QueryResult(grids=[Grid(labels, self.start_ms, self.step_ms, nsteps, out)])
             placeholder = np.full((G, nsteps), np.nan, np.float32)
             return QueryResult(grids=[Grid(group_labels, self.start_ms, self.step_ms, nsteps,
                                            placeholder, hist=out, les=got.les)])
-        out = AGG.fused_range_aggregate(
-            func, self.op, got.block, gids, G, params,
-            is_counter=got.is_counter, is_delta=got.is_delta, obs=ctx.obs)
-        ctx.stats.note_rung(ctx.obs["variant"])
+        out = self._dispatch_fused(ctx, request(
+            "agg", ("agg", self.op), gids, G, 0.0,
+            lambda: AGG.fused_range_aggregate(
+                func, self.op, got.block, gids, G, params,
+                is_counter=got.is_counter, is_delta=got.is_delta, obs=ctx.obs)))
+        self._note_rung(ctx, got, func, params)
         if self.hist_quantile is not None:
             # classic buckets (le kept by the grouping, _unsupported_shape): the
             # [G', J] by-(le, ...) partials pivot into per-group cumulative
@@ -1100,6 +1156,17 @@ class FusedAggregateExec(ExecPlan):
             return QueryResult(grids=[Grid([_strip_metric(l) for l in q_labels], self.start_ms,
                                            self.step_ms, nsteps, q_vals)])
         return QueryResult(grids=[Grid(group_labels, self.start_ms, self.step_ms, nsteps, out)])
+
+    @staticmethod
+    def _note_rung(ctx: QueryContext, got, func: str, params) -> None:
+        """Count the dispatch's rung in the query's stats (and
+        ``obs["variant"]``): the solo entry points set the variant; a
+        batched lane did not run them on this thread."""
+        if "variant" not in ctx.obs:
+            ctx.obs["variant"] = (AGG.hist_variant(got.block, params) if got.is_hist else
+                                  AGG.grid_variant(got.block, func, got.is_delta,
+                                                   params.window_ms))
+        ctx.stats.note_rung(ctx.obs["variant"])
 
     def _present_topk(self, vals, idx, labels, strip: bool, nsteps: int) -> QueryResult:
         """Prometheus topk/bottomk rows from the compact [k, J] winner set:

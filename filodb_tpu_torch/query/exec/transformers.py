@@ -60,6 +60,11 @@ class QueryError(ValueError):
     pass
 
 
+class QueryDeadlineExceeded(QueryError):
+    """A query that ran past its deadline (the caller stopped waiting); the
+    HTTP edge answers 503, as Prometheus does for timeouts."""
+
+
 def _strip_metric(labels: dict) -> dict:
     return {k: v for k, v in labels.items() if k not in (METRIC_TAG, "__name__")}
 

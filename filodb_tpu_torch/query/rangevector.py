@@ -91,8 +91,9 @@ class QueryStats:
     series_scanned: int = 0
     samples_scanned: int = 0
     bytes_staged: int = 0
-    # the JAX package's host CPU and device dispatch nanoseconds; the port
-    # does not measure them (0)
+    # the JAX package's host CPU nanoseconds (the port does not measure
+    # them: 0) and its kernel nanoseconds: the host wall of the query's fused
+    # launches, with no device sync (the cost model's realized cost)
     cpu_ns: int = 0
     kernel_ns: int = 0
     # staging and superblock cache events of the query's staging path: hits

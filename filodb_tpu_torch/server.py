@@ -16,8 +16,8 @@ otherwise flushes go to a ``LocalColumnStore`` there, which also pages
 evicted chunks back in. ``device`` null (the default) serves on the card
 and raises where there is none; ``"cpu"`` serves on the CPU. A config that
 asks for a subsystem the port has not got raises ``NotImplementedError``
-naming its ROADMAP item (``unported_settings``): scheduling, standing
-queries and coalescing (A5), self-telemetry, SLOs and alerting (A6),
+naming its ROADMAP item (``unported_settings``): standing queries and
+executable pre-warm (A5b), self-telemetry, SLOs and alerting (A6),
 downsampling and pre-aggregation (A7), the cluster and gRPC (A9). The
 index settings pass through to every shard's ``StoreConfig``:
 ``index_backend`` ("python", "native" or "set") and
@@ -25,6 +25,14 @@ index settings pass through to every shard's ``StoreConfig``:
 ``index_device_max_bytes``, the tier staging on the server's device. The JAX
 defaults that turn such subsystems on by themselves are off in the port
 (``config.PORT_OFF``).
+
+The query plane works as in the JAX server: ``query.parallelism`` and
+``max_queued`` size the shared query pool (0: queries run on the HTTP
+threads); ``batch_window_ms`` (with ``batch_max``, ``batch_window_cap_ms``
+and ``batch_load_ref_cost_s``) turns on cross-query batching of fused
+launches; ``tenant_quotas`` and ``admission_max_queued`` turn on admission
+control, priced by the cost model (``costmodel``). A shed answers 429 with
+``Retry-After``; ``/debug/scheduler`` shows the batcher and admission.
 """
 
 from __future__ import annotations
@@ -50,16 +58,10 @@ def unported_settings(cfg: dict) -> list[str]:
     got, each with its ROADMAP item."""
     q, dist = cfg["query"], cfg.get("distributed") or {}
     checks = [
-        (int(q.get("parallelism", 0) or 0) > 0, "query.parallelism: the query scheduler "
-         "(ROADMAP A5)"),
-        (float(q.get("batch_window_ms", 0) or 0) > 0, "query.batch_window_ms: cross-query "
-         "batching (ROADMAP A5)"),
-        (q.get("tenant_quotas") or int(q.get("admission_max_queued", 0) or 0),
-         "query.tenant_quotas/admission_max_queued: admission control (ROADMAP A5)"),
         ((q.get("prewarm") or {}).get("enabled"), "query.prewarm: executable pre-warm "
-         "(ROADMAP A5)"),
+         "(ROADMAP A5b)"),
         ((cfg.get("standing") or {}).get("enabled"), "standing: standing queries "
-         "(ROADMAP A5)"),
+         "(ROADMAP A5b)"),
         ((cfg.get("telemetry") or {}).get("self_scrape_interval_s"),
          "telemetry.self_scrape_interval_s: self-telemetry (ROADMAP A6)"),
         ((cfg.get("slo") or {}).get("enabled"), "slo: SLO burn-rate rules (ROADMAP A6)"),
@@ -156,6 +158,7 @@ class FiloServer:
         from .metrics import SLOW_QUERY_LOG
 
         SLOW_QUERY_LOG.configure(int(q.get("slow_query_log_max", 64) or 64))
+        self._setup_scheduling(q)
         self.engine = QueryEngine(
             self.memstore, self.dataset,
             PlannerParams(
@@ -164,12 +167,46 @@ class FiloServer:
                 num_shards=self.n_shards, fused_aggregate=bool(q.get("fused_aggregate", True)),
                 allow_partial_results=bool(q.get("allow_partial_results", False)),
                 slow_query_threshold_s=float(slow) if slow is not None else None,
+                scheduler=self.scheduler, batch_window_ms=self.batch_window_ms,
+                batch_max=int(q.get("batch_max", 32) or 32),
+                dispatch_scheduler=self.dispatch_scheduler, admission=self.admission,
             ),
             device=self.device,
         )
         self._stop = threading.Event()
         self._threads: list[threading.Thread] = []
         self._http = None
+
+    def _setup_scheduling(self, q: dict) -> None:
+        """The query pool, the cost model's settings, the dispatch scheduler
+        and admission, from the ``query`` config (the JAX server's)."""
+        from .coordinator.scheduler import QueryScheduler
+        from .config import DEFAULTS
+        from .query.costmodel import COST_MODEL
+        from .query.scheduler import AdmissionController, DispatchScheduler
+
+        self.scheduler = None
+        if int(q.get("parallelism", 0) or 0) > 0:
+            self.scheduler = QueryScheduler(parallelism=int(q["parallelism"]),
+                                            max_queued=int(q.get("max_queued", 64)))
+        cm = {**DEFAULTS["query"]["costmodel"], **(q.get("costmodel") or {})}
+        COST_MODEL.configure(prior_cost_s=float(cm["prior_cost_s"]), alpha=float(cm["alpha"]),
+                             cold_multiplier=float(cm["cold_multiplier"]))
+        prior_cost_s = float(cm["prior_cost_s"])
+        self.batch_window_ms = float(q.get("batch_window_ms", 0) or 0)
+        self.dispatch_scheduler = None
+        if self.batch_window_ms > 0:
+            self.dispatch_scheduler = DispatchScheduler(
+                self.batch_window_ms, int(q.get("batch_max", 32) or 32),
+                window_cap_ms=float(q.get("batch_window_cap_ms", 0) or 0),
+                load_ref_cost_s=float(q.get("batch_load_ref_cost_s", 0.25) or 0.25),
+                prior_cost_s=prior_cost_s)
+        self.admission = None
+        quotas = q.get("tenant_quotas") or {}
+        max_queued = int(q.get("admission_max_queued", 0) or 0)
+        if quotas or max_queued:
+            self.admission = AdmissionController(quotas, max_queued=max_queued,
+                                                 prior_cost_s=prior_cost_s)
 
     def recover(self) -> dict[int, int]:
         """Rebuild the shards from the column store; returns each shard's
@@ -198,6 +235,8 @@ class FiloServer:
 
     def stop(self) -> None:
         self._stop.set()
+        if self.scheduler is not None:
+            self.scheduler.shutdown()
         if self._http is not None:
             self._http.shutdown()
             self._http.server_close()

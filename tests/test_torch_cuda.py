@@ -12,7 +12,9 @@ classic rows, the tree's segment aggregate (csrc/segment_agg.cu) and
 grouped top-k (csrc/order_stats.cu) -- against their plain versions; the
 regular kernel's B5 codes and both variants of the jitter kernel
 (csrc/jitter_range.cu) against theirs, and jittered and holey stores
-through the engine. These tests need an NVIDIA card and skip without one; the
+through the engine; and the lane modes of the four fused kernels
+(cross-query batching) against their plain versions, at a lane count with
+shared partials and one past the shared-memory budget. These tests need an NVIDIA card and skip without one; the
 file imports no JAX so that it runs on a machine with only torch:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -28,6 +30,7 @@ import torch
 from filodb_tpu_torch.ops import aggregations as AGG
 from filodb_tpu_torch.ops import general_range as GR
 from filodb_tpu_torch.ops import group_acc as GA
+from filodb_tpu_torch.ops import hist_kernels as HK
 from filodb_tpu_torch.ops import mxu_jitter as JR
 from filodb_tpu_torch.ops import mxu_kernels as MK
 from filodb_tpu_torch.ops import staging as ST
@@ -2453,3 +2456,122 @@ def test_postings_tier_resolves_with_one_launch_on_card(card):
     assert PK.LAUNCHES == before + 1
     assert got.tolist() == ref.part_ids_from_filters(f, 0, 2**62).tolist()
     assert idx.device_tier.stats["intersections"] == 1
+
+
+# -- the lane modes of the four fused kernels (cross-query batching, B12) ----------
+
+LANE_WINDOWS = (300_000, 240_000, 180_000)
+# (lanes, G): one lane per window with shared partials, and 16 lanes past the
+# shared-memory budget (6 lanes of one window x 2 x 64 groups x 40 steps)
+LANE_SHAPES = [(3, 4), (16, 64)]
+
+
+def lane_set(b, card, n_lanes: int, G: int, q=0.0):
+    """``n_lanes`` lanes over ``b``: group counts G, G // 2, ... (at least
+    1), each its own int64 grouping, windows cycling over LANE_WINDOWS."""
+    lanes = []
+    for i in range(n_lanes):
+        g = max(G >> (i % 3), 1)
+        lanes.append((spread_groups(b, g, card, interleave=i % 2 == 0), g,
+                      q if not isinstance(q, tuple) else q[i % len(q)],
+                      RangeParams(BASE + 400_000, 60_000, 40, LANE_WINDOWS[i % 3])))
+    return lanes
+
+
+LANE_RUNGS = {  # block, function, is_counter, is_delta
+    "mxu": (lambda: regular_block(True, {"counter_corrected": True}), "rate", True, False),
+    "jitter": (lambda: near_regular_block("jitter", {"counter_corrected": True}, True), "rate",
+               True, False),
+    "masked": (lambda: near_regular_block("holes", {"counter_corrected": True}, True), "rate",
+               True, False),
+    "general": (lambda: general_block("corrected")[0], "irate", True, False),
+}
+
+
+def lane_module(rung: str):
+    mod, prefix = AGG._LANE_RUNGS[rung]
+    return mod, prefix
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_lanes,G", LANE_SHAPES, ids=["shared", "global"])
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("rung", sorted(LANE_RUNGS))
+def test_lane_mode_matches_plain_on_card(card, rung, op, n_lanes, G):
+    """One launch of a rung's lane mode against its plain version on the
+    same inputs: max bit-equal, sums within rtol 1e-5 (group atomics add in
+    launch order); the partials' variant the plan chose."""
+    make, func, counter, is_delta = LANE_RUNGS[rung]
+    b = make().to_device(card)
+    lanes = lane_set(b, card, n_lanes, G)
+    assert AGG.lanes_variant(b, func, "agg", is_delta, [l[3] for l in lanes]) == rung
+    mod, prefix = lane_module(rung)
+    before = mod.LANE_LAUNCHES
+    got = AGG.fused_batched_scalar(func, ("agg", op), b, lanes, counter, is_delta)
+    assert mod.LANE_LAUNCHES == before + 1
+    assert mod.LAST_LANE_PLAN.shared == (n_lanes == 3)
+    batch = AGG._batched_stacks(b, lanes, rung, "agg", pad_steps(40))
+    want = getattr(mod, f"{prefix}_lanes_plain")(func, op, b, lanes, batch, counter, is_delta)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        if op == "max":
+            assert torch.equal(torch.isnan(g), torch.isnan(w)), (rung, i)
+            assert torch.equal(g[~torch.isnan(w)], w[~torch.isnan(w)]), (rung, i)
+        else:
+            assert_same(g, w, rtol=1e-5, atol=1e-4, what=f"{rung} lane {i}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rung", sorted(LANE_RUNGS))
+def test_lane_store_mode_and_topk_on_card(card, rung):
+    """The lane store mode writes every unique window's grid once, bit-equal
+    to the plain version; topk lanes over it equal their solo launches."""
+    make, func, counter, is_delta = LANE_RUNGS[rung]
+    b = make().to_device(card)
+    zero = AGG.zero_gids(b)
+    lanes = [(zero, 1, 0.0, RangeParams(BASE + 400_000, 60_000, 40, w))
+             for w in LANE_WINDOWS + (300_000,)]
+    mod, prefix = lane_module(rung)
+    batch = AGG._batched_stacks(b, lanes[:3], rung, "topk", pad_steps(40))
+    before = mod.LANE_LAUNCHES
+    grids = getattr(mod, f"{prefix}_lanes_series")(func, b, batch, counter, is_delta)
+    assert mod.LANE_LAUNCHES == before + 1
+    want = getattr(mod, f"{prefix}_lanes_series_plain")(func, b, batch, counter, is_delta)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(grids), torch.isnan(want))
+    assert torch.equal(grids[~torch.isnan(want)], want[~torch.isnan(want)])
+    outs = AGG.fused_batched_scalar(func, ("topk", 3, False), b, lanes, counter, is_delta)
+    for (_, _, _, p), (vals, idx) in zip(lanes, outs):
+        sv, si = AGG.fused_topk(func, b, 3, False, p, is_counter=counter, is_delta=is_delta)
+        assert torch.equal(vals, sv) and torch.equal(idx, si)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantile", [False, True], ids=["sums", "quantile"])
+@pytest.mark.parametrize("n_lanes,G", LANE_SHAPES, ids=["shared", "global"])
+@pytest.mark.parametrize("grid", ["regular", "irregular"])
+def test_hist_lane_mode_matches_plain_on_card(card, grid, n_lanes, G, quantile):
+    """One launch of the histogram kernel's lane mode (each lane's own q
+    folded in) against its plain version: bucket sums within rtol 1e-5,
+    quantiles as ``assert_quantiles_match`` holds the solo kernel's."""
+    b = shared_hist_block(grid, card, 300, 400, 0, len(HIST_LES))
+    les = torch.as_tensor(HIST_LES.astype(np.float32), device=card)
+    lanes = []
+    for i in range(n_lanes):
+        g = max(G >> (i % 3), 1)
+        lanes.append((hist_gids(g, b.vals.shape[0], 300, card), g, (0.5, 0.9, 0.99)[i % 3],
+                      RangeParams(BASE - 120_000, 60_000, 40, LANE_WINDOWS[i % 3])))
+    variant = AGG.lanes_variant(b, "rate", "hist", False, [l[3] for l in lanes])
+    assert variant == ("hist_shared" if grid == "regular" else "hist_general")
+    batch = AGG._batched_stacks(b, lanes, variant, "hist", pad_steps(40))
+    before = (HK.LANE_LAUNCHES, HK.LANE_FOLDED)
+    got = AGG.fused_batched_hist("rate", b, lanes, les, quantile, False)
+    assert (HK.LANE_LAUNCHES, HK.LANE_FOLDED) == (before[0] + 1, before[1] + int(quantile))
+    assert HK.LAST_LANE_PLAN.shared == (n_lanes == 3)
+    want = HK.hist_range_lanes_plain("rate", b, lanes, batch, les, quantile)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        if quantile:
+            assert_quantiles_match(g, w)
+        else:
+            assert_same(g, w, rtol=1e-5, atol=1e-4, what=f"hist lane {i}")

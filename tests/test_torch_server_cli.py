@@ -113,11 +113,8 @@ def test_server_without_a_card_raises(monkeypatch):
 
 
 UNPORTED_CONFIGS = [
-    ({"query": {"parallelism": 4}}, "A5"),
-    ({"query": {"batch_window_ms": 2.0}}, "A5"),
-    ({"query": {"tenant_quotas": {"*": {"rate": 1}}}}, "A5"),
-    ({"query": {"prewarm": {"enabled": True}}}, "A5"),
-    ({"standing": {"enabled": True}}, "A5"),
+    ({"query": {"prewarm": {"enabled": True}}}, "A5b"),
+    ({"standing": {"enabled": True}}, "A5b"),
     ({"telemetry": {"self_scrape_interval_s": 10}}, "A6"),
     ({"slo": {"enabled": True}}, "A6"),
     ({"alerting": {"enabled": True}}, "A6"),
