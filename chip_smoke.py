@@ -369,9 +369,11 @@ Phases (any failure raises and exits non-zero):
    ``/debug/resources`` must show the server's engine and superblock on
    the card. The subprocess is ended in every case.
 16. The histogram jitter mode (B1; ``phase_hist_jitter``, after phase 12's
-   regular store): bench.py's 100k x 12-bucket ``hist_quantile`` draws
-   (7b's, drawn once: ``build_memstore_hists`` ingests each block into
-   both stores) on bench.py's ``fused_jitter`` timestamps (+-5 % of 10 s
+   regular store): the first ``HIST_JITTER_SERIES`` (50k) of bench.py's
+   100k x 12-bucket ``hist_quantile`` draws (7b's, drawn once:
+   ``build_memstore_hists`` ingests each block into both stores; cut from
+   100k to keep the script's time) on bench.py's ``fused_jitter``
+   timestamps (+-5 % of 10 s
    around a 5 s phase). The SRE panel through a server on the store's
    engine, cold then warm, and through the engine directly (warm p50 over
    ``HTTP_RUNS``), each exactly one ``hist_range`` launch in the jitter
@@ -448,7 +450,11 @@ Phases (any failure raises and exits non-zero):
    (jitter, masked), ``histogram_quantile(q, sum by (le) (rate))`` at q
    0.5, 0.9, 0.99 over two windows on 7b's store (the quantiles folded in)
    and ``topk(5, rate)`` over three windows on phase 5's (the lane store
-   mode, then an order-statistics launch a lane): the launch count, each
+   mode, then an order-statistics launch a lane), and the window-stats
+   lane mode twice: ``sum by (...) (rate)`` over three windows on phase
+   4's irregular store and ``max by (zone) (max_over_time)`` over three
+   windows on phase 5's (the JAX package's general program where the port
+   serves the function on window stats): the launch count, each
    lane against its solo dispatch (rtol 1e-5; topk: the store grids
    bit-equal to the solo store launches, each step's winning values
    bit-equal, the series chosen free between exactly tied values) and the lane
@@ -460,6 +466,20 @@ Phases (any failure raises and exits non-zero):
    with ``Retry-After`` and the structured warning, four identical
    concurrent requests share one execution, ``/debug/scheduler`` and
    ``/metrics`` show the sheds and the batches.
+20. Standing queries (A5b, after 19c on phase 5's store): bench.py's
+   ``standing_refresh`` (``phase_standing``): the panel ``sum by (zone)
+   (rate(...[5m]))`` at 15 s steps over 90 m (J = 361) on a
+   ``StandingEngine`` with a twin forced full; one 100k-row append before
+   each of 5 standing refreshes and 3 cold polls (bench.py's 15 each, cut
+   to keep the script's time); one regular-kernel launch a
+   dispatching refresh, none after disjoint ingest or none; after the
+   stream, delta against full (labels and NaN masks equal, sums within
+   rtol 1e-5); the p50s beside each other. 20b (``phase_standing_http``):
+   the same panel over ``cli serve`` with ``standing.enabled`` and
+   ``query.prewarm.enabled``: three polls promote it, an SSE subscriber
+   gets the frame of the refresh an append wakes, a later ``query_range``
+   is ``servedFrom: standing`` and equals the engine's, and the pre-warm
+   ran without an error.
 
 Before phase 1 the process holds glibc's heap trimming off as the port's
 server does at start (``server.tune_heap``); the host times of every phase
@@ -475,7 +495,8 @@ and 11's (``{"tree": ...}``), one with phases 2f and 12's
 ...}``), one with phases 15 and 15b's (``{"server": ...}``; phase 16's
 is in ``{"hist": ...}``), one with phase 17's (``{"persistence": ...}``),
 one with phase 18's (``{"index": ...}``), one with phase 19's
-(``{"batching": ...}``), one with the kernels' numbers
+(``{"batching": ...}``), one with phase 20's (``{"standing": ...}``), one
+with the kernels' numbers
 (the order-statistics kernels' rows, and the store mode's numbers on the
 rungs' rows), the card's
 name and power limit as nvidia-smi gives them, and the result line
@@ -680,7 +701,7 @@ def compare_stats(got: dict, want: dict, rtol: float = 2e-4, atol: float = 1e-4)
 
 def build_kernels() -> dict:
     """Build every source and the histogram kernel's split builds at
-    once (one nvcc each), bind the twenty-two entry points, print ptxas's lines
+    once (one nvcc each), bind the twenty-three entry points, print ptxas's lines
     (registers, shared memory, spills) and return the split builds."""
     from filodb_tpu_torch.ops import cuda_build
     from filodb_tpu_torch.ops import general_range as GR
@@ -712,7 +733,8 @@ def build_kernels() -> dict:
                jr_lib.filodb_jitter_range, hk_lib.filodb_hist_range_jitter,
                hk_lib.filodb_hist_jitter_resident, pk_lib.filodb_postings_intersect,
                mk_lib.filodb_regular_range_lanes, gr_lib.filodb_general_range_lanes,
-               jr_lib.filodb_jitter_range_lanes, hk_lib.filodb_hist_range_lanes]
+               jr_lib.filodb_jitter_range_lanes, hk_lib.filodb_hist_range_lanes,
+               ws_lib.filodb_window_range_lanes]
     print(f"phase1 built {', '.join(l.name for l in libs)} in {time.perf_counter() - t0:.1f} s; "
           f"entry points {', '.join(e.__name__ for e in entries)}")
     for name in SOURCES:
@@ -2443,6 +2465,9 @@ HIST_SEED = 42  # bench.py's build_memstore_hist
 # of the series so that the whole run stays within its time budget (building
 # a 100k-series histogram store takes the host about 100 s)
 HIST_IRREGULAR_SERIES = 6_250
+# phase 16's jittered store: the first 50k of 7b's draws (cut from 100k
+# to keep the script's time)
+HIST_JITTER_SERIES = 50_000
 
 
 def hist_tags(i: int) -> dict:
@@ -2468,11 +2493,12 @@ def build_memstore_hist(n_series: int, grid: str):
     return build_memstore_hists(n_series, (grid,))[grid]
 
 
-def build_memstore_hists(n_series: int, grids) -> dict:
+def build_memstore_hists(n_series: int, grids, limits: dict | None = None) -> dict:
     """``build_memstore_hist``'s stores of several ``grids`` from one draw:
     each block of 2000 series' bucket counts is drawn once and ingested
     into every store with its grid's timestamps (phase 7b's regular store
-    and phase 16's jittered one). Returns grid -> memstore."""
+    and phase 16's jittered one), a grid in ``limits`` only its first
+    ``limits[grid]`` series. Returns grid -> memstore."""
     from filodb_tpu_torch.core.records import SeriesBatch
     from filodb_tpu_torch.core.schemas import PROM_HISTOGRAM, Dataset, shard_for
     from filodb_tpu_torch.memstore.memstore import TimeSeriesMemStore
@@ -2517,6 +2543,8 @@ def build_memstore_hists(n_series: int, grids) -> dict:
                 tags = hist_tags(b0 + i)
                 shard_num = shard_for(tags, spread=SPREAD, num_shards=N_SHARDS)
                 for grid, ms in stores.items():
+                    if b0 + i >= (limits or {}).get(grid, n_series):
+                        continue
                     ms.shard("prometheus", shard_num).ingest_series(SeriesBatch(
                         PROM_HISTOGRAM, tags, rows[grid][i],
                         {"sum": total[i], "count": count[i], "h": hist[i]},
@@ -3150,11 +3178,13 @@ def phase_hist_bench(device, split_libs):
     from filodb_tpu_torch.ops import staging as ST
 
     t0 = time.perf_counter()
-    stores = build_memstore_hists(N_SERIES, ("regular", "jitter"))
+    stores = build_memstore_hists(N_SERIES, ("regular", "jitter"),
+                                  limits={"jitter": HIST_JITTER_SERIES})
     ms = stores["regular"]
     print(f"phase7b ingest: {N_SERIES} histogram series x {N_SAMPLES} samples x {N_BUCKETS} "
           f"buckets (bench.py's build_memstore_hist, seed {HIST_SEED}) on {N_SHARDS} shards, "
-          f"and phase 16's store of the same draws on bench.py's fused_jitter timestamps, in "
+          f"and phase 16's store of the first {HIST_JITTER_SERIES} of the same draws on "
+          f"bench.py's fused_jitter timestamps, in "
           f"{time.perf_counter() - t0:.1f} s")
     engine = QueryEngine(ms, "prometheus")
     run = hist_cold_warm(engine, "phase7b", "regular", "hist_shared")
@@ -7070,6 +7100,8 @@ LANE_ROWS = {
                     "filodb_tpu/ops/hist_kernels.py:486"),
     "hist_general": ("hist_kernels", "hist_range", "hist_range lanes",
                      "filodb_tpu/ops/hist_kernels.py:507"),
+    "window_stats": ("window_stats", "window_range", "window_range lanes",
+                     "filodb_tpu/ops/aggregations.py:1208"),
 }
 
 
@@ -7197,8 +7229,10 @@ def torch_equal_nan(a, b) -> bool:
 def lane_bound(variant: str, func: str, block, batch, lanes, counter: bool, delta: bool) -> dict:
     """The least time of one lane-mode launch: the superblock bytes that
     its U unique windows read together, each byte once (the union of the
-    32-byte sectors, or of the samples, that any of their windows touches;
-    the jitter and general rungs read every real slot whatever the window),
+    32-byte sectors, or of the samples, that any of their windows touches,
+    the values alone on a regular grid; the jitter and general rungs read
+    every real slot whatever the window; window stats on an irregular grid
+    every staged array of every real sample),
     the lanes' int32 [L, S_pad] gids and their [G, J] acc/cnt (the store
     mode: the [U, J, S_pad] grids), over 3.35 TB/s."""
     from filodb_tpu_torch.ops import aggregations as AGG
@@ -7208,16 +7242,23 @@ def lane_bound(variant: str, func: str, block, batch, lanes, counter: bool, delt
     J, S_pad, n_real = batch.num_steps, block.vals.shape[0], block.n_series
     U = len(batch.ukeys)
     grids = [RangeParams(so + block.base_ms, sm, J, w) for so, sm, w in batch.ukeys]
-    if variant == "mxu":
+    if variant == "mxu" or (variant == "window_stats" and block.regular_ts is not None):
+        # a regular grid implies the timestamps: the function needs only the
+        # sectors of vals (and raw) that any window touches
         pos = [regular_positions(MK.window_matrices(block, so, sm, batch.j_pad, w), J, func)
                for so, sm, w in batch.ukeys]
         row = (sector_bytes(np.concatenate([p[0] for p in pos]))
                + sector_bytes(np.concatenate([p[1] for p in pos])))
-        read = row * n_real + U * 7 * J * 4
+        read = row * n_real + (U * 7 * J * 4 if variant == "mxu" else n_real * 4)
     elif variant in ("jitter", "masked"):
         read = jitter_bound_bytes(variant, func, block, n_real, J, counter, delta) - n_real * 8
     elif variant == "general":
         read = int(block.lens[:n_real].sum()) * 8 + n_real * 4
+    elif variant == "window_stats":  # each staged tile read once for all U windows
+        from filodb_tpu_torch.ops import window_stats as WS
+
+        read = (int(block.lens[:n_real].sum()) * 4 * WS.staged_arrays(func, counter, delta)
+                + n_real * 4)
     else:
         windows = [AGG._hist_shared_windows(block, p, batch.j_pad)
                    if variant == "hist_shared" else None for p in grids]
@@ -7235,7 +7276,7 @@ def lane_bound(variant: str, func: str, block, batch, lanes, counter: bool, delt
 
 
 def lane_kernels(variant: str, kind: str, func: str, block, batch, lanes, counter: bool,
-                 delta: bool, les=None, quantile: bool = False) -> tuple:
+                 delta: bool, les=None, quantile: bool = False, op: str = "sum") -> tuple:
     """The lane-mode kernel of a batched group and the L solo kernels it
     replaces, each a function that launches into outputs allocated here
     once: no allocation, finish or order statistics in a timed call.
@@ -7272,7 +7313,7 @@ def lane_kernels(variant: str, kind: str, func: str, block, batch, lanes, counte
         return (lambda: HK._launch_lanes(func, block, batch, les, quantile, delta, bufs),
                 hist_solos)
     store = kind != "agg"
-    op = GA.STORE if store else "sum"
+    op = GA.STORE if store else op
     if store:
         acc = cnt = GA.lane_series_buffer(len(batch.ukeys), S, j_pad, J, dev)
     else:
@@ -7300,6 +7341,14 @@ def lane_kernels(variant: str, kind: str, func: str, block, batch, lanes, counte
 
         def one(gids, G_l, p, u, a, c):
             GR._launch(func, op, block, gids, G_l, p, counter, delta, a, c)
+    elif variant == "window_stats":
+        from filodb_tpu_torch.ops import window_stats as WS
+
+        def lane():
+            WS._launch_lanes(func, op, block, batch, counter, delta, acc, cnt)
+
+        def one(gids, G_l, p, u, a, c):
+            WS._launch_range(func, op, block, gids, G_l, p, counter, delta, a, c)
     else:
         masked = variant == "masked"
         planes = JR._lane_prepare(masked, func, block)
@@ -7320,7 +7369,8 @@ def lane_kernels(variant: str, kind: str, func: str, block, batch, lanes, counte
 
 
 def lane_group(label: str, variant: str, func: str, kind: str, block, lanes, counter: bool,
-               delta: bool, card: str, les=None, quantile: bool = False, solo=None) -> dict:
+               delta: bool, card: str, les=None, quantile: bool = False, solo=None,
+               op: str = "sum", shared: bool | None = None) -> dict:
     """One batched group on a cached superblock through the ops layer: the
     lanes' dispatch (its launches counted from 0: one lane-mode launch, and
     for topk lanes one order-statistics launch a lane), each lane held to
@@ -7329,7 +7379,8 @@ def lane_group(label: str, variant: str, func: str, kind: str, block, lanes, cou
     back): the lane-mode kernel alone and the L solo kernels alone
     (``lane_kernels``), beside the bound; the batched dispatch and the L
     solo dispatches (allocation, finish and order statistics included); the
-    plain version once."""
+    plain version once. ``shared`` (when given) is the lane partials'
+    plan the launch must take: in shared memory or global atomics."""
     import torch
 
     from filodb_tpu_torch.ops import aggregations as AGG
@@ -7345,7 +7396,7 @@ def lane_group(label: str, variant: str, func: str, kind: str, block, lanes, cou
         def run():
             return AGG.fused_batched_hist(func, block, lanes, les, quantile, delta)
     else:
-        epilogue = ("agg", "sum") if kind == "agg" else ("topk", 5, False)
+        epilogue = ("agg", op) if kind == "agg" else ("topk", 5, False)
 
         def run():
             return AGG.fused_batched_scalar(func, epilogue, block, lanes, counter, delta)
@@ -7361,12 +7412,15 @@ def lane_group(label: str, variant: str, func: str, kind: str, block, lanes, cou
             f"phase19 {label}: {OS.LAUNCHES} order-statistics launches")
     if quantile:
         require(HK.LANE_FOLDED == 1, f"phase19 {label}: the quantiles were not folded in")
+    if shared is not None:
+        require(mod.LAST_LANE_PLAN.shared is shared,
+                f"phase19 {label}: the lane partials took {mod.LAST_LANE_PLAN}")
     want = [solo(l) for l in lanes]
     t0 = time.perf_counter()
     if kind == "hist":
         plain = HK.hist_range_lanes_plain(func, block, lanes, batch, les, quantile, delta)
     elif kind == "agg":
-        plain = getattr(mod, f"{prefix}_lanes_plain")(func, "sum", block, lanes, batch, counter,
+        plain = getattr(mod, f"{prefix}_lanes_plain")(func, op, block, lanes, batch, counter,
                                                       delta)
     else:
         plain = getattr(mod, f"{prefix}_lanes_series_plain")(func, block, batch, counter, delta)
@@ -7382,11 +7436,13 @@ def lane_group(label: str, variant: str, func: str, kind: str, block, lanes, cou
         topk_match(got, want, grids, batch.u_of_lane, block.n_series, f"phase19 {label} vs solo")
         err_solo = err_plain = 0.0
     else:
-        err_solo = lanes_match(got, want, f"phase19 {label} vs solo", exact=False)
-        err_plain = lanes_match(got, plain, f"phase19 {label} vs plain", exact=False,
+        # min and max lanes are exact; sums reorder in group atomics
+        exact = op in ("min", "max")
+        err_solo = lanes_match(got, want, f"phase19 {label} vs solo", exact=exact)
+        err_plain = lanes_match(got, plain, f"phase19 {label} vs plain", exact=exact,
                                 rtol=PLAIN_RTOL)
     lane_k, solo_k = lane_kernels(variant, kind, func, block, batch, lanes, counter, delta,
-                                  les, quantile)
+                                  les, quantile, op)
     ms, b2b = cuda_ms(lane_k, 20), back_to_back_ms(lane_k, 20)
     solo_ms, solo_b2b = cuda_ms(solo_k, 20), back_to_back_ms(solo_k, 20)
     disp_ms, disp_b2b = cuda_ms(run, 20), back_to_back_ms(run, 20)
@@ -7431,13 +7487,13 @@ def fused_lanes(engine, q: str, specs) -> tuple:
     return entry, ex, lanes
 
 
-def solo_scalar(entry, func: str, kind: str):
+def solo_scalar(entry, func: str, kind: str, op: str = "sum"):
     from filodb_tpu_torch.ops import aggregations as AGG
 
     if kind == "topk":
         return lambda l: AGG.fused_topk(func, entry.block, 5, False, l[3],
                                         is_counter=entry.is_counter, is_delta=entry.is_delta)
-    return lambda l: AGG.fused_range_aggregate(func, "sum", entry.block, l[0], l[1], l[3],
+    return lambda l: AGG.fused_range_aggregate(func, op, entry.block, l[0], l[1], l[3],
                                                is_counter=entry.is_counter,
                                                is_delta=entry.is_delta)
 
@@ -7453,6 +7509,43 @@ def phase_lanes_general(engine, card: str) -> dict:
     return lane_group("19b general (irregular, irate)", "general", "irate", "agg", entry.block,
                       lanes, entry.is_counter, entry.is_delta, card,
                       solo=solo_scalar(entry, "irate", "agg"))
+
+
+WINDOW_LANE_GROUPS = {
+    # group: (store, query whose superblock the lanes share, function, op or
+    # "topk", [(by, window_ms)], lane partials in shared memory)
+    "irregular": ("irregular", QUERIES[1], "rate", "sum",
+                  [(["zone"], 300_000), (["zone", "_ns_"], 300_000), (None, 240_000),
+                   (["zone"], 180_000)], True),
+    "global": ("irregular", QUERIES[1], "rate", "sum",
+               [(["instance"], 300_000), (["instance"], 240_000)], False),
+    "topk": ("irregular", QUERIES[1], "rate", "topk",
+             [("topk", 300_000), ("topk", 240_000), ("topk", 180_000)], None),
+    "regular": ("regular", "max by (zone) (max_over_time(http_requests_total[5m]))",
+                "max_over_time", "max",
+                [(["zone"], 300_000), (["zone", "_ns_"], 240_000), (None, 180_000),
+                 (["zone"], 240_000)], True),
+}
+
+
+def phase_lanes_window(engine, card: str, group: str) -> dict:
+    """19b, the window-stats lane mode (the JAX package's general program
+    where the port serves the function on window stats), one
+    ``WINDOW_LANE_GROUPS`` group: on phase 4's irregular store ``sum by
+    (...) (rate)`` lanes (a ``PALLAS_FUNCS`` member) of three groupings over
+    three windows (partials in shared memory), ``sum by (instance) (rate)``
+    over two windows (100k groups: global atomics) and ``topk(5, rate)``
+    over three windows (one launch of the lane store mode, then one
+    order-statistics launch a lane); on phase 5's regular store ``max by
+    (zone) (max_over_time)`` lanes over three windows (each exact against
+    its solo launch)."""
+    grid, q, func, op, specs, shared = WINDOW_LANE_GROUPS[group]
+    kind = "topk" if op == "topk" else "agg"
+    entry, _, lanes = fused_lanes(engine, q, [(by, w, 0.0) for by, w in specs])
+    return lane_group(f"19b window_stats ({grid}, {op} {func}, {len(lanes)} lanes)",
+                      "window_stats", func, kind, entry.block, lanes, entry.is_counter,
+                      entry.is_delta, card, solo=solo_scalar(entry, func, kind, op),
+                      op="sum" if kind == "topk" else op, shared=shared)
 
 
 def phase_lanes_jitter(label: str, rung: str, engine, card: str) -> dict:
@@ -7716,6 +7809,360 @@ def phase_admission(engine, card: str) -> dict:
     return row
 
 
+# ---- standing queries: phase 20 ----
+
+STANDING_QUERY = "sum by (zone) (rate(http_requests_total[5m]))"
+STANDING_STEP_MS = 15_000
+STANDING_SPAN_MS = 5_400_000  # bench.py's "last 90m" panel: J = 361
+STANDING_REFRESHES = 5  # bench.py's 15 paced standing refreshes, cut to keep the script's time
+STANDING_COLD_POLLS = 3  # and its 15 cold polls, cut
+STANDING_SUM_RTOL = 1e-5  # delta against full sums: group atomics add in launch order
+SIDE_METRIC = "chip_side_total"  # 20's disjoint ingest: series far before every window
+
+
+def store_next_batch(ms) -> int:
+    """The next ``live_batch`` index of phase 5's store (one past the slot of
+    its newest sample, after phase 6's appends)."""
+    head = max(int(next(iter(sh.partitions.values())).latest_ts())
+               for sh in ms.shards("prometheus") if sh.partitions)
+    return (head - BASE) // 10_000 - N_SAMPLES + 1
+
+
+def side_batch(k: int):
+    """Eight side series, one sample each at slot ``k`` of a day before BASE:
+    appends that every standing window and staging range proves disjoint."""
+    from filodb_tpu_torch.core.records import RecordBatch
+    from filodb_tpu_torch.core.schemas import METRIC_TAG, PROM_COUNTER
+
+    tags = [{METRIC_TAG: SIDE_METRIC, "_ws_": "demo", "_ns_": "App-2", "instance": f"side-{i}"}
+            for i in range(8)]
+    return RecordBatch(PROM_COUNTER, np.full(8, BASE - 86_400_000 + k * 10_000, np.int64),
+                       {"count": np.full(8, 1.0 + k)}, tags)
+
+
+def counted(fn):
+    """``fn()`` with every kernel launch count set to 0 just before and read
+    just after: (its result, {kernel: launches})."""
+    import importlib
+
+    mods = {name: importlib.import_module(f"filodb_tpu_torch.ops.{mod}")
+            for name, (mod, _) in KERNEL_COUNTERS.items()}
+    for name, (_, attr) in KERNEL_COUNTERS.items():
+        setattr(mods[name], attr, 0)
+    out = fn()
+    return out, {name: getattr(mods[name], attr) for name, (_, attr) in KERNEL_COUNTERS.items()}
+
+
+def phase_standing(engine, card: str) -> dict:
+    """20: bench.py's ``standing_refresh`` on phase 5's 100k-series, 8-shard
+    store: the panel ``sum by (zone) (rate(...[5m]))``, 15 s steps over 90 m
+    (J = 361), registered twice on a ``StandingEngine`` (one twin forced
+    full). One sample per series (``live_batch``) lands before each
+    measured round, back to back with the rounds (bench.py's ``paced``):
+    ``STANDING_REFRESHES`` standing refreshes, then
+    ``STANDING_COLD_POLLS`` polls of the same grid through ``query_range``
+    (each a new staging range, restaged in full).
+    Every refresh that dispatches launches the regular kernel once and no
+    other; a refresh after disjoint ingest (appends to side series a day
+    before BASE) and one after none launch nothing. Once the stream stops,
+    the delta partials are held against a forced full refresh: equal
+    labels and NaN masks, sums within rtol 1e-5 (group atomics)."""
+    import torch
+
+    from filodb_tpu_torch.standing import StandingEngine
+
+    ms = engine.memstore
+    params = engine.planner.params
+    sched0 = params.dispatch_scheduler
+    # phase 5's series only: phase 15 added series of other metrics
+    n_series = N_SERIES
+    tags_list = [series_tags(i) for i in range(n_series)]
+    ms.ingest_routed("prometheus", side_batch(0), spread=SPREAD)
+    batches = [store_next_batch(ms)]
+    b0 = batches[0]
+    rng = np.random.default_rng(20)
+    total = [0]  # the regular kernel's launches in the phase
+
+    def count(fn):
+        out, launches = counted(fn)
+        total[0] += launches["regular_range"]
+        return out, launches
+
+    def edge_s() -> float:  # 15 s past the newest sample
+        return (BASE + (N_SAMPLES + batches[0]) * 10_000 + 5_000) / 1e3
+
+    se = StandingEngine(engine, {"default_span_ms": STANDING_SPAN_MS}, clock=edge_s)
+    sq = se.register(STANDING_QUERY, STANDING_STEP_MS)
+    twin = se.register(STANDING_QUERY, STANDING_STEP_MS)
+    require(sq.mode == "delta", f"phase20: the panel registered {sq.mode} ({sq.mode_reason})")
+    t0 = time.perf_counter()
+    _, warm_launches = count(lambda: (se.refresh(sq), se.refresh(twin, force_full=True)))
+    warmup_s = time.perf_counter() - t0
+    require(warm_launches["regular_range"] == 2 and sum(warm_launches.values()) == 2,
+            f"phase20: the first refreshes launched {warm_launches}")
+    rounds = []
+
+    def refresh_round(kind: str):
+        before = dict(sq.stats)
+        t1 = time.perf_counter()
+        _, launches = count(lambda: se.refresh(sq))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        require(sq.last_error is None, f"phase20: refresh failed: {sq.last_error}")
+        outcome = next(k for k in ("delta", "reset", "full", "retained")
+                       if sq.stats[k] > before[k])
+        want = 0 if outcome == "retained" else 1
+        require(launches["regular_range"] == want and sum(launches.values()) == want,
+                f"phase20 {kind}: a {outcome} refresh launched {launches}")
+        rounds.append({"kind": kind, "outcome": outcome, "ms": wall * 1e3,
+                       "launches": sum(launches.values()),
+                       "steps_computed": sq.stats["steps_computed"] - before["steps_computed"]})
+        return outcome
+
+    # disjoint ingest, then none: the retained partials, no launch
+    ms.ingest_routed("prometheus", side_batch(1), spread=SPREAD)
+    require(refresh_round("disjoint") == "retained", "phase20: disjoint ingest dispatched")
+    require(refresh_round("idle") == "retained", "phase20: an idle refresh dispatched")
+    ingest_s, delta_s, cold_s = [], [], []
+
+    def paced(measure, n: int, out: list):
+        """bench.py's ``paced``: each round after a fresh append. The next
+        100k-row batch lands when a round ends (a stream running beside
+        the rounds held the GIL so long that a cold poll passed the
+        engine's 60 s deadline)."""
+        for _ in range(n):
+            t1 = time.perf_counter()
+            ms.ingest_routed("prometheus", live_batch(batches[0], "regular", tags_list, rng),
+                             spread=SPREAD)
+            ingest_s.append(time.perf_counter() - t1)
+            batches[0] += 1
+            t1 = time.perf_counter()
+            measure()
+            out.append(time.perf_counter() - t1)
+
+    def cold_poll():
+        end = edge_s()
+        res, launches = count(lambda: engine.query_range(
+            STANDING_QUERY, end - STANDING_SPAN_MS / 1e3, end, STANDING_STEP_MS / 1e3))
+        res.grids[0].values_np()
+        require(launches["regular_range"] == 1 and sum(launches.values()) == 1,
+                f"phase20: a cold poll launched {launches}")
+
+    paced(lambda: refresh_round("paced"), STANDING_REFRESHES, delta_s)
+    paced(cold_poll, STANDING_COLD_POLLS, cold_s)
+    refresh_round("quiesced")
+    t1 = time.perf_counter()
+    _, full_launches = count(lambda: se.refresh(twin, force_full=True))
+    torch.cuda.synchronize()
+    warm_full_ms = (time.perf_counter() - t1) * 1e3
+    require(full_launches["regular_range"] == 1, f"phase20: the full refresh {full_launches}")
+    require(sq.grid_end_ms == twin.grid_end_ms and sq.labels == twin.labels,
+            "phase20: delta and full refreshes cover different grids or groups")
+    a, b = sq.retained.astype(np.float64), twin.retained.astype(np.float64)
+    require(a.shape == b.shape and np.array_equal(np.isnan(a), np.isnan(b)),
+            "phase20: delta and full NaN masks differ")
+    m = ~np.isnan(b)
+    require(m.any() and np.allclose(a[m], b[m], rtol=STANDING_SUM_RTOL, atol=0.0),
+            f"phase20: delta partials beyond rtol {STANDING_SUM_RTOL} of a full refresh")
+    err = float(np.max(np.abs(a[m] - b[m]) / np.abs(b[m]), initial=0.0))
+    stats = dict(sq.stats)
+    require(stats["delta"] > 0, f"phase20: the delta path never ran: {stats}")
+    require(stats["errors"] == 0, f"phase20: refresh errors: {stats}")
+    for qid in (sq.qid, twin.qid):
+        se.unregister(qid)
+    params.dispatch_scheduler = sched0
+    delta_p50 = float(np.median(delta_s) * 1e3)
+    cold_p50 = float(np.median(cold_s) * 1e3)
+    out = {"series": n_series, "steps": sq.num_steps(), "warmup_s": warmup_s,
+           "standing_p50_ms": delta_p50, "cold_poll_p50_ms": cold_p50,
+           "speedup": cold_p50 / delta_p50, "warm_full_ms": warm_full_ms,
+           "ingest_p50_s": float(np.median(ingest_s)) if ingest_s else None,
+           "appends": batches[0] - b0, "rounds": rounds, "stats": stats,
+           "launches": total[0],
+           "delta_vs_full_max_rel_err": err, "card": card}
+    print(f"phase20 standing ({STANDING_QUERY!r}, {STANDING_STEP_MS // 1000} s over "
+          f"{STANDING_SPAN_MS // 60_000} m, {n_series} series): refresh p50 {delta_p50:.2f} ms "
+          f"against the cold poll's {cold_p50:.2f} ms ({out['speedup']:.1f} x); warm full "
+          f"{warm_full_ms:.2f} ms; {out['appends']} appends (ingest p50 "
+          f"{out['ingest_p50_s'] or 0:.2f} s); outcomes "
+          f"{[(r['kind'], r['outcome'], r['launches']) for r in rounds]}; delta vs full max rel "
+          f"{err:.3g}; on {card}")
+    return out
+
+
+STANDING_HTTP_SERIES = 200  # 20b's store: bench.py's tags, 8 zones
+STANDING_HTTP_SAMPLES = 600  # 10 s scrapes ending a minute before now
+
+
+def sse_frames(resp, n: int) -> list:
+    """``n`` SSE data frames (JSON) from an open response (its socket's
+    timeout bounds the wait)."""
+    out, buf = [], b""
+    while len(out) < n:
+        line = resp.fp.readline()
+        if not line:
+            break
+        line = line.rstrip(b"\r\n")
+        if line.startswith(b"data: "):
+            buf += line[6:]
+        elif not line and buf:
+            out.append(json.loads(buf))
+            buf = b""
+    return out
+
+
+def phase_standing_http(card: str) -> dict:
+    """20b: the same panel over ``cli serve`` on the card with
+    ``standing.enabled`` and ``query.prewarm.enabled``: a store at wall-clock
+    time through ``/ingest/prom``, three polls of the panel promote it to a
+    standing query (the recurrence ring, C1), one SSE subscriber gets its
+    frame and the frame of the refresh an append wakes (a delta refresh),
+    a later ``query_range`` of the panel is answered from the retained
+    matrix (``servedFrom: standing``) and equals the engine's answer (a
+    ``trace=true`` request); ``/debug/scheduler`` shows the pre-warm ran
+    without an error."""
+    import http.client
+    import socket
+    import tempfile
+    import threading
+    import urllib.parse
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    base = f"http://127.0.0.1:{port}"
+    config = {"standing": {"enabled": True, "promote_min_count": 3, "promote_window_s": 600.0,
+                           "refresh_debounce_ms": 50, "tick_s": 0.2},
+              "query": {"prewarm": {"enabled": True, "min_count": 2, "interval_s": 0.5}}}
+    tmp = tempfile.TemporaryDirectory()
+    cfg_path = Path(tmp.name) / "standing.json"
+    cfg_path.write_text(json.dumps(config))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "filodb_tpu_torch.cli", "serve", "--port",
+                             str(port), "--config", str(cfg_path)], cwd=root,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines: list = []
+    ready = threading.Event()
+
+    def drain():
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("listening on"):
+                ready.set()
+
+    threading.Thread(target=drain, daemon=True).start()
+    conn = None
+    try:
+        require(ready.wait(180), f"phase20b: the server did not start: {''.join(lines)[-2000:]}")
+        start_s = time.perf_counter() - t0
+        now_ms = int(time.time() * 1000)
+        last_ms = now_ms - now_ms % 10_000 - 60_000
+        rng = np.random.default_rng(21)
+        vals = np.cumsum(rng.uniform(0, 10, (STANDING_HTTP_SERIES, STANDING_HTTP_SAMPLES)), axis=1)
+        ts = last_ms - (STANDING_HTTP_SAMPLES - 1 - np.arange(STANDING_HTTP_SAMPLES)) * 10_000
+
+        def prom_text(cols) -> bytes:
+            out = ["# TYPE http_requests_total counter"]
+            for i in range(STANDING_HTTP_SERIES):
+                lbl = f'_ws_="demo",_ns_="App-2",instance="host-{i}",zone="z{i % 8}"'
+                out += [f"http_requests_total{{{lbl}}} {float(vals[i, k])!r} {t}"
+                        for k, t in cols]
+            return ("\n".join(out) + "\n").encode()
+
+        t1 = time.perf_counter()
+        http_json(base, "/ingest/prom", data=prom_text(list(enumerate(ts.tolist()))))
+        ingest_s = time.perf_counter() - t1
+        q = urllib.parse.quote(STANDING_QUERY)
+        step_s = STANDING_STEP_MS / 1000
+        polls = []
+        for _ in range(3):
+            end = time.time()
+            t1 = time.perf_counter()
+            body, _, _ = http_json(base, f"/api/v1/query_range?query={q}&start="
+                                         f"{end - STANDING_SPAN_MS / 1e3}&end={end}&step={step_s}")
+            polls.append(time.perf_counter() - t1)
+            require(body["status"] == "success" and len(body["data"]["result"]) == 8,
+                    f"phase20b: a poll answered {str(body)[:300]}")
+        deadline, sq = time.time() + 30, None
+        while sq is None and time.time() < deadline:
+            dbg = http_json(base, "/debug/standing")[0]["data"]
+            sq = next((e for e in dbg["queries"] if e["promql"] == STANDING_QUERY
+                       and e["source"] == "promoted"), None)
+            time.sleep(0.2)
+        require(sq is not None, f"phase20b: the panel was not promoted: {dbg}")
+        require(sq["mode"] == "delta", f"phase20b: promoted as {sq['mode']}")
+        deadline = time.time() + 30
+        while sq["seq"] < 1 and time.time() < deadline:
+            time.sleep(0.1)
+            sq = http_json(base, "/debug/standing")[0]["data"]["queries"][0]
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", f"/api/v1/standing/subscribe?id={sq['id']}")
+        resp = conn.getresponse()
+        require(resp.status == 200 and resp.getheader("Content-Type") == "text/event-stream",
+                f"phase20b: subscribe answered {resp.status}")
+        first = sse_frames(resp, 1)
+        require(len(first) == 1 and len(first[0]["result"]) == 8,
+                f"phase20b: no first frame {str(first)[:300]}")
+        # one more scrape inside the grid: the refresh it wakes is a delta
+        app_ms = last_ms + 30_000
+        vals = vals + 5.0
+        t1 = time.perf_counter()
+        http_json(base, "/ingest/prom", data=prom_text([(STANDING_HTTP_SAMPLES - 1, app_ms)]))
+        frames = sse_frames(resp, 1)
+        push_s = time.perf_counter() - t1
+        require(len(frames) == 1 and frames[0]["seq"] > first[0]["seq"],
+                f"phase20b: no frame after the append {str(frames)[:300]}")
+        # the panel's grid as the pushed frame has it (its last step)
+        end = max(float(r["values"][-1][0]) for r in frames[0]["result"])
+        path = (f"/api/v1/query_range?query={q}&start={end - STANDING_SPAN_MS / 1e3}&end={end}"
+                f"&step={step_s}")
+        t1 = time.perf_counter()
+        served, _, _ = http_json(base, path)
+        served_s = time.perf_counter() - t1
+        require(served["data"]["stats"].get("servedFrom") == "standing",
+                f"phase20b: not served from standing: {served['data'].get('stats')}")
+        traced, _, _ = http_json(base, path + "&trace=true")
+        require("servedFrom" not in traced["data"]["stats"], "phase20b: a trace was served")
+        rel = rows_equal_http(http_rows(served), http_rows(traced), "phase20b served vs engine",
+                              rtol=STANDING_SUM_RTOL)
+        dbg = http_json(base, "/debug/standing")[0]["data"]
+        stats = dbg["queries"][0]["stats"]
+        require(stats["delta"] >= 1 and stats["errors"] == 0, f"phase20b: standing {stats}")
+        deadline = time.time() + 20
+        while time.time() < deadline:
+            batch = http_json(base, "/debug/scheduler")[0]["data"]["batch"]
+            if batch["prewarmed"] >= 1 or batch["prewarm_errors"]:
+                break
+            time.sleep(0.2)
+        require(batch["prewarm_errors"] == 0 and batch["prewarm_last_error"] is None,
+                f"phase20b: pre-warm failed: {batch['prewarm_last_error']}")
+        require(batch["prewarmed"] >= 1, f"phase20b: nothing was pre-warmed: {batch}")
+        out = {"ready_s": start_s, "ingest_s": ingest_s, "poll_ms": [p * 1e3 for p in polls],
+               "push_ms": push_s * 1e3, "served_ms": served_s * 1e3, "max_rel_err": rel,
+               "standing": stats, "prewarmed": batch["prewarmed"],
+               "standing_keys": batch["standing_keys"]}
+        print(f"phase20b: cli serve with standing and pre-warm on the card, ready in "
+              f"{start_s:.1f} s; {STANDING_HTTP_SERIES} x {STANDING_HTTP_SAMPLES} samples in "
+              f"{ingest_s:.2f} s; 3 polls ({', '.join(f'{p * 1e3:.1f}' for p in polls)} ms) "
+              f"promoted the panel; one SSE subscriber got the append's frame {push_s * 1e3:.1f} "
+              f"ms after the ingest call; query_range served from standing in "
+              f"{served_s * 1e3:.1f} ms, equal to the engine's (max rel {rel:.3g}); standing "
+              f"{stats}; pre-warmed {batch['prewarmed']}; on {card}")
+        return out
+    finally:
+        if conn is not None:
+            conn.close()
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+        tmp.cleanup()
+
+
 def lane_rows(qps: dict, groups: dict) -> list:
     """The kernels line's rows of the four lane modes: the regular one from
     19a (its launches the measured batched run's), the others from their 19b
@@ -7737,7 +8184,7 @@ def lane_rows(qps: dict, groups: dict) -> list:
         "topk_group": groups["topk"],
     }]
     for key, name in (("general", "general_range lanes"), ("jitter", "jitter_range lanes"),
-                      ("hist", "hist_range lanes")):
+                      ("hist", "hist_range lanes"), ("window", "window_range lanes")):
         g = groups[key]
         row = {"name": name, "route": "cuda",
                "source": f"filodb_tpu_torch/csrc/{name.split()[0]}.cu",
@@ -7757,6 +8204,13 @@ def lane_rows(qps: dict, groups: dict) -> list:
             row["max_abs_err"] = max(row["max_abs_err"], m["max_abs_err"])
             row["masked_group"] = m
             row["replaces_also"] = [LANE_ROWS["masked"][3]]
+        if key == "window":
+            row["source"] = "filodb_tpu_torch/csrc/window_stats.cu"
+            for other in ("regular", "global", "topk"):
+                m = groups[f"window_{other}"]
+                row["launches"] += m["launches"]["lanes"]
+                row["max_abs_err"] = max(row["max_abs_err"], m["max_abs_err"])
+                row[f"{other}_group"] = m
         rows.append(row)
     return rows
 
@@ -7805,7 +8259,10 @@ def main() -> int:
     elapsed("phase 11 (irregular)")
     subqueries = {"irregular": phase_subqueries(engine, card, "irregular")}
     elapsed("phase 13 (irregular)")
-    lane_groups = {"general": phase_lanes_general(engine, card)}
+    lane_groups = {"general": phase_lanes_general(engine, card),
+                   "window": phase_lanes_window(engine, card, "irregular"),
+                   "window_global": phase_lanes_window(engine, card, "global"),
+                   "window_topk": phase_lanes_window(engine, card, "topk")}
     elapsed("phase 19b (irregular)")
     del engine
     gc.collect()  # the irregular store goes before the regular one is built
@@ -7830,8 +8287,13 @@ def main() -> int:
     elapsed("phase 15b")
     qps = phase_concurrent_qps(engine, card)
     lane_groups["topk"] = phase_lanes_topk(engine, card)
+    lane_groups["window_regular"] = phase_lanes_window(engine, card, "regular")
     admission = phase_admission(engine, card)
     elapsed("phases 19a, 19b, 19c (regular)")
+    standing = phase_standing(engine, card)
+    reg_row["launches"] += standing["launches"]
+    standing_http = phase_standing_http(card)
+    elapsed("phases 20, 20b")
     reg_answers = {q: engine_rows(engine.query_range(q, START_S, END_S, STEP_S))
                    for q in QUERIES}
     del engine
@@ -8017,6 +8479,7 @@ def main() -> int:
                                 "phase18c": index_hicard}}))
     print(json.dumps({"batching": {"phase19a": qps, "phase19b": lane_groups,
                                    "phase19c": admission}}, default=str))
+    print(json.dumps({"standing": {"phase20": standing, "phase20b": standing_http}}))
     two = index_tier["selectors"][0]  # M = 2: the library's one torch.bitwise_and
     postings_row = {
         "name": "postings_intersect",

@@ -21,6 +21,12 @@ Served:
   POST     /ingest (JSON lines), /ingest/prom, /ingest/influx,
            /api/v1/write (remote write), /api/v1/read (remote read),
            /admin/flush (the server's flush, when it attached one)
+  with a standing engine (``standing=``): POST /api/v1/standing/register,
+           /api/v1/standing/unregister, /api/v1/rules/record; GET
+           /api/v1/standing, /debug/standing, /api/v1/standing/subscribe
+           (SSE: the current frame, then every refresh's one render); and a
+           query_range that a registered delta query covers is answered
+           from its retained matrix (``stats.servedFrom: "standing"``)
 
 Every other route of the JAX handler belongs to a subsystem the port has
 not got yet and answers 501 with a Prometheus-style error body naming its
@@ -60,12 +66,6 @@ UNPORTED = {
     "/debug/costmodel": "A6 (observability: the cost model)",
     "/debug/cluster": "A9 (federation and the cluster)",
     "/debug/profile": "A6 (observability: the sampling profiler)",
-    "/api/v1/standing/register": "A5b (standing queries)",
-    "/api/v1/standing/unregister": "A5b (standing queries)",
-    "/api/v1/standing/subscribe": "A5b (standing queries)",
-    "/api/v1/standing": "A5b (standing queries)",
-    "/debug/standing": "A5b (standing queries)",
-    "/api/v1/rules/record": "A5b (standing queries: recording rules)",
     "/api/v1/rules/alert": "A6 (observability: the alerting plane)",
     "/api/v1/rules": "A6 (observability: the alerting plane)",
     "/api/v1/alerts": "A6 (observability: the alerting plane)",
@@ -128,6 +128,7 @@ class PromApiHandler(BaseHTTPRequestHandler):
     # the server's zero-argument flush (FiloServer.flush_now) behind POST
     # /admin/flush (reference AdminRoutes)
     flush_hook = None
+    standing = None  # the server's StandingEngine (standing/maintainer.py)
     protocol_version = "HTTP/1.1"
     GZIP_MIN_BYTES = 1024
     STREAM_MIN_SAMPLES = 200_000  # above this, query_range streams chunked
@@ -342,6 +343,20 @@ class PromApiHandler(BaseHTTPRequestHandler):
                 return self._index_debug()
             if path == "/api/v1/cardinality":
                 return self._cardinality()
+            if path == "/api/v1/standing/register" and self.command == "POST":
+                return self._standing_register()
+            if path == "/api/v1/standing/unregister" and self.command == "POST":
+                return self._standing_unregister()
+            if path == "/api/v1/standing/subscribe":
+                return self._standing_subscribe()
+            if path == "/api/v1/rules/record" and self.command == "POST":
+                return self._rules_record()
+            if path in ("/api/v1/standing", "/debug/standing"):
+                if self.standing is None:
+                    return self._send(404, J.error("not_found", "standing engine disabled"))
+                return self._send(200, J.success(
+                    self.standing.registry.snapshot() if path == "/api/v1/standing"
+                    else self.standing.snapshot()))
             if path == "/ingest":
                 return self._ingest()
             if path == "/ingest/prom":
@@ -415,9 +430,16 @@ class PromApiHandler(BaseHTTPRequestHandler):
         from ..metrics import trace_to_dict
 
         trace_id, parent_span = self._trace_parent()
-        res = self.engine.query_range(
-            query, start, end, step, allow_partial_results=self._allow_partial(p),
-            trace_id=trace_id, parent_span_id=parent_span)
+        res = None
+        if self.standing is not None and not self._trace_requested(p):
+            # a registered standing query holds this answer as retained
+            # partials (a trace request runs the engine: they have no spans)
+            res = self.standing.serve_range(query, start, end, step)
+        served_standing = res is not None
+        if res is None:
+            res = self.engine.query_range(
+                query, start, end, step, allow_partial_results=self._allow_partial(p),
+                trace_id=trace_id, parent_span_id=parent_span)
         trace = trace_to_dict(res.trace) if self._trace_requested(p) else None
         warnings = res.warnings or None
         fmt = "json-" + J.active_render_format()
@@ -450,6 +472,8 @@ class PromApiHandler(BaseHTTPRequestHandler):
             "cacheMisses": res.stats.cache_misses,
             "cacheExtends": res.stats.cache_extends,
         }
+        if served_standing:
+            stats["servedFrom"] = "standing"
         n_samples = sum(g.n_series * g.num_steps for g in res.grids)
         if res.raw is not None:
             n_samples += sum(len(t) for _, t, _ in res.raw)
@@ -475,6 +499,122 @@ class PromApiHandler(BaseHTTPRequestHandler):
         phases["render"] = time.perf_counter() - t_r
         nbytes = self._send_body(200, body, headers=self._timing(phases))
         self._observe_render(fmt, phases["render"], nbytes)
+
+    # -- standing queries and recording rules (standing/) ------------------
+
+    def _json_body(self, params) -> dict:
+        """The POSTed JSON object (``_params`` keeps a non-form body)."""
+        body = self._q(params, "__body__") or ""
+        if not body:
+            return {}
+        try:
+            out = json.loads(body)
+        except ValueError as e:
+            raise ValueError(f"invalid JSON body: {e}") from None
+        if not isinstance(out, dict):
+            raise ValueError("JSON body must be an object")
+        return out
+
+    def _standing_register(self):
+        """Register a standing query: ``{"query", "step", "range"?}`` (step
+        and range in seconds or PromQL durations); answers its snapshot (id,
+        mode delta|full, grid)."""
+        if self.standing is None:
+            return self._send(404, J.error("not_found", "standing engine disabled"))
+        p = self._params()
+        body = self._json_body(p)
+        query = body.get("query") or self._q(p, "query")
+        if not query:
+            return self._send(400, J.error("bad_data", "missing query"))
+        step_ms = int(_parse_step(str(body.get("step") or self._q(p, "step") or 15)) * 1000)
+        rng = body.get("range") or self._q(p, "range")
+        span_ms = int(_parse_step(str(rng)) * 1000) if rng else None
+        sq = self.standing.register(query, step_ms, span_ms=span_ms)
+        return self._send(200, J.success(sq.snapshot()))
+
+    def _standing_unregister(self):
+        if self.standing is None:
+            return self._send(404, J.error("not_found", "standing engine disabled"))
+        p = self._params()
+        qid = self._json_body(p).get("id") or self._q(p, "id")
+        if not qid:
+            return self._send(400, J.error("bad_data", "missing id"))
+        if self.standing.unregister(str(qid)) is None:
+            return self._send(404, J.error("not_found", f"no standing query {qid}"))
+        return self._send(200, J.success({"unregistered": qid}))
+
+    def _rules_record(self):
+        """Register a recording rule: ``{"name", "expr", "interval",
+        "range"?}``, a standing query whose newest closed steps write back
+        as the series ``name{group labels}``."""
+        if self.standing is None:
+            return self._send(404, J.error("not_found", "standing engine disabled"))
+        p = self._params()
+        body = self._json_body(p)
+        name = body.get("name") or self._q(p, "name")
+        expr = body.get("expr") or self._q(p, "expr")
+        if not name or not expr:
+            return self._send(400, J.error("bad_data", "missing name or expr"))
+        if not re.fullmatch(r"[a-zA-Z_:][a-zA-Z0-9_:]*", str(name)):
+            return self._send(400, J.error("bad_data", f"invalid rule name {name!r}"))
+        interval_s = _parse_step(str(body.get("interval") or self._q(p, "interval") or 15))
+        step_ms = int(interval_s * 1000)
+        rng = body.get("range") or self._q(p, "range")
+        span_ms = int(_parse_step(str(rng)) * 1000) if rng else 4 * step_ms
+        sq = self.standing.register(str(expr), step_ms, span_ms=span_ms, source="rule",
+                                    rule_name=str(name), eval_interval_s=float(interval_s))
+        return self._send(200, J.success(sq.snapshot()))
+
+    def _standing_subscribe(self):
+        """The SSE stream of one standing query: its current frame, then every
+        refresh's payload, the same rendered bytes every subscriber gets.
+        Past ``standing.max_subscribers`` it sheds with 429."""
+        import queue
+
+        from ..standing.hub import CLOSED, SubscriptionLimit
+
+        if self.standing is None:
+            return self._send(404, J.error("not_found", "standing engine disabled"))
+        p = self._params()
+        qid = self._q(p, "id")
+        sq = self.standing.get(str(qid)) if qid else None
+        if sq is None:
+            return self._send(404, J.error("not_found", f"no standing query {qid}"))
+        try:
+            sub = self.standing.hub.subscribe(sq.qid)
+        except SubscriptionLimit as e:
+            return self._send(429, J.error("throttled", str(e)), headers={"Retry-After": "5"})
+        if self.standing.get(sq.qid) is None:
+            # an unregister raced the subscribe: its close already ran
+            self.standing.hub.unsubscribe(sub)
+            return self._send(404, J.error("not_found", f"no standing query {qid}"))
+        self._count_response(200)
+        self.send_response(200)
+        self.send_header("Content-Type", "text/event-stream")
+        self.send_header("Cache-Control", "no-cache")
+        self.send_header("Connection", "close")
+        self.close_connection = True
+        self.end_headers()
+        try:
+            first = sq.last_payload
+            if first:
+                self.wfile.write(b"data: " + first + b"\n\n")
+                self.wfile.flush()
+            while not sub.closed:
+                try:
+                    item = sub.get(timeout=15.0)
+                except queue.Empty:
+                    self.wfile.write(b": keep-alive\n\n")
+                    self.wfile.flush()
+                    continue
+                if item is CLOSED:
+                    break
+                self.wfile.write(b"data: " + item + b"\n\n")
+                self.wfile.flush()
+        except (BrokenPipeError, ConnectionError, OSError):
+            pass  # the client went away: the usual end of an SSE stream
+        finally:
+            self.standing.hub.unsubscribe(sub)
 
     def _query(self):
         p = self._params()
@@ -780,14 +920,15 @@ def register_shard_stats_collector(engine: QueryEngine) -> None:
 
 def make_server(engine: QueryEngine, host: str = "127.0.0.1", port: int = 9090,
                 auth_token: str | None = None, result_plane: dict | None = None,
-                flush_hook=None) -> ThreadingHTTPServer:
+                flush_hook=None, standing=None) -> ThreadingHTTPServer:
     """An HTTP server over ``engine`` (not started). ``result_plane`` takes
     the config's ``stream_min_samples`` and ``stream_block_rows``;
-    ``flush_hook`` answers POST /admin/flush."""
+    ``flush_hook`` answers POST /admin/flush; ``standing`` (a
+    ``StandingEngine``) serves the standing routes."""
     from .. import ledger  # noqa: F401 -- registers the ledger's /metrics collector
 
     register_shard_stats_collector(engine)
-    attrs = {"engine": engine, "auth_token": auth_token,
+    attrs = {"engine": engine, "auth_token": auth_token, "standing": standing,
              "flush_hook": staticmethod(flush_hook) if flush_hook else None}
     if result_plane:
         attrs["STREAM_MIN_SAMPLES"] = int(
@@ -802,10 +943,10 @@ def make_server(engine: QueryEngine, host: str = "127.0.0.1", port: int = 9090,
 
 def serve_background(engine: QueryEngine, host: str = "127.0.0.1", port: int = 0,
                      auth_token: str | None = None, result_plane: dict | None = None,
-                     flush_hook=None):
+                     flush_hook=None, standing=None):
     """Start the API server on a thread; returns (server, actual_port).
     ``server.shutdown()`` then ``server.server_close()`` stop it."""
-    srv = make_server(engine, host, port, auth_token, result_plane, flush_hook)
+    srv = make_server(engine, host, port, auth_token, result_plane, flush_hook, standing)
     t = threading.Thread(target=srv.serve_forever, daemon=True, name="filodb-http")
     t.start()
     return srv, srv.server_address[1]

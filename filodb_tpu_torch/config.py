@@ -6,11 +6,11 @@ The keys and their defaults are the JAX package's, with these differences:
 
 - ``device``: where the server's queries run: ``None`` for the card (the
   default; with no card the server raises), or ``"cpu"``.
-- Subsystems the JAX package turns on by itself and the port has not got
-  yet are off here (``PORT_OFF``, shown at ``/api/v1/status/flags``):
-  executable pre-warm, standing queries, the rollup
-  tier and its chooser, and the TPU watch log; the result plane's peer
-  exchange is JSON (the port serves no Arrow frames).
+- Subsystems the JAX package turns on by itself are off here
+  (``PORT_OFF``, shown at ``/api/v1/status/flags``): standing queries
+  and pre-warm, which the port has and a config turns on, and the rollup
+  tier and its chooser and the TPU watch log, which it has not got; the
+  result plane's peer exchange is JSON (the port serves no Arrow frames).
 - ``compile_cache_dir`` is gone: the port's kernels build with nvcc into
   the package's build directory (``ops/cuda_build.py``).
 
@@ -320,11 +320,11 @@ DEFAULTS: dict = {
 }
 
 
-# (path, the port's value, why): JAX defaults that switch on a subsystem the
-# port has not got; the port's DEFAULTS hold them off
+# (path, the port's value, why): JAX defaults that switch on a subsystem by
+# themselves; the port's DEFAULTS hold them off
 PORT_OFF = (
-    (("query", "prewarm", "enabled"), False, "executable pre-warm (ROADMAP A5b)"),
-    (("standing", "enabled"), False, "standing queries (ROADMAP A5b)"),
+    (("query", "prewarm", "enabled"), False, "pre-warm is opt-in in the port"),
+    (("standing", "enabled"), False, "standing queries are opt-in in the port"),
     (("rollup", "enabled"), False, "sketch rollup tier (ROADMAP A7)"),
     (("rollup", "chooser", "enabled"), False, "rollup chooser (ROADMAP A7)"),
     (("result_plane", "peer_exchange"), "json", "Arrow peer frames (need pyarrow)"),

@@ -35,8 +35,9 @@ selector ``m[w]`` exports its raw samples (one ``RawChunkExportExec`` per
 shard), and ``_filodb_chunkmeta_all`` its chunks (``ChunkMetaExec``). The
 metadata plans (label values and names, series, cardinalities) run on the
 local shards (``MetadataExec``, ``TsCardinalitiesExec``); the JAX
-package's scatter to peer processes needs the server's transport
-(ROADMAP A6), so a planner given peers raises ``NotImplementedError``.
+package's scatter to peer processes is ROADMAP A9, so a planner given
+peers raises ``NotImplementedError``. A binary join whose matching pairs
+provably share a shard runs inside each shard (``_try_join_pushdown``).
 """
 
 from __future__ import annotations
@@ -94,8 +95,8 @@ class PlannerParams:
     # reference tree
     fused_aggregate: bool = True
     # base URLs of peer processes owning the cluster's other shards: the
-    # JAX package scatters to them; the port has no transport to do so
-    # until its server lands (ROADMAP A6), so a planner given any raises
+    # JAX package scatters to them; peer scatter is ROADMAP A9, so a
+    # planner given any raises
     peer_endpoints: tuple = ()
     # the default of the partial-results stance (a request's own choice
     # wins); every shard is local to the port, so no answer is partial
@@ -118,6 +119,10 @@ class PlannerParams:
     batch_window_ms: float = 0.0
     batch_max: int = 32
     dispatch_scheduler: object | None = None
+    # stage fused ranges aligned (FUSED_ALIGN_MS) with batching off too: the
+    # server sets it with pre-warm on, so that the superblock a pre-warm
+    # staged is the one the next poll in its alignment bucket finds
+    align_staging: bool = False
     # per-tenant admission (query/scheduler.AdmissionController), consulted
     # before execution; None admits everything
     admission: object | None = None
@@ -196,8 +201,8 @@ class SingleClusterPlanner:
         self._shards = shard_nums
         if self.params.peer_endpoints:
             raise NotImplementedError(
-                "peer scatter (peer_endpoints) is not ported: it needs the server's transport, "
-                "ROADMAP A6")
+                "peer scatter (peer_endpoints) is not ported: federation and the cluster, "
+                "ROADMAP A9")
 
     def shards_for(self, filters) -> list[int]:
         """Shard fan-out for a selector (reference shardsFromFilters): when
@@ -339,6 +344,9 @@ class SingleClusterPlanner:
         if isinstance(p, L.Aggregate):
             return self._materialize_aggregate(p)
         if isinstance(p, L.BinaryJoin):
+            pushed = self._try_join_pushdown(p)
+            if pushed is not None:
+                return pushed
             lhs, rhs = self._materialize(p.lhs), self._materialize(p.rhs)
             if p.op in ("and", "or", "unless"):
                 return SetOperatorExec(lhs, rhs, p.op, p.on, p.ignoring)
@@ -407,6 +415,45 @@ class SingleClusterPlanner:
             return MetadataExec(_METADATA_KINDS[type(p)], p.filters, p.start_ms, p.end_ms,
                                 label=getattr(p, "label", None))
         raise NotImplementedError(f"{type(p).__name__} plans are not ported")
+
+    def _try_join_pushdown(self, p: L.BinaryJoin) -> ExecPlan | None:
+        """The join inside each shard, the results concatenated (reference
+        materializeBinaryJoin pushdown, SingleClusterPlanner.scala:640-760;
+        the JAX package's gates): sound only where every pair of series that
+        can match lies on one shard. With placement = f(shard-key hash,
+        spread low bits of the part-key hash): spread 0; the matching keys
+        keep every shard-key column (``on`` covering them, or default
+        matching that ignores none of them and a metric column that is not
+        one: default matching ignores the metric name); selector sides,
+        one-to-one or a set operator; no peers; more than one shard."""
+        if self.params.spread != 0 or self.params.peer_endpoints:
+            return None
+        if p.op not in ("and", "or", "unless") and p.cardinality not in (None, "one-to-one"):
+            return None
+        sides = (L.PeriodicSeries, L.PeriodicSeriesWithWindowing)
+        if not isinstance(p.lhs, sides) or not isinstance(p.rhs, sides):
+            return None
+        options = self._options()
+        skc = set(options.shard_key_columns)
+        if p.on is not None:
+            if not skc <= set(p.on):  # the empty on() included
+                return None
+        elif options.metric_column in skc or (p.ignoring and set(p.ignoring) & skc):
+            return None
+        shards = sorted(set(self.shards_for(p.lhs.raw.filters))
+                        | set(self.shards_for(p.rhs.raw.filters)))
+        if len(shards) <= 1:
+            return None  # one shard: the root join is already local
+        per_shard = []
+        for s in shards:
+            sub = SingleClusterPlanner(self.memstore, self.dataset, [s], self.params)
+            lhs, rhs = sub._materialize(p.lhs), sub._materialize(p.rhs)
+            if p.op in ("and", "or", "unless"):
+                per_shard.append(SetOperatorExec(lhs, rhs, p.op, p.on, p.ignoring))
+            else:
+                per_shard.append(BinaryJoinExec(lhs, rhs, p.op, p.cardinality, p.on,
+                                                p.ignoring, p.include, p.return_bool))
+        return DistConcatExec(per_shard)
 
     def _with(self, inner: L.LogicalPlan, transformer) -> ExecPlan:
         """``inner``'s plan with ``transformer`` folded onto its result."""
@@ -477,9 +524,10 @@ class SingleClusterPlanner:
     FUSED_ALIGN_MS = 300_000
 
     def _fused_raw_range(self, start_ms: int, end_ms: int) -> tuple[int, int]:
-        """A fused exec's staged range: aligned when batching is on, as
-        given (the plans of an engine without batching) when it is off."""
-        if self.params.batch_window_ms <= 0:
+        """A fused exec's staged range: aligned when batching or
+        ``align_staging`` is on, as given (the plans of an engine without
+        batching) when both are off."""
+        if self.params.batch_window_ms <= 0 and not self.params.align_staging:
             return start_ms, end_ms
         a = self.FUSED_ALIGN_MS
         return start_ms - start_ms % a, end_ms + (-end_ms) % a
@@ -545,11 +593,11 @@ class QueryEngine:
     passes admission (``params.admission``) before it runs, on the shared
     pool when one is configured (``params.scheduler``); fused launches go
     through the dispatch scheduler (``params.dispatch_scheduler``, built
-    from ``batch_window_ms`` when not given)."""
+    from ``batch_window_ms`` and ``dispatch_settings`` when not given)."""
 
     def __init__(self, memstore, dataset: str, params: PlannerParams | None = None,
-                 shard_nums: Sequence[int] | None = None, device=None):
-        from ..query.scheduler import DispatchScheduler
+                 shard_nums: Sequence[int] | None = None, device=None,
+                 dispatch_settings: dict | None = None):
         from .scheduler import SingleFlight
 
         self.memstore = memstore
@@ -558,8 +606,23 @@ class QueryEngine:
         self.planner = SingleClusterPlanner(memstore, dataset, shard_nums=shard_nums, params=params)
         self._single_flight = SingleFlight()
         p = self.planner.params
-        if p.dispatch_scheduler is None and p.batch_window_ms > 0:
-            p.dispatch_scheduler = DispatchScheduler(p.batch_window_ms, p.batch_max)
+        if p.dispatch_scheduler is not None or p.batch_window_ms > 0 or dispatch_settings:
+            self.dispatch_scheduler_for_ring(**(dispatch_settings or {}))
+
+    def dispatch_scheduler_for_ring(self, **settings):
+        """The engine's dispatch scheduler, built here when it has none
+        (window ``batch_window_ms``: 0 batches nothing but keeps the
+        recurrence ring that standing promotion and pre-warm read;
+        ``settings`` go to ``DispatchScheduler``), with this engine's
+        pre-warmer registered: the scheduler's tick runs recurring keys
+        through it off the serving path."""
+        from ..query.scheduler import DispatchScheduler
+
+        p = self.planner.params
+        if p.dispatch_scheduler is None:
+            p.dispatch_scheduler = DispatchScheduler(p.batch_window_ms, p.batch_max, **settings)
+        p.dispatch_scheduler.register_prewarmer(self._prewarm_key)
+        return p.dispatch_scheduler
 
     def context(self) -> QueryContext:
         params = self.planner.params
@@ -622,6 +685,26 @@ class QueryEngine:
         ws, ns = tenant_of_plan(plan)
         return admission.admit(ws, ns, cost_s=cost_s)
 
+    def _prewarm_key(self, desc: dict) -> None:
+        """Run a recurring ring descriptor's query once off the serving path
+        (``DispatchScheduler.prewarm_tick``): solo (no batch window), with
+        no admission and kept out of the ring (``standing_refresh``), so its
+        kernel module is loaded, its superblock cached and its group ids
+        built before the first real poll."""
+        promql = desc.get("promql")
+        step_ms = int(desc.get("step_ms") or 0)
+        span_ms = int(desc.get("span_ms") or 0)
+        if not promql or step_ms <= 0 or span_ms <= 0:
+            return
+        end_s = time.time() - float(desc.get("end_lag_ms") or 0) / 1e3
+        plan = query_range_to_logical_plan(promql, end_s - span_ms / 1e3, end_s, step_ms / 1e3,
+                                           self.planner.params.lookback_ms)
+        exec_plan = self.planner.materialize(plan)
+        ctx = self.context()
+        ctx.standing_refresh = True
+        ctx.dispatch_scheduler = None
+        exec_plan.execute(ctx)
+
     def _execute(self, exec_plan, ctx: QueryContext):
         """Execute on the shared pool when configured, else inline."""
         sched = self.planner.params.scheduler
@@ -649,6 +732,7 @@ class QueryEngine:
             exec_plan = self.planner.materialize(logical)
             t1 = time.perf_counter()
             ctx = self.context()
+            ctx.trace_root = root
             with self._admit(logical, ctx, promql, *grid):
                 res = self._execute(exec_plan, ctx)
         t2 = time.perf_counter()

@@ -9,7 +9,11 @@
 //    launch computes, for every (row s, step j < J), the range function
 //    over the window (t_j - w, t_j] and reduces it into [G, J] group
 //    accumulators; no [S, J] plane reaches device memory.
-// 2. window_stats_kernel (entry filodb_window_stats): the nine statistics
+// 2. window_lanes_kernel (entry filodb_window_range_lanes), the lane mode
+//    of 1 for cross-query batching: the counterpart of
+//    filodb_tpu/ops/aggregations.py:1208 _batched_general_jit where the
+//    port serves the function on window stats (design at the kernel).
+// 3. window_stats_kernel (entry filodb_window_stats): the nine statistics
 //    planes [S, J] of the TPU kernel (count, sum, min, max, first/last
 //    timestamp, first/last value, first raw value), for callers that need
 //    the per-series grid; it is no longer on the main path.
@@ -229,16 +233,22 @@ __device__ __forceinline__ float window_value(const RangeArgs& a, const int32_t*
     float vl = 0.0f;
     for (int k = kb; k < hi; ++k) vl += rv[k];
     if (KIND == K_LAST) return vl;
-    // rate / increase / delta: Prometheus extrapolation
+    // rate / increase / delta: Prometheus extrapolation. The products that
+    // feed a difference are __fmul_rn, which nvcc never contracts into an
+    // FMA: this function is inlined into the solo and the lane kernels, and
+    // a contraction in one and not the other moved a window's end by an ulp
+    // of its time in seconds (~0.24 ms at 2,800 s), a 2-sample increase by
+    // 2.4e-5 of itself; rounded the same way, the two kernels agree bit for
+    // bit
     if (hi - lo < 2) return NaN;
     const float INF = group_acc::inf_f();
     const float out_t = (float)t_j;
-    const float tf = (float)t_first * 1e-3f;
-    const float tl = (float)t_last * 1e-3f;
+    const float tf = __fmul_rn((float)t_first, 1e-3f);
+    const float tl = __fmul_rn((float)t_last, 1e-3f);
     const float dlt = vl - vf;
     const float sampled = tl - tf;
-    float dur_start = tf - (out_t - wf) * 1e-3f;
-    float dur_end = out_t * 1e-3f - tl;
+    float dur_start = tf - __fmul_rn(out_t - wf, 1e-3f);
+    float dur_end = __fmul_rn(out_t, 1e-3f) - tl;
     const float avg_dur = sampled / fmaxf(cnt - 1.0f, 1.0f);
     const float thresh = avg_dur * 1.1f;
     if (a.zero_cap) {
@@ -358,7 +368,187 @@ int kind_of(int func, int is_delta) {
     }
 }
 
+// ---- lane mode (cross-query batching, B12) ----
+//
+// One launch serves L lanes over U unique windows. A persistent block walks
+// tiles of R rows as window_range_kernel does and stages each tile's rows
+// once (double-buffered cp.async, only rows some lane groups); the staged
+// tile then serves every window u in turn: the block's threads take the
+// tile's (row, step) pairs, compute window u's value once (window_value,
+// the solo kernel's function) and fold it into every lane of u at the
+// lane's group (group_acc.cuh lanes::). The lanes are listed by window in
+// shared memory (window u's from off_s[u]); all L lanes' [G, J] partials
+// stay in shared memory while 2 L G J floats fit the wrapper's budget
+// beside the staging buffers (ops/group_acc.tile_plan, lanes = L), else
+// every value goes to the lanes' global arrays with atomics. STORE: each
+// window's [ld, S] grid at acc + u ld S, rows outside the group of gids[0]
+// NaN. Bound: each real sample's staged arrays read once for all U
+// windows, L S 4 bytes of gids, the lanes' [G, J] acc/cnt.
+
+template <int KIND, bool STAGED, bool SHARED, bool STORE>
+__global__ void __launch_bounds__(THREADS) window_lanes_kernel(
+    const RangeArgs a0, const lanes::Table t, const int32_t* __restrict__ start,
+    const int32_t* __restrict__ step, const int32_t* __restrict__ window, int U) {
+    extern __shared__ __align__(16) float smem[];
+    __shared__ int lane_s[lanes::MAX_LANES];
+    __shared__ int off_s[lanes::MAX_LANES + 1];
+    const int64_t n_part = (int64_t)t.G * a0.J;  // one lane's acc (or cnt) words
+    const int64_t part = SHARED ? 2 * t.L * n_part : 0;
+    float* stage = smem + ((part + 3) & ~3);  // 16-byte aligned
+    const int R = a0.R, T = a0.T;
+    const int narr = a0.n_arrays;
+    const int64_t buf_words = (int64_t)narr * R * T;
+    if (threadIdx.x == 0) {
+        int k = 0;
+        for (int u = 0; u < U; ++u) {
+            off_s[u] = k;
+            if (!STORE)
+                for (int l = 0; l < t.L; ++l)
+                    if (__ldg(t.u_of_lane + l) == u) lane_s[k++] = l;
+        }
+        off_s[U] = k;
+    }
+    if (SHARED) lanes::init(smem, t.L, t.G, a0.J, a0.acc_op);
+    __syncthreads();
+    // whether any lane (the store: the one group) takes row s
+    auto wanted = [&](int64_t s) {
+        if (STORE) {
+            const int g = __ldg(t.gids + s);
+            return g >= 0 && g < t.G;
+        }
+        return lanes::wants(t, lane_s, off_s[U], s);
+    };
+    auto issue = [&](int tile, int b) {
+        const int64_t s0 = (int64_t)tile * R;
+        row_tiles::issue_tile(a0.ts, a0.vals, a0.raw, narr, s0, min(R, a0.S - (int)s0), R, T,
+                              stage + b * buf_words, [&](int r) {
+                                  if (s0 + r >= a0.S || !wanted(s0 + r)) return 0;
+                                  const int n = min(max(__ldg(a0.lens + s0 + r), 0), T);
+                                  return (n + 3) >> 2;
+                              });
+    };
+    row_tiles::for_each_tile<STAGED>(a0.S, R, issue, [&](int tile, int b) {
+        const int64_t s0 = (int64_t)tile * R;
+        const float* buf = stage + b * buf_words;
+        const int rows = min(R, a0.S - (int)s0);
+        for (int u = 0; u < U; ++u) {
+            const int nl = off_s[u + 1] - off_s[u];
+            if (!STORE && nl == 0) continue;
+            RangeArgs a = a0;  // window u's grid
+            a.start = __ldg(start + u);
+            a.step = __ldg(step + u);
+            a.window = __ldg(window + u);
+            const int* lu = lane_s + off_s[u];
+            float* pu = smem + 2 * (int64_t)off_s[u] * n_part;
+            const group_acc::Store store{a.acc + (int64_t)u * a.ld * a.S, a.S};
+            row_tiles::for_each_pair(rows, a.J, [&](int r, int j) {
+                const int64_t s = s0 + r;
+                if (s >= a.S) return;
+                if (STORE) {
+                    const int g = __ldg(t.gids + s);
+                    if (g < 0 || g >= t.G) {
+                        store.put(s, j, group_acc::nan_f());
+                        return;
+                    }
+                } else if (!lanes::wants(t, lu, nl, s)) {
+                    return;
+                }
+                const int n = min(max(__ldg(a.lens + s), 0), T);
+                const int32_t* rt;
+                const float* rv;
+                const float* rr;
+                if (STAGED) {
+                    rt = (const int32_t*)(buf + (int64_t)r * T);
+                    rv = buf + (int64_t)(R + r) * T;
+                    rr = buf + (int64_t)(2 * R + r) * T;
+                } else {
+                    rt = a.ts + s * T;
+                    rv = a.vals + s * T;
+                    rr = a.raw + s * T;
+                }
+                const float v = window_value<KIND>(a, rt, rv, rr, n, j);
+                if (STORE) store.put(s, j, v);
+                else if (!isnan(v)) lanes::add<SHARED>(t, lu, nl, pu, a.J, s, j, v);
+            });
+        }
+    });
+    if (SHARED) {
+        __syncthreads();
+        lanes::flush(t, lane_s, off_s[U], smem, a0.J, 0);
+    }
+}
+
+template <int KIND, bool STAGED, bool SHARED, bool STORE>
+int launch_lanes(const RangeArgs& a, const lanes::Table& t, const int32_t* const* win, int U,
+                 int smem, cudaStream_t stream) {
+    auto kern = window_lanes_kernel<KIND, STAGED, SHARED, STORE>;
+    int grid = 0;
+    const cudaError_t err = row_tiles::persistent_grid(kern, smem, (a.S + a.R - 1) / a.R, &grid);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<grid, THREADS, smem, stream>>>(a, t, win[0], win[1], win[2], U);
+    return (int)cudaGetLastError();
+}
+
+template <int KIND>
+int lanes_kind(const RangeArgs& a, const lanes::Table& t, const int32_t* const* win, int U,
+               bool store, bool shared, int smem, cudaStream_t st) {
+    const bool staged = a.n_arrays > 0;
+    if (store)
+        return staged ? launch_lanes<KIND, true, false, true>(a, t, win, U, smem, st)
+                      : launch_lanes<KIND, false, false, true>(a, t, win, U, smem, st);
+    if (staged)
+        return shared ? launch_lanes<KIND, true, true, false>(a, t, win, U, smem, st)
+                      : launch_lanes<KIND, true, false, false>(a, t, win, U, smem, st);
+    return shared ? launch_lanes<KIND, false, true, false>(a, t, win, U, smem, st)
+                  : launch_lanes<KIND, false, false, false>(a, t, win, U, smem, st);
+}
+
 }  // namespace
+
+// Plain C entry for ctypes: the lane mode of filodb_window_range_aggregate.
+// ts, vals, raw, lens as the solo entry takes them; start, step and window
+// [U] int32, one per unique window; gids [L, S] int32 and u_of_lane [L]
+// int32 (L <= lanes::MAX_LANES); acc and cnt [L, G+1, ld] at the op's
+// identity and zero. `rows`, `n_arrays`, `shared` and `smem_bytes` as the
+// solo entry takes them, the partials sized for all L lanes (checked
+// here). acc_op ACC_STORE: acc is the [U, ld, S] grids, gids [1, S] (rows
+// outside [0, G) NaN), cnt and u_of_lane unread, `shared` 0. Steps [0, J)
+// are computed. Launches on `stream` and returns a cudaError_t (0 on
+// success); it does not synchronise.
+extern "C" int filodb_window_range_lanes(
+    const void* ts, const void* vals, const void* raw, const void* lens, const void* start,
+    const void* step, const void* window, int S, int T, int J, int ld, int U, const void* gids,
+    const void* u_of_lane, int L, int G, int func, int acc_op, int is_counter, int is_delta,
+    int rows, int n_arrays, int shared, int smem_bytes, void* acc, void* cnt, void* stream) {
+    if (S <= 0 || J <= 0 || G <= 0 || U <= 0 || L <= 0) return 0;
+    const int kind = kind_of(func, is_delta);
+    const bool store = acc_op == group_acc::ACC_STORE;
+    const int zero_cap = kind == K_EXTRAP && is_counter && func != W_DELTA;
+    const int reads = kind == K_COUNT ? 1 : (zero_cap ? 3 : 2);  // ts, vals, raw
+    const int64_t part = shared ? (((int64_t)2 * L * G * J + 3) & ~3) * 4 : 0;
+    const int64_t need = part + (int64_t)2 * rows * T * 4 * n_arrays;
+    if (kind < 0 || rows < 1 || T % 4 != 0 || n_arrays > 3 ||
+        (n_arrays != 0 && n_arrays < reads) || smem_bytes < need || ld < J ||
+        U > lanes::MAX_LANES || L > lanes::MAX_LANES || (store && (shared || L != 1)) ||
+        !start || !step || !window || !gids || (!store && !u_of_lane))
+        return (int)cudaErrorInvalidValue;
+    RangeArgs a{(const int32_t*)ts, (const float*)vals, (const float*)raw,
+                (const int32_t*)lens, nullptr, S, T, J, ld, G, 0, 0, 0, func, acc_op, zero_cap,
+                rows, n_arrays, (float*)acc, (float*)cnt};
+    const lanes::Table t{(const int32_t*)gids, (const int32_t*)u_of_lane, L, S, G,
+                         (int64_t)(G + 1) * ld, ld, acc_op, (float*)acc, (float*)cnt};
+    const int32_t* win[3] = {(const int32_t*)start, (const int32_t*)step, (const int32_t*)window};
+    cudaStream_t st = (cudaStream_t)stream;
+    switch (kind) {
+        case K_COUNT: return lanes_kind<K_COUNT>(a, t, win, U, store, shared, smem_bytes, st);
+        case K_SUM: return lanes_kind<K_SUM>(a, t, win, U, store, shared, smem_bytes, st);
+        case K_MIN: return lanes_kind<K_MIN>(a, t, win, U, store, shared, smem_bytes, st);
+        case K_MAX: return lanes_kind<K_MAX>(a, t, win, U, store, shared, smem_bytes, st);
+        case K_FIRST: return lanes_kind<K_FIRST>(a, t, win, U, store, shared, smem_bytes, st);
+        case K_LAST: return lanes_kind<K_LAST>(a, t, win, U, store, shared, smem_bytes, st);
+        default: return lanes_kind<K_EXTRAP>(a, t, win, U, store, shared, smem_bytes, st);
+    }
+}
 
 // Plain C entry for ctypes: op by (...) (func(m[w])) over a staged block.
 // acc [G+1, ld] must hold the accumulator's identity (0, +inf or -inf) and

@@ -3,8 +3,9 @@ one accounting object every device-memory consumer debits and credits.
 
 Consumers register an *account* per cache -- each shard's staging cache
 (kind ``staged_block``: its host-staged blocks and the device copies tree
-leaves read) and the memstore's ``SuperblockCache`` (kind ``superblock``)
--- with:
+leaves read), the memstore's ``SuperblockCache`` (kind ``superblock``)
+and a standing-query registry's retained partials (kind
+``standing_state``, ``standing/registry.py``) -- with:
 
 - a ``kind`` label, the ``filodb_device_bytes{kind=...}`` dimension;
 - a *walker*: a function recomputing the owner's true footprint from the
@@ -113,7 +114,7 @@ class DeviceLedger:
     ``filodb_device_bytes`` gauges as a scrape-time collector and serves
     the drift check (``verify``) behind ``/debug/resources``."""
 
-    KINDS = ("staged_block", "superblock")
+    KINDS = ("staged_block", "superblock", "standing_state")
 
     def __init__(self):
         self._lock = threading.Lock()

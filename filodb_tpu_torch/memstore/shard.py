@@ -336,10 +336,20 @@ class TimeSeriesShard:
         with self._lock:
             return self._ingest_effects_since_locked(since_version, lo, hi)
 
+    def ingest_effects_interval_since(self, since_version: int, lo: int, hi: int):
+        """``ingest_effects_since`` with the union interval of the
+        overlapping effects: ``(reason, eff_lo, eff_hi)``, the bounds None
+        unless reason is ``"overlap"``. The standing maintainer bounds by it
+        the retained steps an append can have touched (only the suffix
+        whose windows reach ``eff_lo``)."""
+        with self._lock:
+            return self._ingest_effects_interval_locked(since_version, lo, hi)
+
     def _ingest_effects_interval_locked(self, since_version: int, lo, hi):
-        """The one effect-log scan: ``(reason, eff_lo, eff_hi)``, with the
-        union interval of the overlapping effects when reason is
-        ``"overlap"``."""
+        """The one effect-log scan behind both forms, so staging and the
+        standing path never disagree on what counts as covered:
+        ``(reason, eff_lo, eff_hi)``, with the union interval of the
+        overlapping effects when reason is ``"overlap"``."""
         if self.version == since_version:
             return None, None, None
         if not self._effects or self._effects[0][0] > since_version + 1:

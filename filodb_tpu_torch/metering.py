@@ -2,13 +2,16 @@
 ``filodb_tpu/metering.py``): the tenant a query's selectors pin, and the
 overflow cap that bounds tenant label cardinality. Admission control
 (``query/scheduler.AdmissionController``) keys its quotas and counters on
-them. The rest of the JAX module (ingestion metering, label churn, the
-per-tenant resource counters) is ROADMAP A6.
+them; standing refreshes charge their tenant through
+``record_tenant_query``. The rest of the JAX module (ingestion metering,
+label churn) is ROADMAP A6.
 """
 
 from __future__ import annotations
 
 import threading
+
+from .metrics import REGISTRY
 
 
 def tenant_of_filters(filters) -> tuple[str | None, str | None]:
@@ -66,3 +69,21 @@ def bounded_tenant_pair(ws: str, ns: str) -> tuple[str, str]:
                 return "overflow", "overflow"
             _tenant_pairs.add((ws, ns))
     return ws, ns
+
+
+def record_tenant_query(ws: str, ns: str, query_seconds: float, kernel_seconds: float,
+                        bytes_staged: int) -> None:
+    """Add one finished query (or standing refresh) to its tenant's
+    resource counters, the JAX package's families:
+    ``filodb_tenant_queries_total``, ``filodb_tenant_query_seconds_total``
+    (wall), ``filodb_tenant_query_latency_seconds`` (histogram),
+    ``filodb_tenant_kernel_seconds_total`` (the host wall of the fused
+    launches) and ``filodb_tenant_bytes_staged_total``; the tenant pair is
+    bounded (``bounded_tenant_pair``)."""
+    ws, ns = bounded_tenant_pair(ws, ns)
+    REGISTRY.counter("filodb_tenant_queries", ws=ws, ns=ns).inc()
+    REGISTRY.counter("filodb_tenant_query_seconds", ws=ws, ns=ns).inc(float(query_seconds))
+    REGISTRY.histogram("filodb_tenant_query_latency_seconds", ws=ws, ns=ns).observe(
+        float(query_seconds))
+    REGISTRY.counter("filodb_tenant_kernel_seconds", ws=ws, ns=ns).inc(float(kernel_seconds))
+    REGISTRY.counter("filodb_tenant_bytes_staged", ws=ws, ns=ns).inc(int(bytes_staged))

@@ -416,7 +416,8 @@ def group_members_memo(block, series_labels, by, without, strip_metric: bool = F
 # the rungs with a lane mode, and their modules' entry-point prefixes
 # (``<prefix>_lanes``, ``<prefix>_lanes_series``)
 _LANE_RUNGS = {"mxu": (MK, "regular_range"), "jitter": (JR, "jitter_range"),
-               "masked": (JR, "masked_range"), "general": (GR, "general_range")}
+               "masked": (JR, "masked_range"), "general": (GR, "general_range"),
+               "window_stats": (WS, "window_range")}
 _BATCH_STACK_MEMO_MAX = 64
 
 
@@ -441,10 +442,13 @@ def _unique_windows(params_list, base_ms: int):
 def batch_variant_supported(block, func: str, kind: str, is_delta: bool) -> bool:
     """Whether a fused dispatch's rung has a lane mode, decided before the
     scheduler groups it (the JAX package's ``batch_variant_supported``): a
-    jittered histogram grid, min/max_over_time on the jitter and masked
-    rungs and the window-stats rung run solo. The JAX package batches
-    dispatches of its general rung that the port serves on window stats
-    (``general_rung``); those run solo here."""
+    jittered histogram grid and min/max_over_time on the jitter and masked
+    rungs run solo; every other rung batches, window stats included (the
+    JAX package's general program, ``_batched_general_jit``, where the
+    port serves the function on window stats, ``general_rung``). The JAX
+    predicate also declines an irregular grid its Pallas policy promotes
+    (``pallas_enabled``, on for a TPU); the port has no separate Pallas
+    rung, and its window-stats kernel has a lane mode."""
     if kind == "hist":
         return block.regular_ts is not None or block.nominal_ts is None
     variant = grid_variant(block, func, is_delta)
@@ -577,3 +581,53 @@ def fused_batched_hist(func: str, block, lanes, les: torch.Tensor, quantile: boo
     j_pad = pad_steps(max(l[3].num_steps for l in lanes))
     batch = _batched_stacks(block, lanes, variant, "hist", j_pad)
     return HK.hist_range_lanes(func, block, lanes, batch, les, quantile, is_delta=is_delta)
+
+
+# -- standing delta maintenance (standing/maintainer.py) -----------------------
+#
+# A standing query keeps its [G, J] partials and, after a live-edge append,
+# re-dispatches only the step suffix whose windows reach the appended
+# interval, through the same fused launch over the same superblock, and
+# splices it in. Each step's value reduces over the same rows of the same
+# block whatever the grid's start and length, so the spliced partials equal
+# a full re-evaluation; steps whose windows closed before an in-place
+# extension are stable across it (appended columns fall outside them).
+# Sums of old and appended partials were not used: float addition does not
+# re-associate, so they could not equal a full re-evaluation.
+
+# epilogues whose [G, J] output splices per step: the segment reduces (the
+# JAX package's SIMPLE_AGG_OPS, which holds the tree's stddev, stdvar and
+# group beside the fused ops). topk, quantile and the fused
+# histogram_quantile re-dispatch the whole grid (counted
+# standing_nondecomposable).
+STANDING_DELTA_OPS = frozenset(SIMPLE_AGG_OPS) | {"stddev", "stdvar", "group"}
+
+
+def standing_delta_eligible(op: str, params=(), hist_quantile=None) -> bool:
+    """Whether a fused aggregate's epilogue supports standing delta
+    maintenance (per-step splicing of retained partials)."""
+    return op in STANDING_DELTA_OPS and not params and hist_quantile is None
+
+
+def shift_partials(retained: np.ndarray, shift: int, num_steps: int) -> np.ndarray:
+    """Slide retained [G, J] partials left by ``shift`` whole steps onto a
+    ``num_steps``-wide grid (the dashboard's window advancing): steps off
+    the front drop, steps not computed yet arrive as NaN for the delta
+    dispatch to fill."""
+    out = np.full((retained.shape[0], num_steps), np.nan, dtype=retained.dtype)
+    if shift < retained.shape[1]:
+        keep = retained[:, shift:]
+        n = min(keep.shape[1], num_steps)
+        out[:, :n] = keep[:, :n]
+    return out
+
+
+def splice_partials(retained: np.ndarray, fresh: np.ndarray, k0: int) -> np.ndarray:
+    """Write a delta dispatch's [G, J - k0] suffix into the retained [G, J]
+    grid at step ``k0``, in place. The caller has checked that the group
+    axes match (the same ``group_ids_memo`` labels); a mismatch raises."""
+    if fresh.shape[0] != retained.shape[0]:
+        raise ValueError(f"standing splice group mismatch: retained G={retained.shape[0]} "
+                         f"vs fresh G={fresh.shape[0]}")
+    retained[:, k0:] = fresh[:, : retained.shape[1] - k0]
+    return retained

@@ -1499,9 +1499,13 @@ class SuperblockCache:
                 meta["last_outcome"] = outcome
 
     def pin(self, key, owner) -> None:
-        """Pin ``key`` against eviction on behalf of ``owner``."""
+        """Pin ``key`` against eviction on behalf of ``owner`` (a standing
+        query's id; ``FusedAggregateExec.superblock`` calls it through the
+        context's ``superblock_pin_sink``). A key may be pinned before its
+        entry is built."""
         with self._lock:
             self._pins.setdefault(key, set()).add(owner)
+            self._publish_pinned_locked()
 
     def unpin(self, key, owner) -> None:
         with self._lock:
@@ -1510,6 +1514,29 @@ class SuperblockCache:
                 owners.discard(owner)
                 if not owners:
                     self._pins.pop(key, None)
+            self._publish_pinned_locked()
+
+    def unpin_owner(self, owner) -> None:
+        """Release every pin ``owner`` holds (a standing query's
+        unregister)."""
+        with self._lock:
+            for key in [k for k, o in self._pins.items() if owner in o]:
+                self._pins[key].discard(owner)
+                if not self._pins[key]:
+                    self._pins.pop(key, None)
+            self._publish_pinned_locked()
+
+    def pinned_bytes(self) -> int:
+        with self._lock:
+            return self._pinned_bytes_locked()
+
+    def _pinned_bytes_locked(self) -> int:
+        return sum(v[2] for k, v in self._d.items() if k in self._pins)
+
+    def _publish_pinned_locked(self) -> None:
+        from ..metrics import REGISTRY
+
+        REGISTRY.gauge("filodb_superblock_pinned_bytes").set(float(self._pinned_bytes_locked()))
 
     def put(self, key, versions: tuple, value, nbytes: int) -> None:
         """Store an entry, evicting least recently used unpinned entries
@@ -1533,6 +1560,7 @@ class SuperblockCache:
                 freed.append((evicted, "evict"))
                 self._meta.pop(ek, None)
             self._d[key] = (versions, value, nbytes)
+            self._publish_pinned_locked()
             block = getattr(value, "block", value)
             if isinstance(block, StagedBlock) and block.mgrid_deferred:
                 block.grow_hooks.append(lambda b, n, key=key: self._grown(key, b, n))

@@ -13,6 +13,13 @@ the segment aggregate, the same function in plain torch.
 ``window_range_series`` is the same kernel in its store mode (the fused
 epilogues): the per-series ``[J_pad, S_pad]`` grid (``run_series``).
 
+``window_range_lanes`` is the fused kernel's lane mode (cross-query
+batching): one launch serves L queries over one superblock, each staged
+row tile read once for all U unique windows, each lane folded at its own
+groups (``window_range_lanes_series``: the store mode's [U, J_pad, S_pad]
+grids, for topk and quantile lanes); ``window_range_lanes_plain`` is its
+plain version.
+
 ``window_stats`` computes the nine per-series statistics planes (count,
 sum, min, max, first/last timestamp, first/last value and first raw
 value), on a CUDA tensor with the nine-plane kernel of the same source, on
@@ -70,6 +77,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn = lib.filodb_window_range_aggregate
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 16 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    fn = lib.filodb_window_range_lanes
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
     return lib
 
@@ -379,3 +390,115 @@ def window_range_series_plain(func: str, block, params, is_counter: bool = False
     sj = finish(func, stats, start_off, params.step_ms, params.window_ms,
                 is_counter=is_counter, is_delta=is_delta)
     return sj[: block.vals.shape[0], :j_pad]
+
+
+# -- lane mode (cross-query batching, B12) -------------------------------------
+
+# the lane mode's launches and the last one's layout (group_acc.TilePlan:
+# rows per tile, arrays staged, shared or global lane partials)
+LANE_LAUNCHES = 0
+LAST_LANE_PLAN = None
+
+
+def _launch_lanes(func: str, op: str, block, batch, is_counter: bool, is_delta: bool,
+                  acc: torch.Tensor, cnt: torch.Tensor, plan=None, lib=None) -> None:
+    """One launch of the fused kernel's lane mode over ``batch`` (an
+    ``aggregations.LaneBatch``) into the lanes' ``acc``/``cnt`` ([L, G+1,
+    J_pad]), or with ``op`` ``group_acc.STORE`` into the [U, J_pad, S]
+    grids ``acc``; raises if the launch fails. ``plan`` defaults to
+    ``tile_plan``'s with every lane's partials counted."""
+    global LANE_LAUNCHES, LAST_LANE_PLAN
+    raw = block.raw if block.raw is not None else block.vals
+    _check_inputs(block.ts, block.vals, raw, block.lens)
+    GA.check_aligned(ts=block.ts, vals=block.vals, raw=raw)
+    lib = lib or _load()
+    S, T = block.ts.shape
+    store = op == GA.STORE
+    gids = batch.store_gids if store else batch.gids
+    L, G = (1, 1) if store else (gids.shape[0], batch.G)
+    if plan is None:
+        plan = GA.tile_plan(G, batch.num_steps, T, staged_arrays(func, is_counter, is_delta),
+                            store, lanes=L)
+    w = batch.windows
+    with torch.cuda.device(block.ts.device):
+        stream = torch.cuda.current_stream(block.ts.device).cuda_stream
+        err = lib.filodb_window_range_lanes(
+            block.ts.data_ptr(), block.vals.data_ptr(), raw.data_ptr(), block.lens.data_ptr(),
+            w["start"].data_ptr(), w["step"].data_ptr(), w["window"].data_ptr(), S, T,
+            batch.num_steps, batch.j_pad, len(batch.ukeys), gids.data_ptr(),
+            batch.u_dev.data_ptr(), L, G, WINDOW_FUNC_CODES[func], GA.acc_code(op),
+            int(is_counter), int(is_delta), plan.rows, plan.n_arrays, int(plan.shared),
+            plan.smem_bytes, acc.data_ptr(), cnt.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{func} window-stats lane-mode launch failed: cudaError {err}")
+    LANE_LAUNCHES += 1
+    LAST_LANE_PLAN = plan
+
+
+def _lane_series_plain(func: str, block, batch, u: int, is_counter: bool, is_delta: bool):
+    from .kernels import RangeParams
+
+    so, sm, w = batch.ukeys[u]
+    return window_range_series_plain(func, block, RangeParams(so + block.base_ms, sm,
+                                                              batch.num_steps, w),
+                                     is_counter=is_counter, is_delta=is_delta)
+
+
+def window_range_lanes_plain(func: str, op: str, block, lanes, batch, is_counter: bool = False,
+                             is_delta: bool = False) -> list:
+    """The lane mode in plain torch: ``window_range_series_plain`` once per
+    unique window, each lane's segment aggregate
+    (``group_acc.lanes_plain``)."""
+    return GA.lanes_plain(
+        lambda u: _lane_series_plain(func, block, batch, u, is_counter, is_delta), op, lanes,
+        batch.u_of_lane)
+
+
+def window_range_lanes_series_plain(func: str, block, batch, is_counter: bool = False,
+                                    is_delta: bool = False) -> torch.Tensor:
+    """The lane store mode in plain torch: each unique window's
+    ``window_range_series_plain`` through ``group_acc.series_grid``."""
+    return torch.stack([
+        GA.series_grid(_lane_series_plain(func, block, batch, u, is_counter, is_delta),
+                       batch.store_gids[0], 1, batch.num_steps) for u in range(len(batch.ukeys))])
+
+
+def window_range_lanes(func: str, op: str, block, lanes, batch, is_counter: bool = False,
+                       is_delta: bool = False) -> list:
+    """``op by (...) (func(selector[w]))`` of every lane of ``batch`` over a
+    staged block -> each lane's [G_l, J_pad] values, NaN past its own
+    ``num_steps``: ONE launch of the lane mode on a CUDA block (raises if it
+    fails), ``window_range_lanes_plain`` on a CPU block."""
+    from .aggregations import SIMPLE_AGG_OPS
+
+    if func not in PALLAS_FUNCS:
+        raise NotImplementedError(f"range function {func!r} is not on the window-stats rung")
+    if op not in SIMPLE_AGG_OPS:
+        raise NotImplementedError(f"aggregation {op!r} is not ported (ported: {SIMPLE_AGG_OPS})")
+    device = block.ts.device
+    if device.type == "cpu":
+        return window_range_lanes_plain(func, op, block, lanes, batch, is_counter, is_delta)
+    if device.type != "cuda":
+        raise ValueError(f"window_range_lanes runs on cuda or cpu tensors, not {device}")
+    acc, cnt = GA.lane_accumulators(op, len(lanes), batch.G, batch.j_pad, device)
+    _launch_lanes(func, op, block, batch, is_counter, is_delta, acc, cnt)
+    return GA.finish_lanes(op, acc, cnt, lanes)
+
+
+def window_range_lanes_series(func: str, block, batch, is_counter: bool = False,
+                              is_delta: bool = False) -> torch.Tensor:
+    """Every unique window's store grid of ``batch`` -> [U, J_pad, S_pad]
+    (ONE launch of the lane store mode on a CUDA block, the plain version on
+    a CPU block)."""
+    if func not in PALLAS_FUNCS:
+        raise NotImplementedError(f"range function {func!r} is not on the window-stats rung")
+    device = block.ts.device
+    if device.type == "cpu":
+        return window_range_lanes_series_plain(func, block, batch, is_counter, is_delta)
+    if device.type != "cuda":
+        raise ValueError(f"window_range_lanes_series runs on cuda or cpu tensors, not {device}")
+    out = GA.lane_series_buffer(len(batch.ukeys), block.ts.shape[0], batch.j_pad,
+                                batch.num_steps, device)
+    _launch_lanes(func, GA.STORE, block, batch, is_counter, is_delta, out, out)
+    return out

@@ -118,6 +118,15 @@ class QueryContext:
     # prediction of this query, which feeds its adaptive window
     dispatch_scheduler: Any = None
     predicted_cost_s: float = 0.0
+    # the query's root span (``metrics.span``; its ``promql`` tag keys the
+    # scheduler's recurrence ring), set by ``QueryEngine``
+    trace_root: Any = None
+    # a standing refresh or a pre-warm: its fused dispatches stay out of
+    # the recurrence ring
+    standing_refresh: bool = False
+    # ``pin(cache, key)``: a standing refresh pins the superblock cache key
+    # its fused exec resolves to against eviction
+    superblock_pin_sink: Any = None
     _start_time: float = field(default_factory=time.monotonic)
 
     def check_deadline(self) -> None:
@@ -791,6 +800,10 @@ class FusedAggregateExec(ExecPlan):
         if hint is not None and not (hint[0] and not hint[1]):
             key_mode = "raw"
         sb_key = self._superblock_key(ctx, key_mode)
+        if ctx.superblock_pin_sink is not None:
+            # a standing refresh pins the entry its delta path extends in
+            # place, so ad-hoc eviction cannot churn it
+            ctx.superblock_pin_sink(cache, sb_key)
         hit = cache.get(sb_key, self._versions(ctx))
         if hit is not None:
             ctx.stats.bump(cache_hits=1)
@@ -1058,6 +1071,10 @@ class FusedAggregateExec(ExecPlan):
         launch when batched; no device sync) goes to
         ``ctx.stats.kernel_ns``."""
         sched = ctx.dispatch_scheduler
+        if sched is not None:
+            # the recurrence feed of standing-query promotion and pre-warm:
+            # every fused dispatch counts, batching on or off
+            self._observe_key(ctx, sched)
         request.predicted_cost_s = float(ctx.predicted_cost_s or 0.0)
         t0 = time.perf_counter()
         if (sched is not None and sched.enabled and AGG.batch_variant_supported(
@@ -1073,6 +1090,35 @@ class FusedAggregateExec(ExecPlan):
             wall = time.perf_counter() - t0
         ctx.stats.bump(kernel_ns=int(wall * 1e9))
         return out
+
+    def _observe_key(self, ctx: QueryContext, sched) -> None:
+        """Record this dispatch in the scheduler's recurrence ring (the JAX
+        package's key): the dataset, the root span's PromQL and the grid
+        shape, so a dashboard re-issuing one panel with a fresh ``end`` is
+        one key; without a PromQL, the structural key. The descriptor holds
+        what the standing promoter needs to register the query;
+        ``end_lag_ms`` (wall clock less the grid end) tells a live-edge
+        dashboard from a historical scan. A standing refresh or pre-warm,
+        and a remote child's leg, record nothing."""
+        if ctx.standing_refresh:
+            return
+        root = ctx.trace_root
+        if root is not None and root.parent_id is not None:
+            return
+        promql = root.tags.get("promql") if root is not None else None
+        span_ms = self.end_ms - self.start_ms
+        if promql:
+            key = (ctx.dataset, promql, self.step_ms, self.window_ms, span_ms)
+        else:
+            key = (ctx.dataset, self.op, self.function, self.filters, tuple(self.by or ()),
+                   tuple(self.without or ()), self.step_ms, self.window_ms, span_ms)
+        sched.observe_key(key, {
+            "promql": promql, "dataset": ctx.dataset, "op": self.op,
+            "function": self.function, "params": self.params,
+            "hist_quantile": self.hist_quantile, "step_ms": self.step_ms,
+            "window_ms": self.window_ms, "span_ms": span_ms,
+            "end_lag_ms": time.time() * 1000.0 - float(self.end_ms),
+        })
 
     def do_execute(self, ctx: QueryContext) -> QueryResult:
         from ..scheduler import FusedRequest

@@ -12,7 +12,7 @@ a ``ScalarResult``: one f64 value per step, on the host.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields
 from typing import Any
 
 import numpy as np
@@ -114,6 +114,14 @@ class QueryStats:
     def note_rung(self, variant: str) -> None:
         """Count one range-function dispatch served by ``variant``."""
         self.rungs[variant] = self.rungs.get(variant, 0) + 1
+
+    def merge(self, other: "QueryStats") -> None:
+        """Add ``other``'s counters and rungs into this one's."""
+        for f in fields(self):
+            if f.name != "rungs":
+                setattr(self, f.name, getattr(self, f.name) + getattr(other, f.name))
+        for variant, n in other.rungs.items():
+            self.rungs[variant] = self.rungs.get(variant, 0) + n
 
 
 @dataclass

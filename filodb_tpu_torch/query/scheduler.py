@@ -25,6 +25,14 @@ by ``is`` and every lane's rung at execute time, ``batch_lanes_ok``). A
 group that a predicate declines runs each lane solo, counted under the
 outcome ``fallback``; a batched launch that fails reaches every lane's
 caller, counted as ``error``.
+
+Pre-warm: an engine registers a closure (``register_prewarmer``) that runs
+one recurrence-ring descriptor off the serving path; ``prewarm_tick``
+picks the keys seen ``prewarm_min_count`` times and runs each once, so
+its kernel module is loaded, its superblock cached and its group ids
+built before the first real poll. A failed pre-warm is counted
+(``filodb_prewarm_total{outcome="error"}``) and kept in ``snapshot()``;
+it changes no path the query takes.
 """
 
 from __future__ import annotations
@@ -517,7 +525,7 @@ class DispatchScheduler:
                  waiter: Callable[[threading.Event, float], Any] | None = None,
                  key_ring_max: int = 512, window_cap_ms: float = 0.0,
                  load_ref_cost_s: float = 0.25, prior_cost_s: float | None = None,
-                 clock: Callable[[], float] = time.monotonic):
+                 prewarm_min_count: int = 3, clock: Callable[[], float] = time.monotonic):
         self.base_window_s = max(float(window_ms), 0.0) / 1e3
         self.window_cap_s = max(float(window_cap_ms), 0.0) / 1e3
         self.adaptive = self.window_cap_s > self.base_window_s > 0
@@ -536,8 +544,14 @@ class DispatchScheduler:
         self._load_cost_s = 0.0
         self._load_stamp = clock()
         self.key_ring = KeyStatsRing(key_ring_max)
+        # pre-warm: the engine's executor, the keys already run, the bar
+        self._prewarm_exec: Callable[[dict], Any] | None = None
+        self._prewarmed: dict = {}
+        self.prewarm_min_count = max(int(prewarm_min_count), 1)
+        self.prewarm_last_error: str | None = None
         self.stats = {"queries": 0, "batched": 0, "solo": 0, "fallback": 0, "error": 0,
-                      "coalesced": 0, "dispatches": 0, "merged_windows": 0}
+                      "coalesced": 0, "dispatches": 0, "merged_windows": 0, "prewarmed": 0,
+                      "prewarm_errors": 0}
 
     def observe_key(self, key, desc: dict | None = None) -> None:
         self.key_ring.observe(key, desc)
@@ -567,11 +581,50 @@ class DispatchScheduler:
                 self._load_stamp = now
             self._load_cost_s += max(float(cost_s), 0.0)
 
-    def register_prewarmer(self, fn) -> None:
-        raise NotImplementedError("executable pre-warm is not ported (ROADMAP A5b)")
+    def register_prewarmer(self, fn: Callable[[dict], Any]) -> None:
+        """Install the closure that runs one ring descriptor off the serving
+        path; the first registration wins (the primary engine is built
+        first)."""
+        if self._prewarm_exec is None:
+            self._prewarm_exec = fn
 
     def prewarm_tick(self, limit: int = 2, storms: dict | None = None) -> list:
-        raise NotImplementedError("executable pre-warm is not ported (ROADMAP A5b)")
+        """One pre-warm pass: run up to ``limit`` ring keys seen at least
+        ``prewarm_min_count`` times (once, if ``storms`` holds any
+        recompile-storm annotation) through the registered executor, each
+        key once. The port has no kernel registry yet (ROADMAP A6), so
+        ``storms`` None is ``{}``. Returns the keys warmed."""
+        if self._prewarm_exec is None:
+            return []
+        min_count = 1 if storms else self.prewarm_min_count
+        picks = []
+        for key, e in self.key_ring.entries():
+            if key in self._prewarmed or e["count"] < min_count:
+                continue
+            desc = e.get("desc")
+            if not desc or not desc.get("promql"):
+                continue
+            picks.append((key, desc))
+            if len(picks) >= max(int(limit), 1):
+                break
+        warmed = []
+        for key, desc in picks:
+            self._prewarmed[key] = True
+            while len(self._prewarmed) > 4 * self.key_ring.max_entries:
+                self._prewarmed.pop(next(iter(self._prewarmed)))
+            try:
+                self._prewarm_exec(desc)
+            except Exception as e:  # noqa: BLE001 -- advisory: counted and kept, never rerouted
+                with self._lock:
+                    self.stats["prewarm_errors"] += 1
+                self.prewarm_last_error = f"{type(e).__name__}: {e}"
+                REGISTRY.counter("filodb_prewarm", outcome="error").inc()
+                continue
+            with self._lock:
+                self.stats["prewarmed"] += 1
+            REGISTRY.counter("filodb_prewarm", outcome="ok").inc()
+            warmed.append(key)
+        return warmed
 
     def dispatch(self, request: FusedRequest):
         """Submit one fused dispatch and return its output: the group's
@@ -724,4 +777,5 @@ class DispatchScheduler:
                 **self.stats,
             }
         out["standing_keys"] = len(self.key_ring)
+        out["prewarm_last_error"] = self.prewarm_last_error
         return out

@@ -16,8 +16,8 @@ otherwise flushes go to a ``LocalColumnStore`` there, which also pages
 evicted chunks back in. ``device`` null (the default) serves on the card
 and raises where there is none; ``"cpu"`` serves on the CPU. A config that
 asks for a subsystem the port has not got raises ``NotImplementedError``
-naming its ROADMAP item (``unported_settings``): standing queries and
-executable pre-warm (A5b), self-telemetry, SLOs and alerting (A6),
+naming its ROADMAP item (``unported_settings``): self-telemetry, SLOs
+and alerting (A6, the ``_system`` standing engine among them),
 downsampling and pre-aggregation (A7), the cluster and gRPC (A9). The
 index settings pass through to every shard's ``StoreConfig``:
 ``index_backend`` ("python", "native" or "set") and
@@ -33,6 +33,16 @@ and ``batch_load_ref_cost_s``) turns on cross-query batching of fused
 launches; ``tenant_quotas`` and ``admission_max_queued`` turn on admission
 control, priced by the cost model (``costmodel``). A shed answers 429 with
 ``Retry-After``; ``/debug/scheduler`` shows the batcher and admission.
+
+``standing.enabled`` builds a ``StandingEngine`` on the server's engine
+(promotion from the scheduler's recurrence ring, delta refreshes woken
+by appends, SSE push and recording rules over ``/api/v1/standing/*`` and
+``/api/v1/rules/record``); ``query.prewarm.enabled`` runs the scheduler's
+``prewarm_tick`` every ``interval_s``. Both are off by default in the port
+(``config.PORT_OFF``); either builds the dispatch scheduler even with
+batching off (window 0), for its ring. With pre-warm on, fused plans stage
+the aligned range (``PlannerParams.align_staging``), so a pre-warmed
+superblock is the one the next poll in its alignment bucket finds.
 """
 
 from __future__ import annotations
@@ -56,14 +66,11 @@ log = logging.getLogger("filodb_tpu_torch.server")
 def unported_settings(cfg: dict) -> list[str]:
     """The settings of ``cfg`` that ask for a subsystem the port has not
     got, each with its ROADMAP item."""
-    q, dist = cfg["query"], cfg.get("distributed") or {}
+    dist = cfg.get("distributed") or {}
     checks = [
-        ((q.get("prewarm") or {}).get("enabled"), "query.prewarm: executable pre-warm "
-         "(ROADMAP A5b)"),
-        ((cfg.get("standing") or {}).get("enabled"), "standing: standing queries "
-         "(ROADMAP A5b)"),
         ((cfg.get("telemetry") or {}).get("self_scrape_interval_s"),
-         "telemetry.self_scrape_interval_s: self-telemetry (ROADMAP A6)"),
+         "telemetry.self_scrape_interval_s: self-telemetry and the _system standing engine "
+         "(ROADMAP A6)"),
         ((cfg.get("slo") or {}).get("enabled"), "slo: SLO burn-rate rules (ROADMAP A6)"),
         ((cfg.get("alerting") or {}).get("enabled"), "alerting: the alerting plane "
          "(ROADMAP A6)"),
@@ -114,7 +121,7 @@ class FiloServer:
     API on a thread and runs the maintenance loop; ``stop`` ends both."""
 
     def __init__(self, config: dict | None = None, device=None):
-        from .config import load_config
+        from .config import DEFAULTS, load_config
 
         cfg = load_config(overrides=config or {})
         missing = unported_settings(cfg)
@@ -158,6 +165,8 @@ class FiloServer:
         from .metrics import SLOW_QUERY_LOG
 
         SLOW_QUERY_LOG.configure(int(q.get("slow_query_log_max", 64) or 64))
+        self.standing_config = {**DEFAULTS["standing"], **(cfg.get("standing") or {})}
+        self.prewarm_config = {**DEFAULTS["query"]["prewarm"], **(q.get("prewarm") or {})}
         self._setup_scheduling(q)
         self.engine = QueryEngine(
             self.memstore, self.dataset,
@@ -168,22 +177,36 @@ class FiloServer:
                 allow_partial_results=bool(q.get("allow_partial_results", False)),
                 slow_query_threshold_s=float(slow) if slow is not None else None,
                 scheduler=self.scheduler, batch_window_ms=self.batch_window_ms,
-                batch_max=int(q.get("batch_max", 32) or 32),
-                dispatch_scheduler=self.dispatch_scheduler, admission=self.admission,
+                batch_max=int(q.get("batch_max", 32) or 32), admission=self.admission,
+                align_staging=bool(self.prewarm_config.get("enabled")),
             ),
             device=self.device,
+            # standing promotion and pre-warm read the dispatch scheduler's
+            # recurrence ring, so either needs it even with batching off
+            dispatch_settings=self._dispatch_settings if (
+                self.batch_window_ms > 0 or self.standing_config.get("enabled")
+                or self.prewarm_config.get("enabled")) else None,
         )
+        self.dispatch_scheduler = self.engine.planner.params.dispatch_scheduler
+        # the standing-query engine: bound to the serving engine, over the
+        # server's dataset
+        self.standing = None
+        if self.standing_config.get("enabled"):
+            from .standing import StandingEngine
+
+            self.standing = StandingEngine(self.engine, self.standing_config)
         self._stop = threading.Event()
         self._threads: list[threading.Thread] = []
         self._http = None
 
     def _setup_scheduling(self, q: dict) -> None:
-        """The query pool, the cost model's settings, the dispatch scheduler
-        and admission, from the ``query`` config (the JAX server's)."""
+        """The query pool, the cost model's settings, the dispatch
+        scheduler's settings and admission, from the ``query`` config (the
+        JAX server's)."""
         from .coordinator.scheduler import QueryScheduler
         from .config import DEFAULTS
         from .query.costmodel import COST_MODEL
-        from .query.scheduler import AdmissionController, DispatchScheduler
+        from .query.scheduler import AdmissionController
 
         self.scheduler = None
         if int(q.get("parallelism", 0) or 0) > 0:
@@ -194,13 +217,13 @@ class FiloServer:
                              cold_multiplier=float(cm["cold_multiplier"]))
         prior_cost_s = float(cm["prior_cost_s"])
         self.batch_window_ms = float(q.get("batch_window_ms", 0) or 0)
-        self.dispatch_scheduler = None
-        if self.batch_window_ms > 0:
-            self.dispatch_scheduler = DispatchScheduler(
-                self.batch_window_ms, int(q.get("batch_max", 32) or 32),
-                window_cap_ms=float(q.get("batch_window_cap_ms", 0) or 0),
-                load_ref_cost_s=float(q.get("batch_load_ref_cost_s", 0.25) or 0.25),
-                prior_cost_s=prior_cost_s)
+        # the dispatch scheduler's settings; the engine builds it
+        self._dispatch_settings = dict(
+            key_ring_max=int(self.standing_config.get("key_ring_max", 512) or 512),
+            window_cap_ms=float(q.get("batch_window_cap_ms", 0) or 0),
+            load_ref_cost_s=float(q.get("batch_load_ref_cost_s", 0.25) or 0.25),
+            prior_cost_s=prior_cost_s,
+            prewarm_min_count=int(self.prewarm_config.get("min_count", 3) or 3))
         self.admission = None
         quotas = q.get("tenant_quotas") or {}
         max_queued = int(q.get("admission_max_queued", 0) or 0)
@@ -224,17 +247,27 @@ class FiloServer:
             self.engine, host=self.config.get("http_host") or "127.0.0.1",
             port=self.http_port if port is None else port,
             auth_token=self.config.get("http_auth_token"),
-            result_plane=self.config.get("result_plane"), flush_hook=self.flush_now)
+            result_plane=self.config.get("result_plane"), flush_hook=self.flush_now,
+            standing=self.standing)
+        if self.standing is not None:
+            self.standing.start()
         t = threading.Thread(target=self._maintenance_loop, daemon=True,
                              name="filodb-maintenance")
         t.start()
         self._threads.append(t)
+        if (self.dispatch_scheduler is not None and self.prewarm_config.get("enabled")
+                and int(self.prewarm_config.get("per_tick", 2) or 0) > 0):
+            tp = threading.Thread(target=self._prewarm_loop, daemon=True, name="filodb-prewarm")
+            tp.start()
+            self._threads.append(tp)
         log.info("filodb_tpu_torch serving on :%d (%d shards, %s)", actual, self.n_shards,
                  self.device)
         return actual
 
     def stop(self) -> None:
         self._stop.set()
+        if self.standing is not None:
+            self.standing.stop()
         if self.scheduler is not None:
             self.scheduler.shutdown()
         if self._http is not None:
@@ -244,6 +277,17 @@ class FiloServer:
         for t in self._threads:
             t.join(timeout=5)
         self._threads.clear()
+
+    def _prewarm_loop(self) -> None:
+        """Every ``query.prewarm.interval_s``: one pre-warm pass
+        (``DispatchScheduler.prewarm_tick``) off the serving path."""
+        interval = float(self.prewarm_config.get("interval_s", 5.0) or 5.0)
+        limit = int(self.prewarm_config.get("per_tick", 2) or 2)
+        while not self._stop.wait(interval):
+            try:
+                self.dispatch_scheduler.prewarm_tick(limit=limit)
+            except Exception:  # noqa: BLE001 -- the loop must outlive a bad tick
+                log.exception("prewarm tick failed")
 
     def _maintenance_loop(self) -> None:
         """Every interval: flush once ``flush_interval_s`` has passed, evict

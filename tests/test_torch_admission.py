@@ -190,10 +190,20 @@ def test_server_accepts_scheduling_settings(query_cfg):
 @pytest.mark.parametrize("config", [{"query": {"prewarm": {"enabled": True}}},
                                     {"standing": {"enabled": True}}], ids=["prewarm", "standing"])
 def test_prewarm_and_standing_still_raise_naming_a5b(config):
-    with pytest.raises(NotImplementedError, match="ROADMAP A5b"):
-        FiloServer(config, device="cpu")
-    with pytest.raises(NotImplementedError, match="A5b"):
-        QS.DispatchScheduler(5).register_prewarmer(lambda d: None)
+    """Since A5b landed, neither setting raises: either builds the dispatch
+    scheduler (window 0, for its recurrence ring) with the engine's
+    prewarmer registered, and standing a StandingEngine on the engine."""
+    srv = FiloServer(config, device="cpu")
+    sched = srv.engine.planner.params.dispatch_scheduler
+    assert sched is not None and not sched.enabled
+    assert sched._prewarm_exec == srv.engine._prewarm_key
+    assert (srv.standing is not None) == ("standing" in config)
+    if srv.standing is not None:
+        assert srv.standing.scheduler is sched and srv.standing.engine is srv.engine
+    s = QS.DispatchScheduler(5)
+    s.register_prewarmer(lambda d: None)
+    assert s._prewarm_exec is not None and s.prewarm_tick() == []
+    srv.stop()
 
 
 @pytest.fixture(scope="module")

@@ -14,8 +14,8 @@ histograms, 8 shards):
   without batching unchanged;
 - the port's recorded differences: no fallback around a batched launch (a
   failing one reaches every lane's caller, outcome ``error``); groups a
-  predicate declines run solo (``fallback``); rungs without a lane mode run
-  solo where the JAX package batches (window stats, listed cells).
+  predicate declines run solo (``fallback``); the batch predicate equals
+  the JAX package's on every cell.
 
 The batch window is held by a test-controlled waiter, released once every
 query has joined: no sleeps decide a result.
@@ -439,7 +439,9 @@ def test_groups_over_the_lane_cap_run_solo(stores):
 
 GRID_CLASSES = ("regular", "jitter", "holes", "irregular")
 PREDICATE_FUNCS = sorted(MK.FUSED_MXU_FUNCS | {"min_over_time", "max_over_time", "changes",
-                                               "resets", "deriv", "stddev_over_time"})
+                                               "resets", "deriv", "stddev_over_time",
+                                               "absent_over_time", "first_over_time",
+                                               "present_over_time"})
 
 
 @pytest.fixture(scope="module")
@@ -472,22 +474,21 @@ def grid_blocks():
 
 
 @pytest.mark.parametrize("kind", GRID_CLASSES)
-def test_batch_predicate_matches_jax_except_listed_cells(grid_blocks, kind):
+def test_batch_predicate_matches_jax(grid_blocks, kind, monkeypatch):
     """The port's batch predicate equals the JAX package's on every grid
-    class and function, except at the listed cells: where the JAX ladder
-    takes its general program for a function the port serves on window
-    stats (ROADMAP C, "Rung choice"), which has no lane mode, the port runs
-    the dispatch solo."""
-    from filodb_tpu_torch.ops import general_range as GR
+    class and function (the JAX Pallas promotion off, as on the CPU: the
+    port serves those dispatches on window stats, which has a lane mode),
+    and ``lanes_variant`` takes the solo rung of every batched cell."""
+    from filodb_tpu_torch.ops.kernels import RangeParams
 
+    monkeypatch.setenv("FILODB_PALLAS", "0")
     pb, jb = grid_blocks[kind]
     for func in PREDICATE_FUNCS:
         port = AGG.batch_variant_supported(pb, func, "agg", False)
-        jax = JAGG.batch_variant_supported(jb, func, "agg", False, None)
-        if func not in GR.GENERAL_FUNCS and AGG.grid_variant(pb, func) == "window_stats":
-            assert not port, (kind, func)  # the JAX package batches it where pallas is off
-        else:
-            assert port == jax, (kind, func)
+        assert port == JAGG.batch_variant_supported(jb, func, "agg", False, None), (kind, func)
+        params = [RangeParams(BASE + 400_000, 60_000, 10, 300_000)]
+        want = AGG.grid_variant(pb, func, False, 300_000) if port else None
+        assert AGG.lanes_variant(pb, func, "agg", False, params) == want, (kind, func)
     assert AGG.batch_variant_supported(pb, "rate", "hist", False) == \
         JAGG.batch_variant_supported(jb, "rate", "hist", False, None)
 

@@ -2485,11 +2485,15 @@ LANE_RUNGS = {  # block, function, is_counter, is_delta
     "masked": (lambda: near_regular_block("holes", {"counter_corrected": True}, True), "rate",
                True, False),
     "general": (lambda: general_block("corrected")[0], "irate", True, False),
+    # window stats on an irregular grid (the JAX ladder's general program
+    # for PALLAS_FUNCS), and max_over_time on a regular one
+    "window_stats": (lambda: general_block("corrected")[0], "rate", True, False),
+    "window_stats_regular": (lambda: regular_block(False, {}), "max_over_time", False, False),
 }
 
 
 def lane_module(rung: str):
-    mod, prefix = AGG._LANE_RUNGS[rung]
+    mod, prefix = AGG._LANE_RUNGS[rung.removesuffix("_regular")]
     return mod, prefix
 
 
@@ -2504,13 +2508,14 @@ def test_lane_mode_matches_plain_on_card(card, rung, op, n_lanes, G):
     make, func, counter, is_delta = LANE_RUNGS[rung]
     b = make().to_device(card)
     lanes = lane_set(b, card, n_lanes, G)
-    assert AGG.lanes_variant(b, func, "agg", is_delta, [l[3] for l in lanes]) == rung
+    variant = rung.removesuffix("_regular")
+    assert AGG.lanes_variant(b, func, "agg", is_delta, [l[3] for l in lanes]) == variant
     mod, prefix = lane_module(rung)
     before = mod.LANE_LAUNCHES
     got = AGG.fused_batched_scalar(func, ("agg", op), b, lanes, counter, is_delta)
     assert mod.LANE_LAUNCHES == before + 1
     assert mod.LAST_LANE_PLAN.shared == (n_lanes == 3)
-    batch = AGG._batched_stacks(b, lanes, rung, "agg", pad_steps(40))
+    batch = AGG._batched_stacks(b, lanes, variant, "agg", pad_steps(40))
     want = getattr(mod, f"{prefix}_lanes_plain")(func, op, b, lanes, batch, counter, is_delta)
     torch.cuda.synchronize()
     for i, (g, w) in enumerate(zip(got, want)):
@@ -2532,7 +2537,8 @@ def test_lane_store_mode_and_topk_on_card(card, rung):
     lanes = [(zero, 1, 0.0, RangeParams(BASE + 400_000, 60_000, 40, w))
              for w in LANE_WINDOWS + (300_000,)]
     mod, prefix = lane_module(rung)
-    batch = AGG._batched_stacks(b, lanes[:3], rung, "topk", pad_steps(40))
+    batch = AGG._batched_stacks(b, lanes[:3], rung.removesuffix("_regular"), "topk",
+                                pad_steps(40))
     before = mod.LANE_LAUNCHES
     grids = getattr(mod, f"{prefix}_lanes_series")(func, b, batch, counter, is_delta)
     assert mod.LANE_LAUNCHES == before + 1
@@ -2575,3 +2581,22 @@ def test_hist_lane_mode_matches_plain_on_card(card, grid, n_lanes, G, quantile):
             assert_quantiles_match(g, w)
         else:
             assert_same(g, w, rtol=1e-5, atol=1e-4, what=f"hist lane {i}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("func", ["rate", "count_over_time", "last", "increase"])
+def test_window_stats_lanes_bit_equal_to_solo_on_card(card, func):
+    """The window-stats lane mode (each staged tile read once for all its
+    windows) against its solo launches on the card: max and count lanes
+    bit-equal, sums within rtol 1e-5; the store grids bit-equal."""
+    b = general_block("corrected")[0].to_device(card)
+    lanes = lane_set(b, card, 5, 8)
+    for op in ("max", "sum"):
+        got = AGG.fused_batched_scalar(func, ("agg", op), b, lanes, True, False)
+        for (gids, G, _q, p), g in zip(lanes, got):
+            w = AGG.fused_range_aggregate(func, op, b, gids, G, p, is_counter=True)
+            if op == "max" or func == "count_over_time":
+                assert torch.equal(torch.isnan(g), torch.isnan(w))
+                assert torch.equal(g[~torch.isnan(w)], w[~torch.isnan(w)])
+            else:
+                assert_same(g, w, rtol=1e-5, atol=1e-4, what=f"{func} {op}")

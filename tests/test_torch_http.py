@@ -238,7 +238,7 @@ def test_metrics_and_debug_routes(servers):
     assert res["engine_device"] == "cpu" and res["devices"]["superblock"]
     assert json.loads(get(pbase, "/debug/slow_queries")[2])["status"] == "success"
     flags = json.loads(get(pbase, "/api/v1/status/flags")[2])["data"]
-    assert "standing.enabled" in flags and "ROADMAP A5" in flags["standing.enabled"]
+    assert "standing.enabled" in flags and "opt-in" in flags["standing.enabled"]
 
 
 @pytest.mark.parametrize("path", sorted(HTTP.UNPORTED))

@@ -231,6 +231,6 @@ def test_chunkmeta_needs_one_selector(stores):
 
 def test_a_planner_given_peers_raises(stores):
     _, pms = stores
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         QueryEngine(pms, "prometheus", device="cpu",
                     params=PlannerParams(peer_endpoints=("http://peer:9090",)))

@@ -113,8 +113,6 @@ def test_server_without_a_card_raises(monkeypatch):
 
 
 UNPORTED_CONFIGS = [
-    ({"query": {"prewarm": {"enabled": True}}}, "A5b"),
-    ({"standing": {"enabled": True}}, "A5b"),
     ({"telemetry": {"self_scrape_interval_s": 10}}, "A6"),
     ({"slo": {"enabled": True}}, "A6"),
     ({"alerting": {"enabled": True}}, "A6"),
